@@ -1,0 +1,11 @@
+"""Data layer: the ASE SQLite codec and bucketed fixed-shape energy batches."""
+
+from nabladft_tpu_torch.data.ase_codec import AseDatabase, AtomsRecord  # noqa: F401
+from nabladft_tpu_torch.data.batch import MolBatch  # noqa: F401
+from nabladft_tpu_torch.data.dataset import (  # noqa: F401
+    BucketedLoader,
+    DataModule,
+    EnergyDataset,
+    LoaderConfig,
+    seeded_random_split,
+)

@@ -1,0 +1,75 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface, which `ctypes` loads. The build
+happens at first use, keyed on a hash of the source, into ``_build/`` beside
+the package (listed in ``.gitignore``). A failed build raises: there is no
+fallback on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(name: str = "painn_fused") -> dict:
+    """Compile csrc/<name>.cu unless it is built already. Returns
+    {"seconds", "log"} (nvcc's -Xptxas -v output, or "cached"); raises
+    KernelBuildError with nvcc's output if the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return {"seconds": 0.0, "log": "cached"}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    return {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

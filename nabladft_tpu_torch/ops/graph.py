@@ -1,0 +1,66 @@
+"""Dense molecular graph construction over padded batches.
+
+The molecular half of ``nabladft_tpu/ops/graph.py``: molecules here are
+≤ 62 atoms, so the all-pairs distance matrix is built densely on the device
+every step and neighbour caps are masks, not ragged lists. Conventions kept
+from the JAX package: diff[b,i,j] = pos[j] - pos[i], masked distances are
+`_BIG`, and `dense_topk_mask` keeps every edge within 1e-7 of the k-th
+distance.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+_EPS = 1e-10
+_BIG = 1e10
+
+
+class DenseGraph(NamedTuple):
+    """All-pairs view. diff[b,i,j] = pos[j] - pos[i]."""
+
+    diff: torch.Tensor  # [B, A, A, 3]
+    dist: torch.Tensor  # [B, A, A]   (= _BIG on masked pairs)
+    adj: torch.Tensor  # [B, A, A] bool: within cutoff, i != j, both real
+
+
+def pairwise(
+    pos: torch.Tensor, node_mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pairwise displacement/distance with padding masked out.
+
+    Returns (diff [B,A,A,3], dist [B,A,A], pair_mask [B,A,A]) where
+    pair_mask excludes self-pairs and any pair touching a padded atom.
+    Masked entries of dist are _BIG (not 0) so top-k ordering is trivial.
+    """
+    diff = pos[:, None, :, :] - pos[:, :, None, :]
+    a = pos.shape[1]
+    eye = torch.eye(a, dtype=torch.bool, device=pos.device)
+    pair_mask = node_mask[:, :, None] & node_mask[:, None, :] & ~eye
+    d2 = (diff * diff).sum(dim=-1)
+    dist = torch.sqrt(torch.clamp(d2, min=_EPS))
+    dist = torch.where(pair_mask, dist, torch.full_like(dist, _BIG))
+    return diff, dist, pair_mask
+
+
+def dense_graph(pos: torch.Tensor, node_mask: torch.Tensor, cutoff: float) -> DenseGraph:
+    diff, dist, pair_mask = pairwise(pos, node_mask)
+    adj = pair_mask & (dist < cutoff)
+    return DenseGraph(diff=diff, dist=dist, adj=adj)
+
+
+def dense_topk_mask(dist: torch.Tensor, adj: torch.Tensor, k: int) -> torch.Tensor:
+    """Restrict a dense adjacency to each row's k nearest neighbours.
+
+    Tie rule (as in the JAX package): every edge within 1e-7 of the k-th
+    distance is kept, so exactly degenerate geometries can keep MORE than
+    k edges in a row.
+    """
+    a = dist.shape[-1]
+    if k >= a:
+        return adj
+    neg = torch.where(adj, -dist, torch.full_like(dist, -float("inf")))
+    kth = torch.topk(neg, k, dim=-1).values[..., -1:]  # [B,A,1] k-th smallest
+    return adj & (dist <= -kth + 1e-7)
