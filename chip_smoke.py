@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: kernels, then the predict job.
+"""Smoke run of the PyTorch port on one CUDA card: kernels, predict, train, test.
 
     python3 chip_smoke.py
 
@@ -8,13 +8,16 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
 
   1. env     — device, torch / CUDA / nvcc versions, the card's name and
                power limit; builds the kernels from csrc/ (build seconds).
-  2. kernel A (painn_fwd) and 3. kernel B (painn_bwd, with and without the
-               weight gradient) at each of the predict path's shapes
-               (B=64, A=32/48/64, R=100, F=128, fp32, ~30% of pairs masked),
-               one line per shape: error against the plain PyTorch version,
-               and the kernel's, the plain version's and the bound's times
-               (CUDA events, median / min / max of 25 runs after warm-up).
-  4. predict — `pipelines.run` of ``job_type: predict`` on configs/painn-oc.yaml
+  2. kernel A (painn_fwd), B (painn_bwd, with and without the weight
+               gradient), C (painn_dual_fwd) and D (painn_dual_bwd, with the
+               weight gradient, as training runs it) at each of the
+               predict and train paths' shapes (B=64, A=32/48/64, R=100,
+               F=128, fp32, ~30% of pairs masked), one line per kernel and
+               shape: error against the plain PyTorch version, and the
+               kernel's, the plain version's and the bound's times (CUDA
+               events, median / min / max of 25 runs after warm-up); D is
+               run twice and must give the same bits.
+  3. predict — `pipelines.run` of ``job_type: predict`` on configs/painn-oc.yaml
                at full width and depth (hidden 128, 6 interactions, 100 RBF),
                batch 64, buckets 32/48/64, over a seeded DB of 256 molecules
                (8-62 atoms, H C N O F S Cl); checks rows, finiteness, launch
@@ -23,6 +26,19 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                (median / min / max of 7 passes after a warm-up pass).
      profile — torch.profiler over two predict steps: device time by
                kernel and the device's busy share (printed before predict).
+  4. train   — `pipelines.run` of ``job_type: train`` (TRAIN_EPOCHS epochs,
+               force_grads "pallas") on the same DB and config, then
+               ``job_type: test`` from the best checkpoint; checks launch
+               counts (C and D 6x per train step; A and B 6x per train step,
+               validation batch and test batch; B's weight-gradient stage
+               never), finite losses, gradient norms and test metrics, the
+               checkpoint files; the parameter gradients of one batch per
+               bucket against the plain module's double backward on the card
+               (force_grads "direct"); molecules/s of the train steps of the
+               last epoch (median / min / max), seconds per epoch, peak
+               device memory.
+     train_profile — torch.profiler over two train steps (printed before
+               train).
   5. kernels — one JSON object describing every ported kernel.
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
 Any failed check raises: the script exits nonzero and prints no ok line.
@@ -46,9 +62,10 @@ import torch
 SEED = 0
 N_MOLS, MIN_ATOMS, MAX_ATOMS = 256, 8, 62
 BATCH, BUCKETS = 64, (32, 48, 64)
-# kernel phase shapes: every (B, A) the predict path gives the kernels (each
-# batch is padded to B=64 molecules of its bucket's A atoms); the kernels
-# line's times are those at A=HEADLINE_A
+TRAIN_EPOCHS = 2
+# kernel phase shapes: every (B, A) the predict and train paths give the
+# kernels (each batch is padded to B=64 molecules of its bucket's A atoms);
+# the kernels line's times are those at A=HEADLINE_A
 KB, KR, KF, HEADLINE_A = BATCH, 100, 128, 48
 RUNS, WARMUP = 25, 3
 PASSES = 7  # timed passes of the predict loop, after one warm-up pass
@@ -59,6 +76,10 @@ KERNEL_RTOL = 2e-5
 # the model-level tolerances of the CPU parity tests.
 E_TOL = dict(rtol=2e-4, atol=1e-5)
 F_TOL = dict(rtol=2e-3, atol=2e-4)
+# kernel path (surrogate through A-D) vs the plain module's double backward,
+# per parameter tensor: max |Δg| <= GRAD_RTOL * max |g_plain| (the CPU
+# parity tests' surrogate tolerance, tests/train/test_surrogate_grads.py)
+GRAD_RTOL = 5e-3
 
 # Published dense peaks (NVIDIA data sheets, full power limit): fp32 FLOP/s
 # outside the tensor cores, and memory bytes/s.
@@ -74,9 +95,23 @@ def smoke_config(source: str, output_db: str, root: str) -> dict:
     """configs/painn-oc.yaml composed with job_type=predict,
     datamodule.source/root and output_db (the test suite checks this equals
     `load_config` of the file with those overrides; no PyYAML here)."""
+    return dict(_painn_oc(source, root), job_type="predict", output_db=output_db)
+
+
+def train_config(source: str, root: str, ckpt_dir: str, output_dir: str) -> dict:
+    """configs/painn-oc.yaml composed with job_type=train, datamodule.source/
+    root, ckpt_dir, output_dir, trainer.max_epochs=TRAIN_EPOCHS and
+    trainer.log_every_n_steps=1 (a CSV row per step; checked against
+    `load_config` by the test suite as smoke_config is)."""
+    cfg = dict(_painn_oc(source, root), job_type="train", ckpt_dir=ckpt_dir,
+               output_dir=output_dir)
+    cfg["trainer"] = dict(cfg["trainer"], max_epochs=TRAIN_EPOCHS, log_every_n_steps=1)
+    return cfg
+
+
+def _painn_oc(source: str, root: str) -> dict:
     return {
         "name": "painn-oc",
-        "job_type": "predict",
         "seed": 42,
         "dataset_name": "dataset_train_tiny",
         "ckpt_dir": "checkpoints/painn-oc",
@@ -97,7 +132,6 @@ def smoke_config(source: str, output_db: str, root: str) -> dict:
         },
         "datamodule": {"kind": "energy", "source": source, "root": root, "batch_size": BATCH,
                        "val_fraction": 0.1, "bucket_boundaries": list(BUCKETS)},
-        "output_db": output_db,
     }
 
 
@@ -182,7 +216,16 @@ def kernel_inputs(dev, a: int):
     cpu = dict(rbf=rbf, rbfp=rbfp, phi=mk(KB, a, 3 * KF), v=mk(KB, a, 3 * KF),
                unit_t=mk(KB, a, 3, a), w=mk(KR, 3 * KF), gds=mk(KB, a, KF),
                gdv=mk(KB, a, 3 * KF))
+    # the tangent lanes of the dual kernels: rbfd = rbfp * (a distance
+    # tangent), as the model builds it
+    cpu.update(rbfd=rbfp * mk(KB, a, a)[..., None], phid=mk(KB, a, 3 * KF),
+               vd=mk(KB, a, 3 * KF), unitd_t=mk(KB, a, 3, a), gdsd=mk(KB, a, KF),
+               gdvd=mk(KB, a, 3 * KF))
     return {k: t.to(dev).contiguous() for k, t in cpu.items()}
+
+
+C_ARGS = ("rbf", "rbfd", "phi", "phid", "v", "vd", "unit_t", "unitd_t", "w")
+D_ARGS = C_ARGS + ("gds", "gdv", "gdsd", "gdvd")
 
 
 def bound(flops: int, nbytes: int, peak_flops: float, peak_bw: float):
@@ -233,35 +276,67 @@ def kernel_bucket(pf, dev, a: int, peak_flops: float, peak_bw: float):
                  flops_without_gw=flops_ng, roofline_share_without_gw=b_ms_ng / t_k_ng["median"])
     emit("kernel_B", **row_b, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p,
          kernel_times_without_gw=t_k_ng, plain_times_without_gw=t_p_ng)
-    return row_a, row_b
+
+    c_args = [x[k] for k in C_ARGS]
+    err = compare(pf.painn_dual_fwd(*c_args), pf.painn_dual_fwd_reference(*c_args))
+    check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel C error at {shape}: {err}")
+    flops, nbytes = pf.painn_dual_fwd_flops_bytes(x["rbf"], x["rbfd"], KF)
+    b_ms, b_by = bound(flops, nbytes, peak_flops, peak_bw)
+    t_k = time_ms(lambda: pf.painn_dual_fwd(*c_args))
+    t_p = time_ms(lambda: pf.painn_dual_fwd_reference(*c_args))
+    row_c = dict(shape=shape, **err, ms=t_k["median"], plain_ms=t_p["median"], bound_ms=b_ms,
+                 bound_by=b_by, flops=flops, bytes=nbytes, roofline_share=b_ms / t_k["median"])
+    emit("kernel_C", **row_c, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
+
+    d_args = [x[k] for k in D_ARGS]
+    got = pf.painn_dual_bwd(*d_args)
+    err = compare(got, pf.painn_dual_bwd_reference(*d_args))
+    check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel D error at {shape}: {err}")
+    again = pf.painn_dual_bwd(*d_args)
+    check(all(torch.equal(p, q) for p, q in zip(got, again)), f"kernel D deterministic at {shape}")
+    flops, nbytes = pf.painn_dual_bwd_flops_bytes(x["rbf"], x["rbfd"], KF)
+    b_ms, b_by = bound(flops, nbytes, peak_flops, peak_bw)
+    t_k = time_ms(lambda: pf.painn_dual_bwd(*d_args))
+    t_p = time_ms(lambda: pf.painn_dual_bwd_reference(*d_args))
+    row_d = dict(shape=shape, **err, ms=t_k["median"], plain_ms=t_p["median"], bound_ms=b_ms,
+                 bound_by=b_by, flops=flops, bytes=nbytes, roofline_share=b_ms / t_k["median"],
+                 bit_identical_rerun=True)
+    emit("kernel_D", **row_d, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
+    return {"A": row_a, "B": row_b, "C": row_c, "D": row_d}
+
+
+KERNELS = {  # key: (name, JAX kernel body line in nabladft_tpu/ops/pallas/painn_fused.py)
+    "A": ("painn_fwd (A)", 114), "B": ("painn_bwd (B)", 177),
+    "C": ("painn_dual_fwd (C)", 286), "D": ("painn_dual_bwd (D)", 372),
+}
 
 
 def kernel_phases(dev, card: str) -> dict:
-    """Kernels A and B at every bucket shape of the predict path. The kernels
-    line's numbers are those at A=HEADLINE_A, except max_abs_err, the largest
-    over all buckets; `per_bucket` holds each bucket's."""
+    """Kernels A-D at every bucket shape of the predict and train paths. The
+    kernels line's numbers are those at A=HEADLINE_A, except max_abs_err,
+    the largest over all buckets; `per_bucket` holds each bucket's."""
     from nabladft_tpu_torch.ops import painn_fused as pf
 
     peak_flops, peak_bw = peaks(card)
-    per = {"A": [], "B": []}
+    per = {k: [] for k in KERNELS}
     for a in BUCKETS:
-        row_a, row_b = kernel_bucket(pf, dev, a, peak_flops, peak_bw)
-        per["A"].append(row_a)
-        per["B"].append(row_b)
+        for k, row in kernel_bucket(pf, dev, a, peak_flops, peak_bw).items():
+            per[k].append(row)
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "flops", "bytes", "roofline_share")
     keep_b = ("ms_without_gw", "plain_ms_without_gw", "bound_ms_without_gw",
               "roofline_share_without_gw")
     rows = {}
-    for k, name, line in (("A", "painn_fwd (A)", 114), ("B", "painn_bwd (B)", 177)):
+    for k, (name, line) in KERNELS.items():
+        extra = keep_b if k == "B" else ()
         head = next(r for r in per[k] if r["shape"][1] == HEADLINE_A)
         rows[k] = dict(
             name=name, route="cuda", source="nabladft_tpu_torch/csrc/painn_fused.cu",
             replaces=f"nabladft_tpu/ops/pallas/painn_fused.py:{line}",
             max_abs_err=max(r["max_abs_err"] for r in per[k]), library_ms=None,
             timed_shape=head["shape"],
-            **{f: head[f] for f in keep + (keep_b if k == "B" else ())},
-            per_bucket=[{f: r[f] for f in ("shape", "max_abs_err", "max_rel_err") + keep
-                         + (keep_b if k == "B" else ())} for r in per[k]],
+            **{f: head[f] for f in keep + extra},
+            per_bucket=[{f: r[f] for f in ("shape", "max_abs_err", "max_rel_err") + keep + extra}
+                        for r in per[k]],
         )
     return rows
 
@@ -365,13 +440,19 @@ def predict_phase(tmp: Path) -> dict:
 def profile_phase(trainer, dm, n_batches: int = 2, top: int = 12) -> None:
     """torch.profiler over `n_batches` predict steps (bucket 32): device time
     by kernel, and the device's busy share of the wall time."""
+    batches = list(itertools.islice(dm.predict_dataloader(), n_batches))
+    profile_steps("profile", trainer._predict_step, batches, top)
+
+
+def profile_steps(phase: str, step, batches, top: int = 12) -> None:
+    """torch.profiler over `step` on each batch: device time by kernel, and
+    the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    batches = list(itertools.islice(dm.predict_dataloader(), n_batches))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
-            trainer._predict_step(batch.to("cuda"))
+            step(batch.to("cuda"))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only: a CPU op's self device time repeats its kernels'
@@ -379,10 +460,120 @@ def profile_phase(trainer, dm, n_batches: int = 2, top: int = 12) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(t for _, t, _ in events)
     events.sort(key=lambda e: -e[1])
-    emit("profile", batches=n_batches, wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+    emit(phase, batches=len(batches), batch_shapes=[list(b.z.shape) for b in batches],
+         wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
          device_busy_share=device_us / wall_us,
          top=[{"name": k[:80], "device_ms": t / 1e3, "share": t / max(device_us, 1e-9),
                "calls": c} for k, t, c in events[:top]])
+
+
+def read_csv(path: Path) -> list:
+    import csv
+
+    with open(path) as f:
+        return [{k: float(v) for k, v in row.items() if v != ""} for row in csv.DictReader(f)]
+
+
+def train_phase(tmp: Path) -> dict:
+    """The train and test jobs (the main path of this slice), then the
+    gradient check and a profile of two train steps."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.ops import painn_fused as pf
+
+    cfg = train_config(str(tmp / "smoke.db"), str(tmp), str(tmp / "ckpt"), str(tmp / "outputs"))
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+
+    # the main path: counts reset just before, read just after
+    pf.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.time()
+    res = pipelines.run(cfg)
+    best = json.loads((tmp / "ckpt" / "index.json").read_text())["best"][0]["path"]
+    test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(tmp / "ckpt" / best)))
+    torch.cuda.synchronize()
+    launches = dict(pf.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    steps, n_layers = res["step"], cfg["model"]["kwargs"]["n_interactions"]
+    check(steps == TRAIN_EPOCHS * n_train, f"{steps} train steps, expected {TRAIN_EPOCHS} x {n_train}")
+    want = {"painn_dual_fwd": n_layers * steps, "painn_dual_bwd": n_layers * steps,
+            "painn_fwd": n_layers * (steps + TRAIN_EPOCHS * n_val + n_test),
+            "painn_bwd": n_layers * (steps + TRAIN_EPOCHS * n_val + n_test), "painn_bwd_gw": 0}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"train/test launches {launches}, expected {want}")
+    check((tmp / "ckpt" / "last.ckpt").exists() and (tmp / "ckpt" / best).exists(),
+          "checkpoint files")
+    rows = read_csv(tmp / "outputs" / cfg["name"] / "metrics.csv")
+    step_rows = [r for r in rows if "train/total" in r]
+    val_rows = [r for r in rows if "val/loss" in r]
+    check(len(step_rows) == steps and len(val_rows) == TRAIN_EPOCHS, "a CSV row per step and epoch")
+    for r in step_rows:
+        check(all(np.isfinite(r[k]) for k in ("train/total", "train/energy", "train/forces",
+                                              "grad_norm")), f"finite train metrics {r}")
+        check(r["skipped_nonfinite"] == 0.0, f"no skipped step {r}")
+    for m in [res, test] + val_rows:
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    check({"test/loss", "test/energy/mae", "test/forces/mae"} <= set(test), f"test metrics {test}")
+    # train-step throughput over the last epoch (every bucket shape seen before)
+    rates = sorted(r["mols_per_sec"] for r in step_rows if r["epoch"] == TRAIN_EPOCHS - 1)
+    epoch_ends = [t_start] + [r["time"] for r in val_rows]
+    epoch_seconds = [b - a for a, b in zip(epoch_ends, epoch_ends[1:])]
+
+    grads = gradient_check(cfg, dm)
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None),
+                                      torch.device("cuda"))
+    batches = list(itertools.islice(dm.train_dataloader(), 2))
+    profile_steps("train_profile", trainer._train_step, batches)
+    emit("train", steps=steps, batches_per_epoch=n_train, val_batches=n_val, test_batches=n_test,
+         launches=launches, expected_launches=want, final_val=res, test=test,
+         train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
+         grad_norm_max=max(r["grad_norm"] for r in step_rows),
+         molecules_per_second={"median": rates[len(rates) // 2], "min": rates[0],
+                               "max": rates[-1], "steps": rates, "epoch": TRAIN_EPOCHS - 1},
+         seconds_per_epoch=epoch_seconds, peak_device_memory_bytes=peak_mem,
+         gradient_check=grads)
+    return launches
+
+
+def gradient_check(cfg: dict, dm) -> list:
+    """For the first train batch of each bucket: the parameter gradients of
+    the kernel path (force_grads "pallas": A-D) against the plain module's
+    double backward (force_grads "direct") on the card, same seeded weights."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.train import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    t = dict(cfg["trainer"], loss_specs=cfg["model"]["loss_specs"],
+             loss_coefs=cfg["model"]["loss_coefs"])
+    plain_cfg = dict(cfg, model=dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"],
+                                                               use_pallas="off")))
+    fused = Trainer(pipelines.build_model(cfg, dev), dev,
+                    TrainerConfig(**dict(t, force_grads="pallas")))
+    plain = Trainer(pipelines.build_model(plain_cfg, dev), dev,
+                    TrainerConfig(**dict(t, force_grads="direct")))
+    check(fused.model.use_pallas == "fused" and plain.model.use_pallas == "off", "model modes")
+    first = {}
+    for batch in dm.train_dataloader():
+        first.setdefault(batch.z.shape[1], batch)
+    out = []
+    for a, batch in sorted(first.items()):
+        batch = batch.to(dev)
+        lf, lp = fused._compute_grads(batch), plain._compute_grads(batch)
+        worst, worst_name = 0.0, None
+        for (n, p), (_, q) in zip(fused.model.named_parameters(), plain.model.named_parameters()):
+            ratio = float((p.grad - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-30)
+            if ratio > worst:
+                worst, worst_name = ratio, n
+        check(worst <= GRAD_RTOL, f"gradient check at A={a}: {worst_name} off by {worst:.3e}")
+        check(abs(float(lf["total"]) - float(lp["total"])) <= 1e-4 * abs(float(lp["total"])),
+              f"loss at A={a}: {float(lf['total'])} vs {float(lp['total'])}")
+        out.append({"shape": list(batch.z.shape), "max_rel_grad_err": worst,
+                    "worst_param": worst_name, "loss_kernel": float(lf["total"]),
+                    "loss_plain": float(lp["total"])})
+    check(sorted(first) == list(BUCKETS), f"gradient check buckets {sorted(first)}")
+    return out
 
 
 def main() -> int:
@@ -405,10 +596,13 @@ def main() -> int:
 
     rows = kernel_phases(torch.device("cuda"), card)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = predict_phase(Path(tmp))
-    rows["A"]["launches"] = launches["painn_fwd"]
-    rows["B"]["launches"] = launches["painn_bwd"]
-    print(json.dumps({"kernels": [rows["A"], rows["B"]]}), flush=True)
+        by_path = {"predict": predict_phase(Path(tmp)), "train": train_phase(Path(tmp))}
+    for k, counter in (("A", "painn_fwd"), ("B", "painn_bwd"), ("C", "painn_dual_fwd"),
+                       ("D", "painn_dual_bwd")):
+        rows[k]["launches_by_path"] = {p: n[counter] for p, n in by_path.items()}
+        rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())
+        check(rows[k]["launches"] > 0, f"kernel {k} launched on its path")
+    print(json.dumps({"kernels": [rows[k] for k in KERNELS]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -39,6 +39,29 @@
 //     [B,A,A,3F] tensor exists) and writes one [R,3F] partial per molecule;
 //     a third sums the partials in a fixed order. These run only when the
 //     weight gradient is asked for (not on the predict path).
+//
+// Kernel C, painn_dual_fwd_kernel, replaces `_dual_fwd_kernel` (launched by
+// `_run_dual_fwd`): A's primal lane plus its tangent lane along
+// (rbfd, phid, vd, unitd_t), with wmd = rbfd @ W:
+//   dsd_i  = sum_j wmd0 phi0_j + wm0 phid0_j
+//   dvd_ic = sum_j (wmd1 phi1_j + wm1 phid1_j) v_jc + wm1 phi1_j vd_jc
+//          + sum_j ud_c (wm2 phi2_j) + u_c (wmd2 phi2_j + wm2 phid2_j)
+// Kernel D, painn_dual_bwd_kernel + painn_dual_bwd_gw_kernel + the reduce,
+// replaces `_dual_bwd_kernel` (launched by `_run_dual_bwd`): the VJP of C for
+// the node inputs and W only (no pair cotangents).
+//   * C is receiver-owned like A: one block per (b, i) stages rbf[b,i] and
+//     rbfd[b,i] and runs both [A,R]x[R,F] products per register block (one
+//     W load feeds both), so the tangent lane doubles the FMAs, not the
+//     traffic.
+//   * D is sender-owned like B: every output (gphi, gphid, gv, gvd) is a sum
+//     over receivers i, so one block per (b, j) owns its outputs, stages
+//     rbf[b,:,j] and rbfd[b,:,j], and needs no atomics. The main loop sums
+//     only per-pair products of the cotangents with wm / wmd; phi_j, v_j and
+//     their tangents enter once per block in the epilogue.
+//   * D's gW = sum over pairs of rbf^T gwm + rbfd^T gwmd: as B's, a second
+//     kernel recomputes gwm / gwmd from node tensors and writes one [R,3F]
+//     partial per molecule, and the reduce kernel sums them in a fixed order,
+//     so D gives the same bits on every run.
 // Plain FMA only: no TF32, no tensor cores (a later step).
 
 #include <cuda_runtime.h>
@@ -463,6 +486,372 @@ __global__ void painn_gw_reduce_kernel(const float* __restrict__ gw_part, float*
   gw[idx] = s;
 }
 
+// ---------------------------------------------------------------------------
+// kernel C: dual forward, one block per (molecule b, receiver i)
+// ---------------------------------------------------------------------------
+
+constexpr int C_ACC = 8;  // s0, sd0, d0..2, dd0..2
+
+size_t dual_fwd_smem_bytes(int A, int R) {
+  const int Ap = padded_rows(A), Rp = round_up(R, 4);
+  return sizeof(float) * (2 * (size_t)Ap * Rp + 6 * Ap + (GROUPS - 1) * C_ACC * FT);
+}
+
+__global__ void __launch_bounds__(NT) painn_dual_fwd_kernel(
+    const float* __restrict__ rbf, const float* __restrict__ rbfd, const float* __restrict__ phi,
+    const float* __restrict__ phid, const float* __restrict__ v, const float* __restrict__ vd,
+    const float* __restrict__ ut, const float* __restrict__ utd, const float* __restrict__ w,
+    float* __restrict__ ds, float* __restrict__ dv, float* __restrict__ dsd,
+    float* __restrict__ dvd, int A, int R, int F) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int Ap = padded_rows(A), Rp = round_up(R, 4), F3 = 3 * F;
+  float* rbf_s = smem;              // [Ap][Rp]  rbf[b,i,j,:] by sender j
+  float* rbfd_s = rbf_s + Ap * Rp;  // [Ap][Rp]  rbfd[b,i,j,:]
+  float* u_s = rbfd_s + Ap * Rp;    // [3][Ap]   unit_t[b,i,c,j]
+  float* ud_s = u_s + 3 * Ap;       // [3][Ap]   unitd_t[b,i,c,j]
+  float* red = ud_s + 3 * Ap;       // [GROUPS-1][C_ACC][FT]
+
+  const int bi = blockIdx.x;        // b*A + i
+  const int b = bi / A;
+  const int tid = threadIdx.x;
+
+  const float* rrow = rbf + (size_t)bi * A * R;
+  const float* rdrow = rbfd + (size_t)bi * A * R;
+  for (int idx = tid; idx < Ap * Rp; idx += NT) {
+    const int j = idx / Rp, r = idx - j * Rp;
+    const bool in = j < A && r < R;
+    rbf_s[idx] = in ? rrow[(size_t)j * R + r] : 0.f;
+    rbfd_s[idx] = in ? rdrow[(size_t)j * R + r] : 0.f;
+  }
+  const float* urow = ut + (size_t)bi * 3 * A;
+  const float* udrow = utd + (size_t)bi * 3 * A;
+  for (int idx = tid; idx < 3 * Ap; idx += NT) {
+    const int c = idx / Ap, j = idx - c * Ap;
+    u_s[idx] = j < A ? urow[c * A + j] : 0.f;
+    ud_s[idx] = j < A ? udrow[c * A + j] : 0.f;
+  }
+  __syncthreads();
+
+  const int fl = tid % FT, grp = tid / FT;
+  const int rows = Ap / GROUPS;
+  const size_t nb = (size_t)b * A * F3;
+
+  for (int f0 = 0; f0 < F; f0 += FT) {
+    const int f = f0 + fl;
+    const bool active = f < F;
+    float acc[C_ACC];
+#pragma unroll
+    for (int t = 0; t < C_ACC; ++t) acc[t] = 0.f;
+    float &s0 = acc[0], &sd0 = acc[1], &d0 = acc[2], &d1 = acc[3], &d2 = acc[4];
+    float &dd0 = acc[5], &dd1 = acc[6], &dd2 = acc[7];
+    for (int k = 0; k < 3; ++k) {
+      const float* wcol = w + k * F + (active ? f : 0);
+      for (int j0 = grp * rows; j0 < (grp + 1) * rows; j0 += JB) {
+        float wm[JB], wmd[JB];
+#pragma unroll
+        for (int q = 0; q < JB; ++q) wm[q] = wmd[q] = 0.f;
+        row_block_dot2(rbf_s, rbfd_s, j0, Rp, R, wcol, F3, wm, wmd);
+        if (!active) continue;
+#pragma unroll
+        for (int q = 0; q < JB; ++q) {
+          const int j = j0 + q;
+          if (j >= A) continue;
+          const size_t nj = nb + (size_t)j * F3;
+          const float p = phi[nj + k * F + f], pd = phid[nj + k * F + f];
+          if (k == 0) {
+            s0 = fmaf(wm[q], p, s0);
+            sd0 = fmaf(wmd[q], p, fmaf(wm[q], pd, sd0));
+          } else if (k == 1) {
+            const float t = wm[q] * p, td = fmaf(wmd[q], p, wm[q] * pd);
+            const float v0 = v[nj + f], v1 = v[nj + F + f], v2 = v[nj + 2 * F + f];
+            d0 = fmaf(t, v0, d0);
+            d1 = fmaf(t, v1, d1);
+            d2 = fmaf(t, v2, d2);
+            dd0 = fmaf(td, v0, fmaf(t, vd[nj + f], dd0));
+            dd1 = fmaf(td, v1, fmaf(t, vd[nj + F + f], dd1));
+            dd2 = fmaf(td, v2, fmaf(t, vd[nj + 2 * F + f], dd2));
+          } else {
+            const float m3 = wm[q] * p, m3d = fmaf(wmd[q], p, wm[q] * pd);
+            const float u0 = u_s[j], u1 = u_s[Ap + j], u2 = u_s[2 * Ap + j];
+            d0 = fmaf(u0, m3, d0);
+            d1 = fmaf(u1, m3, d1);
+            d2 = fmaf(u2, m3, d2);
+            dd0 = fmaf(ud_s[j], m3, fmaf(u0, m3d, dd0));
+            dd1 = fmaf(ud_s[Ap + j], m3, fmaf(u1, m3d, dd1));
+            dd2 = fmaf(ud_s[2 * Ap + j], m3, fmaf(u2, m3d, dd2));
+          }
+        }
+      }
+    }
+    if (grp > 0) {
+      float* rg = red + (size_t)(grp - 1) * C_ACC * FT;
+#pragma unroll
+      for (int t = 0; t < C_ACC; ++t) rg[t * FT + fl] = acc[t];
+    }
+    __syncthreads();
+    if (grp == 0 && active) {
+      for (int g = 1; g < GROUPS; ++g) {
+        const float* rg = red + (size_t)(g - 1) * C_ACC * FT;
+#pragma unroll
+        for (int t = 0; t < C_ACC; ++t) acc[t] += rg[t * FT + fl];
+      }
+      ds[(size_t)bi * F + f] = s0;
+      dsd[(size_t)bi * F + f] = sd0;
+      float* dvo = dv + (size_t)bi * F3;
+      float* dvdo = dvd + (size_t)bi * F3;
+      dvo[f] = d0;
+      dvo[F + f] = d1;
+      dvo[2 * F + f] = d2;
+      dvdo[f] = dd0;
+      dvdo[F + f] = dd1;
+      dvdo[2 * F + f] = dd2;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel D: node cotangents, one block per (molecule b, sender j)
+// ---------------------------------------------------------------------------
+
+constexpr int D_ACC = 10;  // gphi0, gphid0, s0..2, sd0..2, gphi2, gphid2
+
+size_t dual_bwd_smem_bytes(int A, int R) {
+  const int Ap = padded_rows(A), Rp = round_up(R, 4);
+  return sizeof(float) * (2 * (size_t)Ap * Rp + 6 * Ap + (GROUPS - 1) * D_ACC * FT);
+}
+
+__global__ void __launch_bounds__(NT) painn_dual_bwd_kernel(
+    const float* __restrict__ rbf, const float* __restrict__ rbfd, const float* __restrict__ phi,
+    const float* __restrict__ phid, const float* __restrict__ v, const float* __restrict__ vd,
+    const float* __restrict__ ut, const float* __restrict__ utd, const float* __restrict__ w,
+    const float* __restrict__ gds, const float* __restrict__ gdv, const float* __restrict__ gdsd,
+    const float* __restrict__ gdvd, float* __restrict__ gphi, float* __restrict__ gphid,
+    float* __restrict__ gv, float* __restrict__ gvd, int A, int R, int F) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int Ap = padded_rows(A), Rp = round_up(R, 4), F3 = 3 * F;
+  float* rbf_s = smem;              // [Ap][Rp]  rbf[b,i,j,:] by receiver i
+  float* rbfd_s = rbf_s + Ap * Rp;  // [Ap][Rp]
+  float* u_s = rbfd_s + Ap * Rp;    // [3][Ap]   unit_t[b,i,c,j]
+  float* ud_s = u_s + 3 * Ap;       // [3][Ap]   unitd_t[b,i,c,j]
+  float* red = ud_s + 3 * Ap;       // [GROUPS-1][D_ACC][FT]
+
+  const int bj = blockIdx.x;        // b*A + j
+  const int b = bj / A, j = bj - b * A;
+  const int tid = threadIdx.x;
+
+  for (int idx = tid; idx < Ap * Rp; idx += NT) {
+    const int i = idx / Rp, r = idx - i * Rp;
+    const bool in = i < A && r < R;
+    const size_t src = (((size_t)b * A + i) * A + j) * R + r;
+    rbf_s[idx] = in ? rbf[src] : 0.f;
+    rbfd_s[idx] = in ? rbfd[src] : 0.f;
+  }
+  for (int idx = tid; idx < 3 * Ap; idx += NT) {
+    const int c = idx / Ap, i = idx - c * Ap;
+    const size_t src = (((size_t)b * A + i) * 3 + c) * A + j;
+    u_s[idx] = i < A ? ut[src] : 0.f;
+    ud_s[idx] = i < A ? utd[src] : 0.f;
+  }
+  __syncthreads();
+
+  const int fl = tid % FT, grp = tid / FT;
+  const int rows = Ap / GROUPS;
+
+  for (int f0 = 0; f0 < F; f0 += FT) {
+    const int f = f0 + fl;
+    const bool active = f < F;
+    float acc[D_ACC];
+#pragma unroll
+    for (int t = 0; t < D_ACC; ++t) acc[t] = 0.f;
+    float &a0 = acc[0], &ad0 = acc[1], &s0 = acc[2], &s1 = acc[3], &s2 = acc[4];
+    float &sd0 = acc[5], &sd1 = acc[6], &sd2 = acc[7], &a2 = acc[8], &ad2 = acc[9];
+
+    for (int i0 = grp * rows; i0 < (grp + 1) * rows; i0 += JB) {
+      for (int k = 0; k < 3; ++k) {
+        float wm[JB], wmd[JB];
+#pragma unroll
+        for (int q = 0; q < JB; ++q) wm[q] = wmd[q] = 0.f;
+        row_block_dot2(rbf_s, rbfd_s, i0, Rp, R, w + k * F + (active ? f : 0), F3, wm, wmd);
+        if (!active) continue;
+#pragma unroll
+        for (int q = 0; q < JB; ++q) {
+          const int i = i0 + q;
+          if (i >= A) continue;
+          const size_t node = (size_t)b * A + i;
+          if (k == 0) {
+            const float g1 = gds[node * F + f], g1d = gdsd[node * F + f];
+            a0 = fmaf(g1, wm[q], fmaf(g1d, wmd[q], a0));
+            ad0 = fmaf(g1d, wm[q], ad0);
+          } else {
+            const float* g2 = gdv + node * F3;
+            const float* g2d = gdvd + node * F3;
+            const float g20 = g2[f], g21 = g2[F + f], g22 = g2[2 * F + f];
+            const float h0 = g2d[f], h1 = g2d[F + f], h2 = g2d[2 * F + f];
+            if (k == 1) {
+              s0 = fmaf(g20, wm[q], fmaf(h0, wmd[q], s0));
+              s1 = fmaf(g21, wm[q], fmaf(h1, wmd[q], s1));
+              s2 = fmaf(g22, wm[q], fmaf(h2, wmd[q], s2));
+              sd0 = fmaf(h0, wm[q], sd0);
+              sd1 = fmaf(h1, wm[q], sd1);
+              sd2 = fmaf(h2, wm[q], sd2);
+            } else {
+              const float u0 = u_s[i], u1 = u_s[Ap + i], u2 = u_s[2 * Ap + i];
+              const float pa = fmaf(ud_s[2 * Ap + i], h2, fmaf(ud_s[Ap + i], h1, fmaf(ud_s[i], h0,
+                               fmaf(u2, g22, fmaf(u1, g21, u0 * g20)))));
+              const float pb = fmaf(u2, h2, fmaf(u1, h1, u0 * h0));
+              a2 = fmaf(pa, wm[q], fmaf(pb, wmd[q], a2));
+              ad2 = fmaf(pb, wm[q], ad2);
+            }
+          }
+        }
+      }
+    }
+    if (grp > 0) {
+      float* rg = red + (size_t)(grp - 1) * D_ACC * FT;
+#pragma unroll
+      for (int t = 0; t < D_ACC; ++t) rg[t * FT + fl] = acc[t];
+    }
+    __syncthreads();
+    if (grp == 0 && active) {
+      for (int g = 1; g < GROUPS; ++g) {
+        const float* rg = red + (size_t)(g - 1) * D_ACC * FT;
+#pragma unroll
+        for (int t = 0; t < D_ACC; ++t) acc[t] += rg[t * FT + fl];
+      }
+      // epilogue: the node factors of sender j
+      const size_t nj = (size_t)bj * F3;
+      const float p1 = phi[nj + F + f], pd1 = phid[nj + F + f];
+      const float v0 = v[nj + f], v1 = v[nj + F + f], v2 = v[nj + 2 * F + f];
+      const float e0 = vd[nj + f], e1 = vd[nj + F + f], e2 = vd[nj + 2 * F + f];
+      gphi[nj + f] = a0;
+      gphi[nj + F + f] = fmaf(sd2, e2, fmaf(sd1, e1, fmaf(sd0, e0,
+                         fmaf(s2, v2, fmaf(s1, v1, s0 * v0)))));
+      gphi[nj + 2 * F + f] = a2;
+      gphid[nj + f] = ad0;
+      gphid[nj + F + f] = fmaf(sd2, v2, fmaf(sd1, v1, sd0 * v0));
+      gphid[nj + 2 * F + f] = ad2;
+      gv[nj + f] = fmaf(sd0, pd1, s0 * p1);
+      gv[nj + F + f] = fmaf(sd1, pd1, s1 * p1);
+      gv[nj + 2 * F + f] = fmaf(sd2, pd1, s2 * p1);
+      gvd[nj + f] = sd0 * p1;
+      gvd[nj + F + f] = sd1 * p1;
+      gvd[nj + 2 * F + f] = sd2 * p1;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel D, weight gradient: gw_part[b] = rbf[b]^T gwm[b] + rbfd[b]^T gwmd[b],
+// tiled as B's gW kernel, with a second (rbfd, gwmd) tile pair per chunk.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(NT) painn_dual_bwd_gw_kernel(
+    const float* __restrict__ rbf, const float* __restrict__ rbfd, const float* __restrict__ phi,
+    const float* __restrict__ phid, const float* __restrict__ v, const float* __restrict__ vd,
+    const float* __restrict__ ut, const float* __restrict__ utd, const float* __restrict__ gds,
+    const float* __restrict__ gdv, const float* __restrict__ gdsd, const float* __restrict__ gdvd,
+    float* __restrict__ gw_part, int A, int R, int F) {
+  __shared__ float x_s[GW_PT][GW_RT];
+  __shared__ float xd_s[GW_PT][GW_RT];
+  __shared__ float y_s[GW_PT][GW_NT];
+  __shared__ float yd_s[GW_PT][GW_NT];
+  const int F3 = 3 * F;
+  const int n0 = blockIdx.x * GW_NT, r0 = blockIdx.y * GW_RT, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tn = tid % 16;  // rows tr + 16*h; cols tn + 16*q
+  const int P = A * A;
+  const float* rb = rbf + (size_t)b * P * R;
+  const float* rbd = rbfd + (size_t)b * P * R;
+  float acc[GW_RH][4];
+#pragma unroll
+  for (int h = 0; h < GW_RH; ++h)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[h][q] = 0.f;
+
+  for (int p0 = 0; p0 < P; p0 += GW_PT) {
+    for (int idx = tid; idx < GW_PT * GW_RT; idx += NT) {
+      const int pp = idx / GW_RT, rr = idx - pp * GW_RT;
+      const int p = p0 + pp, r = r0 + rr;
+      const bool in = p < P && r < R;
+      x_s[pp][rr] = in ? rb[(size_t)p * R + r] : 0.f;
+      xd_s[pp][rr] = in ? rbd[(size_t)p * R + r] : 0.f;
+    }
+    for (int idx = tid; idx < GW_PT * GW_NT; idx += NT) {
+      const int pp = idx / GW_NT, nn = idx - pp * GW_NT;
+      const int p = p0 + pp, n = n0 + nn;
+      float y = 0.f, yd = 0.f;
+      if (p < P && n < F3) {
+        const int i = p / A, jj = p - i * A;
+        const int k = n / F, f = n - k * F;
+        const size_t ni = (size_t)b * A + i, nj = (size_t)b * A + jj;
+        const float pk = phi[nj * F3 + n], pdk = phid[nj * F3 + n];
+        if (k == 0) {
+          const float g1 = gds[ni * F + f], g1d = gdsd[ni * F + f];
+          y = fmaf(g1, pk, g1d * pdk);
+          yd = g1d * pk;
+        } else {
+          const float* g2 = gdv + ni * F3;
+          const float* g2d = gdvd + ni * F3;
+          if (k == 1) {
+            const float* vj = v + nj * F3;
+            const float* vdj = vd + nj * F3;
+            const float s1 = fmaf(g2d[2 * F + f], vdj[2 * F + f], fmaf(g2d[F + f], vdj[F + f],
+                             fmaf(g2d[f], vdj[f], fmaf(g2[2 * F + f], vj[2 * F + f],
+                             fmaf(g2[F + f], vj[F + f], g2[f] * vj[f])))));
+            const float s2 = fmaf(g2d[2 * F + f], vj[2 * F + f],
+                             fmaf(g2d[F + f], vj[F + f], g2d[f] * vj[f]));
+            y = fmaf(pk, s1, pdk * s2);
+            yd = pk * s2;
+          } else {
+            const float* u = ut + ni * 3 * A + jj;
+            const float* ud = utd + ni * 3 * A + jj;
+            const float pa = fmaf(ud[2 * A], g2d[2 * F + f], fmaf(ud[A], g2d[F + f],
+                             fmaf(ud[0], g2d[f], fmaf(u[2 * A], g2[2 * F + f],
+                             fmaf(u[A], g2[F + f], u[0] * g2[f])))));
+            const float pb = fmaf(u[2 * A], g2d[2 * F + f], fmaf(u[A], g2d[F + f], u[0] * g2d[f]));
+            y = fmaf(pa, pk, pb * pdk);
+            yd = pb * pk;
+          }
+        }
+      }
+      y_s[pp][nn] = y;
+      yd_s[pp][nn] = yd;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int pp = 0; pp < GW_PT; ++pp) {
+      float y[4], yd[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        y[q] = y_s[pp][tn + 16 * q];
+        yd[q] = yd_s[pp][tn + 16 * q];
+      }
+#pragma unroll
+      for (int h = 0; h < GW_RH; ++h) {
+        const float x = x_s[pp][tr + 16 * h], xd = xd_s[pp][tr + 16 * h];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[h][q] = fmaf(xd, yd[q], fmaf(x, y[q], acc[h][q]));
+      }
+    }
+    __syncthreads();
+  }
+  float* out = gw_part + (size_t)b * R * F3;
+#pragma unroll
+  for (int h = 0; h < GW_RH; ++h) {
+    const int r = r0 + tr + 16 * h;
+    if (r >= R) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tn + 16 * q;
+      if (n < F3) out[(size_t)r * F3 + n] = acc[h][q];
+    }
+  }
+}
+
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
@@ -499,6 +888,46 @@ int painn_bwd(const float* rbf, const float* rbfp, const float* phi, const float
   if (err != cudaSuccess || !need_gw) return (int)err;
   const dim3 grid((3 * F + GW_NT - 1) / GW_NT, (R + GW_RT - 1) / GW_RT, B);
   painn_bwd_gw_kernel<<<grid, NT, 0, s>>>(rbf, phi, v, unit_t, gds, gdv, gw_part, A, R, F);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = R * 3 * F;
+  painn_gw_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(gw_part, gw, B, n);
+  return (int)cudaGetLastError();
+}
+
+int painn_dual_fwd(const float* rbf, const float* rbfd, const float* phi, const float* phid,
+                   const float* v, const float* vd, const float* unit_t, const float* unitd_t,
+                   const float* w, float* ds, float* dv, float* dsd, float* dvd,
+                   int B, int A, int R, int F, void* stream) {
+  if (B == 0 || A == 0) return 0;
+  const size_t smem = dual_fwd_smem_bytes(A, R);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(painn_dual_fwd_kernel), smem);
+  if (err != cudaSuccess) return (int)err;
+  painn_dual_fwd_kernel<<<B * A, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, ds, dv, dsd, dvd, A, R, F);
+  return (int)cudaGetLastError();
+}
+
+// gw_part ([B,R,3F] scratch) and gw are used only when need_gw != 0.
+int painn_dual_bwd(const float* rbf, const float* rbfd, const float* phi, const float* phid,
+                   const float* v, const float* vd, const float* unit_t, const float* unitd_t,
+                   const float* w, const float* gds, const float* gdv, const float* gdsd,
+                   const float* gdvd, float* gphi, float* gphid, float* gv, float* gvd,
+                   float* gw_part, float* gw, int need_gw, int B, int A, int R, int F,
+                   void* stream) {
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = dual_bwd_smem_bytes(A, R);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(painn_dual_bwd_kernel), smem);
+  if (err != cudaSuccess) return (int)err;
+  painn_dual_bwd_kernel<<<B * A, NT, smem, s>>>(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w,
+                                                gds, gdv, gdsd, gdvd, gphi, gphid, gv, gvd,
+                                                A, R, F);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !need_gw) return (int)err;
+  const dim3 grid((3 * F + GW_NT - 1) / GW_NT, (R + GW_RT - 1) / GW_RT, B);
+  painn_dual_bwd_gw_kernel<<<grid, NT, 0, s>>>(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t,
+                                               gds, gdv, gdsd, gdvd, gw_part, A, R, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = R * 3 * F;

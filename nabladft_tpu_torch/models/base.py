@@ -4,7 +4,7 @@ The counterpart of ``nabladft_tpu/models/base.py``. Every model is an
 ``nn.Module`` whose ``forward(batch: MolBatch)`` returns at least
 ``energy:[B]``. Models declare ``derivative_forces = True`` when forces are
 ``-∂E/∂pos``; `forward` below then takes them with one autograd pass over
-the whole padded batch.
+the whole padded batch, with the parameters held fixed.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional, Sequence, Type, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from nabladft_tpu_torch.data.batch import MolBatch
 
@@ -49,19 +50,27 @@ class MLP(nn.Module):
         return x
 
 
-def forward(model: nn.Module, batch: MolBatch) -> ModelOutput:
+def forward(model: nn.Module, batch: MolBatch,
+            params: Optional[Dict[str, torch.Tensor]] = None) -> ModelOutput:
     """Run a model, deriving forces by autograd when the model requires it.
 
-    The energy gradient of molecule b only touches pos[b], so one gradient
-    of the summed real-molecule energies yields all per-molecule forces;
-    masks keep padding gradients at exactly zero. Outputs are detached.
+    The model runs on `params` (name -> tensor, e.g. an EMA copy) or, by
+    default, on its own parameters detached: forces need ∂E/∂pos only, so
+    no parameter gradient is asked for (the fused message's backward then
+    skips its weight-gradient stage) and the module's trainable flags stay
+    as they are. The energy gradient of molecule b only touches pos[b], so
+    one gradient of the summed real-molecule energies yields all
+    per-molecule forces; masks keep padding gradients at exactly zero.
+    Outputs are detached.
     """
+    if params is None:
+        params = {name: p.detach() for name, p in model.named_parameters()}
     if not getattr(model, "derivative_forces", False):
         with torch.no_grad():
-            return model(batch)
+            return functional_call(model, params, (batch,))
     with torch.enable_grad():
         pos = batch.pos.detach().requires_grad_(True)
-        out = model(batch.replace(pos=pos))
+        out = functional_call(model, params, (batch.replace(pos=pos),))
         e = torch.where(batch.graph_mask, out["energy"], torch.zeros_like(out["energy"]))
         (grad,) = torch.autograd.grad(e.sum(), pos)
     out = {k: t.detach() for k, t in out.items()}

@@ -7,8 +7,11 @@ block runs in one of two modes:
   * ``use_pallas="off"``   — plain PyTorch, differentiable to any order;
   * ``use_pallas="fused"`` — `painn_message`: CUDA kernel A forward and
     kernel B backward, with the radial-basis chain rule folded into a
-    scalar g_dist (first-order paths: inference and forces). On CPU tensors
-    the same op runs its plain versions.
+    scalar g_dist (first-order paths: inference and forces). Under a
+    forward-AD dual level with a dual `pos` (the surrogate training pass)
+    the same module runs `painn_dual` instead: kernel C forward and kernel D
+    backward, the JAX package's ``use_pallas="train"``. On CPU tensors the
+    same ops run their plain versions.
 
 The field keeps its JAX name so ``configs/*.yaml`` read unchanged.
 State: scalars s [B,A,F] and vectors v [B,A,3,F]; equivariance is kept by
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
@@ -28,7 +32,7 @@ from nabladft_tpu_torch.models.base import (
     MLP, ModelOutput, init_linear_, lecun_normal_, register_model, shifted_softplus,
 )
 from nabladft_tpu_torch.ops import graph, radial
-from nabladft_tpu_torch.ops.painn_fused import painn_message, painn_message_reference
+from nabladft_tpu_torch.ops.painn_fused import painn_dual, painn_message, painn_message_reference
 from nabladft_tpu_torch.ops.segment import masked_sum
 from nabladft_tpu_torch.utils import resolve_device
 
@@ -45,13 +49,16 @@ class PaiNNMessage(nn.Module):
 
     def forward(self, s, v, feats):
         """feats: dist, rbf_env [B,A,A,R], rbfp, unit_t [B,A,3,A], envf [B,A,A]
-        (premasked cutoff envelope). rbf_env/rbfp premasked."""
+        (premasked cutoff envelope). rbf_env/rbfp premasked. In the fused
+        dual pass feats also holds rbf_env_t, rbf_env's tangent."""
         f = self.hidden
         phi = self.mlp(s)  # [B,A,3F]
         w, b = self.filter_kernel, self.filter_bias
         v_flat = v.reshape(*v.shape[:2], 3 * f)  # [B,A,3,F] -> c-major flat
         if self.use_pallas == "off":
             ds, dv_flat = painn_message_reference(feats["rbf_env"], phi, v_flat, feats["unit_t"], w)
+        elif feats.get("rbf_env_t") is not None:
+            ds, dv_flat = _dual_message(feats, phi, v_flat, w)
         else:
             ds, dv_flat = painn_message(
                 feats["dist"], feats["rbf_env"], feats["rbfp"],
@@ -76,6 +83,27 @@ class PaiNNMessage(nn.Module):
         )
         dv_flat = dv_flat + (b[2 * f :] * dvu_b).reshape(*ds.shape[:2], 3 * f)
         return ds, dv_flat.reshape(*v.shape)
+
+
+def _lanes(x: torch.Tensor):
+    """(primal, tangent) of a dual tensor as contiguous plain tensors; a
+    missing tangent (a value that does not depend on pos) is zeros."""
+    p, t = fwAD.unpack_dual(x)
+    return p.contiguous(), (torch.zeros_like(p) if t is None else t.contiguous())
+
+
+def _dual_message(feats, phi, v_flat, w):
+    """Kernel C on the primal and tangent lanes of the message inputs; the
+    outputs are packed back into dual tensors, so reverse mode through
+    their tangents reaches kernel D once, with both lanes' cotangents."""
+    if fwAD.unpack_dual(w).tangent is not None:
+        raise ValueError("the dual PaiNN message takes no tangent on the filter weights")
+    phi_p, phi_t = _lanes(phi)
+    v_p, v_t = _lanes(v_flat)
+    ut_p, ut_t = _lanes(feats["unit_t"])
+    ds, dv, dsd, dvd = painn_dual(feats["rbf_env"], feats["rbf_env_t"], phi_p, phi_t,
+                                  v_p, v_t, ut_p, ut_t, w)
+    return fwAD.make_dual(ds, dsd), fwAD.make_dual(dv, dvd)
 
 
 class PaiNNUpdate(nn.Module):
@@ -209,7 +237,12 @@ class PaiNN(nn.Module):
         return torch.where(edge_mask[..., None], out, torch.zeros_like(out))
 
     def features(self, batch: MolBatch) -> dict:
-        """Pair features of the dense graph (see PaiNNMessage.forward)."""
+        """Pair features of the dense graph (see PaiNNMessage.forward).
+
+        With a dual `pos` (forward AD), every feature carries its tangent
+        along pos's; in the fused mode rbf_env's tangent, rbfp ⊙ ṫdist, is
+        built from the closed-form radial derivative and kept apart
+        (rbf_env_t) for kernel C."""
         dg = graph.dense_graph(batch.pos, batch.node_mask, self.cutoff)
         adj = graph.dense_topk_mask(dg.dist, dg.adj, self.max_neighbors)
         zero = torch.zeros_like(dg.dist)
@@ -225,12 +258,17 @@ class PaiNN(nn.Module):
         }
         if self.use_pallas == "off":
             feats["rbf_env"] = self._filter(dist, adj)
+            return feats
+        # the kernel backward folds the basis chain rule into g_dist, so
+        # the basis tensors themselves carry no autograd graph
+        dist_p, dist_t = fwAD.unpack_dual(dist)
+        with torch.no_grad():
+            feats["rbf_env"] = self._filter(dist_p, adj).contiguous()
+            rbfp = self._filter_derivative(dist_p, adj)
+        if dist_t is None:
+            feats["rbfp"] = rbfp.contiguous()
         else:
-            # the kernel backward folds the basis chain rule into g_dist, so
-            # the basis tensors themselves carry no autograd graph
-            with torch.no_grad():
-                feats["rbf_env"] = self._filter(dist, adj).contiguous()
-                feats["rbfp"] = self._filter_derivative(dist, adj).contiguous()
+            feats["rbf_env_t"] = (rbfp * dist_t[..., None]).contiguous()
         return feats
 
     def forward(self, batch: MolBatch) -> ModelOutput:

@@ -1,7 +1,10 @@
-"""Fused PaiNN message: CUDA kernels A (forward) and B (backward).
+"""Fused PaiNN message: CUDA kernels A (forward), B (backward), C (dual
+forward) and D (dual backward).
 
-The port of the first-order op of ``nabladft_tpu/ops/pallas/painn_fused.py``
-(`painn_message`, a `jax.custom_vjp` over `_fwd_kernel` / `_bwd_kernel`).
+The port of ``nabladft_tpu/ops/pallas/painn_fused.py``: the first-order op
+`painn_message` (a `jax.custom_vjp` over `_fwd_kernel` / `_bwd_kernel`) and
+the dual-number op `painn_dual` (a `jax.custom_vjp` over `_dual_fwd_kernel`
+/ `_dual_bwd_kernel`) that the surrogate training pass runs.
 Semantics, on premasked inputs (bias and mask terms stay outside, in
 ``models/painn.py``):
 
@@ -15,11 +18,19 @@ rbfp = ∂(basis·envelope)/∂dist and returns the scalar g_dist [B,A,A], so th
 explicit input and gives rbf/rbfp no gradient: the caller must pass
 rbf == f(dist), rbfp == f'(dist), detached.
 
+The dual op carries a tangent lane beside every input but w: it returns
+(ds, dv) and their directional derivatives (dsd, dvd). Its VJP (kernel D)
+gives node and weight cotangents only, and none for the pair-level inputs
+(rbf, rbfd, unit_t, unitd_t): it is valid only where positions are not
+differentiated, as in the surrogate's parameter pass. Neither VJP is itself
+differentiable: a second derivative through them raises.
+
 Layouts: v and dv are component-major flat [B,A,3F]; unit_t is [B,A,3,A]
 (u_t[b,i,c,j] = unit(j→i)_c). All float32.
 
 Each kernel has its plain PyTorch version here with the same signature
-(`painn_message_reference`, `painn_message_bwd_reference`). A wrapper
+(`painn_message_reference`, `painn_message_bwd_reference`,
+`painn_dual_fwd_reference`, `painn_dual_bwd_reference`). A wrapper
 takes the plain version only for CPU tensors; a CUDA tensor launches the
 kernel (sources in ``csrc/painn_fused.cu``) or raises.
 """
@@ -35,7 +46,9 @@ import torch
 from nabladft_tpu_torch.ops import _kernels
 
 # launches of each CUDA kernel wrapper since the last reset
-LAUNCHES: Dict[str, int] = {"painn_fwd": 0, "painn_bwd": 0}
+# ("painn_bwd_gw": kernel B calls that also ran its weight-gradient stage)
+LAUNCHES: Dict[str, int] = {"painn_fwd": 0, "painn_bwd": 0, "painn_bwd_gw": 0,
+                            "painn_dual_fwd": 0, "painn_dual_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -53,12 +66,21 @@ def pair_flops(kind: str, r: int, f: int) -> int:
                -2 cotangents (5, 23, 17), the channel sums of g_dist and
                g_unit_t (4): 12R + 49;
       bwd_gw — the weight gradient's per-pair cotangent (13) and its
-               product with rbf (6R): 6R + 13.
+               product with rbf (6R): 6R + 13;
+      dual_fwd    — wm and wmd = rbfd @ W for three slices (12R), channel 0
+               (6), channels 1 and 2 (22 each): 12R + 50;
+      dual_bwd    — wm and wmd for three slices (12R), the channel-0, -1 and
+               -2 sums (6, 18, 22): 12R + 46 (the per-node epilogue, 28 per
+               node and channel, is not counted);
+      dual_bwd_gw — the per-pair cotangents gwm and gwmd (4, 20, 20) and
+               their products with rbf and rbfd (12R): 12R + 44.
 
     (The JAX package's analytic model, `kernel_flops`, counts more:
     fwd 6R + 32, bwd 18R + 78 per channel and pair.)
     """
-    return {"fwd": 6 * r + 16, "bwd": 12 * r + 49, "bwd_gw": 6 * r + 13}[kind] * f
+    return {"fwd": 6 * r + 16, "bwd": 12 * r + 49, "bwd_gw": 6 * r + 13,
+            "dual_fwd": 12 * r + 50, "dual_bwd": 12 * r + 46,
+            "dual_bwd_gw": 12 * r + 44}[kind] * f
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +143,94 @@ def painn_message_bwd_reference(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw:
     return g_dist, g_unit_t, gphi, gv, gw
 
 
+def _chunks(x, f):
+    return x[..., :f], x[..., f : 2 * f], x[..., 2 * f :]
+
+
+def painn_dual_fwd_reference(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
+    """Plain PyTorch version of kernel C: kernel A and its directional
+    derivative along (rbfd, phid, vd, unitd_t), w held fixed.
+
+    Returns (ds [B,A,F], dv [B,A,3F], dsd [B,A,F], dvd [B,A,3F]).
+    """
+    f = w.shape[1] // 3
+    b_, a = phi.shape[0], phi.shape[1]
+    wm0, wm1, wm2 = _chunks(torch.einsum("bijr,rk->bijk", rbf, w), f)
+    wmd0, wmd1, wmd2 = _chunks(torch.einsum("bijr,rk->bijk", rbfd, w), f)
+    phi0, phi1, phi2 = (x[:, None] for x in _chunks(phi, f))
+    phid0, phid1, phid2 = (x[:, None] for x in _chunks(phid, f))
+    vc, vdc = v.reshape(b_, a, 3, f), vd.reshape(b_, a, 3, f)
+
+    ds = (wm0 * phi0).sum(dim=2)
+    dsd = (wmd0 * phi0 + wm0 * phid0).sum(dim=2)
+    # channel 1: t = wm1 φ1, td = wmd1 φ1 + wm1 φd1; Σ_j t v_c and Σ_j td v_c + t vd_c
+    t, td = wm1 * phi1, wmd1 * phi1 + wm1 * phid1
+    dv1 = torch.einsum("bijf,bjcf->bicf", t, vc)
+    dvd1 = torch.einsum("bijf,bjcf->bicf", td, vc) + torch.einsum("bijf,bjcf->bicf", t, vdc)
+    # channel 2: m3 = wm2 φ2, m3d = wmd2 φ2 + wm2 φd2
+    m3, m3d = wm2 * phi2, wmd2 * phi2 + wm2 * phid2
+    dv2 = torch.einsum("bicj,bijf->bicf", unit_t, m3)
+    dvd2 = (torch.einsum("bicj,bijf->bicf", unitd_t, m3)
+            + torch.einsum("bicj,bijf->bicf", unit_t, m3d))
+    return ds, (dv1 + dv2).reshape(b_, a, 3 * f), dsd, (dvd1 + dvd2).reshape(b_, a, 3 * f)
+
+
+def painn_dual_bwd_reference(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w,
+                             gds, gdv, gdsd, gdvd, need_gw: bool = True):
+    """Plain PyTorch version of kernel D: the VJP of kernel C for the node
+    inputs and w (the pair-level inputs get none).
+
+    Returns (gphi, gphid, gv, gvd [B,A,3F], gw [R,3F] or None).
+    """
+    f = w.shape[1] // 3
+    b_, a = phi.shape[0], phi.shape[1]
+    wm0, wm1, wm2 = _chunks(torch.einsum("bijr,rk->bijk", rbf, w), f)
+    wmd0, wmd1, wmd2 = _chunks(torch.einsum("bijr,rk->bijk", rbfd, w), f)
+    phi0, phi1, phi2 = _chunks(phi, f)
+    phid0, phid1, phid2 = _chunks(phid, f)
+    vc, vdc = v.reshape(b_, a, 3, f), vd.reshape(b_, a, 3, f)
+    g1, g1d = gds[:, :, None], gdsd[:, :, None]  # [B,A(i),1,F]
+    g2c, g2dc = gdv.reshape(b_, a, 3, f), gdvd.reshape(b_, a, 3, f)
+
+    # channel 0
+    gphi0 = (g1 * wm0 + g1d * wmd0).sum(dim=1)
+    gphid0 = (g1d * wm0).sum(dim=1)
+    # channel 1: s_c[j] = Σ_i g2_c wm1 + g2d_c wmd1, sd_c[j] = Σ_i g2d_c wm1
+    s = (torch.einsum("bicf,bijf->bjcf", g2c, wm1)
+         + torch.einsum("bicf,bijf->bjcf", g2dc, wmd1))
+    sd = torch.einsum("bicf,bijf->bjcf", g2dc, wm1)
+    gphi1 = (s * vc + sd * vdc).sum(dim=2)
+    gphid1 = (sd * vc).sum(dim=2)
+    gv = (s * phi1[:, :, None] + sd * phid1[:, :, None]).reshape(b_, a, 3 * f)
+    gvd = (sd * phi1[:, :, None]).reshape(b_, a, 3 * f)
+    # channel 2: pa = Σ_c u_c g2_c + ud_c g2d_c, pb = Σ_c u_c g2d_c  ([B,A(i),A(j),F])
+    pa = (torch.einsum("bicj,bicf->bijf", unit_t, g2c)
+          + torch.einsum("bicj,bicf->bijf", unitd_t, g2dc))
+    pb = torch.einsum("bicj,bicf->bijf", unit_t, g2dc)
+    gphi2 = (pa * wm2 + pb * wmd2).sum(dim=1)
+    gphid2 = (pb * wm2).sum(dim=1)
+
+    gphi = torch.cat([gphi0, gphi1, gphi2], dim=-1)
+    gphid = torch.cat([gphid0, gphid1, gphid2], dim=-1)
+    gw = None
+    if need_gw:
+        # per-pair cotangents of wm and wmd, channel by channel
+        q = phi1[:, None, :, None] * vc[:, None]  # [B,1,A(j),3,F]
+        qd = phid1[:, None, :, None] * vc[:, None] + phi1[:, None, :, None] * vdc[:, None]
+        gwm = torch.cat([
+            g1 * phi0[:, None] + g1d * phid0[:, None],
+            (g2c[:, :, None] * q + g2dc[:, :, None] * qd).sum(dim=3),
+            pa * phi2[:, None] + pb * phid2[:, None],
+        ], dim=-1)
+        gwmd = torch.cat([
+            g1d * phi0[:, None],
+            (g2dc[:, :, None] * q).sum(dim=3),
+            pb * phi2[:, None],
+        ], dim=-1)
+        gw = torch.einsum("bijr,bijk->rk", rbf, gwm) + torch.einsum("bijr,bijk->rk", rbfd, gwmd)
+    return gphi, gphid, gv, gvd, gw
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -134,6 +244,10 @@ def _lib() -> ctypes.CDLL:
     lib.painn_fwd.restype = i
     lib.painn_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.painn_bwd.restype = i
+    lib.painn_dual_fwd.argtypes = [p] * 13 + [i] * 4 + [p]
+    lib.painn_dual_fwd.restype = i
+    lib.painn_dual_bwd.argtypes = [p] * 19 + [i] * 5 + [p]
+    lib.painn_dual_bwd.restype = i
     return lib
 
 
@@ -216,7 +330,62 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
         )
     _raise_on(err, "painn_bwd launch")
     LAUNCHES["painn_bwd"] += 1
+    LAUNCHES["painn_bwd_gw"] += int(need_gw)
     return g_dist, g_ut, gphi, gv, gw
+
+
+def _dual_shapes(b, a, r, f):
+    node, pair, ut = (b, a, 3 * f), (b, a, a, r), (b, a, 3, a)
+    return dict(rbf=pair, rbfd=pair, phi=node, phid=node, v=node, vd=node,
+                unit_t=ut, unitd_t=ut, w=(r, 3 * f), gds=(b, a, f), gdv=node,
+                gdsd=(b, a, f), gdvd=node)
+
+
+def painn_dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
+    """Kernel C: (ds [B,A,F], dv [B,A,3F], dsd [B,A,F], dvd [B,A,3F])."""
+    b, a, r, f = _shapes(phi, w)
+    args = dict(rbf=rbf, rbfd=rbfd, phi=phi, phid=phid, v=v, vd=vd, unit_t=unit_t,
+                unitd_t=unitd_t, w=w)
+    dev = _check(args, _dual_shapes(b, a, r, f))
+    if dev.type == "cpu":
+        return painn_dual_fwd_reference(*args.values())
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    ds, dv, dsd, dvd = empty(b, a, f), empty(b, a, 3 * f), empty(b, a, f), empty(b, a, 3 * f)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().painn_dual_fwd(
+            *(t.data_ptr() for t in args.values()),
+            ds.data_ptr(), dv.data_ptr(), dsd.data_ptr(), dvd.data_ptr(), b, a, r, f, stream,
+        )
+    _raise_on(err, "painn_dual_fwd launch")
+    LAUNCHES["painn_dual_fwd"] += 1
+    return ds, dv, dsd, dvd
+
+
+def painn_dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gdsd, gdvd,
+                   need_gw: bool = True):
+    """Kernel D: (gphi, gphid, gv, gvd [B,A,3F], gw [R,3F] or None)."""
+    b, a, r, f = _shapes(phi, w)
+    args = dict(rbf=rbf, rbfd=rbfd, phi=phi, phid=phid, v=v, vd=vd, unit_t=unit_t,
+                unitd_t=unitd_t, w=w, gds=gds, gdv=gdv, gdsd=gdsd, gdvd=gdvd)
+    dev = _check(args, _dual_shapes(b, a, r, f))
+    if dev.type == "cpu":
+        return painn_dual_bwd_reference(*args.values(), need_gw=need_gw)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    gphi, gphid, gv, gvd = (empty(b, a, 3 * f) for _ in range(4))
+    gw = empty(r, 3 * f) if need_gw else None
+    gw_part = empty(b, r, 3 * f) if need_gw else None
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().painn_dual_bwd(
+            *(t.data_ptr() for t in args.values()),
+            gphi.data_ptr(), gphid.data_ptr(), gv.data_ptr(), gvd.data_ptr(),
+            ptr(gw_part), ptr(gw), int(need_gw), b, a, r, f, stream,
+        )
+    _raise_on(err, "painn_dual_bwd launch")
+    LAUNCHES["painn_dual_bwd"] += 1
+    return gphi, gphid, gv, gvd, gw
 
 
 class PaiNNMessageFn(torch.autograd.Function):
@@ -233,6 +402,7 @@ class PaiNNMessageFn(torch.autograd.Function):
         return ds, dv
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, gds, gdv):
         rbf, rbfp, phi, v, unit_t, w = ctx.saved_tensors
         g_dist, g_ut, gphi, gv, gw = painn_bwd(
@@ -248,12 +418,49 @@ def painn_message(dist, rbf, rbfp, phi, v, unit_t, w) -> Tuple[torch.Tensor, tor
     return PaiNNMessageFn.apply(dist, rbf, rbfp, phi, v, unit_t, w)
 
 
+class PaiNNDualFn(torch.autograd.Function):
+    """`painn_dual`'s custom VJP: forward = kernel C, backward = kernel D.
+
+    Inputs (rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w); outputs
+    (ds, dv, dsd, dvd). The pair-level inputs get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
+        ctx.save_for_backward(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w)
+        return painn_dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gds, gdv, gdsd, gdvd):
+        gphi, gphid, gv, gvd, gw = painn_dual_bwd(
+            *ctx.saved_tensors, gds.contiguous(), gdv.contiguous(), gdsd.contiguous(),
+            gdvd.contiguous(), need_gw=ctx.needs_input_grad[8],
+        )
+        return None, None, gphi, gphid, gv, gvd, None, None, gw
+
+
+def painn_dual(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
+    """Dual-number fused PaiNN message: (ds, dv, dsd, dvd), primal and
+    tangent lanes in one kernel. Differentiable (once) in the node inputs
+    and w only: for the surrogate's parameter pass."""
+    return PaiNNDualFn.apply(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w)
+
+
+def _live_pairs(*pair_tensors) -> int:
+    live = None
+    for t in pair_tensors:
+        nz = (t != 0).any(dim=-1)
+        live = nz if live is None else live | nz
+    return int(live.sum())
+
+
 def painn_fwd_flops_bytes(rbf: torch.Tensor, f: int) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel A needs on these inputs: FLOPs counted over the
     pairs whose rbf row is nonzero (masked pairs need no work), bytes with
     each input read once and each output written once."""
     b, a, _, r = rbf.shape
-    live = int((rbf != 0).any(dim=-1).sum())
+    live = _live_pairs(rbf)
     flops = pair_flops("fwd", r, f) * live
     nbytes = 4 * (rbf.numel() + 2 * b * a * 3 * f + b * a * 3 * a + r * 3 * f
                   + b * a * f + b * a * 3 * f)
@@ -264,12 +471,40 @@ def painn_bwd_flops_bytes(rbf: torch.Tensor, f: int, need_gw: bool = True) -> Tu
     """(FLOPs, bytes) kernel B needs on these inputs (see painn_fwd_flops_bytes);
     with gW, also the fixed-order sum of the per-molecule [R,3F] partials."""
     b, a, _, r = rbf.shape
-    live = int((rbf != 0).any(dim=-1).sum())
+    live = _live_pairs(rbf)
     flops = pair_flops("bwd", r, f) * live
     if need_gw:
         flops += pair_flops("bwd_gw", r, f) * live + (b - 1) * r * 3 * f
     nbytes = 4 * (2 * rbf.numel() + 2 * b * a * 3 * f + b * a * 3 * a + r * 3 * f
                   + b * a * f + b * a * 3 * f                   # gds, gdv
                   + b * a * a + b * a * 3 * a + 2 * b * a * 3 * f  # g_dist, g_unit_t, gphi, gv
+                  + (r * 3 * f if need_gw else 0))
+    return flops, nbytes
+
+
+def painn_dual_fwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) kernel C needs on these inputs: FLOPs over the pairs
+    whose rbf or rbfd row is nonzero, bytes with each input read once and
+    each output written once."""
+    b, a, _, r = rbf.shape
+    flops = pair_flops("dual_fwd", r, f) * _live_pairs(rbf, rbfd)
+    nbytes = 4 * (2 * rbf.numel() + 4 * b * a * 3 * f + 2 * b * a * 3 * a + r * 3 * f
+                  + 2 * (b * a * f + b * a * 3 * f))
+    return flops, nbytes
+
+
+def painn_dual_bwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int,
+                               need_gw: bool = True) -> Tuple[int, int]:
+    """(FLOPs, bytes) kernel D needs on these inputs (see
+    painn_dual_fwd_flops_bytes); with gW, also the fixed-order sum of the
+    per-molecule [R,3F] partials."""
+    b, a, _, r = rbf.shape
+    live = _live_pairs(rbf, rbfd)
+    flops = pair_flops("dual_bwd", r, f) * live
+    if need_gw:
+        flops += pair_flops("dual_bwd_gw", r, f) * live + (b - 1) * r * 3 * f
+    nbytes = 4 * (2 * rbf.numel() + 4 * b * a * 3 * f + 2 * b * a * 3 * a + r * 3 * f
+                  + 2 * (b * a * f + b * a * 3 * f)         # gds, gdv, gdsd, gdvd
+                  + 4 * b * a * 3 * f                       # gphi, gphid, gv, gvd
                   + (r * 3 * f if need_gw else 0))
     return flops, nbytes

@@ -1,10 +1,15 @@
-"""Job pipelines from one config: ``job_type: predict`` so far.
+"""Job pipelines from one config: ``job_type`` train, test and predict.
 
 The port of ``nabladft_tpu/pipelines.py``: one `run(cfg)` with config
-validation, seeding, the datamodule, the model, and the prediction writer
-(the output database mirrors the input rows plus `energy_pred` /
-`forces_pred` in the data blob). `run` executes on the card unless the
-caller passes ``device``; without a card and without ``device`` it raises.
+validation, seeding, the datamodule, the model, the trainer, and the
+prediction writer (the output database mirrors the input rows plus
+`energy_pred` / `forces_pred` in the data blob). `run` executes on the card
+unless the caller passes ``device``; without a card and without ``device``
+it raises. On the card a PaiNN runs its fused kernels and trains with the
+surrogate force gradient through them (``force_grads="pallas"``) unless
+the config pins either. `ckpt_path` takes a checkpoint this package wrote;
+``optimize``, ``pretrained`` and the JAX package's flax checkpoints are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,15 +27,15 @@ from nabladft_tpu_torch.data import DataModule, EnergyDataset
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
 from nabladft_tpu_torch.models import create_model
 from nabladft_tpu_torch.models.convert import load_flax_params
-from nabladft_tpu_torch.train import Trainer, seeded_generator
+from nabladft_tpu_torch.train import (
+    CSVLogger, MultiLogger, StdoutLogger, Trainer, TrainerConfig, seeded_generator,
+)
 from nabladft_tpu_torch.utils import resolve_device
 
 logger = logging.getLogger(__name__)
 
 JOB_TYPES = ("train", "test", "predict", "optimize")
 _NOT_PORTED = {
-    "train": "the trainer (ROADMAP queue 1, item 5)",
-    "test": "the test job (ROADMAP queue 1, item 5)",
     "optimize": "the optimize job (ROADMAP queue 1, item 7)",
 }
 
@@ -91,6 +96,33 @@ def build_model(cfg: Dict[str, Any], device: torch.device,
     return model
 
 
+def build_trainer(cfg: Dict[str, Any], device: torch.device,
+                  params: Optional[Mapping[str, Any]] = None) -> Trainer:
+    """The configured model (`build_model`) in a Trainer: the trainer group
+    with the model's `trainer_overrides`, loss specs and coefficients, and
+    stdout plus CSV loggers (``<output_dir>/<name>/metrics.csv``)."""
+    m = cfg["model"]
+    model = build_model(cfg, device, params)
+    t = dict(cfg.get("trainer", {}))
+    for k, v in m.get("trainer_overrides", {}).items():
+        t.setdefault(k, v)
+    t.setdefault("loss_specs", m.get("loss_specs", {"energy": "l1", "forces": "l2norm"}))
+    t.setdefault("loss_coefs", m.get("loss_coefs", {"energy": 1.0, "forces": 1.0}))
+    if cfg.get("ckpt_dir"):
+        t.setdefault("ckpt_dir", cfg["ckpt_dir"])
+    if getattr(model, "use_pallas", "off") == "fused":
+        # the fused kernels' backward is first-order: train through C and D
+        t.setdefault("force_grads", "pallas")
+    loggers = [StdoutLogger()]
+    if cfg.get("log_csv", True):
+        out_dir = Path(cfg.get("output_dir", "outputs")) / cfg.get("name", m["name"])
+        loggers.append(CSVLogger(out_dir / "metrics.csv"))
+    for backend in ("wandb", "tensorboard"):
+        if cfg.get(backend, {}).get("enable"):
+            raise NotImplementedError(f"the {backend} logger is not ported yet (ROADMAP queue 1)")
+    return Trainer(model, device, TrainerConfig(**t), loggers=MultiLogger(loggers))
+
+
 def write_predictions_to_db(input_db: Path, output_db: Path, predictions) -> int:
     """Stream input rows to the output db with prediction fields added.
 
@@ -120,22 +152,41 @@ def write_predictions_to_db(input_db: Path, output_db: Path, predictions) -> int
 
 def run(cfg: Dict[str, Any], device=None,
         params: Optional[Mapping[str, Any]] = None) -> Dict[str, float]:
-    """Entry point. For ``predict`` returns {"rows", "batches", "seconds"}:
-    rows written and the wall time of the predict-and-write loop."""
+    """Entry point. `params` (a flax parameter tree) replaces the seeded
+    initial weights. Returns, for ``train``, the last validation metrics
+    plus ``step``; for ``test``, the test metrics; for ``predict``, {"rows",
+    "batches", "seconds"}: rows written and the wall time of the
+    predict-and-write loop."""
     check_cfg(cfg)
     job = cfg["job_type"]
     if job in _NOT_PORTED:
         raise NotImplementedError(
             f"job_type {job!r} is not ported to PyTorch yet: {_NOT_PORTED[job]}")
-    if cfg.get("ckpt_path") or cfg.get("pretrained"):
+    if cfg.get("pretrained"):
         raise NotImplementedError(
-            "checkpoint / pretrained restore is not ported yet (ROADMAP queue 1); "
+            "pretrained restore is not ported yet (ROADMAP queue 1); "
             "pass flax params to run(cfg, params=...) instead")
     device = resolve_device(device)
     seed_everything(cfg.get("seed", 42))
 
     dm = build_datamodule(cfg)
-    trainer = Trainer(build_model(cfg, device, params), device)
+    trainer = build_trainer(cfg, device, params)
+    ckpt_path = cfg.get("ckpt_path")
+    if job == "train":
+        try:
+            metrics = trainer.fit(dm, ckpt_path=ckpt_path)
+        finally:
+            trainer.loggers.finalize()
+        return dict(metrics, step=trainer.step)
+    if ckpt_path:
+        trainer.load_checkpoint(ckpt_path)
+    if job == "test":
+        try:
+            metrics = trainer.test(dm.test_dataloader())
+        finally:
+            trainer.loggers.finalize()
+        logger.info("test metrics: %s", metrics)
+        return metrics
     out_db = Path(cfg.get("output_db", "predictions.db"))
     input_db = Path(cfg["datamodule"]["source"])
     loader = dm.predict_dataloader()

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (A, B, C, D) against their plain PyTorch
+versions, on the card.
 
 Every test needs a CUDA card and nvcc and skips without a card. The file
 imports no JAX, so it also runs on a machine without it (tests/conftest.py
@@ -19,6 +20,8 @@ import torch
 from nabladft_tpu_torch.ops import painn_fused as pf
 
 SHAPES = [(4, 8, 12, 16), (3, 10, 13, 160), (2, 33, 100, 128), (1, 62, 100, 128)]
+# the train path's kernel shapes: B=64 molecules of each bucket's A atoms
+BUCKET_SHAPES = [(64, a, 100, 128) for a in (32, 48, 64)]
 REL = 2e-5
 
 
@@ -44,6 +47,9 @@ def _inputs(shape, dev, seed=0):
     rbfp = (-2.0 / 0.05) * (dist[..., None] - mu) * rbf
     x = dict(dist=dist, rbf=rbf, rbfp=rbfp, phi=mk(b, a, 3 * f), v=mk(b, a, 3 * f),
              unit_t=mk(b, a, 3, a), w=mk(r, 3 * f), gds=mk(b, a, f), gdv=mk(b, a, 3 * f))
+    # the tangent lanes: rbfd = rbfp * (a distance tangent), as the model builds it
+    x.update(rbfd=rbfp * mk(b, a, a)[..., None], phid=mk(b, a, 3 * f), vd=mk(b, a, 3 * f),
+             unitd_t=mk(b, a, 3, a), gdsd=mk(b, a, f), gdvd=mk(b, a, 3 * f))
     return {k: t.to(dev) for k, t in x.items()}
 
 
@@ -55,6 +61,8 @@ def _assert_close(got, ref):
 
 A_ARGS = ("rbf", "phi", "v", "unit_t", "w")
 B_ARGS = ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")
+C_ARGS = ("rbf", "rbfd", "phi", "phid", "v", "vd", "unit_t", "unitd_t", "w")
+D_ARGS = C_ARGS + ("gds", "gdv", "gdsd", "gdvd")
 
 
 @pytest.mark.cuda
@@ -148,3 +156,91 @@ def test_fused_painn_on_card_matches_cpu_plain(card):
     out_c = forward(cpu, batch)
     torch.testing.assert_close(out_g["energy"].cpu(), out_c["energy"], rtol=2e-4, atol=1e-5)
     torch.testing.assert_close(out_g["forces"].cpu(), out_c["forces"], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + BUCKET_SHAPES)
+def test_dual_fwd_kernel_matches_plain(card, shape):
+    x = _inputs(shape, card)
+    args = [x[k] for k in C_ARGS]
+    pf.reset_launches()
+    got = pf.painn_dual_fwd(*args)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["painn_dual_fwd"] == 1
+    _assert_close(got, pf.painn_dual_fwd_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + BUCKET_SHAPES)
+def test_dual_bwd_kernel_matches_plain(card, shape):
+    x = _inputs(shape, card)
+    args = [x[k] for k in D_ARGS]
+    pf.reset_launches()
+    got = pf.painn_dual_bwd(*args)
+    torch.cuda.synchronize()
+    assert pf.LAUNCHES["painn_dual_bwd"] == 1
+    _assert_close(got, pf.painn_dual_bwd_reference(*args))
+    no_gw = pf.painn_dual_bwd(*args, need_gw=False)
+    assert no_gw[4] is None and all(torch.equal(p, q) for p, q in zip(no_gw[:4], got[:4]))
+
+
+@pytest.mark.cuda
+def test_dual_bwd_kernel_is_deterministic(card):
+    x = _inputs(BUCKET_SHAPES[1], card)
+    args = [x[k] for k in D_ARGS]
+    first, second = pf.painn_dual_bwd(*args), pf.painn_dual_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_dual_fn_on_card_matches_cpu(card):
+    """PaiNNDualFn's outputs and gradients on the card (kernels C and D)
+    against the same op on CPU tensors (the plain versions)."""
+    x = _inputs(SHAPES[1], card)
+    diff = ("phi", "phid", "v", "vd", "w")
+
+    def run(dev):
+        leaves = {k: x[k].to(dev).clone().requires_grad_(k in diff) for k in C_ARGS}
+        out = pf.painn_dual(*(leaves[k] for k in C_ARGS))
+        cots = [x[k].to(dev) for k in ("gds", "gdv", "gdsd", "gdvd")]
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        return [o.detach().cpu() for o in out] + [leaves[k].grad.cpu() for k in diff]
+
+    _assert_close(run(card), run(torch.device("cpu")))
+
+
+@pytest.mark.cuda
+def test_pallas_train_step_on_card_matches_plain_direct(card):
+    """One train step's parameter gradients: kernels A-D (force_grads
+    "pallas") against the plain module's double backward (force_grads
+    "direct"), on the card, same weights and batch. Tolerance as the CPU
+    parity tests of the surrogate (rtol 5e-3, atol 1e-5)."""
+    import numpy as np
+
+    from nabladft_tpu_torch.data.batch import MolBatch
+    from nabladft_tpu_torch.data.synthetic import random_molecule
+    from nabladft_tpu_torch.models import create_model
+    from nabladft_tpu_torch.train import Trainer, TrainerConfig, seeded_generator
+
+    rng = np.random.default_rng(1)
+    b, a = 4, 20
+    z, pos = np.zeros((b, a), np.int32), np.zeros((b, a, 3), np.float32)
+    mask = np.zeros((b, a), bool)
+    for i, n in enumerate([20, 13, 7, 17]):
+        zi, pi = random_molecule(rng, n)
+        z[i, :n], pos[i, :n], mask[i, :n] = zi, pi, True
+    batch = MolBatch(z=torch.from_numpy(z), pos=torch.from_numpy(pos),
+                     node_mask=torch.from_numpy(mask), graph_mask=torch.ones(b, dtype=torch.bool),
+                     energy=torch.from_numpy(rng.normal(size=b).astype(np.float32)),
+                     forces=torch.from_numpy(rng.normal(size=(b, a, 3)).astype(np.float32)
+                                             * mask[..., None]),
+                     mol_id=torch.arange(b, dtype=torch.int32)).to(card)
+    kw = dict(hidden=32, n_interactions=2, n_rbf=20, max_neighbors=9)
+    grads = {}
+    for mode, route in (("fused", "pallas"), ("off", "direct")):
+        model = create_model("painn", device=card, generator=seeded_generator(1),
+                             use_pallas=mode, **kw)
+        Trainer(model, card, TrainerConfig(force_grads=route))._compute_grads(batch)
+        grads[route] = {n: p.grad for n, p in model.named_parameters()}
+    for n, g in grads["direct"].items():
+        torch.testing.assert_close(grads["pallas"][n], g, rtol=5e-3, atol=1e-5, msg=n)

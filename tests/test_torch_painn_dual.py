@@ -1,0 +1,174 @@
+"""The port's dual-number PaiNN message (kernels C and D) against the JAX op.
+
+The plain PyTorch versions of kernel C (`painn_dual_fwd_reference`) and
+kernel D (`painn_dual_bwd_reference`) are held against the JAX Pallas op
+`painn_dual` and its VJP, run in interpret mode on the CPU, on the same
+seeded numpy inputs; `PaiNNDualFn` (the autograd binding) is held against
+torch autograd through the plain forward, and the plain forward against
+torch's forward AD of kernel A's plain version. The CUDA kernels are held
+against the plain versions on the card in tests/test_torch_cuda.py.
+Tolerances as in tests/ops/test_painn_fused.py: 2e-5 forward, 3e-4/3e-5
+gradients (float32 sums in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nabladft_tpu.ops.pallas.painn_fused import painn_dual as jax_painn_dual
+from nabladft_tpu_torch.ops import painn_fused as tp
+
+B, A, R, F = 3, 8, 12, 16
+F3 = 3 * F
+FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=3e-4, atol=3e-5)
+C_IN = ("rbf", "rbfd", "phi", "phid", "v", "vd", "unit_t", "unitd_t", "w")
+COTS = ("gds", "gdv", "gdsd", "gdvd")
+D_OUT = ("gphi", "gphid", "gv", "gvd", "gw")
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(3)
+
+    def mk(*shape):
+        return (rng.normal(size=shape) * 0.3).astype(np.float32)
+
+    mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
+    d = dict(rbf=mk(B, A, A, R) * mask[..., None], rbfd=mk(B, A, A, R) * mask[..., None],
+             phi=mk(B, A, F3), phid=mk(B, A, F3), v=mk(B, A, F3), vd=mk(B, A, F3),
+             unit_t=mk(B, A, 3, A), unitd_t=mk(B, A, 3, A), w=mk(R, F3),
+             gds=mk(B, A, F), gdv=mk(B, A, F3), gdsd=mk(B, A, F), gdvd=mk(B, A, F3))
+    return d
+
+
+@pytest.fixture(scope="module")
+def jax_results(data):
+    """JAX painn_dual forward and VJP in interpret mode, jitted once."""
+
+    @jax.jit
+    def run(*args):
+        ins, cots = args[:9], args[9:]
+        out, vjp = jax.vjp(lambda *a: jax_painn_dual(*a, True), *ins)
+        return out, vjp(tuple(cots))
+
+    out, grads = run(*(jnp.asarray(data[k]) for k in C_IN + COTS))
+    res = dict(zip(("ds", "dv", "dsd", "dvd"), (np.asarray(x) for x in out)))
+    g = dict(zip(C_IN, grads))
+    res.update(gphi=g["phi"], gphid=g["phid"], gv=g["v"], gvd=g["vd"], gw=g["w"])
+    res["pair_grads"] = [np.asarray(g[k]) for k in ("rbf", "rbfd", "unit_t", "unitd_t")]
+    return {k: (np.asarray(v) if k != "pair_grads" else v) for k, v in res.items()}
+
+
+def _t(data, *keys):
+    return [torch.from_numpy(data[k]) for k in keys]
+
+
+@pytest.mark.parametrize("name", ["ds", "dv", "dsd", "dvd"])
+def test_plain_dual_forward_matches_jax(data, jax_results, name):
+    out = dict(zip(("ds", "dv", "dsd", "dvd"), tp.painn_dual_fwd_reference(*_t(data, *C_IN))))
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **FWD_TOL)
+
+
+@pytest.mark.parametrize("name", D_OUT)
+def test_plain_dual_backward_matches_jax_vjp(data, jax_results, name):
+    out = dict(zip(D_OUT, tp.painn_dual_bwd_reference(*_t(data, *C_IN + COTS))))
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **GRAD_TOL)
+
+
+def test_jax_vjp_gives_pair_inputs_zeros(jax_results):
+    """The contract the port keeps: no cotangent for rbf, rbfd, unit_t, unitd_t."""
+    assert all((g == 0).all() for g in jax_results["pair_grads"])
+
+
+def test_plain_dual_forward_is_the_jvp_of_the_plain_message(data):
+    rbf, rbfd, phi, phid, v, vd, ut, utd, w = _t(data, *C_IN)
+    (ds, dv), (dsd, dvd) = torch.func.jvp(
+        lambda *x: tp.painn_message_reference(*x, w), (rbf, phi, v, ut), (rbfd, phid, vd, utd))
+    got = tp.painn_dual_fwd_reference(rbf, rbfd, phi, phid, v, vd, ut, utd, w)
+    for x, y in zip(got, (ds, dv, dsd, dvd)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), **FWD_TOL)
+
+
+def test_dual_fn_matches_autograd_through_plain_forward(data):
+    """PaiNNDualFn on CPU tensors (plain C forward, plain D backward) against
+    torch autograd through the plain C forward: node and weight gradients,
+    none for the pair-level inputs."""
+    x = _t(data, *C_IN)
+    cots = _t(data, *COTS)
+    diff = (2, 3, 4, 5, 8)  # phi, phid, v, vd, w
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(i in diff) for i, t in enumerate(x)]
+        out = fn(*leaves)
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        return out, [leaves[i].grad for i in diff], [leaves[i].grad for i in (0, 1, 6, 7)]
+
+    out, grads, pair = run(tp.painn_dual)
+    out_r, grads_r, _ = run(tp.painn_dual_fwd_reference)
+    for o, r in zip(out, out_r):
+        np.testing.assert_allclose(o.detach().numpy(), r.detach().numpy(), **FWD_TOL)
+    for g, r, name in zip(grads, grads_r, ["phi", "phid", "v", "vd", "w"]):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), **GRAD_TOL, err_msg=name)
+    assert all(g is None for g in pair)
+
+
+def test_dual_fn_skips_gw_for_fixed_weights(data):
+    x = [t.clone() for t in _t(data, *C_IN)]
+    x[2].requires_grad_(True)
+    out = tp.painn_dual(*x)
+    sum(o.sum() for o in out).backward()
+    assert x[2].grad is not None and x[8].grad is None
+
+
+def test_second_derivatives_through_the_kernel_ops_raise(data):
+    """Neither VJP is differentiable: kernels B and D return results with no
+    graph on the card, so a double backward must raise on every device
+    rather than silently drop the second-order terms. The cotangents depend
+    on a weight here, as they do in a force loss."""
+    scale = torch.tensor(1.5, requires_grad=True)
+    dist = torch.rand(B, A, A) + 0.5
+    rbf, rbfp, phi, v, ut, w = _t(data, "rbf", "rbfd", "phi", "v", "unit_t", "w")
+    dist.requires_grad_(True)
+    ds, dv = tp.painn_message(dist, rbf, rbfp, phi, v, ut, w)
+    (g,) = torch.autograd.grad(scale * (ds.sum() + dv.sum()), dist, create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        g.sum().backward()
+
+    x = [t.clone() for t in _t(data, *C_IN)]
+    x[2].requires_grad_(True)
+    out = tp.painn_dual(*x)
+    (g,) = torch.autograd.grad(scale * sum(o.sum() for o in out), x[2], create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        g.sum().backward()
+
+
+def test_dual_wrappers_count_no_cpu_launches(data):
+    tp.reset_launches()
+    tp.painn_dual_fwd(*_t(data, *C_IN))
+    tp.painn_dual_bwd(*_t(data, *C_IN + COTS))
+    assert tp.LAUNCHES == dict.fromkeys(tp.LAUNCHES, 0)
+
+
+def test_dual_wrappers_reject_bad_inputs(data):
+    x = _t(data, *C_IN)
+    with pytest.raises(ValueError, match="rbfd has shape"):
+        tp.painn_dual_fwd(x[0], x[1][:, :, :-1], *x[2:])
+    with pytest.raises(ValueError, match="dtype"):
+        tp.painn_dual_fwd(*x[:3], x[3].double(), *x[4:])
+
+
+def test_dual_flop_and_byte_counts(data):
+    rbf, rbfd = _t(data, "rbf", "rbfd")
+    live = int(((rbf != 0).any(-1) | (rbfd != 0).any(-1)).sum())
+    flops, nbytes = tp.painn_dual_fwd_flops_bytes(rbf, rbfd, F)
+    assert flops == (12 * R + 50) * F * live
+    assert nbytes == 4 * (2 * B * A * A * R + 4 * B * A * F3 + 2 * B * A * 3 * A + R * F3
+                          + 2 * (B * A * F + B * A * F3))
+    fb, nb = tp.painn_dual_bwd_flops_bytes(rbf, rbfd, F)
+    fb0, nb0 = tp.painn_dual_bwd_flops_bytes(rbf, rbfd, F, need_gw=False)
+    assert fb0 == (12 * R + 46) * F * live
+    assert fb - fb0 == (12 * R + 44) * F * live + (B - 1) * R * F3
+    assert nb - nb0 == 4 * R * F3
