@@ -1,4 +1,4 @@
-"""Model zoo: NNPs as torch modules (PaiNN so far)."""
+"""Model zoo: NNPs as torch modules (PaiNN and SchNet so far)."""
 
 from nabladft_tpu_torch.models.base import (  # noqa: F401
     MODEL_REGISTRY,
@@ -7,3 +7,4 @@ from nabladft_tpu_torch.models.base import (  # noqa: F401
     register_model,
 )
 from nabladft_tpu_torch.models.painn import PaiNN  # noqa: F401
+from nabladft_tpu_torch.models.schnet import SchNet  # noqa: F401

@@ -13,6 +13,7 @@ import math
 from typing import Callable, Dict, Optional, Sequence, Type, Union
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
@@ -76,6 +77,14 @@ def forward(model: nn.Module, batch: MolBatch,
     out = {k: t.detach() for k, t in out.items()}
     out["forces"] = -grad * batch.node_mask[..., None]
     return out
+
+
+def dual_lanes(x: torch.Tensor):
+    """(primal, tangent) of a forward-AD dual tensor as contiguous plain
+    tensors, for the dual message kernels; a missing tangent (a value that
+    does not depend on pos) is zeros."""
+    p, t = fwAD.unpack_dual(x)
+    return p.contiguous(), (torch.zeros_like(p) if t is None else t.contiguous())
 
 
 # ---------------------------------------------------------------------------

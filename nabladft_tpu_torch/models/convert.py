@@ -1,7 +1,7 @@
-"""Carry a JAX (flax) PaiNN parameter tree into the PyTorch module.
+"""Carry a JAX (flax) parameter tree into the PyTorch module.
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of the flax
-variables, with or without the top-level ``params`` key). Paths:
+variables, with or without the top-level ``params`` key). PaiNN's paths:
 
   atom_embedding/embedding                         [Z, F]
   layer_i/message/MLP_0/Dense_{0,1}/{kernel,bias}
@@ -10,8 +10,16 @@ variables, with or without the top-level ``params`` key). Paths:
   layer_i/update/MLP_0/Dense_{0,1}/{kernel,bias}
   energy_head/Dense_{0,1}/{kernel,bias}
 
+SchNet's (the torch module names its parameters as the tree does):
+
+  atom_embedding/embedding                         [Z, F]
+  filter_i_{w1 [R,F], b1 [1,F], w2 [F,F], b2 [1,F]}  (raw, top level)
+  in2f_i/kernel                                    (no bias)
+  f2out_i_{0,1}/{kernel,bias}
+  atomwise/Dense_{0,1}/{kernel,bias}
+
 A flax ``Dense.kernel`` is [in, out] and becomes the transposed
-``Linear.weight``; ``filter_kernel`` keeps its [R, 3F] layout, which the
+``Linear.weight``; the raw filter arrays keep their layout, which the
 kernels take as is. Every parameter of the module must be matched and
 every leaf of the tree used.
 """
@@ -65,7 +73,8 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax PaiNN parameter tree into `model` in place; returns it."""
+    """Copy a flax PaiNN or SchNet parameter tree into `model` in place;
+    returns it."""
     tree = params.get("params", params)
     leaves = _leaves(tree)
     used = set()

@@ -29,7 +29,8 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    MLP, ModelOutput, init_linear_, lecun_normal_, register_model, shifted_softplus,
+    MLP, ModelOutput, dual_lanes, init_linear_, lecun_normal_, register_model,
+    shifted_softplus,
 )
 from nabladft_tpu_torch.ops import graph, radial
 from nabladft_tpu_torch.ops.painn_fused import painn_dual, painn_message, painn_message_reference
@@ -85,22 +86,15 @@ class PaiNNMessage(nn.Module):
         return ds, dv_flat.reshape(*v.shape)
 
 
-def _lanes(x: torch.Tensor):
-    """(primal, tangent) of a dual tensor as contiguous plain tensors; a
-    missing tangent (a value that does not depend on pos) is zeros."""
-    p, t = fwAD.unpack_dual(x)
-    return p.contiguous(), (torch.zeros_like(p) if t is None else t.contiguous())
-
-
 def _dual_message(feats, phi, v_flat, w):
     """Kernel C on the primal and tangent lanes of the message inputs; the
     outputs are packed back into dual tensors, so reverse mode through
     their tangents reaches kernel D once, with both lanes' cotangents."""
     if fwAD.unpack_dual(w).tangent is not None:
         raise ValueError("the dual PaiNN message takes no tangent on the filter weights")
-    phi_p, phi_t = _lanes(phi)
-    v_p, v_t = _lanes(v_flat)
-    ut_p, ut_t = _lanes(feats["unit_t"])
+    phi_p, phi_t = dual_lanes(phi)
+    v_p, v_t = dual_lanes(v_flat)
+    ut_p, ut_t = dual_lanes(feats["unit_t"])
     ds, dv, dsd, dvd = painn_dual(feats["rbf_env"], feats["rbf_env_t"], phi_p, phi_t,
                                   v_p, v_t, ut_p, ut_t, w)
     return fwAD.make_dual(ds, dsd), fwAD.make_dual(dv, dvd)

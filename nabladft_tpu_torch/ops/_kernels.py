@@ -17,6 +17,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -73,3 +76,27 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+def check_inputs(tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]) -> torch.device:
+    """A kernel wrapper's inputs: same device, float32, the expected
+    shapes, contiguous on the card. Raises ValueError; returns the device."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} has dtype {t.dtype}; the kernels take float32")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def raise_on_error(err: int, what: str) -> None:
+    """Raise when a kernel entry point returned a cudaError_t other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed with cudaError {err}")

@@ -251,23 +251,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]) -> torch.device:
-    """Same device, float32, contiguous, expected shapes; returns the device."""
-    dev = next(iter(tensors.values())).device
-    for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}; the kernels take float32")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
-        if dev.type == "cuda" and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def _shapes(phi, w):
     b, a = phi.shape[0], phi.shape[1]
     r, f3 = w.shape
@@ -276,15 +259,10 @@ def _shapes(phi, w):
     return b, a, r, f3 // 3
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed with cudaError {err}")
-
-
 def painn_fwd(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A: (ds [B,A,F], dv [B,A,3F])."""
     b, a, r, f = _shapes(phi, w)
-    dev = _check(
+    dev = _kernels.check_inputs(
         dict(rbf=rbf, phi=phi, v=v, unit_t=unit_t, w=w),
         dict(rbf=(b, a, a, r), phi=(b, a, 3 * f), v=(b, a, 3 * f),
              unit_t=(b, a, 3, a), w=(r, 3 * f)),
@@ -299,7 +277,7 @@ def painn_fwd(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
             rbf.data_ptr(), phi.data_ptr(), v.data_ptr(), unit_t.data_ptr(), w.data_ptr(),
             ds.data_ptr(), dv.data_ptr(), b, a, r, f, stream,
         )
-    _raise_on(err, "painn_fwd launch")
+    _kernels.raise_on_error(err, "painn_fwd launch")
     LAUNCHES["painn_fwd"] += 1
     return ds, dv
 
@@ -307,7 +285,7 @@ def painn_fwd(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
 def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     """Kernel B: (g_dist, g_unit_t, gphi, gv, gw or None)."""
     b, a, r, f = _shapes(phi, w)
-    dev = _check(
+    dev = _kernels.check_inputs(
         dict(rbf=rbf, rbfp=rbfp, phi=phi, v=v, unit_t=unit_t, w=w, gds=gds, gdv=gdv),
         dict(rbf=(b, a, a, r), rbfp=(b, a, a, r), phi=(b, a, 3 * f), v=(b, a, 3 * f),
              unit_t=(b, a, 3, a), w=(r, 3 * f), gds=(b, a, f), gdv=(b, a, 3 * f)),
@@ -328,7 +306,7 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
             g_dist.data_ptr(), g_ut.data_ptr(), gphi.data_ptr(), gv.data_ptr(),
             ptr(gw_part), ptr(gw), int(need_gw), b, a, r, f, stream,
         )
-    _raise_on(err, "painn_bwd launch")
+    _kernels.raise_on_error(err, "painn_bwd launch")
     LAUNCHES["painn_bwd"] += 1
     LAUNCHES["painn_bwd_gw"] += int(need_gw)
     return g_dist, g_ut, gphi, gv, gw
@@ -346,7 +324,7 @@ def painn_dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
     b, a, r, f = _shapes(phi, w)
     args = dict(rbf=rbf, rbfd=rbfd, phi=phi, phid=phid, v=v, vd=vd, unit_t=unit_t,
                 unitd_t=unitd_t, w=w)
-    dev = _check(args, _dual_shapes(b, a, r, f))
+    dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f))
     if dev.type == "cpu":
         return painn_dual_fwd_reference(*args.values())
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
@@ -357,7 +335,7 @@ def painn_dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
             *(t.data_ptr() for t in args.values()),
             ds.data_ptr(), dv.data_ptr(), dsd.data_ptr(), dvd.data_ptr(), b, a, r, f, stream,
         )
-    _raise_on(err, "painn_dual_fwd launch")
+    _kernels.raise_on_error(err, "painn_dual_fwd launch")
     LAUNCHES["painn_dual_fwd"] += 1
     return ds, dv, dsd, dvd
 
@@ -368,7 +346,7 @@ def painn_dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gd
     b, a, r, f = _shapes(phi, w)
     args = dict(rbf=rbf, rbfd=rbfd, phi=phi, phid=phid, v=v, vd=vd, unit_t=unit_t,
                 unitd_t=unitd_t, w=w, gds=gds, gdv=gdv, gdsd=gdsd, gdvd=gdvd)
-    dev = _check(args, _dual_shapes(b, a, r, f))
+    dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f))
     if dev.type == "cpu":
         return painn_dual_bwd_reference(*args.values(), need_gw=need_gw)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
@@ -383,7 +361,7 @@ def painn_dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gd
             gphi.data_ptr(), gphid.data_ptr(), gv.data_ptr(), gvd.data_ptr(),
             ptr(gw_part), ptr(gw), int(need_gw), b, a, r, f, stream,
         )
-    _raise_on(err, "painn_dual_bwd launch")
+    _kernels.raise_on_error(err, "painn_dual_bwd launch")
     LAUNCHES["painn_dual_bwd"] += 1
     return gphi, gphid, gv, gvd, gw
 

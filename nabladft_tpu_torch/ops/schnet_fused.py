@@ -1,0 +1,471 @@
+"""Fused SchNet continuous-filter convolution: CUDA kernels E (forward),
+F (backward), G (dual forward) and H (dual backward).
+
+The port of ``nabladft_tpu/ops/pallas/schnet_fused.py``: the first-order op
+`schnet_message` (a `jax.custom_vjp` over `_fwd_kernel` / `_bwd_kernel`) and
+the dual-number op `schnet_dual` (a `jax.custom_vjp` over `_dual_fwd_kernel`
+/ `_dual_bwd_kernel`) that the surrogate training pass runs. Semantics on
+the dense pair lattice, per molecule:
+
+  z1  = rbf @ W1 + b1        h = ssp(z1)          (the filter MLP)
+  wmr = h @ W2 + b2          wm = wmr ⊙ envf      (cutoff and adjacency)
+  msg_i = Σ_j wm[i,j] ⊙ xin_j
+
+rbf is not masked: the mask rides in envf (and envp, envfd), which are zero
+off the edges, so the filter bias b2 dies there too.
+
+The backward folds the chain rule through the basis AND the envelope: it
+takes rbfp = ∂rbf/∂dist and envp = ∂envf/∂dist and returns the scalar
+g_dist [B,A,A], so no [B,A,A,R] cotangent exists. The op therefore takes
+`dist` as an explicit input and gives rbf/rbfp/envf/envp no gradient: the
+caller must pass them as those functions of dist, detached.
+
+The dual op carries a tangent lane beside rbf, envf and xin (rbfd, envfd,
+xind) with the weights fixed, and returns (msg, msgd). Its VJP (kernel H)
+gives node and weight cotangents only, none for the pair-level inputs: it
+is valid only where positions are not differentiated, as in the surrogate's
+parameter pass. Neither VJP is itself differentiable.
+
+Layouts: rbf/rbfp/rbfd [B,A,A,R]; envf/envp/envfd [B,A,A]; xin/xind [B,A,F];
+W1 [R,F]; b1 [1,F]; W2 [F,F]; b2 [1,F]. All float32.
+
+Each kernel has its plain PyTorch version here with the same signature
+(`schnet_message_reference`, `schnet_message_bwd_reference`,
+`schnet_dual_fwd_reference`, `schnet_dual_bwd_reference`). A wrapper takes
+the plain version only for CPU tensors; a CUDA tensor launches the kernel
+(sources in ``csrc/schnet_fused.cu``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F_
+
+from nabladft_tpu_torch.ops import _kernels
+
+# launches of each CUDA kernel wrapper since the last reset
+# ("schnet_bwd_gw": kernel F calls that also ran the weight-gradient stage)
+LAUNCHES: Dict[str, int] = {"schnet_fwd": 0, "schnet_bwd": 0, "schnet_bwd_gw": 0,
+                            "schnet_dual_fwd": 0, "schnet_dual_bwd": 0}
+
+_LOG2 = math.log(2.0)
+# weight-gradient partials per molecule (GW_SPLITS in csrc/schnet_fused.cu)
+GW_SPLITS = 4
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def pair_flops(kind: str, r: int, f: int) -> int:
+    """FLOPs per live pair (a pair whose envelope lanes are not all zero),
+    counted from the CUDA kernel bodies: an FMA is 2, any other add,
+    multiply, max, divide, exp or log1p 1. Per channel:
+
+      fwd    — z1 = rbf @ W1 (2R), + b1 (1), ssp (5); wmr = h @ W2 (2F), + b2,
+               ⊙ envf, the FMA into msg (4): 2R + 2F + 10;
+      bwd    — z1 and rbfp @ W1 (4R), + b1, ssp and sigmoid (7), s ⊙ rpw (1);
+               gwmr (2); wmr (2F + 1), gxin (3), g_env (2 + its channel sum
+               1); gh = gwmr @ W2ᵀ (2F), ⊙ (s ⊙ rpw) and the channel sum (2):
+               4R + 4F + 20;
+      bwd_gw — gz1 = gh ⊙ s (1); gW1 and gb1 (2R + 2); gwmr again (2), gW2
+               and gb2 (2F + 2): 2R + 2F + 7;
+      dual_fwd — z1, z1d (4R), + b1, ssp and sigmoid (7), hd (1); wmr, wmrd
+               (4F), + b2, wm, wmd, msg, msgd (11): 4R + 4F + 20;
+      dual_bwd — z1, z1d (4R), + b1, ssp, sigmoid, hd (9); wmr, wmrd (4F) and
+               the gxin / gxind terms (11): 4R + 4F + 20;
+      dual_bwd_gw — cot(wmr), cot(wmrd) (8); gh, ghd (4F), gz1, gz1d (7);
+               gW1 and gb1 over both lanes (4R + 2); the cotangents again
+               (8), gW2 and gb2 (4F + 2): 4R + 8F + 27.
+
+    The fixed-order sum of the weight-gradient partials is counted apart
+    (`*_flops_bytes`). The JAX package's analytic model (`kernel_flops`)
+    counts 2R + 2F + 6 per channel for fwd.
+    """
+    return {"fwd": 2 * r + 2 * f + 10, "bwd": 4 * r + 4 * f + 20, "bwd_gw": 2 * r + 2 * f + 7,
+            "dual_fwd": 4 * r + 4 * f + 20, "dual_bwd": 4 * r + 4 * f + 20,
+            "dual_bwd_gw": 4 * r + 8 * f + 27}[kind] * f
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _ssp(x: torch.Tensor) -> torch.Tensor:
+    return F_.softplus(x) - _LOG2
+
+
+def _filter(rbf, w1, b1, w2, b2):
+    """rbf -> (s, h, wmr): the filter MLP per pair."""
+    z1 = torch.einsum("bijr,rf->bijf", rbf, w1) + b1[0]
+    h = _ssp(z1)
+    wmr = torch.einsum("bijf,fg->bijg", h, w2) + b2[0]
+    return torch.sigmoid(z1), h, wmr
+
+
+def schnet_message_reference(rbf, envf, xin, w1, b1, w2, b2) -> torch.Tensor:
+    """Plain PyTorch version of kernel E: msg [B,A,F].
+
+    Also the `use_pallas="off"` model path, differentiable by autograd.
+    """
+    z1 = torch.einsum("bijr,rf->bijf", rbf, w1) + b1[0]
+    wmr = torch.einsum("bijf,fg->bijg", _ssp(z1), w2) + b2[0]
+    wm = wmr * envf[..., None]
+    return (wm * xin[:, None]).sum(dim=2)
+
+
+def schnet_message_bwd_reference(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg,
+                                 need_gw: bool = True):
+    """Plain PyTorch version of kernel F: the VJP of kernel E.
+
+    Returns (g_dist [B,A,A], gxin [B,A,F], gw1, gb1, gw2, gb2), the four
+    weight cotangents None without `need_gw`; g_dist = Σ_f gz1 ⊙ (rbfp @ W1)
+    + g_env ⊙ envp.
+    """
+    s, h, wmr = _filter(rbf, w1, b1, w2, b2)
+    wm = wmr * envf[..., None]
+    gwm = gmsg[:, :, None, :] * xin[:, None]          # [B,A(i),A(j),F]
+    gxin = (wm * gmsg[:, :, None, :]).sum(dim=1)
+    g_env = (gwm * wmr).sum(dim=-1)
+    gwmr = gwm * envf[..., None]
+    gz1 = torch.einsum("bijg,fg->bijf", gwmr, w2) * s
+    rpw = torch.einsum("bijr,rf->bijf", rbfp, w1)
+    g_dist = (gz1 * rpw).sum(dim=-1) + g_env * envp
+    if not need_gw:
+        return g_dist, gxin, None, None, None, None
+    gw1 = torch.einsum("bijr,bijf->rf", rbf, gz1)
+    gw2 = torch.einsum("bijf,bijg->fg", h, gwmr)
+    return (g_dist, gxin, gw1, gz1.sum(dim=(0, 1, 2))[None], gw2,
+            gwmr.sum(dim=(0, 1, 2))[None])
+
+
+def _dual_filter(rbf, rbfd, envf, envfd, w1, b1, w2, b2):
+    """(s, z1d, h, hd, wm, wmd) of the dual filter, weights fixed."""
+    s, h, wmr = _filter(rbf, w1, b1, w2, b2)
+    z1d = torch.einsum("bijr,rf->bijf", rbfd, w1)
+    hd = s * z1d
+    wmrd = torch.einsum("bijf,fg->bijg", hd, w2)
+    e, ed = envf[..., None], envfd[..., None]
+    return s, z1d, h, hd, wmr * e, wmrd * e + wmr * ed
+
+
+def schnet_dual_fwd_reference(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
+    """Plain PyTorch version of kernel G: kernel E and its directional
+    derivative along (rbfd, envfd, xind), weights fixed. Returns (msg, msgd)."""
+    _, _, _, _, wm, wmd = _dual_filter(rbf, rbfd, envf, envfd, w1, b1, w2, b2)
+    msg = (wm * xin[:, None]).sum(dim=2)
+    msgd = (wmd * xin[:, None]).sum(dim=2) + (wm * xind[:, None]).sum(dim=2)
+    return msg, msgd
+
+
+def schnet_dual_bwd_reference(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2,
+                              gmsg, gmsgd, need_gw: bool = True):
+    """Plain PyTorch version of kernel H: the VJP of kernel G for the node
+    inputs and the weights (the pair-level inputs get none).
+
+    Returns (gxin, gxind [B,A,F], gw1, gb1, gw2, gb2), the four weight
+    cotangents None without `need_gw`.
+    """
+    s, z1d, h, hd, wm, wmd = _dual_filter(rbf, rbfd, envf, envfd, w1, b1, w2, b2)
+    g, gd = gmsg[:, :, None, :], gmsgd[:, :, None, :]   # [B,A(i),1,F]
+    gxin = (wm * g + wmd * gd).sum(dim=1)
+    gxind = (wm * gd).sum(dim=1)
+    if not need_gw:
+        return gxin, gxind, None, None, None, None
+    gwm = g * xin[:, None] + gd * xind[:, None]
+    gwmd = gd * xin[:, None]
+    e, ed = envf[..., None], envfd[..., None]
+    cot_wmr = gwm * e + gwmd * ed
+    cot_wmrd = gwmd * e
+    gh = torch.einsum("bijg,fg->bijf", cot_wmr, w2)
+    ghd = torch.einsum("bijg,fg->bijf", cot_wmrd, w2)
+    # hd = s(z1)·z1d ⇒ ∂hd/∂z1 = s'(z1)·z1d with s' = s(1-s)
+    gz1 = gh * s + ghd * (s * (1.0 - s) * z1d)
+    gz1d = ghd * s
+    gw1 = torch.einsum("bijr,bijf->rf", rbf, gz1) + torch.einsum("bijr,bijf->rf", rbfd, gz1d)
+    gw2 = torch.einsum("bijf,bijg->fg", h, cot_wmr) + torch.einsum("bijf,bijg->fg", hd, cot_wmrd)
+    return (gxin, gxind, gw1, gz1.sum(dim=(0, 1, 2))[None], gw2,
+            cot_wmr.sum(dim=(0, 1, 2))[None])
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _kernels.load("schnet_fused")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.schnet_gw_splits.argtypes = []
+    lib.schnet_gw_splits.restype = i
+    lib.schnet_smem_bytes.argtypes = [i] * 4
+    lib.schnet_smem_bytes.restype = i
+    lib.schnet_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.schnet_fwd.restype = i
+    lib.schnet_bwd.argtypes = [p] * 19 + [i] * 5 + [p]
+    lib.schnet_bwd.restype = i
+    lib.schnet_dual_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
+    lib.schnet_dual_fwd.restype = i
+    lib.schnet_dual_bwd.argtypes = [p] * 23 + [i] * 5 + [p]
+    lib.schnet_dual_bwd.restype = i
+    if lib.schnet_gw_splits() != GW_SPLITS:
+        raise RuntimeError("csrc/schnet_fused.cu and ops/schnet_fused.py disagree on GW_SPLITS")
+    return lib
+
+
+def smem_bytes(kernel: str, a: int, r: int, f: int) -> int:
+    """Dynamic shared memory per block that kernel "E", "F", "G" or "H"
+    asks for at A=a atoms, R=r, F=f (from the library's own layout)."""
+    return _lib().schnet_smem_bytes("EFGH".index(kernel), a, r, f)
+
+
+def _dims(xin, w1) -> Tuple[int, int, int, int]:
+    b, a = xin.shape[0], xin.shape[1]
+    r, f = w1.shape
+    return b, a, r, f
+
+
+def _shapes(b, a, r, f) -> Dict[str, tuple]:
+    pair, env, node = (b, a, a, r), (b, a, a), (b, a, f)
+    return dict(rbf=pair, rbfp=pair, rbfd=pair, envf=env, envp=env, envfd=env, xin=node,
+                xind=node, w1=(r, f), b1=(1, f), w2=(f, f), b2=(1, f), gmsg=node, gmsgd=node)
+
+
+def _launch(name: str, *args) -> None:
+    ptrs = [0 if a is None else (a.data_ptr() if isinstance(a, torch.Tensor) else a)
+            for a in args]
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_lib(), name)(*ptrs, stream)
+    _kernels.raise_on_error(err, f"{name} launch")
+
+
+class _Scratch:
+    """The backward kernels' buffers: W2ᵀ [F,F]; with the weight gradient,
+    `n_pair` per-pair buffers [B,A,A,F], the partials and the outputs
+    [R+1,F] / [F+1,F] whose last rows are the biases (else None)."""
+
+    def __init__(self, dev, b, a, r, f, n_pair):
+        empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+        self.w2t = empty(f, f)
+        self.pair = [empty(b, a, a, f) for _ in range(n_pair)] or [None] * 4
+        gw = n_pair > 0
+        self.part1 = empty(b * GW_SPLITS, r + 1, f) if gw else None
+        self.part2 = empty(b * GW_SPLITS, f + 1, f) if gw else None
+        self.gw1b1 = empty(r + 1, f) if gw else None
+        self.gw2b2 = empty(f + 1, f) if gw else None
+
+    def args(self, n_pair):
+        return (self.w2t, *self.pair[:n_pair], self.part1, self.part2, self.gw1b1, self.gw2b2)
+
+    def grads(self, r, f):
+        return self.gw1b1[:r], self.gw1b1[r:], self.gw2b2[:f], self.gw2b2[f:]
+
+
+def schnet_fwd(rbf, envf, xin, w1, b1, w2, b2) -> torch.Tensor:
+    """Kernel E: msg [B,A,F]."""
+    b, a, r, f = _dims(xin, w1)
+    args = dict(rbf=rbf, envf=envf, xin=xin, w1=w1, b1=b1, w2=w2, b2=b2)
+    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    if dev.type == "cpu":
+        return schnet_message_reference(*args.values())
+    msg = torch.empty((b, a, f), dtype=torch.float32, device=dev)
+    _launch("schnet_fwd", *args.values(), msg, b, a, r, f)
+    LAUNCHES["schnet_fwd"] += 1
+    return msg
+
+
+def schnet_bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, need_gw: bool = True):
+    """Kernel F: (g_dist, gxin, gw1, gb1, gw2, gb2), weights' None without
+    `need_gw`."""
+    b, a, r, f = _dims(xin, w1)
+    args = dict(rbf=rbf, rbfp=rbfp, envf=envf, envp=envp, xin=xin, w1=w1, b1=b1, w2=w2, b2=b2,
+                gmsg=gmsg)
+    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    if dev.type == "cpu":
+        return schnet_message_bwd_reference(*args.values(), need_gw=need_gw)
+    g_dist = torch.empty((b, a, a), dtype=torch.float32, device=dev)
+    gxin = torch.empty((b, a, f), dtype=torch.float32, device=dev)
+    sc = _Scratch(dev, b, a, r, f, 2 if need_gw else 0)
+    _launch("schnet_bwd", *args.values(), g_dist, gxin, *sc.args(2), int(need_gw), b, a, r, f)
+    LAUNCHES["schnet_bwd"] += 1
+    LAUNCHES["schnet_bwd_gw"] += int(need_gw)
+    if not need_gw:
+        return g_dist, gxin, None, None, None, None
+    return (g_dist, gxin, *sc.grads(r, f))
+
+
+def schnet_dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
+    """Kernel G: (msg, msgd) [B,A,F]."""
+    b, a, r, f = _dims(xin, w1)
+    args = dict(rbf=rbf, rbfd=rbfd, envf=envf, envfd=envfd, xin=xin, xind=xind, w1=w1, b1=b1,
+                w2=w2, b2=b2)
+    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    if dev.type == "cpu":
+        return schnet_dual_fwd_reference(*args.values())
+    msg = torch.empty((b, a, f), dtype=torch.float32, device=dev)
+    msgd = torch.empty_like(msg)
+    _launch("schnet_dual_fwd", *args.values(), msg, msgd, b, a, r, f)
+    LAUNCHES["schnet_dual_fwd"] += 1
+    return msg, msgd
+
+
+def schnet_dual_bwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gmsgd,
+                    need_gw: bool = True):
+    """Kernel H: (gxin, gxind, gw1, gb1, gw2, gb2), weights' None without
+    `need_gw`."""
+    b, a, r, f = _dims(xin, w1)
+    args = dict(rbf=rbf, rbfd=rbfd, envf=envf, envfd=envfd, xin=xin, xind=xind, w1=w1, b1=b1,
+                w2=w2, b2=b2, gmsg=gmsg, gmsgd=gmsgd)
+    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    if dev.type == "cpu":
+        return schnet_dual_bwd_reference(*args.values(), need_gw=need_gw)
+    gxin = torch.empty((b, a, f), dtype=torch.float32, device=dev)
+    gxind = torch.empty_like(gxin)
+    sc = _Scratch(dev, b, a, r, f, 4 if need_gw else 0)
+    _launch("schnet_dual_bwd", *args.values(), gxin, gxind, *sc.args(4), int(need_gw), b, a, r,
+            f)
+    LAUNCHES["schnet_dual_bwd"] += 1
+    if not need_gw:
+        return gxin, gxind, None, None, None, None
+    return (gxin, gxind, *sc.grads(r, f))
+
+
+class SchNetMessageFn(torch.autograd.Function):
+    """`schnet_message`'s custom VJP: forward = kernel E, backward = kernel F.
+
+    Inputs (dist, rbf, rbfp, envf, envp, xin, w1, b1, w2, b2); rbf, rbfp,
+    envf and envp get no gradient, dist gets g_dist (the basis and envelope
+    chains folded through rbfp and envp); the weights get theirs only when
+    asked (F's weight-gradient stage).
+    """
+
+    @staticmethod
+    def forward(ctx, dist, rbf, rbfp, envf, envp, xin, w1, b1, w2, b2):
+        ctx.save_for_backward(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2)
+        return schnet_fwd(rbf, envf, xin, w1, b1, w2, b2)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gmsg):
+        want = ctx.needs_input_grad[6:10]
+        g_dist, gxin, *gw = schnet_bwd(*ctx.saved_tensors, gmsg.contiguous(), need_gw=any(want))
+        return (g_dist, None, None, None, None, gxin,
+                *(g if w else None for g, w in zip(gw, want)))
+
+
+def schnet_message(dist, rbf, rbfp, envf, envp, xin, w1, b1, w2, b2) -> torch.Tensor:
+    """First-order fused cfconv (inference / forces): msg [B,A,F]."""
+    return SchNetMessageFn.apply(dist, rbf, rbfp, envf, envp, xin, w1, b1, w2, b2)
+
+
+class SchNetDualFn(torch.autograd.Function):
+    """`schnet_dual`'s custom VJP: forward = kernel G, backward = kernel H.
+
+    Inputs (rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2); outputs
+    (msg, msgd). The four pair-level inputs get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
+        ctx.save_for_backward(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2)
+        return schnet_dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gmsg, gmsgd):
+        want = ctx.needs_input_grad[6:10]
+        gxin, gxind, *gw = schnet_dual_bwd(*ctx.saved_tensors, gmsg.contiguous(),
+                                           gmsgd.contiguous(), need_gw=any(want))
+        return (None, None, None, None, gxin, gxind,
+                *(g if w else None for g, w in zip(gw, want)))
+
+
+def schnet_dual(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
+    """Dual-number fused cfconv: (msg, msgd), primal and tangent lanes in
+    one kernel. Differentiable (once) in xin, xind and the weights only:
+    for the surrogate's parameter pass."""
+    return SchNetDualFn.apply(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# work the kernels need on given inputs
+# ---------------------------------------------------------------------------
+
+
+def _live(*env) -> int:
+    live = None
+    for t in env:
+        live = (t != 0) if live is None else live | (t != 0)
+    return int(live.sum())
+
+
+def _weight_bytes(r: int, f: int) -> int:
+    return r * f + f + f * f + f
+
+
+def _gw_reduce_flops(b: int, r: int, f: int) -> int:
+    """The fixed-order sums of the weight-gradient partials."""
+    return (b * GW_SPLITS - 1) * ((r + 1) * f + (f + 1) * f)
+
+
+def schnet_fwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, f: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) kernel E needs on these inputs: FLOPs over the pairs
+    whose envf is nonzero (no other pair adds to msg), bytes with each input
+    read once and each output written once."""
+    b, a, _, r = rbf.shape
+    flops = pair_flops("fwd", r, f) * _live(envf)
+    nbytes = 4 * (rbf.numel() + envf.numel() + 2 * b * a * f + _weight_bytes(r, f))
+    return flops, nbytes
+
+
+def schnet_bwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envp: torch.Tensor, f: int,
+                           need_gw: bool = True) -> Tuple[int, int]:
+    """(FLOPs, bytes) kernel F needs (see schnet_fwd_flops_bytes; live pairs
+    are those with envf or envp nonzero); with gW, also the weight gradient
+    and the fixed-order sum of its partials."""
+    b, a, _, r = rbf.shape
+    live = _live(envf, envp)
+    flops = pair_flops("bwd", r, f) * live
+    if need_gw:
+        flops += pair_flops("bwd_gw", r, f) * live + _gw_reduce_flops(b, r, f)
+    nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
+                  + envf.numel() + b * a * f                  # g_dist, gxin
+                  + (_weight_bytes(r, f) if need_gw else 0))
+    return flops, nbytes
+
+
+def schnet_dual_fwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envfd: torch.Tensor,
+                                f: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) kernel G needs: FLOPs over the pairs whose envf or
+    envfd is nonzero, bytes with each input read once and each output
+    written once."""
+    b, a, _, r = rbf.shape
+    flops = pair_flops("dual_fwd", r, f) * _live(envf, envfd)
+    nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
+                  + 2 * b * a * f)
+    return flops, nbytes
+
+
+def schnet_dual_bwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envfd: torch.Tensor,
+                                f: int, need_gw: bool = True) -> Tuple[int, int]:
+    """(FLOPs, bytes) kernel H needs (see schnet_dual_fwd_flops_bytes); with
+    gW, also the weight gradient and the fixed-order sum of its partials."""
+    b, a, _, r = rbf.shape
+    live = _live(envf, envfd)
+    flops = pair_flops("dual_bwd", r, f) * live
+    if need_gw:
+        flops += pair_flops("dual_bwd_gw", r, f) * live + _gw_reduce_flops(b, r, f)
+    nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
+                  + 2 * b * a * f + 2 * b * a * f            # gmsg, gmsgd, gxin, gxind
+                  + (_weight_bytes(r, f) if need_gw else 0))
+    return flops, nbytes

@@ -5,9 +5,9 @@ validation, seeding, the datamodule, the model, the trainer, and the
 prediction writer (the output database mirrors the input rows plus
 `energy_pred` / `forces_pred` in the data blob). `run` executes on the card
 unless the caller passes ``device``; without a card and without ``device``
-it raises. On the card a PaiNN runs its fused kernels and trains with the
-surrogate force gradient through them (``force_grads="pallas"``) unless
-the config pins either. `ckpt_path` takes a checkpoint this package wrote;
+it raises. On the card PaiNN and SchNet run their fused kernels and train
+with the surrogate force gradient through them (``force_grads="pallas"``)
+unless the config pins either. `ckpt_path` takes a checkpoint this package wrote;
 ``optimize``, ``pretrained`` and the JAX package's flax checkpoints are not
 ported yet.
 """
@@ -35,6 +35,8 @@ from nabladft_tpu_torch.utils import resolve_device
 logger = logging.getLogger(__name__)
 
 JOB_TYPES = ("train", "test", "predict", "optimize")
+# the families that run fused message kernels on the card by default
+FUSED_ON_CARD = ("painn", "schnet")
 _NOT_PORTED = {
     "optimize": "the optimize job (ROADMAP queue 1, item 7)",
 }
@@ -83,11 +85,11 @@ def build_model(cfg: Dict[str, Any], device: torch.device,
                 params: Optional[Mapping[str, Any]] = None):
     """The configured model on `device`: weights from the trainer seed, or
     `params` (a flax parameter tree) carried across from the JAX package.
-    On the card PaiNN runs its fused message kernels unless the config
-    pins `use_pallas`."""
+    On the card the FUSED_ON_CARD families run their fused message kernels
+    unless the config pins `use_pallas`."""
     m = cfg["model"]
     kwargs = dict(m.get("kwargs", {}))
-    if m["name"].lower() == "painn" and device.type == "cuda":
+    if m["name"].lower() in FUSED_ON_CARD and device.type == "cuda":
         kwargs.setdefault("use_pallas", "fused")
     seed = cfg.get("trainer", {}).get("seed", cfg.get("seed", 42))
     model = create_model(m["name"], device=device, generator=seeded_generator(seed), **kwargs)

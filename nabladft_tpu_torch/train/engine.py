@@ -16,8 +16,9 @@ Force-loss gradients for models with F = -∂E/∂pos (``force_grads``):
     module with pos dual in direction w; since Σ w·F = -(jvp of Σ E along
     w), the loss other(primal) - tangent(Σ E) has the same parameter
     gradient as the direct form, from first-order reverse mode only;
-  * ``pallas``    — the surrogate on a fused PaiNN: the force pass runs
-    kernels A and B (no weight gradient), the dual pass kernels C and D.
+  * ``pallas``    — the surrogate on a fused model: the force pass runs
+    the first-order kernels with no weight gradient (PaiNN's A and B,
+    SchNet's E and F), the dual pass the dual kernels (C and D; G and H).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (A, B, C, D) against their plain PyTorch
-versions, on the card.
+"""The port's CUDA kernels (PaiNN's A-D, SchNet's E-H) against their plain
+PyTorch versions, on the card, and the fused models against the CPU plain
+path.
 
 Every test needs a CUDA card and nvcc and skips without a card. The file
 imports no JAX, so it also runs on a machine without it (tests/conftest.py
@@ -244,3 +245,234 @@ def test_pallas_train_step_on_card_matches_plain_direct(card):
         grads[route] = {n: p.grad for n, p in model.named_parameters()}
     for n, g in grads["direct"].items():
         torch.testing.assert_close(grads["pallas"][n], g, rtol=5e-3, atol=1e-5, msg=n)
+
+
+# ---------------------------------------------------------------------------
+# SchNet: kernels E, F, G, H
+# ---------------------------------------------------------------------------
+
+# (B, A, R, F): odd atom counts, a partial 128-lane channel chunk (F=160),
+# basis sizes not a multiple of 4, and the bucket shapes
+SCHNET_SHAPES = [(4, 8, 12, 16), (3, 10, 13, 160), (2, 33, 100, 128), (1, 62, 100, 128)]
+E_ARGS = ("rbf", "envf", "xin", "w1", "b1", "w2", "b2")
+F_ARGS = ("rbf", "rbfp", "envf", "envp", "xin", "w1", "b1", "w2", "b2", "gmsg")
+G_ARGS = ("rbf", "rbfd", "envf", "envfd", "xin", "xind", "w1", "b1", "w2", "b2")
+H_ARGS = G_ARGS + ("gmsg", "gmsgd")
+
+
+def _schnet_inputs(shape, dev, seed=0):
+    """As the model builds them: padded atoms, pairs live within the cutoff
+    minus ~30 %; rbf NOT masked, the cosine cutoff and its derivative zero
+    off the live pairs; tangents rbfd = rbfp ⊙ ṫ, envfd = envp ⊙ ṫ."""
+    import math
+
+    b, a, r, f = shape
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(*s):
+        return torch.randn(*s, generator=g) * 0.3
+
+    n_atoms = torch.randint(max(a // 2, 1), a + 1, (b,), generator=g)
+    real = torch.arange(a)[None] < n_atoms[:, None]
+    dist = mk(b, a, a).abs() * 8 + 0.8
+    live = ((torch.rand(b, a, a, generator=g) > 0.3) & real[:, :, None] & real[:, None, :]
+            & ~torch.eye(a, dtype=torch.bool) & (dist < 5.0))
+    mu = torch.linspace(0.0, 5.0, r)
+    rbf = torch.exp(-((dist[..., None] - mu) ** 2) / 0.25)
+    rbfp = (-2.0 / 0.25) * (dist[..., None] - mu) * rbf
+    zero = torch.zeros_like(dist)
+    envf = torch.where(live, 0.5 * (torch.cos(math.pi * dist / 5.0) + 1.0), zero)
+    envp = torch.where(live, -0.5 * math.pi / 5.0 * torch.sin(math.pi * dist / 5.0), zero)
+    dt = mk(b, a, a) * live
+    x = dict(rbf=rbf, rbfp=rbfp, envf=envf, envp=envp, rbfd=rbfp * dt[..., None],
+             envfd=envp * dt, xin=mk(b, a, f), xind=mk(b, a, f), w1=torch.randn(r, f, generator=g)
+             / r ** 0.5, b1=mk(1, f), w2=torch.randn(f, f, generator=g) / f ** 0.5, b2=mk(1, f),
+             gmsg=mk(b, a, f), gmsgd=mk(b, a, f))
+    return {k: t.to(dev).contiguous() for k, t in x.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCHNET_SHAPES + BUCKET_SHAPES)
+def test_schnet_fwd_kernel_matches_plain(card, shape):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    args = [_schnet_inputs(shape, card)[k] for k in E_ARGS]
+    sf.reset_launches()
+    got = sf.schnet_fwd(*args)
+    torch.cuda.synchronize()
+    assert sf.LAUNCHES["schnet_fwd"] == 1
+    _assert_close([got], [sf.schnet_message_reference(*args)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCHNET_SHAPES + BUCKET_SHAPES)
+@pytest.mark.parametrize("need_gw", [True, False])
+def test_schnet_bwd_kernel_matches_plain(card, shape, need_gw):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    x = _schnet_inputs(shape, card)
+    args = [x[k] for k in F_ARGS]
+    sf.reset_launches()
+    got = sf.schnet_bwd(*args, need_gw=need_gw)
+    torch.cuda.synchronize()
+    assert (sf.LAUNCHES["schnet_bwd"], sf.LAUNCHES["schnet_bwd_gw"]) == (1, int(need_gw))
+    ref = sf.schnet_message_bwd_reference(*args, need_gw=need_gw)
+    if not need_gw:
+        assert got[2:] == (None,) * 4
+        got, ref = got[:2], ref[:2]
+    _assert_close(got, ref)
+    dead = (x["envf"] == 0) & (x["envp"] == 0)
+    assert dead.any() and (got[0][dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCHNET_SHAPES + BUCKET_SHAPES)
+def test_schnet_dual_fwd_kernel_matches_plain(card, shape):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    args = [_schnet_inputs(shape, card)[k] for k in G_ARGS]
+    sf.reset_launches()
+    got = sf.schnet_dual_fwd(*args)
+    torch.cuda.synchronize()
+    assert sf.LAUNCHES["schnet_dual_fwd"] == 1
+    _assert_close(got, sf.schnet_dual_fwd_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCHNET_SHAPES + BUCKET_SHAPES)
+def test_schnet_dual_bwd_kernel_matches_plain(card, shape):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    args = [_schnet_inputs(shape, card)[k] for k in H_ARGS]
+    sf.reset_launches()
+    got = sf.schnet_dual_bwd(*args)
+    torch.cuda.synchronize()
+    assert sf.LAUNCHES["schnet_dual_bwd"] == 1
+    _assert_close(got, sf.schnet_dual_bwd_reference(*args))
+    no_gw = sf.schnet_dual_bwd(*args, need_gw=False)
+    assert no_gw[2:] == (None,) * 4 and all(torch.equal(p, q) for p, q in zip(no_gw[:2], got))
+
+
+@pytest.mark.cuda
+def test_schnet_bwd_kernels_are_deterministic(card):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    x = _schnet_inputs(BUCKET_SHAPES[1], card)
+    for fn, names in ((sf.schnet_dual_bwd, H_ARGS), (sf.schnet_bwd, F_ARGS)):
+        args = [x[k] for k in names]
+        first, second = fn(*args), fn(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_schnet_wrappers_raise_on_bad_card_inputs(card):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    args = [_schnet_inputs(SCHNET_SHAPES[0], card)[k] for k in E_ARGS]
+    with pytest.raises(ValueError, match="contiguous"):
+        sf.schnet_fwd(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="on cpu"):
+        sf.schnet_fwd(args[0], args[1].cpu(), *args[2:])
+    # more shared memory than a block may have: refused at launch, raised
+    big = [_schnet_inputs((1, 8, 12, 16), card)[k] for k in E_ARGS]
+    huge = [torch.zeros(1, 8, 8, 4000, device=card), *big[1:3],
+            torch.zeros(4000, 16, device=card), *big[4:]]
+    with pytest.raises(RuntimeError, match="schnet_fwd launch failed"):
+        sf.schnet_fwd(*huge)
+
+
+@pytest.mark.cuda
+def test_schnet_fns_on_card_match_cpu(card):
+    """SchNetMessageFn's and SchNetDualFn's outputs and gradients on the card
+    (kernels E-H) against the same ops on CPU tensors (the plain versions)."""
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    x = _schnet_inputs(SCHNET_SHAPES[1], card)
+    x["dist"] = torch.rand_like(x["envf"])
+    w = ("w1", "b1", "w2", "b2")
+
+    def run(dev):
+        leaves = {k: v.to(dev).clone().requires_grad_(k in ("dist", "xin", "xind") + w)
+                  for k, v in x.items()}
+        msg = sf.schnet_message(*(leaves[k] for k in ("dist",) + F_ARGS[:-1]))
+        out = sf.schnet_dual(*(leaves[k] for k in G_ARGS))
+        loss = (msg * x["gmsg"].to(dev)).sum() + sum(
+            (o * x[c].to(dev)).sum() for o, c in zip(out, ("gmsg", "gmsgd")))
+        loss.backward()
+        return ([msg.detach().cpu()] + [o.detach().cpu() for o in out]
+                + [leaves[k].grad.cpu() for k in ("dist", "xin", "xind") + w])
+
+    _assert_close(run(card), run(torch.device("cpu")))
+
+
+def _schnet_batch(seed):
+    import numpy as np
+
+    from nabladft_tpu_torch.data.batch import MolBatch
+    from nabladft_tpu_torch.data.synthetic import random_molecule
+
+    rng = np.random.default_rng(seed)
+    b, a = 4, 20
+    z, pos = np.zeros((b, a), np.int32), np.zeros((b, a, 3), np.float32)
+    mask = np.zeros((b, a), bool)
+    for i, n in enumerate([20, 13, 7, 17]):
+        zi, pi = random_molecule(rng, n)
+        z[i, :n], pos[i, :n], mask[i, :n] = zi, pi, True
+    return MolBatch(z=torch.from_numpy(z), pos=torch.from_numpy(pos),
+                    node_mask=torch.from_numpy(mask), graph_mask=torch.ones(b, dtype=torch.bool),
+                    energy=torch.from_numpy(rng.normal(size=b).astype(np.float32)),
+                    forces=torch.from_numpy(rng.normal(size=(b, a, 3)).astype(np.float32)
+                                            * mask[..., None]),
+                    mol_id=torch.arange(b, dtype=torch.int32))
+
+
+SCHNET_KW = dict(hidden=32, n_interactions=2, n_rbf=20, max_neighbors=9)
+
+
+@pytest.mark.cuda
+def test_fused_schnet_on_card_matches_cpu_plain(card):
+    from nabladft_tpu_torch.models import create_model, forward
+    from nabladft_tpu_torch.train import seeded_generator
+
+    batch = _schnet_batch(0)
+    gpu = create_model("schnet", device=card, generator=seeded_generator(1), use_pallas="fused",
+                       **SCHNET_KW)
+    cpu = create_model("schnet", device="cpu", generator=seeded_generator(1), **SCHNET_KW)
+    out_g = forward(gpu, batch.to(card))
+    out_c = forward(cpu, batch)
+    torch.testing.assert_close(out_g["energy"].cpu(), out_c["energy"], rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(out_g["forces"].cpu(), out_c["forces"], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_schnet_pallas_train_step_on_card_matches_plain_direct(card):
+    """One train step's parameter gradients: kernels E-H (force_grads
+    "pallas") against the plain module's double backward ("direct"), on the
+    card, same weights and batch (rtol 5e-3, atol 1e-5)."""
+    from nabladft_tpu_torch.models import create_model
+    from nabladft_tpu_torch.train import Trainer, TrainerConfig, seeded_generator
+
+    batch = _schnet_batch(1).to(card)
+    losses = dict(loss_specs={"energy": "mse", "forces": "mse"})
+    grads = {}
+    for mode, route in (("fused", "pallas"), ("off", "direct")):
+        model = create_model("schnet", device=card, generator=seeded_generator(1),
+                             use_pallas=mode, **SCHNET_KW)
+        Trainer(model, card, TrainerConfig(force_grads=route, **losses))._compute_grads(batch)
+        grads[route] = {n: p.grad for n, p in model.named_parameters()}
+    for n, g in grads["direct"].items():
+        torch.testing.assert_close(grads["pallas"][n], g, rtol=5e-3, atol=1e-5, msg=n)
+
+
+@pytest.mark.cuda
+def test_schnet_shared_memory_fits_two_blocks_per_sm_at_a48(card):
+    """The launches' dynamic shared memory (one [A,R] rbf tile for E, two
+    for F, G, H, plus h tiles): at A=48 every kernel leaves room for two
+    blocks in the SM's 228 KB; at A=64, F, G and H fit one."""
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    assert sf.smem_bytes("E", 64, 100, 128) == 4 * (64 * 100 + 64 * 128 + 4 * 64 + 768)
+    assert sf.smem_bytes("H", 64, 100, 128) == 4 * (2 * 64 * 128 + 2 * 64 * 128 + 4 * 64 + 768)
+    for k in "EFGH":
+        assert 2 * sf.smem_bytes(k, 48, 100, 128) <= 228 * 1024
+        assert sf.smem_bytes(k, 64, 100, 128) <= 227 * 1024

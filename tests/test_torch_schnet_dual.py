@@ -1,0 +1,181 @@
+"""The port's dual-number SchNet cfconv (kernels G and H) against the JAX op.
+
+The plain PyTorch versions of kernel G (`schnet_dual_fwd_reference`) and
+kernel H (`schnet_dual_bwd_reference`) are held against the JAX Pallas op
+`schnet_dual` and its VJP, run in interpret mode on the CPU, on the same
+seeded numpy inputs (tangent lanes rbfd = rbfp ⊙ ṫ and envfd = envp ⊙ ṫ,
+zero on masked pairs, as the model builds them); `SchNetDualFn` is held
+against torch autograd through the plain forward, and the plain forward
+against torch's forward AD of kernel E's plain version. The CUDA kernels
+are held against the plain versions on the card in tests/test_torch_cuda.py.
+Tolerances: 2e-5 forward, 3e-4/3e-5 gradients.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nabladft_tpu.ops.pallas.schnet_fused import schnet_dual as jax_schnet_dual
+from nabladft_tpu_torch.ops import schnet_fused as ts
+
+B, A, R, F = 3, 8, 12, 16
+RC = 5.0
+FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=3e-4, atol=3e-5)
+G_IN = ("rbf", "rbfd", "envf", "envfd", "xin", "xind", "w1", "b1", "w2", "b2")
+COTS = ("gmsg", "gmsgd")
+H_OUT = ("gxin", "gxind", "gw1", "gb1", "gw2", "gb2")
+MU = np.linspace(0.0, RC, R).astype(np.float32)
+
+
+def _chain(dist, mask):
+    """(rbf, rbfp, envf, envp): an unmasked Gaussian basis, a masked cosine
+    cutoff and their derivatives in dist (torch's jvp), as numpy."""
+    m = torch.from_numpy(mask)
+
+    def basis(d):
+        rbf = torch.exp(-((d[..., None] - torch.from_numpy(MU)) ** 2))
+        return rbf, 0.5 * (torch.cos(math.pi * d / RC) + 1.0) * (d < RC) * m
+
+    d = torch.from_numpy(dist)
+    (rbf, envf), (rbfp, envp) = torch.func.jvp(basis, (d,), (torch.ones_like(d),))
+    return [t.numpy().astype(np.float32) for t in (rbf, rbfp, envf, envp)]
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(5)
+
+    def mk(*shape):
+        return (rng.normal(size=shape) * 0.3).astype(np.float32)
+
+    dist = (np.abs(mk(B, A, A)) * 8 + 0.5).astype(np.float32)
+    mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
+    rbf, rbfp, envf, envp = _chain(dist, mask)
+    dt = mk(B, A, A) * mask
+    return dict(rbf=rbf, rbfd=rbfp * dt[..., None], envf=envf, envfd=envp * dt,
+                xin=mk(B, A, F), xind=mk(B, A, F), w1=mk(R, F), b1=mk(1, F), w2=mk(F, F),
+                b2=mk(1, F), gmsg=mk(B, A, F), gmsgd=mk(B, A, F))
+
+
+@pytest.fixture(scope="module")
+def jax_results(data):
+    """JAX schnet_dual forward and VJP in interpret mode, jitted once."""
+
+    @jax.jit
+    def run(*args):
+        ins, cots = args[:10], args[10:]
+        out, vjp = jax.vjp(lambda *a: jax_schnet_dual(*a, True), *ins)
+        return out, vjp(tuple(cots))
+
+    (msg, msgd), g = run(*(jnp.asarray(data[k]) for k in G_IN + COTS))
+    res = dict(msg=msg, msgd=msgd, **dict(zip(H_OUT, g[4:])))
+    res = {k: np.asarray(v) for k, v in res.items()}
+    res["pair_grads"] = [np.asarray(x) for x in g[:4]]
+    return res
+
+
+def _t(data, *keys):
+    return [torch.from_numpy(data[k]) for k in keys]
+
+
+@pytest.mark.parametrize("name", ["msg", "msgd"])
+def test_plain_dual_forward_matches_jax(data, jax_results, name):
+    out = dict(zip(("msg", "msgd"), ts.schnet_dual_fwd_reference(*_t(data, *G_IN))))
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **FWD_TOL)
+
+
+@pytest.mark.parametrize("name", H_OUT)
+def test_plain_dual_backward_matches_jax_vjp(data, jax_results, name):
+    out = dict(zip(H_OUT, ts.schnet_dual_bwd_reference(*_t(data, *G_IN + COTS))))
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **GRAD_TOL)
+
+
+def test_jax_vjp_gives_pair_inputs_zeros(jax_results):
+    """The contract the port keeps: no cotangent for rbf, rbfd, envf, envfd."""
+    assert all((g == 0).all() for g in jax_results["pair_grads"])
+
+
+def test_plain_dual_forward_is_the_jvp_of_the_plain_message(data):
+    rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2 = _t(data, *G_IN)
+    msg, msgd = torch.func.jvp(
+        lambda r, e, x: ts.schnet_message_reference(r, e, x, w1, b1, w2, b2),
+        (rbf, envf, xin), (rbfd, envfd, xind))
+    got = ts.schnet_dual_fwd_reference(*_t(data, *G_IN))
+    for x, y in zip(got, (msg, msgd)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), **FWD_TOL)
+
+
+def test_dual_fn_matches_autograd_through_plain_forward(data):
+    """SchNetDualFn on CPU tensors (plain G forward, plain H backward)
+    against torch autograd through the plain G forward: node and weight
+    gradients, none for the pair-level inputs."""
+    x = _t(data, *G_IN)
+    cots = _t(data, *COTS)
+    diff = (4, 5, 6, 7, 8, 9)  # xin, xind, w1, b1, w2, b2
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(i in diff) for i, t in enumerate(x)]
+        out = fn(*leaves)
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        return out, [leaves[i].grad for i in diff], [leaves[i].grad for i in range(4)]
+
+    out, grads, pair = run(ts.schnet_dual)
+    out_r, grads_r, _ = run(ts.schnet_dual_fwd_reference)
+    for o, r in zip(out, out_r):
+        np.testing.assert_allclose(o.detach().numpy(), r.detach().numpy(), **FWD_TOL)
+    for g, r, name in zip(grads, grads_r, ["xin", "xind", "w1", "b1", "w2", "b2"]):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), **GRAD_TOL, err_msg=name)
+    assert all(g is None for g in pair)
+
+
+def test_dual_fn_skips_gw_for_fixed_weights(data):
+    x = [t.clone() for t in _t(data, *G_IN)]
+    x[4].requires_grad_(True)
+    out = ts.schnet_dual(*x)
+    sum(o.sum() for o in out).backward()
+    assert x[4].grad is not None and all(t.grad is None for t in x[6:])
+
+
+def test_second_derivative_through_the_dual_op_raises(data):
+    scale = torch.tensor(1.5, requires_grad=True)
+    x = [t.clone() for t in _t(data, *G_IN)]
+    x[4].requires_grad_(True)
+    out = ts.schnet_dual(*x)
+    (g,) = torch.autograd.grad(scale * sum(o.sum() for o in out), x[4], create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        g.sum().backward()
+
+
+def test_dual_wrappers_count_no_cpu_launches(data):
+    ts.reset_launches()
+    ts.schnet_dual_fwd(*_t(data, *G_IN))
+    ts.schnet_dual_bwd(*_t(data, *G_IN + COTS))
+    assert ts.LAUNCHES == dict.fromkeys(ts.LAUNCHES, 0)
+
+
+def test_dual_wrappers_reject_bad_inputs(data):
+    x = _t(data, *G_IN)
+    with pytest.raises(ValueError, match="rbfd has shape"):
+        ts.schnet_dual_fwd(x[0], x[1][:, :, :-1], *x[2:])
+    with pytest.raises(ValueError, match="dtype"):
+        ts.schnet_dual_fwd(*x[:5], x[5].double(), *x[6:])
+
+
+def test_dual_flop_and_byte_counts(data):
+    rbf, envf, envfd = _t(data, "rbf", "envf", "envfd")
+    live = int(((envf != 0) | (envfd != 0)).sum())
+    w = R * F + F * F + 2 * F
+    flops, nbytes = ts.schnet_dual_fwd_flops_bytes(rbf, envf, envfd, F)
+    assert flops == (4 * R + 4 * F + 20) * F * live
+    assert nbytes == 4 * (2 * B * A * A * R + 2 * B * A * A + 4 * B * A * F + w)
+    fb, nb = ts.schnet_dual_bwd_flops_bytes(rbf, envf, envfd, F)
+    fb0, nb0 = ts.schnet_dual_bwd_flops_bytes(rbf, envf, envfd, F, need_gw=False)
+    assert fb0 == (4 * R + 4 * F + 20) * F * live
+    assert fb - fb0 == ((4 * R + 8 * F + 27) * F * live
+                        + (B * ts.GW_SPLITS - 1) * ((R + 1) * F + (F + 1) * F))
+    assert nb - nb0 == 4 * w
