@@ -7,9 +7,9 @@ Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the repository
 checkout; no network and no PyYAML. Phases, each printing one JSON line:
 
   1. env     — device, torch / CUDA / nvcc versions, the card's name and
-               power limit; builds csrc/painn_fused.cu and csrc/schnet_fused.cu
-               (one nvcc each, started together) and prints each kernel's
-               registers and spills.
+               power limit; builds csrc/painn_fused.cu, csrc/schnet_fused.cu
+               and csrc/qhnet_tp.cu (one nvcc each, started together) and
+               prints each kernel's registers and spills.
   2. kernel_A…kernel_H — PaiNN's A (painn_fwd), B (painn_bwd, with and
                without the weight gradient), C (painn_dual_fwd), D
                (painn_dual_bwd, with the weight gradient) and SchNet's E
@@ -22,7 +22,12 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                against the plain PyTorch version, and the kernel's, the plain
                version's and the bound's times (CUDA events, median / min /
                max of 25 runs after warm-up); D and H are run twice and must
-               give the same bits.
+               give the same bits. kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
+               J (qhnet_conv_bwd), K (qhnet_pair_fwd), L (qhnet_pair_bwd) at the
+               QHNet train path's shapes (B=8, A=32/48/64, C=128, LMAX 4, gate
+               hiddens 32/32 for the conv and 8/128 for the pair; a/2..a real
+               atoms, cgsh from the 12 Bohr radius graph, maskf the full
+               graph), the same lines; J and L run twice for the same bits.
   3. predict — for each family, `pipelines.run` of ``job_type: predict`` on
                configs/painn-oc.yaml, then configs/schnet.yaml, at full width
                and depth (hidden 128, 6 interactions, 100 RBF), batch 64,
@@ -49,8 +54,20 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
      train_profile — torch.profiler over two train steps (printed before
                train).
   SchNet's lines carry the prefix ``schnet_`` (schnet_predict, ...).
-  5. timing  — seconds of each phase; then one JSON object describing every
-               ported kernel (A-H) with its launches on each path.
+  5. qhnet_train — `pipelines.run` of ``job_type: train`` on configs/qhnet.yaml
+               at full width (hidden 128, bottle 32, 5 layers, 32 RBF, batch 8,
+               atom buckets 32/48/64, orbital buckets 256/384/512/640, EMA
+               0.99) over a seeded Hamiltonian DB of 96 molecules (8-62 atoms,
+               half H, def2-SVP), TRAIN_EPOCHS epochs, then ``job_type: test``
+               from the best checkpoint; checks the I-L launch counts (remat:
+               I 10, J 5, K 4, L 2 per train step; I 5, K 2 per validation and
+               test batch; no A-H), finite losses and metrics, the checkpoint
+               files; per atom bucket, the kernel path's parameter gradients and
+               H against the plain module on the card and H's covariance under
+               a rotation; molecules/s, seconds per epoch, peak device memory.
+     qhnet_train_profile — torch.profiler over two train steps.
+  6. timing  — seconds of each phase; then one JSON object describing every
+               ported kernel (A-L) with its launches on each path.
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
 Any failed check raises: the script exits nonzero and prints no ok line.
 Exits nonzero without a CUDA device.
@@ -74,6 +91,15 @@ SEED = 0
 N_MOLS, MIN_ATOMS, MAX_ATOMS = 256, 8, 62
 BATCH, BUCKETS = 64, (32, 48, 64)
 TRAIN_EPOCHS = 2
+# QHNet (configs/qhnet.yaml): batch 8, atom buckets as above, orbital buckets;
+# a seeded Hamiltonian DB of QH_MOLS molecules
+QH_BATCH, QH_ORB_BUCKETS, QH_MOLS = 8, (256, 384, 512, 640), 96
+QH_C, QH_CONV_H, QH_PAIR_H = 128, (32, 32), (8, 128)
+# QHNet kernel path vs the plain module on the card: parameter gradients
+# within QH_GRAD_RTOL x max |g| per tensor, H within QH_H_RTOL x max |H|
+# (fp32 sums over 65 paths and 5 layers in another order); a rotated batch's
+# H against T(R) H T(R)^T within QH_COV_RTOL x max |H|
+QH_GRAD_RTOL, QH_H_RTOL, QH_COV_RTOL = 1e-3, 1e-4, 1e-3
 # kernel phase shapes: every (B, A) the predict and train paths give the
 # kernels (each batch is padded to B=64 molecules of its bucket's A atoms);
 # the kernels line's times are those at A=HEADLINE_A
@@ -163,7 +189,25 @@ def _schnet(source: str, root: str) -> dict:
     }, source, root)
 
 
-CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet}
+def _qhnet(source: str, root: str) -> dict:
+    """configs/qhnet.yaml: model/qhnet, trainer/default, datamodule/hamiltonian."""
+    cfg = _composed("qhnet", {
+        "name": "qhnet",
+        "kwargs": {"hidden": 128, "bottle_hidden": 32, "num_layers": 5, "radius_cutoff": 12.0,
+                   "rbf_dim": 32},
+        "loss_specs": {"hamiltonian": "rmse_mae"},
+        "loss_coefs": {"hamiltonian": 1.0},
+        "trainer_overrides": {"ema_decay": 0.99},
+    }, source, root)
+    cfg["job_type"] = "train"
+    cfg["datamodule"] = {"kind": "hamiltonian", "source": source, "root": root,
+                         "batch_size": QH_BATCH, "val_fraction": 0.05,
+                         "atom_boundaries": list(BUCKETS),
+                         "orbital_boundaries": list(QH_ORB_BUCKETS)}
+    return cfg
+
+
+CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet}
 
 
 def emit(phase: str, **fields) -> None:
@@ -536,16 +580,17 @@ FAMILIES = {
 
 
 def reset_all_launches() -> None:
-    from nabladft_tpu_torch.ops import painn_fused, schnet_fused
+    from nabladft_tpu_torch.ops import painn_fused, qhnet_tp, schnet_fused
 
     painn_fused.reset_launches()
     schnet_fused.reset_launches()
+    qhnet_tp.reset_launches()
 
 
 def all_launches() -> dict:
-    from nabladft_tpu_torch.ops import painn_fused, schnet_fused
+    from nabladft_tpu_torch.ops import painn_fused, qhnet_tp, schnet_fused
 
-    return {**painn_fused.LAUNCHES, **schnet_fused.LAUNCHES}
+    return {**painn_fused.LAUNCHES, **schnet_fused.LAUNCHES, **qhnet_tp.LAUNCHES}
 
 
 def predict_phase(tmp: Path, db: Path, family: str) -> dict:
@@ -783,9 +828,250 @@ def gradient_check(cfg: dict, dm) -> list:
     return out
 
 
+QHNET_KERNELS = {  # key: (name, JAX kernel body line in nabladft_tpu/ops/pallas/qhnet_tp.py)
+    "I": ("qhnet_conv_fwd (I)", 200), "J": ("qhnet_conv_bwd (J)", 226),
+    "K": ("qhnet_pair_fwd (K)", 414), "L": ("qhnet_pair_bwd (L)", 448),
+}
+QH_ARGS = {
+    "I": ("x", "cgsh", "hr_c", "hs_c", "w2r_c", "b2r_c", "w2s_c", "b2s_c"),
+    "K": ("x", "zi", "maskf", "hr_p", "hs_p", "w2r_p", "b2r_p", "w2s_p", "b2s_p"),
+}
+QH_ARGS.update(J=QH_ARGS["I"] + ("g_conv",), L=QH_ARGS["K"] + ("g_pair",))
+
+
+def qhnet_kernel_inputs(dev, b: int, a: int, c: int, hc=QH_CONV_H, hp=QH_PAIR_H,
+                        seed: int = SEED) -> dict:
+    """Seeded inputs of kernels I-L, built as QHNet builds them: each
+    molecule has a/2..a real atoms (the rest padding) at random positions
+    (Bohr); cgsh = the edge SH (component-normalized, zero off the 12 Bohr
+    radius graph) @ cgsh_matrix; zi = node @ cgz_matrix of the same node
+    features as x; maskf the full-graph mask (no self pairs, no padding);
+    gate hiddens, weights and cotangents random. Also node_mask and adj."""
+    from nabladft_tpu_torch.ops import qhnet_tp as qt, so3
+
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(*shape, scale=0.3):
+        return torch.randn(*shape, generator=g) * scale
+
+    lmax, s = qt.LMAX, qt.S
+    pc = len(qt.tp_paths(lmax)) * c
+    n_atoms = torch.randint(max(a // 2, 1), a + 1, (b,), generator=g)
+    real = torch.arange(a)[None] < n_atoms[:, None]
+    pos = mk(b, a, 3, scale=4.0)
+    diff = pos[:, None] - pos[:, :, None]
+    dist = diff.norm(dim=-1)
+    full = real[:, :, None] & real[:, None, :] & ~torch.eye(a, dtype=torch.bool)
+    adj = full & (dist < 12.0)
+    unit = torch.where(full[..., None], diff / dist.clamp(min=1e-9)[..., None], 0.0)
+    sh = so3.real_sph_harm(unit, lmax, normalized=False)
+    cgsh = torch.where(adj[..., None], sh, 0.0) @ torch.from_numpy(qt.cgsh_matrix(lmax))
+    node = mk(b, a, s, c) * real[:, :, None, None]
+    zi = torch.einsum("basc,sk->bakc", node, torch.from_numpy(qt.cgz_matrix(lmax)))
+    x = dict(x=node.transpose(1, 2), cgsh=cgsh, zi=zi, maskf=full.float()[..., None],
+             g_conv=mk(b, a, s, c), g_pair=mk(b, a, s, a, c), node_mask=real, adj=adj)
+    for tag, (h1, h2) in (("c", hc), ("p", hp)):
+        x.update({f"hr_{tag}": mk(b, a, a, h1, scale=1.0), f"hs_{tag}": mk(b, a, a, h2, scale=1.0),
+                  f"w2r_{tag}": mk(h1, pc, scale=h1 ** -0.5),
+                  f"w2s_{tag}": mk(h2, pc, scale=h2 ** -0.5),
+                  f"b2r_{tag}": mk(pc, scale=0.1), f"b2s_{tag}": mk(pc, scale=0.1)})
+    return {k: t.to(dev).contiguous() for k, t in x.items()}
+
+
+def qhnet_kernel_phases(dev, card: str) -> dict:
+    """Kernels I-L at the QHNet train path's shapes (B=QH_BATCH, A in
+    BUCKETS, C=128, LMAX 4, H1/H2 32/32 for the conv and 8/128 for the
+    pair) against their plain versions: errors (checked), kernel / plain /
+    bound times; J and L run twice for the same bits. The kernels line's
+    numbers as in kernel_phases."""
+    from nabladft_tpu_torch.ops import qhnet_tp as qt
+
+    peak_flops, peak_bw = peaks(card)
+    fns = {"I": (qt.qhnet_conv_fwd, qt.conv_fwd_reference, "cgsh", "c"),
+           "J": (qt.qhnet_conv_bwd, qt.conv_bwd_reference, "cgsh", "c"),
+           "K": (qt.qhnet_pair_fwd, qt.pair_fwd_reference, "zi", "p"),
+           "L": (qt.qhnet_pair_bwd, qt.pair_bwd_reference, "zi", "p")}
+    per = {k: [] for k in QHNET_KERNELS}
+    for a in BUCKETS:
+        x = qhnet_kernel_inputs(dev, QH_BATCH, a, QH_C, seed=SEED + 2000 + a)
+        shape = [QH_BATCH, a, QH_C]
+        for k, (fn, ref, table, tag) in fns.items():
+            args = [x[n] for n in QH_ARGS[k]]
+            as_tuple = (lambda t: t if isinstance(t, tuple) else (t,))
+            got = as_tuple(fn(*args))
+            err = compare(got, as_tuple(ref(*args)))
+            check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel {k} error at {shape}: {err}")
+            extra = {}
+            if k in "JL":
+                again = as_tuple(fn(*args))
+                check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                      f"kernel {k} deterministic at {shape}")
+                extra["bit_identical_rerun"] = True
+            del got
+            t_k = time_ms(lambda: fn(*args))
+            t_p = time_ms(lambda: ref(*args))
+            flops, nbytes = qt.flops_bytes(k, x["x"], x[table], x[f"hr_{tag}"], x[f"hs_{tag}"])
+            row = _kernel_row(shape, err, t_k, t_p, flops, nbytes, peak_flops, peak_bw, **extra)
+            emit(f"kernel_{k}", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k,
+                 plain_times=t_p)
+            per[k].append(row)
+        del x
+        torch.cuda.empty_cache()
+    return headline_rows(per, QHNET_KERNELS, "qhnet_tp", ())
+
+
+def orbital_rotation(zs, orbitals: dict, rot: torch.Tensor, o_max: int) -> torch.Tensor:
+    """Block-diagonal Wigner-D over the orbital shells of one molecule."""
+    from nabladft_tpu_torch.ops import so3
+
+    ds = [d[0] for d in so3.wigner_d(rot[None].double(), 2)]
+    t = torch.eye(o_max, dtype=torch.float64, device=rot.device)
+    off = 0
+    for z in zs:
+        for l in orbitals[int(z)]:
+            k = 2 * l + 1
+            t[off:off + k, off:off + k] = ds[l]
+            off += k
+    return t
+
+
+def qhnet_train_phase(tmp: Path) -> dict:
+    """QHNet's train and test jobs (configs/qhnet.yaml at full width) on a
+    seeded Hamiltonian DB, then the gradient, H and covariance checks per
+    atom bucket and a profile of two train steps; returns the launch counts
+    of the jobs."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.data.synthetic import write_random_hamiltonian_db
+
+    db = write_random_hamiltonian_db(tmp / "hamiltonian.db", QH_MOLS, MIN_ATOMS, MAX_ATOMS,
+                                     SEED)
+    ckpt, outputs = tmp / "ckpt_qhnet", tmp / "outputs_qhnet"
+    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs), config="qhnet")
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+    dropped = dm.dataset.n_dropped
+    filled = sorted({dm.dataset.bucket_shape(b)[0] for b in dm.dataset.bucket_of if b >= 0})
+    check(filled == list(BUCKETS), f"every atom bucket holds molecules: {filled}")
+
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.time()
+    res = pipelines.run(cfg)
+    best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
+    test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(ckpt / best)))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    steps, n_layers = res["step"], cfg["model"]["kwargs"]["num_layers"]
+    # Self / Pair heads on the layers after start_layer
+    n_pair = n_layers - 1 - cfg["model"]["kwargs"].get("start_layer", 2)
+    evals = TRAIN_EPOCHS * n_val + n_test
+    check(steps == TRAIN_EPOCHS * n_train, f"{steps} train steps, expected {TRAIN_EPOCHS} x {n_train}")
+    # remat: the backward pass runs each Conv and Pair layer's forward again
+    want = dict.fromkeys(launches, 0)  # the other families' kernels: none
+    want.update({"qhnet_conv_fwd": 2 * n_layers * steps + n_layers * evals,
+                 "qhnet_conv_bwd": n_layers * steps,
+                 "qhnet_pair_fwd": 2 * n_pair * steps + n_pair * evals,
+                 "qhnet_pair_bwd": n_pair * steps})
+    check(launches == want, f"qhnet train/test launches {launches}, expected {want}")
+    check((ckpt / "last.ckpt").exists() and (ckpt / best).exists(), "checkpoint files")
+    rows = read_csv(outputs / cfg["name"] / "metrics.csv")
+    step_rows = [r for r in rows if "train/total" in r]
+    val_rows = [r for r in rows if "val/loss" in r]
+    check(len(step_rows) == steps and len(val_rows) == TRAIN_EPOCHS, "a CSV row per step and epoch")
+    for r in step_rows:
+        check(all(np.isfinite(r[k]) for k in ("train/total", "train/hamiltonian", "grad_norm")),
+              f"finite train metrics {r}")
+        check(r["skipped_nonfinite"] == 0.0, f"no skipped step {r}")
+    for m in [res, test] + val_rows:
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    check({"val/loss", "val/hamiltonian/mae"} <= set(res), f"val metrics {res}")
+    check({"test/loss", "test/hamiltonian/mae"} <= set(test), f"test metrics {test}")
+    rates = sorted(r["mols_per_sec"] for r in step_rows if r["epoch"] == TRAIN_EPOCHS - 1)
+    epoch_ends = [t_start] + [r["time"] for r in val_rows]
+    epoch_seconds = [b - a for a, b in zip(epoch_ends, epoch_ends[1:])]
+
+    checks = qhnet_model_checks(cfg, dm)
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None),
+                                      torch.device("cuda"))
+    batches = list(itertools.islice(dm.train_dataloader(), 2))
+    profile_steps("qhnet_train_profile", trainer._train_step, batches)
+    emit("qhnet_train", config="qhnet", molecules=QH_MOLS, dropped_molecules=dropped,
+         steps=steps, batches_per_epoch=n_train, val_batches=n_val, test_batches=n_test,
+         launches=launches, expected_launches=want, final_val=res, test=test,
+         train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
+         grad_norm_max=max(r["grad_norm"] for r in step_rows),
+         molecules_per_second={"median": rates[len(rates) // 2], "min": rates[0],
+                               "max": rates[-1], "steps": rates, "epoch": TRAIN_EPOCHS - 1},
+         seconds_per_epoch=epoch_seconds, peak_device_memory_bytes=peak_mem,
+         model_checks=checks,
+         tolerances={"grad_rel": QH_GRAD_RTOL, "h_rel": QH_H_RTOL, "covariance_rel": QH_COV_RTOL})
+    return launches
+
+
+def qhnet_model_checks(cfg: dict, dm) -> list:
+    """For the first train batch of each atom bucket, on the card with the
+    same seeded weights: the kernel path's (I-L) parameter gradients and H
+    against the plain module's (use_pallas "off"), and the kernel path's H
+    of the batch rotated against T(R) H T(R)^T."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.train import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    t = dict(cfg["trainer"], loss_specs=cfg["model"]["loss_specs"],
+             loss_coefs=cfg["model"]["loss_coefs"])
+    plain_cfg = dict(cfg, model=dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"],
+                                                               use_pallas="off")))
+    fused = Trainer(pipelines.build_model(cfg, dev), dev, TrainerConfig(**t))
+    plain = Trainer(pipelines.build_model(plain_cfg, dev), dev, TrainerConfig(**t))
+    check(fused.model.use_pallas == "fused" and plain.model.use_pallas == "off", "model modes")
+    orbitals = fused.model.layout.orbitals
+    rot = torch.from_numpy(rotation()).to(dev)
+    first = {}
+    for batch in dm.train_dataloader():
+        first.setdefault(batch.z.shape[1], batch)
+    out = []
+    for a, batch in sorted(first.items()):
+        batch = batch.to(dev)
+        lf, lp = fused._compute_grads(batch), plain._compute_grads(batch)
+        worst, worst_name = 0.0, None
+        for (n, p), (_, q) in zip(fused.model.named_parameters(), plain.model.named_parameters()):
+            ratio = float((p.grad - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-30)
+            if ratio > worst:
+                worst, worst_name = ratio, n
+        check(worst <= QH_GRAD_RTOL, f"gradient check at A={a}: {worst_name} off by {worst:.3e}")
+        with torch.no_grad():
+            h_f = fused.model(batch)["hamiltonian"]
+            h_p = plain.model(batch)["hamiltonian"]
+            h_r = fused.model(batch.replace(pos=batch.pos @ rot.T))["hamiltonian"]
+        h_scale = float(h_p.abs().max())
+        h_err = float((h_f - h_p).abs().max())
+        check(h_err <= QH_H_RTOL * h_scale, f"H at A={a}: {h_err} vs max |H| {h_scale}")
+        cov = 0.0
+        for k in range(batch.z.shape[0]):
+            if not bool(batch.graph_mask[k]):
+                continue
+            zs = batch.z[k][batch.node_mask[k]].tolist()
+            tr = orbital_rotation(zs, orbitals, rot, h_f.shape[-1])
+            want = tr @ h_f[k].double() @ tr.T
+            cov = max(cov, float((h_r[k].double() - want).abs().max()))
+        check(cov <= QH_COV_RTOL * h_scale, f"covariance at A={a}: {cov} vs max |H| {h_scale}")
+        out.append({"shape": list(batch.z.shape), "orbitals": batch.orb_mask.shape[1],
+                    "max_rel_grad_err": worst, "worst_param": worst_name,
+                    "loss_kernel": float(lf["total"]), "loss_plain": float(lp["total"]),
+                    "max_abs_h_err": h_err, "max_abs_h": h_scale,
+                    "max_abs_covariance_err": cov})
+    check(sorted(first) == list(BUCKETS), f"model check buckets {sorted(first)}")
+    return out
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
-               "H": "schnet_dual_bwd"}  # kernel -> its launch counter
+               "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
+               "K": "qhnet_pair_fwd", "L": "qhnet_pair_bwd"}  # kernel -> its launch counter
 
 
 def main() -> int:
@@ -806,7 +1092,7 @@ def main() -> int:
     nvcc_version = subprocess.run([_kernels.nvcc(), "--version"], capture_output=True,
                                   text=True, check=True).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    sources = ("painn_fused", "schnet_fused")
+    sources = ("painn_fused", "schnet_fused", "qhnet_tp")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = dict(zip(sources, pool.map(_kernels.build, sources)))
     seconds["build"] = time.perf_counter() - t0
@@ -825,6 +1111,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rows = timed("kernels_painn", kernel_phases, dev, card)
     rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card))
+    rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card))
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -834,6 +1121,7 @@ def main() -> int:
             for job, phase in (("predict", predict_phase), ("train", train_phase)):
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
+        by_path["qhnet_train"] = timed("qhnet_train", qhnet_train_phase, tmp)
     for k, counter in ALL_KERNELS.items():
         rows[k]["launches_by_path"] = {p: n[counter] for p, n in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())

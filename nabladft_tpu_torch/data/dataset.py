@@ -1,9 +1,11 @@
-"""Energy datasets + bucketed fixed-shape batching — the host-side input pipeline.
+"""Energy and Hamiltonian datasets + bucketed fixed-shape batching — the
+host-side input pipeline.
 
-The energy half of ``nabladft_tpu/data/dataset.py``, with the same
-behaviour: the same DB and seed give the same buckets, padding and batch
-order as the JAX package. Batches come out as torch `MolBatch`es on the CPU;
-the caller moves them to its device.
+The port of ``nabladft_tpu/data/dataset.py``, with the same behaviour: the
+same DB and seed give the same buckets, padding and batch order as the JAX
+package. Batches come out as torch `MolBatch`es on the CPU; the caller
+moves them to its device. Hamiltonian splits are bucketed jointly by atom
+and orbital count and carry `hamiltonian`, `overlap`, `core` and `orb_mask`.
 
   * every molecule is assigned to a **bucket** by atom count; bucket sizes
     are static, so a batch is a dense `[B, A_bucket]` array with masks;
@@ -32,6 +34,7 @@ import torch
 from nabladft_tpu_torch.data import fastpack
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
 from nabladft_tpu_torch.data.batch import MolBatch
+from nabladft_tpu_torch.data.hamiltonian_db import HamiltonianDatabase
 
 logger = logging.getLogger(__name__)
 
@@ -262,6 +265,107 @@ class EnergyDataset:
         return len(self.records)
 
 
+class HamiltonianRecords:
+    """Lazy view over a Hamiltonian DB: natoms / norb scanned up front, rows
+    fetched on demand (the matrices are too large to hold in RAM)."""
+
+    def __init__(self, db: HamiltonianDatabase):
+        self.db = db
+        rows = db._connection().execute(
+            "SELECT id, length(Z), length(H) FROM data ORDER BY id").fetchall()
+        self.ids = np.asarray([r[0] for r in rows], np.int64)
+        self.natoms_all = np.asarray([r[1] // 4 for r in rows], np.int32)
+        self.norb_all = np.asarray(
+            [int(round((r[2] // 4) ** 0.5)) if r[2] else 0 for r in rows], np.int32)
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+
+class HamiltonianDataset:
+    """A Hamiltonian split, bucketed jointly by (natoms, norb); molecules
+    above either largest boundary are dropped, with a warning."""
+
+    def __init__(
+        self,
+        source,
+        root: Optional[Path] = None,
+        atom_boundaries: Sequence[int] = (32, 48, 64),
+        orbital_boundaries: Sequence[int] = (256, 384, 512, 640),
+        include_overlap: bool = True,
+        include_core: bool = False,
+    ):
+        del root  # named splits (downloaded into root) are not ported
+        path = Path(source)
+        if not path.exists():
+            raise FileNotFoundError(
+                f"{source!r} is not a local Hamiltonian database; named registry splits "
+                "are not supported by the PyTorch port yet (ROADMAP queue 1)")
+        self.path = path
+        self.db = HamiltonianDatabase(path)
+        self.records = HamiltonianRecords(self.db)
+        self.include_overlap = include_overlap
+        self.include_core = include_core
+        self.atom_boundaries = tuple(sorted(atom_boundaries))
+        self.orbital_boundaries = tuple(sorted(orbital_boundaries))
+        ab = assign_buckets(self.records.natoms_all, self.atom_boundaries)
+        ob = assign_buckets(self.records.norb_all, self.orbital_boundaries)
+        # joint bucket id = ab * n_orb_buckets + ob (or -1 = dropped)
+        self.bucket_of = np.where(
+            (ab >= 0) & (ob >= 0), ab * len(self.orbital_boundaries) + ob, -1
+        ).astype(np.int32)
+        self.n_dropped = int((self.bucket_of < 0).sum())
+        if self.n_dropped:
+            logger.warning(
+                "%d molecules exceed the atom/orbital budget caps and are dropped "
+                "(largest: %d atoms / %d orbitals)", self.n_dropped,
+                int(self.records.natoms_all.max()), int(self.records.norb_all.max()))
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def bucket_shape(self, bucket_id: int) -> Tuple[int, int]:
+        ab, ob = divmod(int(bucket_id), len(self.orbital_boundaries))
+        return self.atom_boundaries[ab], self.orbital_boundaries[ob]
+
+    def collate(self, indices: Sequence[int], batch_size: int, bucket_id: int) -> MolBatch:
+        a, o = self.bucket_shape(bucket_id)
+        b = batch_size
+        z = np.zeros((b, a), np.int32)
+        pos = np.zeros((b, a, 3), np.float32)
+        node_mask = np.zeros((b, a), bool)
+        graph_mask = np.zeros((b,), bool)
+        energy = np.zeros((b,), np.float32)
+        forces = np.zeros((b, a, 3), np.float32)
+        mol_id = np.full((b,), -1, np.int32)
+        ham = np.zeros((b, o, o), np.float32)
+        over = np.zeros((b, o, o), np.float32) if self.include_overlap else None
+        core = np.zeros((b, o, o), np.float32) if self.include_core else None
+        orb_mask = np.zeros((b, o), bool)
+        recs = self.db.get_many([int(self.records.ids[i]) for i in indices])
+        for slot, rec in enumerate(recs):
+            n, no = rec.natoms, rec.norb
+            z[slot, :n] = rec.z
+            pos[slot, :n] = rec.pos
+            node_mask[slot, :n] = True
+            graph_mask[slot] = True
+            energy[slot] = rec.energy
+            forces[slot, :n] = rec.forces
+            mol_id[slot] = self.records.ids[indices[slot]]
+            ham[slot, :no, :no] = rec.hamiltonian
+            if over is not None:
+                over[slot, :no, :no] = rec.overlap
+            if core is not None:
+                core[slot, :no, :no] = rec.core
+            orb_mask[slot, :no] = True
+        t = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
+        return MolBatch(
+            z=t(z), pos=t(pos), node_mask=t(node_mask), graph_mask=t(graph_mask),
+            energy=t(energy), forces=t(forces), mol_id=t(mol_id),
+            hamiltonian=t(ham), overlap=t(over), core=t(core), orb_mask=t(orb_mask),
+        )
+
+
 # ---------------------------------------------------------------------------
 # Splits
 # ---------------------------------------------------------------------------
@@ -347,6 +451,8 @@ class BucketedLoader:
         return plan
 
     def _collate(self, bid: int, chunk: np.ndarray) -> MolBatch:
+        if isinstance(self.dataset, HamiltonianDataset):
+            return self.dataset.collate(chunk, self.config.batch_size, bid)
         max_atoms = self.dataset.bucket_boundaries[bid]
         return collate_energy(self.dataset.records, chunk, self.config.batch_size, max_atoms)
 

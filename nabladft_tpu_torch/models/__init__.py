@@ -1,4 +1,4 @@
-"""Model zoo: NNPs as torch modules (PaiNN and SchNet so far)."""
+"""Model zoo: NNPs as torch modules (PaiNN, SchNet and QHNet so far)."""
 
 from nabladft_tpu_torch.models.base import (  # noqa: F401
     MODEL_REGISTRY,
@@ -7,4 +7,5 @@ from nabladft_tpu_torch.models.base import (  # noqa: F401
     register_model,
 )
 from nabladft_tpu_torch.models.painn import PaiNN  # noqa: F401
+from nabladft_tpu_torch.models.qhnet import QHNet  # noqa: F401
 from nabladft_tpu_torch.models.schnet import SchNet  # noqa: F401

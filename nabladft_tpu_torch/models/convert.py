@@ -18,6 +18,18 @@ SchNet's (the torch module names its parameters as the tree does):
   f2out_i_{0,1}/{kernel,bias}
   atomwise/Dense_{0,1}/{kernel,bias}
 
+QHNet's (module names as the tree's; GateMLPSplit's second Dense and the
+RBF's gamma are raw arrays):
+
+  node_embedding/embedding                         [Z, C]
+  rbf/gamma                                        []
+  conv_i/{linear_pre,linear_in,linear_out}/l{l}/{kernel,bias}   (bias on l0)
+  conv_i/norm_gate/gate_mlp/Dense_{0,1}/{kernel,bias}
+  conv_i/{fc_rbf,fc_s0}/Dense_0/{kernel,bias}, .../Dense_1/{kernel,bias} (raw)
+  self_i/{ng1,ng2,ng3}/gate_mlp/..., self_i/{lin1,lin2,lin3}/l{l}/..., self_i/tp_weights
+  pair_i/{lin_inner,lin_n,lin_out}/..., pair_i/{ng_pre,ng_post}/..., pair_i/{fc_rbf,fc_s0}/...
+  output_{ii,ij}/l{l}/..., fc_ii, fc_ii_bias, fc_ij_bias/Dense_{0,1}/..., fc_ij (split)
+
 A flax ``Dense.kernel`` is [in, out] and becomes the transposed
 ``Linear.weight``; the raw filter arrays keep their layout, which the
 kernels take as is. Every parameter of the module must be matched and
@@ -51,7 +63,7 @@ def _flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
             out.append("MLP_0")
         elif p.startswith("dense_"):
             out.append("Dense_" + p[len("dense_"):])
-        elif p == "weight" and out == ["atom_embedding"]:
+        elif p == "weight" and out and out[-1].endswith("embedding"):
             out.append("embedding")
         elif p == "weight":
             out.append("kernel")
@@ -73,7 +85,7 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax PaiNN or SchNet parameter tree into `model` in place;
+    """Copy a flax PaiNN, SchNet or QHNet parameter tree into `model` in place;
     returns it."""
     tree = params.get("params", params)
     leaves = _leaves(tree)
@@ -88,7 +100,7 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
                 arr = arr.T
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: flax {arr.shape} vs torch {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            p.copy_(torch.from_numpy(arr.copy(order="C")))  # keeps 0-d leaves 0-d
             used.add(path)
     unused = sorted("/".join(k) for k in leaves if k not in used)
     if unused:

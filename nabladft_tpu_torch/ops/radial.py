@@ -1,6 +1,7 @@
 """Radial basis expansions and cutoff envelopes (torch).
 
-The fixed bases of ``nabladft_tpu/ops/radial.py`` that PaiNN uses. All
+The bases of ``nabladft_tpu/ops/radial.py`` that PaiNN, SchNet and QHNet
+use (QHNet's exponential Bernstein basis is a module: its γ trains). All
 functions are pure, operate on arbitrarily shaped distance tensors and
 broadcast a trailing basis axis; padded distances may be 0 or huge, callers
 multiply by their own edge masks.
@@ -16,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 
 def cosine_cutoff(d: torch.Tensor, cutoff: float) -> torch.Tensor:
@@ -104,6 +107,41 @@ def bessel_rbf(d: torch.Tensor, num_basis: int, cutoff: float) -> torch.Tensor:
     out = norm * torch.sin(n * math.pi * d_safe[..., None] / cutoff) / d_safe[..., None]
     limit = norm * n * math.pi / cutoff
     return torch.where((d > 1e-8)[..., None], out, limit.expand_as(out))
+
+
+def smooth_transition_cutoff(d: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """PhiSNet-style infinitely differentiable bump cutoff:
+    exp(-x² / ((rc-x)(rc+x))) for x < rc, else 0."""
+    x = torch.clamp(d, 0.0, cutoff * (1.0 - 1e-6))
+    z = x**2 / ((cutoff - x) * (cutoff + x))
+    e = torch.exp(-z)
+    return torch.where(d < cutoff, e, torch.zeros_like(e))
+
+
+class ExpBernsteinRBF(nn.Module):
+    """Exponential Bernstein polynomial basis (QHNet): b_k(d) =
+    B_{k,K}(exp(-γ d)) · smooth_transition_cutoff(d), evaluated in log
+    space, with a trainable γ = softplus(`gamma`) (the flax module's param,
+    initialised so that γ = gamma_init)."""
+
+    def __init__(self, num_basis: int, cutoff: float, gamma_init: float = 0.5):
+        super().__init__()
+        self.num_basis, self.cutoff = num_basis, cutoff
+        self.gamma = nn.Parameter(torch.tensor(math.log(math.expm1(gamma_init)),
+                                               dtype=torch.float32))
+
+    def forward(self, d: torch.Tensor) -> torch.Tensor:
+        n = self.num_basis - 1
+        k = torch.arange(self.num_basis, dtype=torch.float32, device=d.device)
+        # log C(n, k) in float64, rounded once (JAX's float32 gammaln is off
+        # by up to ~1.5e-5 here, which the basis' exp turns into ~2e-5 relative)
+        log_binom = torch.tensor([math.lgamma(n + 1) - math.lgamma(i + 1) - math.lgamma(n - i + 1)
+                                  for i in range(self.num_basis)], dtype=torch.float32,
+                                 device=d.device)
+        x = -F.softplus(self.gamma) * d[..., None]  # log(exp(-γ d))
+        log1m = torch.log(-torch.expm1(torch.clamp(x, max=-1e-8)))
+        basis = torch.exp(log_binom + k * x + (n - k) * log1m)
+        return basis * smooth_transition_cutoff(d, self.cutoff)[..., None]
 
 
 def bessel_rbf_jvp(d: torch.Tensor, td: torch.Tensor, num_basis: int,

@@ -5,11 +5,13 @@ validation, seeding, the datamodule, the model, the trainer, and the
 prediction writer (the output database mirrors the input rows plus
 `energy_pred` / `forces_pred` in the data blob). `run` executes on the card
 unless the caller passes ``device``; without a card and without ``device``
-it raises. On the card PaiNN and SchNet run their fused kernels and train
-with the surrogate force gradient through them (``force_grads="pallas"``)
-unless the config pins either. `ckpt_path` takes a checkpoint this package wrote;
-``optimize``, ``pretrained`` and the JAX package's flax checkpoints are not
-ported yet.
+it raises. On the card PaiNN, SchNet and QHNet run their fused kernels
+unless the config pins `use_pallas`; PaiNN and SchNet then train with the
+surrogate force gradient through them (``force_grads="pallas"``). Hamiltonian
+configs (``datamodule.kind: hamiltonian``) read a local Hamiltonian DB and
+take the orbital basis from its ``basisset`` table; they have no predict
+job. `ckpt_path` takes a checkpoint this package wrote; ``optimize``,
+``pretrained`` and the JAX package's flax checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from nabladft_tpu_torch.data import DataModule, EnergyDataset
+from nabladft_tpu_torch.data import DataModule, EnergyDataset, HamiltonianDataset
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
+from nabladft_tpu_torch.data.hamiltonian_db import HamiltonianDatabase
 from nabladft_tpu_torch.models import create_model
 from nabladft_tpu_torch.models.convert import load_flax_params
 from nabladft_tpu_torch.train import (
@@ -36,7 +39,9 @@ logger = logging.getLogger(__name__)
 
 JOB_TYPES = ("train", "test", "predict", "optimize")
 # the families that run fused message kernels on the card by default
-FUSED_ON_CARD = ("painn", "schnet")
+FUSED_ON_CARD = ("painn", "schnet", "qhnet")
+# the families that read the orbital basis of a Hamiltonian DB
+HAMILTONIAN_MODELS = ("qhnet",)
 _NOT_PORTED = {
     "optimize": "the optimize job (ROADMAP queue 1, item 7)",
 }
@@ -65,13 +70,21 @@ def check_cfg(cfg: Dict[str, Any]) -> None:
 def build_datamodule(cfg: Dict[str, Any]) -> DataModule:
     d = cfg["datamodule"]
     kind = d.get("kind", "energy")
-    if kind != "energy":
-        raise NotImplementedError(f"datamodule kind {kind!r} is not ported yet (ROADMAP)")
-    ds = EnergyDataset(
-        d["source"],
-        root=d.get("root"),
-        bucket_boundaries=tuple(d.get("bucket_boundaries", (32, 48, 64))),
-    )
+    if kind == "energy":
+        ds = EnergyDataset(
+            d["source"],
+            root=d.get("root"),
+            bucket_boundaries=tuple(d.get("bucket_boundaries", (32, 48, 64))),
+        )
+    elif kind == "hamiltonian":
+        ds = HamiltonianDataset(
+            d["source"],
+            root=d.get("root"),
+            atom_boundaries=tuple(d.get("atom_boundaries", (32, 48, 64))),
+            orbital_boundaries=tuple(d.get("orbital_boundaries", (256, 384, 512, 640))),
+        )
+    else:
+        raise ValueError(f"unknown datamodule kind {kind!r}")
     return DataModule(
         ds,
         batch_size=d.get("batch_size", 32),
@@ -86,11 +99,22 @@ def build_model(cfg: Dict[str, Any], device: torch.device,
     """The configured model on `device`: weights from the trainer seed, or
     `params` (a flax parameter tree) carried across from the JAX package.
     On the card the FUSED_ON_CARD families run their fused message kernels
-    unless the config pins `use_pallas`."""
+    unless the config pins `use_pallas`. A Hamiltonian model reads the
+    orbital basis from the DB's basisset table unless the config gives one."""
     m = cfg["model"]
     kwargs = dict(m.get("kwargs", {}))
     if m["name"].lower() in FUSED_ON_CARD and device.type == "cuda":
         kwargs.setdefault("use_pallas", "fused")
+    d = cfg.get("datamodule", {})
+    if (m["name"].lower() in HAMILTONIAN_MODELS and "orbitals" not in kwargs
+            and d.get("kind") == "hamiltonian"):
+        db = HamiltonianDatabase(d["source"])
+        try:
+            if db.elements():
+                kwargs["orbitals"] = {z: tuple(int(l) for l in db.get_orbitals(z))
+                                      for z in db.elements()}
+        finally:
+            db.close()
     seed = cfg.get("trainer", {}).get("seed", cfg.get("seed", 42))
     model = create_model(m["name"], device=device, generator=seeded_generator(seed), **kwargs)
     if params is not None:
@@ -112,7 +136,7 @@ def build_trainer(cfg: Dict[str, Any], device: torch.device,
     t.setdefault("loss_coefs", m.get("loss_coefs", {"energy": 1.0, "forces": 1.0}))
     if cfg.get("ckpt_dir"):
         t.setdefault("ckpt_dir", cfg["ckpt_dir"])
-    if getattr(model, "use_pallas", "off") == "fused":
+    if getattr(model, "use_pallas", "off") == "fused" and model.derivative_forces:
         # the fused kernels' backward is first-order: train through C and D
         t.setdefault("force_grads", "pallas")
     loggers = [StdoutLogger()]

@@ -11,9 +11,12 @@ from typing import Dict
 
 import torch
 
+from nabladft_tpu_torch.train.losses import matrix_target
+
 
 def batch_metric_sums(out: Dict[str, torch.Tensor], batch) -> Dict[str, torch.Tensor]:
-    """Per-batch absolute-error sums and element counts for energy and forces."""
+    """Per-batch absolute-error sums and element counts for energy, forces
+    and the matrix targets the batch carries (full matrix or block space)."""
     sums: Dict[str, torch.Tensor] = {}
     if "energy" in out:
         err = torch.abs(out["energy"] - batch.energy)
@@ -23,6 +26,14 @@ def batch_metric_sums(out: Dict[str, torch.Tensor], batch) -> Dict[str, torch.Te
         err = torch.abs(out["forces"] - batch.forces) * batch.node_mask[..., None]
         sums["forces/abs_sum"] = err.sum()
         sums["forces/count"] = 3.0 * batch.node_mask.sum().float()
+    for target in ("hamiltonian", "overlap", "core"):
+        if getattr(batch, target, None) is None or not (
+                target in out or f"{target}_blocks" in out):
+            continue
+        pred, tgt, pm = matrix_target(out, batch, target)
+        err = torch.abs(pred - tgt)
+        sums[f"{target}/abs_sum"] = torch.where(pm, err, torch.zeros_like(err)).sum()
+        sums[f"{target}/count"] = pm.sum().float()
     return sums
 
 

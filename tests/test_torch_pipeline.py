@@ -41,7 +41,7 @@ def _cfg(db: Path, out: Path, root: Path) -> dict:
             "job_type": "predict",
             "model": {"kwargs": SMALL},
             "datamodule": {"source": str(db), "root": str(root), "batch_size": 8,
-                           "bucket_boundaries": [16, 32]},
+                           "bucket_boundaries": [32]},
             "output_db": str(out),
             "ckpt_dir": str(root / "ckpt"),
             "output_dir": str(root / "outputs"),

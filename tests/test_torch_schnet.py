@@ -163,7 +163,9 @@ def jax_surrogate(arrays):
     batch = JaxBatch(**arrays)
     trainer.init_state(batch)
     params = jax.device_get(trainer.state.params)
-    grads, losses, _ = trainer._surrogate_grads(trainer.state.params, batch, None)
+    # jitted once: the interpret-mode kernels run op by op otherwise
+    grads, losses, _ = jax.jit(lambda p, b: trainer._surrogate_grads(p, b, None))(
+        trainer.state.params, batch)
     twin = _port(params)
     load_flax_params(twin, jax.device_get(grads))
     return params, {n: p.detach().clone() for n, p in twin.named_parameters()}, {

@@ -28,6 +28,17 @@ from nabladft_tpu_torch.config import load_config
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
 from nabladft_tpu_torch.data.synthetic import write_random_db
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(hidden=16, n_interactions=2, n_rbf=8, max_neighbors=7)
 E_TOL = dict(rtol=2e-4, atol=1e-5)
@@ -42,7 +53,7 @@ def _cfg(db: Path, root: Path, job: str, sub: str) -> dict:
             "job_type": job,
             "model": {"kwargs": SMALL},
             "datamodule": {"source": str(db), "root": str(root), "batch_size": 8,
-                           "bucket_boundaries": [16, 32]},
+                           "bucket_boundaries": [32]},
             "ckpt_dir": str(root / sub / "ckpt"),
             "output_dir": str(root / sub / "outputs"),
             "output_db": str(root / sub / "predictions.db"),

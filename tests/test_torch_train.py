@@ -31,6 +31,17 @@ from nabladft_tpu_torch.models.convert import load_flax_params
 from nabladft_tpu_torch.train import Trainer, TrainerConfig
 from nabladft_tpu_torch.train.schedulers import PlateauState
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KW = dict(hidden=16, n_interactions=2, n_rbf=8, max_neighbors=7)
 GRAD_TOL = dict(rtol=5e-3, atol=1e-5)
 LOSSES = dict(loss_specs={"energy": "l1", "forces": "l2norm"},
@@ -81,7 +92,9 @@ def jax_surrogate(arrays):
     batch = JaxBatch(**arrays)
     trainer.init_state(batch)
     params = jax.device_get(trainer.state.params)
-    grads, losses, _ = trainer._surrogate_grads(trainer.state.params, batch, None)
+    # jitted once: the interpret-mode kernels run op by op otherwise
+    grads, losses, _ = jax.jit(lambda p, b: trainer._surrogate_grads(p, b, None))(
+        trainer.state.params, batch)
     twin = _port_model(params)
     load_flax_params(twin, jax.device_get(grads))
     return params, {n: p.detach().clone() for n, p in twin.named_parameters()}, {

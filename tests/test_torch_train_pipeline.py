@@ -18,11 +18,23 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from nabladft_tpu import pipelines as jax_pipelines
 from nabladft_tpu_torch import pipelines
 from nabladft_tpu_torch.config import load_config
 from nabladft_tpu_torch.data.synthetic import write_random_db
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(hidden=16, n_interactions=2, n_rbf=8, max_neighbors=7)
@@ -36,7 +48,7 @@ def _cfg(db: Path, root: Path, job: str, sub: str) -> dict:
             "job_type": job,
             "model": {"kwargs": SMALL},
             "datamodule": {"source": str(db), "root": str(root), "batch_size": 8,
-                           "bucket_boundaries": [16, 32]},
+                           "bucket_boundaries": [32]},
             "ckpt_dir": str(root / sub / "ckpt"),
             "output_dir": str(root / sub / "outputs"),
             "trainer": {"max_epochs": 2, "n_dp": 1, "log_every_n_steps": 1},
@@ -115,8 +127,6 @@ def test_cli_train_on_cpu(db, tmp_path):
 
 
 def test_flax_checkpoint_and_missing_card_raise(db, runs, tmp_path):
-    import torch
-
     root, src = db
     flax_ckpt = root / "jax" / "ckpt" / "last.ckpt"  # written by the JAX trainer
     cfg = dict(_cfg(src, root, "test", "torch"), ckpt_path=str(flax_ckpt))
