@@ -7,8 +7,9 @@ Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the repository
 checkout; no network and no PyYAML. Phases, each printing one JSON line:
 
   1. env     — device, torch / CUDA / nvcc versions, the card's name and
-               power limit; builds csrc/painn_fused.cu, csrc/schnet_fused.cu
-               and csrc/qhnet_tp.cu (one nvcc each, started together) and
+               power limit; builds csrc/painn_fused.cu, csrc/schnet_fused.cu,
+               csrc/qhnet_tp.cu and csrc/escn_layer.cu (one nvcc each, started
+               together) and
                prints each kernel's registers and spills.
   2. kernel_A…kernel_H — PaiNN's A (painn_fwd), B (painn_bwd, with and
                without the weight gradient), C (painn_dual_fwd), D
@@ -66,8 +67,30 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                H against the plain module on the card and H's covariance under
                a rotation; molecules/s, seconds per epoch, peak device memory.
      qhnet_train_profile — torch.profiler over two train steps.
-  6. timing  — seconds of each phase; then one JSON object describing every
-               ported kernel (A-L) with its launches on each path.
+  6. kernel_M, kernel_N — eSCN's M (escn_fwd) and N (escn_bwd) at the eSCN
+               paths' shapes (B=64, A=32/48/64), configs/escn-oc.yaml widths
+               (l_max 6, m_max 2, C 128, H 256, EC 128), on eSCN-built inputs
+               (d from the 8 Å / 40-neighbour graph, xe from a seeded
+               EdgeBlock), the same lines with the live pairs counted; the
+               plain versions run ESCN_PLAIN_MOLS molecules at a time; N twice
+               for the same bits.
+     escn_predict — `job_type: predict` on configs/escn-oc.yaml at full width
+               and depth (8 layers), batch 64, over the seeded DB: M 8 times
+               per batch, N never; per bucket the first batch, and the same
+               batch rotated, against the plain module on the card, its first
+               molecules against the CPU plain path, E and F within
+               ESCN_OUT_RTOL x their largest magnitude; E invariant under the
+               rotation, F's equivariance error printed; molecules/s.
+     escn_profile — torch.profiler over two predict steps.
+     escn_train — `job_type: train` (TRAIN_EPOCHS epochs) then `test`: M 8
+               per train step, validation and test batch, N 8 per train step;
+               finite metrics; per bucket the fused parameter gradients against
+               the plain module's on the card, and both against the plain
+               module in float64 (printed);
+               molecules/s, s/epoch, memory.
+     escn_train_profile — torch.profiler over two train steps.
+  7. timing  — seconds of each phase; then one JSON object describing every
+               ported kernel (A-N) with its launches on each path.
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
 Any failed check raises: the script exits nonzero and prints no ok line.
 Exits nonzero without a CUDA device.
@@ -100,6 +123,9 @@ QH_C, QH_CONV_H, QH_PAIR_H = 128, (32, 32), (8, 128)
 # (fp32 sums over 65 paths and 5 layers in another order); a rotated batch's
 # H against T(R) H T(R)^T within QH_COV_RTOL x max |H|
 QH_GRAD_RTOL, QH_H_RTOL, QH_COV_RTOL = 1e-3, 1e-4, 1e-3
+# eSCN (configs/escn-oc.yaml) at full width and depth, the datamodule's batch
+ESCN_KW = dict(num_layers=8, l_max=6, m_max=2, sphere_channels=128, hidden=256,
+               edge_channels=128, cutoff=8.0, max_neighbors=40, num_sphere_samples=128)
 # kernel phase shapes: every (B, A) the predict and train paths give the
 # kernels (each batch is padded to B=64 molecules of its bucket's A atoms);
 # the kernels line's times are those at A=HEADLINE_A
@@ -207,7 +233,16 @@ def _qhnet(source: str, root: str) -> dict:
     return cfg
 
 
-CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet}
+def _escn_oc(source: str, root: str) -> dict:
+    """configs/escn-oc.yaml: model/escn-oc, trainer/default, datamodule/energy."""
+    return _composed("escn-oc", {
+        "name": "escn", "kwargs": dict(ESCN_KW),
+        "loss_specs": {"energy": "l1", "forces": "l2norm"},
+        "loss_coefs": {"energy": 1.0, "forces": 100.0},
+    }, source, root)
+
+
+CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet, "escn-oc": _escn_oc}
 
 
 def emit(phase: str, **fields) -> None:
@@ -279,6 +314,16 @@ def compare(got, ref) -> dict:
     return {"max_abs_err": max(errs), "max_rel_err": max(e / max(s, 1e-30)
                                                          for e, s in zip(errs, scale)),
             "per_output_abs_err": errs, "per_output_max_abs": scale}
+
+
+def _max_abs(t) -> float:
+    return float(t.abs().max())
+
+
+def _grad_errs(model, ref) -> dict:
+    """{tensor: max |g - g_ref| / max |g_ref|} over the parameter tensors."""
+    return {n: _max_abs(p.grad.double() - q.grad.double()) / max(_max_abs(q.grad), 1e-30)
+            for (n, p), (_, q) in zip(model.named_parameters(), ref.named_parameters())}
 
 
 def kernel_inputs(dev, a: int):
@@ -580,17 +625,19 @@ FAMILIES = {
 
 
 def reset_all_launches() -> None:
-    from nabladft_tpu_torch.ops import painn_fused, qhnet_tp, schnet_fused
+    from nabladft_tpu_torch.ops import escn_layer, painn_fused, qhnet_tp, schnet_fused
 
     painn_fused.reset_launches()
     schnet_fused.reset_launches()
     qhnet_tp.reset_launches()
+    escn_layer.reset_launches()
 
 
 def all_launches() -> dict:
-    from nabladft_tpu_torch.ops import painn_fused, qhnet_tp, schnet_fused
+    from nabladft_tpu_torch.ops import escn_layer, painn_fused, qhnet_tp, schnet_fused
 
-    return {**painn_fused.LAUNCHES, **schnet_fused.LAUNCHES, **qhnet_tp.LAUNCHES}
+    return {**painn_fused.LAUNCHES, **schnet_fused.LAUNCHES, **qhnet_tp.LAUNCHES,
+            **escn_layer.LAUNCHES}
 
 
 def predict_phase(tmp: Path, db: Path, family: str) -> dict:
@@ -813,11 +860,9 @@ def gradient_check(cfg: dict, dm) -> list:
     for a, batch in sorted(first.items()):
         batch = batch.to(dev)
         lf, lp = fused._compute_grads(batch), plain._compute_grads(batch)
-        worst, worst_name = 0.0, None
-        for (n, p), (_, q) in zip(fused.model.named_parameters(), plain.model.named_parameters()):
-            ratio = float((p.grad - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-30)
-            if ratio > worst:
-                worst, worst_name = ratio, n
+        err = _grad_errs(fused.model, plain.model)
+        worst_name = max(err, key=err.get)
+        worst = err[worst_name]
         check(worst <= GRAD_RTOL, f"gradient check at A={a}: {worst_name} off by {worst:.3e}")
         check(abs(float(lf["total"]) - float(lp["total"])) <= 1e-4 * abs(float(lp["total"])),
               f"loss at A={a}: {float(lf['total'])} vs {float(lp['total'])}")
@@ -876,6 +921,42 @@ def qhnet_kernel_inputs(dev, b: int, a: int, c: int, hc=QH_CONV_H, hp=QH_PAIR_H,
                   f"w2s_{tag}": mk(h2, pc, scale=h2 ** -0.5),
                   f"b2r_{tag}": mk(pc, scale=0.1), f"b2s_{tag}": mk(pc, scale=0.1)})
     return {k: t.to(dev).contiguous() for k, t in x.items()}
+
+
+def escn_kernel_inputs(dev, b: int, a: int, seed: int = SEED, **kw) -> dict:
+    """Seeded inputs of kernels M and N, built as eSCN builds them (widths of
+    configs/escn-oc.yaml unless `kw` shrinks them): each molecule has a/2..a
+    real atoms (the rest padding, z = 0) of H C N O at random positions (Å,
+    ~10 Å across); d = the compact truncated Wigner values of the 8 Å /
+    40-neighbour graph's edge frames, zero off the graph; xe from a seeded
+    layer's EdgeBlock; that layer's weights `ws`; x and the cotangent g
+    random. Also node_mask and the pair mask."""
+    from nabladft_tpu_torch.models import create_model
+    from nabladft_tpu_torch.ops import graph, so3
+    from nabladft_tpu_torch.train import seeded_generator
+
+    cfg = dict(ESCN_KW, num_layers=1, **kw)
+    g = torch.Generator().manual_seed(seed)
+    n_atoms = torch.randint(max(a // 2, 1), a + 1, (b,), generator=g)
+    real = torch.arange(a)[None] < n_atoms[:, None]
+    zs = torch.tensor([1, 6, 7, 8])[torch.randint(0, 4, (b, a), generator=g)] * real
+    pos = torch.randn(b, a, 3, generator=g) * 2.5 * real[..., None]
+    model = create_model("escn", device="cpu", generator=seeded_generator(seed), **cfg)
+    layer = model.layers[0]
+    nl = graph.neighbor_list(pos, real, cfg["cutoff"], cfg["max_neighbors"])
+    mask_d, unit_d, dist_d = graph.dense_from_neighbor_list(nl, a)
+    d = so3.wigner_trunc_compact_from_rot(so3.rot_to_z(unit_d), cfg["l_max"], cfg["m_max"])
+    with torch.no_grad():
+        xe = layer.edge_block(dist_d, zs[:, None, :].expand(b, a, a),
+                              zs[:, :, None].expand(b, a, a))
+    s, c = (cfg["l_max"] + 1) ** 2, cfg["sphere_channels"]
+    x = dict(x=torch.randn(b, a, s, c, generator=g) * 0.5, d=d * mask_d[..., None], xe=xe,
+             g=torch.randn(b, a, s, c, generator=g), node_mask=real, pair_mask=mask_d > 0)
+    out = {k: t.to(dev).contiguous() for k, t in x.items()}
+    out["ws"] = [getattr(layer, n).detach().to(dev).contiguous()
+                 for n in layer.weight_names(cfg["m_max"])]
+    out["dims"] = dict(l_max=cfg["l_max"], m_max=cfg["m_max"], n_grid=layer.grid_points)
+    return out
 
 
 def qhnet_kernel_phases(dev, card: str) -> dict:
@@ -1037,11 +1118,9 @@ def qhnet_model_checks(cfg: dict, dm) -> list:
     for a, batch in sorted(first.items()):
         batch = batch.to(dev)
         lf, lp = fused._compute_grads(batch), plain._compute_grads(batch)
-        worst, worst_name = 0.0, None
-        for (n, p), (_, q) in zip(fused.model.named_parameters(), plain.model.named_parameters()):
-            ratio = float((p.grad - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-30)
-            if ratio > worst:
-                worst, worst_name = ratio, n
+        err = _grad_errs(fused.model, plain.model)
+        worst_name = max(err, key=err.get)
+        worst = err[worst_name]
         check(worst <= QH_GRAD_RTOL, f"gradient check at A={a}: {worst_name} off by {worst:.3e}")
         with torch.no_grad():
             h_f = fused.model(batch)["hamiltonian"]
@@ -1068,10 +1147,348 @@ def qhnet_model_checks(cfg: dict, dm) -> list:
     return out
 
 
+ESCN_KERNELS = {  # key: (name, JAX kernel body line in nabladft_tpu/ops/pallas/escn_layer.py)
+    "M": ("escn_fwd (M)", 385), "N": ("escn_bwd (N)", 398),
+}
+# the plain versions of M and N, and the plain module on the card, run
+# ESCN_PLAIN_MOLS molecules at a time: their autograd and einsum intermediates
+# grow with B·A². Molecules are independent, so the chunks' per-molecule
+# outputs concatenate and N's weight gradients sum.
+ESCN_PLAIN_MOLS = 16
+# eSCN on the card, fused against plain: E and F within ESCN_OUT_RTOL x the
+# output's largest magnitude (at random weights the forces are ~1e-5, the
+# residue of sphere samples that nearly cancel, below any absolute
+# tolerance); parameter gradients within ESCN_GRAD_RTOL x max |g| per tensor,
+# each fp32 path's distance from the plain module in float64 printed beside
+# it (that cancellation moves the force head's bias gradients by fp32
+# rounding alone). Under a rotation E stays within ESCN_OUT_RTOL x max |E|; F
+# co-rotates only up to the truncated grid's aliasing (2M+1 longitudes in
+# each edge's frame), a property of the model: the fused and plain modules'
+# forces on the rotated batch are held to each other, and their equivariance
+# errors are printed.
+ESCN_OUT_RTOL, ESCN_GRAD_RTOL = 1e-4, 1e-3
+# molecules of each bucket's first batch held against the CPU plain path
+# (eight full-width layers on the host's cores), and in the gradient check
+# (the plain module's autograd in float64)
+ESCN_CPU_MOLS = 2
+
+
+def _plain_in_chunks(ref, args, kw: dict, n: int):
+    """A plain version of M or N over the batch, n molecules at a time: the
+    per-molecule outputs (M's out; N's gx and gxe) concatenated, N's weight
+    gradients summed in chunk order."""
+    x, d, xe, *ws = args
+    kw = dict(kw)
+    g = kw.pop("g", None)
+    parts = []
+    for i in range(0, x.shape[0], n):
+        sl = slice(i, i + n)
+        parts.append(ref(x[sl], d[sl], xe[sl], *ws, **kw, **({} if g is None else {"g": g[sl]})))
+    if g is None:
+        return torch.cat(parts)
+    out = [torch.cat([q[k] for q in parts]) for k in (0, 1)]
+    for k in range(2, len(parts[0])):
+        acc = parts[0][k].clone()
+        for q in parts[1:]:
+            acc += q[k]
+        out.append(acc)
+    return tuple(out)
+
+
+def escn_kernel_phases(dev, card: str, ptxas: dict) -> dict:
+    """Kernels M and N at every shape the eSCN paths give them (B=BATCH, A in
+    BUCKETS, escn-oc widths), on eSCN-built inputs, against their plain
+    versions (run ESCN_PLAIN_MOLS molecules at a time, timed over the whole
+    batch): errors (checked), kernel / plain / bound times; N twice for the
+    same bits. The bound counts the FLOP model's work of the live pairs (the
+    kernels skip the rest); `flops_all_pairs` is the model over all B·A²
+    pairs. Each row carries the kernels' registers, spills and shared memory
+    (ptxas)."""
+    from nabladft_tpu_torch.ops import escn_layer as el
+
+    peak_flops, peak_bw = peaks(card)
+    fns = {"M": (el.escn_fwd, el.escn_fwd_reference), "N": (el.escn_bwd, el.escn_bwd_reference)}
+    per = {k: [] for k in ESCN_KERNELS}
+    for a in BUCKETS:
+        x = escn_kernel_inputs(dev, BATCH, a, seed=SEED + 3000 + a)
+        args, dims = (x["x"], x["d"], x["xe"], *x["ws"]), x["dims"]
+        shape = [BATCH, a, ESCN_KW["sphere_channels"]]
+        live = el.live_pairs(x["d"])
+        for k, (fn, ref) in fns.items():
+            kw = dict(dims, g=x["g"]) if k == "N" else dims
+            as_tuple = (lambda t: t if isinstance(t, tuple) else (t,))
+            plain = (lambda ref=ref, kw=kw: _plain_in_chunks(ref, args, kw, ESCN_PLAIN_MOLS))
+            got = as_tuple(fn(*args, **kw))
+            err = compare(got, as_tuple(plain()))
+            check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel {k} error at {shape}: {err}")
+            extra = {"live_pairs": live, "pairs": BATCH * a * a,
+                     "plain_molecules_per_call": ESCN_PLAIN_MOLS}
+            if k == "N":
+                again = as_tuple(fn(*args, **kw))
+                check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                      f"kernel N deterministic at {shape}")
+                extra["bit_identical_rerun"] = True
+                del again
+            del got
+            torch.cuda.empty_cache()
+            t_k = time_ms(lambda: fn(*args, **kw))
+            t_p = time_ms(plain)
+            work = el.flops_bytes(k, x["x"], x["d"], x["xe"], x["ws"], **dims)
+            row = _kernel_row(shape, err, t_k, t_p, work["flops_live"], work["bytes"], peak_flops,
+                              peak_bw, flops_all_pairs=work["flops"], **extra)
+            emit(f"kernel_{k}", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k,
+                 plain_times=t_p)
+            per[k].append(row)
+        del x, args
+        torch.cuda.empty_cache()
+    rows = headline_rows(per, ESCN_KERNELS, "escn_layer", ())
+    for k in rows:
+        rows[k]["ptxas"] = ptxas.get("escn_layer", {})
+    return rows
+
+
+def _mols(batch, sl: slice):
+    """The molecules `sl` of a batch (every field's leading axis)."""
+    import dataclasses
+
+    return batch.replace(**{f.name: getattr(batch, f.name)[sl] for f in dataclasses.fields(batch)
+                            if getattr(batch, f.name) is not None})
+
+
+def _forward_in_chunks(model, batch, n: int) -> dict:
+    """`forward` of the model over the batch, n molecules at a time."""
+    from nabladft_tpu_torch.models.base import forward
+
+    outs = [forward(model, _mols(batch, slice(i, i + n))) for i in range(0, batch.z.shape[0], n)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def escn_predict_phase(tmp: Path, db: Path) -> dict:
+    """eSCN's `job_type: predict` (configs/escn-oc.yaml at full width and
+    depth, batch BATCH) over the seeded DB: rows, finite values, M 8 times
+    per batch and N never; per bucket, the first batch and the same batch
+    rotated against the plain module on the card, its first ESCN_CPU_MOLS
+    molecules against the CPU plain path, E invariant under the rotation,
+    F's equivariance error printed; molecules/s of the predict loop."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.data.ase_codec import AseDatabase
+    from nabladft_tpu_torch.models.base import forward
+    from nabladft_tpu_torch.train import Trainer
+
+    cfg = smoke_config(str(db), str(tmp / "predictions_escn.db"), str(tmp), config="escn-oc")
+    n_layers = cfg["model"]["kwargs"]["num_layers"]
+
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = pipelines.run(cfg)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    n_batches = res["batches"]
+    check(res["rows"] == N_MOLS, f"rows written {res['rows']} != {N_MOLS}")
+    want = dict.fromkeys(launches, 0)
+    want["escn_fwd"] = n_layers * n_batches
+    check(launches == want, f"eSCN predict launches {launches}, expected {want}")
+    dm = pipelines.build_datamodule(cfg)
+    # the writer keeps the loader's order of the real molecules
+    order = [mid for b in dm.predict_dataloader()
+             for mid, real in zip(b.mol_id.tolist(), b.graph_mask.tolist()) if real]
+    out_rows = dict(zip(order, AseDatabase(cfg["output_db"]).select_all()))
+    check(len(out_rows) == N_MOLS, "output DB row count")
+    for rec in out_rows.values():
+        e, f = np.asarray(rec.data["energy_pred"]), np.asarray(rec.data["forces_pred"])
+        check(e.shape == (1,) and f.shape == (rec.natoms, 3), "prediction shapes")
+        check(bool(np.isfinite(e).all() and np.isfinite(f).all()), "finite predictions")
+
+    shapes = sorted({tuple(b.z.shape) for b in dm.predict_dataloader()})
+    check(all(s in [(BATCH, a) for a in BUCKETS] for s in shapes), f"predict batch shapes {shapes}")
+    dev = torch.device("cuda")
+    gpu = Trainer(pipelines.build_model(cfg, dev), dev)
+    plain = Trainer(pipelines.build_model(dict(cfg, model=dict(cfg["model"], kwargs=dict(
+        cfg["model"]["kwargs"], use_pallas="off"))), dev), dev)
+    cpu = Trainer(pipelines.build_model(cfg, torch.device("cpu")), "cpu")
+    check(gpu.model.use_pallas == "fused" and plain.model.use_pallas == "off"
+          and cpu.model.use_pallas == "off", "model modes")
+    first = {}
+    for batch in dm.predict_dataloader():
+        first.setdefault(batch.z.shape[1], batch)
+    checks = []
+    rot = torch.from_numpy(rotation()).to(dev)
+    for a, batch in sorted(first.items()):
+        bg = batch.to(dev)
+        bg_r = bg.replace(pos=bg.pos @ rot.T)
+        out_f, out_r = forward(gpu.model, bg), forward(gpu.model, bg_r)
+        out_p = _forward_in_chunks(plain.model, bg, ESCN_PLAIN_MOLS)
+        out_pr = _forward_in_chunks(plain.model, bg_r, ESCN_PLAIN_MOLS)
+        out_c = forward(cpu.model, _mols(batch, slice(0, ESCN_CPU_MOLS)))
+        m = bg.graph_mask.cpu().numpy()
+        # the job's rows are the fused model's outputs of this batch
+        for i, mol_id in enumerate(batch.mol_id.tolist()):
+            if m[i]:
+                rec = out_rows[mol_id]
+                check(abs(rec.data["energy_pred"][0] - float(out_f["energy"][i])) <= 1e-6 *
+                      max(abs(float(out_f["energy"][i])), 1e-6), "job rows = the fused model")
+        scale = {"energy": _max_abs(out_p["energy"]), "forces": _max_abs(out_p["forces"])}
+        row = {"shape": list(batch.z.shape), "max_abs_energy": scale["energy"],
+               "max_abs_force": scale["forces"]}
+        first_c = slice(0, ESCN_CPU_MOLS)
+        for tag, got, ref in (("card_plain", out_f, out_p), ("card_plain_rotated", out_r, out_pr),
+                              ("cpu_plain", {k: v[first_c].cpu() for k, v in out_f.items()},
+                               out_c)):
+            for k in ("energy", "forces"):
+                err = _max_abs(got[k] - ref[k].to(got[k].device))
+                row[f"{k}_abs_err_vs_{tag}"] = err
+                row[f"{k}_rel_err_vs_{tag}"] = err / scale[k]
+                check(err <= ESCN_OUT_RTOL * scale[k],
+                      f"eSCN {k} at A={a} vs {tag}: {err} > {ESCN_OUT_RTOL} x {scale[k]}")
+        e_rot = _max_abs(out_r["energy"] - out_f["energy"])
+        check(e_rot <= ESCN_OUT_RTOL * scale["energy"],
+              f"eSCN energy under a rotation at A={a}: {e_rot} vs max |E| {scale['energy']}")
+        row["rotation_energy_rel_err"] = e_rot / scale["energy"]
+        # readings: F's equivariance error, the fused and the plain module's
+        row["rotation_force_rel_err"] = (_max_abs(out_r["forces"] - out_f["forces"] @ rot.T)
+                                         / scale["forces"])
+        row["rotation_force_rel_err_plain"] = (_max_abs(out_pr["forces"] - out_p["forces"] @ rot.T)
+                                               / scale["forces"])
+        checks.append(row)
+        del out_f, out_r, out_p, out_pr
+    check(sorted(first) == list(BUCKETS), f"predict buckets {sorted(first)}")
+    del plain, cpu
+    torch.cuda.empty_cache()
+
+    rates = []
+    for p in range(PASSES + 1):
+        t0 = time.perf_counter()
+        n_pred = sum(len(o["energy"]) for o in gpu.predict(dm.predict_dataloader()))
+        torch.cuda.synchronize()
+        if p:
+            rates.append(n_pred / (time.perf_counter() - t0))
+    rates.sort()
+    profile_phase("escn_profile", gpu, dm)
+    emit("escn_predict", config="escn-oc", rows=res["rows"], batches=n_batches,
+         batch_shapes=shapes, launches=launches, run_seconds=res["seconds"], checks=checks,
+         molecules_per_second={"median": rates[PASSES // 2], "min": rates[0],
+                               "max": rates[-1], "passes": rates},
+         peak_device_memory_bytes=peak_mem, tolerances={"output_rel": ESCN_OUT_RTOL})
+    return launches
+
+
+def escn_train_phase(tmp: Path, db: Path) -> dict:
+    """eSCN's train (TRAIN_EPOCHS epochs) and test jobs at configs/escn-oc.yaml
+    width and depth, batch BATCH: M 8 per train step, validation and test
+    batch, N 8 per train step; finite losses and metrics; per bucket the
+    fused model's parameter gradients against the plain module's on the card
+    (checked), and both against the plain module in float64 (printed), on
+    the first ESCN_CPU_MOLS molecules (the plain autograd's memory); a
+    profile of two train steps."""
+    import copy
+
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.train import Trainer, TrainerConfig
+
+    ckpt, outputs = tmp / "ckpt_escn", tmp / "outputs_escn"
+    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs), config="escn-oc")
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.time()
+    res = pipelines.run(cfg)
+    best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
+    test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(ckpt / best)))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    steps, n_layers = res["step"], cfg["model"]["kwargs"]["num_layers"]
+    check(steps == TRAIN_EPOCHS * n_train,
+          f"{steps} train steps, expected {TRAIN_EPOCHS} x {n_train}")
+    want = dict.fromkeys(launches, 0)
+    want.update({"escn_fwd": n_layers * (steps + TRAIN_EPOCHS * n_val + n_test),
+                 "escn_bwd": n_layers * steps})
+    check(launches == want, f"eSCN train/test launches {launches}, expected {want}")
+    check((ckpt / "last.ckpt").exists() and (ckpt / best).exists(), "checkpoint files")
+    rows = read_csv(outputs / cfg["name"] / "metrics.csv")
+    step_rows = [r for r in rows if "train/total" in r]
+    val_rows = [r for r in rows if "val/loss" in r]
+    check(len(step_rows) == steps and len(val_rows) == TRAIN_EPOCHS, "a CSV row per step and epoch")
+    for r in step_rows:
+        check(all(np.isfinite(r[k]) for k in ("train/total", "train/energy", "train/forces",
+                                              "grad_norm")), f"finite train metrics {r}")
+        check(r["skipped_nonfinite"] == 0.0, f"no skipped step {r}")
+    for m in [res, test] + val_rows:
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    check({"test/loss", "test/energy/mae", "test/forces/mae"} <= set(test), f"test metrics {test}")
+    rates = sorted(r["mols_per_sec"] for r in step_rows if r["epoch"] == TRAIN_EPOCHS - 1)
+    epoch_ends = [t_start] + [r["time"] for r in val_rows]
+    epoch_seconds = [b - a for a, b in zip(epoch_ends, epoch_ends[1:])]
+
+    # fused against plain on the card, fp32 and float64, one batch per bucket
+    dev = torch.device("cuda")
+    t = TrainerConfig(**dict(cfg["trainer"], loss_specs=cfg["model"]["loss_specs"],
+                             loss_coefs=cfg["model"]["loss_coefs"]))
+    plain_cfg = dict(cfg, model=dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"],
+                                                               use_pallas="off")))
+    fused = Trainer(pipelines.build_model(cfg, dev), dev, t)
+    plain = Trainer(pipelines.build_model(plain_cfg, dev), dev, t)
+    exact = Trainer(copy.deepcopy(plain.model).double(), dev, t)
+    check(fused.model.use_pallas == "fused" and plain.model.use_pallas == "off", "model modes")
+    first = {}
+    for batch in dm.train_dataloader():
+        first.setdefault(batch.z.shape[1], batch)
+    grads = []
+    for a, batch in sorted(first.items()):
+        small = _mols(batch, slice(0, ESCN_CPU_MOLS)).to(dev)
+        lf, lp = fused._compute_grads(small), plain._compute_grads(small)
+        lx = exact._compute_grads(small.replace(**{k: getattr(small, k).double()
+                                                   for k in ("pos", "energy", "forces")}))
+        torch.cuda.empty_cache()
+        err = _grad_errs(fused.model, plain.model)
+        name = max(err, key=err.get)
+        check(err[name] <= ESCN_GRAD_RTOL,
+              f"gradient check at A={a}: {name} off by {err[name]:.3e}")
+        check(abs(float(lf["total"]) - float(lp["total"])) <= 1e-4 * abs(float(lp["total"])),
+              f"loss at A={a}: {float(lf['total'])} vs {float(lp['total'])}")
+        # readings: each fp32 path against the float64 plain module
+        err_f, err_p = _grad_errs(fused.model, exact.model), _grad_errs(plain.model, exact.model)
+        grads.append({"shape": list(small.z.shape), "max_rel_grad_err": err[name],
+                      "worst_param": name, "worst_param_fused_vs_float64": err_f[name],
+                      "worst_param_plain_vs_float64": err_p[name],
+                      "max_rel_grad_err_fused_vs_float64": max(err_f.values()),
+                      "max_rel_grad_err_plain_vs_float64": max(err_p.values()),
+                      "worst_params_vs_float64": [max(err_f, key=err_f.get),
+                                                  max(err_p, key=err_p.get)],
+                      "loss_kernel": float(lf["total"]), "loss_plain": float(lp["total"]),
+                      "loss_float64": float(lx["total"])})
+    check(sorted(first) == list(BUCKETS), f"gradient check buckets {sorted(first)}")
+    del fused, plain, exact
+    torch.cuda.empty_cache()
+
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
+    batches = list(itertools.islice(dm.train_dataloader(), 2))
+    profile_steps("escn_train_profile", trainer._train_step, batches)
+    emit("escn_train", config="escn-oc", steps=steps, batches_per_epoch=n_train,
+         val_batches=n_val, test_batches=n_test, launches=launches, expected_launches=want,
+         final_val=res, test=test,
+         train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
+         grad_norm_max=max(r["grad_norm"] for r in step_rows),
+         molecules_per_second={"median": rates[len(rates) // 2], "min": rates[0],
+                               "max": rates[-1], "steps": rates, "epoch": TRAIN_EPOCHS - 1},
+         seconds_per_epoch=epoch_seconds, peak_device_memory_bytes=peak_mem,
+         gradient_check=grads, tolerances={"grad_rel": ESCN_GRAD_RTOL})
+    return launches
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
-               "K": "qhnet_pair_fwd", "L": "qhnet_pair_bwd"}  # kernel -> its launch counter
+               "K": "qhnet_pair_fwd", "L": "qhnet_pair_bwd", "M": "escn_fwd",
+               "N": "escn_bwd"}  # kernel -> its launch counter
 
 
 def main() -> int:
@@ -1092,15 +1509,16 @@ def main() -> int:
     nvcc_version = subprocess.run([_kernels.nvcc(), "--version"], capture_output=True,
                                   text=True, check=True).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    sources = ("painn_fused", "schnet_fused", "qhnet_tp")
+    sources = ("painn_fused", "schnet_fused", "qhnet_tp", "escn_layer")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = dict(zip(sources, pool.map(_kernels.build, sources)))
     seconds["build"] = time.perf_counter() - t0
+    ptxas = {k: ptxas_summary(v["log"]) for k, v in builds.items()}
     emit("env", device=card, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc_version,
          build_seconds=seconds["build"],
          build_seconds_by_source={k: v["seconds"] for k, v in builds.items()},
-         ptxas={k: ptxas_summary(v["log"]) for k, v in builds.items()})
+         ptxas=ptxas)
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -1112,6 +1530,7 @@ def main() -> int:
     rows = timed("kernels_painn", kernel_phases, dev, card)
     rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card))
     rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card))
+    rows.update(timed("kernels_escn", escn_kernel_phases, dev, card, ptxas))
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1122,6 +1541,8 @@ def main() -> int:
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
         by_path["qhnet_train"] = timed("qhnet_train", qhnet_train_phase, tmp)
+        by_path["escn_predict"] = timed("escn_predict", escn_predict_phase, tmp, db)
+        by_path["escn_train"] = timed("escn_train", escn_train_phase, tmp, db)
     for k, counter in ALL_KERNELS.items():
         rows[k]["launches_by_path"] = {p: n[counter] for p, n in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())

@@ -30,6 +30,16 @@ RBF's gamma are raw arrays):
   pair_i/{lin_inner,lin_n,lin_out}/..., pair_i/{ng_pre,ng_post}/..., pair_i/{fc_rbf,fc_s0}/...
   output_{ii,ij}/l{l}/..., fc_ii, fc_ii_bias, fc_ij_bias/Dense_{0,1}/..., fc_ij (split)
 
+eSCN's (the Pallas layout, the JAX package's canonical one; the XLA
+layout's `layer_i/so2_source/...` raises: convert it with
+`param_convert.escn_params(p, "pallas")` first):
+
+  sphere_embedding/embedding                       [Z, C]
+  layer_i/edge_block/{fc_dist,fc_edge}/{kernel,bias}, .../{src_embed,dst_embed}/embedding
+  layer_i/{wg, bg, w1_0, w2_0, fc1_m{m}, w2r_m{m}, w2i_m{m}}   (raw, stacked source/target)
+  layer_i/{fc1,fc2,fc3}_sphere/kernel              (no bias)
+  {energy,force}_fc{1,2}/{kernel,bias}, {energy,force}_fc3/kernel
+
 A flax ``Dense.kernel`` is [in, out] and becomes the transposed
 ``Linear.weight``; the raw filter arrays keep their layout, which the
 kernels take as is. Every parameter of the module must be matched and
@@ -63,7 +73,7 @@ def _flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
             out.append("MLP_0")
         elif p.startswith("dense_"):
             out.append("Dense_" + p[len("dense_"):])
-        elif p == "weight" and out and out[-1].endswith("embedding"):
+        elif p == "weight" and out and out[-1].endswith(("embedding", "embed")):
             out.append("embedding")
         elif p == "weight":
             out.append("kernel")
@@ -85,10 +95,14 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax PaiNN, SchNet or QHNet parameter tree into `model` in place;
-    returns it."""
+    """Copy a flax PaiNN, SchNet, QHNet or eSCN parameter tree into `model`
+    in place; returns it."""
     tree = params.get("params", params)
     leaves = _leaves(tree)
+    if any("so2_source" in k for k in leaves):
+        raise ValueError(
+            "this eSCN tree is in the XLA layout (layer_i/so2_source/...); the port "
+            "takes the Pallas layout: convert it with param_convert.escn_params(p, 'pallas')")
     used = set()
     with torch.no_grad():
         for name, p in model.named_parameters():

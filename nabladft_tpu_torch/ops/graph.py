@@ -5,7 +5,8 @@ The molecular half of ``nabladft_tpu/ops/graph.py``: molecules here are
 every step and neighbour caps are masks, not ragged lists. Conventions kept
 from the JAX package: diff[b,i,j] = pos[j] - pos[i], masked distances are
 `_BIG`, and `dense_topk_mask` keeps every edge within 1e-7 of the k-th
-distance.
+distance. eSCN's fixed-K `neighbor_list` (strict top-k, ties to the lower
+index as `lax.top_k`) and its scatter back onto the dense pair lattice.
 """
 
 from __future__ import annotations
@@ -64,3 +65,44 @@ def dense_topk_mask(dist: torch.Tensor, adj: torch.Tensor, k: int) -> torch.Tens
     neg = torch.where(adj, -dist, torch.full_like(dist, -float("inf")))
     kth = torch.topk(neg, k, dim=-1).values[..., -1:]  # [B,A,1] k-th smallest
     return adj & (dist <= -kth + 1e-7)
+
+
+class NeighborList(NamedTuple):
+    """Fixed-K nearest-neighbour view. Neighbour n of atom i is j = idx[b,i,n]."""
+
+    idx: torch.Tensor  # [B, A, K] int64
+    mask: torch.Tensor  # [B, A, K] bool
+    dist: torch.Tensor  # [B, A, K]     (0 where masked)
+    unit: torch.Tensor  # [B, A, K, 3]  (0 where masked)
+
+
+def neighbor_list(pos: torch.Tensor, node_mask: torch.Tensor, cutoff: float,
+                  max_neighbors: int) -> NeighborList:
+    """The K = min(max_neighbors, A) nearest in-cutoff neighbours of each
+    atom, by distance. Equal distances keep the lower index first, as
+    `lax.top_k` does (a stable descending sort of the negated distances)."""
+    g = dense_graph(pos, node_mask, cutoff)
+    k = min(max_neighbors, pos.shape[1])
+    neg = torch.where(g.adj, -g.dist, torch.full_like(g.dist, -_BIG))
+    vals, idx = torch.sort(neg, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    mask = vals > -_BIG * 0.5
+    diff = torch.gather(g.diff, 2, idx[..., None].expand(*idx.shape, 3))
+    dist = torch.where(mask, -vals, torch.zeros_like(vals))
+    unit = diff / torch.clamp(dist, min=_EPS)[..., None]
+    unit = torch.where(mask[..., None], unit, torch.zeros_like(unit))
+    return NeighborList(idx=idx, mask=mask, dist=dist, unit=unit)
+
+
+def dense_from_neighbor_list(nl: NeighborList, a_dim: int):
+    """Scatter a top-K neighbour list onto the dense [B, A, A] pair lattice:
+    (mask_d float 0/1, unit_d [B,A,A,3], dist_d [B,A,A]), zero off the list.
+    A plain scatter (the JAX package contracts a one-hot); neighbour indices
+    within one row are distinct, so nothing is summed."""
+    b, a, k = nl.idx.shape
+    m = nl.mask.to(nl.dist.dtype)
+    mask_d = nl.dist.new_zeros((b, a, a_dim)).scatter_(2, nl.idx, m)
+    dist_d = nl.dist.new_zeros((b, a, a_dim)).scatter_(2, nl.idx, nl.dist * m)
+    unit_d = nl.unit.new_zeros((b, a, a_dim, 3)).scatter_(
+        2, nl.idx[..., None].expand(b, a, k, 3), nl.unit * m[..., None])
+    return mask_d, unit_d, dist_d

@@ -1,7 +1,7 @@
 """Radial basis expansions and cutoff envelopes (torch).
 
-The bases of ``nabladft_tpu/ops/radial.py`` that PaiNN, SchNet and QHNet
-use (QHNet's exponential Bernstein basis is a module: its γ trains). All
+The bases of ``nabladft_tpu/ops/radial.py`` that PaiNN, SchNet, QHNet and
+eSCN use (QHNet's exponential Bernstein basis is a module: its γ trains). All
 functions are pure, operate on arbitrarily shaped distance tensors and
 broadcast a trailing basis axis; padded distances may be 0 or huge, callers
 multiply by their own edge masks.
@@ -94,6 +94,18 @@ def gaussian_rbf_jvp(d: torch.Tensor, td: torch.Tensor, num_basis: int, cutoff: 
     centers, coeff = _centers(d, num_basis, cutoff, start)
     diff = d[..., None] - centers
     return (coeff * (td[..., None] * (2.0 * diff))) * torch.exp(coeff * (diff * diff))
+
+
+def gaussian_smearing(d: torch.Tensor, num_basis: int, start: float, stop: float,
+                      basis_width_scalar: float = 1.0) -> torch.Tensor:
+    """Gaussian smearing on [start, stop] (eSCN's distance expansion):
+    width = basis_width_scalar × centre spacing. Returns [..., num_basis]."""
+    # jnp.linspace's rounding: start + i · ((stop - start) / (n - 1)) in d's dtype
+    step = torch.tensor(stop - start, dtype=d.dtype, device=d.device) / (num_basis - 1)
+    centers = start + torch.arange(num_basis, dtype=d.dtype, device=d.device) * step
+    width = basis_width_scalar * (centers[1] - centers[0])
+    diff = d[..., None] - centers
+    return torch.exp(-0.5 / width**2 * diff**2)
 
 
 def bessel_rbf(d: torch.Tensor, num_basis: int, cutoff: float) -> torch.Tensor:

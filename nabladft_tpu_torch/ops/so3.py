@@ -9,7 +9,9 @@ construction:
     Racah coefficients, de-phased to real (host-side float64, cached);
   * real spherical harmonics Y^l(u) by the CG recursion
     Y^l ∝ Pᵀ (Y^{l-1} ⊗ Y^1), Y^1 ∝ (y, z, x);
-  * Wigner D^l(R) by the same recursion on D^1 = perm(R).
+  * Wigner D^l(R) by the same recursion on D^1 = perm(R);
+  * eSCN's edge alignment (`rot_to_z`) and its m-major truncated layout:
+    the compact per-edge Wigner values the fused message kernel reads.
 
 Basis ordering: m = -l..l flat-packed per l at offset l² (total (L+1)²).
 """
@@ -191,3 +193,62 @@ def wigner_d(rot: torch.Tensor, l_max: int) -> List[torch.Tensor]:
         c = torch.as_tensor(real_cg(l - 1, 1, l), dtype=rot.dtype, device=rot.device)
         ds.append(torch.einsum("abm,...ax,...by,xyn->...mn", c, ds[l - 1], d1, c))
     return ds
+
+
+def rot_to_z(unit: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Rotation R with R @ unit = ẑ (Rodrigues about unit × ẑ), deterministic:
+    where that axis vanishes (unit = ±ẑ, or a zero row) the axis is x̂."""
+    x, y, z = unit[..., 0], unit[..., 1], unit[..., 2]
+    ax = torch.stack([y, -x, torch.zeros_like(x)], dim=-1)
+    s = torch.linalg.vector_norm(ax, dim=-1, keepdim=True)
+    fallback = torch.zeros_like(ax)
+    fallback[..., 0] = 1.0
+    a = torch.where(s > eps, ax / torch.clamp(s, min=eps), fallback)
+    c = z[..., None, None]  # cos θ
+    sin_t = torch.clamp(s, 0.0, 1.0)[..., None]
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    zeros = torch.zeros_like(a0)
+    k = torch.stack([torch.stack([zeros, -a2, a1], dim=-1),
+                     torch.stack([a2, zeros, -a0], dim=-1),
+                     torch.stack([-a1, a0, zeros], dim=-1)], dim=-2)
+    eye = torch.eye(3, dtype=unit.dtype, device=unit.device).expand(k.shape)
+    return eye + sin_t * k + (1.0 - c) * (k @ k)
+
+
+def mmajor_rows(l_max: int, m_max: int) -> List[Tuple[int, int]]:
+    """Row order (l, m) of the m-truncated stack, grouped by m: m=0
+    (l=0..L), then the +m and -m rows (l=m..L each) for m=1..M."""
+    rows = [(l, 0) for l in range(l_max + 1)]
+    for m in range(1, m_max + 1):
+        rows += [(l, m) for l in range(m, l_max + 1)]
+        rows += [(l, -m) for l in range(m, l_max + 1)]
+    return rows
+
+
+def mmajor_cols(l_max: int, m_max: int) -> np.ndarray:
+    """Flat (L+1)²-layout index l² + l + m of each m-major row."""
+    return np.asarray([l * l + l + m for l, m in mmajor_rows(l_max, m_max)], np.int32)
+
+
+def trunc_compact_layout(l_max: int, m_max: int) -> Tuple[List[int], int]:
+    """Per-l offsets and total size K of the compact truncated Wigner values:
+    block l stores its (2min(l,M)+1) × (2l+1) rows row-major at off[l], so
+    idx(l, mrow, col) = off[l] + mrow·(2l+1) + col."""
+    offs, off = [], 0
+    for l in range(l_max + 1):
+        offs.append(off)
+        off += (2 * min(l, m_max) + 1) * (2 * l + 1)
+    return offs, off
+
+
+def wigner_trunc_compact_from_rot(rot: torch.Tensor, l_max: int, m_max: int) -> torch.Tensor:
+    """Compact truncated Wigner values [..., K] of rotations [..., 3, 3]:
+    D^l's rows m = -min(l,M)..min(l,M), row-major per l (`trunc_compact_layout`).
+    The JAX function pads K to a multiple of 128 for the TPU's lanes; this
+    one does not."""
+    ds = wigner_d(rot, l_max)
+    parts = []
+    for l in range(l_max + 1):
+        mc = min(l, m_max)
+        parts.append(ds[l][..., l - mc:l + mc + 1, :].reshape(*rot.shape[:-2], -1))
+    return torch.cat(parts, dim=-1)
