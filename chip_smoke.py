@@ -8,9 +8,9 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
 
   1. env     — device, torch / CUDA / nvcc versions, the card's name and
                power limit; builds csrc/painn_fused.cu, csrc/schnet_fused.cu,
-               csrc/qhnet_tp.cu and csrc/escn_layer.cu (one nvcc each, started
-               together) and
-               prints each kernel's registers and spills.
+               csrc/qhnet_tp.cu, csrc/escn_layer.cu and csrc/eqv2_attn.cu (one
+               nvcc each, started together) and prints each kernel's registers
+               and spills.
   2. kernel_A…kernel_H — PaiNN's A (painn_fwd), B (painn_bwd, with and
                without the weight gradient), C (painn_dual_fwd), D
                (painn_dual_bwd, with the weight gradient) and SchNet's E
@@ -89,8 +89,34 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                module in float64 (printed);
                molecules/s, s/epoch, memory.
      escn_train_profile — torch.profiler over two train steps.
-  7. timing  — seconds of each phase; then one JSON object describing every
-               ported kernel (A-N) with its launches on each path.
+  7. kernel_O, kernel_P — EquiformerV2's O (eqv2_fwd) and P (eqv2_bwd) at the
+               EquiformerV2 paths' shapes (B=64, A=32/48/64),
+               configs/equiformer_v2.yaml widths (l_max 6, m_max 2, C 128, 8
+               heads x 16 value and 64 alpha channels, 3 x 128 edge channels),
+               on EquiformerV2-built inputs (idx, d and xe from the 12 Å /
+               30-neighbour graph of a seeded one-block model), the same lines
+               with the live edges counted; O with dropk ones and a seeded keep
+               mask, P every cotangent and twice for the same bits; the plain
+               versions run EQV2_PLAIN_MOLS molecules at a time.
+     eqv2_predict — `job_type: predict` on configs/equiformer_v2.yaml at full
+               width and depth (12 layers), batch 64: O 13 times per batch (12
+               blocks and the force block), P never, no dropout drawn; per
+               bucket the first batch, and the same batch rotated, against the
+               plain module on the card, its first molecule against the CPU
+               plain path, E and F within EQV2_OUT_RTOL x their largest
+               magnitude; E under the rotation within EQV2_E_ROT x max |E| (the
+               model's own grid aliasing), F's equivariance error printed;
+               molecules/s (EQV2_PASSES passes).
+     eqv2_profile — torch.profiler over two predict steps.
+     eqv2_train — `job_type: train` then `test`: O 13 per train step,
+               validation and test batch, P 13 per train step, dropout drawn
+               13 + 24 times per train step and never in evaluation; finite
+               metrics; per bucket, dropout off, the fused parameter gradients
+               against the plain module's on the card and both against float64
+               (printed); molecules/s, s/epoch, memory.
+     eqv2_train_profile — torch.profiler over two train steps.
+  8. timing  — seconds of each phase; then one JSON object describing every
+               ported kernel (A-P) with its launches on each path.
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
 Any failed check raises: the script exits nonzero and prints no ok line.
 Exits nonzero without a CUDA device.
@@ -126,6 +152,10 @@ QH_GRAD_RTOL, QH_H_RTOL, QH_COV_RTOL = 1e-3, 1e-4, 1e-3
 # eSCN (configs/escn-oc.yaml) at full width and depth, the datamodule's batch
 ESCN_KW = dict(num_layers=8, l_max=6, m_max=2, sphere_channels=128, hidden=256,
                edge_channels=128, cutoff=8.0, max_neighbors=40, num_sphere_samples=128)
+# EquiformerV2 (configs/equiformer_v2.yaml) at full width and depth
+EQV2_KW = dict(num_layers=12, sphere_channels=128, attn_alpha_channels=64, num_heads=8,
+               attn_value_channels=16, ffn_hidden_channels=128, l_max=6, m_max=2, cutoff=12.0,
+               max_neighbors=30)
 # kernel phase shapes: every (B, A) the predict and train paths give the
 # kernels (each batch is padded to B=64 molecules of its bucket's A atoms);
 # the kernels line's times are those at A=HEADLINE_A
@@ -242,7 +272,17 @@ def _escn_oc(source: str, root: str) -> dict:
     }, source, root)
 
 
-CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet, "escn-oc": _escn_oc}
+def _eqv2(source: str, root: str) -> dict:
+    """configs/equiformer_v2.yaml: model/equiformer_v2, trainer/default, datamodule/energy."""
+    return _composed("equiformer_v2", {
+        "name": "equiformer_v2", "kwargs": dict(EQV2_KW),
+        "loss_specs": {"energy": "l1", "forces": "l2norm"},
+        "loss_coefs": {"energy": 1.0, "forces": 100.0},
+    }, source, root)
+
+
+CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet, "escn-oc": _escn_oc,
+           "equiformer_v2": _eqv2}
 
 
 def emit(phase: str, **fields) -> None:
@@ -625,19 +665,20 @@ FAMILIES = {
 
 
 def reset_all_launches() -> None:
-    from nabladft_tpu_torch.ops import escn_layer, painn_fused, qhnet_tp, schnet_fused
+    from nabladft_tpu_torch.ops import eqv2_attn, escn_layer, painn_fused, qhnet_tp, schnet_fused
 
     painn_fused.reset_launches()
     schnet_fused.reset_launches()
     qhnet_tp.reset_launches()
     escn_layer.reset_launches()
+    eqv2_attn.reset_launches()
 
 
 def all_launches() -> dict:
-    from nabladft_tpu_torch.ops import escn_layer, painn_fused, qhnet_tp, schnet_fused
+    from nabladft_tpu_torch.ops import eqv2_attn, escn_layer, painn_fused, qhnet_tp, schnet_fused
 
     return {**painn_fused.LAUNCHES, **schnet_fused.LAUNCHES, **qhnet_tp.LAUNCHES,
-            **escn_layer.LAUNCHES}
+            **escn_layer.LAUNCHES, **eqv2_attn.LAUNCHES}
 
 
 def predict_phase(tmp: Path, db: Path, family: str) -> dict:
@@ -959,6 +1000,44 @@ def escn_kernel_inputs(dev, b: int, a: int, seed: int = SEED, **kw) -> dict:
     return out
 
 
+def eqv2_kernel_inputs(dev, b: int, a: int, seed: int = SEED, drop: bool = True, **kw) -> dict:
+    """Seeded inputs of kernels O and P, built as EquiformerV2 builds them
+    (widths of configs/equiformer_v2.yaml unless `kw` shrinks them): each
+    molecule has a/2..a real atoms (the rest padding, z = 0) of H C N O at
+    random positions (Å, ~10 Å across); idx, d, xe and maskf from a seeded
+    one-block model's `edge_inputs` over the 12 Å / 30-neighbour graph, that
+    block's attention weights `ws` in the kernel's layout; x and the
+    cotangent g random; dropk a seeded keep mask (p 0.1, pre-scaled by
+    1/0.9) or, with drop=False, ones. Also `ones` (eval mode's dropk) and
+    node_mask."""
+    from nabladft_tpu_torch.models import create_model
+    from nabladft_tpu_torch.train import seeded_generator
+
+    cfg = dict(EQV2_KW, num_layers=1, **kw)
+    g = torch.Generator().manual_seed(seed)
+    n_atoms = torch.randint(max(a // 2, 1), a + 1, (b,), generator=g)
+    real = torch.arange(a)[None] < n_atoms[:, None]
+    zs = torch.tensor([1, 6, 7, 8])[torch.randint(0, 4, (b, a), generator=g)] * real
+    pos = torch.randn(b, a, 3, generator=g) * 2.5 * real[..., None]
+    model = create_model("equiformer_v2", device="cpu", generator=seeded_generator(seed),
+                         use_pallas="fused", **cfg)
+    ga = model.block_0.ga
+    with torch.no_grad():
+        ctx = model.edge_inputs(pos, real, zs)
+        ws = [w.detach() for w in ga.kernel_weights()]
+    s, c = (cfg["l_max"] + 1) ** 2, cfg["sphere_channels"]
+    nh, co = cfg["num_heads"], cfg["num_heads"] * cfg["attn_value_channels"]
+    keep = torch.rand(*ctx["maskf"].shape, nh, generator=g) >= 0.1
+    x = dict(x=torch.randn(b, a, s, c, generator=g) * 0.5, idx=ctx["idx"], d=ctx["d"],
+             xe=ctx["xe"], maskf=ctx["maskf"],
+             dropk=keep.float() / 0.9 if drop else ctx["ones"], ones=ctx["ones"],
+             g=torch.randn(b, a, s, co, generator=g), node_mask=real)
+    out = {k: t.to(dev).contiguous() for k, t in x.items()}
+    out["ws"] = [w.to(dev).contiguous() for w in ws]
+    out["dims"] = ga.kernel_dims()
+    return out
+
+
 def qhnet_kernel_phases(dev, card: str) -> dict:
     """Kernels I-L at the QHNet train path's shapes (B=QH_BATCH, A in
     BUCKETS, C=128, LMAX 4, H1/H2 32/32 for the conv and 8/128 for the
@@ -1173,21 +1252,24 @@ ESCN_OUT_RTOL, ESCN_GRAD_RTOL = 1e-4, 1e-3
 ESCN_CPU_MOLS = 2
 
 
-def _plain_in_chunks(ref, args, kw: dict, n: int):
-    """A plain version of M or N over the batch, n molecules at a time: the
-    per-molecule outputs (M's out; N's gx and gxe) concatenated, N's weight
-    gradients summed in chunk order."""
-    x, d, xe, *ws = args
+def _plain_in_chunks(ref, args, n_mol: int, kw: dict, n: int):
+    """A plain kernel version over the batch, n molecules at a time: args'
+    first n_mol inputs (and kw's cotangent g) are per molecule, the rest
+    (the weights) shared. A forward's output is concatenated; a backward's
+    cotangents with a batch axis (M/N's gx, gxe; O/P's gx, gxi, gxe)
+    concatenated and its weight gradients summed in chunk order."""
     kw = dict(kw)
     g = kw.pop("g", None)
     parts = []
-    for i in range(0, x.shape[0], n):
+    for i in range(0, args[0].shape[0], n):
         sl = slice(i, i + n)
-        parts.append(ref(x[sl], d[sl], xe[sl], *ws, **kw, **({} if g is None else {"g": g[sl]})))
+        parts.append(ref(*[a[sl] for a in args[:n_mol]], *args[n_mol:], **kw,
+                         **({} if g is None else {"g": g[sl]})))
     if g is None:
         return torch.cat(parts)
-    out = [torch.cat([q[k] for q in parts]) for k in (0, 1)]
-    for k in range(2, len(parts[0])):
+    n_cat = len(parts[0]) - (len(args) - n_mol)  # the cotangents with a batch axis
+    out = [torch.cat([q[k] for q in parts]) for k in range(n_cat)]
+    for k in range(n_cat, len(parts[0])):
         acc = parts[0][k].clone()
         for q in parts[1:]:
             acc += q[k]
@@ -1217,7 +1299,7 @@ def escn_kernel_phases(dev, card: str, ptxas: dict) -> dict:
         for k, (fn, ref) in fns.items():
             kw = dict(dims, g=x["g"]) if k == "N" else dims
             as_tuple = (lambda t: t if isinstance(t, tuple) else (t,))
-            plain = (lambda ref=ref, kw=kw: _plain_in_chunks(ref, args, kw, ESCN_PLAIN_MOLS))
+            plain = (lambda ref=ref, kw=kw: _plain_in_chunks(ref, args, 3, kw, ESCN_PLAIN_MOLS))
             got = as_tuple(fn(*args, **kw))
             err = compare(got, as_tuple(plain()))
             check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel {k} error at {shape}: {err}")
@@ -1263,34 +1345,175 @@ def _forward_in_chunks(model, batch, n: int) -> dict:
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
-def escn_predict_phase(tmp: Path, db: Path) -> dict:
-    """eSCN's `job_type: predict` (configs/escn-oc.yaml at full width and
-    depth, batch BATCH) over the seeded DB: rows, finite values, M 8 times
-    per batch and N never; per bucket, the first batch and the same batch
-    rotated against the plain module on the card, its first ESCN_CPU_MOLS
-    molecules against the CPU plain path, E invariant under the rotation,
-    F's equivariance error printed; molecules/s of the predict loop."""
+EQV2_KERNELS = {  # key: (name, JAX kernel body line in nabladft_tpu/ops/pallas/eqv2_attn.py)
+    "O": ("eqv2_fwd (O)", 640), "P": ("eqv2_bwd (P)", 741),
+}
+EQV2_ARGS = ("x", "x", "idx", "d", "xe", "maskf", "dropk")
+# the plain versions of O and P, and the plain module on the card, run
+# EQV2_PLAIN_MOLS molecules at a time (their autograd and einsum
+# intermediates grow with the B·A·K edge slots); the chunks' per-molecule
+# outputs concatenate and P's weight gradients sum
+EQV2_PLAIN_MOLS = 16
+# EquiformerV2 on the card, fused against plain: E and F within
+# EQV2_OUT_RTOL x the output's largest magnitude, parameter gradients within
+# EQV2_GRAD_RTOL x max |g| per tensor (each fp32 path's distance from the
+# plain module in float64 printed beside it). Under a rotation E and F move
+# by the per-edge truncated grid's aliasing (2M+1 longitudes in each edge's
+# frame), the model's own: the plain module and JAX's XLA model move E by
+# ~5e-3 of max |E| at full width, so E is held within EQV2_E_ROT x max |E|,
+# the fused and plain modules' outputs on the rotated batch to each other
+# within EQV2_OUT_RTOL, and F's equivariance error is printed.
+EQV2_OUT_RTOL, EQV2_GRAD_RTOL, EQV2_E_ROT = 1e-4, 1e-3, 2e-2
+# molecules of each bucket's first batch held against the CPU plain path (13
+# full-width attention calls on the host's cores), and in the gradient
+# check (the plain autograd in float64)
+EQV2_CPU_MOLS, EQV2_GRAD_MOLS = 1, 2
+# timed passes of EquiformerV2's predict loop after a warm-up pass (cut from
+# PASSES: a pass over the 256 molecules takes seconds)
+EQV2_PASSES = 3
+
+
+def _eqv2_args(inp, **over):
+    """Kernel O / P's positional arguments, `over` replacing inputs."""
+    t = dict(inp, **over)
+    return [t[k] for k in EQV2_ARGS] + t["ws"]
+
+
+def eqv2_kernel_phases(dev, card: str, ptxas: dict) -> dict:
+    """Kernels O and P at every shape the EquiformerV2 paths give them
+    (B=BATCH, A in BUCKETS, configs/equiformer_v2.yaml widths), on
+    EquiformerV2-built inputs, against their plain versions (run
+    EQV2_PLAIN_MOLS molecules at a time, timed over the whole batch): O with
+    dropk ones (eval) and a seeded keep mask (train), P with the mask, every
+    cotangent checked, twice for the same bits; kernel / plain / bound
+    times. The bound counts the FLOP model's work of the live edges (the
+    kernels skip the rest); `flops_all_slots` is the model over all B·A·K
+    edge slots."""
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    peak_flops, peak_bw = peaks(card)
+    per = {k: [] for k in EQV2_KERNELS}
+    for a in BUCKETS:
+        inp = eqv2_kernel_inputs(dev, BATCH, a, seed=SEED + 4000 + a, drop=True)
+        shape = [BATCH, a, EQV2_KW["sphere_channels"]]
+        live = ea.live_edges(inp["maskf"])
+        extra = {"live_edges": live, "edge_slots": inp["maskf"].numel(),
+                 "plain_molecules_per_call": EQV2_PLAIN_MOLS}
+        args, dims = _eqv2_args(inp), inp["dims"]
+
+        # O: dropk = ones (the eval paths) and the seeded keep mask (train)
+        errs = {}
+        for tag, over in (("ones", {"dropk": inp["ones"]}), ("mask", {})):
+            a_tag = _eqv2_args(inp, **over)
+            got = ea.eqv2_fwd(*a_tag, **dims)
+            err = compare((got,), (_plain_in_chunks(ea.eqv2_fwd_reference, a_tag, 7, dims,
+                                                     EQV2_PLAIN_MOLS),))
+            check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel O ({tag}) error at {shape}: {err}")
+            errs[tag] = err
+            del got
+        torch.cuda.empty_cache()
+        t_k = time_ms(lambda: ea.eqv2_fwd(*args, **dims))
+        t_p = time_ms(lambda: _plain_in_chunks(ea.eqv2_fwd_reference, args, 7, dims,
+                                               EQV2_PLAIN_MOLS))
+        work = ea.flops_bytes("O", inp["x"], inp["idx"], inp["d"], inp["xe"], inp["maskf"],
+                              inp["dropk"], inp["ws"], **dims)
+        row = _kernel_row(shape, errs["mask"], t_k, t_p, work["flops_live"], work["bytes"],
+                          peak_flops, peak_bw, flops_all_slots=work["flops"],
+                          max_rel_err_dropk_ones=errs["ones"]["max_rel_err"],
+                          max_rel_err_dropk_mask=errs["mask"]["max_rel_err"], **extra)
+        row["max_abs_err"] = max(errs["ones"]["max_abs_err"], errs["mask"]["max_abs_err"])
+        emit("kernel_O", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
+        per["O"].append(row)
+
+        # P: every cotangent, run twice for the same bits
+        got = ea.eqv2_bwd(*args, g=inp["g"], **dims)
+        bwd_kw = dict(dims, g=inp["g"])
+        err = compare(got, _plain_in_chunks(ea.eqv2_bwd_reference, args, 7, bwd_kw,
+                                            EQV2_PLAIN_MOLS))
+        # max_rel_err is the largest over the cotangents, each against its own scale
+        check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel P error at {shape}: {err}")
+        again = ea.eqv2_bwd(*args, g=inp["g"], **dims)
+        check(all(torch.equal(p, q) for p, q in zip(got, again)),
+              f"kernel P deterministic at {shape}")
+        del got, again
+        torch.cuda.empty_cache()
+        t_k = time_ms(lambda: ea.eqv2_bwd(*args, g=inp["g"], **dims))
+        t_p = time_ms(lambda: _plain_in_chunks(ea.eqv2_bwd_reference, args, 7, bwd_kw,
+                                               EQV2_PLAIN_MOLS))
+        work = ea.flops_bytes("P", inp["x"], inp["idx"], inp["d"], inp["xe"], inp["maskf"],
+                              inp["dropk"], inp["ws"], **dims)
+        row = _kernel_row(shape, err, t_k, t_p, work["flops_live"], work["bytes"], peak_flops,
+                          peak_bw, flops_all_slots=work["flops"], bit_identical_rerun=True,
+                          cotangents=["gx", "gxi", "gxe"] + ea.weight_names(dims["m_max"]),
+                          **extra)
+        emit("kernel_P", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
+        per["P"].append(row)
+        del inp, args
+        torch.cuda.empty_cache()
+    rows = headline_rows(per, EQV2_KERNELS, "eqv2_attn", ())
+    for k in rows:
+        rows[k]["ptxas"] = ptxas.get("eqv2_attn", {})
+    return rows
+
+
+# the direct-force SO(2) families chip_smoke drives: config, kernel counters
+# (forward, backward), message / attention calls per forward, the plain
+# module's and the CPU reference's molecules per call, the gradient check's
+# molecules, tolerances (outputs, gradients, E under a rotation), timed
+# predict passes, and whether the model draws dropout in training
+DIRECT = {
+    "escn": dict(config="escn-oc", fwd="escn_fwd", bwd="escn_bwd",
+                 calls=lambda kw: kw["num_layers"], plain_mols=ESCN_PLAIN_MOLS,
+                 cpu_mols=ESCN_CPU_MOLS, grad_mols=ESCN_CPU_MOLS, out_rtol=ESCN_OUT_RTOL,
+                 grad_rtol=ESCN_GRAD_RTOL, e_rot=ESCN_OUT_RTOL, passes=PASSES, dropout=False),
+    "eqv2": dict(config="equiformer_v2", fwd="eqv2_fwd", bwd="eqv2_bwd",
+                 calls=lambda kw: kw["num_layers"] + 1, plain_mols=EQV2_PLAIN_MOLS,
+                 cpu_mols=EQV2_CPU_MOLS, grad_mols=EQV2_GRAD_MOLS, out_rtol=EQV2_OUT_RTOL,
+                 grad_rtol=EQV2_GRAD_RTOL, e_rot=EQV2_E_ROT, passes=EQV2_PASSES, dropout=True),
+}
+
+
+def _plain_cfg(cfg: dict) -> dict:
+    return dict(cfg, model=dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"],
+                                                          use_pallas="off")))
+
+
+def direct_predict_phase(tmp: Path, db: Path, family: str) -> dict:
+    """`job_type: predict` of a direct-force family (eSCN, EquiformerV2) at
+    full width and depth, batch BATCH, over the seeded DB: rows, finite
+    values, the forward kernel once per message / attention call of each
+    batch, the backward never, no dropout drawn; per bucket, the first batch
+    and the same batch rotated against the plain module on the card (eval
+    mode, as the job runs the model), its first molecules against the CPU
+    plain path; E under the rotation within the family's limit, F's
+    equivariance error printed; molecules/s of the predict loop."""
     from nabladft_tpu_torch import pipelines
     from nabladft_tpu_torch.data.ase_codec import AseDatabase
+    from nabladft_tpu_torch.models import equiformer_v2 as eqv2_mod
     from nabladft_tpu_torch.models.base import forward
     from nabladft_tpu_torch.train import Trainer
 
-    cfg = smoke_config(str(db), str(tmp / "predictions_escn.db"), str(tmp), config="escn-oc")
-    n_layers = cfg["model"]["kwargs"]["num_layers"]
+    fam = DIRECT[family]
+    cfg = smoke_config(str(db), str(tmp / f"predictions_{family}.db"), str(tmp),
+                       config=fam["config"])
+    n_calls = fam["calls"](cfg["model"]["kwargs"])
 
     # the main path: counts reset just before, read just after
     reset_all_launches()
+    eqv2_mod.reset_dropout_draws()
     torch.cuda.reset_peak_memory_stats()
     res = pipelines.run(cfg)
     torch.cuda.synchronize()
     launches = all_launches()
+    draws = dict(eqv2_mod.DROPOUT_DRAWS)
     peak_mem = torch.cuda.max_memory_allocated()
 
     n_batches = res["batches"]
     check(res["rows"] == N_MOLS, f"rows written {res['rows']} != {N_MOLS}")
     want = dict.fromkeys(launches, 0)
-    want["escn_fwd"] = n_layers * n_batches
-    check(launches == want, f"eSCN predict launches {launches}, expected {want}")
+    want[fam["fwd"]] = n_calls * n_batches
+    check(launches == want, f"{family} predict launches {launches}, expected {want}")
+    check(draws == {"alpha": 0, "drop_path": 0}, f"dropout drawn on predict: {draws}")
     dm = pipelines.build_datamodule(cfg)
     # the writer keeps the loader's order of the real molecules
     order = [mid for b in dm.predict_dataloader()
@@ -1305,10 +1528,9 @@ def escn_predict_phase(tmp: Path, db: Path) -> dict:
     shapes = sorted({tuple(b.z.shape) for b in dm.predict_dataloader()})
     check(all(s in [(BATCH, a) for a in BUCKETS] for s in shapes), f"predict batch shapes {shapes}")
     dev = torch.device("cuda")
-    gpu = Trainer(pipelines.build_model(cfg, dev), dev)
-    plain = Trainer(pipelines.build_model(dict(cfg, model=dict(cfg["model"], kwargs=dict(
-        cfg["model"]["kwargs"], use_pallas="off"))), dev), dev)
-    cpu = Trainer(pipelines.build_model(cfg, torch.device("cpu")), "cpu")
+    gpu = Trainer(pipelines.build_model(cfg, dev).eval(), dev)
+    plain = Trainer(pipelines.build_model(_plain_cfg(cfg), dev).eval(), dev)
+    cpu = Trainer(pipelines.build_model(cfg, torch.device("cpu")).eval(), "cpu")
     check(gpu.model.use_pallas == "fused" and plain.model.use_pallas == "off"
           and cpu.model.use_pallas == "off", "model modes")
     first = {}
@@ -1320,9 +1542,10 @@ def escn_predict_phase(tmp: Path, db: Path) -> dict:
         bg = batch.to(dev)
         bg_r = bg.replace(pos=bg.pos @ rot.T)
         out_f, out_r = forward(gpu.model, bg), forward(gpu.model, bg_r)
-        out_p = _forward_in_chunks(plain.model, bg, ESCN_PLAIN_MOLS)
-        out_pr = _forward_in_chunks(plain.model, bg_r, ESCN_PLAIN_MOLS)
-        out_c = forward(cpu.model, _mols(batch, slice(0, ESCN_CPU_MOLS)))
+        out_p = _forward_in_chunks(plain.model, bg, fam["plain_mols"])
+        out_pr = _forward_in_chunks(plain.model, bg_r, fam["plain_mols"])
+        first_c = slice(0, fam["cpu_mols"])
+        out_c = forward(cpu.model, _mols(batch, first_c))
         m = bg.graph_mask.cpu().numpy()
         # the job's rows are the fused model's outputs of this batch
         for i, mol_id in enumerate(batch.mol_id.tolist()):
@@ -1333,7 +1556,6 @@ def escn_predict_phase(tmp: Path, db: Path) -> dict:
         scale = {"energy": _max_abs(out_p["energy"]), "forces": _max_abs(out_p["forces"])}
         row = {"shape": list(batch.z.shape), "max_abs_energy": scale["energy"],
                "max_abs_force": scale["forces"]}
-        first_c = slice(0, ESCN_CPU_MOLS)
         for tag, got, ref in (("card_plain", out_f, out_p), ("card_plain_rotated", out_r, out_pr),
                               ("cpu_plain", {k: v[first_c].cpu() for k, v in out_f.items()},
                                out_c)):
@@ -1341,13 +1563,15 @@ def escn_predict_phase(tmp: Path, db: Path) -> dict:
                 err = _max_abs(got[k] - ref[k].to(got[k].device))
                 row[f"{k}_abs_err_vs_{tag}"] = err
                 row[f"{k}_rel_err_vs_{tag}"] = err / scale[k]
-                check(err <= ESCN_OUT_RTOL * scale[k],
-                      f"eSCN {k} at A={a} vs {tag}: {err} > {ESCN_OUT_RTOL} x {scale[k]}")
+                check(err <= fam["out_rtol"] * scale[k],
+                      f"{family} {k} at A={a} vs {tag}: {err} > {fam['out_rtol']} x {scale[k]}")
         e_rot = _max_abs(out_r["energy"] - out_f["energy"])
-        check(e_rot <= ESCN_OUT_RTOL * scale["energy"],
-              f"eSCN energy under a rotation at A={a}: {e_rot} vs max |E| {scale['energy']}")
+        check(e_rot <= fam["e_rot"] * scale["energy"],
+              f"{family} energy under a rotation at A={a}: {e_rot} vs max |E| {scale['energy']}")
+        # readings: E's and F's rotation errors, the fused and the plain module's
         row["rotation_energy_rel_err"] = e_rot / scale["energy"]
-        # readings: F's equivariance error, the fused and the plain module's
+        row["rotation_energy_rel_err_plain"] = (_max_abs(out_pr["energy"] - out_p["energy"])
+                                                / scale["energy"])
         row["rotation_force_rel_err"] = (_max_abs(out_r["forces"] - out_f["forces"] @ rot.T)
                                          / scale["forces"])
         row["rotation_force_rel_err_plain"] = (_max_abs(out_pr["forces"] - out_p["forces"] @ rot.T)
@@ -1359,59 +1583,74 @@ def escn_predict_phase(tmp: Path, db: Path) -> dict:
     torch.cuda.empty_cache()
 
     rates = []
-    for p in range(PASSES + 1):
+    for p in range(fam["passes"] + 1):
         t0 = time.perf_counter()
         n_pred = sum(len(o["energy"]) for o in gpu.predict(dm.predict_dataloader()))
         torch.cuda.synchronize()
         if p:
             rates.append(n_pred / (time.perf_counter() - t0))
     rates.sort()
-    profile_phase("escn_profile", gpu, dm)
-    emit("escn_predict", config="escn-oc", rows=res["rows"], batches=n_batches,
-         batch_shapes=shapes, launches=launches, run_seconds=res["seconds"], checks=checks,
-         molecules_per_second={"median": rates[PASSES // 2], "min": rates[0],
+    profile_phase(f"{family}_profile", gpu, dm)
+    emit(f"{family}_predict", config=fam["config"], rows=res["rows"], batches=n_batches,
+         batch_shapes=shapes, launches=launches, dropout_draws=draws,
+         run_seconds=res["seconds"], checks=checks,
+         molecules_per_second={"median": rates[len(rates) // 2], "min": rates[0],
                                "max": rates[-1], "passes": rates},
-         peak_device_memory_bytes=peak_mem, tolerances={"output_rel": ESCN_OUT_RTOL})
+         peak_device_memory_bytes=peak_mem,
+         tolerances={"output_rel": fam["out_rtol"], "rotation_energy_rel": fam["e_rot"]})
     return launches
 
 
-def escn_train_phase(tmp: Path, db: Path) -> dict:
-    """eSCN's train (TRAIN_EPOCHS epochs) and test jobs at configs/escn-oc.yaml
-    width and depth, batch BATCH: M 8 per train step, validation and test
-    batch, N 8 per train step; finite losses and metrics; per bucket the
-    fused model's parameter gradients against the plain module's on the card
-    (checked), and both against the plain module in float64 (printed), on
-    the first ESCN_CPU_MOLS molecules (the plain autograd's memory); a
-    profile of two train steps."""
+def direct_train_phase(tmp: Path, db: Path, family: str) -> dict:
+    """The train (TRAIN_EPOCHS epochs) and test jobs of a direct-force family
+    at full width and depth, batch BATCH: the forward kernel once per call
+    of each train step, validation and test batch, the backward once per
+    call of each train step; dropout drawn on train steps only
+    (EquiformerV2: 13 alpha and 24 drop-path masks a step); finite losses
+    and metrics; per bucket, dropout off, the fused model's parameter
+    gradients against the plain module's on the card (checked) and both
+    against the plain module in float64 (printed), on the first molecules
+    (the plain autograd's memory); a profile of two train steps."""
     import copy
 
     from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.models import equiformer_v2 as eqv2_mod
     from nabladft_tpu_torch.train import Trainer, TrainerConfig
 
-    ckpt, outputs = tmp / "ckpt_escn", tmp / "outputs_escn"
-    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs), config="escn-oc")
+    fam = DIRECT[family]
+    ckpt, outputs = tmp / f"ckpt_{family}", tmp / f"outputs_{family}"
+    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs), config=fam["config"])
     dm = pipelines.build_datamodule(cfg)
     n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
                               len(dm.test_dataloader()))
+    n_layers = cfg["model"]["kwargs"]["num_layers"]
+    n_calls = fam["calls"](cfg["model"]["kwargs"])
 
     # the main path: counts reset just before, read just after
     reset_all_launches()
+    eqv2_mod.reset_dropout_draws()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.time()
     res = pipelines.run(cfg)
+    draws_train = dict(eqv2_mod.DROPOUT_DRAWS)
     best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
     test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(ckpt / best)))
     torch.cuda.synchronize()
     launches = all_launches()
+    draws = dict(eqv2_mod.DROPOUT_DRAWS)
     peak_mem = torch.cuda.max_memory_allocated()
 
-    steps, n_layers = res["step"], cfg["model"]["kwargs"]["num_layers"]
+    steps = res["step"]
     check(steps == TRAIN_EPOCHS * n_train,
           f"{steps} train steps, expected {TRAIN_EPOCHS} x {n_train}")
     want = dict.fromkeys(launches, 0)
-    want.update({"escn_fwd": n_layers * (steps + TRAIN_EPOCHS * n_val + n_test),
-                 "escn_bwd": n_layers * steps})
-    check(launches == want, f"eSCN train/test launches {launches}, expected {want}")
+    want.update({fam["fwd"]: n_calls * (steps + TRAIN_EPOCHS * n_val + n_test),
+                 fam["bwd"]: n_calls * steps})
+    check(launches == want, f"{family} train/test launches {launches}, expected {want}")
+    want_draws = ({"alpha": n_calls * steps, "drop_path": 2 * n_layers * steps}
+                  if fam["dropout"] else {"alpha": 0, "drop_path": 0})
+    check(draws_train == draws == want_draws,
+          f"dropout draws {draws_train} (train), {draws} (after test), expected {want_draws}")
     check((ckpt / "last.ckpt").exists() and (ckpt / best).exists(), "checkpoint files")
     rows = read_csv(outputs / cfg["name"] / "metrics.csv")
     step_rows = [r for r in rows if "train/total" in r]
@@ -1428,14 +1667,13 @@ def escn_train_phase(tmp: Path, db: Path) -> dict:
     epoch_ends = [t_start] + [r["time"] for r in val_rows]
     epoch_seconds = [b - a for a, b in zip(epoch_ends, epoch_ends[1:])]
 
-    # fused against plain on the card, fp32 and float64, one batch per bucket
+    # fused against plain on the card, fp32 and float64, one batch per bucket,
+    # dropout off in all three (eval mode)
     dev = torch.device("cuda")
     t = TrainerConfig(**dict(cfg["trainer"], loss_specs=cfg["model"]["loss_specs"],
                              loss_coefs=cfg["model"]["loss_coefs"]))
-    plain_cfg = dict(cfg, model=dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"],
-                                                               use_pallas="off")))
-    fused = Trainer(pipelines.build_model(cfg, dev), dev, t)
-    plain = Trainer(pipelines.build_model(plain_cfg, dev), dev, t)
+    fused = Trainer(pipelines.build_model(cfg, dev).eval(), dev, t)
+    plain = Trainer(pipelines.build_model(_plain_cfg(cfg), dev).eval(), dev, t)
     exact = Trainer(copy.deepcopy(plain.model).double(), dev, t)
     check(fused.model.use_pallas == "fused" and plain.model.use_pallas == "off", "model modes")
     first = {}
@@ -1443,14 +1681,16 @@ def escn_train_phase(tmp: Path, db: Path) -> dict:
         first.setdefault(batch.z.shape[1], batch)
     grads = []
     for a, batch in sorted(first.items()):
-        small = _mols(batch, slice(0, ESCN_CPU_MOLS)).to(dev)
+        small = _mols(batch, slice(0, fam["grad_mols"])).to(dev)
+        eqv2_mod.reset_dropout_draws()
         lf, lp = fused._compute_grads(small), plain._compute_grads(small)
         lx = exact._compute_grads(small.replace(**{k: getattr(small, k).double()
                                                    for k in ("pos", "energy", "forces")}))
+        check(eqv2_mod.DROPOUT_DRAWS == {"alpha": 0, "drop_path": 0}, "gradient check in eval")
         torch.cuda.empty_cache()
         err = _grad_errs(fused.model, plain.model)
         name = max(err, key=err.get)
-        check(err[name] <= ESCN_GRAD_RTOL,
+        check(err[name] <= fam["grad_rtol"],
               f"gradient check at A={a}: {name} off by {err[name]:.3e}")
         check(abs(float(lf["total"]) - float(lp["total"])) <= 1e-4 * abs(float(lp["total"])),
               f"loss at A={a}: {float(lf['total'])} vs {float(lp['total'])}")
@@ -1471,16 +1711,16 @@ def escn_train_phase(tmp: Path, db: Path) -> dict:
 
     trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
     batches = list(itertools.islice(dm.train_dataloader(), 2))
-    profile_steps("escn_train_profile", trainer._train_step, batches)
-    emit("escn_train", config="escn-oc", steps=steps, batches_per_epoch=n_train,
+    profile_steps(f"{family}_train_profile", trainer._train_step, batches)
+    emit(f"{family}_train", config=fam["config"], steps=steps, batches_per_epoch=n_train,
          val_batches=n_val, test_batches=n_test, launches=launches, expected_launches=want,
-         final_val=res, test=test,
+         dropout_draws=draws, final_val=res, test=test,
          train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
          grad_norm_max=max(r["grad_norm"] for r in step_rows),
          molecules_per_second={"median": rates[len(rates) // 2], "min": rates[0],
                                "max": rates[-1], "steps": rates, "epoch": TRAIN_EPOCHS - 1},
          seconds_per_epoch=epoch_seconds, peak_device_memory_bytes=peak_mem,
-         gradient_check=grads, tolerances={"grad_rel": ESCN_GRAD_RTOL})
+         gradient_check=grads, tolerances={"grad_rel": fam["grad_rtol"]})
     return launches
 
 
@@ -1488,7 +1728,7 @@ ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
                "K": "qhnet_pair_fwd", "L": "qhnet_pair_bwd", "M": "escn_fwd",
-               "N": "escn_bwd"}  # kernel -> its launch counter
+               "N": "escn_bwd", "O": "eqv2_fwd", "P": "eqv2_bwd"}  # kernel -> its launch counter
 
 
 def main() -> int:
@@ -1509,7 +1749,7 @@ def main() -> int:
     nvcc_version = subprocess.run([_kernels.nvcc(), "--version"], capture_output=True,
                                   text=True, check=True).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    sources = ("painn_fused", "schnet_fused", "qhnet_tp", "escn_layer")
+    sources = ("painn_fused", "schnet_fused", "qhnet_tp", "escn_layer", "eqv2_attn")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         builds = dict(zip(sources, pool.map(_kernels.build, sources)))
     seconds["build"] = time.perf_counter() - t0
@@ -1531,6 +1771,7 @@ def main() -> int:
     rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card))
     rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card))
     rows.update(timed("kernels_escn", escn_kernel_phases, dev, card, ptxas))
+    rows.update(timed("kernels_eqv2", eqv2_kernel_phases, dev, card, ptxas))
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1541,8 +1782,10 @@ def main() -> int:
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
         by_path["qhnet_train"] = timed("qhnet_train", qhnet_train_phase, tmp)
-        by_path["escn_predict"] = timed("escn_predict", escn_predict_phase, tmp, db)
-        by_path["escn_train"] = timed("escn_train", escn_train_phase, tmp, db)
+        for family in DIRECT:
+            for job, phase in (("predict", direct_predict_phase), ("train", direct_train_phase)):
+                path = f"{family}_{job}"
+                by_path[path] = timed(path, phase, tmp, db, family)
     for k, counter in ALL_KERNELS.items():
         rows[k]["launches_by_path"] = {p: n[counter] for p, n in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())

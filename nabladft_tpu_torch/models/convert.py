@@ -40,6 +40,17 @@ layout's `layer_i/so2_source/...` raises: convert it with
   layer_i/{fc1,fc2,fc3}_sphere/kernel              (no bias)
   {energy,force}_fc{1,2}/{kernel,bias}, {energy,force}_fc3/kernel
 
+EquiformerV2's (the Pallas layout, m-shared radial; the XLA layout's
+`block_i/ga/so2_conv_1/...` raises: convert it with
+`param_convert.eqv2_params(p, "pallas", l_max, m_max, co)` first):
+
+  sphere_embedding/embedding, {src_embed,dst_embed}/embedding
+  {dist_proj,edge_degree_proj}/{kernel,bias}
+  block_i/{norm_1,norm_2}/ln0/{scale,bias}, .../gain_{l}   (and norm_final/...)
+  block_i/ga/{w_rad, b_rad, w1, fc1_m{m}, w2, fc2_m{m}, ln_scale, ln_bias, alpha_dot}  (raw)
+  block_i/ga/proj_l{l}/kernel (+ bias on l0)        (and force_block/...)
+  block_i/ffn/Dense_{0,1,2}/kernel, energy_ffn/Dense_{0,1,2}/kernel
+
 A flax ``Dense.kernel`` is [in, out] and becomes the transposed
 ``Linear.weight``; the raw filter arrays keep their layout, which the
 kernels take as is. Every parameter of the module must be matched and
@@ -95,14 +106,19 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax PaiNN, SchNet, QHNet or eSCN parameter tree into `model`
-    in place; returns it."""
+    """Copy a flax PaiNN, SchNet, QHNet, eSCN or EquiformerV2 parameter tree
+    into `model` in place; returns it."""
     tree = params.get("params", params)
     leaves = _leaves(tree)
     if any("so2_source" in k for k in leaves):
         raise ValueError(
             "this eSCN tree is in the XLA layout (layer_i/so2_source/...); the port "
             "takes the Pallas layout: convert it with param_convert.escn_params(p, 'pallas')")
+    if any("so2_conv_1" in k for k in leaves):
+        raise ValueError(
+            "this EquiformerV2 tree is in the XLA layout (block_i/ga/so2_conv_1/...); the port "
+            "takes the Pallas layout: convert it with "
+            "param_convert.eqv2_params(p, 'pallas', l_max, m_max, co)")
     used = set()
     with torch.no_grad():
         for name, p in model.named_parameters():

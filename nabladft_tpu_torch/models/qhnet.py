@@ -402,7 +402,7 @@ class QHNet(nn.Module):
         if ref_compat:
             raise NotImplementedError(
                 "ref_compat serves checkpoints converted from the reference; it waits for "
-                "pretrained restore (ROADMAP queue 1, item 13)")
+                "pretrained restore (ROADMAP queue 1: checkpoint and pretrained restore)")
         c, cb = hidden, bottle_hidden
         self.hidden, self.num_layers, self.start_layer = hidden, num_layers, start_layer
         self.radius_cutoff, self.remat, self.use_pallas = radius_cutoff, remat, use_pallas

@@ -2,8 +2,9 @@
 
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, which `ctypes` loads. The build
-happens at first use, keyed on a hash of the source, into ``_build/`` beside
-the package (listed in ``.gitignore``). A failed build raises: there is no
+happens at first use, keyed on a hash of the source and of the headers beside
+it (``csrc/*.cuh``), into ``_build/`` beside the package (listed in
+``.gitignore``). A failed build raises: there is no
 fallback on the card.
 """
 
@@ -47,8 +48,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

@@ -5,8 +5,10 @@ The molecular half of ``nabladft_tpu/ops/graph.py``: molecules here are
 every step and neighbour caps are masks, not ragged lists. Conventions kept
 from the JAX package: diff[b,i,j] = pos[j] - pos[i], masked distances are
 `_BIG`, and `dense_topk_mask` keeps every edge within 1e-7 of the k-th
-distance. eSCN's fixed-K `neighbor_list` (strict top-k, ties to the lower
-index as `lax.top_k`) and its scatter back onto the dense pair lattice.
+distance. eSCN's and EquiformerV2's fixed-K `neighbor_list` (strict top-k,
+ties to the lower index as `lax.top_k`, K = min(max_neighbors, A) unpadded),
+its scatter back onto the dense pair lattice, the node gather along it and
+the edge frames' axis vectors.
 """
 
 from __future__ import annotations
@@ -106,3 +108,20 @@ def dense_from_neighbor_list(nl: NeighborList, a_dim: int):
     unit_d = nl.unit.new_zeros((b, a, a_dim, 3)).scatter_(
         2, nl.idx[..., None].expand(b, a, k, 3), nl.unit * m[..., None])
     return mask_d, unit_d, dist_d
+
+
+def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-node features at node indices: x [B, A, ...feat], idx [B, ...index]
+    -> [B, ...index, ...feat]."""
+    xf = x.flatten(2)
+    flat = idx.reshape(x.shape[0], -1).long()
+    out = torch.gather(xf, 1, flat[..., None].expand(*flat.shape, xf.shape[-1]))
+    return out.reshape(*idx.shape, *x.shape[2:])
+
+
+def edge_rotation_vectors(unit: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The edges' unit vectors with masked rows replaced by ẑ (the axis the
+    edge-aligned Wigner rotations are built from)."""
+    zhat = torch.zeros_like(unit)
+    zhat[..., 2] = 1.0
+    return torch.where(mask[..., None], unit, zhat)

@@ -5,10 +5,11 @@ validation, seeding, the datamodule, the model, the trainer, and the
 prediction writer (the output database mirrors the input rows plus
 `energy_pred` / `forces_pred` in the data blob). `run` executes on the card
 unless the caller passes ``device``; without a card and without ``device``
-it raises. On the card PaiNN, SchNet, QHNet and eSCN run their fused
-kernels unless the config pins `use_pallas`; PaiNN and SchNet then train
-with the surrogate force gradient through them (``force_grads="pallas"``);
-eSCN's forces are a direct head, trained by one backward pass. Hamiltonian
+it raises. On the card PaiNN, SchNet, QHNet, eSCN and EquiformerV2 run their
+fused kernels unless the config pins `use_pallas`; PaiNN and SchNet then
+train with the surrogate force gradient through them
+(``force_grads="pallas"``); eSCN's and EquiformerV2's forces are a direct
+head, trained by one backward pass. Hamiltonian
 configs (``datamodule.kind: hamiltonian``) read a local Hamiltonian DB and
 take the orbital basis from its ``basisset`` table; they have no predict
 job. `ckpt_path` takes a checkpoint this package wrote; ``optimize``,
@@ -40,11 +41,11 @@ logger = logging.getLogger(__name__)
 
 JOB_TYPES = ("train", "test", "predict", "optimize")
 # the families that run fused message kernels on the card by default
-FUSED_ON_CARD = ("painn", "schnet", "qhnet", "escn")
+FUSED_ON_CARD = ("painn", "schnet", "qhnet", "escn", "equiformer_v2")
 # the families that read the orbital basis of a Hamiltonian DB
 HAMILTONIAN_MODELS = ("qhnet",)
 _NOT_PORTED = {
-    "optimize": "the optimize job (ROADMAP queue 1, item 7)",
+    "optimize": "the optimize job (ROADMAP queue 1: the optimize job)",
 }
 
 

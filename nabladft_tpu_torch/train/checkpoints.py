@@ -25,7 +25,8 @@ def load_state(path: Path, device=None) -> Dict[str, Any]:
     if not zipfile.is_zipfile(path):
         raise NotImplementedError(
             f"{path} is not a checkpoint of the PyTorch port; restoring the JAX package's "
-            "flax msgpack checkpoints is not ported yet (ROADMAP queue 1, item 1)")
+            "flax msgpack checkpoints is not ported yet "
+            "(ROADMAP queue 1: checkpoint and pretrained restore)")
     return torch.load(Path(path), map_location=device, weights_only=True)
 
 

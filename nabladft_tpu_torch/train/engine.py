@@ -4,7 +4,10 @@ The port of ``nabladft_tpu/train/engine.py`` on one device (the card
 unless the caller names another): weighted multi-task losses, three ways to
 take the force loss's parameter gradient, AdamW with the plateau LR, EMA,
 top-k checkpoints, keep-best / restore-best-for-test, early stopping,
-`max_steps` / `max_seconds` / `stop_at_lr`, and a non-finite skip guard.
+`max_steps` / `max_seconds` / `stop_at_lr`, and a non-finite skip guard
+(warmup counts the updates it let through). Train steps run the model in
+train mode (dropout drawn from a generator seeded from the seed and the
+step); validation, test and predict in eval mode.
 Weights are the model's own (a seeded ``torch.Generator`` when it was
 built, or carried across from the JAX package); buffers are never updated.
 
@@ -23,6 +26,7 @@ Force-loss gradients for models with F = -∂E/∂pos (``force_grads``):
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass, field
@@ -110,10 +114,10 @@ class TrainerConfig:
 
 def _check_ported(cfg: TrainerConfig) -> None:
     unported = {
-        "n_dp > 1 (multi-GPU, ROADMAP queue 1 item 14)": (cfg.n_dp or 1) > 1,
-        "lookahead_k (ROADMAP queue 1 item 10)": bool(cfg.lookahead_k),
-        "profile_dir (ROADMAP queue 1 item 6)": bool(cfg.profile_dir),
-        "log_mfu (ROADMAP queue 1 item 6)": cfg.log_mfu,
+        "n_dp > 1 (ROADMAP queue 1: multi-GPU data parallelism)": (cfg.n_dp or 1) > 1,
+        "lookahead_k (ROADMAP queue 1: PhiSNet's Lookahead)": bool(cfg.lookahead_k),
+        "profile_dir (ROADMAP queue 1: trainer remainders)": bool(cfg.profile_dir),
+        "log_mfu (ROADMAP queue 1: trainer remainders)": cfg.log_mfu,
     }
     for what, on in unported.items():
         if on:
@@ -145,6 +149,13 @@ class Trainer:
                                          cfg.weight_decay, cfg.wd_skip_1d)
         self.ema = ema_init(model) if cfg.ema_decay > 0 else None
         self.step = 0
+        # updates applied (the skip guard's steps excluded): the warmup's count,
+        # as optax.scale_by_schedule's state that the JAX guard reverts
+        self.applied = 0
+        # train-mode dropout (EquiformerV2) draws from a generator seeded from
+        # cfg.seed and the step, as the JAX engine folds the step into its key
+        self._dropout_gen = (torch.Generator(device=self.device)
+                             if hasattr(model, "dropout_generator") else None)
         self._lr = cfg.lr  # the plateau-driven rate, before warmup
         # (step, params, ema) copies at the best `monitor`
         self._best_snapshot = None
@@ -211,6 +222,10 @@ class Trainer:
         """One optimizer step; skipped (optimizer state untouched) when the
         gradient norm or the loss is not finite."""
         cfg = self.cfg
+        if self._dropout_gen is not None:
+            self._dropout_gen.manual_seed(
+                int(np.random.SeedSequence([cfg.seed, self.step]).generate_state(1)[0]))
+            self.model.dropout_generator = self._dropout_gen
         losses = self._compute_grads(batch)
         grads = [p.grad for p in self._params() if p.grad is not None]
         gnorm = (torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -222,8 +237,9 @@ class Trainer:
                 torch._foreach_mul_(grads, cfg.grad_clip / gnorm_host)
             if cfg.warmup_steps:
                 set_learning_rate(self.optimizer,
-                                  self._lr * min(1.0, (self.step + 1) / cfg.warmup_steps))
+                                  self._lr * min(1.0, (self.applied + 1) / cfg.warmup_steps))
             self.optimizer.step()
+            self.applied += 1
         for p in self._params():
             p.grad = None
         if self.ema is not None:
@@ -241,15 +257,27 @@ class Trainer:
             return self.ema
         return None
 
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        """The model in eval mode (no dropout), its mode restored after."""
+        was = self.model.training
+        self.model.eval()
+        try:
+            yield
+        finally:
+            self.model.train(was)
+
     def _eval_step(self, batch: MolBatch) -> Dict[str, torch.Tensor]:
-        out = forward(self.model, batch, self._eval_params())
+        with self._eval_mode():
+            out = forward(self.model, batch, self._eval_params())
         losses = losses_lib.multitask_loss(out, batch, self.cfg.loss_specs, self.cfg.loss_coefs)
         sums = batch_metric_sums(out, batch)
         sums["loss_sum"] = losses["total"]
         return sums
 
     def _predict_step(self, batch: MolBatch) -> ModelOutput:
-        return forward(self.model, batch, self._eval_params())
+        with self._eval_mode():
+            return forward(self.model, batch, self._eval_params())
 
     def validate(self, loader: Iterable[MolBatch], prefix: str = "val") -> Dict[str, float]:
         acc = MetricAccumulator()
@@ -285,7 +313,7 @@ class Trainer:
     # -- state ---------------------------------------------------------------
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"step": self.step, "model": self.model.state_dict(),
+        return {"step": self.step, "applied": self.applied, "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(), "ema": self.ema}
 
     def load_checkpoint(self, path, resume: bool = False) -> None:
@@ -298,6 +326,7 @@ class Trainer:
                 self.ema[n].copy_(t)
         if resume:
             self.step = int(state["step"])
+            self.applied = int(state.get("applied", state["step"]))
             self.optimizer.load_state_dict(state["optimizer"])
             self._lr = current_learning_rate(self.optimizer)
             aux = read_aux(Path(path))

@@ -43,5 +43,5 @@ def build_schedule(kind: str, base_lr: float, total_steps: int, warmup_steps: in
         return None
     if kind in ("linear", "polynomial", "cosine", "multistep"):
         raise NotImplementedError(
-            f"the {kind!r} schedule is not ported yet (ROADMAP queue 1, item 5)")
+            f"the {kind!r} schedule is not ported yet (ROADMAP queue 1: trainer remainders)")
     raise KeyError(f"unknown schedule {kind!r}")

@@ -31,12 +31,42 @@ def build_optimizer(named_params: NamedParams, name: str, lr: float, weight_deca
     if name == "adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if name == "amsgrad":
-        # torch keeps the running max of the raw second moment, optax of the
-        # bias-corrected one: the two differ while the correction is < 1
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, amsgrad=True)
+        return AMSGrad(params, lr=lr)
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=0.9)
     raise KeyError(f"unknown optimizer {name!r}")
+
+
+class AMSGrad(torch.optim.Optimizer):
+    """optax.amsgrad: Adam's moments with the running max of the
+    bias-corrected second moment (torch's ``Adam(amsgrad=True)`` keeps the
+    max of the raw one, which differs while the correction is < 1):
+
+        mu = b1 mu + (1-b1) g,  nu = b2 nu + (1-b2) g²,  t = count + 1
+        nu_max = max(nu_max, nu / (1 - b2^t))
+        p -= lr (mu / (1 - b1^t)) / (sqrt(nu_max) + eps)
+    """
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            (b1, b2), eps, lr = group["betas"], group["eps"], group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"], st["nu"], st["nu_max"] = (torch.zeros_like(p) for _ in range(3))
+                st["step"] += 1
+                t = st["step"]
+                st["mu"].mul_(b1).add_(p.grad, alpha=1.0 - b1)
+                st["nu"].mul_(b2).addcmul_(p.grad, p.grad, value=1.0 - b2)
+                torch.maximum(st["nu_max"], st["nu"] / (1.0 - b2 ** t), out=st["nu_max"])
+                p.sub_(lr * (st["mu"] / (1.0 - b1 ** t)) / (st["nu_max"].sqrt() + eps))
 
 
 def ema_init(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

@@ -334,3 +334,66 @@ def test_trainer_keeps_the_model_trainable_through_predict():
 def test_unported_trainer_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         _toy_trainer(**kw)
+
+
+def test_amsgrad_matches_optax():
+    """`optimizer: amsgrad` follows optax.amsgrad (the max of the
+    bias-corrected second moment) over six steps of gradients whose scale
+    jumps, so the running max matters."""
+    import jax.numpy as jnp
+    import optax
+
+    from nabladft_tpu_torch.train.state import build_optimizer
+
+    rng = np.random.default_rng(3)
+    p0 = [rng.normal(size=(5, 4)).astype(np.float32), rng.normal(size=7).astype(np.float32)]
+    grads = [[(rng.normal(size=p.shape) * s).astype(np.float32) for p in p0]
+             for s in (1.0, 0.1, 3.0, 0.5, 2.0, 0.01)]
+    tx = optax.amsgrad(1e-2)
+    params = [jnp.asarray(p) for p in p0]
+    state = tx.init(params)
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt = build_optimizer([("a", tp[0]), ("b", tp[1])], "amsgrad", 1e-2)
+    for g in grads:
+        upd, state = tx.update([jnp.asarray(x) for x in g], state, params)
+        params = optax.apply_updates(params, upd)
+        for t, x in zip(tp, g):
+            t.grad = torch.from_numpy(x)
+        opt.step()
+        for t, w in zip(tp, params):
+            np.testing.assert_allclose(t.detach().numpy(), np.asarray(w), rtol=0, atol=1e-6)
+
+
+def test_warmup_counts_applied_updates_as_jax(arrays):
+    """A non-finite batch inside the warmup: the guard skips it and the
+    warmup does not advance (the JAX guard reverts scale_by_schedule's
+    count), so the rates of the steps after it, and the parameters, equal
+    the JAX engine's."""
+    import optax
+
+    cfg = dict(optimizer="adam", lr=1e-3, warmup_steps=4, schedule="constant",
+               force_grads="direct", log_every_n_steps=1000, **LOSSES)
+    jt = JaxTrainer(jax_create_model("painn", **KW, remat=False), JaxConfig(n_dp=1, **cfg))
+    bad_arrays = dict(arrays, energy=np.full_like(arrays["energy"], np.nan))
+    seq = [arrays, bad_arrays, arrays, arrays]
+    jt.init_state(JaxBatch(**arrays))
+    params0 = jax.device_get(jt.state.params)
+    state = jt.state
+    for arrs in seq:
+        state, _ = jt._jit_train_step(state, JaxBatch(**arrs))
+    sched = [s for s in jax.tree_util.tree_leaves(
+        state.opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByScheduleState))
+        if isinstance(s, optax.ScaleByScheduleState)]
+    count = int(sched[0].count)
+    want = {n: p.detach() for n, p in _port_model(jax.device_get(state.params)).named_parameters()}
+
+    model = _port_model(params0)
+    trainer = Trainer(model, "cpu", TrainerConfig(**cfg))
+    skipped = [trainer._train_step(_tb(arrs))["skipped_nonfinite"] for arrs in seq]
+    assert skipped == [0.0, 1.0, 0.0, 0.0]
+    assert trainer.step == 4 and trainer.applied == count == 3
+    # the last update ran at 3/4 of the rate, as the JAX schedule's
+    assert trainer.optimizer.param_groups[0]["lr"] == pytest.approx(cfg["lr"] * count / 4)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
