@@ -176,13 +176,17 @@ F_TOL = dict(rtol=2e-3, atol=2e-4)
 GRAD_RTOL = 5e-3
 
 # Published dense peaks (NVIDIA data sheets, full power limit): fp32 FLOP/s
-# outside the tensor cores, and memory bytes/s.
+# outside the tensor cores, memory bytes/s, and TF32 FLOP/s on the tensor
+# cores (dense: half the sheets' figures with sparsity).
 PEAKS = {
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100 NVL": (60e12, 3.9e12),
-    "H100": (67e12, 3.35e12),  # SXM5 (e.g. "NVIDIA H100 80GB HBM3")
-    "H200": (67e12, 4.8e12),
+    "H100 PCIe": (51e12, 2.0e12, 378e12),
+    "H100 NVL": (60e12, 3.9e12, 417.5e12),
+    "H100": (67e12, 3.35e12, 494.5e12),  # SXM5 (e.g. "NVIDIA H100 80GB HBM3")
+    "H200": (67e12, 4.8e12, 494.5e12),
 }
+# the SO(2) product engine of M-P runs 3xTF32: three TF32 products per
+# fp32-accurate product
+TC_PASSES = 3
 
 
 def smoke_config(source: str, output_db: str, root: str, config: str = "painn-oc") -> dict:
@@ -324,10 +328,12 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def peaks(name: str):
+def peaks(name: str, tensor_cores: bool = False):
+    """(fp32 FLOP/s, bytes/s) of the card, and its TF32 FLOP/s with
+    `tensor_cores`."""
     for key, val in PEAKS.items():
         if key in name:
-            return val
+            return val if tensor_cores else val[:2]
     raise RuntimeError(f"no published fp32 / memory peak recorded for {name!r}")
 
 
@@ -407,6 +413,31 @@ def _kernel_row(shape, err, t_k, t_p, flops, nbytes, peak_flops, peak_bw, **extr
     return dict(shape=shape, **err, ms=t_k["median"], plain_ms=t_p["median"], bound_ms=b_ms,
                 bound_by=b_by, flops=flops, bytes=nbytes, roofline_share=b_ms / t_k["median"],
                 **extra)
+
+
+def tc_bound(work: dict, peak_flops: float, peak_bw: float, peak_tf32: float):
+    """The least time of an SO(2) kernel's work (M-P) with its products on the
+    tensor cores at the fp32-accurate 3xTF32 rate and the rest at the fp32
+    rate, or its bytes at the memory rate: (ms, "operations" or "bytes")."""
+    t_ops = (work["flops_live_products"] / (peak_tf32 / TC_PASSES)
+             + work["flops_live_other"] / peak_flops) * 1e3
+    t_bytes = work["bytes"] / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _so2_row(shape, err, t_k, t_p, work, card: str, **extra) -> dict:
+    """An M-P kernel line: `bound_ms` the tensor-core bound (the least time
+    for the same fp32-accurate work), `bound_fma_ms` the fp32 FMA one (the
+    bound of A-L), each with its share of the kernel's time."""
+    peak_flops, peak_bw, peak_tf32 = peaks(card, tensor_cores=True)
+    row = _kernel_row(shape, err, t_k, t_p, work["flops_live"], work["bytes"], peak_flops,
+                      peak_bw, **extra)
+    b_tc, by_tc = tc_bound(work, peak_flops, peak_bw, peak_tf32)
+    row.update(bound_fma_ms=row["bound_ms"], bound_fma_by=row["bound_by"],
+               roofline_share_fma=row["roofline_share"], bound_ms=b_tc, bound_by=by_tc,
+               roofline_share=b_tc / t_k["median"], flops_products=work["flops_live_products"],
+               flops_other=work["flops_live_other"])
+    return row
 
 
 def kernel_bucket(pf, dev, a: int, peak_flops: float, peak_bw: float):
@@ -499,12 +530,13 @@ def headline_rows(per: dict, kernels: dict, source: str, with_gw_split: tuple) -
     max_abs_err, the largest over all buckets; `per_bucket` holds each
     bucket's. `with_gw_split` kernels also carry their without-gW times."""
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "flops", "bytes", "roofline_share")
+    tc = ("bound_fma_ms", "bound_fma_by", "roofline_share_fma", "flops_products", "flops_other")
     keep_gw = ("ms_without_gw", "plain_ms_without_gw", "bound_ms_without_gw",
                "roofline_share_without_gw")
     rows = {}
     for k, (name, line) in kernels.items():
-        extra = keep_gw if k in with_gw_split else ()
         head = next(r for r in per[k] if r["shape"][1] == HEADLINE_A)
+        extra = (keep_gw if k in with_gw_split else ()) + (tc if "bound_fma_ms" in head else ())
         rows[k] = dict(
             name=name, route="cuda", source=f"nabladft_tpu_torch/csrc/{source}.cu",
             replaces=f"nabladft_tpu/ops/pallas/{source}.py:{line}",
@@ -1283,12 +1315,12 @@ def escn_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     versions (run ESCN_PLAIN_MOLS molecules at a time, timed over the whole
     batch): errors (checked), kernel / plain / bound times; N twice for the
     same bits. The bound counts the FLOP model's work of the live pairs (the
-    kernels skip the rest); `flops_all_pairs` is the model over all B·A²
-    pairs. Each row carries the kernels' registers, spills and shared memory
-    (ptxas)."""
+    kernels skip the rest): `bound_ms` with the products at the 3xTF32
+    tensor-core rate, `bound_fma_ms` all at the fp32 FMA rate (`tc_bound`);
+    `flops_all_pairs` is the model over all B·A² pairs. Each row carries
+    the kernels' registers, spills and shared memory (ptxas)."""
     from nabladft_tpu_torch.ops import escn_layer as el
 
-    peak_flops, peak_bw = peaks(card)
     fns = {"M": (el.escn_fwd, el.escn_fwd_reference), "N": (el.escn_bwd, el.escn_bwd_reference)}
     per = {k: [] for k in ESCN_KERNELS}
     for a in BUCKETS:
@@ -1316,8 +1348,8 @@ def escn_kernel_phases(dev, card: str, ptxas: dict) -> dict:
             t_k = time_ms(lambda: fn(*args, **kw))
             t_p = time_ms(plain)
             work = el.flops_bytes(k, x["x"], x["d"], x["xe"], x["ws"], **dims)
-            row = _kernel_row(shape, err, t_k, t_p, work["flops_live"], work["bytes"], peak_flops,
-                              peak_bw, flops_all_pairs=work["flops"], **extra)
+            row = _so2_row(shape, err, t_k, t_p, work, card, flops_all_pairs=work["flops"],
+                           **extra)
             emit(f"kernel_{k}", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k,
                  plain_times=t_p)
             per[k].append(row)
@@ -1379,6 +1411,40 @@ def _eqv2_args(inp, **over):
     return [t[k] for k in EQV2_ARGS] + t["ws"]
 
 
+def so2_products_phase(dev, card: str, inp: dict, rows: int) -> None:
+    """The product engine alone on P's largest product: conv 1's m=0 rows
+    [rows, 1792] (seeded, ~N(0, 0.5²)) times the block's w1 [1792, 1536],
+    over `rows` = the live edges; its error against float64, its time beside
+    one fp32 torch.matmul of the same rows (library_ms, TF32 off), the
+    achieved TFLOP/s and the fp32 FMA and 3xTF32 tensor-core bounds."""
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    peak_flops, peak_bw, peak_tf32 = peaks(card, tensor_cores=True)
+    w = inp["ws"][2]
+    k, n = w.shape
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn(rows, k, generator=g, device=dev) * 0.5
+    c = torch.empty(rows, n, device=dev)
+    probs = [dict(segs=[dict(a=a, b=w, k=k)], n=n, c=c)]
+    ea.so2_products(probs, rows)
+    ref = a.double() @ w.double()
+    err = compare((c,), (ref,))
+    check(err["max_rel_err"] <= KERNEL_RTOL, f"so2_products error: {err}")
+    del ref
+    t_k = time_ms(lambda: ea.so2_products(probs, rows))
+    t_l = time_ms(lambda: torch.matmul(a, w))
+    flops, nbytes = 2 * rows * k * n, 4 * (rows * k + k * n + rows * n)
+    t_bytes = nbytes / peak_bw * 1e3
+    emit("so2_products", rows=rows, k=k, n=n, **err, tolerance_rel=KERNEL_RTOL,
+         ms=t_k["median"], library_ms=t_l["median"], library="torch.matmul fp32 (TF32 off)",
+         tflops=flops / t_k["median"] / 1e9, library_tflops=flops / t_l["median"] / 1e9,
+         bound_tc_ms=max(flops / (peak_tf32 / TC_PASSES) * 1e3, t_bytes),
+         bound_fma_ms=max(flops / peak_flops * 1e3, t_bytes), flops=flops, bytes=nbytes,
+         kernel_times=t_k, library_times=t_l)
+    del a, c
+    torch.cuda.empty_cache()
+
+
 def eqv2_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels O and P at every shape the EquiformerV2 paths give them
     (B=BATCH, A in BUCKETS, configs/equiformer_v2.yaml widths), on
@@ -1387,11 +1453,11 @@ def eqv2_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     dropk ones (eval) and a seeded keep mask (train), P with the mask, every
     cotangent checked, twice for the same bits; kernel / plain / bound
     times. The bound counts the FLOP model's work of the live edges (the
-    kernels skip the rest); `flops_all_slots` is the model over all B·A·K
-    edge slots."""
+    kernels skip the rest), as M and N's does; `flops_all_slots` is the
+    model over all B·A·K edge slots. At A=HEADLINE_A also the engine alone
+    on P's largest product (`so2_products_phase`)."""
     from nabladft_tpu_torch.ops import eqv2_attn as ea
 
-    peak_flops, peak_bw = peaks(card)
     per = {k: [] for k in EQV2_KERNELS}
     for a in BUCKETS:
         inp = eqv2_kernel_inputs(dev, BATCH, a, seed=SEED + 4000 + a, drop=True)
@@ -1417,13 +1483,15 @@ def eqv2_kernel_phases(dev, card: str, ptxas: dict) -> dict:
                                                EQV2_PLAIN_MOLS))
         work = ea.flops_bytes("O", inp["x"], inp["idx"], inp["d"], inp["xe"], inp["maskf"],
                               inp["dropk"], inp["ws"], **dims)
-        row = _kernel_row(shape, errs["mask"], t_k, t_p, work["flops_live"], work["bytes"],
-                          peak_flops, peak_bw, flops_all_slots=work["flops"],
-                          max_rel_err_dropk_ones=errs["ones"]["max_rel_err"],
-                          max_rel_err_dropk_mask=errs["mask"]["max_rel_err"], **extra)
+        row = _so2_row(shape, errs["mask"], t_k, t_p, work, card, flops_all_slots=work["flops"],
+                       max_rel_err_dropk_ones=errs["ones"]["max_rel_err"],
+                       max_rel_err_dropk_mask=errs["mask"]["max_rel_err"], **extra)
         row["max_abs_err"] = max(errs["ones"]["max_abs_err"], errs["mask"]["max_abs_err"])
         emit("kernel_O", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
         per["O"].append(row)
+
+        if a == HEADLINE_A:
+            so2_products_phase(dev, card, inp, live)
 
         # P: every cotangent, run twice for the same bits
         got = ea.eqv2_bwd(*args, g=inp["g"], **dims)
@@ -1442,10 +1510,9 @@ def eqv2_kernel_phases(dev, card: str, ptxas: dict) -> dict:
                                                EQV2_PLAIN_MOLS))
         work = ea.flops_bytes("P", inp["x"], inp["idx"], inp["d"], inp["xe"], inp["maskf"],
                               inp["dropk"], inp["ws"], **dims)
-        row = _kernel_row(shape, err, t_k, t_p, work["flops_live"], work["bytes"], peak_flops,
-                          peak_bw, flops_all_slots=work["flops"], bit_identical_rerun=True,
-                          cotangents=["gx", "gxi", "gxe"] + ea.weight_names(dims["m_max"]),
-                          **extra)
+        row = _so2_row(shape, err, t_k, t_p, work, card, flops_all_slots=work["flops"],
+                       bit_identical_rerun=True,
+                       cotangents=["gx", "gxi", "gxe"] + ea.weight_names(dims["m_max"]), **extra)
         emit("kernel_P", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
         per["P"].append(row)
         del inp, args

@@ -1,4 +1,4 @@
-// Fused EquiformerV2 SO(2) graph attention for Hopper (sm_90a), fp32 FMA: kernels O and P.
+// Fused EquiformerV2 SO(2) graph attention for Hopper (sm_90a): kernels O and P.
 //
 // Kernel O replaces nabladft_tpu/ops/pallas/eqv2_attn.py `_fwd_kernel` (pallas_call in
 // `_run_fwd`); kernel P replaces `_bwd_kernel` (`_run_bwd`), the backward of the custom_vjp
@@ -28,14 +28,16 @@
 // What bounds them on the card: the SO(2) products and the radial product, ~32 of the
 // ~35.6 MFLOP per live edge at EquiformerV2's widths (L 6, M 2, C 128, CO 128, EC 384, NH 8,
 // VA 64; the JAX package's FLOP model without its one-hot gather): a batch of 64 molecules
-// at A=48 is ~3 TFLOP forward, so both kernels are bound by the fp32 FMA rate.
+// at A=48 is ~3 TFLOP forward. In fp32-accurate arithmetic that is the tensor cores' 3xTF32
+// rate (495 / 3 TFLOP/s on an H100 SXM), not the fp32 FMA rate (67).
 // What the design does about it:
 //   * The TPU kernel runs one program per block of receivers with their K-row blocks in
 //     VMEM, gathers neighbours with a one-hot matmul (Mosaic has no sublane gather) and
 //     reduces per head with 0/1 expander matmuls. None of that is carried over: the
-//     products run over ALL live edges of the batch at once (so2_common.cuh's 128 x 128
-//     tiled fp32 product, each weight tile feeding 128 edge rows), neighbours are gathered
-//     by index, and the per-head reductions are warp shuffles.
+//     products run over ALL live edges of the batch at once on so2_common.cuh's engine
+//     (3xTF32 wgmma, 128 x 128 tiles fed by TMA / cp.async through an mbarrier ring, each
+//     weight tile feeding 128 edge rows), neighbours are gathered by index, and the
+//     per-head reductions are warp shuffles.
 //   * A scan lists the live edges in (b, i, k) order on the card (no host sync); scratch
 //     is sized by the B·A·K edge slots, never by B·A². A receiver's edges are contiguous
 //     rows, so the softmax and the sum over k are per-receiver passes with no atomics.
@@ -44,11 +46,12 @@
 //     loops unrolled at compile time for L, M.
 //   * P recomputes the forward, then runs the transposes: the attention head per receiver,
 //     the transposed products per edge, the weight gradients as products over all live
-//     edges (a fixed split of the rows into SPL partial tiles, summed in a fixed order), and
-//     gx through the gather's transpose: a per-sender list of (i, k) built on the card by a
-//     counting sort per molecule, walked in order by a sender-owned kernel. No float
-//     atomics: P gives the same bits on every run.
-// Plain FMA only: no TF32, no tensor cores (the tolerance is 2e-5 of the output's scale).
+//     edges (a split of the rows sized from the tile count into partial tiles, summed in a
+//     fixed order), and gx through the gather's transpose: a per-sender list of (i, k)
+//     built on the card by a counting sort per molecule, walked in order by a sender-owned
+//     kernel. No float atomics: P gives the same bits on every run.
+// The products are fp32-accurate (3xTF32; the tolerance is 2e-5 of the output's scale), the
+// rest plain fp32 FMA.
 
 #include <cuda_runtime.h>
 
@@ -563,30 +566,30 @@ __global__ void __launch_bounds__(RT) eqv2_gx_kernel(
 // ---------------------------------------------------------------------------
 
 struct Bufs {
-  float *RAD, *FLAT, *HID, *EXT, *ACT, *VAL, *GVAL, *GACT, *GEXT, *LNG, *part;
+  float *RAD, *FLAT, *HID, *EXT, *ACT, *VAL, *GVAL, *GACT, *GEXT, *LNG;
   int *flags, *eidx, *pos, *rs, *n_rows, *slist, *sbeg, *scnt;
+  Engine en;
 };
 
-long long tiles(long long m, long long n) { return ((m + BM - 1) / BM) * ((n + BN - 1) / BN); }
-
-// partial tiles of the largest weight-gradient launch (conv 1's)
-long long part_floats(const Dims& D) {
-  long long t1 = tiles(D.RADW, D.n0 * D.CO) + tiles(D.RADW, D.EXTRA);
-  long long t2 = tiles(D.n0 * D.CO, D.n0 * D.CO);
-  long long t3 = tiles(D.EC, D.RADW) + tiles(1, D.RADW) + 3 * tiles(1, D.NX);
-  for (int m = 1; m <= D.M; ++m) {
-    t1 += 2 * tiles((long long)D.nl(m) * D.C2, (long long)D.nl(m) * D.CO);
-    t2 += 2 * tiles((long long)D.nl(m) * D.CO, (long long)D.nl(m) * D.CO);
-  }
-  return std::max(t1, std::max(t2, t3)) * SPL * BM * BN;
+// the weights' floats: the engine's TF32 halves take twice this
+long long weight_floats(const Dims& D) {
+  long long n = (long long)D.EC * D.RADW + D.RADW + (long long)D.RADW * D.W1N +
+                (long long)D.n0 * D.CO * D.n0 * D.CO + 3LL * D.NX;
+  for (int m = 1; m <= D.M; ++m)
+    n += 2LL * D.nl(m) * D.C2 * D.nl(m) * D.CO + 2LL * D.nl(m) * D.CO * D.nl(m) * D.CO;
+  return n;
 }
 
-// forward: RAD, FLAT (the values overwrite it), HID, EXT, ACT; backward adds VAL, GVAL,
-// GACT, GEXT, LNG and the partial tiles
+// partial floats of the weight-gradient launches (the column sums: b_rad, LayerNorm, alpha)
+long long part_floats(const Dims& D) { return part_bound(D.RADW + 3LL * D.NX); }
+
+// forward: RAD, FLAT (the values overwrite it), HID, EXT, ACT and the weights' halves;
+// backward adds VAL, GVAL, GACT, GEXT, LNG and the partial tiles
 long long scratch_floats(const Dims& D, bool bwd) {
   const long long fwd = D.RADW + D.FLAT + 2LL * D.HID + D.EXTRA;
-  if (!bwd) return D.E * fwd;
-  return D.E * (fwd + 3LL * D.HID + D.EXTRA + 3LL * D.NX) + part_floats(D);
+  const long long prep = 2 * weight_floats(D);
+  if (!bwd) return D.E * fwd + prep;
+  return D.E * (fwd + 3LL * D.HID + D.EXTRA + 3LL * D.NX) + prep + part_floats(D);
 }
 
 long long scratch_ints(int B, int A, int K) {
@@ -613,7 +616,6 @@ Bufs carve(const Dims& D, float* f, int* iw, bool bwd) {
     b.GACT = take(D.HID);
     b.GEXT = take(D.EXTRA);
     b.LNG = take(3LL * D.NX);
-    b.part = f;
   }
   b.flags = iw;
   b.eidx = iw + D.E;
@@ -623,6 +625,8 @@ Bufs carve(const Dims& D, float* f, int* iw, bool bwd) {
   b.n_rows = b.rs + (long long)D.B * D.A + 1;
   b.sbeg = b.n_rows + 1;
   b.scnt = b.sbeg + (long long)D.B * D.A;
+  const long long prep = 2 * weight_floats(D);
+  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0};
   return b;
 }
 
@@ -717,7 +721,7 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* xi, const
   NNProb prad = prob({seg(xe, D.EC, w[0], D.RADW, D.EC)}, D.RADW, EPI_GATES, bf.RAD, D.RADW);
   prad.gather = 1;
   prad.bias = w[1];
-  CK(launch_products(D.E, bf.n_rows, bf.eidx, {prad}, st));
+  CK(launch_products(bf.en, {prad}, st));
   eqv2_rotate_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
       x, xi, idx, d, bf.RAD, bf.rs, bf.eidx, bf.FLAT, D.A, D.C, D.KW);
   CK(cudaGetLastError());
@@ -729,13 +733,13 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* xi, const
   }
   std::vector<NNProb> c1;
   so2_conv(D, c1, bf.FLAT, D.C2, w[2], D.W1N, fc1, bf.HID, bf.EXT);
-  CK(launch_products(D.E, bf.n_rows, bf.eidx, c1, st));
+  CK(launch_products(bf.en, c1, st));
   eqv2_grid_kernel<L, M><<<edge_blocks(D), receiver_threads(D.CO), grid_smem(D), st>>>(
       bf.HID, bf.EXT + D.NX, tog, fromg, bf.ACT, bf.n_rows, D.CO, D.EXTRA, D.P);
   CK(cudaGetLastError());
   std::vector<NNProb> c2;
   so2_conv(D, c2, bf.ACT, D.CO, w[D.i_w2()], D.n0 * D.CO, fc2, bf.VAL, nullptr);
-  return launch_products(D.E, bf.n_rows, bf.eidx, c2, st);
+  return launch_products(bf.en, c2, st);
 }
 
 template <int L, int M>
@@ -782,10 +786,10 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* i
   // conv 2: weight gradients, then the activation's cotangent
   std::vector<TNProb> t2;
   so2_conv_w(D, t2, bf.ACT, bf.GVAL, nullptr, D.CO, D.n0 * D.CO, gw[D.i_w2()], gfc2);
-  CK(launch_wgrads(bf.n_rows, bf.eidx, bf.part, t2, st));
+  CK(launch_wgrads(bf.en, t2, st));
   std::vector<NNProb> p2;
   so2_conv_t(D, p2, bf.GVAL, nullptr, D.CO, w[D.i_w2()], D.n0 * D.CO, fc2, bf.GACT);
-  CK(launch_products(D.E, bf.n_rows, bf.eidx, p2, st));
+  CK(launch_products(bf.en, p2, st));
   // the grid activation (GACT becomes the hidden rows' cotangent, GEXT's gate columns filled)
   eqv2_grid_bwd_kernel<L, M><<<edge_blocks(D), receiver_threads(D.CO), grid_smem(D), st>>>(
       bf.HID, bf.EXT + D.NX, tog, fromg, bf.GACT, bf.GEXT + D.NX, bf.n_rows, D.CO, D.EXTRA, D.P);
@@ -793,24 +797,24 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* i
   // conv 1: weight gradients, then the scaled stack's cotangent in place of the stack
   std::vector<TNProb> t1;
   so2_conv_w(D, t1, bf.FLAT, bf.GACT, bf.GEXT, D.C2, D.W1N, gw[2], gfc1);
-  CK(launch_wgrads(bf.n_rows, bf.eidx, bf.part, t1, st));
+  CK(launch_wgrads(bf.en, t1, st));
   std::vector<NNProb> p1;
   so2_conv_t(D, p1, bf.GACT, bf.GEXT, D.C2, w[2], D.W1N, fc1, bf.FLAT);
-  CK(launch_products(D.E, bf.n_rows, bf.eidx, p1, st));
+  CK(launch_products(bf.en, p1, st));
   // radial scale and rotations (RAD becomes the radial scale's cotangent), gxi
   eqv2_rot_bwd_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
       x, xi, idx, d, bf.RAD, bf.FLAT, bf.rs, bf.eidx, gxi, D.A, D.C, D.KW);
   CK(cudaGetLastError());
   NNProb pxe = prob({seg(bf.RAD, D.RADW, w[0], D.RADW, D.RADW, true)}, D.EC, EPI_STORE, gxe, D.EC);
   pxe.scatter = 1;
-  CK(launch_products(D.E, bf.n_rows, bf.eidx, {pxe}, st));
+  CK(launch_products(bf.en, {pxe}, st));
   std::vector<TNProb> t3;
   t3.push_back(tprob({TSeg{xe, bf.RAD, D.EC, D.RADW, 1.f}}, A_GATHER, D.EC, D.RADW, gw[0], D.RADW));
   t3.push_back(tprob({TSeg{nullptr, bf.RAD, 0, D.RADW, 1.f}}, A_ONES, 1, D.RADW, gw[1], D.RADW));
   for (int q = 0; q < 3; ++q)
     t3.push_back(tprob({TSeg{nullptr, bf.LNG + q * D.NX, 0, 3 * D.NX, 1.f}}, A_ONES, 1, D.NX,
                        gw[il + q], D.NX));
-  CK(launch_wgrads(bf.n_rows, bf.eidx, bf.part, t3, st));
+  CK(launch_wgrads(bf.en, t3, st));
   // gx through the gather's transpose: the per-sender lists, then the sender-owned sums
   const int lt = (D.A + 31) / 32 * 32;
   eqv2_sender_list_kernel<<<D.B, lt, sizeof(int) * lt, st>>>(idx, bf.flags, bf.slist, bf.sbeg,
@@ -827,6 +831,38 @@ bool valid(const Dims& D) {
   return supported(D.L, D.M) && D.C % 8 == 0 && D.CO % 8 == 0 && D.EC % 8 == 0 &&
          D.NX % 8 == 0 && D.NH > 0 && D.CO % D.NH == 0 && D.VA <= 32 * VPL && D.A <= 1024 &&
          D.E < (1LL << 31);
+}
+
+// so2_wgrads_probe's arrays hold 1 or 2 segments and a known A mode per problem
+bool probe_valid(int np, const int* ints) {
+  for (int q = 0; q < np; ++q) {
+    const int* I = ints + q * 11;
+    if (I[0] < 1 || I[0] > 2 || I[1] < A_ROWS || I[1] > A_ONES) return false;
+  }
+  return true;
+}
+
+// the weight-gradient problems of so2_wgrads_probe's arrays (ptrs null: shapes only)
+std::vector<TNProb> probe_tprobs(int np, const int* ints, const void* const* ptrs) {
+  std::vector<TNProb> probs;
+  for (int q = 0; q < np; ++q) {
+    const int* I = ints + q * 11;
+    const void* const* Q = ptrs ? ptrs + q * 5 : nullptr;
+    TNProb p{};
+    p.nseg = I[0];  // 1 or 2: the callers check
+    p.amode = I[1];
+    p.m = I[2];
+    p.n = I[3];
+    p.ldo = I[4];
+    p.out = Q ? (float*)Q[0] : nullptr;
+    for (int s = 0; s < p.nseg; ++s) {
+      const int* J = I + 5 + 3 * s;
+      p.seg[s] = TSeg{Q ? (const float*)Q[1 + 2 * s] : nullptr,
+                      Q ? (const float*)Q[2 + 2 * s] : nullptr, J[0], J[1], (float)J[2]};
+    }
+    probs.push_back(p);
+  }
+  return probs;
 }
 
 }  // namespace
@@ -873,6 +909,59 @@ int eqv2_bwd(const float* x, const float* xi, const int* idx, const float* d, co
   if (B == 0 || A == 0 || K == 0) return 0;
   return (int)run_bwd<6, 2>(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, g, gx, gxi, gxe,
                             gw, scratch, iscratch, static_cast<cudaStream_t>(stream));
+}
+
+// The product engine on one caller-given problem list (its card test and chip_smoke's
+// so2_products line). Rows 0..*n_rows-1 of max_rows, row list eidx (gather / scatter).
+// Per problem, 8 + 5 MAXSEG ints: nseg, gather, scatter, epi, n, ldc, ldc2, ldg, then per
+// segment (MAXSEG slots) lda, ldb, k, btrans, sign (+1 / -1); 4 + 2 MAXSEG pointers: c, c2,
+// bias, gate, then per segment a, b. prep: 2 * sum of n * k floats over the segments.
+int so2_products_probe(int np, const int* ints, const void* const* ptrs, long long max_rows,
+                       const int* n_rows, const int* eidx, float* prep, long long prep_floats,
+                       void* stream) {
+  std::vector<NNProb> probs;
+  for (int q = 0; q < np; ++q) {
+    const int* I = ints + q * (8 + 5 * MAXSEG);
+    const void* const* Q = ptrs + q * (4 + 2 * MAXSEG);
+    NNProb p{};
+    p.nseg = I[0];
+    if (p.nseg < 1 || p.nseg > MAXSEG) return (int)cudaErrorInvalidValue;
+    p.gather = I[1];
+    p.scatter = I[2];
+    p.epi = I[3];
+    p.n = I[4];
+    p.ldc = I[5];
+    p.ldc2 = I[6];
+    p.ldg = I[7];
+    p.c = (float*)Q[0];
+    p.c2 = (float*)Q[1];
+    p.bias = (const float*)Q[2];
+    p.gate = (const float*)Q[3];
+    for (int s = 0; s < p.nseg; ++s) {
+      const int* J = I + 8 + 5 * s;
+      p.seg[s] = seg((const float*)Q[4 + 2 * s], J[0], (const float*)Q[5 + 2 * s], J[1], J[2],
+                     J[3] != 0, (float)J[4]);
+    }
+    probs.push_back(p);
+  }
+  const Engine en{max_rows, n_rows, eidx, prep, prep_floats, nullptr, 0};
+  return (int)launch_products(en, probs, static_cast<cudaStream_t>(stream));
+}
+
+// Weight gradients on one caller-given problem list. Per problem, 11 ints:
+// nseg, amode (0 rows, 1 gather, 2 ones), m, n, ldo, then per segment (2 slots) lda, ldb,
+// sign; 5 pointers: out, then per segment a, b. part: so2_wgrads_part_floats.
+long long so2_wgrads_part_floats(int np, const int* ints, long long max_rows) {
+  if (!probe_valid(np, ints)) return -1;
+  return wgrad_part_floats(max_rows, probe_tprobs(np, ints, nullptr));
+}
+
+int so2_wgrads_probe(int np, const int* ints, const void* const* ptrs, long long max_rows,
+                     const int* n_rows, const int* eidx, float* part, long long part_floats,
+                     void* stream) {
+  if (!probe_valid(np, ints)) return (int)cudaErrorInvalidValue;
+  const Engine en{max_rows, n_rows, eidx, nullptr, 0, part, part_floats};
+  return (int)launch_wgrads(en, probe_tprobs(np, ints, ptrs), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// Fused eSCN message layer for Hopper (sm_90a), fp32 FMA: kernels M and N.
+// Fused eSCN message layer for Hopper (sm_90a): kernels M and N.
 //
 // Kernel M replaces nabladft_tpu/ops/pallas/escn_layer.py `_fwd_kernel` (pallas_call in
 // `_run_fwd`); kernel N replaces `_bwd_kernel` (`_run_bwd`), the backward of the custom_vjp
@@ -17,16 +17,17 @@
 //
 // What bounds them on the card: the SO(2) products, ~13 of the ~14.6 MFLOP per live pair
 // at L=6, M=2, C=128, H=256, EC=128 (the JAX package's FLOP model). A train step of 16
-// molecules at A=48 is some 3 TFLOP in M and N: both are bound by the fp32 FMA rate.
+// molecules at A=48 is some 3 TFLOP in M and N. In fp32-accurate arithmetic that is the
+// tensor cores' 3xTF32 rate (495 / 3 TFLOP/s on an H100 SXM), not the fp32 FMA rate (67).
 // What the design does about it:
 //   * The Pallas kernel runs one program per receiver with its [A, .] rows in VMEM and its
 //     weights (16.5 MB) resident. A Hopper block has 227 KB, and a receiver has at most
 //     40 live rows, so a per-receiver product would read each weight tile for <= 40 rows.
-//     Here the products run over ALL live pairs of the batch at once: a tiled shared-memory
-//     fp32 product (128 x 128 tiles, 8 x 8 outputs a thread, register-blocked FMA) over
-//     [E_live, K] x [K, N], so each weight tile feeds 128 pair rows. The per-pair rows
-//     (rotated inputs, gates, hidden) pass through device memory: ~15k floats a pair
-//     forward, ~10 % of the products' time at the fp32 rate.
+//     Here the products run over ALL live pairs of the batch at once on so2_common.cuh's
+//     engine: 3xTF32 wgmma over [E_live, K] x [K, N] in 128 x 128 tiles, fed by TMA and
+//     cp.async through an mbarrier ring, so each weight tile feeds 128 pair rows. The
+//     per-pair rows (rotated inputs, gates, hidden) pass through device memory: ~15k floats
+//     a pair forward.
 //   * One product kernel serves every matrix of the layer: a launch takes a list of
 //     problems, each a sum of up to four segments A_k B_k (sign, B read as [K,N] or
 //     transposed), with the gate multiply, bias + silu, or a row scatter in its epilogue.
@@ -38,12 +39,12 @@
 //   * Rotation, grid activation and the sum over j are per receiver (one block each, one
 //     thread a channel, the stacks in registers, loops unrolled at compile time for L, M).
 //   * N recomputes the forward products, then the transposed products per pair, and the
-//     weight gradients as products over all live pairs: each a fixed split of the pair
-//     rows into SPL partial tiles, summed in a fixed order. gx is a sum over receivers:
-//     a sender-owned kernel walks the pairs (i, a) in order of i, then the receiver's own
-//     pairs (a, j). No float atomics: N gives the same bits on every run.
-// Plain FMA only: no TF32, no tensor cores (the tolerance is 2e-5 of the output's scale).
-// The products, the weight-gradient partials, the scan and the m-major row tables are in
+//     weight gradients as products over all live pairs: each a split of the pair rows
+//     sized from the tile count into partial tiles, summed in a fixed order. gx is a sum
+//     over receivers: a sender-owned kernel walks the pairs (i, a) in order of i, then the
+//     receiver's own pairs (a, j). No float atomics: N gives the same bits on every run.
+// The products are fp32-accurate (3xTF32; the tolerance is 2e-5 of the output's scale), the
+// rest plain fp32 FMA. The engine, the scan and the m-major row tables are in
 // so2_common.cuh, shared with kernels O and P (csrc/eqv2_attn.cu).
 
 #include <cuda_runtime.h>
@@ -245,7 +246,7 @@ __global__ void __launch_bounds__(RT) escn_gx_kernel(
 
 // kernel N: the gate cotangents, in place of the gate pre-activations z:
 // gg * silu'(z), gg = gh0 * f1 (m=0), gh_r(+m) hr(+m) + gh_r(-m) hr(-m) (and i alike)
-__global__ void __launch_bounds__(GT) escn_gate_grad_kernel(
+__global__ void __launch_bounds__(256) escn_gate_grad_kernel(
     const float* __restrict__ gh0, const float* __restrict__ gh1, const float* __restrict__ hd0,
     const float* __restrict__ hd1, float* __restrict__ z0, float* __restrict__ z1,
     const int* __restrict__ n_rows, int H, int M) {
@@ -328,24 +329,27 @@ W stream_weights(const Dims& D, const float* const* w, int s) {
 }
 
 struct Bufs {
-  float *F[2], *Z[2], *Gt[2], *Hd[2], *Hg[2], *GM, *GH[2], *GHID[2], *part;
+  float *F[2], *Z[2], *Gt[2], *Hd[2], *Hg[2], *GM, *GH[2], *GHID[2];
   int *flags, *eidx, *pos, *rs, *n_rows;
+  Engine en;
 };
 
-long long part_floats(const Dims& D) {
-  // the largest weight-gradient launch: one stream's problems
-  auto tiles = [](long long m, long long n) { return ((m + BM - 1) / BM) * ((n + BN - 1) / BN); };
-  long long t = tiles(D.EC, D.G) + tiles(1, D.G) + tiles(D.n0, D.H) + tiles(D.H, D.n0);
-  for (int m = 1; m <= D.M; ++m)
-    t += tiles((long long)D.nl(m) * D.C, 2 * D.H) + 2 * tiles(D.H, (long long)D.nl(m) * D.C);
-  return t * SPL * BM * BN;
+// the weights' floats (both streams): the engine's TF32 halves take twice this
+long long weight_floats(const Dims& D) {
+  long long n = (long long)D.EC * D.G + D.G + 2LL * D.n0 * D.H;
+  for (int m = 1; m <= D.M; ++m) n += 4LL * D.nl(m) * D.C * D.H;
+  return 2 * n;
 }
 
-// forward: F[2] [E,STC], Gt[2] [E,G], Hg[2] [E,Hw] (the message overwrites F[0]);
-// backward adds Z[2], Hd[2], GH[2], GHID[2], GM and the partial tiles
+// partial floats of the weight-gradient launches (the column sums: one stream's bg)
+long long part_floats(const Dims& D) { return part_bound(D.G); }
+
+// forward: F[2] [E,STC], Gt[2] [E,G], Hg[2] [E,Hw] (the message overwrites F[0]) and the
+// weights' halves; backward adds Z[2], Hd[2], GH[2], GHID[2], GM and the partial tiles
 long long scratch_floats(const Dims& D, bool bwd) {
-  if (!bwd) return D.E * (2LL * D.STC + 2LL * D.G + 2LL * D.Hw);
-  return D.E * (3LL * D.STC + 4LL * D.G + 8LL * D.Hw) + part_floats(D);
+  const long long prep = 2 * weight_floats(D);
+  if (!bwd) return D.E * (2LL * D.STC + 2LL * D.G + 2LL * D.Hw) + prep;
+  return D.E * (3LL * D.STC + 4LL * D.G + 8LL * D.Hw) + prep + part_floats(D);
 }
 
 long long scratch_ints(int B, int A) { return 3LL * B * A * A + (long long)B * A + 2; }
@@ -373,13 +377,14 @@ Bufs carve(const Dims& D, float* f, int* iw, bool bwd) {
     b.GHID[0] = take(D.Hw);
     b.GHID[1] = take(D.Hw);
     b.GM = take(D.STC);
-    b.part = f;
   }
   b.flags = iw;
   b.eidx = iw + D.E;
   b.pos = iw + 2 * D.E;
   b.rs = iw + 3 * D.E;
   b.n_rows = b.rs + (long long)D.B * D.A + 1;
+  const long long prep = 2 * weight_floats(D);
+  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0};
   return b;
 }
 
@@ -411,7 +416,7 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* d, const 
     p.bias = ws[s].bg;
     gates.push_back(p);
   }
-  if ((err = launch_products(D.E, bf.n_rows, bf.eidx, gates, st)) != cudaSuccess) return err;
+  if ((err = launch_products(bf.en, gates, st)) != cudaSuccess) return err;
 
   std::vector<NNProb> hidden;
   for (int s = 0; s < 2; ++s) {
@@ -430,7 +435,7 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* d, const 
       }
     }
   }
-  if ((err = launch_products(D.E, bf.n_rows, bf.eidx, hidden, st)) != cudaSuccess) return err;
+  if ((err = launch_products(bf.en, hidden, st)) != cudaSuccess) return err;
 
   // the message of both streams: m=0 rows, then per m: rp - im and rm + ip
   std::vector<NNProb> out;
@@ -450,7 +455,7 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* d, const 
                         seg(bf.Hg[1] + hp + H, Hw, ws[1].w2i[m - 1], nlc, H)},
                        nlc, EPI_STORE, msg + D.span_m(m) * C, STC));
   }
-  return launch_products(D.E, bf.n_rows, bf.eidx, out, st);
+  return launch_products(bf.en, out, st);
 }
 
 size_t grid_smem(const Dims& D) { return sizeof(float) * 2 * (size_t)D.P * D.ST; }
@@ -503,12 +508,12 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* d, const float* 
                               bf.GH[s] + hm + H, Hw, bf.GHID[s] + hm + H, Hw), gi, G));
     }
   }
-  if ((err = launch_products(D.E, bf.n_rows, bf.eidx, gh, st)) != cudaSuccess) return err;
+  if ((err = launch_products(bf.en, gh, st)) != cudaSuccess) return err;
 
   {
     const long long n = D.E * G;
-    const unsigned blocks = (unsigned)std::min<long long>((n + GT - 1) / GT, 4096);
-    escn_gate_grad_kernel<<<dim3(blocks, 2), GT, 0, st>>>(bf.GH[0], bf.GH[1], bf.Hd[0], bf.Hd[1],
+    const unsigned blocks = (unsigned)std::min<long long>((n + 255) / 256, 4096);
+    escn_gate_grad_kernel<<<dim3(blocks, 2), 256, 0, st>>>(bf.GH[0], bf.GH[1], bf.Hd[0], bf.Hd[1],
                                                           bf.Z[0], bf.Z[1], bf.n_rows, H, D.M);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -518,7 +523,7 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* d, const float* 
   NNProb pxe = prob({seg(gz[0], G, ws[0].wg, G, G, true), seg(gz[1], G, ws[1].wg, G, G, true)},
                     D.EC, EPI_STORE, gxe, D.EC);
   pxe.scatter = 1;
-  if ((err = launch_products(D.E, bf.n_rows, bf.eidx, {pxe}, st)) != cudaSuccess) return err;
+  if ((err = launch_products(bf.en, {pxe}, st)) != cudaSuccess) return err;
 
   // weight gradients, one launch per stream
   for (int s = 0; s < 2; ++s) {
@@ -548,7 +553,7 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* d, const float* 
                           TSeg{bf.Hg[s] + hm + H, bf.GM + sp, Hw, STC, -1.f}},
                          A_ROWS, H, nlc, gw2i, nlc));
     }
-    if ((err = launch_wgrads(bf.n_rows, bf.eidx, bf.part, tp, st)) != cudaSuccess) return err;
+    if ((err = launch_wgrads(bf.en, tp, st)) != cudaSuccess) return err;
   }
 
   // the rotated stacks' cotangents, in place of the stacks (spent by the weight gradients)
@@ -564,7 +569,7 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* d, const float* 
                         nlc, EPI_STORE, F + D.span_m(m) * C, STC));
     }
   }
-  if ((err = launch_products(D.E, bf.n_rows, bf.eidx, gf, st)) != cudaSuccess) return err;
+  if ((err = launch_products(bf.en, gf, st)) != cudaSuccess) return err;
 
   escn_gx_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(bf.F[0], bf.F[1], d, bf.pos,
                                                                      gx, D.A, D.C, D.K);

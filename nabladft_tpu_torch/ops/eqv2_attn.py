@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +49,7 @@ from nabladft_tpu_torch.ops.escn_layer import (
 from nabladft_tpu_torch.ops.graph import gather_nodes
 
 # launches of each CUDA kernel wrapper since the last reset
-LAUNCHES: Dict[str, int] = {"eqv2_fwd": 0, "eqv2_bwd": 0}
+LAUNCHES: Dict[str, int] = {"eqv2_fwd": 0, "eqv2_bwd": 0, "so2_products": 0, "so2_wgrads": 0}
 
 LN_EPS = 1e-6
 
@@ -64,11 +64,11 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def edge_fwd_flops(c2: int, co: int, ec: int, l_max: int, m_max: int, n_grid: int, nh: int,
-                   va: int) -> int:
-    """`attn_fwd_flops` of one edge without its one-hot gather term (the
-    kernels gather by index); the backward counts 2.6 × this, as
-    `attn_bwd_flops` does."""
+def edge_fwd_flops_split(c2: int, co: int, ec: int, l_max: int, m_max: int, n_grid: int,
+                         nh: int, va: int) -> Tuple[int, int]:
+    """`edge_fwd_flops` as (products, other): the radial product and the two
+    SO(2) convs (the product engine's work, on the tensor cores), and the
+    rotations, the grid activation and the attention head."""
     st, n0, rot = s_trunc(l_max, m_max), l_max + 1, _rot_macs(l_max, m_max)
     so2_1 = 2 * (n0 * c2) * (n0 * co + nh * va + co)
     so2_2 = 2 * (n0 * co) * (n0 * co)
@@ -76,8 +76,17 @@ def edge_fwd_flops(c2: int, co: int, ec: int, l_max: int, m_max: int, n_grid: in
         n_l = l_max + 1 - m
         so2_1 += 2 * 2 * (n_l * c2) * (2 * n_l * co)
         so2_2 += 2 * 2 * (n_l * co) * (2 * n_l * co)
-    return (2 * rot * (c2 // 2) * 2 + 2 * ec * (n0 * c2) + so2_1 + so2_2
-            + 2 * 2 * n_grid * st * co + 2 * nh * va * 6 + 2 * rot * co)
+    products = 2 * ec * (n0 * c2) + so2_1 + so2_2
+    other = 2 * rot * (c2 // 2) * 2 + 2 * 2 * n_grid * st * co + 2 * nh * va * 6 + 2 * rot * co
+    return products, other
+
+
+def edge_fwd_flops(c2: int, co: int, ec: int, l_max: int, m_max: int, n_grid: int, nh: int,
+                   va: int) -> int:
+    """`attn_fwd_flops` of one edge without its one-hot gather term (the
+    kernels gather by index); the backward counts 2.6 × this, as
+    `attn_bwd_flops` does."""
+    return sum(edge_fwd_flops_split(c2, co, ec, l_max, m_max, n_grid, nh, va))
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +201,13 @@ def _lib() -> ctypes.CDLL:
     lib.eqv2_fwd.restype = i
     lib.eqv2_bwd.argtypes = [p] * 7 + [pp] + [p] * 6 + [pp] + [p] * 2 + [i] * 12 + [p]
     lib.eqv2_bwd.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.so2_products_probe.argtypes = [i, ip, pp, ll, p, p, p, ll, p]
+    lib.so2_products_probe.restype = i
+    lib.so2_wgrads_part_floats.argtypes = [i, ip, ll]
+    lib.so2_wgrads_part_floats.restype = ll
+    lib.so2_wgrads_probe.argtypes = [i, ip, pp, ll, p, p, p, ll, p]
+    lib.so2_wgrads_probe.restype = i
     return lib
 
 
@@ -341,16 +357,203 @@ def flops_bytes(kind: str, x, idx, d, xe, maskf, dropk, ws: Sequence[torch.Tenso
     JAX package's FLOP model (without its one-hot gather) over all B·A·K
     edge slots, "flops_live" the same model per edge times the live edges
     (the kernels skip the others, and the bound counts what the data needs),
-    and "bytes" with each input read once and each output written once."""
+    "flops_live_products" / "flops_live_other" its split (the product
+    engine's work and the rest; `edge_fwd_flops_split`), and "bytes" with each
+    input read once and each output written once."""
     b, a, s, c = x.shape
     k = idx.shape[2]
     co, va = _dims(ws, l_max, m_max, nh)
-    per = edge_fwd_flops(2 * c, co, xe.shape[-1], l_max, m_max, n_grid, nh, va)
-    if kind == "P":
-        per = 2.6 * per
+    prod, other = edge_fwd_flops_split(2 * c, co, xe.shape[-1], l_max, m_max, n_grid, nh, va)
+    per = prod + other
+    scale = 2.6 if kind == "P" else 1.0
+    per, prod, other = scale * per, scale * prod, scale * other
     n_w = sum(w.numel() for w in ws)
     ins = 2 * x.numel() + idx.numel() + d.numel() + xe.numel() + maskf.numel() + dropk.numel() + n_w
     agg = b * a * s * co
     nbytes = 4 * (ins + agg if kind == "O" else ins + agg + 2 * x.numel() + xe.numel() + n_w)
-    return {"flops": int(per * b * a * k), "flops_live": int(per * live_edges(maskf)),
+    live = live_edges(maskf)
+    return {"flops": int(per * b * a * k), "flops_live": int(per * live),
+            "flops_live_products": int(prod * live), "flops_live_other": int(other * live),
             "bytes": nbytes}
+
+
+# ---------------------------------------------------------------------------
+# the SO(2) product engine of kernels M-P on one problem list
+# ---------------------------------------------------------------------------
+
+EPILOGUES = {"store": 0, "gates": 1, "gated": 2}
+WGRAD_MODES = {"rows": 0, "gather": 1, "ones": 2}
+MAXSEG = 4  # so2_common.cuh's segments per product
+
+
+def _rows(t: torch.Tensor, rows: int = 0, cols: int = 0) -> tuple:
+    """(pointer, row stride) of a float32 2-D view with unit column stride and
+    at least `rows` x `cols` elements."""
+    if t.ndim != 2 or t.stride(1) != 1 or t.dtype != torch.float32:
+        raise ValueError(f"expected a float32 2-D view with unit column stride, got "
+                         f"{t.dtype} strides {tuple(t.stride())}")
+    if t.shape[0] < rows or t.shape[1] < cols:
+        raise ValueError(f"a view of shape {tuple(t.shape)} is smaller than {rows} x {cols}")
+    return t.data_ptr(), t.stride(0)
+
+
+def _row_list(eidx, n_rows: int, dev) -> torch.Tensor:
+    if eidx is None:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    if eidx.dtype != torch.int32 or eidx.device != dev or eidx.ndim != 1 or eidx.numel() < n_rows:
+        raise ValueError(f"eidx must be an int32 vector of >= {n_rows} rows on {dev}")
+    return eidx.contiguous()
+
+
+def so2_products_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
+    """Plain version of `so2_products`: the same sums in the inputs' dtype."""
+    rows = torch.arange(n_rows, device=problems[0]["segs"][0]["a"].device)
+    live = eidx[:n_rows].long() if eidx is not None else rows
+    for p in problems:
+        n = p["n"]
+        acc = 0
+        for sg in p["segs"]:
+            a = sg["a"][live if p.get("gather") else rows, :sg["k"]]
+            b = sg["b"][:n, :sg["k"]].T if sg.get("btrans") else sg["b"][:sg["k"], :n]
+            acc = acc + sg.get("sign", 1.0) * (a @ b)
+        out = live if p.get("scatter") else rows
+        epi = p.get("epi", "store")
+        if epi == "gates":
+            acc = acc + p["bias"][:n]
+            if p.get("c") is not None:
+                p["c"][out, :n] = acc
+            if p.get("c2") is not None:
+                p["c2"][out, :n] = F.silu(acc)
+        else:
+            if p.get("c") is not None:
+                p["c"][out, :n] = acc
+            if epi == "gated" and p.get("c2") is not None:
+                p["c2"][out, :n] = acc * p["gate"][rows, :n]
+
+
+def so2_products(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
+    """C[e, n] = Σ_seg sign · A[row(e), :k] B over the rows e < n_rows, in
+    place, with the engine of so2_common.cuh (3xTF32 on the tensor cores) on
+    card tensors, or the plain version on CPU tensors. A problem: "segs"
+    (up to 4 dicts: "a" a 2-D view with rows of K, "b" [K, N] or, with
+    "btrans", [N, K], "k", "sign" ±1), "n", "epi" ("store", "gates": c = acc
+    + bias and c2 = silu of it, "gated": c = acc and c2 = acc · gate[e]), the
+    2-D output views "c" / "c2", "bias", "gate", and "gather" (A's row
+    eidx[e]) / "scatter" (C's row eidx[e]). Views have unit column stride;
+    K a multiple of 8, N of 4, rows 16-byte aligned."""
+    dev = problems[0]["segs"][0]["a"].device
+    if dev.type == "cpu":
+        so2_products_reference(problems, n_rows, eidx)
+        return
+    max_rows = problems[0]["segs"][0]["a"].shape[0]
+    if not 0 <= n_rows <= max_rows:
+        raise ValueError(f"n_rows {n_rows} outside 0..{max_rows}")
+    ev = _row_list(eidx, n_rows, dev)
+    ints, ptrs, prep, keep = [], [], 0, []
+    for p in problems:
+        segs, n = p["segs"], p["n"]
+        if not 1 <= len(segs) <= MAXSEG:
+            raise ValueError(f"a problem takes 1 to {MAXSEG} segments, got {len(segs)}")
+        out_rows = 0 if p.get("scatter") else n_rows  # scattered rows: eidx's, the caller's
+        c, ldc = _rows(p["c"], out_rows, n) if p.get("c") is not None else (0, 0)
+        c2, ldc2 = _rows(p["c2"], out_rows, n) if p.get("c2") is not None else (0, 0)
+        gate, ldg = _rows(p["gate"], n_rows, n) if p.get("gate") is not None else (0, 0)
+        bias = 0
+        if p.get("bias") is not None:
+            keep.append(p["bias"].contiguous())
+            bias = _rows(keep[-1][None, :], 1, n)[0]
+        ints += [len(segs), int(bool(p.get("gather"))), int(bool(p.get("scatter"))),
+                 EPILOGUES[p.get("epi", "store")], p["n"], ldc, ldc2, ldg]
+        ptrs += [c, c2, bias, gate]
+        for sg in list(segs) + [None] * (MAXSEG - len(segs)):
+            if sg is None:
+                ints += [0] * 5
+                ptrs += [0, 0]
+                continue
+            k = sg["k"]
+            # A's rows come by TMA over max_rows unless gathered (then eidx's, the caller's)
+            a, lda = _rows(sg["a"], 0 if p.get("gather") else max_rows, k)
+            b, ldb = _rows(sg["b"], *((n, k) if sg.get("btrans") else (k, n)))
+            if sg["a"].device != dev or sg["b"].device != dev:
+                raise ValueError(f"every tensor must be on {dev}")
+            ints += [lda, ldb, k, int(bool(sg.get("btrans"))), int(sg.get("sign", 1))]
+            ptrs += [a, b]
+            prep += 2 * p["n"] * sg["k"]
+    nr = torch.tensor([n_rows], dtype=torch.int32, device=dev)
+    scratch = torch.empty(prep, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.so2_products_probe(len(problems), (ctypes.c_int * len(ints))(*ints),
+                                     (ctypes.c_void_p * len(ptrs))(*ptrs), max_rows,
+                                     nr.data_ptr(), ev.data_ptr(), scratch.data_ptr(), prep,
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.raise_on_error(err, "so2_products_probe")
+    LAUNCHES["so2_products"] += 1
+
+
+def so2_wgrads_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
+    """Plain version of `so2_wgrads`."""
+    rows = torch.arange(n_rows, device=problems[0]["out"].device)
+    for p in problems:
+        m, n, mode = p["m"], p["n"], p.get("amode", "rows")
+        acc = 0
+        for sg in p["segs"]:
+            b = sg["b"][rows, :n]
+            if mode == "ones":
+                term = b.sum(dim=0, keepdim=True)
+            else:
+                a = sg["a"][eidx[:n_rows].long() if mode == "gather" else rows, :m]
+                term = a.T @ b
+            acc = acc + sg.get("sign", 1.0) * term
+        p["out"][:m, :n] = acc
+
+
+def so2_wgrads(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
+    """out[m, n] = Σ_seg sign · Σ_{e < n_rows} A[row(e), m] B[e, n], in place,
+    with the engine's weight-gradient path on card tensors (the same bits
+    every run), or the plain version on CPU tensors. A problem: "segs" (1
+    or 2 dicts: "a" and "b" 2-D views [rows, .], "sign" ±1), "amode"
+    ("rows", "gather": A's row eidx[e], "ones": A = 1 and m = 1), "m", "n"
+    and the 2-D view "out"."""
+    dev = problems[0]["out"].device
+    if dev.type == "cpu":
+        so2_wgrads_reference(problems, n_rows, eidx)
+        return
+    max_rows = problems[0]["segs"][0]["b"].shape[0]
+    if not 0 <= n_rows <= max_rows:
+        raise ValueError(f"n_rows {n_rows} outside 0..{max_rows}")
+    ev = _row_list(eidx, n_rows, dev)
+    ints, ptrs = [], []
+    for p in problems:
+        segs, mode = p["segs"], p.get("amode", "rows")
+        if not 1 <= len(segs) <= 2:
+            raise ValueError(f"a weight-gradient problem takes 1 or 2 segments, got {len(segs)}")
+        out, ldo = _rows(p["out"], p["m"], p["n"])
+        if p["out"].device != dev:
+            raise ValueError(f"every tensor must be on {dev}")
+        ints += [len(segs), WGRAD_MODES[mode], p["m"], p["n"], ldo]
+        ptrs += [out]
+        for sg in list(segs) + [None] * (2 - len(segs)):
+            if sg is None:
+                ints += [0, 0, 1]
+                ptrs += [0, 0]
+                continue
+            # B's rows (and A's unless gathered) come by TMA / cp.async over max_rows
+            a, lda = (0, 0) if mode == "ones" else _rows(
+                sg["a"], 0 if mode == "gather" else max_rows, p["m"])
+            b, ldb = _rows(sg["b"], max_rows, p["n"])
+            if sg["b"].device != dev or (mode != "ones" and sg["a"].device != dev):
+                raise ValueError(f"every tensor must be on {dev}")
+            ints += [lda, ldb, int(sg.get("sign", 1))]
+            ptrs += [a, b]
+    lib = _lib()
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    part = torch.empty(lib.so2_wgrads_part_floats(len(problems), c_ints, max_rows),
+                       dtype=torch.float32, device=dev)
+    nr = torch.tensor([n_rows], dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.so2_wgrads_probe(len(problems), c_ints, (ctypes.c_void_p * len(ptrs))(*ptrs),
+                                   max_rows, nr.data_ptr(), ev.data_ptr(), part.data_ptr(),
+                                   part.numel(), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.raise_on_error(err, "so2_wgrads_probe")
+    LAUNCHES["so2_wgrads"] += 1

@@ -207,14 +207,19 @@ def _so2_matmul_flops(a: int, c: int, h: int, l_max: int, m_max: int) -> int:
     return f
 
 
-def layer_fwd_flops(b, a, c, h, ec, gates, l_max, m_max, n_grid) -> int:
+def layer_fwd_flops_split(b, a, c, h, ec, gates, l_max, m_max, n_grid) -> Tuple[int, int]:
+    """`layer_fwd_flops` as (products, other): the gate product and the SO(2)
+    matmuls (the product engine's work, on the tensor cores), and the
+    rotations and the grid activation."""
     st = s_trunc(l_max, m_max)
-    per = (2 * _rot_macs(l_max, m_max) * a * c * 2
-           + 2 * a * ec * gates * 2
-           + 2 * _so2_matmul_flops(a, c, h, l_max, m_max)
-           + 2 * 2 * n_grid * st * a * c
-           + 2 * _rot_macs(l_max, m_max) * a * c)
-    return int(b * a * per)
+    products = 2 * a * ec * gates * 2 + 2 * _so2_matmul_flops(a, c, h, l_max, m_max)
+    other = (2 * _rot_macs(l_max, m_max) * a * c * 2 + 2 * 2 * n_grid * st * a * c
+             + 2 * _rot_macs(l_max, m_max) * a * c)
+    return int(b * a * products), int(b * a * other)
+
+
+def layer_fwd_flops(b, a, c, h, ec, gates, l_max, m_max, n_grid) -> int:
+    return sum(layer_fwd_flops_split(b, a, c, h, ec, gates, l_max, m_max, n_grid))
 
 
 def layer_bwd_flops(b, a, c, h, ec, gates, l_max, m_max, n_grid) -> int:
@@ -444,15 +449,21 @@ def flops_bytes(kind: str, x: torch.Tensor, d: torch.Tensor, xe: torch.Tensor, w
     """The work of kernel `kind` ("M" or "N") on these inputs: "flops" the
     JAX package's FLOP model over all B·A² pairs, "flops_live" the same model
     per pair times the live pairs (the kernels skip the others, and the bound
-    counts what the data needs), and "bytes" with each input read once and
-    each output written once."""
+    counts what the data needs), "flops_live_products" / "flops_live_other"
+    its split (the product engine's work and the rest;
+    `layer_fwd_flops_split`), and "bytes" with each input read once and each
+    output written once."""
     b, a, s, c = x.shape
     h, ec, gates = ws[2].shape[-1], xe.shape[-1], ws[0].shape[-1]
     fn = layer_fwd_flops if kind == "M" else layer_bwd_flops
     flops = fn(b, a, c, h, ec, gates, l_max, m_max, n_grid)
+    prod, other = layer_fwd_flops_split(b, a, c, h, ec, gates, l_max, m_max, n_grid)
+    live, slots = live_pairs(d), max(b * a * a, 1)
+    scale = (1.0 if kind == "M" else 2.6) * live / slots
     n_w = sum(w.numel() for w in ws)
     ins = x.numel() + d.numel() + xe.numel() + n_w
     nbytes = 4 * (ins + x.numel() if kind == "M"
                   else ins + x.numel() + x.numel() + xe.numel() + n_w)
-    return {"flops": flops, "flops_live": int(flops * live_pairs(d) / max(b * a * a, 1)),
+    return {"flops": flops, "flops_live": int(flops * live / slots),
+            "flops_live_products": int(prod * scale), "flops_live_other": int(other * scale),
             "bytes": nbytes}
