@@ -29,6 +29,10 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                hiddens 32/32 for the conv and 8/128 for the pair; a/2..a real
                atoms, cgsh from the 12 Bohr radius graph, maskf the full
                graph), the same lines; J and L run twice for the same bits.
+               Their bounds count the live pairs (cgsh row or maskf not zero;
+               the lines print the count): `bound_ms` with the gate products at
+               the 3xTF32 tensor-core rate (as M-P, `tc_bound`), `bound_fma_ms`
+               all at the fp32 FMA rate.
   3. predict — for each family, `pipelines.run` of ``job_type: predict`` on
                configs/painn-oc.yaml, then configs/schnet.yaml, at full width
                and depth (hidden 128, 6 interactions, 100 RBF), batch 64,
@@ -66,7 +70,9 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                files; per atom bucket, the kernel path's parameter gradients and
                H against the plain module on the card and H's covariance under
                a rotation; molecules/s, seconds per epoch, peak device memory.
-     qhnet_train_profile — torch.profiler over two train steps.
+     qhnet_train_profile — torch.profiler over two train steps; J's and L's
+               gate products must show there as the SO(2) engine's kernels
+               (so2_mma_kernel, so2_mmw_kernel).
   6. kernel_M, kernel_N — eSCN's M (escn_fwd) and N (escn_bwd) at the eSCN
                paths' shapes (B=64, A=32/48/64), configs/escn-oc.yaml widths
                (l_max 6, m_max 2, C 128, H 256, EC 128), on eSCN-built inputs
@@ -426,9 +432,9 @@ def tc_bound(work: dict, peak_flops: float, peak_bw: float, peak_tf32: float):
 
 
 def _so2_row(shape, err, t_k, t_p, work, card: str, **extra) -> dict:
-    """An M-P kernel line: `bound_ms` the tensor-core bound (the least time
+    """An I-P kernel line: `bound_ms` the tensor-core bound (the least time
     for the same fp32-accurate work), `bound_fma_ms` the fp32 FMA one (the
-    bound of A-L), each with its share of the kernel's time."""
+    bound of A-H), each with its share of the kernel's time."""
     peak_flops, peak_bw, peak_tf32 = peaks(card, tensor_cores=True)
     row = _kernel_row(shape, err, t_k, t_p, work["flops_live"], work["bytes"], peak_flops,
                       peak_bw, **extra)
@@ -537,6 +543,7 @@ def headline_rows(per: dict, kernels: dict, source: str, with_gw_split: tuple) -
     for k, (name, line) in kernels.items():
         head = next(r for r in per[k] if r["shape"][1] == HEADLINE_A)
         extra = (keep_gw if k in with_gw_split else ()) + (tc if "bound_fma_ms" in head else ())
+        extra += ("live_pairs", "pairs") if "live_pairs" in head else ()
         rows[k] = dict(
             name=name, route="cuda", source=f"nabladft_tpu_torch/csrc/{source}.cu",
             replaces=f"nabladft_tpu/ops/pallas/{source}.py:{line}",
@@ -813,9 +820,10 @@ def profile_phase(phase: str, trainer, dm, n_batches: int = 2, top: int = 12) ->
     profile_steps(phase, trainer._predict_step, batches, top)
 
 
-def profile_steps(phase: str, step, batches, top: int = 12) -> None:
+def profile_steps(phase: str, step, batches, top: int = 12, present=(), absent=()) -> None:
     """torch.profiler over `step` on each batch: device time by kernel, and
-    the device's busy share of the wall time."""
+    the device's busy share of the wall time. Each name in `present` must be
+    part of some kernel's name, and none in `absent` of any."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -829,11 +837,16 @@ def profile_steps(phase: str, step, batches, top: int = 12) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(t for _, t, _ in events)
     events.sort(key=lambda e: -e[1])
+    for name in present:
+        check(any(name in k for k, _, _ in events), f"{phase}: no kernel named {name}")
+    for name in absent:
+        check(not any(name in k for k, _, _ in events), f"{phase}: a kernel named {name}")
     emit(phase, batches=len(batches), batch_shapes=[list(b.z.shape) for b in batches],
          wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
          device_busy_share=device_us / wall_us,
          top=[{"name": k[:80], "device_ms": t / 1e3, "share": t / max(device_us, 1e-9),
-               "calls": c} for k, t, c in events[:top]])
+               "calls": c} for k, t, c in events[:top]],
+         present=list(present), absent=list(absent))
 
 
 def read_csv(path: Path) -> list:
@@ -1070,15 +1083,35 @@ def eqv2_kernel_inputs(dev, b: int, a: int, seed: int = SEED, drop: bool = True,
     return out
 
 
-def qhnet_kernel_phases(dev, card: str) -> dict:
+def stage_times(fn, args) -> dict:
+    """{kernel name: device ms} of one call of `fn` (torch.profiler): where a
+    kernel built of several launches spends its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            name = re.sub(r"^\(anonymous namespace\)::|\(.*$", "", e.key)[:60]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def qhnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels I-L at the QHNet train path's shapes (B=QH_BATCH, A in
     BUCKETS, C=128, LMAX 4, H1/H2 32/32 for the conv and 8/128 for the
     pair) against their plain versions: errors (checked), kernel / plain /
-    bound times; J and L run twice for the same bits. The kernels line's
-    numbers as in kernel_phases."""
+    bound times; J and L run twice for the same bits, and their lines carry
+    the device ms of each kernel their launch runs (`stages_ms`). The bounds
+    count the live pairs' work (`qt.flops_bytes`): `bound_ms` with the gate
+    products at the 3xTF32 tensor-core rate, `bound_fma_ms` all at the fp32
+    FMA rate.
+    The kernels line's numbers as in kernel_phases; each row carries the
+    source's registers, spills and shared memory (ptxas)."""
     from nabladft_tpu_torch.ops import qhnet_tp as qt
 
-    peak_flops, peak_bw = peaks(card)
     fns = {"I": (qt.qhnet_conv_fwd, qt.conv_fwd_reference, "cgsh", "c"),
            "J": (qt.qhnet_conv_bwd, qt.conv_bwd_reference, "cgsh", "c"),
            "K": (qt.qhnet_pair_fwd, qt.pair_fwd_reference, "zi", "p"),
@@ -1098,18 +1131,25 @@ def qhnet_kernel_phases(dev, card: str) -> dict:
                 again = as_tuple(fn(*args))
                 check(all(torch.equal(p, q) for p, q in zip(got, again)),
                       f"kernel {k} deterministic at {shape}")
-                extra["bit_identical_rerun"] = True
+                extra.update(bit_identical_rerun=True, stages_ms=stage_times(fn, args))
+                del again
             del got
+            torch.cuda.empty_cache()
             t_k = time_ms(lambda: fn(*args))
             t_p = time_ms(lambda: ref(*args))
-            flops, nbytes = qt.flops_bytes(k, x["x"], x[table], x[f"hr_{tag}"], x[f"hs_{tag}"])
-            row = _kernel_row(shape, err, t_k, t_p, flops, nbytes, peak_flops, peak_bw, **extra)
+            live = qt.live_pairs(k, x["cgsh"] if k in "IJ" else x["maskf"])
+            work = qt.flops_bytes(k, x["x"], x[table], x[f"hr_{tag}"], x[f"hs_{tag}"], live)
+            row = _so2_row(shape, err, t_k, t_p, work, card, flops_all_pairs=work["flops"],
+                           live_pairs=live, pairs=work["pairs"], **extra)
             emit(f"kernel_{k}", **row, tolerance_rel=KERNEL_RTOL, kernel_times=t_k,
                  plain_times=t_p)
             per[k].append(row)
         del x
         torch.cuda.empty_cache()
-    return headline_rows(per, QHNET_KERNELS, "qhnet_tp", ())
+    rows = headline_rows(per, QHNET_KERNELS, "qhnet_tp", ())
+    for k in rows:
+        rows[k]["ptxas"] = ptxas.get("qhnet_tp", {})
+    return rows
 
 
 def orbital_rotation(zs, orbitals: dict, rot: torch.Tensor, o_max: int) -> torch.Tensor:
@@ -1190,7 +1230,10 @@ def qhnet_train_phase(tmp: Path) -> dict:
     trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None),
                                       torch.device("cuda"))
     batches = list(itertools.islice(dm.train_dataloader(), 2))
-    profile_steps("qhnet_train_profile", trainer._train_step, batches)
+    profile_steps("qhnet_train_profile", trainer._train_step, batches, top=24,
+                  present=("so2_mma_kernel", "so2_mmw_kernel", "qhnet_conv_tp_bwd_kernel",
+                           "qhnet_pair_gx_kernel", "qhnet_pair_tp_bwd_kernel"),
+                  absent=("qhnet_gemm_nt_kernel", "qhnet_gw_kernel"))
     emit("qhnet_train", config="qhnet", molecules=QH_MOLS, dropped_molecules=dropped,
          steps=steps, batches_per_epoch=n_train, val_batches=n_val, test_batches=n_test,
          launches=launches, expected_launches=want, final_val=res, test=test,
@@ -1836,7 +1879,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rows = timed("kernels_painn", kernel_phases, dev, card)
     rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card))
-    rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card))
+    rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_escn", escn_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_eqv2", eqv2_kernel_phases, dev, card, ptxas))
     by_path = {}

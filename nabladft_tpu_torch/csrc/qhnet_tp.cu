@@ -1,4 +1,4 @@
-// Fused QHNet tensor-product kernels for Hopper (sm_90a), fp32 FMA.
+// Fused QHNet tensor-product kernels for Hopper (sm_90a).
 //
 // Per molecule b, receiver i and sender j, the gate MLPs' second Dense gives
 // the path weights of the 65 tensor-product paths (l1, l2, l3) at LMAX 4:
@@ -7,64 +7,77 @@
 //   pair: fij[b,i,l3^2+m,j,c] = sum_p w[pC+c] maskf[b,i,j] sum_b zi[b,i,off_p+b*(2l3+1)+m,c] x[b,l2^2+b,j,c]
 //
 // Kernel I, qhnet_conv_fwd_kernel, replaces nabladft_tpu/ops/pallas/qhnet_tp.py
-// `_conv_fwd_kernel` (pallas_call in `_conv_run_fwd`). Kernel J, qhnet_conv_bwd_kernel
-// + the two products below, replaces `_conv_bwd_kernel` (`_conv_run_bwd`): the VJP of I
-// for x, h_r, h_s and the weights. Kernel K, qhnet_pair_fwd_kernel, replaces
-// `_pair_fwd_kernel` (`_pair_run_fwd`). Kernel L, qhnet_pair_bwd_kernel +
-// qhnet_pair_gx_kernel + the products, replaces `_pair_bwd_kernel` (`_pair_run_bwd`).
+// `_conv_fwd_kernel` (pallas_call in `_conv_run_fwd`). Kernel J replaces `_conv_bwd_kernel`
+// (`_conv_run_bwd`): the VJP of I for x, h_r, h_s and the weights, as the gate products on
+// so2_common.cuh's engine around qhnet_conv_tp_bwd_kernel. Kernel K, qhnet_pair_fwd_kernel,
+// replaces `_pair_fwd_kernel` (`_pair_run_fwd`). Kernel L replaces `_pair_bwd_kernel`
+// (`_pair_run_bwd`): the engine's gate products around qhnet_pair_gx_kernel (+ the chunk
+// sum) and qhnet_pair_tp_bwd_kernel.
 //
 // Layouts (as the JAX op): x [B,S,A,C]; cgsh [B,A,A,K]; zi [B,A,Kz,C]; maskf [B,A,A,1];
 // h_r [B,A,A,H1], h_s [B,A,A,H2]; W2r [H1,PC], W2s [H2,PC], b2r/b2s [PC]; conv out and its
-// cotangent g [B,A,S,C]; pair out and g [B,A,S,A,C]; float32, contiguous, PC = P*C.
+// cotangent g [B,A,S,C]; pair out and g [B,A,S,A,C]; float32, contiguous, PC = P*C. The
+// backward entry points take H1, H2 and PC padded by zeros to multiples of 8 (the engine's K).
 //
 // What bounds them on the card: the gate's second Dense, 2*(H1+H2) FLOPs per pair, path
 // and channel, is most of the work (35 of I's 60 GFLOP and 74 of K's 97 at B=8, A=64,
-// C=128, the JAX package's FLOP model); the tensor products add ~2*MACS/P per pair,
-// path and channel. At ~1.8 TFLOP per train step against a few GB of traffic, all four
-// are bound by the fp32 FMA rate. What the design does about it:
-//   * The Pallas kernel keeps u_r, u_s [A, P*C] (2.1 MB each at A=64) and cgsh's [A, K]
-//     row (590 KB) in VMEM; a Hopper block has 227 KB. So each block tiles over paths
-//     and neighbours: per path, the block forms w for 8 neighbours at a time in registers
-//     (each thread owns one channel; one W2 column load feeds 8 FMAs, the neighbours'
-//     hidden rows sit in shared memory) and folds it straight into the tensor product.
-//     w never reaches device memory on the forward path.
-//   * Per path, only that path's cgsh columns ([A] x (2l1+1)(2l3+1) <= 81) are staged
-//     in shared memory. Loops over a, b, m run to the largest 2l+1 (9) under a guard, so
-//     per-thread arrays keep constant indices and stay in registers; the 65 paths are a
-//     runtime loop over a path table each block builds in shared memory, not 65 bodies.
-//   * I and K own their outputs, no atomics. I runs one block per (b, receiver i) and
-//     sums over paths grouped by l3 in registers; K runs one block per (b, receiver i,
-//     16 senders), so that a bucket of 64 atoms still fills the card in even waves, and
-//     keeps [8 senders] x [2l3+1] sums, each zi load feeding 8 senders.
-//   * J and L sum over receivers (gx) and over all pairs (the weight gradients); Hopper
-//     blocks cannot carry sums across a grid as the TPU does. J's main kernel runs one
-//     block per (b, sender j) and owns gx[b,:,j]; L's main kernel runs per (b, receiver
-//     i) and owns gzi[b,i] (a sum over j), and a second kernel per (b, 8 senders) owns
-//     gx, its paths grouped by l2 so that each output slot's sum stays in registers. The main kernels write gu_r = gw*u_s and gu_s = gw*u_r per pair to scratch
-//     ([B,A,A,PC] each; L also the masked w); hand-written fp32 products then give
-//     gh = gu @ W2^T (one writer per output) and [gW2; gb2] = [h, 1]^T gu as one partial
-//     per (molecule, quarter of its pairs), summed in a fixed order. No float atomics:
-//     J and L give the same bits on every run.
-//   * Masks: the conv's adjacency reaches I only through cgsh (premasked), so dead pairs
-//     give t = 0 and exact zero cotangents; the pair's w is multiplied by maskf, so
-//     masked pairs write exact zeros. Padded neighbour rows beyond A are skipped.
-// Plain FMA only: no TF32, no tensor cores (the Hamiltonian targets sit below TF32's
-// mantissa).
+// C=128, the JAX package's FLOP model); J and L do it three times (u, gh = gu W2^T and
+// [gW2; gb2] = [h, 1]^T gu: 125 of L's 162 GFLOP at A=48), and the tensor products add
+// ~2*MACS/P per pair, path and channel. Those three are plain dense products, which on this
+// card belong on the tensor cores; the tensor products are channel-diagonal contractions
+// over <= 9 x 9 Clebsch-Gordan blocks and stay on the CUDA cores. What the design does:
+//   * I and K: the Pallas kernel keeps u_r, u_s [A, P*C] (2.1 MB each at A=64)
+//     in VMEM; a Hopper block has 227 KB. So each block tiles over paths and neighbours:
+//     per path, the block forms w for 8 neighbours at a time in registers (each thread owns
+//     one channel; one W2 column load feeds 8 FMAs) and folds it straight into the tensor
+//     product. I runs one block per (b, receiver i), K one per (b, i, 16 senders). Per
+//     path, loops over a, b, m run to the largest 2l+1 (9) under a guard, so per-thread
+//     arrays keep constant indices and stay in registers.
+//   * J and L: a scan lists the live pairs (cgsh row not zero for J, maskf not zero for L;
+//     a dead pair adds exact zeros to every output) in (b, i, j) order. On the engine, 3xTF32
+//     wgmma fp32-accurate within 2e-5: u_r, u_s of the live pairs (gathered h rows, the bias
+//     in the epilogue) into compact rows [live, PC]; then the tensor-product stage reads
+//     them, with no recompute, and overwrites them in place by gu_r = gw u_s, gu_s = gw u_r
+//     (each element read and written by one thread); then gh = gu W2^T (K = P*C, each
+//     32-deep stage promoted into fp32), scattered to the pair slots, and [gW2; gb2] as
+//     fixed-order partials over the live rows. Dead pairs' gh rows stay the caller's zeros.
+//   * The tensor-product stages are bound by latency, not by FMAs (few warps per SM, each
+//     path's loops up to 9 x 9): each path's body is compiled for its (l, l3) pair (25
+//     instances, every loop bound a constant), and the paths are split over blocks.
+//     J's runs one block per (b, sender j, eighth of the paths), over the live receivers,
+//     with v_a = sum_m cg[a,m] g_m shared by gw = sum_a x_a v_a and gx_a += w v_a (half the
+//     FMAs of the forward's order); the eighths' gx partials are summed in a fixed order.
+//     L's runs one block per (b, receiver i, quarter of the paths), owning gzi[b,i] on its
+//     paths (a sum over j kept in shared memory), 2 live senders at a time.
+//   * L's gx (a sum over receivers) runs before that, while u is still there: one block per
+//     (b, chunk of receivers, 8 senders), chunks sized for about 16 blocks per SM (>= 1,024
+//     at B=8 and A=32/48/64); per l2 group (its body compiled for l2) each thread sums its
+//     8 senders' 2l2+1 slots in registers over the chunk, recomputes w = u_r u_s maskf, and
+//     each zi load feeds 8 FMAs. The chunks' partials are summed in a fixed order.
+//     No stage spills (ptxas: J's stage 96 registers, L's 168, gx 220).
+//   * No float atomics: J and L give the same bits on every run. Padded atoms and masked
+//     pairs get exact zeros.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <vector>
+
+#include "so2_common.cuh"
 
 namespace {
 
 constexpr int NT = 128;         // threads per block: one channel lane each
-constexpr int JB = 8;           // neighbour rows per register block (gate products)
+constexpr int JB = 8;           // neighbour rows per register block (I and K's gate products)
 constexpr int MX = 9;           // largest 2l+1 at LMAX 4
 constexpr int MXX = MX * MX;    // largest (2l+1)(2l'+1)
 constexpr int MAXP = 65;        // paths at LMAX 4
 constexpr int LMAXK = 4;
-constexpr int GX_JT = 8;        // senders per block of the pair gx kernel
-constexpr int GW_NT = 64;       // output columns per block of the weight-gradient kernel
-constexpr int GW_PT = 16;       // pairs per shared-memory chunk
-constexpr int GW_SPLITS = 4;    // pair slices per molecule (partials per molecule)
+constexpr int SMAX = (LMAXK + 1) * (LMAXK + 1);
+constexpr int LQ = 2;           // senders per register block of L's tensor-product stage
+constexpr int L_SPLITS = 4;     // path splits of L's tensor-product stage (blocks per receiver)
+constexpr int GQ = 8;           // senders per thread of L's gx stage
+
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -117,6 +130,17 @@ int n_paths(int lmax) {
     for (int l2 = 0; l2 <= lmax; ++l2) {
       const int lo = l1 > l2 ? l1 - l2 : l2 - l1, hi = l1 + l2 < lmax ? l1 + l2 : lmax;
       n += hi - lo + 1;
+    }
+  return n;
+}
+
+// columns of the cgsh layout the paths use (cg_used of build_paths)
+int cg_columns(int lmax) {
+  int n = 0;
+  for (int l1 = 0; l1 <= lmax; ++l1)
+    for (int l2 = 0; l2 <= lmax; ++l2) {
+      const int lo = l1 > l2 ? l1 - l2 : l2 - l1, hi = l1 + l2 < lmax ? l1 + l2 : lmax;
+      for (int l3 = lo; l3 <= hi; ++l3) n += (2 * l1 + 1) * (2 * l3 + 1);
     }
   return n;
 }
@@ -262,96 +286,6 @@ __global__ void __launch_bounds__(NT) qhnet_conv_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// kernel J, main stage: one block per (molecule b, sender j); owns gx[b,:,j] and
-// writes gu_r, gu_s of every pair (b, i, j)
-// ---------------------------------------------------------------------------
-
-__host__ __device__ inline size_t conv_bwd_smem(int A, int H1, int H2, int S) {
-  return sizeof(float) * (gate_floats(A, H1, H2) + (size_t)A * MXX + (size_t)S * NT);
-}
-
-__global__ void __launch_bounds__(NT) qhnet_conv_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ cgsh, const float* __restrict__ hr,
-    const float* __restrict__ hs, const float* __restrict__ w2r, const float* __restrict__ b2r,
-    const float* __restrict__ w2s, const float* __restrict__ b2s, const float* __restrict__ g,
-    float* __restrict__ gx, float* __restrict__ gu_r, float* __restrict__ gu_s, int A, int C,
-    int H1, int H2, int K, int lmax) {
-  extern __shared__ float4 smem4[];
-  __shared__ PathTable pt;
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int bj = blockIdx.x, b = bj / A, j = bj - b * A, tid = threadIdx.x;
-  const int S = (lmax + 1) * (lmax + 1);
-  if (tid == 0) build_paths(pt, lmax);
-  const size_t col0 = (size_t)b * A * A + j;  // pair (b, i, j) = col0 + i * A
-  const GateRows gr = stage_gate_rows(hr, hs, col0 * H1, col0 * H2, (size_t)A * H1,
-                                      (size_t)A * H2, A, H1, H2, smem);
-  float* cg_s = smem + gate_floats(A, H1, H2);  // [A][MXX] over receivers i
-  float* gx_s = cg_s + (size_t)A * MXX;         // [S][NT], each thread its own column
-  __syncthreads();
-  const int PC = pt.n * C;
-
-  for (int c0 = 0; c0 < C; c0 += NT) {
-    const int c = c0 + tid;
-    const bool act = c < C;
-    const int cc = act ? c : 0;
-    for (int s = 0; s < S; ++s) gx_s[s * NT + tid] = 0.f;
-    for (int p = 0; p < pt.n; ++p) {
-      const int l1 = pt.l1[p], l3 = pt.l3[p], n1 = 2 * l1 + 1, m3 = 2 * l3 + 1, w = n1 * m3;
-      __syncthreads();
-      for (int idx = tid; idx < A * w; idx += NT) {
-        const int i = idx / w, k = idx - i * w;
-        cg_s[i * MXX + k] = cgsh[(col0 + (size_t)i * A) * K + pt.cg_off[p] + k];
-      }
-      __syncthreads();
-      float xa[MX], gxa[MX];
-#pragma unroll
-      for (int a = 0; a < MX; ++a) {
-        xa[a] = a < n1 ? x[(((size_t)b * S + l1 * l1 + a) * A + j) * C + cc] : 0.f;
-        gxa[a] = 0.f;
-      }
-      const int col = p * C + cc;
-      for (int i0 = 0; i0 < A; i0 += JB) {
-        float ur[JB], us[JB];
-        gate_block(gr, i0, H1, H2, w2r, b2r, w2s, b2s, col, PC, ur, us);
-#pragma unroll
-        for (int q = 0; q < JB; ++q) {
-          const int i = i0 + q;
-          if (i >= A) break;
-          const float wv = ur[q] * us[q];
-          const float* cg = cg_s + i * MXX;
-          const float* gi = g + (((size_t)b * A + i) * S + l3 * l3) * C + cc;
-          float gw = 0.f;
-#pragma unroll
-          for (int m = 0; m < MX; ++m) {
-            if (m >= m3) break;
-            const float gm = gi[(size_t)m * C];
-            float t = 0.f;
-#pragma unroll
-            for (int a = 0; a < MX; ++a)
-              if (a < n1) t = fmaf(cg[a * m3 + m], xa[a], t);
-            gw = fmaf(t, gm, gw);
-            const float gt = wv * gm;
-#pragma unroll
-            for (int a = 0; a < MX; ++a)
-              if (a < n1) gxa[a] = fmaf(gt, cg[a * m3 + m], gxa[a]);
-          }
-          if (act) {
-            const size_t at = (col0 + (size_t)i * A) * PC + col;
-            gu_r[at] = gw * us[q];
-            gu_s[at] = gw * ur[q];
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < MX; ++a)
-        if (a < n1) gx_s[(l1 * l1 + a) * NT + tid] += gxa[a];
-    }
-    if (act)
-      for (int s = 0; s < S; ++s) gx[(((size_t)b * S + s) * A + j) * C + c] = gx_s[s * NT + tid];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // kernel K: one block per (molecule b, receiver i, tile of KJ senders)
 // ---------------------------------------------------------------------------
 
@@ -436,380 +370,505 @@ __global__ void __launch_bounds__(NT) qhnet_pair_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// kernel L, main stage: one block per (molecule b, receiver i); owns gzi[b,i] and
-// writes gu_r, gu_s and the masked w of every pair (b, i, j). Per path and block of
-// 8 senders: term[q][m] = sum_b zi[(b,m)] x[b][q] once, then gw and the cotangent
-// gt = w g in the same registers, then gzi[(b,m)] += sum_q gt[q][m] x[b][q]
+// J and L: the live-pair list
 // ---------------------------------------------------------------------------
 
-__host__ __device__ inline size_t pair_bwd_smem(int A, int H1, int H2) {
-  return sizeof(float) * (gate_floats(A, H1, H2) + (size_t)round_up(A, JB) + (size_t)MXX * NT);
+// flags[e] = 1 when any of the first `used` values of row e of t [npairs, ld] is not zero
+// (cgsh's path columns for J, maskf for L); one warp a row
+__global__ void qhnet_flags_kernel(const float* __restrict__ t, int* __restrict__ flags,
+                                   long long npairs, int ld, int used) {
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= npairs) return;  // the whole warp shares w
+  bool nz = false;
+  for (int k = lane; k < used; k += 32) nz |= __ldg(t + w * ld + k) != 0.f;
+  const bool live = __any_sync(0xffffffffu, nz);
+  if (lane == 0) flags[w] = live ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(NT) qhnet_pair_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ zi, const float* __restrict__ maskf,
-    const float* __restrict__ hr, const float* __restrict__ hs, const float* __restrict__ w2r,
-    const float* __restrict__ b2r, const float* __restrict__ w2s, const float* __restrict__ b2s,
-    const float* __restrict__ g, float* __restrict__ gzi, float* __restrict__ gu_r,
-    float* __restrict__ gu_s, float* __restrict__ wm, int A, int C, int H1, int H2, int Kz,
-    int lmax) {
+// f.run<L, L2>() for the runtime pair (l, l2), both at most LMAXK: a path's body with
+// every loop bound a constant, one instance for each of the 25 pairs
+template <int K = 0, class F>
+__device__ __forceinline__ void with_ls(int l, int l2, const F& f) {
+  if constexpr (K < (LMAXK + 1) * (LMAXK + 1)) {
+    if (l * (LMAXK + 1) + l2 == K)
+      f.template run<K / (LMAXK + 1), K % (LMAXK + 1)>();
+    else
+      with_ls<K + 1>(l, l2, f);
+  }
+}
+
+// f.run<L>() for the runtime l <= LMAXK
+template <int K = 0, class F>
+__device__ __forceinline__ void with_l(int l, const F& f) {
+  if constexpr (K <= LMAXK) {
+    if (l == K)
+      f.template run<K>();
+    else
+      with_l<K + 1>(l, f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel J, tensor-product stage: one block per (molecule b, sender j, path split sp);
+// writes the split's partial gxp[sp,b,:,j]. Over the live receivers i of j, per path:
+// v_a = sum_m cg[a,m] g[i,l3^2+m], gw = sum_a x_j[a] v_a, gx[l1^2+a] += w v_a; u_r, u_s of
+// the pair's row become gu_r = gw u_s, gu_s = gw u_r in place.
+// ---------------------------------------------------------------------------
+
+constexpr int J_SPLITS = 8;  // path splits of J's tensor-product stage (blocks per sender)
+
+// one path of J's stage for one thread's channel, its (l1, l3) at compile time
+struct ConvPathBwd {
+  const float* cg_s;  // [live receivers][MXX]: the path's cgsh columns
+  const int *rows, *recv;
+  const float* gb;  // g + b*A*S*C + c
+  const float* xj;  // x + (b*S*A + j)*C + c
+  float *ur, *us, *gx_s;
+  int nl, A, C, S, ldu, col, tid;
+  bool act;
+  template <int L1, int L3>
+  __device__ __forceinline__ void run() const {
+    constexpr int N1 = 2 * L1 + 1, M3 = 2 * L3 + 1;
+    float xa[N1], gxa[N1];
+#pragma unroll
+    for (int a = 0; a < N1; ++a) {
+      xa[a] = xj[(size_t)(L1 * L1 + a) * A * C];
+      gxa[a] = 0.f;
+    }
+#pragma unroll 1
+    for (int n = 0; n < nl; ++n) {
+      const size_t at = (size_t)rows[n] * ldu + col;
+      const float vr = ur[at], vs = us[at], wv = vr * vs;
+      const float* cg = cg_s + n * MXX;
+      const float* gi = gb + ((size_t)recv[n] * S + L3 * L3) * C;
+      float gm[M3];
+#pragma unroll
+      for (int m = 0; m < M3; ++m) gm[m] = gi[(size_t)m * C];
+      float gw = 0.f;
+#pragma unroll
+      for (int a = 0; a < N1; ++a) {
+        float v = 0.f;
+#pragma unroll
+        for (int m = 0; m < M3; ++m) v = fmaf(cg[a * M3 + m], gm[m], v);
+        gw = fmaf(xa[a], v, gw);
+        gxa[a] = fmaf(wv, v, gxa[a]);
+      }
+      if (act) {
+        ur[at] = gw * vs;
+        us[at] = gw * vr;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < N1; ++a) gx_s[(L1 * L1 + a) * NT + tid] += gxa[a];
+  }
+};
+
+__host__ __device__ inline size_t conv_tp_bwd_smem(int A, int S) {
+  return sizeof(float) * ((size_t)A * MXX + (size_t)S * NT) + sizeof(int) * 2 * (size_t)A;
+}
+
+__global__ void __launch_bounds__(NT) qhnet_conv_tp_bwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ cgsh, const float* __restrict__ g,
+    const int* __restrict__ pos, float* ur, float* us, float* __restrict__ gxp, int B, int A,
+    int C, int K, int ldu, int lmax) {
   extern __shared__ float4 smem4[];
   __shared__ PathTable pt;
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int bi = blockIdx.x, b = bi / A, tid = threadIdx.x, S = (lmax + 1) * (lmax + 1);
-  if (tid == 0) build_paths(pt, lmax);
-  const GateRows gr = stage_gate_rows(hr, hs, (size_t)bi * A * H1, (size_t)bi * A * H2, H1, H2,
-                                      A, H1, H2, smem);
-  float* mask_s = smem + gate_floats(A, H1, H2);
-  float* gz_s = mask_s + round_up(A, JB);  // [MXX][NT], each thread its own column
-  for (int j = tid; j < round_up(A, JB); j += NT) mask_s[j] = j < A ? maskf[(size_t)bi * A + j] : 0.f;
+  __shared__ int n_live;
+  const int bj = blockIdx.x / J_SPLITS, sp = blockIdx.x - bj * J_SPLITS;
+  const int b = bj / A, j = bj - b * A, tid = threadIdx.x;
+  const int S = (lmax + 1) * (lmax + 1);
+  float* cg_s = reinterpret_cast<float*>(smem4);             // [A][MXX]: this path's cgsh columns
+  float* gx_s = cg_s + (size_t)A * MXX;                      // [S][NT], each thread its own column
+  int* recv = reinterpret_cast<int*>(gx_s + (size_t)S * NT);  // the live receivers i
+  int* rows = recv + A;                                       // and their pair rows
+  if (tid == 0) {
+    build_paths(pt, lmax);
+    int n = 0;
+    for (int i = 0; i < A; ++i) {
+      const int e = pos[((size_t)b * A + i) * A + j];
+      if (e >= 0) {
+        recv[n] = i;
+        rows[n++] = e;
+      }
+    }
+    n_live = n;
+  }
   __syncthreads();
-  const int PC = pt.n * C;
-  const float* xb = x + (size_t)b * S * A * C;
-  const float* zb = zi + (size_t)bi * Kz * C;
-  float* gzb = gzi + (size_t)bi * Kz * C;
-  // rows of the zi layout no path uses (its padding) get zero cotangents
-  for (int idx = tid; idx < (Kz - pt.zi_used) * C; idx += NT) gzb[(size_t)pt.zi_used * C + idx] = 0.f;
+  const int nl = n_live;
+  float* gxb = gxp + ((size_t)sp * B + b) * S * A * C;
 
   for (int c0 = 0; c0 < C; c0 += NT) {
     const int c = c0 + tid;
     const bool act = c < C;
     const int cc = act ? c : 0;
-    for (int p = 0; p < pt.n; ++p) {
-      const int l2 = pt.l2[p], l3 = pt.l3[p], n2 = 2 * l2 + 1, m3 = 2 * l3 + 1;
-      const int col = p * C + cc;
-      const float* zp = zb + (size_t)pt.zi_off[p] * C + cc;
-      for (int k = 0; k < n2 * m3; ++k) gz_s[k * NT + tid] = 0.f;
-      for (int j0 = 0; j0 < A; j0 += JB) {
-        float ur[JB], us[JB], wq[JB], gw[JB], t[JB][MX];
-        gate_block(gr, j0, H1, H2, w2r, b2r, w2s, b2s, col, PC, ur, us);
-#pragma unroll
-        for (int q = 0; q < JB; ++q) {
-          wq[q] = ur[q] * us[q] * mask_s[j0 + q];
-          gw[q] = 0.f;
-#pragma unroll
-          for (int m = 0; m < MX; ++m) t[q][m] = 0.f;
-        }
-        // term[q][m] = sum_b zi[(b,m)] x[l2^2+b][j0+q]
-#pragma unroll
-        for (int bb = 0; bb < MX; ++bb) {
-          if (bb >= n2) break;
-          float xq[JB];
-#pragma unroll
-          for (int q = 0; q < JB; ++q)
-            xq[q] = j0 + q < A ? xb[((size_t)(l2 * l2 + bb) * A + j0 + q) * C + cc] : 0.f;
-#pragma unroll
-          for (int m = 0; m < MX; ++m) {
-            if (m >= m3) break;
-            const float z = __ldg(zp + (size_t)(bb * m3 + m) * C);
-#pragma unroll
-            for (int q = 0; q < JB; ++q) t[q][m] = fmaf(z, xq[q], t[q][m]);
-          }
-        }
-        // gw[q] = sum_m term g; t becomes gt = w g
-        const float* gj = g + ((((size_t)bi * S) + l3 * l3) * A + j0) * C + cc;
-#pragma unroll
-        for (int m = 0; m < MX; ++m) {
-          if (m >= m3) break;
-#pragma unroll
-          for (int q = 0; q < JB; ++q) {
-            const float gm = j0 + q < A ? gj[((size_t)m * A + q) * C] : 0.f;
-            gw[q] = fmaf(t[q][m], gm, gw[q]);
-            t[q][m] = wq[q] * gm;
-          }
-        }
-        // gzi[(b,m)] += sum_q gt[q][m] x[l2^2+b][j0+q]
-#pragma unroll
-        for (int bb = 0; bb < MX; ++bb) {
-          if (bb >= n2) break;
-          float xq[JB];
-#pragma unroll
-          for (int q = 0; q < JB; ++q)
-            xq[q] = j0 + q < A ? xb[((size_t)(l2 * l2 + bb) * A + j0 + q) * C + cc] : 0.f;
-#pragma unroll
-          for (int m = 0; m < MX; ++m) {
-            if (m >= m3) break;
-            float sum = 0.f;
-#pragma unroll
-            for (int q = 0; q < JB; ++q) sum = fmaf(t[q][m], xq[q], sum);
-            gz_s[(bb * m3 + m) * NT + tid] += sum;
-          }
-        }
-        if (act) {
-#pragma unroll
-          for (int q = 0; q < JB; ++q) {
-            const int j = j0 + q;
-            if (j >= A) break;
-            const float mf = mask_s[j];
-            const size_t at = ((size_t)bi * A + j) * PC + col;
-            gu_r[at] = gw[q] * us[q] * mf;
-            gu_s[at] = gw[q] * ur[q] * mf;
-            wm[at] = wq[q];
-          }
-        }
+    for (int s = 0; s < S; ++s) gx_s[s * NT + tid] = 0.f;
+    for (int p = sp; p < pt.n; p += J_SPLITS) {
+      const int l1 = pt.l1[p], l3 = pt.l3[p], w = (2 * l1 + 1) * (2 * l3 + 1);
+      __syncthreads();  // the previous path's cg_s is read
+      for (int idx = tid; idx < nl * w; idx += NT) {
+        const int n = idx / w, k = idx - n * w;
+        cg_s[n * MXX + k] = cgsh[(((size_t)b * A + recv[n]) * A + j) * K + pt.cg_off[p] + k];
       }
-      if (act)
-        for (int k = 0; k < n2 * m3; ++k)
-          gzb[((size_t)pt.zi_off[p] + k) * C + c] = gz_s[k * NT + tid];
+      __syncthreads();
+      const ConvPathBwd f{cg_s, rows, recv, g + (size_t)b * A * S * C + cc,
+                          x + ((size_t)b * S * A + j) * C + cc, ur, us, gx_s, nl, A, C, S, ldu,
+                          p * C + cc, tid, act};
+      with_ls(l1, l3, f);
     }
+    if (act)
+      for (int s = 0; s < S; ++s) gxb[((size_t)s * A + j) * C + c] = gx_s[s * NT + tid];
   }
 }
 
 // ---------------------------------------------------------------------------
-// kernel L, gx stage: one block per (molecule b, GX_JT senders); gx[b,s,j,c] =
-// sum_i sum_p sum_m wm[b,i,j,pC+c] g[b,i,l3^2+m,j,c] zi[b,i,off_p+bb*m3+m,c], s = l2^2+bb.
-// Paths run grouped by l2, so the sums of one l2's slots stay in registers; each
-// zi load feeds GX_JT senders.
+// kernel L, gx stage (before the tensor-product stage, while u is there): one block per
+// (molecule b, chunk of receivers, GQ senders); part[chunk,b,s,j,c] = sum over the chunk's
+// receivers i of sum_p sum_m w[b,i,j,p] g[b,i,l3^2+m,j,c] zi[b,i,off_p+bb*m3+m,c], s =
+// l2^2+bb, w = u_r u_s maskf recomputed from the gate products' rows. The paths run by l2
+// group, each group's slots summed in registers over the chunk (the group's body compiled
+// for its l2); each zi load feeds GQ senders.
 // ---------------------------------------------------------------------------
 
+// receiver chunks of L's gx stage: the fewest receivers a chunk that still give about
+// GX_WAVES blocks per SM (so that the last round of blocks, and the chunks left with few live
+// receivers, cost little), no chunk empty
+constexpr int GX_WAVES = 16;
+int gx_chunks(int B, int A) {
+  const int tiles = (A + GQ - 1) / GQ, cap = GX_WAVES * SMS;
+  const int per = std::max(1, (A * B * tiles + cap - 1) / cap);
+  return (A + per - 1) / per;
+}
+
+// one l2 group of L's gx stage for one thread's channel
+struct GxGroup {
+  const PathTable& pt;
+  const float *zi, *g, *maskf, *ur, *us;
+  const int* pos;
+  float* pb;  // the chunk's partial: part + (chunk*B + b)*S*A*C
+  size_t b;
+  int i_lo, i_hi, j0, A, C, S, Kz, ldu, cc;
+  bool act;
+  template <int L2>
+  __device__ __forceinline__ void run() const {
+    constexpr int N2 = 2 * L2 + 1;
+    float acc[GQ][N2];
+#pragma unroll
+    for (int q = 0; q < GQ; ++q)
+#pragma unroll
+      for (int bb = 0; bb < N2; ++bb) acc[q][bb] = 0.f;
+#pragma unroll 1
+    for (int i = i_lo; i < i_hi; ++i) {
+      const size_t bi = b * A + i;
+      int row[GQ];
+      float mf[GQ];
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < GQ; ++q) {
+        row[q] = j0 + q < A ? pos[bi * A + j0 + q] : -1;
+        mf[q] = row[q] >= 0 ? maskf[bi * A + j0 + q] : 0.f;
+        any |= row[q] >= 0;
+      }
+      if (!any) continue;  // the same for every thread of the block
+#pragma unroll 1
+      for (int e = pt.l2_start[L2]; e < pt.l2_start[L2 + 1]; ++e) {
+        const int p = pt.by_l2[e], l3 = pt.l3[p], m3 = 2 * l3 + 1, col = p * C + cc;
+        float w[GQ];
+#pragma unroll
+        for (int q = 0; q < GQ; ++q)
+          w[q] = row[q] >= 0
+                     ? ur[(size_t)row[q] * ldu + col] * us[(size_t)row[q] * ldu + col] * mf[q]
+                     : 0.f;
+        const float* zp = zi + (bi * Kz + pt.zi_off[p]) * C + cc;
+        const float* gp = g + ((bi * S + l3 * l3) * A + j0) * C + cc;
+#pragma unroll 1
+        for (int m = 0; m < m3; ++m) {
+          float wg[GQ];
+#pragma unroll
+          for (int q = 0; q < GQ; ++q)
+            wg[q] = row[q] >= 0 ? w[q] * gp[((size_t)m * A + q) * C] : 0.f;
+#pragma unroll
+          for (int bb = 0; bb < N2; ++bb) {
+            const float z = __ldg(zp + (size_t)(bb * m3 + m) * C);
+#pragma unroll
+            for (int q = 0; q < GQ; ++q) acc[q][bb] = fmaf(wg[q], z, acc[q][bb]);
+          }
+        }
+      }
+    }
+    if (act) {
+#pragma unroll
+      for (int q = 0; q < GQ; ++q) {
+        if (j0 + q >= A) break;
+#pragma unroll
+        for (int bb = 0; bb < N2; ++bb)
+          pb[((size_t)(L2 * L2 + bb) * A + j0 + q) * C + cc] = acc[q][bb];
+      }
+    }
+  }
+};
+
 __global__ void __launch_bounds__(NT) qhnet_pair_gx_kernel(
-    const float* __restrict__ zi, const float* __restrict__ g, const float* __restrict__ wm,
-    float* __restrict__ gx, int A, int C, int Kz, int lmax) {
+    const float* __restrict__ zi, const float* __restrict__ g, const float* __restrict__ maskf,
+    const int* __restrict__ pos, const float* ur, const float* us, float* __restrict__ part,
+    int B, int A, int C, int Kz, int ldu, int chunks, int lmax) {
   __shared__ PathTable pt;
-  const int tiles = (A + GX_JT - 1) / GX_JT;
-  const int b = blockIdx.x / tiles, j0 = (blockIdx.x - b * tiles) * GX_JT, tid = threadIdx.x;
+  const int tiles = (A + GQ - 1) / GQ, tid = threadIdx.x;
+  const int jt = blockIdx.x % tiles, bc = blockIdx.x / tiles;  // blocks of one (b, chunk) adjacent
+  const int b = bc / chunks, ch = bc - b * chunks;
+  const int per = (A + chunks - 1) / chunks, i_lo = min(A, ch * per), i_hi = min(A, i_lo + per);
   const int S = (lmax + 1) * (lmax + 1);
   if (tid == 0) build_paths(pt, lmax);
   __syncthreads();
-  const int PC = pt.n * C;
+  for (int c0 = 0; c0 < C; c0 += NT) {
+    const int c = c0 + tid;
+    const GxGroup f{pt, zi, g, maskf, ur, us, pos, part + ((size_t)ch * B + b) * S * A * C,
+                    (size_t)b, i_lo, i_hi, jt * GQ, A, C, S, Kz, ldu, c < C ? c : 0, c < C};
+    for (int l2 = 0; l2 <= lmax; ++l2) with_l(l2, f);
+  }
+}
+
+// out[idx] = the partials summed in order: the same bits every run
+__global__ void qhnet_chunk_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                       int chunks, long long n) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  float s = 0.f;
+  for (int ch = 0; ch < chunks; ++ch) s += part[ch * n + idx];
+  out[idx] = s;
+}
+
+// ---------------------------------------------------------------------------
+// kernel L, tensor-product stage: one block per (molecule b, receiver i, path split); owns
+// gzi[b,i] on its paths. Per path and LQ live senders: term[q][m] = sum_b zi[(b,m)] x[b][q],
+// gw = sum_m term g, gt = w g in the same registers, then gzi[(b,m)] += sum_q gt[q][m]
+// x[b][q]; u_r, u_s of the pair's row become gu_r = gw u_s maskf, gu_s = gw u_r maskf in
+// place.
+// ---------------------------------------------------------------------------
+
+// one path of L's stage for one thread's channel, its (l2, l3) at compile time
+struct PairPathBwd {
+  const float* zp;  // the path's zi rows: zi + (bi*Kz + zi_off)*C + c
+  const float* xb;  // x + b*S*A*C + c
+  const float* gi;  // g + bi*S*A*C + c
+  const int* js;    // the live senders
+  const float* mf_s;
+  float *ur, *us, *gz_s;
+  int nl, e0, A, C, ldu, col, tid;
+  bool act;
+  template <int L2, int L3>
+  __device__ __forceinline__ void run() const {
+    constexpr int N2 = 2 * L2 + 1, M3 = 2 * L3 + 1;
+#pragma unroll
+    for (int k = 0; k < N2 * M3; ++k) gz_s[k * NT + tid] = 0.f;
+    for (int n0 = 0; n0 < nl; n0 += LQ) {
+      float xq[LQ][N2], t[LQ][M3], wq[LQ], vr[LQ], vs[LQ], gw[LQ];
+      int jq[LQ];
+#pragma unroll
+      for (int q = 0; q < LQ; ++q) {
+        const bool in = n0 + q < nl;
+        jq[q] = in ? js[n0 + q] : 0;
+        const size_t at = (size_t)(e0 + n0 + q) * ldu + col;
+        vr[q] = in ? ur[at] : 0.f;
+        vs[q] = in ? us[at] : 0.f;
+        wq[q] = vr[q] * vs[q] * (in ? mf_s[n0 + q] : 0.f);
+        gw[q] = 0.f;
+#pragma unroll
+        for (int bb = 0; bb < N2; ++bb)
+          xq[q][bb] = in ? xb[((size_t)(L2 * L2 + bb) * A + jq[q]) * C] : 0.f;
+#pragma unroll
+        for (int m = 0; m < M3; ++m) t[q][m] = 0.f;
+      }
+      // term[q][m] = sum_b zi[(b,m)] x[l2^2+b][j_q]
+#pragma unroll
+      for (int bb = 0; bb < N2; ++bb)
+#pragma unroll
+        for (int m = 0; m < M3; ++m) {
+          const float z = __ldg(zp + (size_t)(bb * M3 + m) * C);
+#pragma unroll
+          for (int q = 0; q < LQ; ++q) t[q][m] = fmaf(z, xq[q][bb], t[q][m]);
+        }
+      // gw[q] = sum_m term g; t becomes gt = w g
+#pragma unroll
+      for (int q = 0; q < LQ; ++q) {
+        const bool in = n0 + q < nl;
+#pragma unroll
+        for (int m = 0; m < M3; ++m) {
+          const float gm = in ? gi[((size_t)(L3 * L3 + m) * A + jq[q]) * C] : 0.f;
+          gw[q] = fmaf(t[q][m], gm, gw[q]);
+          t[q][m] = wq[q] * gm;
+        }
+      }
+      // gzi[(b,m)] += sum_q gt[q][m] x[l2^2+b][j_q]
+#pragma unroll
+      for (int bb = 0; bb < N2; ++bb)
+#pragma unroll
+        for (int m = 0; m < M3; ++m) {
+          float sum = 0.f;
+#pragma unroll
+          for (int q = 0; q < LQ; ++q) sum = fmaf(t[q][m], xq[q][bb], sum);
+          gz_s[(bb * M3 + m) * NT + tid] += sum;
+        }
+      if (act) {
+#pragma unroll
+        for (int q = 0; q < LQ; ++q) {
+          if (n0 + q >= nl) break;
+          const float mf = mf_s[n0 + q];
+          const size_t at = (size_t)(e0 + n0 + q) * ldu + col;
+          ur[at] = gw[q] * vs[q] * mf;
+          us[at] = gw[q] * vr[q] * mf;
+        }
+      }
+    }
+  }
+};
+
+__host__ __device__ inline size_t pair_tp_bwd_smem(int A) {
+  return sizeof(float) * ((size_t)MXX * NT + (size_t)A) + sizeof(int) * (size_t)A;
+}
+
+__global__ void __launch_bounds__(NT) qhnet_pair_tp_bwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ zi, const float* __restrict__ maskf,
+    const float* __restrict__ g, const int* __restrict__ eidx, const int* __restrict__ rs,
+    float* ur, float* us, float* __restrict__ gzi, int A, int C, int Kz, int ldu, int lmax) {
+  extern __shared__ float4 smem4[];
+  __shared__ PathTable pt;
+  const int bi = blockIdx.x / L_SPLITS, sp = blockIdx.x - bi * L_SPLITS, b = bi / A;
+  const int tid = threadIdx.x, S = (lmax + 1) * (lmax + 1);
+  const int e0 = rs[bi], nl = rs[bi + 1] - e0;  // the live pairs (b, i, .), rows e0..
+  float* gz_s = reinterpret_cast<float*>(smem4);  // [MXX][NT], each thread its own column
+  float* mf_s = gz_s + (size_t)MXX * NT;          // [A]: maskf of the live senders
+  int* js = reinterpret_cast<int*>(mf_s + A);     // [A]: the live senders j
+  if (tid == 0) build_paths(pt, lmax);
+  for (int n = tid; n < nl; n += NT) {
+    const int j = eidx[e0 + n] - bi * A;
+    js[n] = j;
+    mf_s[n] = maskf[(size_t)bi * A + j];
+  }
+  __syncthreads();
+  float* gzb = gzi + (size_t)bi * Kz * C;
+  // rows of the zi layout no path uses (its padding) get zero cotangents
+  if (sp == 0)
+    for (int idx = tid; idx < (Kz - pt.zi_used) * C; idx += NT)
+      gzb[(size_t)pt.zi_used * C + idx] = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += NT) {
     const int c = c0 + tid;
     const bool act = c < C;
     const int cc = act ? c : 0;
-    for (int l2 = 0; l2 <= lmax; ++l2) {
-      const int n2 = 2 * l2 + 1;
-      float acc[GX_JT][MX];
-#pragma unroll
-      for (int q = 0; q < GX_JT; ++q)
-#pragma unroll
-        for (int bb = 0; bb < MX; ++bb) acc[q][bb] = 0.f;
-      for (int e = pt.l2_start[l2]; e < pt.l2_start[l2 + 1]; ++e) {
-        const int p = pt.by_l2[e], l3 = pt.l3[p], m3 = 2 * l3 + 1;
-        for (int i = 0; i < A; ++i) {
-          const size_t bi = (size_t)b * A + i;
-          float wq[GX_JT];
-#pragma unroll
-          for (int q = 0; q < GX_JT; ++q)
-            wq[q] = j0 + q < A ? wm[(bi * A + j0 + q) * PC + p * C + cc] : 0.f;
-          const float* zp = zi + (bi * Kz + pt.zi_off[p]) * C + cc;
-          const float* gp = g + ((bi * S + l3 * l3) * A + j0) * C + cc;
-#pragma unroll
-          for (int m = 0; m < MX; ++m) {
-            if (m >= m3) break;
-            float wg[GX_JT];
-#pragma unroll
-            for (int q = 0; q < GX_JT; ++q)
-              wg[q] = j0 + q < A ? wq[q] * gp[((size_t)m * A + q) * C] : 0.f;
-#pragma unroll
-            for (int bb = 0; bb < MX; ++bb) {
-              if (bb >= n2) break;
-              const float z = __ldg(zp + (size_t)(bb * m3 + m) * C);
-#pragma unroll
-              for (int q = 0; q < GX_JT; ++q) acc[q][bb] = fmaf(wg[q], z, acc[q][bb]);
-            }
-          }
-        }
-      }
-      if (act) {
-#pragma unroll
-        for (int q = 0; q < GX_JT; ++q) {
-          if (j0 + q >= A) break;
-#pragma unroll
-          for (int bb = 0; bb < MX; ++bb)
-            if (bb < n2) gx[(((size_t)b * S + l2 * l2 + bb) * A + j0 + q) * C + c] = acc[q][bb];
-        }
-      }
+    for (int p = sp; p < pt.n; p += L_SPLITS) {
+      const int l2 = pt.l2[p], l3 = pt.l3[p], nz = (2 * l2 + 1) * (2 * l3 + 1);
+      const PairPathBwd f{zi + ((size_t)bi * Kz + pt.zi_off[p]) * C + cc,
+                          x + (size_t)b * S * A * C + cc, g + (size_t)bi * S * A * C + cc, js,
+                          mf_s, ur, us, gz_s, nl, e0, A, C, ldu, p * C + cc, tid, act};
+      with_ls(l2, l3, f);
+      if (act)
+        for (int k = 0; k < nz; ++k) gzb[((size_t)pt.zi_off[p] + k) * C + c] = gz_s[k * NT + tid];
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// gh = gu @ W2^T: out[M,N] = a[M,K] b[N,K]^T, 64 rows x BN columns per block, each
-// output summed over K in order by one thread
-// ---------------------------------------------------------------------------
-
-template <int BN>
-__global__ void __launch_bounds__(256) qhnet_gemm_nt_kernel(const float* __restrict__ a,
-                                                             const float* __restrict__ bm,
-                                                             float* __restrict__ out, int M,
-                                                             int N, int K) {
-  constexpr int BM = 64, BK = 16, TC = BN / 4, TR = 256 / TC, RPT = BM / TR;
-  __shared__ float a_s[BK][BM + 1];
-  __shared__ float b_s[BK][BN + 1];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, tid = threadIdx.x;
-  const int tr = tid / TC, tc = tid % TC;
-  float acc[RPT][4];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += 256) {
-      const int mm = idx / BK, kk = idx % BK;
-      a_s[kk][mm] = (m0 + mm < M && k0 + kk < K) ? a[(size_t)(m0 + mm) * K + k0 + kk] : 0.f;
-    }
-    for (int idx = tid; idx < BN * BK; idx += 256) {
-      const int nn = idx / BK, kk = idx % BK;
-      b_s[kk][nn] = (n0 + nn < N && k0 + kk < K) ? bm[(size_t)(n0 + nn) * K + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float bv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = b_s[kk][tc + TC * q];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float av = a_s[kk][tr + TR * r];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av, bv[q], acc[r][q]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int m = m0 + tr + TR * r;
-    if (m >= M) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tc + TC * q;
-      if (n < N) out[(size_t)m * N + n] = acc[r][q];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// weight gradients: part[b * GW_SPLITS + sp] ([K+1, N]) = sum over the pairs of slice
-// sp of molecule b of x[p]^T y[p], row K the bias (x's implicit column of ones);
-// x [B, A*A, K] (the gate hiddens), y [B, A*A, N] (gu). Each thread RH rows x 4 columns.
-// ---------------------------------------------------------------------------
-
-template <int RH>
-__global__ void __launch_bounds__(256) qhnet_gw_kernel(const float* __restrict__ xm,
-                                                       const float* __restrict__ ym,
-                                                       float* __restrict__ part, int P, int K,
-                                                       int N) {
-  constexpr int RT = 16 * RH;
-  __shared__ float x_s[GW_PT][RT];
-  __shared__ float y_s[GW_PT][GW_NT];
-  const int n0 = blockIdx.x * GW_NT, r0 = blockIdx.y * RT, z = blockIdx.z;
-  const int b = z / GW_SPLITS, sp = z - b * GW_SPLITS;
-  const int per = (P + GW_SPLITS - 1) / GW_SPLITS;
-  const int p_lo = sp * per, p_hi = min(P, p_lo + per);
-  const int tid = threadIdx.x, tr = tid / 16, tn = tid % 16;
-  float acc[RH][4];
-#pragma unroll
-  for (int h = 0; h < RH; ++h)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[h][q] = 0.f;
-  for (int p0 = p_lo; p0 < p_hi; p0 += GW_PT) {
-    for (int idx = tid; idx < GW_PT * RT; idx += 256) {
-      const int pp = idx / RT, rr = idx - pp * RT;
-      const int p = p0 + pp, r = r0 + rr;
-      const bool in = p < p_hi;
-      x_s[pp][rr] = !in ? 0.f : (r < K ? xm[((size_t)b * P + p) * K + r] : (r == K ? 1.f : 0.f));
-    }
-    for (int idx = tid; idx < GW_PT * GW_NT; idx += 256) {
-      const int pp = idx / GW_NT, nn = idx - pp * GW_NT;
-      const int p = p0 + pp, n = n0 + nn;
-      y_s[pp][nn] = (p < p_hi && n < N) ? ym[((size_t)b * P + p) * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int pp = 0; pp < GW_PT; ++pp) {
-      float y[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) y[q] = y_s[pp][tn + 16 * q];
-#pragma unroll
-      for (int h = 0; h < RH; ++h) {
-        const float xv = x_s[pp][tr + 16 * h];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[h][q] = fmaf(xv, y[q], acc[h][q]);
-      }
-    }
-    __syncthreads();
-  }
-  float* o = part + (size_t)z * (K + 1) * N;
-#pragma unroll
-  for (int h = 0; h < RH; ++h) {
-    const int r = r0 + tr + 16 * h;
-    if (r > K) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tn + 16 * q;
-      if (n < N) o[(size_t)r * N + n] = acc[h][q];
-    }
-  }
-}
-
-// out[idx] = sum over the nparts partials, in order: the same bits every run
-__global__ void qhnet_gw_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                       int nparts, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < nparts; ++z) s += part[(size_t)z * n + idx];
-  out[idx] = s;
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int BN>
-cudaError_t launch_gemm_nt(const float* a, const float* bm, float* out, int M, int N, int K,
-                           cudaStream_t s) {
-  const dim3 grid((M + 63) / 64, (N + BN - 1) / BN);
-  qhnet_gemm_nt_kernel<BN><<<grid, 256, 0, s>>>(a, bm, out, M, N, K);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// J and L on the host: the live pairs, the gate products and their gradients on the engine
+// ---------------------------------------------------------------------------
+
+// what a backward call carves from its scratch
+struct Bwd {
+  float *ur, *us, *gxpart;  // u_r, u_s (then gu_r, gu_s) [max_rows, ldu]; gx partials
+  int *flags, *eidx, *pos, *rs, *n_rows;
+  int chunks;  // gx partials: J's path splits, L's receiver chunks
+  Engine en;
+};
+
+long long scratch_floats(bool pair, int B, int A, int C, int H1, int H2, int lmax) {
+  const long long rows = (long long)B * A * A, ldu = round_up(n_paths(lmax) * C, 8);
+  const long long S = (lmax + 1) * (lmax + 1);
+  const int ch = pair ? gx_chunks(B, A) : J_SPLITS;
+  return 2 * rows * ldu + 2 * ldu * (H1 + H2) + part_bound(ldu) +
+         (ch > 1 ? ch * B * S * A * C : 0);
 }
 
-// gh [M, H] = gu [M, PC] @ W2 [H, PC]^T, the tile width fitted to H
-cudaError_t gate_hidden_grad(const float* gu, const float* w2, float* gh, int M, int H, int PC,
-                             cudaStream_t s) {
-  if (H <= 16) return launch_gemm_nt<16>(gu, w2, gh, M, H, PC, s);
-  if (H <= 32) return launch_gemm_nt<32>(gu, w2, gh, M, H, PC, s);
-  return launch_gemm_nt<64>(gu, w2, gh, M, H, PC, s);
+long long scratch_ints(int B, int A) { return 3LL * B * A * A + (long long)B * A + 2; }
+
+Bwd carve(bool pair, int B, int A, int C, int H1, int H2, int lmax, float* f, int* iw) {
+  const long long rows = (long long)B * A * A, ldu = round_up(n_paths(lmax) * C, 8);
+  Bwd w{};
+  w.ur = f;
+  w.us = f + rows * ldu;
+  float* prep = w.us + rows * ldu;
+  const long long prep_n = 2 * ldu * (H1 + H2), part_n = part_bound(ldu);
+  w.chunks = pair ? gx_chunks(B, A) : J_SPLITS;
+  w.gxpart = w.chunks > 1 ? prep + prep_n + part_n : nullptr;
+  w.flags = iw;
+  w.eidx = iw + rows;
+  w.pos = iw + 2 * rows;
+  w.rs = iw + 3 * rows;
+  w.n_rows = w.rs + (long long)B * A + 1;
+  w.en = Engine{rows, w.n_rows, w.eidx, prep, prep_n, prep + prep_n, part_n};
+  return w;
 }
 
-// [gW2; gb2] [H+1, PC] = sum over pairs of [h, 1]^T gu, by partials and a fixed-order sum
-cudaError_t gate_weight_grad(const float* h, const float* gu, float* part, float* out, int B,
-                             int P, int H, int PC, cudaStream_t s) {
-  const int rt = H + 1 <= 16 ? 16 : 48;
-  const dim3 grid((PC + GW_NT - 1) / GW_NT, (H + 1 + rt - 1) / rt, B * GW_SPLITS);
-  if (rt == 16)
-    qhnet_gw_kernel<1><<<grid, 256, 0, s>>>(h, gu, part, P, H, PC);
-  else
-    qhnet_gw_kernel<3><<<grid, 256, 0, s>>>(h, gu, part, P, H, PC);
+// the live pairs from row flags of t [B*A*A, ld] (its first `used` values)
+cudaError_t live_pairs(const Bwd& w, const float* t, int ld, int used, int B, int A,
+                       cudaStream_t st) {
+  const long long npairs = (long long)B * A * A;
+  qhnet_flags_kernel<<<(unsigned)((npairs * 32 + 255) / 256), 256, 0, st>>>(t, w.flags, npairs,
+                                                                           ld, used);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = (H + 1) * PC;
-  qhnet_gw_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, out, B * GW_SPLITS, n);
+  so2_scan_kernel<<<1, 1024, 0, st>>>(w.flags, w.eidx, w.pos, w.rs, w.n_rows, (int)npairs, A);
   return cudaGetLastError();
 }
 
-// both gates' hidden and weight cotangents from the per-pair gu_r, gu_s
-cudaError_t gate_grads(const float* hr, const float* hs, const float* w2r, const float* w2s,
-                       const float* gu_r, const float* gu_s, float* ghr, float* ghs,
-                       float* gwb_r, float* gwb_s, float* part_r, float* part_s, int B, int A,
-                       int H1, int H2, int PC, cudaStream_t s) {
-  const int M = B * A * A;
-  cudaError_t err = gate_hidden_grad(gu_r, w2r, ghr, M, H1, PC, s);
-  if (err == cudaSuccess) err = gate_hidden_grad(gu_s, w2s, ghs, M, H2, PC, s);
-  if (err == cudaSuccess) err = gate_weight_grad(hr, gu_r, part_r, gwb_r, B, A * A, H1, PC, s);
-  if (err == cudaSuccess) err = gate_weight_grad(hs, gu_s, part_s, gwb_s, B, A * A, H2, PC, s);
-  return err;
+// u_r = h_r W2r + b2r and u_s = h_s W2s + b2s of the live pairs, into their compact rows
+cudaError_t gate_products(const Bwd& w, const float* hr, const float* hs, const float* w2r,
+                          const float* b2r, const float* w2s, const float* b2s, int H1, int H2,
+                          int ldu, cudaStream_t st) {
+  NNProb pr = prob({seg(hr, H1, w2r, ldu, H1)}, ldu, EPI_GATES, w.ur, ldu);
+  NNProb ps = prob({seg(hs, H2, w2s, ldu, H2)}, ldu, EPI_GATES, w.us, ldu);
+  pr.gather = ps.gather = 1;
+  pr.bias = b2r;
+  ps.bias = b2s;
+  return launch_products(w.en, {pr, ps}, st);
+}
+
+// from gu_r, gu_s (compact rows): gh = gu W2^T scattered to the pair slots (the dead pairs'
+// rows keep the caller's zeros), and gwb = [gW2; gb2] [H+1, ldu] over the live pairs
+cudaError_t gate_grads(const Bwd& w, const float* hr, const float* hs, const float* w2r,
+                       const float* w2s, float* ghr, float* ghs, float* gwb_r, float* gwb_s,
+                       int H1, int H2, int ldu, cudaStream_t st) {
+  NNProb pr = prob({seg(w.ur, ldu, w2r, ldu, ldu, true)}, H1, EPI_STORE, ghr, H1);
+  NNProb ps = prob({seg(w.us, ldu, w2s, ldu, ldu, true)}, H2, EPI_STORE, ghs, H2);
+  pr.scatter = ps.scatter = 1;
+  cudaError_t err = launch_products(w.en, {pr, ps}, st);
+  if (err != cudaSuccess) return err;
+  const std::vector<TNProb> tp = {
+      tprob({TSeg{hr, w.ur, H1, ldu, 1.f}}, A_GATHER, H1, ldu, gwb_r, ldu),
+      tprob({TSeg{hs, w.us, H2, ldu, 1.f}}, A_GATHER, H2, ldu, gwb_s, ldu),
+      tprob({TSeg{nullptr, w.ur, 0, ldu, 1.f}}, A_ONES, 1, ldu, gwb_r + (size_t)H1 * ldu, ldu),
+      tprob({TSeg{nullptr, w.us, 0, ldu, 1.f}}, A_ONES, 1, ldu, gwb_s + (size_t)H2 * ldu, ldu)};
+  return launch_wgrads(w.en, tp, st);
+}
+
+bool bwd_shapes_ok(int H1, int H2, int lmax) {
+  return lmax >= 0 && lmax <= LMAXK && H1 > 0 && H2 > 0 && H1 % 8 == 0 && H2 % 8 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Partials per molecule of the weight-gradient stage: the wrappers size the
-// [B * splits, H + 1, PC] scratch by it.
-int qhnet_gw_splits() { return GW_SPLITS; }
+// float and int scratch of a backward entry point (pair 0: kernel J, 1: kernel L), for the
+// padded gate widths H1, H2 it is given
+long long qhnet_bwd_scratch_floats(int pair, int B, int A, int C, int H1, int H2, int lmax) {
+  return scratch_floats(pair != 0, B, A, C, H1, H2, lmax);
+}
+
+long long qhnet_bwd_scratch_ints(int B, int A) { return scratch_ints(B, A); }
 
 // Each returns a cudaError_t (0 = success), launches on `stream`, does not sync;
 // cudaErrorInvalidValue for lmax above 4.
@@ -827,28 +886,6 @@ int qhnet_conv_fwd(const float* x, const float* cgsh, const float* hr, const flo
   return (int)cudaGetLastError();
 }
 
-// gwb_r [H1+1, PC] (gW2r over gb2r), gwb_s [H2+1, PC]; scratch gu_r, gu_s [B,A,A,PC],
-// part_r [B*splits, H1+1, PC], part_s [B*splits, H2+1, PC]
-int qhnet_conv_bwd(const float* x, const float* cgsh, const float* hr, const float* hs,
-                   const float* w2r, const float* b2r, const float* w2s, const float* b2s,
-                   const float* g, float* gx, float* ghr, float* ghs, float* gwb_r, float* gwb_s,
-                   float* gu_r, float* gu_s, float* part_r, float* part_s, int B, int A, int C,
-                   int H1, int H2, int K, int lmax, void* stream) {
-  if (lmax < 0 || lmax > LMAXK) return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0 || C == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int S = (lmax + 1) * (lmax + 1), PC = n_paths(lmax) * C;
-  const size_t smem = conv_bwd_smem(A, H1, H2, S);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(qhnet_conv_bwd_kernel), smem);
-  if (err != cudaSuccess) return (int)err;
-  qhnet_conv_bwd_kernel<<<B * A, NT, smem, s>>>(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, g, gx,
-                                                gu_r, gu_s, A, C, H1, H2, K, lmax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)gate_grads(hr, hs, w2r, w2s, gu_r, gu_s, ghr, ghs, gwb_r, gwb_s, part_r, part_s,
-                         B, A, H1, H2, PC, s);
-}
-
 int qhnet_pair_fwd(const float* x, const float* zi, const float* maskf, const float* hr,
                    const float* hs, const float* w2r, const float* b2r, const float* w2s,
                    const float* b2s, float* out, int B, int A, int C, int H1, int H2, int Kz,
@@ -864,30 +901,70 @@ int qhnet_pair_fwd(const float* x, const float* zi, const float* maskf, const fl
   return (int)cudaGetLastError();
 }
 
-// as qhnet_conv_bwd, plus gzi [B,A,Kz,C] and the scratch wm [B,A,A,PC] (masked w)
+// The backward entry points take the gates padded by zeros: h_r [B,A,A,H1], h_s [B,A,A,H2]
+// with H1, H2 multiples of 8 (else cudaErrorInvalidValue), W2r [H1,ldu], W2s [H2,ldu], b2r,
+// b2s [ldu], ldu = P*C rounded up to 8. ghr [B,A,A,H1] and ghs [B,A,A,H2] must hold zeros
+// (only the live pairs' rows are written); gwb_r [H1+1, ldu] is gW2r over gb2r (likewise
+// gwb_s); scratch and iscratch as qhnet_bwd_scratch_floats / _ints size them.
+int qhnet_conv_bwd(const float* x, const float* cgsh, const float* hr, const float* hs,
+                   const float* w2r, const float* b2r, const float* w2s, const float* b2s,
+                   const float* g, float* gx, float* ghr, float* ghs, float* gwb_r, float* gwb_s,
+                   float* scratch, int* iscratch, int B, int A, int C, int H1, int H2, int K,
+                   int lmax, void* stream) {
+  if (!bwd_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0 || C == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int S = (lmax + 1) * (lmax + 1), ldu = round_up(n_paths(lmax) * C, 8);
+  const Bwd w = carve(false, B, A, C, H1, H2, lmax, scratch, iscratch);
+  cudaError_t err = live_pairs(w, cgsh, K, cg_columns(lmax), B, A, st);
+  if (err == cudaSuccess) err = gate_products(w, hr, hs, w2r, b2r, w2s, b2s, H1, H2, ldu, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = conv_tp_bwd_smem(A, S);
+  if ((err = set_smem(reinterpret_cast<const void*>(qhnet_conv_tp_bwd_kernel), smem)) !=
+      cudaSuccess)
+    return (int)err;
+  qhnet_conv_tp_bwd_kernel<<<B * A * J_SPLITS, NT, smem, st>>>(x, cgsh, g, w.pos, w.ur, w.us,
+                                                               w.gxpart, B, A, C, K, ldu, lmax);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long n = (long long)B * S * A * C;
+  qhnet_chunk_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(w.gxpart, gx, J_SPLITS, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)gate_grads(w, hr, hs, w2r, w2s, ghr, ghs, gwb_r, gwb_s, H1, H2, ldu, st);
+}
+
+// as qhnet_conv_bwd, plus gzi [B,A,Kz,C]
 int qhnet_pair_bwd(const float* x, const float* zi, const float* maskf, const float* hr,
                    const float* hs, const float* w2r, const float* b2r, const float* w2s,
                    const float* b2s, const float* g, float* gx, float* gzi, float* ghr,
-                   float* ghs, float* gwb_r, float* gwb_s, float* gu_r, float* gu_s, float* wm,
-                   float* part_r, float* part_s, int B, int A, int C, int H1, int H2, int Kz,
-                   int lmax, void* stream) {
-  if (lmax < 0 || lmax > LMAXK) return (int)cudaErrorInvalidValue;
+                   float* ghs, float* gwb_r, float* gwb_s, float* scratch, int* iscratch, int B,
+                   int A, int C, int H1, int H2, int Kz, int lmax, void* stream) {
+  if (!bwd_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0 || C == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int PC = n_paths(lmax) * C;
-  const size_t smem = pair_bwd_smem(A, H1, H2);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(qhnet_pair_bwd_kernel), smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int S = (lmax + 1) * (lmax + 1), ldu = round_up(n_paths(lmax) * C, 8);
+  const Bwd w = carve(true, B, A, C, H1, H2, lmax, scratch, iscratch);
+  cudaError_t err = live_pairs(w, maskf, 1, 1, B, A, st);
+  if (err == cudaSuccess) err = gate_products(w, hr, hs, w2r, b2r, w2s, b2s, H1, H2, ldu, st);
   if (err != cudaSuccess) return (int)err;
-  qhnet_pair_bwd_kernel<<<B * A, NT, smem, s>>>(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, g,
-                                                gzi, gu_r, gu_s, wm, A, C, H1, H2, Kz, lmax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (A + GX_JT - 1) / GX_JT;
-  qhnet_pair_gx_kernel<<<B * tiles, NT, 0, s>>>(zi, g, wm, gx, A, C, Kz, lmax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)gate_grads(hr, hs, w2r, w2s, gu_r, gu_s, ghr, ghs, gwb_r, gwb_s, part_r, part_s,
-                         B, A, H1, H2, PC, s);
+  // gx first: it reads u, which the tensor-product stage then turns into gu
+  const int tiles = (A + GQ - 1) / GQ;
+  float* part = w.chunks > 1 ? w.gxpart : gx;
+  qhnet_pair_gx_kernel<<<B * w.chunks * tiles, NT, 0, st>>>(zi, g, maskf, w.pos, w.ur, w.us, part,
+                                                            B, A, C, Kz, ldu, w.chunks, lmax);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (w.chunks > 1) {
+    const long long n = (long long)B * S * A * C;
+    qhnet_chunk_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, gx, w.chunks, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const size_t smem = pair_tp_bwd_smem(A);
+  if ((err = set_smem(reinterpret_cast<const void*>(qhnet_pair_tp_bwd_kernel), smem)) !=
+      cudaSuccess)
+    return (int)err;
+  qhnet_pair_tp_bwd_kernel<<<B * A * L_SPLITS, NT, smem, st>>>(
+      x, zi, maskf, g, w.eidx, w.rs, w.ur, w.us, gzi, A, C, Kz, ldu, lmax);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)gate_grads(w, hr, hs, w2r, w2s, ghr, ghs, gwb_r, gwb_s, H1, H2, ldu, st);
 }
 
 }  // extern "C"

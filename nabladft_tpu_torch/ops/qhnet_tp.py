@@ -30,6 +30,13 @@ caller's autograd adds the receiver-side node gradient through zi. Each
 kernel has a plain PyTorch version here that takes `lmax`; a wrapper takes
 it only for CPU tensors, and a CUDA tensor launches the kernel (sources in
 ``csrc/qhnet_tp.cu``) or raises.
+
+The backward kernels J and L run over the live pairs only (cgsh row, or
+maskf, not zero) and put the gate's three dense products (u, gh = gu @ W2ᵀ,
+[gW2; gb2] = [h, 1]ᵀ gu) on the tensor cores through the SO(2) product
+engine (3xTF32, fp32-accurate); `conv_bwd_staged` / `pair_bwd_staged` are
+that decomposition on plain tensors, held against the JAX VJPs in the CPU
+tests. The wrappers pad H1, H2 and P·C with zeros to multiples of 8.
 """
 
 from __future__ import annotations
@@ -50,8 +57,9 @@ S = (LMAX + 1) ** 2  # 25
 # launches of each CUDA kernel wrapper since the last reset
 LAUNCHES: Dict[str, int] = {"qhnet_conv_fwd": 0, "qhnet_conv_bwd": 0, "qhnet_pair_fwd": 0,
                             "qhnet_pair_bwd": 0}
-# weight-gradient partials per molecule (GW_SPLITS in csrc/qhnet_tp.cu)
-GW_SPLITS = 4
+# L's gx stage (csrc/qhnet_tp.cu `gx_chunks`): senders per thread, and the
+# blocks per multiprocessor (of 132) that the receiver chunks aim at
+GX_SENDERS, GX_WAVES, SMS = 8, 16, 132
 
 
 def reset_launches() -> None:
@@ -173,6 +181,20 @@ def pair_bwd_flops(b, a, c, h1, h2, lmax=LMAX) -> int:
     return int(b * a * per_prog)
 
 
+def flops_split(kind: str, b, a, c, h1, h2, lmax=LMAX) -> Tuple[int, int]:
+    """The FLOP model of kernel `kind` ("I", "J", "K" or "L") as (gate
+    products, the rest): the gate's second Dense u = h @ W2 (I, K), and in
+    the backward also gh = gu @ W2ᵀ and gW2 = hᵀ @ gu (J, L), each
+    2·(B·A²)·P·C·(H1+H2); the rest is the tensor products, the gate
+    multiplies and the bias sums, which stay on the CUDA cores."""
+    _, _, p = _path_mults(lmax)
+    gate = 2 * b * a * a * p * c * (h1 + h2)
+    n_prod = 1 if kind in "IK" else 3
+    total = {"I": conv_fwd_flops, "J": conv_bwd_flops, "K": pair_fwd_flops,
+             "L": pair_bwd_flops}[kind](b, a, c, h1, h2, lmax)
+    return n_prod * gate, total - n_prod * gate
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -237,6 +259,110 @@ def pair_bwd_reference(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = 
                 (True, True, False, True, True, True, True, True, True), g, lmax)
 
 
+def gx_chunks(b: int, a: int) -> int:
+    """Receiver chunks of L's gx stage (`gx_chunks` in csrc/qhnet_tp.cu): the
+    fewest receivers a chunk that still give B·chunks·⌈A/GX_SENDERS⌉ blocks
+    of about GX_WAVES per SM, no chunk empty."""
+    tiles = -(-a // GX_SENDERS)
+    per = max(1, -(-a * b * tiles // (GX_WAVES * SMS)))
+    return -(-a // per)
+
+
+def _live_rows(flags: torch.Tensor) -> torch.Tensor:
+    """The live pair slots b·A² + i·A + j in slot order (so2_scan_kernel's list)."""
+    return torch.nonzero(flags.reshape(-1)).flatten()
+
+
+def _gate_grads_staged(e, hr, hs, w2r, w2s, gur, gus):
+    """The gradient products of J and L over the live rows e: gh = gu @ W2ᵀ
+    (zeros off the live rows) and [gW2; gb2] = [h, 1]ᵀ gu."""
+    hr2, hs2 = hr.reshape(-1, hr.shape[-1]), hs.reshape(-1, hs.shape[-1])
+    ghr, ghs = torch.zeros_like(hr2), torch.zeros_like(hs2)
+    ghr[e], ghs[e] = gur @ w2r.T, gus @ w2s.T
+    return (ghr.reshape(hr.shape), ghs.reshape(hs.shape), hr2[e].T @ gur, gur.sum(0),
+            hs2[e].T @ gus, gus.sum(0))
+
+
+def conv_bwd_staged(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMAX):
+    """Kernel J's stages in the card's order, on plain tensors: the live
+    pairs (cgsh row not zero); u = h @ W2 + b2 over them (the gate
+    products); the tensor-product stage, per sender j: gx, and gu_r = gw·u_s,
+    gu_s = gw·u_r in place of u; then the gradient products. Returns
+    conv_bwd_reference's tuple."""
+    b, s, a, c = x.shape
+    offs, used = _cg_layout(lmax)
+    rows = cgsh.reshape(b * a * a, -1)
+    e = _live_rows((rows[:, :used] != 0).any(1))
+    bi, j = e // a, e % a  # bi = b·A + i
+    sender = bi // a * a + j
+    ur = hr.reshape(b * a * a, -1)[e] @ w2r + b2r
+    us = hs.reshape(b * a * a, -1)[e] @ w2s + b2s
+    gq = g.reshape(b * a, s, c)[bi]  # the receiver's cotangent, per live pair
+    xq = x.permute(0, 2, 1, 3).reshape(b * a, s, c)[sender]  # the sender's features
+    gxj = x.new_zeros(b * a, s, c)
+    for p, (l1, _, l3) in enumerate(tp_paths(lmax)):
+        n1, m3, sl = 2 * l1 + 1, 2 * l3 + 1, slice(p * c, (p + 1) * c)
+        cg = rows[e, offs[p]:offs[p] + n1 * m3].reshape(-1, n1, m3)
+        gm = gq[:, l3 * l3:l3 * l3 + m3]
+        gw = (torch.einsum("eam,eac->emc", cg, xq[:, l1 * l1:l1 * l1 + n1]) * gm).sum(1)
+        gxa = torch.einsum("eam,emc->eac", cg, gm) * (ur[:, sl] * us[:, sl])[:, None]
+        gxj[:, l1 * l1:l1 * l1 + n1].index_add_(0, sender, gxa)
+        ur[:, sl], us[:, sl] = gw * us[:, sl], gw * ur[:, sl]
+    gx = gxj.reshape(b, a, s, c).permute(0, 2, 1, 3).contiguous()
+    return (gx, *_gate_grads_staged(e, hr, hs, w2r, w2s, ur, us))
+
+
+def pair_bwd_staged(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMAX,
+                    chunks: int = 0):
+    """Kernel L's stages in the card's order, on plain tensors: the live
+    pairs (maskf not zero); u = h @ W2 + b2 over them; gx as `chunks`
+    (default `gx_chunks`) partial sums over receiver chunks, added in chunk
+    order; the tensor-product stage, per receiver i: gzi, and gu_r =
+    gw·u_s·maskf, gu_s = gw·u_r·maskf in place of u; then the gradient
+    products. Returns pair_bwd_reference's tuple."""
+    b, s, a, c = x.shape
+    kz = zi.shape[2]
+    offs, _ = _zi_layout(lmax)
+    paths = tp_paths(lmax)
+    e = _live_rows(maskf != 0)
+    bi, j = e // a, e % a
+    i, sender = bi % a, bi // a * a + j
+    mf = maskf.reshape(-1)[e][:, None]
+    ur = hr.reshape(b * a * a, -1)[e] @ w2r + b2r
+    us = hs.reshape(b * a * a, -1)[e] @ w2s + b2s
+    zq = zi.reshape(b * a, kz, c)[bi]
+    gq = g.permute(0, 1, 3, 2, 4).reshape(b * a * a, s, c)[e]  # g[b, i, :, j]
+    xq = x.permute(0, 2, 1, 3).reshape(b * a, s, c)[sender]
+
+    n_ch = chunks or gx_chunks(b, a)
+    per = -(-a // n_ch)
+    gx = None
+    for ch in range(n_ch):
+        sel = (i >= ch * per) & (i < (ch + 1) * per)
+        part = x.new_zeros(b * a, s, c)
+        for p, (_, l2, l3) in enumerate(paths):
+            n2, m3, sl = 2 * l2 + 1, 2 * l3 + 1, slice(p * c, (p + 1) * c)
+            w = ur[sel, sl] * us[sel, sl] * mf[sel]
+            z = zq[sel, offs[p]:offs[p] + n2 * m3].reshape(-1, n2, m3, c)
+            wg = gq[sel, l3 * l3:l3 * l3 + m3] * w[:, None]
+            part[:, l2 * l2:l2 * l2 + n2].index_add_(0, sender[sel],
+                                                     torch.einsum("enmc,emc->enc", z, wg))
+        gx = part if gx is None else gx + part
+
+    gzi = x.new_zeros(b * a, kz, c)
+    for p, (_, l2, l3) in enumerate(paths):
+        n2, m3, sl = 2 * l2 + 1, 2 * l3 + 1, slice(p * c, (p + 1) * c)
+        z = zq[:, offs[p]:offs[p] + n2 * m3].reshape(-1, n2, m3, c)
+        xb, gm = xq[:, l2 * l2:l2 * l2 + n2], gq[:, l3 * l3:l3 * l3 + m3]
+        gw = (torch.einsum("enmc,enc->emc", z, xb) * gm).sum(1)
+        gt = gm * (ur[:, sl] * us[:, sl] * mf)[:, None]
+        gzi[:, offs[p]:offs[p] + n2 * m3].index_add_(
+            0, bi, torch.einsum("emc,enc->enmc", gt, xb).reshape(-1, n2 * m3, c))
+        ur[:, sl], us[:, sl] = gw * us[:, sl] * mf, gw * ur[:, sl] * mf
+    gx = gx.reshape(b, a, s, c).permute(0, 2, 1, 3).contiguous()
+    return (gx, gzi.reshape(b, a, kz, c), *_gate_grads_staged(e, hr, hs, w2r, w2s, ur, us))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -246,18 +372,18 @@ def pair_bwd_reference(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = 
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load("qhnet_tp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qhnet_gw_splits.argtypes = []
-    lib.qhnet_gw_splits.restype = i
+    lib.qhnet_bwd_scratch_floats.argtypes = [i] * 7
+    lib.qhnet_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.qhnet_bwd_scratch_ints.argtypes = [i, i]
+    lib.qhnet_bwd_scratch_ints.restype = ctypes.c_longlong
     lib.qhnet_conv_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.qhnet_conv_fwd.restype = i
-    lib.qhnet_conv_bwd.argtypes = [p] * 18 + [i] * 7 + [p]
+    lib.qhnet_conv_bwd.argtypes = [p] * 16 + [i] * 7 + [p]
     lib.qhnet_conv_bwd.restype = i
     lib.qhnet_pair_fwd.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.qhnet_pair_fwd.restype = i
-    lib.qhnet_pair_bwd.argtypes = [p] * 21 + [i] * 7 + [p]
+    lib.qhnet_pair_bwd.argtypes = [p] * 18 + [i] * 7 + [p]
     lib.qhnet_pair_bwd.restype = i
-    if lib.qhnet_gw_splits() != GW_SPLITS:
-        raise RuntimeError("csrc/qhnet_tp.cu and ops/qhnet_tp.py disagree on GW_SPLITS")
     return lib
 
 
@@ -309,11 +435,45 @@ def qhnet_conv_fwd(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -> tor
     return out
 
 
-def _gw_scratch(dev, b, a, h, pc):
-    """(per-pair cotangent gu [B,A,A,P·C], partials [B·splits, H+1, P·C],
-    gW over gb [H+1, P·C])."""
+def _padded_gates(hr, hs, w2r, b2r, w2s, b2s):
+    """The backward kernels' gate operands: H1, H2 and P·C padded by zeros to
+    multiples of 8 (the tensor-core products take K a multiple of 8); the
+    inputs themselves when nothing needs padding, as on QHNet's path."""
+    pc = w2r.shape[1]
+    pcp = _round_up(pc, 8)
+
+    def pad(h, w2, b2):
+        hp = _round_up(h.shape[-1], 8)
+        if hp == h.shape[-1] and pcp == pc:
+            return h, w2, b2
+        f = torch.nn.functional.pad
+        return (f(h, (0, hp - h.shape[-1])).contiguous(),
+                f(w2, (0, pcp - pc, 0, hp - w2.shape[0])).contiguous(), f(b2, (0, pcp - pc)))
+
+    (hr, w2r, b2r), (hs, w2s, b2s) = pad(hr, w2r, b2r), pad(hs, w2s, b2s)
+    return hr, hs, w2r, b2r, w2s, b2s
+
+
+def _bwd_buffers(dev, pair: bool, b, a, c, gates, lmax):
+    """(gh_r, gh_s zeros [B,A,A,H1p/H2p], gwb_r [H1p+1, P·Cp], gwb_s, float
+    scratch, int scratch) of a backward launch on padded `gates`."""
+    h1p, h2p, pcp = gates[0].shape[-1], gates[1].shape[-1], gates[2].shape[1]
+    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dev)
     empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
-    return empty((b, a, a, pc)), empty((b * GW_SPLITS, h + 1, pc)), empty((h + 1, pc))
+    nf = _lib().qhnet_bwd_scratch_floats(int(pair), b, a, c, h1p, h2p, lmax)
+    ni = _lib().qhnet_bwd_scratch_ints(b, a)
+    return (zeros((b, a, a, h1p)), zeros((b, a, a, h2p)), empty((h1p + 1, pcp)),
+            empty((h2p + 1, pcp)), empty((nf,)), torch.empty((ni,), dtype=torch.int32, device=dev))
+
+
+def _gate_cotangents(ghr, ghs, gwb_r, gwb_s, h1, h2, pc):
+    """(ghr, ghs, gW2r, gb2r, gW2s, gb2s) without the padding."""
+    def cut(t):
+        return t if t.is_contiguous() else t.contiguous()
+
+    return (cut(ghr[..., :h1]), cut(ghs[..., :h2]), cut(gwb_r[:h1, :pc]),
+            cut(gwb_r[gwb_r.shape[0] - 1, :pc]), cut(gwb_s[:h2, :pc]),
+            cut(gwb_s[gwb_s.shape[0] - 1, :pc]))
 
 
 def qhnet_conv_bwd(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMAX):
@@ -325,15 +485,13 @@ def qhnet_conv_bwd(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMAX):
     if dev.type == "cpu":
         return conv_bwd_reference(*args.values(), lmax=lmax)
     b, s, a, c, h1, h2, pc = dims
+    gates = _padded_gates(hr, hs, w2r, b2r, w2s, b2s)
     gx = torch.empty((b, s, a, c), dtype=torch.float32, device=dev)
-    ghr = torch.empty((b, a, a, h1), dtype=torch.float32, device=dev)
-    ghs = torch.empty((b, a, a, h2), dtype=torch.float32, device=dev)
-    gu_r, part_r, gwb_r = _gw_scratch(dev, b, a, h1, pc)
-    gu_s, part_s, gwb_s = _gw_scratch(dev, b, a, h2, pc)
-    _launch("qhnet_conv_bwd", *args.values(), gx, ghr, ghs, gwb_r, gwb_s, gu_r, gu_s, part_r,
-            part_s, b, a, c, h1, h2, k, lmax)
+    bufs = _bwd_buffers(dev, False, b, a, c, gates, lmax)
+    _launch("qhnet_conv_bwd", x, cgsh, *gates, g, gx, *bufs, b, a, c, gates[0].shape[-1],
+            gates[1].shape[-1], k, lmax)
     LAUNCHES["qhnet_conv_bwd"] += 1
-    return gx, ghr, ghs, gwb_r[:h1], gwb_r[h1], gwb_s[:h2], gwb_s[h2]
+    return (gx, *_gate_cotangents(*bufs[:4], h1, h2, pc))
 
 
 def qhnet_pair_fwd(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -> torch.Tensor:
@@ -361,17 +519,14 @@ def qhnet_pair_bwd(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMAX
     if dev.type == "cpu":
         return pair_bwd_reference(*args.values(), lmax=lmax)
     b, s, a, c, h1, h2, pc = dims
+    gates = _padded_gates(hr, hs, w2r, b2r, w2s, b2s)
     gx = torch.empty((b, s, a, c), dtype=torch.float32, device=dev)
     gzi = torch.empty((b, a, kz, c), dtype=torch.float32, device=dev)
-    ghr = torch.empty((b, a, a, h1), dtype=torch.float32, device=dev)
-    ghs = torch.empty((b, a, a, h2), dtype=torch.float32, device=dev)
-    gu_r, part_r, gwb_r = _gw_scratch(dev, b, a, h1, pc)
-    gu_s, part_s, gwb_s = _gw_scratch(dev, b, a, h2, pc)
-    wm = torch.empty((b, a, a, pc), dtype=torch.float32, device=dev)
-    _launch("qhnet_pair_bwd", *args.values(), gx, gzi, ghr, ghs, gwb_r, gwb_s, gu_r, gu_s, wm,
-            part_r, part_s, b, a, c, h1, h2, kz, lmax)
+    bufs = _bwd_buffers(dev, True, b, a, c, gates, lmax)
+    _launch("qhnet_pair_bwd", x, zi, maskf, *gates, g, gx, gzi, *bufs, b, a, c,
+            gates[0].shape[-1], gates[1].shape[-1], kz, lmax)
     LAUNCHES["qhnet_pair_bwd"] += 1
-    return gx, gzi, ghr, ghs, gwb_r[:h1], gwb_r[h1], gwb_s[:h2], gwb_s[h2]
+    return (gx, gzi, *_gate_cotangents(*bufs[:4], h1, h2, pc))
 
 
 class QHNetConvFn(torch.autograd.Function):
@@ -427,12 +582,25 @@ def pair_tp(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -> torch
 # ---------------------------------------------------------------------------
 
 
+def live_pairs(kind: str, table: torch.Tensor, lmax: int = LMAX) -> int:
+    """Pairs whose contribution is not zero: for I and J those whose cgsh row
+    (its path columns) is not zero, for K and L those maskf keeps (`table`
+    is cgsh or maskf)."""
+    if kind in "IJ":
+        return int((table[..., :_cg_layout(lmax)[1]] != 0).any(-1).sum())
+    return int((table != 0).sum())
+
+
 def flops_bytes(kind: str, x: torch.Tensor, table: torch.Tensor, hr: torch.Tensor,
-                hs: torch.Tensor, lmax: int = LMAX) -> Tuple[int, int]:
-    """(FLOPs, bytes) of kernel `kind` ("I", "J", "K" or "L") on these
-    inputs: FLOPs from the JAX package's analytic model; bytes with each
-    input read once and each output written once (`table` is cgsh for I/J,
-    zi for K/L)."""
+                hs: torch.Tensor, live: int, lmax: int = LMAX) -> Dict[str, int]:
+    """The work of kernel `kind` ("I", "J", "K" or "L") on these inputs:
+    "flops" the JAX package's analytic model over all B·A² pairs,
+    "flops_live" the same per pair times the `live` pairs (a dead pair adds
+    exact zeros: the bound counts what the data needs), "flops_live_products"
+    / "flops_live_other" its split (`flops_split`: the gate products, on the
+    tensor cores in J and L, and the rest), and "bytes" with each input read
+    once and each output written once (`table` is cgsh for I/J, zi for
+    K/L)."""
     b, s, a, c = x.shape
     h1, h2 = hr.shape[-1], hs.shape[-1]
     pc = len(tp_paths(lmax)) * c
@@ -441,6 +609,7 @@ def flops_bytes(kind: str, x: torch.Tensor, table: torch.Tensor, hr: torch.Tenso
     ins = x.numel() + table.numel() + hr.numel() + hs.numel() + weights
     flops = {"I": conv_fwd_flops, "J": conv_bwd_flops, "K": pair_fwd_flops,
              "L": pair_bwd_flops}[kind](b, a, c, h1, h2, lmax)
+    prod, other = flops_split(kind, b, a, c, h1, h2, lmax)
     n = {
         "I": ins + conv_out,
         "J": ins + conv_out + x.numel() + hr.numel() + hs.numel() + weights,
@@ -448,4 +617,7 @@ def flops_bytes(kind: str, x: torch.Tensor, table: torch.Tensor, hr: torch.Tenso
         "L": (ins + b * a * a + pair_out + x.numel() + table.numel() + hr.numel() + hs.numel()
               + weights),
     }[kind]
-    return flops, 4 * n
+    share = live / max(b * a * a, 1)
+    return {"flops": flops, "flops_live": int(flops * share),
+            "flops_live_products": int(prod * share), "flops_live_other": int(other * share),
+            "bytes": 4 * n, "live_pairs": live, "pairs": b * a * a}

@@ -90,6 +90,27 @@ def test_backward_kernels_repeat_their_bits(card, smoke, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["J", "L"])
+def test_backward_gate_products_run_on_the_engine(card, smoke, kind):
+    """J's and L's gate products (u, gh, [gW2; gb2]) are the tensor-core
+    engine's kernels; the CUDA-core products they replaced are gone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = smoke.qhnet_kernel_inputs(card, 2, 24, 128, (32, 32), (8, 128), seed=5)
+    fn = KERNELS[kind][0]
+    fn(*_args(smoke, kind, x))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*_args(smoke, kind, x))
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    stage = "qhnet_conv_tp_bwd_kernel" if kind == "J" else "qhnet_pair_tp_bwd_kernel"
+    for want in ("so2_mma_kernel", "so2_mmw_kernel", "so2_colsum_kernel", stage):
+        assert any(want in n for n in names), (want, sorted(names))
+    assert not any("qhnet_gemm_nt" in n or "qhnet_gw_" in n for n in names), sorted(names)
+
+
+@pytest.mark.cuda
 def test_masked_pairs_and_padded_atoms_give_exact_zeros(card, smoke):
     b, a = 3, 19
     x = smoke.qhnet_kernel_inputs(card, b, a, 40, (32, 32), (8, 128), seed=7)

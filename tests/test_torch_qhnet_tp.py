@@ -7,7 +7,15 @@ mask their own ragged edge). Forward values and every cotangent the
 contracts define (gx, gzi, ghr, ghs, gW2r, gb2r, gW2s, gb2s) within rtol
 2e-5 / atol 2e-5 (that file's tolerance for fp32 sums in another order).
 The path layouts and FLOP models equal the JAX ones at LMAX=4.
+
+The staged versions (`conv_bwd_staged`, `pair_bwd_staged`: the card's
+decomposition of J and L, the live pairs only, gate products, the
+tensor-product stage writing gu, the gradient products, L's gx as chunked
+partials summed in order) are held against the same JAX VJPs within
+1e-5 x max |output|.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -169,3 +177,65 @@ def test_wrappers_reject_bad_inputs(conv):
     bad[2] = bad[2].double()
     with pytest.raises(ValueError, match="float32"):
         qt.qhnet_conv_fwd(*bad, lmax=LM)
+
+
+STAGED_REL = 1e-5
+
+
+def _staged_close(got, want):
+    err = float(np.abs(got - want).max())
+    assert err <= STAGED_REL * float(np.abs(want).max()), err
+
+
+@pytest.fixture(scope="module")
+def staged(conv, pair):
+    return {"conv": dict(zip(CONV_GRADS, qt.conv_bwd_staged(*_conv_args(conv), _t(conv["g"]),
+                                                            lmax=LM))),
+            "pair": dict(zip(PAIR_GRADS, qt.pair_bwd_staged(*_pair_args(pair), _t(pair["g"]),
+                                                            lmax=LM))),
+            "pair_3_chunks": dict(zip(PAIR_GRADS, qt.pair_bwd_staged(
+                *_pair_args(pair), _t(pair["g"]), lmax=LM, chunks=3)))}
+
+
+@pytest.mark.parametrize("name", CONV_GRADS)
+def test_staged_conv_backward_matches_jax(conv, staged, name):
+    _staged_close(staged["conv"][name].numpy(), conv["grads"][name])
+
+
+@pytest.mark.parametrize("name", PAIR_GRADS)
+@pytest.mark.parametrize("run", ["pair", "pair_3_chunks"])
+def test_staged_pair_backward_matches_jax(pair, staged, run, name):
+    _staged_close(staged[run][name].numpy(), pair["grads"][name])
+
+
+@pytest.mark.parametrize("a", [32, 48, 64])
+def test_pair_gx_stage_fills_two_waves(a):
+    """L's gx stage at QHNet's buckets (B=8): at least two waves of blocks
+    on the 132 SMs."""
+    n = 8 * qt.gx_chunks(8, a) * -(-a // qt.GX_SENDERS)
+    assert n >= 2 * qt.SMS and qt.gx_chunks(8, a) <= a
+
+
+@pytest.mark.parametrize("kind", ["I", "J", "K", "L"])
+def test_flops_split_adds_up(kind):
+    """Gate products and the rest add up to the JAX package's model; the
+    products are 1 (forward) or 3 (backward) passes of 2·B·A²·P·C·(H1+H2)."""
+    b, a, c, h1, h2 = 8, 48, 128, *((32, 32) if kind in "IJ" else (8, 128))
+    total = getattr(K, {"I": "conv_fwd_flops", "J": "conv_bwd_flops", "K": "pair_fwd_flops",
+                        "L": "pair_bwd_flops"}[kind])(b, a, c, h1, h2)
+    prod, other = qt.flops_split(kind, b, a, c, h1, h2)
+    assert prod + other == total and other > 0
+    assert prod == (1 if kind in "IK" else 3) * 2 * b * a * a * 65 * c * (h1 + h2)
+    meta = functools.partial(torch.empty, device="meta")  # shapes only
+    x, hr, hs = meta(b, 25, a, c), meta(b, a, a, h1), meta(b, a, a, h2)
+    table = meta(b, a, a, 2304) if kind in "IJ" else meta(b, a, 2304, c)
+    work = qt.flops_bytes(kind, x, table, hr, hs, live=b * a * a // 2)
+    assert work["flops"] == total and work["flops_live"] == total // 2
+    assert abs(work["flops_live_products"] + work["flops_live_other"] - work["flops_live"]) <= 1
+
+
+def test_live_pairs_count_the_kernels_rows(conv, pair):
+    cgsh, maskf = _t(conv["cgsh"]), _t(pair["maskf"])
+    assert qt.live_pairs("J", cgsh, LM) == int((np.abs(conv["cgsh"]).sum(-1) > 0).sum())
+    assert qt.live_pairs("L", maskf, LM) == int(pair["maskf"].sum())
+

@@ -10,6 +10,9 @@ inputs at the scale of chip_smoke.eqv2_kernel_inputs (activations ~N(0, 0.5²),
 weights a linear layer's K^-1/2), it stays within the kernels' tolerance
 (2e-5 of max |C|, chip_smoke.KERNEL_RTOL) of float64, and one-pass TF32 does
 not.
+The same holds at QHNet's gate-gradient shapes (kernels J and L on the same
+engine): gh = gu @ W2ᵀ sums over K = P·C = 8,320, and gW2 = hᵀ @ gu over
+the 18,432 pairs of a batch at A=48.
 """
 
 import numpy as np
@@ -22,6 +25,9 @@ from nabladft_tpu_torch.ops import escn_layer as el
 KERNEL_RTOL = 2e-5
 # (K, N) of P's conv-1 products at configs/equiformer_v2.yaml's widths (2C = 256, CO = 128)
 SHAPES = [(7 * 256, 7 * 128), (2 * 6 * 256, 6 * 128), (2 * 5 * 256, 5 * 128)]
+# (K, N) of J's and L's gradient products at configs/qhnet.yaml's widths: gh (K = P·C,
+# N = the conv gates' 32) and gW2 (K = the B·A² pairs at A=48, N = a 128-column tile)
+QH_SHAPES = [(65 * 128, 32), (8 * 48 * 48, 128)]
 ROWS = 256
 
 
@@ -58,14 +64,14 @@ def test_tf32_rounding():
     assert float((r[4] - x[4]).abs()) <= 2.0 ** -11 * float(x[4])
 
 
-@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("k,n", SHAPES + QH_SHAPES)
 def test_3xtf32_within_kernel_tolerance(k, n):
     a, b = _inputs(k, n, k + n)
     ref = a.double() @ b.double()
     assert _rel(products_3xtf32(a, b), ref) <= KERNEL_RTOL
 
 
-@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("k,n", SHAPES + QH_SHAPES)
 def test_one_pass_tf32_is_not(k, n):
     a, b = _inputs(k, n, k + n)
     ref = a.double() @ b.double()
