@@ -28,7 +28,8 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                QHNet train path's shapes (B=8, A=32/48/64, C=128, LMAX 4, gate
                hiddens 32/32 for the conv and 8/128 for the pair; a/2..a real
                atoms, cgsh from the 12 Bohr radius graph, maskf the full
-               graph), the same lines; J and L run twice for the same bits.
+               graph), the same lines; each runs twice for the same bits and
+               its line carries each launched kernel's device ms (`stages_ms`).
                Their bounds count the live pairs (cgsh row or maskf not zero;
                the lines print the count): `bound_ms` with the gate products at
                the 3xTF32 tensor-core rate (as M-P, `tc_bound`), `bound_fma_ms`
@@ -70,9 +71,10 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                files; per atom bucket, the kernel path's parameter gradients and
                H against the plain module on the card and H's covariance under
                a rotation; molecules/s, seconds per epoch, peak device memory.
-     qhnet_train_profile — torch.profiler over two train steps; J's and L's
-               gate products must show there as the SO(2) engine's kernels
-               (so2_mma_kernel, so2_mmw_kernel).
+     qhnet_train_profile — torch.profiler over two train steps; the gate
+               products of I-L must show there as the SO(2) engine's kernels
+               (so2_mma_kernel two launches per I-L launch, so2_mmw_kernel)
+               and the bodies they replaced must not.
   6. kernel_M, kernel_N — eSCN's M (escn_fwd) and N (escn_bwd) at the eSCN
                paths' shapes (B=64, A=32/48/64), configs/escn-oc.yaml widths
                (l_max 6, m_max 2, C 128, H 256, EC 128), on eSCN-built inputs
@@ -314,16 +316,19 @@ def nvidia_smi() -> str:
 
 def ptxas_summary(log: str) -> dict:
     """{kernel: {"registers": n, "static_smem_bytes": n, "spill": "..."}} from
-    nvcc -Xptxas -v output (a template kernel's name carries its integer
-    arguments, as name<7,0>; dynamic shared memory is the launch's)."""
+    nvcc -Xptxas -v output (a template kernel's name carries its integer and
+    bool arguments, as name<7,0> or name<true>; dynamic shared memory is the
+    launch's)."""
     out, name = {}, None
     for line in log.splitlines():
-        # <file>_cu_<hash><len><name>, then I Li<n> E ... E for int template arguments
-        m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)((?:ILi\d+E(?:Li\d+E)*E)?)", line)
+        # <file>_cu_<hash><len><name>, then I L{i,b}<n> E ... E for template arguments
+        m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)((?:IL[ib]\d+E(?:L[ib]\d+E)*E)?)", line)
         if m and ("entry function" in line or "properties for" in line):
             name = m.group(1)
             if m.group(2):
-                name += "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+                args = re.findall(r"L([ib])(\d+)E", m.group(2))
+                name += "<" + ",".join(("false", "true")[int(v)] if k == "b" else v
+                                       for k, v in args) + ">"
             out.setdefault(name, {})
         elif name and "spill stores" in line:
             out[name]["spill"] = line.strip()
@@ -820,10 +825,13 @@ def profile_phase(phase: str, trainer, dm, n_batches: int = 2, top: int = 12) ->
     profile_steps(phase, trainer._predict_step, batches, top)
 
 
-def profile_steps(phase: str, step, batches, top: int = 12, present=(), absent=()) -> None:
+def profile_steps(phase: str, step, batches, top: int = 12, present=(), absent=(),
+                  calls=None) -> None:
     """torch.profiler over `step` on each batch: device time by kernel, and
     the device's busy share of the wall time. Each name in `present` must be
-    part of some kernel's name, and none in `absent` of any."""
+    part of some kernel's name, and none in `absent` of any; `calls()`, read
+    after the steps, gives {name: launches} that the kernels whose names
+    hold `name` must add up to."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -841,12 +849,15 @@ def profile_steps(phase: str, step, batches, top: int = 12, present=(), absent=(
         check(any(name in k for k, _, _ in events), f"{phase}: no kernel named {name}")
     for name in absent:
         check(not any(name in k for k, _, _ in events), f"{phase}: a kernel named {name}")
+    want = calls() if calls else {}
+    got = {name: sum(c for k, _, c in events if name in k) for name in want}
+    check(got == want, f"{phase}: launches {got}, expected {want}")
     emit(phase, batches=len(batches), batch_shapes=[list(b.z.shape) for b in batches],
          wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
          device_busy_share=device_us / wall_us,
          top=[{"name": k[:80], "device_ms": t / 1e3, "share": t / max(device_us, 1e-9),
                "calls": c} for k, t, c in events[:top]],
-         present=list(present), absent=list(absent))
+         present=list(present), absent=list(absent), calls=got)
 
 
 def read_csv(path: Path) -> list:
@@ -1094,7 +1105,7 @@ def stage_times(fn, args) -> dict:
     out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            name = re.sub(r"^\(anonymous namespace\)::|\(.*$", "", e.key)[:60]
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)[:60]
             out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
@@ -1103,8 +1114,8 @@ def qhnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels I-L at the QHNet train path's shapes (B=QH_BATCH, A in
     BUCKETS, C=128, LMAX 4, H1/H2 32/32 for the conv and 8/128 for the
     pair) against their plain versions: errors (checked), kernel / plain /
-    bound times; J and L run twice for the same bits, and their lines carry
-    the device ms of each kernel their launch runs (`stages_ms`). The bounds
+    bound times; each runs twice for the same bits, and its line carries the
+    device ms of each kernel its launch runs (`stages_ms`). The bounds
     count the live pairs' work (`qt.flops_bytes`): `bound_ms` with the gate
     products at the 3xTF32 tensor-core rate, `bound_fma_ms` all at the fp32
     FMA rate.
@@ -1126,14 +1137,11 @@ def qhnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
             got = as_tuple(fn(*args))
             err = compare(got, as_tuple(ref(*args)))
             check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel {k} error at {shape}: {err}")
-            extra = {}
-            if k in "JL":
-                again = as_tuple(fn(*args))
-                check(all(torch.equal(p, q) for p, q in zip(got, again)),
-                      f"kernel {k} deterministic at {shape}")
-                extra.update(bit_identical_rerun=True, stages_ms=stage_times(fn, args))
-                del again
-            del got
+            again = as_tuple(fn(*args))
+            check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                  f"kernel {k} deterministic at {shape}")
+            extra = dict(bit_identical_rerun=True, stages_ms=stage_times(fn, args))
+            del got, again
             torch.cuda.empty_cache()
             t_k = time_ms(lambda: fn(*args))
             t_p = time_ms(lambda: ref(*args))
@@ -1230,10 +1238,15 @@ def qhnet_train_phase(tmp: Path) -> dict:
     trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None),
                                       torch.device("cuda"))
     batches = list(itertools.islice(dm.train_dataloader(), 2))
+    reset_all_launches()  # each I-L launch runs the engine's products twice
     profile_steps("qhnet_train_profile", trainer._train_step, batches, top=24,
-                  present=("so2_mma_kernel", "so2_mmw_kernel", "qhnet_conv_tp_bwd_kernel",
+                  present=("so2_mma_kernel", "so2_mmw_kernel", "qhnet_conv_tp_fwd_kernel",
+                           "qhnet_pair_tp_fwd_kernel", "qhnet_conv_tp_bwd_kernel",
                            "qhnet_pair_gx_kernel", "qhnet_pair_tp_bwd_kernel"),
-                  absent=("qhnet_gemm_nt_kernel", "qhnet_gw_kernel"))
+                  absent=("qhnet_gemm_nt_kernel", "qhnet_gw_kernel", "qhnet_conv_fwd_kernel",
+                          "qhnet_pair_fwd_kernel"),
+                  calls=lambda: {"so2_mma_kernel": 2 * sum(
+                      n for k, n in all_launches().items() if k.startswith("qhnet_"))})
     emit("qhnet_train", config="qhnet", molecules=QH_MOLS, dropped_molecules=dropped,
          steps=steps, batches_per_epoch=n_train, val_batches=n_val, test_batches=n_test,
          launches=launches, expected_launches=want, final_val=res, test=test,

@@ -916,9 +916,10 @@ int eqv2_bwd(const float* x, const float* xi, const int* idx, const float* d, co
 // Per problem, 8 + 5 MAXSEG ints: nseg, gather, scatter, epi, n, ldc, ldc2, ldg, then per
 // segment (MAXSEG slots) lda, ldb, k, btrans, sign (+1 / -1); 4 + 2 MAXSEG pointers: c, c2,
 // bias, gate, then per segment a, b. prep: 2 * sum of n * k floats over the segments.
+// persistent: one block per SM over all the tiles (launch_products).
 int so2_products_probe(int np, const int* ints, const void* const* ptrs, long long max_rows,
                        const int* n_rows, const int* eidx, float* prep, long long prep_floats,
-                       void* stream) {
+                       int persistent, void* stream) {
   std::vector<NNProb> probs;
   for (int q = 0; q < np; ++q) {
     const int* I = ints + q * (8 + 5 * MAXSEG);
@@ -945,7 +946,7 @@ int so2_products_probe(int np, const int* ints, const void* const* ptrs, long lo
     probs.push_back(p);
   }
   const Engine en{max_rows, n_rows, eidx, prep, prep_floats, nullptr, 0};
-  return (int)launch_products(en, probs, static_cast<cudaStream_t>(stream));
+  return (int)launch_products(en, probs, static_cast<cudaStream_t>(stream), persistent != 0);
 }
 
 // Weight gradients on one caller-given problem list. Per problem, 11 ints:

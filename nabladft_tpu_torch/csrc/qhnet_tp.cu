@@ -6,18 +6,19 @@
 //   conv: agg[b,i,l3^2+m,c] = sum_j sum_p sum_a cgsh[b,i,j,off_p+a*(2l3+1)+m] x[b,l1^2+a,j,c] w[pC+c]
 //   pair: fij[b,i,l3^2+m,j,c] = sum_p w[pC+c] maskf[b,i,j] sum_b zi[b,i,off_p+b*(2l3+1)+m,c] x[b,l2^2+b,j,c]
 //
-// Kernel I, qhnet_conv_fwd_kernel, replaces nabladft_tpu/ops/pallas/qhnet_tp.py
-// `_conv_fwd_kernel` (pallas_call in `_conv_run_fwd`). Kernel J replaces `_conv_bwd_kernel`
-// (`_conv_run_bwd`): the VJP of I for x, h_r, h_s and the weights, as the gate products on
-// so2_common.cuh's engine around qhnet_conv_tp_bwd_kernel. Kernel K, qhnet_pair_fwd_kernel,
-// replaces `_pair_fwd_kernel` (`_pair_run_fwd`). Kernel L replaces `_pair_bwd_kernel`
-// (`_pair_run_bwd`): the engine's gate products around qhnet_pair_gx_kernel (+ the chunk
-// sum) and qhnet_pair_tp_bwd_kernel.
+// Kernel I replaces nabladft_tpu/ops/pallas/qhnet_tp.py `_conv_fwd_kernel` (pallas_call in
+// `_conv_run_fwd`): the live pairs, w of their gate products on so2_common.cuh's engine, then
+// qhnet_conv_tp_fwd_kernel. Kernel J replaces `_conv_bwd_kernel` (`_conv_run_bwd`): the VJP of
+// I for x, h_r, h_s and the weights, as the gate products on the engine around
+// qhnet_conv_tp_bwd_kernel. Kernel K replaces `_pair_fwd_kernel` (`_pair_run_fwd`): as I,
+// around qhnet_pair_tp_fwd_kernel. Kernel L replaces `_pair_bwd_kernel` (`_pair_run_bwd`): the
+// engine's gate products around qhnet_pair_gx_kernel (+ the chunk sum) and
+// qhnet_pair_tp_bwd_kernel.
 //
 // Layouts (as the JAX op): x [B,S,A,C]; cgsh [B,A,A,K]; zi [B,A,Kz,C]; maskf [B,A,A,1];
 // h_r [B,A,A,H1], h_s [B,A,A,H2]; W2r [H1,PC], W2s [H2,PC], b2r/b2s [PC]; conv out and its
-// cotangent g [B,A,S,C]; pair out and g [B,A,S,A,C]; float32, contiguous, PC = P*C. The
-// backward entry points take H1, H2 and PC padded by zeros to multiples of 8 (the engine's K).
+// cotangent g [B,A,S,C]; pair out and g [B,A,S,A,C]; float32, contiguous, PC = P*C. Every
+// entry point takes H1, H2 and PC padded by zeros to multiples of 8 (the engine's K).
 //
 // What bounds them on the card: the gate's second Dense, 2*(H1+H2) FLOPs per pair, path
 // and channel, is most of the work (35 of I's 60 GFLOP and 74 of K's 97 at B=8, A=64,
@@ -26,24 +27,28 @@
 // ~2*MACS/P per pair, path and channel. Those three are plain dense products, which on this
 // card belong on the tensor cores; the tensor products are channel-diagonal contractions
 // over <= 9 x 9 Clebsch-Gordan blocks and stay on the CUDA cores. What the design does:
-//   * I and K: the Pallas kernel keeps u_r, u_s [A, P*C] (2.1 MB each at A=64)
-//     in VMEM; a Hopper block has 227 KB. So each block tiles over paths and neighbours:
-//     per path, the block forms w for 8 neighbours at a time in registers (each thread owns
-//     one channel; one W2 column load feeds 8 FMAs) and folds it straight into the tensor
-//     product. I runs one block per (b, receiver i), K one per (b, i, 16 senders). Per
-//     path, loops over a, b, m run to the largest 2l+1 (9) under a guard, so per-thread
-//     arrays keep constant indices and stay in registers.
-//   * J and L: a scan lists the live pairs (cgsh row not zero for J, maskf not zero for L;
-//     a dead pair adds exact zeros to every output) in (b, i, j) order. On the engine, 3xTF32
-//     wgmma fp32-accurate within 2e-5: u_r, u_s of the live pairs (gathered h rows, the bias
-//     in the epilogue) into compact rows [live, PC]; then the tensor-product stage reads
-//     them, with no recompute, and overwrites them in place by gu_r = gw u_s, gu_s = gw u_r
-//     (each element read and written by one thread); then gh = gu W2^T (K = P*C, each
-//     32-deep stage promoted into fp32), scattered to the pair slots, and [gW2; gb2] as
+//   * All four: a scan lists the live pairs (cgsh row not zero for I and J, maskf not zero
+//     for K and L; a dead pair adds exact zeros to every output) in (b, i, j) order, with
+//     each receiver's first row. The gate products run on the engine, 3xTF32 wgmma
+//     fp32-accurate within 2e-5, over the live pairs only (gathered h rows) into compact rows
+//     [live, PC].
+//   * I and K keep one array, w = u_r u_s: u_r (its bias in the epilogue) first, then u_s
+//     with an epilogue that adds its bias and multiplies by the u_r row in place (each
+//     element read and written by one thread). The tensor-product stage reads w once. Both
+//     products have K = H (8-128), so a 128 x 128 tile is mostly set-up and epilogue: they
+//     run persistent, one block per SM over all the tiles.
+//   * J and L keep u_r and u_s; the tensor-product stage reads them, with no recompute, and
+//     overwrites them in place by gu_r = gw u_s, gu_s = gw u_r; then gh = gu W2^T (K = P*C,
+//     each 32-deep stage promoted into fp32), scattered to the pair slots, and [gW2; gb2] as
 //     fixed-order partials over the live rows. Dead pairs' gh rows stay the caller's zeros.
 //   * The tensor-product stages are bound by latency, not by FMAs (few warps per SM, each
 //     path's loops up to 9 x 9): each path's body is compiled for its (l, l3) pair (25
 //     instances, every loop bound a constant), and the paths are split over blocks.
+//     I's runs one block per (b, receiver i, l3 group), the heaviest groups first, over the
+//     live senders of i, 4 at a time (their w and x loads in flight together): each block
+//     owns its group's output slots (no partials; a receiver with no live pair gets its
+//     zeros). K's runs one block per (b, receiver i, KQ live senders, l3 group): each zi
+//     load feeds KQ FMAs; the dead pairs' slots stay the caller's zeros.
 //     J's runs one block per (b, sender j, eighth of the paths), over the live receivers,
 //     with v_a = sum_m cg[a,m] g_m shared by gw = sum_a x_a v_a and gx_a += w v_a (half the
 //     FMAs of the forward's order); the eighths' gx partials are summed in a fixed order.
@@ -54,9 +59,9 @@
 //     at B=8 and A=32/48/64); per l2 group (its body compiled for l2) each thread sums its
 //     8 senders' 2l2+1 slots in registers over the chunk, recomputes w = u_r u_s maskf, and
 //     each zi load feeds 8 FMAs. The chunks' partials are summed in a fixed order.
-//     No stage spills (ptxas: J's stage 96 registers, L's 168, gx 220).
-//   * No float atomics: J and L give the same bits on every run. Padded atoms and masked
-//     pairs get exact zeros.
+//     No stage spills (ptxas: I's stage 128 registers, K's 166, J's 96, L's 168, gx 220).
+//   * No float atomics: I-L give the same bits on every run. Padded atoms and masked pairs
+//     get exact zeros.
 
 #include <cuda_runtime.h>
 
@@ -68,7 +73,6 @@
 namespace {
 
 constexpr int NT = 128;         // threads per block: one channel lane each
-constexpr int JB = 8;           // neighbour rows per register block (I and K's gate products)
 constexpr int MX = 9;           // largest 2l+1 at LMAX 4
 constexpr int MXX = MX * MX;    // largest (2l+1)(2l'+1)
 constexpr int MAXP = 65;        // paths at LMAX 4
@@ -77,6 +81,7 @@ constexpr int SMAX = (LMAXK + 1) * (LMAXK + 1);
 constexpr int LQ = 2;           // senders per register block of L's tensor-product stage
 constexpr int L_SPLITS = 4;     // path splits of L's tensor-product stage (blocks per receiver)
 constexpr int GQ = 8;           // senders per thread of L's gx stage
+constexpr int KQ = 8;           // live senders per block of K's tensor-product stage
 
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -145,236 +150,12 @@ int cg_columns(int lmax) {
   return n;
 }
 
-// acc[q] += sum_k rows[(row0+q)*ld + k] * wcol[k*ldw] for q < JB; ld % 4 == 0, rows
-// zero padded for k in [K, ld) and to whole JB blocks
-__device__ inline void row_block_dot(const float* __restrict__ rows, int row0, int ld, int K,
-                                     const float* __restrict__ wcol, int ldw, float acc[JB]) {
-  for (int k = 0; k < ld; k += 4) {
-    const float w0 = k < K ? __ldg(wcol + (size_t)k * ldw) : 0.f;
-    const float w1 = k + 1 < K ? __ldg(wcol + (size_t)(k + 1) * ldw) : 0.f;
-    const float w2 = k + 2 < K ? __ldg(wcol + (size_t)(k + 2) * ldw) : 0.f;
-    const float w3 = k + 3 < K ? __ldg(wcol + (size_t)(k + 3) * ldw) : 0.f;
-#pragma unroll
-    for (int q = 0; q < JB; ++q) {
-      const float4 x = *reinterpret_cast<const float4*>(rows + (size_t)(row0 + q) * ld + k);
-      acc[q] = fmaf(x.x, w0, acc[q]);
-      acc[q] = fmaf(x.y, w1, acc[q]);
-      acc[q] = fmaf(x.z, w2, acc[q]);
-      acc[q] = fmaf(x.w, w3, acc[q]);
-    }
-  }
-}
-
-// dst[r*Hp + h] = src[base + r*rstride + h] for r < n, h < H; zero up to [np][Hp]
-__device__ inline void stage_rows(const float* __restrict__ src, size_t base, size_t rstride,
-                                  int n, int H, int Hp, int np, float* dst) {
-  for (int idx = threadIdx.x; idx < np * Hp; idx += blockDim.x) {
-    const int r = idx / Hp, h = idx - r * Hp;
-    dst[idx] = (r < n && h < H) ? src[base + (size_t)r * rstride + h] : 0.f;
-  }
-}
-
-// the gate rows of one block: [Ap][H1p] h_r rows, [Ap][H2p] h_s rows
-struct GateRows {
-  float *hr, *hs;
-  int H1p, H2p;
-};
-
-__device__ inline GateRows stage_gate_rows(const float* hr, const float* hs, size_t base1,
-                                           size_t base2, size_t stride1, size_t stride2, int A,
-                                           int H1, int H2, float* smem) {
-  const int Ap = round_up(A, JB);
-  GateRows g{smem, smem + (size_t)Ap * round_up(H1, 4), round_up(H1, 4), round_up(H2, 4)};
-  stage_rows(hr, base1, stride1, A, H1, g.H1p, Ap, g.hr);
-  stage_rows(hs, base2, stride2, A, H2, g.H2p, Ap, g.hs);
-  return g;
-}
-
-__host__ __device__ inline size_t gate_floats(int A, int H1, int H2) {
-  return (size_t)round_up(A, JB) * (round_up(H1, 4) + round_up(H2, 4));
-}
-
-// u_r, u_s of rows row0..row0+7 for weight column col (biases added)
-__device__ inline void gate_block(const GateRows& g, int row0, int H1, int H2,
-                                  const float* __restrict__ w2r, const float* __restrict__ b2r,
-                                  const float* __restrict__ w2s, const float* __restrict__ b2s,
-                                  int col, int PC, float ur[JB], float us[JB]) {
-#pragma unroll
-  for (int q = 0; q < JB; ++q) ur[q] = us[q] = 0.f;
-  row_block_dot(g.hr, row0, g.H1p, H1, w2r + col, PC, ur);
-  row_block_dot(g.hs, row0, g.H2p, H2, w2s + col, PC, us);
-  const float br = __ldg(b2r + col), bs = __ldg(b2s + col);
-#pragma unroll
-  for (int q = 0; q < JB; ++q) {
-    ur[q] += br;
-    us[q] += bs;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// kernel I: one block per (molecule b, receiver i)
-// ---------------------------------------------------------------------------
-
-__host__ __device__ inline size_t conv_fwd_smem(int A, int H1, int H2) {
-  return sizeof(float) * (gate_floats(A, H1, H2) + (size_t)A * MXX);
-}
-
-__global__ void __launch_bounds__(NT) qhnet_conv_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ cgsh, const float* __restrict__ hr,
-    const float* __restrict__ hs, const float* __restrict__ w2r, const float* __restrict__ b2r,
-    const float* __restrict__ w2s, const float* __restrict__ b2s, float* __restrict__ out, int A,
-    int C, int H1, int H2, int K, int lmax) {
-  extern __shared__ float4 smem4[];
-  __shared__ PathTable pt;
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int bi = blockIdx.x, b = bi / A, tid = threadIdx.x, S = (lmax + 1) * (lmax + 1);
-  if (tid == 0) build_paths(pt, lmax);
-  const GateRows gr = stage_gate_rows(hr, hs, (size_t)bi * A * H1, (size_t)bi * A * H2, H1, H2,
-                                      A, H1, H2, smem);
-  float* cg_s = smem + gate_floats(A, H1, H2);  // [A][MXX]: this path's cgsh columns
-  __syncthreads();
-  const int PC = pt.n * C;
-  const float* xb = x + (size_t)b * S * A * C;
-
-  for (int c0 = 0; c0 < C; c0 += NT) {
-    const int c = c0 + tid;
-    const bool act = c < C;
-    const int cc = act ? c : 0;
-    for (int l3 = 0; l3 <= lmax; ++l3) {
-      const int m3 = 2 * l3 + 1;
-      float acc[MX];
-#pragma unroll
-      for (int m = 0; m < MX; ++m) acc[m] = 0.f;
-      for (int e = pt.l3_start[l3]; e < pt.l3_start[l3 + 1]; ++e) {
-        const int p = pt.by_l3[e], l1 = pt.l1[p], n1 = 2 * l1 + 1, w = n1 * m3;
-        __syncthreads();  // the previous path's cg_s is read
-        for (int idx = tid; idx < A * w; idx += NT) {
-          const int j = idx / w, k = idx - j * w;
-          cg_s[j * MXX + k] = cgsh[((size_t)bi * A + j) * K + pt.cg_off[p] + k];
-        }
-        __syncthreads();
-        const int col = p * C + cc;
-        for (int j0 = 0; j0 < A; j0 += JB) {
-          float ur[JB], us[JB];
-          gate_block(gr, j0, H1, H2, w2r, b2r, w2s, b2s, col, PC, ur, us);
-#pragma unroll
-          for (int q = 0; q < JB; ++q) {
-            const int j = j0 + q;
-            if (j >= A) break;
-            const float wv = ur[q] * us[q];
-            float xa[MX];
-#pragma unroll
-            for (int a = 0; a < MX; ++a)
-              xa[a] = a < n1 ? xb[((size_t)(l1 * l1 + a) * A + j) * C + cc] : 0.f;
-            const float* cg = cg_s + j * MXX;
-#pragma unroll
-            for (int m = 0; m < MX; ++m) {
-              if (m >= m3) break;
-              float t = 0.f;
-#pragma unroll
-              for (int a = 0; a < MX; ++a)
-                if (a < n1) t = fmaf(cg[a * m3 + m], xa[a], t);
-              acc[m] = fmaf(t, wv, acc[m]);
-            }
-          }
-        }
-      }
-      if (act)
-        for (int m = 0; m < m3; ++m) out[((size_t)bi * S + l3 * l3 + m) * C + c] = acc[m];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernel K: one block per (molecule b, receiver i, tile of KJ senders)
-// ---------------------------------------------------------------------------
-
-constexpr int KJ = 2 * JB;  // senders per block of kernel K
-
-__host__ __device__ inline size_t pair_fwd_smem(int H1, int H2) {
-  return sizeof(float) * (gate_floats(KJ, H1, H2) + (size_t)KJ);
-}
-
-__global__ void __launch_bounds__(NT) qhnet_pair_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ zi, const float* __restrict__ maskf,
-    const float* __restrict__ hr, const float* __restrict__ hs, const float* __restrict__ w2r,
-    const float* __restrict__ b2r, const float* __restrict__ w2s, const float* __restrict__ b2s,
-    float* __restrict__ out, int A, int C, int H1, int H2, int Kz, int lmax) {
-  extern __shared__ float4 smem4[];
-  __shared__ PathTable pt;
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tiles = (A + KJ - 1) / KJ;
-  const int bi = blockIdx.x / tiles, jlo = (blockIdx.x - bi * tiles) * KJ;
-  const int nj = min(KJ, A - jlo), b = bi / A, tid = threadIdx.x, S = (lmax + 1) * (lmax + 1);
-  if (tid == 0) build_paths(pt, lmax);
-  const size_t row0 = (size_t)bi * A + jlo;  // pair (b, i, jlo)
-  const GateRows gr = stage_gate_rows(hr, hs, row0 * H1, row0 * H2, H1, H2, nj, H1, H2, smem);
-  float* mask_s = smem + gate_floats(KJ, H1, H2);
-  for (int q = tid; q < KJ; q += NT) mask_s[q] = q < nj ? maskf[row0 + q] : 0.f;
-  __syncthreads();
-  const int PC = pt.n * C;
-  const float* xb = x + (size_t)b * S * A * C;
-  const float* zb = zi + (size_t)bi * Kz * C;
-
-  for (int c0 = 0; c0 < C; c0 += NT) {
-    const int c = c0 + tid;
-    const bool act = c < C;
-    const int cc = act ? c : 0;
-    for (int r0 = 0; r0 < nj; r0 += JB) {
-      for (int l3 = 0; l3 <= lmax; ++l3) {
-        const int m3 = 2 * l3 + 1;
-        float acc[JB][MX];
-#pragma unroll
-        for (int q = 0; q < JB; ++q)
-#pragma unroll
-          for (int m = 0; m < MX; ++m) acc[q][m] = 0.f;
-        for (int e = pt.l3_start[l3]; e < pt.l3_start[l3 + 1]; ++e) {
-          const int p = pt.by_l3[e], l2 = pt.l2[p], n2 = 2 * l2 + 1;
-          const int col = p * C + cc;
-          float ur[JB], us[JB], wq[JB];
-          gate_block(gr, r0, H1, H2, w2r, b2r, w2s, b2s, col, PC, ur, us);
-#pragma unroll
-          for (int q = 0; q < JB; ++q) wq[q] = ur[q] * us[q] * mask_s[r0 + q];
-          const float* zp = zb + (size_t)pt.zi_off[p] * C + cc;
-#pragma unroll
-          for (int bb = 0; bb < MX; ++bb) {
-            if (bb >= n2) break;
-            float xw[JB];
-#pragma unroll
-            for (int q = 0; q < JB; ++q) {
-              const int j = jlo + r0 + q;
-              xw[q] = r0 + q < nj ? xb[((size_t)(l2 * l2 + bb) * A + j) * C + cc] * wq[q] : 0.f;
-            }
-#pragma unroll
-            for (int m = 0; m < MX; ++m) {
-              if (m >= m3) break;
-              const float z = __ldg(zp + (size_t)(bb * m3 + m) * C);
-#pragma unroll
-              for (int q = 0; q < JB; ++q) acc[q][m] = fmaf(z, xw[q], acc[q][m]);
-            }
-          }
-        }
-        if (act) {
-#pragma unroll
-          for (int q = 0; q < JB; ++q) {
-            if (r0 + q >= nj) break;
-            const int j = jlo + r0 + q;
-#pragma unroll
-            for (int m = 0; m < MX; ++m)
-              if (m < m3) out[((((size_t)bi * S) + l3 * l3 + m) * A + j) * C + c] = acc[q][m];
-          }
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// J and L: the live-pair list
+// the live-pair list
 // ---------------------------------------------------------------------------
 
 // flags[e] = 1 when any of the first `used` values of row e of t [npairs, ld] is not zero
-// (cgsh's path columns for J, maskf for L); one warp a row
+// (cgsh's path columns for I and J, maskf for K and L); one warp a row
 __global__ void qhnet_flags_kernel(const float* __restrict__ t, int* __restrict__ flags,
                                    long long npairs, int ld, int used) {
   const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -406,6 +187,204 @@ __device__ __forceinline__ void with_l(int l, const F& f) {
       f.template run<K>();
     else
       with_l<K + 1>(l, f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel I, tensor-product stage: one block per (molecule b, receiver i, l3 group), the
+// heaviest groups (largest l3) first; it owns agg[b,i,l3^2+m] (zeros for a receiver with no
+// live pair). Per path of the group, over the live senders j of i (rows rs[bi]..rs[bi+1]):
+// agg[l3^2+m] += sum_a cg[a,m] w x_j[l1^2+a], w = u_r u_s of the pair's row.
+// ---------------------------------------------------------------------------
+
+// one path of I's stage for one thread's channel, its (l1, l3) at compile time
+template <int L3>
+struct ConvPathFwd {
+  const float* cg_s;  // [live senders][MXX]: the path's cgsh columns
+  const int* js;      // the live senders
+  const float* xb;    // x + b*S*A*C + c
+  const float* wp;    // w + e0*ldu + p*C + c: the path's column of i's first live row
+  float (&acc)[2 * L3 + 1];
+  int nl, A, C, ldu;
+  template <int L1>
+  __device__ __forceinline__ void run() const {
+    constexpr int N1 = 2 * L1 + 1, M3 = 2 * L3 + 1;
+#pragma unroll 4  // the w and x loads of 4 rows in flight together
+    for (int n = 0; n < nl; ++n) {
+      const float wv = wp[(size_t)n * ldu];
+      const float* xj = xb + ((size_t)L1 * L1 * A + js[n]) * C;
+      const float* cg = cg_s + n * MXX;
+      float xw[N1];
+#pragma unroll
+      for (int a = 0; a < N1; ++a) xw[a] = wv * xj[(size_t)a * A * C];
+#pragma unroll
+      for (int m = 0; m < M3; ++m)
+#pragma unroll
+        for (int a = 0; a < N1; ++a) acc[m] = fmaf(cg[a * M3 + m], xw[a], acc[m]);
+    }
+  }
+};
+
+// one l3 group of I's stage for one thread's channel
+struct ConvGroupFwd {
+  const PathTable& pt;
+  const float* cgsh;  // cgsh + bi*A*K: receiver i's rows
+  const float* xb;    // x + b*S*A*C + c
+  const float* w;     // w + e0*ldu + c
+  const int* js;
+  float* cg_s;
+  float* ob;  // out + bi*S*C + c
+  int nl, A, C, K, ldu, tid;
+  bool act;
+  template <int L3>
+  __device__ __forceinline__ void run() const {
+    constexpr int M3 = 2 * L3 + 1;
+    float acc[M3];
+#pragma unroll
+    for (int m = 0; m < M3; ++m) acc[m] = 0.f;
+    for (int e = pt.l3_start[L3]; e < pt.l3_start[L3 + 1]; ++e) {
+      const int p = pt.by_l3[e], l1 = pt.l1[p], nw = (2 * l1 + 1) * M3;
+      __syncthreads();  // the previous path's cg_s is read
+      for (int idx = tid; idx < nl * nw; idx += NT) {
+        const int n = idx / nw, k = idx - n * nw;
+        cg_s[n * MXX + k] = cgsh[(size_t)js[n] * K + pt.cg_off[p] + k];
+      }
+      __syncthreads();
+      with_l(l1, ConvPathFwd<L3>{cg_s, js, xb, w + (size_t)p * C, acc, nl, A, C, ldu});
+    }
+    if (act)
+#pragma unroll
+      for (int m = 0; m < M3; ++m) ob[(size_t)(L3 * L3 + m) * C] = acc[m];
+  }
+};
+
+__host__ __device__ inline size_t conv_tp_fwd_smem(int A) {
+  return sizeof(float) * (size_t)A * MXX + sizeof(int) * (size_t)A;
+}
+
+__global__ void __launch_bounds__(NT, 4) qhnet_conv_tp_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ cgsh, const float* __restrict__ w,
+    const int* __restrict__ eidx, const int* __restrict__ rs, float* __restrict__ out, int B,
+    int A, int C, int K, int ldu, int lmax) {
+  extern __shared__ float4 smem4[];
+  __shared__ PathTable pt;
+  const int nbi = B * A, bi = blockIdx.x % nbi, l3 = lmax - (int)blockIdx.x / nbi;
+  const int b = bi / A, tid = threadIdx.x, S = (lmax + 1) * (lmax + 1);
+  const int e0 = rs[bi], nl = rs[bi + 1] - e0;  // the live pairs (b, i, .), rows e0..
+  float* cg_s = reinterpret_cast<float*>(smem4);             // [A][MXX]: a path's cgsh columns
+  int* js = reinterpret_cast<int*>(cg_s + (size_t)A * MXX);  // [A]: the live senders j
+  if (tid == 0) build_paths(pt, lmax);
+  for (int n = tid; n < nl; n += NT) js[n] = eidx[e0 + n] - bi * A;
+  __syncthreads();
+  for (int c0 = 0; c0 < C; c0 += NT) {
+    const int c = c0 + tid, cc = c < C ? c : 0;
+    const ConvGroupFwd f{pt, cgsh + (size_t)bi * A * K, x + (size_t)b * S * A * C + cc,
+                         w + (size_t)e0 * ldu + cc, js, cg_s, out + (size_t)bi * S * C + cc, nl,
+                         A, C, K, ldu, tid, c < C};
+    with_l(l3, f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel K, tensor-product stage: one block per (molecule b, receiver i, tile of KQ live
+// senders, l3 group), the blocks of one receiver adjacent (its zi rows stay in L2). Per path
+// of the group: fij[b,i,l3^2+m,j] = sum_p sum_b zi[(b,m)] x_j[l2^2+b] w maskf, each zi load
+// feeding the tile's KQ senders. The dead pairs' slots are not written (the caller's zeros).
+// ---------------------------------------------------------------------------
+
+// one path of K's stage for one thread's channel, its (l2, l3) at compile time
+template <int L3>
+struct PairPathFwd {
+  const float* zp;  // the path's zi rows: zi + (bi*Kz + zi_off)*C + c
+  const float* xb;  // x + b*S*A*C + c
+  const float* wp;  // w + e0*ldu + p*C + c: the path's column of the tile's first row
+  const int (&js)[KQ];
+  const float (&mf)[KQ];  // maskf of the tile's senders
+  float (&acc)[KQ][2 * L3 + 1];
+  int nq, A, C, ldu;
+  template <int L2>
+  __device__ __forceinline__ void run() const {
+    constexpr int N2 = 2 * L2 + 1, M3 = 2 * L3 + 1;
+    float wq[KQ];
+#pragma unroll
+    for (int q = 0; q < KQ; ++q) wq[q] = q < nq ? wp[(size_t)q * ldu] * mf[q] : 0.f;
+#pragma unroll 1  // unrolled, the zi loads of all rows are hoisted and the acc registers spill
+    for (int bb = 0; bb < N2; ++bb) {
+      float xw[KQ];
+#pragma unroll
+      for (int q = 0; q < KQ; ++q)
+        xw[q] = q < nq ? xb[((size_t)(L2 * L2 + bb) * A + js[q]) * C] * wq[q] : 0.f;
+#pragma unroll
+      for (int m = 0; m < M3; ++m) {
+        const float z = __ldg(zp + (size_t)(bb * M3 + m) * C);
+#pragma unroll
+        for (int q = 0; q < KQ; ++q) acc[q][m] = fmaf(z, xw[q], acc[q][m]);
+      }
+    }
+  }
+};
+
+// one l3 group of K's stage for one thread's channel
+struct PairGroupFwd {
+  const PathTable& pt;
+  const float* zi;  // zi + bi*Kz*C + c
+  const float* xb;  // x + b*S*A*C + c
+  const float* w;   // w + e0*ldu + c
+  float* ob;        // out + bi*S*A*C + c
+  const int (&js)[KQ];
+  const float (&mf)[KQ];
+  int nq, A, C, ldu;
+  bool act;
+  template <int L3>
+  __device__ __forceinline__ void run() const {
+    constexpr int M3 = 2 * L3 + 1;
+    float acc[KQ][M3];
+#pragma unroll
+    for (int q = 0; q < KQ; ++q)
+#pragma unroll
+      for (int m = 0; m < M3; ++m) acc[q][m] = 0.f;
+    for (int e = pt.l3_start[L3]; e < pt.l3_start[L3 + 1]; ++e) {
+      const int p = pt.by_l3[e];
+      with_l(pt.l2[p], PairPathFwd<L3>{zi + (size_t)pt.zi_off[p] * C, xb, w + (size_t)p * C, js,
+                                       mf, acc, nq, A, C, ldu});
+    }
+    if (act) {
+#pragma unroll
+      for (int q = 0; q < KQ; ++q) {
+        if (q >= nq) break;
+#pragma unroll
+        for (int m = 0; m < M3; ++m) ob[((size_t)(L3 * L3 + m) * A + js[q]) * C] = acc[q][m];
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(NT) qhnet_pair_tp_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ zi, const float* __restrict__ maskf,
+    const float* __restrict__ w, const int* __restrict__ eidx, const int* __restrict__ rs,
+    float* __restrict__ out, int A, int C, int Kz, int ldu, int lmax) {
+  __shared__ PathTable pt;
+  const int ng = lmax + 1, tiles = (A + KQ - 1) / KQ;
+  const int bi = blockIdx.x / (ng * tiles), r = blockIdx.x - bi * ng * tiles;
+  const int l3 = lmax - r / tiles, t = r - r / tiles * tiles;
+  const int e0 = rs[bi] + t * KQ, nq = min(KQ, rs[bi + 1] - e0);
+  if (nq <= 0) return;  // past the receiver's live senders: the whole block
+  const int b = bi / A, tid = threadIdx.x, S = (lmax + 1) * (lmax + 1);
+  if (tid == 0) build_paths(pt, lmax);
+  int js[KQ];
+  float mf[KQ];
+#pragma unroll
+  for (int q = 0; q < KQ; ++q) {
+    js[q] = q < nq ? eidx[e0 + q] - bi * A : 0;
+    mf[q] = q < nq ? maskf[(size_t)bi * A + js[q]] : 0.f;
+  }
+  __syncthreads();
+  for (int c0 = 0; c0 < C; c0 += NT) {
+    const int c = c0 + tid, cc = c < C ? c : 0;
+    const PairGroupFwd f{pt, zi + (size_t)bi * Kz * C + cc, x + (size_t)b * S * A * C + cc,
+                         w + (size_t)e0 * ldu + cc, out + (size_t)bi * S * A * C + cc, js, mf,
+                         nq, A, C, ldu, c < C};
+    with_l(l3, f);
   }
 }
 
@@ -773,47 +752,51 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// J and L on the host: the live pairs, the gate products and their gradients on the engine
+// I-L on the host: the live pairs, the gate products (and their gradients) on the engine
 // ---------------------------------------------------------------------------
 
-// what a backward call carves from its scratch
-struct Bwd {
-  float *ur, *us, *gxpart;  // u_r, u_s (then gu_r, gu_s) [max_rows, ldu]; gx partials
+// what a call carves from its scratch
+struct Work {
+  float *ur, *us;  // forward: w [max_rows, ldu] in ur; backward: u_r, u_s (then gu_r, gu_s)
+  float* gxpart;   // a backward's gx partials
   int *flags, *eidx, *pos, *rs, *n_rows;
   int chunks;  // gx partials: J's path splits, L's receiver chunks
   Engine en;
 };
 
-long long scratch_floats(bool pair, int B, int A, int C, int H1, int H2, int lmax) {
+// floats of a forward call (bwd false: one [rows, ldu] array, the engine's prepped weights)
+// or of a backward call (two arrays, the weight-gradient partials and the gx partials)
+long long scratch_floats(bool bwd, bool pair, int B, int A, int C, int H1, int H2, int lmax) {
   const long long rows = (long long)B * A * A, ldu = round_up(n_paths(lmax) * C, 8);
-  const long long S = (lmax + 1) * (lmax + 1);
+  const long long S = (lmax + 1) * (lmax + 1), prep = 2 * ldu * (H1 + H2);
+  if (!bwd) return rows * ldu + prep;
   const int ch = pair ? gx_chunks(B, A) : J_SPLITS;
-  return 2 * rows * ldu + 2 * ldu * (H1 + H2) + part_bound(ldu) +
-         (ch > 1 ? ch * B * S * A * C : 0);
+  return 2 * rows * ldu + prep + part_bound(ldu) + (ch > 1 ? ch * B * S * A * C : 0);
 }
 
 long long scratch_ints(int B, int A) { return 3LL * B * A * A + (long long)B * A + 2; }
 
-Bwd carve(bool pair, int B, int A, int C, int H1, int H2, int lmax, float* f, int* iw) {
+Work carve(bool bwd, bool pair, int B, int A, int C, int H1, int H2, int lmax, float* f,
+           int* iw) {
   const long long rows = (long long)B * A * A, ldu = round_up(n_paths(lmax) * C, 8);
-  Bwd w{};
+  Work w{};
   w.ur = f;
-  w.us = f + rows * ldu;
-  float* prep = w.us + rows * ldu;
-  const long long prep_n = 2 * ldu * (H1 + H2), part_n = part_bound(ldu);
-  w.chunks = pair ? gx_chunks(B, A) : J_SPLITS;
+  w.us = bwd ? f + rows * ldu : nullptr;
+  float* prep = f + (bwd ? 2 : 1) * rows * ldu;
+  const long long prep_n = 2 * ldu * (H1 + H2), part_n = bwd ? part_bound(ldu) : 0;
+  w.chunks = !bwd ? 0 : pair ? gx_chunks(B, A) : J_SPLITS;
   w.gxpart = w.chunks > 1 ? prep + prep_n + part_n : nullptr;
   w.flags = iw;
   w.eidx = iw + rows;
   w.pos = iw + 2 * rows;
   w.rs = iw + 3 * rows;
   w.n_rows = w.rs + (long long)B * A + 1;
-  w.en = Engine{rows, w.n_rows, w.eidx, prep, prep_n, prep + prep_n, part_n};
+  w.en = Engine{rows, w.n_rows, w.eidx, prep, prep_n, bwd ? prep + prep_n : nullptr, part_n};
   return w;
 }
 
 // the live pairs from row flags of t [B*A*A, ld] (its first `used` values)
-cudaError_t live_pairs(const Bwd& w, const float* t, int ld, int used, int B, int A,
+cudaError_t live_pairs(const Work& w, const float* t, int ld, int used, int B, int A,
                        cudaStream_t st) {
   const long long npairs = (long long)B * A * A;
   qhnet_flags_kernel<<<(unsigned)((npairs * 32 + 255) / 256), 256, 0, st>>>(t, w.flags, npairs,
@@ -824,8 +807,24 @@ cudaError_t live_pairs(const Bwd& w, const float* t, int ld, int used, int B, in
   return cudaGetLastError();
 }
 
+// w = (h_r W2r + b2r)(h_s W2s + b2s) of the live pairs into their compact rows (ur): u_r
+// first, then u_s with an epilogue that adds b2s and multiplies by the u_r row in place; both
+// persistent (K = H is 8-128: a tile a block would be mostly set-up and epilogue)
+cudaError_t gate_weights(const Work& w, const float* hr, const float* hs, const float* w2r,
+                         const float* b2r, const float* w2s, const float* b2s, int H1, int H2,
+                         int ldu, cudaStream_t st) {
+  NNProb pr = prob({seg(hr, H1, w2r, ldu, H1)}, ldu, EPI_GATES, w.ur, ldu);
+  NNProb ps = gated(prob({seg(hs, H2, w2s, ldu, H2)}, ldu, EPI_GATED, nullptr, 0, w.ur, ldu),
+                    w.ur, ldu);
+  pr.gather = ps.gather = 1;
+  pr.bias = b2r;
+  ps.bias = b2s;
+  const cudaError_t err = launch_products(w.en, {pr}, st, true);
+  return err != cudaSuccess ? err : launch_products(w.en, {ps}, st, true);
+}
+
 // u_r = h_r W2r + b2r and u_s = h_s W2s + b2s of the live pairs, into their compact rows
-cudaError_t gate_products(const Bwd& w, const float* hr, const float* hs, const float* w2r,
+cudaError_t gate_products(const Work& w, const float* hr, const float* hs, const float* w2r,
                           const float* b2r, const float* w2s, const float* b2s, int H1, int H2,
                           int ldu, cudaStream_t st) {
   NNProb pr = prob({seg(hr, H1, w2r, ldu, H1)}, ldu, EPI_GATES, w.ur, ldu);
@@ -838,7 +837,7 @@ cudaError_t gate_products(const Bwd& w, const float* hr, const float* hs, const 
 
 // from gu_r, gu_s (compact rows): gh = gu W2^T scattered to the pair slots (the dead pairs'
 // rows keep the caller's zeros), and gwb = [gW2; gb2] [H+1, ldu] over the live pairs
-cudaError_t gate_grads(const Bwd& w, const float* hr, const float* hs, const float* w2r,
+cudaError_t gate_grads(const Work& w, const float* hr, const float* hs, const float* w2r,
                        const float* w2s, float* ghr, float* ghs, float* gwb_r, float* gwb_s,
                        int H1, int H2, int ldu, cudaStream_t st) {
   NNProb pr = prob({seg(w.ur, ldu, w2r, ldu, ldu, true)}, H1, EPI_STORE, ghr, H1);
@@ -854,7 +853,7 @@ cudaError_t gate_grads(const Bwd& w, const float* hr, const float* hs, const flo
   return launch_wgrads(w.en, tp, st);
 }
 
-bool bwd_shapes_ok(int H1, int H2, int lmax) {
+bool gate_shapes_ok(int H1, int H2, int lmax) {
   return lmax >= 0 && lmax <= LMAXK && H1 > 0 && H2 > 0 && H1 % 8 == 0 && H2 % 8 == 0;
 }
 
@@ -862,60 +861,82 @@ bool bwd_shapes_ok(int H1, int H2, int lmax) {
 
 extern "C" {
 
+// float and int scratch of a forward entry point (kernels I and K), for the padded gate
+// widths H1, H2 it is given
+long long qhnet_fwd_scratch_floats(int B, int A, int C, int H1, int H2, int lmax) {
+  return scratch_floats(false, false, B, A, C, H1, H2, lmax);
+}
+
+long long qhnet_fwd_scratch_ints(int B, int A) { return scratch_ints(B, A); }
+
 // float and int scratch of a backward entry point (pair 0: kernel J, 1: kernel L), for the
 // padded gate widths H1, H2 it is given
 long long qhnet_bwd_scratch_floats(int pair, int B, int A, int C, int H1, int H2, int lmax) {
-  return scratch_floats(pair != 0, B, A, C, H1, H2, lmax);
+  return scratch_floats(true, pair != 0, B, A, C, H1, H2, lmax);
 }
 
 long long qhnet_bwd_scratch_ints(int B, int A) { return scratch_ints(B, A); }
 
-// Each returns a cudaError_t (0 = success), launches on `stream`, does not sync;
-// cudaErrorInvalidValue for lmax above 4.
+// Each returns a cudaError_t (0 = success), launches on `stream`, does not sync. They take
+// the gates padded by zeros: h_r [B,A,A,H1], h_s [B,A,A,H2] with H1, H2 multiples of 8 (else,
+// or for lmax above 4, cudaErrorInvalidValue), W2r [H1,ldu], W2s [H2,ldu], b2r, b2s [ldu],
+// ldu = P*C rounded up to 8; scratch and iscratch as qhnet_fwd_scratch_floats / _ints (or
+// _bwd_) size them.
+
+// kernel I: out [B,A,S,C], every slot written
 int qhnet_conv_fwd(const float* x, const float* cgsh, const float* hr, const float* hs,
                    const float* w2r, const float* b2r, const float* w2s, const float* b2s,
-                   float* out, int B, int A, int C, int H1, int H2, int K, int lmax,
-                   void* stream) {
-  if (lmax < 0 || lmax > LMAXK) return (int)cudaErrorInvalidValue;
+                   float* out, float* scratch, int* iscratch, int B, int A, int C, int H1,
+                   int H2, int K, int lmax, void* stream) {
+  if (!gate_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0 || C == 0) return 0;
-  const size_t smem = conv_fwd_smem(A, H1, H2);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(qhnet_conv_fwd_kernel), smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ldu = round_up(n_paths(lmax) * C, 8);
+  const Work w = carve(false, false, B, A, C, H1, H2, lmax, scratch, iscratch);
+  cudaError_t err = live_pairs(w, cgsh, K, cg_columns(lmax), B, A, st);
+  if (err == cudaSuccess) err = gate_weights(w, hr, hs, w2r, b2r, w2s, b2s, H1, H2, ldu, st);
   if (err != cudaSuccess) return (int)err;
-  qhnet_conv_fwd_kernel<<<B * A, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, cgsh, hr, hs, w2r, b2r, w2s, b2s, out, A, C, H1, H2, K, lmax);
+  const size_t smem = conv_tp_fwd_smem(A);
+  if ((err = set_smem(reinterpret_cast<const void*>(qhnet_conv_tp_fwd_kernel), smem)) !=
+      cudaSuccess)
+    return (int)err;
+  qhnet_conv_tp_fwd_kernel<<<B * A * (lmax + 1), NT, smem, st>>>(x, cgsh, w.ur, w.eidx, w.rs,
+                                                                 out, B, A, C, K, ldu, lmax);
   return (int)cudaGetLastError();
 }
 
+// kernel K: out [B,A,S,A,C] must hold zeros (only the live pairs' slots are written)
 int qhnet_pair_fwd(const float* x, const float* zi, const float* maskf, const float* hr,
                    const float* hs, const float* w2r, const float* b2r, const float* w2s,
-                   const float* b2s, float* out, int B, int A, int C, int H1, int H2, int Kz,
-                   int lmax, void* stream) {
-  if (lmax < 0 || lmax > LMAXK) return (int)cudaErrorInvalidValue;
+                   const float* b2s, float* out, float* scratch, int* iscratch, int B, int A,
+                   int C, int H1, int H2, int Kz, int lmax, void* stream) {
+  if (!gate_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0 || C == 0) return 0;
-  const size_t smem = pair_fwd_smem(H1, H2);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(qhnet_pair_fwd_kernel), smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ldu = round_up(n_paths(lmax) * C, 8);
+  const Work w = carve(false, true, B, A, C, H1, H2, lmax, scratch, iscratch);
+  cudaError_t err = live_pairs(w, maskf, 1, 1, B, A, st);
+  if (err == cudaSuccess) err = gate_weights(w, hr, hs, w2r, b2r, w2s, b2s, H1, H2, ldu, st);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (A + KJ - 1) / KJ;
-  qhnet_pair_fwd_kernel<<<B * A * tiles, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, out, A, C, H1, H2, Kz, lmax);
+  const int tiles = (A + KQ - 1) / KQ;
+  qhnet_pair_tp_fwd_kernel<<<B * A * (lmax + 1) * tiles, NT, 0, st>>>(
+      x, zi, maskf, w.ur, w.eidx, w.rs, out, A, C, Kz, ldu, lmax);
   return (int)cudaGetLastError();
 }
 
-// The backward entry points take the gates padded by zeros: h_r [B,A,A,H1], h_s [B,A,A,H2]
-// with H1, H2 multiples of 8 (else cudaErrorInvalidValue), W2r [H1,ldu], W2s [H2,ldu], b2r,
-// b2s [ldu], ldu = P*C rounded up to 8. ghr [B,A,A,H1] and ghs [B,A,A,H2] must hold zeros
+// The backward entry points, besides: ghr [B,A,A,H1] and ghs [B,A,A,H2] must hold zeros
 // (only the live pairs' rows are written); gwb_r [H1+1, ldu] is gW2r over gb2r (likewise
-// gwb_s); scratch and iscratch as qhnet_bwd_scratch_floats / _ints size them.
+// gwb_s).
 int qhnet_conv_bwd(const float* x, const float* cgsh, const float* hr, const float* hs,
                    const float* w2r, const float* b2r, const float* w2s, const float* b2s,
                    const float* g, float* gx, float* ghr, float* ghs, float* gwb_r, float* gwb_s,
                    float* scratch, int* iscratch, int B, int A, int C, int H1, int H2, int K,
                    int lmax, void* stream) {
-  if (!bwd_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
+  if (!gate_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0 || C == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = (lmax + 1) * (lmax + 1), ldu = round_up(n_paths(lmax) * C, 8);
-  const Bwd w = carve(false, B, A, C, H1, H2, lmax, scratch, iscratch);
+  const Work w = carve(true, false, B, A, C, H1, H2, lmax, scratch, iscratch);
   cudaError_t err = live_pairs(w, cgsh, K, cg_columns(lmax), B, A, st);
   if (err == cudaSuccess) err = gate_products(w, hr, hs, w2r, b2r, w2s, b2s, H1, H2, ldu, st);
   if (err != cudaSuccess) return (int)err;
@@ -938,11 +959,11 @@ int qhnet_pair_bwd(const float* x, const float* zi, const float* maskf, const fl
                    const float* b2s, const float* g, float* gx, float* gzi, float* ghr,
                    float* ghs, float* gwb_r, float* gwb_s, float* scratch, int* iscratch, int B,
                    int A, int C, int H1, int H2, int Kz, int lmax, void* stream) {
-  if (!bwd_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
+  if (!gate_shapes_ok(H1, H2, lmax)) return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0 || C == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = (lmax + 1) * (lmax + 1), ldu = round_up(n_paths(lmax) * C, 8);
-  const Bwd w = carve(true, B, A, C, H1, H2, lmax, scratch, iscratch);
+  const Work w = carve(true, true, B, A, C, H1, H2, lmax, scratch, iscratch);
   cudaError_t err = live_pairs(w, maskf, 1, 1, B, A, st);
   if (err == cudaSuccess) err = gate_products(w, hr, hs, w2r, b2r, w2s, b2s, H1, H2, ldu, st);
   if (err != cudaSuccess) return (int)err;

@@ -1,11 +1,12 @@
 // Device code shared by the SO(2) message kernels (csrc/escn_layer.cu, kernels M and N;
-// csrc/eqv2_attn.cu, kernels O and P): each source includes it and builds its own copy.
+// csrc/eqv2_attn.cu, kernels O and P) and QHNet's gate products (csrc/qhnet_tp.cu, I-L):
+// each source includes it and builds its own copy.
 //
 // The product engine: every SO(2) product of M-P, on Hopper's tensor cores.
 //   * so2_mma_kernel: a grouped product over a list of rows (the live pairs or edges of a
 //     batch): C[e, n] = sum over segments of sign * A[row(e), k] B[k, n] (B as [K, N] or
-//     transposed), with a store, bias (+ silu) or gate-multiply epilogue and an optional row
-//     gather (A) or scatter (C) through the row list;
+//     transposed), with a store, bias (+ silu) or (bias +) gate-multiply epilogue and an
+//     optional row gather (A) or scatter (C) through the row list;
 //   * so2_mmw_kernel + so2_reduce_kernel: weight gradients out[m, n] = sum over the rows of
 //     A[e, m] B[e, n], as partial tiles over a split of the rows sized from the tile count
 //     (so that the blocks fill the SMs' last wave), summed in a fixed order; so2_colsum_kernel +
@@ -45,7 +46,9 @@
 //     transposer warps turn it into a K-major swizzled (hi, lo) tile for the descriptor,
 //     a stage ahead of the consumers (a third mbarrier per stage says it is written).
 // Products walk GROUP row tiles per column tile before the next, so that the A rows and the
-// weight tiles in flight both stay in L2. Every product takes K a multiple of 8 and N a
+// weight tiles in flight both stay in L2. A launch of small K (QHNet's gates, K = 8-128) may
+// run persistent: one block per SM strides over the tiles, the ring running on from tile to
+// tile. The epilogue loads a row's bias and gate values together before it uses them. Every product takes K a multiple of 8 and N a
 // multiple of 4, with 16-byte aligned rows; the host checks it.
 
 #pragma once
@@ -271,9 +274,9 @@ struct Seg {
 struct NNProb {
   Seg seg[MAXSEG];
   int nseg, gather, scatter, epi, n, ldc, ldc2, ldg;
-  float* c;            // EPI_STORE: acc; EPI_GATES: acc + bias; EPI_GATED: acc (null: skip)
-  float* c2;           // EPI_GATES: silu(acc + bias); EPI_GATED: acc * gate (null: skip)
-  const float* bias;   // [N]
+  float* c;            // EPI_STORE: acc; EPI_GATES: acc + bias; EPI_GATED: v (null: skip)
+  float* c2;           // EPI_GATES: silu(acc + bias); EPI_GATED: v * gate (null: skip)
+  const float* bias;   // [N]; EPI_GATED: v = acc + bias, or acc where null
   const float* gate;   // row e at gate + e * ldg
 };
 
@@ -299,28 +302,43 @@ struct MMBatch {
   MMProb p[NN_MAXP];
   int np, tiles;           // column tiles over all problems
   int tile0[NN_MAXP + 1];  // first column tile of each problem
+  int jobs;                // the tiles (a persistent launch's blocks stride over them)
 };
+
+// tile `id` of a launch: its problem, first row and first column; ids run over (group of
+// GROUP row tiles, column tile, row tile in the group)
+__device__ __forceinline__ int mm_tile(const MMBatch& bt, int id, int& m0, int& n0) {
+  const int per = GROUP * bt.tiles;
+  m0 = (id / per * GROUP + id % GROUP) * BM;
+  const int ct = id % per / GROUP;
+  int pi = 0;
+  while (pi + 1 < bt.np && ct >= bt.tile0[pi + 1]) ++pi;
+  n0 = (ct - bt.tile0[pi]) * BN;
+  return pi;
+}
 
 // element (r, k) of a 128-byte-swizzled [BM][BK] tile
 __device__ __forceinline__ float a_sw(const float* t, int r, int k) {
   return t[r * BK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3)];
 }
 
-// One BM x BN tile of one problem. blockIdx.x runs over (group of GROUP row tiles, column
-// tile, row tile in the group); row tiles past *n_rows exit. The k tiles of all segments
-// run as one sequence through the ring.
+// One BM x BN tile of one problem a block (blockIdx.x the tile's id, mm_tile), or, PERSIST,
+// tiles blockIdx.x, + gridDim.x, ... below bt.jobs, the ring running on from one tile to the
+// next (the next tile's loads overlap this one's epilogue). Row tiles past *n_rows are
+// skipped. The k tiles of all segments of a tile run as one sequence through the ring.
+template <bool PERSIST>
 __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ MMBatch bt,
                                                          const int* __restrict__ n_rows,
                                                          const int* __restrict__ eidx) {
   extern __shared__ uint8_t smem_raw[];
   const int nr = *n_rows;
-  const int per = GROUP * bt.tiles, id = blockIdx.x;
-  const int m0 = (id / per * GROUP + id % GROUP) * BM, ct = id % per / GROUP;
-  if (m0 >= nr) return;
-  int pi = 0;
-  while (pi + 1 < bt.np && ct >= bt.tile0[pi + 1]) ++pi;
-  const MMProb& P = bt.p[pi];
-  const int n0 = (ct - bt.tile0[pi]) * BN;
+  const int id0 = blockIdx.x, id_end = PERSIST ? bt.jobs : id0 + 1;
+  const int stride = PERSIST ? gridDim.x : 1;
+  if (!PERSIST) {
+    int m0, n0;
+    mm_tile(bt, id0, m0, n0);
+    if (m0 >= nr) return;
+  }
 
   uint8_t* base = align1024(smem_raw);
   float* As = reinterpret_cast<float*>(base);                       // STAGES x [BM][BK]
@@ -340,35 +358,41 @@ __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ 
   __syncthreads();
 
   if (warp == 8) {  // producer
-    if (P.gather) {
-      for (int r = lane; r < BM; r += 32) ridx[r] = m0 + r < nr ? eidx[m0 + r] : -1;
-      __syncwarp();
-    }
     int it = 0;
-    for (int s = 0; s < P.nseg; ++s) {
-      const MMSeg& S = P.seg[s];
-      for (int k0 = 0; k0 < S.k; k0 += BK, ++it) {
-        const int st = it % STAGES;
-        mbar_wait(empty + st, ((it / STAGES) & 1) ^ 1);
-        float* at = As + st * BM * BK;
-        if (lane == 0) {
-          mbar_expect_tx(full + st, 2 * B_TILE + (P.gather ? 0 : A_TILE));
-          tma_3d(Bh + st * BN * BK, &S.bmap, full + st, k0, n0, 0);
-          tma_3d(Bl + st * BN * BK, &S.bmap, full + st, k0, n0, 1);
-          if (!P.gather) tma_2d(at, &S.amap, full + st, k0, m0);
-        }
-        if (P.gather) {  // lane: 16-byte chunk c of rows lane/8, +4, ...
-          const int c = lane & 7;
-          const bool k_ok = k0 + c * 4 < S.k;
-          for (int r = lane >> 3; r < BM; r += 4) {
-            const int row = ridx[r];
-            const bool ok = k_ok && row >= 0;
-            const float* src = ok ? S.a + (long long)row * S.lda + k0 + c * 4 : S.a;
-            cp_async16(at + r * BK + ((c ^ (r & 7)) << 2), src, ok ? 16 : 0);
+    for (int id = id0; id < id_end; id += stride) {
+      int m0, n0;
+      const MMProb& P = bt.p[mm_tile(bt, id, m0, n0)];
+      if (m0 >= nr) continue;
+      if (P.gather) {
+        __syncwarp();  // the previous tile's row list is read
+        for (int r = lane; r < BM; r += 32) ridx[r] = m0 + r < nr ? eidx[m0 + r] : -1;
+        __syncwarp();
+      }
+      for (int s = 0; s < P.nseg; ++s) {
+        const MMSeg& S = P.seg[s];
+        for (int k0 = 0; k0 < S.k; k0 += BK, ++it) {
+          const int st = it % STAGES;
+          mbar_wait(empty + st, ((it / STAGES) & 1) ^ 1);
+          float* at = As + st * BM * BK;
+          if (lane == 0) {
+            mbar_expect_tx(full + st, 2 * B_TILE + (P.gather ? 0 : A_TILE));
+            tma_3d(Bh + st * BN * BK, &S.bmap, full + st, k0, n0, 0);
+            tma_3d(Bl + st * BN * BK, &S.bmap, full + st, k0, n0, 1);
+            if (!P.gather) tma_2d(at, &S.amap, full + st, k0, m0);
           }
-          cp_async_arrive(full + st);
-        } else {
-          mbar_arrive(full + st);
+          if (P.gather) {  // lane: 16-byte chunk c of rows lane/8, +4, ...
+            const int c = lane & 7;
+            const bool k_ok = k0 + c * 4 < S.k;
+            for (int r = lane >> 3; r < BM; r += 4) {
+              const int row = ridx[r];
+              const bool ok = k_ok && row >= 0;
+              const float* src = ok ? S.a + (long long)row * S.lda + k0 + c * 4 : S.a;
+              cp_async16(at + r * BK + ((c ^ (r & 7)) << 2), src, ok ? 16 : 0);
+            }
+            cp_async_arrive(full + st);
+          } else {
+            mbar_arrive(full + st);
+          }
         }
       }
     }
@@ -380,59 +404,77 @@ __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ 
   const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
   const int rb = wg * 64 + (warp & 3) * 16 + g;  // the fragments' first row
   float acc[64], tot[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) tot[i] = 0.f;
   int it = 0;
-  for (int s = 0; s < P.nseg; ++s) {
-    const float sign = P.seg[s].sign;
-    const int ks = P.seg[s].k;
-    for (int k0 = 0; k0 < ks; k0 += BK, ++it) {
-      const int st = it % STAGES;
-      mbar_wait(full + st, (it / STAGES) & 1);
-      const float* at = As + st * BM * BK;
-      stage_mma(acc, tot, desc_sw128(Bh + st * BN * BK), desc_sw128(Bl + st * BN * BK),
-                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                  const int k = kk * 8 + t;
-                  split_tf32(sign * a_sw(at, rb, k), hi[0], lo[0]);
-                  split_tf32(sign * a_sw(at, rb + 8, k), hi[1], lo[1]);
-                  split_tf32(sign * a_sw(at, rb, k + 4), hi[2], lo[2]);
-                  split_tf32(sign * a_sw(at, rb + 8, k + 4), hi[3], lo[3]);
-                });
-      if (lane == 0) mbar_arrive(empty + st);
-    }
-  }
-
-  // epilogue: tot[4i + 2h + q] is row rb + 8 h, column 8 i + 2 t + q
+  for (int id = id0; id < id_end; id += stride) {
+    int m0, n0;
+    const MMProb& P = bt.p[mm_tile(bt, id, m0, n0)];
+    if (m0 >= nr) continue;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+    for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+    for (int s = 0; s < P.nseg; ++s) {
+      const float sign = P.seg[s].sign;
+      const int ks = P.seg[s].k;
+      for (int k0 = 0; k0 < ks; k0 += BK, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(full + st, (it / STAGES) & 1);
+        const float* at = As + st * BM * BK;
+        stage_mma(acc, tot, desc_sw128(Bh + st * BN * BK), desc_sw128(Bl + st * BN * BK),
+                  [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    const int k = kk * 8 + t;
+                    split_tf32(sign * a_sw(at, rb, k), hi[0], lo[0]);
+                    split_tf32(sign * a_sw(at, rb + 8, k), hi[1], lo[1]);
+                    split_tf32(sign * a_sw(at, rb, k + 4), hi[2], lo[2]);
+                    split_tf32(sign * a_sw(at, rb + 8, k + 4), hi[3], lo[3]);
+                  });
+        if (lane == 0) mbar_arrive(empty + st);
+      }
+    }
+
+    // epilogue: tot[4i + 2h + q] is row rb + 8 h, column 8 i + 2 t + q. A row's bias and gate
+    // values are all loaded before any is used, so that their latencies overlap (one after
+    // another they would cost a tile of small K more than its products)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
       const int r = m0 + rb + h * 8;
       if (r >= nr) continue;
       const long long orow = P.scatter ? (long long)eidx[r] : (long long)r;
+      const int c0 = n0 + 2 * t;  // column of v[i] is c0 + 8 i
+      float2 v[16];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int col = n0 + i * 8 + 2 * t;
-        if (col >= P.n) continue;
-        float2 v = make_float2(tot[4 * i + 2 * h], tot[4 * i + 2 * h + 1]);
-        if (P.epi == EPI_STORE) {
-          *reinterpret_cast<float2*>(P.c + orow * P.ldc + col) = v;
-        } else if (P.epi == EPI_GATES) {
-          const float2 bb = *reinterpret_cast<const float2*>(P.bias + col);
-          v = make_float2(v.x + bb.x, v.y + bb.y);
-          if (P.c) *reinterpret_cast<float2*>(P.c + orow * P.ldc + col) = v;
-          if (P.c2)
-            *reinterpret_cast<float2*>(P.c2 + orow * P.ldc2 + col) =
-                make_float2(silu(v.x), silu(v.y));
-        } else {
-          if (P.c) *reinterpret_cast<float2*>(P.c + orow * P.ldc + col) = v;
-          if (P.c2) {
-            const float2 gg =
-                *reinterpret_cast<const float2*>(P.gate + (long long)r * P.ldg + col);
-            *reinterpret_cast<float2*>(P.c2 + orow * P.ldc2 + col) =
-                make_float2(v.x * gg.x, v.y * gg.y);
-          }
-        }
+      for (int i = 0; i < 16; ++i) v[i] = make_float2(tot[4 * i + 2 * h], tot[4 * i + 2 * h + 1]);
+      if (P.epi != EPI_STORE && P.bias) {
+        float2 bb[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          bb[i] = c0 + 8 * i < P.n ? *reinterpret_cast<const float2*>(P.bias + c0 + 8 * i)
+                                   : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) v[i] = make_float2(v[i].x + bb[i].x, v[i].y + bb[i].y);
       }
+      if (P.c) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (c0 + 8 * i < P.n) *reinterpret_cast<float2*>(P.c + orow * P.ldc + c0 + 8 * i) = v[i];
+      }
+      if (P.epi == EPI_STORE || !P.c2) continue;
+      if (P.epi == EPI_GATES) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) v[i] = make_float2(silu(v[i].x), silu(v[i].y));
+      } else {  // gate may be c2 itself: each element read and written by one thread
+        const float* gr = P.gate + (long long)r * P.ldg + c0;
+        float2 gg[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          gg[i] = c0 + 8 * i < P.n ? *reinterpret_cast<const float2*>(gr + 8 * i)
+                                   : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) v[i] = make_float2(v[i].x * gg[i].x, v[i].y * gg[i].y);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (c0 + 8 * i < P.n) *reinterpret_cast<float2*>(P.c2 + orow * P.ldc2 + c0 + 8 * i) = v[i];
     }
+  }
 }
 
 // the B halves of a launch's segments: dst [2][N][K] (hi, lo) from B [K, N] (ld) or, btrans,
@@ -945,11 +987,15 @@ NNProb gated(NNProb p, const float* gate, int ldg) {
 }
 
 // the products over rows 0..*n_rows-1 of at most max_rows: per batch of NN_MAXP problems,
-// the B halves of each distinct segment, then the tiles (those past the count exit)
-cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, cudaStream_t st) {
+// the B halves of each distinct segment, then the tiles (those past the count exit). A
+// persistent launch runs one block per SM over all the tiles (for products of small K,
+// whose blocks would otherwise be mostly set-up and epilogue).
+cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, cudaStream_t st,
+                            bool persistent = false) {
   if (en.max_rows <= 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(so2_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);
+  const auto kernel = persistent ? so2_mma_kernel<true> : so2_mma_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);
   if (err != cudaSuccess) return err;
   const int row_tiles = (int)((en.max_rows + BM - 1) / BM);
   for (size_t i0 = 0; i0 < probs.size(); i0 += NN_MAXP) {
@@ -1015,7 +1061,9 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
     so2_prep_kernel<<<ptiles, 256, 0, st>>>(pb);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const long long blocks = (long long)(row_tiles + GROUP - 1) / GROUP * GROUP * bt.tiles;
-    so2_mma_kernel<<<(unsigned)blocks, GT, MMA_SMEM, st>>>(bt, en.n_rows, en.eidx);
+    bt.jobs = (int)blocks;
+    kernel<<<(unsigned)(persistent ? std::min(blocks, (long long)SMS) : blocks), GT, MMA_SMEM,
+             st>>>(bt, en.n_rows, en.eidx);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;

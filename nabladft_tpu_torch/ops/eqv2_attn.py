@@ -202,7 +202,7 @@ def _lib() -> ctypes.CDLL:
     lib.eqv2_bwd.argtypes = [p] * 7 + [pp] + [p] * 6 + [pp] + [p] * 2 + [i] * 12 + [p]
     lib.eqv2_bwd.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.so2_products_probe.argtypes = [i, ip, pp, ll, p, p, p, ll, p]
+    lib.so2_products_probe.argtypes = [i, ip, pp, ll, p, p, p, ll, i, p]
     lib.so2_products_probe.restype = i
     lib.so2_wgrads_part_floats.argtypes = [i, ip, ll]
     lib.so2_wgrads_part_floats.restype = ll
@@ -425,22 +425,27 @@ def so2_products_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> 
             if p.get("c2") is not None:
                 p["c2"][out, :n] = F.silu(acc)
         else:
+            if epi == "gated" and p.get("bias") is not None:
+                acc = acc + p["bias"][:n]
             if p.get("c") is not None:
                 p["c"][out, :n] = acc
             if epi == "gated" and p.get("c2") is not None:
                 p["c2"][out, :n] = acc * p["gate"][rows, :n]
 
 
-def so2_products(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
+def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
+                 persistent: bool = False) -> None:
     """C[e, n] = Σ_seg sign · A[row(e), :k] B over the rows e < n_rows, in
     place, with the engine of so2_common.cuh (3xTF32 on the tensor cores) on
     card tensors, or the plain version on CPU tensors. A problem: "segs"
     (up to 4 dicts: "a" a 2-D view with rows of K, "b" [K, N] or, with
     "btrans", [N, K], "k", "sign" ±1), "n", "epi" ("store", "gates": c = acc
-    + bias and c2 = silu of it, "gated": c = acc and c2 = acc · gate[e]), the
-    2-D output views "c" / "c2", "bias", "gate", and "gather" (A's row
-    eidx[e]) / "scatter" (C's row eidx[e]). Views have unit column stride;
-    K a multiple of 8, N of 4, rows 16-byte aligned."""
+    + bias and c2 = silu of it, "gated": c = v and c2 = v · gate[e] with v =
+    acc (+ bias where given), gate may be c2), the 2-D output views "c" /
+    "c2", "bias", "gate", and "gather" (A's row eidx[e]) / "scatter" (C's
+    row eidx[e]). Views have unit column stride; K a multiple of 8, N of 4,
+    rows 16-byte aligned. `persistent` runs one block per SM over all the
+    tiles (as kernels I and K launch their gate products)."""
     dev = problems[0]["segs"][0]["a"].device
     if dev.type == "cpu":
         so2_products_reference(problems, n_rows, eidx)
@@ -486,7 +491,7 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
         err = lib.so2_products_probe(len(problems), (ctypes.c_int * len(ints))(*ints),
                                      (ctypes.c_void_p * len(ptrs))(*ptrs), max_rows,
                                      nr.data_ptr(), ev.data_ptr(), scratch.data_ptr(), prep,
-                                     torch.cuda.current_stream(dev).cuda_stream)
+                                     int(persistent), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.raise_on_error(err, "so2_products_probe")
     LAUNCHES["so2_products"] += 1
 

@@ -8,7 +8,7 @@ the ops form the path weights of the gate MLPs' second Dense,
 
   u_r = h_r @ W2r + b2r      u_s = h_s @ W2s + b2s      w = u_r ⊙ u_s   [A, P·C]
 
-and never write w to device memory:
+and contract it with the tensor products:
 
   conv: agg[i, l3²+m, c] = Σ_j Σ_p Σ_a cgsh[i, j, off_p + a·(2l3+1) + m]
                                        · x[l1²+a, j, c] · w[j, p·C + c]
@@ -31,12 +31,15 @@ kernel has a plain PyTorch version here that takes `lmax`; a wrapper takes
 it only for CPU tensors, and a CUDA tensor launches the kernel (sources in
 ``csrc/qhnet_tp.cu``) or raises.
 
-The backward kernels J and L run over the live pairs only (cgsh row, or
-maskf, not zero) and put the gate's three dense products (u, gh = gu @ W2ᵀ,
-[gW2; gb2] = [h, 1]ᵀ gu) on the tensor cores through the SO(2) product
-engine (3xTF32, fp32-accurate); `conv_bwd_staged` / `pair_bwd_staged` are
-that decomposition on plain tensors, held against the JAX VJPs in the CPU
-tests. The wrappers pad H1, H2 and P·C with zeros to multiples of 8.
+All four kernels run over the live pairs only (cgsh row, or maskf, not
+zero) and put the gate's dense products on the tensor cores through the
+SO(2) product engine (3xTF32, fp32-accurate): I and K form w = u_r ⊙ u_s
+of the live pairs in one array (u_r, then u_s multiplied into it in place),
+which their tensor-product stage reads; J and L form u and, after their
+stage, gh = gu @ W2ᵀ and [gW2; gb2] = [h, 1]ᵀ gu. `conv_fwd_staged` /
+`pair_fwd_staged` and `conv_bwd_staged` / `pair_bwd_staged` are those
+decompositions on plain tensors, held against the JAX ops and VJPs in the
+CPU tests. The wrappers pad H1, H2 and P·C with zeros to multiples of 8.
 """
 
 from __future__ import annotations
@@ -185,8 +188,9 @@ def flops_split(kind: str, b, a, c, h1, h2, lmax=LMAX) -> Tuple[int, int]:
     """The FLOP model of kernel `kind` ("I", "J", "K" or "L") as (gate
     products, the rest): the gate's second Dense u = h @ W2 (I, K), and in
     the backward also gh = gu @ W2ᵀ and gW2 = hᵀ @ gu (J, L), each
-    2·(B·A²)·P·C·(H1+H2); the rest is the tensor products, the gate
-    multiplies and the bias sums, which stay on the CUDA cores."""
+    2·(B·A²)·P·C·(H1+H2), all on the tensor cores in I-L; the rest is the
+    tensor products, the gate multiplies and the bias sums, which stay on
+    the CUDA cores."""
     _, _, p = _path_mults(lmax)
     gate = 2 * b * a * a * p * c * (h1 + h2)
     n_prod = 1 if kind in "IK" else 3
@@ -271,6 +275,71 @@ def gx_chunks(b: int, a: int) -> int:
 def _live_rows(flags: torch.Tensor) -> torch.Tensor:
     """The live pair slots b·A² + i·A + j in slot order (so2_scan_kernel's list)."""
     return torch.nonzero(flags.reshape(-1)).flatten()
+
+
+def _gate_weights_staged(e, hr, hs, w2r, b2r, w2s, b2s) -> torch.Tensor:
+    """w = u_r ⊙ u_s over the live rows e in one array, as I and K form it:
+    u_r = h_r @ W2r + b2r first, then u_s + b2s multiplied into it in place."""
+    w = hr.reshape(-1, hr.shape[-1])[e] @ w2r + b2r
+    w *= hs.reshape(-1, hs.shape[-1])[e] @ w2s + b2s
+    return w
+
+
+def _by_l3(lmax: int):
+    """The paths' (index, l1, l2, l3) by l3 group, heaviest group (largest
+    l3) first, in path order within a group: the order of I's and K's
+    tensor-product stages."""
+    paths = list(enumerate(tp_paths(lmax)))
+    return [[(p, *t) for p, t in paths if t[2] == l3] for l3 in range(lmax, -1, -1)]
+
+
+def conv_fwd_staged(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -> torch.Tensor:
+    """Kernel I's stages in the card's order, on plain tensors: the live
+    pairs (cgsh row not zero); w = u_r ⊙ u_s over them in one array (the
+    gate products); the tensor-product stage by l3 group, path by path:
+    agg[i, l3²+m] += Σ_a cg[a, m]·(w·x_j[l1²+a]) over i's live senders j. A
+    receiver with no live pair gets zeros. Returns conv_fwd_reference's agg."""
+    b, s, a, c = x.shape
+    offs, used = _cg_layout(lmax)
+    rows = cgsh.reshape(b * a * a, -1)
+    e = _live_rows((rows[:, :used] != 0).any(1))
+    bi, j = e // a, e % a  # bi = b·A + i
+    w = _gate_weights_staged(e, hr, hs, w2r, b2r, w2s, b2s)
+    xq = x.permute(0, 2, 1, 3).reshape(b * a, s, c)[bi // a * a + j]  # the sender's features
+    agg = x.new_zeros(b * a, s, c)
+    for group in _by_l3(lmax):
+        for p, l1, _, l3 in group:
+            n1, m3, sl = 2 * l1 + 1, 2 * l3 + 1, slice(p * c, (p + 1) * c)
+            cg = rows[e, offs[p]:offs[p] + n1 * m3].reshape(-1, n1, m3)
+            xw = xq[:, l1 * l1:l1 * l1 + n1] * w[:, None, sl]
+            agg[:, l3 * l3:l3 * l3 + m3].index_add_(0, bi, torch.einsum("eam,eac->emc", cg, xw))
+    return agg.reshape(b, a, s, c)
+
+
+def pair_fwd_staged(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -> torch.Tensor:
+    """Kernel K's stages in the card's order, on plain tensors: the live
+    pairs (maskf not zero); w = u_r ⊙ u_s over them in one array; the
+    tensor-product stage by l3 group, path by path: fij[i, l3²+m, j] +=
+    Σ_b zi[i, (b, m)]·(x_j[l2²+b]·w·maskf) over the live pairs. The dead
+    pairs' slots hold zeros. Returns pair_fwd_reference's fij."""
+    b, s, a, c = x.shape
+    kz = zi.shape[2]
+    offs, _ = _zi_layout(lmax)
+    e = _live_rows(maskf != 0)
+    bi, j = e // a, e % a
+    wm = _gate_weights_staged(e, hr, hs, w2r, b2r, w2s, b2s) * maskf.reshape(-1)[e][:, None]
+    zq = zi.reshape(b * a, kz, c)[bi]
+    xq = x.permute(0, 2, 1, 3).reshape(b * a, s, c)[bi // a * a + j]
+    fq = x.new_zeros(e.numel(), s, c)  # fij[b, i, :, j] of each live pair
+    for group in _by_l3(lmax):
+        for p, _, l2, l3 in group:
+            n2, m3, sl = 2 * l2 + 1, 2 * l3 + 1, slice(p * c, (p + 1) * c)
+            z = zq[:, offs[p]:offs[p] + n2 * m3].reshape(-1, n2, m3, c)
+            xw = xq[:, l2 * l2:l2 * l2 + n2] * wm[:, None, sl]
+            fq[:, l3 * l3:l3 * l3 + m3] += torch.einsum("enmc,enc->emc", z, xw)
+    fij = x.new_zeros(b * a * a, s, c)
+    fij[e] = fq
+    return fij.reshape(b, a, a, s, c).permute(0, 1, 3, 2, 4).contiguous()
 
 
 def _gate_grads_staged(e, hr, hs, w2r, w2s, gur, gus):
@@ -372,15 +441,19 @@ def pair_bwd_staged(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMA
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load("qhnet_tp")
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.qhnet_fwd_scratch_floats.argtypes = [i] * 6
+    lib.qhnet_fwd_scratch_floats.restype = ctypes.c_longlong
+    lib.qhnet_fwd_scratch_ints.argtypes = [i, i]
+    lib.qhnet_fwd_scratch_ints.restype = ctypes.c_longlong
     lib.qhnet_bwd_scratch_floats.argtypes = [i] * 7
     lib.qhnet_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.qhnet_bwd_scratch_ints.argtypes = [i, i]
     lib.qhnet_bwd_scratch_ints.restype = ctypes.c_longlong
-    lib.qhnet_conv_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.qhnet_conv_fwd.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.qhnet_conv_fwd.restype = i
     lib.qhnet_conv_bwd.argtypes = [p] * 16 + [i] * 7 + [p]
     lib.qhnet_conv_bwd.restype = i
-    lib.qhnet_pair_fwd.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.qhnet_pair_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
     lib.qhnet_pair_fwd.restype = i
     lib.qhnet_pair_bwd.argtypes = [p] * 18 + [i] * 7 + [p]
     lib.qhnet_pair_bwd.restype = i
@@ -428,15 +501,17 @@ def qhnet_conv_fwd(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -> tor
     dev = _kernels.check_inputs(args, _shapes(*dims, k=k))
     if dev.type == "cpu":
         return conv_fwd_reference(*args.values(), lmax=lmax)
-    b, s, a, c, h1, h2, _ = dims
+    b, s, a, c, *_ = dims
+    gates = _padded_gates(hr, hs, w2r, b2r, w2s, b2s)
     out = torch.empty((b, a, s, c), dtype=torch.float32, device=dev)
-    _launch("qhnet_conv_fwd", *args.values(), out, b, a, c, h1, h2, k, lmax)
+    _launch("qhnet_conv_fwd", x, cgsh, *gates, out, *_fwd_scratch(dev, b, a, c, gates, lmax), b,
+            a, c, gates[0].shape[-1], gates[1].shape[-1], k, lmax)
     LAUNCHES["qhnet_conv_fwd"] += 1
     return out
 
 
 def _padded_gates(hr, hs, w2r, b2r, w2s, b2s):
-    """The backward kernels' gate operands: H1, H2 and P·C padded by zeros to
+    """The kernels' gate operands: H1, H2 and P·C padded by zeros to
     multiples of 8 (the tensor-core products take K a multiple of 8); the
     inputs themselves when nothing needs padding, as on QHNet's path."""
     pc = w2r.shape[1]
@@ -452,6 +527,14 @@ def _padded_gates(hr, hs, w2r, b2r, w2s, b2s):
 
     (hr, w2r, b2r), (hs, w2s, b2s) = pad(hr, w2r, b2r), pad(hs, w2s, b2s)
     return hr, hs, w2r, b2r, w2s, b2s
+
+
+def _fwd_scratch(dev, b, a, c, gates, lmax):
+    """(float scratch, int scratch) of a forward launch (I, K) on padded `gates`."""
+    nf = _lib().qhnet_fwd_scratch_floats(b, a, c, gates[0].shape[-1], gates[1].shape[-1], lmax)
+    ni = _lib().qhnet_fwd_scratch_ints(b, a)
+    return (torch.empty((nf,), dtype=torch.float32, device=dev),
+            torch.empty((ni,), dtype=torch.int32, device=dev))
 
 
 def _bwd_buffers(dev, pair: bool, b, a, c, gates, lmax):
@@ -502,9 +585,11 @@ def qhnet_pair_fwd(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -
     dev = _kernels.check_inputs(args, _shapes(*dims, kz=kz))
     if dev.type == "cpu":
         return pair_fwd_reference(*args.values(), lmax=lmax)
-    b, s, a, c, h1, h2, _ = dims
-    out = torch.empty((b, a, s, a, c), dtype=torch.float32, device=dev)
-    _launch("qhnet_pair_fwd", *args.values(), out, b, a, c, h1, h2, kz, lmax)
+    b, s, a, c, *_ = dims
+    gates = _padded_gates(hr, hs, w2r, b2r, w2s, b2s)
+    out = torch.zeros((b, a, s, a, c), dtype=torch.float32, device=dev)  # dead pairs' slots
+    _launch("qhnet_pair_fwd", x, zi, maskf, *gates, out, *_fwd_scratch(dev, b, a, c, gates, lmax),
+            b, a, c, gates[0].shape[-1], gates[1].shape[-1], kz, lmax)
     LAUNCHES["qhnet_pair_fwd"] += 1
     return out
 
@@ -598,7 +683,7 @@ def flops_bytes(kind: str, x: torch.Tensor, table: torch.Tensor, hr: torch.Tenso
     "flops_live" the same per pair times the `live` pairs (a dead pair adds
     exact zeros: the bound counts what the data needs), "flops_live_products"
     / "flops_live_other" its split (`flops_split`: the gate products, on the
-    tensor cores in J and L, and the rest), and "bytes" with each input read
+    tensor cores in I-L, and the rest), and "bytes" with each input read
     once and each output written once (`table` is cgsh for I/J, zi for
     K/L)."""
     b, s, a, c = x.shape

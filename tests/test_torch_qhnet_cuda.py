@@ -81,19 +81,32 @@ def test_kernel_matches_plain(card, smoke, kind, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["J", "L"])
+@pytest.mark.parametrize("kind", ["I", "J", "K", "L"])
 def test_backward_kernels_repeat_their_bits(card, smoke, kind):
     x = smoke.qhnet_kernel_inputs(card, 3, 21, 72, (32, 32), (8, 128), seed=3)
     fn = KERNELS[kind][0]
     first, again = fn(*_args(smoke, kind, x)), fn(*_args(smoke, kind, x))
+    first, again = (first, again) if kind in "JL" else ((first,), (again,))
     assert all(torch.equal(p, q) for p, q in zip(first, again))
 
 
+# each kernel's launches on the card: those that must run, and the bodies they replaced
+ENGINE_RUNS = {
+    "I": (("so2_mma_kernel", "qhnet_conv_tp_fwd_kernel"), ("qhnet_conv_fwd_kernel",)),
+    "J": (("so2_mma_kernel", "so2_mmw_kernel", "so2_colsum_kernel", "qhnet_conv_tp_bwd_kernel"),
+          ("qhnet_gemm_nt", "qhnet_gw_")),
+    "K": (("so2_mma_kernel", "qhnet_pair_tp_fwd_kernel"), ("qhnet_pair_fwd_kernel",)),
+    "L": (("so2_mma_kernel", "so2_mmw_kernel", "so2_colsum_kernel", "qhnet_pair_tp_bwd_kernel"),
+          ("qhnet_gemm_nt", "qhnet_gw_")),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["J", "L"])
+@pytest.mark.parametrize("kind", ["I", "J", "K", "L"])
 def test_backward_gate_products_run_on_the_engine(card, smoke, kind):
-    """J's and L's gate products (u, gh, [gW2; gb2]) are the tensor-core
-    engine's kernels; the CUDA-core products they replaced are gone."""
+    """The gate products of I-L (u or w = u_r u_s; in J and L also gh and
+    [gW2; gb2]) are the tensor-core engine's kernels; the CUDA-core bodies
+    they replaced are gone."""
     from torch.profiler import ProfilerActivity, profile
 
     x = smoke.qhnet_kernel_inputs(card, 2, 24, 128, (32, 32), (8, 128), seed=5)
@@ -104,10 +117,10 @@ def test_backward_gate_products_run_on_the_engine(card, smoke, kind):
         fn(*_args(smoke, kind, x))
         torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages()}
-    stage = "qhnet_conv_tp_bwd_kernel" if kind == "J" else "qhnet_pair_tp_bwd_kernel"
-    for want in ("so2_mma_kernel", "so2_mmw_kernel", "so2_colsum_kernel", stage):
+    present, absent = ENGINE_RUNS[kind]
+    for want in present:
         assert any(want in n for n in names), (want, sorted(names))
-    assert not any("qhnet_gemm_nt" in n or "qhnet_gw_" in n for n in names), sorted(names)
+    assert not any(gone in n for n in names for gone in absent), sorted(names)
 
 
 @pytest.mark.cuda
@@ -116,6 +129,9 @@ def test_masked_pairs_and_padded_atoms_give_exact_zeros(card, smoke):
     x = smoke.qhnet_kernel_inputs(card, b, a, 40, (32, 32), (8, 128), seed=7)
     real = x["node_mask"]
     pad_j = ~real  # [B,A]
+    # conv: padded receivers (no live pair) get no agg
+    agg = qt.qhnet_conv_fwd(*_args(smoke, "I", x))
+    assert float(agg[pad_j].abs().max()) == 0.0
     # conv: padded senders get no gx; pairs off the radius graph no ghr / ghs
     gx, ghr, ghs, *_ = qt.qhnet_conv_bwd(*_args(smoke, "J", x))
     assert float(gx.permute(0, 2, 1, 3)[pad_j].abs().max()) == 0.0

@@ -8,11 +8,13 @@ contracts define (gx, gzi, ghr, ghs, gW2r, gb2r, gW2s, gb2s) within rtol
 2e-5 / atol 2e-5 (that file's tolerance for fp32 sums in another order).
 The path layouts and FLOP models equal the JAX ones at LMAX=4.
 
-The staged versions (`conv_bwd_staged`, `pair_bwd_staged`: the card's
-decomposition of J and L, the live pairs only, gate products, the
-tensor-product stage writing gu, the gradient products, L's gx as chunked
-partials summed in order) are held against the same JAX VJPs within
-1e-5 x max |output|.
+The staged versions (`conv_fwd_staged`, `pair_fwd_staged`: the card's
+decomposition of I and K, the live pairs only, w = u_r ⊙ u_s in one array,
+the tensor-product stage by l3 group; `conv_bwd_staged`, `pair_bwd_staged`:
+that of J and L, the live pairs only, gate products, the tensor-product
+stage writing gu, the gradient products, L's gx as chunked partials summed
+in order) are held against the same JAX ops and VJPs within 1e-5 x max
+|output|, the forward also with one receiver that has no live pair.
 """
 
 import functools
@@ -195,6 +197,42 @@ def staged(conv, pair):
                                                             lmax=LM))),
             "pair_3_chunks": dict(zip(PAIR_GRADS, qt.pair_bwd_staged(
                 *_pair_args(pair), _t(pair["g"]), lmax=LM, chunks=3)))}
+
+
+@pytest.fixture(scope="module")
+def dead(conv, pair):
+    """The fixtures' inputs with receiver 3 of molecule 0 left no live pair
+    (its cgsh rows, or its maskf row, zero), through the JAX forward ops."""
+    cgsh, maskf = conv["cgsh"].copy(), pair["maskf"].copy()
+    cgsh[0, 3] = 0.0
+    maskf[0, 3] = 0.0
+    ci, pi = conv["ins"], pair["ins"]
+
+    def fc(x, hr, hs, w2r, b2r, w2s, b2s):
+        return K.conv_tp(_pad(x, (2,)), _pad(jnp.asarray(cgsh), (1, 2)), _pad(hr, (1, 2)),
+                         _pad(hs, (1, 2)), w2r, b2r, w2s, b2s, LM, True)[:, :A]
+
+    def fp(x, zi, hr, hs, w2r, b2r, w2s, b2s):
+        return K.pair_tp(_pad(x, (2,)), _pad(zi, (1,)), _pad(jnp.asarray(maskf), (1, 2)),
+                         _pad(hr, (1, 2)), _pad(hs, (1, 2)), w2r, b2r, w2s, b2s,
+                         LM, True)[:, :A, :, :A]
+
+    return {"conv": dict(conv, cgsh=cgsh, out=np.asarray(jax.jit(fc)(*ci.values()))),
+            "pair": dict(pair, maskf=maskf, out=np.asarray(jax.jit(fp)(*pi.values())))}
+
+
+@pytest.mark.parametrize("case", ["fixture", "dead_receiver"])
+@pytest.mark.parametrize("op", ["conv", "pair"])
+def test_staged_forward_matches_jax(conv, pair, dead, op, case):
+    d = dead[op] if case == "dead_receiver" else {"conv": conv, "pair": pair}[op]
+    if op == "conv":
+        got = qt.conv_fwd_staged(*_conv_args(d), lmax=LM)
+    else:
+        got = qt.pair_fwd_staged(*_pair_args(d), lmax=LM)
+    assert got.shape == d["out"].shape
+    _staged_close(got.numpy(), d["out"])
+    if case == "dead_receiver":
+        assert float(got[0, 3].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("name", CONV_GRADS)

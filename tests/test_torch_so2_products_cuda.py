@@ -11,10 +11,13 @@ through the library's probe entry points; the reference is their plain
 version on float64 copies of the same inputs. Shapes: ragged row counts (1,
 127, 129 and 68,632 live rows of more slots), N 4 / 132 / 640 / 1,536 and K
 8 / 24 / 1,792, signed and transposed segments, gathered A rows and scattered
-C rows, the three epilogues, and the weight gradients (rows, gathered,
+C rows, the three epilogues (the gate-multiply one also with a bias, in
+place), and the weight gradients (rows, gathered,
 column sums), run twice for the same bits. Tolerance: max |engine - float64|
 <= 2e-5 x max |float64| per output, the kernels' tolerance in chip_smoke.py.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -137,6 +140,33 @@ def test_products_gather_gates_and_scatter_gated(card):
         ]
 
     _run_both(make, t, rows, eidx, ["z", "s", "h", "hg", "sc"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("persistent", [False, True])
+def test_products_gated_bias_in_place(card, persistent):
+    """QHNet's w = u_r u_s: u_r (gathered rows, bias) first, then u_s with
+    its bias added and the u_r row multiplied in, written over u_r; one
+    block a tile, or one block per SM over all the tiles."""
+    rng = np.random.default_rng(12)
+    slots, rows, n = 3000, 2345, 8320
+    eidx = torch.from_numpy(np.sort(rng.choice(slots, rows, replace=False)).astype(np.int32))
+    eidx = eidx.to(card)
+    t = {"hr": _rand(rng, slots, 8).to(card), "w2r": _rand(rng, 8, n, scale=0.3).to(card),
+         "b2r": _rand(rng, n, scale=0.1).to(card), "hs": _rand(rng, slots, 128).to(card),
+         "w2s": _rand(rng, 128, n, scale=0.09).to(card),
+         "b2s": _rand(rng, n, scale=0.1).to(card), "w": torch.zeros(rows, n, device=card)}
+    f32 = {k: v.clone() for k, v in t.items()}
+    f64 = {k: v.double().clone() for k, v in t.items()}
+    for x in (f32, f64):
+        fn = (functools.partial(ea.so2_products, persistent=persistent) if x is f32
+              else ea.so2_products_reference)
+        fn([dict(segs=[dict(a=x["hr"], b=x["w2r"], k=8)], n=n, epi="gates", c=x["w"],
+                 bias=x["b2r"], gather=True)], rows, eidx)
+        fn([dict(segs=[dict(a=x["hs"], b=x["w2s"], k=128)], n=n, epi="gated", c2=x["w"],
+                 gate=x["w"], bias=x["b2s"], gather=True)], rows, eidx)
+    torch.cuda.synchronize()
+    _close(f32["w"], f64["w"], "w")
 
 
 @pytest.mark.cuda
