@@ -22,8 +22,12 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                model builds them), one line per kernel and shape: error
                against the plain PyTorch version, and the kernel's, the plain
                version's and the bound's times (CUDA events, median / min /
-               max of 25 runs after warm-up); D and H are run twice and must
-               give the same bits. kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
+               max of 25 runs after warm-up); B (with and without gW), D and H
+               are run twice and must give the same bits. B and D run their
+               radial products on the tensor cores over the live pairs: their
+               lines carry each launched kernel's device ms (`stages_ms`), the
+               live pairs, and `bound_ms` with the products at the 3xTF32 rate
+               beside `bound_fma_ms`, as I-P's. kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
                J (qhnet_conv_bwd), K (qhnet_pair_fwd), L (qhnet_pair_bwd) at the
                QHNet train path's shapes (B=8, A=32/48/64, C=128, LMAX 4, gate
                hiddens 32/32 for the conv and 8/128 for the pair; a/2..a real
@@ -42,9 +46,12 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                (the forward and backward kernel 6x per batch, the backward's
                weight-gradient stage never), every batch against the CPU
                plain path, rotation invariance / equivariance; molecules/s
-               (median / min / max of 7 passes after a warm-up pass).
+               (median / min / max of 7 passes after a warm-up pass); for
+               PaiNN the share of live pairs (rbf_env row not zero) of the
+               batches by bucket.
      profile — torch.profiler over two predict steps: device time by
-               kernel and the device's busy share (printed before predict).
+               kernel and the device's busy share (printed before predict);
+               PaiNN's must show B's engine products and stage.
   4. train   — for each family, `pipelines.run` of ``job_type: train``
                (TRAIN_EPOCHS epochs, force_grads "pallas") on the same DB,
                then ``job_type: test`` from the best checkpoint; checks launch
@@ -56,9 +63,11 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                one batch per bucket against the plain module's double
                backward on the card (force_grads "direct"); molecules/s of
                the train steps of the last epoch (median / min / max), seconds
-               per epoch, peak device memory.
+               per epoch, peak device memory; for PaiNN the live-pair share of
+               an epoch's train batches by bucket.
      train_profile — torch.profiler over two train steps (printed before
-               train).
+               train); PaiNN's must show B's and D's engine products, their
+               stages and D's gW on the engine's weight-gradient product.
   SchNet's lines carry the prefix ``schnet_`` (schnet_predict, ...).
   5. qhnet_train — `pipelines.run` of ``job_type: train`` on configs/qhnet.yaml
                at full width (hidden 128, bottle 32, 5 layers, 32 RBF, batch 8,
@@ -451,10 +460,22 @@ def _so2_row(shape, err, t_k, t_p, work, card: str, **extra) -> dict:
     return row
 
 
-def kernel_bucket(pf, dev, a: int, peak_flops: float, peak_bw: float):
+def _same_bits(fn, args, got, what: str) -> None:
+    again = fn(*args)
+    check(all((p is None and q is None) or torch.equal(p, q) for p, q in zip(got, again)),
+          f"{what} gives the same bits on a rerun")
+
+
+def kernel_bucket(pf, dev, a: int, card: str):
     """Kernels A-D at (KB, a, KR, KF) against their plain versions: errors
     (checked), and kernel / plain / bound times. B is checked and timed both
-    with the weight gradient and without it, as the predict path runs it."""
+    with the weight gradient and without it, as the predict path runs it.
+    B and D run their radial products on the tensor cores over the live
+    pairs: each runs twice for the same bits (B with and without gW), their
+    lines carry each launched kernel's device ms (`stages_ms`), the live
+    pairs, and `bound_ms` with the products at the 3xTF32 rate beside
+    `bound_fma_ms` (`_so2_row`)."""
+    peak_flops, peak_bw = peaks(card)
     x = kernel_inputs(dev, a)
     a_args = [x[k] for k in ("rbf", "phi", "v", "unit_t", "w")]
     b_args = [x[k] for k in ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")]
@@ -471,23 +492,34 @@ def kernel_bucket(pf, dev, a: int, peak_flops: float, peak_bw: float):
     got = pf.painn_bwd(*b_args)
     err = compare(got, pf.painn_message_bwd_reference(*b_args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel B error at {shape}: {err}")
+    _same_bits(pf.painn_bwd, b_args, got, f"kernel B at {shape}")
     got_ng = pf.painn_bwd(*b_args, need_gw=False)
     check(got_ng[4] is None and all(torch.equal(p, q) for p, q in zip(got_ng[:4], got[:4])),
           "kernel B without gW gives the same node and pair cotangents")
+    _same_bits(lambda *t: pf.painn_bwd(*t, need_gw=False), b_args, got_ng,
+               f"kernel B without gW at {shape}")
     err_ng = compare(got_ng[:4], pf.painn_message_bwd_reference(*b_args, need_gw=False)[:4])
     check(err_ng["max_rel_err"] <= KERNEL_RTOL, f"kernel B (no gW) error at {shape}: {err_ng}")
-    flops_ng, nbytes_ng = pf.painn_bwd_flops_bytes(x["rbf"], KF, need_gw=False)
-    b_ms_ng, b_by_ng = bound(flops_ng, nbytes_ng, peak_flops, peak_bw)
+    del got, got_ng
+    stages = stage_times(pf.painn_bwd, b_args)
+    stages_ng = stage_times(lambda *t: pf.painn_bwd(*t, need_gw=False), b_args)
+    work = pf.bwd_work("B", x["rbf"], x["rbfp"], KF)
+    work_ng = pf.bwd_work("B", x["rbf"], x["rbfp"], KF, need_gw=False)
     t_k = time_ms(lambda: pf.painn_bwd(*b_args))
     t_p = time_ms(lambda: pf.painn_message_bwd_reference(*b_args))
     t_k_ng = time_ms(lambda: pf.painn_bwd(*b_args, need_gw=False))
     t_p_ng = time_ms(lambda: pf.painn_message_bwd_reference(*b_args, need_gw=False))
-    row_b = _kernel_row(shape, err, t_k, t_p, *pf.painn_bwd_flops_bytes(x["rbf"], KF),
-                        peak_flops, peak_bw, max_abs_err_without_gw=err_ng["max_abs_err"],
-                        ms_without_gw=t_k_ng["median"], plain_ms_without_gw=t_p_ng["median"],
-                        bound_ms_without_gw=b_ms_ng, bound_by_without_gw=b_by_ng,
-                        flops_without_gw=flops_ng,
-                        roofline_share_without_gw=b_ms_ng / t_k_ng["median"])
+    row_ng = _so2_row(shape, err_ng, t_k_ng, t_p_ng, work_ng, card)
+    row_b = _so2_row(shape, err, t_k, t_p, work, card, live_pairs=work["live_pairs"],
+                     pairs=work["pairs"], bit_identical_rerun=True, stages_ms=stages,
+                     max_abs_err_without_gw=err_ng["max_abs_err"],
+                     ms_without_gw=t_k_ng["median"], plain_ms_without_gw=t_p_ng["median"],
+                     bound_ms_without_gw=row_ng["bound_ms"],
+                     bound_by_without_gw=row_ng["bound_by"],
+                     bound_fma_ms_without_gw=row_ng["bound_fma_ms"],
+                     flops_without_gw=work_ng["flops_live"],
+                     roofline_share_without_gw=row_ng["roofline_share"],
+                     stages_ms_without_gw=stages_ng)
     emit("kernel_B", **row_b, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p,
          kernel_times_without_gw=t_k_ng, plain_times_without_gw=t_p_ng)
 
@@ -505,13 +537,14 @@ def kernel_bucket(pf, dev, a: int, peak_flops: float, peak_bw: float):
     got = pf.painn_dual_bwd(*d_args)
     err = compare(got, pf.painn_dual_bwd_reference(*d_args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel D error at {shape}: {err}")
-    again = pf.painn_dual_bwd(*d_args)
-    check(all(torch.equal(p, q) for p, q in zip(got, again)), f"kernel D deterministic at {shape}")
+    _same_bits(pf.painn_dual_bwd, d_args, got, f"kernel D at {shape}")
+    del got
+    stages = stage_times(pf.painn_dual_bwd, d_args)
+    work = pf.bwd_work("D", x["rbf"], x["rbfd"], KF)
     t_k = time_ms(lambda: pf.painn_dual_bwd(*d_args))
     t_p = time_ms(lambda: pf.painn_dual_bwd_reference(*d_args))
-    row_d = _kernel_row(shape, err, t_k, t_p,
-                        *pf.painn_dual_bwd_flops_bytes(x["rbf"], x["rbfd"], KF), peak_flops,
-                        peak_bw, bit_identical_rerun=True)
+    row_d = _so2_row(shape, err, t_k, t_p, work, card, live_pairs=work["live_pairs"],
+                     pairs=work["pairs"], bit_identical_rerun=True, stages_ms=stages)
     emit("kernel_D", **row_d, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
     return {"A": row_a, "B": row_b, "C": row_c, "D": row_d}
 
@@ -522,18 +555,22 @@ KERNELS = {  # key: (name, JAX kernel body line in nabladft_tpu/ops/pallas/painn
 }
 
 
-def kernel_phases(dev, card: str) -> dict:
+def kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels A-D at every bucket shape of the predict and train paths. The
     kernels line's numbers are those at A=HEADLINE_A, except max_abs_err,
-    the largest over all buckets; `per_bucket` holds each bucket's."""
+    the largest over all buckets; `per_bucket` holds each bucket's. B's and
+    D's rows carry the source's registers and spills (ptxas)."""
     from nabladft_tpu_torch.ops import painn_fused as pf
 
-    peak_flops, peak_bw = peaks(card)
     per = {k: [] for k in KERNELS}
     for a in BUCKETS:
-        for k, row in kernel_bucket(pf, dev, a, peak_flops, peak_bw).items():
+        for k, row in kernel_bucket(pf, dev, a, card).items():
             per[k].append(row)
-    return headline_rows(per, KERNELS, "painn_fused", ("B",))
+        torch.cuda.empty_cache()
+    rows = headline_rows(per, KERNELS, "painn_fused", ("B",))
+    for k in "BD":
+        rows[k]["ptxas"] = ptxas.get("painn_fused", {})
+    return rows
 
 
 def headline_rows(per: dict, kernels: dict, source: str, with_gw_split: tuple) -> dict:
@@ -548,6 +585,7 @@ def headline_rows(per: dict, kernels: dict, source: str, with_gw_split: tuple) -
     for k, (name, line) in kernels.items():
         head = next(r for r in per[k] if r["shape"][1] == HEADLINE_A)
         extra = (keep_gw if k in with_gw_split else ()) + (tc if "bound_fma_ms" in head else ())
+        extra += ("bound_fma_ms_without_gw",) if "bound_fma_ms_without_gw" in head else ()
         extra += ("live_pairs", "pairs") if "live_pairs" in head else ()
         rows[k] = dict(
             name=name, route="cuda", source=f"nabladft_tpu_torch/csrc/{source}.cu",
@@ -701,11 +739,32 @@ def rotation(seed: int = 5) -> np.ndarray:
 FAMILIES = {
     "painn": dict(config="painn-oc", ops="painn_fused", prefix="",
                   counters=("painn_fwd", "painn_bwd", "painn_bwd_gw", "painn_dual_fwd",
-                            "painn_dual_bwd")),
+                            "painn_dual_bwd"),
+                  # B's and D's products on the engine and their stages; D's gW on the
+                  # engine's weight-gradient product (train steps only)
+                  predict_present=("so2_mma_kernel", "painn_bwd_stage_kernel"),
+                  train_present=("so2_mma_kernel", "painn_bwd_stage_kernel",
+                                 "painn_dual_bwd_stage_kernel", "so2_mmw_kernel")),
     "schnet": dict(config="schnet", ops="schnet_fused", prefix="schnet_",
                    counters=("schnet_fwd", "schnet_bwd", "schnet_bwd_gw", "schnet_dual_fwd",
-                             "schnet_dual_bwd")),
+                             "schnet_dual_bwd"), predict_present=(), train_present=()),
 }
+
+
+def live_pair_share(model, batches) -> dict:
+    """{A: live pairs, pairs, share} over PaiNN batches by bucket: the pairs
+    whose rbf_env row is not zero, those kernels B and D work on."""
+    out = {}
+    with torch.no_grad():
+        for batch in batches:
+            rbf = model.features(batch.to("cuda"))["rbf_env"]
+            b, a = rbf.shape[:2]
+            d = out.setdefault(a, {"live_pairs": 0, "pairs": 0})
+            d["live_pairs"] += int((rbf != 0).any(-1).sum())
+            d["pairs"] += b * a * a
+    for d in out.values():
+        d["share"] = d["live_pairs"] / d["pairs"]
+    return dict(sorted(out.items()))
 
 
 def reset_all_launches() -> None:
@@ -806,8 +865,10 @@ def predict_phase(tmp: Path, db: Path, family: str) -> dict:
     np.testing.assert_allclose(out_r["forces"].cpu().numpy(),
                                (out["forces"] @ rot.T).cpu().numpy(), **F_TOL)
 
-    profile_phase(fam["prefix"] + "profile", gpu, dm)
+    profile_phase(fam["prefix"] + "profile", gpu, dm, present=fam["predict_present"])
+    live = live_pair_share(gpu.model, dm.predict_dataloader()) if family == "painn" else None
     emit(fam["prefix"] + "predict", config=fam["config"], rows=res["rows"], batches=n_batches,
+         live_pairs_by_bucket=live,
          batch_shapes=shapes, launches=launches, run_seconds=res["seconds"],
          cpu_ref_molecules=len(e_ref), cpu_ref_max_energy_abs_err=e_err,
          cpu_ref_max_force_abs_err=f_err,
@@ -818,11 +879,13 @@ def predict_phase(tmp: Path, db: Path, family: str) -> dict:
     return launches
 
 
-def profile_phase(phase: str, trainer, dm, n_batches: int = 2, top: int = 12) -> None:
+def profile_phase(phase: str, trainer, dm, n_batches: int = 2, top: int = 12,
+                  present=()) -> None:
     """torch.profiler over `n_batches` predict steps (bucket 32): device time
-    by kernel, and the device's busy share of the wall time."""
+    by kernel, and the device's busy share of the wall time; each name in
+    `present` must be part of some kernel's name."""
     batches = list(itertools.islice(dm.predict_dataloader(), n_batches))
-    profile_steps(phase, trainer._predict_step, batches, top)
+    profile_steps(phase, trainer._predict_step, batches, top, present=present)
 
 
 def profile_steps(phase: str, step, batches, top: int = 12, present=(), absent=(),
@@ -920,8 +983,12 @@ def train_phase(tmp: Path, db: Path, family: str) -> dict:
     trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None),
                                       torch.device("cuda"))
     batches = list(itertools.islice(dm.train_dataloader(), 2))
-    profile_steps(fam["prefix"] + "train_profile", trainer._train_step, batches)
+    profile_steps(fam["prefix"] + "train_profile", trainer._train_step, batches,
+                  present=fam["train_present"])
+    live = (live_pair_share(trainer.model, dm.train_dataloader()) if family == "painn"
+            else None)
     emit(fam["prefix"] + "train", config=fam["config"], steps=steps, batches_per_epoch=n_train,
+         live_pairs_by_bucket=live,
          val_batches=n_val, test_batches=n_test,
          launches=launches, expected_launches=want, final_val=res, test=test,
          train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
@@ -1890,7 +1957,7 @@ def main() -> int:
         return out
 
     dev = torch.device("cuda")
-    rows = timed("kernels_painn", kernel_phases, dev, card)
+    rows = timed("kernels_painn", kernel_phases, dev, card, ptxas)
     rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card))
     rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_escn", escn_kernel_phases, dev, card, ptxas))

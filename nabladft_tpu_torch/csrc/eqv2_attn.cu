@@ -716,8 +716,7 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* xi, const
                            const Bufs& bf, cudaStream_t st) {
   eqv2_flags_kernel<<<(unsigned)((D.E + 255) / 256), 256, 0, st>>>(maskf, bf.flags, D.E);
   CK(cudaGetLastError());
-  so2_scan_kernel<<<1, 1024, 0, st>>>(bf.flags, bf.eidx, bf.pos, bf.rs, bf.n_rows, (int)D.E, D.K);
-  CK(cudaGetLastError());
+  CK(live_rows(bf.flags, bf.eidx, bf.pos, bf.rs, bf.n_rows, D.E, D.K, st));
   NNProb prad = prob({seg(xe, D.EC, w[0], D.RADW, D.EC)}, D.RADW, EPI_GATES, bf.RAD, D.RADW);
   prad.gather = 1;
   prad.bias = w[1];
@@ -963,6 +962,16 @@ int so2_wgrads_probe(int np, const int* ints, const void* const* ptrs, long long
   if (!probe_valid(np, ints)) return (int)cudaErrorInvalidValue;
   const Engine en{max_rows, n_rows, eidx, nullptr, 0, part, part_floats};
   return (int)launch_wgrads(en, probe_tprobs(np, ints, ptrs), static_cast<cudaStream_t>(stream));
+}
+
+// The live-row list (live_rows) of 0/1 flags [npairs] in segments of seg slots: eidx and pos
+// [npairs], rs [npairs / seg + 1], n_rows [1].
+int so2_live_rows_probe(const int* flags, int* eidx, int* pos, int* rs, int* n_rows,
+                        long long npairs, int seg, void* stream) {
+  if (seg <= 0 || npairs < 0 || npairs % seg || npairs >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  return (int)live_rows(flags, eidx, pos, rs, n_rows, npairs, seg,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -57,7 +57,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// the live-pair list: flags, then one block scans them in (b, i, j) order
+// the live-pair list: flags, then live_rows lists them in (b, i, j) order
 // ---------------------------------------------------------------------------
 
 __global__ void escn_flags_kernel(const float* __restrict__ d, int* __restrict__ flags,
@@ -399,9 +399,9 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* d, const 
                                                                            D.K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  so2_scan_kernel<<<1, 1024, 0, st>>>(bf.flags, bf.eidx, bf.pos, bf.rs, bf.n_rows, (int)npairs,
-                                       D.A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = live_rows(bf.flags, bf.eidx, bf.pos, bf.rs, bf.n_rows, npairs, D.A, st)) !=
+      cudaSuccess)
+    return err;
   escn_rotate_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
       x, d, bf.rs, bf.eidx, bf.F[0], bf.F[1], D.A, D.C, D.K);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -803,8 +803,7 @@ cudaError_t live_pairs(const Work& w, const float* t, int ld, int used, int B, i
                                                                            ld, used);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  so2_scan_kernel<<<1, 1024, 0, st>>>(w.flags, w.eidx, w.pos, w.rs, w.n_rows, (int)npairs, A);
-  return cudaGetLastError();
+  return live_rows(w.flags, w.eidx, w.pos, w.rs, w.n_rows, npairs, A, st);
 }
 
 // w = (h_r W2r + b2r)(h_s W2s + b2s) of the live pairs into their compact rows (ur): u_r

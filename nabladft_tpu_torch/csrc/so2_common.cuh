@@ -1,6 +1,7 @@
 // Device code shared by the SO(2) message kernels (csrc/escn_layer.cu, kernels M and N;
-// csrc/eqv2_attn.cu, kernels O and P) and QHNet's gate products (csrc/qhnet_tp.cu, I-L):
-// each source includes it and builds its own copy.
+// csrc/eqv2_attn.cu, kernels O and P), QHNet's gate products (csrc/qhnet_tp.cu, I-L) and
+// PaiNN's backward radial products (csrc/painn_fused.cu, B and D): each source includes it and
+// builds its own copy.
 //
 // The product engine: every SO(2) product of M-P, on Hopper's tensor cores.
 //   * so2_mma_kernel: a grouped product over a list of rows (the live pairs or edges of a
@@ -13,8 +14,9 @@
 //     so2_colsum_reduce_kernel the same for the column sums (bias and LayerNorm gradients).
 //     No atomics: the same bits every run;
 //   * so2_prep_kernel: each weight segment of a launch as K-major TF32 halves (hi, lo);
-// and, beside the engine, so2_scan_kernel (the live rows from 0/1 flags, in slot order, with
-// the first row of each receiver), the m-major row tables of the truncated SO(3) stacks
+// and, beside the engine, live_rows (the live rows from 0/1 flags, in slot order, with the
+// first row of each segment of slots: a count, a one-block scan of the counts and a list by
+// ballot), the m-major row tables of the truncated SO(3) stacks
 // (compile-time in L, M), the staging of the truncated S2 grid's tables in shared memory,
 // and silu on that grid (one channel's stack in registers) with its transpose.
 //
@@ -48,8 +50,10 @@
 // Products walk GROUP row tiles per column tile before the next, so that the A rows and the
 // weight tiles in flight both stay in L2. A launch of small K (QHNet's gates, K = 8-128) may
 // run persistent: one block per SM strides over the tiles, the ring running on from tile to
-// tile. The epilogue loads a row's bias and gate values together before it uses them. Every product takes K a multiple of 8 and N a
-// multiple of 4, with 16-byte aligned rows; the host checks it.
+// tile. The epilogue loads a row's bias and gate values together before it uses them. Every
+// product takes K and N multiples of 4, with 16-byte aligned rows; the host checks it. A k tile
+// that runs past K (PaiNN's R = 100) reads zeros there on both sides: TMA fills a box past the
+// tensor with zeros, and the gather copies no 16-byte chunk that starts at or past K.
 
 #pragma once
 
@@ -705,7 +709,8 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
   }
 }
 
-// out = the spl partial tiles summed in order: the same bits every run
+// out = the spl partial tiles summed in order: the same bits every run. Block (x, y) sums
+// the y-th of gridDim.y chunks of tile x (a launch of few tiles still fills the SMs).
 __global__ void __launch_bounds__(256) so2_reduce_kernel(const __grid_constant__ MWBatch bt,
                                                           const float* __restrict__ part) {
   const int pi = mw_problem(bt, blockIdx.x);
@@ -713,7 +718,8 @@ __global__ void __launch_bounds__(256) so2_reduce_kernel(const __grid_constant__
   const int tl = blockIdx.x - bt.tile0[pi];
   const int m0 = (tl / P.tiles_n) * BM, n0 = (tl % P.tiles_n) * BN;
   const float* src = part + P.part + (long long)tl * bt.spl * BM * BN;
-  for (int el = threadIdx.x; el < BM * BN; el += blockDim.x) {
+  const int per = BM * BN / gridDim.y, el_end = (blockIdx.y + 1) * per;
+  for (int el = blockIdx.y * per + threadIdx.x; el < el_end; el += blockDim.x) {
     const int gm = m0 + el / BN, gn = n0 + el % BN;
     if (gm >= P.m || gn >= P.n) continue;
     float s = 0.f;
@@ -768,24 +774,38 @@ __global__ void __launch_bounds__(256) so2_colsum_reduce_kernel(const __grid_con
 }
 
 // ---------------------------------------------------------------------------
-// the live-row list: one block scans the 0/1 flags in slot order
+// the live-row list from 0/1 flags in slot order, the slots in segments of `seg` (a receiver's
+// pairs or edges; PaiNN's: a sender's): so2_count_kernel counts each segment's live slots (a
+// warp a segment), so2_starts_kernel scans the counts in one block and so2_list_kernel lists
+// each segment's live slots by ballot (a warp a segment); live_rows launches the three
 // ---------------------------------------------------------------------------
 
-// eidx[e] = the e-th live pair, pos[p] = its slot or -1, rs[b*A+i] = the first slot of
-// receiver (b, i) (rs[B*A] = the count), n_rows = the count
-__global__ void __launch_bounds__(1024) so2_scan_kernel(const int* __restrict__ flags,
-                                                         int* __restrict__ eidx,
-                                                         int* __restrict__ pos,
-                                                         int* __restrict__ rs,
-                                                         int* __restrict__ n_rows, int npairs,
-                                                         int A) {
+constexpr int LIST_WARPS = 8;  // segments a block of the count and list kernels
+
+// rs[s] = the live slots of segment s
+__global__ void __launch_bounds__(LIST_WARPS * 32) so2_count_kernel(const int* __restrict__ flags,
+                                                                    int* __restrict__ rs,
+                                                                    int nseg, int seg) {
+  const int s = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (s >= nseg) return;  // the whole warp shares s
+  const int* f = flags + (long long)s * seg;
+  int n = 0;
+  for (int k0 = 0; k0 < seg; k0 += 32)
+    n += __popc(__ballot_sync(0xffffffffu, k0 + lane < seg && f[k0 + lane] != 0));
+  if (lane == 0) rs[s] = n;
+}
+
+// in place: rs[s] = the live slots of segments 0 .. s-1 for s <= nseg, and *n_rows = rs[nseg]
+// = their count. One block: each thread sums a run of segments, then a scan of the runs.
+__global__ void __launch_bounds__(1024) so2_starts_kernel(int* __restrict__ rs,
+                                                          int* __restrict__ n_rows, int nseg) {
   __shared__ int sums[1024];
-  const int tid = threadIdx.x;
-  const int per = (npairs + 1023) / 1024;
-  const int lo = min(npairs, tid * per), hi = min(npairs, lo + per);
-  int cnt = 0;
-  for (int p = lo; p < hi; ++p) cnt += flags[p];
-  sums[tid] = cnt;
+  const int tid = threadIdx.x, per = (nseg + 1023) / 1024;
+  const int lo = min(nseg, tid * per), hi = min(nseg, lo + per);
+  int c = 0;
+  for (int s = lo; s < hi; ++s) c += rs[s];
+  sums[tid] = c;
   __syncthreads();
   for (int off = 1; off < 1024; off *= 2) {
     const int v = tid >= off ? sums[tid - off] : 0;
@@ -793,20 +813,51 @@ __global__ void __launch_bounds__(1024) so2_scan_kernel(const int* __restrict__ 
     sums[tid] += v;
     __syncthreads();
   }
-  int ex = sums[tid] - cnt;
-  for (int p = lo; p < hi; ++p) {
-    if (p % A == 0) rs[p / A] = ex;
-    if (flags[p]) {
-      pos[p] = ex;
-      eidx[ex++] = p;
-    } else {
-      pos[p] = -1;
+  int ex = sums[tid] - c;
+  for (int s = lo; s < hi; ++s) {  // each thread rewrites only its own run
+    const int n = rs[s];
+    rs[s] = ex;
+    ex += n;
+  }
+  if (tid == 1023) rs[nseg] = *n_rows = sums[1023];
+}
+
+// eidx[e] = the e-th live slot, pos[p] = its row or -1
+__global__ void __launch_bounds__(LIST_WARPS * 32) so2_list_kernel(const int* __restrict__ flags,
+                                                                   const int* __restrict__ rs,
+                                                                   int* __restrict__ eidx,
+                                                                   int* __restrict__ pos,
+                                                                   int nseg, int seg) {
+  const int s = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (s >= nseg) return;  // the whole warp shares s
+  int base = rs[s];
+  for (int k0 = 0; k0 < seg; k0 += 32) {
+    const long long p = (long long)s * seg + k0 + lane;
+    const bool in = k0 + lane < seg, live = in && flags[p] != 0;
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (in) {
+      const int e = base + __popc(m & ((1u << lane) - 1));
+      pos[p] = live ? e : -1;
+      if (live) eidx[e] = (int)p;
     }
+    base += __popc(m);
   }
-  if (tid == 1023) {
-    n_rows[0] = sums[1023];
-    rs[npairs / A] = sums[1023];
-  }
+}
+
+// eidx [npairs], pos [npairs], rs [npairs / seg + 1] (each segment's first row, then the
+// count) and *n_rows (the count) from the flags [npairs] (npairs a multiple of seg)
+cudaError_t live_rows(const int* flags, int* eidx, int* pos, int* rs, int* n_rows,
+                      long long npairs, int seg, cudaStream_t st) {
+  const int nseg = (int)(npairs / seg);
+  const unsigned blocks = (unsigned)std::max(1, (nseg + LIST_WARPS - 1) / LIST_WARPS);
+  so2_count_kernel<<<blocks, LIST_WARPS * 32, 0, st>>>(flags, rs, nseg, seg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  so2_starts_kernel<<<1, 1024, 0, st>>>(rs, n_rows, nseg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  so2_list_kernel<<<blocks, LIST_WARPS * 32, 0, st>>>(flags, rs, eidx, pos, nseg, seg);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1022,7 +1073,7 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
       if (P.n % 4 || P.ldc % 4 || P.ldc2 % 4 || P.ldg % 4) return cudaErrorInvalidValue;
       for (int s = 0; s < src.nseg; ++s) {
         const Seg& S = src.seg[s];
-        if (S.k % 8 || S.lda % 4 || !aligned16(S.a)) return cudaErrorInvalidValue;
+        if (S.k % 4 || S.lda % 4 || !aligned16(S.a)) return cudaErrorInvalidValue;
         // one prep job per distinct (b, ldb, btrans, K, N)
         float* dst = nullptr;
         for (int j = 0; j < pb.nj; ++j) {
@@ -1195,7 +1246,9 @@ cudaError_t launch_wgrads(const Engine& en, const std::vector<TNProb>& probs, cu
     so2_mmw_kernel<<<dim3(t, bt.spl), GTW, MMW_SMEM, st>>>(bt, en.n_rows, en.eidx, en.part);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (bt.spl > 1) {
-      so2_reduce_kernel<<<t, 256, 0, st>>>(bt, en.part);
+      int chunks = 1;  // of each tile (a power of two dividing BM * BN), for >= 2 blocks an SM
+      while (chunks < 64 && (long long)t * chunks < 2 * SMS) chunks *= 2;
+      so2_reduce_kernel<<<dim3(t, chunks), 256, 0, st>>>(bt, en.part);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
   }

@@ -208,6 +208,8 @@ def _lib() -> ctypes.CDLL:
     lib.so2_wgrads_part_floats.restype = ll
     lib.so2_wgrads_probe.argtypes = [i, ip, pp, ll, p, p, p, ll, p]
     lib.so2_wgrads_probe.restype = i
+    lib.so2_live_rows_probe.argtypes = [p] * 5 + [ll, i, p]
+    lib.so2_live_rows_probe.restype = i
     return lib
 
 
@@ -443,7 +445,7 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
     + bias and c2 = silu of it, "gated": c = v and c2 = v · gate[e] with v =
     acc (+ bias where given), gate may be c2), the 2-D output views "c" /
     "c2", "bias", "gate", and "gather" (A's row eidx[e]) / "scatter" (C's
-    row eidx[e]). Views have unit column stride; K a multiple of 8, N of 4,
+    row eidx[e]). Views have unit column stride; K and N multiples of 4,
     rows 16-byte aligned. `persistent` runs one block per SM over all the
     tiles (as kernels I and K launch their gate products)."""
     dev = problems[0]["segs"][0]["a"].device
@@ -494,6 +496,41 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
                                      int(persistent), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.raise_on_error(err, "so2_products_probe")
     LAUNCHES["so2_products"] += 1
+
+
+def so2_live_rows_reference(flags: torch.Tensor, seg: int):
+    """Plain version of `so2_live_rows`."""
+    live = flags != 0
+    eidx = live.nonzero().squeeze(1).int()
+    pos = torch.full_like(flags, -1)
+    pos[eidx.long()] = torch.arange(len(eidx), dtype=flags.dtype, device=flags.device)
+    counts = live.reshape(-1, seg).sum(1)
+    rs = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    return eidx, pos, rs, len(eidx)
+
+
+def so2_live_rows(flags: torch.Tensor, seg: int):
+    """The engine's live-row list of 0/1 int32 flags [npairs] in segments of
+    `seg` slots (`live_rows` in csrc/so2_common.cuh, which every kernel of
+    B, D and I–P runs): (eidx: the live slots in order, pos: each slot's
+    row or -1, rs: each segment's first row then the count, the count), on
+    the card for a card tensor, else the plain version."""
+    if flags.dtype != torch.int32 or flags.dim() != 1 or flags.numel() % seg:
+        raise ValueError("flags: int32 [npairs], npairs a multiple of seg")
+    if flags.device.type == "cpu":
+        return so2_live_rows_reference(flags, seg)
+    dev, n = flags.device, flags.numel()
+    eidx, pos = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2))
+    rs = torch.empty(n // seg + 1, dtype=torch.int32, device=dev)
+    nr = torch.empty(1, dtype=torch.int32, device=dev)
+    flags = flags.contiguous()
+    with torch.cuda.device(dev):
+        err = _lib().so2_live_rows_probe(flags.data_ptr(), eidx.data_ptr(), pos.data_ptr(),
+                                         rs.data_ptr(), nr.data_ptr(), n, seg,
+                                         torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.raise_on_error(err, "so2_live_rows_probe")
+    count = int(nr)
+    return eidx[:count], pos, rs, count
 
 
 def so2_wgrads_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> None:

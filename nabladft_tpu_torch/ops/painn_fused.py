@@ -33,6 +33,12 @@ Each kernel has its plain PyTorch version here with the same signature
 `painn_dual_fwd_reference`, `painn_dual_bwd_reference`). A wrapper
 takes the plain version only for CPU tensors; a CUDA tensor launches the
 kernel (sources in ``csrc/painn_fused.cu``) or raises.
+
+B and D run their radial products on the tensor cores (the SO(2) product
+engine of ``csrc/so2_common.cuh``) over the live pairs only, listed in
+sender order, around a per-pair stage on the CUDA cores; `painn_bwd_staged`
+and `painn_dual_bwd_staged` are that decomposition in plain torch (for the
+tests).
 """
 
 from __future__ import annotations
@@ -81,6 +87,17 @@ def pair_flops(kind: str, r: int, f: int) -> int:
     return {"fwd": 6 * r + 16, "bwd": 12 * r + 49, "bwd_gw": 6 * r + 13,
             "dual_fwd": 12 * r + 50, "dual_bwd": 12 * r + 46,
             "dual_bwd_gw": 12 * r + 44}[kind] * f
+
+
+def flops_split(kind: str, r: int, f: int) -> Tuple[int, int]:
+    """`pair_flops(kind, r, f)` as (radial products, the rest): the products
+    of R-long rows with W (rbf @ W, and rbfp @ W or rbfd @ W; for gW the
+    products of the same rows with the per-pair cotangents), which B and D
+    run on the tensor cores, and the per-pair arithmetic, which stays on the
+    CUDA cores (A and C run both on the CUDA cores)."""
+    prod = {"fwd": 6, "bwd": 12, "bwd_gw": 6, "dual_fwd": 12, "dual_bwd": 12,
+            "dual_bwd_gw": 12}[kind] * r * f
+    return prod, pair_flops(kind, r, f) - prod
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +248,107 @@ def painn_dual_bwd_reference(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w,
     return gphi, gphid, gv, gvd, gw
 
 
+def painn_live_pairs(rbf, rbf2):
+    """Kernels B's and D's live-pair list: the slots (b, j, i) whose row
+    rbf[b,i,j] or rbf2[b,i,j] is not zero, in sender order. Returns (slots,
+    rows, starts): `rows` the pair rows (b·A + i)·A + j of the slots,
+    `starts[b·A + j]` the first list index of sender j (`starts[B·A]` the
+    count)."""
+    b, a = rbf.shape[:2]
+    live = (rbf != 0).any(-1) | (rbf2 != 0).any(-1)  # [B, A(i), A(j)]
+    slots = live.transpose(1, 2).reshape(-1).nonzero().squeeze(1)
+    bj, i = slots // a, slots % a
+    rows = (bj // a * a + i) * a + bj % a
+    counts = torch.bincount(bj, minlength=b * a)
+    starts = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return slots, rows, starts
+
+
+def painn_bwd_staged(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
+    """Kernel B's stages in the card's order, on plain tensors: the live
+    pairs in sender order (`painn_live_pairs` of rbf, rbfp); wm = rbf @ W
+    and rp = rbfp @ W over them (the products); the per-pair stage, per
+    sender j over its live receivers i: g_dist and g_unit_t of each live
+    pair (zeros in the dead slots), gphi and gv, and the cotangent gwm;
+    then gW = rbf_liveᵀ gwm. Returns painn_message_bwd_reference's tuple."""
+    b, a, _, r = rbf.shape
+    f = w.shape[1] // 3
+    slots, rows, _ = painn_live_pairs(rbf, rbfp)
+    sender, i = slots // a, slots % a  # sender = b·A + j
+    recv = sender // a * a + i         # b·A + i
+    rbf_l = rbf.reshape(-1, r)[rows]
+    wm, rp = rbf_l @ w, rbfp.reshape(-1, r)[rows] @ w
+
+    # the stage: node rows of the sender j and the receiver i, per live pair
+    p0, p1, p2 = _chunks(phi.reshape(b * a, 3 * f)[sender], f)
+    vj = v.reshape(b * a, 3, f)[sender]
+    g1, g2 = gds.reshape(b * a, f)[recv], gdv.reshape(b * a, 3, f)[recv]
+    u = unit_t.transpose(2, 3).reshape(b * a * a, 3)[rows]  # u[b,i,j,c]
+    wm0, wm1, wm2 = _chunks(wm, f)
+    pa = (u[:, :, None] * g2).sum(1)
+    gwm = torch.cat([g1 * p0, p1 * (g2 * vj).sum(1), pa * p2], dim=-1)
+    g_dist = phi.new_zeros(b * a * a)
+    g_dist[rows] = (gwm * rp).sum(-1)
+    g_ut = phi.new_zeros(b * a * a, 3)
+    g_ut[rows] = ((wm2 * p2)[:, None] * g2).sum(-1)
+    sums = lambda x: x.new_zeros(b * a, *x.shape[1:]).index_add_(0, sender, x)  # noqa: E731
+    s = sums(g2 * wm1[:, None])  # s_c[j] = Σ_i g2_c[i] wm1[i,j]
+    phi1 = phi.reshape(b * a, 3, f)[:, 1]
+    gphi = torch.cat([sums(g1 * wm0), (s * v.reshape(b * a, 3, f)).sum(1), sums(pa * wm2)], -1)
+    gv = s * phi1[:, None]
+    gw = rbf_l.T @ gwm if need_gw else None
+    return (g_dist.reshape(b, a, a), g_ut.reshape(b, a, a, 3).transpose(2, 3).contiguous(),
+            gphi.reshape(b, a, 3 * f), gv.reshape(b, a, 3 * f), gw)
+
+
+def painn_dual_bwd_staged(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w,
+                          gds, gdv, gdsd, gdvd, need_gw: bool = True):
+    """Kernel D's stages in the card's order, on plain tensors: the live
+    pairs in sender order (rbf or rbfd row not zero); wm = rbf @ W and
+    wmd = rbfd @ W over them; the per-pair stage, per sender j over its live
+    receivers: the node sums and, at the end, the sender's node factors; the
+    per-pair cotangents gwm and gwmd; then gW = rbf_liveᵀ gwm +
+    rbfd_liveᵀ gwmd. Returns painn_dual_bwd_reference's tuple."""
+    b, a, _, r = rbf.shape
+    f = w.shape[1] // 3
+    slots, rows, _ = painn_live_pairs(rbf, rbfd)
+    sender, i = slots // a, slots % a
+    recv = sender // a * a + i
+    rbf_l, rbfd_l = rbf.reshape(-1, r)[rows], rbfd.reshape(-1, r)[rows]
+    wm0, wm1, wm2 = _chunks(rbf_l @ w, f)
+    wmd0, wmd1, wmd2 = _chunks(rbfd_l @ w, f)
+
+    g1, g1d = gds.reshape(b * a, f)[recv], gdsd.reshape(b * a, f)[recv]
+    g2, h = gdv.reshape(b * a, 3, f)[recv], gdvd.reshape(b * a, 3, f)[recv]
+    u = unit_t.transpose(2, 3).reshape(b * a * a, 3)[rows][:, :, None]
+    ud = unitd_t.transpose(2, 3).reshape(b * a * a, 3)[rows][:, :, None]
+    pa = (u * g2 + ud * h).sum(1)
+    pb = (u * h).sum(1)
+    sums = lambda x: x.new_zeros(b * a, *x.shape[1:]).index_add_(0, sender, x)  # noqa: E731
+    s = sums(g2 * wm1[:, None] + h * wmd1[:, None])
+    sd = sums(h * wm1[:, None])
+    # the epilogue: the sender's node factors
+    phi0, phi1, phi2 = _chunks(phi.reshape(b * a, 3 * f), f)
+    phid0, phid1, phid2 = _chunks(phid.reshape(b * a, 3 * f), f)
+    vc, vdc = v.reshape(b * a, 3, f), vd.reshape(b * a, 3, f)
+    gphi = torch.cat([sums(g1 * wm0 + g1d * wmd0), (s * vc + sd * vdc).sum(1),
+                      sums(pa * wm2 + pb * wmd2)], -1)
+    gphid = torch.cat([sums(g1d * wm0), (sd * vc).sum(1), sums(pb * wm2)], -1)
+    gv = s * phi1[:, None] + sd * phid1[:, None]
+    gvd = sd * phi1[:, None]
+    gw = None
+    if need_gw:
+        t1 = (g2 * vc[sender] + h * vdc[sender]).sum(1)
+        t2 = (h * vc[sender]).sum(1)
+        gwm = torch.cat([g1 * phi0[sender] + g1d * phid0[sender],
+                         phi1[sender] * t1 + phid1[sender] * t2,
+                         pa * phi2[sender] + pb * phid2[sender]], -1)
+        gwmd = torch.cat([g1d * phi0[sender], phi1[sender] * t2, pb * phi2[sender]], -1)
+        gw = rbf_l.T @ gwm + rbfd_l.T @ gwmd
+    shape = (b, a, 3 * f)
+    return (gphi.reshape(shape), gphid.reshape(shape), gv.reshape(shape), gvd.reshape(shape), gw)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -242,11 +360,15 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.painn_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.painn_fwd.restype = i
-    lib.painn_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.painn_bwd_scratch_floats.argtypes = [i] * 4
+    lib.painn_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.painn_bwd_scratch_ints.argtypes = [i] * 2
+    lib.painn_bwd_scratch_ints.restype = ctypes.c_longlong
+    lib.painn_bwd.argtypes = [p] * 15 + [i] * 6 + [p]
     lib.painn_bwd.restype = i
     lib.painn_dual_fwd.argtypes = [p] * 13 + [i] * 4 + [p]
     lib.painn_dual_fwd.restype = i
-    lib.painn_dual_bwd.argtypes = [p] * 19 + [i] * 5 + [p]
+    lib.painn_dual_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
     lib.painn_dual_bwd.restype = i
     return lib
 
@@ -282,6 +404,28 @@ def painn_fwd(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
     return ds, dv
 
 
+def _engine_operands(rbf, rbf2, w):
+    """(rbf, rbf2, W, R, ld) as kernels B and D take them: R a multiple of 4
+    and W's rows ld = 3F rounded up to 4 floats, zero padded (a copy only off
+    those multiples; painn-oc's R = 100, 3F = 384 need none)."""
+    r, f3 = w.shape
+    r4, ld = -(-r // 4) * 4, -(-f3 // 4) * 4
+    if r4 != r:
+        rbf, rbf2 = (torch.nn.functional.pad(t, (0, r4 - r)) for t in (rbf, rbf2))
+    if (r4, ld) != (r, f3):
+        w = torch.nn.functional.pad(w, (0, ld - f3, 0, r4 - r))
+    return rbf, rbf2, w, r4, ld
+
+
+def _bwd_buffers(dev, b, a, r4, ld, need_gw):
+    """(gW [R4, ld] or None, float scratch, int scratch) of a B or D launch."""
+    lib = _lib()
+    gw = torch.empty((r4, ld), dtype=torch.float32, device=dev) if need_gw else None
+    return (gw, torch.empty(lib.painn_bwd_scratch_floats(b, a, r4, ld), dtype=torch.float32,
+                            device=dev),
+            torch.empty(lib.painn_bwd_scratch_ints(b, a), dtype=torch.int32, device=dev))
+
+
 def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     """Kernel B: (g_dist, g_unit_t, gphi, gv, gw or None)."""
     b, a, r, f = _shapes(phi, w)
@@ -292,23 +436,26 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     )
     if dev.type == "cpu":
         return painn_message_bwd_reference(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    g_dist, g_ut = empty(b, a, a), empty(b, a, 3, a)
-    gphi, gv = empty(b, a, 3 * f), empty(b, a, 3 * f)
-    gw = empty(r, 3 * f) if need_gw else None
-    gw_part = empty(b, r, 3 * f) if need_gw else None
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    rbf_e, rbfp_e, w_e, r4, ld = _engine_operands(rbf, rbfp, w)
+    # the dead pairs' slots keep these zeros
+    g_dist = torch.zeros((b, a, a), dtype=torch.float32, device=dev)
+    g_ut = torch.zeros((b, a, 3, a), dtype=torch.float32, device=dev)
+    gphi, gv = (torch.empty((b, a, 3 * f), dtype=torch.float32, device=dev) for _ in range(2))
+    gw, scratch, iscratch = _bwd_buffers(dev, b, a, r4, ld, need_gw)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().painn_bwd(
-            rbf.data_ptr(), rbfp.data_ptr(), phi.data_ptr(), v.data_ptr(),
-            unit_t.data_ptr(), w.data_ptr(), gds.data_ptr(), gdv.data_ptr(),
+            rbf_e.data_ptr(), rbfp_e.data_ptr(), phi.data_ptr(), v.data_ptr(),
+            unit_t.data_ptr(), w_e.data_ptr(), gds.data_ptr(), gdv.data_ptr(),
             g_dist.data_ptr(), g_ut.data_ptr(), gphi.data_ptr(), gv.data_ptr(),
-            ptr(gw_part), ptr(gw), int(need_gw), b, a, r, f, stream,
+            0 if gw is None else gw.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(),
+            int(need_gw), b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_bwd launch")
     LAUNCHES["painn_bwd"] += 1
     LAUNCHES["painn_bwd_gw"] += int(need_gw)
+    if gw is not None and gw.shape != (r, 3 * f):
+        gw = gw[:r, :3 * f].contiguous()
     return g_dist, g_ut, gphi, gv, gw
 
 
@@ -349,20 +496,22 @@ def painn_dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gd
     dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f))
     if dev.type == "cpu":
         return painn_dual_bwd_reference(*args.values(), need_gw=need_gw)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    gphi, gphid, gv, gvd = (empty(b, a, 3 * f) for _ in range(4))
-    gw = empty(r, 3 * f) if need_gw else None
-    gw_part = empty(b, r, 3 * f) if need_gw else None
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    args["rbf"], args["rbfd"], args["w"], r4, ld = _engine_operands(rbf, rbfd, w)
+    gphi, gphid, gv, gvd = (torch.empty((b, a, 3 * f), dtype=torch.float32, device=dev)
+                            for _ in range(4))
+    gw, scratch, iscratch = _bwd_buffers(dev, b, a, r4, ld, need_gw)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().painn_dual_bwd(
             *(t.data_ptr() for t in args.values()),
             gphi.data_ptr(), gphid.data_ptr(), gv.data_ptr(), gvd.data_ptr(),
-            ptr(gw_part), ptr(gw), int(need_gw), b, a, r, f, stream,
+            0 if gw is None else gw.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(),
+            int(need_gw), b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_dual_bwd launch")
     LAUNCHES["painn_dual_bwd"] += 1
+    if gw is not None and gw.shape != (r, 3 * f):
+        gw = gw[:r, :3 * f].contiguous()
     return gphi, gphid, gv, gvd, gw
 
 
@@ -445,14 +594,15 @@ def painn_fwd_flops_bytes(rbf: torch.Tensor, f: int) -> Tuple[int, int]:
     return flops, nbytes
 
 
-def painn_bwd_flops_bytes(rbf: torch.Tensor, f: int, need_gw: bool = True) -> Tuple[int, int]:
-    """(FLOPs, bytes) kernel B needs on these inputs (see painn_fwd_flops_bytes);
-    with gW, also the fixed-order sum of the per-molecule [R,3F] partials."""
+def painn_bwd_flops_bytes(rbf: torch.Tensor, rbfp: torch.Tensor, f: int,
+                          need_gw: bool = True) -> Tuple[int, int]:
+    """(FLOPs, bytes) kernel B needs on these inputs (see painn_fwd_flops_bytes;
+    the live pairs are those whose rbf or rbfp row is not zero)."""
     b, a, _, r = rbf.shape
-    live = _live_pairs(rbf)
+    live = _live_pairs(rbf, rbfp)
     flops = pair_flops("bwd", r, f) * live
     if need_gw:
-        flops += pair_flops("bwd_gw", r, f) * live + (b - 1) * r * 3 * f
+        flops += pair_flops("bwd_gw", r, f) * live
     nbytes = 4 * (2 * rbf.numel() + 2 * b * a * 3 * f + b * a * 3 * a + r * 3 * f
                   + b * a * f + b * a * 3 * f                   # gds, gdv
                   + b * a * a + b * a * 3 * a + 2 * b * a * 3 * f  # g_dist, g_unit_t, gphi, gv
@@ -474,15 +624,38 @@ def painn_dual_fwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int) ->
 def painn_dual_bwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int,
                                need_gw: bool = True) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel D needs on these inputs (see
-    painn_dual_fwd_flops_bytes); with gW, also the fixed-order sum of the
-    per-molecule [R,3F] partials."""
+    painn_dual_fwd_flops_bytes)."""
     b, a, _, r = rbf.shape
     live = _live_pairs(rbf, rbfd)
     flops = pair_flops("dual_bwd", r, f) * live
     if need_gw:
-        flops += pair_flops("dual_bwd_gw", r, f) * live + (b - 1) * r * 3 * f
+        flops += pair_flops("dual_bwd_gw", r, f) * live
     nbytes = 4 * (2 * rbf.numel() + 4 * b * a * 3 * f + 2 * b * a * 3 * a + r * 3 * f
                   + 2 * (b * a * f + b * a * 3 * f)         # gds, gdv, gdsd, gdvd
                   + 4 * b * a * 3 * f                       # gphi, gphid, gv, gvd
                   + (r * 3 * f if need_gw else 0))
     return flops, nbytes
+
+
+def bwd_work(kind: str, rbf: torch.Tensor, rbf2: torch.Tensor, f: int,
+             need_gw: bool = True) -> Dict[str, int]:
+    """The work of kernel B (`kind` "B", rbf2 = rbfp) or D ("D", rbf2 = rbfd)
+    on these inputs, over the live pairs (rbf or rbf2 row not zero):
+    "flops_live" as painn_bwd_flops_bytes / painn_dual_bwd_flops_bytes count
+    it, "flops_live_products" / "flops_live_other" its split (`flops_split`:
+    the radial products, on the tensor cores, and the per-pair rest), "bytes"
+    each input read once and each output written once, and the live and all
+    pairs."""
+    b, a, _, r = rbf.shape
+    live = _live_pairs(rbf, rbf2)
+    kinds = {"B": ("bwd", "bwd_gw"), "D": ("dual_bwd", "dual_bwd_gw")}[kind]
+    prod = other = 0
+    for k in kinds[: 1 + int(need_gw)]:
+        p, o = flops_split(k, r, f)
+        prod, other = prod + p * live, other + o * live
+    if kind == "B":
+        flops, nbytes = painn_bwd_flops_bytes(rbf, rbf2, f, need_gw)
+    else:
+        flops, nbytes = painn_dual_bwd_flops_bytes(rbf, rbf2, f, need_gw)
+    return {"flops_live": flops, "flops_live_products": prod, "flops_live_other": other,
+            "bytes": nbytes, "live_pairs": live, "pairs": b * a * a}

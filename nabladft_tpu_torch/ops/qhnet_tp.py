@@ -273,7 +273,7 @@ def gx_chunks(b: int, a: int) -> int:
 
 
 def _live_rows(flags: torch.Tensor) -> torch.Tensor:
-    """The live pair slots b·A² + i·A + j in slot order (so2_scan_kernel's list)."""
+    """The live pair slots b·A² + i·A + j in slot order (the card's `live_rows` list)."""
     return torch.nonzero(flags.reshape(-1)).flatten()
 
 

@@ -34,7 +34,9 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(shape, dev, seed=0):
+def _inputs(shape, dev, seed=0, masks=None):
+    """Seeded kernel inputs, ~30 % of pairs masked; `masks` {molecule: 0 or
+    1} makes a molecule's pairs all dead or all live."""
     b, a, r, f = shape
     g = torch.Generator().manual_seed(seed)
 
@@ -43,6 +45,8 @@ def _inputs(shape, dev, seed=0):
 
     dist = mk(b, a, a).abs() * 5 + 0.8
     mask = (torch.rand(b, a, a, generator=g) > 0.3).float()
+    for mol, value in (masks or {}).items():
+        mask[mol] = value
     mu = torch.linspace(0.0, 5.0, r)
     rbf = torch.exp(-((dist[..., None] - mu) ** 2) / 0.05) * mask[..., None]
     rbfp = (-2.0 / 0.05) * (dist[..., None] - mu) * rbf
@@ -79,7 +83,7 @@ def test_fwd_kernel_matches_plain(card, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + BUCKET_SHAPES)
 @pytest.mark.parametrize("need_gw", [True, False])
 def test_bwd_kernel_matches_plain(card, shape, need_gw):
     x = _inputs(shape, card)
@@ -99,6 +103,37 @@ def test_bwd_kernel_is_deterministic(card):
     args = [x[k] for k in B_ARGS]
     first, second = pf.painn_bwd(*args), pf.painn_bwd(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B", "D"])
+@pytest.mark.parametrize("need_gw", [True, False])
+@pytest.mark.parametrize("masks", [{0: 0.0, 1: 1.0}, {0: 0.0, 1: 0.0, 2: 0.0}],
+                         ids=["dead_and_live_molecules", "all_dead"])
+def test_bwd_kernels_on_dead_and_live_molecules(card, kernel, need_gw, masks):
+    """B and D list the live pairs (rbf or its second pair tensor not zero):
+    a molecule with no live pair, one with every pair live (self pairs too),
+    and a batch with none."""
+    x = _inputs((3, 48, 100, 128), card, seed=4, masks=masks)
+    fn, ref, names = ((pf.painn_bwd, pf.painn_message_bwd_reference, B_ARGS) if kernel == "B"
+                      else (pf.painn_dual_bwd, pf.painn_dual_bwd_reference, D_ARGS))
+    args = [x[k] for k in names]
+    got = fn(*args, need_gw=need_gw)
+    torch.cuda.synchronize()
+    want = ref(*args, need_gw=need_gw)
+    if not need_gw:
+        assert got[-1] is None and want[-1] is None
+        got, want = got[:-1], want[:-1]
+    _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_gw", [True, False])
+def test_bwd_kernel_is_deterministic_at_a_bucket(card, need_gw):
+    x = _inputs(BUCKET_SHAPES[1], card)
+    args = [x[k] for k in B_ARGS]
+    first, second = pf.painn_bwd(*args, need_gw=need_gw), pf.painn_bwd(*args, need_gw=need_gw)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

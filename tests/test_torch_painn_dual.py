@@ -27,6 +27,7 @@ GRAD_TOL = dict(rtol=3e-4, atol=3e-5)
 C_IN = ("rbf", "rbfd", "phi", "phid", "v", "vd", "unit_t", "unitd_t", "w")
 COTS = ("gds", "gdv", "gdsd", "gdvd")
 D_OUT = ("gphi", "gphid", "gv", "gvd", "gw")
+DEAD_SENDER, PADDED, REAL_ATOMS = 2, 2, 5
 
 
 @pytest.fixture(scope="module")
@@ -37,6 +38,8 @@ def data():
         return (rng.normal(size=shape) * 0.3).astype(np.float32)
 
     mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
+    mask[1, :, DEAD_SENDER] = 0.0  # a sender with no live receiver (mask[b, i, j], j sends)
+    mask[PADDED, REAL_ATOMS:] = mask[PADDED, :, REAL_ATOMS:] = 0.0  # a molecule with padding
     d = dict(rbf=mk(B, A, A, R) * mask[..., None], rbfd=mk(B, A, A, R) * mask[..., None],
              phi=mk(B, A, F3), phid=mk(B, A, F3), v=mk(B, A, F3), vd=mk(B, A, F3),
              unit_t=mk(B, A, 3, A), unitd_t=mk(B, A, 3, A), w=mk(R, F3),
@@ -170,5 +173,38 @@ def test_dual_flop_and_byte_counts(data):
     fb, nb = tp.painn_dual_bwd_flops_bytes(rbf, rbfd, F)
     fb0, nb0 = tp.painn_dual_bwd_flops_bytes(rbf, rbfd, F, need_gw=False)
     assert fb0 == (12 * R + 46) * F * live
-    assert fb - fb0 == (12 * R + 44) * F * live + (B - 1) * R * F3
+    assert fb - fb0 == (12 * R + 44) * F * live
     assert nb - nb0 == 4 * R * F3
+
+
+# ---------------------------------------------------------------------------
+# kernel D's card decomposition (`painn_dual_bwd_staged`)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+@pytest.mark.parametrize("name", D_OUT)
+def test_staged_dual_backward_matches_jax_vjp(data, jax_results, name, need_gw):
+    out = dict(zip(D_OUT, tp.painn_dual_bwd_staged(*_t(data, *C_IN + COTS), need_gw=need_gw)))
+    if name == "gw" and not need_gw:
+        assert out["gw"] is None
+        return
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **GRAD_TOL)
+
+
+def test_dual_live_pairs_skip_the_dead_sender_and_padding(data):
+    rbf, rbfd = _t(data, "rbf", "rbfd")
+    slots, _, starts = tp.painn_live_pairs(rbf, rbfd)
+    assert len(slots) == int(((rbf != 0).any(-1) | (rbfd != 0).any(-1)).sum())
+    assert starts[1 * A + DEAD_SENDER] == starts[1 * A + DEAD_SENDER + 1]
+    assert all(starts[PADDED * A + a] == starts[PADDED * A + a + 1] for a in range(REAL_ATOMS, A))
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+def test_dual_bwd_work_splits_the_live_pairs_flops(data, need_gw):
+    rbf, rbfd = _t(data, "rbf", "rbfd")
+    work = tp.bwd_work("D", rbf, rbfd, F, need_gw)
+    flops, nbytes = tp.painn_dual_bwd_flops_bytes(rbf, rbfd, F, need_gw)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes
+    assert work["flops_live_products"] == (24 if need_gw else 12) * R * F * work["live_pairs"]

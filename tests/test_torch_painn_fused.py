@@ -21,6 +21,9 @@ from nabladft_tpu_torch.ops import painn_fused as tp
 
 B, A, R, F = 4, 8, 12, 16
 F3 = 3 * F
+DEAD_SENDER, PADDED, REAL_ATOMS = 5, 3, 5
+B_OUT = ["g_dist", "g_unit_t", "gphi", "gv", "gw"]
+B_IN = ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")
 
 
 def _inputs(seed=0):
@@ -31,6 +34,8 @@ def _inputs(seed=0):
 
     dist = np.abs(mk(B, A, A)) + 0.5
     mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
+    mask[1, :, DEAD_SENDER] = 0.0  # a sender with no live receiver (mask[b, i, j], j sends)
+    mask[PADDED, REAL_ATOMS:] = mask[PADDED, :, REAL_ATOMS:] = 0.0  # a molecule with padding
     phi, v, unit_t, w = mk(B, A, F3), mk(B, A, F3), mk(B, A, 3, A), mk(R, F3)
     gds, gdv = mk(B, A, F), mk(B, A, F3)
     return dict(dist=dist, mask=mask, phi=phi, v=v, unit_t=unit_t, w=w, gds=gds, gdv=gdv)
@@ -155,15 +160,90 @@ def test_wrappers_count_no_cpu_launches(data):
 
 
 def test_flop_and_byte_counts_follow_live_pairs(data):
-    rbf = torch.from_numpy(data["rbf"])
+    rbf, rbfp = _t(data, "rbf", "rbfp")
     live = int((rbf != 0).any(dim=-1).sum())
     flops, nbytes = tp.painn_fwd_flops_bytes(rbf, F)
     assert flops == (6 * R + 16) * F * live
     assert nbytes == 4 * (B * A * A * R + 2 * B * A * F3 + B * A * 3 * A + R * F3
                           + B * A * F + B * A * F3)
-    fb, _ = tp.painn_bwd_flops_bytes(rbf, F)
-    fb_nogw, _ = tp.painn_bwd_flops_bytes(rbf, F, need_gw=False)
-    assert fb_nogw == (12 * R + 49) * F * live
-    assert fb - fb_nogw == (6 * R + 13) * F * live + (B - 1) * R * F3
+    # B works on the pairs whose rbf or rbfp row is not zero
+    live_b = int(((rbf != 0).any(dim=-1) | (rbfp != 0).any(dim=-1)).sum())
+    fb, _ = tp.painn_bwd_flops_bytes(rbf, rbfp, F)
+    fb_nogw, _ = tp.painn_bwd_flops_bytes(rbf, rbfp, F, need_gw=False)
+    assert fb_nogw == (12 * R + 49) * F * live_b
+    assert fb - fb_nogw == (6 * R + 13) * F * live_b
     # at painn-oc width (R=100): 616 FLOPs per channel and live pair for A
     assert tp.pair_flops("fwd", 100, 128) == 616 * 128
+
+
+# ---------------------------------------------------------------------------
+# kernel B's card decomposition (`painn_bwd_staged`): the live pairs in sender
+# order, the radial products over them, the per-pair stage, gW = rbf_liveᵀ gwm
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+@pytest.mark.parametrize("name", B_OUT)
+def test_staged_backward_matches_jax_vjp(data, jax_results, name, need_gw):
+    out = dict(zip(B_OUT, tp.painn_bwd_staged(*_t(data, *B_IN), need_gw=need_gw)))
+    if name == "gw" and not need_gw:
+        assert out["gw"] is None
+        return
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], rtol=3e-4, atol=3e-5)
+
+
+def test_live_pair_list_is_in_sender_order(data):
+    """The list covers every pair whose rbf or rbfp row is not zero, once,
+    by (molecule, sender, receiver); the dead sender and the padding atoms
+    own no row."""
+    rbf, rbfp = _t(data, "rbf", "rbfp")
+    slots, rows, starts = tp.painn_live_pairs(rbf, rbfp)
+    live = (rbf != 0).any(-1) | (rbfp != 0).any(-1)
+    assert len(slots) == int(live.sum()) == int(starts[-1])
+    assert bool((slots[1:] > slots[:-1]).all())
+    b, j, i = slots // (A * A), slots // A % A, slots % A
+    assert bool(live[b, i, j].all()) and bool((rows == (b * A + i) * A + j).all())
+    assert starts[1 * A + DEAD_SENDER] == starts[1 * A + DEAD_SENDER + 1]
+    for a in range(REAL_ATOMS, A):
+        assert starts[PADDED * A + a] == starts[PADDED * A + a + 1]
+        assert not bool(((b == PADDED) & (i == a)).any())
+
+
+def test_live_pair_list_is_the_engines_list_of_sender_flags(data):
+    """painn_live_pairs is what the card lists: so2_common.cuh's live_rows
+    (plain version `so2_live_rows_reference`) over the flags in (b, j, i)
+    order, a segment a sender."""
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    rbf, rbfp = _t(data, "rbf", "rbfp")
+    slots, _, starts = tp.painn_live_pairs(rbf, rbfp)
+    live = (rbf != 0).any(-1) | (rbfp != 0).any(-1)  # [B, A(i), A(j)]
+    flags = live.transpose(1, 2).reshape(-1).int()
+    eidx, pos, rs, n = ea.so2_live_rows_reference(flags, A)
+    assert n == len(slots) and torch.equal(eidx.long(), slots) and torch.equal(rs.long(), starts)
+    assert torch.equal(pos[eidx.long()], torch.arange(n, dtype=torch.int32))
+
+
+def test_staged_backward_writes_zeros_in_dead_slots(data):
+    g_dist, g_ut = tp.painn_bwd_staged(*_t(data, *B_IN))[:2]
+    assert bool((g_dist[1, :, DEAD_SENDER] == 0).all())
+    assert bool((g_ut[PADDED, REAL_ATOMS:] == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd", "bwd_gw", "dual_fwd", "dual_bwd", "dual_bwd_gw"])
+def test_flop_split_adds_up_to_pair_flops(kind):
+    """The products are exactly the part of pair_flops that grows with R."""
+    for r, f in ((R, F), (100, 128)):
+        prod, other = tp.flops_split(kind, r, f)
+        assert prod + other == tp.pair_flops(kind, r, f) and prod % r == 0
+        assert other == tp.pair_flops(kind, 0, f) > 0
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+def test_bwd_work_splits_the_live_pairs_flops(data, need_gw):
+    rbf, rbfp = _t(data, "rbf", "rbfp")
+    work = tp.bwd_work("B", rbf, rbfp, F, need_gw)
+    flops, nbytes = tp.painn_bwd_flops_bytes(rbf, rbfp, F, need_gw)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes and work["pairs"] == B * A * A
+    assert work["flops_live_products"] == (18 if need_gw else 12) * R * F * work["live_pairs"]

@@ -13,7 +13,8 @@ version on float64 copies of the same inputs. Shapes: ragged row counts (1,
 8 / 24 / 1,792, signed and transposed segments, gathered A rows and scattered
 C rows, the three epilogues (the gate-multiply one also with a bias, in
 place), and the weight gradients (rows, gathered,
-column sums), run twice for the same bits. Tolerance: max |engine - float64|
+column sums), run twice for the same bits; and the live-row list
+(`live_rows`) against its plain version, exactly. Tolerance: max |engine - float64|
 <= 2e-5 x max |float64| per output, the kernels' tolerance in chip_smoke.py.
 """
 
@@ -211,3 +212,29 @@ def test_wgrads_few_rows(card, rows):
         return [dict(segs=[dict(a=x["a"], b=x["b"])], m=260, n=132, out=x["o"])]
 
     _run_both(make, t, rows, None, ["o"], wgrad=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments,seg,share", [
+    (3072, 48, 0.7),   # PaiNN's B / D at B=64, A=48 (a sender's receivers)
+    (4096, 64, 0.3),   # A=64, mostly dead
+    (2048, 30, 0.9),   # EquiformerV2's 30 neighbours a receiver
+    (1500, 100, 0.5),  # segments past 3 warps' lanes, not a multiple of 32
+    (5000, 1, 0.5),    # more segments than the scan's 1,024 threads hold evenly
+    (0, 48, 0.5),      # no slot at all
+])
+def test_live_rows_list_every_live_slot(card, segments, seg, share):
+    """The live-row list every kernel of B, D and I-P runs: exactly the plain
+    list (nonzero and a cumulative count), with dead, full and empty
+    segments."""
+    rng = np.random.default_rng(segments + seg)
+    flags = (rng.random(segments * seg) < share).astype(np.int32)
+    if segments > 4:
+        flags.reshape(segments, seg)[1] = 0  # a segment with no live slot
+        flags.reshape(segments, seg)[3] = 1  # one with every slot live
+    f = torch.from_numpy(flags)
+    got = ea.so2_live_rows(f.to(card), seg)
+    ref = ea.so2_live_rows_reference(f, seg)
+    assert got[3] == ref[3]
+    for g, r, what in zip(got[:3], ref[:3], ("eidx", "pos", "rs")):
+        assert torch.equal(g.cpu(), r), what
