@@ -22,12 +22,14 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                model builds them), one line per kernel and shape: error
                against the plain PyTorch version, and the kernel's, the plain
                version's and the bound's times (CUDA events, median / min /
-               max of 25 runs after warm-up); B (with and without gW), D and H
-               are run twice and must give the same bits. B and D run their
-               radial products on the tensor cores over the live pairs: their
-               lines carry each launched kernel's device ms (`stages_ms`), the
-               live pairs, and `bound_ms` with the products at the 3xTF32 rate
-               beside `bound_fma_ms`, as I-P's. kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
+               max of 25 runs after warm-up); B and F (each with and without
+               gW), D and H are run twice and must give the same bits. B and D
+               run their radial products, F and H their filter-MLP products,
+               on the tensor cores over the live pairs: their lines carry each
+               launched kernel's device ms (`stages_ms`). Every line carries
+               the live pairs and `bound_ms` with the products at the 3xTF32
+               rate beside `bound_fma_ms`, as I-P's (A, C, E and G run their
+               products on the CUDA cores). kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
                J (qhnet_conv_bwd), K (qhnet_pair_fwd), L (qhnet_pair_bwd) at the
                QHNet train path's shapes (B=8, A=32/48/64, C=128, LMAX 4, gate
                hiddens 32/32 for the conv and 8/128 for the pair; a/2..a real
@@ -51,7 +53,7 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                batches by bucket.
      profile — torch.profiler over two predict steps: device time by
                kernel and the device's busy share (printed before predict);
-               PaiNN's must show B's engine products and stage.
+               PaiNN's must show B's engine products and stage, SchNet's F's.
   4. train   — for each family, `pipelines.run` of ``job_type: train``
                (TRAIN_EPOCHS epochs, force_grads "pallas") on the same DB,
                then ``job_type: test`` from the best checkpoint; checks launch
@@ -67,7 +69,8 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                an epoch's train batches by bucket.
      train_profile — torch.profiler over two train steps (printed before
                train); PaiNN's must show B's and D's engine products, their
-               stages and D's gW on the engine's weight-gradient product.
+               stages and D's gW on the engine's weight-gradient product;
+               SchNet's the same of F and H.
   SchNet's lines carry the prefix ``schnet_`` (schnet_predict, ...).
   5. qhnet_train — `pipelines.run` of ``job_type: train`` on configs/qhnet.yaml
                at full width (hidden 128, bottle 32, 5 layers, 32 RBF, batch 8,
@@ -471,11 +474,12 @@ def kernel_bucket(pf, dev, a: int, card: str):
     (checked), and kernel / plain / bound times. B is checked and timed both
     with the weight gradient and without it, as the predict path runs it.
     B and D run their radial products on the tensor cores over the live
-    pairs: each runs twice for the same bits (B with and without gW), their
-    lines carry each launched kernel's device ms (`stages_ms`), the live
-    pairs, and `bound_ms` with the products at the 3xTF32 rate beside
-    `bound_fma_ms` (`_so2_row`)."""
-    peak_flops, peak_bw = peaks(card)
+    pairs: each runs twice for the same bits (B with and without gW) and
+    their lines carry each launched kernel's device ms (`stages_ms`). Every
+    line carries the live pairs and `bound_ms` with the radial products at
+    the 3xTF32 rate beside `bound_fma_ms` (`_so2_row`): A and C run theirs
+    on the CUDA cores, so their `bound_ms` is what the tensor cores would
+    allow."""
     x = kernel_inputs(dev, a)
     a_args = [x[k] for k in ("rbf", "phi", "v", "unit_t", "w")]
     b_args = [x[k] for k in ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")]
@@ -485,8 +489,9 @@ def kernel_bucket(pf, dev, a: int, card: str):
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel A error at {shape}: {err}")
     t_k = time_ms(lambda: pf.painn_fwd(*a_args))
     t_p = time_ms(lambda: pf.painn_message_reference(*a_args))
-    row_a = _kernel_row(shape, err, t_k, t_p, *pf.painn_fwd_flops_bytes(x["rbf"], KF),
-                        peak_flops, peak_bw)
+    work = pf.fwd_work("A", x["rbf"], x["rbf"], KF)
+    row_a = _so2_row(shape, err, t_k, t_p, work, card, live_pairs=work["live_pairs"],
+                     pairs=work["pairs"])
     emit("kernel_A", **row_a, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
 
     got = pf.painn_bwd(*b_args)
@@ -528,9 +533,9 @@ def kernel_bucket(pf, dev, a: int, card: str):
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel C error at {shape}: {err}")
     t_k = time_ms(lambda: pf.painn_dual_fwd(*c_args))
     t_p = time_ms(lambda: pf.painn_dual_fwd_reference(*c_args))
-    row_c = _kernel_row(shape, err, t_k, t_p,
-                        *pf.painn_dual_fwd_flops_bytes(x["rbf"], x["rbfd"], KF), peak_flops,
-                        peak_bw)
+    work = pf.fwd_work("C", x["rbf"], x["rbfd"], KF)
+    row_c = _so2_row(shape, err, t_k, t_p, work, card, live_pairs=work["live_pairs"],
+                     pairs=work["pairs"])
     emit("kernel_C", **row_c, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
 
     d_args = [x[k] for k in D_ARGS]
@@ -641,11 +646,17 @@ def schnet_kernel_inputs(dev, a: int):
     return {k: t.to(dev).contiguous() for k, t in cpu.items()}
 
 
-def schnet_kernel_bucket(sf, dev, a: int, peak_flops: float, peak_bw: float):
+def schnet_kernel_bucket(sf, dev, a: int, card: str):
     """Kernels E-H at (KB, a, KR, KF) against their plain versions: errors
     (checked), and kernel / plain / bound times. F is checked and timed with
     the weight gradient and without it (as the predict and force paths run
-    it); H with it (as training runs it), twice, for the same bits."""
+    it); H with it (as training runs it). F and H run their filter-MLP
+    products on the tensor cores over the live pairs: each runs twice for
+    the same bits (F with and without gW) and their lines carry each
+    launched kernel's device ms (`stages_ms`). Every line carries the live
+    pairs and `bound_ms` with the filter-MLP products at the 3xTF32 rate
+    beside `bound_fma_ms` (`_so2_row`; E and G run theirs on the CUDA
+    cores)."""
     x = schnet_kernel_inputs(dev, a)
     shape = [KB, a, KR, KF]
     rows = {}
@@ -656,76 +667,89 @@ def schnet_kernel_bucket(sf, dev, a: int, peak_flops: float, peak_bw: float):
              plain_times=t_p, **more)
         rows[key] = row
 
+    def live(work):
+        return dict(live_pairs=work["live_pairs"], pairs=work["pairs"])
+
     args = [x[k] for k in E_ARGS]
     err = compare([sf.schnet_fwd(*args)], [sf.schnet_message_reference(*args)])
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel E error at {shape}: {err}")
     t_k = time_ms(lambda: sf.schnet_fwd(*args))
     t_p = time_ms(lambda: sf.schnet_message_reference(*args))
-    emit_row("E", _kernel_row(shape, err, t_k, t_p,
-                              *sf.schnet_fwd_flops_bytes(x["rbf"], x["envf"], KF),
-                              peak_flops, peak_bw), t_k, t_p)
+    work = sf.fwd_work("E", x["rbf"], x["envf"], x["envf"], KF)
+    emit_row("E", _so2_row(shape, err, t_k, t_p, work, card, **live(work)), t_k, t_p)
 
     args = [x[k] for k in F_ARGS]
     got = sf.schnet_bwd(*args)
     err = compare(got, sf.schnet_message_bwd_reference(*args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel F error at {shape}: {err}")
+    _same_bits(sf.schnet_bwd, args, got, f"kernel F at {shape}")
     got_ng = sf.schnet_bwd(*args, need_gw=False)
     check(got_ng[2:] == (None,) * 4 and all(torch.equal(p, q) for p, q in zip(got_ng[:2], got)),
           "kernel F without gW gives the same node and pair cotangents")
+    _same_bits(lambda *t: sf.schnet_bwd(*t, need_gw=False), args, got_ng,
+               f"kernel F without gW at {shape}")
     err_ng = compare(got_ng[:2], sf.schnet_message_bwd_reference(*args, need_gw=False)[:2])
     check(err_ng["max_rel_err"] <= KERNEL_RTOL, f"kernel F (no gW) error at {shape}: {err_ng}")
-    flops_ng, nbytes_ng = sf.schnet_bwd_flops_bytes(x["rbf"], x["envf"], x["envp"], KF,
-                                                    need_gw=False)
-    b_ms_ng, b_by_ng = bound(flops_ng, nbytes_ng, peak_flops, peak_bw)
+    del got, got_ng
+    stages = stage_times(sf.schnet_bwd, args)
+    stages_ng = stage_times(lambda *t: sf.schnet_bwd(*t, need_gw=False), args)
+    work = sf.bwd_work("F", x["rbf"], x["envf"], x["envp"], KF)
+    work_ng = sf.bwd_work("F", x["rbf"], x["envf"], x["envp"], KF, need_gw=False)
     t_k = time_ms(lambda: sf.schnet_bwd(*args))
     t_p = time_ms(lambda: sf.schnet_message_bwd_reference(*args))
     t_k_ng = time_ms(lambda: sf.schnet_bwd(*args, need_gw=False))
     t_p_ng = time_ms(lambda: sf.schnet_message_bwd_reference(*args, need_gw=False))
-    emit_row("F", _kernel_row(
-        shape, err, t_k, t_p, *sf.schnet_bwd_flops_bytes(x["rbf"], x["envf"], x["envp"], KF),
-        peak_flops, peak_bw, max_abs_err_without_gw=err_ng["max_abs_err"],
+    row_ng = _so2_row(shape, err_ng, t_k_ng, t_p_ng, work_ng, card)
+    emit_row("F", _so2_row(
+        shape, err, t_k, t_p, work, card, **live(work), bit_identical_rerun=True,
+        stages_ms=stages, max_abs_err_without_gw=err_ng["max_abs_err"],
         ms_without_gw=t_k_ng["median"], plain_ms_without_gw=t_p_ng["median"],
-        bound_ms_without_gw=b_ms_ng, bound_by_without_gw=b_by_ng, flops_without_gw=flops_ng,
-        roofline_share_without_gw=b_ms_ng / t_k_ng["median"]), t_k, t_p,
-        kernel_times_without_gw=t_k_ng, plain_times_without_gw=t_p_ng)
+        bound_ms_without_gw=row_ng["bound_ms"], bound_by_without_gw=row_ng["bound_by"],
+        bound_fma_ms_without_gw=row_ng["bound_fma_ms"], flops_without_gw=work_ng["flops_live"],
+        roofline_share_without_gw=row_ng["roofline_share"], stages_ms_without_gw=stages_ng),
+        t_k, t_p, kernel_times_without_gw=t_k_ng, plain_times_without_gw=t_p_ng)
 
     args = [x[k] for k in G_ARGS]
     err = compare(sf.schnet_dual_fwd(*args), sf.schnet_dual_fwd_reference(*args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel G error at {shape}: {err}")
     t_k = time_ms(lambda: sf.schnet_dual_fwd(*args))
     t_p = time_ms(lambda: sf.schnet_dual_fwd_reference(*args))
-    emit_row("G", _kernel_row(
-        shape, err, t_k, t_p, *sf.schnet_dual_fwd_flops_bytes(x["rbf"], x["envf"], x["envfd"], KF),
-        peak_flops, peak_bw), t_k, t_p)
+    work = sf.fwd_work("G", x["rbf"], x["envf"], x["envfd"], KF)
+    emit_row("G", _so2_row(shape, err, t_k, t_p, work, card, **live(work)), t_k, t_p)
 
     args = [x[k] for k in H_ARGS]
     got = sf.schnet_dual_bwd(*args)
     err = compare(got, sf.schnet_dual_bwd_reference(*args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel H error at {shape}: {err}")
-    again = sf.schnet_dual_bwd(*args)
-    check(all(torch.equal(p, q) for p, q in zip(got, again)), f"kernel H deterministic at {shape}")
+    _same_bits(sf.schnet_dual_bwd, args, got, f"kernel H at {shape}")
     no_gw = sf.schnet_dual_bwd(*args, need_gw=False)
     check(all(torch.equal(p, q) for p, q in zip(no_gw[:2], got)),
           "kernel H without gW gives the same node cotangents")
+    del got, no_gw
+    stages = stage_times(sf.schnet_dual_bwd, args)
+    work = sf.bwd_work("H", x["rbf"], x["envf"], x["envfd"], KF)
     t_k = time_ms(lambda: sf.schnet_dual_bwd(*args))
     t_p = time_ms(lambda: sf.schnet_dual_bwd_reference(*args))
-    emit_row("H", _kernel_row(
-        shape, err, t_k, t_p, *sf.schnet_dual_bwd_flops_bytes(x["rbf"], x["envf"], x["envfd"], KF),
-        peak_flops, peak_bw, bit_identical_rerun=True), t_k, t_p)
+    emit_row("H", _so2_row(shape, err, t_k, t_p, work, card, **live(work),
+                           bit_identical_rerun=True, stages_ms=stages), t_k, t_p)
     return rows
 
 
-def schnet_kernel_phases(dev, card: str) -> dict:
+def schnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels E-H at every bucket shape of SchNet's predict and train paths
-    (the kernels line's numbers as in kernel_phases)."""
+    (the kernels line's numbers as in kernel_phases; F's and H's rows carry
+    the source's registers and spills, ptxas)."""
     from nabladft_tpu_torch.ops import schnet_fused as sf
 
-    peak_flops, peak_bw = peaks(card)
     per = {k: [] for k in SCHNET_KERNELS}
     for a in BUCKETS:
-        for k, row in schnet_kernel_bucket(sf, dev, a, peak_flops, peak_bw).items():
+        for k, row in schnet_kernel_bucket(sf, dev, a, card).items():
             per[k].append(row)
-    return headline_rows(per, SCHNET_KERNELS, "schnet_fused", ("F",))
+        torch.cuda.empty_cache()
+    rows = headline_rows(per, SCHNET_KERNELS, "schnet_fused", ("F",))
+    for k in "FH":
+        rows[k]["ptxas"] = ptxas.get("schnet_fused", {})
+    return rows
 
 
 def rotation(seed: int = 5) -> np.ndarray:
@@ -747,7 +771,12 @@ FAMILIES = {
                                  "painn_dual_bwd_stage_kernel", "so2_mmw_kernel")),
     "schnet": dict(config="schnet", ops="schnet_fused", prefix="schnet_",
                    counters=("schnet_fwd", "schnet_bwd", "schnet_bwd_gw", "schnet_dual_fwd",
-                             "schnet_dual_bwd"), predict_present=(), train_present=()),
+                             "schnet_dual_bwd"),
+                   # F's and H's products on the engine and their stages; H's gW on the
+                   # engine's weight-gradient product (train steps only)
+                   predict_present=("so2_mma_kernel", "schnet_bwd_stage_kernel"),
+                   train_present=("so2_mma_kernel", "schnet_bwd_stage_kernel",
+                                  "schnet_dual_bwd_stage_kernel", "so2_mmw_kernel")),
 }
 
 
@@ -1958,7 +1987,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rows = timed("kernels_painn", kernel_phases, dev, card, ptxas)
-    rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card))
+    rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_escn", escn_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_eqv2", eqv2_kernel_phases, dev, card, ptxas))

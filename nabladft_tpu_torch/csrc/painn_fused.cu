@@ -37,8 +37,8 @@
 //   * painn_flags_kernel marks slot (b, j, i) live when row rbf[b,i,j] or the second pair
 //     tensor's row (rbfp in B, rbfd in D) is not zero (a dead pair adds exact zeros to every
 //     output); so2_common.cuh's live_rows lists the live slots in that sender order with each
-//     sender's first row, and painn_rows_kernel maps them to their pair rows (b, i, j) for the
-//     gathers.
+//     sender's first row, and its so2_pair_rows_kernel maps them to their pair rows (b, i, j)
+//     for the gathers.
 //   * wm = rbf W and the second product (rp = rbfp W, or wmd = rbfd W) run on
 //     so2_common.cuh's engine (3xTF32 wgmma, fp32-accurate) over the gathered live rows into
 //     compact [live, 3F] rows: K = R = 100 is four k tiles, so the launch runs persistent.
@@ -245,43 +245,6 @@ __global__ void __launch_bounds__(PF_WARPS * 32) painn_flags_kernel(
     const bool live = __any_sync(0xffffffffu, nz);
     if (lane == 0) flags[(long long)bj * A + i] = live ? 1 : 0;
   }
-}
-
-// row[e] = the pair row (b*A + i)*A + j of the e-th live slot eidx[e] = (b*A + j)*A + i, for
-// the engine's gathers (e below the live count)
-__global__ void painn_rows_kernel(const int* __restrict__ eidx, const int* __restrict__ n_rows,
-                                  int* __restrict__ row, int A) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= *n_rows) return;
-  const int p = eidx[e], bj = p / A, i = p - bj * A, b = bj / A, j = bj - b * A;
-  row[e] = (b * A + i) * A + j;
-}
-
-// One step of warp_sums: a lane keeps half of its first 2 O values, adds its partner's copy
-// of that half and sends the other half; then the next step on the kept half. One instance a
-// step, so that every loop bound is a constant and the values stay in registers.
-template <int O, int N>
-__device__ __forceinline__ void fold_half(float (&val)[N], int lane) {
-  const bool up = lane & O;
-#pragma unroll
-  for (int q = 0; q < O; ++q) {
-    const float send = up ? val[q] : val[q + O];
-    const float keep = up ? val[q + O] : val[q];
-    val[q] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
-  if constexpr (O > 1) fold_half<O / 2>(val, lane);
-}
-
-// The warp's sums of N values a lane (N a power of two, 2 to 32) in N - 1 shuffles, then one
-// for each halving of 32 / N: lane l returns the warp's sum of value l % N, in a fixed order.
-template <int N>
-__device__ __forceinline__ float warp_sums(float (&val)[N], int lane) {
-  static_assert(N >= 2 && N <= 32 && (N & (N - 1)) == 0, "a power of two, 2 to 32");
-  fold_half<N / 2>(val, lane);
-  float s = val[0];
-#pragma unroll
-  for (int o = N; o < 32; o *= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
 }
 
 // the stages: a thread a channel, F rounded up to whole warps; SMAXT threads at most for the
@@ -705,7 +668,8 @@ cudaError_t live_pairs(const Work& w, const float* rbf, const float* t2, int B, 
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) err = live_rows(w.flags, w.eidx, w.pos, w.rs, w.n_rows, rows, A, st);
   if (err != cudaSuccess) return err;
-  painn_rows_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(w.eidx, w.n_rows, w.row, A);
+  so2_pair_rows_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(w.eidx, w.n_rows, w.row,
+                                                                      A);
   return cudaGetLastError();
 }
 

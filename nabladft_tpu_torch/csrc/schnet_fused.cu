@@ -1,4 +1,4 @@
-// Fused SchNet continuous-filter convolution kernels for Hopper (sm_90a), fp32 FMA.
+// Fused SchNet continuous-filter convolution kernels for Hopper (sm_90a).
 //
 // The filter of every pair is a two-layer MLP on its radial basis row:
 //   z1 = rbf @ W1 + b1      h = ssp(z1) = softplus(z1) - log 2
@@ -7,67 +7,68 @@
 // adjacency (zero off the edges) and rbf is NOT masked.
 //
 // Kernel E, schnet_fwd_kernel, replaces nabladft_tpu/ops/pallas/schnet_fused.py
-// `_fwd_kernel` (launched by `_run_fwd`'s pallas_call). Kernel F,
-// schnet_bwd_kernel (+ the weight-gradient kernels below), replaces `_bwd_kernel`
-// (`_run_bwd`): the VJP of E, with the radial chain folded into g_dist through
+// `_fwd_kernel` (launched by `_run_fwd`'s pallas_call). Kernel F, schnet_bwd, replaces
+// `_bwd_kernel` (`_run_bwd`): the VJP of E, with the radial chain folded into g_dist through
 // rbfp = d rbf / d dist and envp = d envf / d dist. Kernel G, schnet_dual_fwd_kernel,
 // replaces `_dual_fwd_kernel` (`_run_dual_fwd`): E and its tangent along
-// (rbfd, envfd, xind) with the weights fixed. Kernel H, schnet_dual_bwd_kernel
-// (+ the weight-gradient kernels), replaces `_dual_bwd_kernel` (`_run_dual_bwd`):
-// the VJP of G for the node inputs and the weights only.
+// (rbfd, envfd, xind) with the weights fixed. Kernel H, schnet_dual_bwd, replaces
+// `_dual_bwd_kernel` (`_run_dual_bwd`): the VJP of G for the node inputs and the weights only.
 //
 // Layouts (as the JAX op): rbf, rbfp, rbfd [B,A,A,R]; envf, envp, envfd [B,A,A];
 // xin, xind, msg, gmsg [B,A,F]; all float32, contiguous.
 //
-// What bounds them on the card: per live pair E does an [R]x[R,F] and an
-// [F]x[F,F] product (2RF + 2F^2 FMAs), F and G twice that, H with its weight
-// gradient four times: at B=64, A=48, R=100, F=128 E needs ~8 GFLOP against
-// ~0.07 GB of traffic, so all four are bound by the fp32 FMA rate. The design
-// keeps every per-pair [F] vector (z1, h, wmr and their cotangents) out of
-// device memory on the paths that need no weight gradient:
-//   * E and G: one block per (molecule b, receiver i) owns msg_i, a sum over
-//     senders j, with no atomics. The block compacts the live senders (envf,
-//     or envfd for G, nonzero: only there is the message nonzero, since rbf is
-//     not masked), stages their rbf rows in shared memory, forms h for every
-//     live pair into shared memory (the second product needs all F channels of
-//     h before any output channel exists), then h @ W2 folded straight into
-//     msg. Each thread owns one channel and blocks of 8 rows in registers, so
-//     one weight load (__ldg, L1/L2 resident) feeds 8 FMAs.
-//   * F and H: gxin_j (and gxind_j) reduce over receivers i, so one block per
-//     (molecule b, SENDER j) owns them, as PaiNN's B and D do. F's g_dist needs
-//     the cotangent of h, gh = gwmr @ W2^T, a third product per pair; W2^T is
-//     formed by a small transpose kernel first. Per-pair channel sums (g_dist)
-//     go through warp shuffles into per-warp shared-memory slots, summed in a
-//     fixed order: every output has one writer and F and H give the same bits
-//     on every run.
-//   * The weight gradients (gW1 = sum_pairs rbf^T gz1, gW2 = sum_pairs h^T gwmr,
-//     and the biases as the sums of gz1 / gwmr) reduce over all pairs of all
-//     molecules: a sequential-grid accumulator on the TPU. Here the main kernel
-//     writes h and gz1 (and their tangent-lane twins) for every pair to scratch
-//     buffers, a tiled kernel forms one partial per (molecule, pair slice), the
-//     bias as an extra row of ones, recomputing gwmr from node tensors, and a
-//     reduce kernel sums the partials in a fixed order. They run only when a
-//     weight asks for its gradient (never on the predict path or in a force
-//     pass).
-// In the weight-gradient path the main kernels park s = sigmoid(z1) (and z1d)
-// in the gz1 scratch during the first product and read them back in the third:
-// the same thread writes and reads each element, so no barrier is needed.
-// Plain FMA only: no TF32, no tensor cores (a later step).
+// E and G, fp32 FMA on the CUDA cores: per live pair E does an [R]x[R,F] and an [F]x[F,F]
+// product (2RF + 2F^2 FMAs), G twice that; at B=64, A=48, R=100, F=128 E needs ~8 GFLOP
+// against ~0.07 GB of traffic. One block per (molecule b, receiver i) owns msg_i, a sum over
+// senders j, with no atomics. The block compacts the live senders (envf, or envfd for G,
+// nonzero: only there is the message nonzero, since rbf is not masked), stages their rbf rows
+// in shared memory, forms h for every live pair into shared memory (the second product needs
+// all F channels of h before any output channel exists), then h @ W2 folded straight into
+// msg. Each thread owns one channel and blocks of 8 rows in registers, so one weight load
+// (__ldg, L1/L2 resident) feeds 8 FMAs.
+//
+// F and H, the filter-MLP products on the tensor cores over the live pairs only. Their outputs
+// are sums over receivers i for a fixed sender j (gxin; H's gxind), a sum over channels per
+// pair (F's g_dist) and the weight gradients, sums over every pair. So:
+//   * schnet_flags_kernel marks slot (b, j, i) live when envf[b,i,j] or the second envelope
+//     lane (envp in F, envfd in H) is not zero; a dead pair adds exact zeros to every output.
+//     (The rbf row cannot tell: it is not masked, and b1, b2 make every row's MLP nonzero.)
+//     so2_common.cuh's live_rows lists the live slots in that sender order with each sender's
+//     first row, and so2_pair_rows_kernel maps them to their pair rows (b, i, j).
+//   * The products run on so2_common.cuh's engine (3xTF32 wgmma, fp32-accurate) into compact
+//     [live, F] rows, persistent (K = R or F is a few k tiles): z1 = rbf W1 + b1 and the second
+//     lane a2 W1 (F: rpw = rbfp W1; H: z1d = rbfd W1) over the gathered rows; after
+//     schnet_ssp_kernel (s, h and H's hd = s z1d), wmr = h W2 + b2 (H: and wmrd = hd W2).
+//   * A stage on the CUDA cores, one block per (b, sender j) and a thread per channel, walks
+//     j's live receivers, reads each pair's product rows once with the receiver's cotangents,
+//     sums gxin_j (gxind_j) in registers (no partials, no atomics) and overwrites the rows by
+//     the cotangents of wmr (and wmrd). F's per-pair sum g_env = sum_f gwm wmr is reduced over
+//     each warp by a transposing shuffle and over the warps through shared memory.
+//   * gh = cot(wmr) W2^T on the engine (B transposed). F: gz1 = gh s by the gate epilogue, in
+//     place over s; g_dist = sum_f gz1 rpw + g_env envp, a warp a live pair
+//     (schnet_gdist_kernel; the caller's zeros stay in the dead slots). H: ghd = cot(wmrd) W2^T
+//     too, then gz1 = gh s + ghd (1 - s) hd and gz1d = ghd s (schnet_dual_gz1_kernel).
+//   * gW1 = rbf_live^T gz1 (H: + rbfd_live^T gz1d) and gW2 = h^T cot(wmr) (H: + hd^T
+//     cot(wmrd)) are the engine's weight-gradient products over the live rows, as fixed-order
+//     partials over a split of the rows sized from the shapes; gb1 and gb2, the column sums of
+//     gz1 and cot(wmr), are schnet_colsum_kernel's chunk partials, summed in order. F and H give
+//     the same bits on every run. These run only when a weight asks for its gradient (never on
+//     the predict path or in a force pass).
+// The rows are reused in place (z1 -> s -> gz1, wmr -> cot(wmr)), so a call's scratch is four
+// [B*A*A, F] arrays for F and five for H (schnet_bwd_scratch_floats). The engine takes K and N
+// multiples of 4 with 16-byte aligned rows: the entry points take R and F multiples of 4, which
+// the wrapper provides by zero padding (schnet.yaml's R = 100, F = 128 need none).
 
 #include <cuda_runtime.h>
 
+#include "so2_common.cuh"
+
 namespace {
 
-constexpr int NT = 256;          // threads per block (main kernels)
+constexpr int NT = 256;          // threads per block (E and G)
 constexpr int FT = 128;          // channel lanes per block
 constexpr int GROUPS = NT / FT;  // row groups sharing a channel lane (2)
 constexpr int JB = 8;            // rows per register block
-constexpr int NWF = FT / 32;     // warps across the channel lanes (4)
-
-// weight-gradient tiles: 16 x 16 threads, RH row slots and 4 columns each
-constexpr int GW_NT = 64;        // output columns per block
-constexpr int GW_PT = 16;        // pairs per shared-memory chunk
-constexpr int GW_SPLITS = 4;     // pair slices per molecule (partials per molecule)
 
 constexpr float LOG2F = 0.6931471805599453f;
 
@@ -75,12 +76,6 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 // rows padded so each of the GROUPS row groups holds whole JB blocks
 __host__ __device__ inline int padded_rows(int a) { return round_up(a, JB * GROUPS); }
-
-__device__ inline float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // softplus(x) - log 2 (as jax.nn.softplus: max(x,0) + log1p(exp(-|x|))) and
 // sigmoid(x), both from one exp
@@ -172,49 +167,32 @@ __device__ inline void zero_pad_cols(float* t, int nLp, int F, int Fp) {
     t[(size_t)(idx / w) * Fp + F + idx % w] = 0.f;
 }
 
-// The shared-memory carve-up of the four main kernels:
-//   [X region][T tiles][e_s][e2_s][live_s][kof_s][red]
-// X holds NXR [Ap][Rp] rbf tiles (x0, x1), later overlaid by NXF [Ap][Fp]
-// per-pair cotangent tiles; T holds NT_ [Ap][Fp] tiles (t0, t1) of h.
-struct Layout {
-  int nxr, nxf, nt;
-};
-__host__ __device__ constexpr Layout LAYOUT_E() { return {1, 0, 1}; }
-__host__ __device__ constexpr Layout LAYOUT_F() { return {2, 1, 2}; }
-__host__ __device__ constexpr Layout LAYOUT_G() { return {2, 0, 2}; }
-__host__ __device__ constexpr Layout LAYOUT_H() { return {2, 2, 2}; }
+// The shared-memory carve-up of kernels E and G, for L lanes (E 1, G 2: the primal and the
+// tangent):
+//   [X: L [Ap][Rp] rbf tiles x0, x1][T: L [Ap][Fp] tiles t0, t1 of h][e_s][e2_s][live_s]
+//   [kof_s][red: [GROUPS-1][2][FT] node slots]
+constexpr int LANES_E = 1, LANES_G = 2;
 
 struct Smem {
   float *x0, *x1, *t0, *t1, *e_s, *e2_s, *red;
   int *live_s, *kof_s;
 };
 
-__host__ __device__ inline size_t x_region(int A, int R, int F, Layout L) {
+__host__ __device__ inline size_t smem_bytes(int A, int R, int F, int L) {
   const int Ap = padded_rows(A), Rp = round_up(R, 4), Fp = round_up(F, 4);
-  const size_t a = (size_t)L.nxr * Ap * Rp, b = (size_t)L.nxf * Ap * Fp;
-  return a > b ? a : b;
+  return sizeof(float) * ((size_t)L * Ap * (Rp + Fp) + 4 * (size_t)Ap +
+                          (size_t)(GROUPS - 1) * 2 * FT);
 }
 
-// red floats: pair slots [NWF][Ap][2] (F) and node slots [GROUPS-1][2][FT]
-__host__ __device__ inline size_t red_floats(int A) {
-  return (size_t)NWF * padded_rows(A) * 2 + (size_t)(GROUPS - 1) * 2 * FT;
-}
-
-__host__ __device__ inline size_t smem_bytes(int A, int R, int F, Layout L) {
-  const int Ap = padded_rows(A), Fp = round_up(F, 4);
-  return sizeof(float) * (x_region(A, R, F, L) + (size_t)L.nt * Ap * Fp + 4 * (size_t)Ap +
-                          red_floats(A));
-}
-
-__device__ inline Smem carve(float* smem, int A, int R, int F, Layout L) {
+__device__ inline Smem carve(float* smem, int A, int R, int F, int L) {
   const int Ap = padded_rows(A), Rp = round_up(R, 4), Fp = round_up(F, 4);
   Smem s;
   s.x0 = smem;
-  s.x1 = smem + (size_t)Ap * Rp;
-  float* p = smem + x_region(A, R, F, L);
+  s.x1 = smem + (size_t)(L - 1) * Ap * Rp;
+  float* p = smem + (size_t)L * Ap * Rp;
   s.t0 = p;
-  s.t1 = p + (size_t)(L.nt - 1) * Ap * Fp;
-  p += (size_t)L.nt * Ap * Fp;
+  s.t1 = p + (size_t)(L - 1) * Ap * Fp;
+  p += (size_t)L * Ap * Fp;
   s.e_s = p;
   s.e2_s = s.e_s + Ap;
   s.live_s = reinterpret_cast<int*>(s.e2_s + Ap);
@@ -264,7 +242,7 @@ __global__ void __launch_bounds__(NT) schnet_fwd_kernel(
     const float* __restrict__ b2, float* __restrict__ msg, int A, int R, int F) {
   extern __shared__ float4 smem4[];
   __shared__ int n_live;
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LAYOUT_E());
+  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LANES_E);
   const int Rp = round_up(R, 4), Fp = round_up(F, 4);
   const int bi = blockIdx.x, b = bi / A, tid = threadIdx.x;
 
@@ -324,162 +302,6 @@ __global__ void __launch_bounds__(NT) schnet_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// kernel F: node and pair cotangents, one block per (molecule b, sender j)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NT) schnet_bwd_kernel(
-    const float* __restrict__ rbf, const float* __restrict__ rbfp, const float* __restrict__ envf,
-    const float* __restrict__ envp, const float* __restrict__ xin, const float* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2,
-    const float* __restrict__ w2t, const float* __restrict__ gmsg, float* __restrict__ gdist,
-    float* __restrict__ gxin, float* __restrict__ h_buf, float* __restrict__ gz1_buf, int A,
-    int R, int F) {
-  extern __shared__ float4 smem4[];
-  __shared__ int n_live;
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LAYOUT_F());
-  const int Ap = padded_rows(A), Rp = round_up(R, 4), Fp = round_up(F, 4);
-  const int bj = blockIdx.x, b = bj / A, j = bj - b * A, tid = threadIdx.x;
-  const bool need_gw = h_buf != nullptr;
-  const size_t col = (size_t)b * A * A + j;  // pair (b, i, j) = col + i * A
-
-  compact_live(envf + col, envp + col, A, A, sm.live_s, sm.e_s, sm.e2_s, sm.kof_s, &n_live);
-  __syncthreads();
-  const int nL = n_live, nLp = padded_rows(nL);
-  stage_rows(rbf, rbfp, col * R, (size_t)A * R, sm.live_s, nL, nLp, R, Rp, sm.x0, sm.x1);
-  float* red_pair = sm.red;                        // [NWF][Ap][2]: g_env, g_basis
-  float* red_node = sm.red + (size_t)NWF * Ap * 2;  // group_reduce scratch
-  for (int idx = tid; idx < NWF * Ap * 2; idx += NT) red_pair[idx] = 0.f;
-  if (need_gw) {  // dead pairs: zero rows of the scratch the gW kernels read
-    for (int idx = tid; idx < A * F; idx += NT) {
-      const int i = idx / F, f = idx - i * F;
-      if (sm.kof_s[i] >= 0) continue;
-      const size_t at = (col + (size_t)i * A) * F + f;
-      h_buf[at] = 0.f;
-      gz1_buf[at] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  const int fl = tid % FT, grp = tid / FT, rows = nLp / GROUPS, lane = tid % 32, fw = fl / 32;
-  float* h_s = sm.t0;  // [nLp][Fp] h
-  float* q_s = sm.t1;  // [nLp][Fp] s * (rbfp @ W1)
-  // 1: z1 = rbf @ W1 + b1 and rpw = rbfp @ W1 per live pair
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b1[f] : 0.f;
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB], rp[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = rp[q] = 0.f;
-      row_block_dot2(sm.x0, sm.x1, k0, Rp, R, w1 + (active ? f : 0), F, acc, rp);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const int k = k0 + q;
-        float h, s;
-        ssp_sigmoid(acc[q] + bias, h, s);
-        h_s[(size_t)k * Fp + f] = h;
-        q_s[(size_t)k * Fp + f] = s * rp[q];
-        if (need_gw && k < nL) {
-          const size_t at = (col + (size_t)sm.live_s[k] * A) * F + f;
-          h_buf[at] = h;
-          gz1_buf[at] = s;  // read back by this thread in step 3
-        }
-      }
-    }
-  }
-  zero_pad_cols(h_s, nLp, F, Fp);
-  __syncthreads();
-  // gwmr = gmsg_i * xin_j * envf_ij over the rbf rows, which are no longer needed
-  float* gw_s = sm.x0;  // [nLp][Fp]
-  const float* xj = xin + ((size_t)b * A + j) * F;
-  for (int idx = tid; idx < nLp * Fp; idx += NT) {
-    const int k = idx / Fp, f = idx - k * Fp;
-    float v = 0.f;
-    if (k < nL && f < F) v = gmsg[((size_t)b * A + sm.live_s[k]) * F + f] * xj[f] * sm.e_s[k];
-    gw_s[idx] = v;
-  }
-  __syncthreads();
-
-  // 2: wmr = h @ W2 + b2: gxin_j and g_env_ij = sum_f gmsg_i xin_j wmr
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b2[f] : 0.f, x = active ? xj[f] : 0.f;
-    float gx[1] = {0.f};
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB], ge[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = ge[q] = 0.f;
-      row_block_dot(h_s, k0, Fp, F, w2 + (active ? f : 0), F, acc);
-      if (active) {
-#pragma unroll
-        for (int q = 0; q < JB; ++q) {
-          const int k = k0 + q;
-          if (k >= nL) continue;
-          const float wmr = acc[q] + bias;
-          const float gm = gmsg[((size_t)b * A + sm.live_s[k]) * F + f];
-          gx[0] = fmaf(wmr * sm.e_s[k], gm, gx[0]);
-          ge[q] = gm * x * wmr;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const float t = warp_sum(ge[q]);
-        if (lane == 0 && k0 + q < nL) red_pair[((size_t)fw * Ap + k0 + q) * 2] += t;
-      }
-    }
-    group_reduce<1>(gx, red_node, fl, grp);
-    if (grp == 0 && active) gxin[(size_t)bj * F + f] = gx[0];
-  }
-
-  // 3: gh = gwmr @ W2^T, gz1 = gh * s; g_basis_ij = sum_g gz1 * rpw
-  for (int g0 = 0; g0 < F; g0 += FT) {
-    const int g = g0 + fl;
-    const bool active = g < F;
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB], gb[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = gb[q] = 0.f;
-      row_block_dot(gw_s, k0, Fp, F, w2t + (active ? g : 0), F, acc);
-      if (active) {
-#pragma unroll
-        for (int q = 0; q < JB; ++q) {
-          const int k = k0 + q;
-          if (k >= nL) continue;
-          gb[q] = acc[q] * q_s[(size_t)k * Fp + g];
-          if (need_gw) {
-            const size_t at = (col + (size_t)sm.live_s[k] * A) * F + g;
-            gz1_buf[at] = acc[q] * gz1_buf[at];
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const float t = warp_sum(gb[q]);
-        if (lane == 0 && k0 + q < nL) red_pair[((size_t)fw * Ap + k0 + q) * 2 + 1] += t;
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < A; i += NT) {
-    const int k = sm.kof_s[i];
-    float gd = 0.f;
-    if (k >= 0) {
-      float ge = 0.f, gbs = 0.f;
-      for (int w = 0; w < NWF; ++w) {
-        ge += red_pair[((size_t)w * Ap + k) * 2];
-        gbs += red_pair[((size_t)w * Ap + k) * 2 + 1];
-      }
-      gd = gbs + ge * sm.e2_s[k];
-    }
-    gdist[col + (size_t)i * A] = gd;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // kernel G: dual forward, one block per (molecule b, receiver i)
 // ---------------------------------------------------------------------------
 
@@ -491,7 +313,7 @@ __global__ void __launch_bounds__(NT) schnet_dual_fwd_kernel(
     int F) {
   extern __shared__ float4 smem4[];
   __shared__ int n_live;
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LAYOUT_G());
+  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LANES_G);
   const int Rp = round_up(R, 4), Fp = round_up(F, 4);
   const int bi = blockIdx.x, b = bi / A, tid = threadIdx.x;
 
@@ -562,313 +384,416 @@ __global__ void __launch_bounds__(NT) schnet_dual_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// kernel H: node cotangents (and the per-pair gz1 / gz1d for the weight
-// gradient), one block per (molecule b, sender j)
+// kernels F and H: the live pairs in sender order
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NT) schnet_dual_bwd_kernel(
-    const float* __restrict__ rbf, const float* __restrict__ rbfd, const float* __restrict__ envf,
-    const float* __restrict__ envfd, const float* __restrict__ xin, const float* __restrict__ xind,
-    const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, const float* __restrict__ w2t, const float* __restrict__ gmsg,
+// flags[(b*A + j)*A + i] = 1 when envf[b,i,j] or env2[b,i,j] (envp in F, envfd in H) is not
+// zero: a thread a pair, in pair order
+__global__ void schnet_flags_kernel(const float* __restrict__ env, const float* __restrict__ env2,
+                                    int* __restrict__ flags, int A, long long npairs) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npairs) return;
+  const long long bi = p / A, b = bi / A;
+  const int j = (int)(p - bi * A), i = (int)(bi - b * A);
+  flags[(b * A + j) * A + i] = env[p] != 0.f || env2[p] != 0.f;
+}
+
+// Over the live rows (n_rows x ld, float4 at a time): z = z1 becomes s = sigmoid(z1) in place
+// and h = ssp(z1) is written; with zd (H), z1d becomes hd = s z1d in place.
+__global__ void __launch_bounds__(256) schnet_ssp_kernel(float* __restrict__ z,
+                                                         float* __restrict__ h,
+                                                         float* __restrict__ zd,
+                                                         const int* __restrict__ n_rows, int ld) {
+  const long long n4 = (long long)*n_rows * ld / 4;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < n4;
+       q += (long long)gridDim.x * blockDim.x) {
+    const float4 zv = reinterpret_cast<const float4*>(z)[q];
+    float4 hv, sv;
+    ssp_sigmoid(zv.x, hv.x, sv.x);
+    ssp_sigmoid(zv.y, hv.y, sv.y);
+    ssp_sigmoid(zv.z, hv.z, sv.z);
+    ssp_sigmoid(zv.w, hv.w, sv.w);
+    reinterpret_cast<float4*>(h)[q] = hv;
+    reinterpret_cast<float4*>(z)[q] = sv;
+    if (zd) {
+      float4 d = reinterpret_cast<const float4*>(zd)[q];
+      d = make_float4(sv.x * d.x, sv.y * d.y, sv.z * d.z, sv.w * d.w);
+      reinterpret_cast<float4*>(zd)[q] = d;
+    }
+  }
+}
+
+// the stages: a thread a channel, F rounded up to whole warps; SMAXT threads at most for the
+// register budget of the model's widths, a second instance beyond (up to 1024 channels)
+constexpr int SMAXT = 256;
+constexpr int FQ = 8;  // F's stage: receivers a thread holds at once (one pair sum each)
+constexpr int HQ = 4;  // H's stage
+
+// ---------------------------------------------------------------------------
+// kernel F's stage: one block per (molecule b, sender j), over j's live receivers i (rows
+// rs[bj] .. rs[bj+1] - 1 of the compact wmr = h W2 + b2, F floats a row), FQ at a time. Per
+// pair and channel f, with gwm = gmsg_i xin_j:
+//   gxin_j += wmr envf gmsg_i,   g_env = sum_f gwm wmr (into ge[e]),   gwmr = gwm envf
+// and gwmr overwrites wmr (each element read and written by one thread).
+// ---------------------------------------------------------------------------
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) schnet_bwd_stage_kernel(
+    float* __restrict__ w, float* __restrict__ ge, const int* __restrict__ eidx,
+    const int* __restrict__ rs, const int* __restrict__ row, const float* __restrict__ envf,
+    const float* __restrict__ xin, const float* __restrict__ gmsg, float* __restrict__ gxin,
+    int A, int F) {
+  extern __shared__ float red[];  // [2][warps][32]: the warps' pair sums, double buffered
+  const int bj = blockIdx.x, b = bj / A;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5, f = tid;
+  const bool act = f < F;
+  const float x = act ? xin[(size_t)bj * F + f] : 0.f;
+  const int e_lo = rs[bj], e_hi = rs[bj + 1];
+  float gx = 0.f;
+  for (int e0 = e_lo, it = 0; e0 < e_hi; e0 += FQ, ++it) {
+    const int n = min(FQ, e_hi - e0);
+    // every load of the FQ receivers first, so that their latencies overlap
+    float wv[FQ], gm[FQ], ef[FQ];
+#pragma unroll
+    for (int q = 0; q < FQ; ++q) {
+      const bool ok = q < n;
+      const int e = e0 + (ok ? q : 0);
+      const int i = eidx[e] % A;
+      ef[q] = ok ? envf[row[e]] : 0.f;
+      wv[q] = ok && act ? w[(size_t)e * F + f] : 0.f;
+      gm[q] = ok && act ? gmsg[((size_t)b * A + i) * F + f] : 0.f;
+    }
+    float val[FQ];
+#pragma unroll
+    for (int q = 0; q < FQ; ++q) {
+      const float gwm = gm[q] * x;
+      val[q] = gwm * wv[q];
+      gx = fmaf(wv[q] * ef[q], gm[q], gx);
+      if (act && q < n) w[(size_t)(e0 + q) * F + f] = gwm * ef[q];
+    }
+    // the pair sums: each warp's by shuffles, then the warps' in order through shared memory
+    const float sum = warp_sums<FQ>(val, lane);
+    float* rb = red + (size_t)(it & 1) * nw * 32;
+    rb[warp * 32 + lane] = sum;
+    __syncthreads();
+    if (tid < n) {
+      float s = 0.f;
+      for (int g = 0; g < nw; ++g) s += rb[g * 32 + tid];
+      ge[e0 + tid] = s;
+    }
+  }
+  if (act) gxin[(size_t)bj * F + f] = gx;
+}
+
+// g_dist of each live pair, a warp a row: sum_f gz1 rpw (lanes over float4 columns, then a
+// butterfly: a fixed order) + g_env envp; the dead slots keep the caller's zeros
+__global__ void __launch_bounds__(256) schnet_gdist_kernel(
+    const float* __restrict__ gz1, const float* __restrict__ rp, const float* __restrict__ ge,
+    const int* __restrict__ row, const int* __restrict__ n_rows, const float* __restrict__ envp,
+    float* __restrict__ gdist, int ld) {
+  const int lane = threadIdx.x & 31, nr = *n_rows;
+  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; e < nr;
+       e += nwarps) {
+    float acc = 0.f;
+    for (int c = 4 * lane; c < ld; c += 128) {
+      const float4 a = *reinterpret_cast<const float4*>(gz1 + e * ld + c);
+      const float4 r = *reinterpret_cast<const float4*>(rp + e * ld + c);
+      acc = fmaf(a.w, r.w, fmaf(a.z, r.z, fmaf(a.y, r.y, fmaf(a.x, r.x, acc))));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+      const int p = row[e];
+      gdist[p] = fmaf(ge[e], envp[p], acc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel H's stage: one block per (molecule b, sender j), over j's live receivers (rows of
+// the compact wmr = h W2 + b2 and wmrd = hd W2), HQ at a time. Per pair and channel, with
+// wm = wmr e, wmd = wmrd e + wmr ed (e = envf, ed = envfd of the pair):
+//   gxin_j += wm gmsg_i + wmd gmsgd_i,   gxind_j += wm gmsgd_i
+// and with need_gw the cotangents of wmr and wmrd overwrite them:
+//   cot_wmr = gwm e + gwmd ed,  cot_wmrd = gwmd e,  gwm = gmsg_i xin_j + gmsgd_i xind_j,
+//   gwmd = gmsgd_i xin_j
+// ---------------------------------------------------------------------------
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) schnet_dual_bwd_stage_kernel(
+    float* __restrict__ w, float* __restrict__ wd, const int* __restrict__ eidx,
+    const int* __restrict__ rs, const int* __restrict__ row, const float* __restrict__ envf,
+    const float* __restrict__ envfd, const float* __restrict__ xin,
+    const float* __restrict__ xind, const float* __restrict__ gmsg,
     const float* __restrict__ gmsgd, float* __restrict__ gxin, float* __restrict__ gxind,
-    float* __restrict__ h_buf, float* __restrict__ hd_buf, float* __restrict__ gz1_buf,
-    float* __restrict__ gz1d_buf, int A, int R, int F) {
-  extern __shared__ float4 smem4[];
-  __shared__ int n_live;
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LAYOUT_H());
-  const int Ap = padded_rows(A), Rp = round_up(R, 4), Fp = round_up(F, 4);
-  const int bj = blockIdx.x, b = bj / A, j = bj - b * A, tid = threadIdx.x;
-  const bool need_gw = h_buf != nullptr;
-  const size_t col = (size_t)b * A * A + j;  // pair (b, i, j) = col + i * A
-
-  compact_live(envf + col, envfd + col, A, A, sm.live_s, sm.e_s, sm.e2_s, sm.kof_s, &n_live);
-  __syncthreads();
-  const int nL = n_live, nLp = padded_rows(nL);
-  stage_rows(rbf, rbfd, col * R, (size_t)A * R, sm.live_s, nL, nLp, R, Rp, sm.x0, sm.x1);
-  if (need_gw) {  // dead pairs: zero rows of the scratch the gW kernels read
-    for (int idx = tid; idx < A * F; idx += NT) {
-      const int i = idx / F, f = idx - i * F;
-      if (sm.kof_s[i] >= 0) continue;
-      const size_t at = (col + (size_t)i * A) * F + f;
-      h_buf[at] = hd_buf[at] = gz1_buf[at] = gz1d_buf[at] = 0.f;
+    int need_gw, int A, int F) {
+  const int bj = blockIdx.x, b = bj / A, f = threadIdx.x;
+  if (f >= F) return;
+  const size_t nj = (size_t)bj * F + f;
+  const float x = xin[nj], xd = xind[nj];
+  const int e_lo = rs[bj], e_hi = rs[bj + 1];
+  float g0 = 0.f, g1 = 0.f;
+  for (int e0 = e_lo; e0 < e_hi; e0 += HQ) {
+    const int n = min(HQ, e_hi - e0);
+    // every load of the HQ receivers first, so that their latencies overlap
+    float ev[HQ], edv[HQ], wr[HQ], wdr[HQ], gm[HQ], gmd[HQ];
+#pragma unroll
+    for (int q = 0; q < HQ; ++q) {
+      const bool ok = q < n;
+      const int e = e0 + (ok ? q : 0), p = row[e];
+      const size_t node = ((size_t)b * A + eidx[e] % A) * F + f;
+      ev[q] = ok ? envf[p] : 0.f;
+      edv[q] = ok ? envfd[p] : 0.f;
+      wr[q] = ok ? w[(size_t)e * F + f] : 0.f;
+      wdr[q] = ok ? wd[(size_t)e * F + f] : 0.f;
+      gm[q] = ok ? gmsg[node] : 0.f;
+      gmd[q] = ok ? gmsgd[node] : 0.f;
     }
-  }
-  __syncthreads();
-
-  const int fl = tid % FT, grp = tid / FT, rows = nLp / GROUPS;
-  float* h_s = sm.t0;
-  float* hd_s = sm.t1;
-  // 1: z1 = rbf @ W1 + b1, z1d = rbfd @ W1; h = ssp(z1), hd = s * z1d
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b1[f] : 0.f;
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB], accd[JB];
 #pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = accd[q] = 0.f;
-      row_block_dot2(sm.x0, sm.x1, k0, Rp, R, w1 + (active ? f : 0), F, acc, accd);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const int k = k0 + q;
-        float h, s;
-        ssp_sigmoid(acc[q] + bias, h, s);
-        const float hd = s * accd[q];
-        h_s[(size_t)k * Fp + f] = h;
-        hd_s[(size_t)k * Fp + f] = hd;
-        if (need_gw && k < nL) {
-          const size_t at = (col + (size_t)sm.live_s[k] * A) * F + f;
-          h_buf[at] = h;
-          hd_buf[at] = hd;
-          gz1_buf[at] = s;         // read back by this thread in step 3
-          gz1d_buf[at] = accd[q];  // z1d, likewise
-        }
+    for (int q = 0; q < HQ; ++q) {
+      const float wm = wr[q] * ev[q];
+      const float wmd = fmaf(wdr[q], ev[q], wr[q] * edv[q]);
+      g0 = fmaf(wm, gm[q], fmaf(wmd, gmd[q], g0));
+      g1 = fmaf(wm, gmd[q], g1);
+      if (need_gw && q < n) {
+        const float gwm = fmaf(gm[q], x, gmd[q] * xd), gwmd = gmd[q] * x;
+        w[(size_t)(e0 + q) * F + f] = fmaf(gwm, ev[q], gwmd * edv[q]);
+        wd[(size_t)(e0 + q) * F + f] = gwmd * ev[q];
       }
     }
   }
-  zero_pad_cols(h_s, nLp, F, Fp);
-  zero_pad_cols(hd_s, nLp, F, Fp);
-  __syncthreads();
+  gxin[nj] = g0;
+  gxind[nj] = g1;
+}
 
-  const float* xj = xin + ((size_t)b * A + j) * F;
-  const float* xdj = xind + ((size_t)b * A + j) * F;
-  float* cw_s = sm.x0;                         // [nLp][Fp] cotangent of wmr
-  float* cwd_s = sm.x0 + (size_t)Ap * Fp;      // [nLp][Fp] cotangent of wmrd
-  if (need_gw) {  // over the rbf rows, which are no longer needed
-    for (int idx = tid; idx < nLp * Fp; idx += NT) {
-      const int k = idx / Fp, f = idx - k * Fp;
-      float cw = 0.f, cwd = 0.f;
-      if (k < nL && f < F) {
-        const size_t ni = ((size_t)b * A + sm.live_s[k]) * F + f;
-        const float gm = gmsg[ni], gmd = gmsgd[ni];
-        const float gwm = fmaf(gm, xj[f], gmd * xdj[f]), gwmd = gmd * xj[f];
-        cw = fmaf(gwm, sm.e_s[k], gwmd * sm.e2_s[k]);
-        cwd = gwmd * sm.e_s[k];
-      }
-      cw_s[idx] = cw;
-      cwd_s[idx] = cwd;
-    }
-    __syncthreads();
-  }
-
-  // 2: wmr = h @ W2 + b2, wmrd = hd @ W2: gxin_j, gxind_j
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b2[f] : 0.f;
-    float gx[2] = {0.f, 0.f};  // gxin, gxind
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB], accd[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = accd[q] = 0.f;
-      row_block_dot2(h_s, hd_s, k0, Fp, F, w2 + (active ? f : 0), F, acc, accd);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const int k = k0 + q;
-        if (k >= nL) continue;
-        const size_t ni = ((size_t)b * A + sm.live_s[k]) * F + f;
-        const float gm = gmsg[ni], gmd = gmsgd[ni];
-        const float wmr = acc[q] + bias;
-        const float wm = wmr * sm.e_s[k];
-        const float wmd = fmaf(accd[q], sm.e_s[k], wmr * sm.e2_s[k]);
-        gx[0] = fmaf(wm, gm, fmaf(wmd, gmd, gx[0]));
-        gx[1] = fmaf(wm, gmd, gx[1]);
-      }
-    }
-    group_reduce<2>(gx, sm.red, fl, grp);
-    if (grp == 0 && active) {
-      gxin[(size_t)bj * F + f] = gx[0];
-      gxind[(size_t)bj * F + f] = gx[1];
-    }
-  }
-  if (!need_gw) return;
-
-  // 3: gh = cw @ W2^T, ghd = cwd @ W2^T; gz1 = gh s + ghd s (1 - s) z1d, gz1d = ghd s
-  for (int g0 = 0; g0 < F; g0 += FT) {
-    const int g = g0 + fl;
-    const bool active = g < F;
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float gh[JB], ghd[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) gh[q] = ghd[q] = 0.f;
-      row_block_dot2(cw_s, cwd_s, k0, Fp, F, w2t + (active ? g : 0), F, gh, ghd);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const int k = k0 + q;
-        if (k >= nL) continue;
-        const size_t at = (col + (size_t)sm.live_s[k] * A) * F + g;
-        const float s = gz1_buf[at], z1d = gz1d_buf[at];
-        gz1_buf[at] = fmaf(gh[q], s, ghd[q] * (s * (1.f - s) * z1d));
-        gz1d_buf[at] = ghd[q] * s;
-      }
-    }
+// H's gz1 over the live rows: gz1 = gh s + ghd (1 - s) hd (= ghd s(1 - s) z1d, hd = s z1d)
+// over gh, and gz1d = ghd s over ghd
+__global__ void __launch_bounds__(256) schnet_dual_gz1_kernel(
+    const float* __restrict__ s, const float* __restrict__ hd, float* __restrict__ gh,
+    float* __restrict__ ghd, const int* __restrict__ n_rows, int ld) {
+  const long long n = (long long)*n_rows * ld;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < n;
+       q += (long long)gridDim.x * blockDim.x) {
+    const float sv = s[q], g = gh[q], gd = ghd[q];
+    gh[q] = fmaf(g, sv, gd * ((1.f - sv) * hd[q]));
+    ghd[q] = gd * sv;
   }
 }
 
-// ---------------------------------------------------------------------------
-// weight gradients: part[b * GW_SPLITS + sp] ([K+1, N]) = sum over the pairs
-// of slice sp of molecule b of x1[p]^T y1[p] (+ x2[p]^T y2[p]), with row K the
-// bias: x1's implicit column of ones (x2 has none). MODE 0 reads y1 / y2
-// from buffers [B, A*A, N]; MODE 1 forms F's y1 = gwmr = gmsg_i xin_j envf_ij;
-// MODE 2 forms H's y1 = cot(wmr), y2 = cot(wmrd) from node tensors. Each
-// thread accumulates RH rows x 4 columns.
-// ---------------------------------------------------------------------------
+// The bias gradients: out_p[f] = sum over the live rows e of rows_p[e, f] for the np (<= 2)
+// row sets, as CS_CHUNKS partial rows (a block a chunk of rows and a set: float4 columns times
+// row lanes, the lanes summed in order through shared memory), then schnet_colsum_reduce_kernel
+// sums a column's chunks in order: the same bits every run. (The engine's column sums, a thread
+// a column over up to 1/64 of the rows each, take ~5x as long at SchNet's F.)
+constexpr int CS_CHUNKS = 128;
 
-template <int RH, int MODE>
-__global__ void __launch_bounds__(256) schnet_gw_kernel(
-    const float* __restrict__ x1, const float* __restrict__ x2, int K, const float* __restrict__ y1,
-    const float* __restrict__ y2, const float* __restrict__ gmsg, const float* __restrict__ gmsgd,
-    const float* __restrict__ xin, const float* __restrict__ xind, const float* __restrict__ envf,
-    const float* __restrict__ envfd, float* __restrict__ part, int A, int N) {
-  constexpr int RT = 16 * RH;
-  __shared__ float x_s[GW_PT][RT];
-  __shared__ float xd_s[GW_PT][RT];
-  __shared__ float y_s[GW_PT][GW_NT];
-  __shared__ float yd_s[GW_PT][GW_NT];
-  const bool two = x2 != nullptr;
-  const int n0 = blockIdx.x * GW_NT, r0 = blockIdx.y * RT, z = blockIdx.z;
-  const int b = z / GW_SPLITS, sp = z - b * GW_SPLITS;
-  const int P = A * A, per = (P + GW_SPLITS - 1) / GW_SPLITS;
-  const int p_lo = sp * per, p_hi = min(P, p_lo + per);
-  const int tid = threadIdx.x, tr = tid / 16, tn = tid % 16;  // rows tr + 16h, cols tn + 16q
-  float acc[RH][4];
-#pragma unroll
-  for (int h = 0; h < RH; ++h)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[h][q] = 0.f;
+struct ColSums {
+  const float* rows[2];  // [n_rows, F]
+  float* out[2];         // [F]
+  int np;
+};
 
-  for (int p0 = p_lo; p0 < p_hi; p0 += GW_PT) {
-    for (int idx = tid; idx < GW_PT * RT; idx += 256) {
-      const int pp = idx / RT, rr = idx - pp * RT;
-      const int p = p0 + pp, r = r0 + rr;
-      const bool in = p < p_hi;
-      const size_t at = ((size_t)b * P + p) * K + r;
-      x_s[pp][rr] = !in ? 0.f : (r < K ? x1[at] : (r == K ? 1.f : 0.f));
-      if (two) xd_s[pp][rr] = in && r < K ? x2[at] : 0.f;
+__global__ void __launch_bounds__(256) schnet_colsum_kernel(const ColSums cs,
+                                                            const int* __restrict__ n_rows,
+                                                            float* __restrict__ part, int F) {
+  __shared__ float4 red[256];
+  const int p = blockIdx.y, c = blockIdx.x, t = threadIdx.x;
+  const int G = F / 4, lanes = 256 / G, cg = t % G, rl = t / G;
+  const int nr = *n_rows, chunk = (nr + CS_CHUNKS - 1) / CS_CHUNKS;
+  const int lo = min(nr, c * chunk), hi = min(nr, lo + chunk);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (rl < lanes) {
+    const float4* col = reinterpret_cast<const float4*>(cs.rows[p]) + cg;
+    for (int e = lo + rl; e < hi; e += lanes) {
+      const float4 v = col[(long long)e * G];
+      s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
     }
-    for (int idx = tid; idx < GW_PT * GW_NT; idx += 256) {
-      const int pp = idx / GW_NT, nn = idx - pp * GW_NT;
-      const int p = p0 + pp, n = n0 + nn;
-      float y = 0.f, yd = 0.f;
-      if (p < p_hi && n < N) {
-        const size_t pair = (size_t)b * P + p;
-        if (MODE == 0) {
-          y = y1[pair * N + n];
-          if (two) yd = y2[pair * N + n];
-        } else {
-          const int i = p / A, jj = p - i * A;
-          const size_t ni = ((size_t)b * A + i) * N + n, nj = ((size_t)b * A + jj) * N + n;
-          if (MODE == 1) {
-            y = gmsg[ni] * xin[nj] * envf[pair];
-          } else {
-            const float gm = gmsg[ni], gmd = gmsgd[ni], e = envf[pair];
-            const float gwm = fmaf(gm, xin[nj], gmd * xind[nj]), gwmd = gmd * xin[nj];
-            y = fmaf(gwm, e, gwmd * envfd[pair]);
-            yd = gwmd * e;
-          }
-        }
-      }
-      y_s[pp][nn] = y;
-      yd_s[pp][nn] = yd;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int pp = 0; pp < GW_PT; ++pp) {
-      float y[4], yd[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        y[q] = y_s[pp][tn + 16 * q];
-        yd[q] = yd_s[pp][tn + 16 * q];
-      }
-#pragma unroll
-      for (int h = 0; h < RH; ++h) {
-        const float x = x_s[pp][tr + 16 * h];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[h][q] = fmaf(x, y[q], acc[h][q]);
-        if (two) {
-          const float xd = xd_s[pp][tr + 16 * h];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[h][q] = fmaf(xd, yd[q], acc[h][q]);
-        }
-      }
-    }
-    __syncthreads();
   }
-  float* out = part + (size_t)z * (K + 1) * N;
-#pragma unroll
-  for (int h = 0; h < RH; ++h) {
-    const int r = r0 + tr + 16 * h;
-    if (r > K) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tn + 16 * q;
-      if (n < N) out[(size_t)r * N + n] = acc[h][q];
+  red[t] = s;
+  __syncthreads();
+  if (t < G) {
+    for (int l = 1; l < lanes; ++l) {
+      const float4 v = red[l * G + t];
+      s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
     }
+    reinterpret_cast<float4*>(part + ((long long)p * CS_CHUNKS + c) * F)[t] = s;
   }
 }
 
-// out[idx] = sum over the nparts partials, in order: the same bits every run
-__global__ void schnet_gw_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                        int nparts, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+__global__ void __launch_bounds__(256) schnet_colsum_reduce_kernel(const ColSums cs,
+                                                                   const float* __restrict__ part,
+                                                                   int F) {
+  const int p = blockIdx.y, f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= F) return;
   float s = 0.f;
-  for (int z = 0; z < nparts; ++z) s += part[(size_t)z * n + idx];
-  out[idx] = s;
-}
-
-// wt[f][g] = w[g][f]   (W2^T for the products with W2's rows)
-__global__ void schnet_transpose_kernel(const float* __restrict__ w, float* __restrict__ wt,
-                                        int F) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= F * F) return;
-  const int g = idx / F, f = idx - g * F;
-  wt[(size_t)f * F + g] = w[idx];
+#pragma unroll 8
+  for (int c = 0; c < CS_CHUNKS; ++c) s += part[((long long)p * CS_CHUNKS + c) * F + f];
+  cs.out[p][f] = s;
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int RH, int MODE>
-cudaError_t launch_gw(const float* x1, const float* x2, int K, const float* y1, const float* y2,
-                      const float* gmsg, const float* gmsgd, const float* xin, const float* xind,
-                      const float* envf, const float* envfd, float* part, float* out, int B, int A,
-                      int N, cudaStream_t s) {
-  constexpr int RT = 16 * RH;
-  const dim3 grid((N + GW_NT - 1) / GW_NT, (K + 1 + RT - 1) / RT, B * GW_SPLITS);
-  schnet_gw_kernel<RH, MODE><<<grid, 256, 0, s>>>(x1, x2, K, y1, y2, gmsg, gmsgd, xin, xind,
-                                                  envf, envfd, part, A, N);
+// ---------------------------------------------------------------------------
+// F and H on the host: the live pairs, the filter-MLP products and gW on the engine
+// ---------------------------------------------------------------------------
+
+// what a call carves from its scratch: rows x ld arrays (F: z, z2, h, w; H: all five)
+struct Work {
+  float *z, *z2, *h, *w, *w2;  // see the stages in schnet_bwd / schnet_dual_bwd
+  float* ge;                   // F: g_env of each live row
+  float* cs;                   // the bias sums' partials [2][CS_CHUNKS][F]
+  int *flags, *eidx, *pos, *row, *rs, *n_rows;
+  Engine en;
+};
+
+enum { KIND_F = 0, KIND_H = 1 };
+
+long long pair_rows(int B, int A) { return (long long)B * A * A; }
+int n_arrays(int kind) { return kind == KIND_F ? 4 : 5; }
+
+// the weight-gradient products of a call (the biases are schnet_colsum_kernel's): F one launch
+// (gW1 and gW2 together), H two (gW2, then gW1); pointers null to size the partials
+std::vector<std::vector<TNProb>> wgrad_launches(int kind, const Work& w, const float* a1,
+                                                const float* a2, float* gw, int R, int F) {
+  float* gw2 = gw ? gw + (long long)(R + 1) * F : nullptr;
+  if (kind == KIND_F) {
+    return {{tprob({TSeg{a1, w.z, R, F, 1.f}}, A_GATHER, R, F, gw, F),
+             tprob({TSeg{w.h, w.w, F, F, 1.f}}, A_ROWS, F, F, gw2, F)}};
+  }
+  return {{tprob({TSeg{w.h, w.w, F, F, 1.f}, TSeg{w.z2, w.w2, F, F, 1.f}}, A_ROWS, F, F, gw2, F)},
+          {tprob({TSeg{a1, w.h, R, F, 1.f}, TSeg{a2, w.w, R, F, 1.f}}, A_GATHER, R, F, gw, F)}};
+}
+
+// gb1 (row R of gw) and gb2 (row R + 1 + F) as the column sums of rows1 and rows2 (either null)
+cudaError_t bias_sums(const Work& w, const float* rows1, const float* rows2, float* gw, int R,
+                      int F, cudaStream_t st) {
+  ColSums cs{};
+  if (rows1) {
+    cs.rows[cs.np] = rows1;
+    cs.out[cs.np++] = gw + (long long)R * F;
+  }
+  if (rows2) {
+    cs.rows[cs.np] = rows2;
+    cs.out[cs.np++] = gw + (long long)(R + 1 + F) * F;
+  }
+  schnet_colsum_kernel<<<dim3(CS_CHUNKS, cs.np), 256, 0, st>>>(cs, w.n_rows, w.cs, F);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = (K + 1) * N;
-  schnet_gw_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, out, B * GW_SPLITS, n);
+  schnet_colsum_reduce_kernel<<<dim3((F + 255) / 256, cs.np), 256, 0, st>>>(cs, w.cs, F);
   return cudaGetLastError();
 }
 
-cudaError_t launch_transpose(const float* w2, float* w2t, int F, cudaStream_t s) {
-  schnet_transpose_kernel<<<(F * F + 255) / 256, 256, 0, s>>>(w2, w2t, F);
+long long part_floats(int kind, long long rows, int R, int F) {
+  long long need = 0;
+  for (const auto& probs : wgrad_launches(kind, Work{}, nullptr, nullptr, nullptr, R, F))
+    need = std::max(need, wgrad_part_floats(rows, probs));
+  return need;
+}
+
+long long prep_floats(int R, int F) { return 2LL * F * std::max(R, F); }
+
+long long scratch_floats(int kind, int B, int A, int R, int F) {
+  const long long rows = pair_rows(B, A);
+  return n_arrays(kind) * rows * F + prep_floats(R, F) + part_floats(kind, rows, R, F) +
+         2LL * CS_CHUNKS * F + (kind == KIND_F ? rows : 0);
+}
+
+long long scratch_ints(int B, int A) { return 4 * pair_rows(B, A) + (long long)B * A + 2; }
+
+Work carve_work(int kind, int B, int A, int R, int F, float* f, int* iw) {
+  const long long rows = pair_rows(B, A), arr = rows * F;
+  Work w{};
+  float* p[5] = {};
+  for (int q = 0; q < n_arrays(kind); ++q) p[q] = f + q * arr;
+  w.z = p[0];
+  w.z2 = p[1];
+  w.h = p[2];
+  w.w = p[3];
+  w.w2 = p[4];
+  float* prep = f + n_arrays(kind) * arr;
+  float* part = prep + prep_floats(R, F);
+  w.cs = part + part_floats(kind, rows, R, F);
+  w.ge = kind == KIND_F ? w.cs + 2LL * CS_CHUNKS * F : nullptr;
+  w.flags = iw;
+  w.eidx = iw + rows;
+  w.pos = iw + 2 * rows;
+  w.row = iw + 3 * rows;
+  w.rs = iw + 4 * rows;
+  w.n_rows = w.rs + (long long)B * A + 1;
+  // the engine gathers the pair rows (b, i, j) of the live slots, listed in sender order
+  w.en = Engine{rows, w.n_rows, w.row, prep, prep_floats(R, F), part,
+                part_floats(kind, rows, R, F)};
+  return w;
+}
+
+// the live slots (b, j, i) whose envf or env2 is not zero, in sender order (the engine's
+// live_rows over segments of A slots), each sender's first row and the pair rows
+cudaError_t live_pairs(const Work& w, const float* envf, const float* env2, int B, int A,
+                       cudaStream_t st) {
+  const long long rows = pair_rows(B, A);
+  const unsigned blocks = (unsigned)((rows + 255) / 256);
+  schnet_flags_kernel<<<blocks, 256, 0, st>>>(envf, env2, w.flags, A, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = live_rows(w.flags, w.eidx, w.pos, w.rs, w.n_rows, rows, A, st);
+  if (err != cudaSuccess) return err;
+  so2_pair_rows_kernel<<<blocks, 256, 0, st>>>(w.eidx, w.n_rows, w.row, A);
   return cudaGetLastError();
 }
+
+// blocks of 256 threads for `elems` threads' work, at most 8 an SM (the loops stride)
+unsigned row_blocks(long long elems) {
+  return (unsigned)std::max(1LL, std::min((elems + 255) / 256, 8LL * SMS));
+}
+
+// z1 = a1 W1 + b1 into z and a2 W1 into z2 over the gathered live rows (F: a2 = rbfp, rpw;
+// H: a2 = rbfd, z1d); then s, h (and H's hd) by schnet_ssp_kernel
+cudaError_t first_layer(const Work& w, const float* a1, const float* a2, const float* w1,
+                        const float* b1, int R, int F, bool dual, cudaStream_t st) {
+  NNProb p1 = prob({seg(a1, R, w1, F, R)}, F, EPI_GATES, w.z, F);
+  NNProb p2 = prob({seg(a2, R, w1, F, R)}, F, EPI_STORE, w.z2, F);
+  p1.bias = b1;
+  p1.gather = p2.gather = 1;
+  cudaError_t err = launch_products(w.en, {p1, p2}, st, true);
+  if (err != cudaSuccess) return err;
+  schnet_ssp_kernel<<<row_blocks(w.en.max_rows * F / 4), 256, 0, st>>>(
+      w.z, w.h, dual ? w.z2 : nullptr, w.n_rows, F);
+  return cudaGetLastError();
+}
+
+bool shapes_ok(int B, int A, int R, int F) {
+  return R > 0 && R % 4 == 0 && F > 0 && F % 4 == 0 && F <= 1024 &&
+         pair_rows(B, A) < (1LL << 31);
+}
+
+template <typename K1, typename K2, typename Launch>
+cudaError_t run_stage(K1 small, K2 large, int F, size_t smem, Launch launch) {
+  const int threads = round_up(F, 32);
+  auto go = [&](auto kernel) {
+    cudaError_t e = set_smem(reinterpret_cast<const void*>(kernel), smem);
+    return e != cudaSuccess ? e : launch(kernel, threads);
+  };
+  return threads <= SMAXT ? go(small) : go(large);
+}
+
+size_t bwd_stage_smem(int F) { return sizeof(float) * 2 * (size_t)round_up(F, 32); }
 
 }  // namespace
 
 extern "C" {
 
-// Partials per molecule of the weight-gradient stage: the wrappers size the
-// [B * splits, K + 1, N] scratch by it.
-int schnet_gw_splits() { return GW_SPLITS; }
-
-// Dynamic shared memory per block of kernel `which` (0 E, 1 F, 2 G, 3 H) at
+// Dynamic shared memory per block of kernel `which` (0 E, 1 F's stage, 2 G, 3 H's stage) at
 // these sizes, as the launches ask for it; -1 for an unknown kernel.
 int schnet_smem_bytes(int which, int A, int R, int F) {
-  const Layout layouts[4] = {LAYOUT_E(), LAYOUT_F(), LAYOUT_G(), LAYOUT_H()};
-  if (which < 0 || which > 3) return -1;
-  return (int)smem_bytes(A, R, F, layouts[which]);
+  switch (which) {
+    case 0: return (int)smem_bytes(A, R, F, LANES_E);
+    case 1: return (int)bwd_stage_smem(F);
+    case 2: return (int)smem_bytes(A, R, F, LANES_G);
+    case 3: return 0;
+    default: return -1;
+  }
 }
 
 // Each returns a cudaError_t (0 = success), launches on `stream`, does not sync.
@@ -876,7 +801,7 @@ int schnet_fwd(const float* rbf, const float* envf, const float* xin, const floa
                const float* b1, const float* w2, const float* b2, float* msg, int B, int A, int R,
                int F, void* stream) {
   if (B == 0 || A == 0) return 0;
-  const size_t smem = smem_bytes(A, R, F, LAYOUT_E());
+  const size_t smem = smem_bytes(A, R, F, LANES_E);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(schnet_fwd_kernel), smem);
   if (err != cudaSuccess) return (int)err;
   schnet_fwd_kernel<<<B * A, NT, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -884,31 +809,57 @@ int schnet_fwd(const float* rbf, const float* envf, const float* xin, const floa
   return (int)cudaGetLastError();
 }
 
-// w2t [F,F] scratch always; h_buf, gz1_buf [B,A,A,F], part1 [B*splits,R+1,F],
-// part2 [B*splits,F+1,F], gw1b1 [R+1,F] (gW1 over gb1) and gw2b2 [F+1,F]
-// (gW2 over gb2) only when need_gw != 0.
+// float and int scratch of a call of kernel `which` (0 F: schnet_bwd, 1 H: schnet_dual_bwd) on
+// B molecules of A atoms with R radial values and F channels
+long long schnet_bwd_scratch_floats(int which, int B, int A, int R, int F) {
+  return scratch_floats(which, B, A, R, F);
+}
+
+long long schnet_bwd_scratch_ints(int B, int A) { return scratch_ints(B, A); }
+
+// Kernels F and H take R and F multiples of 4, F <= 1024 and 16-byte aligned pair tensors (else
+// cudaErrorInvalidValue); scratch and iscratch as schnet_bwd_scratch_floats / _ints size them;
+// gw [R + 1 + F + 1, F] (gW1, gb1, gW2, gb2) is written only when need_gw != 0.
+// Kernel F: gdist [B,A,A] must hold zeros (only live pairs are written).
 int schnet_bwd(const float* rbf, const float* rbfp, const float* envf, const float* envp,
                const float* xin, const float* w1, const float* b1, const float* w2,
-               const float* b2, const float* gmsg, float* gdist, float* gxin, float* w2t,
-               float* h_buf, float* gz1_buf, float* part1, float* part2, float* gw1b1,
-               float* gw2b2, int need_gw, int B, int A, int R, int F, void* stream) {
+               const float* b2, const float* gmsg, float* gdist, float* gxin, float* gw,
+               float* scratch, int* iscratch, int need_gw, int B, int A, int R, int F,
+               void* stream) {
+  if (!shapes_ok(B, A, R, F) || !aligned16(rbf) || !aligned16(rbfp))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_transpose(w2, w2t, F, s);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(A, R, F, LAYOUT_F());
-  err = set_smem(reinterpret_cast<const void*>(schnet_bwd_kernel), smem);
-  if (err != cudaSuccess) return (int)err;
-  schnet_bwd_kernel<<<B * A, NT, smem, s>>>(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, w2t,
-                                            gmsg, gdist, gxin, need_gw ? h_buf : nullptr,
-                                            need_gw ? gz1_buf : nullptr, A, R, F);
-  err = cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_F, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, envp, B, A, st);
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfp, w1, b1, R, F, false, st);
+  if (err == cudaSuccess) {  // wmr = h W2 + b2
+    NNProb p = prob({seg(wk.h, F, w2, F, F)}, F, EPI_GATES, wk.w, F);
+    p.bias = b2;
+    err = launch_products(wk.en, {p}, st, true);
+  }
+  if (err == cudaSuccess) {
+    const size_t smem = bwd_stage_smem(F);
+    err = run_stage(schnet_bwd_stage_kernel<SMAXT>, schnet_bwd_stage_kernel<1024>, F, smem,
+                    [&](auto kernel, int threads) {
+                      kernel<<<B * A, threads, smem, st>>>(wk.w, wk.ge, wk.eidx, wk.rs, wk.row,
+                                                           envf, xin, gmsg, gxin, A, F);
+                      return cudaGetLastError();
+                    });
+  }
+  if (err == cudaSuccess) {  // gz1 = (gwmr W2^T) s, over s
+    const NNProb p = gated(prob({seg(wk.w, F, w2, F, F, true)}, F, EPI_GATED, nullptr, 0, wk.z,
+                                F), wk.z, F);
+    err = launch_products(wk.en, {p}, st, true);
+  }
+  if (err == cudaSuccess) {
+    schnet_gdist_kernel<<<row_blocks(pair_rows(B, A) * 32), 256, 0, st>>>(
+        wk.z, wk.z2, wk.ge, wk.row, wk.n_rows, envp, gdist, F);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || !need_gw) return (int)err;
-  err = launch_gw<7, 0>(rbf, nullptr, R, gz1_buf, nullptr, nullptr, nullptr, nullptr, nullptr,
-                        nullptr, nullptr, part1, gw1b1, B, A, F, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_gw<9, 1>(h_buf, nullptr, F, nullptr, nullptr, gmsg, nullptr, xin, nullptr,
-                              envf, nullptr, part2, gw2b2, B, A, F, s);
+  err = launch_wgrads(wk.en, wgrad_launches(KIND_F, wk, rbf, nullptr, gw, R, F)[0], st);
+  return (int)(err != cudaSuccess ? err : bias_sums(wk, wk.z, wk.w, gw, R, F, st));
 }
 
 int schnet_dual_fwd(const float* rbf, const float* rbfd, const float* envf, const float* envfd,
@@ -916,7 +867,7 @@ int schnet_dual_fwd(const float* rbf, const float* rbfd, const float* envf, cons
                     const float* w2, const float* b2, float* msg, float* msgd, int B, int A, int R,
                     int F, void* stream) {
   if (B == 0 || A == 0) return 0;
-  const size_t smem = smem_bytes(A, R, F, LAYOUT_G());
+  const size_t smem = smem_bytes(A, R, F, LANES_G);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(schnet_dual_fwd_kernel), smem);
   if (err != cudaSuccess) return (int)err;
   schnet_dual_fwd_kernel<<<B * A, NT, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -924,34 +875,52 @@ int schnet_dual_fwd(const float* rbf, const float* rbfd, const float* envf, cons
   return (int)cudaGetLastError();
 }
 
-// the scratch and weight-gradient outputs as in schnet_bwd, with hd_buf and
-// gz1d_buf besides; all used only when need_gw != 0
+// Kernel H: as schnet_bwd (its live pairs are those of envf or envfd).
 int schnet_dual_bwd(const float* rbf, const float* rbfd, const float* envf, const float* envfd,
                     const float* xin, const float* xind, const float* w1, const float* b1,
                     const float* w2, const float* b2, const float* gmsg, const float* gmsgd,
-                    float* gxin, float* gxind, float* w2t, float* h_buf, float* hd_buf,
-                    float* gz1_buf, float* gz1d_buf, float* part1, float* part2, float* gw1b1,
-                    float* gw2b2, int need_gw, int B, int A, int R, int F, void* stream) {
+                    float* gxin, float* gxind, float* gw, float* scratch, int* iscratch,
+                    int need_gw, int B, int A, int R, int F, void* stream) {
+  if (!shapes_ok(B, A, R, F) || !aligned16(rbf) || !aligned16(rbfd))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (need_gw) {
-    err = launch_transpose(w2, w2t, F, s);
-    if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_H, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, envfd, B, A, st);
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, R, F, true, st);
+  if (err == cudaSuccess) {  // wmr = h W2 + b2, wmrd = hd W2
+    NNProb p1 = prob({seg(wk.h, F, w2, F, F)}, F, EPI_GATES, wk.w, F);
+    p1.bias = b2;
+    const NNProb p2 = prob({seg(wk.z2, F, w2, F, F)}, F, EPI_STORE, wk.w2, F);
+    err = launch_products(wk.en, {p1, p2}, st, true);
   }
-  const size_t smem = smem_bytes(A, R, F, LAYOUT_H());
-  err = set_smem(reinterpret_cast<const void*>(schnet_dual_bwd_kernel), smem);
-  if (err != cudaSuccess) return (int)err;
-  schnet_dual_bwd_kernel<<<B * A, NT, smem, s>>>(
-      rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, w2t, gmsg, gmsgd, gxin, gxind,
-      need_gw ? h_buf : nullptr, hd_buf, gz1_buf, gz1d_buf, A, R, F);
-  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    err = run_stage(schnet_dual_bwd_stage_kernel<SMAXT>, schnet_dual_bwd_stage_kernel<1024>, F,
+                    0, [&](auto kernel, int threads) {
+                      kernel<<<B * A, threads, 0, st>>>(wk.w, wk.w2, wk.eidx, wk.rs, wk.row,
+                                                        envf, envfd, xin, xind, gmsg, gmsgd,
+                                                        gxin, gxind, need_gw, A, F);
+                      return cudaGetLastError();
+                    });
+  }
   if (err != cudaSuccess || !need_gw) return (int)err;
-  err = launch_gw<7, 0>(rbf, rbfd, R, gz1_buf, gz1d_buf, nullptr, nullptr, nullptr, nullptr,
-                        nullptr, nullptr, part1, gw1b1, B, A, F, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_gw<9, 2>(h_buf, hd_buf, F, nullptr, nullptr, gmsg, gmsgd, xin, xind, envf,
-                              envfd, part2, gw2b2, B, A, F, s);
+  const auto launches = wgrad_launches(KIND_H, wk, rbf, rbfd, gw, R, F);
+  err = launch_wgrads(wk.en, launches[0], st);  // gW2: h, hd, cot(wmr), cot(wmrd)
+  if (err == cudaSuccess) err = bias_sums(wk, nullptr, wk.w, gw, R, F, st);  // gb2
+  // gh over h (read by gW2 only), then ghd over cot(wmr) (read by gh only)
+  if (err == cudaSuccess)
+    err = launch_products(wk.en, {prob({seg(wk.w, F, w2, F, F, true)}, F, EPI_STORE, wk.h, F)},
+                          st, true);
+  if (err == cudaSuccess)
+    err = launch_products(wk.en, {prob({seg(wk.w2, F, w2, F, F, true)}, F, EPI_STORE, wk.w, F)},
+                          st, true);
+  if (err == cudaSuccess) {
+    schnet_dual_gz1_kernel<<<row_blocks(pair_rows(B, A) * F), 256, 0, st>>>(
+        wk.z, wk.z2, wk.h, wk.w, wk.n_rows, F);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = launch_wgrads(wk.en, launches[1], st);  // gW1: gz1, gz1d
+  return (int)(err != cudaSuccess ? err : bias_sums(wk, wk.h, nullptr, gw, R, F, st));  // gb1
 }
 
 }  // extern "C"

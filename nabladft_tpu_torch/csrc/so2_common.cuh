@@ -1,7 +1,7 @@
 // Device code shared by the SO(2) message kernels (csrc/escn_layer.cu, kernels M and N;
 // csrc/eqv2_attn.cu, kernels O and P), QHNet's gate products (csrc/qhnet_tp.cu, I-L) and
-// PaiNN's backward radial products (csrc/painn_fused.cu, B and D): each source includes it and
-// builds its own copy.
+// PaiNN's and SchNet's backward products (csrc/painn_fused.cu, B and D; csrc/schnet_fused.cu,
+// F and H): each source includes it and builds its own copy.
 //
 // The product engine: every SO(2) product of M-P, on Hopper's tensor cores.
 //   * so2_mma_kernel: a grouped product over a list of rows (the live pairs or edges of a
@@ -16,7 +16,8 @@
 //   * so2_prep_kernel: each weight segment of a launch as K-major TF32 halves (hi, lo);
 // and, beside the engine, live_rows (the live rows from 0/1 flags, in slot order, with the
 // first row of each segment of slots: a count, a one-block scan of the counts and a list by
-// ballot), the m-major row tables of the truncated SO(3) stacks
+// ballot) and the pair rows of slots listed by sender, the warp sums of the per-sender
+// stages, the m-major row tables of the truncated SO(3) stacks
 // (compile-time in L, M), the staging of the truncated S2 grid's tables in shared memory,
 // and silu on that grid (one channel's stack in registers) with its transpose.
 //
@@ -858,6 +859,48 @@ cudaError_t live_rows(const int* flags, int* eidx, int* pos, int* rs, int* n_row
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   so2_list_kernel<<<blocks, LIST_WARPS * 32, 0, st>>>(flags, rs, eidx, pos, nseg, seg);
   return cudaGetLastError();
+}
+
+// row[e] = the pair row (b*A + i)*A + j of the e-th live slot eidx[e] = (b*A + j)*A + i, when
+// the slots are listed a segment a sender (PaiNN's B and D, SchNet's F and H): for the gathers
+// of the products (e below the live count)
+__global__ void so2_pair_rows_kernel(const int* __restrict__ eidx, const int* __restrict__ n_rows,
+                                     int* __restrict__ row, int A) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= *n_rows) return;
+  const int p = eidx[e], bj = p / A, i = p - bj * A, b = bj / A, j = bj - b * A;
+  row[e] = (b * A + i) * A + j;
+}
+
+// ---------------------------------------------------------------------------
+// per-sender stages (B, D, F, H): the warp's sums of several per-pair values
+// ---------------------------------------------------------------------------
+
+// One step of warp_sums: a lane keeps half of its first 2 O values, adds its partner's copy
+// of that half and sends the other half; then the next step on the kept half. One instance a
+// step, so that every loop bound is a constant and the values stay in registers.
+template <int O, int N>
+__device__ __forceinline__ void fold_half(float (&val)[N], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int q = 0; q < O; ++q) {
+    const float send = up ? val[q] : val[q + O];
+    const float keep = up ? val[q + O] : val[q];
+    val[q] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) fold_half<O / 2>(val, lane);
+}
+
+// The warp's sums of N values a lane (N a power of two, 2 to 32) in N - 1 shuffles, then one
+// for each halving of 32 / N: lane l returns the warp's sum of value l % N, in a fixed order.
+template <int N>
+__device__ __forceinline__ float warp_sums(float (&val)[N], int lane) {
+  static_assert(N >= 2 && N <= 32 && (N & (N - 1)) == 0, "a power of two, 2 to 32");
+  fold_half<N / 2>(val, lane);
+  float s = val[0];
+#pragma unroll
+  for (int o = N; o < 32; o *= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
 // ---------------------------------------------------------------------------

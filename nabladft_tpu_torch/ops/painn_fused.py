@@ -637,6 +637,21 @@ def painn_dual_bwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int,
     return flops, nbytes
 
 
+def fwd_work(kind: str, rbf: torch.Tensor, rbf2: torch.Tensor, f: int) -> Dict[str, int]:
+    """The work of kernel A (`kind` "A"; rbf2 unused) or C ("C", rbf2 = rbfd)
+    on these inputs, as `bwd_work` gives it: the radial products (which A and
+    C run on the CUDA cores) split from the rest."""
+    b, a, _, r = rbf.shape
+    if kind == "A":
+        live, (flops, nbytes) = _live_pairs(rbf), painn_fwd_flops_bytes(rbf, f)
+    else:
+        live, (flops, nbytes) = _live_pairs(rbf, rbf2), painn_dual_fwd_flops_bytes(rbf, rbf2, f)
+    prod, other = flops_split("fwd" if kind == "A" else "dual_fwd", r, f)
+    return {"flops_live": flops, "flops_live_products": prod * live,
+            "flops_live_other": other * live, "bytes": nbytes, "live_pairs": live,
+            "pairs": b * a * a}
+
+
 def bwd_work(kind: str, rbf: torch.Tensor, rbf2: torch.Tensor, f: int,
              need_gw: bool = True) -> Dict[str, int]:
     """The work of kernel B (`kind` "B", rbf2 = rbfp) or D ("D", rbf2 = rbfd)

@@ -158,9 +158,17 @@ class ExpBernsteinRBF(nn.Module):
 
 def bessel_rbf_jvp(d: torch.Tensor, td: torch.Tensor, num_basis: int,
                    cutoff: float) -> torch.Tensor:
+    """The tangent of `bessel_rbf` in `jax.jvp`'s order: the sine's argument
+    as the basis forms it (n·π·d / rc), the chain through sin and norm, then
+    the quotient rule as `lax.div`'s jvp applies it, t_num / d − (t_d · num)
+    · (1 / (d · d))."""
     n = torch.arange(1, num_basis + 1, dtype=d.dtype, device=d.device)
-    d_safe = torch.where(d > 1e-8, d, torch.ones_like(d))[..., None]
-    k = n * math.pi / cutoff
+    live = d > 1e-8
+    d_safe = torch.where(live, d, torch.ones_like(d))[..., None]
+    td_safe = torch.where(live, td, torch.zeros_like(td))[..., None]
     norm = math.sqrt(2.0 / cutoff)
-    t = norm * (k * torch.cos(k * d_safe) / d_safe - torch.sin(k * d_safe) / (d_safe * d_safe))
-    return torch.where((d > 1e-8)[..., None], t * td[..., None], torch.zeros_like(t))
+    arg = n * math.pi * d_safe / cutoff
+    num = norm * torch.sin(arg)
+    t_num = norm * (n * math.pi * td_safe / cutoff * torch.cos(arg))
+    t = t_num / d_safe + (-td_safe * num) * (1.0 / (d_safe * d_safe))
+    return torch.where(live[..., None], t, torch.zeros_like(t))

@@ -34,6 +34,12 @@ Each kernel has its plain PyTorch version here with the same signature
 `schnet_dual_fwd_reference`, `schnet_dual_bwd_reference`). A wrapper takes
 the plain version only for CPU tensors; a CUDA tensor launches the kernel
 (sources in ``csrc/schnet_fused.cu``) or raises.
+
+F and H run their filter-MLP products on the tensor cores (the SO(2) product
+engine of ``csrc/so2_common.cuh``) over the live pairs only (an envelope
+lane not zero), listed in sender order, around a per-sender stage on the
+CUDA cores; `schnet_bwd_staged` and `schnet_dual_bwd_staged` are that
+decomposition in plain torch (for the tests).
 """
 
 from __future__ import annotations
@@ -54,8 +60,6 @@ LAUNCHES: Dict[str, int] = {"schnet_fwd": 0, "schnet_bwd": 0, "schnet_bwd_gw": 0
                             "schnet_dual_fwd": 0, "schnet_dual_bwd": 0}
 
 _LOG2 = math.log(2.0)
-# weight-gradient partials per molecule (GW_SPLITS in csrc/schnet_fused.cu)
-GW_SPLITS = 4
 
 
 def reset_launches() -> None:
@@ -63,34 +67,42 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+# FLOPs per channel and live pair of each kernel body, counted from the CUDA
+# code (an FMA is 2, any other add, multiply, max, divide, exp or log1p 1), as
+# (the R-long products' factor, the F-long products' factor, the rest): the
+# products are the filter MLP's (and the weight gradients'), which F and H
+# run on the tensor cores; the rest is the per-pair arithmetic of the stages
+# (and of E and G, which run both on the CUDA cores). Per channel:
+#   fwd    — z1 = rbf @ W1 (2R), + b1 (1), ssp (5); wmr = h @ W2 (2F), + b2,
+#            ⊙ envf, the FMA into msg (4);
+#   bwd    — z1 and rbfp @ W1 (4R), + b1, ssp and sigmoid (7), s ⊙ rpw (1);
+#            gwmr (2); wmr (2F + 1), gxin (3), g_env (2 + its channel sum 1);
+#            gh = gwmr @ W2ᵀ (2F), ⊙ (s ⊙ rpw) and the channel sum (2);
+#   bwd_gw — gz1 = gh ⊙ s (1); gW1 and gb1 (2R + 2); gwmr again (2), gW2 and
+#            gb2 (2F + 2);
+#   dual_fwd — z1, z1d (4R), + b1, ssp and sigmoid (7), hd (1); wmr, wmrd
+#            (4F), + b2, wm, wmd, msg, msgd (11);
+#   dual_bwd — z1, z1d (4R), + b1, ssp, sigmoid, hd (9); wmr, wmrd (4F) and
+#            the gxin / gxind terms (11);
+#   dual_bwd_gw — cot(wmr), cot(wmrd) (8); gh, ghd (4F), gz1, gz1d (7); gW1
+#            and gb1 over both lanes (4R + 2); the cotangents again (8), gW2
+#            and gb2 over both lanes (4F + 2).
+_FLOPS = {"fwd": (2, 2, 10), "bwd": (4, 4, 20), "bwd_gw": (2, 2, 7),
+          "dual_fwd": (4, 4, 20), "dual_bwd": (4, 4, 20), "dual_bwd_gw": (4, 8, 27)}
+
+
+def flops_split(kind: str, r: int, f: int) -> Tuple[int, int]:
+    """FLOPs per live pair of `kind` (see `_FLOPS`) as (the filter-MLP
+    products, the rest)."""
+    cr, cf, rest = _FLOPS[kind]
+    return (cr * r + cf * f) * f, rest * f
+
+
 def pair_flops(kind: str, r: int, f: int) -> int:
-    """FLOPs per live pair (a pair whose envelope lanes are not all zero),
-    counted from the CUDA kernel bodies: an FMA is 2, any other add,
-    multiply, max, divide, exp or log1p 1. Per channel:
-
-      fwd    — z1 = rbf @ W1 (2R), + b1 (1), ssp (5); wmr = h @ W2 (2F), + b2,
-               ⊙ envf, the FMA into msg (4): 2R + 2F + 10;
-      bwd    — z1 and rbfp @ W1 (4R), + b1, ssp and sigmoid (7), s ⊙ rpw (1);
-               gwmr (2); wmr (2F + 1), gxin (3), g_env (2 + its channel sum
-               1); gh = gwmr @ W2ᵀ (2F), ⊙ (s ⊙ rpw) and the channel sum (2):
-               4R + 4F + 20;
-      bwd_gw — gz1 = gh ⊙ s (1); gW1 and gb1 (2R + 2); gwmr again (2), gW2
-               and gb2 (2F + 2): 2R + 2F + 7;
-      dual_fwd — z1, z1d (4R), + b1, ssp and sigmoid (7), hd (1); wmr, wmrd
-               (4F), + b2, wm, wmd, msg, msgd (11): 4R + 4F + 20;
-      dual_bwd — z1, z1d (4R), + b1, ssp, sigmoid, hd (9); wmr, wmrd (4F) and
-               the gxin / gxind terms (11): 4R + 4F + 20;
-      dual_bwd_gw — cot(wmr), cot(wmrd) (8); gh, ghd (4F), gz1, gz1d (7);
-               gW1 and gb1 over both lanes (4R + 2); the cotangents again
-               (8), gW2 and gb2 (4F + 2): 4R + 8F + 27.
-
-    The fixed-order sum of the weight-gradient partials is counted apart
-    (`*_flops_bytes`). The JAX package's analytic model (`kernel_flops`)
-    counts 2R + 2F + 6 per channel for fwd.
-    """
-    return {"fwd": 2 * r + 2 * f + 10, "bwd": 4 * r + 4 * f + 20, "bwd_gw": 2 * r + 2 * f + 7,
-            "dual_fwd": 4 * r + 4 * f + 20, "dual_bwd": 4 * r + 4 * f + 20,
-            "dual_bwd_gw": 4 * r + 8 * f + 27}[kind] * f
+    """FLOPs per live pair (a pair whose envelope lanes are not all zero):
+    `flops_split`'s two parts. The JAX package's analytic model
+    (`kernel_flops`) counts 2R + 2F + 6 per channel for fwd."""
+    return sum(flops_split(kind, r, f))
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +207,103 @@ def schnet_dual_bwd_reference(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2,
             cot_wmr.sum(dim=(0, 1, 2))[None])
 
 
+def schnet_live_pairs(envf, env2):
+    """Kernels F's and H's live-pair list: the slots (b, j, i) whose envf[b,i,j]
+    or env2[b,i,j] (envp in F, envfd in H) is not zero, in sender order.
+    Returns (slots, rows, starts): `rows` the pair rows (b·A + i)·A + j of the
+    slots, `starts[b·A + j]` the first list index of sender j (`starts[B·A]`
+    the count)."""
+    b, a = envf.shape[:2]
+    live = (envf != 0) | (env2 != 0)  # [B, A(i), A(j)]
+    slots = live.transpose(1, 2).reshape(-1).nonzero().squeeze(1)
+    bj, i = slots // a, slots % a
+    rows = (bj // a * a + i) * a + bj % a
+    counts = torch.bincount(bj, minlength=b * a)
+    starts = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return slots, rows, starts
+
+
+def _staged_pairs(envf, env2, b, a):
+    """(rows, sender b·A + j, receiver b·A + i) of each live pair, in the
+    card's order."""
+    slots, rows, _ = schnet_live_pairs(envf, env2)
+    sender = slots // a
+    return rows, sender, sender // a * a + slots % a
+
+
+def _node_sums(x, sender, n):
+    return x.new_zeros(n, x.shape[1]).index_add_(0, sender, x)
+
+
+def schnet_bwd_staged(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, need_gw: bool = True):
+    """Kernel F's stages in the card's order, on plain tensors: the live
+    pairs in sender order (`schnet_live_pairs` of envf, envp); z1 = rbf @ W1
+    + b1 and rpw = rbfp @ W1 over them, s and h = ssp(z1), wmr = h @ W2 + b2
+    (the products and the ssp step); the per-sender stage: gxin, g_env and
+    gwmr = gmsg_i xin_j envf; gz1 = (gwmr @ W2ᵀ) ⊙ s; g_dist = Σ_f gz1 rpw +
+    g_env envp in the live slots (zeros in the dead ones); then gW1 | gb1 =
+    rbf_liveᵀ gz1 and gW2 | gb2 = hᵀ gwmr. Returns
+    schnet_message_bwd_reference's tuple."""
+    b, a, _, r = rbf.shape
+    f = w1.shape[1]
+    rows, sender, recv = _staged_pairs(envf, envp, b, a)
+    rbf_l = rbf.reshape(-1, r)[rows]
+    z1 = rbf_l @ w1 + b1[0]
+    rpw = rbfp.reshape(-1, r)[rows] @ w1
+    s, h = torch.sigmoid(z1), _ssp(z1)
+    wmr = h @ w2 + b2[0]
+
+    # the stage: per live pair, the receiver's gmsg and the sender's xin
+    ef = envf.reshape(-1)[rows][:, None]
+    gm, xj = gmsg.reshape(b * a, f)[recv], xin.reshape(b * a, f)[sender]
+    gwm = gm * xj
+    g_env = (gwm * wmr).sum(-1)
+    gxin = _node_sums(wmr * ef * gm, sender, b * a)
+    gwmr = gwm * ef
+    gz1 = (gwmr @ w2.T) * s
+    g_dist = rbf.new_zeros(b * a * a)
+    g_dist[rows] = (gz1 * rpw).sum(-1) + g_env * envp.reshape(-1)[rows]
+    out = (g_dist.reshape(b, a, a), gxin.reshape(b, a, f))
+    if not need_gw:
+        return out + (None,) * 4
+    return out + (rbf_l.T @ gz1, gz1.sum(0)[None], h.T @ gwmr, gwmr.sum(0)[None])
+
+
+def schnet_dual_bwd_staged(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gmsgd,
+                           need_gw: bool = True):
+    """Kernel H's stages in the card's order, on plain tensors: the live
+    pairs in sender order (envf or envfd not zero); z1 = rbf @ W1 + b1 and
+    z1d = rbfd @ W1 over them, s, h and hd = s z1d, wmr = h @ W2 + b2 and
+    wmrd = hd @ W2; the per-sender stage: gxin, gxind and the cotangents of
+    wmr and wmrd; gW2 | gb2 = hᵀ cot(wmr) + hdᵀ cot(wmrd); gh and ghd (the
+    cotangents @ W2ᵀ), gz1 = gh s + ghd (1 - s) hd and gz1d = ghd s; then
+    gW1 | gb1 = rbf_liveᵀ gz1 + rbfd_liveᵀ gz1d. Returns
+    schnet_dual_bwd_reference's tuple."""
+    b, a, _, r = rbf.shape
+    f = w1.shape[1]
+    rows, sender, recv = _staged_pairs(envf, envfd, b, a)
+    rbf_l, rbfd_l = rbf.reshape(-1, r)[rows], rbfd.reshape(-1, r)[rows]
+    z1 = rbf_l @ w1 + b1[0]
+    s, h = torch.sigmoid(z1), _ssp(z1)
+    hd = s * (rbfd_l @ w1)
+    wmr, wmrd = h @ w2 + b2[0], hd @ w2
+
+    e, ed = envf.reshape(-1)[rows][:, None], envfd.reshape(-1)[rows][:, None]
+    gm, gmd = gmsg.reshape(b * a, f)[recv], gmsgd.reshape(b * a, f)[recv]
+    wm, wmd = wmr * e, wmrd * e + wmr * ed
+    gxin = _node_sums(wm * gm + wmd * gmd, sender, b * a).reshape(b, a, f)
+    gxind = _node_sums(wm * gmd, sender, b * a).reshape(b, a, f)
+    if not need_gw:
+        return (gxin, gxind) + (None,) * 4
+    xj, xdj = xin.reshape(b * a, f)[sender], xind.reshape(b * a, f)[sender]
+    gwm, gwmd = gm * xj + gmd * xdj, gmd * xj
+    cot, cotd = gwm * e + gwmd * ed, gwmd * e
+    gh, ghd = cot @ w2.T, cotd @ w2.T
+    gz1, gz1d = gh * s + ghd * ((1.0 - s) * hd), ghd * s
+    return (gxin, gxind, rbf_l.T @ gz1 + rbfd_l.T @ gz1d, gz1.sum(0)[None],
+            h.T @ cot + hd.T @ cotd, cot.sum(0)[None])
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -204,26 +313,27 @@ def schnet_dual_bwd_reference(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2,
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load("schnet_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.schnet_gw_splits.argtypes = []
-    lib.schnet_gw_splits.restype = i
     lib.schnet_smem_bytes.argtypes = [i] * 4
     lib.schnet_smem_bytes.restype = i
+    lib.schnet_bwd_scratch_floats.argtypes = [i] * 5
+    lib.schnet_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.schnet_bwd_scratch_ints.argtypes = [i] * 2
+    lib.schnet_bwd_scratch_ints.restype = ctypes.c_longlong
     lib.schnet_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
     lib.schnet_fwd.restype = i
-    lib.schnet_bwd.argtypes = [p] * 19 + [i] * 5 + [p]
+    lib.schnet_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
     lib.schnet_bwd.restype = i
     lib.schnet_dual_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
     lib.schnet_dual_fwd.restype = i
-    lib.schnet_dual_bwd.argtypes = [p] * 23 + [i] * 5 + [p]
+    lib.schnet_dual_bwd.argtypes = [p] * 17 + [i] * 5 + [p]
     lib.schnet_dual_bwd.restype = i
-    if lib.schnet_gw_splits() != GW_SPLITS:
-        raise RuntimeError("csrc/schnet_fused.cu and ops/schnet_fused.py disagree on GW_SPLITS")
     return lib
 
 
 def smem_bytes(kernel: str, a: int, r: int, f: int) -> int:
-    """Dynamic shared memory per block that kernel "E", "F", "G" or "H"
-    asks for at A=a atoms, R=r, F=f (from the library's own layout)."""
+    """Dynamic shared memory per block that kernel "E", "F" (its stage), "G"
+    or "H" (its stage) asks for at A=a atoms, R=r, F=f (from the library's
+    own layout)."""
     return _lib().schnet_smem_bytes("EFGH".index(kernel), a, r, f)
 
 
@@ -249,26 +359,44 @@ def _launch(name: str, *args) -> None:
     _kernels.raise_on_error(err, f"{name} launch")
 
 
-class _Scratch:
-    """The backward kernels' buffers: W2ᵀ [F,F]; with the weight gradient,
-    `n_pair` per-pair buffers [B,A,A,F], the partials and the outputs
-    [R+1,F] / [F+1,F] whose last rows are the biases (else None)."""
+def _engine_operands(args: Dict[str, torch.Tensor], r: int, f: int):
+    """F's and H's inputs as their kernels take them: R and F rounded up to
+    multiples of 4 with zeros (the pair tensors' basis axis, the node
+    tensors' channels, the weights and biases); a copy only off those
+    multiples (schnet.yaml's R = 100, F = 128 need none). Returns (args, R4,
+    F4)."""
+    r4, f4 = -(-r // 4) * 4, -(-f // 4) * 4
+    pad = torch.nn.functional.pad
+    out = {}
+    for k, t in args.items():
+        if k in ("rbf", "rbfp", "rbfd"):
+            t = pad(t, (0, r4 - r)) if r4 != r else t
+        elif k == "w1":
+            t = pad(t, (0, f4 - f, 0, r4 - r)) if (r4, f4) != (r, f) else t
+        elif k == "w2":
+            t = pad(t, (0, f4 - f, 0, f4 - f)) if f4 != f else t
+        elif k not in ("envf", "envp", "envfd"):
+            t = pad(t, (0, f4 - f)) if f4 != f else t
+        out[k] = t
+    return out, r4, f4
 
-    def __init__(self, dev, b, a, r, f, n_pair):
-        empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-        self.w2t = empty(f, f)
-        self.pair = [empty(b, a, a, f) for _ in range(n_pair)] or [None] * 4
-        gw = n_pair > 0
-        self.part1 = empty(b * GW_SPLITS, r + 1, f) if gw else None
-        self.part2 = empty(b * GW_SPLITS, f + 1, f) if gw else None
-        self.gw1b1 = empty(r + 1, f) if gw else None
-        self.gw2b2 = empty(f + 1, f) if gw else None
 
-    def args(self, n_pair):
-        return (self.w2t, *self.pair[:n_pair], self.part1, self.part2, self.gw1b1, self.gw2b2)
+def _bwd_buffers(kind, dev, b, a, r4, f4, need_gw):
+    """(gW1 | gb1 | gW2 | gb2 [R4 + 1 + F4 + 1, F4] or None, float scratch,
+    int scratch) of an F ("F") or H ("H") launch."""
+    lib = _lib()
+    gw = (torch.empty((r4 + f4 + 2, f4), dtype=torch.float32, device=dev) if need_gw
+          else None)
+    return (gw, torch.empty(lib.schnet_bwd_scratch_floats("FH".index(kind), b, a, r4, f4),
+                            dtype=torch.float32, device=dev),
+            torch.empty(lib.schnet_bwd_scratch_ints(b, a), dtype=torch.int32, device=dev))
 
-    def grads(self, r, f):
-        return self.gw1b1[:r], self.gw1b1[r:], self.gw2b2[:f], self.gw2b2[f:]
+
+def _grads(gw, r, f, r4, f4):
+    """(gw1, gb1, gw2, gb2) from an F or H launch's gW buffer."""
+    parts = (gw[:r, :f], gw[r4:r4 + 1, :f], gw[r4 + 1:r4 + 1 + f, :f],
+             gw[r4 + 1 + f4:, :f])
+    return tuple(t if f4 == f else t.contiguous() for t in parts)
 
 
 def schnet_fwd(rbf, envf, xin, w1, b1, w2, b2) -> torch.Tensor:
@@ -293,15 +421,19 @@ def schnet_bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, need_gw: bool =
     dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_message_bwd_reference(*args.values(), need_gw=need_gw)
-    g_dist = torch.empty((b, a, a), dtype=torch.float32, device=dev)
-    gxin = torch.empty((b, a, f), dtype=torch.float32, device=dev)
-    sc = _Scratch(dev, b, a, r, f, 2 if need_gw else 0)
-    _launch("schnet_bwd", *args.values(), g_dist, gxin, *sc.args(2), int(need_gw), b, a, r, f)
+    args, r4, f4 = _engine_operands(args, r, f)
+    g_dist = torch.zeros((b, a, a), dtype=torch.float32, device=dev)  # the dead slots' zeros
+    gxin = torch.empty((b, a, f4), dtype=torch.float32, device=dev)
+    gw, scratch, iscratch = _bwd_buffers("F", dev, b, a, r4, f4, need_gw)
+    _launch("schnet_bwd", *args.values(), g_dist, gxin, gw, scratch, iscratch, int(need_gw),
+            b, a, r4, f4)
     LAUNCHES["schnet_bwd"] += 1
     LAUNCHES["schnet_bwd_gw"] += int(need_gw)
+    if f4 != f:
+        gxin = gxin[..., :f].contiguous()
     if not need_gw:
         return g_dist, gxin, None, None, None, None
-    return (g_dist, gxin, *sc.grads(r, f))
+    return (g_dist, gxin, *_grads(gw, r, f, r4, f4))
 
 
 def schnet_dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
@@ -329,15 +461,18 @@ def schnet_dual_bwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gms
     dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_dual_bwd_reference(*args.values(), need_gw=need_gw)
-    gxin = torch.empty((b, a, f), dtype=torch.float32, device=dev)
+    args, r4, f4 = _engine_operands(args, r, f)
+    gxin = torch.empty((b, a, f4), dtype=torch.float32, device=dev)
     gxind = torch.empty_like(gxin)
-    sc = _Scratch(dev, b, a, r, f, 4 if need_gw else 0)
-    _launch("schnet_dual_bwd", *args.values(), gxin, gxind, *sc.args(4), int(need_gw), b, a, r,
-            f)
+    gw, scratch, iscratch = _bwd_buffers("H", dev, b, a, r4, f4, need_gw)
+    _launch("schnet_dual_bwd", *args.values(), gxin, gxind, gw, scratch, iscratch,
+            int(need_gw), b, a, r4, f4)
     LAUNCHES["schnet_dual_bwd"] += 1
+    if f4 != f:
+        gxin, gxind = gxin[..., :f].contiguous(), gxind[..., :f].contiguous()
     if not need_gw:
         return gxin, gxind, None, None, None, None
-    return (gxin, gxind, *sc.grads(r, f))
+    return (gxin, gxind, *_grads(gw, r, f, r4, f4))
 
 
 class SchNetMessageFn(torch.autograd.Function):
@@ -413,11 +548,6 @@ def _weight_bytes(r: int, f: int) -> int:
     return r * f + f + f * f + f
 
 
-def _gw_reduce_flops(b: int, r: int, f: int) -> int:
-    """The fixed-order sums of the weight-gradient partials."""
-    return (b * GW_SPLITS - 1) * ((r + 1) * f + (f + 1) * f)
-
-
 def schnet_fwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, f: int) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel E needs on these inputs: FLOPs over the pairs
     whose envf is nonzero (no other pair adds to msg), bytes with each input
@@ -431,13 +561,12 @@ def schnet_fwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, f: int) -> Tup
 def schnet_bwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envp: torch.Tensor, f: int,
                            need_gw: bool = True) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel F needs (see schnet_fwd_flops_bytes; live pairs
-    are those with envf or envp nonzero); with gW, also the weight gradient
-    and the fixed-order sum of its partials."""
+    are those with envf or envp nonzero); with gW, also the weight gradient."""
     b, a, _, r = rbf.shape
     live = _live(envf, envp)
     flops = pair_flops("bwd", r, f) * live
     if need_gw:
-        flops += pair_flops("bwd_gw", r, f) * live + _gw_reduce_flops(b, r, f)
+        flops += pair_flops("bwd_gw", r, f) * live
     nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
                   + envf.numel() + b * a * f                  # g_dist, gxin
                   + (_weight_bytes(r, f) if need_gw else 0))
@@ -459,13 +588,54 @@ def schnet_dual_fwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envfd: to
 def schnet_dual_bwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envfd: torch.Tensor,
                                 f: int, need_gw: bool = True) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel H needs (see schnet_dual_fwd_flops_bytes); with
-    gW, also the weight gradient and the fixed-order sum of its partials."""
+    gW, also the weight gradient."""
     b, a, _, r = rbf.shape
     live = _live(envf, envfd)
     flops = pair_flops("dual_bwd", r, f) * live
     if need_gw:
-        flops += pair_flops("dual_bwd_gw", r, f) * live + _gw_reduce_flops(b, r, f)
+        flops += pair_flops("dual_bwd_gw", r, f) * live
     nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
                   + 2 * b * a * f + 2 * b * a * f            # gmsg, gmsgd, gxin, gxind
                   + (_weight_bytes(r, f) if need_gw else 0))
     return flops, nbytes
+
+
+def _work(kinds, live: int, r: int, f: int, flops: int, nbytes: int, pairs: int) -> dict:
+    prod = other = 0
+    for k in kinds:
+        p, o = flops_split(k, r, f)
+        prod, other = prod + p * live, other + o * live
+    return {"flops_live": flops, "flops_live_products": prod, "flops_live_other": other,
+            "bytes": nbytes, "live_pairs": live, "pairs": pairs}
+
+
+def fwd_work(kind: str, rbf: torch.Tensor, envf: torch.Tensor, envfd: torch.Tensor,
+             f: int) -> Dict[str, int]:
+    """The work of kernel E (`kind` "E"; envfd unused) or G ("G") on these
+    inputs, as `bwd_work` gives it."""
+    b, a, _, r = rbf.shape
+    if kind == "E":
+        live, (flops, nbytes) = _live(envf), schnet_fwd_flops_bytes(rbf, envf, f)
+    else:
+        live = _live(envf, envfd)
+        flops, nbytes = schnet_dual_fwd_flops_bytes(rbf, envf, envfd, f)
+    return _work(("fwd",) if kind == "E" else ("dual_fwd",), live, r, f, flops, nbytes,
+                 b * a * a)
+
+
+def bwd_work(kind: str, rbf: torch.Tensor, envf: torch.Tensor, env2: torch.Tensor, f: int,
+             need_gw: bool = True) -> Dict[str, int]:
+    """The work of kernel F (`kind` "F", env2 = envp) or H ("H", env2 =
+    envfd) on these inputs, over the live pairs (envf or env2 not zero):
+    "flops_live" as schnet_bwd_flops_bytes / schnet_dual_bwd_flops_bytes
+    count it, "flops_live_products" / "flops_live_other" its split
+    (`flops_split`: the filter-MLP products, which F and H run on the tensor
+    cores, and the per-pair rest), "bytes" each input read once and each
+    output written once, and the live and all pairs."""
+    b, a, _, r = rbf.shape
+    kinds = {"F": ("bwd", "bwd_gw"), "H": ("dual_bwd", "dual_bwd_gw")}[kind]
+    if kind == "F":
+        flops, nbytes = schnet_bwd_flops_bytes(rbf, envf, env2, f, need_gw)
+    else:
+        flops, nbytes = schnet_dual_bwd_flops_bytes(rbf, envf, env2, f, need_gw)
+    return _work(kinds[: 1 + int(need_gw)], _live(envf, env2), r, f, flops, nbytes, b * a * a)

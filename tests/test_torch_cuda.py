@@ -501,13 +501,98 @@ def test_schnet_pallas_train_step_on_card_matches_plain_direct(card):
 
 @pytest.mark.cuda
 def test_schnet_shared_memory_fits_two_blocks_per_sm_at_a48(card):
-    """The launches' dynamic shared memory (one [A,R] rbf tile for E, two
-    for F, G, H, plus h tiles): at A=48 every kernel leaves room for two
-    blocks in the SM's 228 KB; at A=64, F, G and H fit one."""
+    """The launches' dynamic shared memory: E's one [A,R] rbf tile and h
+    tile, G's two of each; F's and H's per-sender stages need only F's pair
+    sums. At A=48 every kernel leaves room for two blocks in the SM's 228 KB;
+    at A=64 each fits one."""
     from nabladft_tpu_torch.ops import schnet_fused as sf
 
-    assert sf.smem_bytes("E", 64, 100, 128) == 4 * (64 * 100 + 64 * 128 + 4 * 64 + 768)
-    assert sf.smem_bytes("H", 64, 100, 128) == 4 * (2 * 64 * 128 + 2 * 64 * 128 + 4 * 64 + 768)
+    assert sf.smem_bytes("E", 64, 100, 128) == 4 * (64 * 100 + 64 * 128 + 4 * 64 + 256)
+    assert sf.smem_bytes("G", 64, 100, 128) == 4 * (2 * 64 * 100 + 2 * 64 * 128 + 4 * 64 + 256)
+    assert sf.smem_bytes("F", 64, 100, 128) == 4 * 2 * 128 and sf.smem_bytes("H", 64, 100, 128) == 0
     for k in "EFGH":
         assert 2 * sf.smem_bytes(k, 48, 100, 128) <= 228 * 1024
         assert sf.smem_bytes(k, 64, 100, 128) <= 227 * 1024
+
+
+def _schnet_bwd(sf, kernel, x, need_gw=True):
+    """Kernel F or H and its plain version on the inputs x."""
+    names, fn, ref = ((F_ARGS, sf.schnet_bwd, sf.schnet_message_bwd_reference) if kernel == "F"
+                      else (H_ARGS, sf.schnet_dual_bwd, sf.schnet_dual_bwd_reference))
+    args = [x[k] for k in names]
+    return fn(*args, need_gw=need_gw), ref(*args, need_gw=need_gw), args, fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["F", "H"])
+@pytest.mark.parametrize("need_gw", [True, False])
+def test_schnet_bwd_kernels_on_dead_molecules_and_edge_pairs(card, kernel, need_gw):
+    """A molecule with no live pair, a sender with no live receiver and a
+    pair live only through the second envelope lane (envp in F, envfd in H:
+    envf zero at the cutoff's edge), against the plain version; F's dead
+    slots hold exact zeros. Then a batch with no live pair at all."""
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    x = {k: v.clone() for k, v in _schnet_inputs((3, 20, 100, 128), card, seed=3).items()}
+    for k in ("envf", "envp", "envfd"):
+        x[k][1] = 0.0
+        x[k][0, :, 4] = 0.0
+    x["envf"][2, 1, 2] = 0.0  # the edge pair: envp and envfd stay
+    x["envp"][2, 1, 2] = x["envfd"][2, 1, 2] = -0.04
+    got, ref, _, _ = _schnet_bwd(sf, kernel, x, need_gw)
+    n = 6 if need_gw else 2
+    _assert_close(got[:n], ref[:n])
+    if kernel == "F":
+        assert (got[0][1] == 0).all() and (got[0][0, :, 4] == 0).all() and got[0][2, 1, 2] != 0
+    for k in ("envf", "envp", "envfd"):
+        x[k].zero_()
+    got, ref, _, _ = _schnet_bwd(sf, kernel, x, need_gw)
+    assert all(float(t.abs().max()) == 0 for t in got[:2])
+    _assert_close(got[:n], ref[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BUCKET_SHAPES)
+@pytest.mark.parametrize("kernel,need_gw", [("F", True), ("F", False), ("H", True)])
+def test_schnet_bwd_kernels_repeat_their_bits_at_every_bucket(card, shape, kernel, need_gw):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    got, ref, args, fn = _schnet_bwd(sf, kernel, _schnet_inputs(shape, card, seed=7), need_gw)
+    n = 6 if need_gw else 2
+    _assert_close(got[:n], ref[:n])
+    again = fn(*args, need_gw=need_gw)
+    assert all(torch.equal(p, q) for p, q in zip(got[:n], again[:n]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["F", "H"])
+def test_schnet_bwd_kernels_pad_r_and_f(card, kernel):
+    """R and F off multiples of 4: the wrapper pads them with zeros for the
+    engine, and the outputs keep the caller's shapes."""
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    got, ref, _, _ = _schnet_bwd(sf, kernel, _schnet_inputs((2, 9, 13, 30), card, seed=5))
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in ref]
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["F", "H"])
+def test_schnet_bwd_products_run_on_the_engine(card, kernel):
+    """F's and H's filter-MLP products and weight gradients run on the SO(2)
+    engine (so2_mma_kernel, so2_mmw_kernel) around their CUDA-core stages."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    x = _schnet_inputs(BUCKET_SHAPES[0], card)
+    _schnet_bwd(sf, kernel, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _schnet_bwd(sf, kernel, x)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    stage = "schnet_bwd_stage_kernel" if kernel == "F" else "schnet_dual_bwd_stage_kernel"
+    for want in ("so2_mma_kernel", "so2_mmw_kernel", "so2_list_kernel", stage):
+        assert any(want in n for n in names), (want, names)

@@ -6,9 +6,13 @@ kernel H (`schnet_dual_bwd_reference`) are held against the JAX Pallas op
 seeded numpy inputs (tangent lanes rbfd = rbfp ⊙ ṫ and envfd = envp ⊙ ṫ,
 zero on masked pairs, as the model builds them); `SchNetDualFn` is held
 against torch autograd through the plain forward, and the plain forward
-against torch's forward AD of kernel E's plain version. The CUDA kernels
-are held against the plain versions on the card in tests/test_torch_cuda.py.
-Tolerances: 2e-5 forward, 3e-4/3e-5 gradients.
+against torch's forward AD of kernel E's plain version. Kernel H's card
+decomposition (`schnet_dual_bwd_staged`) is held against the same JAX VJP,
+with and without gW, on inputs with a sender that has no live receiver, a
+padded molecule and a pair live only through envfd (at the cutoff's edge,
+where envf rounds to zero). The CUDA kernels are held against the plain
+versions on the card in tests/test_torch_cuda.py. Tolerances: 2e-5 forward,
+3e-4/3e-5 gradients.
 """
 
 import math
@@ -30,6 +34,9 @@ G_IN = ("rbf", "rbfd", "envf", "envfd", "xin", "xind", "w1", "b1", "w2", "b2")
 COTS = ("gmsg", "gmsgd")
 H_OUT = ("gxin", "gxind", "gw1", "gb1", "gw2", "gb2")
 MU = np.linspace(0.0, RC, R).astype(np.float32)
+# the data fixture's cases, as in tests/test_torch_schnet_fused.py (EDGE_PAIR:
+# envf 0, envfd not)
+DEAD_SENDER, EDGE_PAIR, PADDED, REAL_ATOMS = 2, (1, 3, 4), 2, 5
 
 
 def _chain(dist, mask):
@@ -55,11 +62,18 @@ def data():
 
     dist = (np.abs(mk(B, A, A)) * 8 + 0.5).astype(np.float32)
     mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
+    mask[0, :, DEAD_SENDER] = 0.0
+    mask[PADDED, REAL_ATOMS:] = mask[PADDED, :, REAL_ATOMS:] = 0.0
+    mask[EDGE_PAIR] = 1.0
+    dist[EDGE_PAIR] = RC * (1.0 - 2e-5)
     rbf, rbfp, envf, envp = _chain(dist, mask)
     dt = mk(B, A, A) * mask
-    return dict(rbf=rbf, rbfd=rbfp * dt[..., None], envf=envf, envfd=envp * dt,
-                xin=mk(B, A, F), xind=mk(B, A, F), w1=mk(R, F), b1=mk(1, F), w2=mk(F, F),
-                b2=mk(1, F), gmsg=mk(B, A, F), gmsgd=mk(B, A, F))
+    dt[EDGE_PAIR] = 0.7
+    d = dict(rbf=rbf, rbfd=rbfp * dt[..., None], envf=envf, envfd=envp * dt,
+             xin=mk(B, A, F), xind=mk(B, A, F), w1=mk(R, F), b1=mk(1, F), w2=mk(F, F),
+             b2=mk(1, F), gmsg=mk(B, A, F), gmsgd=mk(B, A, F))
+    assert d["envf"][EDGE_PAIR] == 0.0 != d["envfd"][EDGE_PAIR]
+    return d
 
 
 @pytest.fixture(scope="module")
@@ -176,6 +190,49 @@ def test_dual_flop_and_byte_counts(data):
     fb, nb = ts.schnet_dual_bwd_flops_bytes(rbf, envf, envfd, F)
     fb0, nb0 = ts.schnet_dual_bwd_flops_bytes(rbf, envf, envfd, F, need_gw=False)
     assert fb0 == (4 * R + 4 * F + 20) * F * live
-    assert fb - fb0 == ((4 * R + 8 * F + 27) * F * live
-                        + (B * ts.GW_SPLITS - 1) * ((R + 1) * F + (F + 1) * F))
+    assert fb - fb0 == (4 * R + 8 * F + 27) * F * live
     assert nb - nb0 == 4 * w
+
+
+# ---------------------------------------------------------------------------
+# kernel H's card decomposition (`schnet_dual_bwd_staged`)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+@pytest.mark.parametrize("name", H_OUT)
+def test_staged_dual_backward_matches_jax_vjp(data, jax_results, name, need_gw):
+    out = dict(zip(H_OUT, ts.schnet_dual_bwd_staged(*_t(data, *G_IN + COTS), need_gw=need_gw)))
+    if name not in ("gxin", "gxind") and not need_gw:
+        assert out[name] is None
+        return
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **GRAD_TOL)
+
+
+def test_staged_dual_backward_lists_the_envfd_only_pair(data):
+    """The edge pair (envf 0, envfd not) is live for H, and it moves gxin:
+    without it the staged backward (and the plain one) would differ."""
+    envf, envfd = _t(data, "envf", "envfd")
+    slots, _, starts = ts.schnet_live_pairs(envf, envfd)
+    m, i, j = EDGE_PAIR
+    assert int(((slots // (A * A) == m) & (slots // A % A == j) & (slots % A == i)).sum()) == 1
+    assert starts[DEAD_SENDER] == starts[DEAD_SENDER + 1]
+    args = _t(data, *G_IN + COTS)
+    cut = [t.clone() for t in args]
+    cut[1][EDGE_PAIR] = 0.0
+    cut[3][EDGE_PAIR] = 0.0
+    assert not torch.equal(ts.schnet_dual_bwd_staged(*args)[0], ts.schnet_dual_bwd_staged(*cut)[0])
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+def test_dual_bwd_work_splits_the_live_pairs_flops(data, need_gw):
+    rbf, envf, envfd = _t(data, "rbf", "envf", "envfd")
+    work = ts.bwd_work("H", rbf, envf, envfd, F, need_gw)
+    flops, nbytes = ts.schnet_dual_bwd_flops_bytes(rbf, envf, envfd, F, need_gw)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes and work["pairs"] == B * A * A
+    per = (8 * R + 12 * F) if need_gw else (4 * R + 4 * F)
+    assert work["flops_live_products"] == per * F * work["live_pairs"]
+    fwd = ts.fwd_work("G", rbf, envf, envfd, F)
+    assert fwd["flops_live"] == ts.schnet_dual_fwd_flops_bytes(rbf, envf, envfd, F)[0]
+    assert fwd["live_pairs"] == work["live_pairs"]

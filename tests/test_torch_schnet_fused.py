@@ -7,9 +7,15 @@ same seeded numpy inputs: a Gaussian basis of random distances (not
 masked) and a cosine cutoff zero on ~30 % masked pairs, as the model builds
 them. `SchNetMessageFn` (the autograd binding) is held against torch
 autograd through the plain forward with the basis and envelope chains
-attached. The CUDA kernels are held against the plain versions on the card
-in tests/test_torch_cuda.py. Tolerances as in tests/ops/test_painn_fused.py:
-2e-5 forward, 3e-4/3e-5 gradients (float32 sums in another order).
+attached. Kernel F's card decomposition (`schnet_bwd_staged`: the live
+pairs in sender order, the filter-MLP products over them, the per-sender
+stage, gz1, g_dist and gW) is held against the same JAX VJP, with and
+without gW, on inputs with a sender that has no live receiver, a padded
+molecule and a pair live only through envp (at the cutoff's edge, where
+envf rounds to zero). The CUDA kernels are held against the plain versions
+on the card in tests/test_torch_cuda.py. Tolerances as in
+tests/ops/test_painn_fused.py: 2e-5 forward, 3e-4/3e-5 gradients (float32
+sums in another order).
 """
 
 import math
@@ -31,6 +37,10 @@ E_IN = ("rbf", "envf", "xin", "w1", "b1", "w2", "b2")
 F_IN = ("rbf", "rbfp", "envf", "envp", "xin", "w1", "b1", "w2", "b2", "gmsg")
 F_OUT = ("g_dist", "gxin", "gw1", "gb1", "gw2", "gb2")
 MU = np.linspace(0.0, RC, R).astype(np.float32)
+# the data fixture's cases: molecule 0's sender DEAD_SENDER has no live receiver
+# and its pair EDGE_PAIR lies at the cutoff's edge (envf 0, envp not); molecule
+# PADDED has REAL_ATOMS atoms, the rest padding
+DEAD_SENDER, EDGE_PAIR, PADDED, REAL_ATOMS = 3, (0, 1, 2), 2, 6
 
 
 def basis_torch(dist, mask):
@@ -59,9 +69,14 @@ def data():
     dist = (np.abs(mk(B, A, A)) * 8 + 0.5).astype(np.float32)  # some beyond the cutoff
     mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
     mask[1, 5:] = 0.0  # padded receivers: whole rows of dead pairs
+    mask[0, :, DEAD_SENDER] = 0.0
+    mask[PADDED, REAL_ATOMS:] = mask[PADDED, :, REAL_ATOMS:] = 0.0
+    mask[EDGE_PAIR] = 1.0
+    dist[EDGE_PAIR] = RC * (1.0 - 2e-5)
     d = dict(dist=dist, mask=mask, xin=mk(B, A, F), w1=mk(R, F), b1=mk(1, F), w2=mk(F, F),
              b2=mk(1, F), gmsg=mk(B, A, F))
     d["rbf"], d["rbfp"], d["envf"], d["envp"] = _chain(dist, mask)
+    assert d["envf"][EDGE_PAIR] == 0.0 != d["envp"][EDGE_PAIR]
     return d
 
 
@@ -195,8 +210,92 @@ def test_flop_and_byte_counts_follow_live_pairs(data):
     fb, nb = ts.schnet_bwd_flops_bytes(rbf, envf, envp, F)
     fb0, nb0 = ts.schnet_bwd_flops_bytes(rbf, envf, envp, F, need_gw=False)
     assert fb0 == (4 * R + 4 * F + 20) * F * live_f
-    assert fb - fb0 == ((2 * R + 2 * F + 7) * F * live_f
-                        + (B * ts.GW_SPLITS - 1) * ((R + 1) * F + (F + 1) * F))
+    assert fb - fb0 == (2 * R + 2 * F + 7) * F * live_f
     assert nb - nb0 == 4 * w
     # at schnet width (R=100, F=128): 466 FLOPs per channel and live pair for E
     assert ts.pair_flops("fwd", 100, 128) == 466 * 128
+
+
+# ---------------------------------------------------------------------------
+# kernel F's card decomposition (`schnet_bwd_staged`): the live pairs in sender
+# order, the filter-MLP products over them, the per-sender stage, gz1, g_dist,
+# gW1 | gb1 = rbf_liveᵀ gz1 and gW2 | gb2 = hᵀ gwmr
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+@pytest.mark.parametrize("name", F_OUT)
+def test_staged_backward_matches_jax_vjp(data, jax_results, name, need_gw):
+    out = dict(zip(F_OUT, ts.schnet_bwd_staged(*_t(data, *F_IN), need_gw=need_gw)))
+    if name.startswith("g") and name[1] in "wb" and not need_gw:
+        assert out[name] is None
+        return
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **GRAD_TOL)
+
+
+def test_live_pair_list_is_in_sender_order(data):
+    """The list covers every pair whose envf or envp is not zero, once, by
+    (molecule, sender, receiver), the edge pair included; the dead sender
+    and the padding atoms own no row."""
+    envf, envp = _t(data, "envf", "envp")
+    slots, rows, starts = ts.schnet_live_pairs(envf, envp)
+    live = (envf != 0) | (envp != 0)
+    assert len(slots) == int(live.sum()) == int(starts[-1])
+    assert bool((slots[1:] > slots[:-1]).all())
+    b, j, i = slots // (A * A), slots // A % A, slots % A
+    assert bool(live[b, i, j].all()) and bool((rows == (b * A + i) * A + j).all())
+    m, ei, ej = EDGE_PAIR
+    assert bool(((b == m) & (i == ei) & (j == ej)).any())
+    assert starts[DEAD_SENDER] == starts[DEAD_SENDER + 1]
+    for a in range(REAL_ATOMS, A):
+        assert starts[PADDED * A + a] == starts[PADDED * A + a + 1]
+        assert not bool(((b == PADDED) & (i == a)).any())
+
+
+def test_live_pair_list_is_the_engines_list_of_sender_flags(data):
+    """schnet_live_pairs is what the card lists: so2_common.cuh's live_rows
+    (plain version `so2_live_rows_reference`) over the envelope flags in
+    (b, j, i) order, a segment a sender."""
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    envf, envp = _t(data, "envf", "envp")
+    slots, _, starts = ts.schnet_live_pairs(envf, envp)
+    flags = ((envf != 0) | (envp != 0)).transpose(1, 2).reshape(-1).int()
+    eidx, pos, rs, n = ea.so2_live_rows_reference(flags, A)
+    assert n == len(slots) and torch.equal(eidx.long(), slots) and torch.equal(rs.long(), starts)
+    assert torch.equal(pos[eidx.long()], torch.arange(n, dtype=torch.int32))
+
+
+def test_staged_backward_writes_zeros_in_dead_slots(data):
+    g_dist = ts.schnet_bwd_staged(*_t(data, *F_IN))[0]
+    assert bool((g_dist[0, :, DEAD_SENDER] == 0).all())
+    assert bool((g_dist[PADDED, REAL_ATOMS:] == 0).all())
+    assert bool((g_dist[PADDED, :, REAL_ATOMS:] == 0).all())
+    assert g_dist[EDGE_PAIR] != 0
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd", "bwd_gw", "dual_fwd", "dual_bwd", "dual_bwd_gw"])
+def test_flop_split_adds_up_to_pair_flops(kind):
+    """One table: the products grow with R and F, the rest with F only."""
+    for r, f in ((R, F), (100, 128)):
+        prod, other = ts.flops_split(kind, r, f)
+        assert prod + other == ts.pair_flops(kind, r, f) and other % f == 0
+        assert ts.flops_split(kind, 0, f)[1] == other and ts.flops_split(kind, r, 0) == (0, 0)
+    # at schnet width, the products are ~96-98 % of the work
+    prod, other = ts.flops_split(kind, 100, 128)
+    assert 0.95 < prod / (prod + other) < 0.99
+
+
+@pytest.mark.parametrize("need_gw", [True, False])
+def test_bwd_work_splits_the_live_pairs_flops(data, need_gw):
+    rbf, envf, envp = _t(data, "rbf", "envf", "envp")
+    work = ts.bwd_work("F", rbf, envf, envp, F, need_gw)
+    flops, nbytes = ts.schnet_bwd_flops_bytes(rbf, envf, envp, F, need_gw)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes and work["pairs"] == B * A * A
+    assert work["live_pairs"] == int(((envf != 0) | (envp != 0)).sum())
+    per = (6 * R + 6 * F) if need_gw else (4 * R + 4 * F)
+    assert work["flops_live_products"] == per * F * work["live_pairs"]
+    fwd = ts.fwd_work("E", rbf, envf, envf, F)
+    assert fwd["flops_live"] == ts.schnet_fwd_flops_bytes(rbf, envf, F)[0]
+    assert fwd["flops_live_products"] == (2 * R + 2 * F) * F * int((envf != 0).sum())

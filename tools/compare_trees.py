@@ -1,16 +1,18 @@
 """The same measurements from several checkouts of this repository, run in
 turn on one card, to compare two versions within one machine.
 
-    python3 tools/compare_trees.py steps --roots _trees/parent . . _trees/parent \
-        --out _trees/steps.jsonl
+    python3 tools/compare_trees.py steps --family schnet \
+        --roots _trees/parent . . _trees/parent --out _trees/steps.jsonl
+    python3 tools/compare_trees.py kernels --family schnet --roots _trees/parent .
     python3 tools/compare_trees.py bits --roots _trees/parent . --out _trees/bits
 
 Each root runs in a process of its own, with that root's `nabladft_tpu_torch`
 and `chip_smoke.py` first on the path.
 
-`steps`: PaiNN's predict and train steps over the seeded DB of chip_smoke.py's
-PaiNN phases (configs/painn-oc.yaml at full width, batch 64, buckets
-32/48/64). Per root it measures:
+`steps`: one family's predict and train steps (`--family` painn, the default,
+or schnet) over the seeded DB of chip_smoke.py's phases (configs/painn-oc.yaml
+or configs/schnet.yaml at full width, batch 64, buckets 32/48/64). Per root
+it measures:
 
 - predict molecules/s: PASSES timed passes of the predict loop over the 256
   molecules after a warm-up pass (as chip_smoke.py's `predict`);
@@ -21,17 +23,22 @@ PaiNN phases (configs/painn-oc.yaml at full width, batch 64, buckets
 - the wall ms of two train steps and of two predict steps without the
   profiler (median of REPEATS), then the wall and device ms of the same
   steps under torch.profiler (as chip_smoke.py's `train_profile` / `profile`);
-- the host time of each call of kernel B's and kernel D's wrappers
-  (`painn_bwd`, `painn_dual_bwd`: from the call to its return, the card not
-  waited for) over the timed train epochs, and of A's and C's for scale;
+- the host time of each call of the family's four kernel wrappers (PaiNN's
+  A-D, SchNet's E-H: from the call to its return, the card not waited for)
+  over the timed train epochs;
 - peak device memory of the predict passes and of the train epochs.
 
-Prints one JSON line per root, in the order run, and writes them to --out.
+Prints one JSON line per root, in the order run, and writes them to --out;
+then a summary line over the runs.
 
-`bits`: kernels I-P at A=48 on chip_smoke.py's seeded inputs (QHNet B=8,
-eSCN and EquiformerV2 B=64, full widths): each root saves every output under
---out, and the last line says, per kernel, whether every root gave the
-first root's bits.
+`kernels`: one family's kernel lines of chip_smoke.py (its `kernel_phases` or
+`schnet_kernel_phases`: each kernel against its plain version at A=32/48/64)
+per root; the last line gives each kernel's ms per bucket and root.
+
+`bits`: kernels B, D, E, G and I-P at A=48 on chip_smoke.py's seeded inputs
+(PaiNN, SchNet, eSCN and EquiformerV2 B=64, QHNet B=8, full widths; B with
+gW): each root saves every output under --out, and the last line says, per
+kernel, whether every root gave the first root's bits.
 
 Needs a CUDA card.
 """
@@ -39,6 +46,7 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import itertools
 import json
 import statistics
@@ -49,7 +57,14 @@ import time
 from pathlib import Path
 
 PASSES, EPOCHS, REPEATS = 7, 4, 5
-WRAPPERS = ("painn_fwd", "painn_bwd", "painn_dual_fwd", "painn_dual_bwd")
+# per family: its chip_smoke config, kernel module, kernel wrappers and kernel phase
+FAMILIES = {
+    "painn": ("painn-oc", "painn_fused",
+              ("painn_fwd", "painn_bwd", "painn_dual_fwd", "painn_dual_bwd"), "kernel_phases"),
+    "schnet": ("schnet", "schnet_fused",
+               ("schnet_fwd", "schnet_bwd", "schnet_dual_fwd", "schnet_dual_bwd"),
+               "schnet_kernel_phases"),
+}
 
 
 def _stats(xs: list) -> dict:
@@ -57,10 +72,10 @@ def _stats(xs: list) -> dict:
     return {"median": statistics.median(xs), "min": xs[0], "max": xs[-1], "n": len(xs)}
 
 
-def _timed_wrappers(pf) -> dict:
-    """Replace A-D's wrappers in `pf` (the module the autograd Functions call
-    them through) by ones that record their host time in µs."""
-    times = {name: [] for name in WRAPPERS}
+def _timed_wrappers(mod, wrappers) -> dict:
+    """Replace the kernel wrappers in `mod` (the module the autograd
+    Functions call them through) by ones that record their host time in µs."""
+    times = {name: [] for name in wrappers}
 
     def wrap(name, fn):
         def timed(*args, **kw):
@@ -70,8 +85,8 @@ def _timed_wrappers(pf) -> dict:
             return out
         return timed
 
-    for name in WRAPPERS:
-        setattr(pf, name, wrap(name, getattr(pf, name)))
+    for name in wrappers:
+        setattr(mod, name, wrap(name, getattr(mod, name)))
     return times
 
 
@@ -114,18 +129,27 @@ def _import_root(root: Path):
 
 
 def bits_child(root: Path, out: Path) -> dict:
-    """Kernels I-P's outputs at A=48 on chip_smoke's seeded inputs, saved to
-    out/<n>.pt (n: this root's place in --roots)."""
+    """Kernels B, D, E, G and I-P's outputs at A=48 on chip_smoke's seeded
+    inputs, saved to out/<n>.pt (n: this root's place in --roots)."""
     import torch
 
     cs = _import_root(root)
     from nabladft_tpu_torch.ops import eqv2_attn as ea
     from nabladft_tpu_torch.ops import escn_layer as el
+    from nabladft_tpu_torch.ops import painn_fused as pf
     from nabladft_tpu_torch.ops import qhnet_tp as qt
+    from nabladft_tpu_torch.ops import schnet_fused as sf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, a, res = torch.device("cuda"), cs.HEADLINE_A, {}
     as_tuple = (lambda t: t if isinstance(t, tuple) else (t,))  # noqa: E731
+    x = cs.kernel_inputs(dev, a)
+    res["B"] = [t.cpu() for t in pf.painn_bwd(*[x[n] for n in (
+        "rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")])]
+    res["D"] = [t.cpu() for t in pf.painn_dual_bwd(*[x[n] for n in cs.D_ARGS])]
+    x = cs.schnet_kernel_inputs(dev, a)
+    res["E"] = [sf.schnet_fwd(*[x[n] for n in cs.E_ARGS]).cpu()]
+    res["G"] = [t.cpu() for t in sf.schnet_dual_fwd(*[x[n] for n in cs.G_ARGS])]
     x = cs.qhnet_kernel_inputs(dev, cs.QH_BATCH, a, cs.QH_C, seed=cs.SEED + 2000 + a)
     for k, fn in (("I", qt.qhnet_conv_fwd), ("J", qt.qhnet_conv_bwd), ("K", qt.qhnet_pair_fwd),
                   ("L", qt.qhnet_pair_bwd)):
@@ -144,25 +168,49 @@ def bits_child(root: Path, out: Path) -> dict:
         k: [list(t.shape) for t in v] for k, v in res.items()}}
 
 
-def child(root: Path) -> dict:
+def kernels_child(root: Path, family: str) -> dict:
+    """The family's kernel lines of chip_smoke.py at every bucket."""
+    import torch
+
+    cs = _import_root(root)
+    from nabladft_tpu_torch.ops import _kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, source, _, phase = FAMILIES[family]
+    ptxas = {source: cs.ptxas_summary(_kernels.build(source)["log"])}
+    fn = getattr(cs, phase)
+    args = [torch.device("cuda"), torch.cuda.get_device_name(0)]
+    if "ptxas" in inspect.signature(fn).parameters:
+        args.append(ptxas)
+    rows = fn(*args)
+    keep = ("ms", "plain_ms", "ms_without_gw", "plain_ms_without_gw", "max_rel_err")
+    return {"root": str(root), "family": family,
+            "kernels": {k: [{"a": r["shape"][1], **{f: r[f] for f in keep if f in r}}
+                            for r in row["per_bucket"]] for k, row in rows.items()}}
+
+
+def child(root: Path, family: str) -> dict:
+    import importlib
+
     import torch
 
     cs = _import_root(root)
     from nabladft_tpu_torch import pipelines
     from nabladft_tpu_torch.data.synthetic import write_random_db
     from nabladft_tpu_torch.ops import _kernels
-    from nabladft_tpu_torch.ops import painn_fused as pf
     from nabladft_tpu_torch.train import Trainer
 
+    config, source, wrappers, _ = FAMILIES[family]
+    mod = importlib.import_module(f"nabladft_tpu_torch.ops.{source}")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    _kernels.build("painn_fused")
+    _kernels.build(source)
     build_s = time.perf_counter() - t0
-    out = {"root": str(root), "build_seconds": build_s}
+    out = {"root": str(root), "family": family, "build_seconds": build_s}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         db = write_random_db(tmp / "smoke.db", cs.N_MOLS, cs.MIN_ATOMS, cs.MAX_ATOMS, cs.SEED)
-        cfg = cs.smoke_config(str(db), str(tmp / "pred.db"), str(tmp))
+        cfg = cs.smoke_config(str(db), str(tmp / "pred.db"), str(tmp), config=config)
         dm = pipelines.build_datamodule(cfg)
         gpu = Trainer(pipelines.build_model(cfg, torch.device("cuda")))
         if gpu.model.use_pallas != "fused":
@@ -183,11 +231,12 @@ def child(root: Path) -> dict:
         out["predict_2steps_profiled"] = _profiled(torch, gpu._predict_step, batches)
         del gpu
 
-        tcfg = cs.train_config(str(db), str(tmp), str(tmp / "ckpt"), str(tmp / "out"))
+        tcfg = cs.train_config(str(db), str(tmp), str(tmp / "ckpt"), str(tmp / "out"),
+                               config=config)
         tdm = pipelines.build_datamodule(tcfg)
         trainer = pipelines.build_trainer(dict(tcfg, log_csv=False, ckpt_dir=None),
                                           torch.device("cuda"))
-        times = _timed_wrappers(pf)
+        times = _timed_wrappers(mod, wrappers)
         torch.cuda.reset_peak_memory_stats()
         step_rates, epoch_rates = [], []
         for epoch in range(EPOCHS + 1):
@@ -226,10 +275,16 @@ METRICS = (
     ("train_2steps_wall_ms", lambda r: r["train_2steps_wall_ms"]["median"], False),
     ("predict_2steps_device_ms", lambda r: r["predict_2steps_profiled"]["device_ms"], False),
     ("train_2steps_device_ms", lambda r: r["train_2steps_profiled"]["device_ms"], False),
-    ("host_us_painn_bwd", lambda r: r["host_us_per_call"]["painn_bwd"]["median"], False),
-    ("host_us_painn_dual_bwd", lambda r: r["host_us_per_call"]["painn_dual_bwd"]["median"],
-     False),
+    ("predict_peak_bytes", lambda r: r["predict_peak_bytes"], False),
+    ("train_peak_bytes", lambda r: r["train_peak_bytes"], False),
 )
+
+
+def _metrics(family: str) -> tuple:
+    """METRICS and the host µs of each call of the family's four wrappers."""
+    def host(name):
+        return lambda r: r["host_us_per_call"][name]["median"]
+    return METRICS + tuple((f"host_us_{w}", host(w), False) for w in FAMILIES[family][2])
 
 
 def _quartiles(xs: list) -> dict:
@@ -238,13 +293,13 @@ def _quartiles(xs: list) -> dict:
     return {"median": statistics.median(xs), "q1": q[0], "q3": q[2], "runs": xs}
 
 
-def summary(runs: list) -> dict:
+def summary(runs: list, family: str) -> dict:
     """Per metric: each root's runs (median, quartiles) and, over the pairs
     of consecutive runs of two different roots (runs 0-1, 2-3, ...), how
     often the root that is not the first one read better."""
     roots = list(dict.fromkeys(r["root"] for r in runs))
     out = {}
-    for name, get, higher in METRICS:
+    for name, get, higher in _metrics(family):
         m = {root: _quartiles([get(r) for r in runs if r["root"] == root]) for root in roots}
         wins = pairs = 0
         for a, b in zip(runs[::2], runs[1::2]):
@@ -269,7 +324,9 @@ def _same_bits(files: list) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("steps", "bits"))
+    ap.add_argument("mode", choices=("steps", "kernels", "bits"))
+    ap.add_argument("--family", choices=tuple(FAMILIES), default="painn",
+                    help="steps, kernels: the model family")
     ap.add_argument("--roots", nargs="+", help="checkouts to run, in this order")
     ap.add_argument("--out", default=None,
                     help="steps: also write the JSON lines here; bits: the directory of "
@@ -279,14 +336,20 @@ def main() -> int:
     args = ap.parse_args()
     if args.child:
         root = Path(args.child)
-        res = bits_child(root, Path(args.save)) if args.mode == "bits" else child(root)
+        if args.mode == "bits":
+            res = bits_child(root, Path(args.save))
+        elif args.mode == "kernels":
+            res = kernels_child(root, args.family)
+        else:
+            res = child(root, args.family)
         print(json.dumps(res), flush=True)
         return 0
     if args.mode == "bits" and not args.out:
         ap.error("bits needs --out")
     lines, saved = [], []
     for n, root in enumerate(args.roots):
-        cmd = [sys.executable, __file__, args.mode, "--child", str(Path(root).resolve())]
+        cmd = [sys.executable, __file__, args.mode, "--family", args.family, "--child",
+               str(Path(root).resolve())]
         if args.mode == "bits":
             Path(args.out).mkdir(parents=True, exist_ok=True)
             saved.append(Path(args.out) / f"{n}.pt")
@@ -304,7 +367,13 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(lines) + "\n")
-    print(json.dumps({"summary": summary([json.loads(x) for x in lines])}), flush=True)
+    runs = [json.loads(x) for x in lines]
+    if args.mode == "kernels":
+        ms = {k: {r["root"]: {b["a"]: [b["ms"], b.get("ms_without_gw")] for b in r["kernels"][k]}
+                  for r in runs} for k in runs[0]["kernels"]}
+        print(json.dumps({"ms_by_kernel_root_bucket": ms}), flush=True)
+        return 0
+    print(json.dumps({"summary": summary(runs, args.family)}), flush=True)
     return 0
 
 
