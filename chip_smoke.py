@@ -23,12 +23,12 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                against the plain PyTorch version, and the kernel's, the plain
                version's and the bound's times (CUDA events, median / min /
                max of 25 runs after warm-up); B and F (each with and without
-               gW), D and H are run twice and must give the same bits. B and D
-               run their radial products, F and H their filter-MLP products,
-               on the tensor cores over the live pairs: their lines carry each
-               launched kernel's device ms (`stages_ms`). Every line carries
-               the live pairs and `bound_ms` with the products at the 3xTF32
-               rate beside `bound_fma_ms`, as I-P's (A, C, E and G run their
+               gW), D and H, and A and C, are run twice and must give the same
+               bits. A-D run their radial products, F and H their filter-MLP
+               products, on the tensor cores over the live pairs: their lines
+               carry each launched kernel's device ms (`stages_ms`). Every line
+               carries the live pairs and `bound_ms` with the products at the
+               3xTF32 rate beside `bound_fma_ms`, as I-P's (E and G run their
                products on the CUDA cores). kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
                J (qhnet_conv_bwd), K (qhnet_pair_fwd), L (qhnet_pair_bwd) at the
                QHNet train path's shapes (B=8, A=32/48/64, C=128, LMAX 4, gate
@@ -53,7 +53,8 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                batches by bucket.
      profile — torch.profiler over two predict steps: device time by
                kernel and the device's busy share (printed before predict);
-               PaiNN's must show B's engine products and stage, SchNet's F's.
+               PaiNN's must show the engine's products and A's and B's
+               stages, SchNet's F's.
   4. train   — for each family, `pipelines.run` of ``job_type: train``
                (TRAIN_EPOCHS epochs, force_grads "pallas") on the same DB,
                then ``job_type: test`` from the best checkpoint; checks launch
@@ -68,7 +69,7 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                per epoch, peak device memory; for PaiNN the live-pair share of
                an epoch's train batches by bucket.
      train_profile — torch.profiler over two train steps (printed before
-               train); PaiNN's must show B's and D's engine products, their
+               train); PaiNN's must show A-D's engine products, their
                stages and D's gW on the engine's weight-gradient product;
                SchNet's the same of F and H.
   SchNet's lines carry the prefix ``schnet_`` (schnet_predict, ...).
@@ -473,25 +474,27 @@ def kernel_bucket(pf, dev, a: int, card: str):
     """Kernels A-D at (KB, a, KR, KF) against their plain versions: errors
     (checked), and kernel / plain / bound times. B is checked and timed both
     with the weight gradient and without it, as the predict path runs it.
-    B and D run their radial products on the tensor cores over the live
-    pairs: each runs twice for the same bits (B with and without gW) and
-    their lines carry each launched kernel's device ms (`stages_ms`). Every
-    line carries the live pairs and `bound_ms` with the radial products at
-    the 3xTF32 rate beside `bound_fma_ms` (`_so2_row`): A and C run theirs
-    on the CUDA cores, so their `bound_ms` is what the tensor cores would
-    allow."""
+    A-D run their radial products on the tensor cores over the live pairs:
+    each runs twice for the same bits (B with and without gW) and their
+    lines carry each launched kernel's device ms (`stages_ms`). Every line
+    carries the live pairs and `bound_ms` with the radial products at the
+    3xTF32 rate beside `bound_fma_ms` (`_so2_row`)."""
     x = kernel_inputs(dev, a)
     a_args = [x[k] for k in ("rbf", "phi", "v", "unit_t", "w")]
     b_args = [x[k] for k in ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")]
     shape = [KB, a, KR, KF]
 
-    err = compare(pf.painn_fwd(*a_args), pf.painn_message_reference(*a_args))
+    got = pf.painn_fwd(*a_args)
+    err = compare(got, pf.painn_message_reference(*a_args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel A error at {shape}: {err}")
+    _same_bits(pf.painn_fwd, a_args, got, f"kernel A at {shape}")
+    del got
+    stages = stage_times(pf.painn_fwd, a_args)
     t_k = time_ms(lambda: pf.painn_fwd(*a_args))
     t_p = time_ms(lambda: pf.painn_message_reference(*a_args))
     work = pf.fwd_work("A", x["rbf"], x["rbf"], KF)
     row_a = _so2_row(shape, err, t_k, t_p, work, card, live_pairs=work["live_pairs"],
-                     pairs=work["pairs"])
+                     pairs=work["pairs"], bit_identical_rerun=True, stages_ms=stages)
     emit("kernel_A", **row_a, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
 
     got = pf.painn_bwd(*b_args)
@@ -529,13 +532,17 @@ def kernel_bucket(pf, dev, a: int, card: str):
          kernel_times_without_gw=t_k_ng, plain_times_without_gw=t_p_ng)
 
     c_args = [x[k] for k in C_ARGS]
-    err = compare(pf.painn_dual_fwd(*c_args), pf.painn_dual_fwd_reference(*c_args))
+    got = pf.painn_dual_fwd(*c_args)
+    err = compare(got, pf.painn_dual_fwd_reference(*c_args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel C error at {shape}: {err}")
+    _same_bits(pf.painn_dual_fwd, c_args, got, f"kernel C at {shape}")
+    del got
+    stages = stage_times(pf.painn_dual_fwd, c_args)
     t_k = time_ms(lambda: pf.painn_dual_fwd(*c_args))
     t_p = time_ms(lambda: pf.painn_dual_fwd_reference(*c_args))
     work = pf.fwd_work("C", x["rbf"], x["rbfd"], KF)
     row_c = _so2_row(shape, err, t_k, t_p, work, card, live_pairs=work["live_pairs"],
-                     pairs=work["pairs"])
+                     pairs=work["pairs"], bit_identical_rerun=True, stages_ms=stages)
     emit("kernel_C", **row_c, tolerance_rel=KERNEL_RTOL, kernel_times=t_k, plain_times=t_p)
 
     d_args = [x[k] for k in D_ARGS]
@@ -563,8 +570,8 @@ KERNELS = {  # key: (name, JAX kernel body line in nabladft_tpu/ops/pallas/painn
 def kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels A-D at every bucket shape of the predict and train paths. The
     kernels line's numbers are those at A=HEADLINE_A, except max_abs_err,
-    the largest over all buckets; `per_bucket` holds each bucket's. B's and
-    D's rows carry the source's registers and spills (ptxas)."""
+    the largest over all buckets; `per_bucket` holds each bucket's. Every
+    row carries the source's registers and spills (ptxas)."""
     from nabladft_tpu_torch.ops import painn_fused as pf
 
     per = {k: [] for k in KERNELS}
@@ -573,7 +580,7 @@ def kernel_phases(dev, card: str, ptxas: dict) -> dict:
             per[k].append(row)
         torch.cuda.empty_cache()
     rows = headline_rows(per, KERNELS, "painn_fused", ("B",))
-    for k in "BD":
+    for k in "ABCD":
         rows[k]["ptxas"] = ptxas.get("painn_fused", {})
     return rows
 
@@ -764,10 +771,12 @@ FAMILIES = {
     "painn": dict(config="painn-oc", ops="painn_fused", prefix="",
                   counters=("painn_fwd", "painn_bwd", "painn_bwd_gw", "painn_dual_fwd",
                             "painn_dual_bwd"),
-                  # B's and D's products on the engine and their stages; D's gW on the
+                  # A-D's products on the engine and their stages; D's gW on the
                   # engine's weight-gradient product (train steps only)
-                  predict_present=("so2_mma_kernel", "painn_bwd_stage_kernel"),
-                  train_present=("so2_mma_kernel", "painn_bwd_stage_kernel",
+                  predict_present=("so2_mma_kernel", "painn_fwd_stage_kernel",
+                                   "painn_bwd_stage_kernel"),
+                  train_present=("so2_mma_kernel", "painn_fwd_stage_kernel",
+                                 "painn_bwd_stage_kernel", "painn_dual_fwd_stage_kernel",
                                  "painn_dual_bwd_stage_kernel", "so2_mmw_kernel")),
     "schnet": dict(config="schnet", ops="schnet_fused", prefix="schnet_",
                    counters=("schnet_fwd", "schnet_bwd", "schnet_bwd_gw", "schnet_dual_fwd",
@@ -782,7 +791,7 @@ FAMILIES = {
 
 def live_pair_share(model, batches) -> dict:
     """{A: live pairs, pairs, share} over PaiNN batches by bucket: the pairs
-    whose rbf_env row is not zero, those kernels B and D work on."""
+    whose rbf_env row is not zero, those kernels A and B work on."""
     out = {}
     with torch.no_grad():
         for batch in batches:

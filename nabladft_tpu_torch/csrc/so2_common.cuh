@@ -1,7 +1,7 @@
 // Device code shared by the SO(2) message kernels (csrc/escn_layer.cu, kernels M and N;
-// csrc/eqv2_attn.cu, kernels O and P), QHNet's gate products (csrc/qhnet_tp.cu, I-L) and
-// PaiNN's and SchNet's backward products (csrc/painn_fused.cu, B and D; csrc/schnet_fused.cu,
-// F and H): each source includes it and builds its own copy.
+// csrc/eqv2_attn.cu, kernels O and P), QHNet's gate products (csrc/qhnet_tp.cu, I-L),
+// PaiNN's radial products (csrc/painn_fused.cu, A-D) and SchNet's backward products
+// (csrc/schnet_fused.cu, F and H): each source includes it and builds its own copy.
 //
 // The product engine: every SO(2) product of M-P, on Hopper's tensor cores.
 //   * so2_mma_kernel: a grouped product over a list of rows (the live pairs or edges of a
@@ -776,9 +776,10 @@ __global__ void __launch_bounds__(256) so2_colsum_reduce_kernel(const __grid_con
 
 // ---------------------------------------------------------------------------
 // the live-row list from 0/1 flags in slot order, the slots in segments of `seg` (a receiver's
-// pairs or edges; PaiNN's: a sender's): so2_count_kernel counts each segment's live slots (a
-// warp a segment), so2_starts_kernel scans the counts in one block and so2_list_kernel lists
-// each segment's live slots by ballot (a warp a segment); live_rows launches the three
+// pairs or edges; PaiNN's B and D, SchNet's F and H: a sender's): so2_count_kernel counts each
+// segment's live slots (a warp a segment), so2_starts_kernel scans the counts in one block and
+// so2_list_kernel lists each segment's live slots by ballot (a warp a segment); live_rows
+// launches the three
 // ---------------------------------------------------------------------------
 
 constexpr int LIST_WARPS = 8;  // segments a block of the count and list kernels

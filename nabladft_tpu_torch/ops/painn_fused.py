@@ -34,10 +34,12 @@ Each kernel has its plain PyTorch version here with the same signature
 takes the plain version only for CPU tensors; a CUDA tensor launches the
 kernel (sources in ``csrc/painn_fused.cu``) or raises.
 
-B and D run their radial products on the tensor cores (the SO(2) product
-engine of ``csrc/so2_common.cuh``) over the live pairs only, listed in
-sender order, around a per-pair stage on the CUDA cores; `painn_bwd_staged`
-and `painn_dual_bwd_staged` are that decomposition in plain torch (for the
+Every kernel runs its radial products on the tensor cores (the SO(2)
+product engine of ``csrc/so2_common.cuh``) over the live pairs only,
+around a stage on the CUDA cores: A and C list the pairs in receiver order
+and sum per receiver, B and D list them in sender order and sum per
+sender. `painn_fwd_staged`, `painn_dual_fwd_staged`, `painn_bwd_staged` and
+`painn_dual_bwd_staged` are those decompositions in plain torch (for the
 tests).
 """
 
@@ -92,9 +94,9 @@ def pair_flops(kind: str, r: int, f: int) -> int:
 def flops_split(kind: str, r: int, f: int) -> Tuple[int, int]:
     """`pair_flops(kind, r, f)` as (radial products, the rest): the products
     of R-long rows with W (rbf @ W, and rbfp @ W or rbfd @ W; for gW the
-    products of the same rows with the per-pair cotangents), which B and D
-    run on the tensor cores, and the per-pair arithmetic, which stays on the
-    CUDA cores (A and C run both on the CUDA cores)."""
+    products of the same rows with the per-pair cotangents), which every
+    kernel runs on the tensor cores, and the per-pair arithmetic, which
+    stays on the CUDA cores."""
     prod = {"fwd": 6, "bwd": 12, "bwd_gw": 6, "dual_fwd": 12, "dual_bwd": 12,
             "dual_bwd_gw": 12}[kind] * r * f
     return prod, pair_flops(kind, r, f) - prod
@@ -264,6 +266,73 @@ def painn_live_pairs(rbf, rbf2):
     return slots, rows, starts
 
 
+def painn_live_rows(rbf, rbf2=None):
+    """Kernels A's and C's live-pair list: the pair rows (b·A + i)·A + j
+    whose rbf row, or rbf2 row where given, is not zero, in receiver order.
+    Returns (rows, starts): `starts[b·A + i]` the first list index of
+    receiver i (`starts[B·A]` the count)."""
+    b, a = rbf.shape[:2]
+    live = (rbf != 0).any(-1)
+    if rbf2 is not None:
+        live = live | (rbf2 != 0).any(-1)
+    rows = live.reshape(-1).nonzero().squeeze(1)
+    counts = torch.bincount(rows // a, minlength=b * a)
+    return rows, torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+
+
+def _receiver_pairs(rows, b, a):
+    """(receiver b·A + i, sender b·A + j) of the pair rows, and the sums
+    over each receiver's pairs in list order."""
+    recv = rows // a
+    sender = recv // a * a + rows % a
+    sums = lambda x: x.new_zeros(b * a, *x.shape[1:]).index_add_(0, recv, x)  # noqa: E731
+    return sender, sums
+
+
+def painn_fwd_staged(rbf, phi, v, unit_t, w):
+    """Kernel A's stages in the card's order, on plain tensors: the live
+    pairs in receiver order (`painn_live_rows` of rbf); wm = rbf @ W over
+    them (the products); the per-receiver stage, per receiver i over its
+    live senders j: ds and dv, zero for a receiver with no live sender.
+    Returns painn_message_reference's tuple."""
+    b, a, _, r = rbf.shape
+    f = w.shape[1] // 3
+    rows, _ = painn_live_rows(rbf)
+    sender, sums = _receiver_pairs(rows, b, a)
+    wm0, wm1, wm2 = _chunks(rbf.reshape(-1, r)[rows] @ w, f)
+    p0, p1, p2 = _chunks(phi.reshape(b * a, 3 * f)[sender], f)
+    vj = v.reshape(b * a, 3, f)[sender]
+    u = unit_t.transpose(2, 3).reshape(b * a * a, 3)[rows][:, :, None]  # u[b,i,j,c]
+    ds = sums(wm0 * p0)
+    dv = sums((wm1 * p1)[:, None] * vj + u * (wm2 * p2)[:, None])
+    return ds.reshape(b, a, f), dv.reshape(b, a, 3 * f)
+
+
+def painn_dual_fwd_staged(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
+    """Kernel C's stages in the card's order, on plain tensors: the live
+    pairs in receiver order (rbf or rbfd row not zero); wm = rbf @ W and
+    wmd = rbfd @ W over them; the per-receiver stage over each receiver's
+    live senders. Returns painn_dual_fwd_reference's tuple."""
+    b, a, _, r = rbf.shape
+    f = w.shape[1] // 3
+    rows, _ = painn_live_rows(rbf, rbfd)
+    sender, sums = _receiver_pairs(rows, b, a)
+    wm0, wm1, wm2 = _chunks(rbf.reshape(-1, r)[rows] @ w, f)
+    wmd0, wmd1, wmd2 = _chunks(rbfd.reshape(-1, r)[rows] @ w, f)
+    p0, p1, p2 = _chunks(phi.reshape(b * a, 3 * f)[sender], f)
+    pd0, pd1, pd2 = _chunks(phid.reshape(b * a, 3 * f)[sender], f)
+    vj, vdj = v.reshape(b * a, 3, f)[sender], vd.reshape(b * a, 3, f)[sender]
+    u = unit_t.transpose(2, 3).reshape(b * a * a, 3)[rows][:, :, None]
+    ud = unitd_t.transpose(2, 3).reshape(b * a * a, 3)[rows][:, :, None]
+    t, td = (wm1 * p1)[:, None], (wmd1 * p1 + wm1 * pd1)[:, None]
+    m3, m3d = (wm2 * p2)[:, None], (wmd2 * p2 + wm2 * pd2)[:, None]
+    ds, dsd = sums(wm0 * p0), sums(wmd0 * p0 + wm0 * pd0)
+    dv = sums(t * vj + u * m3)
+    dvd = sums(td * vj + t * vdj + ud * m3 + u * m3d)
+    node, vec = (b, a, f), (b, a, 3 * f)
+    return ds.reshape(node), dv.reshape(vec), dsd.reshape(node), dvd.reshape(vec)
+
+
 def painn_bwd_staged(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     """Kernel B's stages in the card's order, on plain tensors: the live
     pairs in sender order (`painn_live_pairs` of rbf, rbfp); wm = rbf @ W
@@ -358,7 +427,11 @@ def painn_dual_bwd_staged(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w,
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load("painn_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.painn_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.painn_fwd_scratch_floats.argtypes = [i] * 5
+    lib.painn_fwd_scratch_floats.restype = ctypes.c_longlong
+    lib.painn_fwd_scratch_ints.argtypes = [i] * 2
+    lib.painn_fwd_scratch_ints.restype = ctypes.c_longlong
+    lib.painn_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.painn_fwd.restype = i
     lib.painn_bwd_scratch_floats.argtypes = [i] * 4
     lib.painn_bwd_scratch_floats.restype = ctypes.c_longlong
@@ -366,7 +439,7 @@ def _lib() -> ctypes.CDLL:
     lib.painn_bwd_scratch_ints.restype = ctypes.c_longlong
     lib.painn_bwd.argtypes = [p] * 15 + [i] * 6 + [p]
     lib.painn_bwd.restype = i
-    lib.painn_dual_fwd.argtypes = [p] * 13 + [i] * 4 + [p]
+    lib.painn_dual_fwd.argtypes = [p] * 15 + [i] * 5 + [p]
     lib.painn_dual_fwd.restype = i
     lib.painn_dual_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
     lib.painn_dual_bwd.restype = i
@@ -391,30 +464,41 @@ def painn_fwd(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
     )
     if dev.type == "cpu":
         return painn_message_reference(rbf, phi, v, unit_t, w)
+    w_e, r4, ld, (rbf_e,) = _engine_operands(w, rbf)
     ds = torch.empty((b, a, f), dtype=torch.float32, device=dev)
     dv = torch.empty((b, a, 3 * f), dtype=torch.float32, device=dev)
+    scratch, iscratch = _fwd_buffers(dev, b, a, r4, ld, sets=1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().painn_fwd(
-            rbf.data_ptr(), phi.data_ptr(), v.data_ptr(), unit_t.data_ptr(), w.data_ptr(),
-            ds.data_ptr(), dv.data_ptr(), b, a, r, f, stream,
+            rbf_e.data_ptr(), phi.data_ptr(), v.data_ptr(), unit_t.data_ptr(), w_e.data_ptr(),
+            ds.data_ptr(), dv.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(),
+            b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_fwd launch")
     LAUNCHES["painn_fwd"] += 1
     return ds, dv
 
 
-def _engine_operands(rbf, rbf2, w):
-    """(rbf, rbf2, W, R, ld) as kernels B and D take them: R a multiple of 4
+def _engine_operands(w, *pairs):
+    """(W, R, ld, pair tensors) as the kernels take them: R a multiple of 4
     and W's rows ld = 3F rounded up to 4 floats, zero padded (a copy only off
     those multiples; painn-oc's R = 100, 3F = 384 need none)."""
     r, f3 = w.shape
     r4, ld = -(-r // 4) * 4, -(-f3 // 4) * 4
     if r4 != r:
-        rbf, rbf2 = (torch.nn.functional.pad(t, (0, r4 - r)) for t in (rbf, rbf2))
+        pairs = [torch.nn.functional.pad(t, (0, r4 - r)) for t in pairs]
     if (r4, ld) != (r, f3):
         w = torch.nn.functional.pad(w, (0, ld - f3, 0, r4 - r))
-    return rbf, rbf2, w, r4, ld
+    return w, r4, ld, pairs
+
+
+def _fwd_buffers(dev, b, a, r4, ld, sets):
+    """(float scratch, int scratch) of an A (sets 1) or C (sets 2) launch."""
+    lib = _lib()
+    return (torch.empty(lib.painn_fwd_scratch_floats(b, a, r4, ld, sets), dtype=torch.float32,
+                        device=dev),
+            torch.empty(lib.painn_fwd_scratch_ints(b, a), dtype=torch.int32, device=dev))
 
 
 def _bwd_buffers(dev, b, a, r4, ld, need_gw):
@@ -436,7 +520,7 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     )
     if dev.type == "cpu":
         return painn_message_bwd_reference(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw)
-    rbf_e, rbfp_e, w_e, r4, ld = _engine_operands(rbf, rbfp, w)
+    w_e, r4, ld, (rbf_e, rbfp_e) = _engine_operands(w, rbf, rbfp)
     # the dead pairs' slots keep these zeros
     g_dist = torch.zeros((b, a, a), dtype=torch.float32, device=dev)
     g_ut = torch.zeros((b, a, 3, a), dtype=torch.float32, device=dev)
@@ -474,13 +558,16 @@ def painn_dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
     dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f))
     if dev.type == "cpu":
         return painn_dual_fwd_reference(*args.values())
+    args["w"], r4, ld, (args["rbf"], args["rbfd"]) = _engine_operands(w, rbf, rbfd)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     ds, dv, dsd, dvd = empty(b, a, f), empty(b, a, 3 * f), empty(b, a, f), empty(b, a, 3 * f)
+    scratch, iscratch = _fwd_buffers(dev, b, a, r4, ld, sets=2)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().painn_dual_fwd(
             *(t.data_ptr() for t in args.values()),
-            ds.data_ptr(), dv.data_ptr(), dsd.data_ptr(), dvd.data_ptr(), b, a, r, f, stream,
+            ds.data_ptr(), dv.data_ptr(), dsd.data_ptr(), dvd.data_ptr(), scratch.data_ptr(),
+            iscratch.data_ptr(), b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_dual_fwd launch")
     LAUNCHES["painn_dual_fwd"] += 1
@@ -496,7 +583,7 @@ def painn_dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gd
     dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f))
     if dev.type == "cpu":
         return painn_dual_bwd_reference(*args.values(), need_gw=need_gw)
-    args["rbf"], args["rbfd"], args["w"], r4, ld = _engine_operands(rbf, rbfd, w)
+    args["w"], r4, ld, (args["rbf"], args["rbfd"]) = _engine_operands(w, rbf, rbfd)
     gphi, gphid, gv, gvd = (torch.empty((b, a, 3 * f), dtype=torch.float32, device=dev)
                             for _ in range(4))
     gw, scratch, iscratch = _bwd_buffers(dev, b, a, r4, ld, need_gw)
@@ -639,8 +726,8 @@ def painn_dual_bwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int,
 
 def fwd_work(kind: str, rbf: torch.Tensor, rbf2: torch.Tensor, f: int) -> Dict[str, int]:
     """The work of kernel A (`kind` "A"; rbf2 unused) or C ("C", rbf2 = rbfd)
-    on these inputs, as `bwd_work` gives it: the radial products (which A and
-    C run on the CUDA cores) split from the rest."""
+    on these inputs, as `bwd_work` gives it: the radial products (on the
+    tensor cores) split from the rest."""
     b, a, _, r = rbf.shape
     if kind == "A":
         live, (flops, nbytes) = _live_pairs(rbf), painn_fwd_flops_bytes(rbf, f)

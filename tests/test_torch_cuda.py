@@ -71,7 +71,7 @@ D_ARGS = C_ARGS + ("gds", "gdv", "gdsd", "gdvd")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + BUCKET_SHAPES)
 def test_fwd_kernel_matches_plain(card, shape):
     x = _inputs(shape, card)
     args = [x[k] for k in A_ARGS]
@@ -243,6 +243,89 @@ def test_dual_fn_on_card_matches_cpu(card):
         return [o.detach().cpu() for o in out] + [leaves[k].grad.cpu() for k in diff]
 
     _assert_close(run(card), run(torch.device("cpu")))
+
+
+def _fwd(kernel, x):
+    """Kernel A or C and its plain version on the inputs x."""
+    names, fn, ref = ((A_ARGS, pf.painn_fwd, pf.painn_message_reference) if kernel == "A"
+                      else (C_ARGS, pf.painn_dual_fwd, pf.painn_dual_fwd_reference))
+    args = [x[k] for k in names]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    return got, ref(*args), args, fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BUCKET_SHAPES)
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_fwd_kernels_repeat_their_bits_at_every_bucket(card, shape, kernel):
+    got, ref, args, fn = _fwd(kernel, _inputs(shape, card, seed=7))
+    _assert_close(got, ref)
+    assert all(torch.equal(p, q) for p, q in zip(got, fn(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_fwd_kernels_on_dead_receivers_and_molecules(card, kernel):
+    """A and C list the live pairs in receiver order (rbf, or in C rbf or
+    rbfd, not zero): a molecule with no live pair, one with every pair live,
+    a real receiver with no live sender and a pair live through rbfd alone
+    (rbf rounds to 0 at the cutoff's edge, its tangent does not), against
+    the plain version; the dead receivers' rows are exact zeros. Then a
+    batch with no live pair at all."""
+    x = {k: t.clone() for k, t in
+         _inputs((3, 48, 100, 128), card, seed=4, masks={0: 0.0, 1: 1.0}).items()}
+    x["rbf"][2, 5] = x["rbfd"][2, 5] = 0.0  # receiver 5 of molecule 2: no live sender
+    x["rbf"][2, 1, 2], x["rbfd"][2, 1, 2] = 0.0, 0.05  # the edge pair
+    got, ref, args, fn = _fwd(kernel, x)
+    _assert_close(got, ref)
+    assert all(bool((t[0] == 0).all()) and bool((t[2, 5] == 0).all()) for t in got)
+    if kernel == "C":
+        x["rbfd"][2, 1, 2] = 0.0
+        without = fn(*[x[k] for k in C_ARGS])
+        assert torch.equal(without[0], got[0]) and not torch.equal(without[2][2, 1], got[2][2, 1])
+    x["rbf"].zero_()
+    x["rbfd"].zero_()
+    got, ref, _, _ = _fwd(kernel, x)
+    assert all(float(t.abs().max()) == 0 for t in got)
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 9, 13, 30), (2, 9, 13, 300)], ids=["f30", "f300"])
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_fwd_kernels_pad_r_and_f(card, kernel, shape):
+    """R and 3F off multiples of 4: the wrapper pads them with zeros for the
+    engine, and the outputs keep the caller's shapes; F=300 runs the stage's
+    1024-thread instance."""
+    got, ref, _, _ = _fwd(kernel, _inputs(shape, card, seed=5))
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in ref]
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_fwd_products_run_on_the_engine(card, kernel):
+    """A's and C's radial products run on the SO(2) engine (so2_mma_kernel)
+    over the receiver-order list (so2_list_kernel, no pair-row map), then
+    their per-receiver stages; the CUDA-core bodies they replaced are gone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _inputs(BUCKET_SHAPES[0], card)
+    fn, names = (pf.painn_fwd, A_ARGS) if kernel == "A" else (pf.painn_dual_fwd, C_ARGS)
+    args = [x[k] for k in names]
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    stage = "painn_fwd_stage_kernel" if kernel == "A" else "painn_dual_fwd_stage_kernel"
+    for want in ("so2_mma_kernel", "so2_list_kernel", stage):
+        assert any(want in n for n in names), (want, names)
+    for gone in ("painn_fwd_kernel", "painn_dual_fwd_kernel", "so2_pair_rows_kernel"):
+        assert not any(gone in n for n in names), (gone, names)
 
 
 @pytest.mark.cuda

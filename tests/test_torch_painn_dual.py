@@ -1,9 +1,10 @@
 """The port's dual-number PaiNN message (kernels C and D) against the JAX op.
 
 The plain PyTorch versions of kernel C (`painn_dual_fwd_reference`) and
-kernel D (`painn_dual_bwd_reference`) are held against the JAX Pallas op
-`painn_dual` and its VJP, run in interpret mode on the CPU, on the same
-seeded numpy inputs; `PaiNNDualFn` (the autograd binding) is held against
+kernel D (`painn_dual_bwd_reference`), and the card's decompositions of
+both (`painn_dual_fwd_staged`, `painn_dual_bwd_staged`), are held against
+the JAX Pallas op `painn_dual` and its VJP, run in interpret mode on the
+CPU, on the same seeded numpy inputs; `PaiNNDualFn` (the autograd binding) is held against
 torch autograd through the plain forward, and the plain forward against
 torch's forward AD of kernel A's plain version. The CUDA kernels are held
 against the plain versions on the card in tests/test_torch_cuda.py.
@@ -28,6 +29,9 @@ C_IN = ("rbf", "rbfd", "phi", "phid", "v", "vd", "unit_t", "unitd_t", "w")
 COTS = ("gds", "gdv", "gdsd", "gdvd")
 D_OUT = ("gphi", "gphid", "gv", "gvd", "gw")
 DEAD_SENDER, PADDED, REAL_ATOMS = 2, 2, 5
+DEAD_RECEIVER = 4  # of molecule 0
+EDGE = (0, 1, 3)  # (b, i, j): a pair live through rbfd alone
+C_OUT = ("ds", "dv", "dsd", "dvd")
 
 
 @pytest.fixture(scope="module")
@@ -40,10 +44,14 @@ def data():
     mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
     mask[1, :, DEAD_SENDER] = 0.0  # a sender with no live receiver (mask[b, i, j], j sends)
     mask[PADDED, REAL_ATOMS:] = mask[PADDED, :, REAL_ATOMS:] = 0.0  # a molecule with padding
+    mask[0, DEAD_RECEIVER] = 0.0  # a real receiver with no live sender
+    mask[EDGE] = 1.0
     d = dict(rbf=mk(B, A, A, R) * mask[..., None], rbfd=mk(B, A, A, R) * mask[..., None],
              phi=mk(B, A, F3), phid=mk(B, A, F3), v=mk(B, A, F3), vd=mk(B, A, F3),
              unit_t=mk(B, A, 3, A), unitd_t=mk(B, A, 3, A), w=mk(R, F3),
              gds=mk(B, A, F), gdv=mk(B, A, F3), gdsd=mk(B, A, F), gdvd=mk(B, A, F3))
+    # at the cutoff's edge the envelope rounds to 0 but its derivative does not
+    d["rbf"][EDGE] = 0.0
     return d
 
 
@@ -208,3 +216,62 @@ def test_dual_bwd_work_splits_the_live_pairs_flops(data, need_gw):
     assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
     assert work["bytes"] == nbytes
     assert work["flops_live_products"] == (24 if need_gw else 12) * R * F * work["live_pairs"]
+
+
+# ---------------------------------------------------------------------------
+# kernel C's card decomposition (`painn_dual_fwd_staged`): the live pairs in
+# receiver order (rbf or rbfd row not zero), wm and wmd over them, the
+# per-receiver sums in list order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", C_OUT)
+def test_staged_dual_forward_matches_jax(data, jax_results, name):
+    out = dict(zip(C_OUT, tp.painn_dual_fwd_staged(*_t(data, *C_IN))))
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **FWD_TOL)
+
+
+def test_dual_live_rows_keep_the_pair_live_through_rbfd_alone(data):
+    """The rbfd-only pair is listed and adds its wmd terms: without it the
+    receiver's tangent lanes differ."""
+    rbf, rbfd = _t(data, "rbf", "rbfd")
+    b, i, j = EDGE
+    row = (b * A + i) * A + j
+    assert not bool((rbf.reshape(-1, R)[row] != 0).any())
+    rows, starts = tp.painn_live_rows(rbf, rbfd)
+    assert row in set(rows.tolist()) and row not in set(tp.painn_live_rows(rbf)[0].tolist())
+    assert len(rows) == int(((rbf != 0).any(-1) | (rbfd != 0).any(-1)).sum()) == int(starts[-1])
+    x = _t(data, *C_IN)
+    x[1] = x[1].clone()
+    x[1][EDGE] = 0.0
+    full, cut = tp.painn_dual_fwd_staged(*_t(data, *C_IN)), tp.painn_dual_fwd_staged(*x)
+    assert torch.equal(full[0], cut[0]) and torch.equal(full[1], cut[1])
+    assert not torch.equal(full[2][b, i], cut[2][b, i])
+
+
+def test_staged_dual_forward_gives_zeros_where_a_receiver_has_no_live_sender(data):
+    rbf, rbfd = _t(data, "rbf", "rbfd")
+    _, starts = tp.painn_live_rows(rbf, rbfd)
+    assert starts[DEAD_RECEIVER] == starts[DEAD_RECEIVER + 1]
+    for out in tp.painn_dual_fwd_staged(*_t(data, *C_IN)):
+        assert bool((out[0, DEAD_RECEIVER] == 0).all())
+        assert bool((out[PADDED, REAL_ATOMS:] == 0).all())
+
+
+def test_dual_live_rows_are_the_engines_list_of_row_flags(data):
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    rbf, rbfd = _t(data, "rbf", "rbfd")
+    rows, starts = tp.painn_live_rows(rbf, rbfd)
+    flags = ((rbf != 0).any(-1) | (rbfd != 0).any(-1)).reshape(-1).int()
+    eidx, _, rs, n = ea.so2_live_rows_reference(flags, A)
+    assert n == len(rows) and torch.equal(eidx.long(), rows) and torch.equal(rs.long(), starts)
+
+
+def test_dual_fwd_work_splits_the_live_pairs_flops(data):
+    rbf, rbfd = _t(data, "rbf", "rbfd")
+    work = tp.fwd_work("C", rbf, rbfd, F)
+    flops, nbytes = tp.painn_dual_fwd_flops_bytes(rbf, rbfd, F)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes and work["live_pairs"] == len(tp.painn_live_rows(rbf, rbfd)[0])
+    assert work["flops_live_products"] == 12 * R * F * work["live_pairs"]

@@ -1,8 +1,10 @@
 """The port's fused PaiNN message (kernels A and B) against the JAX op.
 
 The plain PyTorch versions of kernel A (`painn_message_reference`) and
-kernel B (`painn_message_bwd_reference`) are held against the JAX Pallas
-kernels run in interpret mode on the CPU, on the same seeded numpy inputs;
+kernel B (`painn_message_bwd_reference`), and the card's decompositions of
+both (`painn_fwd_staged`, `painn_bwd_staged`), are held against the JAX
+Pallas kernels run in interpret mode on the CPU, on the same seeded numpy
+inputs;
 `PaiNNMessageFn` (the autograd binding) is held against torch autograd
 through the plain forward. The CUDA kernels themselves are held against the
 plain versions on the card in tests/test_torch_cuda.py.
@@ -22,8 +24,11 @@ from nabladft_tpu_torch.ops import painn_fused as tp
 B, A, R, F = 4, 8, 12, 16
 F3 = 3 * F
 DEAD_SENDER, PADDED, REAL_ATOMS = 5, 3, 5
+DEAD_RECEIVER = 2  # of molecule 0
 B_OUT = ["g_dist", "g_unit_t", "gphi", "gv", "gw"]
 B_IN = ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")
+A_OUT = ["ds", "dv"]
+A_IN = ("rbf", "phi", "v", "unit_t", "w")
 
 
 def _inputs(seed=0):
@@ -36,6 +41,7 @@ def _inputs(seed=0):
     mask = (rng.random((B, A, A)) > 0.3).astype(np.float32)
     mask[1, :, DEAD_SENDER] = 0.0  # a sender with no live receiver (mask[b, i, j], j sends)
     mask[PADDED, REAL_ATOMS:] = mask[PADDED, :, REAL_ATOMS:] = 0.0  # a molecule with padding
+    mask[0, DEAD_RECEIVER] = 0.0  # a real receiver with no live sender
     phi, v, unit_t, w = mk(B, A, F3), mk(B, A, F3), mk(B, A, 3, A), mk(R, F3)
     gds, gdv = mk(B, A, F), mk(B, A, F3)
     return dict(dist=dist, mask=mask, phi=phi, v=v, unit_t=unit_t, w=w, gds=gds, gdv=gdv)
@@ -247,3 +253,62 @@ def test_bwd_work_splits_the_live_pairs_flops(data, need_gw):
     assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
     assert work["bytes"] == nbytes and work["pairs"] == B * A * A
     assert work["flops_live_products"] == (18 if need_gw else 12) * R * F * work["live_pairs"]
+
+
+# ---------------------------------------------------------------------------
+# kernel A's card decomposition (`painn_fwd_staged`): the live pairs in
+# receiver order, wm = rbf W over them, the per-receiver sums in list order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", A_OUT)
+def test_staged_forward_matches_jax_kernel(data, jax_results, name):
+    out = dict(zip(A_OUT, tp.painn_fwd_staged(*_t(data, *A_IN))))
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], rtol=2e-5, atol=2e-5)
+
+
+def test_staged_forward_gives_zeros_where_a_receiver_has_no_live_sender(data):
+    for out in tp.painn_fwd_staged(*_t(data, *A_IN)):
+        assert bool((out[0, DEAD_RECEIVER] == 0).all())
+        assert bool((out[PADDED, REAL_ATOMS:] == 0).all())
+        assert bool((out[0, DEAD_RECEIVER + 1] != 0).any())
+
+
+def test_live_row_list_is_in_receiver_order(data):
+    """The list covers every pair row whose rbf row is not zero, once, by
+    (molecule, receiver, sender); the dead receiver, the dead sender and the
+    padding atoms own no row."""
+    (rbf,) = _t(data, "rbf")
+    rows, starts = tp.painn_live_rows(rbf)
+    live = (rbf != 0).any(-1).reshape(-1)
+    assert len(rows) == int(live.sum()) == int(starts[-1])
+    assert bool((rows[1:] > rows[:-1]).all()) and bool(live[rows].all())
+    assert starts[DEAD_RECEIVER] == starts[DEAD_RECEIVER + 1]
+    b, j = rows // (A * A), rows % A
+    assert not bool(((b == 1) & (j == DEAD_SENDER)).any())
+    for a in range(REAL_ATOMS, A):
+        assert starts[PADDED * A + a] == starts[PADDED * A + a + 1]
+        assert not bool(((b == PADDED) & (j == a)).any())
+
+
+def test_live_row_list_is_the_engines_list_of_row_flags(data):
+    """painn_live_rows is what the card lists: so2_common.cuh's live_rows
+    (plain version `so2_live_rows_reference`) over the flags in pair-row
+    order, a segment a receiver."""
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    (rbf,) = _t(data, "rbf")
+    rows, starts = tp.painn_live_rows(rbf)
+    flags = (rbf != 0).any(-1).reshape(-1).int()
+    eidx, pos, rs, n = ea.so2_live_rows_reference(flags, A)
+    assert n == len(rows) and torch.equal(eidx.long(), rows) and torch.equal(rs.long(), starts)
+    assert torch.equal(pos[eidx.long()], torch.arange(n, dtype=torch.int32))
+
+
+def test_fwd_work_splits_the_live_pairs_flops(data):
+    (rbf,) = _t(data, "rbf")
+    work = tp.fwd_work("A", rbf, rbf, F)
+    flops, nbytes = tp.painn_fwd_flops_bytes(rbf, F)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes and work["live_pairs"] == len(tp.painn_live_rows(rbf)[0])
+    assert work["flops_live_products"] == 6 * R * F * work["live_pairs"]

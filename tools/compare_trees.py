@@ -4,7 +4,8 @@ turn on one card, to compare two versions within one machine.
     python3 tools/compare_trees.py steps --family schnet \
         --roots _trees/parent . . _trees/parent --out _trees/steps.jsonl
     python3 tools/compare_trees.py kernels --family schnet --roots _trees/parent .
-    python3 tools/compare_trees.py bits --roots _trees/parent . --out _trees/bits
+    python3 tools/compare_trees.py bits --roots _trees/parent . --out _trees/bits \
+        --changed A C
 
 Each root runs in a process of its own, with that root's `nabladft_tpu_torch`
 and `chip_smoke.py` first on the path.
@@ -35,10 +36,13 @@ then a summary line over the runs.
 `schnet_kernel_phases`: each kernel against its plain version at A=32/48/64)
 per root; the last line gives each kernel's ms per bucket and root.
 
-`bits`: kernels B, D, E, G and I-P at A=48 on chip_smoke.py's seeded inputs
-(PaiNN, SchNet, eSCN and EquiformerV2 B=64, QHNet B=8, full widths; B with
-gW): each root saves every output under --out, and the last line says, per
-kernel, whether every root gave the first root's bits.
+`bits`: kernels A-P at A=48 on chip_smoke.py's seeded inputs (PaiNN,
+SchNet, eSCN and EquiformerV2 B=64, QHNet B=8, full widths; B, D, F and H
+with gW): each root saves every output under --out, and the last line says,
+per kernel, whether every root gave the first root's bits. The kernels named
+by --changed (those the roots compute differently by design) are run twice
+in each root instead, and must give the same bits there; every other kernel
+must give the first root's bits. The exit code is 1 where either fails.
 
 Needs a CUDA card.
 """
@@ -128,9 +132,10 @@ def _import_root(root: Path):
     return cs
 
 
-def bits_child(root: Path, out: Path) -> dict:
-    """Kernels B, D, E, G and I-P's outputs at A=48 on chip_smoke's seeded
-    inputs, saved to out/<n>.pt (n: this root's place in --roots)."""
+def bits_child(root: Path, out: Path, changed: tuple) -> dict:
+    """Kernels A-P's outputs at A=48 on chip_smoke's seeded inputs, saved to
+    out/<n>.pt (n: this root's place in --roots); the `changed` kernels run
+    twice, and the line says whether they gave the same bits."""
     import torch
 
     cs = _import_root(root)
@@ -141,30 +146,42 @@ def bits_child(root: Path, out: Path) -> dict:
     from nabladft_tpu_torch.ops import schnet_fused as sf
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev, a, res = torch.device("cuda"), cs.HEADLINE_A, {}
-    as_tuple = (lambda t: t if isinstance(t, tuple) else (t,))  # noqa: E731
+    dev, a, res, rerun = torch.device("cuda"), cs.HEADLINE_A, {}, {}
+
+    def run(k, fn, *args, **kw):
+        def outputs():
+            got = fn(*args, **kw)
+            return [t.cpu() for t in (got if isinstance(got, tuple) else (got,)) if t is not None]
+        res[k] = outputs()
+        if k in changed:
+            rerun[k] = all(torch.equal(p, q) for p, q in zip(res[k], outputs()))
+
     x = cs.kernel_inputs(dev, a)
-    res["B"] = [t.cpu() for t in pf.painn_bwd(*[x[n] for n in (
-        "rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")])]
-    res["D"] = [t.cpu() for t in pf.painn_dual_bwd(*[x[n] for n in cs.D_ARGS])]
+    run("A", pf.painn_fwd, *[x[n] for n in ("rbf", "phi", "v", "unit_t", "w")])
+    run("B", pf.painn_bwd, *[x[n] for n in (
+        "rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")])
+    run("C", pf.painn_dual_fwd, *[x[n] for n in cs.C_ARGS])
+    run("D", pf.painn_dual_bwd, *[x[n] for n in cs.D_ARGS])
     x = cs.schnet_kernel_inputs(dev, a)
-    res["E"] = [sf.schnet_fwd(*[x[n] for n in cs.E_ARGS]).cpu()]
-    res["G"] = [t.cpu() for t in sf.schnet_dual_fwd(*[x[n] for n in cs.G_ARGS])]
+    for k, fn, names in (("E", sf.schnet_fwd, cs.E_ARGS), ("F", sf.schnet_bwd, cs.F_ARGS),
+                         ("G", sf.schnet_dual_fwd, cs.G_ARGS),
+                         ("H", sf.schnet_dual_bwd, cs.H_ARGS)):
+        run(k, fn, *[x[n] for n in names])
     x = cs.qhnet_kernel_inputs(dev, cs.QH_BATCH, a, cs.QH_C, seed=cs.SEED + 2000 + a)
     for k, fn in (("I", qt.qhnet_conv_fwd), ("J", qt.qhnet_conv_bwd), ("K", qt.qhnet_pair_fwd),
                   ("L", qt.qhnet_pair_bwd)):
-        res[k] = [t.cpu() for t in as_tuple(fn(*[x[n] for n in cs.QH_ARGS[k]]))]
+        run(k, fn, *[x[n] for n in cs.QH_ARGS[k]])
     x = cs.escn_kernel_inputs(dev, cs.BATCH, a, seed=cs.SEED + 3000 + a)
     args, dims = (x["x"], x["d"], x["xe"], *x["ws"]), x["dims"]
-    res["M"] = [t.cpu() for t in as_tuple(el.escn_fwd(*args, **dims))]
-    res["N"] = [t.cpu() for t in as_tuple(el.escn_bwd(*args, g=x["g"], **dims))]
+    run("M", el.escn_fwd, *args, **dims)
+    run("N", el.escn_bwd, *args, g=x["g"], **dims)
     del x, args
     inp = cs.eqv2_kernel_inputs(dev, cs.BATCH, a, seed=cs.SEED + 4000 + a, drop=True)
     args, dims = cs._eqv2_args(inp), inp["dims"]
-    res["O"] = [t.cpu() for t in as_tuple(ea.eqv2_fwd(*args, **dims))]
-    res["P"] = [t.cpu() for t in as_tuple(ea.eqv2_bwd(*args, g=inp["g"], **dims))]
+    run("O", ea.eqv2_fwd, *args, **dims)
+    run("P", ea.eqv2_bwd, *args, g=inp["g"], **dims)
     torch.save(res, out)
-    return {"root": str(root), "saved": str(out), "shapes": {
+    return {"root": str(root), "saved": str(out), "same_bits_on_rerun": rerun, "shapes": {
         k: [list(t.shape) for t in v] for k, v in res.items()}}
 
 
@@ -331,13 +348,16 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="steps: also write the JSON lines here; bits: the directory of "
                          "the saved outputs")
+    ap.add_argument("--changed", nargs="*", default=[],
+                    help="bits: kernels computed differently by design, held to their own "
+                         "bits on a rerun in each root instead of to the first root's")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--save", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         root = Path(args.child)
         if args.mode == "bits":
-            res = bits_child(root, Path(args.save))
+            res = bits_child(root, Path(args.save), tuple(args.changed))
         elif args.mode == "kernels":
             res = kernels_child(root, args.family)
         else:
@@ -353,7 +373,7 @@ def main() -> int:
         if args.mode == "bits":
             Path(args.out).mkdir(parents=True, exist_ok=True)
             saved.append(Path(args.out) / f"{n}.pt")
-            cmd += ["--save", str(saved[-1])]
+            cmd += ["--save", str(saved[-1]), "--changed", *args.changed]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode:
             sys.stderr.write(proc.stdout + proc.stderr)
@@ -362,8 +382,12 @@ def main() -> int:
         print(lines[-1], flush=True)
     if args.mode == "bits":
         same = _same_bits(saved)
-        print(json.dumps({"same_bits_as_first_root": same}), flush=True)
-        return 0 if all(same.values()) else 1
+        rerun = {json.loads(x)["root"]: json.loads(x)["same_bits_on_rerun"] for x in lines}
+        print(json.dumps({"same_bits_as_first_root": same, "same_bits_on_rerun": rerun,
+                          "changed": args.changed}), flush=True)
+        ok = all(v for k, v in same.items() if k not in args.changed) and all(
+            all(r.get(k, False) for k in args.changed) for r in rerun.values())
+        return 0 if ok else 1
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(lines) + "\n")
