@@ -23,13 +23,13 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                against the plain PyTorch version, and the kernel's, the plain
                version's and the bound's times (CUDA events, median / min /
                max of 25 runs after warm-up); B and F (each with and without
-               gW), D and H, and A and C, are run twice and must give the same
-               bits. A-D run their radial products, F and H their filter-MLP
-               products, on the tensor cores over the live pairs: their lines
-               carry each launched kernel's device ms (`stages_ms`). Every line
-               carries the live pairs and `bound_ms` with the products at the
-               3xTF32 rate beside `bound_fma_ms`, as I-P's (E and G run their
-               products on the CUDA cores). kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
+               gW), D and H, A and C, and E and G, are run twice and must give
+               the same bits. A-D run their radial products, E-H their
+               filter-MLP products, on the tensor cores over the live pairs:
+               their lines carry each launched kernel's device ms
+               (`stages_ms`). Every line carries the live pairs and `bound_ms`
+               with the products at the 3xTF32 rate beside `bound_fma_ms`, as
+               I-P's. kernel_I…kernel_L: QHNet's I (qhnet_conv_fwd),
                J (qhnet_conv_bwd), K (qhnet_pair_fwd), L (qhnet_pair_bwd) at the
                QHNet train path's shapes (B=8, A=32/48/64, C=128, LMAX 4, gate
                hiddens 32/32 for the conv and 8/128 for the pair; a/2..a real
@@ -54,7 +54,7 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
      profile — torch.profiler over two predict steps: device time by
                kernel and the device's busy share (printed before predict);
                PaiNN's must show the engine's products and A's and B's
-               stages, SchNet's F's.
+               stages, SchNet's E's and F's.
   4. train   — for each family, `pipelines.run` of ``job_type: train``
                (TRAIN_EPOCHS epochs, force_grads "pallas") on the same DB,
                then ``job_type: test`` from the best checkpoint; checks launch
@@ -71,7 +71,7 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
      train_profile — torch.profiler over two train steps (printed before
                train); PaiNN's must show A-D's engine products, their
                stages and D's gW on the engine's weight-gradient product;
-               SchNet's the same of F and H.
+               SchNet's the same of E-H (H's gW there).
   SchNet's lines carry the prefix ``schnet_`` (schnet_predict, ...).
   5. qhnet_train — `pipelines.run` of ``job_type: train`` on configs/qhnet.yaml
                at full width (hidden 128, bottle 32, 5 layers, 32 RBF, batch 8,
@@ -657,13 +657,12 @@ def schnet_kernel_bucket(sf, dev, a: int, card: str):
     """Kernels E-H at (KB, a, KR, KF) against their plain versions: errors
     (checked), and kernel / plain / bound times. F is checked and timed with
     the weight gradient and without it (as the predict and force paths run
-    it); H with it (as training runs it). F and H run their filter-MLP
-    products on the tensor cores over the live pairs: each runs twice for
-    the same bits (F with and without gW) and their lines carry each
-    launched kernel's device ms (`stages_ms`). Every line carries the live
-    pairs and `bound_ms` with the filter-MLP products at the 3xTF32 rate
-    beside `bound_fma_ms` (`_so2_row`; E and G run theirs on the CUDA
-    cores)."""
+    it); H with it (as training runs it). E-H run their filter-MLP products
+    on the tensor cores over the live pairs: each runs twice for the same
+    bits (F with and without gW) and their lines carry each launched
+    kernel's device ms (`stages_ms`). Every line carries the live pairs and
+    `bound_ms` with the filter-MLP products at the 3xTF32 rate beside
+    `bound_fma_ms` (`_so2_row`)."""
     x = schnet_kernel_inputs(dev, a)
     shape = [KB, a, KR, KF]
     rows = {}
@@ -678,12 +677,17 @@ def schnet_kernel_bucket(sf, dev, a: int, card: str):
         return dict(live_pairs=work["live_pairs"], pairs=work["pairs"])
 
     args = [x[k] for k in E_ARGS]
-    err = compare([sf.schnet_fwd(*args)], [sf.schnet_message_reference(*args)])
+    got = (sf.schnet_fwd(*args),)
+    err = compare(got, [sf.schnet_message_reference(*args)])
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel E error at {shape}: {err}")
+    _same_bits(lambda *t: (sf.schnet_fwd(*t),), args, got, f"kernel E at {shape}")
+    del got
+    stages = stage_times(sf.schnet_fwd, args)
     t_k = time_ms(lambda: sf.schnet_fwd(*args))
     t_p = time_ms(lambda: sf.schnet_message_reference(*args))
     work = sf.fwd_work("E", x["rbf"], x["envf"], x["envf"], KF)
-    emit_row("E", _so2_row(shape, err, t_k, t_p, work, card, **live(work)), t_k, t_p)
+    emit_row("E", _so2_row(shape, err, t_k, t_p, work, card, **live(work),
+                           bit_identical_rerun=True, stages_ms=stages), t_k, t_p)
 
     args = [x[k] for k in F_ARGS]
     got = sf.schnet_bwd(*args)
@@ -717,12 +721,17 @@ def schnet_kernel_bucket(sf, dev, a: int, card: str):
         t_k, t_p, kernel_times_without_gw=t_k_ng, plain_times_without_gw=t_p_ng)
 
     args = [x[k] for k in G_ARGS]
-    err = compare(sf.schnet_dual_fwd(*args), sf.schnet_dual_fwd_reference(*args))
+    got = sf.schnet_dual_fwd(*args)
+    err = compare(got, sf.schnet_dual_fwd_reference(*args))
     check(err["max_rel_err"] <= KERNEL_RTOL, f"kernel G error at {shape}: {err}")
+    _same_bits(sf.schnet_dual_fwd, args, got, f"kernel G at {shape}")
+    del got
+    stages = stage_times(sf.schnet_dual_fwd, args)
     t_k = time_ms(lambda: sf.schnet_dual_fwd(*args))
     t_p = time_ms(lambda: sf.schnet_dual_fwd_reference(*args))
     work = sf.fwd_work("G", x["rbf"], x["envf"], x["envfd"], KF)
-    emit_row("G", _so2_row(shape, err, t_k, t_p, work, card, **live(work)), t_k, t_p)
+    emit_row("G", _so2_row(shape, err, t_k, t_p, work, card, **live(work),
+                           bit_identical_rerun=True, stages_ms=stages), t_k, t_p)
 
     args = [x[k] for k in H_ARGS]
     got = sf.schnet_dual_bwd(*args)
@@ -744,8 +753,8 @@ def schnet_kernel_bucket(sf, dev, a: int, card: str):
 
 def schnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels E-H at every bucket shape of SchNet's predict and train paths
-    (the kernels line's numbers as in kernel_phases; F's and H's rows carry
-    the source's registers and spills, ptxas)."""
+    (the kernels line's numbers as in kernel_phases; every row carries the
+    source's registers and spills, ptxas)."""
     from nabladft_tpu_torch.ops import schnet_fused as sf
 
     per = {k: [] for k in SCHNET_KERNELS}
@@ -754,7 +763,7 @@ def schnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
             per[k].append(row)
         torch.cuda.empty_cache()
     rows = headline_rows(per, SCHNET_KERNELS, "schnet_fused", ("F",))
-    for k in "FH":
+    for k in "EFGH":
         rows[k]["ptxas"] = ptxas.get("schnet_fused", {})
     return rows
 
@@ -781,10 +790,12 @@ FAMILIES = {
     "schnet": dict(config="schnet", ops="schnet_fused", prefix="schnet_",
                    counters=("schnet_fwd", "schnet_bwd", "schnet_bwd_gw", "schnet_dual_fwd",
                              "schnet_dual_bwd"),
-                   # F's and H's products on the engine and their stages; H's gW on the
+                   # E-H's products on the engine and their stages; H's gW on the
                    # engine's weight-gradient product (train steps only)
-                   predict_present=("so2_mma_kernel", "schnet_bwd_stage_kernel"),
-                   train_present=("so2_mma_kernel", "schnet_bwd_stage_kernel",
+                   predict_present=("so2_mma_kernel", "schnet_fwd_stage_kernel",
+                                    "schnet_bwd_stage_kernel"),
+                   train_present=("so2_mma_kernel", "schnet_fwd_stage_kernel",
+                                  "schnet_bwd_stage_kernel", "schnet_dual_fwd_stage_kernel",
                                   "schnet_dual_bwd_stage_kernel", "so2_mmw_kernel")),
 }
 

@@ -6,39 +6,55 @@
 // with W1 [R,F], W2 [F,F], b1/b2 [F]; envf is the cosine cutoff times the
 // adjacency (zero off the edges) and rbf is NOT masked.
 //
-// Kernel E, schnet_fwd_kernel, replaces nabladft_tpu/ops/pallas/schnet_fused.py
-// `_fwd_kernel` (launched by `_run_fwd`'s pallas_call). Kernel F, schnet_bwd, replaces
-// `_bwd_kernel` (`_run_bwd`): the VJP of E, with the radial chain folded into g_dist through
-// rbfp = d rbf / d dist and envp = d envf / d dist. Kernel G, schnet_dual_fwd_kernel,
-// replaces `_dual_fwd_kernel` (`_run_dual_fwd`): E and its tangent along
-// (rbfd, envfd, xind) with the weights fixed. Kernel H, schnet_dual_bwd, replaces
-// `_dual_bwd_kernel` (`_run_dual_bwd`): the VJP of G for the node inputs and the weights only.
+// Kernel E, schnet_fwd, replaces nabladft_tpu/ops/pallas/schnet_fused.py `_fwd_kernel`
+// (launched by `_run_fwd`'s pallas_call). Kernel F, schnet_bwd, replaces `_bwd_kernel`
+// (`_run_bwd`): the VJP of E, with the radial chain folded into g_dist through rbfp = d rbf /
+// d dist and envp = d envf / d dist. Kernel G, schnet_dual_fwd, replaces `_dual_fwd_kernel`
+// (`_run_dual_fwd`): E and its tangent along (rbfd, envfd, xind) with the weights fixed.
+// Kernel H, schnet_dual_bwd, replaces `_dual_bwd_kernel` (`_run_dual_bwd`): the VJP of G for
+// the node inputs and the weights only.
 //
 // Layouts (as the JAX op): rbf, rbfp, rbfd [B,A,A,R]; envf, envp, envfd [B,A,A];
 // xin, xind, msg, gmsg [B,A,F]; all float32, contiguous.
 //
-// E and G, fp32 FMA on the CUDA cores: per live pair E does an [R]x[R,F] and an [F]x[F,F]
-// product (2RF + 2F^2 FMAs), G twice that; at B=64, A=48, R=100, F=128 E needs ~8 GFLOP
-// against ~0.07 GB of traffic. One block per (molecule b, receiver i) owns msg_i, a sum over
-// senders j, with no atomics. The block compacts the live senders (envf, or envfd for G,
-// nonzero: only there is the message nonzero, since rbf is not masked), stages their rbf rows
-// in shared memory, forms h for every live pair into shared memory (the second product needs
-// all F channels of h before any output channel exists), then h @ W2 folded straight into
-// msg. Each thread owns one channel and blocks of 8 rows in registers, so one weight load
-// (__ldg, L1/L2 resident) feeds 8 FMAs.
+// Every kernel runs its filter-MLP products (~96-98 % of its FLOPs) on so2_common.cuh's engine
+// (3xTF32 wgmma, fp32-accurate) over the live pairs only, into compact [live, F] rows; K = R
+// or F is a few k tiles, so the launches run persistent. A pair is live when envf, or the
+// second envelope lane (envp in F, envfd in G and H), is not zero: a dead pair adds exact
+// zeros to every output. (The rbf row cannot tell: it is not masked, and b1, b2 make every
+// row's MLP nonzero.) What is left runs on the CUDA cores in a stage that sums in registers in
+// a fixed order (no partials, no atomics): the same bits on every run. The work is bound by
+// operations: at B=64, A=48, R=100, F=128, E's 55,682 live pairs need ~3.3 GFLOP of products
+// against ~0.06 GB of inputs and outputs, at least 0.021 ms on an H100 SXM (the products at the
+// 3xTF32 rate, 494.5 / 3 TFLOP/s; 0.050 ms all at the fp32 FMA rate); G twice that (0.042 and
+// 0.099 ms).
 //
-// F and H, the filter-MLP products on the tensor cores over the live pairs only. Their outputs
-// are sums over receivers i for a fixed sender j (gxin; H's gxind), a sum over channels per
-// pair (F's g_dist) and the weight gradients, sums over every pair. So:
-//   * schnet_flags_kernel marks slot (b, j, i) live when envf[b,i,j] or the second envelope
-//     lane (envp in F, envfd in H) is not zero; a dead pair adds exact zeros to every output.
-//     (The rbf row cannot tell: it is not masked, and b1, b2 make every row's MLP nonzero.)
-//     so2_common.cuh's live_rows lists the live slots in that sender order with each sender's
-//     first row, and so2_pair_rows_kernel maps them to their pair rows (b, i, j).
-//   * The products run on so2_common.cuh's engine (3xTF32 wgmma, fp32-accurate) into compact
-//     [live, F] rows, persistent (K = R or F is a few k tiles): z1 = rbf W1 + b1 and the second
-//     lane a2 W1 (F: rpw = rbfp W1; H: z1d = rbfd W1) over the gathered rows; after
-//     schnet_ssp_kernel (s, h and H's hd = s z1d), wmr = h W2 + b2 (H: and wmrd = hd W2).
+// E and G, whose outputs are sums over senders j for a fixed receiver i (msg; G's msgd), list
+// the live pairs in receiver order:
+//   * schnet_flags_kernel<false> marks pair row (b, i, j) live when envf (G: or envfd) is not
+//     zero; a pair live through envfd alone still adds its wmr envfd xin_j term to msgd.
+//     live_rows over segments of A rows (a receiver's) lists the live pair rows with each
+//     receiver's first row: the list is the engine's gather list as it stands.
+//   * z1 = rbf W1 + b1 (G: and z1d = rbfd W1, a second problem of the same launch) over the
+//     gathered rows; schnet_ssp_kernel writes h = ssp(z1) over z1 (G: and hd = s z1d over
+//     z1d, s = sigmoid(z1), which is not kept); then wmr = h W2 + b2 (G: and wmrd = hd W2) in
+//     one launch. A call's scratch is two [B*A*A, F] arrays for E and four for G.
+//   * A stage, one block per (b, receiver i) and a thread per channel, walks i's live senders
+//     in list order: it reads each pair's product rows once, the sender's xin (G: and xind)
+//     row through L2 and the receiver's envf (G: and envfd) row from shared memory. It writes
+//     every receiver's row, zeros where the list is empty (padding, isolated atoms, an
+//     all-dead batch), so the outputs need no fill.
+//
+// F and H, whose outputs are sums over receivers i for a fixed sender j (gxin; H's gxind), a
+// sum over channels per pair (F's g_dist) and the weight gradients, sums over every pair, list
+// the live pairs in sender order:
+//   * schnet_flags_kernel<true> marks slot (b, j, i) live when envf[b,i,j] or the second lane
+//     (envp in F, envfd in H) is not zero; live_rows lists the live slots in that sender order
+//     with each sender's first row, and so2_pair_rows_kernel maps them to their pair rows (b,
+//     i, j).
+//   * z1 = rbf W1 + b1 and the second lane a2 W1 (F: rpw = rbfp W1; H: z1d = rbfd W1) over the
+//     gathered rows; after schnet_ssp_kernel (s, h and H's hd = s z1d), wmr = h W2 + b2 (H: and
+//     wmrd = hd W2).
 //   * A stage on the CUDA cores, one block per (b, sender j) and a thread per channel, walks
 //     j's live receivers, reads each pair's product rows once with the receiver's cotangents,
 //     sums gxin_j (gxind_j) in registers (no partials, no atomics) and overwrites the rows by
@@ -65,17 +81,9 @@
 
 namespace {
 
-constexpr int NT = 256;          // threads per block (E and G)
-constexpr int FT = 128;          // channel lanes per block
-constexpr int GROUPS = NT / FT;  // row groups sharing a channel lane (2)
-constexpr int JB = 8;            // rows per register block
-
 constexpr float LOG2F = 0.6931471805599453f;
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// rows padded so each of the GROUPS row groups holds whole JB blocks
-__host__ __device__ inline int padded_rows(int a) { return round_up(a, JB * GROUPS); }
 
 // softplus(x) - log 2 (as jax.nn.softplus: max(x,0) + log1p(exp(-|x|))) and
 // sigmoid(x), both from one exp
@@ -85,323 +93,32 @@ __device__ inline void ssp_sigmoid(float x, float& h, float& s) {
   s = (x >= 0.f ? 1.f : e) / (1.f + e);
 }
 
-// acc[q] += sum_k rows[(row0+q)*ld + k] * wcol[k*ldw]   for q < JB; ld % 4 == 0,
-// rows zero padded for k in [K, ld)
-__device__ inline void row_block_dot(const float* __restrict__ rows, int row0, int ld, int K,
-                                     const float* __restrict__ wcol, int ldw, float acc[JB]) {
-  for (int k = 0; k < ld; k += 4) {
-    const float w0 = k < K ? __ldg(wcol + (size_t)k * ldw) : 0.f;
-    const float w1 = k + 1 < K ? __ldg(wcol + (size_t)(k + 1) * ldw) : 0.f;
-    const float w2 = k + 2 < K ? __ldg(wcol + (size_t)(k + 2) * ldw) : 0.f;
-    const float w3 = k + 3 < K ? __ldg(wcol + (size_t)(k + 3) * ldw) : 0.f;
-#pragma unroll
-    for (int q = 0; q < JB; ++q) {
-      const float4 x = *reinterpret_cast<const float4*>(rows + (size_t)(row0 + q) * ld + k);
-      acc[q] = fmaf(x.x, w0, acc[q]);
-      acc[q] = fmaf(x.y, w1, acc[q]);
-      acc[q] = fmaf(x.z, w2, acc[q]);
-      acc[q] = fmaf(x.w, w3, acc[q]);
-    }
-  }
-}
-
-// two row sets against one weight column (one load feeds both)
-__device__ inline void row_block_dot2(const float* __restrict__ rows,
-                                      const float* __restrict__ rows2, int row0, int ld, int K,
-                                      const float* __restrict__ wcol, int ldw, float acc[JB],
-                                      float acc2[JB]) {
-  for (int k = 0; k < ld; k += 4) {
-    const float w0 = k < K ? __ldg(wcol + (size_t)k * ldw) : 0.f;
-    const float w1 = k + 1 < K ? __ldg(wcol + (size_t)(k + 1) * ldw) : 0.f;
-    const float w2 = k + 2 < K ? __ldg(wcol + (size_t)(k + 2) * ldw) : 0.f;
-    const float w3 = k + 3 < K ? __ldg(wcol + (size_t)(k + 3) * ldw) : 0.f;
-#pragma unroll
-    for (int q = 0; q < JB; ++q) {
-      const float4 x = *reinterpret_cast<const float4*>(rows + (size_t)(row0 + q) * ld + k);
-      acc[q] = fmaf(x.x, w0, acc[q]);
-      acc[q] = fmaf(x.y, w1, acc[q]);
-      acc[q] = fmaf(x.z, w2, acc[q]);
-      acc[q] = fmaf(x.w, w3, acc[q]);
-      const float4 y = *reinterpret_cast<const float4*>(rows2 + (size_t)(row0 + q) * ld + k);
-      acc2[q] = fmaf(y.x, w0, acc2[q]);
-      acc2[q] = fmaf(y.y, w1, acc2[q]);
-      acc2[q] = fmaf(y.z, w2, acc2[q]);
-      acc2[q] = fmaf(y.w, w3, acc2[q]);
-    }
-  }
-}
-
-// Warp 0 compacts the live entries of one pair row or column, in order:
-// entry t (t < A) sits at env[t * stride] (and env2[t * stride]); live where
-// either is nonzero. Writes live_s[k] = t, e_s[k], e2_s[k], kof_s[t] (the
-// compact index, -1 when dead) and *n_live.
-__device__ inline void compact_live(const float* __restrict__ env, const float* __restrict__ env2,
-                                    int A, int stride, int* live_s, float* e_s, float* e2_s,
-                                    int* kof_s, int* n_live) {
-  const int lane = threadIdx.x;
-  if (lane >= 32) return;
-  int count = 0;
-  for (int t0 = 0; t0 < A; t0 += 32) {
-    const int t = t0 + lane;
-    const float e = t < A ? env[(size_t)t * stride] : 0.f;
-    const float e2 = t < A ? env2[(size_t)t * stride] : 0.f;
-    const bool live = e != 0.f || e2 != 0.f;
-    const unsigned m = __ballot_sync(0xffffffffu, live);
-    const int k = count + __popc(m & ((1u << lane) - 1u));
-    if (live) {
-      live_s[k] = t;
-      e_s[k] = e;
-      e2_s[k] = e2;
-    }
-    if (t < A) kof_s[t] = live ? k : -1;
-    count += __popc(m);
-  }
-  if (lane == 0) *n_live = count;
-}
-
-// zero the pad columns [F, Fp) of rows [0, nLp) of an [.][Fp] tile
-__device__ inline void zero_pad_cols(float* t, int nLp, int F, int Fp) {
-  const int w = Fp - F;
-  if (w == 0) return;
-  for (int idx = threadIdx.x; idx < nLp * w; idx += blockDim.x)
-    t[(size_t)(idx / w) * Fp + F + idx % w] = 0.f;
-}
-
-// The shared-memory carve-up of kernels E and G, for L lanes (E 1, G 2: the primal and the
-// tangent):
-//   [X: L [Ap][Rp] rbf tiles x0, x1][T: L [Ap][Fp] tiles t0, t1 of h][e_s][e2_s][live_s]
-//   [kof_s][red: [GROUPS-1][2][FT] node slots]
-constexpr int LANES_E = 1, LANES_G = 2;
-
-struct Smem {
-  float *x0, *x1, *t0, *t1, *e_s, *e2_s, *red;
-  int *live_s, *kof_s;
-};
-
-__host__ __device__ inline size_t smem_bytes(int A, int R, int F, int L) {
-  const int Ap = padded_rows(A), Rp = round_up(R, 4), Fp = round_up(F, 4);
-  return sizeof(float) * ((size_t)L * Ap * (Rp + Fp) + 4 * (size_t)Ap +
-                          (size_t)(GROUPS - 1) * 2 * FT);
-}
-
-__device__ inline Smem carve(float* smem, int A, int R, int F, int L) {
-  const int Ap = padded_rows(A), Rp = round_up(R, 4), Fp = round_up(F, 4);
-  Smem s;
-  s.x0 = smem;
-  s.x1 = smem + (size_t)(L - 1) * Ap * Rp;
-  float* p = smem + (size_t)L * Ap * Rp;
-  s.t0 = p;
-  s.t1 = p + (size_t)(L - 1) * Ap * Fp;
-  p += (size_t)L * Ap * Fp;
-  s.e_s = p;
-  s.e2_s = s.e_s + Ap;
-  s.live_s = reinterpret_cast<int*>(s.e2_s + Ap);
-  s.kof_s = s.live_s + Ap;
-  s.red = reinterpret_cast<float*>(s.kof_s + Ap);
-  return s;
-}
-
-// stage the rbf rows (and a second set) of the live pairs, compacted and zero
-// padded to nLp rows; row k comes from base + live_s[k] * rstride
-__device__ inline void stage_rows(const float* __restrict__ src, const float* __restrict__ src2,
-                                  size_t base, size_t rstride, const int* live_s, int nL, int nLp,
-                                  int R, int Rp, float* dst, float* dst2) {
-  for (int idx = threadIdx.x; idx < nLp * Rp; idx += blockDim.x) {
-    const int k = idx / Rp, r = idx - k * Rp;
-    const bool in = k < nL && r < R;
-    const size_t at = base + (size_t)(in ? live_s[k] : 0) * rstride + r;
-    dst[idx] = in ? src[at] : 0.f;
-    if (src2 != nullptr) dst2[idx] = in ? src2[at] : 0.f;
-  }
-}
-
-// sum GROUPS partial values of NV accumulators per channel lane: group 0
-// ends with the totals; call with every thread of the block
-template <int NV>
-__device__ inline void group_reduce(float (&acc)[NV], float* red, int fl, int grp) {
-  if (grp > 0) {
-#pragma unroll
-    for (int t = 0; t < NV; ++t) red[((size_t)(grp - 1) * NV + t) * FT + fl] = acc[t];
-  }
-  __syncthreads();
-  if (grp == 0) {
-    for (int g = 1; g < GROUPS; ++g)
-#pragma unroll
-      for (int t = 0; t < NV; ++t) acc[t] += red[((size_t)(g - 1) * NV + t) * FT + fl];
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// kernel E: one block per (molecule b, receiver i)
+// the live pairs and the first layer's activation
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NT) schnet_fwd_kernel(
-    const float* __restrict__ rbf, const float* __restrict__ envf, const float* __restrict__ xin,
-    const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, float* __restrict__ msg, int A, int R, int F) {
-  extern __shared__ float4 smem4[];
-  __shared__ int n_live;
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LANES_E);
-  const int Rp = round_up(R, 4), Fp = round_up(F, 4);
-  const int bi = blockIdx.x, b = bi / A, tid = threadIdx.x;
-
-  compact_live(envf + (size_t)bi * A, envf + (size_t)bi * A, A, 1, sm.live_s, sm.e_s, sm.e2_s,
-               sm.kof_s, &n_live);
-  __syncthreads();
-  const int nL = n_live, nLp = padded_rows(nL);
-  stage_rows(rbf, nullptr, (size_t)bi * A * R, R, sm.live_s, nL, nLp, R, Rp, sm.x0, nullptr);
-  __syncthreads();
-
-  const int fl = tid % FT, grp = tid / FT, rows = nLp / GROUPS;
-  float* h_s = sm.t0;  // [nLp][Fp]
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b1[f] : 0.f;
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = 0.f;
-      row_block_dot(sm.x0, k0, Rp, R, w1 + (active ? f : 0), F, acc);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        float h, s;
-        ssp_sigmoid(acc[q] + bias, h, s);
-        h_s[(size_t)(k0 + q) * Fp + f] = h;
-      }
-    }
-  }
-  zero_pad_cols(h_s, nLp, F, Fp);
-  __syncthreads();
-
-  const float* xb = xin + (size_t)b * A * F;
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b2[f] : 0.f;
-    float m[1] = {0.f};
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = 0.f;
-      row_block_dot(h_s, k0, Fp, F, w2 + (active ? f : 0), F, acc);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const int k = k0 + q;
-        if (k >= nL) continue;
-        const float wm = (acc[q] + bias) * sm.e_s[k];
-        m[0] = fmaf(wm, xb[(size_t)sm.live_s[k] * F + f], m[0]);
-      }
-    }
-    group_reduce<1>(m, sm.red, fl, grp);
-    if (grp == 0 && active) msg[(size_t)bi * F + f] = m[0];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernel G: dual forward, one block per (molecule b, receiver i)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NT) schnet_dual_fwd_kernel(
-    const float* __restrict__ rbf, const float* __restrict__ rbfd, const float* __restrict__ envf,
-    const float* __restrict__ envfd, const float* __restrict__ xin, const float* __restrict__ xind,
-    const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, float* __restrict__ msg, float* __restrict__ msgd, int A, int R,
-    int F) {
-  extern __shared__ float4 smem4[];
-  __shared__ int n_live;
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), A, R, F, LANES_G);
-  const int Rp = round_up(R, 4), Fp = round_up(F, 4);
-  const int bi = blockIdx.x, b = bi / A, tid = threadIdx.x;
-
-  compact_live(envf + (size_t)bi * A, envfd + (size_t)bi * A, A, 1, sm.live_s, sm.e_s, sm.e2_s,
-               sm.kof_s, &n_live);
-  __syncthreads();
-  const int nL = n_live, nLp = padded_rows(nL);
-  stage_rows(rbf, rbfd, (size_t)bi * A * R, R, sm.live_s, nL, nLp, R, Rp, sm.x0, sm.x1);
-  __syncthreads();
-
-  const int fl = tid % FT, grp = tid / FT, rows = nLp / GROUPS;
-  float* h_s = sm.t0;   // [nLp][Fp] h = ssp(z1)
-  float* hd_s = sm.t1;  // [nLp][Fp] hd = s * z1d, z1d = rbfd @ W1
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b1[f] : 0.f;
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB], accd[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = accd[q] = 0.f;
-      row_block_dot2(sm.x0, sm.x1, k0, Rp, R, w1 + (active ? f : 0), F, acc, accd);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        float h, s;
-        ssp_sigmoid(acc[q] + bias, h, s);
-        h_s[(size_t)(k0 + q) * Fp + f] = h;
-        hd_s[(size_t)(k0 + q) * Fp + f] = s * accd[q];
-      }
-    }
-  }
-  zero_pad_cols(h_s, nLp, F, Fp);
-  zero_pad_cols(hd_s, nLp, F, Fp);
-  __syncthreads();
-
-  const float* xb = xin + (size_t)b * A * F;
-  const float* xdb = xind + (size_t)b * A * F;
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int f = f0 + fl;
-    const bool active = f < F;
-    const float bias = active ? b2[f] : 0.f;
-    float m[2] = {0.f, 0.f};  // msg, msgd
-    for (int k0 = grp * rows; k0 < (grp + 1) * rows; k0 += JB) {
-      float acc[JB], accd[JB];
-#pragma unroll
-      for (int q = 0; q < JB; ++q) acc[q] = accd[q] = 0.f;
-      row_block_dot2(h_s, hd_s, k0, Fp, F, w2 + (active ? f : 0), F, acc, accd);
-      if (!active) continue;
-#pragma unroll
-      for (int q = 0; q < JB; ++q) {
-        const int k = k0 + q;
-        if (k >= nL) continue;
-        const size_t nj = (size_t)sm.live_s[k] * F + f;
-        const float wmr = acc[q] + bias;
-        const float wm = wmr * sm.e_s[k];
-        const float wmd = fmaf(accd[q], sm.e_s[k], wmr * sm.e2_s[k]);
-        m[0] = fmaf(wm, xb[nj], m[0]);
-        m[1] = fmaf(wmd, xb[nj], fmaf(wm, xdb[nj], m[1]));
-      }
-    }
-    group_reduce<2>(m, sm.red, fl, grp);
-    if (grp == 0 && active) {
-      msg[(size_t)bi * F + f] = m[0];
-      msgd[(size_t)bi * F + f] = m[1];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernels F and H: the live pairs in sender order
-// ---------------------------------------------------------------------------
-
-// flags[(b*A + j)*A + i] = 1 when envf[b,i,j] or env2[b,i,j] (envp in F, envfd in H) is not
-// zero: a thread a pair, in pair order
+// flags = 1 for a pair p = (b*A + i)*A + j whose envf[p] or env2[p] (where given: envp in F,
+// envfd in G and H) is not zero: a thread a pair. BY_SENDER (F, H): at slot (b*A + j)*A + i;
+// else (E, G) at p, the pair row.
+template <bool BY_SENDER>
 __global__ void schnet_flags_kernel(const float* __restrict__ env, const float* __restrict__ env2,
                                     int* __restrict__ flags, int A, long long npairs) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npairs) return;
+  const int live = env[p] != 0.f || (env2 != nullptr && env2[p] != 0.f);
+  if (!BY_SENDER) {
+    flags[p] = live;
+    return;
+  }
   const long long bi = p / A, b = bi / A;
   const int j = (int)(p - bi * A), i = (int)(bi - b * A);
-  flags[(b * A + j) * A + i] = env[p] != 0.f || env2[p] != 0.f;
+  flags[(b * A + j) * A + i] = live;
 }
 
-// Over the live rows (n_rows x ld, float4 at a time): z = z1 becomes s = sigmoid(z1) in place
-// and h = ssp(z1) is written; with zd (H), z1d becomes hd = s z1d in place.
-__global__ void __launch_bounds__(256) schnet_ssp_kernel(float* __restrict__ z,
-                                                         float* __restrict__ h,
+// Over the live rows (n_rows x ld, float4 at a time), from z1 in z: h = ssp(z1) into h (which
+// may be z itself: E and G keep no s), s = sigmoid(z1) into s where given (F and H: s is z);
+// with zd (G, H), z1d becomes hd = s z1d in place. z, s and h may alias, so none is restrict.
+__global__ void __launch_bounds__(256) schnet_ssp_kernel(const float* z, float* s, float* h,
                                                          float* __restrict__ zd,
                                                          const int* __restrict__ n_rows, int ld) {
   const long long n4 = (long long)*n_rows * ld / 4;
@@ -414,7 +131,7 @@ __global__ void __launch_bounds__(256) schnet_ssp_kernel(float* __restrict__ z,
     ssp_sigmoid(zv.z, hv.z, sv.z);
     ssp_sigmoid(zv.w, hv.w, sv.w);
     reinterpret_cast<float4*>(h)[q] = hv;
-    reinterpret_cast<float4*>(z)[q] = sv;
+    if (s) reinterpret_cast<float4*>(s)[q] = sv;
     if (zd) {
       float4 d = reinterpret_cast<const float4*>(zd)[q];
       d = make_float4(sv.x * d.x, sv.y * d.y, sv.z * d.z, sv.w * d.w);
@@ -428,6 +145,100 @@ __global__ void __launch_bounds__(256) schnet_ssp_kernel(float* __restrict__ z,
 constexpr int SMAXT = 256;
 constexpr int FQ = 8;  // F's stage: receivers a thread holds at once (one pair sum each)
 constexpr int HQ = 4;  // H's stage
+constexpr int EQ = 8;  // E's and G's stages: senders a thread holds at once
+
+// ---------------------------------------------------------------------------
+// kernel E's stage: one block per (molecule b, receiver i), over i's live senders j (rows
+// rs[bi] .. rs[bi+1] - 1 of the compact wmr = h W2 + b2, F floats a row; eidx[e] the pair row
+// (b*A + i)*A + j), EQ at a time. Per channel f, in list order: msg_i = sum_j wmr envf xin_j.
+// ---------------------------------------------------------------------------
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) schnet_fwd_stage_kernel(
+    const float* __restrict__ wmr, const int* __restrict__ eidx, const int* __restrict__ rs,
+    const float* __restrict__ envf, const float* __restrict__ xin, float* __restrict__ msg,
+    int A, int F) {
+  extern __shared__ float stage_s[];  // [A]: envf[b,i,j] of this receiver
+  const int bi = blockIdx.x, b = bi / A, f = threadIdx.x;
+  for (int j = f; j < A; j += blockDim.x) stage_s[j] = envf[(size_t)bi * A + j];
+  __syncthreads();
+  if (f >= F) return;
+  const int e_lo = rs[bi], e_hi = rs[bi + 1], row0 = bi * A;  // eidx[e] - row0 = sender j
+  const float* xb = xin + (size_t)b * A * F + f;
+  float m = 0.f;
+  for (int e0 = e_lo; e0 < e_hi; e0 += EQ) {
+    const int n = min(EQ, e_hi - e0);
+    // every load of the EQ senders first, so that their latencies overlap
+    float w[EQ], x[EQ];
+    int jj[EQ];
+#pragma unroll
+    for (int q = 0; q < EQ; ++q) {
+      const bool ok = q < n;
+      const int e = e0 + (ok ? q : 0);
+      jj[q] = eidx[e] - row0;
+      w[q] = ok ? wmr[(size_t)e * F + f] : 0.f;
+      x[q] = ok ? xb[(size_t)jj[q] * F] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < EQ; ++q) m = fmaf(w[q] * stage_s[jj[q]], x[q], m);
+  }
+  msg[(size_t)bi * F + f] = m;
+}
+
+// ---------------------------------------------------------------------------
+// kernel G's stage: as E's, over i's live senders j (rows of the compact wmr = h W2 + b2 and
+// wmrd = hd W2), with the tangent lane. Per channel f, in list order, with e = envf, ed =
+// envfd of the pair:
+//   wm = wmr e,   wmd = wmrd e + wmr ed,   msg_i = sum_j wm xin_j,
+//   msgd_i = sum_j wmd xin_j + wm xind_j
+// ---------------------------------------------------------------------------
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) schnet_dual_fwd_stage_kernel(
+    const float* __restrict__ wmr, const float* __restrict__ wmrd, const int* __restrict__ eidx,
+    const int* __restrict__ rs, const float* __restrict__ envf, const float* __restrict__ envfd,
+    const float* __restrict__ xin, const float* __restrict__ xind, float* __restrict__ msg,
+    float* __restrict__ msgd, int A, int F) {
+  extern __shared__ float stage_s[];
+  float* e_s = stage_s;   // [A]: envf[b,i,j] of this receiver
+  float* ed_s = e_s + A;  // [A]: envfd[b,i,j]
+  const int bi = blockIdx.x, b = bi / A, f = threadIdx.x;
+  for (int j = f; j < A; j += blockDim.x) {
+    e_s[j] = envf[(size_t)bi * A + j];
+    ed_s[j] = envfd[(size_t)bi * A + j];
+  }
+  __syncthreads();
+  if (f >= F) return;
+  const int e_lo = rs[bi], e_hi = rs[bi + 1], row0 = bi * A;
+  const size_t nb = (size_t)b * A * F + f;
+  float m0 = 0.f, m1 = 0.f;
+  for (int e0 = e_lo; e0 < e_hi; e0 += EQ) {
+    const int n = min(EQ, e_hi - e0);
+    float w[EQ], wd[EQ], x[EQ], xd[EQ];
+    int jj[EQ];
+#pragma unroll
+    for (int q = 0; q < EQ; ++q) {
+      const bool ok = q < n;
+      const int e = e0 + (ok ? q : 0);
+      jj[q] = eidx[e] - row0;
+      const size_t nj = nb + (size_t)jj[q] * F;
+      w[q] = ok ? wmr[(size_t)e * F + f] : 0.f;
+      wd[q] = ok ? wmrd[(size_t)e * F + f] : 0.f;
+      x[q] = ok ? xin[nj] : 0.f;
+      xd[q] = ok ? xind[nj] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < EQ; ++q) {
+      const int j = jj[q];
+      const float wm = w[q] * e_s[j];
+      const float wmd = fmaf(wd[q], e_s[j], w[q] * ed_s[j]);
+      m0 = fmaf(wm, x[q], m0);
+      m1 = fmaf(wmd, x[q], fmaf(wm, xd[q], m1));
+    }
+  }
+  msg[(size_t)bi * F + f] = m0;
+  msgd[(size_t)bi * F + f] = m1;
+}
 
 // ---------------------------------------------------------------------------
 // kernel F's stage: one block per (molecule b, sender j), over j's live receivers i (rows
@@ -637,22 +448,28 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// F and H on the host: the live pairs, the filter-MLP products and gW on the engine
+// on the host: the live pairs, the filter-MLP products and gW on the engine
 // ---------------------------------------------------------------------------
 
-// what a call carves from its scratch: rows x ld arrays (F: z, z2, h, w; H: all five)
+// what a call carves from its scratch: rows x ld arrays (E: z, w; G: z, z2, w, w2; F: z, z2,
+// h, w; H: all five)
 struct Work {
-  float *z, *z2, *h, *w, *w2;  // see the stages in schnet_bwd / schnet_dual_bwd
+  float *z, *z2, *h, *w, *w2;  // see the entry points
   float* ge;                   // F: g_env of each live row
-  float* cs;                   // the bias sums' partials [2][CS_CHUNKS][F]
-  int *flags, *eidx, *pos, *row, *rs, *n_rows;
+  float* cs;                   // F, H: the bias sums' partials [2][CS_CHUNKS][F]
+  int *flags, *eidx, *pos, *rs, *n_rows;
+  int* row;                    // sender order (F, H): the pair rows of the listed slots
   Engine en;
 };
 
-enum { KIND_F = 0, KIND_H = 1 };
+enum { KIND_F = 0, KIND_H = 1, KIND_E = 2, KIND_G = 3 };
 
 long long pair_rows(int B, int A) { return (long long)B * A * A; }
-int n_arrays(int kind) { return kind == KIND_F ? 4 : 5; }
+bool by_sender(int kind) { return kind == KIND_F || kind == KIND_H; }
+int n_arrays(int kind) {
+  constexpr int n[] = {4, 5, 2, 4};
+  return n[kind];
+}
 
 // the weight-gradient products of a call (the biases are schnet_colsum_kernel's): F one launch
 // (gW1 and gW2 together), H two (gW2, then gW1); pointers null to size the partials
@@ -695,50 +512,65 @@ long long part_floats(int kind, long long rows, int R, int F) {
 
 long long prep_floats(int R, int F) { return 2LL * F * std::max(R, F); }
 
+// the arrays, the weights' TF32 halves and, in F and H, gW's and the bias sums' partials (and
+// F's g_env)
 long long scratch_floats(int kind, int B, int A, int R, int F) {
   const long long rows = pair_rows(B, A);
-  return n_arrays(kind) * rows * F + prep_floats(R, F) + part_floats(kind, rows, R, F) +
-         2LL * CS_CHUNKS * F + (kind == KIND_F ? rows : 0);
+  const long long base = n_arrays(kind) * rows * F + prep_floats(R, F);
+  if (!by_sender(kind)) return base;
+  return base + part_floats(kind, rows, R, F) + 2LL * CS_CHUNKS * F + (kind == KIND_F ? rows : 0);
 }
 
-long long scratch_ints(int B, int A) { return 4 * pair_rows(B, A) + (long long)B * A + 2; }
+// the flags, the list, its positions, each segment's first row and the count; in sender order
+// the pair rows too
+long long scratch_ints(int B, int A, bool sender_order) {
+  return (sender_order ? 4 : 3) * pair_rows(B, A) + (long long)B * A + 2;
+}
 
 Work carve_work(int kind, int B, int A, int R, int F, float* f, int* iw) {
   const long long rows = pair_rows(B, A), arr = rows * F;
+  const bool sender_order = by_sender(kind);
   Work w{};
-  float* p[5] = {};
-  for (int q = 0; q < n_arrays(kind); ++q) p[q] = f + q * arr;
-  w.z = p[0];
-  w.z2 = p[1];
-  w.h = p[2];
-  w.w = p[3];
-  w.w2 = p[4];
+  float** slot[5] = {&w.z, &w.z2, &w.h, &w.w, &w.w2};  // F, H; E: z, w; G: z, z2, w, w2
+  if (kind == KIND_E) slot[1] = &w.w;
+  if (kind == KIND_G) slot[2] = &w.w, slot[3] = &w.w2;
+  for (int q = 0; q < n_arrays(kind); ++q) *slot[q] = f + q * arr;
   float* prep = f + n_arrays(kind) * arr;
   float* part = prep + prep_floats(R, F);
-  w.cs = part + part_floats(kind, rows, R, F);
-  w.ge = kind == KIND_F ? w.cs + 2LL * CS_CHUNKS * F : nullptr;
+  const long long part_n = sender_order ? part_floats(kind, rows, R, F) : 0;
+  if (sender_order) {
+    w.cs = part + part_n;
+    w.ge = kind == KIND_F ? w.cs + 2LL * CS_CHUNKS * F : nullptr;
+  }
   w.flags = iw;
   w.eidx = iw + rows;
   w.pos = iw + 2 * rows;
-  w.row = iw + 3 * rows;
-  w.rs = iw + 4 * rows;
-  w.n_rows = w.rs + (long long)B * A + 1;
-  // the engine gathers the pair rows (b, i, j) of the live slots, listed in sender order
-  w.en = Engine{rows, w.n_rows, w.row, prep, prep_floats(R, F), part,
-                part_floats(kind, rows, R, F)};
+  int* q = iw + 3 * rows;
+  if (sender_order) {
+    w.row = q;
+    q += rows;
+  }
+  w.rs = q;
+  w.n_rows = q + (long long)B * A + 1;
+  // the engine gathers pair rows (b, i, j): in receiver order the list's own entries, in
+  // sender order those of the listed slots
+  w.en = Engine{rows, w.n_rows, sender_order ? w.row : w.eidx, prep, prep_floats(R, F),
+                sender_order ? part : nullptr, part_n};
   return w;
 }
 
-// the live slots (b, j, i) whose envf or env2 is not zero, in sender order (the engine's
-// live_rows over segments of A slots), each sender's first row and the pair rows
+// the live pairs (envf or env2 not zero), in receiver order (the engine's live_rows over
+// segments of A pair rows) or in sender order (slots (b, j, i), then their pair rows), with
+// each segment's first row
 cudaError_t live_pairs(const Work& w, const float* envf, const float* env2, int B, int A,
-                       cudaStream_t st) {
+                       bool sender_order, cudaStream_t st) {
   const long long rows = pair_rows(B, A);
   const unsigned blocks = (unsigned)((rows + 255) / 256);
-  schnet_flags_kernel<<<blocks, 256, 0, st>>>(envf, env2, w.flags, A, rows);
+  const auto mark = sender_order ? schnet_flags_kernel<true> : schnet_flags_kernel<false>;
+  mark<<<blocks, 256, 0, st>>>(envf, env2, w.flags, A, rows);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) err = live_rows(w.flags, w.eidx, w.pos, w.rs, w.n_rows, rows, A, st);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !sender_order) return err;
   so2_pair_rows_kernel<<<blocks, 256, 0, st>>>(w.eidx, w.n_rows, w.row, A);
   return cudaGetLastError();
 }
@@ -748,19 +580,30 @@ unsigned row_blocks(long long elems) {
   return (unsigned)std::max(1LL, std::min((elems + 255) / 256, 8LL * SMS));
 }
 
-// z1 = a1 W1 + b1 into z and a2 W1 into z2 over the gathered live rows (F: a2 = rbfp, rpw;
-// H: a2 = rbfd, z1d); then s, h (and H's hd) by schnet_ssp_kernel
+// z1 = a1 W1 + b1 into z (and a2 W1 into z2 where a2 is given: F's rpw = rbfp W1, G's and H's
+// z1d = rbfd W1) over the gathered live rows; then schnet_ssp_kernel: h = ssp(z1) into h,
+// s = sigmoid(z1) into s where given and, with `dual`, hd = s z1d over z2
 cudaError_t first_layer(const Work& w, const float* a1, const float* a2, const float* w1,
-                        const float* b1, int R, int F, bool dual, cudaStream_t st) {
-  NNProb p1 = prob({seg(a1, R, w1, F, R)}, F, EPI_GATES, w.z, F);
-  NNProb p2 = prob({seg(a2, R, w1, F, R)}, F, EPI_STORE, w.z2, F);
-  p1.bias = b1;
-  p1.gather = p2.gather = 1;
-  cudaError_t err = launch_products(w.en, {p1, p2}, st, true);
+                        const float* b1, float* s, float* h, bool dual, int R, int F,
+                        cudaStream_t st) {
+  std::vector<NNProb> probs{prob({seg(a1, R, w1, F, R)}, F, EPI_GATES, w.z, F)};
+  probs[0].bias = b1;
+  if (a2) probs.push_back(prob({seg(a2, R, w1, F, R)}, F, EPI_STORE, w.z2, F));
+  for (NNProb& p : probs) p.gather = 1;
+  cudaError_t err = launch_products(w.en, probs, st, true);
   if (err != cudaSuccess) return err;
   schnet_ssp_kernel<<<row_blocks(w.en.max_rows * F / 4), 256, 0, st>>>(
-      w.z, w.h, dual ? w.z2 : nullptr, w.n_rows, F);
+      w.z, s, h, dual ? w.z2 : nullptr, w.n_rows, F);
   return cudaGetLastError();
+}
+
+// wmr = h W2 + b2 into w (and wmrd = hd W2 into w2 where hd is given) over the compact rows
+cudaError_t second_layer(const Work& w, const float* h, const float* hd, const float* w2,
+                         const float* b2, int F, cudaStream_t st) {
+  std::vector<NNProb> probs{prob({seg(h, F, w2, F, F)}, F, EPI_GATES, w.w, F)};
+  probs[0].bias = b2;
+  if (hd) probs.push_back(prob({seg(hd, F, w2, F, F)}, F, EPI_STORE, w.w2, F));
+  return launch_products(w.en, probs, st, true);
 }
 
 bool shapes_ok(int B, int A, int R, int F) {
@@ -780,46 +623,70 @@ cudaError_t run_stage(K1 small, K2 large, int F, size_t smem, Launch launch) {
 
 size_t bwd_stage_smem(int F) { return sizeof(float) * 2 * (size_t)round_up(F, 32); }
 
+// E's stage: the receiver's envf row; G's: its envf and envfd rows
+size_t fwd_stage_smem(int A, int lanes) { return sizeof(float) * lanes * (size_t)A; }
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory per block of kernel `which` (0 E, 1 F's stage, 2 G, 3 H's stage) at
-// these sizes, as the launches ask for it; -1 for an unknown kernel.
+// Dynamic shared memory per block of kernel `which` (0 E's stage, 1 F's stage, 2 G's stage, 3
+// H's stage) at these sizes, as the launches ask for it; -1 for an unknown kernel.
 int schnet_smem_bytes(int which, int A, int R, int F) {
+  (void)R;
   switch (which) {
-    case 0: return (int)smem_bytes(A, R, F, LANES_E);
+    case 0: return (int)fwd_stage_smem(A, 1);
     case 1: return (int)bwd_stage_smem(F);
-    case 2: return (int)smem_bytes(A, R, F, LANES_G);
+    case 2: return (int)fwd_stage_smem(A, 2);
     case 3: return 0;
     default: return -1;
   }
 }
 
-// Each returns a cudaError_t (0 = success), launches on `stream`, does not sync.
-int schnet_fwd(const float* rbf, const float* envf, const float* xin, const float* w1,
-               const float* b1, const float* w2, const float* b2, float* msg, int B, int A, int R,
-               int F, void* stream) {
-  if (B == 0 || A == 0) return 0;
-  const size_t smem = smem_bytes(A, R, F, LANES_E);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(schnet_fwd_kernel), smem);
-  if (err != cudaSuccess) return (int)err;
-  schnet_fwd_kernel<<<B * A, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      rbf, envf, xin, w1, b1, w2, b2, msg, A, R, F);
-  return (int)cudaGetLastError();
+// Every entry point returns a cudaError_t (0 = success), launches on `stream` and does not
+// sync. They take R and F multiples of 4, F <= 1024 and 16-byte aligned pair tensors (else
+// cudaErrorInvalidValue), which the wrapper provides by zero padding, and scratch and iscratch
+// as the *_scratch_floats / _ints functions size them.
+
+// float and int scratch of a call of kernel `which` (0 E: schnet_fwd, 1 G: schnet_dual_fwd) on
+// B molecules of A atoms with R radial values and F channels
+long long schnet_fwd_scratch_floats(int which, int B, int A, int R, int F) {
+  return scratch_floats(which ? KIND_G : KIND_E, B, A, R, F);
 }
 
-// float and int scratch of a call of kernel `which` (0 F: schnet_bwd, 1 H: schnet_dual_bwd) on
-// B molecules of A atoms with R radial values and F channels
+long long schnet_fwd_scratch_ints(int B, int A) { return scratch_ints(B, A, false); }
+
+// Kernel E: every row of msg [B,A,F] is written.
+int schnet_fwd(const float* rbf, const float* envf, const float* xin, const float* w1,
+               const float* b1, const float* w2, const float* b2, float* msg, float* scratch,
+               int* iscratch, int B, int A, int R, int F, void* stream) {
+  if (!shapes_ok(B, A, R, F) || !aligned16(rbf)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_E, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, nullptr, B, A, false, st);
+  // h over z1, then wmr
+  if (err == cudaSuccess)
+    err = first_layer(wk, rbf, nullptr, w1, b1, nullptr, wk.z, false, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.z, nullptr, w2, b2, F, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = fwd_stage_smem(A, 1);
+  return (int)run_stage(schnet_fwd_stage_kernel<SMAXT>, schnet_fwd_stage_kernel<1024>, F, smem,
+                        [&](auto kernel, int threads) {
+                          kernel<<<B * A, threads, smem, st>>>(wk.w, wk.eidx, wk.rs, envf, xin,
+                                                               msg, A, F);
+                          return cudaGetLastError();
+                        });
+}
+
+// float and int scratch of a call of kernel `which` (0 F: schnet_bwd, 1 H: schnet_dual_bwd)
 long long schnet_bwd_scratch_floats(int which, int B, int A, int R, int F) {
   return scratch_floats(which, B, A, R, F);
 }
 
-long long schnet_bwd_scratch_ints(int B, int A) { return scratch_ints(B, A); }
+long long schnet_bwd_scratch_ints(int B, int A) { return scratch_ints(B, A, true); }
 
-// Kernels F and H take R and F multiples of 4, F <= 1024 and 16-byte aligned pair tensors (else
-// cudaErrorInvalidValue); scratch and iscratch as schnet_bwd_scratch_floats / _ints size them;
-// gw [R + 1 + F + 1, F] (gW1, gb1, gW2, gb2) is written only when need_gw != 0.
+// Kernels F and H: gw [R + 1 + F + 1, F] (gW1, gb1, gW2, gb2) is written only when need_gw != 0.
 // Kernel F: gdist [B,A,A] must hold zeros (only live pairs are written).
 int schnet_bwd(const float* rbf, const float* rbfp, const float* envf, const float* envp,
                const float* xin, const float* w1, const float* b1, const float* w2,
@@ -831,13 +698,9 @@ int schnet_bwd(const float* rbf, const float* rbfp, const float* envf, const flo
   if (B == 0 || A == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Work wk = carve_work(KIND_F, B, A, R, F, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, envf, envp, B, A, st);
-  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfp, w1, b1, R, F, false, st);
-  if (err == cudaSuccess) {  // wmr = h W2 + b2
-    NNProb p = prob({seg(wk.h, F, w2, F, F)}, F, EPI_GATES, wk.w, F);
-    p.bias = b2;
-    err = launch_products(wk.en, {p}, st, true);
-  }
+  cudaError_t err = live_pairs(wk, envf, envp, B, A, true, st);
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfp, w1, b1, wk.z, wk.h, false, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.h, nullptr, w2, b2, F, st);
   if (err == cudaSuccess) {
     const size_t smem = bwd_stage_smem(F);
     err = run_stage(schnet_bwd_stage_kernel<SMAXT>, schnet_bwd_stage_kernel<1024>, F, smem,
@@ -862,20 +725,32 @@ int schnet_bwd(const float* rbf, const float* rbfp, const float* envf, const flo
   return (int)(err != cudaSuccess ? err : bias_sums(wk, wk.z, wk.w, gw, R, F, st));
 }
 
+// Kernel G: as E (its live pairs are those of envf or envfd); every row of msg and msgd is
+// written.
 int schnet_dual_fwd(const float* rbf, const float* rbfd, const float* envf, const float* envfd,
                     const float* xin, const float* xind, const float* w1, const float* b1,
-                    const float* w2, const float* b2, float* msg, float* msgd, int B, int A, int R,
-                    int F, void* stream) {
+                    const float* w2, const float* b2, float* msg, float* msgd, float* scratch,
+                    int* iscratch, int B, int A, int R, int F, void* stream) {
+  if (!shapes_ok(B, A, R, F) || !aligned16(rbf) || !aligned16(rbfd))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0) return 0;
-  const size_t smem = smem_bytes(A, R, F, LANES_G);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(schnet_dual_fwd_kernel), smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_G, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, envfd, B, A, false, st);
+  // h over z1 and hd over z1d, then wmr and wmrd
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, nullptr, wk.z, true, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.z, wk.z2, w2, b2, F, st);
   if (err != cudaSuccess) return (int)err;
-  schnet_dual_fwd_kernel<<<B * A, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, msg, msgd, A, R, F);
-  return (int)cudaGetLastError();
+  const size_t smem = fwd_stage_smem(A, 2);
+  return (int)run_stage(schnet_dual_fwd_stage_kernel<SMAXT>, schnet_dual_fwd_stage_kernel<1024>,
+                        F, smem, [&](auto kernel, int threads) {
+                          kernel<<<B * A, threads, smem, st>>>(wk.w, wk.w2, wk.eidx, wk.rs, envf,
+                                                               envfd, xin, xind, msg, msgd, A, F);
+                          return cudaGetLastError();
+                        });
 }
 
-// Kernel H: as schnet_bwd (its live pairs are those of envf or envfd).
+// Kernel H: as F (its live pairs are those of envf or envfd).
 int schnet_dual_bwd(const float* rbf, const float* rbfd, const float* envf, const float* envfd,
                     const float* xin, const float* xind, const float* w1, const float* b1,
                     const float* w2, const float* b2, const float* gmsg, const float* gmsgd,
@@ -886,14 +761,9 @@ int schnet_dual_bwd(const float* rbf, const float* rbfd, const float* envf, cons
   if (B == 0 || A == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Work wk = carve_work(KIND_H, B, A, R, F, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, envf, envfd, B, A, st);
-  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, R, F, true, st);
-  if (err == cudaSuccess) {  // wmr = h W2 + b2, wmrd = hd W2
-    NNProb p1 = prob({seg(wk.h, F, w2, F, F)}, F, EPI_GATES, wk.w, F);
-    p1.bias = b2;
-    const NNProb p2 = prob({seg(wk.z2, F, w2, F, F)}, F, EPI_STORE, wk.w2, F);
-    err = launch_products(wk.en, {p1, p2}, st, true);
-  }
+  cudaError_t err = live_pairs(wk, envf, envfd, B, A, true, st);
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, wk.z, wk.h, true, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.h, wk.z2, w2, b2, F, st);
   if (err == cudaSuccess) {
     err = run_stage(schnet_dual_bwd_stage_kernel<SMAXT>, schnet_dual_bwd_stage_kernel<1024>, F,
                     0, [&](auto kernel, int threads) {

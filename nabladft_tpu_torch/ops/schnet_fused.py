@@ -35,11 +35,13 @@ Each kernel has its plain PyTorch version here with the same signature
 the plain version only for CPU tensors; a CUDA tensor launches the kernel
 (sources in ``csrc/schnet_fused.cu``) or raises.
 
-F and H run their filter-MLP products on the tensor cores (the SO(2) product
-engine of ``csrc/so2_common.cuh``) over the live pairs only (an envelope
-lane not zero), listed in sender order, around a per-sender stage on the
-CUDA cores; `schnet_bwd_staged` and `schnet_dual_bwd_staged` are that
-decomposition in plain torch (for the tests).
+Every kernel runs its filter-MLP products on the tensor cores (the SO(2)
+product engine of ``csrc/so2_common.cuh``) over the live pairs only (an
+envelope lane not zero), around a stage on the CUDA cores: E and G list the
+pairs in receiver order and sum per receiver, F and H list them in sender
+order and sum per sender. `schnet_fwd_staged`, `schnet_dual_fwd_staged`,
+`schnet_bwd_staged` and `schnet_dual_bwd_staged` are those decompositions in
+plain torch (for the tests).
 """
 
 from __future__ import annotations
@@ -70,9 +72,9 @@ def reset_launches() -> None:
 # FLOPs per channel and live pair of each kernel body, counted from the CUDA
 # code (an FMA is 2, any other add, multiply, max, divide, exp or log1p 1), as
 # (the R-long products' factor, the F-long products' factor, the rest): the
-# products are the filter MLP's (and the weight gradients'), which F and H
-# run on the tensor cores; the rest is the per-pair arithmetic of the stages
-# (and of E and G, which run both on the CUDA cores). Per channel:
+# products are the filter MLP's (and the weight gradients'), which every
+# kernel runs on the tensor cores; the rest is the per-pair arithmetic of
+# the epilogues and stages on the CUDA cores. Per channel:
 #   fwd    — z1 = rbf @ W1 (2R), + b1 (1), ssp (5); wmr = h @ W2 (2F), + b2,
 #            ⊙ envf, the FMA into msg (4);
 #   bwd    — z1 and rbfp @ W1 (4R), + b1, ssp and sigmoid (7), s ⊙ rpw (1);
@@ -223,6 +225,64 @@ def schnet_live_pairs(envf, env2):
     return slots, rows, starts
 
 
+def schnet_live_rows(envf, env2=None):
+    """Kernels E's and G's live-pair list: the pair rows (b·A + i)·A + j
+    whose envf, or env2 where given (G's envfd), is not zero, in receiver
+    order. Returns (rows, starts): `starts[b·A + i]` the first list index of
+    receiver i (`starts[B·A]` the count)."""
+    b, a = envf.shape[:2]
+    live = envf != 0
+    if env2 is not None:
+        live = live | (env2 != 0)
+    rows = live.reshape(-1).nonzero().squeeze(1)
+    counts = torch.bincount(rows // a, minlength=b * a)
+    return rows, torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+
+
+def _receiver_pairs(envf, env2, b, a):
+    """(rows, receiver b·A + i, sender b·A + j) of each live pair in
+    receiver order, and the sums over each receiver's pairs in list
+    order."""
+    rows, _ = schnet_live_rows(envf, env2)
+    recv = rows // a
+    sums = lambda x: x.new_zeros(b * a, x.shape[1]).index_add_(0, recv, x)  # noqa: E731
+    return rows, recv // a * a + rows % a, sums
+
+
+def schnet_fwd_staged(rbf, envf, xin, w1, b1, w2, b2):
+    """Kernel E's stages in the card's order, on plain tensors: the live
+    pairs in receiver order (`schnet_live_rows` of envf); h = ssp(rbf @ W1 +
+    b1) over them and wmr = h @ W2 + b2 (the products and the ssp step); the
+    per-receiver stage, per receiver i over its live senders j: msg_i = Σ_j
+    wmr envf xin_j, zero for a receiver with no live sender. Returns
+    schnet_message_reference's msg."""
+    b, a, _, r = rbf.shape
+    f = w1.shape[1]
+    rows, sender, sums = _receiver_pairs(envf, None, b, a)
+    wmr = _ssp(rbf.reshape(-1, r)[rows] @ w1 + b1[0]) @ w2 + b2[0]
+    wm = wmr * envf.reshape(-1)[rows][:, None]
+    return sums(wm * xin.reshape(b * a, f)[sender]).reshape(b, a, f)
+
+
+def schnet_dual_fwd_staged(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
+    """Kernel G's stages in the card's order, on plain tensors: the live
+    pairs in receiver order (envf or envfd not zero); z1 = rbf @ W1 + b1 and
+    z1d = rbfd @ W1 over them, h = ssp(z1) and hd = sigmoid(z1) z1d, wmr = h
+    @ W2 + b2 and wmrd = hd @ W2; the per-receiver stage: msg_i = Σ_j wm
+    xin_j and msgd_i = Σ_j wmd xin_j + wm xind_j with wm = wmr e, wmd = wmrd
+    e + wmr ed. Returns schnet_dual_fwd_reference's tuple."""
+    b, a, _, r = rbf.shape
+    f = w1.shape[1]
+    rows, sender, sums = _receiver_pairs(envf, envfd, b, a)
+    z1 = rbf.reshape(-1, r)[rows] @ w1 + b1[0]
+    hd = torch.sigmoid(z1) * (rbfd.reshape(-1, r)[rows] @ w1)
+    wmr, wmrd = _ssp(z1) @ w2 + b2[0], hd @ w2
+    e, ed = envf.reshape(-1)[rows][:, None], envfd.reshape(-1)[rows][:, None]
+    wm, wmd = wmr * e, wmrd * e + wmr * ed
+    xj, xdj = xin.reshape(b * a, f)[sender], xind.reshape(b * a, f)[sender]
+    return sums(wm * xj).reshape(b, a, f), sums(wmd * xj + wm * xdj).reshape(b, a, f)
+
+
 def _staged_pairs(envf, env2, b, a):
     """(rows, sender b·A + j, receiver b·A + i) of each live pair, in the
     card's order."""
@@ -315,15 +375,16 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.schnet_smem_bytes.argtypes = [i] * 4
     lib.schnet_smem_bytes.restype = i
-    lib.schnet_bwd_scratch_floats.argtypes = [i] * 5
-    lib.schnet_bwd_scratch_floats.restype = ctypes.c_longlong
-    lib.schnet_bwd_scratch_ints.argtypes = [i] * 2
-    lib.schnet_bwd_scratch_ints.restype = ctypes.c_longlong
-    lib.schnet_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
+    for kind in ("fwd", "bwd"):
+        getattr(lib, f"schnet_{kind}_scratch_floats").argtypes = [i] * 5
+        getattr(lib, f"schnet_{kind}_scratch_floats").restype = ctypes.c_longlong
+        getattr(lib, f"schnet_{kind}_scratch_ints").argtypes = [i] * 2
+        getattr(lib, f"schnet_{kind}_scratch_ints").restype = ctypes.c_longlong
+    lib.schnet_fwd.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.schnet_fwd.restype = i
     lib.schnet_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
     lib.schnet_bwd.restype = i
-    lib.schnet_dual_fwd.argtypes = [p] * 12 + [i] * 4 + [p]
+    lib.schnet_dual_fwd.argtypes = [p] * 14 + [i] * 4 + [p]
     lib.schnet_dual_fwd.restype = i
     lib.schnet_dual_bwd.argtypes = [p] * 17 + [i] * 5 + [p]
     lib.schnet_dual_bwd.restype = i
@@ -331,9 +392,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def smem_bytes(kernel: str, a: int, r: int, f: int) -> int:
-    """Dynamic shared memory per block that kernel "E", "F" (its stage), "G"
-    or "H" (its stage) asks for at A=a atoms, R=r, F=f (from the library's
-    own layout)."""
+    """Dynamic shared memory per block that the stage of kernel "E", "F",
+    "G" or "H" asks for at A=a atoms, R=r, F=f (from the library's own
+    layout)."""
     return _lib().schnet_smem_bytes("EFGH".index(kernel), a, r, f)
 
 
@@ -360,11 +421,10 @@ def _launch(name: str, *args) -> None:
 
 
 def _engine_operands(args: Dict[str, torch.Tensor], r: int, f: int):
-    """F's and H's inputs as their kernels take them: R and F rounded up to
-    multiples of 4 with zeros (the pair tensors' basis axis, the node
-    tensors' channels, the weights and biases); a copy only off those
-    multiples (schnet.yaml's R = 100, F = 128 need none). Returns (args, R4,
-    F4)."""
+    """A kernel's inputs as it takes them: R and F rounded up to multiples
+    of 4 with zeros (the pair tensors' basis axis, the node tensors'
+    channels, the weights and biases); a copy only off those multiples
+    (schnet.yaml's R = 100, F = 128 need none). Returns (args, R4, F4)."""
     r4, f4 = -(-r // 4) * 4, -(-f // 4) * 4
     pad = torch.nn.functional.pad
     out = {}
@@ -379,6 +439,14 @@ def _engine_operands(args: Dict[str, torch.Tensor], r: int, f: int):
             t = pad(t, (0, f4 - f)) if f4 != f else t
         out[k] = t
     return out, r4, f4
+
+
+def _fwd_buffers(kind, dev, b, a, r4, f4):
+    """(float scratch, int scratch) of an E ("E") or G ("G") launch."""
+    lib = _lib()
+    return (torch.empty(lib.schnet_fwd_scratch_floats("EG".index(kind), b, a, r4, f4),
+                        dtype=torch.float32, device=dev),
+            torch.empty(lib.schnet_fwd_scratch_ints(b, a), dtype=torch.int32, device=dev))
 
 
 def _bwd_buffers(kind, dev, b, a, r4, f4, need_gw):
@@ -406,10 +474,12 @@ def schnet_fwd(rbf, envf, xin, w1, b1, w2, b2) -> torch.Tensor:
     dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_message_reference(*args.values())
-    msg = torch.empty((b, a, f), dtype=torch.float32, device=dev)
-    _launch("schnet_fwd", *args.values(), msg, b, a, r, f)
+    args, r4, f4 = _engine_operands(args, r, f)
+    msg = torch.empty((b, a, f4), dtype=torch.float32, device=dev)  # every row is written
+    scratch, iscratch = _fwd_buffers("E", dev, b, a, r4, f4)
+    _launch("schnet_fwd", *args.values(), msg, scratch, iscratch, b, a, r4, f4)
     LAUNCHES["schnet_fwd"] += 1
-    return msg
+    return msg if f4 == f else msg[..., :f].contiguous()
 
 
 def schnet_bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, need_gw: bool = True):
@@ -444,10 +514,14 @@ def schnet_dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
     dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_dual_fwd_reference(*args.values())
-    msg = torch.empty((b, a, f), dtype=torch.float32, device=dev)
+    args, r4, f4 = _engine_operands(args, r, f)
+    msg = torch.empty((b, a, f4), dtype=torch.float32, device=dev)  # every row is written
     msgd = torch.empty_like(msg)
-    _launch("schnet_dual_fwd", *args.values(), msg, msgd, b, a, r, f)
+    scratch, iscratch = _fwd_buffers("G", dev, b, a, r4, f4)
+    _launch("schnet_dual_fwd", *args.values(), msg, msgd, scratch, iscratch, b, a, r4, f4)
     LAUNCHES["schnet_dual_fwd"] += 1
+    if f4 != f:
+        msg, msgd = msg[..., :f].contiguous(), msgd[..., :f].contiguous()
     return msg, msgd
 
 
@@ -612,7 +686,8 @@ def _work(kinds, live: int, r: int, f: int, flops: int, nbytes: int, pairs: int)
 def fwd_work(kind: str, rbf: torch.Tensor, envf: torch.Tensor, envfd: torch.Tensor,
              f: int) -> Dict[str, int]:
     """The work of kernel E (`kind` "E"; envfd unused) or G ("G") on these
-    inputs, as `bwd_work` gives it."""
+    inputs, as `bwd_work` gives it: the filter-MLP products (on the tensor
+    cores) split from the rest."""
     b, a, _, r = rbf.shape
     if kind == "E":
         live, (flops, nbytes) = _live(envf), schnet_fwd_flops_bytes(rbf, envf, f)

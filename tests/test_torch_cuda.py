@@ -491,12 +491,10 @@ def test_schnet_wrappers_raise_on_bad_card_inputs(card):
         sf.schnet_fwd(args[0].transpose(1, 2), *args[1:])
     with pytest.raises(ValueError, match="on cpu"):
         sf.schnet_fwd(args[0], args[1].cpu(), *args[2:])
-    # more shared memory than a block may have: refused at launch, raised
-    big = [_schnet_inputs((1, 8, 12, 16), card)[k] for k in E_ARGS]
-    huge = [torch.zeros(1, 8, 8, 4000, device=card), *big[1:3],
-            torch.zeros(4000, 16, device=card), *big[4:]]
+    # more channels than a stage's block has threads: refused at launch, raised
+    wide = [_schnet_inputs((1, 8, 12, 1028), card)[k] for k in E_ARGS]
     with pytest.raises(RuntimeError, match="schnet_fwd launch failed"):
-        sf.schnet_fwd(*huge)
+        sf.schnet_fwd(*wide)
 
 
 @pytest.mark.cuda
@@ -584,18 +582,18 @@ def test_schnet_pallas_train_step_on_card_matches_plain_direct(card):
 
 @pytest.mark.cuda
 def test_schnet_shared_memory_fits_two_blocks_per_sm_at_a48(card):
-    """The launches' dynamic shared memory: E's one [A,R] rbf tile and h
-    tile, G's two of each; F's and H's per-sender stages need only F's pair
-    sums. At A=48 every kernel leaves room for two blocks in the SM's 228 KB;
-    at A=64 each fits one."""
+    """The stages' dynamic shared memory: E's per-receiver stage holds the
+    receiver's envf row, G's its envf and envfd rows; F's per-sender stage
+    its warps' pair sums, H's none. At A=48 and A=64 every stage leaves room
+    for as many blocks of 128 threads as an SM runs (16) in its 228 KB."""
     from nabladft_tpu_torch.ops import schnet_fused as sf
 
-    assert sf.smem_bytes("E", 64, 100, 128) == 4 * (64 * 100 + 64 * 128 + 4 * 64 + 256)
-    assert sf.smem_bytes("G", 64, 100, 128) == 4 * (2 * 64 * 100 + 2 * 64 * 128 + 4 * 64 + 256)
+    assert sf.smem_bytes("E", 64, 100, 128) == 4 * 64
+    assert sf.smem_bytes("G", 64, 100, 128) == 4 * 2 * 64
     assert sf.smem_bytes("F", 64, 100, 128) == 4 * 2 * 128 and sf.smem_bytes("H", 64, 100, 128) == 0
     for k in "EFGH":
-        assert 2 * sf.smem_bytes(k, 48, 100, 128) <= 228 * 1024
-        assert sf.smem_bytes(k, 64, 100, 128) <= 227 * 1024
+        for a in (48, 64):
+            assert 16 * sf.smem_bytes(k, a, 100, 128) <= 228 * 1024
 
 
 def _schnet_bwd(sf, kernel, x, need_gw=True):
@@ -679,3 +677,94 @@ def test_schnet_bwd_products_run_on_the_engine(card, kernel):
     stage = "schnet_bwd_stage_kernel" if kernel == "F" else "schnet_dual_bwd_stage_kernel"
     for want in ("so2_mma_kernel", "so2_mmw_kernel", "so2_list_kernel", stage):
         assert any(want in n for n in names), (want, names)
+
+
+def _schnet_fwd(sf, kernel, x):
+    """Kernel E or G and its plain version on the inputs x, as tuples."""
+    names, fn, ref = ((E_ARGS, sf.schnet_fwd, sf.schnet_message_reference) if kernel == "E"
+                      else (G_ARGS, sf.schnet_dual_fwd, sf.schnet_dual_fwd_reference))
+    args = [x[k] for k in names]
+    tup = lambda t: t if isinstance(t, tuple) else (t,)  # noqa: E731
+    got = tup(fn(*args))
+    torch.cuda.synchronize()
+    return got, tup(ref(*args)), args, lambda *a: tup(fn(*a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BUCKET_SHAPES)
+@pytest.mark.parametrize("kernel", ["E", "G"])
+def test_schnet_fwd_kernels_repeat_their_bits_at_every_bucket(card, shape, kernel):
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    got, ref, args, fn = _schnet_fwd(sf, kernel, _schnet_inputs(shape, card, seed=7))
+    _assert_close(got, ref)
+    assert all(torch.equal(p, q) for p, q in zip(got, fn(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["E", "G"])
+def test_schnet_fwd_kernels_on_dead_receivers_and_molecules(card, kernel):
+    """E and G list the live pairs in receiver order (envf, or in G envf or
+    envfd, not zero): a molecule with no live pair, a real receiver with no
+    live sender and a pair live through envfd alone (envf zero at the
+    cutoff's edge), against the plain version; the dead receivers' rows are
+    exact zeros. Without the edge pair G's msg keeps its bits and msgd of
+    its receiver moves. Then a batch with no live pair at all."""
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    x = {k: v.clone() for k, v in _schnet_inputs((3, 48, 100, 128), card, seed=4).items()}
+    for k in ("envf", "envfd"):
+        x[k][0] = 0.0
+        x[k][2, 5] = 0.0  # receiver 5 of molecule 2: no live sender
+    x["envf"][2, 1, 2], x["envfd"][2, 1, 2] = 0.0, -0.04  # the edge pair
+    got, ref, _, fn = _schnet_fwd(sf, kernel, x)
+    _assert_close(got, ref)
+    assert all(bool((t[0] == 0).all()) and bool((t[2, 5] == 0).all()) for t in got)
+    if kernel == "G":
+        x["envfd"][2, 1, 2] = 0.0
+        without = fn(*[x[k] for k in G_ARGS])
+        assert torch.equal(without[0], got[0]) and not torch.equal(without[1][2, 1], got[1][2, 1])
+    for k in ("envf", "envfd"):
+        x[k].zero_()
+    got, ref, _, _ = _schnet_fwd(sf, kernel, x)
+    assert all(float(t.abs().max()) == 0 for t in got)
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 9, 13, 30), (2, 9, 50, 300)], ids=["f30", "f300"])
+@pytest.mark.parametrize("kernel", ["E", "G"])
+def test_schnet_fwd_kernels_pad_r_and_f(card, kernel, shape):
+    """R and F off multiples of 4: the wrapper pads them with zeros for the
+    engine, and the outputs keep the caller's shapes; F=300 runs the stage's
+    1024-thread instance."""
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    got, ref, _, _ = _schnet_fwd(sf, kernel, _schnet_inputs(shape, card, seed=5))
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in ref]
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["E", "G"])
+def test_schnet_fwd_products_run_on_the_engine(card, kernel):
+    """E's and G's filter-MLP products run on the SO(2) engine
+    (so2_mma_kernel) over the receiver-order list (so2_list_kernel, no
+    pair-row map), then their per-receiver stages; the CUDA-core bodies they
+    replaced are gone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nabladft_tpu_torch.ops import schnet_fused as sf
+
+    x = _schnet_inputs(BUCKET_SHAPES[0], card)
+    _schnet_fwd(sf, kernel, x)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _schnet_fwd(sf, kernel, x)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    stage = "schnet_fwd_stage_kernel" if kernel == "E" else "schnet_dual_fwd_stage_kernel"
+    for want in ("so2_mma_kernel", "so2_list_kernel", "schnet_ssp_kernel", stage):
+        assert any(want in n for n in names), (want, names)
+    for gone in ("schnet_fwd_kernel", "schnet_dual_fwd_kernel", "so2_pair_rows_kernel"):
+        assert not any(gone in n for n in names), (gone, names)

@@ -10,8 +10,11 @@ against torch's forward AD of kernel E's plain version. Kernel H's card
 decomposition (`schnet_dual_bwd_staged`) is held against the same JAX VJP,
 with and without gW, on inputs with a sender that has no live receiver, a
 padded molecule and a pair live only through envfd (at the cutoff's edge,
-where envf rounds to zero). The CUDA kernels are held against the plain
-versions on the card in tests/test_torch_cuda.py. Tolerances: 2e-5 forward,
+where envf rounds to zero). Kernel G's card decomposition
+(`schnet_dual_fwd_staged`: the live pairs in receiver order, envf or envfd
+not zero) is held against the JAX forward, the envfd-only pair and a
+receiver with no live sender included. The CUDA kernels are held against
+the plain versions on the card in tests/test_torch_cuda.py. Tolerances: 2e-5 forward,
 3e-4/3e-5 gradients.
 """
 
@@ -236,3 +239,62 @@ def test_dual_bwd_work_splits_the_live_pairs_flops(data, need_gw):
     fwd = ts.fwd_work("G", rbf, envf, envfd, F)
     assert fwd["flops_live"] == ts.schnet_dual_fwd_flops_bytes(rbf, envf, envfd, F)[0]
     assert fwd["live_pairs"] == work["live_pairs"]
+
+
+# ---------------------------------------------------------------------------
+# kernel G's card decomposition (`schnet_dual_fwd_staged`): the live pairs in
+# receiver order (envf or envfd not zero), the per-receiver sums
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["msg", "msgd"])
+def test_staged_dual_forward_matches_jax(data, jax_results, name):
+    out = dict(zip(("msg", "msgd"), ts.schnet_dual_fwd_staged(*_t(data, *G_IN))))
+    np.testing.assert_allclose(out[name].numpy(), jax_results[name], **FWD_TOL)
+
+
+def test_staged_dual_forward_lists_the_envfd_only_pair(data):
+    """The edge pair (envf 0, envfd not) is in G's list and not in E's, and
+    it moves msgd of its receiver only (the rest within the tolerance: the
+    products over one row fewer sum in another order). Its envfd is raised
+    to 0.5 here so that its term stands out of that tolerance."""
+    envf, envfd = _t(data, "envf", "envfd")
+    m, i, j = EDGE_PAIR
+    row = (m * A + i) * A + j
+    assert int((ts.schnet_live_rows(envf, envfd)[0] == row).sum()) == 1
+    assert not bool((ts.schnet_live_rows(envf)[0] == row).any())
+    args = [t.clone() for t in _t(data, *G_IN)]
+    args[3][EDGE_PAIR] = 0.5
+    cut = [t.clone() for t in args]
+    cut[1][EDGE_PAIR] = 0.0
+    cut[3][EDGE_PAIR] = 0.0
+    (msg, msgd), (msg_c, msgd_c) = ts.schnet_dual_fwd_staged(*args), ts.schnet_dual_fwd_staged(*cut)
+    assert float((msgd[m, i] - msgd_c[m, i]).abs().max()) > 1e-3
+    msgd_c[m, i] = msgd[m, i]
+    for x, y in ((msg, msg_c), (msgd, msgd_c)):
+        np.testing.assert_allclose(y.numpy(), x.numpy(), **FWD_TOL)
+
+
+def test_staged_dual_forward_gives_zeros_where_a_receiver_has_no_live_sender(data):
+    """Receiver 1 of molecule 0 cut off in both lanes, and the padded
+    molecule's padding atoms: zero rows, and the rest as the plain version."""
+    args = [t.clone() for t in _t(data, *G_IN)]
+    for k in (2, 3):  # envf, envfd
+        args[k][0, 1] = 0.0
+    got = ts.schnet_dual_fwd_staged(*args)
+    for out, ref in zip(got, ts.schnet_dual_fwd_reference(*args)):
+        assert bool((out[0, 1] == 0).all()) and bool((out[PADDED, REAL_ATOMS:] == 0).all())
+        assert bool((out[0, 2] != 0).any())
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), **FWD_TOL)
+
+
+def test_dual_fwd_work_splits_the_live_pairs_flops(data):
+    rbf, envf, envfd = _t(data, "rbf", "envf", "envfd")
+    work = ts.fwd_work("G", rbf, envf, envfd, F)
+    flops, nbytes = ts.schnet_dual_fwd_flops_bytes(rbf, envf, envfd, F)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes
+    assert work["live_pairs"] == len(ts.schnet_live_rows(envf, envfd)[0])
+    assert work["live_pairs"] == len(ts.schnet_live_rows(envf)[0]) + 1  # the edge pair
+    assert work["flops_live_products"] == (4 * R + 4 * F) * F * work["live_pairs"]
+    assert work["flops_live_other"] == 20 * F * work["live_pairs"]

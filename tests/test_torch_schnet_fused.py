@@ -12,7 +12,10 @@ pairs in sender order, the filter-MLP products over them, the per-sender
 stage, gz1, g_dist and gW) is held against the same JAX VJP, with and
 without gW, on inputs with a sender that has no live receiver, a padded
 molecule and a pair live only through envp (at the cutoff's edge, where
-envf rounds to zero). The CUDA kernels are held against the plain versions
+envf rounds to zero). Kernel E's card decomposition (`schnet_fwd_staged`: the live pairs in
+receiver order, the filter-MLP products over them, the per-receiver stage)
+is held against the JAX forward on the same inputs, which hold a receiver
+with no live sender. The CUDA kernels are held against the plain versions
 on the card in tests/test_torch_cuda.py. Tolerances as in
 tests/ops/test_painn_fused.py: 2e-5 forward, 3e-4/3e-5 gradients (float32
 sums in another order).
@@ -299,3 +302,69 @@ def test_bwd_work_splits_the_live_pairs_flops(data, need_gw):
     fwd = ts.fwd_work("E", rbf, envf, envf, F)
     assert fwd["flops_live"] == ts.schnet_fwd_flops_bytes(rbf, envf, F)[0]
     assert fwd["flops_live_products"] == (2 * R + 2 * F) * F * int((envf != 0).sum())
+
+
+# ---------------------------------------------------------------------------
+# kernel E's card decomposition (`schnet_fwd_staged`): the live pairs in
+# receiver order, the filter-MLP products over them, the per-receiver sums in
+# list order
+# ---------------------------------------------------------------------------
+
+# molecule 1's receivers 5.. have no live sender (their senders' rows are live)
+DEAD_RECEIVERS = (1, slice(5, None))
+
+
+def test_staged_forward_matches_jax_kernel(data, jax_results):
+    msg = ts.schnet_fwd_staged(*_t(data, *E_IN))
+    np.testing.assert_allclose(msg.numpy(), jax_results["msg"], **FWD_TOL)
+
+
+def test_staged_forward_gives_zeros_where_a_receiver_has_no_live_sender(data):
+    msg = ts.schnet_fwd_staged(*_t(data, *E_IN))
+    assert bool((msg[DEAD_RECEIVERS] == 0).all()) and bool((msg[PADDED, REAL_ATOMS:] == 0).all())
+    assert bool((msg[1, 4] != 0).any()) and bool((msg[PADDED, REAL_ATOMS - 1] != 0).any())
+
+
+def test_live_row_list_is_in_receiver_order(data):
+    """The list covers every pair row whose envf is not zero, once, by
+    (molecule, receiver, sender); the edge pair (envf 0), the dead
+    receivers, the dead sender and the padding atoms own no row."""
+    (envf,) = _t(data, "envf")
+    rows, starts = ts.schnet_live_rows(envf)
+    live = (envf != 0).reshape(-1)
+    assert len(rows) == int(live.sum()) == int(starts[-1])
+    assert bool((rows[1:] > rows[:-1]).all()) and bool(live[rows].all())
+    m, i, j = EDGE_PAIR
+    assert not bool((rows == (m * A + i) * A + j).any())
+    for r in range(5, A):
+        assert starts[A + r] == starts[A + r + 1]
+    b, j = rows // (A * A), rows % A
+    assert not bool(((b == 0) & (j == DEAD_SENDER)).any())
+    for a in range(REAL_ATOMS, A):
+        assert starts[PADDED * A + a] == starts[PADDED * A + a + 1]
+        assert not bool(((b == PADDED) & (j == a)).any())
+
+
+def test_live_row_list_is_the_engines_list_of_row_flags(data):
+    """schnet_live_rows is what the card lists: so2_common.cuh's live_rows
+    (plain version `so2_live_rows_reference`) over the envelope flags in
+    pair-row order, a segment a receiver."""
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    envf, envp = _t(data, "envf", "envp")
+    for env2 in (None, envp):
+        rows, starts = ts.schnet_live_rows(envf, env2)
+        live = envf != 0 if env2 is None else (envf != 0) | (env2 != 0)
+        eidx, pos, rs, n = ea.so2_live_rows_reference(live.reshape(-1).int(), A)
+        assert n == len(rows) and torch.equal(eidx.long(), rows) and torch.equal(rs.long(), starts)
+        assert torch.equal(pos[eidx.long()], torch.arange(n, dtype=torch.int32))
+
+
+def test_fwd_work_splits_the_live_pairs_flops(data):
+    rbf, envf = _t(data, "rbf", "envf")
+    work = ts.fwd_work("E", rbf, envf, envf, F)
+    flops, nbytes = ts.schnet_fwd_flops_bytes(rbf, envf, F)
+    assert work["flops_live"] == flops == work["flops_live_products"] + work["flops_live_other"]
+    assert work["bytes"] == nbytes and work["live_pairs"] == len(ts.schnet_live_rows(envf)[0])
+    assert work["flops_live_products"] == (2 * R + 2 * F) * F * work["live_pairs"]
+    assert work["flops_live_other"] == 10 * F * work["live_pairs"]
