@@ -72,6 +72,28 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                train); PaiNN's must show A-D's engine products, their
                stages and D's gW on the engine's weight-gradient product;
                SchNet's the same of E-H (H's gW there).
+     painn_optimize — after PaiNN's train phase: `pipelines.run` of
+               ``job_type: optimize`` on configs/painn-oc_optim.yaml (full
+               width, batch 32, fmax 0.05, memory 100, maxstep 0.2, no line
+               search, steps capped at OPT_STEPS) from that phase's best
+               checkpoint over the DB's first OPT_MOLS molecules; checks the
+               rows (input key-value pairs and data kept; finite positions,
+               energies and forces) and launches (A and B 6 x the
+               evaluations, Σ over batches of iterations + 1; B's gW stage and
+               C-P never); per bucket OPT_CHECK_ITERS iterations of the first
+               batch fused and plain on the card (after each iteration E and F
+               within the model tolerances of the plain module at the fused
+               positions; the two runs' positions within OPT_POS_ATOL after
+               OPT_POS_ITERS iterations, and their gap after each iteration
+               printed) and its first iteration against the CPU plain path
+               (positions within OPT_POS_ATOL, E and F as above); one batch
+               MT_STEPS steps with the "mt" line search (the reference's c1
+               0.23, c2 0.46): every lane finite, A and B once an evaluation;
+               molecules/s, batch-iterations/s, the converged share, total
+               steps, the mean energy drop and the share of molecules
+               lowered, peak memory; torch.profiler over two iterations with
+               a full history ring: the device's busy share, the top kernels
+               and the two-loop recursion's host ms.
   SchNet's lines carry the prefix ``schnet_`` (schnet_predict, ...).
   5. qhnet_train — `pipelines.run` of ``job_type: train`` on configs/qhnet.yaml
                at full width (hidden 128, bottle 32, 5 layers, 32 RBF, batch 8,
@@ -161,6 +183,19 @@ SEED = 0
 N_MOLS, MIN_ATOMS, MAX_ATOMS = 256, 8, 62
 BATCH, BUCKETS = 64, (32, 48, 64)
 TRAIN_EPOCHS = 2
+# the optimize job (configs/painn-oc_optim.yaml: batch 32, fmax 0.05, memory
+# 100, maxstep 0.2) over the seeded DB's first OPT_MOLS molecules, its steps
+# capped at OPT_STEPS (results/optimize_benchmark.json's cap); fused against
+# plain over OPT_CHECK_ITERS iterations of one batch per bucket; "mt" over
+# MT_STEPS steps with the reference's c1 / c2
+OPT_MOLS, OPT_STEPS, OPT_CHECK_ITERS, MT_STEPS, MT_C1, MT_C2 = 64, 100, 5, 10, 0.23, 0.46
+# Å, the fused and plain runs' positions after OPT_POS_ITERS iterations: the
+# runs part as L-BFGS amplifies the forces' rounding (3-5x an iteration at
+# painn-oc width; on the H100 at A=32 <= 7.8e-6 Å after 3, 5.3e-5-7.1e-5
+# after 5), so the positions
+# are held where that growth leaves the limit a wide margin; the kernels
+# are held by E and F at the same positions after every iteration
+OPT_POS_ATOL, OPT_POS_ITERS = 1e-4, 3
 # QHNet (configs/qhnet.yaml): batch 8, atom buckets as above, orbital buckets;
 # a seeded Hamiltonian DB of QH_MOLS molecules
 QH_BATCH, QH_ORB_BUCKETS, QH_MOLS = 8, (256, 384, 512, 640), 96
@@ -227,6 +262,23 @@ def train_config(source: str, root: str, ckpt_dir: str, output_dir: str,
                output_dir=output_dir)
     cfg["trainer"] = dict(cfg["trainer"], max_epochs=TRAIN_EPOCHS, log_every_n_steps=1)
     return cfg
+
+
+def optimize_config(source: str, root: str, ckpt_path: str, output_db: str) -> dict:
+    """configs/painn-oc_optim.yaml composed with datamodule.source/root,
+    ckpt_path, output_db, optimize.steps=OPT_STEPS and
+    optimize.line_search=off (checked against `load_config` by the test
+    suite)."""
+    return {
+        "name": "painn-oc-optim", "job_type": "optimize", "seed": 42,
+        "datamodule": {"kind": "energy", "source": source, "root": root},
+        "optimize": {"batch_size": 32, "fmax": 0.05, "steps": OPT_STEPS, "memory": 100,
+                     "maxstep": 0.2, "energy_unit": "Hartree", "position_unit": "Ang",
+                     "line_search": "off"},
+        "output_db": output_db,
+        "model": _painn_oc(source, root)["model"],
+        "ckpt_path": ckpt_path,
+    }
 
 
 def _composed(name: str, model: dict, source: str, root: str) -> dict:
@@ -1084,6 +1136,196 @@ def gradient_check(cfg: dict, dm) -> list:
                     "loss_plain": float(lp["total"])})
     check(sorted(first) == list(BUCKETS), f"gradient check buckets {sorted(first)}")
     return out
+
+
+def _opt_model(cfg: dict, dev, use_pallas: bool):
+    """The optimize job's model on `dev` (`build_optimize_model`, as
+    `run_optimize_job` builds it), with ``optimize.use_pallas`` set."""
+    from nabladft_tpu_torch.optimize.task import build_optimize_model
+
+    model = build_optimize_model(
+        dict(cfg, optimize=dict(cfg["optimize"], use_pallas=use_pallas)), dev)
+    want = "fused" if use_pallas and dev.type == "cuda" else "off"
+    check(model.use_pallas == want, f"optimize model runs {model.use_pallas}, not {want}")
+    return model
+
+
+def optimize_phase(tmp: Path, db: Path) -> dict:
+    """`job_type: optimize` of configs/painn-oc_optim.yaml from the best
+    checkpoint of the PaiNN train phase over the DB's first OPT_MOLS
+    molecules (see the module docstring); returns the launch counts of the
+    run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.data import AseDatabase, BucketedLoader, EnergyDataset, LoaderConfig
+    from nabladft_tpu_torch.optimize import BatchwiseCalculator, lbfgs_relax
+    from nabladft_tpu_torch.optimize.lbfgs import init_lbfgs_state, relax_chunked
+
+    src = tmp / "optimize_in.db"
+    seeded, out = AseDatabase(db), AseDatabase(src, create=True)
+    try:
+        inputs = list(itertools.islice(seeded.select_all(), OPT_MOLS))
+        for rec in inputs:
+            out.write(rec)
+    finally:
+        seeded.close()
+        out.close()
+    ckpt = tmp / "ckpt_painn"
+    best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
+    cfg = optimize_config(str(src), str(tmp), str(ckpt / best), str(tmp / "optimized.db"))
+
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    stats = pipelines.run(cfg)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    n_layers = cfg["model"]["kwargs"]["n_interactions"]
+    evals = stats["total_lbfgs_steps"] + stats["batches"]  # Σ_batches (nsteps + 1)
+    want = dict.fromkeys(launches, 0)  # B's gW stage and C-P: none
+    want.update(painn_fwd=n_layers * evals, painn_bwd=n_layers * evals)
+    check(launches == want, f"optimize launches {launches}, expected {want}")
+    check(stats["n_molecules"] == OPT_MOLS, f"relaxed {stats['n_molecules']} of {OPT_MOLS}")
+    rows = list(AseDatabase(cfg["output_db"]).select_all())
+    check(len(rows) == OPT_MOLS, "optimize output row count")
+    for rec, inp in zip(rows, inputs):
+        check(rec.key_value_pairs == inp.key_value_pairs, "input key-value pairs kept")
+        check(set(rec.data) == set(inp.data) | {"model_energy", "model_forces"}, "data keys")
+        check(all(np.array_equal(rec.data[k], inp.data[k]) for k in inp.data), "input data kept")
+        check(np.array_equal(rec.numbers, inp.numbers), "atomic numbers kept")
+        e, f = np.asarray(rec.data["model_energy"]), np.asarray(rec.data["model_forces"])
+        check(e.shape == (1,) and f.shape == (rec.natoms, 3), "model energy / forces shapes")
+        check(bool(np.isfinite(rec.positions).all() and np.isfinite(e).all()
+                   and np.isfinite(f).all()), "finite relaxed rows")
+
+    dev = torch.device("cuda")
+    fused = BatchwiseCalculator(_opt_model(cfg, dev, True))
+    plain = BatchwiseCalculator(_opt_model(cfg, dev, False))
+    cpu = BatchwiseCalculator(_opt_model(cfg, torch.device("cpu"), False))
+    o = cfg["optimize"]
+    kw = dict(memory=o["memory"], maxstep=o["maxstep"])
+    loader = BucketedLoader(EnergyDataset(str(src), root=str(tmp), bucket_boundaries=BUCKETS),
+                            config=LoaderConfig(batch_size=o["batch_size"], shuffle=False))
+    e_init, first = {}, {}
+    for host in loader:
+        first.setdefault(host.z.shape[1], host)
+        e0, _ = fused(host.to(dev))
+        for slot in np.flatnonzero(host.graph_mask.numpy()):
+            e_init[int(host.mol_id[slot])] = float(e0[slot])
+    check(sorted(first) == list(BUCKETS), f"optimize buckets {sorted(first)}")
+    drops = np.array([e_init[inp.id] - rec.data["model_energy"][0]
+                      for rec, inp in zip(rows, inputs)])
+
+    # per bucket: OPT_CHECK_ITERS iterations fused and plain on the card,
+    # and the first against the CPU plain path
+    checks = []
+    for a, host in sorted(first.items()):
+        batch = host.to(dev)
+        runs = []
+        for calc in (fused, plain):
+            states = []  # after 0, 1, ... iterations (pos, E and F are fresh tensors a step)
+            r, _ = relax_chunked(calc, batch, fmax=o["fmax"], max_steps=OPT_CHECK_ITERS,
+                                 interval=1, on_chunk=lambda it, st, ss=states: ss.append(st),
+                                 **kw)
+            runs.append((r, states))
+        (r_f, s_f), (r_p, s_p) = runs
+        check(r_f.nsteps == r_p.nsteps, f"A={a}: {r_f.nsteps} vs {r_p.nsteps} iterations")
+        gaps = [_max_abs(f.pos - p.pos) for f, p in zip(s_f, s_p)]
+        held = gaps[:OPT_POS_ITERS + 1]  # shorter only if every molecule converged first
+        check(held[-1] <= OPT_POS_ATOL,
+              f"A={a}: fused positions {held[-1]:.3e} Å off plain after {len(held) - 1} "
+              "iterations")
+        # E and F against the plain module at the fused positions, after
+        # every iteration (the two runs' own energies also differ by |F|·|Δx|)
+        e_err = f_err = 0.0
+        for st in s_f:
+            e_p, f_p = plain(batch.replace(pos=st.pos))
+            np.testing.assert_allclose(st.energy.cpu().numpy(), e_p.cpu().numpy(), **E_TOL)
+            np.testing.assert_allclose(st.forces.cpu().numpy(), f_p.cpu().numpy(), **F_TOL)
+            e_err = max(e_err, _max_abs(st.energy - e_p))
+            f_err = max(f_err, _max_abs(st.forces - f_p))
+        r_1 = lbfgs_relax(fused, batch, fmax=o["fmax"], max_steps=1, **kw)
+        r_c = lbfgs_relax(cpu, host, fmax=o["fmax"], max_steps=1, **kw)
+        cpu_err = _max_abs(r_1.pos.cpu() - r_c.pos)
+        check(cpu_err <= OPT_POS_ATOL, f"A={a}: first step {cpu_err:.3e} Å off the CPU")
+        e_c, f_c = cpu(host.replace(pos=r_1.pos.cpu()))
+        np.testing.assert_allclose(r_1.energy.cpu().numpy(), e_c.numpy(), **E_TOL)
+        np.testing.assert_allclose(r_1.forces.cpu().numpy(), f_c.numpy(), **F_TOL)
+        checks.append({"shape": list(host.z.shape), "iterations": r_f.nsteps,
+                       "plain_pos_gap_by_iteration": gaps,
+                       "plain_max_energy_err": e_err, "plain_max_force_err": f_err,
+                       "plain_run_max_energy_diff": _max_abs(r_f.energy - r_p.energy),
+                       "cpu_first_step_max_pos_err": cpu_err,
+                       "cpu_first_step_max_energy_err": _max_abs(r_1.energy.cpu() - e_c)})
+
+    # "mt" (the reference's c1 / c2) on the first batch: A and B once an evaluation
+    n_evals = [0]
+
+    def counted(batch):
+        n_evals[0] += 1
+        return fused(batch)
+
+    batch = first[BUCKETS[0]].to(dev)
+    reset_all_launches()
+    r_mt = lbfgs_relax(counted, batch, fmax=o["fmax"], max_steps=MT_STEPS, line_search="mt",
+                       ls_c1=MT_C1, ls_c2=MT_C2, **kw)
+    torch.cuda.synchronize()
+    mt_launches = {k: n for k, n in all_launches().items() if n}
+    check(mt_launches == {"painn_fwd": n_layers * n_evals[0], "painn_bwd": n_layers * n_evals[0]},
+          f"mt launches {mt_launches} for {n_evals[0]} evaluations")
+    check(all(bool(torch.isfinite(t).all()) for t in (r_mt.pos, r_mt.energy, r_mt.forces)),
+          "every mt lane finite")
+
+    # two iterations with a full ring (the recursion over all `memory` slots)
+    # under the profiler, at the largest bucket
+    batch = first[BUCKETS[-1]].to(dev)
+    state = init_lbfgs_state(fused, batch, 1e-6, o["memory"])._replace(iteration=o["memory"])
+    _, state = relax_chunked(fused, batch, fmax=1e-6, max_steps=o["memory"] + 1, interval=1,
+                             resume_state=state, **kw)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, state = relax_chunked(fused, batch, fmax=1e-6, max_steps=state.iteration + 2,
+                                 interval=2, resume_state=state, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    # kernels only: the recursion's named range also shows on the device's
+    # track, over the kernels it launched
+    events = [(e.key, e.self_device_time_total, e.count) for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+              and e.key != "lbfgs.two_loop"]
+    device_us = sum(t for _, t, _ in events)
+    events.sort(key=lambda e: -e[1])
+    two_loop = [e for e in averages if e.key == "lbfgs.two_loop"
+                and e.device_type == torch.autograd.DeviceType.CPU]
+    check([e.count for e in two_loop] == [2],
+          f"two profiled iterations: {[(e.device_type, e.count) for e in two_loop]}")
+    two_loop = two_loop[0]
+
+    emit("painn_optimize", config="painn-oc_optim", molecules=stats["n_molecules"],
+         batches=stats["batches"], ckpt=best, launches=launches, expected_launches=want,
+         evaluations=evals, seconds=stats["seconds"],
+         molecules_per_second=stats["n_molecules"] / stats["seconds"],
+         batch_iterations_per_second=stats["total_lbfgs_steps"] / stats["seconds"],
+         total_lbfgs_steps=stats["total_lbfgs_steps"], n_converged=stats["n_converged"],
+         converged_fraction=stats["converged_fraction"],
+         mean_energy_drop=float(drops.mean()), share_energy_lowered=float((drops > 0).mean()),
+         peak_device_memory_bytes=peak_mem, fused_vs_plain=checks,
+         mt={"steps": r_mt.nsteps, "evaluations": n_evals[0], "launches": mt_launches,
+             "converged": int(r_mt.converged.sum())},
+         profile={"shape": list(batch.z.shape), "iterations": 2, "ring_slots": o["memory"],
+                  "wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+                  "device_busy_share": device_us / wall_us,
+                  "two_loop_host_ms_per_iteration": two_loop.cpu_time_total / 1e3 / 2,
+                  "two_loop_device_ms_per_iteration": two_loop.device_time_total / 1e3 / 2,
+                  "top": [{"name": k[:80], "device_ms": t / 1e3, "calls": c}
+                          for k, t, c in events[:12]]},
+         tolerances={"positions_abs": OPT_POS_ATOL, "positions_after_iterations": OPT_POS_ITERS,
+                     "energy": E_TOL, "forces": F_TOL})
+    return launches
 
 
 QHNET_KERNELS = {  # key: (name, JAX kernel body line in nabladft_tpu/ops/pallas/qhnet_tp.py)
@@ -2020,6 +2262,8 @@ def main() -> int:
             for job, phase in (("predict", predict_phase), ("train", train_phase)):
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
+            if family == "painn":  # from the train phase's best checkpoint
+                by_path["painn_optimize"] = timed("painn_optimize", optimize_phase, tmp, db)
         by_path["qhnet_train"] = timed("qhnet_train", qhnet_train_phase, tmp)
         for family in DIRECT:
             for job, phase in (("predict", direct_predict_phase), ("train", direct_train_phase)):

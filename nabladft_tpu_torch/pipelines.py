@@ -1,19 +1,21 @@
-"""Job pipelines from one config: ``job_type`` train, test and predict.
+"""Job pipelines from one config: ``job_type`` train, test, predict and optimize.
 
 The port of ``nabladft_tpu/pipelines.py``: one `run(cfg)` with config
 validation, seeding, the datamodule, the model, the trainer, and the
 prediction writer (the output database mirrors the input rows plus
-`energy_pred` / `forces_pred` in the data blob). `run` executes on the card
-unless the caller passes ``device``; without a card and without ``device``
-it raises. On the card PaiNN, SchNet, QHNet, eSCN and EquiformerV2 run their
-fused kernels unless the config pins `use_pallas`; PaiNN and SchNet then
-train with the surrogate force gradient through them
+`energy_pred` / `forces_pred` in the data blob). ``optimize`` relaxes every
+molecule of ``datamodule.source`` with batched L-BFGS on the device
+(`optimize/task.py`) and writes the relaxed rows to ``output_db``. `run`
+executes on the card unless the caller passes ``device``; without a card
+and without ``device`` it raises. On the card PaiNN, SchNet, QHNet, eSCN and
+EquiformerV2 run their fused kernels unless the config pins `use_pallas`;
+PaiNN and SchNet then train with the surrogate force gradient through them
 (``force_grads="pallas"``); eSCN's and EquiformerV2's forces are a direct
 head, trained by one backward pass. Hamiltonian
 configs (``datamodule.kind: hamiltonian``) read a local Hamiltonian DB and
 take the orbital basis from its ``basisset`` table; they have no predict
-job. `ckpt_path` takes a checkpoint this package wrote; ``optimize``,
-``pretrained`` and the JAX package's flax checkpoints are not ported yet.
+job. `ckpt_path` takes a checkpoint this package wrote; ``pretrained`` and
+the JAX package's flax checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,9 +46,6 @@ JOB_TYPES = ("train", "test", "predict", "optimize")
 FUSED_ON_CARD = ("painn", "schnet", "qhnet", "escn", "equiformer_v2")
 # the families that read the orbital basis of a Hamiltonian DB
 HAMILTONIAN_MODELS = ("qhnet",)
-_NOT_PORTED = {
-    "optimize": "the optimize job (ROADMAP queue 1: the optimize job)",
-}
 
 
 def seed_everything(seed: int) -> None:
@@ -184,18 +183,21 @@ def run(cfg: Dict[str, Any], device=None,
     initial weights. Returns, for ``train``, the last validation metrics
     plus ``step``; for ``test``, the test metrics; for ``predict``, {"rows",
     "batches", "seconds"}: rows written and the wall time of the
-    predict-and-write loop."""
+    predict-and-write loop; for ``optimize``, the task's stats
+    (`BatchwiseOptimizeTask.run`)."""
     check_cfg(cfg)
     job = cfg["job_type"]
-    if job in _NOT_PORTED:
-        raise NotImplementedError(
-            f"job_type {job!r} is not ported to PyTorch yet: {_NOT_PORTED[job]}")
     if cfg.get("pretrained"):
         raise NotImplementedError(
             "pretrained restore is not ported yet (ROADMAP queue 1); "
             "pass flax params to run(cfg, params=...) instead")
     device = resolve_device(device)
     seed_everything(cfg.get("seed", 42))
+    if job == "optimize":
+        # imported here: the task builds its model through this module
+        from nabladft_tpu_torch.optimize.task import run_optimize_job
+
+        return run_optimize_job(cfg, device, params)
 
     dm = build_datamodule(cfg)
     trainer = build_trainer(cfg, device, params)

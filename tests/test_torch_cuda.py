@@ -195,6 +195,47 @@ def test_fused_painn_on_card_matches_cpu_plain(card):
 
 
 @pytest.mark.cuda
+def test_fused_relaxation_on_card_matches_plain(card):
+    """The first five L-BFGS iterations of the fused PaiNN on the card (A
+    and B once per evaluation, B's gW stage never) against the plain module
+    on the card, same weights: positions within 1e-4 Å, E and F within the
+    model tolerances of the plain module at the same positions."""
+    from nabladft_tpu_torch.data import BucketedLoader, EnergyDataset, LoaderConfig
+    from nabladft_tpu_torch.data.synthetic import write_random_db
+    from nabladft_tpu_torch.models import create_model
+    from nabladft_tpu_torch.optimize import BatchwiseCalculator, lbfgs_relax
+    from nabladft_tpu_torch.train import seeded_generator
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        db = write_random_db(Path(tmp) / "in.db", n_mols=16, min_atoms=8, max_atoms=30, seed=2)
+        ds = EnergyDataset(db, root=tmp, bucket_boundaries=(32,))
+        batch = next(iter(BucketedLoader(ds, config=LoaderConfig(batch_size=16,
+                                                                   shuffle=False)))).to(card)
+    kw = dict(hidden=128, n_interactions=2, n_rbf=100)
+    fused, plain = (create_model("painn", device=card, generator=seeded_generator(1),
+                                 use_pallas=mode, **kw).eval() for mode in ("fused", "off"))
+    results, launches = [], []
+    for model in (fused, plain):
+        pf.reset_launches()
+        results.append(lbfgs_relax(BatchwiseCalculator(model), batch, fmax=1e-6, max_steps=5,
+                                   memory=100))
+        launches.append(dict(pf.LAUNCHES))
+    # 2 layers x 6 evaluations (the initial one and one a step)
+    assert launches[0] == dict(launches[0], painn_fwd=12, painn_bwd=12, painn_bwd_gw=0)
+    assert not any(launches[1].values())  # the plain module launches nothing
+    r_f, r_p = results
+    assert r_f.nsteps == r_p.nsteps == 5
+    torch.testing.assert_close(r_f.pos, r_p.pos, rtol=0, atol=1e-4)
+    # E and F against the plain module at the same positions: the two runs'
+    # own energies also differ by |F|·|Δx|
+    e_p, f_p = BatchwiseCalculator(plain)(batch.replace(pos=r_f.pos))
+    torch.testing.assert_close(r_f.energy, e_p, rtol=2e-4, atol=1e-5)
+    torch.testing.assert_close(r_f.forces, f_p, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES + BUCKET_SHAPES)
 def test_dual_fwd_kernel_matches_plain(card, shape):
     x = _inputs(shape, card)

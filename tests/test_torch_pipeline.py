@@ -9,6 +9,8 @@
 * Neither the port nor chip_smoke.py imports jax, flax, optax or
   nabladft_tpu, and importing the port loads none of them.
 * Entry points raise without a card unless the caller names the CPU.
+* The optimize job runs on the CPU; pretrained restore and flax checkpoints
+  still raise.
 """
 
 import ast
@@ -189,9 +191,29 @@ def test_run_without_device_raises_when_cuda_is_absent(db, tmp_path):
     assert not (tmp_path / "out.db").exists()
 
 
-@pytest.mark.parametrize("job", ["optimize"])
-def test_unported_jobs_raise(db, tmp_path, job):
+def test_optimize_job_runs_on_cpu(db, tmp_path):
     root, src = db
-    cfg = dict(_cfg(src, tmp_path / "out.db", root), job_type=job)
+    cfg = dict(_cfg(src, tmp_path / "out.db", root), job_type="optimize",
+               optimize={"batch_size": 8, "steps": 3, "bucket_boundaries": [32]})
+    stats = pipelines.run(cfg, device="cpu")
+    assert stats["n_molecules"] == 20 and stats["batches"] == 3
+    assert 0 < stats["total_lbfgs_steps"] <= 3 * stats["batches"]
+    assert stats["converged_fraction"] == stats["n_converged"] / 20
+    rows = _rows(tmp_path / "out.db")
+    assert len(rows) == 20 and all(r.data["model_forces"].shape == (r.natoms, 3) for r in rows)
+
+
+@pytest.mark.parametrize("what", ["pretrained", "optimize_flax_checkpoint"])
+def test_unported_jobs_raise(db, tmp_path, what):
+    """What the port still refuses: pretrained restore, and a flax msgpack
+    checkpoint (the JAX package's) as the optimize job's ckpt_path."""
+    root, src = db
+    cfg = _cfg(src, tmp_path / "out.db", root)
+    if what == "pretrained":
+        cfg["pretrained"] = "painn-oc"
+    else:
+        (tmp_path / "flax.msgpack").write_bytes(b"\x81\xa6params\x80")
+        cfg.update(job_type="optimize", ckpt_path=str(tmp_path / "flax.msgpack"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipelines.run(cfg, device="cpu")
+    assert not (tmp_path / "out.db").exists()
