@@ -158,8 +158,40 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                against the plain module's on the card and both against float64
                (printed); molecules/s, s/epoch, memory.
      eqv2_train_profile — torch.profiler over two train steps.
-  8. timing  — seconds of each phase; then one JSON object describing every
-               ported kernel (A-P) with its launches on each path.
+  8. phisnet_train — after qhnet_train, over its Hamiltonian DB:
+               `job_type: train` on configs/phisnet.yaml at full width (order
+               4, 128 features, 128 basis functions, 5 modules, cutoff 15
+               Bohr, batch 8, EMA 0.999) with ``trainer.loss_specs`` set to
+               H and S (the datamodule reads no core matrix; the core head still
+               runs), TRAIN_EPOCHS epochs, then `test` from the best
+               checkpoint; no kernel of A-P; finite losses and metrics; per
+               atom bucket, on the best checkpoint's weights: H, S and core
+               exactly symmetric, the first PH_CPU_MOLS molecules against the
+               CPU, every molecule under a rotation against T(R) M T(R)^T, S
+               of the other atoms unchanged when a C becomes N; molecules/s,
+               seconds per epoch, peak memory.
+     phisnet_train_profile — torch.profiler over two train steps.
+  9. dimenetpp_train, graphormer3d_train — `job_type: train` (TRAIN_EPOCHS
+               epochs) then `test` on configs/dimenetplusplus.yaml (hidden
+               256, 6 blocks, K 32, batch 16; forces -dE/dpos by the double
+               backward) and configs/graphormer3d.yaml (4 x 6 shared layers,
+               512 dim, 32 heads, batch 64; direct forces) at full width over
+               the seeded DB: no kernel of A-P; Graphormer3D's dropout drawn
+               on train steps only (75 masks a step); finite metrics;
+               molecules/s, s/epoch, memory.
+     dimenetpp_predict, graphormer3d_predict — `job_type: predict` from that
+               train phase's best checkpoint: rows, no kernel, no dropout; per
+               bucket the first batch's forces not all 0, its first
+               ENERGY_CPU_MOLS molecules against the CPU and the batch rotated
+               (E invariant; F covariant for DimeNet++; Graphormer3D's head is
+               not covariant by design, its error printed) within E_TOL /
+               F_TOL (rtol of the batch's largest magnitude); molecules/s
+               (ENERGY_PASSES passes).
+     *_profile, *_train_profile — torch.profiler over two predict or train
+               steps (the device's busy share).
+  10. timing — seconds of each phase; then one JSON object describing every
+               ported kernel (A-P) with its launches on each path (0 on the
+               paths of 8 and 9).
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
 Any failed check raises: the script exits nonzero and prints no ok line.
 Exits nonzero without a CUDA device.
@@ -212,6 +244,20 @@ ESCN_KW = dict(num_layers=8, l_max=6, m_max=2, sphere_channels=128, hidden=256,
 EQV2_KW = dict(num_layers=12, sphere_channels=128, attn_alpha_channels=64, num_heads=8,
                attn_value_channels=16, ffn_hidden_channels=128, l_max=6, m_max=2, cutoff=12.0,
                max_neighbors=30)
+# PhiSNet (configs/phisnet.yaml) at full width, over QHNet's Hamiltonian DB
+PHISNET_KW = dict(order=4, num_features=128, num_basis_functions=128, num_modules=5, cutoff=15.0)
+# the trainer's loss specs for PhiSNet, as `trainer.loss_specs=...` on the CLI
+PHISNET_LOSS_SPECS = {"hamiltonian": "rmse_mae", "overlap": "rmse_mae"}
+# DimeNet++ (configs/dimenetplusplus.yaml, batch 16) and Graphormer3D
+# (configs/graphormer3d.yaml, model/graphormer3d-small) at full width
+DIMENETPP_KW = dict(node_latent_dim=50, hidden=256, num_blocks=6, int_emb_size=64,
+                    basis_emb_size=8, out_emb_channels=256, num_spherical=7, num_radial=6,
+                    max_neighbors=32, envelope_exponent=5, cutoff=5.0,
+                    energy_std=0.870582896669776, energy_mean=-7.349405628928332)
+DIMENETPP_BATCH = 16
+GRAPHORMER_KW = dict(blocks=4, layers=6, embed_dim=512, ffn_embed_dim=512, attention_heads=32,
+                     input_dropout=0.1, dropout=0.1, attention_dropout=0.0,
+                     activation_dropout=0.1, num_kernel=128)
 # kernel phase shapes: every (B, A) the predict and train paths give the
 # kernels (each batch is padded to B=64 molecules of its bucket's A atoms);
 # the kernels line's times are those at A=HEADLINE_A
@@ -358,8 +404,54 @@ def _eqv2(source: str, root: str) -> dict:
     }, source, root)
 
 
+def _phisnet(source: str, root: str) -> dict:
+    """configs/phisnet.yaml (model/phisnet, trainer/default,
+    datamodule/hamiltonian) with ``trainer.loss_specs={hamiltonian:
+    rmse_mae, overlap: rmse_mae}``: the datamodule reads no core matrix, so
+    the config's own core loss cannot train (the core head still runs)."""
+    cfg = _composed("phisnet", {
+        "name": "phisnet", "kwargs": dict(PHISNET_KW),
+        "loss_specs": {"hamiltonian": "rmse_mae", "overlap": "rmse_mae", "core": "rmse_mae"},
+        "loss_coefs": {"hamiltonian": 1.0, "overlap": 1.0, "core": 1.0},
+        "trainer_overrides": {"ema_decay": 0.999, "grad_clip": 0.001},
+    }, source, root)
+    cfg["trainer"]["loss_specs"] = dict(PHISNET_LOSS_SPECS)
+    cfg["job_type"] = "train"
+    cfg["datamodule"] = {"kind": "hamiltonian", "source": source, "root": root,
+                         "batch_size": QH_BATCH, "val_fraction": 0.05,
+                         "atom_boundaries": list(BUCKETS),
+                         "orbital_boundaries": list(QH_ORB_BUCKETS)}
+    return cfg
+
+
+def _dimenetpp(source: str, root: str) -> dict:
+    """configs/dimenetplusplus.yaml: model/dimenetplusplus, trainer/default,
+    datamodule/energy with batch 16."""
+    cfg = _composed("dimenetplusplus", {
+        "name": "dimenetpp", "kwargs": dict(DIMENETPP_KW),
+        "loss_specs": {"energy": "l1", "forces": "l1"},
+        "loss_coefs": {"energy": 1.0, "forces": 1.0},
+    }, source, root)
+    cfg["job_type"] = "train"
+    cfg["datamodule"]["batch_size"] = DIMENETPP_BATCH
+    return cfg
+
+
+def _graphormer3d(source: str, root: str) -> dict:
+    """configs/graphormer3d.yaml: model/graphormer3d-small, trainer/default,
+    datamodule/energy."""
+    cfg = _composed("graphormer3d", {
+        "name": "graphormer3d", "kwargs": dict(GRAPHORMER_KW),
+        "loss_specs": {"energy": "l1", "forces": "l1"},
+        "loss_coefs": {"energy": 1.0, "forces": 1.0},
+    }, source, root)
+    cfg["job_type"] = "train"
+    return cfg
+
+
 CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet, "escn-oc": _escn_oc,
-           "equiformer_v2": _eqv2}
+           "equiformer_v2": _eqv2, "phisnet": _phisnet, "dimenetplusplus": _dimenetpp,
+           "graphormer3d": _graphormer3d}
 
 
 def emit(phase: str, **fields) -> None:
@@ -2205,6 +2297,347 @@ def direct_train_phase(tmp: Path, db: Path, family: str) -> dict:
     return launches
 
 
+# PhiSNet's and the energy families' paths run no kernel of A-P
+# (their JAX counterparts reach no pallas_call): torch's own GEMMs and
+# elementwise kernels only. Their checks: PhiSNet's H, S and core on the
+# card against the CPU (the same weights, PH_CPU_MOLS molecules per bucket)
+# within QH_H_RTOL x max |matrix|, under a rotation within QH_COV_RTOL x max
+# |matrix|, S of the other atoms under one atom's species change within
+# PH_ENV_RTOL x max |S|; the energy families' E and F on the card against the
+# CPU (ENERGY_CPU_MOLS per bucket) and under a rotation: each molecule's E
+# within E_TOL's atol + rtol x its own |E| plus E_ULPS float32 ulps of the
+# larger of |E| and the extensive offset |energy_mean| x n_atoms (DimeNet++
+# adds that offset in float32, so a molecule whose network part cancels it
+# keeps the sum's rounding, a few ulps of the offset), F within
+# F_TOL's atol + rtol x the batch's largest |F|.
+PH_CPU_MOLS, PH_ENV_RTOL = 1, 1e-6
+E_ULPS = 8
+ENERGY_CPU_MOLS, ENERGY_PASSES = 2, 3
+# Graphormer3D's direct force head (the reference's NodeTaskHead) reads
+# each Cartesian component out with a linear layer and bias of its own, so
+# its F is not covariant under a rotation by design: the error is printed
+ENERGY = {
+    "dimenetpp": dict(config="dimenetplusplus", batch=DIMENETPP_BATCH, dropout=False,
+                      f_covariant=True),
+    "graphormer3d": dict(config="graphormer3d", batch=BATCH, dropout=True, f_covariant=False),
+}
+
+
+def _energy_limit(want: torch.Tensor, n_atoms: torch.Tensor, energy_mean: float) -> torch.Tensor:
+    """Each molecule's limit on |E - want| (see E_ULPS)."""
+    scale = torch.maximum(want.abs(), abs(energy_mean) * n_atoms.to(want))
+    return (E_TOL["atol"] + E_TOL["rtol"] * want.abs()
+            + E_ULPS * torch.finfo(torch.float32).eps * scale)
+
+
+def _train_job(cfg: dict, ckpt: Path) -> tuple:
+    """The main path of a train phase: `job_type: train`, then `test` from
+    the best checkpoint, with every launch count reset just before and
+    read just after. Returns (train result, test result, launches, peak
+    memory, start time, best checkpoint)."""
+    from nabladft_tpu_torch import pipelines
+
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.time()
+    res = pipelines.run(cfg)
+    best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
+    test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(ckpt / best)))
+    torch.cuda.synchronize()
+    return (res, test, all_launches(), torch.cuda.max_memory_allocated(), t_start,
+            ckpt / best)
+
+
+def _train_readings(cfg: dict, res: dict, test: dict, targets, t_start: float, n_train: int):
+    """The CSV's checks and readings of a train phase: a row per step and
+    epoch, finite metrics, no skipped step; (step rows, mol/s of the last
+    epoch's steps sorted, seconds per epoch)."""
+    rows = read_csv(Path(cfg["output_dir"]) / cfg["name"] / "metrics.csv")
+    step_rows = [r for r in rows if "train/total" in r]
+    val_rows = [r for r in rows if "val/loss" in r]
+    steps = res["step"]
+    check(steps == TRAIN_EPOCHS * n_train,
+          f"{steps} train steps, expected {TRAIN_EPOCHS} x {n_train}")
+    check(len(step_rows) == steps and len(val_rows) == TRAIN_EPOCHS, "a CSV row per step and epoch")
+    for r in step_rows:
+        check(all(np.isfinite(r[k]) for k in ["train/total", "grad_norm"]
+                  + [f"train/{t}" for t in targets]), f"finite train metrics {r}")
+        check(r["skipped_nonfinite"] == 0.0, f"no skipped step {r}")
+    for m in [res, test] + val_rows:
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    for prefix, m in (("val", res), ("test", test)):
+        want = {f"{prefix}/loss"} | {f"{prefix}/{t}/mae" for t in targets}
+        check(want <= set(m), f"{prefix} metrics {m}")
+    rates = sorted(r["mols_per_sec"] for r in step_rows if r["epoch"] == TRAIN_EPOCHS - 1)
+    epoch_ends = [t_start] + [r["time"] for r in val_rows]
+    return step_rows, rates, [b - a for a, b in zip(epoch_ends, epoch_ends[1:])]
+
+
+def _rates(rates: list, what: str) -> dict:
+    return {"median": rates[len(rates) // 2], "min": rates[0], "max": rates[-1], what: rates}
+
+
+def phisnet_train_phase(tmp: Path) -> dict:
+    """PhiSNet's train and test jobs (configs/phisnet.yaml at full width,
+    loss H + S) over the Hamiltonian DB of QHNet's phase, then the model
+    checks per atom bucket on the best checkpoint's weights and a profile of
+    two train steps; returns the launch counts of the jobs (all zero)."""
+    from nabladft_tpu_torch import pipelines
+
+    db = tmp / "hamiltonian.db"  # written by qhnet_train_phase
+    ckpt, outputs = tmp / "ckpt_phisnet", tmp / "outputs_phisnet"
+    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs), config="phisnet")
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+    res, test, launches, peak_mem, t_start, best = _train_job(cfg, ckpt)
+    check(not any(launches.values()), f"phisnet train/test launched kernels of A-P: {launches}")
+    check((ckpt / "last.ckpt").exists() and best.exists(), "checkpoint files")
+    step_rows, rates, epoch_seconds = _train_readings(
+        cfg, res, test, ("hamiltonian", "overlap"), t_start, n_train)
+
+    dev = torch.device("cuda")
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
+    check(trainer.cfg.loss_specs == PHISNET_LOSS_SPECS,
+          f"phisnet trains on {trainer.cfg.loss_specs}, expected H and S")
+    trainer.load_checkpoint(best)
+    checks = phisnet_model_checks(trainer.model, dm)
+    batches = list(itertools.islice(dm.train_dataloader(), 2))
+    profile_steps("phisnet_train_profile", trainer._train_step, batches)
+    emit("phisnet_train", config="phisnet", steps=res["step"], batches_per_epoch=n_train,
+         val_batches=n_val, test_batches=n_test, launches=launches, final_val=res, test=test,
+         loss_specs=trainer.cfg.loss_specs,
+         train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
+         grad_norm_max=max(r["grad_norm"] for r in step_rows),
+         molecules_per_second=dict(_rates(rates, "steps"), epoch=TRAIN_EPOCHS - 1),
+         seconds_per_epoch=epoch_seconds, peak_device_memory_bytes=peak_mem,
+         model_checks=checks,
+         tolerances={"cpu_rel": QH_H_RTOL, "covariance_rel": QH_COV_RTOL,
+                     "overlap_environment_rel": PH_ENV_RTOL})
+    return launches
+
+
+def phisnet_model_checks(model, dm) -> list:
+    """For the first train batch of each atom bucket, the trained model in
+    eval mode: H, S and core exactly symmetric; the first
+    PH_CPU_MOLS molecules against the same weights on the CPU; every real
+    molecule's matrices under a rotation against T(R) M T(R)^T; S among the
+    other atoms when one heavy atom becomes another element of the same
+    orbital layout (C <-> N)."""
+    import copy
+
+    model.eval()
+    cpu = copy.deepcopy(model).cpu()
+    orbitals = model.layout.orbitals
+    norb = {z: sum(2 * l + 1 for l in o) for z, o in orbitals.items()}
+    dev = next(model.parameters()).device
+    rot = torch.from_numpy(rotation()).to(dev)
+    names = model.matrix_names
+    first = {}
+    for batch in dm.train_dataloader():
+        first.setdefault(batch.z.shape[1], batch)
+    out = []
+    for a, batch in sorted(first.items()):
+        bg = batch.to(dev)
+        with torch.no_grad():
+            m = model(bg)
+            m_r = model(bg.replace(pos=bg.pos @ rot.T))
+            m_c = cpu(_mols(batch, slice(0, PH_CPU_MOLS)))
+        row = {"shape": list(batch.z.shape), "orbitals": batch.orb_mask.shape[1]}
+        for name in names:
+            mat = m[name]
+            scale = _max_abs(mat)
+            check(torch.equal(mat, mat.transpose(-1, -2)), f"{name} symmetric at A={a}")
+            err_c = _max_abs(mat[:PH_CPU_MOLS].cpu() - m_c[name])
+            check(err_c <= QH_H_RTOL * scale, f"{name} card vs CPU at A={a}: {err_c} vs {scale}")
+            cov = 0.0
+            for k in range(batch.z.shape[0]):
+                if bool(batch.graph_mask[k]):
+                    zs = batch.z[k][batch.node_mask[k]].tolist()
+                    t = orbital_rotation(zs, orbitals, rot, mat.shape[-1])
+                    cov = max(cov, _max_abs(m_r[name][k].double() - t @ mat[k].double() @ t.T))
+            check(cov <= QH_COV_RTOL * scale, f"{name} covariance at A={a}: {cov} vs {scale}")
+            row.update({f"{name}_max_abs": scale, f"{name}_abs_err_vs_cpu": err_c,
+                        f"{name}_max_abs_covariance_err": cov})
+        # S's environment independence: molecule 0's first C becomes N
+        zs = batch.z[0][batch.node_mask[0]].tolist()
+        k = zs.index(6)
+        z2 = bg.z.clone()
+        z2[0, k] = 7
+        with torch.no_grad():
+            s2 = model(bg.replace(z=z2))["overlap"][0]
+        offs = np.cumsum([0] + [norb[z] for z in zs])
+        keep = torch.ones(m["overlap"].shape[-1], dtype=torch.bool, device=dev)
+        keep[int(offs[-1]):] = False
+        keep[int(offs[k]):int(offs[k + 1])] = False
+        s_other = m["overlap"][0][keep][:, keep]
+        env = _max_abs(s2[keep][:, keep] - s_other)
+        check(env <= PH_ENV_RTOL * _max_abs(s_other),
+              f"S of the other atoms moved by {env} when atom {k} changed species at A={a}")
+        row.update({"overlap_environment_abs_err": env, "species_changed_atom": k})
+        out.append(row)
+    check(sorted(first) == list(BUCKETS), f"model check buckets {sorted(first)}")
+    return out
+
+
+def energy_predict_phase(tmp: Path, db: Path, family: str) -> dict:
+    """`job_type: predict` of DimeNet++ or Graphormer3D at full width over
+    the seeded DB from the train phase's best checkpoint (DimeNet++'s
+    zero-initialised output projections make the untrained model's forces
+    0): rows and finite values, no kernel of A-P; per bucket the first
+    batch on the card in eval mode (the job's rows are its outputs, so the
+    job dropped nothing; its forces not all 0), its first ENERGY_CPU_MOLS molecules
+    against the CPU with the same weights, and the batch rotated (E
+    invariant; F covariant for DimeNet++, its error printed for
+    Graphormer3D); molecules/s of the predict loop, run on a model left in
+    train mode with a fresh dropout generator (Graphormer3D: the loop must
+    draw nothing from it and leave the model in train mode), the device's
+    busy share over two predict steps, peak memory."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.data.ase_codec import AseDatabase
+    from nabladft_tpu_torch.models.base import forward
+    from nabladft_tpu_torch.train import Trainer
+
+    fam = ENERGY[family]
+    ckpt = tmp / f"ckpt_{family}"
+    best = ckpt / json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
+    cfg = dict(smoke_config(str(db), str(tmp / f"predictions_{family}.db"), str(tmp),
+                            config=fam["config"]), ckpt_path=str(best))
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = pipelines.run(cfg)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak_mem = torch.cuda.max_memory_allocated()
+    check(res["rows"] == N_MOLS, f"rows written {res['rows']} != {N_MOLS}")
+    check(not any(launches.values()), f"{family} predict launched kernels of A-P: {launches}")
+    dm = pipelines.build_datamodule(cfg)
+    order = [mid for b in dm.predict_dataloader()
+             for mid, real in zip(b.mol_id.tolist(), b.graph_mask.tolist()) if real]
+    out_rows = dict(zip(order, AseDatabase(cfg["output_db"]).select_all()))
+    check(len(out_rows) == N_MOLS, "output DB row count")
+    for rec in out_rows.values():
+        e, f = np.asarray(rec.data["energy_pred"]), np.asarray(rec.data["forces_pred"])
+        check(e.shape == (1,) and f.shape == (rec.natoms, 3), "prediction shapes")
+        check(bool(np.isfinite(e).all() and np.isfinite(f).all()), "finite predictions")
+    shapes = sorted({tuple(b.z.shape) for b in dm.predict_dataloader()})
+    check(all(s in [(fam["batch"], a) for a in BUCKETS] for s in shapes),
+          f"predict batch shapes {shapes}")
+
+    dev = torch.device("cuda")
+    gpu = Trainer(pipelines.build_model(cfg, dev).eval(), dev)
+    cpu = Trainer(pipelines.build_model(cfg, torch.device("cpu")).eval(), "cpu")
+    gpu.load_checkpoint(best)
+    cpu.load_checkpoint(best)
+    first = {}
+    for batch in dm.predict_dataloader():
+        first.setdefault(batch.z.shape[1], batch)
+    rot = torch.from_numpy(rotation()).to(dev)
+    e_mean = float(cfg["model"]["kwargs"].get("energy_mean", 0.0))
+    checks = []
+    for a, batch in sorted(first.items()):
+        bg = batch.to(dev)
+        out, out_r = forward(gpu.model, bg), forward(gpu.model, bg.replace(pos=bg.pos @ rot.T))
+        out_c = forward(cpu.model, _mols(batch, slice(0, ENERGY_CPU_MOLS)))
+        for i, mol_id in enumerate(batch.mol_id.tolist()):
+            if bool(batch.graph_mask[i]):
+                got = out_rows[mol_id].data["energy_pred"][0]
+                check(abs(got - float(out["energy"][i])) <= 1e-6 * max(abs(got), 1.0),
+                      "job rows = the model's outputs")
+        row = {"shape": list(batch.z.shape), "max_abs_energy": _max_abs(out["energy"]),
+               "max_abs_force": _max_abs(out["forces"])}
+        check(row["max_abs_force"] > 0.0, f"{family} forces all 0 at A={a}")
+        for tag, got, want in (
+                ("cpu", {k: v[:ENERGY_CPU_MOLS].cpu() for k, v in out.items()}, out_c),
+                ("rotation", out_r, {"energy": out["energy"], "forces": out["forces"] @ rot.T})):
+            for k in ("energy", "forces"):
+                g, w = got[k].double(), want[k].double().to(got[k].device)
+                diff = (g - w).abs()
+                if k == "energy":
+                    limit = _energy_limit(w, batch.n_atoms[:len(w)].to(w.device), e_mean)
+                else:
+                    limit = F_TOL["atol"] + F_TOL["rtol"] * _max_abs(w)
+                err, share = _max_abs(diff), float((diff / limit).max())
+                row[f"{k}_abs_err_vs_{tag}"] = err
+                row[f"{k}_err_over_limit_vs_{tag}"] = share
+                if tag == "rotation" and k == "forces" and not fam["f_covariant"]:
+                    continue
+                check(share <= 1.0, f"{family} {k} at A={a} vs {tag}: {err}, {share} of its limit")
+        checks.append(row)
+    check(sorted(first) == list(BUCKETS), f"predict buckets {sorted(first)}")
+    del cpu
+
+    gpu.model.train()
+    if fam["dropout"]:
+        gpu.model.dropout_generator = torch.Generator(device=dev).manual_seed(0)
+    rates = []
+    for p in range(ENERGY_PASSES + 1):
+        t0 = time.perf_counter()
+        n_pred = sum(len(o["energy"]) for o in gpu.predict(dm.predict_dataloader()))
+        torch.cuda.synchronize()
+        if p:
+            rates.append(n_pred / (time.perf_counter() - t0))
+    check(gpu.model.training, "predict restores the model's train mode")
+    draws = gpu.model.dropout_generator.get_offset() if fam["dropout"] else 0
+    check(draws == 0, f"dropout drawn on predict: generator offset {draws}")
+    profile_phase(f"{family}_profile", gpu, dm)
+    emit(f"{family}_predict", config=fam["config"], rows=res["rows"], batches=res["batches"],
+         batch_shapes=shapes, launches=launches, dropout_generator_offset=draws,
+         run_seconds=res["seconds"], checks=checks,
+         molecules_per_second=_rates(sorted(rates), "passes"),
+         peak_device_memory_bytes=peak_mem,
+         tolerances={"energy": dict(E_TOL, ulps=E_ULPS), "forces": F_TOL})
+    return launches
+
+
+def energy_train_phase(tmp: Path, db: Path, family: str) -> dict:
+    """The train (TRAIN_EPOCHS epochs) and test jobs of DimeNet++ (derivative
+    forces by the double backward) or Graphormer3D (direct forces) at full
+    width: no kernel of A-P; Graphormer3D's dropout drawn on train steps
+    (the trainer's generator, seeded afresh each step, has moved after one)
+    and not in validation (it has not moved across one); DimeNet++ has no
+    generator; finite losses and metrics; molecules/s, seconds per epoch, peak memory, and the busy share
+    over two train steps."""
+    from nabladft_tpu_torch import pipelines
+
+    fam = ENERGY[family]
+    ckpt, outputs = tmp / f"ckpt_{family}", tmp / f"outputs_{family}"
+    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs), config=fam["config"])
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+    res, test, launches, peak_mem, t_start, best = _train_job(cfg, ckpt)
+    check(not any(launches.values()), f"{family} train/test launched kernels of A-P: {launches}")
+    check((ckpt / "last.ckpt").exists() and best.exists(), "checkpoint files")
+    step_rows, rates, epoch_seconds = _train_readings(cfg, res, test, ("energy", "forces"),
+                                                      t_start, n_train)
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None),
+                                      torch.device("cuda"))
+    check(trainer._force_grads == "direct"
+          and trainer._uses_forces() == (family == "dimenetpp"), "force training route")
+    batches = list(itertools.islice(dm.train_dataloader(), 2))
+    profile_steps(f"{family}_train_profile", trainer._train_step, batches)
+    gen = trainer._dropout_gen
+    check((gen is not None) == fam["dropout"], f"{family} dropout generator {gen}")
+    draws = {}
+    if gen is not None:
+        draws["train_step"] = gen.get_offset()
+        trainer.validate(itertools.islice(dm.val_dataloader(), 1))
+        draws["validation"] = gen.get_offset() - draws["train_step"]
+        check(draws["train_step"] > 0 and draws["validation"] == 0,
+              f"dropout generator offsets {draws}: drawn in a train step, not in validation")
+    emit(f"{family}_train", config=fam["config"], steps=res["step"], batches_per_epoch=n_train,
+         val_batches=n_val, test_batches=n_test, launches=launches,
+         dropout_generator_offsets=draws,
+         final_val=res, test=test,
+         train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
+         grad_norm_max=max(r["grad_norm"] for r in step_rows),
+         molecules_per_second=dict(_rates(rates, "steps"), epoch=TRAIN_EPOCHS - 1),
+         seconds_per_epoch=epoch_seconds, peak_device_memory_bytes=peak_mem)
+    return launches
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
@@ -2265,8 +2698,13 @@ def main() -> int:
             if family == "painn":  # from the train phase's best checkpoint
                 by_path["painn_optimize"] = timed("painn_optimize", optimize_phase, tmp, db)
         by_path["qhnet_train"] = timed("qhnet_train", qhnet_train_phase, tmp)
+        by_path["phisnet_train"] = timed("phisnet_train", phisnet_train_phase, tmp)
         for family in DIRECT:
             for job, phase in (("predict", direct_predict_phase), ("train", direct_train_phase)):
+                path = f"{family}_{job}"
+                by_path[path] = timed(path, phase, tmp, db, family)
+        for family in ENERGY:  # predict from the train phase's best checkpoint
+            for job, phase in (("train", energy_train_phase), ("predict", energy_predict_phase)):
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
     for k, counter in ALL_KERNELS.items():

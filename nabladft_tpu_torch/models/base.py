@@ -51,6 +51,25 @@ class MLP(nn.Module):
         return x
 
 
+class DenseParams(nn.Module):
+    """A flax Dense's parameters under flax's names (kernel [in, out], bias
+    [out]), for layers applied by hand or handed to a kernel."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+
+class LayerNormParams(nn.Module):
+    """flax LayerNorm's parameters (scale, bias)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+
 def forward(model: nn.Module, batch: MolBatch,
             params: Optional[Dict[str, torch.Tensor]] = None) -> ModelOutput:
     """Run a model, deriving forces by autograd when the model requires it.

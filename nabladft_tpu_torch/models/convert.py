@@ -51,6 +51,31 @@ EquiformerV2's (the Pallas layout, m-shared radial; the XLA layout's
   block_i/ga/proj_l{l}/kernel (+ bias on l0)        (and force_block/...)
   block_i/ffn/Dense_{0,1,2}/kernel, energy_ffn/Dense_{0,1,2}/kernel
 
+PhiSNet's (module names as the tree's; per-L Denses carry a bias on L = 0):
+
+  embedding/embedding, rbf/gamma
+  {res_*,module_m/{pre_x,pre_vi,pre_vj,post_x,output}}/gate_{b}/{kernel,bias}
+  .../lin_{b}_{l}/kernel                           (bias on l = 0)
+  module_m/{rad_l,rad_ang_l}/kernel, radial_ii_l/kernel, {mix_s,mix_ij}/{rad_i_l,rad_j_l}/kernel
+  output_{over,hamiltonian,core}_{ii,ij}/l{l}/..., {w,b}_{ii,ij}_{name}/{kernel,bias}
+  energy_{ii,ij,out}/{kernel,bias}                 (predict_energy)
+
+DimeNet++'s (Dense_i auto-named inside the residual layers and the head):
+
+  rbf_freq, atom_embedding/embedding, {rbf_embed,edge_embed}/{kernel,bias}
+  interaction_b/{lin_ji,lin_kj,skip}/{kernel,bias}, .../{rbf1,rbf2,down,up}/kernel
+  interaction_b/{sbf1_kernel,sbf2_kernel}           (raw)
+  interaction_b/{before_skip_k,after_skip_k}/Dense_{0,1}/{kernel,bias}
+  output_b/{lin_rbf,lin_up,lin_out}/kernel, output_b/lin_k/{kernel,bias}
+  Dense_{0..3}/{kernel,bias}
+
+Graphormer3D's (nn.Embeds named *_encoder, energy_agg_factor and gbf's two):
+
+  gbf/Embed_{0,1}/embedding, gbf/{means,stds}, {tag,atom}_encoder/embedding
+  {edge_proj,bias_proj_0,bias_proj_1,energy_proj_0,energy_proj_1}/{kernel,bias}
+  layer_i/LayerNorm_{0,1}/{scale,bias}, layer_i/Dense_{0..3}/{kernel,bias}
+  final_ln/{scale,bias}, energy_agg_factor/embedding, force_head/Dense_{0..5}/{kernel,bias}
+
 A flax ``Dense.kernel`` is [in, out] and becomes the transposed
 ``Linear.weight``; the raw filter arrays keep their layout, which the
 kernels take as is. Every parameter of the module must be matched and
@@ -64,6 +89,10 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+
+# module names whose `weight` is an nn.Embed's `embedding`
+_EMBED_SUFFIXES = ("embedding", "embed", "_encoder", "agg_factor")
 
 
 def _flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
@@ -84,7 +113,12 @@ def _flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
             out.append("MLP_0")
         elif p.startswith("dense_"):
             out.append("Dense_" + p[len("dense_"):])
-        elif p == "weight" and out and out[-1].endswith(("embedding", "embed")):
+        elif p.startswith("embed_"):
+            out.append("Embed_" + p[len("embed_"):])
+        elif p.startswith("layernorm_"):
+            out.append("LayerNorm_" + p[len("layernorm_"):])
+        elif p == "weight" and out and (out[-1].endswith(_EMBED_SUFFIXES)
+                                        or out[-1].startswith("Embed_")):
             out.append("embedding")
         elif p == "weight":
             out.append("kernel")
@@ -106,8 +140,9 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax PaiNN, SchNet, QHNet, eSCN or EquiformerV2 parameter tree
-    into `model` in place; returns it."""
+    """Copy a flax parameter tree of any ported family (PaiNN, SchNet,
+    QHNet, PhiSNet, eSCN, EquiformerV2, DimeNet++, Graphormer3D) into
+    `model` in place; returns it."""
     tree = params.get("params", params)
     leaves = _leaves(tree)
     if any("so2_source" in k for k in leaves):

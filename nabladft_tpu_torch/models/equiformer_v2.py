@@ -47,7 +47,7 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    ModelOutput, init_linear_, lecun_normal_, register_model,
+    LayerNormParams, ModelOutput, init_linear_, lecun_normal_, register_model,
 )
 from nabladft_tpu_torch.ops import eqv2_attn, graph, so3
 from nabladft_tpu_torch.ops.escn_layer import grid_mats
@@ -65,15 +65,6 @@ def reset_dropout_draws() -> None:
         DROPOUT_DRAWS[k] = 0
 
 
-class _LayerNormParams(nn.Module):
-    """flax LayerNorm's parameters (scale, bias)."""
-
-    def __init__(self, c: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-
-
 class EquivariantLayerNorm(nn.Module):
     """'layer_norm_sh': LayerNorm (eps 1e-6) on the l=0 row; per l>0 an RMS
     norm over the (2l+1) rows and channels with a learned per-channel gain."""
@@ -81,7 +72,7 @@ class EquivariantLayerNorm(nn.Module):
     def __init__(self, l_max: int, c: int):
         super().__init__()
         self.l_max, self.c = l_max, c
-        self.ln0 = _LayerNormParams(c)
+        self.ln0 = LayerNormParams(c)
         for l in range(1, l_max + 1):
             setattr(self, f"gain_{l}", nn.Parameter(torch.ones(c)))
 

@@ -36,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    MLP, ModelOutput, init_linear_, lecun_normal_, register_model, shifted_softplus,
+    MLP, DenseParams, ModelOutput, init_linear_, lecun_normal_, register_model,
+    shifted_softplus,
 )
 from nabladft_tpu_torch.ops import graph, so3
 from nabladft_tpu_torch.ops import qhnet_tp
@@ -169,16 +170,6 @@ def self_tensor_product(xs_a: List[torch.Tensor], xs_b: List[torch.Tensor], l_ou
     return outs
 
 
-class _DenseParams(nn.Module):
-    """Raw Dense parameters (kernel [in, out], bias [out]) that are handed to
-    the fused kernels rather than applied."""
-
-    def __init__(self, in_features: int, features: int):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(in_features, features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-
 class GateMLPSplit(nn.Module):
     """MLP([hidden, out]) returned as (activated hidden, W2, b2), so callers
     finish it per path (h @ W2[:, slice] + b2[slice]) or in a fused kernel.
@@ -187,7 +178,7 @@ class GateMLPSplit(nn.Module):
     def __init__(self, in_features: int, hidden: int, out: int, activation=F.silu):
         super().__init__()
         self.dense_0 = nn.Linear(in_features, hidden)
-        self.dense_1 = _DenseParams(hidden, out)
+        self.dense_1 = DenseParams(hidden, out)
         self.activation = activation
 
     def forward(self, x: torch.Tensor):
@@ -438,7 +429,7 @@ class QHNet(nn.Module):
             for m in self.modules():
                 if isinstance(m, nn.Linear):
                     init_linear_(m, generator)
-                elif isinstance(m, _DenseParams):
+                elif isinstance(m, DenseParams):
                     lecun_normal_(m.kernel, fan_in=m.kernel.shape[0], generator=generator)
                     m.bias.zero_()
 

@@ -1,7 +1,7 @@
 """Radial basis expansions and cutoff envelopes (torch).
 
-The bases of ``nabladft_tpu/ops/radial.py`` that PaiNN, SchNet, QHNet and
-eSCN use (QHNet's exponential Bernstein basis is a module: its γ trains). All
+The bases of ``nabladft_tpu/ops/radial.py`` that PaiNN, SchNet, QHNet,
+PhiSNet, DimeNet++ and eSCN use (QHNet's exponential Bernstein basis is a module: its γ trains). All
 functions are pure, operate on arbitrarily shaped distance tensors and
 broadcast a trailing basis axis; padded distances may be 0 or huge, callers
 multiply by their own edge masks.
@@ -119,6 +119,20 @@ def bessel_rbf(d: torch.Tensor, num_basis: int, cutoff: float) -> torch.Tensor:
     out = norm * torch.sin(n * math.pi * d_safe[..., None] / cutoff) / d_safe[..., None]
     limit = norm * n * math.pi / cutoff
     return torch.where((d > 1e-8)[..., None], out, limit.expand_as(out))
+
+
+def dimenet_bessel_rbf(d: torch.Tensor, num_basis: int, cutoff: float,
+                       envelope_exponent: int = 5,
+                       freqs: torch.Tensor | None = None) -> torch.Tensor:
+    """torch_geometric's BesselBasisLayer: with x = d/cutoff, the envelope
+    u(x)/x (the 1/x factor kept) times sin(freq_n · x), `freqs` trainable
+    in DimeNet++ (init n·π). Returns [..., num_basis]."""
+    if freqs is None:
+        freqs = torch.arange(1, num_basis + 1, dtype=d.dtype, device=d.device) * math.pi
+    x = d / cutoff
+    x_safe = torch.where(x > 1e-8, x, torch.ones_like(x))
+    env = polynomial_envelope(x, envelope_exponent) / x_safe
+    return env[..., None] * torch.sin(freqs * x_safe[..., None])
 
 
 def smooth_transition_cutoff(d: torch.Tensor, cutoff: float) -> torch.Tensor:

@@ -11,11 +11,14 @@ and without ``device`` it raises. On the card PaiNN, SchNet, QHNet, eSCN and
 EquiformerV2 run their fused kernels unless the config pins `use_pallas`;
 PaiNN and SchNet then train with the surrogate force gradient through them
 (``force_grads="pallas"``); eSCN's and EquiformerV2's forces are a direct
-head, trained by one backward pass. Hamiltonian
-configs (``datamodule.kind: hamiltonian``) read a local Hamiltonian DB and
-take the orbital basis from its ``basisset`` table; they have no predict
-job. `ckpt_path` takes a checkpoint this package wrote; ``pretrained`` and
-the JAX package's flax checkpoints are not ported yet.
+head, trained by one backward pass. DimeNet++, Graphormer3D and PhiSNet
+have no kernel of their own: DimeNet++ trains its derivative forces by the
+double backward (``force_grads="direct"``), Graphormer3D's forces are a
+direct head. Hamiltonian configs (``datamodule.kind: hamiltonian``; QHNet,
+PhiSNet) read a local Hamiltonian DB and take the orbital basis from its
+``basisset`` table; they have no predict job. `ckpt_path` takes a
+checkpoint this package wrote; ``pretrained`` and the JAX package's flax
+checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ JOB_TYPES = ("train", "test", "predict", "optimize")
 # the families that run fused message kernels on the card by default
 FUSED_ON_CARD = ("painn", "schnet", "qhnet", "escn", "equiformer_v2")
 # the families that read the orbital basis of a Hamiltonian DB
-HAMILTONIAN_MODELS = ("qhnet",)
+HAMILTONIAN_MODELS = ("qhnet", "phisnet")
 
 
 def seed_everything(seed: int) -> None:
@@ -126,8 +129,9 @@ def build_model(cfg: Dict[str, Any], device: torch.device,
 def build_trainer(cfg: Dict[str, Any], device: torch.device,
                   params: Optional[Mapping[str, Any]] = None) -> Trainer:
     """The configured model (`build_model`) in a Trainer: the trainer group
-    with the model's `trainer_overrides`, loss specs and coefficients, and
-    stdout plus CSV loggers (``<output_dir>/<name>/metrics.csv``)."""
+    with the model's `trainer_overrides` (where the group leaves the key
+    unset, as the JAX package), loss specs and coefficients, and stdout plus CSV loggers
+    (``<output_dir>/<name>/metrics.csv``)."""
     m = cfg["model"]
     model = build_model(cfg, device, params)
     t = dict(cfg.get("trainer", {}))

@@ -4,10 +4,10 @@ The port of ``nabladft_tpu/train/engine.py`` on one device (the card
 unless the caller names another): weighted multi-task losses, three ways to
 take the force loss's parameter gradient, AdamW with the plateau LR, EMA,
 top-k checkpoints, keep-best / restore-best-for-test, early stopping,
-`max_steps` / `max_seconds` / `stop_at_lr`, and a non-finite skip guard
-(warmup counts the updates it let through). Train steps run the model in
-train mode (dropout drawn from a generator seeded from the seed and the
-step); validation, test and predict in eval mode.
+`max_steps` / `max_seconds` / `stop_at_lr`, Lookahead, and a non-finite
+skip guard (warmup and Lookahead count the updates it let through). Train
+steps run the model in train mode (dropout drawn from a generator seeded
+from the seed and the step); validation, test and predict in eval mode.
 Weights are the model's own (a seeded ``torch.Generator`` when it was
 built, or carried across from the JAX package); buffers are never updated.
 
@@ -44,7 +44,7 @@ from nabladft_tpu_torch.train import losses as losses_lib
 from nabladft_tpu_torch.train.checkpoints import CheckpointManager, load_state, read_aux
 from nabladft_tpu_torch.train.loggers import Logger, StdoutLogger
 from nabladft_tpu_torch.train.metrics import MetricAccumulator, batch_metric_sums
-from nabladft_tpu_torch.train.schedulers import PlateauState, build_schedule
+from nabladft_tpu_torch.train.schedulers import Lookahead, PlateauState, build_schedule
 from nabladft_tpu_torch.train.state import (
     build_optimizer, current_learning_rate, ema_init, ema_update, set_learning_rate,
 )
@@ -63,10 +63,10 @@ def seeded_generator(seed: int) -> torch.Generator:
 @dataclass
 class TrainerConfig:
     """The JAX package's fields and defaults. Not ported yet, and raising
-    when set: n_dp > 1, lookahead_k, profile_dir, log_mfu and the
-    step-indexed schedules. fit_scale_factors / scale_fit_batches concern
-    models with fitted scale factors (none ported); total_steps only the
-    step-indexed schedules."""
+    when set: n_dp > 1, profile_dir, log_mfu and the step-indexed
+    schedules. `lookahead_k` > 0 wraps the optimizer in `Lookahead`.
+    fit_scale_factors / scale_fit_batches concern models with fitted scale
+    factors (none ported); total_steps only the step-indexed schedules."""
 
     max_epochs: int = 100
     max_steps: Optional[int] = None
@@ -115,7 +115,6 @@ class TrainerConfig:
 def _check_ported(cfg: TrainerConfig) -> None:
     unported = {
         "n_dp > 1 (ROADMAP queue 1: multi-GPU data parallelism)": (cfg.n_dp or 1) > 1,
-        "lookahead_k (ROADMAP queue 1: PhiSNet's Lookahead)": bool(cfg.lookahead_k),
         "profile_dir (ROADMAP queue 1: trainer remainders)": bool(cfg.profile_dir),
         "log_mfu (ROADMAP queue 1: trainer remainders)": cfg.log_mfu,
     }
@@ -147,6 +146,8 @@ class Trainer:
                                     min_lr=cfg.plateau_min_lr)
         self.optimizer = build_optimizer(model.named_parameters(), cfg.optimizer, cfg.lr,
                                          cfg.weight_decay, cfg.wd_skip_1d)
+        if cfg.lookahead_k:
+            self.optimizer = Lookahead(self.optimizer, cfg.lookahead_k, cfg.lookahead_alpha)
         self.ema = ema_init(model) if cfg.ema_decay > 0 else None
         self.step = 0
         # updates applied (the skip guard's steps excluded): the warmup's count,
@@ -227,7 +228,12 @@ class Trainer:
                 int(np.random.SeedSequence([cfg.seed, self.step]).generate_state(1)[0]))
             self.model.dropout_generator = self._dropout_gen
         losses = self._compute_grads(batch)
-        grads = [p.grad for p in self._params() if p.grad is not None]
+        # a parameter the loss does not reach gets a zero gradient, as in
+        # optax: its moments decay and weight decay still applies
+        for p in self._params():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self._params()]
         gnorm = (torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
                  if grads else torch.zeros((), device=self.device))
         gnorm_host = float(gnorm)  # before clipping, as the JAX guard

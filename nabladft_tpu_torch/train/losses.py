@@ -9,7 +9,8 @@
     (qhnet/loss.py), on the full matrix or on the model's block space.
 
 Every function reduces over real elements only and returns a scalar;
-`multitask_loss` combines them with weights and the optional max-error gate.
+`multitask_loss` combines them with weights and the optional max-error gate;
+a matrix target the batch does not carry raises ValueError.
 """
 
 from __future__ import annotations
@@ -121,6 +122,12 @@ def multitask_loss(
         elif target == "forces":
             pred, tgt, mask, l1 = out["forces"], batch.forces, batch.node_mask, forces_l1
         elif target in ("hamiltonian", "overlap", "core"):
+            if getattr(batch, target, None) is None:
+                raise ValueError(
+                    f"loss target {target!r}: the batch carries no {target} matrix, since the "
+                    f"datamodule does not read it from the database (the Hamiltonian dataset "
+                    f"reads the core matrix only when built with include_core=True, which "
+                    f"the pipeline's datamodule never asks for); drop {target!r} from loss_specs")
             (pred, tgt, mask), l1 = matrix_target(out, batch, target), matrix_mae
         else:
             raise KeyError(f"unknown loss target {target!r}")

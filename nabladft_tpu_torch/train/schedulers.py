@@ -3,12 +3,16 @@
 `constant` and `plateau` are ported. ReduceLROnPlateau is host-driven (it
 depends on the validation metric): a multiplier the Trainer folds into the
 optimizer's learning rate between epochs. The step-indexed schedules
-(linear, polynomial, cosine, multistep) are not ported yet.
+(linear, polynomial, cosine, multistep) are not ported yet. `Lookahead`
+(PhiSNet's legacy trainer) wraps the optimizer the Trainer builds.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
 
 
 @dataclass
@@ -45,3 +49,47 @@ def build_schedule(kind: str, base_lr: float, total_steps: int, warmup_steps: in
         raise NotImplementedError(
             f"the {kind!r} schedule is not ported yet (ROADMAP queue 1: trainer remainders)")
     raise KeyError(f"unknown schedule {kind!r}")
+
+
+class Lookahead:
+    """Lookahead (Zhang et al. 2019) around a torch optimizer, as the JAX
+    package's `lookahead(k, alpha)` chained after the inner optimizer: every
+    k-th step of the inner optimizer the weights are pulled toward the slow
+    copy, p <- slow + alpha (p - slow), and the slow copy syncs to p.
+
+    The count is the inner optimizer's (optax's): a step the Trainer's
+    non-finite guard skips never reaches `step`. The slow copy is part of
+    `state_dict`, as it is of the JAX optimizer state. The learning rate is
+    the inner optimizer's (`param_groups`).
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer, k: int = 5, alpha: float = 0.5):
+        if k < 1:
+            raise ValueError(f"lookahead k must be >= 1, got {k}")
+        self.optimizer, self.k, self.alpha = optimizer, int(k), float(alpha)
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.slow = [p.detach().clone() for p in self.params]
+        self.count = 0
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.optimizer.step()
+        self.count += 1
+        if self.count % self.k == 0:
+            for p, s in zip(self.params, self.slow):
+                s.add_(p - s, alpha=self.alpha)
+                p.copy_(s)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"inner": self.optimizer.state_dict(), "count": self.count,
+                "slow": [s.clone() for s in self.slow]}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(state["inner"])
+        self.count = int(state["count"])
+        for s, t in zip(self.slow, state["slow"]):
+            s.copy_(t)
