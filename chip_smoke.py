@@ -189,9 +189,22 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                (ENERGY_PASSES passes).
      *_profile, *_train_profile — torch.profiler over two predict or train
                steps (the device's busy share).
-  10. timing — seconds of each phase; then one JSON object describing every
+  10. gemnet_oc_train, gemnet_oc_predict — the same two phases on
+               configs/gemnet-oc.yaml at full width (4 blocks, emb 256 / 512,
+               128 radial, 7 spherical, K 30 / 8, cutoff 12 Å, coupled direct
+               forces, batch 64, loss E L1 + 100 x F L2-norm): the train job
+               fits the scale factors from its first scale_fit_batches
+               batches; every checkpoint holds the same scales, a refit of
+               those batches on the card gives them, the card's fit of the
+               first GEMNET_CPU_FIT_MOLS molecules of the smallest of them
+               matches the CPU's within GEMNET_FIT_RTOL, two
+               train steps leave them as they are, and the gradient norm
+               passed the clip; per bucket the fitting path's explicit
+               triplet lattice against the factorised path on the card
+               within GEMNET_PATHS_TOL; no kernel of A-P.
+  11. timing — seconds of each phase; then one JSON object describing every
                ported kernel (A-P) with its launches on each path (0 on the
-               paths of 8 and 9).
+               paths of 8-10).
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
 Any failed check raises: the script exits nonzero and prints no ok line.
 Exits nonzero without a CUDA device.
@@ -255,6 +268,9 @@ DIMENETPP_KW = dict(node_latent_dim=50, hidden=256, num_blocks=6, int_emb_size=6
                     max_neighbors=32, envelope_exponent=5, cutoff=5.0,
                     energy_std=0.870582896669776, energy_mean=-7.349405628928332)
 DIMENETPP_BATCH = 16
+# GemNet-OC (configs/gemnet-oc.yaml, model/gemnet-oc) at full width
+GEMNET_KW = dict(num_blocks=4, emb_size_atom=256, emb_size_edge=512, num_radial=128,
+                 num_spherical=7, cutoff=12.0, max_neighbors=30, max_neighbors_qint=8)
 GRAPHORMER_KW = dict(blocks=4, layers=6, embed_dim=512, ffn_embed_dim=512, attention_heads=32,
                      input_dropout=0.1, dropout=0.1, attention_dropout=0.0,
                      activation_dropout=0.1, num_kernel=128)
@@ -449,9 +465,20 @@ def _graphormer3d(source: str, root: str) -> dict:
     return cfg
 
 
+def _gemnet_oc(source: str, root: str) -> dict:
+    """configs/gemnet-oc.yaml: model/gemnet-oc, trainer/default, datamodule/energy."""
+    cfg = _composed("gemnet-oc", {
+        "name": "gemnet_oc", "kwargs": dict(GEMNET_KW),
+        "loss_specs": {"energy": "l1", "forces": "l2norm"},
+        "loss_coefs": {"energy": 1.0, "forces": 100.0},
+    }, source, root)
+    cfg["job_type"] = "train"
+    return cfg
+
+
 CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet, "escn-oc": _escn_oc,
            "equiformer_v2": _eqv2, "phisnet": _phisnet, "dimenetplusplus": _dimenetpp,
-           "graphormer3d": _graphormer3d}
+           "graphormer3d": _graphormer3d, "gemnet-oc": _gemnet_oc}
 
 
 def emit(phase: str, **fields) -> None:
@@ -2320,7 +2347,73 @@ ENERGY = {
     "dimenetpp": dict(config="dimenetplusplus", batch=DIMENETPP_BATCH, dropout=False,
                       f_covariant=True),
     "graphormer3d": dict(config="graphormer3d", batch=BATCH, dropout=True, f_covariant=False),
+    "gemnet_oc": dict(config="gemnet-oc", batch=BATCH, dropout=False, f_covariant=True),
 }
+# GemNet-OC's scale factors: the card's fit against the CPU's (fp32 sums in
+# another order, through a square root); its two triplet paths on the card,
+# the tolerance of tests/models/test_gemnet_factored.py
+GEMNET_FIT_RTOL = 1e-4
+# the CPU fits the first molecules of the smallest fit batch: its fit of a
+# whole full-width batch would take most of the script's time
+GEMNET_CPU_FIT_MOLS = 8
+GEMNET_PATHS_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def gemnet_scale_checks(cfg: dict, dm, trainer, ckpt: Path) -> dict:
+    """GemNet-OC's scale factors after the train job: every checkpoint
+    holds the same values, which a refit on the card of the batches the job
+    fitted from (the first scale_fit_batches of the train loader's first
+    pass) gives within 1e-6; the card's fit of the first GEMNET_CPU_FIT_MOLS
+    molecules of the smallest of those batches against the CPU's within
+    GEMNET_FIT_RTOL. Then loads the last
+    checkpoint into `trainer`, whose profiled train steps must leave the
+    fitted scales as they are."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.models.gemnet_oc import fit_scale_factors
+
+    dev = torch.device("cuda")
+    names = sorted(trainer.scales)
+    saved = {p.name: torch.load(p, map_location="cpu", weights_only=True)["model"]
+             for p in sorted(ckpt.glob("*.ckpt"))}
+    batches = list(itertools.islice(dm.train_dataloader(), trainer.cfg.scale_fit_batches))
+    refit = fit_scale_factors(pipelines.build_model(cfg, dev), batches).scale_factors()
+    fitted = {n: refit[n].item() for n in names}
+    for path, state in saved.items():
+        for n in names:
+            check(state[n].item() == next(iter(saved.values()))[n].item(),
+                  f"scale {n} differs between checkpoints")
+            check(abs(state[n].item() - fitted[n]) <= 1e-6 * abs(fitted[n]),
+                  f"scale {n} in {path}: {state[n].item()} vs the refit {fitted[n]}")
+    check(min(abs(v - 1.0) for v in fitted.values()) > 0.0, "every scale was fitted")
+    one = [_mols(min(batches, key=lambda b: b.z.shape[1]), slice(0, GEMNET_CPU_FIT_MOLS))]
+    card = fit_scale_factors(pipelines.build_model(cfg, dev), one).scale_factors()
+    t0 = time.perf_counter()
+    cpu = fit_scale_factors(pipelines.build_model(cfg, torch.device("cpu")), one).scale_factors()
+    cpu_seconds = time.perf_counter() - t0
+    rel = {n: abs(card[n].item() / cpu[n].item() - 1.0) for n in names}
+    check(max(rel.values()) <= GEMNET_FIT_RTOL,
+          f"scale fit on the card vs the CPU: {max(rel.values())} > {GEMNET_FIT_RTOL}")
+    trainer.load_checkpoint(ckpt / "last.ckpt")
+    return {"n_scales": len(names), "fit_batches": [list(b.z.shape) for b in batches],
+            "checkpoints": sorted(saved), "fitted": fitted,
+            "card_vs_cpu_max_rel": max(rel.values()), "cpu_fit_batch": list(one[0].z.shape),
+            "cpu_fit_seconds": cpu_seconds}
+
+
+def gemnet_paths(model, batch) -> dict:
+    """The fitting path (explicit triplet lattice) against the factorised
+    path on one batch on the card, within GEMNET_PATHS_TOL."""
+    with torch.no_grad():
+        fac, exp = model(batch), model(batch, stats={})
+    row = {}
+    for k in ("energy", "forces"):
+        diff = (fac[k] - exp[k]).abs()
+        limit = GEMNET_PATHS_TOL["atol"] + GEMNET_PATHS_TOL["rtol"] * exp[k].abs()
+        row[f"{k}_paths_abs_err"] = _max_abs(diff)
+        row[f"{k}_paths_err_over_limit"] = float((diff / limit).max())
+        check(row[f"{k}_paths_err_over_limit"] <= 1.0,
+              f"gemnet_oc triplet paths {k}: {row[f'{k}_paths_abs_err']}")
+    return row
 
 
 def _energy_limit(want: torch.Tensor, n_atoms: torch.Tensor, energy_mean: float) -> torch.Tensor:
@@ -2481,8 +2574,8 @@ def phisnet_model_checks(model, dm) -> list:
 
 
 def energy_predict_phase(tmp: Path, db: Path, family: str) -> dict:
-    """`job_type: predict` of DimeNet++ or Graphormer3D at full width over
-    the seeded DB from the train phase's best checkpoint (DimeNet++'s
+    """`job_type: predict` of DimeNet++, Graphormer3D or GemNet-OC at full
+    width over the seeded DB from the train phase's best checkpoint (DimeNet++'s
     zero-initialised output projections make the untrained model's forces
     0): rows and finite values, no kernel of A-P; per bucket the first
     batch on the card in eval mode (the job's rows are its outputs, so the
@@ -2492,7 +2585,8 @@ def energy_predict_phase(tmp: Path, db: Path, family: str) -> dict:
     Graphormer3D); molecules/s of the predict loop, run on a model left in
     train mode with a fresh dropout generator (Graphormer3D: the loop must
     draw nothing from it and leave the model in train mode), the device's
-    busy share over two predict steps, peak memory."""
+    busy share over two predict steps, peak memory; GemNet-OC's two triplet
+    paths per bucket (`gemnet_paths`)."""
     from nabladft_tpu_torch import pipelines
     from nabladft_tpu_torch.data.ase_codec import AseDatabase
     from nabladft_tpu_torch.models.base import forward
@@ -2564,6 +2658,8 @@ def energy_predict_phase(tmp: Path, db: Path, family: str) -> dict:
                 if tag == "rotation" and k == "forces" and not fam["f_covariant"]:
                     continue
                 check(share <= 1.0, f"{family} {k} at A={a} vs {tag}: {err}, {share} of its limit")
+        if family == "gemnet_oc":
+            row.update(gemnet_paths(gpu.model, bg))
         checks.append(row)
     check(sorted(first) == list(BUCKETS), f"predict buckets {sorted(first)}")
     del cpu
@@ -2593,8 +2689,9 @@ def energy_predict_phase(tmp: Path, db: Path, family: str) -> dict:
 
 def energy_train_phase(tmp: Path, db: Path, family: str) -> dict:
     """The train (TRAIN_EPOCHS epochs) and test jobs of DimeNet++ (derivative
-    forces by the double backward) or Graphormer3D (direct forces) at full
-    width: no kernel of A-P; Graphormer3D's dropout drawn on train steps
+    forces by the double backward), Graphormer3D or GemNet-OC (direct
+    forces) at full width: no kernel of A-P; GemNet-OC's scale factors
+    (`gemnet_scale_checks`) and its clip acting; Graphormer3D's dropout drawn on train steps
     (the trainer's generator, seeded afresh each step, has moved after one)
     and not in validation (it has not moved across one); DimeNet++ has no
     generator; finite losses and metrics; molecules/s, seconds per epoch, peak memory, and the busy share
@@ -2616,8 +2713,15 @@ def energy_train_phase(tmp: Path, db: Path, family: str) -> dict:
                                       torch.device("cuda"))
     check(trainer._force_grads == "direct"
           and trainer._uses_forces() == (family == "dimenetpp"), "force training route")
+    scales = gemnet_scale_checks(cfg, dm, trainer, ckpt) if family == "gemnet_oc" else None
+    before = {n: p.detach().clone() for n, p in trainer.scales.items()}
     batches = list(itertools.islice(dm.train_dataloader(), 2))
     profile_steps(f"{family}_train_profile", trainer._train_step, batches)
+    check(all(torch.equal(p, before[n]) for n, p in trainer.scales.items()),
+          "train steps moved a scale factor")
+    grad_norm_max = max(r["grad_norm"] for r in step_rows)
+    if family == "gemnet_oc":
+        check(grad_norm_max > trainer.cfg.grad_clip, f"the clip never acted: {grad_norm_max}")
     gen = trainer._dropout_gen
     check((gen is not None) == fam["dropout"], f"{family} dropout generator {gen}")
     draws = {}
@@ -2629,10 +2733,10 @@ def energy_train_phase(tmp: Path, db: Path, family: str) -> dict:
               f"dropout generator offsets {draws}: drawn in a train step, not in validation")
     emit(f"{family}_train", config=fam["config"], steps=res["step"], batches_per_epoch=n_train,
          val_batches=n_val, test_batches=n_test, launches=launches,
-         dropout_generator_offsets=draws,
+         dropout_generator_offsets=draws, scale_factors=scales,
          final_val=res, test=test,
          train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
-         grad_norm_max=max(r["grad_norm"] for r in step_rows),
+         grad_norm_max=grad_norm_max, grad_clip=trainer.cfg.grad_clip,
          molecules_per_second=dict(_rates(rates, "steps"), epoch=TRAIN_EPOCHS - 1),
          seconds_per_epoch=epoch_seconds, peak_device_memory_bytes=peak_mem)
     return launches

@@ -69,6 +69,17 @@ DimeNet++'s (Dense_i auto-named inside the residual layers and the head):
   output_b/{lin_rbf,lin_up,lin_out}/kernel, output_b/lin_k/{kernel,bias}
   Dense_{0..3}/{kernel,bias}
 
+GemNet-OC's (the "scales" collection, the fitted scale factors, beside
+"params"; Residuals' Denses auto-named):
+
+  atom_emb/embedding, edge_emb/{kernel,bias}, out_e_i/kernel, energy_out/kernel
+  trip_b/{dense_db,down,up}/kernel, trip_b/mlp_cbf      (raw)
+  quad_b/{dense_db,mlp_rbf,down,up}/kernel, quad_b/{mlp_cbf,mlp_sbf}   (raw)
+  {ae,ea,aa}_b/{mlp_rbf,proj}/kernel, {before,after}_b_k/Dense_{0,1}/kernel
+  out_b/{mlp_rbf_out,atom_proj,force_out}/kernel, out_b/{atom_res,force_res}_k/Dense_{0,1}/kernel
+  scales: scale_cbf_basis, trip_b/scale_cbf_sum, quad_b/scale_{rbf,cbf_sum,sbf_sum},
+          ae_b/scale_rbf, {ea,aa}_b/scale_sum, out_b/scale_out_sum   ([] each)
+
 Graphormer3D's (nn.Embeds named *_encoder, energy_agg_factor and gbf's two):
 
   gbf/Embed_{0,1}/embedding, gbf/{means,stds}, {tag,atom}_encoder/embedding
@@ -111,7 +122,7 @@ def _flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
             i += 1
         elif p == "mlp":
             out.append("MLP_0")
-        elif p.startswith("dense_"):
+        elif p.startswith("dense_") and p[len("dense_"):].isdigit():
             out.append("Dense_" + p[len("dense_"):])
         elif p.startswith("embed_"):
             out.append("Embed_" + p[len("embed_"):])
@@ -141,10 +152,13 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Copy a flax parameter tree of any ported family (PaiNN, SchNet,
-    QHNet, PhiSNet, eSCN, EquiformerV2, DimeNet++, Graphormer3D) into
-    `model` in place; returns it."""
-    tree = params.get("params", params)
-    leaves = _leaves(tree)
+    QHNet, PhiSNet, eSCN, EquiformerV2, DimeNet++, Graphormer3D, GemNet-OC)
+    into `model` in place; returns it. A variables dict's "scales"
+    collection (GemNet-OC's fitted scale factors) is read beside its
+    "params"."""
+    leaves = _leaves(params.get("params", params))
+    if "params" in params and "scales" in params:
+        leaves.update(_leaves(params["scales"]))
     if any("so2_source" in k for k in leaves):
         raise ValueError(
             "this eSCN tree is in the XLA layout (layer_i/so2_source/...); the port "

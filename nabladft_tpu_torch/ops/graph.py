@@ -13,7 +13,7 @@ the edge frames' axis vectors.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,11 +79,13 @@ class NeighborList(NamedTuple):
 
 
 def neighbor_list(pos: torch.Tensor, node_mask: torch.Tensor, cutoff: float,
-                  max_neighbors: int) -> NeighborList:
+                  max_neighbors: int, dense: Optional[DenseGraph] = None) -> NeighborList:
     """The K = min(max_neighbors, A) nearest in-cutoff neighbours of each
     atom, by distance. Equal distances keep the lower index first, as
-    `lax.top_k` does (a stable descending sort of the negated distances)."""
-    g = dense_graph(pos, node_mask, cutoff)
+    `lax.top_k` does (a stable descending sort of the negated distances).
+    `dense`: a `dense_graph(pos, node_mask, cutoff)` the caller already
+    built, so the all-pairs distances are computed once."""
+    g = dense if dense is not None else dense_graph(pos, node_mask, cutoff)
     k = min(max_neighbors, pos.shape[1])
     neg = torch.where(g.adj, -g.dist, torch.full_like(g.dist, -_BIG))
     vals, idx = torch.sort(neg, dim=-1, descending=True, stable=True)
@@ -117,6 +119,27 @@ def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     flat = idx.reshape(x.shape[0], -1).long()
     out = torch.gather(xf, 1, flat[..., None].expand(*flat.shape, xf.shape[-1]))
     return out.reshape(*idx.shape, *x.shape[2:])
+
+
+def gather_neighbor_edges(edge_feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """For each edge (j→i) the feature rows of all edges into j:
+    edge_feat [B, A, K, ...F] (edge idx[b,i,n] → i stored at [b,i,n]) ->
+    [B, A, K, K, ...F], out[b,i,n,m] = edge_feat[b, idx[b,i,n], m]."""
+    return gather_nodes(edge_feat, idx)
+
+
+def triplet_angles(nl: NeighborList) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Angles of the triplets k→j→i over the neighbour list: for edge
+    (j→i) at [b,i,n] and edge (k→j) at [b,j,m], the cosine between
+    pos_i - pos_j and pos_k - pos_j, clipped to [-1, 1] ([B,A,K,K]), and
+    trip_mask: both edges real and k != i (the back edge)."""
+    a = nl.idx.shape[1]
+    u_jk = gather_nodes(nl.unit, nl.idx)  # [B,A,K,K,3]: unit j→k
+    cos = torch.einsum("bikc,bikmc->bikm", -nl.unit, u_jk).clamp(-1.0, 1.0)
+    e2_mask = gather_nodes(nl.mask, nl.idx)
+    k_idx = gather_nodes(nl.idx, nl.idx)
+    i_idx = torch.arange(a, device=nl.idx.device)[None, :, None, None]
+    return cos, nl.mask[..., None] & e2_mask & (k_idx != i_idx)
 
 
 def edge_rotation_vectors(unit: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -11,10 +11,11 @@ and without ``device`` it raises. On the card PaiNN, SchNet, QHNet, eSCN and
 EquiformerV2 run their fused kernels unless the config pins `use_pallas`;
 PaiNN and SchNet then train with the surrogate force gradient through them
 (``force_grads="pallas"``); eSCN's and EquiformerV2's forces are a direct
-head, trained by one backward pass. DimeNet++, Graphormer3D and PhiSNet
-have no kernel of their own: DimeNet++ trains its derivative forces by the
-double backward (``force_grads="direct"``), Graphormer3D's forces are a
-direct head. Hamiltonian configs (``datamodule.kind: hamiltonian``; QHNet,
+head, trained by one backward pass. DimeNet++, Graphormer3D, GemNet-OC
+and PhiSNet have no kernel of their own: DimeNet++ trains its derivative
+forces by the double backward (``force_grads="direct"``), Graphormer3D's
+and GemNet-OC's forces are a direct head; GemNet-OC's train job fits its
+scale factors first, and its checkpoints keep them. Hamiltonian configs (``datamodule.kind: hamiltonian``; QHNet,
 PhiSNet) read a local Hamiltonian DB and take the orbital basis from its
 ``basisset`` table; they have no predict job. `ckpt_path` takes a
 checkpoint this package wrote; ``pretrained`` and the JAX package's flax

@@ -4,8 +4,14 @@ The port of ``nabladft_tpu/train/engine.py`` on one device (the card
 unless the caller names another): weighted multi-task losses, three ways to
 take the force loss's parameter gradient, AdamW with the plateau LR, EMA,
 top-k checkpoints, keep-best / restore-best-for-test, early stopping,
-`max_steps` / `max_seconds` / `stop_at_lr`, Lookahead, and a non-finite
-skip guard (warmup and Lookahead count the updates it let through). Train
+`max_steps` / `max_seconds` / `stop_at_lr`, Lookahead, the step-indexed
+LR schedules, and a non-finite skip guard (warmup, the schedules and
+Lookahead count the updates it let through). A model with fitted scale
+factors (GemNet-OC's `scale_factors`) has them fitted from the first
+training batches when a fit starts from scratch; they take a gradient,
+which the clip norm and the guard count, but stay out of the optimizer,
+so they never change (the JAX engine restores its "scales" collection
+after each update). Train
 steps run the model in train mode (dropout drawn from a generator seeded
 from the seed and the step); validation, test and predict in eval mode.
 Weights are the model's own (a seeded ``torch.Generator`` when it was
@@ -27,6 +33,7 @@ Force-loss gradients for models with F = -∂E/∂pos (``force_grads``):
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import time
 from dataclasses import dataclass, field
@@ -63,10 +70,10 @@ def seeded_generator(seed: int) -> torch.Generator:
 @dataclass
 class TrainerConfig:
     """The JAX package's fields and defaults. Not ported yet, and raising
-    when set: n_dp > 1, profile_dir, log_mfu and the step-indexed
-    schedules. `lookahead_k` > 0 wraps the optimizer in `Lookahead`.
-    fit_scale_factors / scale_fit_batches concern models with fitted scale
-    factors (none ported); total_steps only the step-indexed schedules."""
+    when set: n_dp > 1, profile_dir and log_mfu. `lookahead_k` > 0 wraps
+    the optimizer in `Lookahead`. fit_scale_factors / scale_fit_batches
+    concern models with fitted scale factors (GemNet-OC); total_steps only
+    the step-indexed schedules (linear, polynomial, cosine, multistep)."""
 
     max_epochs: int = 100
     max_steps: Optional[int] = None
@@ -76,7 +83,7 @@ class TrainerConfig:
     weight_decay: float = 0.0
     wd_skip_1d: bool = True
     grad_clip: Optional[float] = None
-    schedule: str = "plateau"  # plateau | constant
+    schedule: str = "plateau"  # plateau | constant | linear | polynomial | cosine | multistep
     schedule_kwargs: Dict[str, Any] = field(default_factory=dict)
     total_steps: Optional[int] = None
     warmup_steps: int = 0
@@ -132,8 +139,12 @@ class Trainer:
         self.model = model.to(self.device)
         self.cfg = cfg = config or TrainerConfig()
         _check_ported(cfg)
-        build_schedule(cfg.schedule, cfg.lr, cfg.total_steps or cfg.max_steps or 1_000_000,
-                       cfg.warmup_steps, **cfg.schedule_kwargs)
+        # a step-indexed schedule sets each update's rate from the count of
+        # applied updates (optax.inject_hyperparams' count); None for
+        # constant / plateau
+        self.schedule = build_schedule(cfg.schedule, cfg.lr,
+                                       cfg.total_steps or cfg.max_steps or 1_000_000,
+                                       cfg.warmup_steps, **cfg.schedule_kwargs)
         self._force_grads = cfg.force_grads
         if cfg.fast_force_grads and self._force_grads == "direct":
             self._force_grads = "surrogate"
@@ -144,14 +155,18 @@ class Trainer:
         self.loggers = loggers or StdoutLogger()
         self.plateau = PlateauState(factor=cfg.plateau_factor, patience=cfg.plateau_patience,
                                     min_lr=cfg.plateau_min_lr)
-        self.optimizer = build_optimizer(model.named_parameters(), cfg.optimizer, cfg.lr,
-                                         cfg.weight_decay, cfg.wd_skip_1d)
+        # fitted scale factors take a gradient but no optimizer step
+        self.scales = model.scale_factors() if hasattr(model, "scale_factors") else {}
+        self.optimizer = build_optimizer(
+            ((n, p) for n, p in model.named_parameters() if n not in self.scales),
+            cfg.optimizer, cfg.lr if self.schedule is None else self.schedule(0),
+            cfg.weight_decay, cfg.wd_skip_1d)
         if cfg.lookahead_k:
             self.optimizer = Lookahead(self.optimizer, cfg.lookahead_k, cfg.lookahead_alpha)
         self.ema = ema_init(model) if cfg.ema_decay > 0 else None
         self.step = 0
-        # updates applied (the skip guard's steps excluded): the warmup's count,
-        # as optax.scale_by_schedule's state that the JAX guard reverts
+        # updates applied (the skip guard's steps excluded): the warmup's and
+        # the schedule's count, as the optax states that the JAX guard reverts
         self.applied = 0
         # train-mode dropout (EquiformerV2) draws from a generator seeded from
         # cfg.seed and the step, as the JAX engine folds the step into its key
@@ -241,7 +256,9 @@ class Trainer:
         if finite:
             if cfg.grad_clip and gnorm_host >= cfg.grad_clip:
                 torch._foreach_mul_(grads, cfg.grad_clip / gnorm_host)
-            if cfg.warmup_steps:
+            if self.schedule is not None:
+                set_learning_rate(self.optimizer, self.schedule(self.applied))
+            elif cfg.warmup_steps:
                 set_learning_rate(self.optimizer,
                                   self._lr * min(1.0, (self.applied + 1) / cfg.warmup_steps))
             self.optimizer.step()
@@ -376,6 +393,16 @@ class Trainer:
 
     # -- the loop ------------------------------------------------------------
 
+    def _fit_scales(self, train_loader) -> None:
+        """Fit the scale factors from the first `scale_fit_batches` batches
+        of one extra pass over the train loader (which advances its epoch,
+        as the JAX engine's does)."""
+        from nabladft_tpu_torch.models.gemnet_oc import fit_scale_factors
+
+        batches = list(itertools.islice(train_loader, self.cfg.scale_fit_batches))
+        logger.info("fitting scale factors from %d batches", len(batches))
+        fit_scale_factors(self.model, batches)
+
     def fit(self, datamodule, ckpt_path: Optional[str] = None) -> Dict[str, float]:
         """Train; returns the last validation metrics."""
         cfg = self.cfg
@@ -383,6 +410,8 @@ class Trainer:
         train_loader = datamodule.train_dataloader()
         if ckpt_path:
             self.load_checkpoint(ckpt_path, resume=True)
+        elif cfg.fit_scale_factors and self.scales:
+            self._fit_scales(train_loader)
         stop = False
         best, bad_epochs = float("inf"), 0
         final_metrics: Dict[str, float] = {}

@@ -1,8 +1,9 @@
-"""The port's DimeNet++ and Graphormer3D jobs end to end on the CPU.
+"""The port's DimeNet++, Graphormer3D and GemNet-OC jobs end to end on the CPU.
 
-configs/dimenetplusplus.yaml and configs/graphormer3d.yaml shrunk to small
-widths (DimeNet++ hidden 16, two blocks; Graphormer3D one block of two
-layers, 32 dim, 4 heads) over one seeded synthetic energy DB, per family:
+configs/dimenetplusplus.yaml, configs/graphormer3d.yaml and
+configs/gemnet-oc.yaml shrunk to small widths (DimeNet++ hidden 16, two
+blocks; Graphormer3D one block of two layers, 32 dim, 4 heads; GemNet-OC one
+block, emb 16 / 32) over one seeded synthetic energy DB, per family:
 * `job_type: predict` writes every row with `energy_pred` and
   `forces_pred`, finite;
 * `job_type: train` (two epochs) gives finite losses and metrics, a CSV
@@ -12,10 +13,13 @@ layers, 32 dim, 4 heads) over one seeded synthetic energy DB, per family:
   (force_grads "direct"); Graphormer3D's forces are a direct head and its
   dropout is drawn on train steps only (2 + 3 × layer calls + 2 masks a
   step at these rates, counted as the `torch.rand` calls on the trainer's
-  generator), never in validation, test or predict;
+  generator), never in validation, test or predict; GemNet-OC's forces are
+  a direct head too, and its checkpoints hold the scale factors the train
+  job fitted (the other families have none);
 * chip_smoke.py's configs are the composed yaml with its overrides.
 """
 
+import itertools
 import json
 import sys
 from pathlib import Path
@@ -47,6 +51,10 @@ FAMILIES = {
                             max_neighbors=6, node_latent_dim=8),
     "graphormer3d": dict(blocks=1, layers=2, embed_dim=32, ffn_embed_dim=32, attention_heads=4,
                          num_kernel=8),
+    "gemnet-oc": dict(num_blocks=1, emb_size_atom=16, emb_size_edge=32, emb_size_trip_in=8,
+                      emb_size_trip_out=8, emb_size_quad_in=8, emb_size_quad_out=8,
+                      emb_size_cbf=8, num_radial=16, num_spherical=4, num_spherical_quad=3,
+                      max_neighbors=7, max_neighbors_qint=4),
 }
 
 
@@ -130,14 +138,67 @@ def test_force_training_route_and_dropout(jobs):
                ckpt_dir=None)
     trainer = pipelines.build_trainer(cfg, torch.device("cpu"))
     assert trainer._force_grads == "direct"
-    if jobs["config"] == "dimenetplusplus":
-        assert trainer._uses_forces() and trainer._dropout_gen is None
+    if jobs["config"] in ("dimenetplusplus", "gemnet-oc"):
+        assert trainer._uses_forces() == (jobs["config"] == "dimenetplusplus")
+        assert trainer._dropout_gen is None
         assert jobs["draws"] == {"predict": 0, "train": 0, "test": 0}
         return
     assert not trainer._uses_forces() and trainer._dropout_gen is not None
     kw = FAMILIES["graphormer3d"]
     per_step = 1 + 3 * kw["blocks"] * kw["layers"] + 2
     assert jobs["draws"] == {"predict": 0, "train": per_step * jobs["train"]["step"], "test": 0}
+
+
+def test_checkpoints_hold_the_fitted_scale_factors(jobs):
+    """Every checkpoint of the train job holds the same scale factors: for
+    GemNet-OC the values its fit gave (not 1), which a fresh refit of the
+    first train batches from the seeded weights reproduces."""
+    cfg = dict(_cfg(jobs["config"], jobs["db"], jobs["root"], "train"), log_csv=False,
+               ckpt_dir=None)
+    model = pipelines.build_model(cfg, torch.device("cpu"))
+    names = sorted(model.scale_factors()) if hasattr(model, "scale_factors") else []
+    assert bool(names) == (jobs["config"] == "gemnet-oc")
+    ckpts = sorted((jobs["root"] / "ckpt").glob("*.ckpt"))
+    assert jobs["best"] in ckpts and len(ckpts) >= 2
+    saved = [torch.load(p, weights_only=True)["model"] for p in ckpts]
+    if not names:
+        return
+    from nabladft_tpu_torch.models.gemnet_oc import fit_scale_factors
+
+    dm = pipelines.build_datamodule(cfg)
+    n_fit = pipelines.build_trainer(cfg, torch.device("cpu")).cfg.scale_fit_batches
+    batches = list(itertools.islice(dm.train_dataloader(), n_fit))
+    want = fit_scale_factors(model, batches).scale_factors()
+    for state in saved:
+        for n in names:
+            assert state[n].item() == want[n].item() != 1.0, n
+
+
+def test_gemnet_oc_cli_runs_train_test_and_predict(tmp_path):
+    """`python -m nabladft_tpu_torch.cli --config configs/gemnet-oc.yaml`:
+    train, test from the best checkpoint and predict on the CPU when asked
+    for; without a card and without `--device` it raises."""
+    from nabladft_tpu_torch import cli
+
+    db = write_random_db(tmp_path / "in.db", n_mols=8, min_atoms=4, max_atoms=8, seed=3)
+    small = [f"model.kwargs.{k}={v}" for k, v in FAMILIES["gemnet-oc"].items()]
+    config = ["--config", str(REPO / "configs" / "gemnet-oc.yaml")]
+    common = [f"datamodule.source={db}", f"datamodule.root={tmp_path}",
+              "datamodule.batch_size=4", "datamodule.val_fraction=0.25",
+              "datamodule.bucket_boundaries=[8]", f"ckpt_dir={tmp_path / 'ckpt'}",
+              f"output_dir={tmp_path / 'outputs'}", *small]
+    cpu = [*config, "--device", "cpu", *common]
+    assert cli.main([*cpu, "job_type=train", "trainer.max_epochs=1"]) == 0
+    index = json.loads((tmp_path / "ckpt" / "index.json").read_text())
+    best = tmp_path / "ckpt" / index["best"][0]["path"]
+    assert cli.main([*cpu, "job_type=test", f"ckpt_path={best}"]) == 0
+    out = tmp_path / "predictions.db"
+    assert cli.main([*cpu, "job_type=predict", f"ckpt_path={best}", f"output_db={out}"]) == 0
+    rows = list(AseDatabase(out).select_all())
+    assert len(rows) == 8 and all(np.isfinite(r.data["forces_pred"]).all() for r in rows)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([*config, *common, "job_type=test", f"ckpt_path={best}"])
 
 
 @pytest.mark.parametrize("config", sorted(FAMILIES))

@@ -330,7 +330,7 @@ def test_trainer_keeps_the_model_trainable_through_predict():
     assert all(p.requires_grad for p in trainer.model.parameters())
 
 
-@pytest.mark.parametrize("kw", [dict(n_dp=2), dict(log_mfu=True), dict(schedule="cosine")])
+@pytest.mark.parametrize("kw", [dict(n_dp=2), dict(log_mfu=True), dict(profile_dir="profile")])
 def test_unported_trainer_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         _toy_trainer(**kw)
