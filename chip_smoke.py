@@ -153,7 +153,9 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
      eqv2_profile — torch.profiler over two predict steps.
      eqv2_train — `job_type: train` then `test`: O 13 per train step,
                validation and test batch, P 13 per train step, dropout drawn
-               13 + 24 times per train step and never in evaluation; finite
+               13 + 24 times per train step and never in evaluation (each
+               mask one torch.rand call, counted), the trainer's generator
+               offset moving in train steps and not in validation; finite
                metrics; per bucket, dropout off, the fused parameter gradients
                against the plain module's on the card and both against float64
                (printed); molecules/s, s/epoch, memory.
@@ -202,7 +204,35 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                passed the clip; per bucket the fitting path's explicit
                triplet lattice against the factorised path on the card
                within GEMNET_PATHS_TOL; no kernel of A-P.
-  11. timing — seconds of each phase; then one JSON object describing every
+  11. restore — each over a checkpoint written in the run and found where
+               a user's would be (nothing is fetched: urlopen raises), on a
+               seeded DB of 64 molecules of 8-32 atoms (one predict batch):
+     pretrained_painn — ``pretrained: PaiNN_train_tiny`` (a seeded
+               schnetpack-named state dict at configs/painn.yaml width in a
+               Lightning .ckpt whose hyper-parameters hold an object of a
+               class the loader cannot import, in the cache under its name,
+               named by a links file with its MD5) through `pipelines.run` of
+               ``job_type: predict``: A and B 6 times, the converted weights
+               in the model, the first RESTORE_CPU_MOLS molecules against the
+               CPU plain path within E_TOL / F_TOL.
+     pretrained_escn, pretrained_eqv2 — the same for a reference-named eSCN
+               (configs/escn-oc.yaml width; the converter's XLA layout mapped
+               to the fused one: M 8 times) and EquiformerV2 (the published
+               variant: m_share_rad False, 600 Gaussians, attention hidden 64;
+               the plain path the variant chooses: O and P never), their
+               first molecules against the CPU within their predict phases'
+               limits.
+     flax_restore — a SchNet TrainState (configs/schnet.yaml width, seeded
+               weights apart from the job's own, an AdamW chain state)
+               written as flax's msgpack by this script; ``job_type: test``
+               from it launches E and F 6 times a batch and gives the metrics
+               of the same weights carried in as `params` (FLAX_METRIC_RTOL).
+     pretrained_qhnet — ``pretrained: QHNet_train_tiny`` (configs/qhnet.yaml
+               width, ref_compat) over qhnet_train's Hamiltonian DB: `test`,
+               then QH_RESTORE_STEPS fine-tune steps; I-L as qhnet_train's
+               counts; H of the first test molecules on the card within
+               QH_H_RTOL x max |H| of the CPU.
+  12. timing — seconds of each phase; then one JSON object describing every
                ported kernel (A-P) with its launches on each path (0 on the
                paths of 8-10).
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
@@ -2073,6 +2103,26 @@ DIRECT = {
 }
 
 
+class DropoutDraws:
+    """Counts the dropout masks drawn while it is entered (every mask is one
+    `torch.rand` call): "alpha" ([B, A, K, NH], one per attention call) and
+    "drop_path" ([B, 1, 1, 1], two per block)."""
+
+    def __enter__(self):
+        self.counts = {"alpha": 0, "drop_path": 0}
+        self._rand = torch.rand
+
+        def counting(size, *args, **kwargs):
+            self.counts["drop_path" if tuple(size)[1:] == (1, 1, 1) else "alpha"] += 1
+            return self._rand(size, *args, **kwargs)
+
+        torch.rand = counting
+        return self.counts
+
+    def __exit__(self, *exc):
+        torch.rand = self._rand
+
+
 def _plain_cfg(cfg: dict) -> dict:
     return dict(cfg, model=dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"],
                                                           use_pallas="off")))
@@ -2089,7 +2139,6 @@ def direct_predict_phase(tmp: Path, db: Path, family: str) -> dict:
     equivariance error printed; molecules/s of the predict loop."""
     from nabladft_tpu_torch import pipelines
     from nabladft_tpu_torch.data.ase_codec import AseDatabase
-    from nabladft_tpu_torch.models import equiformer_v2 as eqv2_mod
     from nabladft_tpu_torch.models.base import forward
     from nabladft_tpu_torch.train import Trainer
 
@@ -2100,12 +2149,11 @@ def direct_predict_phase(tmp: Path, db: Path, family: str) -> dict:
 
     # the main path: counts reset just before, read just after
     reset_all_launches()
-    eqv2_mod.reset_dropout_draws()
     torch.cuda.reset_peak_memory_stats()
-    res = pipelines.run(cfg)
+    with DropoutDraws() as draws:
+        res = pipelines.run(cfg)
     torch.cuda.synchronize()
     launches = all_launches()
-    draws = dict(eqv2_mod.DROPOUT_DRAWS)
     peak_mem = torch.cuda.max_memory_allocated()
 
     n_batches = res["batches"]
@@ -2214,7 +2262,6 @@ def direct_train_phase(tmp: Path, db: Path, family: str) -> dict:
     import copy
 
     from nabladft_tpu_torch import pipelines
-    from nabladft_tpu_torch.models import equiformer_v2 as eqv2_mod
     from nabladft_tpu_torch.train import Trainer, TrainerConfig
 
     fam = DIRECT[family]
@@ -2228,16 +2275,15 @@ def direct_train_phase(tmp: Path, db: Path, family: str) -> dict:
 
     # the main path: counts reset just before, read just after
     reset_all_launches()
-    eqv2_mod.reset_dropout_draws()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.time()
-    res = pipelines.run(cfg)
-    draws_train = dict(eqv2_mod.DROPOUT_DRAWS)
-    best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
-    test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(ckpt / best)))
+    with DropoutDraws() as draws:
+        res = pipelines.run(cfg)
+        draws_train = dict(draws)
+        best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
+        test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(ckpt / best)))
     torch.cuda.synchronize()
     launches = all_launches()
-    draws = dict(eqv2_mod.DROPOUT_DRAWS)
     peak_mem = torch.cuda.max_memory_allocated()
 
     steps = res["step"]
@@ -2282,11 +2328,11 @@ def direct_train_phase(tmp: Path, db: Path, family: str) -> dict:
     grads = []
     for a, batch in sorted(first.items()):
         small = _mols(batch, slice(0, fam["grad_mols"])).to(dev)
-        eqv2_mod.reset_dropout_draws()
-        lf, lp = fused._compute_grads(small), plain._compute_grads(small)
-        lx = exact._compute_grads(small.replace(**{k: getattr(small, k).double()
-                                                   for k in ("pos", "energy", "forces")}))
-        check(eqv2_mod.DROPOUT_DRAWS == {"alpha": 0, "drop_path": 0}, "gradient check in eval")
+        with DropoutDraws() as eval_draws:
+            lf, lp = fused._compute_grads(small), plain._compute_grads(small)
+            lx = exact._compute_grads(small.replace(**{k: getattr(small, k).double()
+                                                       for k in ("pos", "energy", "forces")}))
+        check(eval_draws == {"alpha": 0, "drop_path": 0}, "gradient check in eval")
         torch.cuda.empty_cache()
         err = _grad_errs(fused.model, plain.model)
         name = max(err, key=err.get)
@@ -2312,9 +2358,20 @@ def direct_train_phase(tmp: Path, db: Path, family: str) -> dict:
     trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
     batches = list(itertools.islice(dm.train_dataloader(), 2))
     profile_steps(f"{family}_train_profile", trainer._train_step, batches)
+    # the masks come from the trainer's generator: its offset moves in a train
+    # step and stays in validation
+    gen = trainer._dropout_gen
+    check((gen is not None) == fam["dropout"], f"{family} dropout generator {gen}")
+    offsets = {}
+    if gen is not None:
+        offsets["train_steps"] = gen.get_offset()
+        trainer.validate(itertools.islice(dm.val_dataloader(), 1))
+        offsets["validation"] = gen.get_offset() - offsets["train_steps"]
+        check(offsets["train_steps"] > 0 and offsets["validation"] == 0,
+              f"dropout generator offsets {offsets}: drawn in train steps, not in validation")
     emit(f"{family}_train", config=fam["config"], steps=steps, batches_per_epoch=n_train,
          val_batches=n_val, test_batches=n_test, launches=launches, expected_launches=want,
-         dropout_draws=draws, final_val=res, test=test,
+         dropout_draws=draws, dropout_generator_offsets=offsets, final_val=res, test=test,
          train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
          grad_norm_max=max(r["grad_norm"] for r in step_rows),
          molecules_per_second={"median": rates[len(rates) // 2], "min": rates[0],
@@ -2742,6 +2799,579 @@ def energy_train_phase(tmp: Path, db: Path, family: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# restore: the reference's published checkpoints through the registry, and
+# the JAX package's flax checkpoints
+# ---------------------------------------------------------------------------
+
+# the restore phases' DB: one predict batch (BATCH molecules of the first
+# bucket's sizes), seeded apart from the main DB
+RESTORE_SEED, RESTORE_MAX_ATOMS = SEED + 1, BUCKETS[0]
+# molecules of the batch held against the CPU plain path
+RESTORE_CPU_MOLS, QH_RESTORE_CPU_MOLS = 4, 2
+# fine-tune steps from the converted QHNet checkpoint
+QH_RESTORE_STEPS = 2
+# the flax-restore test job against the same weights carried in as params:
+# every metric within this relative distance (the same kernels on the same
+# inputs repeat their bits; the limit only absorbs a reordered host sum)
+FLAX_METRIC_RTOL = 1e-6
+
+
+def _painn(source: str, root: str) -> dict:
+    """configs/painn.yaml: model/painn (schnetpack's PaiNN: cosine cutoff),
+    trainer/default, datamodule/energy."""
+    return _composed("painn", {
+        "name": "painn",
+        "kwargs": {"hidden": 128, "n_interactions": 6, "n_rbf": 100, "cutoff": 5.0,
+                   "max_neighbors": 63, "rbf": "gaussian", "envelope": "cosine"},
+        "loss_specs": {"energy": "mse", "forces": "mse"},
+        "loss_coefs": {"energy": 1.0, "forces": 1.0},
+    }, source, root)
+
+
+CONFIGS["painn"] = _painn
+
+
+def seeded_state(shapes: dict, seed: int, unit_vectors=()) -> dict:
+    """Seeded float32 CPU tensors of `shapes` under the reference's names:
+    matrices N(0, 1/fan_in) (fan_in the last axis), vectors N(0, 0.1²) but
+    those ending in one of `unit_vectors` N(0, 1) (e3nn's flat weights)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, s in shapes.items():
+        x = rng.normal(size=s)
+        if len(s) >= 2:
+            x = x / np.sqrt(s[-1])
+        elif not k.endswith(tuple(unit_vectors)):
+            x = x * 0.1
+        out[k] = torch.from_numpy(np.asarray(x, np.float32))
+    return out
+
+
+def painn_reference_shapes(f: int, n_layers: int, n_rbf: int) -> dict:
+    """schnetpack's PaiNN inside a NeuralNetworkPotential (the published
+    PaiNN checkpoints' names)."""
+    pre, out = "model.representation.", "model.output_modules.0.outnet."
+    shapes = {pre + "embedding.weight": (100, f), pre + "filter_net.weight": (n_layers * 3 * f, n_rbf),
+              pre + "filter_net.bias": (n_layers * 3 * f,),
+              out + "0.weight": (f // 2, f), out + "0.bias": (f // 2,),
+              out + "1.weight": (1, f // 2), out + "1.bias": (1,)}
+    for i in range(n_layers):
+        b, u = f"{pre}interactions.{i}.", f"{pre}mixing.{i}."
+        shapes.update({
+            b + "interatomic_context_net.0.weight": (f, f), b + "interatomic_context_net.0.bias": (f,),
+            b + "interatomic_context_net.1.weight": (3 * f, f),
+            b + "interatomic_context_net.1.bias": (3 * f,),
+            u + "mu_channel_mix.weight": (2 * f, f),
+            u + "intraatomic_context_net.0.weight": (f, 2 * f),
+            u + "intraatomic_context_net.0.bias": (f,),
+            u + "intraatomic_context_net.1.weight": (3 * f, f),
+            u + "intraatomic_context_net.1.bias": (3 * f,)})
+    return shapes
+
+
+def escn_reference_shapes(model) -> dict:
+    """The reference eSCN's (escn/escn.py) at `model`'s widths."""
+    L, M, C = model.l_max, model.m_max, model.c
+    layer = model.layers[0]
+    H, EC = layer.w1_0.shape[-1], layer.edge_block.fc_edge.in_features
+    n_gauss, n_z = layer.edge_block.fc_dist.in_features, model.sphere_embedding.num_embeddings
+    shapes = {"sphere_embedding.weight": (n_z, C)}
+    for i in range(model.num_layers):
+        mb = f"layer_blocks.{i}.message_block."
+        shapes.update({mb + "edge_block.fc1_dist.weight": (EC, n_gauss),
+                       mb + "edge_block.fc1_dist.bias": (EC,),
+                       mb + "edge_block.source_embedding.weight": (n_z, EC),
+                       mb + "edge_block.target_embedding.weight": (n_z, EC),
+                       mb + "edge_block.fc1_edge_attr.weight": (EC, EC),
+                       mb + "edge_block.fc1_edge_attr.bias": (EC,)})
+        for blk in ("so2_block_source", "so2_block_target"):
+            b = mb + blk + "."
+            shapes.update({b + "fc1_dist0.weight": (H, EC), b + "fc1_dist0.bias": (H,),
+                           b + "fc1_m0.weight": (H, (L + 1) * C),
+                           b + "fc2_m0.weight": ((L + 1) * C, H)})
+            for m in range(1, M + 1):
+                c, n_l = b + f"so2_conv.{m - 1}.", L + 1 - m
+                shapes.update({c + "fc1_dist.weight": (2 * H, EC), c + "fc1_dist.bias": (2 * H,),
+                               c + "fc1_r.weight": (H, n_l * C), c + "fc2_r.weight": (n_l * C, H),
+                               c + "fc1_i.weight": (H, n_l * C), c + "fc2_i.weight": (n_l * C, H)})
+        shapes.update({f"layer_blocks.{i}.fc1_sphere.weight": (C, 2 * C),
+                       f"layer_blocks.{i}.fc2_sphere.weight": (C, C),
+                       f"layer_blocks.{i}.fc3_sphere.weight": (C, C)})
+    for blk in ("energy_block", "force_block"):
+        shapes.update({blk + ".fc1.weight": (C, C), blk + ".fc1.bias": (C,),
+                       blk + ".fc2.weight": (C, C), blk + ".fc2.bias": (C,),
+                       blk + ".fc3.weight": (1, C)})
+    return shapes
+
+
+def eqv2_reference_shapes(model) -> dict:
+    """The reference EquiformerV2_OC20's (use_m_share_rad False, per-block
+    atom-edge embeddings) at `model`'s widths."""
+    L, M, C, EC = model.l_max, model.m_max, model.c, model.edge_channels
+    H, VA, VC = model.num_heads, model.attn_alpha_channels, model.attn_value_channels
+    HID, NB = model.attn_hidden_channels or H * VC, model.num_distance_basis
+    FFN, n_z, N0 = model.energy_block.scalar_mlp.out_features, \
+        model.sphere_embedding.num_embeddings, L + 1
+
+    def radial(prefix, cin, cout):
+        return {prefix + ".net.0.weight": (EC, cin), prefix + ".net.0.bias": (EC,),
+                prefix + ".net.1.weight": (EC,), prefix + ".net.1.bias": (EC,),
+                prefix + ".net.3.weight": (EC, EC), prefix + ".net.3.bias": (EC,),
+                prefix + ".net.4.weight": (EC,), prefix + ".net.4.bias": (EC,),
+                prefix + ".net.6.weight": (cout, EC), prefix + ".net.6.bias": (cout,)}
+
+    def attn(prefix, out):
+        extra = H * VA + HID
+        s = {prefix + ".source_embedding.weight": (n_z, EC),
+             prefix + ".target_embedding.weight": (n_z, EC),
+             prefix + ".alpha_norm.weight": (VA,), prefix + ".alpha_norm.bias": (VA,),
+             prefix + ".alpha_dot": (H, VA), prefix + ".proj.weight": (N0, out, H * VC),
+             prefix + ".proj.bias": (out,),
+             prefix + ".so2_conv_1.fc_m0.weight": (extra + N0 * HID, N0 * 2 * C),
+             prefix + ".so2_conv_1.fc_m0.bias": (extra + N0 * HID,),
+             prefix + ".so2_conv_2.fc_m0.weight": (N0 * H * VC, N0 * HID),
+             prefix + ".so2_conv_2.fc_m0.bias": (N0 * H * VC,)}
+        s.update(radial(prefix + ".so2_conv_1.rad_func", NB + 2 * EC,
+                        sum((L + 1 - m) * 2 * C for m in range(M + 1))))
+        for m in range(1, M + 1):
+            n_l = L + 1 - m
+            s[prefix + f".so2_conv_1.so2_m_conv.{m - 1}.fc.weight"] = (2 * HID * n_l, n_l * 2 * C)
+            s[prefix + f".so2_conv_2.so2_m_conv.{m - 1}.fc.weight"] = (2 * H * VC * n_l, n_l * HID)
+        return s
+
+    def ffn(prefix, out):
+        return {prefix + ".scalar_mlp.0.weight": (FFN, C), prefix + ".scalar_mlp.0.bias": (FFN,),
+                prefix + ".so3_linear_1.weight": (N0, FFN, C),
+                prefix + ".so3_linear_1.bias": (FFN,),
+                prefix + ".grid_mlp.0.weight": (FFN, FFN), prefix + ".grid_mlp.2.weight": (FFN, FFN),
+                prefix + ".grid_mlp.4.weight": (FFN, FFN),
+                prefix + ".so3_linear_2.weight": (N0, out, FFN),
+                prefix + ".so3_linear_2.bias": (out,)}
+
+    def norm(prefix):
+        return {prefix + ".norm_l0.weight": (C,), prefix + ".norm_l0.bias": (C,),
+                prefix + ".affine_weight": (L, C)}
+
+    shapes = {"sphere_embedding.weight": (n_z, C),
+              "edge_degree_embedding.source_embedding.weight": (n_z, EC),
+              "edge_degree_embedding.target_embedding.weight": (n_z, EC)}
+    shapes.update(radial("edge_degree_embedding.rad_func", NB + 2 * EC, N0 * C))
+    for i in range(model.num_layers):
+        b = f"blocks.{i}"
+        for part in (norm(b + ".norm_1"), attn(b + ".ga", C), norm(b + ".norm_2"),
+                     ffn(b + ".ffn", C)):
+            shapes.update(part)
+    shapes.update(norm("norm"))
+    shapes.update(ffn("energy_block", 1))
+    shapes.update(attn("force_block", 1))
+    return shapes
+
+
+def qhnet_reference_shapes(model) -> dict:
+    """The reference QHNet's (qhnet/qhnet.py, layers.py: e3nn flat weights)
+    at `model`'s widths and orbital layout."""
+    from nabladft_tpu_torch.models.qhnet import LMAX
+    from nabladft_tpu_torch.ops import e3nn_compat as ec
+
+    C, CB, RBF, N_L = model.hidden, model.bottle_hidden, model.rbf_dim, LMAX + 1
+    uuu_n = len(ec.qhnet_uuu_tp(LMAX).paths)
+    _, n_w, n_b = ec.expansion_instructions(tuple(model.layout.mults), CB, LMAX)
+    shapes = {"node_embedding.weight": (10, C), "distance_expansion._alpha": ()}
+
+    def gate(prefix):
+        return {prefix + ".fc.0.weight": (N_L * C, N_L * C), prefix + ".fc.0.bias": (N_L * C,),
+                prefix + ".fc.2.weight": (N_L * C, N_L * C), prefix + ".fc.2.bias": (N_L * C,)}
+
+    def linear(prefix, c_out=C):
+        return {prefix + ".weight": (N_L * C * c_out,), prefix + ".bias": (c_out,)}
+
+    for i in range(model.num_layers):
+        r = f"e3_gnn_layer.{i}.conv"
+        numel = len(ec.qhnet_conv_tp(LMAX, layer0=(i == 0)).paths) * C
+        shapes.update({f"{r}.fc_node.0.weight": (RBF, 32), f"{r}.fc_node.1.weight": (32, numel),
+                       f"{r}.layer_l0.0.weight": (2 * C if i == 0 else (N_L + 1) * C, 32),
+                       f"{r}.layer_l0.1.weight": (32, numel)})
+        shapes.update(linear(f"{r}.linear_out"))
+        if i != 0:
+            for part in (linear(f"{r}.linear_node_pre"), linear(f"{r}.linear_node"),
+                         gate(f"{r}.norm_gate")):
+                shapes.update(part)
+    for k in range(model.num_layers - model.start_layer - 1):
+        r = f"e3_gnn_node_layer.{k}"
+        for name in ("linear_node_1", "linear_node_2", "linear_node_3"):
+            shapes.update(linear(f"{r}.{name}"))
+        for name in ("norm_gate", "norm_gate_1", "norm_gate_2"):
+            shapes.update(gate(f"{r}.{name}"))
+        shapes[f"{r}.tp.weight"] = (uuu_n * C,)
+        r = f"e3_gnn_node_pair_layer.{k}"
+        for name in ("linear_node_pair_inner", "linear_node_pair_n", "linear_node_pair"):
+            shapes.update(linear(f"{r}.{name}"))
+        for name in ("norm_gate", "norm_gate_pre"):
+            shapes.update(gate(f"{r}.{name}"))
+        shapes.update({f"{r}.fc_node_pair.0.weight": (RBF, 8),
+                       f"{r}.fc_node_pair.1.weight": (8, uuu_n * C),
+                       f"{r}.fc.0.weight": (C, (N_L + 1) * C), f"{r}.fc.0.bias": (C,),
+                       f"{r}.fc.2.weight": (uuu_n * C, C), f"{r}.fc.2.bias": (uuu_n * C,)})
+    for name in ("output_ii", "output_ij"):
+        shapes.update(linear(name, CB))
+    for name, d_in, d_out in (("fc_ii.hamiltonian", C, n_w), ("fc_ij.hamiltonian", 2 * C, n_w),
+                              ("fc_ii_bias.hamiltonian", C, n_b),
+                              ("fc_ij_bias.hamiltonian", 2 * C, n_b)):
+        shapes.update({f"{name}.0.weight": (C, d_in), f"{name}.0.bias": (C,),
+                       f"{name}.2.weight": (d_out, C), f"{name}.2.bias": (d_out,)})
+    return shapes
+
+
+def lightning_ckpt(path: Path, state: dict) -> None:
+    """A Lightning-shaped .ckpt of `state` whose hyper_parameters hold an
+    object of a class from a module that is gone when the file is read."""
+    import types
+
+    mod = types.ModuleType("vanished_training_module")
+
+    class HyperParameters:
+        def __init__(self):
+            self.lr = 5e-4
+
+    HyperParameters.__module__, HyperParameters.__qualname__ = mod.__name__, "HyperParameters"
+    mod.HyperParameters = HyperParameters
+    sys.modules[mod.__name__] = mod
+    try:
+        torch.save({"state_dict": state, "hyper_parameters": {"model": HyperParameters()},
+                    "epoch": 1}, path)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def cached_checkpoint(tmp: Path, name: str, state: dict) -> dict:
+    """The config keys that reach checkpoint `name` through the registry's
+    cache: the file at <tmp>/pretrained/<name>.ckpt and a links file whose
+    etag for `name` is its MD5."""
+    from nabladft_tpu_torch.data.download import file_md5
+
+    cache = tmp / "pretrained"
+    cache.mkdir(exist_ok=True)
+    lightning_ckpt(cache / f"{name}.ckpt", state)
+    links = tmp / f"links_{name}.json"
+    links.write_text(json.dumps({"checkpoints": {name: {
+        "url": f"https://checkpoints.invalid/{name}.ckpt",
+        "etag": file_md5(cache / f"{name}.ckpt")}}}))
+    return {"pretrained": name, "pretrained_dir": str(cache), "links_path": str(links)}
+
+
+class NoFetch:
+    """`urllib.request.urlopen` raises while it is entered: nothing is fetched."""
+
+    def __enter__(self):
+        import urllib.request
+
+        self._urlopen = urllib.request.urlopen
+
+        def refuse(*args, **kwargs):
+            raise RuntimeError("a download was attempted")
+
+        urllib.request.urlopen = refuse
+
+    def __exit__(self, *exc):
+        import urllib.request
+
+        urllib.request.urlopen = self._urlopen
+
+
+def _restore_rows(cfg: dict, dm) -> dict:
+    """mol_id -> the predict job's output row (the writer keeps the loader's
+    order of the real molecules)."""
+    from nabladft_tpu_torch.data.ase_codec import AseDatabase
+
+    order = [mid for b in dm.predict_dataloader()
+             for mid, real in zip(b.mol_id.tolist(), b.graph_mask.tolist()) if real]
+    return dict(zip(order, AseDatabase(cfg["output_db"]).select_all()))
+
+
+def _rows_against_cpu(cfg: dict, dm, n_mols: int, tol) -> dict:
+    """The first `n_mols` molecules of the predict job's batch against the
+    CPU plain path with the same converted weights; `tol(got, want, what)`
+    holds each; returns the largest abs errors."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.models.base import forward
+
+    rows = _restore_rows(cfg, dm)
+    with NoFetch():
+        cpu = pipelines.build_model(cfg, torch.device("cpu")).eval()
+    check(cpu.use_pallas == "off", "the CPU reference runs the plain path")
+    batch = _mols(next(iter(dm.predict_dataloader())), slice(0, n_mols))
+    with torch.no_grad():
+        out = forward(cpu, batch)
+    errs = {"energy": 0.0, "forces": 0.0}
+    for i, mol_id in enumerate(batch.mol_id.tolist()):
+        rec = rows[mol_id]
+        got = {"energy": np.asarray(rec.data["energy_pred"]),
+               "forces": np.asarray(rec.data["forces_pred"])}
+        want = {"energy": out["energy"][i:i + 1].numpy(),
+                "forces": out["forces"][i][:rec.natoms].numpy()}
+        for k in errs:
+            tol(got[k], want[k], f"{k} of molecule {mol_id}")
+            errs[k] = max(errs[k], float(np.abs(got[k] - want[k]).max()))
+    return errs
+
+
+def _pretrained_predict(tmp: Path, db: Path, config: str, name: str, state_fn,
+                        kwargs: dict = None):
+    """`job_type: predict` of configs/<config>.yaml (model kwargs updated by
+    `kwargs`) with ``pretrained: <name>``, the state dict `state_fn(model)`
+    (a CPU model of the config) found in the cache and nothing fetched;
+    returns (cfg, result, launches, peak memory, datamodule, state)."""
+    from nabladft_tpu_torch import pipelines
+
+    cfg = smoke_config(str(db), str(tmp / f"predictions_{name}.db"), str(tmp), config=config)
+    cfg["model"] = dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"], **(kwargs or {})))
+    state = state_fn(pipelines.build_model(cfg, torch.device("cpu")))
+    cfg.update(cached_checkpoint(tmp, name, state))
+
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with NoFetch():
+        res = pipelines.run(cfg)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    dm = pipelines.build_datamodule(cfg)
+    check(res["rows"] == BATCH and res["batches"] == 1,
+          f"{name}: {res['rows']} rows in {res['batches']} batches")
+    return cfg, res, launches, torch.cuda.max_memory_allocated(), dm, state
+
+
+def _want(launches: dict, **counts) -> dict:
+    want = dict.fromkeys(launches, 0)
+    want.update(counts)
+    return want
+
+
+def pretrained_painn_phase(tmp: Path, db: Path) -> dict:
+    """PaiNN_train_tiny (a seeded schnetpack-named state dict at
+    configs/painn.yaml width in a Lightning .ckpt) predicted on the card:
+    A and B once per interaction, the rows against the CPU."""
+    kw = _painn("", "")["model"]["kwargs"]
+    f, n_layers = kw["hidden"], kw["n_interactions"]
+    cfg, res, launches, peak, dm, state = _pretrained_predict(
+        tmp, db, "painn", "PaiNN_train_tiny",
+        lambda model: seeded_state(painn_reference_shapes(f, n_layers, kw["n_rbf"]), SEED + 2))
+    want = _want(launches, painn_fwd=n_layers, painn_bwd=n_layers)
+    check(launches == want, f"pretrained PaiNN launches {launches}, expected {want}")
+    from nabladft_tpu_torch import pipelines
+
+    with NoFetch():
+        model = pipelines.build_model(cfg, torch.device("cpu"))
+    check(torch.equal(model.atom_embedding.weight,
+                      state["model.representation.embedding.weight"]), "the checkpoint's weights")
+    errs = _rows_against_cpu(cfg, dm, RESTORE_CPU_MOLS, lambda got, ref, what:
+                             np.testing.assert_allclose(got, ref, err_msg=what,
+                                                        **(F_TOL if "forces" in what else E_TOL)))
+    emit("pretrained_painn", checkpoint=cfg["pretrained"], config="painn", rows=res["rows"],
+         run_seconds=res["seconds"], launches=launches, cpu_ref_molecules=RESTORE_CPU_MOLS,
+         cpu_ref_max_abs_err=errs, peak_device_memory_bytes=peak,
+         tolerances={"energy": E_TOL, "forces": F_TOL})
+    return launches
+
+
+def _direct_tol(scale: dict, rtol: float):
+    def tol(got, ref, what):
+        k = "forces" if "forces" in what else "energy"
+        err = float(np.abs(got - ref).max())
+        check(err <= rtol * scale[k], f"{what}: {err} > {rtol} x {scale[k]}")
+    return tol
+
+
+def pretrained_escn_phase(tmp: Path, db: Path) -> dict:
+    """ESCN-OC_train_tiny (a seeded reference-named eSCN state dict at
+    configs/escn-oc.yaml width; the converter's XLA layout mapped to the
+    fused one) predicted on the card: M once per layer, N never; the first
+    molecules against the CPU within ESCN_OUT_RTOL x the largest |E| / |F|."""
+    cfg, res, launches, peak, dm, _ = _pretrained_predict(
+        tmp, db, "escn-oc", "ESCN-OC_train_tiny",
+        lambda model: seeded_state(escn_reference_shapes(model), SEED + 3))
+    want = _want(launches, escn_fwd=cfg["model"]["kwargs"]["num_layers"])
+    check(launches == want, f"pretrained eSCN launches {launches}, expected {want}")
+    rows = _restore_rows(cfg, dm).values()
+    scale = {"energy": max(abs(r.data["energy_pred"][0]) for r in rows),
+             "forces": max(float(np.abs(r.data["forces_pred"]).max()) for r in rows)}
+    errs = _rows_against_cpu(cfg, dm, ESCN_CPU_MOLS, _direct_tol(scale, ESCN_OUT_RTOL))
+    emit("pretrained_escn", checkpoint=cfg["pretrained"], config="escn-oc", rows=res["rows"],
+         run_seconds=res["seconds"], launches=launches, cpu_ref_molecules=ESCN_CPU_MOLS,
+         cpu_ref_max_abs_err=errs, max_abs=scale, peak_device_memory_bytes=peak,
+         tolerances={"output_rel": ESCN_OUT_RTOL})
+    return launches
+
+
+# the published EquiformerV2 checkpoints' variant (equiformer_v2_oc20.yaml)
+EQV2_REF_KW = dict(m_share_rad=False, num_distance_basis=600, attn_hidden_channels=64)
+
+
+def pretrained_eqv2_phase(tmp: Path, db: Path) -> dict:
+    """Equiformer-v2_train_tiny (a seeded reference-named state dict at
+    configs/equiformer_v2.yaml width, m_share_rad False, 600 Gaussians)
+    predicted on the card by the plain path the variant chooses: O and P
+    never launch; the first molecule against the CPU within EQV2_OUT_RTOL x
+    the largest |E| / |F|."""
+    cfg, res, launches, peak, dm, _ = _pretrained_predict(
+        tmp, db, "equiformer_v2", "Equiformer-v2_train_tiny",
+        lambda model: seeded_state(eqv2_reference_shapes(model), SEED + 4), EQV2_REF_KW)
+    check(launches == _want(launches), f"pretrained EquiformerV2 launched {launches}")
+    rows = _restore_rows(cfg, dm).values()
+    scale = {"energy": max(abs(r.data["energy_pred"][0]) for r in rows),
+             "forces": max(float(np.abs(r.data["forces_pred"]).max()) for r in rows)}
+    errs = _rows_against_cpu(cfg, dm, EQV2_CPU_MOLS, _direct_tol(scale, EQV2_OUT_RTOL))
+    emit("pretrained_eqv2", checkpoint=cfg["pretrained"], config="equiformer_v2",
+         model_kwargs=EQV2_REF_KW, rows=res["rows"], run_seconds=res["seconds"],
+         launches=launches, cpu_ref_molecules=EQV2_CPU_MOLS, cpu_ref_max_abs_err=errs,
+         max_abs=scale, peak_device_memory_bytes=peak, tolerances={"output_rel": EQV2_OUT_RTOL})
+    return launches
+
+
+def pretrained_qhnet_phase(tmp: Path) -> dict:
+    """QHNet_train_tiny (a seeded reference-named state dict at
+    configs/qhnet.yaml width, ref_compat) over qhnet_train's Hamiltonian
+    DB: `test`, then QH_RESTORE_STEPS fine-tune steps from the converted
+    weights (I-L with remat as in qhnet_train); H of the first test batch's
+    first molecules on the card within QH_H_RTOL x max |H| of the CPU."""
+    from nabladft_tpu_torch import pipelines
+
+    db = tmp / "hamiltonian.db"
+    ckpt, outputs = tmp / "ckpt_qhnet_pretrained", tmp / "outputs_qhnet_pretrained"
+    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs), config="qhnet")
+    cfg["model"] = dict(cfg["model"], kwargs=dict(cfg["model"]["kwargs"], ref_compat=True))
+    cfg["trainer"] = dict(cfg["trainer"], max_epochs=1, max_steps=QH_RESTORE_STEPS)
+    state = seeded_state(qhnet_reference_shapes(pipelines.build_model(cfg, torch.device("cpu"))),
+                         SEED + 5, unit_vectors=("linear_out.weight", "linear_node_pre.weight",
+                                                 "linear_node.weight", "_1.weight", "_2.weight",
+                                                 "_3.weight", "tp.weight", "_inner.weight",
+                                                 "_n.weight", "pair.weight", "output_ii.weight",
+                                                 "output_ij.weight"))
+    state["distance_expansion._alpha"] = torch.tensor(float(np.log(np.expm1(0.5))) + 0.1)
+    cfg.update(cached_checkpoint(tmp, "QHNet_train_tiny", state))
+    dm = pipelines.build_datamodule(cfg)
+    n_val, n_test = len(dm.val_dataloader()), len(dm.test_dataloader())
+
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with NoFetch():
+        test = pipelines.run(dict(cfg, job_type="test"))
+        res = pipelines.run(cfg)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_layers, start = cfg["model"]["kwargs"]["num_layers"], 2
+    n_pair, steps = n_layers - 1 - start, res["step"]
+    check(steps == QH_RESTORE_STEPS, f"{steps} fine-tune steps")
+    evals = n_val + n_test
+    want = _want(launches, qhnet_conv_fwd=2 * n_layers * steps + n_layers * evals,
+                 qhnet_conv_bwd=n_layers * steps,
+                 qhnet_pair_fwd=2 * n_pair * steps + n_pair * evals, qhnet_pair_bwd=n_pair * steps)
+    check(launches == want, f"pretrained QHNet launches {launches}, expected {want}")
+    for m in (test, res):
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics {m}")
+
+    from nabladft_tpu_torch.models.base import forward
+
+    with NoFetch():
+        gpu = pipelines.build_model(cfg, torch.device("cuda")).eval()
+        cpu = pipelines.build_model(cfg, torch.device("cpu")).eval()
+    check(gpu.use_pallas == "fused" and cpu.use_pallas == "off" and gpu.ref_compat, "model modes")
+    batch = _mols(next(iter(dm.test_dataloader())), slice(0, QH_RESTORE_CPU_MOLS))
+    with torch.no_grad():
+        h_gpu = forward(gpu, batch.to("cuda"))["hamiltonian"].cpu()
+        h_cpu = forward(cpu, batch)["hamiltonian"]
+    err, scale = _max_abs(h_gpu - h_cpu), _max_abs(h_cpu)
+    check(err <= QH_H_RTOL * scale, f"pretrained QHNet H: {err} > {QH_H_RTOL} x {scale}")
+    emit("pretrained_qhnet", checkpoint=cfg["pretrained"], config="qhnet", ref_compat=True,
+         test=test, fine_tune=res, steps=steps, launches=launches, expected_launches=want,
+         h_cpu_molecules=QH_RESTORE_CPU_MOLS, h_max_abs_err=err, h_max_abs=scale,
+         peak_device_memory_bytes=peak, tolerances={"h_rel": QH_H_RTOL})
+    return launches
+
+
+def _msgpack(obj) -> bytes:
+    """flax's msgpack (maps of str keys, ndarrays as extension type 1 of
+    msgpack ``(shape, dtype name, bytes)``, ints, nil): enough to write a
+    TrainState the JAX package's CheckpointManager would."""
+    import struct
+
+    def head(n, fix, fix_max, c16, c32):
+        if n <= fix_max:
+            return bytes([fix | n])
+        return (bytes([c16]) + struct.pack(">H", n)) if n < 1 << 16 else \
+            (bytes([c32]) + struct.pack(">I", n))
+
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, (int, np.integer)) and not isinstance(obj, bool):
+        return b"\xd3" + struct.pack(">q", int(obj))
+    if isinstance(obj, str):
+        b = obj.encode()
+        return (bytes([0xA0 | len(b)]) if len(b) < 32 else b"\xd9" + bytes([len(b)])) + b
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    if isinstance(obj, (list, tuple)):
+        return head(len(obj), 0x90, 15, 0xDC, 0xDD) + b"".join(_msgpack(x) for x in obj)
+    if isinstance(obj, dict):
+        return head(len(obj), 0x80, 15, 0xDE, 0xDF) + b"".join(
+            _msgpack(k) + _msgpack(v) for k, v in obj.items())
+    if isinstance(obj, np.ndarray):
+        body = _msgpack([list(obj.shape), obj.dtype.name, np.ascontiguousarray(obj).tobytes()])
+        return b"\xc9" + struct.pack(">I", len(body)) + b"\x01" + body
+    raise TypeError(type(obj))
+
+
+def flax_restore_phase(tmp: Path, db: Path) -> dict:
+    """A SchNet TrainState (configs/schnet.yaml width, seeded weights; an
+    AdamW chain state and no EMA) written as flax's msgpack, restored by
+    `job_type: test` with ``ckpt_path``: E and F once per interaction and
+    test batch, and every metric equal (FLAX_METRIC_RTOL) to those of the
+    same weights carried in with `params`."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.models.convert import flax_params_of
+
+    cfg = dict(smoke_config(str(db), "", str(tmp), config="schnet"), job_type="test")
+    seeded = dict(cfg, trainer=dict(cfg["trainer"], seed=SEED + 6))  # not the job's own init
+    params = flax_params_of(pipelines.build_model(seeded, torch.device("cpu")))
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v) for k, v in tree.items()}
+
+    adam = {"count": np.array(3, np.int32), "mu": zeros(params), "nu": zeros(params)}
+    state = {"step": np.array(3, np.int32), "params": params,
+             "opt_state": {"0": {}, "1": {"count": np.array(3, np.int32),
+                                          "hyperparams": {"learning_rate": np.array(1e-4,
+                                                                                    np.float32)},
+                                          "hyperparams_states": {},
+                                          "inner_state": {"0": adam, "1": {"inner_state": {}},
+                                                          "2": {}}}},
+             "ema_params": None}
+    path = tmp / "schnet_flax.ckpt"
+    path.write_bytes(_msgpack(state))
+
+    dm = pipelines.build_datamodule(cfg)
+    n_test, n_layers = len(dm.test_dataloader()), cfg["model"]["kwargs"]["n_interactions"]
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    restored = pipelines.run(dict(cfg, ckpt_path=str(path)))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = _want(launches, schnet_fwd=n_layers * n_test, schnet_bwd=n_layers * n_test)
+    check(launches == want, f"flax restore launches {launches}, expected {want}")
+    carried = pipelines.run(cfg, params=params)
+    check(set(restored) == set(carried) and all(
+        abs(restored[k] - carried[k]) <= FLAX_METRIC_RTOL * abs(carried[k]) for k in carried),
+        f"test metrics from the flax file {restored} vs the same params {carried}")
+    emit("flax_restore", config="schnet", checkpoint_bytes=path.stat().st_size,
+         test_batches=n_test, launches=launches, test_from_file=restored,
+         test_from_params=carried, tolerances={"metric_rel": FLAX_METRIC_RTOL})
+    return launches
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
@@ -2811,6 +3441,15 @@ def main() -> int:
             for job, phase in (("train", energy_train_phase), ("predict", energy_predict_phase)):
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
+        restore_db = timed("restore_db_write", write_random_db, tmp / "restore.db", BATCH,
+                           MIN_ATOMS, RESTORE_MAX_ATOMS, RESTORE_SEED)
+        for path, phase in (("pretrained_painn", pretrained_painn_phase),
+                            ("pretrained_escn", pretrained_escn_phase),
+                            ("pretrained_eqv2", pretrained_eqv2_phase),
+                            ("flax_restore", flax_restore_phase)):
+            by_path[path] = timed(path, phase, tmp, restore_db)
+        # over qhnet_train's Hamiltonian DB
+        by_path["pretrained_qhnet"] = timed("pretrained_qhnet", pretrained_qhnet_phase, tmp)
     for k, counter in ALL_KERNELS.items():
         rows[k]["launches_by_path"] = {p: n[counter] for p, n in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())

@@ -35,6 +35,7 @@ from nabladft_tpu_torch.data import fastpack
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.data.hamiltonian_db import HamiltonianDatabase
+from nabladft_tpu_torch.data.registry import DatasetRegistry, dataset_registry
 
 logger = logging.getLogger(__name__)
 
@@ -208,14 +209,32 @@ def _concat_records(parts: List[EnergyRecords]) -> EnergyRecords:
     )
 
 
+def resolve_split(kind: str, name: str, root: Optional[Path] = None,
+                  registry: Optional[DatasetRegistry] = None) -> Path:
+    """``<root>/<name>/raw.db`` for a registry split of `kind` ("energy" or
+    "hamiltonian"): the cached copy when its MD5 is the registry's etag,
+    else downloaded there. Raises FileNotFoundError for a name that is
+    neither a local file nor a split of the registry."""
+    reg = registry or dataset_registry
+    if name not in reg.list_datasets(kind):
+        raise FileNotFoundError(
+            f"{name!r} is neither a local {kind} database nor a split of the registry "
+            f"({', '.join(reg.list_datasets(kind))})")
+    dest = Path(root or "datasets") / name / "raw.db"
+    return reg.download(kind, name, dest)
+
+
 class EnergyDataset:
     """An energy split: columnar records + bucket assignment.
 
     Args:
-      source: path to a local ASE db, or a list of paths (multi-file
-        datasets concatenate).
+      source: path to a local ASE db, a registry split name (e.g.
+        "dataset_train_tiny", fetched into ``<root>/<name>/raw.db`` unless a
+        copy whose MD5 is the registry's etag is there), or a list of these
+        (multi-file datasets concatenate).
       root: the datasets root; caches of DBs outside it and outside the
         working directory go under ``<root>/cache``.
+      registry: the split registry (default: the package's links file).
     """
 
     def __init__(
@@ -223,6 +242,7 @@ class EnergyDataset:
         source,
         root: Optional[Path] = None,
         bucket_boundaries: Sequence[int] = (32, 48, 64),
+        registry: Optional[DatasetRegistry] = None,
     ):
         sources = [source] if isinstance(source, (str, Path)) else list(source)
         parts = []
@@ -230,10 +250,7 @@ class EnergyDataset:
         for src in sources:
             path = Path(src)
             if not path.exists():
-                raise FileNotFoundError(
-                    f"{src!r} is not a local ASE database; named registry splits "
-                    "are not supported by the PyTorch port yet (ROADMAP queue 1)"
-                )
+                path = resolve_split("energy", str(src), root, registry)
             # never write the .cache next to a DB outside our own roots
             cache_dir = None
             resolved = path.resolve()
@@ -294,13 +311,11 @@ class HamiltonianDataset:
         orbital_boundaries: Sequence[int] = (256, 384, 512, 640),
         include_overlap: bool = True,
         include_core: bool = False,
+        registry: Optional[DatasetRegistry] = None,
     ):
-        del root  # named splits (downloaded into root) are not ported
         path = Path(source)
         if not path.exists():
-            raise FileNotFoundError(
-                f"{source!r} is not a local Hamiltonian database; named registry splits "
-                "are not supported by the PyTorch port yet (ROADMAP queue 1)")
+            path = resolve_split("hamiltonian", str(source), root, registry)
         self.path = path
         self.db = HamiltonianDatabase(path)
         self.records = HamiltonianRecords(self.db)

@@ -19,8 +19,11 @@ The Conv and Pair layers' tensor products run in one of two modes:
 ``remat`` recomputes each Conv and Pair layer and the pair head in the
 backward pass (`torch.utils.checkpoint`), as the JAX package's `nn.remat`.
 Parameters are named as the flax tree (`models/convert.load_flax_params`).
-``ref_compat`` (the wiring of checkpoints converted from the reference)
-waits for pretrained restore and raises.
+``ref_compat`` wires the model as checkpoints converted from the reference
+expect (`models/pretrained.convert_qhnet`): no skip in layer 0's conv, an
+outer residual around every later conv layer, and fc_ii / fc_ij fed from
+the static node embedding. The residuals add to the kernels' outputs, so
+kernels I–L run with the same contract on both wirings.
 """
 
 from __future__ import annotations
@@ -214,9 +217,12 @@ def _pair_scalars(xs0: torch.Tensor, ip: torch.Tensor) -> torch.Tensor:
 class ConvNetLayer(nn.Module):
     """Radius-graph equivariant convolution (reference layers.py:150-344)."""
 
-    def __init__(self, c: int, rbf_dim: int, use_norm_gate: bool, use_pallas: str):
+    def __init__(self, c: int, rbf_dim: int, use_norm_gate: bool, use_pallas: str,
+                 ref_residual: bool = False):
         super().__init__()
         self.c, self.use_norm_gate, self.use_pallas = c, use_norm_gate, use_pallas
+        # the reference's layer 0 (irreps in 0e only) has no skip
+        self.skip = not (ref_residual and not use_norm_gate)
         if use_norm_gate:
             self.linear_pre = IrrepsLinear(c, c)
             self.norm_gate = NormGate(c)
@@ -242,7 +248,8 @@ class ConvNetLayer(nn.Module):
             w = _path_weights(h_r, w2r, b2r, h_s, w2s, b2s, adj, self.c)
             x_j = [x[:, None] for x in gated]
             agg = [m.sum(dim=2) for m in weighted_tensor_product(x_j, sh, w, LMAX)]
-        return self.linear_out([a + g for a, g in zip(agg, gated)])
+        # the residual sits outside kernel I's contract: it adds to I's output
+        return self.linear_out([a + g for a, g in zip(agg, gated)] if self.skip else agg)
 
 
 class SelfNetLayer(nn.Module):
@@ -390,19 +397,16 @@ class QHNet(nn.Module):
         super().__init__()
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
-        if ref_compat:
-            raise NotImplementedError(
-                "ref_compat serves checkpoints converted from the reference; it waits for "
-                "pretrained restore (ROADMAP queue 1: checkpoint and pretrained restore)")
         c, cb = hidden, bottle_hidden
         self.hidden, self.num_layers, self.start_layer = hidden, num_layers, start_layer
+        self.bottle_hidden, self.rbf_dim, self.num_elements = bottle_hidden, rbf_dim, num_elements
         self.radius_cutoff, self.remat, self.use_pallas = radius_cutoff, remat, use_pallas
-        self.assemble_matrix = assemble_matrix
+        self.assemble_matrix, self.ref_compat, self.orbitals = assemble_matrix, ref_compat, orbitals
         self.layout = OrbitalLayout(orbitals or DEF2_SVP_ORBITALS, num_elements)
         self.rbf = ExpBernsteinRBF(rbf_dim, radius_cutoff)
         self.node_embedding = nn.Embedding(num_elements, c)
         for i in range(num_layers):
-            setattr(self, f"conv_{i}", ConvNetLayer(c, rbf_dim, i != 0, use_pallas))
+            setattr(self, f"conv_{i}", ConvNetLayer(c, rbf_dim, i != 0, use_pallas, ref_compat))
             if i > start_layer:
                 setattr(self, f"self_{i}", SelfNetLayer(c, generator))
                 setattr(self, f"pair_{i}", PairNetLayer(c, rbf_dim, use_pallas))
@@ -463,14 +467,18 @@ class QHNet(nn.Module):
             cgsh = (sh_adj @ self.cgsh_t).detach().contiguous()  # [B,A,A,K]
         fii = fij = None
         for i in range(self.num_layers):
-            xs = self._maybe_remat(getattr(self, f"conv_{i}"), xs, sh, rbf, dg.adj, cgsh)
+            new_xs = self._maybe_remat(getattr(self, f"conv_{i}"), xs, sh, rbf, dg.adj, cgsh)
+            # ref_compat: the reference's outer residual for the layers after the first
+            xs = ([o + n for o, n in zip(xs, new_xs)] if self.ref_compat and i != 0
+                  else new_xs)
             if i > self.start_layer:
                 fii = getattr(self, f"self_{i}")(xs, fii)
                 fij = self._maybe_remat(getattr(self, f"pair_{i}"), xs, rbf, full_mask, fij)
 
         fii = self.output_ii(fii)
         fij = self.output_ij(fij)
-        x0 = xs[0][..., 0]  # [B,A,C]
+        # ref_compat: the reference's fc_ii / fc_ij read the static embedding
+        x0 = emb if self.ref_compat else xs[0][..., 0]  # [B,A,C]
         diag = self.expand_ii(fii, self.fc_ii(x0), self.fc_ii_bias(x0))  # [B,A,R,R]
         b, a = z.shape
         pair_scal = torch.cat([x0[:, :, None].expand(b, a, a, c), x0[:, None].expand(b, a, a, c)],

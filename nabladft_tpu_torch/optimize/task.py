@@ -25,7 +25,8 @@ from nabladft_tpu_torch.data.ase_codec import AseDatabase, AtomsRecord
 from nabladft_tpu_torch.data.dataset import BucketedLoader, EnergyDataset, LoaderConfig
 from nabladft_tpu_torch.optimize.calculator import BatchwiseCalculator
 from nabladft_tpu_torch.optimize.lbfgs import lbfgs_relax, load_state, relax_chunked, save_state
-from nabladft_tpu_torch.train.checkpoints import load_state as load_checkpoint
+from nabladft_tpu_torch.models.convert import load_flax_params
+from nabladft_tpu_torch.train.checkpoints import is_flax_state, load_state as load_checkpoint
 from nabladft_tpu_torch.utils import resolve_device
 from nabladft_tpu_torch.utils.xyz import write_extxyz
 
@@ -189,16 +190,21 @@ def build_optimize_model(cfg: Dict[str, Any], device: torch.device,
     """The optimize job's model on `device`, in eval mode: the configured
     model (`pipelines.build_model`: on the card the fused kernels unless
     ``optimize.use_pallas: false`` pins the plain path; `params` a flax
-    parameter tree carried across) with the parameters of `ckpt_path` (a
-    checkpoint this package's trainer wrote; its "model" entry, not the
-    EMA)."""
+    parameter tree carried across) with the parameters of `ckpt_path`: a
+    checkpoint this package's trainer wrote (its "model" entry, not the
+    EMA) or a flax checkpoint of the JAX package (a whole TrainState gives
+    up its params, as the JAX job's restore)."""
     if not cfg.get("optimize", {}).get("use_pallas", True):
         m = cfg["model"]
         cfg = dict(cfg, model=dict(m, kwargs=dict(m.get("kwargs", {}), use_pallas="off")))
     model = pipelines.build_model(cfg, device, params)
     ckpt_path = cfg.get("ckpt_path")
     if ckpt_path:
-        model.load_state_dict(load_checkpoint(Path(ckpt_path), device)["model"])
+        state = load_checkpoint(Path(ckpt_path), device)
+        if is_flax_state(state):
+            load_flax_params(model, state["params"])
+        else:
+            model.load_state_dict(state["model"])
     return model.eval()
 
 

@@ -18,8 +18,17 @@ and GemNet-OC's forces are a direct head; GemNet-OC's train job fits its
 scale factors first, and its checkpoints keep them. Hamiltonian configs (``datamodule.kind: hamiltonian``; QHNet,
 PhiSNet) read a local Hamiltonian DB and take the orbital basis from its
 ``basisset`` table; they have no predict job. `ckpt_path` takes a
-checkpoint this package wrote; ``pretrained`` and the JAX package's flax
-checkpoints are not ported yet.
+checkpoint this package wrote or a flax checkpoint of the JAX package (a
+TrainState: ``train`` resumes it, the other jobs take its weights and EMA).
+``pretrained: <Model>_<split>`` names one of the reference's published
+checkpoints: it is read from ``pretrained_dir`` (default
+``checkpoints/pretrained``, as ``<name>.ckpt``) when a file whose MD5 is the
+registry's etag is there, else downloaded, then converted into the
+configured model (`models/pretrained.py`), whose seeded weights it replaces
+in every job. ``datamodule.source`` may name a registry split, fetched into
+``datamodule.root``. ``links_path`` names another registry file for both
+(offline use: a file of one's own whose etags are the MD5s of the cached
+files).
 """
 
 from __future__ import annotations
@@ -35,9 +44,12 @@ import torch
 
 from nabladft_tpu_torch.data import DataModule, EnergyDataset, HamiltonianDataset
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
+from nabladft_tpu_torch.data.dataset import resolve_split
 from nabladft_tpu_torch.data.hamiltonian_db import HamiltonianDatabase
+from nabladft_tpu_torch.data.registry import CheckpointRegistry, DatasetRegistry
 from nabladft_tpu_torch.models import create_model
 from nabladft_tpu_torch.models.convert import load_flax_params
+from nabladft_tpu_torch.models.pretrained import get_pretrained_params
 from nabladft_tpu_torch.train import (
     CSVLogger, MultiLogger, StdoutLogger, Trainer, TrainerConfig, seeded_generator,
 )
@@ -72,14 +84,22 @@ def check_cfg(cfg: Dict[str, Any]) -> None:
         raise ValueError("predict job is not supported for Hamiltonian models")
 
 
+def _dataset_registry(cfg: Dict[str, Any]) -> Optional[DatasetRegistry]:
+    """The registry of `links_path`, if set, for named splits (else the
+    package's)."""
+    return DatasetRegistry(Path(cfg["links_path"])) if cfg.get("links_path") else None
+
+
 def build_datamodule(cfg: Dict[str, Any]) -> DataModule:
     d = cfg["datamodule"]
     kind = d.get("kind", "energy")
+    reg = _dataset_registry(cfg)
     if kind == "energy":
         ds = EnergyDataset(
             d["source"],
             root=d.get("root"),
             bucket_boundaries=tuple(d.get("bucket_boundaries", (32, 48, 64))),
+            registry=reg,
         )
     elif kind == "hamiltonian":
         ds = HamiltonianDataset(
@@ -87,6 +107,7 @@ def build_datamodule(cfg: Dict[str, Any]) -> DataModule:
             root=d.get("root"),
             atom_boundaries=tuple(d.get("atom_boundaries", (32, 48, 64))),
             orbital_boundaries=tuple(d.get("orbital_boundaries", (256, 384, 512, 640))),
+            registry=reg,
         )
     else:
         raise ValueError(f"unknown datamodule kind {kind!r}")
@@ -102,18 +123,24 @@ def build_datamodule(cfg: Dict[str, Any]) -> DataModule:
 def build_model(cfg: Dict[str, Any], device: torch.device,
                 params: Optional[Mapping[str, Any]] = None):
     """The configured model on `device`: weights from the trainer seed, or
-    `params` (a flax parameter tree) carried across from the JAX package.
+    `params` (a flax parameter tree) carried across from the JAX package, or
+    the converted checkpoint that ``pretrained`` names.
     On the card the FUSED_ON_CARD families run their fused message kernels
     unless the config pins `use_pallas`. A Hamiltonian model reads the
     orbital basis from the DB's basisset table unless the config gives one."""
     m = cfg["model"]
     kwargs = dict(m.get("kwargs", {}))
-    if m["name"].lower() in FUSED_ON_CARD and device.type == "cuda":
+    # the reference-compatible EquiformerV2 (m_share_rad False) has no kernel
+    has_kernels = kwargs.get("m_share_rad", True)
+    if m["name"].lower() in FUSED_ON_CARD and device.type == "cuda" and has_kernels:
         kwargs.setdefault("use_pallas", "fused")
     d = cfg.get("datamodule", {})
     if (m["name"].lower() in HAMILTONIAN_MODELS and "orbitals" not in kwargs
             and d.get("kind") == "hamiltonian"):
-        db = HamiltonianDatabase(d["source"])
+        src = Path(d["source"])
+        if not src.exists():
+            src = resolve_split("hamiltonian", d["source"], d.get("root"), _dataset_registry(cfg))
+        db = HamiltonianDatabase(src)
         try:
             if db.elements():
                 kwargs["orbitals"] = {z: tuple(int(l) for l in db.get_orbitals(z))
@@ -122,6 +149,11 @@ def build_model(cfg: Dict[str, Any], device: torch.device,
             db.close()
     seed = cfg.get("trainer", {}).get("seed", cfg.get("seed", 42))
     model = create_model(m["name"], device=device, generator=seeded_generator(seed), **kwargs)
+    if cfg.get("pretrained"):
+        links = cfg.get("links_path")
+        params = get_pretrained_params(cfg["pretrained"], model,
+                                       Path(cfg.get("pretrained_dir", "checkpoints/pretrained")),
+                                       CheckpointRegistry(Path(links)) if links else None)
     if params is not None:
         load_flax_params(model, params)
     return model
@@ -192,10 +224,8 @@ def run(cfg: Dict[str, Any], device=None,
     (`BatchwiseOptimizeTask.run`)."""
     check_cfg(cfg)
     job = cfg["job_type"]
-    if cfg.get("pretrained"):
-        raise NotImplementedError(
-            "pretrained restore is not ported yet (ROADMAP queue 1); "
-            "pass flax params to run(cfg, params=...) instead")
+    if cfg.get("pretrained") and params is not None:
+        raise ValueError("pretrained and params are mutually exclusive")
     device = resolve_device(device)
     seed_everything(cfg.get("seed", 42))
     if job == "optimize":
@@ -223,7 +253,7 @@ def run(cfg: Dict[str, Any], device=None,
         logger.info("test metrics: %s", metrics)
         return metrics
     out_db = Path(cfg.get("output_db", "predictions.db"))
-    input_db = Path(cfg["datamodule"]["source"])
+    input_db = dm.dataset.path  # a named split's resolved file
     loader = dm.predict_dataloader()
     t0 = time.perf_counter()
     n = write_predictions_to_db(input_db, out_db, trainer.predict(loader))

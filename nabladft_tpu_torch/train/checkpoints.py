@@ -5,8 +5,12 @@ semantics: save_top_k on val/loss plus save_last, resume from a path)
 with the same directory layout: ``last.ckpt``, ``step<N>.ckpt`` for the top
 k, ``index.json``, and ``<ckpt>.aux.json`` for the host-side scheduler state
 (plateau counters). A state is a dict of tensors and plain values written
-with `torch.save` and read back with ``weights_only=True``. Restoring the
-JAX package's flax msgpack checkpoints is not ported yet (ROADMAP queue 1).
+with `torch.save` and read back with ``weights_only=True``. `load_state`
+also reads the JAX package's checkpoints (its `CheckpointManager` writes a
+flax TrainState with ``flax.serialization.to_bytes``): `load_flax_state`
+returns that TrainState as a dict of numpy trees, which the Trainer and the
+optimize job map onto the module and its optimizer. The aux files are the
+same JSON in both packages.
 """
 
 from __future__ import annotations
@@ -18,16 +22,40 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from nabladft_tpu_torch.utils import msgpack
+
+
+def load_flax_state(path: Path) -> Dict[str, Any]:
+    """A flax TrainState the JAX package wrote, as a dict: ``step``,
+    ``params`` (the variables: "params" and, for GemNet-OC, its fitted
+    "scales"), ``opt_state`` (the optax chain's state, namedtuples as dicts
+    of their fields, tuples as dicts keyed "0", "1", ...) and
+    ``ema_params`` (None without EMA); numpy leaves. A bare variables dict
+    (`save_params`) comes back as ``{"params": variables}``."""
+    tree = msgpack.load(Path(path))
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path} is msgpack but holds no flax TrainState or variables")
+    if "step" not in tree and "opt_state" not in tree:
+        tree = {"params": tree}
+    return tree
+
+
+def is_flax_state(state: Dict[str, Any]) -> bool:
+    """Whether a state from `load_state` came from a flax checkpoint."""
+    return "model" not in state and "params" in state
+
 
 def load_state(path: Path, device=None) -> Dict[str, Any]:
-    """A state this package saved. `torch.save` writes a zip archive; any
-    other file (the JAX package's flax msgpack) is refused."""
-    if not zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path} is not a checkpoint of the PyTorch port; restoring the JAX package's "
-            "flax msgpack checkpoints is not ported yet "
-            "(ROADMAP queue 1: checkpoint and pretrained restore)")
-    return torch.load(Path(path), map_location=device, weights_only=True)
+    """A checkpoint: one this package saved (a `torch.save` zip archive), or
+    the JAX package's flax msgpack (`load_flax_state`; tell them apart with
+    `is_flax_state`). Any other file is refused."""
+    path = Path(path)
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location=device, weights_only=True)
+    if msgpack.opens_a_map(path):
+        return load_flax_state(path)
+    raise ValueError(f"{path} is neither a checkpoint of this package (a torch.save zip archive) "
+                     "nor a flax msgpack checkpoint of the JAX package")
 
 
 def read_aux(path: Path) -> Optional[Dict[str, Any]]:

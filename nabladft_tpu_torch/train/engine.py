@@ -47,8 +47,11 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import ModelOutput, forward
+from nabladft_tpu_torch.models.convert import flax_tensors, load_flax_params
 from nabladft_tpu_torch.train import losses as losses_lib
-from nabladft_tpu_torch.train.checkpoints import CheckpointManager, load_state, read_aux
+from nabladft_tpu_torch.train.checkpoints import (
+    CheckpointManager, is_flax_state, load_state, read_aux,
+)
 from nabladft_tpu_torch.train.loggers import Logger, StdoutLogger
 from nabladft_tpu_torch.train.metrics import MetricAccumulator, batch_metric_sums
 from nabladft_tpu_torch.train.schedulers import Lookahead, PlateauState, build_schedule
@@ -340,24 +343,69 @@ class Trainer:
                 "optimizer": self.optimizer.state_dict(), "ema": self.ema}
 
     def load_checkpoint(self, path, resume: bool = False) -> None:
-        """Load a checkpoint this engine wrote: weights and EMA; with
-        `resume`, also the step, optimizer state and plateau counters."""
+        """Load a checkpoint this engine wrote, or a flax TrainState the JAX
+        package's engine wrote: weights and EMA; with `resume`, also the
+        step, the optimizer state and the plateau counters."""
         state = load_state(Path(path), self.device)
-        self.model.load_state_dict(state["model"])
-        if self.ema is not None and state.get("ema") is not None:
-            for n, t in state["ema"].items():
-                self.ema[n].copy_(t)
+        if is_flax_state(state):
+            self._load_flax_state(state, resume)
+        else:
+            self.model.load_state_dict(state["model"])
+            if self.ema is not None and state.get("ema") is not None:
+                for n, t in state["ema"].items():
+                    self.ema[n].copy_(t)
+            if resume:
+                self.step = int(state["step"])
+                self.applied = int(state.get("applied", state["step"]))
+                self.optimizer.load_state_dict(state["optimizer"])
+                self._lr = current_learning_rate(self.optimizer)
         if resume:
-            self.step = int(state["step"])
-            self.applied = int(state.get("applied", state["step"]))
-            self.optimizer.load_state_dict(state["optimizer"])
-            self._lr = current_learning_rate(self.optimizer)
             aux = read_aux(Path(path))
             if aux and "plateau" in aux:
                 p = aux["plateau"]
                 self.plateau.best, self.plateau.bad_epochs = p["best"], p["bad_epochs"]
                 self.plateau.multiplier = p["multiplier"]
-        logger.info("loaded checkpoint %s (step %d)", path, int(state["step"]))
+        logger.info("loaded checkpoint %s (step %d)", path, int(state.get("step", 0)))
+
+    def _load_flax_state(self, state: Dict[str, Any], resume: bool) -> None:
+        """A flax TrainState (`checkpoints.load_flax_state`): params (and
+        GemNet-OC's scales) into the module, ema_params into the EMA; with
+        `resume`, the step and the optimizer (`_load_optax_state`)."""
+        load_flax_params(self.model, state["params"])
+        if self.ema is not None and state.get("ema_params") is not None:
+            for n, t in flax_tensors(self.model, state["ema_params"]).items():
+                self.ema[n].copy_(t)
+        if resume:
+            self.step = int(state["step"])
+            self._load_optax_state(state["opt_state"])
+
+    def _load_optax_state(self, opt_state: Dict[str, Any]) -> None:
+        """The optax state of the JAX engine's chain — optional
+        clip_by_global_norm, then inject_hyperparams(adamw), then the
+        constant schedules' warmup scale — into the AdamW optimizer: the
+        Adam moments and count per parameter, the injected count (updates
+        applied: the schedules' and the warmup's step) and learning rate.
+        Other optimizers' states are not mapped yet."""
+        cfg = self.cfg
+        if cfg.optimizer != "adamw" or cfg.lookahead_k:
+            what = "lookahead" if cfg.lookahead_k else cfg.optimizer
+            raise NotImplementedError(
+                f"restoring a flax checkpoint's {what} state is not ported yet "
+                f"(ROADMAP queue 1: restore of {what} state)")
+        parts = [opt_state] if "inner_state" in opt_state else list(opt_state.values())
+        inject = next(p for p in parts if isinstance(p, dict) and "hyperparams" in p)
+        adam = inject["inner_state"]["0"]  # adamw = chain(scale_by_adam, decay, scale)
+        mu, nu = flax_tensors(self.model, adam["mu"]), flax_tensors(self.model, adam["nu"])
+        count = float(adam["count"])
+        for n, p in self.model.named_parameters():
+            if n in self.scales or not p.requires_grad:
+                continue
+            self.optimizer.state[p] = {"step": torch.tensor(count),
+                                       "exp_avg": mu[n].to(p.device),
+                                       "exp_avg_sq": nu[n].to(p.device)}
+        self.applied = int(inject["count"])
+        self._lr = float(inject["hyperparams"]["learning_rate"])
+        set_learning_rate(self.optimizer, self._lr)
 
     def _ckpt_aux(self) -> Optional[Dict[str, Any]]:
         if self.cfg.schedule != "plateau":

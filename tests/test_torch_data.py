@@ -104,5 +104,7 @@ def test_oversize_molecules_get_a_bucket(dbs):
 
 
 def test_missing_source_raises(tmp_path):
+    """A source that is neither a file nor a split of the registry (a
+    registry split would be fetched: tests/test_torch_registry.py)."""
     with pytest.raises(FileNotFoundError, match="registry"):
-        torch_dataset.EnergyDataset("dataset_train_tiny", root=tmp_path)
+        torch_dataset.EnergyDataset("dataset_train_nonexistent", root=tmp_path)

@@ -8,7 +8,7 @@ out as a flax tree in the Pallas layout (the inverse of load_flax_params'
 name map), converted to the XLA layout with the JAX package's
 `param_convert.eqv2_params`, and run through the JAX model on its XLA path
 (`use_pallas=False`, jitted once per reference); load_flax_params reads the
-Pallas tree back (an XLA-layout tree raises).
+Pallas tree back (and the XLA-layout tree into the same weights).
 
 * In eval mode (no dropout), for `use_pallas` "off" and "fused" (on the CPU
   "fused" runs the autograd Function over the plain versions): E within
@@ -38,7 +38,6 @@ from nabladft_tpu.models import create_model as jax_create_model
 from nabladft_tpu.models.param_convert import eqv2_params
 from nabladft_tpu.train.losses import multitask_loss as jax_multitask_loss
 from nabladft_tpu_torch.models import create_model
-from nabladft_tpu_torch.models import equiformer_v2 as eqv2_mod
 from nabladft_tpu_torch.models.convert import _flax_path, load_flax_params
 from nabladft_tpu_torch.train import seeded_generator
 from nabladft_tpu_torch.train.losses import multitask_loss
@@ -208,23 +207,38 @@ def test_float64_plain_module_matches_jax(ref):
     _assert_grads_match(model, ref["eval"]["grads"])
 
 
-def test_train_mode_draws_and_eval_mode_does_not(ref):
+def count_dropout_draws(monkeypatch) -> dict:
+    """Counts of the masks drawn through torch.rand from now on: "alpha"
+    ([B, A, K, NH]) and "drop_path" ([B, 1, 1, 1]), each from
+    `dropout_generator`."""
+    draws = {"alpha": 0, "drop_path": 0}
+    rand = torch.rand
+
+    def counting(size, *args, generator=None, **kwargs):
+        draws["drop_path" if tuple(size)[1:] == (1, 1, 1) else "alpha"] += 1
+        return rand(size, *args, generator=generator, **kwargs)
+
+    monkeypatch.setattr(torch, "rand", counting)
+    return draws
+
+
+def test_train_mode_draws_and_eval_mode_does_not(ref, monkeypatch):
     """Train mode draws 1 alpha mask per attention and 2 drop-path masks per
     block from `dropout_generator` (the same seed, the same result); eval
     mode draws none and is deterministic."""
     model = _port(ref, use_pallas="fused")
     batch = _torch_batch(ref["fields"])
-    eqv2_mod.reset_dropout_draws()
+    draws = count_dropout_draws(monkeypatch)
     with torch.no_grad():
         e_eval = model.eval()(batch)["energy"]
-        assert eqv2_mod.DROPOUT_DRAWS == {"alpha": 0, "drop_path": 0}
+        assert draws == {"alpha": 0, "drop_path": 0}
         model.train()
         outs = []
         for seed in (3, 3, 4):
             model.dropout_generator = torch.Generator().manual_seed(seed)
             outs.append(model(batch)["energy"])
     n = KW["num_layers"]
-    assert eqv2_mod.DROPOUT_DRAWS == {"alpha": 3 * (n + 1), "drop_path": 3 * 2 * n}
+    assert draws == {"alpha": 3 * (n + 1), "drop_path": 3 * 2 * n}
     assert torch.equal(outs[0], outs[1])
     assert not torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], e_eval)
 
@@ -248,12 +262,16 @@ def test_rotation_equivariance_and_padding(ref):
 
 
 def test_xla_layout_and_bad_options_raise(ref):
-    with pytest.raises(ValueError, match="XLA layout"):
-        load_flax_params(create_model("equiformer_v2", device="cpu", **KW), ref["xla"])
+    """An XLA-layout tree (the JAX package's `eqv2_params` of the Pallas
+    one) loads into the same weights as the Pallas tree; bad options raise,
+    the fused path of the reference-compatible variant among them."""
+    from_xla = load_flax_params(create_model("equiformer_v2", device="cpu", **KW), ref["xla"])
+    for (n, p), q in zip(from_xla.named_parameters(), _port(ref).parameters()):
+        assert torch.equal(p, q), n
     with pytest.raises(NotImplementedError, match="float32"):
         create_model("equiformer_v2", device="cpu", compute_dtype="bfloat16", **KW)
-    with pytest.raises(NotImplementedError, match="m_share_rad"):
-        create_model("equiformer_v2", device="cpu", m_share_rad=False, **KW)
+    with pytest.raises(ValueError, match="m_share_rad=False"):
+        create_model("equiformer_v2", device="cpu", m_share_rad=False, use_pallas="fused", **KW)
     with pytest.raises(ValueError, match="use_pallas"):
         create_model("equiformer_v2", device="cpu", use_pallas="auto", **KW)
 

@@ -38,8 +38,8 @@ from nabladft_tpu_torch.config import load_config
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
 from nabladft_tpu_torch.data.synthetic import write_random_db
 from nabladft_tpu_torch.models import create_model
-from nabladft_tpu_torch.models import equiformer_v2 as eqv2_mod
 from nabladft_tpu_torch.train import seeded_generator
+from tests.test_torch_eqv2 import count_dropout_draws
 from tests.test_torch_escn import _flax_tree
 
 
@@ -86,9 +86,10 @@ def jobs(tmp_path_factory):
     draws = {}
 
     def run(job, cfg, **kw):
-        eqv2_mod.reset_dropout_draws()
-        out = pipelines.run(cfg, device="cpu", **kw)
-        draws[job] = dict(eqv2_mod.DROPOUT_DRAWS)
+        with pytest.MonkeyPatch.context() as mp:
+            counts = count_dropout_draws(mp)
+            out = pipelines.run(cfg, device="cpu", **kw)
+        draws[job] = dict(counts)
         return out
 
     pred = run("predict", _cfg(db, root, "predict"), params=params)

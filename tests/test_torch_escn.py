@@ -7,7 +7,7 @@ The port's seeded weights are written out as a flax tree in the Pallas
 layout (the inverse of load_flax_params' name map), converted to the XLA
 layout with the JAX package's `param_convert.escn_params`, and run through
 the JAX model on its XLA path (`use_pallas=False`); load_flax_params reads
-the Pallas tree back (an XLA-layout tree raises).
+the Pallas tree back (and the XLA-layout tree into the same weights).
 
 * E within rtol 2e-4, F within rtol 2e-3 / atol 1e-6 of JAX's (the
   tolerances of tests/ops/test_escn_layer.py), for `use_pallas` "off" and
@@ -189,8 +189,11 @@ def test_rotation_equivariance_and_padding(ref):
 
 
 def test_xla_layout_and_bad_options_raise(ref):
-    with pytest.raises(ValueError, match="XLA layout"):
-        load_flax_params(create_model("escn", device="cpu", **KW), ref["xla"])
+    """An XLA-layout tree (the JAX package's `escn_params` of the Pallas
+    one) loads into the same weights as the Pallas tree; bad options raise."""
+    from_xla = load_flax_params(create_model("escn", device="cpu", **KW), ref["xla"])
+    for (n, p), q in zip(from_xla.named_parameters(), _port(ref).parameters()):
+        assert torch.equal(p, q), n
     with pytest.raises(NotImplementedError, match="float32"):
         create_model("escn", device="cpu", compute_dtype="bfloat16", **KW)
     with pytest.raises(ValueError, match="use_pallas"):

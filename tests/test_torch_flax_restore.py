@@ -1,0 +1,114 @@
+"""The Trainer restoring the JAX package's flax checkpoints.
+
+A small PaiNN trains three steps in the JAX engine (AdamW with weight decay
+0.1 on the weights, global-norm clip 1, a 5-step warmup under the plateau
+rate, EMA 0.9), and the JAX `CheckpointManager` writes the TrainState. The
+port's Trainer then
+
+* resumes from the file (step, applied count, learning rate, the Adam
+  moments and count, EMA, plateau counters) and takes one more step, which
+  matches the JAX engine's next step: parameters and EMA within rtol 1e-5 /
+  atol 1e-6 (optax's adamw decays the weights inside the update, torch's
+  AdamW before it; the two agree);
+* loads the file for evaluation: its predictions with the EMA equal JAX's
+  forward on ema_params (E rtol 2e-4 / atol 1e-5, F rtol 2e-3 / atol 2e-4);
+* refuses to resume another optimizer's state, by name, and still loads the
+  weights for evaluation.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from nabladft_tpu.data.batch import MolBatch as JaxBatch
+from nabladft_tpu.models import create_model as jax_create_model
+from nabladft_tpu.models.base import forward as jax_forward
+from nabladft_tpu.train import Trainer as JaxTrainer, TrainerConfig as JaxConfig
+from nabladft_tpu_torch.models import create_model
+from nabladft_tpu_torch.train import Trainer, TrainerConfig
+from tests.test_torch_train import KW, LOSSES, _arrays, _tb
+
+CFG = dict(optimizer="adamw", lr=1e-3, weight_decay=0.1, grad_clip=1.0, schedule="plateau",
+           warmup_steps=5, ema_decay=0.9, force_grads="direct", log_every_n_steps=1000,
+           **LOSSES)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """(checkpoint path, JAX state after 3 steps, after a 4th)."""
+    d = tmp_path_factory.mktemp("flax_restore")
+    jt = JaxTrainer(jax_create_model("painn", **KW, remat=False),
+                    JaxConfig(n_dp=1, ckpt_dir=str(d), **CFG))
+    jt.init_state(JaxBatch(**_arrays(0)))
+    state = jt.state
+    for seed in (0, 1, 2):
+        state, _ = jt._jit_train_step(state, JaxBatch(**_arrays(seed)))
+    jt.plateau.bad_epochs = 2
+    jt.ckpt.save(state, 3, {"val/loss": 1.0}, aux=jt._ckpt_aux())
+    saved = jax.device_get(state)  # the step donates `state`
+    after, _ = jt._jit_train_step(state, JaxBatch(**_arrays(3)))
+    return d / "last.ckpt", saved, jax.device_get(after), jt.model
+
+
+def _trainer(**kw):
+    model = create_model("painn", device="cpu", generator=torch.Generator().manual_seed(5), **KW)
+    return Trainer(model, "cpu", TrainerConfig(**dict(CFG, **kw)))
+
+
+def _tree_tensors(trainer, tree):
+    from nabladft_tpu_torch.models.convert import flax_tensors
+
+    return flax_tensors(trainer.model, tree)
+
+
+def test_resume_matches_the_jax_engines_next_step(jax_run):
+    path, state, after, _ = jax_run
+    t = _trainer()
+    t.load_checkpoint(path, resume=True)
+    assert t.step == 3 and t.applied == 3 and t.plateau.bad_epochs == 2
+    assert t._lr == pytest.approx(1e-3)
+    t._train_step(_tb(_arrays(3)))
+    want, want_ema = _tree_tensors(t, after.params), _tree_tensors(t, after.ema_params)
+    for name, p in t.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+        np.testing.assert_allclose(t.ema[name].numpy(), want_ema[name].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    moved = max(float((want[n] - w).abs().max())
+                for n, w in _tree_tensors(t, state.params).items())
+    assert moved > 1e-5  # the step did something
+
+
+def test_evaluation_uses_the_checkpoints_ema(jax_run):
+    path, state, _, jax_model = jax_run
+    t = _trainer()
+    t.load_checkpoint(path)
+    assert t.step == 0  # not resumed
+    arrays = _arrays(4)
+    got = t._predict_step(_tb(arrays))
+    want = jax.jit(lambda p, b: jax_forward(jax_model, p, b))(state.ema_params, JaxBatch(**arrays))
+    np.testing.assert_allclose(got["energy"].numpy(), np.asarray(want["energy"]), rtol=2e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["forces"].numpy(), np.asarray(want["forces"]), rtol=2e-3,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(optimizer="amsgrad"), dict(lookahead_k=3)])
+def test_other_optimizer_states_are_refused(jax_run, kw):
+    path, state, _, _ = jax_run
+    t = _trainer(**kw)
+    what = "lookahead" if "lookahead_k" in kw else kw["optimizer"]
+    with pytest.raises(NotImplementedError, match=f"restore of {what} state"):
+        t.load_checkpoint(path, resume=True)
+    t.load_checkpoint(path)  # the weights still load for evaluation
+    want = _tree_tensors(t, state.params)
+    assert all(torch.equal(p.detach(), want[n]) for n, p in t.model.named_parameters())

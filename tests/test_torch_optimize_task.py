@@ -8,7 +8,8 @@ batch) carried across with `load_flax_params`. Small widths (2
 interactions, hidden 16, 8 RBF), 8 L-BFGS steps, memory 4, trajectories
 every 4 steps and a restart file. Positions within 1e-4 Å; `model_energy` and
 `model_forces` within the model tolerances of tests/test_torch_pipeline.py.
-Then the CLI on the CPU, and the restore of a checkpoint the port wrote.
+Then the CLI on the CPU, and the restore of a checkpoint the port wrote and
+of a flax TrainState of the JAX package (`ckpt_path`).
 """
 
 import pickle
@@ -207,6 +208,28 @@ def test_optimize_restores_a_port_checkpoint(tmp_path):
     ea = [r.data["model_energy"][0] for r in _rows(tmp_path / "a.db")]
     eb = [r.data["model_energy"][0] for r in _rows(tmp_path / "b.db")]
     assert not np.allclose(ea, eb)
+
+
+def test_optimize_restores_a_flax_checkpoint(jobs):
+    """`ckpt_path` may be a flax TrainState of the JAX package: it gives up
+    its params, as in the JAX job. The JAX job's initial weights in one
+    relax as the weights carried across with `params` did."""
+    import optax
+    from flax import serialization
+
+    from nabladft_tpu.train.state import TrainState
+
+    root, _, _ = jobs
+    cfg = optim_config(root / "input.db", root, "flax")
+    state = TrainState.create(jax_initial_params(cfg), optax.adam(1e-3), ema=True)
+    (root / "jax_state.ckpt").write_bytes(serialization.to_bytes(state))
+    cfg["optimize"] = dict(cfg["optimize"], trajectory_dir=None, restart_path=None)
+    pipelines.run(dict(cfg, ckpt_path=str(root / "jax_state.ckpt")), device="cpu")
+    got, want = _rows(root / "flax.db"), _rows(root / "torch.db")
+    assert len(got) == len(want) == N_MOLS
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.positions, b.positions)
+        assert a.data["model_energy"] == b.data["model_energy"]
 
 
 def test_chip_smoke_optimize_config_is_the_composed_yaml():

@@ -9,8 +9,12 @@
 * Neither the port nor chip_smoke.py imports jax, flax, optax or
   nabladft_tpu, and importing the port loads none of them.
 * Entry points raise without a card unless the caller names the CPU.
-* The optimize job runs on the CPU; pretrained restore and flax checkpoints
-  still raise.
+* The optimize job runs on the CPU.
+* ``pretrained: PaiNN_train_tiny`` (a seeded schnetpack-named state dict in a
+  Lightning .ckpt, found in the cache through a links file of the test's
+  own, ``urlopen`` patched to raise) writes the same predict rows as
+  `run(cfg, params=...)` with the JAX package's conversion of that state
+  dict; an unknown name and an empty flax checkpoint are refused.
 """
 
 import ast
@@ -148,7 +152,7 @@ def test_chip_smoke_config_is_the_composed_yaml():
     assert chip_smoke.train_config("/db/in.db", "/db", "/db/ckpt", "/db/out") == want_train
 
 
-FORBIDDEN = ("jax", "flax", "optax", "nabladft_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "nabladft_tpu")
 
 
 def _port_files():
@@ -205,15 +209,48 @@ def test_optimize_job_runs_on_cpu(db, tmp_path):
 
 @pytest.mark.parametrize("what", ["pretrained", "optimize_flax_checkpoint"])
 def test_unported_jobs_raise(db, tmp_path, what):
-    """What the port still refuses: pretrained restore, and a flax msgpack
-    checkpoint (the JAX package's) as the optimize job's ckpt_path."""
+    """What the port refuses at the restore entries, before any output: a
+    pretrained name the registry does not hold, and a flax msgpack
+    checkpoint (the JAX package's format) with no weights for the model as
+    the optimize job's ckpt_path."""
     root, src = db
     cfg = _cfg(src, tmp_path / "out.db", root)
     if what == "pretrained":
         cfg["pretrained"] = "painn-oc"
+        match = "unknown checkpoint 'painn-oc'"
     else:
         (tmp_path / "flax.msgpack").write_bytes(b"\x81\xa6params\x80")
         cfg.update(job_type="optimize", ckpt_path=str(tmp_path / "flax.msgpack"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        match = "no flax leaf"
+    with pytest.raises(KeyError, match=match):
         pipelines.run(cfg, device="cpu")
     assert not (tmp_path / "out.db").exists()
+
+
+def test_pretrained_predict_matches_the_jax_conversion(db, tmp_path, monkeypatch):
+    import urllib.request
+
+    from nabladft_tpu.models import create_model as jax_create_model
+    from nabladft_tpu.models.pretrained import convert_state_dict as jax_convert
+    from tests.models.test_pretrained_converters import mk_batch, painn_state
+    from tests.test_torch_pretrained import _cached_checkpoint
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("urlopen called")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    root, src = db
+    state = painn_state(np.random.default_rng(13))  # hidden 16, 2 layers, 8 RBF: SMALL's
+    cache, _ = _cached_checkpoint(tmp_path, "PaiNN_train_tiny", state)
+    cfg = dict(_cfg(src, tmp_path / "pretrained.db", root), pretrained="PaiNN_train_tiny",
+               pretrained_dir=str(cache), links_path=str(tmp_path / "links.json"))
+    assert pipelines.run(cfg, device="cpu")["rows"] == 20
+
+    kw = _cfg(src, tmp_path, root)["model"]["kwargs"]
+    params = jax_convert("painn", {k: v.numpy() for k, v in state.items()},
+                         jax_create_model("painn", **kw), mk_batch(np.random.default_rng(0)))
+    pipelines.run(_cfg(src, tmp_path / "converted.db", root), device="cpu", params=params)
+    got, want = _rows(tmp_path / "pretrained.db"), _rows(tmp_path / "converted.db")
+    assert [r.data["energy_pred"] for r in got] == [r.data["energy_pred"] for r in want]
+    assert all(np.array_equal(a.data["forces_pred"], b.data["forces_pred"])
+               for a, b in zip(got, want))

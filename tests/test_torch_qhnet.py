@@ -197,7 +197,12 @@ def test_symmetric_and_zero_outside_the_orbital_mask(ref):
 
 
 def test_ref_compat_and_bad_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("qhnet", device="cpu", ref_compat=True, **KW)
+    """ref_compat builds (its outputs against the JAX package's:
+    tests/test_torch_pretrained_equivariant.py) with the default's
+    parameters; bad modes raise."""
+    ref = create_model("qhnet", device="cpu", ref_compat=True, **KW)
+    plain = create_model("qhnet", device="cpu", **KW)
+    assert ref.ref_compat and [(n, p.shape) for n, p in ref.named_parameters()] == [
+        (n, p.shape) for n, p in plain.named_parameters()]
     with pytest.raises(ValueError, match="off|fused"):
         create_model("qhnet", device="cpu", use_pallas="auto", **KW)

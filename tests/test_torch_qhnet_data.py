@@ -92,6 +92,8 @@ def test_budget_caps_drop_with_a_warning(db, caplog):
     assert (ds.bucket_of < 0).sum() == ds.n_dropped
 
 
-def test_non_local_source_raises():
-    with pytest.raises(FileNotFoundError, match="ROADMAP"):
-        HamiltonianDataset("dataset_train_tiny")
+def test_non_local_source_raises(tmp_path):
+    """A source that is neither a file nor a split of the registry (a
+    registry split would be fetched: tests/test_torch_registry.py)."""
+    with pytest.raises(FileNotFoundError, match="registry"):
+        HamiltonianDataset("dataset_train_nonexistent", root=tmp_path)

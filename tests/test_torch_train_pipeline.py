@@ -127,11 +127,21 @@ def test_cli_train_on_cpu(db, tmp_path):
 
 
 def test_flax_checkpoint_and_missing_card_raise(db, runs, tmp_path):
+    """The JAX trainer's checkpoints as ckpt_path: `test` from its best one
+    gives JAX's test metrics (JAX's test restores the same best-val
+    parameters), and `train` resumes from its last one at JAX's step count.
+    Without a card and without a named device, entry points raise."""
     root, src = db
-    flax_ckpt = root / "jax" / "ckpt" / "last.ckpt"  # written by the JAX trainer
-    cfg = dict(_cfg(src, root, "test", "torch"), ckpt_path=str(flax_ckpt))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipelines.run(cfg, device="cpu")
+    jax_ckpt = root / "jax" / "ckpt"  # written by the JAX trainer's CheckpointManager
+    best = jax_ckpt / json.loads((jax_ckpt / "index.json").read_text())["best"][0]["path"]
+    test = pipelines.run(dict(_cfg(src, root, "test", "resumed"), ckpt_path=str(best)),
+                         device="cpu")
+    for key in ("test/loss", "test/energy/mae", "test/forces/mae"):
+        assert test[key] == pytest.approx(runs["jax_test"][key], rel=METRIC_REL), key
+    cfg = _cfg(src, root, "train", "resumed")
+    cfg["trainer"] = dict(cfg["trainer"], max_epochs=1)
+    train = pipelines.run(dict(cfg, ckpt_path=str(jax_ckpt / "last.ckpt")), device="cpu")
+    assert train["step"] == runs["jax_steps"] + runs["jax_steps"] // 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pipelines.run(_cfg(src, tmp_path, "train", "torch"))
