@@ -335,6 +335,8 @@ PEAKS = {
 # the SO(2) product engine of M-P runs 3xTF32: three TF32 products per
 # fp32-accurate product
 TC_PASSES = 3
+# dense bf16 FLOP/s on the tensor cores (the same data sheets)
+BF16_PEAKS = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989.4e12, "H200": 989.4e12}
 
 
 def smoke_config(source: str, output_db: str, root: str, config: str = "painn-oc") -> dict:
@@ -511,6 +513,11 @@ CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet, "escn-oc":
            "graphormer3d": _graphormer3d, "gemnet-oc": _gemnet_oc}
 
 
+# the fp32 paths' readings (mol/s, busy share, peak memory) by phase, printed
+# beside the bf16 paths'
+READINGS: dict = {}
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -536,13 +543,15 @@ def ptxas_summary(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         # <file>_cu_<hash><len><name>, then I L{i,b}<n> E ... E for template arguments
-        m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)((?:IL[ib]\d+E(?:L[ib]\d+E)*E)?)", line)
+        m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)((?:I(?:L[ib]\d+E|f|13__nv_bfloat16)+E)?)",
+                      line)
         if m and ("entry function" in line or "properties for" in line):
             name = m.group(1)
-            if m.group(2):
-                args = re.findall(r"L([ib])(\d+)E", m.group(2))
-                name += "<" + ",".join(("false", "true")[int(v)] if k == "b" else v
-                                       for k, v in args) + ">"
+            if m.group(2):  # int and bool arguments, and float / bf16 types
+                args = re.findall(r"L([ib])(\d+)E|(f)|(13__nv_bfloat16)", m.group(2)[1:-1])
+                name += "<" + ",".join("float" if f else "bf16" if h else
+                                       ("false", "true")[int(v)] if k == "b" else v
+                                       for k, v, f, h in args) + ">"
             out.setdefault(name, {})
         elif name and "spill stores" in line:
             out[name]["spill"] = line.strip()
@@ -1115,7 +1124,10 @@ def predict_phase(tmp: Path, db: Path, family: str) -> dict:
     np.testing.assert_allclose(out_r["forces"].cpu().numpy(),
                                (out["forces"] @ rot.T).cpu().numpy(), **F_TOL)
 
-    profile_phase(fam["prefix"] + "profile", gpu, dm, present=fam["predict_present"])
+    busy = profile_phase(fam["prefix"] + "profile", gpu, dm, present=fam["predict_present"])
+    READINGS[fam["prefix"] + "predict"] = dict(molecules_per_second=rates[PASSES // 2],
+                                               device_busy_share=busy,
+                                               peak_device_memory_bytes=peak_mem)
     live = live_pair_share(gpu.model, dm.predict_dataloader()) if family == "painn" else None
     emit(fam["prefix"] + "predict", config=fam["config"], rows=res["rows"], batches=n_batches,
          live_pairs_by_bucket=live,
@@ -1130,18 +1142,18 @@ def predict_phase(tmp: Path, db: Path, family: str) -> dict:
 
 
 def profile_phase(phase: str, trainer, dm, n_batches: int = 2, top: int = 12,
-                  present=()) -> None:
+                  present=()) -> float:
     """torch.profiler over `n_batches` predict steps (bucket 32): device time
-    by kernel, and the device's busy share of the wall time; each name in
-    `present` must be part of some kernel's name."""
+    by kernel, and the device's busy share of the wall time (returned); each
+    name in `present` must be part of some kernel's name."""
     batches = list(itertools.islice(dm.predict_dataloader(), n_batches))
-    profile_steps(phase, trainer._predict_step, batches, top, present=present)
+    return profile_steps(phase, trainer._predict_step, batches, top, present=present)
 
 
 def profile_steps(phase: str, step, batches, top: int = 12, present=(), absent=(),
-                  calls=None) -> None:
+                  calls=None) -> float:
     """torch.profiler over `step` on each batch: device time by kernel, and
-    the device's busy share of the wall time. Each name in `present` must be
+    the device's busy share of the wall time (returned). Each name in `present` must be
     part of some kernel's name, and none in `absent` of any; `calls()`, read
     after the steps, gives {name: launches} that the kernels whose names
     hold `name` must add up to."""
@@ -1171,6 +1183,7 @@ def profile_steps(phase: str, step, batches, top: int = 12, present=(), absent=(
          top=[{"name": k[:80], "device_ms": t / 1e3, "share": t / max(device_us, 1e-9),
                "calls": c} for k, t, c in events[:top]],
          present=list(present), absent=list(absent), calls=got)
+    return device_us / wall_us
 
 
 def read_csv(path: Path) -> list:
@@ -1233,8 +1246,11 @@ def train_phase(tmp: Path, db: Path, family: str) -> dict:
     trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None),
                                       torch.device("cuda"))
     batches = list(itertools.islice(dm.train_dataloader(), 2))
-    profile_steps(fam["prefix"] + "train_profile", trainer._train_step, batches,
-                  present=fam["train_present"])
+    busy = profile_steps(fam["prefix"] + "train_profile", trainer._train_step, batches,
+                         present=fam["train_present"])
+    READINGS[fam["prefix"] + "train"] = dict(molecules_per_second=rates[len(rates) // 2],
+                                             device_busy_share=busy,
+                                             peak_device_memory_bytes=peak_mem)
     live = (live_pair_share(trainer.model, dm.train_dataloader()) if family == "painn"
             else None)
     emit(fam["prefix"] + "train", config=fam["config"], steps=steps, batches_per_epoch=n_train,
@@ -3372,6 +3388,467 @@ def flax_restore_phase(tmp: Path, db: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# bf16 compute: PaiNN through A-D's bf16 mode; DimeNet++ and Graphormer3D
+# ---------------------------------------------------------------------------
+
+# A-D's bf16 mode against their plain versions on the same bf16 inputs on the
+# card: both compute in fp32 from the same bf16 values and round once (A and C
+# their outputs, B and D in the wrapper; B's g_dist stays fp32), so summing in
+# another order may flip that rounding: per element |kernel - plain| <=
+# BF16_ULP_REL |plain| + BF16_MAX_REL max |plain|
+BF16_ULP_REL, BF16_MAX_REL = 2.0 ** -7, 2e-5
+# a bf16 model against the card's fp32 run on the same weights: E within
+# BF16_E_VS_F32 x max |E| (the JAX package's bf16 zoo bound,
+# tests/models/test_bf16_zoo.py:64-66)
+BF16_E_VS_F32 = 0.05
+# PaiNN's fused bf16 path against its plain bf16 path on the card, and the
+# fused path under a rotation, x the largest magnitude: both paths run the
+# bf16 model and round in other places (the kernels in fp32, the plain path
+# op by op), ~2^-8 an op over 6 layers; at full width on the CPU, 8
+# molecules of <= 32 atoms, the two paths' E lay 0.3 % and F 1.0 % apart,
+# and a rotation moved E 0.16 % and F 0.85 %
+BF16_PATHS_TOL = {"energy": 2e-2, "forces": 5e-2}
+BF16_ROT_TOL = {"energy": 1e-2, "forces": 5e-2}
+# the JAX benchmark's headline row (bench.py:133-134, :331-340): painn-oc width
+# with 40 neighbours, 256 molecules of 30-48 atoms, force_grads "pallas"
+HEADLINE_BATCH, HEADLINE_ATOMS, HEADLINE_NEIGHBORS, HEADLINE_STEPS = 256, 48, 40, 10
+# A-D's bf16 rows: (name, JAX kernel body line, launch counter)
+BF16_KERNELS = {
+    "A": ("painn_fwd (A, bf16)", 114, "painn_fwd_bf16"),
+    "B": ("painn_bwd (B, bf16)", 177, "painn_bwd_bf16"),
+    "C": ("painn_dual_fwd (C, bf16)", 286, "painn_dual_fwd_bf16"),
+    "D": ("painn_dual_bwd (D, bf16)", 372, "painn_dual_bwd_bf16"),
+}
+
+
+def _bf16_cfg(cfg: dict) -> dict:
+    """cfg with ``model.kwargs.compute_dtype=bfloat16``."""
+    m = cfg["model"]
+    return dict(cfg, model=dict(m, kwargs=dict(m["kwargs"], compute_dtype="bfloat16")))
+
+
+def _f32_cfg(cfg: dict) -> dict:
+    m = cfg["model"]
+    return dict(cfg, model=dict(m, kwargs={k: v for k, v in m["kwargs"].items()
+                                           if k != "compute_dtype"}))
+
+
+def bf16_compare(got, ref) -> dict:
+    """Each output against BF16_ULP_REL |ref| + BF16_MAX_REL max |ref| per
+    element: the largest error, its share of the output's largest magnitude
+    and the largest share of the limit (<= 1 passes)."""
+    errs, scales, shares = [], [], []
+    for g, r in zip(got, ref):
+        if g is None and r is None:
+            continue
+        check(g.dtype == r.dtype and g.shape == r.shape, f"dtype / shape {g.dtype} {r.dtype}")
+        g, r = g.float(), r.float()
+        scale = float(r.abs().max())
+        limit = BF16_ULP_REL * r.abs() + BF16_MAX_REL * scale + 1e-30
+        diff = (g - r).abs()
+        errs.append(float(diff.max()))
+        scales.append(scale)
+        shares.append(float((diff / limit).max()))
+    return {"max_abs_err": max(errs), "max_rel_err": max(e / max(s, 1e-30)
+                                                         for e, s in zip(errs, scales)),
+            "err_over_limit": max(shares), "per_output_abs_err": errs,
+            "per_output_max_abs": scales}
+
+
+def bf16_bound(pf, kind: str, work: dict, need_gw: bool, card: str):
+    """The least time of A-D's bf16 work: the radial products, bf16 x bf16,
+    at the dense bf16 tensor-core rate; B's and D's weight-gradient products
+    (bf16 rows against fp32 cotangents) at the 3xTF32 rate; the rest at the
+    fp32 FMA rate; or the bytes (2-byte inputs and outputs, g_dist 4) at the
+    memory rate: (ms, "operations" or "bytes")."""
+    fp32, bw, tf32 = peaks(card, tensor_cores=True)
+    bf16 = next(v for k, v in BF16_PEAKS.items() if k in card)
+    kinds = {"A": ("fwd",), "B": ("bwd", "bwd_gw"), "C": ("dual_fwd",),
+             "D": ("dual_bwd", "dual_bwd_gw")}[kind][: 1 + int(need_gw)]
+    t_ops = 0.0
+    for k in kinds:
+        prod, other = pf.flops_split(k, KR, KF)
+        rate = tf32 / TC_PASSES if k.endswith("_gw") else bf16
+        t_ops += (prod / rate + other / fp32) * work["live_pairs"] * 1e3
+    t_bytes = work["bytes"] / bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_bf16_bucket(pf, dev, a: int, card: str) -> dict:
+    """A-D's bf16 mode at (KB, a, KR, KF) on kernel_inputs rounded to bf16,
+    against their plain versions on the same inputs (BF16_ULP_REL /
+    BF16_MAX_REL), each twice for the same bits (B with and without gW);
+    kernel, plain and fp32-kernel (the same kernel on the fp32 inputs) times,
+    `bf16_bound` and `stages_ms`."""
+    x32 = kernel_inputs(dev, a)
+    x = {k: t.to(torch.bfloat16) for k, t in x32.items()}
+    shape = [KB, a, KR, KF]
+    b_args = ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")
+    specs = {  # row: (wrapper, plain version, inputs, keywords, the second pair tensor)
+        "A": (pf.painn_fwd, pf.painn_message_reference, ("rbf", "phi", "v", "unit_t", "w"), {},
+              "rbf"),
+        "B": (pf.painn_bwd, pf.painn_message_bwd_reference, b_args, {}, "rbfp"),
+        "B_no_gw": (pf.painn_bwd, pf.painn_message_bwd_reference, b_args, {"need_gw": False},
+                    "rbfp"),
+        "C": (pf.painn_dual_fwd, pf.painn_dual_fwd_reference, C_ARGS, {}, "rbfd"),
+        "D": (pf.painn_dual_bwd, pf.painn_dual_bwd_reference, D_ARGS, {}, "rbfd"),
+    }
+    rows = {}
+    for key, (fn, ref, names, kw, second) in specs.items():
+        kind, need_gw = key[0], kw.get("need_gw", True)
+        args, args32 = [x[k] for k in names], [x32[k] for k in names]
+
+        def call(*t, _fn=fn, _kw=kw):
+            return _fn(*t, **_kw)
+
+        got = call(*args)
+        err = bf16_compare(got, ref(*args, **kw))
+        check(err["err_over_limit"] <= 1.0, f"kernel {key} bf16 error at {shape}: {err}")
+        _same_bits(call, args, got, f"kernel {key} bf16 at {shape}")
+        del got
+        stages = stage_times(call, args)
+        t_k = time_ms(lambda: call(*args))
+        t_p = time_ms(lambda: ref(*args, **kw))
+        t_32 = time_ms(lambda: call(*args32))
+        work = (pf.fwd_work(kind, x["rbf"], x[second], KF) if kind in "AC"
+                else pf.bwd_work(kind, x["rbf"], x[second], KF, need_gw=need_gw))
+        b_ms, b_by = bf16_bound(pf, kind, work, need_gw, card)
+        rows[key] = dict(shape=shape, **err, ms=t_k["median"], plain_ms=t_p["median"],
+                         fp32_kernel_ms=t_32["median"], bound_ms=b_ms, bound_by=b_by,
+                         roofline_share=b_ms / t_k["median"], flops=work["flops_live"],
+                         bytes=work["bytes"], live_pairs=work["live_pairs"],
+                         pairs=work["pairs"], bit_identical_rerun=True, stages_ms=stages)
+        emit(f"kernel_{key}_bf16", **rows[key],
+             tolerance={"ulp_rel": BF16_ULP_REL, "max_rel": BF16_MAX_REL},
+             kernel_times=t_k, plain_times=t_p, fp32_kernel_times=t_32)
+    return rows
+
+
+def kernel_bf16_phases(dev, card: str, ptxas: dict) -> dict:
+    """A-D's bf16 mode at every bucket shape; the kernels line's rows (numbers
+    at A=HEADLINE_A but max_abs_err, the largest over the buckets), B's with
+    its without-gW times as the paths run it."""
+    from nabladft_tpu_torch.ops import painn_fused as pf
+
+    per = {}
+    for a in BUCKETS:
+        for k, row in kernel_bf16_bucket(pf, dev, a, card).items():
+            per.setdefault(k, []).append(row)
+        torch.cuda.empty_cache()
+    keep = ("ms", "plain_ms", "fp32_kernel_ms", "bound_ms", "bound_by", "roofline_share",
+            "flops", "bytes", "live_pairs", "pairs", "stages_ms")
+    rows = {}
+    for k, (name, line, _) in BF16_KERNELS.items():
+        head = next(r for r in per[k] if r["shape"][1] == HEADLINE_A)
+        rows[f"{k}_bf16"] = dict(
+            name=name, route="cuda", dtype="bfloat16",
+            source="nabladft_tpu_torch/csrc/painn_fused.cu",
+            replaces=f"nabladft_tpu/ops/pallas/painn_fused.py:{line}",
+            max_abs_err=max(r["max_abs_err"] for r in per[k]), library_ms=None,
+            timed_shape=head["shape"], **{f: head[f] for f in keep},
+            ptxas=ptxas.get("painn_fused", {}),
+            per_bucket=[{f: r[f] for f in ("shape", "max_abs_err", "err_over_limit", "ms",
+                                            "plain_ms", "fp32_kernel_ms", "bound_ms")}
+                        for r in per[k]])
+    ng = next(r for r in per["B_no_gw"] if r["shape"][1] == HEADLINE_A)
+    rows["B_bf16"].update({f"{f}_without_gw": ng[f] for f in ("ms", "plain_ms", "fp32_kernel_ms",
+                                                               "bound_ms", "stages_ms")},
+                          max_abs_err_without_gw=max(r["max_abs_err"] for r in per["B_no_gw"]))
+    return rows
+
+
+def _outputs(model, batch) -> dict:
+    from nabladft_tpu_torch.models.base import forward
+
+    return {k: v.float() for k, v in forward(model, batch).items()}
+
+
+def _rel_err(got: dict, want: dict, key: str) -> float:
+    return _max_abs(got[key] - want[key]) / max(_max_abs(want[key]), 1e-30)
+
+
+def _bf16_vs_f32(models: dict, batches: dict) -> list:
+    """Per bucket: the bf16 model's E against the fp32 model's on the same
+    weights (BF16_E_VS_F32 x max |E|), F finite; returns the rows."""
+    out = []
+    for a, batch in sorted(batches.items()):
+        o16, o32 = _outputs(models["bf16"], batch), _outputs(models["f32"], batch)
+        check(all(bool(torch.isfinite(o16[k]).all()) for k in ("energy", "forces")),
+              f"bf16 E and F finite at A={a}")
+        e_err = _rel_err(o16, o32, "energy")
+        check(e_err <= BF16_E_VS_F32, f"bf16 E at A={a}: {e_err} of max |E| off the fp32 run")
+        out.append({"shape": list(batch.z.shape), "energy_rel_err_vs_fp32": e_err,
+                    "forces_rel_err_vs_fp32": _rel_err(o16, o32, "forces")})
+    return out
+
+
+def _first_batches(loader, dev) -> dict:
+    first = {}
+    for batch in loader:
+        first.setdefault(batch.z.shape[1], batch.to(dev))
+    check(sorted(first) == list(BUCKETS), f"buckets {sorted(first)}")
+    return first
+
+
+def painn_bf16_predict_phase(tmp: Path, db: Path) -> dict:
+    """`job_type: predict` of configs/painn-oc.yaml with compute_dtype bf16 at
+    full width over the seeded DB: A and B in bf16 6 times a batch, B's gW
+    stage and every fp32 kernel never; finite rows; per bucket the first
+    batch's E within BF16_E_VS_F32 of the fp32 model's on the same weights,
+    the fused bf16 path against the plain bf16 path on the card
+    (BF16_PATHS_TOL) and under a rotation (BF16_ROT_TOL); whether cuBLAS's
+    reduced-precision bf16 reduction moves E; mol/s, busy share, peak memory
+    beside the fp32 path's."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.data.ase_codec import AseDatabase
+    from nabladft_tpu_torch.train import Trainer
+
+    cfg = _bf16_cfg(smoke_config(str(db), str(tmp / "predictions_painn_bf16.db"), str(tmp)))
+    # the main path: counts reset just before, read just after
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = pipelines.run(cfg)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak_mem = torch.cuda.max_memory_allocated()
+    n = cfg["model"]["kwargs"]["n_interactions"] * res["batches"]
+    want = dict.fromkeys(launches, 0)
+    want.update(painn_fwd_bf16=n, painn_bwd_bf16=n)
+    check(launches == want, f"bf16 predict launches {launches}, expected {want}")
+    check(res["rows"] == N_MOLS, f"rows written {res['rows']} != {N_MOLS}")
+    for rec in AseDatabase(cfg["output_db"]).select_all():
+        e, f = np.asarray(rec.data["energy_pred"]), np.asarray(rec.data["forces_pred"])
+        check(bool(np.isfinite(e).all() and np.isfinite(f).all()), "finite bf16 predictions")
+
+    dev = torch.device("cuda")
+    dm = pipelines.build_datamodule(cfg)
+    gpu = Trainer(pipelines.build_model(cfg, dev), dev)
+    plain = pipelines.build_model(_bf16_cfg(dict(cfg, model=dict(
+        cfg["model"], kwargs=dict(cfg["model"]["kwargs"], use_pallas="off")))), dev)
+    f32 = pipelines.build_model(_f32_cfg(cfg), dev)
+    check(gpu.model.use_pallas == "fused" and gpu.model.cdt == torch.bfloat16
+          and plain.use_pallas == "off" and f32.cdt == torch.float32, "model modes")
+    first = _first_batches(dm.predict_dataloader(), dev)
+    checks = _bf16_vs_f32({"bf16": gpu.model, "f32": f32}, first)
+    rot = torch.from_numpy(rotation()).to(dev)
+    for row, (a, batch) in zip(checks, sorted(first.items())):
+        out, out_p = _outputs(gpu.model, batch), _outputs(plain, batch)
+        out_r = _outputs(gpu.model, batch.replace(pos=batch.pos @ rot.T))
+        want_r = {"energy": out["energy"], "forces": out["forces"] @ rot.T}
+        for k in ("energy", "forces"):
+            row[f"{k}_rel_err_vs_plain_bf16"] = _rel_err(out, out_p, k)
+            row[f"{k}_rel_err_rotation"] = _rel_err(out_r, want_r, k)
+            check(row[f"{k}_rel_err_vs_plain_bf16"] <= BF16_PATHS_TOL[k],
+                  f"fused vs plain bf16 {k} at A={a}: {row}")
+            check(row[f"{k}_rel_err_rotation"] <= BF16_ROT_TOL[k], f"bf16 rotation {k}: {row}")
+    # cuBLAS may reduce bf16 GEMMs in bf16 where allowed: the first batch's E
+    # with the reduction allowed (off everywhere else in this script)
+    batch = first[BUCKETS[0]]
+    e_off = _outputs(gpu.model, batch)["energy"]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        e_on = _outputs(gpu.model, batch)["energy"]
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    reduced = {"same_bits": bool(torch.equal(e_on, e_off)),
+               "energy_max_abs_diff": _max_abs(e_on - e_off)}
+    del plain, f32
+
+    rates = []
+    for p in range(PASSES + 1):
+        t0 = time.perf_counter()
+        n_pred = sum(len(o["energy"]) for o in gpu.predict(dm.predict_dataloader()))
+        torch.cuda.synchronize()
+        if p:
+            rates.append(n_pred / (time.perf_counter() - t0))
+    busy = profile_phase("painn_bf16_profile", gpu, dm,
+                         present=FAMILIES["painn"]["predict_present"])
+    emit("painn_bf16_predict", config="painn-oc", compute_dtype="bfloat16", rows=res["rows"],
+         batches=res["batches"], launches=launches, run_seconds=res["seconds"], checks=checks,
+         reduced_precision_reduction=reduced,
+         molecules_per_second=_rates(sorted(rates), "passes"), device_busy_share=busy,
+         peak_device_memory_bytes=peak_mem, fp32=READINGS.get("predict"),
+         tolerances={"energy_vs_fp32": BF16_E_VS_F32, "vs_plain_bf16": BF16_PATHS_TOL,
+                     "rotation": BF16_ROT_TOL})
+    return launches
+
+
+def painn_bf16_train_phase(tmp: Path, db: Path) -> dict:
+    """`job_type: train` (TRAIN_EPOCHS epochs, force_grads "pallas") then `test`
+    of configs/painn-oc.yaml with compute_dtype bf16: C and D in bf16 6 times a
+    train step, A and B 6 times a train step, validation and test batch, B's
+    gW stage and every fp32 kernel never; finite metrics; the best
+    checkpoint's E against the fp32 model on the same weights per bucket;
+    mol/s, busy share over two train steps, peak memory beside the fp32
+    path's."""
+    from nabladft_tpu_torch import pipelines
+
+    ckpt, outputs = tmp / "ckpt_painn_bf16", tmp / "outputs_painn_bf16"
+    cfg = _bf16_cfg(train_config(str(db), str(tmp), str(ckpt), str(outputs)))
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+    res, test, launches, peak_mem, t_start, best = _train_job(cfg, ckpt)
+    steps, n_layers = res["step"], cfg["model"]["kwargs"]["n_interactions"]
+    want = dict.fromkeys(launches, 0)
+    want.update(painn_dual_fwd_bf16=n_layers * steps, painn_dual_bwd_bf16=n_layers * steps,
+                painn_fwd_bf16=n_layers * (steps + TRAIN_EPOCHS * n_val + n_test),
+                painn_bwd_bf16=n_layers * (steps + TRAIN_EPOCHS * n_val + n_test))
+    check(launches == want, f"bf16 train/test launches {launches}, expected {want}")
+    step_rows, rates, epoch_seconds = _train_readings(cfg, res, test, ("energy", "forces"),
+                                                      t_start, n_train)
+    dev = torch.device("cuda")
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
+    check(trainer._force_grads == "pallas" and trainer.model.cdt == torch.bfloat16, "route")
+    f32 = pipelines.build_trainer(dict(_f32_cfg(cfg), log_csv=False, ckpt_dir=None), dev)
+    for t in (trainer, f32):
+        t.load_checkpoint(best)
+    checks = _bf16_vs_f32({"bf16": trainer.model.eval(), "f32": f32.model.eval()},
+                          _first_batches(dm.predict_dataloader(), dev))
+    trainer.model.train()
+    del f32
+    batches = list(itertools.islice(dm.train_dataloader(), 2))
+    busy = profile_steps("painn_bf16_train_profile", trainer._train_step, batches,
+                         present=FAMILIES["painn"]["train_present"])
+    emit("painn_bf16_train", config="painn-oc", compute_dtype="bfloat16", steps=steps,
+         launches=launches, expected_launches=want, final_val=res, test=test, checks=checks,
+         train_losses_first_last=[step_rows[0]["train/total"], step_rows[-1]["train/total"]],
+         molecules_per_second=dict(_rates(rates, "steps"), epoch=TRAIN_EPOCHS - 1),
+         seconds_per_epoch=epoch_seconds, device_busy_share=busy,
+         peak_device_memory_bytes=peak_mem, fp32=READINGS.get("train"))
+    return launches
+
+
+def headline_batch(seed: int):
+    """bench.py's make_batch: HEADLINE_BATCH molecules of 30-HEADLINE_ATOMS atoms
+    (z 1-16, positions uniform in [-5, 5) Å), energy and force targets
+    normal."""
+    from nabladft_tpu_torch.data.batch import MolBatch
+
+    rng = np.random.default_rng(seed)
+    b, a = HEADLINE_BATCH, HEADLINE_ATOMS
+    z, pos = np.zeros((b, a), np.int32), np.zeros((b, a, 3), np.float32)
+    mask = np.zeros((b, a), bool)
+    for i in range(b):
+        n = int(rng.integers(30, a + 1))
+        z[i, :n], pos[i, :n], mask[i, :n] = rng.integers(1, 17, n), rng.uniform(-5, 5, (n, 3)), True
+    forces = rng.normal(size=(b, a, 3)).astype(np.float32) * mask[..., None]
+    return MolBatch(z=torch.from_numpy(z), pos=torch.from_numpy(pos),
+                    node_mask=torch.from_numpy(mask), graph_mask=torch.ones(b, dtype=torch.bool),
+                    energy=torch.from_numpy(rng.normal(size=b).astype(np.float32)),
+                    forces=torch.from_numpy(forces), mol_id=torch.arange(b, dtype=torch.int32))
+
+
+def painn_bf16_headline_phase() -> dict:
+    """HEADLINE_STEPS train steps (after two warm-up steps) at bench.py's
+    headline shape in bf16 and in fp32, in that order, on the same weights
+    and batch: the step's wall ms (host clock around a synchronised step),
+    mol/s, peak memory; A-D's launches (6 each a step) in the dtype's mode;
+    finite losses. No speed limit."""
+    from nabladft_tpu_torch.models import create_model
+    from nabladft_tpu_torch.train import Trainer, TrainerConfig, seeded_generator
+
+    dev = torch.device("cuda")
+    batch = headline_batch(SEED).to(dev)
+    out, launches_all = {}, {}
+    for dt in ("bfloat16", "float32"):
+        model = create_model("painn", device=dev, generator=seeded_generator(SEED), hidden=128,
+                             n_interactions=6, n_rbf=100, cutoff=5.0,
+                             max_neighbors=HEADLINE_NEIGHBORS, use_pallas="fused",
+                             compute_dtype=dt)
+        trainer = Trainer(model, dev, TrainerConfig(
+            schedule="constant", lr=1e-4, force_grads="pallas", log_every_n_steps=10**9,
+            loss_specs={"energy": "l1", "forces": "l2norm"},
+            loss_coefs={"energy": 1.0, "forces": 1.0}))
+        for _ in range(2):
+            trainer._train_step(batch)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(HEADLINE_STEPS):
+            t0 = time.perf_counter()
+            m = trainer._train_step(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(all(np.isfinite(float(v)) for v in m.values()), f"finite {dt} step {m}")
+        launches = all_launches()
+        sfx = "_bf16" if dt == "bfloat16" else ""
+        want = dict.fromkeys(launches, 0)
+        want.update({f"{k}{sfx}": 6 * HEADLINE_STEPS for k in
+                     ("painn_fwd", "painn_bwd", "painn_dual_fwd", "painn_dual_bwd")})
+        check(launches == want, f"{dt} headline launches {launches}, expected {want}")
+        ms.sort()
+        out[dt] = {"step_ms": _rates(ms, "steps"),
+                   "molecules_per_second": HEADLINE_BATCH / (ms[len(ms) // 2] / 1e3),
+                   "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
+        launches_all = {k: launches_all.get(k, 0) + v for k, v in launches.items()}
+        del trainer, model
+        torch.cuda.empty_cache()
+    emit("painn_bf16_headline", shape=[HEADLINE_BATCH, HEADLINE_ATOMS],
+         max_neighbors=HEADLINE_NEIGHBORS, steps=HEADLINE_STEPS, bfloat16=out["bfloat16"],
+         float32=out["float32"])
+    return launches_all
+
+
+def energy_bf16_phase(tmp: Path, db: Path, family: str) -> dict:
+    """One epoch of `job_type: train`, then `test`, then `predict` from its
+    best checkpoint, of DimeNet++ or Graphormer3D with compute_dtype bf16 at
+    full width over the seeded DB: no kernel of A-P; finite metrics and
+    rows; per bucket the best checkpoint's E within BF16_E_VS_F32 of the fp32
+    model's on the same weights (eval mode), F finite; train and predict
+    mol/s, peak memory."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.data.ase_codec import AseDatabase
+    from nabladft_tpu_torch.train import Trainer
+
+    fam = ENERGY[family]
+    ckpt, outputs = tmp / f"ckpt_{family}_bf16", tmp / f"outputs_{family}_bf16"
+    cfg = _bf16_cfg(train_config(str(db), str(tmp), str(ckpt), str(outputs),
+                                 config=fam["config"]))
+    cfg["trainer"] = dict(cfg["trainer"], max_epochs=1)
+    dm = pipelines.build_datamodule(cfg)
+    res, test, launches, peak_train, t_start, best = _train_job(cfg, ckpt)
+    check(res["step"] == len(dm.train_dataloader()), f"{family} bf16: one epoch, {res['step']}")
+    rows = read_csv(outputs / cfg["name"] / "metrics.csv")
+    step_rows = [r for r in rows if "train/total" in r]
+    check(len(step_rows) == res["step"] and all(
+        np.isfinite(r["train/total"]) and r["skipped_nonfinite"] == 0.0 for r in step_rows),
+        f"{family} bf16 train rows")
+    for m in (res, test):
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    pcfg = dict(_bf16_cfg(smoke_config(str(db), str(tmp / f"predictions_{family}_bf16.db"),
+                                       str(tmp), config=fam["config"])), ckpt_path=str(best))
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pres = pipelines.run(pcfg)
+    torch.cuda.synchronize()
+    launches = {k: v + launches[k] for k, v in all_launches().items()}
+    peak_predict = torch.cuda.max_memory_allocated()
+    check(not any(launches.values()), f"{family} bf16 launched kernels of A-P: {launches}")
+    check(pres["rows"] == N_MOLS, f"{family} bf16 rows {pres['rows']}")
+    for rec in AseDatabase(pcfg["output_db"]).select_all():
+        e, f = np.asarray(rec.data["energy_pred"]), np.asarray(rec.data["forces_pred"])
+        check(bool(np.isfinite(e).all() and np.isfinite(f).all()), "finite bf16 predictions")
+    dev = torch.device("cuda")
+    models = {}
+    for key, c in (("bf16", pcfg), ("f32", _f32_cfg(pcfg))):
+        t = Trainer(pipelines.build_model(c, dev), dev)
+        t.load_checkpoint(best)
+        models[key] = t.model.eval()
+    check(models["bf16"].cdt == torch.bfloat16 and models["f32"].cdt == torch.float32, "dtypes")
+    checks = _bf16_vs_f32(models, _first_batches(dm.predict_dataloader(), dev))
+    rates = sorted(r["mols_per_sec"] for r in step_rows)
+    emit(f"{family}_bf16", config=fam["config"], compute_dtype="bfloat16", steps=res["step"],
+         launches=launches, final_val=res, test=test, checks=checks, predict_rows=pres["rows"],
+         predict_run_seconds=pres["seconds"],
+         predict_molecules_per_second=pres["rows"] / pres["seconds"],
+         train_molecules_per_second=_rates(rates, "steps"),
+         peak_device_memory_bytes={"train": peak_train, "predict": peak_predict})
+    return launches
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
@@ -3385,6 +3862,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in fp32, as the JAX package's (cuBLAS may reduce
+    # them in bf16 where this is allowed; painn_bf16_predict records the gap)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from concurrent.futures import ThreadPoolExecutor
 
     from nabladft_tpu_torch.data.synthetic import write_random_db
@@ -3416,6 +3896,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rows = timed("kernels_painn", kernel_phases, dev, card, ptxas)
+    rows.update(timed("kernels_painn_bf16", kernel_bf16_phases, dev, card, ptxas))
     rows.update(timed("kernels_schnet", schnet_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_escn", escn_kernel_phases, dev, card, ptxas))
@@ -3431,6 +3912,11 @@ def main() -> int:
                 by_path[path] = timed(path, phase, tmp, db, family)
             if family == "painn":  # from the train phase's best checkpoint
                 by_path["painn_optimize"] = timed("painn_optimize", optimize_phase, tmp, db)
+                for path, phase in (("painn_bf16_predict", painn_bf16_predict_phase),
+                                    ("painn_bf16_train", painn_bf16_train_phase)):
+                    by_path[path] = timed(path, phase, tmp, db)
+                by_path["painn_bf16_headline"] = timed("painn_bf16_headline",
+                                                       painn_bf16_headline_phase)
         by_path["qhnet_train"] = timed("qhnet_train", qhnet_train_phase, tmp)
         by_path["phisnet_train"] = timed("phisnet_train", phisnet_train_phase, tmp)
         for family in DIRECT:
@@ -3441,6 +3927,8 @@ def main() -> int:
             for job, phase in (("train", energy_train_phase), ("predict", energy_predict_phase)):
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
+        for family in ("dimenetpp", "graphormer3d"):
+            by_path[f"{family}_bf16"] = timed(f"{family}_bf16", energy_bf16_phase, tmp, db, family)
         restore_db = timed("restore_db_write", write_random_db, tmp / "restore.db", BATCH,
                            MIN_ATOMS, RESTORE_MAX_ATOMS, RESTORE_SEED)
         for path, phase in (("pretrained_painn", pretrained_painn_phase),
@@ -3450,13 +3938,14 @@ def main() -> int:
             by_path[path] = timed(path, phase, tmp, restore_db)
         # over qhnet_train's Hamiltonian DB
         by_path["pretrained_qhnet"] = timed("pretrained_qhnet", pretrained_qhnet_phase, tmp)
-    for k, counter in ALL_KERNELS.items():
+    counters = dict(ALL_KERNELS, **{f"{k}_bf16": c for k, (_, _, c) in BF16_KERNELS.items()})
+    for k, counter in counters.items():
         rows[k]["launches_by_path"] = {p: n[counter] for p, n in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())
         check(rows[k]["launches"] > 0, f"kernel {k} launched on its path")
     seconds["total"] = time.perf_counter() - t_all
     emit("timing", seconds=seconds)
-    print(json.dumps({"kernels": [rows[k] for k in ALL_KERNELS]}), flush=True)
+    print(json.dumps({"kernels": [rows[k] for k in counters]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -17,7 +17,17 @@
 //
 // Layouts (as the JAX op): rbf, rbfp [B,A,A,R]; phi, v, gdv, dv [B,A,3F] with
 // v c-major (slice c*F:(c+1)*F is component c); unit_t [B,A,3,A] with
-// unit_t[b,i,c,j] = unit(j->i)_c; ds, gds [B,A,F]; all float32, contiguous.
+// unit_t[b,i,c,j] = unit(j->i)_c; ds, gds [B,A,F]; contiguous.
+//
+// Two dtypes, as the JAX kernels' modes: every pair and node input (and the cotangents)
+// float32, or every one bfloat16 (the `_bf16` entry points). The bf16 mode reads its inputs
+// as bf16 straight from device memory (no fp32 copy of the [B,A,A,R] pair tensors: halving
+// their bytes is the point of the mode), computes in fp32 like the TPU kernels (which read
+// rbf.dtype and compute in F32) and rounds once: A and C write bf16, B and D write fp32 (their
+// wrappers round gphi, gv, g_unit_t and gW to the inputs' dtype, as the JAX wrappers do; g_dist
+// stays fp32). W comes as fp32 holding bf16 values (the model casts it to bf16), so the radial
+// products rbf @ W, both operands bf16, are exact in one TF32 pass of the engine; the
+// weight-gradient products against the fp32 cotangents keep 3xTF32.
 //
 // Every kernel runs its radial products (R-long rows times W, about 6R of A's 6R + 16 FLOPs a
 // channel and pair) on the tensor cores over the live pairs only: a dead pair (rbf row zero,
@@ -64,6 +74,7 @@
 // multiple of 4 and W's rows padded to ld (>= 3F, a multiple of 4), which the wrapper
 // provides (painn-oc's R = 100, 3F = 384 need no padding).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "so2_common.cuh"
@@ -83,27 +94,38 @@ constexpr int PF_WARPS = 8;  // the flags kernel: warps a block (pair rows a war
 // sender j and k the receiver i, p = (b*A + i)*A + j (B's and D's slots); else o is the
 // receiver i and k the sender j, p = s*A + k (A's and C's slots are the pair rows). One block
 // a segment, a warp a pair row at a time, 16 bytes a lane.
-template <bool BY_SENDER>
+// four values of a row (16 bytes of fp32, 8 of bf16), not all zero (-0 counts as zero)
+__device__ __forceinline__ bool nonzero4(const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  return a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f;
+}
+__device__ __forceinline__ bool nonzero4(const __nv_bfloat16* p) {
+  const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+  return ((a.x | a.y) & 0x7fff7fffu) != 0u;
+}
+
+template <bool BY_SENDER, typename T>
 __global__ void __launch_bounds__(PF_WARPS * 32) painn_flags_kernel(
-    const float* __restrict__ t, const float* __restrict__ t2, int* __restrict__ flags, int A,
-    int R) {
+    const T* __restrict__ t, const T* __restrict__ t2, int* __restrict__ flags, int A, int R) {
   const int s = blockIdx.x, b = s / A, o = s - b * A;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k = warp; k < A; k += PF_WARPS) {
     const long long p = BY_SENDER ? ((long long)b * A + k) * A + o : (long long)s * A + k;
-    const float4* x = reinterpret_cast<const float4*>(t + p * R);
-    const float4* y = t2 ? reinterpret_cast<const float4*>(t2 + p * R) : nullptr;
+    const T* x = t + p * R;
+    const T* y = t2 ? t2 + p * R : nullptr;
     bool nz = false;
-    for (int q = lane; q < R / 4; q += 32) {
-      const float4 a = __ldg(x + q), c = y ? __ldg(y + q) : zero;
-      nz |= a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f || c.x != 0.f || c.y != 0.f ||
-            c.z != 0.f || c.w != 0.f;
-    }
+    for (int q = lane; q < R / 4; q += 32) nz |= nonzero4(x + 4 * q) || (y && nonzero4(y + 4 * q));
     const bool live = __any_sync(0xffffffffu, nz);
     if (lane == 0) flags[(long long)s * A + k] = live ? 1 : 0;
   }
 }
+
+// the stages' loads and stores of the inputs' dtype T (fp32 arithmetic; a bf16 store rounds
+// to nearest)
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void stf(float* p, float x) { *p = x; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // the stages: a thread a channel, F rounded up to whole warps; SMAXT threads at most for the
 // register budget of the model's widths, a second instance beyond (up to 1024 channels)
@@ -123,21 +145,21 @@ constexpr int B_STAGE_MIN_BLOCKS = 3;
 //   dv_ic = sum_j wm1 phi1_j v_jc + u_c wm2 phi2_j
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT) painn_fwd_stage_kernel(
     const float* __restrict__ wm, const int* __restrict__ eidx, const int* __restrict__ rs,
-    const float* __restrict__ phi, const float* __restrict__ v, const float* __restrict__ ut,
-    float* __restrict__ ds, float* __restrict__ dv, int A, int F, int ld) {
+    const T* __restrict__ phi, const T* __restrict__ v, const T* __restrict__ ut,
+    T* __restrict__ ds, T* __restrict__ dv, int A, int F, int ld) {
   extern __shared__ float stage_s[];
   float* u_s = stage_s;  // [3][A]: unit_t[b,i,c,j] of this receiver
   const int bi = blockIdx.x, b = bi / A;
   const int tid = threadIdx.x, F3 = 3 * F, f = tid;
-  for (int idx = tid; idx < 3 * A; idx += blockDim.x) u_s[idx] = ut[(size_t)bi * 3 * A + idx];
+  for (int idx = tid; idx < 3 * A; idx += blockDim.x) u_s[idx] = ldf(ut + (size_t)bi * 3 * A + idx);
   __syncthreads();
   if (f >= F) return;
   const int e_lo = rs[bi], e_hi = rs[bi + 1], row0 = bi * A;  // eidx[e] - row0 = sender j
-  const float* phib = phi + (size_t)b * A * F3 + f;
-  const float* vb = v + (size_t)b * A * F3 + f;
+  const T* phib = phi + (size_t)b * A * F3 + f;
+  const T* vb = v + (size_t)b * A * F3 + f;
   float s0 = 0.f, d0 = 0.f, d1 = 0.f, d2 = 0.f;
 
   for (int e0 = e_lo; e0 < e_hi; e0 += AQ) {
@@ -151,13 +173,13 @@ __global__ void __launch_bounds__(MAXT) painn_fwd_stage_kernel(
       const int e = e0 + (ok ? q : 0);
       jj[q] = eidx[e] - row0;
       const float* wr = wm + (size_t)e * ld + f;
-      const float* pj = phib + (size_t)jj[q] * F3;
-      const float* vj = vb + (size_t)jj[q] * F3;
+      const T* pj = phib + (size_t)jj[q] * F3;
+      const T* vj = vb + (size_t)jj[q] * F3;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         w[q][k] = ok ? wr[k * F] : 0.f;
-        p[q][k] = ok ? pj[k * F] : 0.f;
-        x[q][k] = ok ? vj[k * F] : 0.f;
+        p[q][k] = ok ? ldf(pj + k * F) : 0.f;
+        x[q][k] = ok ? ldf(vj + k * F) : 0.f;
       }
     }
 #pragma unroll
@@ -170,11 +192,11 @@ __global__ void __launch_bounds__(MAXT) painn_fwd_stage_kernel(
       d2 = fmaf(u_s[2 * A + j], m3, fmaf(t, x[q][2], d2));
     }
   }
-  ds[(size_t)bi * F + f] = s0;
-  float* dvo = dv + (size_t)bi * F3 + f;
-  dvo[0] = d0;
-  dvo[F] = d1;
-  dvo[2 * F] = d2;
+  stf(ds + (size_t)bi * F + f, s0);
+  T* dvo = dv + (size_t)bi * F3 + f;
+  stf(dvo, d0);
+  stf(dvo + F, d1);
+  stf(dvo + 2 * F, d2);
 }
 
 // ---------------------------------------------------------------------------
@@ -186,21 +208,21 @@ __global__ void __launch_bounds__(MAXT) painn_fwd_stage_kernel(
 //   dv_c = sum t v_cj + u_c m3,     dvd_c = sum td v_cj + t vd_cj + ud_c m3 + u_c m3d
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT) painn_dual_fwd_stage_kernel(
     const float* __restrict__ wm, const float* __restrict__ wmd, const int* __restrict__ eidx,
-    const int* __restrict__ rs, const float* __restrict__ phi, const float* __restrict__ phid,
-    const float* __restrict__ v, const float* __restrict__ vd, const float* __restrict__ ut,
-    const float* __restrict__ utd, float* __restrict__ ds, float* __restrict__ dv,
-    float* __restrict__ dsd, float* __restrict__ dvd, int A, int F, int ld) {
+    const int* __restrict__ rs, const T* __restrict__ phi, const T* __restrict__ phid,
+    const T* __restrict__ v, const T* __restrict__ vd, const T* __restrict__ ut,
+    const T* __restrict__ utd, T* __restrict__ ds, T* __restrict__ dv, T* __restrict__ dsd,
+    T* __restrict__ dvd, int A, int F, int ld) {
   extern __shared__ float stage_s[];
   float* u_s = stage_s;       // [3][A]: unit_t[b,i,c,j] of this receiver
   float* ud_s = u_s + 3 * A;  // [3][A]: unitd_t[b,i,c,j]
   const int bi = blockIdx.x, b = bi / A;
   const int tid = threadIdx.x, F3 = 3 * F, f = tid;
   for (int idx = tid; idx < 3 * A; idx += blockDim.x) {
-    u_s[idx] = ut[(size_t)bi * 3 * A + idx];
-    ud_s[idx] = utd[(size_t)bi * 3 * A + idx];
+    u_s[idx] = ldf(ut + (size_t)bi * 3 * A + idx);
+    ud_s[idx] = ldf(utd + (size_t)bi * 3 * A + idx);
   }
   __syncthreads();
   if (f >= F) return;
@@ -224,10 +246,10 @@ __global__ void __launch_bounds__(MAXT) painn_dual_fwd_stage_kernel(
       for (int k = 0; k < 3; ++k) {
         w[q][k] = ok ? wr[k * F] : 0.f;
         wd[q][k] = ok ? wdr[k * F] : 0.f;
-        p[q][k] = ok ? phi[nj + k * F] : 0.f;
-        pd[q][k] = ok ? phid[nj + k * F] : 0.f;
-        x[q][k] = ok ? v[nj + k * F] : 0.f;
-        xd[q][k] = ok ? vd[nj + k * F] : 0.f;
+        p[q][k] = ok ? ldf(phi + nj + k * F) : 0.f;
+        pd[q][k] = ok ? ldf(phid + nj + k * F) : 0.f;
+        x[q][k] = ok ? ldf(v + nj + k * F) : 0.f;
+        xd[q][k] = ok ? ldf(vd + nj + k * F) : 0.f;
       }
     }
 #pragma unroll
@@ -247,14 +269,14 @@ __global__ void __launch_bounds__(MAXT) painn_dual_fwd_stage_kernel(
     }
   }
   const size_t ni = (size_t)bi * F3 + f;
-  ds[(size_t)bi * F + f] = s0;
-  dsd[(size_t)bi * F + f] = sd0;
-  dv[ni] = d0;
-  dv[ni + F] = d1;
-  dv[ni + 2 * F] = d2;
-  dvd[ni] = dd0;
-  dvd[ni + F] = dd1;
-  dvd[ni + 2 * F] = dd2;
+  stf(ds + (size_t)bi * F + f, s0);
+  stf(dsd + (size_t)bi * F + f, sd0);
+  stf(dv + ni, d0);
+  stf(dv + ni + F, d1);
+  stf(dv + ni + 2 * F, d2);
+  stf(dvd + ni, dd0);
+  stf(dvd + ni + F, dd1);
+  stf(dvd + ni + 2 * F, dd2);
 }
 
 // ---------------------------------------------------------------------------
@@ -268,12 +290,12 @@ __global__ void __launch_bounds__(MAXT) painn_dual_fwd_stage_kernel(
 // read and written by one thread).
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT, MAXT == SMAXT ? B_STAGE_MIN_BLOCKS : 1)
     painn_bwd_stage_kernel(
     float* __restrict__ wm, const float* __restrict__ rp, const int* __restrict__ eidx,
-    const int* __restrict__ rs, const float* __restrict__ phi, const float* __restrict__ v,
-    const float* __restrict__ ut, const float* __restrict__ gds, const float* __restrict__ gdv,
+    const int* __restrict__ rs, const T* __restrict__ phi, const T* __restrict__ v,
+    const T* __restrict__ ut, const T* __restrict__ gds, const T* __restrict__ gdv,
     float* __restrict__ gdist, float* __restrict__ gut, float* __restrict__ gphi,
     float* __restrict__ gv, int need_gw, int A, int F, int ld) {
   extern __shared__ float stage_s[];
@@ -285,13 +307,15 @@ __global__ void __launch_bounds__(MAXT, MAXT == SMAXT ? B_STAGE_MIN_BLOCKS : 1)
   const bool act = f < F;
   for (int idx = tid; idx < 3 * A; idx += blockDim.x) {
     const int c = idx / A, i = idx - c * A;
-    u_s[idx] = ut[(((size_t)b * A + i) * 3 + c) * A + j];
+    u_s[idx] = ldf(ut + (((size_t)b * A + i) * 3 + c) * A + j);
   }
   const int e_lo = rs[bj], e_hi = rs[bj + 1];
-  const float* pj = phi + (size_t)bj * F3;
-  const float* vj = v + (size_t)bj * F3;
-  const float p0 = act ? pj[f] : 0.f, p1 = act ? pj[F + f] : 0.f, p2 = act ? pj[2 * F + f] : 0.f;
-  const float v0 = act ? vj[f] : 0.f, v1 = act ? vj[F + f] : 0.f, v2 = act ? vj[2 * F + f] : 0.f;
+  const T* pj = phi + (size_t)bj * F3;
+  const T* vj = v + (size_t)bj * F3;
+  const float p0 = act ? ldf(pj + f) : 0.f, p1 = act ? ldf(pj + F + f) : 0.f;
+  const float p2 = act ? ldf(pj + 2 * F + f) : 0.f;
+  const float v0 = act ? ldf(vj + f) : 0.f, v1 = act ? ldf(vj + F + f) : 0.f;
+  const float v2 = act ? ldf(vj + 2 * F + f) : 0.f;
   float a0 = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, a2 = 0.f;
   __syncthreads();
 
@@ -312,9 +336,9 @@ __global__ void __launch_bounds__(MAXT, MAXT == SMAXT ? B_STAGE_MIN_BLOCKS : 1)
       for (int k = 0; k < 3; ++k) {
         w[q][k] = ok ? wr[k * F + f] : 0.f;
         r[q][k] = ok ? rr[k * F + f] : 0.f;
-        g2[q][k] = ok ? gdv[node * F3 + k * F + f] : 0.f;
+        g2[q][k] = ok ? ldf(gdv + node * F3 + k * F + f) : 0.f;
       }
-      g1[q] = ok ? gds[node * F + f] : 0.f;
+      g1[q] = ok ? ldf(gds + node * F + f) : 0.f;
     }
     float val[4 * BQ];
 #pragma unroll
@@ -379,13 +403,13 @@ __global__ void __launch_bounds__(MAXT, MAXT == SMAXT ? B_STAGE_MIN_BLOCKS : 1)
 // need_gw, the per-pair cotangents overwrite the rows: gwm over wm, gwmd over wmd.
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT) painn_dual_bwd_stage_kernel(
     float* __restrict__ wm, float* __restrict__ wmd, const int* __restrict__ eidx,
-    const int* __restrict__ rs, const float* __restrict__ phi, const float* __restrict__ phid,
-    const float* __restrict__ v, const float* __restrict__ vd, const float* __restrict__ ut,
-    const float* __restrict__ utd, const float* __restrict__ gds, const float* __restrict__ gdv,
-    const float* __restrict__ gdsd, const float* __restrict__ gdvd, float* __restrict__ gphi,
+    const int* __restrict__ rs, const T* __restrict__ phi, const T* __restrict__ phid,
+    const T* __restrict__ v, const T* __restrict__ vd, const T* __restrict__ ut,
+    const T* __restrict__ utd, const T* __restrict__ gds, const T* __restrict__ gdv,
+    const T* __restrict__ gdsd, const T* __restrict__ gdvd, float* __restrict__ gphi,
     float* __restrict__ gphid, float* __restrict__ gv, float* __restrict__ gvd, int need_gw,
     int A, int F, int ld) {
   extern __shared__ float stage_s[];
@@ -397,17 +421,18 @@ __global__ void __launch_bounds__(MAXT) painn_dual_bwd_stage_kernel(
   for (int idx = tid; idx < 3 * A; idx += blockDim.x) {
     const int c = idx / A, i = idx - c * A;
     const size_t src = (((size_t)b * A + i) * 3 + c) * A + j;
-    u_s[idx] = ut[src];
-    ud_s[idx] = utd[src];
+    u_s[idx] = ldf(ut + src);
+    ud_s[idx] = ldf(utd + src);
   }
   __syncthreads();
   if (!act) return;
   const int e_lo = rs[bj], e_hi = rs[bj + 1];
   const size_t nj = (size_t)bj * F3;
-  const float p0 = phi[nj + f], p1 = phi[nj + F + f], p2 = phi[nj + 2 * F + f];
-  const float pd0 = phid[nj + f], pd1 = phid[nj + F + f], pd2 = phid[nj + 2 * F + f];
-  const float v0 = v[nj + f], v1 = v[nj + F + f], v2 = v[nj + 2 * F + f];
-  const float e0v = vd[nj + f], e1v = vd[nj + F + f], e2v = vd[nj + 2 * F + f];
+  const float p0 = ldf(phi + nj + f), p1 = ldf(phi + nj + F + f), p2 = ldf(phi + nj + 2 * F + f);
+  const float pd0 = ldf(phid + nj + f), pd1 = ldf(phid + nj + F + f);
+  const float pd2 = ldf(phid + nj + 2 * F + f);
+  const float v0 = ldf(v + nj + f), v1 = ldf(v + nj + F + f), v2 = ldf(v + nj + 2 * F + f);
+  const float e0v = ldf(vd + nj + f), e1v = ldf(vd + nj + F + f), e2v = ldf(vd + nj + 2 * F + f);
   float a0 = 0.f, ad0 = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sd0 = 0.f, sd1 = 0.f, sd2 = 0.f;
   float a2 = 0.f, ad2 = 0.f;
 
@@ -428,11 +453,11 @@ __global__ void __launch_bounds__(MAXT) painn_dual_bwd_stage_kernel(
       for (int k = 0; k < 3; ++k) {
         w[q][k] = ok ? wr[k * F + f] : 0.f;
         wd[q][k] = ok ? wdr[k * F + f] : 0.f;
-        g2[q][k] = ok ? gdv[node * F3 + k * F + f] : 0.f;
-        h[q][k] = ok ? gdvd[node * F3 + k * F + f] : 0.f;
+        g2[q][k] = ok ? ldf(gdv + node * F3 + k * F + f) : 0.f;
+        h[q][k] = ok ? ldf(gdvd + node * F3 + k * F + f) : 0.f;
       }
-      g1[q] = ok ? gds[node * F + f] : 0.f;
-      g1d[q] = ok ? gdsd[node * F + f] : 0.f;
+      g1[q] = ok ? ldf(gds + node * F + f) : 0.f;
+      g1d[q] = ok ? ldf(gdsd + node * F + f) : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < DQ; ++q) {
@@ -565,10 +590,11 @@ Work carve(int B, int A, int R, int ld, int sets, bool gw, bool by_sender, float
 // the live pairs (rows of rbf or t2 that are not zero), in receiver order (the engine's
 // live_rows over segments of A pair rows) or in sender order (slots (b, j, i), then their pair
 // rows), with each segment's first row
-cudaError_t live_pairs(const Work& w, const float* rbf, const float* t2, int B, int A, int R,
+template <typename T>
+cudaError_t live_pairs(const Work& w, const T* rbf, const T* t2, int B, int A, int R,
                        bool by_sender, cudaStream_t st) {
   const long long rows = pair_rows(B, A);
-  const auto mark = by_sender ? painn_flags_kernel<true> : painn_flags_kernel<false>;
+  const auto mark = by_sender ? painn_flags_kernel<true, T> : painn_flags_kernel<false, T>;
   mark<<<B * A, PF_WARPS * 32, 0, st>>>(rbf, t2, w.flags, A, R);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) err = live_rows(w.flags, w.eidx, w.pos, w.rs, w.n_rows, rows, A, st);
@@ -578,20 +604,36 @@ cudaError_t live_pairs(const Work& w, const float* rbf, const float* t2, int B, 
   return cudaGetLastError();
 }
 
+constexpr bool is_bf16(const float*) { return false; }
+constexpr bool is_bf16(const __nv_bfloat16*) { return true; }
+
+// an engine segment over the gathered pair rows a (fp32, or bf16: then W holds bf16 values
+// and one pass is exact)
+template <typename T>
+Seg pair_seg(const T* a, const float* wt, int R, int ld) {
+  Seg s = seg(reinterpret_cast<const float*>(a), R, wt, ld, R);
+  s.abf16 = s.one = is_bf16(a);
+  return s;
+}
+
 // x1 = a1 W (and x2 = a2 W where a2 is given) over the live rows (gathered), into their
 // compact rows; K = R is a few k tiles, so the launch runs persistent
-cudaError_t radial_products(const Work& w, const float* a1, const float* a2, const float* wt,
-                            int R, int ld, cudaStream_t st) {
-  std::vector<NNProb> probs{prob({seg(a1, R, wt, ld, R)}, ld, EPI_STORE, w.x1, ld)};
-  if (a2) probs.push_back(prob({seg(a2, R, wt, ld, R)}, ld, EPI_STORE, w.x2, ld));
+template <typename T>
+cudaError_t radial_products(const Work& w, const T* a1, const T* a2, const float* wt, int R,
+                            int ld, cudaStream_t st) {
+  std::vector<NNProb> probs{prob({pair_seg(a1, wt, R, ld)}, ld, EPI_STORE, w.x1, ld)};
+  if (a2) probs.push_back(prob({pair_seg(a2, wt, R, ld)}, ld, EPI_STORE, w.x2, ld));
   for (NNProb& p : probs) p.gather = 1;
   return launch_products(w.en, probs, st, true);
 }
 
 // gW [R, ld] = a1_live^T x1 (+ a2_live^T x2 where a2 is given)
-cudaError_t weight_grad(const Work& w, const float* a1, const float* a2, float* gw, int R, int ld,
+template <typename T>
+cudaError_t weight_grad(const Work& w, const T* a1, const T* a2, float* gw, int R, int ld,
                         cudaStream_t st) {
-  const TSeg s1{a1, w.x1, R, ld, 1.f}, s2{a2, w.x2, R, ld, 1.f};
+  const int h = is_bf16(a1);
+  const TSeg s1{reinterpret_cast<const float*>(a1), w.x1, R, ld, 1.f, h};
+  const TSeg s2{reinterpret_cast<const float*>(a2), w.x2, R, ld, 1.f, h};
   return launch_wgrads(w.en, {a2 ? tprob({s1, s2}, A_GATHER, R, ld, gw, ld)
                                  : tprob({s1}, A_GATHER, R, ld, gw, ld)}, st);
 }
@@ -599,6 +641,85 @@ cudaError_t weight_grad(const Work& w, const float* a1, const float* a2, float* 
 bool shapes_ok(int B, int A, int R, int F, int ld) {
   return R > 0 && R % 4 == 0 && F > 0 && F <= 1024 && ld >= 3 * F && ld % 4 == 0 &&
          pair_rows(B, A) < (1LL << 31);
+}
+
+// the pair tensors' rows are read in chunks of four values (16 bytes of fp32, 8 of bf16)
+template <typename T>
+bool pairs_aligned(const T* p) { return is_bf16(p) ? aligned8(p) : aligned16(p); }
+
+template <typename T>
+int fwd(const T* rbf, const T* phi, const T* v, const T* unit_t, const float* w, T* ds, T* dv,
+        float* scratch, int* iscratch, int B, int A, int R, int F, int ld, void* stream) {
+  if (!shapes_ok(B, A, R, F, ld) || !pairs_aligned(rbf)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve(B, A, R, ld, 1, false, false, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, rbf, (const T*)nullptr, B, A, R, false, st);
+  if (err == cudaSuccess) err = radial_products(wk, rbf, (const T*)nullptr, w, R, ld, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_stage(painn_fwd_stage_kernel<SMAXT, T>, painn_fwd_stage_kernel<1024, T>,
+                           B * A, F, stage_smem(A, 1, 0), st, wk.x1, wk.eidx, wk.rs, phi, v,
+                           unit_t, ds, dv, A, F, ld);
+}
+
+template <typename T>
+int bwd(const T* rbf, const T* rbfp, const T* phi, const T* v, const T* unit_t, const float* w,
+        const T* gds, const T* gdv, float* gdist, float* gut, float* gphi, float* gv, float* gw,
+        float* scratch, int* iscratch, int need_gw, int B, int A, int R, int F, int ld,
+        void* stream) {
+  if (!shapes_ok(B, A, R, F, ld) || !pairs_aligned(rbf) || !pairs_aligned(rbfp))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve(B, A, R, ld, 2, true, true, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, rbf, rbfp, B, A, R, true, st);
+  if (err == cudaSuccess) err = radial_products(wk, rbf, rbfp, w, R, ld, st);
+  if (err == cudaSuccess)
+    err = launch_stage(painn_bwd_stage_kernel<SMAXT, T>, painn_bwd_stage_kernel<1024, T>, B * A,
+                       F, stage_smem(A, 1, stage_threads(F)), st, wk.x1, wk.x2, wk.eidx, wk.rs,
+                       phi, v, unit_t, gds, gdv, gdist, gut, gphi, gv, need_gw, A, F, ld);
+  if (err != cudaSuccess || !need_gw) return (int)err;
+  return (int)weight_grad(wk, rbf, (const T*)nullptr, gw, R, ld, st);
+}
+
+template <typename T>
+int dual_fwd(const T* rbf, const T* rbfd, const T* phi, const T* phid, const T* v, const T* vd,
+             const T* unit_t, const T* unitd_t, const float* w, T* ds, T* dv, T* dsd, T* dvd,
+             float* scratch, int* iscratch, int B, int A, int R, int F, int ld, void* stream) {
+  if (!shapes_ok(B, A, R, F, ld) || !pairs_aligned(rbf) || !pairs_aligned(rbfd))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve(B, A, R, ld, 2, false, false, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, rbf, rbfd, B, A, R, false, st);
+  if (err == cudaSuccess) err = radial_products(wk, rbf, rbfd, w, R, ld, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_stage(painn_dual_fwd_stage_kernel<SMAXT, T>,
+                           painn_dual_fwd_stage_kernel<1024, T>, B * A, F, stage_smem(A, 2, 0),
+                           st, wk.x1, wk.x2, wk.eidx, wk.rs, phi, phid, v, vd, unit_t, unitd_t,
+                           ds, dv, dsd, dvd, A, F, ld);
+}
+
+template <typename T>
+int dual_bwd(const T* rbf, const T* rbfd, const T* phi, const T* phid, const T* v, const T* vd,
+             const T* unit_t, const T* unitd_t, const float* w, const T* gds, const T* gdv,
+             const T* gdsd, const T* gdvd, float* gphi, float* gphid, float* gv, float* gvd,
+             float* gw, float* scratch, int* iscratch, int need_gw, int B, int A, int R, int F,
+             int ld, void* stream) {
+  if (!shapes_ok(B, A, R, F, ld) || !pairs_aligned(rbf) || !pairs_aligned(rbfd))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve(B, A, R, ld, 2, true, true, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, rbf, rbfd, B, A, R, true, st);
+  if (err == cudaSuccess) err = radial_products(wk, rbf, rbfd, w, R, ld, st);
+  if (err == cudaSuccess)
+    err = launch_stage(painn_dual_bwd_stage_kernel<SMAXT, T>,
+                       painn_dual_bwd_stage_kernel<1024, T>, B * A, F, stage_smem(A, 2, 0), st,
+                       wk.x1, wk.x2, wk.eidx, wk.rs, phi, phid, v, vd, unit_t, unitd_t, gds, gdv,
+                       gdsd, gdvd, gphi, gphid, gv, gvd, need_gw, A, F, ld);
+  if (err != cudaSuccess || !need_gw) return (int)err;
+  return (int)weight_grad(wk, rbf, rbfd, gw, R, ld, st);
 }
 
 }  // namespace
@@ -622,16 +743,7 @@ long long painn_fwd_scratch_ints(int B, int A) { return scratch_ints(B, A, false
 int painn_fwd(const float* rbf, const float* phi, const float* v, const float* unit_t,
               const float* w, float* ds, float* dv, float* scratch, int* iscratch, int B, int A,
               int R, int F, int ld, void* stream) {
-  if (!shapes_ok(B, A, R, F, ld) || !aligned16(rbf)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve(B, A, R, ld, 1, false, false, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, rbf, nullptr, B, A, R, false, st);
-  if (err == cudaSuccess) err = radial_products(wk, rbf, nullptr, w, R, ld, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_stage(painn_fwd_stage_kernel<SMAXT>, painn_fwd_stage_kernel<1024>, B * A, F,
-                           stage_smem(A, 1, 0), st, wk.x1, wk.eidx, wk.rs, phi, v, unit_t, ds,
-                           dv, A, F, ld);
+  return fwd(rbf, phi, v, unit_t, w, ds, dv, scratch, iscratch, B, A, R, F, ld, stream);
 }
 
 // float and int scratch of a B or D call (painn_bwd, painn_dual_bwd)
@@ -647,19 +759,8 @@ int painn_bwd(const float* rbf, const float* rbfp, const float* phi, const float
               const float* unit_t, const float* w, const float* gds, const float* gdv,
               float* gdist, float* gut, float* gphi, float* gv, float* gw, float* scratch,
               int* iscratch, int need_gw, int B, int A, int R, int F, int ld, void* stream) {
-  if (!shapes_ok(B, A, R, F, ld) || !aligned16(rbf) || !aligned16(rbfp))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve(B, A, R, ld, 2, true, true, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, rbf, rbfp, B, A, R, true, st);
-  if (err == cudaSuccess) err = radial_products(wk, rbf, rbfp, w, R, ld, st);
-  if (err == cudaSuccess)
-    err = launch_stage(painn_bwd_stage_kernel<SMAXT>, painn_bwd_stage_kernel<1024>, B * A, F,
-                       stage_smem(A, 1, stage_threads(F)), st, wk.x1, wk.x2, wk.eidx, wk.rs,
-                       phi, v, unit_t, gds, gdv, gdist, gut, gphi, gv, need_gw, A, F, ld);
-  if (err != cudaSuccess || !need_gw) return (int)err;
-  return (int)weight_grad(wk, rbf, nullptr, gw, R, ld, st);
+  return bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, gdist, gut, gphi, gv, gw, scratch,
+             iscratch, need_gw, B, A, R, F, ld, stream);
 }
 
 // Kernel C: as A (its live pairs are those of rbf or rbfd).
@@ -667,18 +768,8 @@ int painn_dual_fwd(const float* rbf, const float* rbfd, const float* phi, const 
                    const float* v, const float* vd, const float* unit_t, const float* unitd_t,
                    const float* w, float* ds, float* dv, float* dsd, float* dvd, float* scratch,
                    int* iscratch, int B, int A, int R, int F, int ld, void* stream) {
-  if (!shapes_ok(B, A, R, F, ld) || !aligned16(rbf) || !aligned16(rbfd))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve(B, A, R, ld, 2, false, false, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, rbf, rbfd, B, A, R, false, st);
-  if (err == cudaSuccess) err = radial_products(wk, rbf, rbfd, w, R, ld, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_stage(painn_dual_fwd_stage_kernel<SMAXT>,
-                           painn_dual_fwd_stage_kernel<1024>, B * A, F, stage_smem(A, 2, 0), st,
-                           wk.x1, wk.x2, wk.eidx, wk.rs, phi, phid, v, vd, unit_t, unitd_t, ds,
-                           dv, dsd, dvd, A, F, ld);
+  return dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, ds, dv, dsd, dvd, scratch,
+                  iscratch, B, A, R, F, ld, stream);
 }
 
 // Kernel D: as painn_bwd (its live pairs are those of rbf or rbfd).
@@ -688,20 +779,45 @@ int painn_dual_bwd(const float* rbf, const float* rbfd, const float* phi, const 
                    const float* gdvd, float* gphi, float* gphid, float* gv, float* gvd,
                    float* gw, float* scratch, int* iscratch, int need_gw, int B, int A, int R,
                    int F, int ld, void* stream) {
-  if (!shapes_ok(B, A, R, F, ld) || !aligned16(rbf) || !aligned16(rbfd))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve(B, A, R, ld, 2, true, true, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, rbf, rbfd, B, A, R, true, st);
-  if (err == cudaSuccess) err = radial_products(wk, rbf, rbfd, w, R, ld, st);
-  if (err == cudaSuccess)
-    err = launch_stage(painn_dual_bwd_stage_kernel<SMAXT>, painn_dual_bwd_stage_kernel<1024>,
-                       B * A, F, stage_smem(A, 2, 0), st, wk.x1, wk.x2, wk.eidx, wk.rs, phi,
-                       phid, v, vd, unit_t, unitd_t, gds, gdv, gdsd, gdvd, gphi, gphid, gv, gvd,
-                       need_gw, A, F, ld);
-  if (err != cudaSuccess || !need_gw) return (int)err;
-  return (int)weight_grad(wk, rbf, rbfd, gw, R, ld, st);
+  return dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gdsd, gdvd, gphi,
+                  gphid, gv, gvd, gw, scratch, iscratch, need_gw, B, A, R, F, ld, stream);
+}
+
+// The bf16 mode of A-D: the same entry points with every pair and node input (and
+// cotangent) bf16, 8-byte aligned pair tensors, W fp32 holding bf16 values, the same
+// scratch; A and C write bf16, B and D fp32.
+typedef __nv_bfloat16 bf16;
+
+int painn_fwd_bf16(const bf16* rbf, const bf16* phi, const bf16* v, const bf16* unit_t,
+                   const float* w, bf16* ds, bf16* dv, float* scratch, int* iscratch, int B,
+                   int A, int R, int F, int ld, void* stream) {
+  return fwd(rbf, phi, v, unit_t, w, ds, dv, scratch, iscratch, B, A, R, F, ld, stream);
+}
+
+int painn_bwd_bf16(const bf16* rbf, const bf16* rbfp, const bf16* phi, const bf16* v,
+                   const bf16* unit_t, const float* w, const bf16* gds, const bf16* gdv,
+                   float* gdist, float* gut, float* gphi, float* gv, float* gw, float* scratch,
+                   int* iscratch, int need_gw, int B, int A, int R, int F, int ld, void* stream) {
+  return bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, gdist, gut, gphi, gv, gw, scratch,
+             iscratch, need_gw, B, A, R, F, ld, stream);
+}
+
+int painn_dual_fwd_bf16(const bf16* rbf, const bf16* rbfd, const bf16* phi, const bf16* phid,
+                        const bf16* v, const bf16* vd, const bf16* unit_t, const bf16* unitd_t,
+                        const float* w, bf16* ds, bf16* dv, bf16* dsd, bf16* dvd, float* scratch,
+                        int* iscratch, int B, int A, int R, int F, int ld, void* stream) {
+  return dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, ds, dv, dsd, dvd, scratch,
+                  iscratch, B, A, R, F, ld, stream);
+}
+
+int painn_dual_bwd_bf16(const bf16* rbf, const bf16* rbfd, const bf16* phi, const bf16* phid,
+                        const bf16* v, const bf16* vd, const bf16* unit_t, const bf16* unitd_t,
+                        const float* w, const bf16* gds, const bf16* gdv, const bf16* gdsd,
+                        const bf16* gdvd, float* gphi, float* gphid, float* gv, float* gvd,
+                        float* gw, float* scratch, int* iscratch, int need_gw, int B, int A,
+                        int R, int F, int ld, void* stream) {
+  return dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gdsd, gdvd, gphi,
+                  gphid, gv, gvd, gw, scratch, iscratch, need_gw, B, A, R, F, ld, stream);
 }
 
 }  // extern "C"

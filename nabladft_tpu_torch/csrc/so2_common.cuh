@@ -26,6 +26,11 @@
 // wgmma.m64n128k8.tf32 with fp32 accumulators. The dropped a_lo b_lo is ~2^-22 of |a b|
 // (one-pass TF32 keeps ~2^-11). Three tensor-core passes run at 495 / 3 TFLOP/s on an H100
 // SXM, against 67 for fp32 FMA on the CUDA cores.
+// bfloat16 A operands (a segment's `abf16`, gathered rows only: PaiNN's bf16 mode) are read
+// as bf16 straight from device memory (8-byte cp.async chunks into a bf16 tile) and widened
+// in the fragment loads: a bf16 value is a TF32 value whose lo half is zero. A segment whose
+// B values are also exact in TF32 (`one`: bf16 weights held as fp32) runs one pass, a_hi
+// b_hi: the other two passes' products, a_hi b_lo and a_lo b_hi, are exactly zero there.
 //
 // A block: two consumer warpgroups, each 64 rows of the 128 x 128 tile (one m64 block), and
 // one producer warp, over a ring of STAGES k tiles of 32 (128 bytes of fp32) in dynamic
@@ -143,6 +148,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "r"(src_bytes)
                : "memory");
 }
+// 8 bytes (four bf16 values) global -> shared, as cp_async16
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// a bf16 value (its bits) as the fp32 value it is
+__device__ __forceinline__ float bf16_bits(uint16_t h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
 __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
                                        int c1) {
   asm volatile(
@@ -224,14 +239,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
-// one k8 step of a warpgroup's m64 block, 3xTF32: 3 wgmmas on the B halves' descriptors;
-// `first` starts the stage's sum from zero
+// one k8 step of a warpgroup's m64 block, 3xTF32: 3 wgmmas on the B halves' descriptors
+// (`one`: a_hi b_hi alone, for operands exact in TF32); `first` starts the stage's sum from
+// zero
 __device__ __forceinline__ void mma3(float (&acc)[64], uint32_t (&ah)[4], uint32_t (&al)[4],
-                                     uint64_t dh, uint64_t dl, bool first) {
+                                     uint64_t dh, uint64_t dl, bool first, bool one) {
   wg_fence();
   mma_tf32(acc, ah, dh, first ? 0 : 1);
-  mma_tf32(acc, ah, dl, 1);
-  mma_tf32(acc, al, dh, 1);
+  if (!one) {
+    mma_tf32(acc, ah, dl, 1);
+    mma_tf32(acc, al, dh, 1);
+  }
   wg_commit();
 }
 
@@ -248,13 +266,13 @@ __device__ __forceinline__ void promote(float (&tot)[64], const float (&acc)[64]
 // descriptors; the next step's fragments load while this one's wgmmas run
 template <typename Frag>
 __device__ __forceinline__ void stage_mma(float (&acc)[64], float (&tot)[64], uint64_t dh,
-                                          uint64_t dl, Frag frag) {
+                                          uint64_t dl, Frag frag, bool one = false) {
   uint32_t ah[2][4], al[2][4];  // [buffer][register]
   frag(0, ah[0], al[0]);
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk) {
     const int b = kk & 1;
-    mma3(acc, ah[b], al[b], dh + 2 * kk, dl + 2 * kk, kk == 0);
+    mma3(acc, ah[b], al[b], dh + 2 * kk, dl + 2 * kk, kk == 0, one);
     if (kk + 1 < BK / 8) frag(kk + 1, ah[b ^ 1], al[b ^ 1]);
     wg_wait0();
     keep(acc);
@@ -270,10 +288,12 @@ __device__ __forceinline__ void stage_mma(float (&acc)[64], float (&tot)[64], ui
 
 // a segment as the stages describe it (host)
 struct Seg {
-  const float* a;  // row e of A at a + row(e) * lda
+  const float* a;  // row e of A at a + row(e) * lda (elements; bf16 ones where abf16)
   const float* b;  // B [K, N] at b + k * ldb + n, or transposed: b + n * ldb + k
   int lda, ldb, k, btrans;
   float sign;
+  int abf16;  // A holds bf16 values (gathered rows only)
+  int one;    // A and B exact in TF32: one pass (a_hi b_hi)
 };
 
 struct NNProb {
@@ -292,6 +312,7 @@ struct MMSeg {
   const float* a;
   int lda, k;
   float sign;
+  int abf16, one;
 };
 
 struct MMProb {
@@ -325,6 +346,11 @@ __device__ __forceinline__ int mm_tile(const MMBatch& bt, int id, int& m0, int& 
 // element (r, k) of a 128-byte-swizzled [BM][BK] tile
 __device__ __forceinline__ float a_sw(const float* t, int r, int k) {
   return t[r * BK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3)];
+}
+// element (r, k) of a gathered bf16 [BM][BK] tile: 8-byte chunks of four values, chunk c of
+// row r at c ^ (r & 7) (the fragment loads are conflict-free)
+__device__ __forceinline__ float a_sw16(const uint16_t* t, int r, int k) {
+  return bf16_bits(t[r * BK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3)]);
 }
 
 // One BM x BN tile of one problem a block (blockIdx.x the tile's id, mm_tile), or, PERSIST,
@@ -385,14 +411,25 @@ __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ 
             tma_3d(Bl + st * BN * BK, &S.bmap, full + st, k0, n0, 1);
             if (!P.gather) tma_2d(at, &S.amap, full + st, k0, m0);
           }
-          if (P.gather) {  // lane: 16-byte chunk c of rows lane/8, +4, ...
+          if (P.gather) {  // lane: chunk c (four values) of rows lane/8, +4, ...
             const int c = lane & 7;
             const bool k_ok = k0 + c * 4 < S.k;
-            for (int r = lane >> 3; r < BM; r += 4) {
-              const int row = ridx[r];
-              const bool ok = k_ok && row >= 0;
-              const float* src = ok ? S.a + (long long)row * S.lda + k0 + c * 4 : S.a;
-              cp_async16(at + r * BK + ((c ^ (r & 7)) << 2), src, ok ? 16 : 0);
+            if (S.abf16) {  // 8-byte chunks into a bf16 tile
+              const uint16_t* a16 = reinterpret_cast<const uint16_t*>(S.a);
+              uint16_t* at16 = reinterpret_cast<uint16_t*>(at);
+              for (int r = lane >> 3; r < BM; r += 4) {
+                const int row = ridx[r];
+                const bool ok = k_ok && row >= 0;
+                const uint16_t* src = ok ? a16 + (long long)row * S.lda + k0 + c * 4 : a16;
+                cp_async8(at16 + r * BK + ((c ^ (r & 7)) << 2), src, ok ? 8 : 0);
+              }
+            } else {
+              for (int r = lane >> 3; r < BM; r += 4) {
+                const int row = ridx[r];
+                const bool ok = k_ok && row >= 0;
+                const float* src = ok ? S.a + (long long)row * S.lda + k0 + c * 4 : S.a;
+                cp_async16(at + r * BK + ((c ^ (r & 7)) << 2), src, ok ? 16 : 0);
+              }
             }
             cp_async_arrive(full + st);
           } else {
@@ -419,18 +456,27 @@ __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ 
     for (int s = 0; s < P.nseg; ++s) {
       const float sign = P.seg[s].sign;
       const int ks = P.seg[s].k;
+      const bool a16 = P.seg[s].abf16, one = P.seg[s].one;
       for (int k0 = 0; k0 < ks; k0 += BK, ++it) {
         const int st = it % STAGES;
         mbar_wait(full + st, (it / STAGES) & 1);
         const float* at = As + st * BM * BK;
+        const uint16_t* at16 = reinterpret_cast<const uint16_t*>(at);
         stage_mma(acc, tot, desc_sw128(Bh + st * BN * BK), desc_sw128(Bl + st * BN * BK),
                   [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
                     const int k = kk * 8 + t;
-                    split_tf32(sign * a_sw(at, rb, k), hi[0], lo[0]);
-                    split_tf32(sign * a_sw(at, rb + 8, k), hi[1], lo[1]);
-                    split_tf32(sign * a_sw(at, rb, k + 4), hi[2], lo[2]);
-                    split_tf32(sign * a_sw(at, rb + 8, k + 4), hi[3], lo[3]);
-                  });
+                    if (a16) {
+                      split_tf32(sign * a_sw16(at16, rb, k), hi[0], lo[0]);
+                      split_tf32(sign * a_sw16(at16, rb + 8, k), hi[1], lo[1]);
+                      split_tf32(sign * a_sw16(at16, rb, k + 4), hi[2], lo[2]);
+                      split_tf32(sign * a_sw16(at16, rb + 8, k + 4), hi[3], lo[3]);
+                    } else {
+                      split_tf32(sign * a_sw(at, rb, k), hi[0], lo[0]);
+                      split_tf32(sign * a_sw(at, rb + 8, k), hi[1], lo[1]);
+                      split_tf32(sign * a_sw(at, rb, k + 4), hi[2], lo[2]);
+                      split_tf32(sign * a_sw(at, rb + 8, k + 4), hi[3], lo[3]);
+                    }
+                  }, one);
         if (lane == 0) mbar_arrive(empty + st);
       }
     }
@@ -532,10 +578,11 @@ __global__ void __launch_bounds__(256) so2_prep_kernel(const __grid_constant__ P
 enum { A_ROWS = 0, A_GATHER = 1, A_ONES = 2 };
 
 struct TSeg {
-  const float* a;  // row e at a + row(e) * lda (A_GATHER: row(e) = eidx[e])
+  const float* a;  // row e at a + row(e) * lda (A_GATHER: row(e) = eidx[e]; bf16 where abf16)
   const float* b;  // row e at b + e * ldb
   int lda, ldb;
   float sign;
+  int abf16;  // A holds bf16 values
 };
 
 struct TNProb {
@@ -549,6 +596,7 @@ struct MWSeg {
   const float* a;
   int lda;
   float sign;
+  int abf16;
 };
 
 struct MWProb {
@@ -625,13 +673,25 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
         const int e = e0 + lane;
         const int arow = e < hi ? (P.gather ? eidx[e] : e) : -1;
         float* at = As + st * BK * APAD;
-        const bool m_ok = m0 + 4 * lane < P.m;  // lane: 16-byte chunk of each row
+        const bool m_ok = m0 + 4 * lane < P.m;  // lane: chunk of four values of each row
+        if (S.abf16) {  // 8-byte chunks into a bf16 [BK][APAD] tile
+          const uint16_t* a16 = reinterpret_cast<const uint16_t*>(S.a);
+          uint16_t* at16 = reinterpret_cast<uint16_t*>(at);
 #pragma unroll 4
-        for (int r = 0; r < BK; ++r) {
-          const int row = __shfl_sync(0xffffffffu, arow, r);
-          const bool ok = row >= 0 && m_ok;
-          const float* src = ok ? S.a + (long long)row * S.lda + m0 + 4 * lane : S.a;
-          cp_async16(at + r * APAD + 4 * lane, src, ok ? 16 : 0);
+          for (int r = 0; r < BK; ++r) {
+            const int row = __shfl_sync(0xffffffffu, arow, r);
+            const bool ok = row >= 0 && m_ok;
+            const uint16_t* src = ok ? a16 + (long long)row * S.lda + m0 + 4 * lane : a16;
+            cp_async8(at16 + r * APAD + 4 * lane, src, ok ? 8 : 0);
+          }
+        } else {
+#pragma unroll 4
+          for (int r = 0; r < BK; ++r) {
+            const int row = __shfl_sync(0xffffffffu, arow, r);
+            const bool ok = row >= 0 && m_ok;
+            const float* src = ok ? S.a + (long long)row * S.lda + m0 + 4 * lane : S.a;
+            cp_async16(at + r * APAD + 4 * lane, src, ok ? 16 : 0);
+          }
         }
         cp_async_arrive(full + st);
       }
@@ -674,6 +734,7 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
   int it = 0;
   for (int s = 0; s < P.nseg; ++s) {
     const float sign = P.seg[s].sign;
+    const bool a16 = P.seg[s].abf16;
     for (int q = 0; q < nk; ++q, ++it) {
       const int st = it % WSTAGES, ph = (it / WSTAGES) & 1;
       mbar_wait(full + st, ph);
@@ -683,11 +744,20 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
       const float* th = Bt + st * 2 * BN * BK;
       stage_mma(acc, tot, desc_sw128(th), desc_sw128(th + BN * BK),
                 [&](int kk, uint32_t (&fh)[4], uint32_t (&fl)[4]) {
-                  const float* p = at + (kk * 8 + t) * APAD + rb;
-                  split_tf32(sign * p[0], fh[0], fl[0]);
-                  split_tf32(sign * p[8], fh[1], fl[1]);
-                  split_tf32(sign * p[4 * APAD], fh[2], fl[2]);
-                  split_tf32(sign * p[4 * APAD + 8], fh[3], fl[3]);
+                  if (a16) {
+                    const uint16_t* p =
+                        reinterpret_cast<const uint16_t*>(at) + (kk * 8 + t) * APAD + rb;
+                    split_tf32(sign * bf16_bits(p[0]), fh[0], fl[0]);
+                    split_tf32(sign * bf16_bits(p[8]), fh[1], fl[1]);
+                    split_tf32(sign * bf16_bits(p[4 * APAD]), fh[2], fl[2]);
+                    split_tf32(sign * bf16_bits(p[4 * APAD + 8]), fh[3], fl[3]);
+                  } else {
+                    const float* p = at + (kk * 8 + t) * APAD + rb;
+                    split_tf32(sign * p[0], fh[0], fl[0]);
+                    split_tf32(sign * p[8], fh[1], fl[1]);
+                    split_tf32(sign * p[4 * APAD], fh[2], fl[2]);
+                    split_tf32(sign * p[4 * APAD + 8], fh[3], fl[3]);
+                  }
                 });
       if (lane == 0) mbar_arrive(empty + st);
     }
@@ -1045,6 +1115,7 @@ bool make_map(CUtensorMap* m, const void* base, int rank, const cuuint64_t* dims
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
 
 // what every launch of the engine shares: the row list and the scratch
 struct Engine {
@@ -1059,7 +1130,7 @@ struct Engine {
 
 Seg seg(const float* a, int lda, const float* b, int ldb, int k, bool btrans = false,
         float sign = 1.f) {
-  return Seg{a, b, lda, ldb, k, btrans ? 1 : 0, sign};
+  return Seg{a, b, lda, ldb, k, btrans ? 1 : 0, sign, 0, 0};
 }
 
 NNProb prob(std::initializer_list<Seg> segs, int n, int epi, float* c, int ldc,
@@ -1117,7 +1188,9 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
       if (P.n % 4 || P.ldc % 4 || P.ldc2 % 4 || P.ldg % 4) return cudaErrorInvalidValue;
       for (int s = 0; s < src.nseg; ++s) {
         const Seg& S = src.seg[s];
-        if (S.k % 4 || S.lda % 4 || !aligned16(S.a)) return cudaErrorInvalidValue;
+        // bf16 A: gathered rows only, 8-byte aligned (the gather's chunks)
+        if (S.k % 4 || S.lda % 4 || (S.abf16 ? !P.gather || !aligned8(S.a) : !aligned16(S.a)))
+          return cudaErrorInvalidValue;
         // one prep job per distinct (b, ldb, btrans, K, N)
         float* dst = nullptr;
         for (int j = 0; j < pb.nj; ++j) {
@@ -1138,6 +1211,8 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
         M.lda = S.lda;
         M.k = S.k;
         M.sign = S.sign;
+        M.abf16 = S.abf16;
+        M.one = S.one;
         const cuuint64_t bd[3] = {(cuuint64_t)S.k, (cuuint64_t)P.n, 2};
         const cuuint64_t bs[2] = {(cuuint64_t)S.k * 4, (cuuint64_t)S.k * P.n * 4};
         const cuuint32_t bb[3] = {BK, BN, 1};
@@ -1273,11 +1348,13 @@ cudaError_t launch_wgrads(const Engine& en, const std::vector<TNProb>& probs, cu
       if (src.n % 4 || src.m % 4 || src.ldo % 2) return cudaErrorInvalidValue;
       for (int s = 0; s < src.nseg; ++s) {
         const TSeg& S = src.seg[s];
-        if (S.lda % 4 || S.ldb % 4 || !aligned16(S.a) || !aligned16(S.b))
+        if (S.lda % 4 || S.ldb % 4 || !(S.abf16 ? aligned8(S.a) : aligned16(S.a)) ||
+            !aligned16(S.b))
           return cudaErrorInvalidValue;
         P.seg[s].a = S.a;
         P.seg[s].lda = S.lda;
         P.seg[s].sign = S.sign;
+        P.seg[s].abf16 = S.abf16;
         const cuuint64_t d[2] = {(cuuint64_t)src.n, (cuuint64_t)en.max_rows};
         const cuuint64_t sb[1] = {(cuuint64_t)S.ldb * 4};
         const cuuint32_t bx[2] = {BN, BK};

@@ -25,21 +25,104 @@ ModelOutput = Dict[str, torch.Tensor]
 _LOG2 = math.log(2.0)
 
 
+class _Logistic(torch.autograd.Function):
+    """The logistic σ(x) in a low-precision dtype as XLA evaluates
+    jax.nn.sigmoid there: 1 / (1 + exp(-x)) one op at a time, each rounding;
+    its derivative JAX's rule, t · (σ · (1 - σ)), each op rounding, in
+    reverse and forward mode. It reads the output σ, so both derivatives are
+    differentiable again (the forces' double backward, the surrogate's
+    reverse pass over its tangents)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        ctx.save_for_forward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+    @staticmethod
+    def jvp(ctx, t):
+        (s,) = ctx.saved_tensors
+        return t * (s * (1 - s))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu, x · σ(x). In float32 F.silu; in bf16 the product of x and
+    `_Logistic` (XLA's evaluation there, each op rounding to bf16)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * _Logistic.apply(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=False), the exact erf form. In float32
+    F.gelu; in bf16 0.5 · x · erfc(-x · √½) one op at a time, each rounding
+    to bf16 (√½ itself a bf16 constant), as JAX writes it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    sqrt_half = float(torch.tensor(math.sqrt(0.5)).to(x.dtype))
+    return 0.5 * x * torch.erfc(-x * sqrt_half)
+
+
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     """softplus(x) - log(2): zero at x=0 (SchNet's activation)."""
     return F.softplus(x) - _LOG2
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str, family: str, ported=("float32", "bfloat16")) -> torch.dtype:
+    """The torch dtype of a model's `compute_dtype` setting; raises for one
+    the family does not take."""
+    if name not in COMPUTE_DTYPES or name not in ported:
+        raise NotImplementedError(
+            f"compute_dtype={name!r}: the port's {family} takes {', '.join(ported)}"
+            + ("" if "bfloat16" in ported else " (ROADMAP queue 1: bf16 compute)"))
+    return COMPUTE_DTYPES[name]
+
+
+class Linear(nn.Linear):
+    """nn.Linear run in `compute_dtype` as flax's ``Dense(dtype=...)`` runs:
+    the input, weight and bias cast to it and the output in it, the
+    parameters float32. None runs nn.Linear as it is."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def embed(table: nn.Embedding, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Embed(dtype=...)``: the looked-up rows cast to `dtype`."""
+    return table(idx).to(dtype)
+
+
 class MLP(nn.Module):
     """Linear stack with configurable activation; last layer linear.
-    Layer i corresponds to the flax MLP's ``Dense_i``."""
+    Layer i corresponds to the flax MLP's ``Dense_i``; `compute_dtype` as
+    the flax MLP's ``dtype``."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 activation: Callable = F.silu, bias: bool = True):
+                 activation: Callable = silu, bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims = [in_features, *features]
         self.layers = nn.ModuleList(
-            nn.Linear(dims[i], dims[i + 1], bias=bias) for i in range(len(features))
+            Linear(dims[i], dims[i + 1], bias=bias, compute_dtype=compute_dtype)
+            for i in range(len(features))
         )
         self.activation = activation
 

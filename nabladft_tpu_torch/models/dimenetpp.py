@@ -19,8 +19,11 @@ autograd differentiates again: training differentiates the forces.
 
 `gather_mode="onehot"` names the same computation (the JAX package's 0/1
 matmul form of the same gathers); `compact=False`, the dense layout (which
-keeps every edge tied at the K-th distance), and
-``compute_dtype="bfloat16"`` are not ported and raise. The JAX package's
+keeps every edge tied at the K-th distance), is not ported and raises.
+``compute_dtype="bfloat16"`` runs as the JAX model's: the bases computed in
+float32 and cast after their masks, the merged weights (rbf1·rbf2,
+sbf1·sbf2) cast after their product, every block in bf16, and the per-graph
+latent summed in float32 for the float32 head. The JAX package's
 ``remat`` / ``remat_basis`` (memory for recomputation) are not taken: a
 full-width train step keeps its activations on the card (PERF.md §5).
 Parameters are named as the flax tree (`models/convert.load_flax_params`).
@@ -37,7 +40,8 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    DenseParams, ModelOutput, init_linear_, lecun_normal_, register_model,
+    DenseParams, Linear, ModelOutput, compute_dtype_of, embed, init_linear_, lecun_normal_,
+    register_model, silu,
 )
 from nabladft_tpu_torch.ops import graph, so3
 from nabladft_tpu_torch.ops.radial import dimenet_bessel_rbf
@@ -46,37 +50,37 @@ from nabladft_tpu_torch.utils import resolve_device
 
 
 class ResidualLayer(nn.Module):
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, cdt: torch.dtype):
         super().__init__()
-        self.dense_0 = nn.Linear(hidden, hidden)
-        self.dense_1 = nn.Linear(hidden, hidden)
+        self.dense_0 = Linear(hidden, hidden, compute_dtype=cdt)
+        self.dense_1 = Linear(hidden, hidden, compute_dtype=cdt)
 
     def forward(self, x):
-        return x + F.silu(self.dense_1(F.silu(self.dense_0(x))))
+        return x + silu(self.dense_1(silu(self.dense_0(x))))
 
 
 class InteractionPPBlock(nn.Module):
     def __init__(self, hidden: int, int_emb_size: int, basis_emb_size: int,
                  num_before_skip: int, num_after_skip: int, num_spherical: int,
-                 num_radial: int, agg_norm: float):
+                 num_radial: int, agg_norm: float, cdt: torch.dtype = torch.float32):
         super().__init__()
-        self.hidden, self.agg_norm = hidden, agg_norm
+        self.hidden, self.agg_norm, self.cdt = hidden, agg_norm, cdt
         self.num_spherical, self.num_radial = num_spherical, num_radial
-        self.lin_ji = nn.Linear(hidden, hidden)
-        self.lin_kj = nn.Linear(hidden, hidden)
+        self.lin_ji = Linear(hidden, hidden, compute_dtype=cdt)
+        self.lin_kj = Linear(hidden, hidden, compute_dtype=cdt)
         self.rbf1 = nn.Linear(num_radial, basis_emb_size, bias=False)
         self.rbf2 = nn.Linear(basis_emb_size, hidden, bias=False)
-        self.down = nn.Linear(hidden, int_emb_size, bias=False)
+        self.down = Linear(hidden, int_emb_size, bias=False, compute_dtype=cdt)
         # the two spherical-basis Denses, raw [in, out] as the flax params
         self.sbf1_kernel = nn.Parameter(torch.empty(num_spherical * num_radial, basis_emb_size))
         self.sbf2_kernel = nn.Parameter(torch.empty(basis_emb_size, int_emb_size))
-        self.up = nn.Linear(int_emb_size, hidden, bias=False)
+        self.up = Linear(int_emb_size, hidden, bias=False, compute_dtype=cdt)
         self.num_before_skip, self.num_after_skip = num_before_skip, num_after_skip
         for k in range(num_before_skip):
-            setattr(self, f"before_skip_{k}", ResidualLayer(hidden))
-        self.skip = nn.Linear(hidden, hidden)
+            setattr(self, f"before_skip_{k}", ResidualLayer(hidden, cdt))
+        self.skip = Linear(hidden, hidden, compute_dtype=cdt)
         for k in range(num_after_skip):
-            setattr(self, f"after_skip_{k}", ResidualLayer(hidden))
+            setattr(self, f"after_skip_{k}", ResidualLayer(hidden, cdt))
         L1, R = num_spherical, num_radial
         # q[(lm)] = Σ_n qm[(lmn)] · w12[(ln)]: a gather of w12's rows and a
         # 0/1 projection onto (lm)
@@ -92,15 +96,16 @@ class InteractionPPBlock(nn.Module):
     def forward(self, m, rbf, feats, adj):
         """m [B,A,K,H]: the message of edge j→i at [b, i, n]; rbf likewise;
         feats: the block-independent pair features (DimeNetPP.forward)."""
-        L1, R = self.num_spherical, self.num_radial
-        x_ji = F.silu(self.lin_ji(m))
-        x_kj = F.silu(self.lin_kj(m))
-        x_kj = x_kj * (rbf @ (self.rbf1.weight.t() @ self.rbf2.weight.t()))
-        x_kj = F.silu(self.down(x_kj))
-        w12 = self.sbf1_kernel @ self.sbf2_kernel  # [(L)·R, E]
+        L1, R, cdt = self.num_spherical, self.num_radial, self.cdt
+        x_ji = silu(self.lin_ji(m))
+        x_kj = silu(self.lin_kj(m))
+        # the merged weights cast after their product
+        x_kj = x_kj * (rbf @ (self.rbf1.weight.t() @ self.rbf2.weight.t()).to(cdt))
+        x_kj = silu(self.down(x_kj))
+        w12 = (self.sbf1_kernel @ self.sbf2_kernel).to(cdt)  # [(L)·R, E]
         # Q[b,j,(lmn),e] = Σ_k G[b,j,k,(lmn)] x_kj[b,j,k,e], then gated by w12
         qm = torch.einsum("bjkq,bjke->bjqe", feats["G"], x_kj)
-        q = torch.einsum("bjqe,qp->bjpe", qm * w12[self.lmn_to_ln], self.proj)
+        q = torch.einsum("bjqe,qp->bjpe", qm * w12[self.lmn_to_ln], self.proj.to(cdt))
         # close the triplet over the dense j axis, then gather the K rows
         agg_d = torch.einsum("bijq,bjqe->bije", feats["Yc_dense"], q)
         idx = feats["idx"]
@@ -115,11 +120,11 @@ class InteractionPPBlock(nn.Module):
         agg = agg - torch.einsum("bijq,qe->bije", gated, w12) * xkj_t
         # the raw sum over ~K neighbours normalised by K (absorbed into `up`
         # by converted checkpoints)
-        x_kj = F.silu(self.up(agg / self.agg_norm))
+        x_kj = silu(self.up(agg / self.agg_norm))
         h = x_ji + x_kj
         for k in range(self.num_before_skip):
             h = getattr(self, f"before_skip_{k}")(h)
-        h = F.silu(self.skip(h)) + m
+        h = silu(self.skip(h)) + m
         for k in range(self.num_after_skip):
             h = getattr(self, f"after_skip_{k}")(h)
         return torch.where(adj[..., None], h, h.new_zeros(()))
@@ -127,27 +132,29 @@ class InteractionPPBlock(nn.Module):
 
 class OutputPPBlock(nn.Module):
     def __init__(self, hidden: int, out_emb_channels: int, out_channels: int,
-                 num_layers: int, num_radial: int, agg_norm: float):
+                 num_layers: int, num_radial: int, agg_norm: float,
+                 cdt: torch.dtype = torch.float32):
         super().__init__()
         self.agg_norm, self.num_layers = agg_norm, num_layers
-        self.lin_rbf = nn.Linear(num_radial, hidden, bias=False)
-        self.lin_up = nn.Linear(hidden, out_emb_channels, bias=False)
+        self.lin_rbf = Linear(num_radial, hidden, bias=False, compute_dtype=cdt)
+        self.lin_up = Linear(hidden, out_emb_channels, bias=False, compute_dtype=cdt)
         for k in range(num_layers):
-            setattr(self, f"lin_{k}", nn.Linear(out_emb_channels, out_emb_channels))
-        self.lin_out = nn.Linear(out_emb_channels, out_channels, bias=False)
+            setattr(self, f"lin_{k}", Linear(out_emb_channels, out_emb_channels,
+                                             compute_dtype=cdt))
+        self.lin_out = Linear(out_emb_channels, out_channels, bias=False, compute_dtype=cdt)
 
     def forward(self, m, rbf, adj):
         g = self.lin_rbf(rbf) * m
         x = torch.where(adj[..., None], g, g.new_zeros(())).sum(dim=2) / self.agg_norm
         x = self.lin_up(x)
         for k in range(self.num_layers):
-            x = F.silu(getattr(self, f"lin_{k}")(x))
+            x = silu(getattr(self, f"lin_{k}")(x))
         return self.lin_out(x)
 
 
 @register_model("dimenetpp")
 class DimeNetPP(nn.Module):
-    """DimeNet++ in float32; defaults follow the reference's
+    """DimeNet++ in float32 or bfloat16; defaults follow the reference's
     config/model/dimenetplusplus.yaml.
 
     Built on `device` (the card unless the caller names another) with
@@ -185,9 +192,7 @@ class DimeNetPP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported (ROADMAP queue 1: bf16 compute)")
+        self.cdt = cdt = compute_dtype_of(compute_dtype, "DimeNet++")
         if not compact:
             raise NotImplementedError(
                 "compact=False (the dense edge layout) is not ported; the port computes the "
@@ -208,11 +213,11 @@ class DimeNetPP(nn.Module):
         for b in range(num_blocks + 1):
             setattr(self, f"output_{b}", OutputPPBlock(
                 hidden, out_emb_channels, node_latent_dim, num_output_layers, num_radial,
-                k_norm))
+                k_norm, cdt))
         for b in range(num_blocks):
             setattr(self, f"interaction_{b}", InteractionPPBlock(
                 hidden, int_emb_size, basis_emb_size, num_before_skip, num_after_skip,
-                num_spherical, num_radial, k_norm))
+                num_spherical, num_radial, k_norm, cdt))
         self.dense_0 = nn.Linear(node_latent_dim, node_latent_dim)
         self.dense_1 = nn.Linear(node_latent_dim, node_latent_dim // 2)
         self.dense_2 = nn.Linear(node_latent_dim // 2, node_latent_dim // 2)
@@ -247,8 +252,10 @@ class DimeNetPP(nn.Module):
                 getattr(self, f"output_{b}").lin_out.weight.zero_()
 
     def _features(self, batch: MolBatch):
-        """The block-independent edge tensors: (adj, rbf, feats, idx)."""
-        L1, R = self.num_spherical, self.num_radial
+        """The block-independent edge tensors: (adj, rbf, feats, idx), each
+        basis computed in float32 and cast to the compute dtype after its
+        mask."""
+        L1, R, cdt = self.num_spherical, self.num_radial, self.cdt
         a_ax = batch.pos.shape[1]
         k_ax = min(self.max_neighbors, a_ax)
         dgd = graph.dense_graph(batch.pos, batch.node_mask, self.cutoff)
@@ -267,41 +274,47 @@ class DimeNetPP(nn.Module):
 
         rbf = dimenet_bessel_rbf(nl.dist, R, self.cutoff, self.envelope_exponent,
                                  freqs=self.rbf_freq)
-        rbf = torch.where(adj[..., None], rbf, zero)
+        rbf = torch.where(adj[..., None], rbf, zero).to(cdt)
         # addition-theorem pair features: sbf_ln(d_jk, θ_ijk) =
         # (-1)^l √(4π/(2l+1)) Σ_m Y_lm(û_ij) R̃_ln(d_jk) Y_lm(û_jk)
-        y = torch.where(adj[..., None], so3.real_sph_harm(nl.unit, L1 - 1, normalized=True), zero)
-        yc = y * self.c_lm
+        y = torch.where(adj[..., None], so3.real_sph_harm(nl.unit, L1 - 1, normalized=True),
+                        zero).to(cdt)
+        yc = y * self.c_lm.to(cdt)
         rad = dimenet_radial_part(nl.dist, L1, R, self.cutoff, self.envelope_exponent)
-        rad = torch.where(adj[..., None], rad, zero)  # [B,A,K,(L)·R]
+        rad = torch.where(adj[..., None], rad, zero).to(cdt)  # [B,A,K,(L)·R]
         g = torch.cat([(y[..., l * l:(l + 1) * (l + 1), None]
                         * rad[..., None, l * R:(l + 1) * R]).reshape(*adj.shape, (2 * l + 1) * R)
                        for l in range(L1)], dim=-1)
         # the reverse edge's basis: the same distance, Y with the parity sign
-        yt = y * self.parity
-        s = torch.stack([(yc[..., l * l:(l + 1) * (l + 1)] * yt[..., l * l:(l + 1) * (l + 1)])
-                         .sum(-1) for l in range(L1)], dim=-1)
+        yt = y * self.parity.to(cdt)
+        # Σ_m as JAX's einsum (a dot): exact products, a float32 sum, one rounding
+        s = torch.stack([(yc[..., l * l:(l + 1) * (l + 1)].float()
+                          * yt[..., l * l:(l + 1) * (l + 1)].float()).sum(-1).to(cdt)
+                         for l in range(L1)], dim=-1)
         y_d = so3.real_sph_harm(unit_d, L1 - 1, normalized=True)
-        y_d = torch.where(dgd.adj[..., None], y_d, zero)
-        feats = {"G": g, "Rt": rad, "S": s, "Yc_dense": y_d * self.c_lm, "idx": idx,
+        y_d = torch.where(dgd.adj[..., None], y_d, zero).to(cdt)
+        feats = {"G": g, "Rt": rad, "S": s, "Yc_dense": y_d * self.c_lm.to(cdt), "idx": idx,
                  "rev_flat": rev_flat, "rev_valid": rev_valid}
         return adj, rbf, feats, idx
 
     def forward(self, batch: MolBatch) -> ModelOutput:
         adj, rbf, feats, idx = self._features(batch)
-        x = self.atom_embedding(batch.z.long())
-        rbf_emb = F.silu(rbf @ self.rbf_embed.kernel + self.rbf_embed.bias)
+        cdt = self.cdt
+        x = embed(self.atom_embedding, batch.z.long(), cdt)
+        rbf_emb = silu(rbf @ self.rbf_embed.kernel.to(cdt) + self.rbf_embed.bias.to(cdt))
         xi = x[:, :, None].expand(*adj.shape, x.shape[-1])
         xj = graph.gather_nodes(x, idx)  # [B,A,K,H]
-        m = F.silu(torch.cat([xi, xj, rbf_emb], dim=-1) @ self.edge_embed.kernel
-                   + self.edge_embed.bias)
+        m = silu(torch.cat([xi, xj, rbf_emb], dim=-1) @ self.edge_embed.kernel.to(cdt)
+                 + self.edge_embed.bias.to(cdt))
         m = torch.where(adj[..., None], m, m.new_zeros(()))
         p = self.output_0(m, rbf, adj)
         for b in range(self.num_blocks):
             m = getattr(self, f"interaction_{b}")(m, rbf, feats, adj)
             p = p + getattr(self, f"output_{b + 1}")(m, rbf, adj)
-        # the per-graph latent over a fixed atom count, then the swish head
-        latent = torch.where(batch.node_mask[..., None], p, p.new_zeros(())).sum(1)
+        # the per-graph latent (accumulated in float32, rounded to the compute
+        # dtype, as the JAX sum) over a fixed atom count, then the swish head
+        # in float32
+        latent = torch.where(batch.node_mask[..., None], p, p.new_zeros(())).sum(1).float()
         h = F.silu(self.dense_0(latent / self.atom_norm))
         h = F.silu(self.dense_1(h))
         h = F.silu(self.dense_2(h))

@@ -58,7 +58,8 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    LayerNormParams, ModelOutput, init_linear_, lecun_normal_, register_model,
+    LayerNormParams, ModelOutput, compute_dtype_of, init_linear_, lecun_normal_,
+    register_model,
 )
 from nabladft_tpu_torch.ops import eqv2_attn, graph, so3
 from nabladft_tpu_torch.ops.escn_layer import _expand_matrix, _spans, grid_act, grid_mats
@@ -433,10 +434,7 @@ class EquiformerV2(nn.Module):
         super().__init__()
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: the port's EquiformerV2 runs float32 only "
-                "(ROADMAP queue 1: bf16 compute)")
+        compute_dtype_of(compute_dtype, "EquiformerV2", ported=("float32",))
         if not m_share_rad and use_pallas == "fused":
             raise ValueError("m_share_rad=False (the reference-compatible variant) has no fused "
                              "kernel, in the JAX package either: build it with use_pallas='off'")

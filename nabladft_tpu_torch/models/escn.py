@@ -36,7 +36,7 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    ModelOutput, init_linear_, lecun_normal_, register_model,
+    ModelOutput, compute_dtype_of, init_linear_, lecun_normal_, register_model,
 )
 from nabladft_tpu_torch.ops import escn_layer, graph, so3
 from nabladft_tpu_torch.ops.escn_layer import fibonacci_sphere, grid_mats, sh_on_points
@@ -142,10 +142,7 @@ class ESCN(nn.Module):
         super().__init__()
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: the port's eSCN runs float32 only "
-                "(ROADMAP queue 1)")
+        compute_dtype_of(compute_dtype, "eSCN", ported=("float32",))
         c = sphere_channels
         self.num_layers, self.l_max, self.m_max, self.c = num_layers, l_max, m_max, c
         self.cutoff, self.max_neighbors = cutoff, max_neighbors

@@ -42,7 +42,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
-from nabladft_tpu_torch.models.base import ModelOutput, lecun_normal_, register_model
+from nabladft_tpu_torch.models.base import (
+    ModelOutput, compute_dtype_of, lecun_normal_, register_model,
+)
 from nabladft_tpu_torch.ops import graph, so3
 from nabladft_tpu_torch.ops.radial import gaussian_rbf, polynomial_envelope
 from nabladft_tpu_torch.ops.spherical import legendre_polynomials
@@ -327,9 +329,7 @@ class GemNetOC(_Scaled):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__("", ["scale_cbf_basis"])
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported (ROADMAP queue 1: bf16 compute)")
+        compute_dtype_of(compute_dtype, "GemNet-OC", ported=("float32",))
         # emb_size_rbf / emb_size_sbf, cutoff_qint and max_neighbors_aeaint
         # are the reference's; the JAX package reads none of them (one
         # neighbour list serves every interaction graph)

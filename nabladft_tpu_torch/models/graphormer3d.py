@@ -18,6 +18,14 @@ and the force head's probabilities) with a rate above 0 draws a keep mask
 from `dropout_generator` (the trainer seeds one from its seed and the
 step), scaled by 1/(1-p); in ``eval()`` mode nothing is dropped.
 Parameters are named as the flax tree (`models/convert.load_flax_params`).
+
+``compute_dtype="bfloat16"`` runs as the JAX model's: the embeddings, the
+edge projection and the bias MLP, the encoder layers (LayerNorm computed in
+float32 and cast) and the force head's projections in bf16, with the JAX
+model's float32 islands: the attention logits and softmax, the additive bias
+(cast back to float32 where it joins the logits), the force features before
+their readout, `final_ln` on the widened residual stream, and the energy
+head. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -31,17 +39,24 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    LayerNormParams, ModelOutput, init_linear_, lecun_normal_, register_model,
+    LayerNormParams, Linear, ModelOutput, compute_dtype_of, embed, gelu, init_linear_,
+    lecun_normal_, register_model,
 )
 from nabladft_tpu_torch.utils import resolve_device
 
 def _layer_norm(p: LayerNormParams, x: torch.Tensor) -> torch.Tensor:
-    """flax LayerNorm, epsilon 1e-5."""
-    return F.layer_norm(x, (x.shape[-1],), p.scale, p.bias, 1e-5)
+    """flax LayerNorm, epsilon 1e-5: computed in float32, the output in x's
+    dtype (flax's ``LayerNorm(dtype=...)``)."""
+    return F.layer_norm(x.float(), (x.shape[-1],), p.scale, p.bias, 1e-5).to(x.dtype)
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+
+
+def _scale(q: torch.Tensor) -> torch.Tensor:
+    """The query scale d_head^-1/2 in q's dtype, as JAX rounds it."""
+    return q.new_tensor(q.shape[-1] ** -0.5)
 
 
 class GaussianEdgeLayer(nn.Module):
@@ -66,28 +81,30 @@ class EncoderLayer(nn.Module):
     """Pre-LN self-attention with an additive bias [B, H, A, A], then the FFN."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, heads: int, dropout: float,
-                 attention_dropout: float, activation_dropout: float, drop):
+                 attention_dropout: float, activation_dropout: float, drop,
+                 cdt: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
         self.rates = (dropout, attention_dropout, activation_dropout)
         self.layernorm_0 = LayerNormParams(embed_dim)
-        self.dense_0 = nn.Linear(embed_dim, 3 * embed_dim)
-        self.dense_1 = nn.Linear(embed_dim, embed_dim)
+        self.dense_0 = Linear(embed_dim, 3 * embed_dim, compute_dtype=cdt)
+        self.dense_1 = Linear(embed_dim, embed_dim, compute_dtype=cdt)
         self.layernorm_1 = LayerNormParams(embed_dim)
-        self.dense_2 = nn.Linear(embed_dim, ffn_dim)
-        self.dense_3 = nn.Linear(ffn_dim, embed_dim)
+        self.dense_2 = Linear(embed_dim, ffn_dim, compute_dtype=cdt)
+        self.dense_3 = Linear(ffn_dim, embed_dim, compute_dtype=cdt)
         self.drop = drop
 
     def forward(self, x, attn_bias):
         p_drop, p_attn, p_act = self.rates
         q, k, v = torch.chunk(self.dense_0(_layer_norm(self.layernorm_0, x)), 3, dim=-1)
         q, k, v = _heads(q, self.heads), _heads(k, self.heads), _heads(v, self.heads)
-        q = q * q.shape[-1] ** -0.5
-        probs = torch.softmax(torch.einsum("bihd,bjhd->bhij", q, k) + attn_bias, dim=-1)
-        probs = self.drop(probs, p_attn)
+        q = q * _scale(q)
+        # the logits and their softmax in float32, the probabilities in x's dtype
+        logits = torch.einsum("bihd,bjhd->bhij", q, k).float() + attn_bias
+        probs = self.drop(torch.softmax(logits, dim=-1).to(x.dtype), p_attn)
         attn = torch.einsum("bhij,bjhd->bihd", probs, v).reshape(x.shape)
         x = x + self.drop(self.dense_1(attn), p_drop)
-        h = self.drop(F.gelu(self.dense_2(_layer_norm(self.layernorm_1, x))), p_act)
+        h = self.drop(gelu(self.dense_2(_layer_norm(self.layernorm_1, x))), p_act)
         return x + self.drop(self.dense_3(h), p_drop)
 
 
@@ -95,30 +112,32 @@ class NodeForceHead(nn.Module):
     """Direct forces: attention probabilities × the Δpos unit vectors ×
     values, one linear readout per component (the reference's NodeTaskHead)."""
 
-    def __init__(self, embed_dim: int, heads: int, drop):
+    def __init__(self, embed_dim: int, heads: int, drop, cdt: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
         for i in range(3):
-            setattr(self, f"dense_{i}", nn.Linear(embed_dim, embed_dim))
+            setattr(self, f"dense_{i}", Linear(embed_dim, embed_dim, compute_dtype=cdt))
         for i in range(3, 6):
             setattr(self, f"dense_{i}", nn.Linear(embed_dim, 1))
         self.drop = drop
 
     def forward(self, x, attn_bias, unit):
         q, k, v = (_heads(getattr(self, f"dense_{i}")(x), self.heads) for i in range(3))
-        logits = torch.einsum("bihd,bjhd->bhij", q * q.shape[-1] ** -0.5, k) + attn_bias
-        probs = self.drop(torch.softmax(logits, dim=-1), 0.1)
-        # feat[b,i,c] = Σ_j probs[b,h,i,j] · unit[b,i,j,c] · v[b,j,h]
+        dt = q.dtype
+        logits = torch.einsum("bihd,bjhd->bhij", q * _scale(q), k).float() + attn_bias
+        probs = self.drop(torch.softmax(logits, dim=-1).to(dt), 0.1)
+        unit = unit.to(dt)
+        # feat[b,i,c] = Σ_j probs[b,h,i,j] · unit[b,i,j,c] · v[b,j,h], read out in float32
         out = []
         for c in range(3):
             feat = torch.einsum("bhij,bjhd->bihd", probs * unit[:, None, :, :, c], v)
-            out.append(getattr(self, f"dense_{3 + c}")(feat.reshape(x.shape)))
+            out.append(getattr(self, f"dense_{3 + c}")(feat.reshape(x.shape).float()))
         return torch.cat(out, dim=-1)  # [B,A,3]
 
 
 @register_model("graphormer3d")
 class Graphormer3D(nn.Module):
-    """Graphormer3D in float32; defaults are the reference's
+    """Graphormer3D in float32 or bfloat16; defaults are the reference's
     config/model/graphormer3d-small.yaml.
 
     Built on `device` (the card unless the caller names another) with
@@ -150,9 +169,7 @@ class Graphormer3D(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported (ROADMAP queue 1: bf16 compute)")
+        self.cdt = cdt = compute_dtype_of(compute_dtype, "Graphormer3D")
         self.blocks, self.embed_dim, self.atom_types = blocks, embed_dim, atom_types
         self.input_dropout = input_dropout
         self.energy_mean, self.energy_std = energy_mean, energy_std
@@ -161,17 +178,17 @@ class Graphormer3D(nn.Module):
         self.gbf = GaussianEdgeLayer(num_kernel, atom_types**2)
         self.tag_encoder = nn.Embedding(3, embed_dim)
         self.atom_encoder = nn.Embedding(atom_types, embed_dim)
-        self.edge_proj = nn.Linear(num_kernel, embed_dim)
-        self.bias_proj_0 = nn.Linear(num_kernel, num_kernel)
-        self.bias_proj_1 = nn.Linear(num_kernel, attention_heads)
+        self.edge_proj = Linear(num_kernel, embed_dim, compute_dtype=cdt)
+        self.bias_proj_0 = Linear(num_kernel, num_kernel, compute_dtype=cdt)
+        self.bias_proj_1 = Linear(num_kernel, attention_heads, compute_dtype=cdt)
         self.layers = nn.ModuleList(
             EncoderLayer(embed_dim, ffn_embed_dim, attention_heads, dropout, attention_dropout,
-                         activation_dropout, drop) for _ in range(layers))
+                         activation_dropout, drop, cdt) for _ in range(layers))
         self.final_ln = LayerNormParams(embed_dim)
         self.energy_proj_0 = nn.Linear(embed_dim, embed_dim)
         self.energy_proj_1 = nn.Linear(embed_dim, 1)
         self.energy_agg_factor = nn.Embedding(3, 1)
-        self.force_head = NodeForceHead(embed_dim, attention_heads, drop)
+        self.force_head = NodeForceHead(embed_dim, attention_heads, drop, cdt)
         self.reset_parameters(generator)
         self.to(resolve_device(device))
 
@@ -194,7 +211,8 @@ class Graphormer3D(nn.Module):
         if not self.training or rate == 0.0:
             return x
         keep = torch.rand(x.shape, generator=self.dropout_generator, device=x.device) >= rate
-        return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
+        # 1 - rate in x's dtype, as JAX rounds the weakly typed constant
+        return torch.where(keep, x / x.new_tensor(1.0 - rate), x.new_zeros(()))
 
     def forward(self, batch: MolBatch) -> ModelOutput:
         mask = batch.node_mask
@@ -206,14 +224,18 @@ class Graphormer3D(nn.Module):
         gbf = self.gbf(dist, z[:, :, None] * self.atom_types + z[:, None, :])  # [B,A,A,K]
         # edge features zeroed where the sender is padding
         edge_feat = torch.where(mask[:, None, :, None], gbf, gbf.new_zeros(()))
-        x = self.tag_encoder(tags) + self.atom_encoder(z) + self.edge_proj(edge_feat.sum(2))
+        cdt = self.cdt
+        x = (embed(self.tag_encoder, tags, cdt) + embed(self.atom_encoder, z, cdt)
+             + self.edge_proj(edge_feat.sum(2)))
         x = self.dropout(x, self.input_dropout)
-        bias = self.bias_proj_1(F.gelu(self.bias_proj_0(gbf))).permute(0, 3, 1, 2)
+        # the bias MLP in the compute dtype, the bias in float32 where it
+        # joins the float32 logits
+        bias = self.bias_proj_1(gelu(self.bias_proj_0(gbf))).permute(0, 3, 1, 2).float()
         bias = torch.where(mask[:, None, None, :], bias, bias.new_full((), -1e9))
         for _ in range(self.blocks):  # the blocks share the layers' weights
             for layer in self.layers:
                 x = layer(x, bias)
-        x = _layer_norm(self.final_ln, x)
+        x = _layer_norm(self.final_ln, x.float())
         e = F.gelu(self.energy_proj_0(self.dropout(x, 0.1)))
         e = self.energy_proj_1(e)[..., 0]
         agg = self.energy_agg_factor(tags)[..., 0]

@@ -17,6 +17,13 @@ The field keeps its JAX name so ``configs/*.yaml`` read unchanged.
 State: scalars s [B,A,F] and vectors v [B,A,3,F]; equivariance is kept by
 never applying bias or nonlinearity to the vector channel. Forces are
 -∂E/∂pos (see models/base.py `forward`).
+
+``compute_dtype="bfloat16"`` runs as the JAX model's: the parameters stay
+float32 and are cast where flax's ``dtype=`` casts them; the pair features
+are computed in float32 and cast after the mask (rbf_env, rbfp and rbf_env's
+tangent, unit_t, envf); the message and update run in bf16 (the kernels in
+their bf16 mode), with two float32 islands: vv_norm's sum and the energy
+head, on s widened.
 """
 
 from __future__ import annotations
@@ -29,21 +36,23 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    MLP, ModelOutput, dual_lanes, init_linear_, lecun_normal_, register_model,
-    shifted_softplus,
+    MLP, Linear, ModelOutput, compute_dtype_of, dual_lanes, embed, init_linear_, lecun_normal_,
+    register_model, shifted_softplus,
 )
 from nabladft_tpu_torch.ops import graph, radial
-from nabladft_tpu_torch.ops.painn_fused import painn_dual, painn_message, painn_message_reference
+from nabladft_tpu_torch.ops.painn_fused import painn_dual, painn_message, painn_message_dense
 from nabladft_tpu_torch.ops.segment import masked_sum
 from nabladft_tpu_torch.utils import resolve_device
 
 
 class PaiNNMessage(nn.Module):
-    def __init__(self, hidden: int, n_rbf: int, use_pallas: str = "off"):
+    def __init__(self, hidden: int, n_rbf: int, use_pallas: str = "off",
+                 cdt: torch.dtype = torch.float32):
         super().__init__()
         self.hidden = hidden
         self.use_pallas = use_pallas
-        self.mlp = MLP(hidden, [hidden, 3 * hidden])  # flax MLP_0
+        self.cdt = cdt
+        self.mlp = MLP(hidden, [hidden, 3 * hidden], compute_dtype=cdt)  # flax MLP_0
         # [R, 3F], the layout the kernels take (not a Linear weight)
         self.filter_kernel = nn.Parameter(torch.empty(n_rbf, 3 * hidden))
         self.filter_bias = nn.Parameter(torch.zeros(3 * hidden))
@@ -54,10 +63,10 @@ class PaiNNMessage(nn.Module):
         dual pass feats also holds rbf_env_t, rbf_env's tangent."""
         f = self.hidden
         phi = self.mlp(s)  # [B,A,3F]
-        w, b = self.filter_kernel, self.filter_bias
+        w, b = self.filter_kernel.to(self.cdt), self.filter_bias.to(self.cdt)
         v_flat = v.reshape(*v.shape[:2], 3 * f)  # [B,A,3,F] -> c-major flat
         if self.use_pallas == "off":
-            ds, dv_flat = painn_message_reference(feats["rbf_env"], phi, v_flat, feats["unit_t"], w)
+            ds, dv_flat = painn_message_dense(feats["rbf_env"], phi, v_flat, feats["unit_t"], w)
         elif feats.get("rbf_env_t") is not None:
             ds, dv_flat = _dual_message(feats, phi, v_flat, w)
         else:
@@ -101,19 +110,20 @@ def _dual_message(feats, phi, v_flat, w):
 
 
 class PaiNNUpdate(nn.Module):
-    def __init__(self, hidden: int, eps: float = 1e-8):
+    def __init__(self, hidden: int, eps: float = 1e-8, cdt: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
         # channel mixes of the vector features (no bias: equivariance)
-        self.dense_0 = nn.Linear(hidden, hidden, bias=False)  # flax Dense_0
-        self.dense_1 = nn.Linear(hidden, hidden, bias=False)  # flax Dense_1
-        self.mlp = MLP(2 * hidden, [hidden, 3 * hidden])  # flax MLP_0
+        self.dense_0 = Linear(hidden, hidden, bias=False, compute_dtype=cdt)  # flax Dense_0
+        self.dense_1 = Linear(hidden, hidden, bias=False, compute_dtype=cdt)  # flax Dense_1
+        self.mlp = MLP(2 * hidden, [hidden, 3 * hidden], compute_dtype=cdt)  # flax MLP_0
 
     def forward(self, s, v):
         u = self.dense_0(v)  # [B,A,3,F]
         vv = self.dense_1(v)
-        vv_norm = torch.sqrt((vv * vv).sum(dim=-2) + self.eps)
-        gates = self.mlp(torch.cat([s, vv_norm], dim=-1))
+        # the squared norm summed in float32 (an island of the bf16 mode)
+        vv_norm = torch.sqrt((vv * vv).float().sum(dim=-2) + self.eps)
+        gates = self.mlp(torch.cat([s, vv_norm.to(s.dtype)], dim=-1))
         a_vv, a_sv, a_ss = gates.chunk(3, dim=-1)
         dv = u * a_vv[:, :, None, :]
         dot = (u * vv).sum(dim=-2)  # [B,A,F]
@@ -124,10 +134,11 @@ class PaiNNUpdate(nn.Module):
 class PaiNNLayer(nn.Module):
     """One message+update interaction."""
 
-    def __init__(self, hidden: int, n_rbf: int, use_pallas: str = "off"):
+    def __init__(self, hidden: int, n_rbf: int, use_pallas: str = "off",
+                 cdt: torch.dtype = torch.float32):
         super().__init__()
-        self.message = PaiNNMessage(hidden, n_rbf, use_pallas)
-        self.update = PaiNNUpdate(hidden)
+        self.message = PaiNNMessage(hidden, n_rbf, use_pallas, cdt)
+        self.update = PaiNNUpdate(hidden, cdt=cdt)
 
     def forward(self, s, v, feats):
         ds, dv = self.message(s, v, feats)
@@ -138,7 +149,7 @@ class PaiNNLayer(nn.Module):
 
 @register_model("painn")
 class PaiNN(nn.Module):
-    """PaiNN on the molecular (non-periodic) path, float32.
+    """PaiNN on the molecular (non-periodic) path, in float32 or bfloat16.
 
     Built on `device` (the card unless the caller names another) with
     weights drawn from `generator` with flax's default initialisers
@@ -168,8 +179,7 @@ class PaiNN(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError("the PyTorch PaiNN runs in float32 only")
+        self.cdt = compute_dtype_of(compute_dtype, "PaiNN")
         if pbc:
             raise NotImplementedError("the periodic PaiNN path is not ported yet (ROADMAP)")
         if use_pallas not in ("off", "fused"):
@@ -183,7 +193,7 @@ class PaiNN(nn.Module):
         self.use_pallas = use_pallas
         self.atom_embedding = nn.Embedding(num_elements, hidden)
         self.layers = nn.ModuleList(
-            PaiNNLayer(hidden, n_rbf, use_pallas) for _ in range(n_interactions)
+            PaiNNLayer(hidden, n_rbf, use_pallas, self.cdt) for _ in range(n_interactions)
         )
         self.energy_head = MLP(hidden, [hidden // 2, 1], activation=shifted_softplus)
         self.reset_parameters(generator)
@@ -236,7 +246,9 @@ class PaiNN(nn.Module):
         With a dual `pos` (forward AD), every feature carries its tangent
         along pos's; in the fused mode rbf_env's tangent, rbfp ⊙ ṫdist, is
         built from the closed-form radial derivative and kept apart
-        (rbf_env_t) for kernel C."""
+        (rbf_env_t) for kernel C. Every feature but dist is cast to the
+        compute dtype last, after its mask (rbfp, rbf_env_t: the tangents of
+        that cast, taken in float32 and cast)."""
         dg = graph.dense_graph(batch.pos, batch.node_mask, self.cutoff)
         adj = graph.dense_topk_mask(dg.dist, dg.adj, self.max_neighbors)
         zero = torch.zeros_like(dg.dist)
@@ -244,33 +256,34 @@ class PaiNN(nn.Module):
         unit = dg.diff / torch.clamp(dg.dist, min=1e-10)[..., None]
         unit = torch.where(adj[..., None], unit, torch.zeros_like(unit))
         env = self._envelope(dist)
+        cdt = self.cdt
         feats = {
             "dist": dist,
-            "envf": torch.where(adj, env, zero),
-            "unit_t": unit.transpose(2, 3).contiguous(),  # [B,A,3,A]
+            "envf": torch.where(adj, env, zero).to(cdt),
+            "unit_t": unit.transpose(2, 3).contiguous().to(cdt),  # [B,A,3,A]
             "rbfp": None,
         }
         if self.use_pallas == "off":
-            feats["rbf_env"] = self._filter(dist, adj)
+            feats["rbf_env"] = self._filter(dist, adj).to(cdt)
             return feats
         # the kernel backward folds the basis chain rule into g_dist, so
         # the basis tensors themselves carry no autograd graph
         dist_p, dist_t = fwAD.unpack_dual(dist)
         with torch.no_grad():
-            feats["rbf_env"] = self._filter(dist_p, adj).contiguous()
+            feats["rbf_env"] = self._filter(dist_p, adj).to(cdt).contiguous()
             rbfp = self._filter_derivative(dist_p, adj)
         if dist_t is None:
-            feats["rbfp"] = rbfp.contiguous()
+            feats["rbfp"] = rbfp.to(cdt).contiguous()
         else:
-            feats["rbf_env_t"] = (rbfp * dist_t[..., None]).contiguous()
+            feats["rbf_env_t"] = (rbfp * dist_t[..., None]).to(cdt).contiguous()
         return feats
 
     def forward(self, batch: MolBatch) -> ModelOutput:
         feats = self.features(batch)
-        s = self.atom_embedding(batch.z.long())
+        s = embed(self.atom_embedding, batch.z.long(), self.cdt)
         v = torch.zeros((*s.shape[:2], 3, self.hidden), dtype=s.dtype, device=s.device)
         for layer in self.layers:
             s, v = layer(s, v, feats)
-        e_atom = self.energy_head(s)[..., 0]
+        e_atom = self.energy_head(s.float())[..., 0]  # the head in float32
         e_atom = e_atom * self.energy_std + self.energy_mean
         return {"energy": masked_sum(e_atom, batch.node_mask, dim=1)}

@@ -34,8 +34,8 @@ from torch import nn
 from nabladft_tpu_torch.data.atomref import atomrefs_for
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    MLP, ModelOutput, dual_lanes, init_linear_, lecun_normal_, register_model,
-    shifted_softplus,
+    MLP, ModelOutput, compute_dtype_of, dual_lanes, init_linear_, lecun_normal_,
+    register_model, shifted_softplus,
 )
 from nabladft_tpu_torch.ops import graph, radial
 from nabladft_tpu_torch.ops.schnet_fused import (
@@ -78,8 +78,7 @@ class SchNet(nn.Module):
     ):
         super().__init__()
         del remat
-        if compute_dtype != "float32":
-            raise NotImplementedError("the PyTorch SchNet runs in float32 only")
+        compute_dtype_of(compute_dtype, "SchNet", ported=("float32",))
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
         f, r = hidden, n_rbf

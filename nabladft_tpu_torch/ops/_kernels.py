@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -82,15 +82,21 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-def check_inputs(tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]) -> torch.device:
-    """A kernel wrapper's inputs: same device, float32, the expected
-    shapes, contiguous on the card. Raises ValueError; returns the device."""
-    dev = next(iter(tensors.values())).device
+def check_inputs(tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple],
+                 dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> torch.device:
+    """A kernel wrapper's inputs: same device, one dtype of `dtypes` for
+    all (a mix is refused), the expected shapes, contiguous on the card.
+    Raises ValueError; returns the device."""
+    first = next(iter(tensors.values()))
+    dev, dtype = first.device, first.dtype
+    if dtype not in dtypes:
+        raise ValueError(f"the inputs have dtype {dtype}; the kernels take one of {dtypes}")
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}; the kernels take float32")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, the others {dtype}: the kernels "
+                             "take one dtype for all inputs")
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
         if dev.type == "cuda" and not t.is_contiguous():

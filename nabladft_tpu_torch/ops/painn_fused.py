@@ -26,7 +26,19 @@ differentiated, as in the surrogate's parameter pass. Neither VJP is itself
 differentiable: a second derivative through them raises.
 
 Layouts: v and dv are component-major flat [B,A,3F]; unit_t is [B,A,3,A]
-(u_t[b,i,c,j] = unit(j→i)_c). All float32.
+(u_t[b,i,c,j] = unit(j→i)_c).
+
+Two dtypes, the JAX kernels' two modes: every input float32, or every
+input bfloat16 (the model's ``compute_dtype="bfloat16"``: w is then the
+bf16 cast of the filter kernel); a mix is refused. In bf16 the kernels read
+the pair and node tensors as bf16 and compute in float32, as the TPU kernels
+do: A and C return bf16, B and D compute float32 and return gphi, gv,
+g_unit_t and gw (D: gphi, gphid, gv, gvd, gw) rounded to bf16, g_dist in
+float32, as the JAX wrappers round them. The plain versions do the same on
+bf16 inputs (float32 arithmetic on the widened values, one rounding);
+`painn_message_dense` is the message in the inputs' own dtype, every op
+rounding to it, the model's ``use_pallas="off"`` path (JAX's
+`painn_message_reference`, whose wm is bf16 in bf16).
 
 Each kernel has its plain PyTorch version here with the same signature
 (`painn_message_reference`, `painn_message_bwd_reference`,
@@ -54,9 +66,15 @@ import torch
 from nabladft_tpu_torch.ops import _kernels
 
 # launches of each CUDA kernel wrapper since the last reset
-# ("painn_bwd_gw": kernel B calls that also ran its weight-gradient stage)
-LAUNCHES: Dict[str, int] = {"painn_fwd": 0, "painn_bwd": 0, "painn_bwd_gw": 0,
-                            "painn_dual_fwd": 0, "painn_dual_bwd": 0}
+# ("painn_bwd_gw": kernel B calls that also ran its weight-gradient stage);
+# the bf16 mode's launches under the same names with "_bf16" appended
+_KERNELS = ("painn_fwd", "painn_bwd", "painn_bwd_gw", "painn_dual_fwd", "painn_dual_bwd")
+LAUNCHES: Dict[str, int] = dict.fromkeys(_KERNELS + tuple(k + "_bf16" for k in _KERNELS), 0)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _count(name: str, dtype: torch.dtype, n: int = 1) -> None:
+    LAUNCHES[name if dtype == torch.float32 else name + "_bf16"] += n
 
 
 def reset_launches() -> None:
@@ -107,11 +125,29 @@ def flops_split(kind: str, r: int, f: int) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
-def painn_message_reference(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel A (premasked rbf, no bias).
+def _widened(fn, *tensors, **kw):
+    """fn on the float32 values of bf16 inputs (exact), for the plain
+    versions' bf16 mode; fp32 inputs go through as they are."""
+    if tensors[0].dtype == torch.float32:
+        return fn(*tensors, **kw)
+    return fn(*(t.float() for t in tensors), **kw)
 
-    Also the `use_pallas="off"` model path, differentiable by autograd.
-    """
+
+def _rounded(outs, dtype):
+    return tuple(None if t is None else t.to(dtype) for t in outs)
+
+
+def painn_message_reference(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel A (premasked rbf, no bias): float32
+    arithmetic, the outputs in the inputs' dtype (bf16 inputs: one rounding,
+    as kernel A)."""
+    return _rounded(_widened(painn_message_dense, rbf, phi, v, unit_t, w), rbf.dtype)
+
+
+def painn_message_dense(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The message in the inputs' dtype, each op rounding to it (wm too):
+    the `use_pallas="off"` model path, differentiable by autograd. In float32
+    it is kernel A's plain version."""
     f = w.shape[1] // 3
     wm = torch.einsum("bijr,rk->bijk", rbf, w)
     ds = (wm[..., :f] * phi[:, None, :, :f]).sum(dim=2)
@@ -130,8 +166,14 @@ def painn_message_bwd_reference(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw:
     """Plain PyTorch version of kernel B: the VJP of kernel A.
 
     Returns (g_dist [B,A,A], g_unit_t [B,A,3,A], gphi [B,A,3F], gv [B,A,3F],
-    gw [R,3F] or None), with g_dist = Σ_f gwm ⊙ (rbfp @ W).
+    gw [R,3F] or None), with g_dist = Σ_f gwm ⊙ (rbfp @ W). Float32
+    arithmetic; on bf16 inputs every output but g_dist rounded to bf16.
     """
+    out = _widened(_message_bwd, rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw=need_gw)
+    return (out[0],) + _rounded(out[1:], rbf.dtype)
+
+
+def _message_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     f = w.shape[1] // 3
     b_, a = phi.shape[0], phi.shape[1]
     wm = torch.einsum("bijr,rk->bijk", rbf, w)
@@ -170,8 +212,14 @@ def painn_dual_fwd_reference(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
     """Plain PyTorch version of kernel C: kernel A and its directional
     derivative along (rbfd, phid, vd, unitd_t), w held fixed.
 
-    Returns (ds [B,A,F], dv [B,A,3F], dsd [B,A,F], dvd [B,A,3F]).
+    Returns (ds [B,A,F], dv [B,A,3F], dsd [B,A,F], dvd [B,A,3F]): float32
+    arithmetic, the outputs in the inputs' dtype.
     """
+    return _rounded(_widened(_dual_fwd, rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w),
+                    rbf.dtype)
+
+
+def _dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
     f = w.shape[1] // 3
     b_, a = phi.shape[0], phi.shape[1]
     wm0, wm1, wm2 = _chunks(torch.einsum("bijr,rk->bijk", rbf, w), f)
@@ -199,8 +247,15 @@ def painn_dual_bwd_reference(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w,
     """Plain PyTorch version of kernel D: the VJP of kernel C for the node
     inputs and w (the pair-level inputs get none).
 
-    Returns (gphi, gphid, gv, gvd [B,A,3F], gw [R,3F] or None).
+    Returns (gphi, gphid, gv, gvd [B,A,3F], gw [R,3F] or None): float32
+    arithmetic, the outputs in the inputs' dtype.
     """
+    return _rounded(_widened(_dual_bwd, rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds,
+                             gdv, gdsd, gdvd, need_gw=need_gw), rbf.dtype)
+
+
+def _dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gdsd, gdvd,
+              need_gw: bool = True):
     f = w.shape[1] // 3
     b_, a = phi.shape[0], phi.shape[1]
     wm0, wm1, wm2 = _chunks(torch.einsum("bijr,rk->bijk", rbf, w), f)
@@ -443,7 +498,15 @@ def _lib() -> ctypes.CDLL:
     lib.painn_dual_fwd.restype = i
     lib.painn_dual_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
     lib.painn_dual_bwd.restype = i
+    for name in ("painn_fwd", "painn_bwd", "painn_dual_fwd", "painn_dual_bwd"):
+        bf = getattr(lib, name + "_bf16")
+        bf.argtypes, bf.restype = getattr(lib, name).argtypes, i
     return lib
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """The entry point of kernel `name` for inputs of `dtype`."""
+    return getattr(_lib(), name if dtype == torch.float32 else name + "_bf16")
 
 
 def _shapes(phi, w):
@@ -460,30 +523,34 @@ def painn_fwd(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = _kernels.check_inputs(
         dict(rbf=rbf, phi=phi, v=v, unit_t=unit_t, w=w),
         dict(rbf=(b, a, a, r), phi=(b, a, 3 * f), v=(b, a, 3 * f),
-             unit_t=(b, a, 3, a), w=(r, 3 * f)),
+             unit_t=(b, a, 3, a), w=(r, 3 * f)), DTYPES,
     )
     if dev.type == "cpu":
         return painn_message_reference(rbf, phi, v, unit_t, w)
+    dt = rbf.dtype
     w_e, r4, ld, (rbf_e,) = _engine_operands(w, rbf)
-    ds = torch.empty((b, a, f), dtype=torch.float32, device=dev)
-    dv = torch.empty((b, a, 3 * f), dtype=torch.float32, device=dev)
+    ds = torch.empty((b, a, f), dtype=dt, device=dev)
+    dv = torch.empty((b, a, 3 * f), dtype=dt, device=dev)
     scratch, iscratch = _fwd_buffers(dev, b, a, r4, ld, sets=1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().painn_fwd(
+        err = _entry("painn_fwd", dt)(
             rbf_e.data_ptr(), phi.data_ptr(), v.data_ptr(), unit_t.data_ptr(), w_e.data_ptr(),
             ds.data_ptr(), dv.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(),
             b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_fwd launch")
-    LAUNCHES["painn_fwd"] += 1
+    _count("painn_fwd", dt)
     return ds, dv
 
 
 def _engine_operands(w, *pairs):
     """(W, R, ld, pair tensors) as the kernels take them: R a multiple of 4
     and W's rows ld = 3F rounded up to 4 floats, zero padded (a copy only off
-    those multiples; painn-oc's R = 100, 3F = 384 need none)."""
+    those multiples; painn-oc's R = 100, 3F = 384 need none). W goes in
+    float32 (a bf16 W widened, exactly: a few hundred kB; the pair tensors
+    stay in their dtype)."""
+    w = w.float()
     r, f3 = w.shape
     r4, ld = -(-r // 4) * 4, -(-f3 // 4) * 4
     if r4 != r:
@@ -516,10 +583,11 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     dev = _kernels.check_inputs(
         dict(rbf=rbf, rbfp=rbfp, phi=phi, v=v, unit_t=unit_t, w=w, gds=gds, gdv=gdv),
         dict(rbf=(b, a, a, r), rbfp=(b, a, a, r), phi=(b, a, 3 * f), v=(b, a, 3 * f),
-             unit_t=(b, a, 3, a), w=(r, 3 * f), gds=(b, a, f), gdv=(b, a, 3 * f)),
+             unit_t=(b, a, 3, a), w=(r, 3 * f), gds=(b, a, f), gdv=(b, a, 3 * f)), DTYPES,
     )
     if dev.type == "cpu":
         return painn_message_bwd_reference(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw)
+    dt = rbf.dtype
     w_e, r4, ld, (rbf_e, rbfp_e) = _engine_operands(w, rbf, rbfp)
     # the dead pairs' slots keep these zeros
     g_dist = torch.zeros((b, a, a), dtype=torch.float32, device=dev)
@@ -528,7 +596,7 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     gw, scratch, iscratch = _bwd_buffers(dev, b, a, r4, ld, need_gw)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().painn_bwd(
+        err = _entry("painn_bwd", dt)(
             rbf_e.data_ptr(), rbfp_e.data_ptr(), phi.data_ptr(), v.data_ptr(),
             unit_t.data_ptr(), w_e.data_ptr(), gds.data_ptr(), gdv.data_ptr(),
             g_dist.data_ptr(), g_ut.data_ptr(), gphi.data_ptr(), gv.data_ptr(),
@@ -536,11 +604,11 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
             int(need_gw), b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_bwd launch")
-    LAUNCHES["painn_bwd"] += 1
-    LAUNCHES["painn_bwd_gw"] += int(need_gw)
+    _count("painn_bwd", dt)
+    _count("painn_bwd_gw", dt, int(need_gw))
     if gw is not None and gw.shape != (r, 3 * f):
         gw = gw[:r, :3 * f].contiguous()
-    return g_dist, g_ut, gphi, gv, gw
+    return (g_dist,) + _rounded((g_ut, gphi, gv, gw), dt)
 
 
 def _dual_shapes(b, a, r, f):
@@ -555,22 +623,23 @@ def painn_dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
     b, a, r, f = _shapes(phi, w)
     args = dict(rbf=rbf, rbfd=rbfd, phi=phi, phid=phid, v=v, vd=vd, unit_t=unit_t,
                 unitd_t=unitd_t, w=w)
-    dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f))
+    dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f), DTYPES)
     if dev.type == "cpu":
         return painn_dual_fwd_reference(*args.values())
+    dt = rbf.dtype
     args["w"], r4, ld, (args["rbf"], args["rbfd"]) = _engine_operands(w, rbf, rbfd)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    empty = lambda *shape: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
     ds, dv, dsd, dvd = empty(b, a, f), empty(b, a, 3 * f), empty(b, a, f), empty(b, a, 3 * f)
     scratch, iscratch = _fwd_buffers(dev, b, a, r4, ld, sets=2)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().painn_dual_fwd(
+        err = _entry("painn_dual_fwd", dt)(
             *(t.data_ptr() for t in args.values()),
             ds.data_ptr(), dv.data_ptr(), dsd.data_ptr(), dvd.data_ptr(), scratch.data_ptr(),
             iscratch.data_ptr(), b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_dual_fwd launch")
-    LAUNCHES["painn_dual_fwd"] += 1
+    _count("painn_dual_fwd", dt)
     return ds, dv, dsd, dvd
 
 
@@ -580,26 +649,27 @@ def painn_dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gd
     b, a, r, f = _shapes(phi, w)
     args = dict(rbf=rbf, rbfd=rbfd, phi=phi, phid=phid, v=v, vd=vd, unit_t=unit_t,
                 unitd_t=unitd_t, w=w, gds=gds, gdv=gdv, gdsd=gdsd, gdvd=gdvd)
-    dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f))
+    dev = _kernels.check_inputs(args, _dual_shapes(b, a, r, f), DTYPES)
     if dev.type == "cpu":
         return painn_dual_bwd_reference(*args.values(), need_gw=need_gw)
+    dt = rbf.dtype
     args["w"], r4, ld, (args["rbf"], args["rbfd"]) = _engine_operands(w, rbf, rbfd)
     gphi, gphid, gv, gvd = (torch.empty((b, a, 3 * f), dtype=torch.float32, device=dev)
                             for _ in range(4))
     gw, scratch, iscratch = _bwd_buffers(dev, b, a, r4, ld, need_gw)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().painn_dual_bwd(
+        err = _entry("painn_dual_bwd", dt)(
             *(t.data_ptr() for t in args.values()),
             gphi.data_ptr(), gphid.data_ptr(), gv.data_ptr(), gvd.data_ptr(),
             0 if gw is None else gw.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(),
             int(need_gw), b, a, r4, f, ld, stream,
         )
     _kernels.raise_on_error(err, "painn_dual_bwd launch")
-    LAUNCHES["painn_dual_bwd"] += 1
+    _count("painn_dual_bwd", dt)
     if gw is not None and gw.shape != (r, 3 * f):
         gw = gw[:r, :3 * f].contiguous()
-    return gphi, gphid, gv, gvd, gw
+    return _rounded((gphi, gphid, gv, gvd, gw), dt)
 
 
 class PaiNNMessageFn(torch.autograd.Function):
@@ -672,11 +742,12 @@ def _live_pairs(*pair_tensors) -> int:
 def painn_fwd_flops_bytes(rbf: torch.Tensor, f: int) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel A needs on these inputs: FLOPs counted over the
     pairs whose rbf row is nonzero (masked pairs need no work), bytes with
-    each input read once and each output written once."""
+    each input read once and each output written once, in the inputs' dtype
+    (2 bytes a value in bf16; B's g_dist is float32 in both modes)."""
     b, a, _, r = rbf.shape
     live = _live_pairs(rbf)
     flops = pair_flops("fwd", r, f) * live
-    nbytes = 4 * (rbf.numel() + 2 * b * a * 3 * f + b * a * 3 * a + r * 3 * f
+    nbytes = rbf.element_size() * (rbf.numel() + 2 * b * a * 3 * f + b * a * 3 * a + r * 3 * f
                   + b * a * f + b * a * 3 * f)
     return flops, nbytes
 
@@ -690,10 +761,11 @@ def painn_bwd_flops_bytes(rbf: torch.Tensor, rbfp: torch.Tensor, f: int,
     flops = pair_flops("bwd", r, f) * live
     if need_gw:
         flops += pair_flops("bwd_gw", r, f) * live
-    nbytes = 4 * (2 * rbf.numel() + 2 * b * a * 3 * f + b * a * 3 * a + r * 3 * f
-                  + b * a * f + b * a * 3 * f                   # gds, gdv
-                  + b * a * a + b * a * 3 * a + 2 * b * a * 3 * f  # g_dist, g_unit_t, gphi, gv
-                  + (r * 3 * f if need_gw else 0))
+    nbytes = rbf.element_size() * (
+        2 * rbf.numel() + 2 * b * a * 3 * f + b * a * 3 * a + r * 3 * f
+        + b * a * f + b * a * 3 * f                   # gds, gdv
+        + b * a * 3 * a + 2 * b * a * 3 * f           # g_unit_t, gphi, gv
+        + (r * 3 * f if need_gw else 0)) + 4 * b * a * a  # g_dist
     return flops, nbytes
 
 
@@ -703,8 +775,9 @@ def painn_dual_fwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int) ->
     each output written once."""
     b, a, _, r = rbf.shape
     flops = pair_flops("dual_fwd", r, f) * _live_pairs(rbf, rbfd)
-    nbytes = 4 * (2 * rbf.numel() + 4 * b * a * 3 * f + 2 * b * a * 3 * a + r * 3 * f
-                  + 2 * (b * a * f + b * a * 3 * f))
+    nbytes = rbf.element_size() * (
+        2 * rbf.numel() + 4 * b * a * 3 * f + 2 * b * a * 3 * a + r * 3 * f
+        + 2 * (b * a * f + b * a * 3 * f))
     return flops, nbytes
 
 
@@ -717,10 +790,11 @@ def painn_dual_bwd_flops_bytes(rbf: torch.Tensor, rbfd: torch.Tensor, f: int,
     flops = pair_flops("dual_bwd", r, f) * live
     if need_gw:
         flops += pair_flops("dual_bwd_gw", r, f) * live
-    nbytes = 4 * (2 * rbf.numel() + 4 * b * a * 3 * f + 2 * b * a * 3 * a + r * 3 * f
-                  + 2 * (b * a * f + b * a * 3 * f)         # gds, gdv, gdsd, gdvd
-                  + 4 * b * a * 3 * f                       # gphi, gphid, gv, gvd
-                  + (r * 3 * f if need_gw else 0))
+    nbytes = rbf.element_size() * (
+        2 * rbf.numel() + 4 * b * a * 3 * f + 2 * b * a * 3 * a + r * 3 * f
+        + 2 * (b * a * f + b * a * 3 * f)  # gds, gdv, gdsd, gdvd
+        + 4 * b * a * 3 * f                # gphi, gphid, gv, gvd
+        + (r * 3 * f if need_gw else 0))
     return flops, nbytes
 
 

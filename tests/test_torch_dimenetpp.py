@@ -203,11 +203,20 @@ def test_the_full_tree_loads_with_no_leaf_left(params):
         load_flax_params(model, extra)
 
 
-def test_unported_layouts_raise():
+def test_unported_layouts_raise(params):
+    """compact=False still raises; compute_dtype="bfloat16" (ported) builds
+    and runs: finite float32 E and F, parameters kept in float32. A dtype
+    neither package has raises."""
     with pytest.raises(NotImplementedError, match="dense"):
         create_model("dimenetpp", device="cpu", compact=False)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        create_model("dimenetpp", device="cpu", compute_dtype="bfloat16")
+    model = load_flax_params(create_model("dimenetpp", device="cpu", compute_dtype="bfloat16",
+                                          **KW), params)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    out = forward(model, torch_batch(energy_batch()))
+    for key in ("energy", "forces"):
+        assert out[key].dtype == torch.float32 and bool(torch.isfinite(out[key]).all()), key
+    with pytest.raises(NotImplementedError, match="float16"):
+        create_model("dimenetpp", device="cpu", compute_dtype="float16")
 
 
 def test_a_neighbour_tie_keeps_the_lower_indices(params):

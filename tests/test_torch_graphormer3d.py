@@ -167,5 +167,14 @@ def test_dropout_rates_of_zero_equal_eval(ref, monkeypatch):
 
 
 def test_unported_compute_dtype_raises():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        create_model("graphormer3d", device="cpu", compute_dtype="bfloat16")
+    """compute_dtype="bfloat16" (ported) builds and runs in eval mode:
+    finite float32 E and F, parameters kept in float32; a dtype neither
+    package has raises."""
+    model = create_model("graphormer3d", device="cpu", compute_dtype="bfloat16", **KW).eval()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with torch.no_grad():
+        out = model(torch_batch(energy_batch()))
+    for key in ("energy", "forces"):
+        assert out[key].dtype == torch.float32 and bool(torch.isfinite(out[key]).all()), key
+    with pytest.raises(NotImplementedError, match="float16"):
+        create_model("graphormer3d", device="cpu", compute_dtype="float16")
