@@ -123,7 +123,8 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                batch rotated, against the plain module on the card, its first
                molecules against the CPU plain path, E and F within
                ESCN_OUT_RTOL x their largest magnitude; E invariant under the
-               rotation, F's equivariance error printed; molecules/s.
+               rotation, F's equivariance error printed; molecules/s
+               (ESCN_PASSES passes).
      escn_profile — torch.profiler over two predict steps.
      escn_train — `job_type: train` (TRAIN_EPOCHS epochs) then `test`: M 8
                per train step, validation and test batch, N 8 per train step;
@@ -160,6 +161,25 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                against the plain module's on the card and both against float64
                (printed); molecules/s, s/epoch, memory.
      eqv2_train_profile — torch.profiler over two train steps.
+     kernel_M_bf16 … kernel_P_bf16 — M-P in their bf16 mode (mxu_bf16:
+               each product's operands rounded to bf16, one TF32 pass; O/P's
+               gathered sender rows and P's per-edge sender cotangents rounded)
+               on the fp32 phases' inputs at every bucket, against their plain
+               versions in that mode (relative Frobenius error <=
+               BF16_SO2_FRO_REL and largest error <= BF16_SO2_MAX_REL x max per
+               output), twice for the same bits, the fp32 kernel's distance
+               printed; at A=HEADLINE_A the kernel, fp32-kernel and plain
+               times and the bounds (the products at the dense bf16 rate).
+     escn_bf16, eqv2_bf16 — after both families' fp32 phases, with
+               compute_dtype bfloat16 at full width and depth: one epoch of
+               `job_type: train`, then `test` and `predict` from its best
+               checkpoint, M-P's plain versions refused: the bf16 kernels
+               launched as the fp32 paths launch M-P, every other kernel never;
+               per bucket E within BF16_E_VS_F32 of the fp32 model on the same
+               weights, fused against plain bf16 (BF16_PATHS_TOL), E under a
+               rotation; profiles of two predict and two train steps with the
+               bf16 launches counted; mol/s, busy shares and peak memory beside
+               the fp32 phases'.
   8. phisnet_train — after qhnet_train, over its Hamiltonian DB:
                `job_type: train` on configs/phisnet.yaml at full width (order
                4, 128 features, 128 basis functions, 5 modules, cutoff 15
@@ -310,6 +330,9 @@ GRAPHORMER_KW = dict(blocks=4, layers=6, embed_dim=512, ffn_embed_dim=512, atten
 KB, KR, KF, HEADLINE_A = BATCH, 100, 128, 48
 SCHNET_RC = 5.0  # configs/model/schnet.yaml cutoff (Å)
 RUNS, WARMUP = 25, 3
+# the plain versions of I-P (hundreds of ms a call) are timed over PLAIN_RUNS
+# runs after one warm-up: they are the kernels' oracles, no yardstick of speed
+PLAIN_RUNS = 5
 PASSES = 7  # timed passes of the predict loop, after one warm-up pass
 # Kernel vs plain version, both fp32 on the card with sums in another
 # order: max |err| <= KERNEL_RTOL * max |plain| per output.
@@ -571,20 +594,21 @@ def peaks(name: str, tensor_cores: bool = False):
     raise RuntimeError(f"no published fp32 / memory peak recorded for {name!r}")
 
 
-def time_ms(fn) -> dict:
-    """CUDA-event times of `fn` (ms): median, min, max over RUNS after WARMUP."""
-    for _ in range(WARMUP):
+def time_ms(fn, runs: int = RUNS, warmup: int = WARMUP) -> dict:
+    """CUDA-event times of `fn` (ms): median, min, max over `runs` after
+    `warmup` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(RUNS)]
+          for _ in range(runs)]
     for start, end in ev:
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     t = sorted(s.elapsed_time(e) for s, e in ev)
-    return {"median": t[RUNS // 2], "min": t[0], "max": t[-1]}
+    return {"median": t[runs // 2], "min": t[0], "max": t[-1]}
 
 
 def compare(got, ref) -> dict:
@@ -649,12 +673,15 @@ def _kernel_row(shape, err, t_k, t_p, flops, nbytes, peak_flops, peak_bw, **extr
                 **extra)
 
 
-def tc_bound(work: dict, peak_flops: float, peak_bw: float, peak_tf32: float):
+def tc_bound(work: dict, peak_flops: float, peak_bw: float, peak_tf32: float,
+             peak_bf16: float = 0.0):
     """The least time of an SO(2) kernel's work (M-P) with its products on the
-    tensor cores at the fp32-accurate 3xTF32 rate and the rest at the fp32
+    tensor cores at the fp32-accurate 3xTF32 rate (in the bf16 mode, work
+    "products_dtype" bfloat16: the dense bf16 rate) and the rest at the fp32
     rate, or its bytes at the memory rate: (ms, "operations" or "bytes")."""
-    t_ops = (work["flops_live_products"] / (peak_tf32 / TC_PASSES)
-             + work["flops_live_other"] / peak_flops) * 1e3
+    bf16 = work.get("products_dtype") == "bfloat16"
+    rate = peak_bf16 if bf16 else peak_tf32 / TC_PASSES
+    t_ops = (work["flops_live_products"] / rate + work["flops_live_other"] / peak_flops) * 1e3
     t_bytes = work["bytes"] / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1667,7 +1694,7 @@ def qhnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
             del got, again
             torch.cuda.empty_cache()
             t_k = time_ms(lambda: fn(*args))
-            t_p = time_ms(lambda: ref(*args))
+            t_p = time_ms(lambda: ref(*args), PLAIN_RUNS, 1)
             live = qt.live_pairs(k, x["cgsh"] if k in "IJ" else x["maskf"])
             work = qt.flops_bytes(k, x["x"], x[table], x[f"hr_{tag}"], x[f"hs_{tag}"], live)
             row = _so2_row(shape, err, t_k, t_p, work, card, flops_all_pairs=work["flops"],
@@ -1925,7 +1952,7 @@ def escn_kernel_phases(dev, card: str, ptxas: dict) -> dict:
             del got
             torch.cuda.empty_cache()
             t_k = time_ms(lambda: fn(*args, **kw))
-            t_p = time_ms(plain)
+            t_p = time_ms(plain, PLAIN_RUNS, 1)
             work = el.flops_bytes(k, x["x"], x["d"], x["xe"], x["ws"], **dims)
             row = _so2_row(shape, err, t_k, t_p, work, card, flops_all_pairs=work["flops"],
                            **extra)
@@ -1979,9 +2006,9 @@ EQV2_OUT_RTOL, EQV2_GRAD_RTOL, EQV2_E_ROT = 1e-4, 1e-3, 2e-2
 # full-width attention calls on the host's cores), and in the gradient
 # check (the plain autograd in float64)
 EQV2_CPU_MOLS, EQV2_GRAD_MOLS = 1, 2
-# timed passes of EquiformerV2's predict loop after a warm-up pass (cut from
-# PASSES: a pass over the 256 molecules takes seconds)
-EQV2_PASSES = 3
+# timed passes of eSCN's and EquiformerV2's predict loops after a warm-up pass
+# (cut from PASSES: a pass over the 256 molecules takes one to three seconds)
+ESCN_PASSES, EQV2_PASSES = 3, 2
 
 
 def _eqv2_args(inp, **over):
@@ -2059,7 +2086,7 @@ def eqv2_kernel_phases(dev, card: str, ptxas: dict) -> dict:
         torch.cuda.empty_cache()
         t_k = time_ms(lambda: ea.eqv2_fwd(*args, **dims))
         t_p = time_ms(lambda: _plain_in_chunks(ea.eqv2_fwd_reference, args, 7, dims,
-                                               EQV2_PLAIN_MOLS))
+                                               EQV2_PLAIN_MOLS), PLAIN_RUNS, 1)
         work = ea.flops_bytes("O", inp["x"], inp["idx"], inp["d"], inp["xe"], inp["maskf"],
                               inp["dropk"], inp["ws"], **dims)
         row = _so2_row(shape, errs["mask"], t_k, t_p, work, card, flops_all_slots=work["flops"],
@@ -2086,7 +2113,7 @@ def eqv2_kernel_phases(dev, card: str, ptxas: dict) -> dict:
         torch.cuda.empty_cache()
         t_k = time_ms(lambda: ea.eqv2_bwd(*args, g=inp["g"], **dims))
         t_p = time_ms(lambda: _plain_in_chunks(ea.eqv2_bwd_reference, args, 7, bwd_kw,
-                                               EQV2_PLAIN_MOLS))
+                                               EQV2_PLAIN_MOLS), PLAIN_RUNS, 1)
         work = ea.flops_bytes("P", inp["x"], inp["idx"], inp["d"], inp["xe"], inp["maskf"],
                               inp["dropk"], inp["ws"], **dims)
         row = _so2_row(shape, err, t_k, t_p, work, card, flops_all_slots=work["flops"],
@@ -2111,7 +2138,8 @@ DIRECT = {
     "escn": dict(config="escn-oc", fwd="escn_fwd", bwd="escn_bwd",
                  calls=lambda kw: kw["num_layers"], plain_mols=ESCN_PLAIN_MOLS,
                  cpu_mols=ESCN_CPU_MOLS, grad_mols=ESCN_CPU_MOLS, out_rtol=ESCN_OUT_RTOL,
-                 grad_rtol=ESCN_GRAD_RTOL, e_rot=ESCN_OUT_RTOL, passes=PASSES, dropout=False),
+                 grad_rtol=ESCN_GRAD_RTOL, e_rot=ESCN_OUT_RTOL, passes=ESCN_PASSES,
+                 dropout=False),
     "eqv2": dict(config="equiformer_v2", fwd="eqv2_fwd", bwd="eqv2_bwd",
                  calls=lambda kw: kw["num_layers"] + 1, plain_mols=EQV2_PLAIN_MOLS,
                  cpu_mols=EQV2_CPU_MOLS, grad_mols=EQV2_GRAD_MOLS, out_rtol=EQV2_OUT_RTOL,
@@ -2254,7 +2282,10 @@ def direct_predict_phase(tmp: Path, db: Path, family: str) -> dict:
         if p:
             rates.append(n_pred / (time.perf_counter() - t0))
     rates.sort()
-    profile_phase(f"{family}_profile", gpu, dm)
+    busy = profile_phase(f"{family}_profile", gpu, dm)
+    READINGS[f"{family}_predict"] = dict(molecules_per_second=rates[len(rates) // 2],
+                                         device_busy_share=busy,
+                                         peak_device_memory_bytes=peak_mem)
     emit(f"{family}_predict", config=fam["config"], rows=res["rows"], batches=n_batches,
          batch_shapes=shapes, launches=launches, dropout_draws=draws,
          run_seconds=res["seconds"], checks=checks,
@@ -2373,7 +2404,9 @@ def direct_train_phase(tmp: Path, db: Path, family: str) -> dict:
 
     trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
     batches = list(itertools.islice(dm.train_dataloader(), 2))
-    profile_steps(f"{family}_train_profile", trainer._train_step, batches)
+    busy = profile_steps(f"{family}_train_profile", trainer._train_step, batches)
+    READINGS[f"{family}_train"] = dict(molecules_per_second=rates[len(rates) // 2],
+                                       device_busy_share=busy, peak_device_memory_bytes=peak_mem)
     # the masks come from the trainer's generator: its offset moves in a train
     # step and stays in validation
     gen = trainer._dropout_gen
@@ -3849,6 +3882,306 @@ def energy_bf16_phase(tmp: Path, db: Path, family: str) -> dict:
     return launches
 
 
+# M-P's bf16 mode (mxu_bf16) against their plain versions in that mode on the
+# same inputs on the card: both round the same products' operands to bf16 and
+# sum in fp32, in another order, which may flip a value's rounding by one bf16
+# ulp; a later rounding stage turns the flips' differences into more flips, so
+# a kernel of several stages (P: conv 2's transpose, conv 1's, the radial
+# product's, the rounded per-edge rows summed into gx) carries them far. Per
+# output, the relative Frobenius error <= BF16_SO2_FRO_REL and the largest
+# error <= BF16_SO2_MAX_REL x max |plain|. On the H100 (tools/so2_bf16_errors.py,
+# B=2 and 64 at A=32/48): the kernels' Frobenius errors 1.4e-5 to 1.1e-3 (P's
+# gx, gxe, w_rad), the two plain versions on the card and the CPU 1.3e-5 to
+# 5.9e-4 apart, the fp32 kernels 2.8e-3 to 1.2e-2 off (a rounding point missed
+# or added lands there); the largest errors <= 3.2e-3 (P's gx; the two plain
+# versions 6.5e-3 apart there).
+BF16_SO2_FRO_REL, BF16_SO2_MAX_REL = 2e-3, 2.0 ** -5
+# M-P's bf16 rows: (name, TPU kernel's module, JAX kernel body line, launch counter)
+SO2_BF16_KERNELS = {
+    "M": ("escn_fwd (M, bf16)", "escn_layer", 385, "escn_fwd_bf16"),
+    "N": ("escn_bwd (N, bf16)", "escn_layer", 398, "escn_bwd_bf16"),
+    "O": ("eqv2_fwd (O, bf16)", "eqv2_attn", 640, "eqv2_fwd_bf16"),
+    "P": ("eqv2_bwd (P, bf16)", "eqv2_attn", 741, "eqv2_bwd_bf16"),
+}
+
+
+def fro_rel(got, ref) -> float:
+    """The relative Frobenius error of got against ref."""
+    ref = ref.double()
+    return float((got.double() - ref).norm() / ref.norm().clamp_min(1e-30))
+# timed predict passes of the bf16 direct phases after a warm-up pass
+BF16_DIRECT_PASSES = 2
+
+
+def so2_bf16_kernel_phases(dev, card: str, ptxas: dict) -> dict:
+    """Kernels M, N, O and P in their bf16 mode at every bucket shape of the
+    eSCN and EquiformerV2 paths (B=BATCH, the fp32 kernel phases' inputs, O
+    and P with the seeded keep mask), each against its plain version in the
+    same mode (run ESCN_PLAIN_MOLS / EQV2_PLAIN_MOLS molecules at a time;
+    BF16_SO2_FRO_REL and BF16_SO2_MAX_REL, every cotangent of N and P), each
+    twice for the same bits; the fp32 kernel on the same inputs, its distance
+    from the plain bf16 version printed (the roundings' own size). At A=HEADLINE_A: kernel,
+    fp32-kernel and plain times and the bounds (`tc_bound` with the products
+    at the dense bf16 rate; the FMA bound all at the fp32 rate). Returns the
+    kernels line's rows."""
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+    from nabladft_tpu_torch.ops import escn_layer as el
+
+    as_tuple = (lambda t: t if isinstance(t, tuple) else (t,))
+    per = {k: [] for k in SO2_BF16_KERNELS}
+    for a in BUCKETS:
+        shape = [BATCH, a, ESCN_KW["sphere_channels"]]
+        x = escn_kernel_inputs(dev, BATCH, a, seed=SEED + 3000 + a)
+        inp = eqv2_kernel_inputs(dev, BATCH, a, seed=SEED + 4000 + a, drop=True)
+        e_args, o_args = (x["x"], x["d"], x["xe"], *x["ws"]), tuple(_eqv2_args(inp))
+        e_dims, o_dims = x["dims"], dict(inp["dims"], mxu_bf16=False)
+        specs = {  # kernel: (wrapper, plain version, args, per-molecule args, dims, cotangent,
+            #                  plain molecules per call, work)
+            "M": (el.escn_fwd, el.escn_fwd_reference, e_args, 3, e_dims, None, ESCN_PLAIN_MOLS,
+                  lambda kw: el.flops_bytes("M", x["x"], x["d"], x["xe"], x["ws"], **kw)),
+            "N": (el.escn_bwd, el.escn_bwd_reference, e_args, 3, e_dims, x["g"], ESCN_PLAIN_MOLS,
+                  lambda kw: el.flops_bytes("N", x["x"], x["d"], x["xe"], x["ws"], **kw)),
+            "O": (ea.eqv2_fwd, ea.eqv2_fwd_reference, o_args, 7, o_dims, None, EQV2_PLAIN_MOLS,
+                  lambda kw: ea.flops_bytes("O", inp["x"], inp["idx"], inp["d"], inp["xe"],
+                                            inp["maskf"], inp["dropk"], inp["ws"], **kw)),
+            "P": (ea.eqv2_bwd, ea.eqv2_bwd_reference, o_args, 7, o_dims, inp["g"],
+                  EQV2_PLAIN_MOLS,
+                  lambda kw: ea.flops_bytes("P", inp["x"], inp["idx"], inp["d"], inp["xe"],
+                                            inp["maskf"], inp["dropk"], inp["ws"], **kw)),
+        }
+        for k, (fn, ref, args, n_mol, dims, g, n_plain, work_of) in specs.items():
+            kw16, kw32 = dict(dims, mxu_bf16=True), dict(dims, mxu_bf16=False)
+            if g is not None:
+                kw16["g"] = kw32["g"] = g
+
+            def call(kw, fn=fn, args=args):
+                return as_tuple(fn(*args, **kw))
+
+            def plain(ref=ref, args=args, n_mol=n_mol, kw16=kw16, n_plain=n_plain):
+                return as_tuple(_plain_in_chunks(ref, args, n_mol, kw16, n_plain))
+
+            got, want = call(kw16), plain()
+            err = compare(got, want)
+            err["fro_rel_err"] = max(fro_rel(p_, q_) for p_, q_ in zip(got, want))
+            check(err["fro_rel_err"] <= BF16_SO2_FRO_REL and err["max_rel_err"] <= BF16_SO2_MAX_REL,
+                  f"kernel {k} bf16 error at {shape}: {err}")
+            check(all(torch.equal(p_, q_) for p_, q_ in zip(got, call(kw16))),
+                  f"kernel {k} bf16 gives the same bits on a rerun at {shape}")
+            got32 = call(kw32)
+            fp32_gap = {"max_rel_err": compare(got32, want)["max_rel_err"],
+                        "fro_rel_err": min(fro_rel(p_, q_) for p_, q_ in zip(got32, want))}
+            del got, got32, want
+            torch.cuda.empty_cache()
+            row = dict(shape=shape, **err, fp32_kernel_vs_plain_bf16=fp32_gap,
+                       bit_identical_rerun=True)
+            if a == HEADLINE_A:
+                t_k = time_ms(lambda: call(kw16))
+                t_32 = time_ms(lambda: call(kw32))
+                t_p = time_ms(plain, PLAIN_RUNS, 1)
+                work = work_of({q: v for q, v in kw16.items() if q != "g"})
+                peak_flops, peak_bw, peak_tf32 = peaks(card, tensor_cores=True)
+                peak_bf16 = next(v for q, v in BF16_PEAKS.items() if q in card)
+                b_ms, b_by = tc_bound(work, peak_flops, peak_bw, peak_tf32, peak_bf16)
+                b_fma, b_fma_by = bound(work["flops_live"], work["bytes"], peak_flops, peak_bw)
+                row.update(ms=t_k["median"], plain_ms=t_p["median"],
+                           fp32_kernel_ms=t_32["median"], bound_ms=b_ms, bound_by=b_by,
+                           roofline_share=b_ms / t_k["median"], bound_fma_ms=b_fma,
+                           bound_fma_by=b_fma_by, flops=work["flops_live"],
+                           flops_products=work["flops_live_products"],
+                           flops_other=work["flops_live_other"], bytes=work["bytes"],
+                           kernel_times=t_k, fp32_kernel_times=t_32, plain_times=t_p)
+            emit(f"kernel_{k}_bf16", **row,
+                 tolerance={"fro_rel": BF16_SO2_FRO_REL, "max_rel": BF16_SO2_MAX_REL},
+                 plain_molecules_per_call=n_plain)
+            per[k].append(row)
+        del x, inp, e_args, o_args, specs
+        torch.cuda.empty_cache()
+    keep = ("ms", "plain_ms", "fp32_kernel_ms", "bound_ms", "bound_by", "roofline_share",
+            "bound_fma_ms", "bound_fma_by", "flops", "flops_products", "flops_other", "bytes")
+    rows = {}
+    for k, (name, src, line, _) in SO2_BF16_KERNELS.items():
+        head = next(r for r in per[k] if r["shape"][1] == HEADLINE_A)
+        rows[f"{k}_bf16"] = dict(
+            name=name, route="cuda", dtype="bfloat16", source=f"nabladft_tpu_torch/csrc/{src}.cu",
+            replaces=f"nabladft_tpu/ops/pallas/{src}.py:{line}",
+            max_abs_err=max(r["max_abs_err"] for r in per[k]), library_ms=None,
+            timed_shape=head["shape"], **{f: head[f] for f in keep}, ptxas=ptxas.get(src, {}),
+            per_bucket=[{f: r[f] for f in ("shape", "max_abs_err", "max_rel_err", "fro_rel_err",
+                                            "fp32_kernel_vs_plain_bf16")}
+                        for r in per[k]])
+    return rows
+
+
+class NoPlainSO2:
+    """While entered, M-P's plain versions raise: a path that reached one
+    instead of a kernel fails."""
+
+    NAMES = ("escn_fwd_reference", "escn_bwd_reference", "eqv2_fwd_reference",
+             "eqv2_bwd_reference")
+
+    def __enter__(self):
+        from nabladft_tpu_torch.ops import eqv2_attn, escn_layer
+
+        self.saved = []
+        for name in self.NAMES:
+            mod = escn_layer if name.startswith("escn") else eqv2_attn
+            self.saved.append((mod, name, getattr(mod, name)))
+
+            def refuse(*args, _name=name, **kwargs):
+                raise RuntimeError(f"{_name}, a plain version, ran on the main path")
+
+            setattr(mod, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def direct_bf16_phase(tmp: Path, db: Path, family: str) -> dict:
+    """eSCN or EquiformerV2 with compute_dtype bf16 at full width and depth
+    over the seeded DB: one epoch of `job_type: train`, then `test` and
+    `predict` from its best checkpoint, M-P's plain versions refused
+    (`NoPlainSO2`): the bf16 forward kernel once per message / attention call
+    of each train step, validation, test and predict batch, the bf16 backward
+    once per call of each train step, every other kernel of A-P never;
+    dropout drawn on train steps only (EquiformerV2); finite metrics and
+    rows. Then, eval mode, on the best checkpoint's weights, per bucket: E
+    within BF16_E_VS_F32 of the fp32 model's, the fused bf16 model against
+    the plain bf16 one on the card (BF16_PATHS_TOL: the two round at the same
+    points, but each bf16 stage turns the other's sum-order differences into
+    flipped roundings, so EquiformerV2's grid FFNs and attentions carry them
+    to the bf16 noise level, that of the bf16-vs-fp32 gap) and E under a
+    rotation (the family's limit or BF16_ROT_TOL, the larger); profiles of
+    two predict and two train steps (the engine's kernels present, M-P's
+    bf16 launches counted); train and predict mol/s, busy shares and peak
+    memory beside the fp32 phases'."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.data.ase_codec import AseDatabase
+    from nabladft_tpu_torch.train import Trainer
+
+    fam = DIRECT[family]
+    fwd, bwd = (SO2_BF16_KERNELS[k][3] for k in (("M", "N") if family == "escn" else ("O", "P")))
+    ckpt, outputs = tmp / f"ckpt_{family}_bf16", tmp / f"outputs_{family}_bf16"
+    cfg = _bf16_cfg(train_config(str(db), str(tmp), str(ckpt), str(outputs),
+                                 config=fam["config"]))
+    cfg["trainer"] = dict(cfg["trainer"], max_epochs=1)
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+    n_layers = cfg["model"]["kwargs"]["num_layers"]
+    n_calls = fam["calls"](cfg["model"]["kwargs"])
+    pcfg = _bf16_cfg(smoke_config(str(db), str(tmp / f"predictions_{family}_bf16.db"), str(tmp),
+                                  config=fam["config"]))
+
+    # the main paths: counts reset just before each, read just after
+    with NoPlainSO2(), DropoutDraws() as draws:
+        res, test, launches, peak_train, _, best = _train_job(cfg, ckpt)
+        draws_train = dict(draws)
+        pcfg["ckpt_path"] = str(best)
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        pres = pipelines.run(pcfg)
+        torch.cuda.synchronize()
+        launches_p = all_launches()
+        peak_predict = torch.cuda.max_memory_allocated()
+    steps = res["step"]
+    check(steps == n_train, f"{family} bf16: one epoch, {steps} steps, expected {n_train}")
+    want = dict.fromkeys(launches, 0)
+    want.update({fwd: n_calls * (steps + n_val + n_test), bwd: n_calls * steps})
+    check(launches == want, f"{family} bf16 train/test launches {launches}, expected {want}")
+    want_p = dict.fromkeys(launches_p, 0)
+    want_p[fwd] = n_calls * pres["batches"]
+    check(launches_p == want_p, f"{family} bf16 predict launches {launches_p}, expected {want_p}")
+    want_draws = ({"alpha": n_calls * steps, "drop_path": 2 * n_layers * steps}
+                  if fam["dropout"] else {"alpha": 0, "drop_path": 0})
+    check(draws_train == draws == want_draws,
+          f"{family} bf16 dropout draws {draws_train} (train), {draws} (after predict)")
+    rows = read_csv(outputs / cfg["name"] / "metrics.csv")
+    step_rows = [r for r in rows if "train/total" in r]
+    check(len(step_rows) == steps and all(
+        np.isfinite(r["train/total"]) and r["skipped_nonfinite"] == 0.0 for r in step_rows),
+        f"{family} bf16 train rows")
+    for m in (res, test):
+        check(all(np.isfinite(v) for v in m.values()), f"finite metrics {m}")
+    check(pres["rows"] == N_MOLS, f"{family} bf16 predict rows {pres['rows']}")
+    for rec in AseDatabase(pcfg["output_db"]).select_all():
+        e, f = np.asarray(rec.data["energy_pred"]), np.asarray(rec.data["forces_pred"])
+        check(bool(np.isfinite(e).all() and np.isfinite(f).all()), "finite bf16 predictions")
+
+    dev = torch.device("cuda")
+    models = {}
+    for key, c in (("bf16", pcfg), ("plain", _plain_cfg(pcfg)), ("f32", _f32_cfg(pcfg))):
+        t = Trainer(pipelines.build_model(c, dev), dev)
+        t.load_checkpoint(best)
+        models[key] = t.model.eval()
+    check(models["bf16"].cdt == models["plain"].cdt == torch.bfloat16
+          and models["f32"].cdt == torch.float32 and models["bf16"].use_pallas == "fused"
+          and models["plain"].use_pallas == "off", "model modes")
+    first = _first_batches(dm.predict_dataloader(), dev)
+    checks = _bf16_vs_f32({"bf16": models["bf16"], "f32": models["f32"]}, first)
+    rot = torch.from_numpy(rotation()).to(dev)
+    e_rot_tol = max(fam["e_rot"], BF16_ROT_TOL["energy"])
+    for row, (a, batch) in zip(checks, sorted(first.items())):
+        out = _outputs(models["bf16"], batch)
+        out_p = _forward_in_chunks(models["plain"], batch, fam["plain_mols"])
+        out_r = _outputs(models["bf16"], batch.replace(pos=batch.pos @ rot.T))
+        for k in ("energy", "forces"):
+            row[f"{k}_rel_err_vs_plain_bf16"] = _rel_err(out, out_p, k)
+            check(row[f"{k}_rel_err_vs_plain_bf16"] <= BF16_PATHS_TOL[k],
+                  f"{family} fused vs plain bf16 {k} at A={a}: {row}")
+        row["energy_rel_err_rotation"] = _rel_err(out_r, out, "energy")
+        row["forces_rel_err_rotation"] = _rel_err(out_r, {"forces": out["forces"] @ rot.T},
+                                                  "forces")
+        check(row["energy_rel_err_rotation"] <= e_rot_tol, f"{family} bf16 rotation: {row}")
+        del out, out_p, out_r
+    del models
+    torch.cuda.empty_cache()
+
+    gpu = Trainer(pipelines.build_model(pcfg, dev).eval(), dev)
+    gpu.load_checkpoint(best)
+    rates = []
+    for p in range(BF16_DIRECT_PASSES + 1):
+        t0 = time.perf_counter()
+        n_pred = sum(len(o["energy"]) for o in gpu.predict(dm.predict_dataloader()))
+        torch.cuda.synchronize()
+        if p:
+            rates.append(n_pred / (time.perf_counter() - t0))
+    rates.sort()
+    reset_all_launches()
+    busy = profile_phase(f"{family}_bf16_profile", gpu, dm, present=("so2_mma_kernel",))
+    prof_p = all_launches()
+    check(prof_p == {**dict.fromkeys(prof_p, 0), fwd: 2 * n_calls},
+          f"{family} bf16 profiled predict launches {prof_p}")
+    del gpu
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
+    batches = list(itertools.islice(dm.train_dataloader(), 2))
+    reset_all_launches()
+    busy_train = profile_steps(f"{family}_bf16_train_profile", trainer._train_step, batches,
+                               present=("so2_mma_kernel", "so2_mmw_kernel"))
+    prof_t = all_launches()
+    check(prof_t == {**dict.fromkeys(prof_t, 0), fwd: 2 * n_calls, bwd: 2 * n_calls},
+          f"{family} bf16 profiled train launches {prof_t}")
+    del trainer
+    torch.cuda.empty_cache()
+    emit(f"{family}_bf16", config=fam["config"], compute_dtype="bfloat16", steps=steps,
+         launches={"train_test": launches, "predict": launches_p},
+         profiled_launches={"predict_2_steps": {fwd: prof_p[fwd]},
+                            "train_2_steps": {fwd: prof_t[fwd], bwd: prof_t[bwd]}},
+         dropout_draws=draws, final_val=res, test=test, checks=checks,
+         predict_rows=pres["rows"], predict_run_seconds=pres["seconds"],
+         predict_molecules_per_second=_rates(rates, "passes"),
+         train_molecules_per_second=_rates(sorted(r["mols_per_sec"] for r in step_rows),
+                                           "steps"),
+         device_busy_share={"predict": busy, "train": busy_train},
+         peak_device_memory_bytes={"train": peak_train, "predict": peak_predict},
+         fp32={"predict": READINGS.get(f"{family}_predict"),
+               "train": READINGS.get(f"{family}_train")},
+         tolerances={"energy_vs_fp32": BF16_E_VS_F32, "vs_plain_bf16": BF16_PATHS_TOL,
+                     "rotation_energy": e_rot_tol})
+    return {k: v + launches_p[k] for k, v in launches.items()}
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
@@ -3901,6 +4234,7 @@ def main() -> int:
     rows.update(timed("kernels_qhnet", qhnet_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_escn", escn_kernel_phases, dev, card, ptxas))
     rows.update(timed("kernels_eqv2", eqv2_kernel_phases, dev, card, ptxas))
+    rows.update(timed("kernels_so2_bf16", so2_bf16_kernel_phases, dev, card, ptxas))
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -3923,6 +4257,9 @@ def main() -> int:
             for job, phase in (("predict", direct_predict_phase), ("train", direct_train_phase)):
                 path = f"{family}_{job}"
                 by_path[path] = timed(path, phase, tmp, db, family)
+        for family in DIRECT:  # after both families' fp32 phases, whose readings they print
+            by_path[f"{family}_bf16"] = timed(f"{family}_bf16", direct_bf16_phase, tmp, db,
+                                              family)
         for family in ENERGY:  # predict from the train phase's best checkpoint
             for job, phase in (("train", energy_train_phase), ("predict", energy_predict_phase)):
                 path = f"{family}_{job}"
@@ -3938,7 +4275,8 @@ def main() -> int:
             by_path[path] = timed(path, phase, tmp, restore_db)
         # over qhnet_train's Hamiltonian DB
         by_path["pretrained_qhnet"] = timed("pretrained_qhnet", pretrained_qhnet_phase, tmp)
-    counters = dict(ALL_KERNELS, **{f"{k}_bf16": c for k, (_, _, c) in BF16_KERNELS.items()})
+    counters = dict(ALL_KERNELS, **{f"{k}_bf16": c for k, (_, _, c) in BF16_KERNELS.items()},
+                    **{f"{k}_bf16": v[3] for k, v in SO2_BF16_KERNELS.items()})
     for k, counter in counters.items():
         rows[k]["launches_by_path"] = {p: n[counter] for p, n in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())

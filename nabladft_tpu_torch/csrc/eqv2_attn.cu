@@ -52,6 +52,20 @@
 //     kernel. No float atomics: P gives the same bits on every run.
 // The products are fp32-accurate (3xTF32; the tolerance is 2e-5 of the output's scale), the
 // rest plain fp32 FMA.
+// The bf16 mode (eqv2_fwd_bf16 / eqv2_bwd_bf16; the TPU kernels' mxu_bf16, the model's
+// compute_dtype bfloat16) rounds to bf16 where `_attn_pipeline` and `_attn_pipeline_bwd`
+// pass a value through `_mdot(., ., True)`, and nowhere else:
+//   * both operands of the radial product, of every SO(2) product, of their transposes and
+//     of every weight gradient (the engine's `rbf16`: one TF32 pass of the rounded values,
+//     summed in fp32);
+//   * the sender rows x_j, which the TPU kernel gathers with a one-hot product: rounded
+//     where they are gathered (the rotation kernels); the receiver's own rows x_i are only
+//     broadcast there and stay fp32;
+//   * gx, the gather's transpose (the one-hot product's transpose): each edge's rotated-back
+//     source cotangent rounded before the sum over the sender's edges; gxi is not.
+// The per-head reductions (the TPU kernel's 0/1 expander products, `_mdot(., ., False)`),
+// b_rad, the LayerNorm and alpha vectors and their gradients, the grid activation, the
+// softmax, the rotations and every sum stay fp32.
 
 #include <cuda_runtime.h>
 
@@ -152,12 +166,13 @@ __global__ void eqv2_sender_list_kernel(const int* __restrict__ idx,
 // per-receiver and per-edge stages; L and M are compile-time so the stacks stay in registers
 // ---------------------------------------------------------------------------
 
-// flat[e] = [src | tgt] per m-major row, each scaled by rad[e] of its l: [E, S_t * 2C]
+// flat[e] = [src | tgt] per m-major row, each scaled by rad[e] of its l: [E, S_t * 2C];
+// rx: the sender rows rounded to bf16 (the bf16 mode)
 template <int L, int M>
 __global__ void __launch_bounds__(RT) eqv2_rotate_kernel(
     const float* __restrict__ x, const float* __restrict__ xi, const int* __restrict__ idx,
     const float* __restrict__ d, const float* __restrict__ rad, const int* __restrict__ rs,
-    const int* __restrict__ eidx, float* __restrict__ flat, int A, int C, int KW) {
+    const int* __restrict__ eidx, float* __restrict__ flat, int A, int C, int KW, int rx) {
   constexpr int S = (L + 1) * (L + 1), ST = s_trunc(L, M);
   const int bi = blockIdx.x, b = bi / A;
   const int e_lo = rs[bi], e_hi = rs[bi + 1];
@@ -178,6 +193,9 @@ __global__ void __launch_bounds__(RT) eqv2_rotate_kernel(
       float xs[S];
 #pragma unroll
       for (int s = 0; s < S; ++s) xs[s] = xj[(long long)s * C];
+      if (rx)  // the bf16 mode's gathered sender rows
+#pragma unroll
+        for (int s = 0; s < S; ++s) xs[s] = round_bf16(xs[s]);
 #pragma unroll
       for (int r = 0; r < ST; ++r) {
         const int l = row_l(L, M, r), base = row_base(L, M, r);
@@ -454,13 +472,14 @@ __global__ void __launch_bounds__(RT) eqv2_attn_bwd_kernel(
 // P: the radial scale's and the rotations' transposes, per receiver: from the cotangent
 // of the scaled stack (gflat), in place: rad becomes the radial scale's cotangent (summed
 // over the rows of each l) and gflat's source half the source stack's (gflat * rad); the
-// target halves, rotated back and summed over k in order, give gxi
+// target halves, rotated back and summed over k in order, give gxi; rx: the sender rows
+// rounded to bf16 (the bf16 mode)
 template <int L, int M>
 __global__ void __launch_bounds__(RT) eqv2_rot_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ xi, const int* __restrict__ idx,
     const float* __restrict__ d, float* __restrict__ rad, float* __restrict__ gflat,
     const int* __restrict__ rs, const int* __restrict__ eidx, float* __restrict__ gxi, int A,
-    int C, int KW) {
+    int C, int KW, int rx) {
   constexpr int S = (L + 1) * (L + 1), ST = s_trunc(L, M);
   const int bi = blockIdx.x, b = bi / A;
   const int e_lo = rs[bi], e_hi = rs[bi + 1];
@@ -484,6 +503,9 @@ __global__ void __launch_bounds__(RT) eqv2_rot_bwd_kernel(
       float xs[S], rsc[L + 1], rtc[L + 1], gs[L + 1], gt[L + 1];
 #pragma unroll
       for (int s = 0; s < S; ++s) xs[s] = xj[(long long)s * C];
+      if (rx)  // the stack recomputed from the rounded sender rows, as the forward's
+#pragma unroll
+        for (int s = 0; s < S; ++s) xs[s] = round_bf16(xs[s]);
 #pragma unroll
       for (int l = 0; l <= L; ++l) {
         rsc[l] = rp[l * C2 + cc];
@@ -526,9 +548,29 @@ __global__ void __launch_bounds__(RT) eqv2_rot_bwd_kernel(
   }
 }
 
-// P's gx: per (molecule b, atom j), the rotation transposes of the source stacks'
-// cotangents of the edges (i, k) with idx = j, in slot order
+// acc[l^2 + col] += sum over the m-major rows r of degree l of D[r, col] v[r * ld], one
+// channel's rotate-back of an m-major stack v
 template <int L, int M>
+__device__ __forceinline__ void rotate_back_add(float (&acc)[(L + 1) * (L + 1)],
+                                                const float* __restrict__ v, int ld,
+                                                const float* __restrict__ dp) {
+  constexpr int ST = s_trunc(L, M);
+#pragma unroll
+  for (int r = 0; r < ST; ++r) {
+    const int l = row_l(L, M, r), base = row_base(L, M, r);
+    const float vr = v[r * ld];
+#pragma unroll
+    for (int col = 0; col < 2 * L + 1; ++col) {
+      if (col >= 2 * l + 1) break;
+      acc[l * l + col] = fmaf(__ldg(dp + base + col), vr, acc[l * l + col]);
+    }
+  }
+}
+
+// P's gx: per (molecule b, atom j), the rotation transposes of the source stacks'
+// cotangents of the edges (i, k) with idx = j, in slot order; R (the bf16 mode): each edge's
+// rotated-back cotangent rounded to bf16 before it is added
+template <int L, int M, bool R>
 __global__ void __launch_bounds__(RT) eqv2_gx_kernel(
     const float* __restrict__ gflat, const float* __restrict__ d, const int* __restrict__ slist,
     const int* __restrict__ sbeg, const int* __restrict__ scnt, const int* __restrict__ pos,
@@ -545,15 +587,15 @@ __global__ void __launch_bounds__(RT) eqv2_gx_kernel(
       const int p = slist[lo + q];
       const long long e = pos[p];
       const float* dp = d + (long long)p * KW;
+      if constexpr (R) {
+        float t[S];
 #pragma unroll
-      for (int r = 0; r < ST; ++r) {
-        const int l = row_l(L, M, r), base = row_base(L, M, r);
-        const float v = gflat[e * FL + r * 2 * C + c];
+        for (int s = 0; s < S; ++s) t[s] = 0.f;
+        rotate_back_add<L, M>(t, gflat + e * FL + c, 2 * C, dp);
 #pragma unroll
-        for (int col = 0; col < 2 * L + 1; ++col) {
-          if (col >= 2 * l + 1) break;
-          acc[l * l + col] = fmaf(__ldg(dp + base + col), v, acc[l * l + col]);
-        }
+        for (int s = 0; s < S; ++s) acc[s] += round_bf16(t[s]);
+      } else {
+        rotate_back_add<L, M>(acc, gflat + e * FL + c, 2 * C, dp);
       }
     }
 #pragma unroll
@@ -597,7 +639,7 @@ long long scratch_ints(int B, int A, int K) {
   return 4 * E + 3LL * B * A + 2;
 }
 
-Bufs carve(const Dims& D, float* f, int* iw, bool bwd) {
+Bufs carve(const Dims& D, float* f, int* iw, bool bwd, bool rnd) {
   Bufs b{};
   auto take = [&](long long per) {
     float* p = f;
@@ -626,7 +668,7 @@ Bufs carve(const Dims& D, float* f, int* iw, bool bwd) {
   b.sbeg = b.n_rows + 1;
   b.scnt = b.sbeg + (long long)D.B * D.A;
   const long long prep = 2 * weight_floats(D);
-  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0};
+  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0, rnd};
   return b;
 }
 
@@ -722,7 +764,7 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* xi, const
   prad.bias = w[1];
   CK(launch_products(bf.en, {prad}, st));
   eqv2_rotate_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
-      x, xi, idx, d, bf.RAD, bf.rs, bf.eidx, bf.FLAT, D.A, D.C, D.KW);
+      x, xi, idx, d, bf.RAD, bf.rs, bf.eidx, bf.FLAT, D.A, D.C, D.KW, bf.en.rbf16);
   CK(cudaGetLastError());
   const float* fc1[8];
   const float* fc2[8];
@@ -745,8 +787,8 @@ template <int L, int M>
 cudaError_t run_fwd(const Dims& D, const float* x, const float* xi, const int* idx,
                     const float* d, const float* xe, const float* maskf, const float* dropk,
                     const float* const* w, const float* tog, const float* fromg, float* agg,
-                    float* scratch, int* iscratch, cudaStream_t st) {
-  const Bufs bf = carve(D, scratch, iscratch, false);
+                    float* scratch, int* iscratch, bool rnd, cudaStream_t st) {
+  const Bufs bf = carve(D, scratch, iscratch, false, rnd);
   CK(forward_stages<L, M>(D, x, xi, idx, d, xe, maskf, w, tog, fromg, bf, st));
   const int il = D.i_lns();
   CK(allow_smem(eqv2_attn_out_kernel<L, M>, attn_smem(D, false)));
@@ -762,8 +804,8 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* i
                     const float* d, const float* xe, const float* maskf, const float* dropk,
                     const float* const* w, const float* tog, const float* fromg, const float* g,
                     float* gx, float* gxi, float* gxe, float* const* gw, float* scratch,
-                    int* iscratch, cudaStream_t st) {
-  const Bufs bf = carve(D, scratch, iscratch, true);
+                    int* iscratch, bool rnd, cudaStream_t st) {
+  const Bufs bf = carve(D, scratch, iscratch, true, rnd);
   CK(forward_stages<L, M>(D, x, xi, idx, d, xe, maskf, w, tog, fromg, bf, st));
   const int il = D.i_lns();
   CK(allow_smem(eqv2_attn_bwd_kernel<L, M>, attn_smem(D, true)));
@@ -802,7 +844,7 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* i
   CK(launch_products(bf.en, p1, st));
   // radial scale and rotations (RAD becomes the radial scale's cotangent), gxi
   eqv2_rot_bwd_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
-      x, xi, idx, d, bf.RAD, bf.FLAT, bf.rs, bf.eidx, gxi, D.A, D.C, D.KW);
+      x, xi, idx, d, bf.RAD, bf.FLAT, bf.rs, bf.eidx, gxi, D.A, D.C, D.KW, rnd);
   CK(cudaGetLastError());
   NNProb pxe = prob({seg(bf.RAD, D.RADW, w[0], D.RADW, D.RADW, true)}, D.EC, EPI_STORE, gxe, D.EC);
   pxe.scatter = 1;
@@ -819,8 +861,12 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* i
   eqv2_sender_list_kernel<<<D.B, lt, sizeof(int) * lt, st>>>(idx, bf.flags, bf.slist, bf.sbeg,
                                                               bf.scnt, D.A, D.K);
   CK(cudaGetLastError());
-  eqv2_gx_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
-      bf.FLAT, d, bf.slist, bf.sbeg, bf.scnt, bf.pos, gx, D.C, D.KW);
+  if (rnd)
+    eqv2_gx_kernel<L, M, true><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
+        bf.FLAT, d, bf.slist, bf.sbeg, bf.scnt, bf.pos, gx, D.C, D.KW);
+  else
+    eqv2_gx_kernel<L, M, false><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
+        bf.FLAT, d, bf.slist, bf.sbeg, bf.scnt, bf.pos, gx, D.C, D.KW);
   return cudaGetLastError();
 }
 
@@ -832,10 +878,35 @@ bool valid(const Dims& D) {
          D.E < (1LL << 31);
 }
 
+int fwd_entry(const float* x, const float* xi, const int* idx, const float* d, const float* xe,
+              const float* maskf, const float* dropk, const float* const* w, const float* tog,
+              const float* fromg, float* agg, float* scratch, int* iscratch, int B, int A, int K,
+              int C, int CO, int EC, int NH, int VA, int KW, int P, int l_max, int m_max,
+              bool rnd, void* stream) {
+  const Dims D = make_dims(B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max);
+  if (!valid(D)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0 || K == 0) return 0;
+  return (int)run_fwd<6, 2>(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, agg, scratch,
+                            iscratch, rnd, static_cast<cudaStream_t>(stream));
+}
+
+int bwd_entry(const float* x, const float* xi, const int* idx, const float* d, const float* xe,
+              const float* maskf, const float* dropk, const float* const* w, const float* tog,
+              const float* fromg, const float* g, float* gx, float* gxi, float* gxe,
+              float* const* gw, float* scratch, int* iscratch, int B, int A, int K, int C, int CO,
+              int EC, int NH, int VA, int KW, int P, int l_max, int m_max, bool rnd,
+              void* stream) {
+  const Dims D = make_dims(B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max);
+  if (!valid(D)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0 || K == 0) return 0;
+  return (int)run_bwd<6, 2>(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, g, gx, gxi, gxe,
+                            gw, scratch, iscratch, rnd, static_cast<cudaStream_t>(stream));
+}
+
 // so2_wgrads_probe's arrays hold 1 or 2 segments and a known A mode per problem
 bool probe_valid(int np, const int* ints) {
   for (int q = 0; q < np; ++q) {
-    const int* I = ints + q * 11;
+    const int* I = ints + q * 13;
     if (I[0] < 1 || I[0] > 2 || I[1] < A_ROWS || I[1] > A_ONES) return false;
   }
   return true;
@@ -845,7 +916,7 @@ bool probe_valid(int np, const int* ints) {
 std::vector<TNProb> probe_tprobs(int np, const int* ints, const void* const* ptrs) {
   std::vector<TNProb> probs;
   for (int q = 0; q < np; ++q) {
-    const int* I = ints + q * 11;
+    const int* I = ints + q * 13;
     const void* const* Q = ptrs ? ptrs + q * 5 : nullptr;
     TNProb p{};
     p.nseg = I[0];  // 1 or 2: the callers check
@@ -855,9 +926,10 @@ std::vector<TNProb> probe_tprobs(int np, const int* ints, const void* const* ptr
     p.ldo = I[4];
     p.out = Q ? (float*)Q[0] : nullptr;
     for (int s = 0; s < p.nseg; ++s) {
-      const int* J = I + 5 + 3 * s;
+      const int* J = I + 5 + 4 * s;
       p.seg[s] = TSeg{Q ? (const float*)Q[1 + 2 * s] : nullptr,
-                      Q ? (const float*)Q[2 + 2 * s] : nullptr, J[0], J[1], (float)J[2]};
+                      Q ? (const float*)Q[2 + 2 * s] : nullptr, J[0], J[1], (float)J[2], 0,
+                      J[3] != 0};
     }
     probs.push_back(p);
   }
@@ -889,11 +961,18 @@ int eqv2_fwd(const float* x, const float* xi, const int* idx, const float* d, co
              const float* fromg, float* agg, float* scratch, int* iscratch, int B, int A, int K,
              int C, int CO, int EC, int NH, int VA, int KW, int P, int l_max, int m_max,
              void* stream) {
-  const Dims D = make_dims(B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max);
-  if (!valid(D)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0 || K == 0) return 0;
-  return (int)run_fwd<6, 2>(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, agg, scratch,
-                            iscratch, static_cast<cudaStream_t>(stream));
+  return fwd_entry(x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, agg, scratch, iscratch, B, A, K,
+                   C, CO, EC, NH, VA, KW, P, l_max, m_max, false, stream);
+}
+
+// eqv2_fwd in the bf16 mode (the rounding points above)
+int eqv2_fwd_bf16(const float* x, const float* xi, const int* idx, const float* d,
+                  const float* xe, const float* maskf, const float* dropk, const float* const* w,
+                  const float* tog, const float* fromg, float* agg, float* scratch,
+                  int* iscratch, int B, int A, int K, int C, int CO, int EC, int NH, int VA,
+                  int KW, int P, int l_max, int m_max, void* stream) {
+  return fwd_entry(x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, agg, scratch, iscratch, B, A, K,
+                   C, CO, EC, NH, VA, KW, P, l_max, m_max, true, stream);
 }
 
 // gw: the gradients' pointers, in the order of w. gxe must hold zeros: only the live
@@ -903,17 +982,26 @@ int eqv2_bwd(const float* x, const float* xi, const int* idx, const float* d, co
              const float* fromg, const float* g, float* gx, float* gxi, float* gxe,
              float* const* gw, float* scratch, int* iscratch, int B, int A, int K, int C, int CO,
              int EC, int NH, int VA, int KW, int P, int l_max, int m_max, void* stream) {
-  const Dims D = make_dims(B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max);
-  if (!valid(D)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0 || K == 0) return 0;
-  return (int)run_bwd<6, 2>(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, g, gx, gxi, gxe,
-                            gw, scratch, iscratch, static_cast<cudaStream_t>(stream));
+  return bwd_entry(x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, g, gx, gxi, gxe, gw, scratch,
+                   iscratch, B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max, false, stream);
+}
+
+// eqv2_bwd in the bf16 mode (`_attn_pipeline_bwd` with mxu_bf16: the rounding points above)
+int eqv2_bwd_bf16(const float* x, const float* xi, const int* idx, const float* d,
+                  const float* xe, const float* maskf, const float* dropk, const float* const* w,
+                  const float* tog, const float* fromg, const float* g, float* gx, float* gxi,
+                  float* gxe, float* const* gw, float* scratch, int* iscratch, int B, int A,
+                  int K, int C, int CO, int EC, int NH, int VA, int KW, int P, int l_max,
+                  int m_max, void* stream) {
+  return bwd_entry(x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, g, gx, gxi, gxe, gw, scratch,
+                   iscratch, B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max, true, stream);
 }
 
 // The product engine on one caller-given problem list (its card test and chip_smoke's
 // so2_products line). Rows 0..*n_rows-1 of max_rows, row list eidx (gather / scatter).
-// Per problem, 8 + 5 MAXSEG ints: nseg, gather, scatter, epi, n, ldc, ldc2, ldg, then per
-// segment (MAXSEG slots) lda, ldb, k, btrans, sign (+1 / -1); 4 + 2 MAXSEG pointers: c, c2,
+// Per problem, 8 + 6 MAXSEG ints: nseg, gather, scatter, epi, n, ldc, ldc2, ldg, then per
+// segment (MAXSEG slots) lda, ldb, k, btrans, sign (+1 / -1), rbf16 (both operands rounded
+// to bf16: the bf16 mode); 4 + 2 MAXSEG pointers: c, c2,
 // bias, gate, then per segment a, b. prep: 2 * sum of n * k floats over the segments.
 // persistent: one block per SM over all the tiles (launch_products).
 int so2_products_probe(int np, const int* ints, const void* const* ptrs, long long max_rows,
@@ -921,7 +1009,7 @@ int so2_products_probe(int np, const int* ints, const void* const* ptrs, long lo
                        int persistent, void* stream) {
   std::vector<NNProb> probs;
   for (int q = 0; q < np; ++q) {
-    const int* I = ints + q * (8 + 5 * MAXSEG);
+    const int* I = ints + q * (8 + 6 * MAXSEG);
     const void* const* Q = ptrs + q * (4 + 2 * MAXSEG);
     NNProb p{};
     p.nseg = I[0];
@@ -938,9 +1026,10 @@ int so2_products_probe(int np, const int* ints, const void* const* ptrs, long lo
     p.bias = (const float*)Q[2];
     p.gate = (const float*)Q[3];
     for (int s = 0; s < p.nseg; ++s) {
-      const int* J = I + 8 + 5 * s;
+      const int* J = I + 8 + 6 * s;
       p.seg[s] = seg((const float*)Q[4 + 2 * s], J[0], (const float*)Q[5 + 2 * s], J[1], J[2],
                      J[3] != 0, (float)J[4]);
+      p.seg[s].rbf16 = J[5] != 0;
     }
     probs.push_back(p);
   }
@@ -948,9 +1037,9 @@ int so2_products_probe(int np, const int* ints, const void* const* ptrs, long lo
   return (int)launch_products(en, probs, static_cast<cudaStream_t>(stream), persistent != 0);
 }
 
-// Weight gradients on one caller-given problem list. Per problem, 11 ints:
+// Weight gradients on one caller-given problem list. Per problem, 13 ints:
 // nseg, amode (0 rows, 1 gather, 2 ones), m, n, ldo, then per segment (2 slots) lda, ldb,
-// sign; 5 pointers: out, then per segment a, b. part: so2_wgrads_part_floats.
+// sign, rbf16; 5 pointers: out, then per segment a, b. part: so2_wgrads_part_floats.
 long long so2_wgrads_part_floats(int np, const int* ints, long long max_rows) {
   if (!probe_valid(np, ints)) return -1;
   return wgrad_part_floats(max_rows, probe_tprobs(np, ints, nullptr));

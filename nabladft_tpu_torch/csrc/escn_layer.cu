@@ -46,6 +46,12 @@
 // The products are fp32-accurate (3xTF32; the tolerance is 2e-5 of the output's scale), the
 // rest plain fp32 FMA. The engine, the scan and the m-major row tables are in
 // so2_common.cuh, shared with kernels O and P (csrc/eqv2_attn.cu).
+// The bf16 mode (escn_fwd_bf16 / escn_bwd_bf16; the TPU kernels' mxu_bf16, the model's
+// compute_dtype bfloat16): every product that `_message_pipeline` and the hand-written
+// `_pipeline_bwd` pass through `_mdot` rounds both operands to bf16 (the gate products, the
+// SO(2) products, their transposes and every weight gradient) and runs one TF32 pass of the
+// rounded values, summed in fp32 (the engine's `rbf16`); inputs, outputs, gates, the grid
+// activation, the rotations, the bias gradients and every sum stay fp32.
 
 #include <cuda_runtime.h>
 
@@ -354,7 +360,7 @@ long long scratch_floats(const Dims& D, bool bwd) {
 
 long long scratch_ints(int B, int A) { return 3LL * B * A * A + (long long)B * A + 2; }
 
-Bufs carve(const Dims& D, float* f, int* iw, bool bwd) {
+Bufs carve(const Dims& D, float* f, int* iw, bool bwd, bool rnd) {
   Bufs b{};
   auto take = [&](long long per) {
     float* p = f;
@@ -384,7 +390,7 @@ Bufs carve(const Dims& D, float* f, int* iw, bool bwd) {
   b.rs = iw + 3 * D.E;
   b.n_rows = b.rs + (long long)D.B * D.A + 1;
   const long long prep = 2 * weight_floats(D);
-  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0};
+  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0, rnd};
   return b;
 }
 
@@ -463,8 +469,8 @@ size_t grid_smem(const Dims& D) { return sizeof(float) * 2 * (size_t)D.P * D.ST;
 template <int L, int M>
 cudaError_t run_fwd(const Dims& D, const float* x, const float* d, const float* xe,
                     const float* const* w, const float* tog, const float* fromg, float* out,
-                    float* scratch, int* iscratch, cudaStream_t st) {
-  const Bufs bf = carve(D, scratch, iscratch, false);
+                    float* scratch, int* iscratch, bool rnd, cudaStream_t st) {
+  const Bufs bf = carve(D, scratch, iscratch, false, rnd);
   float* msg = bf.F[0];  // the rotated source stack is spent once the hidden are formed
   cudaError_t err = forward_stages<L, M>(D, x, d, xe, w, bf, msg, false, st);
   if (err != cudaSuccess) return err;
@@ -477,8 +483,8 @@ template <int L, int M>
 cudaError_t run_bwd(const Dims& D, const float* x, const float* d, const float* xe,
                     const float* const* w, const float* tog, const float* fromg, const float* g,
                     float* gx, float* gxe, float* const* gw, float* scratch, int* iscratch,
-                    cudaStream_t st) {
-  const Bufs bf = carve(D, scratch, iscratch, true);
+                    bool rnd, cudaStream_t st) {
+  const Bufs bf = carve(D, scratch, iscratch, true, rnd);
   cudaError_t err = forward_stages<L, M>(D, x, d, xe, w, bf, bf.GM, true, st);
   if (err != cudaSuccess) return err;
   escn_grid_bwd_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), grid_smem(D), st>>>(
@@ -578,6 +584,28 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* d, const float* 
 
 bool supported(int L, int M) { return L == 6 && M == 2; }
 
+int fwd_entry(const float* x, const float* d, const float* xe, const float* const* w,
+              const float* tog, const float* fromg, float* out, float* scratch, int* iscratch,
+              int B, int A, int C, int H, int EC, int K, int P, int l_max, int m_max, bool rnd,
+              void* stream) {
+  if (!supported(l_max, m_max) || C % 8 || H % 8 || EC % 8) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0 || C == 0) return 0;
+  const Dims D = make_dims(B, A, C, H, EC, K, P, l_max, m_max);
+  return (int)run_fwd<6, 2>(D, x, d, xe, w, tog, fromg, out, scratch, iscratch, rnd,
+                            static_cast<cudaStream_t>(stream));
+}
+
+int bwd_entry(const float* x, const float* d, const float* xe, const float* const* w,
+              const float* tog, const float* fromg, const float* g, float* gx, float* gxe,
+              float* const* gw, float* scratch, int* iscratch, int B, int A, int C, int H, int EC,
+              int K, int P, int l_max, int m_max, bool rnd, void* stream) {
+  if (!supported(l_max, m_max) || C % 8 || H % 8 || EC % 8) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0 || C == 0) return 0;
+  const Dims D = make_dims(B, A, C, H, EC, K, P, l_max, m_max);
+  return (int)run_bwd<6, 2>(D, x, d, xe, w, tog, fromg, g, gx, gxe, gw, scratch, iscratch, rnd,
+                            static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -601,11 +629,17 @@ int escn_fwd(const float* x, const float* d, const float* xe, const float* const
              const float* tog, const float* fromg, float* out, float* scratch, int* iscratch,
              int B, int A, int C, int H, int EC, int K, int P, int l_max, int m_max,
              void* stream) {
-  if (!supported(l_max, m_max) || C % 8 || H % 8 || EC % 8) return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0 || C == 0) return 0;
-  const Dims D = make_dims(B, A, C, H, EC, K, P, l_max, m_max);
-  return (int)run_fwd<6, 2>(D, x, d, xe, w, tog, fromg, out, scratch, iscratch,
-                            static_cast<cudaStream_t>(stream));
+  return fwd_entry(x, d, xe, w, tog, fromg, out, scratch, iscratch, B, A, C, H, EC, K, P, l_max,
+                   m_max, false, stream);
+}
+
+// escn_fwd in the bf16 mode: every product's operands rounded to bf16
+int escn_fwd_bf16(const float* x, const float* d, const float* xe, const float* const* w,
+                  const float* tog, const float* fromg, float* out, float* scratch,
+                  int* iscratch, int B, int A, int C, int H, int EC, int K, int P, int l_max,
+                  int m_max, void* stream) {
+  return fwd_entry(x, d, xe, w, tog, fromg, out, scratch, iscratch, B, A, C, H, EC, K, P, l_max,
+                   m_max, true, stream);
 }
 
 // gw: the gradients' pointers, in the order of w. gxe must hold zeros: only the live
@@ -614,11 +648,18 @@ int escn_bwd(const float* x, const float* d, const float* xe, const float* const
              const float* tog, const float* fromg, const float* g, float* gx, float* gxe,
              float* const* gw, float* scratch, int* iscratch, int B, int A, int C, int H, int EC,
              int K, int P, int l_max, int m_max, void* stream) {
-  if (!supported(l_max, m_max) || C % 8 || H % 8 || EC % 8) return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0 || C == 0) return 0;
-  const Dims D = make_dims(B, A, C, H, EC, K, P, l_max, m_max);
-  return (int)run_bwd<6, 2>(D, x, d, xe, w, tog, fromg, g, gx, gxe, gw, scratch, iscratch,
-                            static_cast<cudaStream_t>(stream));
+  return bwd_entry(x, d, xe, w, tog, fromg, g, gx, gxe, gw, scratch, iscratch, B, A, C, H, EC, K,
+                   P, l_max, m_max, false, stream);
+}
+
+// escn_bwd in the bf16 mode (`_pipeline_bwd` with mxu_bf16: every product's operands,
+// the forward's recomputed ones and the transposed and weight-gradient ones, rounded)
+int escn_bwd_bf16(const float* x, const float* d, const float* xe, const float* const* w,
+                  const float* tog, const float* fromg, const float* g, float* gx, float* gxe,
+                  float* const* gw, float* scratch, int* iscratch, int B, int A, int C, int H,
+                  int EC, int K, int P, int l_max, int m_max, void* stream) {
+  return bwd_entry(x, d, xe, w, tog, fromg, g, gx, gxe, gw, scratch, iscratch, B, A, C, H, EC, K,
+                   P, l_max, m_max, true, stream);
 }
 
 }  // extern "C"

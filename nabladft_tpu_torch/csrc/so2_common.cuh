@@ -31,6 +31,12 @@
 // in the fragment loads: a bf16 value is a TF32 value whose lo half is zero. A segment whose
 // B values are also exact in TF32 (`one`: bf16 weights held as fp32) runs one pass, a_hi
 // b_hi: the other two passes' products, a_hi b_lo and a_lo b_hi, are exactly zero there.
+// The bf16-rounding operand mode (a segment's `rbf16`, or every segment of an Engine whose
+// `rbf16` is set: M-P's mxu_bf16 mode, the TPU kernels' `_mdot(a, b, True)`) rounds both
+// operands of a product to bf16, nearest-even (cvt.rn.bf16.f32, as astype(bfloat16)): A at
+// its fragment load, B in the prep (products) or in the transposer warps (weight
+// gradients), each written as a TF32 value with lo = 0; so it runs the one pass, exactly the
+// product of the rounded values, summed in fp32 as every other mode.
 //
 // A block: two consumer warpgroups, each 64 rows of the 128 x 128 tile (one m64 block), and
 // one producer warp, over a ring of STAGES k tiles of 32 (128 bytes of fp32) in dynamic
@@ -158,6 +164,12 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_by
 __device__ __forceinline__ float bf16_bits(uint16_t h) {
   return __uint_as_float((uint32_t)h << 16);
 }
+// x rounded to bf16, nearest-even, as the fp32 value it is
+__device__ __forceinline__ float round_bf16(float x) {
+  uint16_t h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return bf16_bits(h);
+}
 __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
                                        int c1) {
   asm volatile(
@@ -184,6 +196,11 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+// the bf16-rounding mode's operand: hi = x rounded to bf16 (exact in TF32), lo = 0
+__device__ __forceinline__ void round_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(round_bf16(x));
+  lo = 0u;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -294,6 +311,7 @@ struct Seg {
   float sign;
   int abf16;  // A holds bf16 values (gathered rows only)
   int one;    // A and B exact in TF32: one pass (a_hi b_hi)
+  int rbf16;  // fp32 A and B, both rounded to bf16: one pass
 };
 
 struct NNProb {
@@ -312,7 +330,7 @@ struct MMSeg {
   const float* a;
   int lda, k;
   float sign;
-  int abf16, one;
+  int abf16, one, rbf16;
 };
 
 struct MMProb {
@@ -456,27 +474,39 @@ __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ 
     for (int s = 0; s < P.nseg; ++s) {
       const float sign = P.seg[s].sign;
       const int ks = P.seg[s].k;
-      const bool a16 = P.seg[s].abf16, one = P.seg[s].one;
+      const bool a16 = P.seg[s].abf16, one = P.seg[s].one, rnd = P.seg[s].rbf16;
       for (int k0 = 0; k0 < ks; k0 += BK, ++it) {
         const int st = it % STAGES;
         mbar_wait(full + st, (it / STAGES) & 1);
         const float* at = As + st * BM * BK;
-        const uint16_t* at16 = reinterpret_cast<const uint16_t*>(at);
-        stage_mma(acc, tot, desc_sw128(Bh + st * BN * BK), desc_sw128(Bl + st * BN * BK),
-                  [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                    const int k = kk * 8 + t;
-                    if (a16) {
-                      split_tf32(sign * a_sw16(at16, rb, k), hi[0], lo[0]);
-                      split_tf32(sign * a_sw16(at16, rb + 8, k), hi[1], lo[1]);
-                      split_tf32(sign * a_sw16(at16, rb, k + 4), hi[2], lo[2]);
-                      split_tf32(sign * a_sw16(at16, rb + 8, k + 4), hi[3], lo[3]);
-                    } else {
-                      split_tf32(sign * a_sw(at, rb, k), hi[0], lo[0]);
-                      split_tf32(sign * a_sw(at, rb + 8, k), hi[1], lo[1]);
-                      split_tf32(sign * a_sw(at, rb, k + 4), hi[2], lo[2]);
-                      split_tf32(sign * a_sw(at, rb + 8, k + 4), hi[3], lo[3]);
-                    }
-                  }, one);
+        const uint64_t dh = desc_sw128(Bh + st * BN * BK), dl = desc_sw128(Bl + st * BN * BK);
+        // the operand mode is chosen once a stage: each fragment loader is branch-free
+        if (a16) {
+          const uint16_t* at16 = reinterpret_cast<const uint16_t*>(at);
+          stage_mma(acc, tot, dh, dl, [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+            const int k = kk * 8 + t;
+            split_tf32(sign * a_sw16(at16, rb, k), hi[0], lo[0]);
+            split_tf32(sign * a_sw16(at16, rb + 8, k), hi[1], lo[1]);
+            split_tf32(sign * a_sw16(at16, rb, k + 4), hi[2], lo[2]);
+            split_tf32(sign * a_sw16(at16, rb + 8, k + 4), hi[3], lo[3]);
+          }, one);
+        } else if (rnd) {
+          stage_mma(acc, tot, dh, dl, [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+            const int k = kk * 8 + t;
+            round_tf32(sign * a_sw(at, rb, k), hi[0], lo[0]);
+            round_tf32(sign * a_sw(at, rb + 8, k), hi[1], lo[1]);
+            round_tf32(sign * a_sw(at, rb, k + 4), hi[2], lo[2]);
+            round_tf32(sign * a_sw(at, rb + 8, k + 4), hi[3], lo[3]);
+          }, true);
+        } else {
+          stage_mma(acc, tot, dh, dl, [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+            const int k = kk * 8 + t;
+            split_tf32(sign * a_sw(at, rb, k), hi[0], lo[0]);
+            split_tf32(sign * a_sw(at, rb + 8, k), hi[1], lo[1]);
+            split_tf32(sign * a_sw(at, rb, k + 4), hi[2], lo[2]);
+            split_tf32(sign * a_sw(at, rb + 8, k + 4), hi[3], lo[3]);
+          }, one);
+        }
         if (lane == 0) mbar_arrive(empty + st);
       }
     }
@@ -529,11 +559,12 @@ __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ 
 }
 
 // the B halves of a launch's segments: dst [2][N][K] (hi, lo) from B [K, N] (ld) or, btrans,
-// from B^T [N, K] (ld); one 32 x 32 tile a block, through shared memory
+// from B^T [N, K] (ld), or, rnd, B rounded to bf16 and lo = 0; one 32 x 32 tile a block,
+// through shared memory
 struct PrepJob {
   const float* src;
   float* dst;
-  int ld, k, n, btrans, tiles_k, tile0;
+  int ld, k, n, btrans, tiles_k, tile0, rnd;
 };
 
 struct PrepBatch {
@@ -563,7 +594,10 @@ __global__ void __launch_bounds__(256) so2_prep_kernel(const __grid_constant__ P
     const int n = n0 + i, k = k0 + tx;
     if (n >= J.n || k >= J.k) continue;
     uint32_t hi, lo;
-    split_tf32(tile[i][tx], hi, lo);
+    if (J.rnd)
+      round_tf32(tile[i][tx], hi, lo);
+    else
+      split_tf32(tile[i][tx], hi, lo);
     const long long o = (long long)n * J.k + k;
     J.dst[o] = __uint_as_float(hi);
     J.dst[(long long)J.n * J.k + o] = __uint_as_float(lo);
@@ -583,6 +617,7 @@ struct TSeg {
   int lda, ldb;
   float sign;
   int abf16;  // A holds bf16 values
+  int rbf16;  // fp32 A and B, both rounded to bf16: one pass
 };
 
 struct TNProb {
@@ -596,7 +631,7 @@ struct MWSeg {
   const float* a;
   int lda;
   float sign;
-  int abf16;
+  int abf16, rbf16;
 };
 
 struct MWProb {
@@ -623,6 +658,29 @@ __device__ __forceinline__ void split_rows(int nr, int spl, int sp, int& lo, int
   const int chunk = ((nr + spl - 1) / spl + BK - 1) / BK * BK;
   lo = min(nr, sp * chunk);
   hi = min(nr, lo + chunk);
+}
+
+// a transposer thread's share of a weight-gradient stage: B's raw [BK][BN] tile (rows e0.. of
+// the split, zeros at and past hi) -> K-major [BN][BK] hi and lo halves, 128-byte swizzled;
+// RND: rounded to bf16, lo = 0
+template <bool RND>
+__device__ __forceinline__ void transpose_b(const float* raw, float* th, int tt, int e0, int hi) {
+  for (int unit = tt; unit < BN * BK / 4; unit += 96) {  // column n, 4 rows from 4c
+    const int n = unit & (BN - 1), c = unit >> 7;
+    uint32_t h4[4], l4[4];
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int e = c * 4 + qq;  // rows past the split are zeros
+      const float v = e0 + e < hi ? raw[e * BN + n] : 0.f;
+      if (RND)
+        round_tf32(v, h4[qq], l4[qq]);
+      else
+        split_tf32(v, h4[qq], l4[qq]);
+    }
+    const int o = n * BK + ((c ^ (n & 7)) << 2);  // 128-byte swizzle
+    *reinterpret_cast<uint4*>(th + o) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+    *reinterpret_cast<uint4*>(th + BN * BK + o) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+  }
 }
 
 // One BM x BN tile of out (blockIdx.x over the problems' tiles) over the rows of split
@@ -702,27 +760,21 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
   if (warp > 8) {  // transposers: B's raw [BK][BN] tile -> K-major [BN][BK] hi and lo
     const int tt = tid - 9 * 32;
     int it = 0;
-    for (int s = 0; s < P.nseg; ++s)
+    for (int s = 0; s < P.nseg; ++s) {
+      const bool rnd = P.seg[s].rbf16;
       for (int q = 0; q < nk; ++q, ++it) {
         const int st = it % WSTAGES, e0 = lo + q * BK;
         mbar_wait(full + st, (it / WSTAGES) & 1);
         const float* raw = Braw + st * BK * BN;
         float* th = Bt + st * 2 * BN * BK;
-        for (int unit = tt; unit < BN * BK / 4; unit += 96) {  // column n, 4 rows from 4c
-          const int n = unit & (BN - 1), c = unit >> 7;
-          uint32_t h4[4], l4[4];
-#pragma unroll
-          for (int qq = 0; qq < 4; ++qq) {
-            const int e = c * 4 + qq;  // rows past the split are zeros
-            split_tf32(e0 + e < hi ? raw[e * BN + n] : 0.f, h4[qq], l4[qq]);
-          }
-          const int o = n * BK + ((c ^ (n & 7)) << 2);  // 128-byte swizzle
-          *reinterpret_cast<uint4*>(th + o) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
-          *reinterpret_cast<uint4*>(th + BN * BK + o) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
-        }
+        if (rnd)
+          transpose_b<true>(raw, th, tt, e0, hi);
+        else
+          transpose_b<false>(raw, th, tt, e0, hi);
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma's reads
         mbar_arrive(ready + st);
       }
+    }
     return;
   }
 
@@ -734,7 +786,7 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
   int it = 0;
   for (int s = 0; s < P.nseg; ++s) {
     const float sign = P.seg[s].sign;
-    const bool a16 = P.seg[s].abf16;
+    const bool a16 = P.seg[s].abf16, rnd = P.seg[s].rbf16;
     for (int q = 0; q < nk; ++q, ++it) {
       const int st = it % WSTAGES, ph = (it / WSTAGES) & 1;
       mbar_wait(full + st, ph);
@@ -742,23 +794,33 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
       // A fragment: m = rb (+8), k = e (+4) of the padded [BK][APAD] tile
       const float* at = As + st * BK * APAD;
       const float* th = Bt + st * 2 * BN * BK;
-      stage_mma(acc, tot, desc_sw128(th), desc_sw128(th + BN * BK),
-                [&](int kk, uint32_t (&fh)[4], uint32_t (&fl)[4]) {
-                  if (a16) {
-                    const uint16_t* p =
-                        reinterpret_cast<const uint16_t*>(at) + (kk * 8 + t) * APAD + rb;
-                    split_tf32(sign * bf16_bits(p[0]), fh[0], fl[0]);
-                    split_tf32(sign * bf16_bits(p[8]), fh[1], fl[1]);
-                    split_tf32(sign * bf16_bits(p[4 * APAD]), fh[2], fl[2]);
-                    split_tf32(sign * bf16_bits(p[4 * APAD + 8]), fh[3], fl[3]);
-                  } else {
-                    const float* p = at + (kk * 8 + t) * APAD + rb;
-                    split_tf32(sign * p[0], fh[0], fl[0]);
-                    split_tf32(sign * p[8], fh[1], fl[1]);
-                    split_tf32(sign * p[4 * APAD], fh[2], fl[2]);
-                    split_tf32(sign * p[4 * APAD + 8], fh[3], fl[3]);
-                  }
-                });
+      const uint64_t dh = desc_sw128(th), dl = desc_sw128(th + BN * BK);
+      // the operand mode is chosen once a stage: each fragment loader is branch-free
+      if (a16) {
+        stage_mma(acc, tot, dh, dl, [&](int kk, uint32_t (&fh)[4], uint32_t (&fl)[4]) {
+          const uint16_t* p = reinterpret_cast<const uint16_t*>(at) + (kk * 8 + t) * APAD + rb;
+          split_tf32(sign * bf16_bits(p[0]), fh[0], fl[0]);
+          split_tf32(sign * bf16_bits(p[8]), fh[1], fl[1]);
+          split_tf32(sign * bf16_bits(p[4 * APAD]), fh[2], fl[2]);
+          split_tf32(sign * bf16_bits(p[4 * APAD + 8]), fh[3], fl[3]);
+        });
+      } else if (rnd) {
+        stage_mma(acc, tot, dh, dl, [&](int kk, uint32_t (&fh)[4], uint32_t (&fl)[4]) {
+          const float* p = at + (kk * 8 + t) * APAD + rb;
+          round_tf32(sign * p[0], fh[0], fl[0]);
+          round_tf32(sign * p[8], fh[1], fl[1]);
+          round_tf32(sign * p[4 * APAD], fh[2], fl[2]);
+          round_tf32(sign * p[4 * APAD + 8], fh[3], fl[3]);
+        }, true);
+      } else {
+        stage_mma(acc, tot, dh, dl, [&](int kk, uint32_t (&fh)[4], uint32_t (&fl)[4]) {
+          const float* p = at + (kk * 8 + t) * APAD + rb;
+          split_tf32(sign * p[0], fh[0], fl[0]);
+          split_tf32(sign * p[8], fh[1], fl[1]);
+          split_tf32(sign * p[4 * APAD], fh[2], fl[2]);
+          split_tf32(sign * p[4 * APAD + 8], fh[3], fl[3]);
+        });
+      }
       if (lane == 0) mbar_arrive(empty + st);
     }
   }
@@ -1126,11 +1188,12 @@ struct Engine {
   long long prep_cap;
   float* part;         // weight-gradient partials (part_cap floats)
   long long part_cap;
+  int rbf16;           // every segment of its launches in the bf16-rounding mode
 };
 
 Seg seg(const float* a, int lda, const float* b, int ldb, int k, bool btrans = false,
         float sign = 1.f) {
-  return Seg{a, b, lda, ldb, k, btrans ? 1 : 0, sign, 0, 0};
+  return Seg{a, b, lda, ldb, k, btrans ? 1 : 0, sign, 0, 0, 0};
 }
 
 NNProb prob(std::initializer_list<Seg> segs, int n, int epi, float* c, int ldc,
@@ -1188,14 +1251,17 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
       if (P.n % 4 || P.ldc % 4 || P.ldc2 % 4 || P.ldg % 4) return cudaErrorInvalidValue;
       for (int s = 0; s < src.nseg; ++s) {
         const Seg& S = src.seg[s];
-        // bf16 A: gathered rows only, 8-byte aligned (the gather's chunks)
-        if (S.k % 4 || S.lda % 4 || (S.abf16 ? !P.gather || !aligned8(S.a) : !aligned16(S.a)))
+        const int rnd = S.rbf16 || en.rbf16;
+        // bf16 A: gathered rows only, 8-byte aligned (the gather's chunks); rounding: fp32 A
+        if (S.k % 4 || S.lda % 4 || (S.abf16 ? !P.gather || !aligned8(S.a) : !aligned16(S.a)) ||
+            (rnd && S.abf16))
           return cudaErrorInvalidValue;
-        // one prep job per distinct (b, ldb, btrans, K, N)
+        // one prep job per distinct (b, ldb, btrans, K, N, rounding)
         float* dst = nullptr;
         for (int j = 0; j < pb.nj; ++j) {
           const PrepJob& J = pb.j[j];
-          if (J.src == S.b && J.ld == S.ldb && J.btrans == S.btrans && J.k == S.k && J.n == P.n)
+          if (J.src == S.b && J.ld == S.ldb && J.btrans == S.btrans && J.k == S.k &&
+              J.n == P.n && J.rnd == rnd)
             dst = J.dst;
         }
         if (!dst) {
@@ -1203,7 +1269,7 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
           off += 2LL * P.n * S.k;
           if (off > en.prep_cap) return cudaErrorInvalidValue;
           PrepJob& J = pb.j[pb.nj++];
-          J = PrepJob{S.b, dst, S.ldb, S.k, P.n, S.btrans, (S.k + 31) / 32, ptiles};
+          J = PrepJob{S.b, dst, S.ldb, S.k, P.n, S.btrans, (S.k + 31) / 32, ptiles, rnd};
           ptiles += J.tiles_k * ((P.n + 31) / 32);
         }
         MMSeg& M = P.seg[s];
@@ -1212,7 +1278,8 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
         M.k = S.k;
         M.sign = S.sign;
         M.abf16 = S.abf16;
-        M.one = S.one;
+        M.one = S.one || rnd;
+        M.rbf16 = rnd;
         const cuuint64_t bd[3] = {(cuuint64_t)S.k, (cuuint64_t)P.n, 2};
         const cuuint64_t bs[2] = {(cuuint64_t)S.k * 4, (cuuint64_t)S.k * P.n * 4};
         const cuuint32_t bb[3] = {BK, BN, 1};
@@ -1348,13 +1415,15 @@ cudaError_t launch_wgrads(const Engine& en, const std::vector<TNProb>& probs, cu
       if (src.n % 4 || src.m % 4 || src.ldo % 2) return cudaErrorInvalidValue;
       for (int s = 0; s < src.nseg; ++s) {
         const TSeg& S = src.seg[s];
+        const int rnd = S.rbf16 || en.rbf16;
         if (S.lda % 4 || S.ldb % 4 || !(S.abf16 ? aligned8(S.a) : aligned16(S.a)) ||
-            !aligned16(S.b))
+            !aligned16(S.b) || (rnd && S.abf16))
           return cudaErrorInvalidValue;
         P.seg[s].a = S.a;
         P.seg[s].lda = S.lda;
         P.seg[s].sign = S.sign;
         P.seg[s].abf16 = S.abf16;
+        P.seg[s].rbf16 = rnd;
         const cuuint64_t d[2] = {(cuuint64_t)src.n, (cuuint64_t)en.max_rows};
         const cuuint64_t sb[1] = {(cuuint64_t)S.ldb * 4};
         const cuuint32_t bx[2] = {BN, BK};

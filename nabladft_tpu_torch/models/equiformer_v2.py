@@ -32,7 +32,17 @@ and each block's two residual branches a drop-path mask [B, 1, 1, 1] (p =
 the step; its offset on the card counts the draws); in ``eval()`` mode
 dropk is ones and nothing is dropped. Parameters are named as the flax tree
 of the Pallas layout (`models/convert.load_flax_params`).
-``compute_dtype="bfloat16"`` is not ported and raises.
+
+``compute_dtype="bfloat16"`` follows the JAX model's fused (Pallas) path in
+bf16 (``nabladft_tpu/models/equiformer_v2.py:144-165, 655-749``), op for op:
+the embedding's rows rounded to bf16, the edge-degree projection a bf16
+Dense on the edge features rounded to bf16, its neighbour sum float32 (so
+the stream is float32 from there on); each block's attention and the force
+block in the kernels' bf16 mode (``mxu_bf16``: `ops.eqv2_attn`'s rounding
+points, in both `use_pallas` modes, so "off" is the fused path's oracle),
+its norms and projections float32, its grid FFN on the input rounded to
+bf16 with bf16 Dense layers and silu; the final norm and the energy FFN
+float32. The parameters are float32 in both dtypes.
 
 ``m_share_rad=False`` builds the reference-compatible variant that serves
 the published checkpoints (the JAX model's XLA-only path,
@@ -44,7 +54,8 @@ SO3_LinearV2, grid MLP), the reference edge-degree embedding (÷ avg_degree)
 and the energy ÷ avg_num_nodes; its parameters carry the XLA tree's names.
 The JAX package has no kernel for it either, so it is a plain PyTorch path
 chosen by the variant at construction: asking for ``use_pallas="fused"``
-with it raises, and kernels O and P never run there.
+with it raises, and kernels O and P never run there. It takes float32 only:
+in bf16 it raises (its bf16 compute is not ported).
 """
 
 from __future__ import annotations
@@ -58,8 +69,8 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    LayerNormParams, ModelOutput, compute_dtype_of, init_linear_, lecun_normal_,
-    register_model,
+    LayerNormParams, Linear, ModelOutput, compute_dtype_of, init_linear_, lecun_normal_,
+    register_model, silu,
 )
 from nabladft_tpu_torch.ops import eqv2_attn, graph, so3
 from nabladft_tpu_torch.ops.escn_layer import _expand_matrix, _spans, grid_act, grid_mats
@@ -92,22 +103,31 @@ class EquivariantLayerNorm(nn.Module):
 
 
 class GridFFN(nn.Module):
-    """The grid-projected pointwise MLP (three bias-free Dense, silu between)."""
+    """The grid-projected pointwise MLP (three bias-free Dense, silu between).
+    With `compute_dtype` bf16 as the JAX GridFFN(dtype=bfloat16): the input
+    rounded to bf16, projected onto the grid in float32 (the float32 table
+    promotes it), the Dense layers and silu in bf16, the bf16 result
+    projected back in float32."""
 
-    def __init__(self, l_max: int, c: int, hidden: int, out_channels: int, grid_points: int):
+    def __init__(self, l_max: int, c: int, hidden: int, out_channels: int, grid_points: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.dense_0 = nn.Linear(c, hidden, bias=False)
-        self.dense_1 = nn.Linear(hidden, hidden, bias=False)
-        self.dense_2 = nn.Linear(hidden, out_channels, bias=False)
+        self.compute_dtype = compute_dtype
+        self.dense_0 = Linear(c, hidden, bias=False, compute_dtype=compute_dtype)
+        self.dense_1 = Linear(hidden, hidden, bias=False, compute_dtype=compute_dtype)
+        self.dense_2 = Linear(hidden, out_channels, bias=False, compute_dtype=compute_dtype)
         to_g, from_g = grid_mats(l_max, grid_points)
         self.register_buffer("to_g", torch.as_tensor(to_g, dtype=torch.float32), persistent=False)
         self.register_buffer("from_g", torch.as_tensor(from_g, dtype=torch.float32),
                              persistent=False)
 
     def forward(self, x):  # [B,A,S,C]
-        g = F.silu(self.dense_0(torch.einsum("ps,basc->bapc", self.to_g, x)))
-        g = F.silu(self.dense_1(g))
-        return torch.einsum("sp,bapc->basc", self.from_g, self.dense_2(g))
+        dt = x.dtype
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype).to(dt)
+        g = silu(self.dense_0(torch.einsum("ps,basc->bapc", self.to_g, x)))
+        g = silu(self.dense_1(g))
+        return torch.einsum("sp,bapc->basc", self.from_g, self.dense_2(g).to(dt))
 
 
 class SO2GraphAttention(nn.Module):
@@ -117,10 +137,10 @@ class SO2GraphAttention(nn.Module):
 
     def __init__(self, l_max: int, m_max: int, c: int, num_heads: int, alpha_channels: int,
                  value_channels: int, out_channels: int, edge_channels: int, grid_points: int,
-                 use_pallas: str):
+                 use_pallas: str, mxu_bf16: bool = False):
         super().__init__()
         self.l_max, self.m_max, self.grid_points = l_max, m_max, grid_points
-        self.use_pallas = use_pallas
+        self.use_pallas, self.mxu_bf16 = use_pallas, mxu_bf16
         self.nh, self.va = num_heads, alpha_channels
         co = num_heads * value_channels
         shapes = eqv2_attn.weight_shapes(l_max, m_max, c, co, edge_channels, num_heads,
@@ -147,7 +167,8 @@ class SO2GraphAttention(nn.Module):
         return ws
 
     def kernel_dims(self) -> dict:
-        return dict(l_max=self.l_max, m_max=self.m_max, n_grid=self.grid_points, nh=self.nh)
+        return dict(l_max=self.l_max, m_max=self.m_max, n_grid=self.grid_points, nh=self.nh,
+                    mxu_bf16=self.mxu_bf16)
 
     def forward(self, x, ctx: dict, dropk: torch.Tensor) -> torch.Tensor:
         ws, kw = self.kernel_weights(), self.kernel_dims()
@@ -376,13 +397,14 @@ class RefTransBlockV2(nn.Module):
 class TransBlockV2(nn.Module):
     def __init__(self, l_max: int, m_max: int, c: int, num_heads: int, alpha_channels: int,
                  value_channels: int, ffn_hidden: int, edge_channels: int, grid_points: int,
-                 use_pallas: str):
+                 use_pallas: str, cdt: torch.dtype = torch.float32):
         super().__init__()
+        bf16 = cdt == torch.bfloat16
         self.norm_1 = EquivariantLayerNorm(l_max, c)
         self.ga = SO2GraphAttention(l_max, m_max, c, num_heads, alpha_channels, value_channels, c,
-                                    edge_channels, grid_points, use_pallas)
+                                    edge_channels, grid_points, use_pallas, bf16)
         self.norm_2 = EquivariantLayerNorm(l_max, c)
-        self.ffn = GridFFN(l_max, c, ffn_hidden, c, grid_points)
+        self.ffn = GridFFN(l_max, c, ffn_hidden, c, grid_points, cdt if bf16 else None)
 
     def forward(self, x, ctx: dict, model: "EquiformerV2"):
         h = self.ga(self.norm_1(x), ctx, model.alpha_keep(ctx))
@@ -392,7 +414,8 @@ class TransBlockV2(nn.Module):
 
 @register_model("equiformer_v2")
 class EquiformerV2(nn.Module):
-    """EquiformerV2 in float32; defaults follow the reference's
+    """EquiformerV2 in float32 or bf16 (`compute_dtype`; the m-shared
+    variant); defaults follow the reference's
     config/model/equiformer_v2_oc20.yaml (the JAX model's defaults).
 
     Built on `device` (the card unless the caller names another) with
@@ -434,7 +457,12 @@ class EquiformerV2(nn.Module):
         super().__init__()
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
-        compute_dtype_of(compute_dtype, "EquiformerV2", ported=("float32",))
+        self.cdt = compute_dtype_of(compute_dtype, "EquiformerV2")
+        bf16 = self.cdt == torch.bfloat16
+        if not m_share_rad and bf16:
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' with m_share_rad=False: the reference-compatible "
+                "variant's bf16 compute is not ported (ROADMAP queue 1: bf16 compute)")
         if not m_share_rad and use_pallas == "fused":
             raise ValueError("m_share_rad=False (the reference-compatible variant) has no fused "
                              "kernel, in the JAX package either: build it with use_pallas='off'")
@@ -455,13 +483,16 @@ class EquiformerV2(nn.Module):
             self.src_embed = nn.Embedding(num_elements, edge_channels)
             self.dst_embed = nn.Embedding(num_elements, edge_channels)
             self.dist_proj = nn.Linear(num_distance_basis, edge_channels)
-            self.edge_degree_proj = nn.Linear(3 * edge_channels, (l_max + 1) * c)
+            self.edge_degree_proj = Linear(3 * edge_channels, (l_max + 1) * c,
+                                           compute_dtype=self.cdt if bf16 else None)
             for i in range(num_layers):
                 setattr(self, f"block_{i}", TransBlockV2(*attn, ffn_hidden_channels,
-                                                         3 * edge_channels, gp, use_pallas))
+                                                         3 * edge_channels, gp, use_pallas,
+                                                         self.cdt))
             self.norm_final = EquivariantLayerNorm(l_max, c)
             self.energy_ffn = GridFFN(l_max, c, ffn_hidden_channels, 1, gp)
-            self.force_block = SO2GraphAttention(*attn, 1, 3 * edge_channels, gp, use_pallas)
+            self.force_block = SO2GraphAttention(*attn, 1, 3 * edge_channels, gp, use_pallas,
+                                                 bf16)
         else:
             hid = attn_hidden_channels or num_heads * attn_value_channels
             edge = (edge_channels, num_distance_basis, num_elements, gp)
@@ -588,7 +619,8 @@ class EquiformerV2(nn.Module):
         dcomp, k = ctx["d"], ctx["d"].shape[2]
 
         x = batch.pos.new_zeros((b, a, (L + 1) ** 2, C))
-        x[:, :, 0, :] = self.sphere_embedding(z)
+        emb = self.sphere_embedding(z)  # flax Embed(dtype=bfloat16) rounds the rows
+        x[:, :, 0, :] = emb.to(self.cdt) if self.cdt == torch.bfloat16 else emb
         # edge-degree embedding: each edge's m=0 radial rows rotated back with
         # the compact values (row (l, 0) of block l), summed over neighbours in
         # the contraction
@@ -600,7 +632,8 @@ class EquiformerV2(nn.Module):
         else:
             deg = self.edge_degree_proj(ctx["xe"])
             rescale = math.sqrt(float(self.max_neighbors))
-        deg = deg.reshape(b, a, k, L + 1, C)
+        # bf16: the float32 contraction with dcomp promotes it
+        deg = deg.to(dcomp.dtype).reshape(b, a, k, L + 1, C)
         offs, _ = so3.trunc_compact_layout(L, self.m_max)
         cols = []
         for l in range(L + 1):

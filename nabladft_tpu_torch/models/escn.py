@@ -21,9 +21,18 @@ The message runs in one of two modes:
 Both read the same dense pair lattice, scattered from the top-K neighbour
 list, with the compact truncated Wigner values masked to the graph.
 Parameters are named as the flax tree of the Pallas layout
-(`models/convert.load_flax_params`). ``compute_dtype="bfloat16"`` is not
-ported and raises. Like the JAX package's fused path, the layers are not
-rematerialised (the JAX model's `remat` serves its XLA path only).
+(`models/convert.load_flax_params`). Like the JAX package's fused path, the
+layers are not rematerialised (the JAX model's `remat` serves its XLA path
+only).
+
+``compute_dtype="bfloat16"`` follows the JAX model's fused path in bf16
+(``nabladft_tpu/models/escn.py:415-428``): the embedding's rows are rounded
+to bf16 (flax's ``Embed(dtype=bfloat16)``), the stream is float32 from
+there on, and every layer's message runs in the kernels' bf16 mode
+(``mxu_bf16``: each product's operands rounded to bf16, float32 sums; in
+both modes, so "off" is the fused path's oracle); the edge block, the
+sphere-MLP tail and the heads stay float32. The parameters are float32 in
+both dtypes.
 """
 
 from __future__ import annotations
@@ -67,9 +76,10 @@ class ESCNLayer(nn.Module):
 
     def __init__(self, l_max: int, m_max: int, c: int, hidden: int, edge_channels: int,
                  num_elements: int, cutoff: float, num_gaussians: int, grid_points: int,
-                 use_pallas: str):
+                 use_pallas: str, mxu_bf16: bool = False):
         super().__init__()
         self.l_max, self.m_max, self.grid_points, self.use_pallas = l_max, m_max, grid_points, use_pallas
+        self.mxu_bf16 = mxu_bf16
         self.edge_block = EdgeBlock(edge_channels, num_elements, cutoff, num_gaussians)
         for name, shape in zip(self.weight_names(m_max),
                                escn_layer.weight_shapes(l_max, m_max, c, hidden, edge_channels)):
@@ -92,7 +102,8 @@ class ESCNLayer(nn.Module):
     def forward(self, x, dcomp, dist_d, z_src_d, z_dst_d):
         xe = self.edge_block(dist_d, z_src_d, z_dst_d)
         ws = [getattr(self, n) for n in self.weight_names(self.m_max)]
-        kw = dict(l_max=self.l_max, m_max=self.m_max, n_grid=self.grid_points)
+        kw = dict(l_max=self.l_max, m_max=self.m_max, n_grid=self.grid_points,
+                  mxu_bf16=self.mxu_bf16)
         if self.use_pallas == "fused":
             msg = escn_layer.escn_message(x.contiguous(), dcomp, xe.contiguous(), *ws, **kw)
         else:
@@ -108,7 +119,8 @@ class ESCNLayer(nn.Module):
 
 @register_model("escn")
 class ESCN(nn.Module):
-    """eSCN in float32; defaults follow the reference's config/model/escn-oc.yaml.
+    """eSCN in float32 or bf16 (`compute_dtype`); defaults follow the
+    reference's config/model/escn-oc.yaml.
 
     Built on `device` (the card unless the caller names another) with
     weights drawn from `generator` with flax's initialisers (truncated
@@ -142,7 +154,7 @@ class ESCN(nn.Module):
         super().__init__()
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
-        compute_dtype_of(compute_dtype, "eSCN", ported=("float32",))
+        self.cdt = compute_dtype_of(compute_dtype, "eSCN")
         c = sphere_channels
         self.num_layers, self.l_max, self.m_max, self.c = num_layers, l_max, m_max, c
         self.cutoff, self.max_neighbors = cutoff, max_neighbors
@@ -153,7 +165,7 @@ class ESCN(nn.Module):
         self.sphere_embedding = nn.Embedding(num_elements, c)
         self.layers = nn.ModuleList(
             ESCNLayer(l_max, m_max, c, hidden, edge_channels, num_elements, cutoff, num_gauss,
-                      grid_points_factor * s, use_pallas)
+                      grid_points_factor * s, use_pallas, self.cdt == torch.bfloat16)
             for _ in range(num_layers))
         for head in ("energy", "force"):
             setattr(self, f"{head}_fc1", nn.Linear(c, c))
@@ -198,7 +210,8 @@ class ESCN(nn.Module):
         z_dst_d = z[:, :, None].expand(b, a, a)
 
         x = batch.pos.new_zeros((b, a, (self.l_max + 1) ** 2, self.c))
-        x[:, :, 0, :] = self.sphere_embedding(z)
+        emb = self.sphere_embedding(z)  # flax Embed(dtype=bfloat16) rounds the rows
+        x[:, :, 0, :] = emb.to(self.cdt) if self.cdt == torch.bfloat16 else emb
         for i, layer in enumerate(self.layers):
             out = layer(x, dcomp, dist_d, z_src_d, z_dst_d)
             x = out if i == 0 else x + out

@@ -31,6 +31,19 @@ weight get cotangents; idx, d, maskf and dropk none. Each kernel has a plain
 PyTorch version here, written over index gathers (the JAX op gathers with a
 one-hot matmul); a wrapper takes it only for CPU tensors, and a CUDA tensor
 launches the kernel (``csrc/eqv2_attn.cu``, built for L=6, M=2) or raises.
+
+``mxu_bf16=True`` is the TPU kernels' bf16 mode (the model's
+``compute_dtype="bfloat16"``): where `_attn_pipeline` and the hand-written
+`_attn_pipeline_bwd` pass a value through `_mdot(., ., True)` it is rounded
+to bf16, and nowhere else: both operands of the radial product, of the SO(2)
+products, their transposes and every weight gradient (`escn_layer.mdot`);
+the gathered sender rows x_j (the JAX gather is a one-hot product; the
+receiver's own rows x_i are broadcast and stay float32); and, in the
+backward, each edge's cotangent of its sender's rows before the sum over
+the edges (the gather's transpose). The per-head expander products, b_rad,
+the LayerNorm and alpha vectors and their gradients stay float32. The
+kernels' entry points ``eqv2_fwd_bf16`` / ``eqv2_bwd_bf16`` count as
+"eqv2_fwd_bf16" / "eqv2_bwd_bf16".
 """
 
 from __future__ import annotations
@@ -44,12 +57,13 @@ import torch.nn.functional as F
 
 from nabladft_tpu_torch.ops import _kernels, so3
 from nabladft_tpu_torch.ops.escn_layer import (
-    _expand_matrix, _ptrs, _rot_macs, _spans, _table, grid_act, s_trunc,
+    _expand_matrix, _ptrs, _rot_macs, _spans, _table, grid_act, mdot, round_bf16, s_trunc,
 )
 from nabladft_tpu_torch.ops.graph import gather_nodes
 
 # launches of each CUDA kernel wrapper since the last reset
-LAUNCHES: Dict[str, int] = {"eqv2_fwd": 0, "eqv2_bwd": 0, "so2_products": 0, "so2_wgrads": 0}
+LAUNCHES: Dict[str, int] = {"eqv2_fwd": 0, "eqv2_bwd": 0, "eqv2_fwd_bf16": 0, "eqv2_bwd_bf16": 0,
+                             "so2_products": 0, "so2_wgrads": 0}
 
 LN_EPS = 1e-6
 
@@ -119,25 +133,42 @@ def _dims(ws, l_max: int, m_max: int, nh: int):
 # ---------------------------------------------------------------------------
 
 
-def _so2_eq(flat, c_in: int, co: int, w0, fcm, l_max: int, m_max: int):
+class _RoundedRows(torch.autograd.Function):
+    """The bf16 mode's gathered sender rows: rounded to bf16, and their
+    cotangents rounded too (the one-hot gather's transpose in
+    `_attn_pipeline_bwd` is an `_mdot` of its own, summed over the edges in
+    float32 by the gather's backward)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return round_bf16(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return round_bf16(g)
+
+
+def _so2_eq(flat, c_in: int, co: int, w0, fcm, l_max: int, m_max: int, mxu_bf16: bool = False):
     """An SO(2) conv on m-major flats [..., S_t·c_in]: ([..., S_t·co], the
     extra m=0 columns of w0 or None)."""
+    mm = functools.partial(mdot, mxu_bf16=mxu_bf16)
     spans = _spans(l_max, m_max)
     s0, n0 = spans[0]
-    h0 = flat[..., s0 * c_in:(s0 + n0) * c_in] @ w0
+    h0 = mm(flat[..., s0 * c_in:(s0 + n0) * c_in], w0)
     parts = [h0[..., :n0 * co]]
     extra = h0[..., n0 * co:] if h0.shape[-1] > n0 * co else None
     for m in range(1, m_max + 1):
         (sp, n_l), (sm, _) = spans[2 * m - 1], spans[2 * m]
         fp, fm = flat[..., sp * c_in:(sp + n_l) * c_in], flat[..., sm * c_in:(sm + n_l) * c_in]
         wr, wi = fcm[m - 1][:, :n_l * co], fcm[m - 1][:, n_l * co:]
-        parts += [fp @ wr - fm @ wi, fm @ wr + fp @ wi]
+        parts += [mm(fp, wr) - mm(fm, wi), mm(fm, wr) + mm(fp, wi)]
     return torch.cat(parts, dim=-1), extra
 
 
 def eqv2_fwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, l_max: int, m_max: int,
-                       n_grid: int, nh: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel O: agg [B,A,S,CO]."""
+                       n_grid: int, nh: int, mxu_bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel O: agg [B,A,S,CO] (`mxu_bf16`: its
+    bf16 mode's roundings)."""
     b, a, s, c = x.shape
     k = idx.shape[2]
     st, n0, c2 = s_trunc(l_max, m_max), l_max + 1, 2 * c
@@ -147,16 +178,18 @@ def eqv2_fwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, l_max: int, m_max: 
     ln_scale, ln_bias, alpha_dot = (w.reshape(nh, va) for w in ws[-3:])
     expand = torch.as_tensor(_expand_matrix(l_max, m_max), dtype=d.dtype, device=d.device)
     dt = (d @ expand).reshape(b, a, k, st, s)
-    src = torch.einsum("bakrs,baksc->bakrc", dt, gather_nodes(x, idx))
+    xj = gather_nodes(x, idx)
+    src = torch.einsum("bakrs,baksc->bakrc", dt, _RoundedRows.apply(xj) if mxu_bf16 else xj)
     tgt = torch.einsum("bakrs,basc->bakrc", dt, xi)
-    rad = (xe @ w_rad + b_rad).reshape(b, a, k, n0, c2)
+    rad = (mdot(xe, w_rad, mxu_bf16) + b_rad).reshape(b, a, k, n0, c2)
     l_of_row = torch.as_tensor([l for l, _ in so3.mmajor_rows(l_max, m_max)], device=x.device)
     flat = (torch.cat([src, tgt], dim=-1) * rad[..., l_of_row, :]).reshape(b, a, k, st * c2)
-    hidden, extra = _so2_eq(flat, c2, co, w1, fc1m, l_max, m_max)
+    hidden, extra = _so2_eq(flat, c2, co, w1, fc1m, l_max, m_max, mxu_bf16)
     alpha_scal, gate = extra[..., :nh * va], extra[..., nh * va:]
     acted = grid_act(hidden.reshape(b, a, k, st, co), l_max, m_max, n_grid)
     acted = torch.cat([F.silu(gate)[..., None, :], acted[..., 1:, :]], dim=-2)
-    values, _ = _so2_eq(acted.reshape(b, a, k, st * co), co, co, w2, fc2m, l_max, m_max)
+    values, _ = _so2_eq(acted.reshape(b, a, k, st * co), co, co, w2, fc2m, l_max, m_max,
+                        mxu_bf16)
 
     al = alpha_scal.reshape(b, a, k, nh, va)
     cen = al - al.mean(dim=-1, keepdim=True)
@@ -171,13 +204,15 @@ def eqv2_fwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, l_max: int, m_max: 
 
 
 def eqv2_bwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, g, l_max: int, m_max: int,
-                       n_grid: int, nh: int):
+                       n_grid: int, nh: int, mxu_bf16: bool = False):
     """Plain PyTorch version of kernel P (autograd of kernel O's plain
-    version): (gx, gxi, gxe, *gws) in the order of ws."""
+    version; in the bf16 mode `_MDot`'s and `_RoundedRows`' backwards round
+    as `_attn_pipeline_bwd` does): (gx, gxi, gxe, *gws) in the order of ws."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (x, xi, xe, *ws)]
         out = eqv2_fwd_reference(ins[0], ins[1], idx, d.detach(), ins[2], maskf, dropk, *ins[3:],
-                                 l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh)
+                                 l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh,
+                                 mxu_bf16=mxu_bf16)
         grads = torch.autograd.grad(out, ins, g)
     return tuple(t.detach() for t in grads)
 
@@ -197,10 +232,12 @@ def _lib() -> ctypes.CDLL:
     lib.eqv2_scratch_floats.restype = ll
     lib.eqv2_scratch_ints.argtypes = [i] * 3
     lib.eqv2_scratch_ints.restype = ll
-    lib.eqv2_fwd.argtypes = [p] * 7 + [pp] + [p] * 5 + [i] * 12 + [p]
-    lib.eqv2_fwd.restype = i
-    lib.eqv2_bwd.argtypes = [p] * 7 + [pp] + [p] * 6 + [pp] + [p] * 2 + [i] * 12 + [p]
-    lib.eqv2_bwd.restype = i
+    for sfx in ("", "_bf16"):
+        fwd, bwd = getattr(lib, "eqv2_fwd" + sfx), getattr(lib, "eqv2_bwd" + sfx)
+        fwd.argtypes = [p] * 7 + [pp] + [p] * 5 + [i] * 12 + [p]
+        fwd.restype = i
+        bwd.argtypes = [p] * 7 + [pp] + [p] * 6 + [pp] + [p] * 2 + [i] * 12 + [p]
+        bwd.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.so2_products_probe.argtypes = [i, ip, pp, ll, p, p, p, ll, i, p]
     lib.so2_products_probe.restype = i
@@ -278,69 +315,70 @@ def _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, bwd: bool):
 
 
 def eqv2_fwd(x, xi, idx, d, xe, maskf, dropk, *ws, l_max: int, m_max: int, n_grid: int,
-             nh: int) -> torch.Tensor:
-    """Kernel O: agg [B,A,S,CO]."""
+             nh: int, mxu_bf16: bool = False) -> torch.Tensor:
+    """Kernel O: agg [B,A,S,CO] (`mxu_bf16`: its bf16 mode, eqv2_fwd_bf16)."""
     dev = _check(x, xi, idx, d, xe, maskf, dropk, ws, l_max, m_max, nh)
-    kw = dict(l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh)
+    kw = dict(l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh, mxu_bf16=mxu_bf16)
     if dev.type == "cpu":
         return eqv2_fwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, **kw)
     idx32, tog, fromg, fs, iscr, ints = _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, False)
     b, a, s, _ = x.shape
     out = torch.empty((b, a, s, _dims(ws, l_max, m_max, nh)[0]), dtype=torch.float32, device=dev)
-    _launch("eqv2_fwd", dev, x.data_ptr(), xi.data_ptr(), idx32.data_ptr(), d.data_ptr(),
+    name = "eqv2_fwd_bf16" if mxu_bf16 else "eqv2_fwd"
+    _launch(name, dev, x.data_ptr(), xi.data_ptr(), idx32.data_ptr(), d.data_ptr(),
             xe.data_ptr(), maskf.data_ptr(), dropk.data_ptr(), _ptrs(ws), tog.data_ptr(),
             fromg.data_ptr(), out.data_ptr(), fs.data_ptr(), iscr.data_ptr(), *ints)
-    LAUNCHES["eqv2_fwd"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
 def eqv2_bwd(x, xi, idx, d, xe, maskf, dropk, *ws, g, l_max: int, m_max: int, n_grid: int,
-             nh: int):
-    """Kernel P: (gx, gxi, gxe, *gws) in the order of ws."""
+             nh: int, mxu_bf16: bool = False):
+    """Kernel P: (gx, gxi, gxe, *gws) in the order of ws (`mxu_bf16`: its
+    bf16 mode, eqv2_bwd_bf16)."""
     dev = _check(x, xi, idx, d, xe, maskf, dropk, ws, l_max, m_max, nh, g)
-    kw = dict(l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh)
+    kw = dict(l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh, mxu_bf16=mxu_bf16)
     if dev.type == "cpu":
         return eqv2_bwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, g=g, **kw)
     idx32, tog, fromg, fs, iscr, ints = _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, True)
     gx, gxi = torch.empty_like(x), torch.empty_like(xi)
     gxe = torch.zeros_like(xe)  # the kernel writes the live edges' rows only
     gws = [torch.empty_like(w) for w in ws]
-    _launch("eqv2_bwd", dev, x.data_ptr(), xi.data_ptr(), idx32.data_ptr(), d.data_ptr(),
+    name = "eqv2_bwd_bf16" if mxu_bf16 else "eqv2_bwd"
+    _launch(name, dev, x.data_ptr(), xi.data_ptr(), idx32.data_ptr(), d.data_ptr(),
             xe.data_ptr(), maskf.data_ptr(), dropk.data_ptr(), _ptrs(ws), tog.data_ptr(),
             fromg.data_ptr(), g.data_ptr(), gx.data_ptr(), gxi.data_ptr(), gxe.data_ptr(),
             _ptrs(gws), fs.data_ptr(), iscr.data_ptr(), *ints)
-    LAUNCHES["eqv2_bwd"] += 1
+    LAUNCHES[name] += 1
     return (gx, gxi, gxe, *gws)
 
 
 class EqV2AttentionFn(torch.autograd.Function):
     """`eqv2_attention_vjp`'s custom VJP: forward = kernel O, backward =
-    kernel P. Inputs (dims, x, xi, idx, d, xe, maskf, dropk, *ws) with dims =
-    (l_max, m_max, n_grid, nh); idx, d, maskf and dropk get no gradient."""
+    kernel P, both in the mode `mxu_bf16`. Inputs (dims, x, xi, idx, d, xe,
+    maskf, dropk, *ws) with dims = (l_max, m_max, n_grid, nh, mxu_bf16); idx,
+    d, maskf and dropk get no gradient."""
 
     @staticmethod
     def forward(ctx, dims, x, xi, idx, d, xe, maskf, dropk, *ws):
         ctx.save_for_backward(x, xi, idx, d, xe, maskf, dropk, *ws)
-        ctx.dims = dims
-        l_max, m_max, n_grid, nh = dims
-        return eqv2_fwd(x, xi, idx, d, xe, maskf, dropk, *ws, l_max=l_max, m_max=m_max,
-                        n_grid=n_grid, nh=nh)
+        ctx.dims = dict(zip(("l_max", "m_max", "n_grid", "nh", "mxu_bf16"), dims))
+        return eqv2_fwd(x, xi, idx, d, xe, maskf, dropk, *ws, **ctx.dims)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, xi, idx, d, xe, maskf, dropk, *ws = ctx.saved_tensors
-        l_max, m_max, n_grid, nh = ctx.dims
         gx, gxi, gxe, *gws = eqv2_bwd(x, xi, idx, d, xe, maskf, dropk, *ws, g=g.contiguous(),
-                                      l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh)
+                                      **ctx.dims)
         return (None, gx, gxi, None, None, gxe, None, None, *gws)
 
 
 def eqv2_attention(x, xi, idx, d, xe, maskf, dropk, *ws, l_max: int, m_max: int, n_grid: int,
-                   nh: int) -> torch.Tensor:
+                   nh: int, mxu_bf16: bool = False) -> torch.Tensor:
     """Fused EqV2 SO(2) graph attention: agg [B,A,S,CO]."""
-    return EqV2AttentionFn.apply((l_max, m_max, n_grid, nh), x, xi, idx, d, xe, maskf, dropk,
-                                 *ws)
+    return EqV2AttentionFn.apply((l_max, m_max, n_grid, nh, mxu_bf16), x, xi, idx, d, xe, maskf,
+                                 dropk, *ws)
 
 
 # ---------------------------------------------------------------------------
@@ -354,14 +392,16 @@ def live_edges(maskf: torch.Tensor) -> int:
 
 
 def flops_bytes(kind: str, x, idx, d, xe, maskf, dropk, ws: Sequence[torch.Tensor], l_max: int,
-                m_max: int, n_grid: int, nh: int) -> Dict[str, int]:
+                m_max: int, n_grid: int, nh: int, mxu_bf16: bool = False) -> Dict[str, int]:
     """The work of kernel `kind` ("O" or "P") on these inputs: "flops" the
     JAX package's FLOP model (without its one-hot gather) over all B·A·K
     edge slots, "flops_live" the same model per edge times the live edges
     (the kernels skip the others, and the bound counts what the data needs),
     "flops_live_products" / "flops_live_other" its split (the product
     engine's work and the rest; `edge_fwd_flops_split`), and "bytes" with each
-    input read once and each output written once."""
+    input read once and each output written once (float32 in both modes).
+    "products_dtype": "float32", or "bfloat16" in the bf16 mode (the bound's
+    product rate, as `escn_layer.flops_bytes`)."""
     b, a, s, c = x.shape
     k = idx.shape[2]
     co, va = _dims(ws, l_max, m_max, nh)
@@ -376,7 +416,7 @@ def flops_bytes(kind: str, x, idx, d, xe, maskf, dropk, ws: Sequence[torch.Tenso
     live = live_edges(maskf)
     return {"flops": int(per * b * a * k), "flops_live": int(per * live),
             "flops_live_products": int(prod * live), "flops_live_other": int(other * live),
-            "bytes": nbytes}
+            "bytes": nbytes, "products_dtype": "bfloat16" if mxu_bf16 else "float32"}
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +448,8 @@ def _row_list(eidx, n_rows: int, dev) -> torch.Tensor:
 
 
 def so2_products_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
-    """Plain version of `so2_products`: the same sums in the inputs' dtype."""
+    """Plain version of `so2_products`: the same sums in the inputs' dtype
+    (a segment's "rbf16": both operands rounded to bf16 first)."""
     rows = torch.arange(n_rows, device=problems[0]["segs"][0]["a"].device)
     live = eidx[:n_rows].long() if eidx is not None else rows
     for p in problems:
@@ -417,6 +458,8 @@ def so2_products_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> 
         for sg in p["segs"]:
             a = sg["a"][live if p.get("gather") else rows, :sg["k"]]
             b = sg["b"][:n, :sg["k"]].T if sg.get("btrans") else sg["b"][:sg["k"], :n]
+            if sg.get("rbf16"):
+                a, b = round_bf16(a), round_bf16(b)
             acc = acc + sg.get("sign", 1.0) * (a @ b)
         out = live if p.get("scatter") else rows
         epi = p.get("epi", "store")
@@ -441,7 +484,8 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
     place, with the engine of so2_common.cuh (3xTF32 on the tensor cores) on
     card tensors, or the plain version on CPU tensors. A problem: "segs"
     (up to 4 dicts: "a" a 2-D view with rows of K, "b" [K, N] or, with
-    "btrans", [N, K], "k", "sign" ±1), "n", "epi" ("store", "gates": c = acc
+    "btrans", [N, K], "k", "sign" ±1, "rbf16" both operands rounded to bf16,
+    one TF32 pass), "n", "epi" ("store", "gates": c = acc
     + bias and c2 = silu of it, "gated": c = v and c2 = v · gate[e] with v =
     acc (+ bias where given), gate may be c2), the 2-D output views "c" /
     "c2", "bias", "gate", and "gather" (A's row eidx[e]) / "scatter" (C's
@@ -474,7 +518,7 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
         ptrs += [c, c2, bias, gate]
         for sg in list(segs) + [None] * (MAXSEG - len(segs)):
             if sg is None:
-                ints += [0] * 5
+                ints += [0] * 6
                 ptrs += [0, 0]
                 continue
             k = sg["k"]
@@ -483,7 +527,8 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
             b, ldb = _rows(sg["b"], *((n, k) if sg.get("btrans") else (k, n)))
             if sg["a"].device != dev or sg["b"].device != dev:
                 raise ValueError(f"every tensor must be on {dev}")
-            ints += [lda, ldb, k, int(bool(sg.get("btrans"))), int(sg.get("sign", 1))]
+            ints += [lda, ldb, k, int(bool(sg.get("btrans"))), int(sg.get("sign", 1)),
+                     int(bool(sg.get("rbf16")))]
             ptrs += [a, b]
             prep += 2 * p["n"] * sg["k"]
     nr = torch.tensor([n_rows], dtype=torch.int32, device=dev)
@@ -534,7 +579,8 @@ def so2_live_rows(flags: torch.Tensor, seg: int):
 
 
 def so2_wgrads_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
-    """Plain version of `so2_wgrads`."""
+    """Plain version of `so2_wgrads` (a segment's "rbf16": both operands
+    rounded to bf16 first)."""
     rows = torch.arange(n_rows, device=problems[0]["out"].device)
     for p in problems:
         m, n, mode = p["m"], p["n"], p.get("amode", "rows")
@@ -545,6 +591,8 @@ def so2_wgrads_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> No
                 term = b.sum(dim=0, keepdim=True)
             else:
                 a = sg["a"][eidx[:n_rows].long() if mode == "gather" else rows, :m]
+                if sg.get("rbf16"):
+                    a, b = round_bf16(a), round_bf16(b)
                 term = a.T @ b
             acc = acc + sg.get("sign", 1.0) * term
         p["out"][:m, :n] = acc
@@ -554,7 +602,8 @@ def so2_wgrads(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
     """out[m, n] = Σ_seg sign · Σ_{e < n_rows} A[row(e), m] B[e, n], in place,
     with the engine's weight-gradient path on card tensors (the same bits
     every run), or the plain version on CPU tensors. A problem: "segs" (1
-    or 2 dicts: "a" and "b" 2-D views [rows, .], "sign" ±1), "amode"
+    or 2 dicts: "a" and "b" 2-D views [rows, .], "sign" ±1, "rbf16" both
+    operands rounded to bf16, one TF32 pass), "amode"
     ("rows", "gather": A's row eidx[e], "ones": A = 1 and m = 1), "m", "n"
     and the 2-D view "out"."""
     dev = problems[0]["out"].device
@@ -577,7 +626,7 @@ def so2_wgrads(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
         ptrs += [out]
         for sg in list(segs) + [None] * (2 - len(segs)):
             if sg is None:
-                ints += [0, 0, 1]
+                ints += [0, 0, 1, 0]
                 ptrs += [0, 0]
                 continue
             # B's rows (and A's unless gathered) come by TMA / cp.async over max_rows
@@ -586,7 +635,7 @@ def so2_wgrads(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
             b, ldb = _rows(sg["b"], max_rows, p["n"])
             if sg["b"].device != dev or (mode != "ones" and sg["a"].device != dev):
                 raise ValueError(f"every tensor must be on {dev}")
-            ints += [lda, ldb, int(sg.get("sign", 1))]
+            ints += [lda, ldb, int(sg.get("sign", 1)), int(bool(sg.get("rbf16")))]
             ptrs += [a, b]
     lib = _lib()
     c_ints = (ctypes.c_int * len(ints))(*ints)

@@ -26,6 +26,14 @@ kernel has a plain PyTorch version here; a wrapper takes it only for CPU
 tensors, and a CUDA tensor launches the kernel (``csrc/escn_layer.cu``, built
 for L=6, M=2) or raises.
 
+``mxu_bf16=True`` is the TPU kernels' bf16 mode (the model's
+``compute_dtype="bfloat16"``): every product that `_message_pipeline` and
+the hand-written `_pipeline_bwd` pass through `_mdot` (the gate product, the
+SO(2) products, their transposes and every weight gradient) rounds both
+operands to bf16 and sums in float32 (`mdot`); everything else, inputs and
+outputs included, stays float32. The kernels' entry points ``escn_fwd_bf16``
+/ ``escn_bwd_bf16`` count as "escn_fwd_bf16" / "escn_bwd_bf16".
+
 Also here: the host tables (the S2 grids and their separable factors, float64)
 and the JAX package's FLOP model of the layer.
 """
@@ -44,7 +52,7 @@ import torch.nn.functional as F
 from nabladft_tpu_torch.ops import _kernels, so3
 
 # launches of each CUDA kernel wrapper since the last reset
-LAUNCHES: Dict[str, int] = {"escn_fwd": 0, "escn_bwd": 0}
+LAUNCHES: Dict[str, int] = {"escn_fwd": 0, "escn_bwd": 0, "escn_fwd_bf16": 0, "escn_bwd_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -231,19 +239,51 @@ def layer_bwd_flops(b, a, c, h, ec, gates, l_max, m_max, n_grid) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _so2_block(flat, gates, w1_0, w2_0, mws, l_max: int, m_max: int, c: int, h: int):
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (nearest-even, as astype(bfloat16)), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _MDot(torch.autograd.Function):
+    """The TPU kernels' `_mdot(a, b, True)`: a @ b with both operands rounded
+    to bf16 and float32 sums. Its backward is the hand-written VJPs' (each
+    transposed and weight-gradient product is an `_mdot` of its own): g and
+    the other operand rounded, ga = g bᵀ and gb = aᵀ g (b 2-D, summed over
+    a's leading axes)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ar, br = round_bf16(a), round_bf16(b)
+        ctx.save_for_backward(ar, br)
+        return ar @ br
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        gr = round_bf16(g)
+        return gr @ br.T, ar.reshape(-1, ar.shape[-1]).T @ gr.reshape(-1, gr.shape[-1])
+
+
+def mdot(a: torch.Tensor, b: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor:
+    """a @ b (b a 2-D weight), or in the bf16 mode `_MDot`."""
+    return _MDot.apply(a, b) if mxu_bf16 else a @ b
+
+
+def _so2_block(flat, gates, w1_0, w2_0, mws, l_max: int, m_max: int, c: int, h: int,
+               mxu_bf16: bool = False):
     """One stream's SO(2) block on m-major flats [..., S_t·C]; gates silu'd [..., (2M+1)H]."""
+    mm = functools.partial(mdot, mxu_bf16=mxu_bf16)
     spans = _spans(l_max, m_max)
     s0, n0 = spans[0]
-    parts = [((flat[..., s0 * c:(s0 + n0) * c] @ w1_0) * gates[..., :h]) @ w2_0]
+    parts = [mm(mm(flat[..., s0 * c:(s0 + n0) * c], w1_0) * gates[..., :h], w2_0)]
     for m in range(1, m_max + 1):
         (sp, n_l), (sm, _) = spans[2 * m - 1], spans[2 * m]
         fc1, w2r, w2i = mws[3 * (m - 1):3 * m]
-        hp = flat[..., sp * c:(sp + n_l) * c] @ fc1
-        hm = flat[..., sm * c:(sm + n_l) * c] @ fc1
+        hp = mm(flat[..., sp * c:(sp + n_l) * c], fc1)
+        hm = mm(flat[..., sm * c:(sm + n_l) * c], fc1)
         gr, gi = gates[..., (2 * m - 1) * h:2 * m * h], gates[..., 2 * m * h:(2 * m + 1) * h]
-        rp, rm = (hp[..., :h] * gr) @ w2r, (hm[..., :h] * gr) @ w2r
-        ip, im = (hp[..., h:] * gi) @ w2i, (hm[..., h:] * gi) @ w2i
+        rp, rm = mm(hp[..., :h] * gr, w2r), mm(hm[..., :h] * gr, w2r)
+        ip, im = mm(hp[..., h:] * gi, w2i), mm(hm[..., h:] * gi, w2i)
         parts += [rp - im, rm + ip]
     return torch.cat(parts, dim=-1)
 
@@ -259,8 +299,10 @@ def grid_act(msg: torch.Tensor, l_max: int, m_max: int, n_grid: int) -> torch.Te
     return torch.einsum("gts,...gtc->...sc", t("lat_from"), v)
 
 
-def escn_fwd_reference(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel M: out [B,A,S,C]."""
+def escn_fwd_reference(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int,
+                       mxu_bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel M: out [B,A,S,C] (`mxu_bf16`: its
+    products' operands rounded to bf16)."""
     b, a, s, c = x.shape
     st, h = s_trunc(l_max, m_max), ws[2].shape[-1]
     expand = _table("expand", l_max, m_max, n_grid, str(d.device), d.dtype)
@@ -269,21 +311,24 @@ def escn_fwd_reference(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int) -> to
     wg, bg, w1_0, w2_0 = ws[:4]
     msg = None
     for k, stack in enumerate(streams):
-        gates = F.silu(xe @ wg[k] + bg[k])
+        gates = F.silu(mdot(xe, wg[k], mxu_bf16) + bg[k])
         out = _so2_block(stack.reshape(b, a, a, st * c), gates, w1_0[k], w2_0[k],
-                         [w[k] for w in ws[4:]], l_max, m_max, c, h)
+                         [w[k] for w in ws[4:]], l_max, m_max, c, h, mxu_bf16)
         msg = out if msg is None else msg + out
     msg = grid_act(msg.reshape(b, a, a, st, c), l_max, m_max, n_grid)
     return torch.einsum("bijrs,bijrc->bisc", dt, msg)
 
 
-def escn_bwd_reference(x, d, xe, *ws, g, l_max: int, m_max: int, n_grid: int):
+def escn_bwd_reference(x, d, xe, *ws, g, l_max: int, m_max: int, n_grid: int,
+                       mxu_bf16: bool = False):
     """Plain PyTorch version of kernel N (autograd of kernel M's plain
-    version): (gx, gxe, *gws) in the order of ws; d gets none."""
+    version; in the bf16 mode `_MDot`'s backward rounds as `_pipeline_bwd`
+    does, product by product): (gx, gxe, *gws) in the order of ws; d gets
+    none."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (x, xe, *ws)]
         out = escn_fwd_reference(ins[0], d.detach(), *ins[1:], l_max=l_max, m_max=m_max,
-                                 n_grid=n_grid)
+                                 n_grid=n_grid, mxu_bf16=mxu_bf16)
         grads = torch.autograd.grad(out, ins, g)
     return tuple(t.detach() for t in grads)
 
@@ -303,10 +348,12 @@ def _lib() -> ctypes.CDLL:
     lib.escn_scratch_floats.restype = ll
     lib.escn_scratch_ints.argtypes = [i, i]
     lib.escn_scratch_ints.restype = ll
-    lib.escn_fwd.argtypes = [p, p, p, pp, p, p, p, p, p] + [i] * 9 + [p]
-    lib.escn_fwd.restype = i
-    lib.escn_bwd.argtypes = [p, p, p, pp, p, p, p, p, p, pp, p, p] + [i] * 9 + [p]
-    lib.escn_bwd.restype = i
+    for sfx in ("", "_bf16"):
+        fwd, bwd = getattr(lib, "escn_fwd" + sfx), getattr(lib, "escn_bwd" + sfx)
+        fwd.argtypes = [p, p, p, pp, p, p, p, p, p] + [i] * 9 + [p]
+        fwd.restype = i
+        bwd.argtypes = [p, p, p, pp, p, p, p, p, p, pp, p, p] + [i] * 9 + [p]
+        bwd.restype = i
     return lib
 
 
@@ -369,11 +416,13 @@ def _launch(name: str, dev, *args) -> None:
     _kernels.raise_on_error(err, f"{name} launch")
 
 
-def escn_fwd(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int) -> torch.Tensor:
-    """Kernel M: out [B,A,S,C]."""
+def escn_fwd(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int,
+             mxu_bf16: bool = False) -> torch.Tensor:
+    """Kernel M: out [B,A,S,C] (`mxu_bf16`: its bf16 mode, escn_fwd_bf16)."""
     dev = _check(x, d, xe, ws, l_max, m_max)
     if dev.type == "cpu":
-        return escn_fwd_reference(x, d, xe, *ws, l_max=l_max, m_max=m_max, n_grid=n_grid)
+        return escn_fwd_reference(x, d, xe, *ws, l_max=l_max, m_max=m_max, n_grid=n_grid,
+                                  mxu_bf16=mxu_bf16)
     b, a, s, c = x.shape
     h, ec = ws[2].shape[-1], xe.shape[-1]
     tog = _table("to_g", l_max, m_max, n_grid, str(dev))
@@ -381,18 +430,21 @@ def escn_fwd(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int) -> torch.Tensor
     p = tog.shape[0]
     out = torch.empty((b, a, s, c), dtype=torch.float32, device=dev)
     fs, iscr = _scratch(dev, False, b, a, c, h, ec, p, l_max, m_max)
-    _launch("escn_fwd", dev, x.data_ptr(), d.data_ptr(), xe.data_ptr(), _ptrs(ws), tog.data_ptr(),
+    name = "escn_fwd_bf16" if mxu_bf16 else "escn_fwd"
+    _launch(name, dev, x.data_ptr(), d.data_ptr(), xe.data_ptr(), _ptrs(ws), tog.data_ptr(),
             fromg.data_ptr(), out.data_ptr(), fs.data_ptr(), iscr.data_ptr(), b, a, c, h, ec,
             d.shape[-1], p, l_max, m_max)
-    LAUNCHES["escn_fwd"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
-def escn_bwd(x, d, xe, *ws, g, l_max: int, m_max: int, n_grid: int):
-    """Kernel N: (gx, gxe, *gws) in the order of ws."""
+def escn_bwd(x, d, xe, *ws, g, l_max: int, m_max: int, n_grid: int, mxu_bf16: bool = False):
+    """Kernel N: (gx, gxe, *gws) in the order of ws (`mxu_bf16`: its bf16
+    mode, escn_bwd_bf16)."""
     dev = _check(x, d, xe, ws, l_max, m_max, g)
     if dev.type == "cpu":
-        return escn_bwd_reference(x, d, xe, *ws, g=g, l_max=l_max, m_max=m_max, n_grid=n_grid)
+        return escn_bwd_reference(x, d, xe, *ws, g=g, l_max=l_max, m_max=m_max, n_grid=n_grid,
+                                  mxu_bf16=mxu_bf16)
     b, a, s, c = x.shape
     h, ec = ws[2].shape[-1], xe.shape[-1]
     tog = _table("to_g", l_max, m_max, n_grid, str(dev))
@@ -402,36 +454,37 @@ def escn_bwd(x, d, xe, *ws, g, l_max: int, m_max: int, n_grid: int):
     gxe = torch.zeros_like(xe)  # the kernel writes the live pairs' rows only
     gws = [torch.empty_like(w) for w in ws]
     fs, iscr = _scratch(dev, True, b, a, c, h, ec, p, l_max, m_max)
-    _launch("escn_bwd", dev, x.data_ptr(), d.data_ptr(), xe.data_ptr(), _ptrs(ws), tog.data_ptr(),
+    name = "escn_bwd_bf16" if mxu_bf16 else "escn_bwd"
+    _launch(name, dev, x.data_ptr(), d.data_ptr(), xe.data_ptr(), _ptrs(ws), tog.data_ptr(),
             fromg.data_ptr(), g.data_ptr(), gx.data_ptr(), gxe.data_ptr(), _ptrs(gws),
             fs.data_ptr(), iscr.data_ptr(), b, a, c, h, ec, d.shape[-1], p, l_max, m_max)
-    LAUNCHES["escn_bwd"] += 1
+    LAUNCHES[name] += 1
     return (gx, gxe, *gws)
 
 
 class ESCNMessageFn(torch.autograd.Function):
-    """`escn_message`'s custom VJP: forward = kernel M, backward = kernel N.
-    Inputs (l_max, m_max, n_grid, x, d, xe, *ws); d gets no gradient."""
+    """`escn_message`'s custom VJP: forward = kernel M, backward = kernel N,
+    both in the mode `mxu_bf16`. Inputs (l_max, m_max, n_grid, mxu_bf16, x,
+    d, xe, *ws); d gets no gradient."""
 
     @staticmethod
-    def forward(ctx, l_max, m_max, n_grid, x, d, xe, *ws):
+    def forward(ctx, l_max, m_max, n_grid, mxu_bf16, x, d, xe, *ws):
         ctx.save_for_backward(x, d, xe, *ws)
-        ctx.dims = (l_max, m_max, n_grid)
-        return escn_fwd(x, d, xe, *ws, l_max=l_max, m_max=m_max, n_grid=n_grid)
+        ctx.dims = dict(l_max=l_max, m_max=m_max, n_grid=n_grid, mxu_bf16=mxu_bf16)
+        return escn_fwd(x, d, xe, *ws, **ctx.dims)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, d, xe, *ws = ctx.saved_tensors
-        l_max, m_max, n_grid = ctx.dims
-        gx, gxe, *gws = escn_bwd(x, d, xe, *ws, g=g.contiguous(), l_max=l_max, m_max=m_max,
-                                 n_grid=n_grid)
-        return (None, None, None, gx, None, gxe, *gws)
+        gx, gxe, *gws = escn_bwd(x, d, xe, *ws, g=g.contiguous(), **ctx.dims)
+        return (None, None, None, None, gx, None, gxe, *gws)
 
 
-def escn_message(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int) -> torch.Tensor:
+def escn_message(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int,
+                 mxu_bf16: bool = False) -> torch.Tensor:
     """Fused eSCN message layer: [B,A,S,C]."""
-    return ESCNMessageFn.apply(l_max, m_max, n_grid, x, d, xe, *ws)
+    return ESCNMessageFn.apply(l_max, m_max, n_grid, mxu_bf16, x, d, xe, *ws)
 
 
 # ---------------------------------------------------------------------------
@@ -445,14 +498,16 @@ def live_pairs(d: torch.Tensor) -> int:
 
 
 def flops_bytes(kind: str, x: torch.Tensor, d: torch.Tensor, xe: torch.Tensor, ws,
-                l_max: int, m_max: int, n_grid: int) -> Dict[str, int]:
+                l_max: int, m_max: int, n_grid: int, mxu_bf16: bool = False) -> Dict[str, int]:
     """The work of kernel `kind` ("M" or "N") on these inputs: "flops" the
     JAX package's FLOP model over all B·A² pairs, "flops_live" the same model
     per pair times the live pairs (the kernels skip the others, and the bound
     counts what the data needs), "flops_live_products" / "flops_live_other"
     its split (the product engine's work and the rest;
     `layer_fwd_flops_split`), and "bytes" with each input read once and each
-    output written once."""
+    output written once (float32 in both modes). "products_dtype" says what
+    the products' operands are: "float32" (the bound's rate 3xTF32) or, in
+    the bf16 mode, "bfloat16" (the dense bf16 tensor-core rate)."""
     b, a, s, c = x.shape
     h, ec, gates = ws[2].shape[-1], xe.shape[-1], ws[0].shape[-1]
     fn = layer_fwd_flops if kind == "M" else layer_bwd_flops
@@ -466,4 +521,4 @@ def flops_bytes(kind: str, x: torch.Tensor, d: torch.Tensor, xe: torch.Tensor, w
                   else ins + x.numel() + x.numel() + xe.numel() + n_w)
     return {"flops": flops, "flops_live": int(flops * live / slots),
             "flops_live_products": int(prod * scale), "flops_live_other": int(other * scale),
-            "bytes": nbytes}
+            "bytes": nbytes, "products_dtype": "bfloat16" if mxu_bf16 else "float32"}

@@ -268,8 +268,11 @@ def test_xla_layout_and_bad_options_raise(ref):
     from_xla = load_flax_params(create_model("equiformer_v2", device="cpu", **KW), ref["xla"])
     for (n, p), q in zip(from_xla.named_parameters(), _port(ref).parameters()):
         assert torch.equal(p, q), n
-    with pytest.raises(NotImplementedError, match="float32"):
-        create_model("equiformer_v2", device="cpu", compute_dtype="bfloat16", **KW)
+    with pytest.raises(NotImplementedError, match="float32, bfloat16"):
+        create_model("equiformer_v2", device="cpu", compute_dtype="float16", **KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: bf16 compute"):
+        create_model("equiformer_v2", device="cpu", compute_dtype="bfloat16", m_share_rad=False,
+                     **KW)
     with pytest.raises(ValueError, match="m_share_rad=False"):
         create_model("equiformer_v2", device="cpu", m_share_rad=False, use_pallas="fused", **KW)
     with pytest.raises(ValueError, match="use_pallas"):

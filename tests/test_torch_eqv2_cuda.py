@@ -126,7 +126,8 @@ def test_autograd_function_launches_o_and_p(card, smoke):
     out = ea.eqv2_attention(x, x, inp["idx"], inp["d"], xe, inp["maskf"], inp["dropk"], *ws,
                             **inp["dims"])
     out.backward(inp["g"])
-    assert ea.LAUNCHES == {"eqv2_fwd": 1, "eqv2_bwd": 1, "so2_products": 0, "so2_wgrads": 0}
+    assert ea.LAUNCHES == {"eqv2_fwd": 1, "eqv2_bwd": 1, "eqv2_fwd_bf16": 0,
+                           "eqv2_bwd_bf16": 0, "so2_products": 0, "so2_wgrads": 0}
     gx, gxi, gxe, *gws = ea.eqv2_bwd_reference(*_args(inp), g=inp["g"], **inp["dims"])
     _close([x.grad, xe.grad, *[w.grad for w in ws]], [gx + gxi, gxe, *gws])
 

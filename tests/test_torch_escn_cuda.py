@@ -68,7 +68,8 @@ def test_forward_matches_plain(card, smoke, shape):
     el.reset_launches()
     got = el.escn_fwd(*args, **x["dims"])
     torch.cuda.synchronize()
-    assert el.LAUNCHES == {"escn_fwd": 1, "escn_bwd": 0}
+    assert el.LAUNCHES == {"escn_fwd": 1, "escn_bwd": 0, "escn_fwd_bf16": 0,
+                           "escn_bwd_bf16": 0}
     _close([got], [el.escn_fwd_reference(*args, **x["dims"])])
 
 
@@ -81,7 +82,8 @@ def test_backward_matches_plain_and_repeats_its_bits(card, smoke, shape):
     got = el.escn_bwd(*args, g=x["g"], **x["dims"])
     again = el.escn_bwd(*args, g=x["g"], **x["dims"])
     torch.cuda.synchronize()
-    assert el.LAUNCHES == {"escn_fwd": 0, "escn_bwd": 2}
+    assert el.LAUNCHES == {"escn_fwd": 0, "escn_bwd": 2, "escn_fwd_bf16": 0,
+                           "escn_bwd_bf16": 0}
     assert all(torch.equal(p, q) for p, q in zip(got, again))
     _close(got, el.escn_bwd_reference(*args, g=x["g"], **x["dims"]))
 
@@ -149,7 +151,8 @@ def test_fused_model_matches_plain_model(card):
         multitask_loss(out, batch, spec, coef)["total"].backward()
         outs.append(out)
     torch.cuda.synchronize()
-    assert el.LAUNCHES == {"escn_fwd": 2, "escn_bwd": 2}
+    assert el.LAUNCHES == {"escn_fwd": 2, "escn_bwd": 2, "escn_fwd_bf16": 0,
+                           "escn_bwd_bf16": 0}
     for k in ("energy", "forces"):
         want = outs[1][k].detach()
         assert float((outs[0][k].detach() - want).abs().max()) <= 1e-4 * float(want.abs().max())

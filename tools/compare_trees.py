@@ -32,7 +32,7 @@ it measures:
 Prints one JSON line per root, in the order run, and writes them to --out;
 then a summary line over the runs.
 
-`kernels`: one family's kernel lines of chip_smoke.py (its `kernel_phases` or
+`kernels`: one family's kernel lines of chip_smoke.py (painn, schnet, escn or eqv2: its `kernel_phases` or
 `schnet_kernel_phases`: each kernel against its plain version at A=32/48/64)
 per root; the last line gives each kernel's ms per bucket and root.
 
@@ -68,6 +68,9 @@ FAMILIES = {
     "schnet": ("schnet", "schnet_fused",
                ("schnet_fwd", "schnet_bwd", "schnet_dual_fwd", "schnet_dual_bwd"),
                "schnet_kernel_phases"),
+    # M-P: the kernels mode only
+    "escn": ("escn-oc", "escn_layer", ("escn_fwd", "escn_bwd"), "escn_kernel_phases"),
+    "eqv2": ("equiformer_v2", "eqv2_attn", ("eqv2_fwd", "eqv2_bwd"), "eqv2_kernel_phases"),
 }
 
 
