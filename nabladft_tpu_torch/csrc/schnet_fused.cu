@@ -15,7 +15,18 @@
 // the node inputs and the weights only.
 //
 // Layouts (as the JAX op): rbf, rbfp, rbfd [B,A,A,R]; envf, envp, envfd [B,A,A];
-// xin, xind, msg, gmsg [B,A,F]; all float32, contiguous.
+// xin, xind, msg, gmsg [B,A,F]; contiguous.
+//
+// Two dtypes, as the JAX kernels' modes: every pair and node input (and the cotangents gmsg,
+// gmsgd) float32, or every one bfloat16 (the `_bf16` entry points); the filter weights W1, b1,
+// W2, b2 are float32 in both (the JAX model's raw params). The bf16 mode reads its inputs as
+// bf16 straight from device memory, widens them and computes in fp32 like the TPU kernels
+// (which read the inputs' dtype and compute in F32), and rounds once: E and G write msg (and
+// msgd) in bf16, F and H write fp32 (their wrappers round gxin, gxind to bf16 as the JAX
+// wrappers do; g_dist and gW stay fp32). The rbf rows go onto the engine as bf16 (`abf16`: a
+// bf16 value is a TF32 value with lo = 0); W1 is fp32, so z1 = rbf W1 keeps the 3xTF32 passes
+// (the a_lo b_hi pass adds zeros) and is as accurate as the fp32 path. h W2, the gradient
+// products and the weight gradients read fp32 values the kernels compute, as in fp32.
 //
 // Every kernel runs its filter-MLP products (~96-98 % of its FLOPs) on so2_common.cuh's engine
 // (3xTF32 wgmma, fp32-accurate) over the live pairs only, into compact [live, F] rows; K = R
@@ -75,6 +86,7 @@
 // multiples of 4 with 16-byte aligned rows: the entry points take R and F multiples of 4, which
 // the wrapper provides by zero padding (schnet.yaml's R = 100, F = 128 need none).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "so2_common.cuh"
@@ -82,6 +94,13 @@
 namespace {
 
 constexpr float LOG2F = 0.6931471805599453f;
+
+// the stages' loads and stores of the inputs' dtype T (fp32 arithmetic; a bf16 store rounds
+// to nearest even)
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void stf(float* p, float x) { *p = x; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -99,13 +118,14 @@ __device__ inline void ssp_sigmoid(float x, float& h, float& s) {
 
 // flags = 1 for a pair p = (b*A + i)*A + j whose envf[p] or env2[p] (where given: envp in F,
 // envfd in G and H) is not zero: a thread a pair. BY_SENDER (F, H): at slot (b*A + j)*A + i;
-// else (E, G) at p, the pair row.
-template <bool BY_SENDER>
-__global__ void schnet_flags_kernel(const float* __restrict__ env, const float* __restrict__ env2,
+// else (E, G) at p, the pair row. (bf16 keeps fp32's exponent range, so a pair live in fp32 is
+// live in bf16: its envelope rounds to a nonzero bf16 value.)
+template <bool BY_SENDER, typename T>
+__global__ void schnet_flags_kernel(const T* __restrict__ env, const T* __restrict__ env2,
                                     int* __restrict__ flags, int A, long long npairs) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npairs) return;
-  const int live = env[p] != 0.f || (env2 != nullptr && env2[p] != 0.f);
+  const int live = ldf(env + p) != 0.f || (env2 != nullptr && ldf(env2 + p) != 0.f);
   if (!BY_SENDER) {
     flags[p] = live;
     return;
@@ -153,18 +173,17 @@ constexpr int EQ = 8;  // E's and G's stages: senders a thread holds at once
 // (b*A + i)*A + j), EQ at a time. Per channel f, in list order: msg_i = sum_j wmr envf xin_j.
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT) schnet_fwd_stage_kernel(
     const float* __restrict__ wmr, const int* __restrict__ eidx, const int* __restrict__ rs,
-    const float* __restrict__ envf, const float* __restrict__ xin, float* __restrict__ msg,
-    int A, int F) {
+    const T* __restrict__ envf, const T* __restrict__ xin, T* __restrict__ msg, int A, int F) {
   extern __shared__ float stage_s[];  // [A]: envf[b,i,j] of this receiver
   const int bi = blockIdx.x, b = bi / A, f = threadIdx.x;
-  for (int j = f; j < A; j += blockDim.x) stage_s[j] = envf[(size_t)bi * A + j];
+  for (int j = f; j < A; j += blockDim.x) stage_s[j] = ldf(envf + (size_t)bi * A + j);
   __syncthreads();
   if (f >= F) return;
   const int e_lo = rs[bi], e_hi = rs[bi + 1], row0 = bi * A;  // eidx[e] - row0 = sender j
-  const float* xb = xin + (size_t)b * A * F + f;
+  const T* xb = xin + (size_t)b * A * F + f;
   float m = 0.f;
   for (int e0 = e_lo; e0 < e_hi; e0 += EQ) {
     const int n = min(EQ, e_hi - e0);
@@ -177,12 +196,12 @@ __global__ void __launch_bounds__(MAXT) schnet_fwd_stage_kernel(
       const int e = e0 + (ok ? q : 0);
       jj[q] = eidx[e] - row0;
       w[q] = ok ? wmr[(size_t)e * F + f] : 0.f;
-      x[q] = ok ? xb[(size_t)jj[q] * F] : 0.f;
+      x[q] = ok ? ldf(xb + (size_t)jj[q] * F) : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < EQ; ++q) m = fmaf(w[q] * stage_s[jj[q]], x[q], m);
   }
-  msg[(size_t)bi * F + f] = m;
+  stf(msg + (size_t)bi * F + f, m);
 }
 
 // ---------------------------------------------------------------------------
@@ -193,19 +212,19 @@ __global__ void __launch_bounds__(MAXT) schnet_fwd_stage_kernel(
 //   msgd_i = sum_j wmd xin_j + wm xind_j
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT) schnet_dual_fwd_stage_kernel(
     const float* __restrict__ wmr, const float* __restrict__ wmrd, const int* __restrict__ eidx,
-    const int* __restrict__ rs, const float* __restrict__ envf, const float* __restrict__ envfd,
-    const float* __restrict__ xin, const float* __restrict__ xind, float* __restrict__ msg,
-    float* __restrict__ msgd, int A, int F) {
+    const int* __restrict__ rs, const T* __restrict__ envf, const T* __restrict__ envfd,
+    const T* __restrict__ xin, const T* __restrict__ xind, T* __restrict__ msg,
+    T* __restrict__ msgd, int A, int F) {
   extern __shared__ float stage_s[];
   float* e_s = stage_s;   // [A]: envf[b,i,j] of this receiver
   float* ed_s = e_s + A;  // [A]: envfd[b,i,j]
   const int bi = blockIdx.x, b = bi / A, f = threadIdx.x;
   for (int j = f; j < A; j += blockDim.x) {
-    e_s[j] = envf[(size_t)bi * A + j];
-    ed_s[j] = envfd[(size_t)bi * A + j];
+    e_s[j] = ldf(envf + (size_t)bi * A + j);
+    ed_s[j] = ldf(envfd + (size_t)bi * A + j);
   }
   __syncthreads();
   if (f >= F) return;
@@ -224,8 +243,8 @@ __global__ void __launch_bounds__(MAXT) schnet_dual_fwd_stage_kernel(
       const size_t nj = nb + (size_t)jj[q] * F;
       w[q] = ok ? wmr[(size_t)e * F + f] : 0.f;
       wd[q] = ok ? wmrd[(size_t)e * F + f] : 0.f;
-      x[q] = ok ? xin[nj] : 0.f;
-      xd[q] = ok ? xind[nj] : 0.f;
+      x[q] = ok ? ldf(xin + nj) : 0.f;
+      xd[q] = ok ? ldf(xind + nj) : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < EQ; ++q) {
@@ -236,8 +255,8 @@ __global__ void __launch_bounds__(MAXT) schnet_dual_fwd_stage_kernel(
       m1 = fmaf(wmd, x[q], fmaf(wm, xd[q], m1));
     }
   }
-  msg[(size_t)bi * F + f] = m0;
-  msgd[(size_t)bi * F + f] = m1;
+  stf(msg + (size_t)bi * F + f, m0);
+  stf(msgd + (size_t)bi * F + f, m1);
 }
 
 // ---------------------------------------------------------------------------
@@ -248,17 +267,17 @@ __global__ void __launch_bounds__(MAXT) schnet_dual_fwd_stage_kernel(
 // and gwmr overwrites wmr (each element read and written by one thread).
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT) schnet_bwd_stage_kernel(
     float* __restrict__ w, float* __restrict__ ge, const int* __restrict__ eidx,
-    const int* __restrict__ rs, const int* __restrict__ row, const float* __restrict__ envf,
-    const float* __restrict__ xin, const float* __restrict__ gmsg, float* __restrict__ gxin,
-    int A, int F) {
+    const int* __restrict__ rs, const int* __restrict__ row, const T* __restrict__ envf,
+    const T* __restrict__ xin, const T* __restrict__ gmsg, float* __restrict__ gxin, int A,
+    int F) {
   extern __shared__ float red[];  // [2][warps][32]: the warps' pair sums, double buffered
   const int bj = blockIdx.x, b = bj / A;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5, f = tid;
   const bool act = f < F;
-  const float x = act ? xin[(size_t)bj * F + f] : 0.f;
+  const float x = act ? ldf(xin + (size_t)bj * F + f) : 0.f;
   const int e_lo = rs[bj], e_hi = rs[bj + 1];
   float gx = 0.f;
   for (int e0 = e_lo, it = 0; e0 < e_hi; e0 += FQ, ++it) {
@@ -270,9 +289,9 @@ __global__ void __launch_bounds__(MAXT) schnet_bwd_stage_kernel(
       const bool ok = q < n;
       const int e = e0 + (ok ? q : 0);
       const int i = eidx[e] % A;
-      ef[q] = ok ? envf[row[e]] : 0.f;
+      ef[q] = ok ? ldf(envf + row[e]) : 0.f;
       wv[q] = ok && act ? w[(size_t)e * F + f] : 0.f;
-      gm[q] = ok && act ? gmsg[((size_t)b * A + i) * F + f] : 0.f;
+      gm[q] = ok && act ? ldf(gmsg + ((size_t)b * A + i) * F + f) : 0.f;
     }
     float val[FQ];
 #pragma unroll
@@ -298,9 +317,10 @@ __global__ void __launch_bounds__(MAXT) schnet_bwd_stage_kernel(
 
 // g_dist of each live pair, a warp a row: sum_f gz1 rpw (lanes over float4 columns, then a
 // butterfly: a fixed order) + g_env envp; the dead slots keep the caller's zeros
+template <typename T>
 __global__ void __launch_bounds__(256) schnet_gdist_kernel(
     const float* __restrict__ gz1, const float* __restrict__ rp, const float* __restrict__ ge,
-    const int* __restrict__ row, const int* __restrict__ n_rows, const float* __restrict__ envp,
+    const int* __restrict__ row, const int* __restrict__ n_rows, const T* __restrict__ envp,
     float* __restrict__ gdist, int ld) {
   const int lane = threadIdx.x & 31, nr = *n_rows;
   const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -316,7 +336,7 @@ __global__ void __launch_bounds__(256) schnet_gdist_kernel(
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0) {
       const int p = row[e];
-      gdist[p] = fmaf(ge[e], envp[p], acc);
+      gdist[p] = fmaf(ge[e], ldf(envp + p), acc);
     }
   }
 }
@@ -331,18 +351,17 @@ __global__ void __launch_bounds__(256) schnet_gdist_kernel(
 //   gwmd = gmsgd_i xin_j
 // ---------------------------------------------------------------------------
 
-template <int MAXT>
+template <int MAXT, typename T>
 __global__ void __launch_bounds__(MAXT) schnet_dual_bwd_stage_kernel(
     float* __restrict__ w, float* __restrict__ wd, const int* __restrict__ eidx,
-    const int* __restrict__ rs, const int* __restrict__ row, const float* __restrict__ envf,
-    const float* __restrict__ envfd, const float* __restrict__ xin,
-    const float* __restrict__ xind, const float* __restrict__ gmsg,
-    const float* __restrict__ gmsgd, float* __restrict__ gxin, float* __restrict__ gxind,
-    int need_gw, int A, int F) {
+    const int* __restrict__ rs, const int* __restrict__ row, const T* __restrict__ envf,
+    const T* __restrict__ envfd, const T* __restrict__ xin, const T* __restrict__ xind,
+    const T* __restrict__ gmsg, const T* __restrict__ gmsgd, float* __restrict__ gxin,
+    float* __restrict__ gxind, int need_gw, int A, int F) {
   const int bj = blockIdx.x, b = bj / A, f = threadIdx.x;
   if (f >= F) return;
   const size_t nj = (size_t)bj * F + f;
-  const float x = xin[nj], xd = xind[nj];
+  const float x = ldf(xin + nj), xd = ldf(xind + nj);
   const int e_lo = rs[bj], e_hi = rs[bj + 1];
   float g0 = 0.f, g1 = 0.f;
   for (int e0 = e_lo; e0 < e_hi; e0 += HQ) {
@@ -354,12 +373,12 @@ __global__ void __launch_bounds__(MAXT) schnet_dual_bwd_stage_kernel(
       const bool ok = q < n;
       const int e = e0 + (ok ? q : 0), p = row[e];
       const size_t node = ((size_t)b * A + eidx[e] % A) * F + f;
-      ev[q] = ok ? envf[p] : 0.f;
-      edv[q] = ok ? envfd[p] : 0.f;
+      ev[q] = ok ? ldf(envf + p) : 0.f;
+      edv[q] = ok ? ldf(envfd + p) : 0.f;
       wr[q] = ok ? w[(size_t)e * F + f] : 0.f;
       wdr[q] = ok ? wd[(size_t)e * F + f] : 0.f;
-      gm[q] = ok ? gmsg[node] : 0.f;
-      gmd[q] = ok ? gmsgd[node] : 0.f;
+      gm[q] = ok ? ldf(gmsg + node) : 0.f;
+      gmd[q] = ok ? ldf(gmsgd + node) : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < HQ; ++q) {
@@ -471,17 +490,25 @@ int n_arrays(int kind) {
   return n[kind];
 }
 
+constexpr bool is_bf16(const float*) { return false; }
+constexpr bool is_bf16(const __nv_bfloat16*) { return true; }
+
 // the weight-gradient products of a call (the biases are schnet_colsum_kernel's): F one launch
-// (gW1 and gW2 together), H two (gW2, then gW1); pointers null to size the partials
-std::vector<std::vector<TNProb>> wgrad_launches(int kind, const Work& w, const float* a1,
-                                                const float* a2, float* gw, int R, int F) {
+// (gW1 and gW2 together), H two (gW2, then gW1); pointers null to size the partials. a1, a2
+// are the pair tensors (bf16 values where a16).
+std::vector<std::vector<TNProb>> wgrad_launches(int kind, const Work& w, const void* a1,
+                                                const void* a2, int a16, float* gw, int R,
+                                                int F) {
   float* gw2 = gw ? gw + (long long)(R + 1) * F : nullptr;
+  const float* p1 = static_cast<const float*>(a1);
+  const float* p2 = static_cast<const float*>(a2);
   if (kind == KIND_F) {
-    return {{tprob({TSeg{a1, w.z, R, F, 1.f}}, A_GATHER, R, F, gw, F),
+    return {{tprob({TSeg{p1, w.z, R, F, 1.f, a16}}, A_GATHER, R, F, gw, F),
              tprob({TSeg{w.h, w.w, F, F, 1.f}}, A_ROWS, F, F, gw2, F)}};
   }
   return {{tprob({TSeg{w.h, w.w, F, F, 1.f}, TSeg{w.z2, w.w2, F, F, 1.f}}, A_ROWS, F, F, gw2, F)},
-          {tprob({TSeg{a1, w.h, R, F, 1.f}, TSeg{a2, w.w, R, F, 1.f}}, A_GATHER, R, F, gw, F)}};
+          {tprob({TSeg{p1, w.h, R, F, 1.f, a16}, TSeg{p2, w.w, R, F, 1.f, a16}}, A_GATHER, R, F,
+                 gw, F)}};
 }
 
 // gb1 (row R of gw) and gb2 (row R + 1 + F) as the column sums of rows1 and rows2 (either null)
@@ -505,7 +532,7 @@ cudaError_t bias_sums(const Work& w, const float* rows1, const float* rows2, flo
 
 long long part_floats(int kind, long long rows, int R, int F) {
   long long need = 0;
-  for (const auto& probs : wgrad_launches(kind, Work{}, nullptr, nullptr, nullptr, R, F))
+  for (const auto& probs : wgrad_launches(kind, Work{}, nullptr, nullptr, 0, nullptr, R, F))
     need = std::max(need, wgrad_part_floats(rows, probs));
   return need;
 }
@@ -562,11 +589,12 @@ Work carve_work(int kind, int B, int A, int R, int F, float* f, int* iw) {
 // the live pairs (envf or env2 not zero), in receiver order (the engine's live_rows over
 // segments of A pair rows) or in sender order (slots (b, j, i), then their pair rows), with
 // each segment's first row
-cudaError_t live_pairs(const Work& w, const float* envf, const float* env2, int B, int A,
+template <typename T>
+cudaError_t live_pairs(const Work& w, const T* envf, const T* env2, int B, int A,
                        bool sender_order, cudaStream_t st) {
   const long long rows = pair_rows(B, A);
   const unsigned blocks = (unsigned)((rows + 255) / 256);
-  const auto mark = sender_order ? schnet_flags_kernel<true> : schnet_flags_kernel<false>;
+  const auto mark = sender_order ? schnet_flags_kernel<true, T> : schnet_flags_kernel<false, T>;
   mark<<<blocks, 256, 0, st>>>(envf, env2, w.flags, A, rows);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) err = live_rows(w.flags, w.eidx, w.pos, w.rs, w.n_rows, rows, A, st);
@@ -580,15 +608,25 @@ unsigned row_blocks(long long elems) {
   return (unsigned)std::max(1LL, std::min((elems + 255) / 256, 8LL * SMS));
 }
 
+// an engine segment over the gathered pair rows a (fp32, or bf16 read as such: `abf16`; W1 is
+// fp32, so not `one`: the 3xTF32 passes stay)
+template <typename T>
+Seg pair_seg(const T* a, const float* w1, int R, int F) {
+  Seg s = seg(reinterpret_cast<const float*>(a), R, w1, F, R);
+  s.abf16 = is_bf16(a);
+  return s;
+}
+
 // z1 = a1 W1 + b1 into z (and a2 W1 into z2 where a2 is given: F's rpw = rbfp W1, G's and H's
 // z1d = rbfd W1) over the gathered live rows; then schnet_ssp_kernel: h = ssp(z1) into h,
 // s = sigmoid(z1) into s where given and, with `dual`, hd = s z1d over z2
-cudaError_t first_layer(const Work& w, const float* a1, const float* a2, const float* w1,
+template <typename T>
+cudaError_t first_layer(const Work& w, const T* a1, const T* a2, const float* w1,
                         const float* b1, float* s, float* h, bool dual, int R, int F,
                         cudaStream_t st) {
-  std::vector<NNProb> probs{prob({seg(a1, R, w1, F, R)}, F, EPI_GATES, w.z, F)};
+  std::vector<NNProb> probs{prob({pair_seg(a1, w1, R, F)}, F, EPI_GATES, w.z, F)};
   probs[0].bias = b1;
-  if (a2) probs.push_back(prob({seg(a2, R, w1, F, R)}, F, EPI_STORE, w.z2, F));
+  if (a2) probs.push_back(prob({pair_seg(a2, w1, R, F)}, F, EPI_STORE, w.z2, F));
   for (NNProb& p : probs) p.gather = 1;
   cudaError_t err = launch_products(w.en, probs, st, true);
   if (err != cudaSuccess) return err;
@@ -626,6 +664,142 @@ size_t bwd_stage_smem(int F) { return sizeof(float) * 2 * (size_t)round_up(F, 32
 // E's stage: the receiver's envf row; G's: its envf and envfd rows
 size_t fwd_stage_smem(int A, int lanes) { return sizeof(float) * lanes * (size_t)A; }
 
+// the pair tensors' rows are read in chunks of four values (16 bytes of fp32, 8 of bf16)
+template <typename T>
+bool pairs_aligned(const T* p) { return is_bf16(p) ? aligned8(p) : aligned16(p); }
+
+// ---------------------------------------------------------------------------
+// the four kernels, for inputs of dtype T (float, or __nv_bfloat16: the bf16 mode)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+int fwd(const T* rbf, const T* envf, const T* xin, const float* w1, const float* b1,
+        const float* w2, const float* b2, T* msg, float* scratch, int* iscratch, int B, int A,
+        int R, int F, void* stream) {
+  if (!shapes_ok(B, A, R, F) || !pairs_aligned(rbf)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_E, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, (const T*)nullptr, B, A, false, st);
+  // h over z1, then wmr
+  if (err == cudaSuccess)
+    err = first_layer(wk, rbf, (const T*)nullptr, w1, b1, nullptr, wk.z, false, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.z, nullptr, w2, b2, F, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = fwd_stage_smem(A, 1);
+  return (int)run_stage(schnet_fwd_stage_kernel<SMAXT, T>, schnet_fwd_stage_kernel<1024, T>, F,
+                        smem, [&](auto kernel, int threads) {
+                          kernel<<<B * A, threads, smem, st>>>(wk.w, wk.eidx, wk.rs, envf, xin,
+                                                               msg, A, F);
+                          return cudaGetLastError();
+                        });
+}
+
+template <typename T>
+int bwd(const T* rbf, const T* rbfp, const T* envf, const T* envp, const T* xin,
+        const float* w1, const float* b1, const float* w2, const float* b2, const T* gmsg,
+        float* gdist, float* gxin, float* gw, float* scratch, int* iscratch, int need_gw, int B,
+        int A, int R, int F, void* stream) {
+  if (!shapes_ok(B, A, R, F) || !pairs_aligned(rbf) || !pairs_aligned(rbfp))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_F, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, envp, B, A, true, st);
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfp, w1, b1, wk.z, wk.h, false, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.h, nullptr, w2, b2, F, st);
+  if (err == cudaSuccess) {
+    const size_t smem = bwd_stage_smem(F);
+    err = run_stage(schnet_bwd_stage_kernel<SMAXT, T>, schnet_bwd_stage_kernel<1024, T>, F, smem,
+                    [&](auto kernel, int threads) {
+                      kernel<<<B * A, threads, smem, st>>>(wk.w, wk.ge, wk.eidx, wk.rs, wk.row,
+                                                           envf, xin, gmsg, gxin, A, F);
+                      return cudaGetLastError();
+                    });
+  }
+  if (err == cudaSuccess) {  // gz1 = (gwmr W2^T) s, over s
+    const NNProb p = gated(prob({seg(wk.w, F, w2, F, F, true)}, F, EPI_GATED, nullptr, 0, wk.z,
+                                F), wk.z, F);
+    err = launch_products(wk.en, {p}, st, true);
+  }
+  if (err == cudaSuccess) {
+    schnet_gdist_kernel<T><<<row_blocks(pair_rows(B, A) * 32), 256, 0, st>>>(
+        wk.z, wk.z2, wk.ge, wk.row, wk.n_rows, envp, gdist, F);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess || !need_gw) return (int)err;
+  err = launch_wgrads(wk.en, wgrad_launches(KIND_F, wk, rbf, nullptr, is_bf16(rbf), gw, R, F)[0],
+                      st);
+  return (int)(err != cudaSuccess ? err : bias_sums(wk, wk.z, wk.w, gw, R, F, st));
+}
+
+template <typename T>
+int dual_fwd(const T* rbf, const T* rbfd, const T* envf, const T* envfd, const T* xin,
+             const T* xind, const float* w1, const float* b1, const float* w2, const float* b2,
+             T* msg, T* msgd, float* scratch, int* iscratch, int B, int A, int R, int F,
+             void* stream) {
+  if (!shapes_ok(B, A, R, F) || !pairs_aligned(rbf) || !pairs_aligned(rbfd))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_G, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, envfd, B, A, false, st);
+  // h over z1 and hd over z1d, then wmr and wmrd
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, nullptr, wk.z, true, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.z, wk.z2, w2, b2, F, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = fwd_stage_smem(A, 2);
+  return (int)run_stage(schnet_dual_fwd_stage_kernel<SMAXT, T>,
+                        schnet_dual_fwd_stage_kernel<1024, T>, F, smem,
+                        [&](auto kernel, int threads) {
+                          kernel<<<B * A, threads, smem, st>>>(wk.w, wk.w2, wk.eidx, wk.rs, envf,
+                                                               envfd, xin, xind, msg, msgd, A, F);
+                          return cudaGetLastError();
+                        });
+}
+
+template <typename T>
+int dual_bwd(const T* rbf, const T* rbfd, const T* envf, const T* envfd, const T* xin,
+             const T* xind, const float* w1, const float* b1, const float* w2, const float* b2,
+             const T* gmsg, const T* gmsgd, float* gxin, float* gxind, float* gw, float* scratch,
+             int* iscratch, int need_gw, int B, int A, int R, int F, void* stream) {
+  if (!shapes_ok(B, A, R, F) || !pairs_aligned(rbf) || !pairs_aligned(rbfd))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || A == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Work wk = carve_work(KIND_H, B, A, R, F, scratch, iscratch);
+  cudaError_t err = live_pairs(wk, envf, envfd, B, A, true, st);
+  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, wk.z, wk.h, true, R, F, st);
+  if (err == cudaSuccess) err = second_layer(wk, wk.h, wk.z2, w2, b2, F, st);
+  if (err == cudaSuccess) {
+    err = run_stage(schnet_dual_bwd_stage_kernel<SMAXT, T>, schnet_dual_bwd_stage_kernel<1024, T>,
+                    F, 0, [&](auto kernel, int threads) {
+                      kernel<<<B * A, threads, 0, st>>>(wk.w, wk.w2, wk.eidx, wk.rs, wk.row,
+                                                        envf, envfd, xin, xind, gmsg, gmsgd,
+                                                        gxin, gxind, need_gw, A, F);
+                      return cudaGetLastError();
+                    });
+  }
+  if (err != cudaSuccess || !need_gw) return (int)err;
+  const auto launches = wgrad_launches(KIND_H, wk, rbf, rbfd, is_bf16(rbf), gw, R, F);
+  err = launch_wgrads(wk.en, launches[0], st);  // gW2: h, hd, cot(wmr), cot(wmrd)
+  if (err == cudaSuccess) err = bias_sums(wk, nullptr, wk.w, gw, R, F, st);  // gb2
+  // gh over h (read by gW2 only), then ghd over cot(wmr) (read by gh only)
+  if (err == cudaSuccess)
+    err = launch_products(wk.en, {prob({seg(wk.w, F, w2, F, F, true)}, F, EPI_STORE, wk.h, F)},
+                          st, true);
+  if (err == cudaSuccess)
+    err = launch_products(wk.en, {prob({seg(wk.w2, F, w2, F, F, true)}, F, EPI_STORE, wk.w, F)},
+                          st, true);
+  if (err == cudaSuccess) {
+    schnet_dual_gz1_kernel<<<row_blocks(pair_rows(B, A) * F), 256, 0, st>>>(
+        wk.z, wk.z2, wk.h, wk.w, wk.n_rows, F);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = launch_wgrads(wk.en, launches[1], st);  // gW1: gz1, gz1d
+  return (int)(err != cudaSuccess ? err : bias_sums(wk, wk.h, nullptr, gw, R, F, st));  // gb1
+}
+
 }  // namespace
 
 extern "C" {
@@ -644,9 +818,9 @@ int schnet_smem_bytes(int which, int A, int R, int F) {
 }
 
 // Every entry point returns a cudaError_t (0 = success), launches on `stream` and does not
-// sync. They take R and F multiples of 4, F <= 1024 and 16-byte aligned pair tensors (else
-// cudaErrorInvalidValue), which the wrapper provides by zero padding, and scratch and iscratch
-// as the *_scratch_floats / _ints functions size them.
+// sync. They take R and F multiples of 4, F <= 1024 and 16-byte aligned pair tensors (8-byte
+// in bf16; else cudaErrorInvalidValue), which the wrapper provides by zero padding, and scratch
+// and iscratch as the *_scratch_floats / _ints functions size them.
 
 // float and int scratch of a call of kernel `which` (0 E: schnet_fwd, 1 G: schnet_dual_fwd) on
 // B molecules of A atoms with R radial values and F channels
@@ -660,23 +834,7 @@ long long schnet_fwd_scratch_ints(int B, int A) { return scratch_ints(B, A, fals
 int schnet_fwd(const float* rbf, const float* envf, const float* xin, const float* w1,
                const float* b1, const float* w2, const float* b2, float* msg, float* scratch,
                int* iscratch, int B, int A, int R, int F, void* stream) {
-  if (!shapes_ok(B, A, R, F) || !aligned16(rbf)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve_work(KIND_E, B, A, R, F, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, envf, nullptr, B, A, false, st);
-  // h over z1, then wmr
-  if (err == cudaSuccess)
-    err = first_layer(wk, rbf, nullptr, w1, b1, nullptr, wk.z, false, R, F, st);
-  if (err == cudaSuccess) err = second_layer(wk, wk.z, nullptr, w2, b2, F, st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = fwd_stage_smem(A, 1);
-  return (int)run_stage(schnet_fwd_stage_kernel<SMAXT>, schnet_fwd_stage_kernel<1024>, F, smem,
-                        [&](auto kernel, int threads) {
-                          kernel<<<B * A, threads, smem, st>>>(wk.w, wk.eidx, wk.rs, envf, xin,
-                                                               msg, A, F);
-                          return cudaGetLastError();
-                        });
+  return fwd(rbf, envf, xin, w1, b1, w2, b2, msg, scratch, iscratch, B, A, R, F, stream);
 }
 
 // float and int scratch of a call of kernel `which` (0 F: schnet_bwd, 1 H: schnet_dual_bwd)
@@ -693,36 +851,8 @@ int schnet_bwd(const float* rbf, const float* rbfp, const float* envf, const flo
                const float* b2, const float* gmsg, float* gdist, float* gxin, float* gw,
                float* scratch, int* iscratch, int need_gw, int B, int A, int R, int F,
                void* stream) {
-  if (!shapes_ok(B, A, R, F) || !aligned16(rbf) || !aligned16(rbfp))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve_work(KIND_F, B, A, R, F, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, envf, envp, B, A, true, st);
-  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfp, w1, b1, wk.z, wk.h, false, R, F, st);
-  if (err == cudaSuccess) err = second_layer(wk, wk.h, nullptr, w2, b2, F, st);
-  if (err == cudaSuccess) {
-    const size_t smem = bwd_stage_smem(F);
-    err = run_stage(schnet_bwd_stage_kernel<SMAXT>, schnet_bwd_stage_kernel<1024>, F, smem,
-                    [&](auto kernel, int threads) {
-                      kernel<<<B * A, threads, smem, st>>>(wk.w, wk.ge, wk.eidx, wk.rs, wk.row,
-                                                           envf, xin, gmsg, gxin, A, F);
-                      return cudaGetLastError();
-                    });
-  }
-  if (err == cudaSuccess) {  // gz1 = (gwmr W2^T) s, over s
-    const NNProb p = gated(prob({seg(wk.w, F, w2, F, F, true)}, F, EPI_GATED, nullptr, 0, wk.z,
-                                F), wk.z, F);
-    err = launch_products(wk.en, {p}, st, true);
-  }
-  if (err == cudaSuccess) {
-    schnet_gdist_kernel<<<row_blocks(pair_rows(B, A) * 32), 256, 0, st>>>(
-        wk.z, wk.z2, wk.ge, wk.row, wk.n_rows, envp, gdist, F);
-    err = cudaGetLastError();
-  }
-  if (err != cudaSuccess || !need_gw) return (int)err;
-  err = launch_wgrads(wk.en, wgrad_launches(KIND_F, wk, rbf, nullptr, gw, R, F)[0], st);
-  return (int)(err != cudaSuccess ? err : bias_sums(wk, wk.z, wk.w, gw, R, F, st));
+  return bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, gdist, gxin, gw, scratch,
+             iscratch, need_gw, B, A, R, F, stream);
 }
 
 // Kernel G: as E (its live pairs are those of envf or envfd); every row of msg and msgd is
@@ -731,23 +861,8 @@ int schnet_dual_fwd(const float* rbf, const float* rbfd, const float* envf, cons
                     const float* xin, const float* xind, const float* w1, const float* b1,
                     const float* w2, const float* b2, float* msg, float* msgd, float* scratch,
                     int* iscratch, int B, int A, int R, int F, void* stream) {
-  if (!shapes_ok(B, A, R, F) || !aligned16(rbf) || !aligned16(rbfd))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve_work(KIND_G, B, A, R, F, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, envf, envfd, B, A, false, st);
-  // h over z1 and hd over z1d, then wmr and wmrd
-  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, nullptr, wk.z, true, R, F, st);
-  if (err == cudaSuccess) err = second_layer(wk, wk.z, wk.z2, w2, b2, F, st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = fwd_stage_smem(A, 2);
-  return (int)run_stage(schnet_dual_fwd_stage_kernel<SMAXT>, schnet_dual_fwd_stage_kernel<1024>,
-                        F, smem, [&](auto kernel, int threads) {
-                          kernel<<<B * A, threads, smem, st>>>(wk.w, wk.w2, wk.eidx, wk.rs, envf,
-                                                               envfd, xin, xind, msg, msgd, A, F);
-                          return cudaGetLastError();
-                        });
+  return dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, msg, msgd, scratch,
+                  iscratch, B, A, R, F, stream);
 }
 
 // Kernel H: as F (its live pairs are those of envf or envfd).
@@ -756,41 +871,45 @@ int schnet_dual_bwd(const float* rbf, const float* rbfd, const float* envf, cons
                     const float* w2, const float* b2, const float* gmsg, const float* gmsgd,
                     float* gxin, float* gxind, float* gw, float* scratch, int* iscratch,
                     int need_gw, int B, int A, int R, int F, void* stream) {
-  if (!shapes_ok(B, A, R, F) || !aligned16(rbf) || !aligned16(rbfd))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || A == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Work wk = carve_work(KIND_H, B, A, R, F, scratch, iscratch);
-  cudaError_t err = live_pairs(wk, envf, envfd, B, A, true, st);
-  if (err == cudaSuccess) err = first_layer(wk, rbf, rbfd, w1, b1, wk.z, wk.h, true, R, F, st);
-  if (err == cudaSuccess) err = second_layer(wk, wk.h, wk.z2, w2, b2, F, st);
-  if (err == cudaSuccess) {
-    err = run_stage(schnet_dual_bwd_stage_kernel<SMAXT>, schnet_dual_bwd_stage_kernel<1024>, F,
-                    0, [&](auto kernel, int threads) {
-                      kernel<<<B * A, threads, 0, st>>>(wk.w, wk.w2, wk.eidx, wk.rs, wk.row,
-                                                        envf, envfd, xin, xind, gmsg, gmsgd,
-                                                        gxin, gxind, need_gw, A, F);
-                      return cudaGetLastError();
-                    });
-  }
-  if (err != cudaSuccess || !need_gw) return (int)err;
-  const auto launches = wgrad_launches(KIND_H, wk, rbf, rbfd, gw, R, F);
-  err = launch_wgrads(wk.en, launches[0], st);  // gW2: h, hd, cot(wmr), cot(wmrd)
-  if (err == cudaSuccess) err = bias_sums(wk, nullptr, wk.w, gw, R, F, st);  // gb2
-  // gh over h (read by gW2 only), then ghd over cot(wmr) (read by gh only)
-  if (err == cudaSuccess)
-    err = launch_products(wk.en, {prob({seg(wk.w, F, w2, F, F, true)}, F, EPI_STORE, wk.h, F)},
-                          st, true);
-  if (err == cudaSuccess)
-    err = launch_products(wk.en, {prob({seg(wk.w2, F, w2, F, F, true)}, F, EPI_STORE, wk.w, F)},
-                          st, true);
-  if (err == cudaSuccess) {
-    schnet_dual_gz1_kernel<<<row_blocks(pair_rows(B, A) * F), 256, 0, st>>>(
-        wk.z, wk.z2, wk.h, wk.w, wk.n_rows, F);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess) err = launch_wgrads(wk.en, launches[1], st);  // gW1: gz1, gz1d
-  return (int)(err != cudaSuccess ? err : bias_sums(wk, wk.h, nullptr, gw, R, F, st));  // gb1
+  return dual_bwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gmsgd, gxin, gxind,
+                  gw, scratch, iscratch, need_gw, B, A, R, F, stream);
+}
+
+// The bf16 mode of E-H: the same entry points with every pair and node input (and cotangent)
+// bf16, 8-byte aligned pair tensors, fp32 weights, the same scratch; E and G write bf16, F and
+// H fp32.
+typedef __nv_bfloat16 bf16;
+
+int schnet_fwd_bf16(const bf16* rbf, const bf16* envf, const bf16* xin, const float* w1,
+                    const float* b1, const float* w2, const float* b2, bf16* msg, float* scratch,
+                    int* iscratch, int B, int A, int R, int F, void* stream) {
+  return fwd(rbf, envf, xin, w1, b1, w2, b2, msg, scratch, iscratch, B, A, R, F, stream);
+}
+
+int schnet_bwd_bf16(const bf16* rbf, const bf16* rbfp, const bf16* envf, const bf16* envp,
+                    const bf16* xin, const float* w1, const float* b1, const float* w2,
+                    const float* b2, const bf16* gmsg, float* gdist, float* gxin, float* gw,
+                    float* scratch, int* iscratch, int need_gw, int B, int A, int R, int F,
+                    void* stream) {
+  return bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, gdist, gxin, gw, scratch,
+             iscratch, need_gw, B, A, R, F, stream);
+}
+
+int schnet_dual_fwd_bf16(const bf16* rbf, const bf16* rbfd, const bf16* envf, const bf16* envfd,
+                         const bf16* xin, const bf16* xind, const float* w1, const float* b1,
+                         const float* w2, const float* b2, bf16* msg, bf16* msgd, float* scratch,
+                         int* iscratch, int B, int A, int R, int F, void* stream) {
+  return dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, msg, msgd, scratch,
+                  iscratch, B, A, R, F, stream);
+}
+
+int schnet_dual_bwd_bf16(const bf16* rbf, const bf16* rbfd, const bf16* envf, const bf16* envfd,
+                         const bf16* xin, const bf16* xind, const float* w1, const float* b1,
+                         const float* w2, const float* b2, const bf16* gmsg, const bf16* gmsgd,
+                         float* gxin, float* gxind, float* gw, float* scratch, int* iscratch,
+                         int need_gw, int B, int A, int R, int F, void* stream) {
+  return dual_bwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gmsgd, gxin, gxind,
+                  gw, scratch, iscratch, need_gw, B, A, R, F, stream);
 }
 
 }  // extern "C"

@@ -51,6 +51,12 @@ class _Logistic(torch.autograd.Function):
         return t * (s * (1 - s))
 
 
+def weak_const(c: float, x: torch.Tensor) -> float:
+    """The Python constant c as JAX applies a weakly typed constant to x:
+    rounded to x's dtype where that is narrower than float32."""
+    return c if x.dtype.itemsize >= 4 else float(torch.tensor(c).to(x.dtype))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.silu, x · σ(x). In float32 F.silu; in bf16 the product of x and
     `_Logistic` (XLA's evaluation there, each op rounding to bf16)."""
@@ -65,32 +71,60 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     to bf16 (√½ itself a bf16 constant), as JAX writes it."""
     if x.dtype == torch.float32:
         return F.gelu(x)
-    sqrt_half = float(torch.tensor(math.sqrt(0.5)).to(x.dtype))
-    return 0.5 * x * torch.erfc(-x * sqrt_half)
+    return 0.5 * x * torch.erfc(-x * weak_const(math.sqrt(0.5), x))
+
+
+class _Softplus(torch.autograd.Function):
+    """jax.nn.softplus in a low-precision dtype as XLA evaluates it there:
+    logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)) one op at a time, each
+    rounding; its derivative JAX's logaddexp rule, t · exp(x - softplus(x)),
+    each op rounding, in reverse and forward mode. Both derivatives read x
+    and the output, so they are differentiable again."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, y)
+        ctx.save_for_forward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.exp(x - y)
+
+    @staticmethod
+    def jvp(ctx, t):
+        x, y = ctx.saved_tensors
+        return t * torch.exp(x - y)
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
-    """softplus(x) - log(2): zero at x=0 (SchNet's activation)."""
-    return F.softplus(x) - _LOG2
+    """softplus(x) - log(2): zero at x=0 (SchNet's activation). In float32
+    F.softplus; in bf16 `_Softplus` (XLA's evaluation, each op rounding to
+    bf16) less log 2 rounded to bf16, as JAX rounds the weakly typed
+    constant."""
+    if x.dtype == torch.float32:
+        return F.softplus(x) - _LOG2
+    return _Softplus.apply(x) - weak_const(_LOG2, x)
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def compute_dtype_of(name: str, family: str, ported=("float32", "bfloat16")) -> torch.dtype:
+def compute_dtype_of(name: str, family: str) -> torch.dtype:
     """The torch dtype of a model's `compute_dtype` setting; raises for one
-    the family does not take."""
-    if name not in COMPUTE_DTYPES or name not in ported:
+    the port does not take."""
+    if name not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"compute_dtype={name!r}: the port's {family} takes {', '.join(ported)}"
-            + ("" if "bfloat16" in ported else " (ROADMAP queue 1: bf16 compute)"))
+            f"compute_dtype={name!r}: the port's {family} takes {', '.join(COMPUTE_DTYPES)}")
     return COMPUTE_DTYPES[name]
 
 
 class Linear(nn.Linear):
     """nn.Linear run in `compute_dtype` as flax's ``Dense(dtype=...)`` runs:
     the input, weight and bias cast to it and the output in it, the
-    parameters float32. None runs nn.Linear as it is."""
+    parameters float32. None or float32 runs nn.Linear as it is."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -99,7 +133,7 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt is None:
+        if dt is None or dt == torch.float32:
             return super().forward(x)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)

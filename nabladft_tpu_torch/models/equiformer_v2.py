@@ -54,8 +54,21 @@ SO3_LinearV2, grid MLP), the reference edge-degree embedding (÷ avg_degree)
 and the energy ÷ avg_num_nodes; its parameters carry the XLA tree's names.
 The JAX package has no kernel for it either, so it is a plain PyTorch path
 chosen by the variant at construction: asking for ``use_pallas="fused"``
-with it raises, and kernels O and P never run there. It takes float32 only:
-in bf16 it raises (its bf16 compute is not ported).
+with it raises, and kernels O and P never run there. In bf16 it follows the
+JAX model's XLA path with ``dtype=bfloat16`` op for op
+(``nabladft_tpu/models/equiformer_v2.py:260-530, 655-760``): the embedding's
+rows, the truncated rotations and the stream through the blocks in bf16;
+the edge-degree RadialFunction float32, its rows cast to bf16 before the
+rotation and the ÷ avg_degree (rounded to bf16); per block, the attention's
+bf16 Dense layers, per-m radial MLPs (LayerNorm statistics float32, output
+bf16), grid silu on the bf16 tables, alpha's LayerNorm, SmoothLeakyReLU and
+softmax float32, the attention weights cast to bf16; the reference norms'
+l=0 LayerNorm float32 beside the bf16 l>0 rescale; the reference FFN's
+SO3_LinearV2 weights rounded to bf16 (the first applied in float32 to the
+norm's float32 output), its grid MLP in bf16; the final norm, the energy
+FFN and the force block float32 (the force block on the bf16-rounded
+rotations). The per-edge rotations back and their neighbour sums run as the
+JAX model writes them (each edge's product, then the sum), in both dtypes.
 """
 
 from __future__ import annotations
@@ -70,15 +83,21 @@ from torch import nn
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
     LayerNormParams, Linear, ModelOutput, compute_dtype_of, init_linear_, lecun_normal_,
-    register_model, silu,
+    register_model, silu, weak_const,
 )
 from nabladft_tpu_torch.ops import eqv2_attn, graph, so3
-from nabladft_tpu_torch.ops.escn_layer import _expand_matrix, _spans, grid_act, grid_mats
+from nabladft_tpu_torch.ops.escn_layer import _expand_matrix, _spans, grid_mats
 from nabladft_tpu_torch.ops.radial import gaussian_smearing
 from nabladft_tpu_torch.utils import resolve_device
 
 ALPHA_DROP, DROP_PATH = 0.1, 0.05  # the JAX modules' rates
 LN_EPS_REF = 1e-5  # torch.nn.LayerNorm's, in the reference-compatible variant
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in at least float32: a bf16 value as JAX promotes it against
+    float32 parameters (a float64 model stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class EquivariantLayerNorm(nn.Module):
@@ -189,14 +208,16 @@ class SO2GraphAttention(nn.Module):
 
 class RadialFn(nn.Module):
     """The reference RadialFunction: Linear → LayerNorm (eps 1e-5) → SiLU
-    stacks, a plain Linear last."""
+    stacks, a plain Linear last. With `dt` bf16 as the JAX RadialFn(dtype=
+    bfloat16): bf16 Linear layers and silu, each LayerNorm's statistics and
+    affine in float32, its output rounded to bf16."""
 
-    def __init__(self, c_in: int, channels):
+    def __init__(self, c_in: int, channels, dt: Optional[torch.dtype] = None):
         super().__init__()
         dims = (c_in, *channels)
         self.n = len(channels)
         for i in range(self.n):
-            setattr(self, f"lin_{i}", nn.Linear(dims[i], dims[i + 1]))
+            setattr(self, f"lin_{i}", Linear(dims[i], dims[i + 1], compute_dtype=dt))
             if i < self.n - 1:
                 setattr(self, f"ln_{i}", LayerNormParams(dims[i + 1]))
 
@@ -205,7 +226,8 @@ class RadialFn(nn.Module):
             x = getattr(self, f"lin_{i}")(x)
             if i < self.n - 1:
                 ln = getattr(self, f"ln_{i}")
-                x = F.silu(F.layer_norm(x, x.shape[-1:], ln.scale, ln.bias, eps=LN_EPS_REF))
+                y = F.layer_norm(_wide(x), x.shape[-1:], ln.scale, ln.bias, eps=LN_EPS_REF)
+                x = silu(y.to(x.dtype))
         return x
 
 
@@ -217,23 +239,25 @@ class SO2ConvRef(nn.Module):
     (l, channel)."""
 
     def __init__(self, l_max: int, m_max: int, c_in: int, co: int, extra: int = 0,
-                 edge_in: int = 0, rad_hidden=()):
+                 edge_in: int = 0, rad_hidden=(), dt: Optional[torch.dtype] = None):
         super().__init__()
         self.l_max, self.m_max, self.c_in, self.co = l_max, m_max, c_in, co
         n0 = l_max + 1
         if rad_hidden:
             n_rad = sum((l_max + 1 - m) * c_in for m in range(m_max + 1))
-            self.rad_func = RadialFn(edge_in, (*rad_hidden, n_rad))
-        self.fc_m0 = nn.Linear(n0 * c_in, n0 * co + extra)
+            self.rad_func = RadialFn(edge_in, (*rad_hidden, n_rad), dt)
+        self.fc_m0 = Linear(n0 * c_in, n0 * co + extra, compute_dtype=dt)
         for m in range(1, m_max + 1):
             n_l = l_max + 1 - m
-            setattr(self, f"fc_r_m{m}", nn.Linear(n_l * c_in, n_l * co, bias=False))
-            setattr(self, f"fc_i_m{m}", nn.Linear(n_l * c_in, n_l * co, bias=False))
+            setattr(self, f"fc_r_m{m}", Linear(n_l * c_in, n_l * co, bias=False,
+                                               compute_dtype=dt))
+            setattr(self, f"fc_i_m{m}", Linear(n_l * c_in, n_l * co, bias=False,
+                                               compute_dtype=dt))
 
     def forward(self, x_t, x_edge):
         lead, c_in, co = x_t.shape[:-2], self.c_in, self.co
         spans = _spans(self.l_max, self.m_max)
-        rad = self.rad_func(x_edge) if hasattr(self, "rad_func") else None
+        rad = self.rad_func(x_edge.to(x_t.dtype)) if hasattr(self, "rad_func") else None
         s0, n0 = spans[0]
         flat0 = x_t[..., s0:s0 + n0, :].reshape(*lead, -1)
         off = n0 * c_in
@@ -267,45 +291,67 @@ class RefSO2GraphAttention(nn.Module):
     radial MLP, the separable S2 activation (the grid silu on rows 1.., a
     silu of the gate scalars on row 0), SO2 conv 2, alpha from LayerNorm
     (eps 1e-5) → SmoothLeakyReLU → alpha_dot, a softmax over each receiver's
-    live edges, then the per-l projection."""
+    live edges, then each edge's rows rotated back and summed over the
+    receiver's edges, and the per-l projection. With `cdt` bf16 as the JAX
+    module with dtype bfloat16 (the model's docstring); the force block stays
+    float32."""
 
     def __init__(self, l_max: int, m_max: int, c: int, num_heads: int, alpha_channels: int,
                  value_channels: int, hidden_channels: int, out_channels: int, edge_channels: int,
-                 num_basis: int, num_elements: int, grid_points: int):
+                 num_basis: int, num_elements: int, grid_points: int,
+                 cdt: torch.dtype = torch.float32):
         super().__init__()
         self.l_max, self.m_max, self.grid_points = l_max, m_max, grid_points
-        self.nh, self.va, self.vc = num_heads, alpha_channels, value_channels
+        self.nh, self.va, self.vc, self.cdt = num_heads, alpha_channels, value_channels, cdt
         hid, co, edge_in = hidden_channels, num_heads * value_channels, num_basis + 2 * edge_channels
         self.source_embedding = nn.Embedding(num_elements, edge_channels)
         self.target_embedding = nn.Embedding(num_elements, edge_channels)
         self.so2_conv_1 = SO2ConvRef(l_max, m_max, 2 * c, hid, num_heads * alpha_channels + hid,
-                                     edge_in, (edge_channels, edge_channels))
-        self.so2_conv_2 = SO2ConvRef(l_max, m_max, hid, co)
+                                     edge_in, (edge_channels, edge_channels), cdt)
+        self.so2_conv_2 = SO2ConvRef(l_max, m_max, hid, co, dt=cdt)
         self.alpha_norm = LayerNormParams(alpha_channels)
         self.alpha_dot = nn.Parameter(torch.empty(num_heads, alpha_channels))
         for l in range(l_max + 1):
-            setattr(self, f"proj_l{l}", nn.Linear(co, out_channels, bias=l == 0))
+            setattr(self, f"proj_l{l}", Linear(co, out_channels, bias=l == 0, compute_dtype=cdt))
+        # the grid silu as the JAX module applies it: the m-major columns of the
+        # grid tables, in the stream's dtype at use
+        to_g, from_g = grid_mats(l_max, grid_points, m_max)
+        cols = so3.mmajor_cols(l_max, m_max)
+        self.register_buffer("to_gt", torch.as_tensor(to_g[:, cols], dtype=torch.float32),
+                             persistent=False)
+        self.register_buffer("from_gt", torch.as_tensor(from_g[cols], dtype=torch.float32),
+                             persistent=False)
 
     def forward(self, x, ctx: dict, dropk: torch.Tensor) -> torch.Tensor:
-        nh, va, dt, idx = self.nh, self.va, ctx["dt"], ctx["idx"]
+        nh, va, idx = self.nh, self.va, ctx["idx"]
+        dt = ctx["dt"]  # the truncated rotations, in the dtype the model cast them to
+        if self.cdt != torch.float32:  # JAX's x.astype(dtype)
+            x = x.to(self.cdt)
         x_edge = torch.cat([ctx["basis"], self.source_embedding(ctx["z_src"]),
                             self.target_embedding(ctx["z_dst"])], dim=-1)
         x_src = torch.einsum("bakrs,baksc->bakrc", dt, graph.gather_nodes(x, idx))
         x_tgt = torch.einsum("bakrs,basc->bakrc", dt, x)
         hidden, extra = self.so2_conv_1(torch.cat([x_src, x_tgt], dim=-1), x_edge)
-        acted = grid_act(hidden, self.l_max, self.m_max, self.grid_points)
-        acted = torch.cat([F.silu(extra[..., nh * va:])[..., None, :], acted[..., 1:, :]], dim=-2)
+        grid = silu(torch.einsum("ps,baksc->bakpc", self.to_gt.to(x.dtype), hidden))
+        acted = torch.einsum("sp,bakpc->baksc", self.from_gt.to(x.dtype), grid)
+        acted = torch.cat([silu(extra[..., nh * va:])[..., None, :], acted[..., 1:, :]], dim=-2)
         values, _ = self.so2_conv_2(acted, x_edge)
 
         a = extra[..., :nh * va].reshape(*extra.shape[:-1], nh, va)
+        a = _wide(a)
         a = smooth_leaky_relu(F.layer_norm(a, (va,), self.alpha_norm.scale, self.alpha_norm.bias,
                                            eps=LN_EPS_REF))
         logits = torch.einsum("bakhv,hv->bakh", a, self.alpha_dot)
         live = ctx["maskf"][..., None] > 0.5
         logits = torch.where(live, logits, torch.full_like(logits, -1e9))
-        alpha = torch.where(live, torch.softmax(logits, dim=2), torch.zeros_like(logits)) * dropk
+        alpha = torch.where(live, torch.softmax(logits, dim=2), torch.zeros_like(logits))
+        alpha = alpha.to(x.dtype)
+        if dropk is not ctx["ones"]:  # flax Dropout: the kept values / keep_prob
+            alpha = torch.where(dropk > 0, alpha / weak_const(1.0 - ALPHA_DROP, alpha),
+                                torch.zeros_like(alpha))
         v = values.reshape(*values.shape[:-1], nh, self.vc) * alpha[..., None, :, None]
-        agg = torch.einsum("bakrs,bakrc->basc", dt, v.reshape(values.shape))
+        full = torch.einsum("bakrs,bakrc->baksc", dt, v.reshape(values.shape))
+        agg = torch.where(ctx["maskf"][..., None, None] > 0.5, full, torch.zeros_like(full)).sum(2)
         return torch.cat([getattr(self, f"proj_l{l}")(agg[..., l * l:(l + 1) * (l + 1), :])
                           for l in range(self.l_max + 1)], dim=-2)
 
@@ -325,68 +371,81 @@ class RefEquivariantLayerNorm(nn.Module):
         self.register_buffer("row_w", torch.tensor(w), persistent=False)
 
     def forward(self, x):  # [B,A,S,C]
-        x0 = F.layer_norm(x[..., 0, :], (self.c,), self.ln0.scale, self.ln0.bias, eps=LN_EPS_REF)
+        # l=0: flax LayerNorm, float32 statistics and output on a bf16 input;
+        # l>0 in x's dtype; the stack float32 (jnp.concatenate promotes)
+        x0 = F.layer_norm(_wide(x[..., 0, :]), (self.c,), self.ln0.scale, self.ln0.bias,
+                          eps=LN_EPS_REF)
         rest = x[..., 1:, :]
         inv = torch.rsqrt(torch.einsum("...ic,i->...c", rest * rest, self.row_w.to(x.dtype))
-                          .mean(dim=-1) + LN_EPS_REF)
+                          .mean(dim=-1) + weak_const(LN_EPS_REF, x))
         outs = [x0[..., None, :]]
         for l in range(1, self.l_max + 1):
             outs.append(x[..., l * l:(l + 1) * (l + 1), :] * inv[..., None, None]
-                        * self.affine_weight[l - 1])
-        return torch.cat(outs, dim=-2)
+                        * self.affine_weight[l - 1].to(x.dtype))
+        return torch.cat([t.to(x0.dtype) for t in outs], dim=-2)
 
 
 class SO3LinearV2(nn.Module):
     """A per-l linear map: one stacked weight [L+1, in, out], a bias on l=0
-    (so3.py:603-641)."""
+    (so3.py:603-641). With `cdt` bf16 as the JAX module's dtype=bfloat16: the
+    weight and bias rounded to bf16, applied in the promotion of x's dtype
+    and bf16 (float32 for a float32 x)."""
 
-    def __init__(self, l_max: int, c_in: int, c_out: int):
+    def __init__(self, l_max: int, c_in: int, c_out: int, cdt: torch.dtype = torch.float32):
         super().__init__()
+        self.cdt = cdt
         self.weight = nn.Parameter(torch.empty(l_max + 1, c_in, c_out))
         self.bias = nn.Parameter(torch.zeros(c_out))
         l_of_row = [l for l in range(l_max + 1) for _ in range(2 * l + 1)]
         self.register_buffer("l_of_row", torch.tensor(l_of_row), persistent=False)
 
     def forward(self, x):  # [..., S, in]
-        out = torch.einsum("...sc,sco->...so", x, self.weight[self.l_of_row])
-        return torch.cat([(out[..., 0, :] + self.bias)[..., None, :], out[..., 1:, :]], dim=-2)
+        w, b = self.weight[self.l_of_row], self.bias
+        if self.cdt != torch.float32:
+            dt = torch.promote_types(x.dtype, self.cdt)
+            x, w, b = x.to(dt), w.to(self.cdt).to(dt), b.to(self.cdt).to(dt)
+        out = torch.einsum("...sc,sco->...so", x, w)
+        return torch.cat([(out[..., 0, :] + b)[..., None, :], out[..., 1:, :]], dim=-2)
 
 
 class RefFFN(nn.Module):
     """The reference FeedForwardNetwork with the grid MLP and separable S2
     (transformer_block.py:328-455)."""
 
-    def __init__(self, l_max: int, c: int, hidden: int, out_channels: int, grid_points: int):
+    def __init__(self, l_max: int, c: int, hidden: int, out_channels: int, grid_points: int,
+                 cdt: torch.dtype = torch.float32):
         super().__init__()
-        self.scalar_mlp = nn.Linear(c, hidden)
-        self.so3_linear_1 = SO3LinearV2(l_max, c, hidden)
+        self.scalar_mlp = Linear(c, hidden, compute_dtype=cdt)
+        self.so3_linear_1 = SO3LinearV2(l_max, c, hidden, cdt)
         for i in range(3):
-            setattr(self, f"grid_{i}", nn.Linear(hidden, hidden, bias=False))
-        self.so3_linear_2 = SO3LinearV2(l_max, hidden, out_channels)
+            setattr(self, f"grid_{i}", Linear(hidden, hidden, bias=False, compute_dtype=cdt))
+        self.so3_linear_2 = SO3LinearV2(l_max, hidden, out_channels, cdt)
         to_g, from_g = grid_mats(l_max, grid_points)
         self.register_buffer("to_g", torch.as_tensor(to_g, dtype=torch.float32), persistent=False)
         self.register_buffer("from_g", torch.as_tensor(from_g, dtype=torch.float32),
                              persistent=False)
 
     def forward(self, x):  # [B,A,S,C]
-        scal = F.silu(self.scalar_mlp(x[..., 0, :]))
-        g = torch.einsum("ps,basc->bapc", self.to_g, self.so3_linear_1(x))
-        g = F.silu(self.grid_1(F.silu(self.grid_0(g))))
-        h = torch.einsum("sp,bapc->basc", self.from_g, self.grid_2(g))
+        scal = silu(self.scalar_mlp(x[..., 0, :]))
+        h = self.so3_linear_1(x)
+        g = torch.einsum("ps,basc->bapc", self.to_g.to(h.dtype), h)
+        g = self.grid_2(silu(self.grid_1(silu(self.grid_0(g)))))
+        h = torch.einsum("sp,bapc->basc", self.from_g.to(g.dtype), g)
         return self.so3_linear_2(torch.cat([scal[..., None, :], h[..., 1:, :]], dim=-2))
 
 
 class RefTransBlockV2(nn.Module):
     def __init__(self, l_max: int, m_max: int, c: int, num_heads: int, alpha_channels: int,
                  value_channels: int, hidden_channels: int, ffn_hidden: int, edge_channels: int,
-                 num_basis: int, num_elements: int, grid_points: int):
+                 num_basis: int, num_elements: int, grid_points: int,
+                 cdt: torch.dtype = torch.float32):
         super().__init__()
         self.norm_1 = RefEquivariantLayerNorm(l_max, c)
         self.ga = RefSO2GraphAttention(l_max, m_max, c, num_heads, alpha_channels, value_channels,
                                        hidden_channels, c, edge_channels, num_basis, num_elements,
-                                       grid_points)
+                                       grid_points, cdt)
         self.norm_2 = RefEquivariantLayerNorm(l_max, c)
-        self.ffn = RefFFN(l_max, c, ffn_hidden, c, grid_points)
+        self.ffn = RefFFN(l_max, c, ffn_hidden, c, grid_points, cdt)
 
     def forward(self, x, ctx: dict, model: "EquiformerV2"):
         h = self.ga(self.norm_1(x), ctx, model.alpha_keep(ctx))
@@ -459,10 +518,6 @@ class EquiformerV2(nn.Module):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
         self.cdt = compute_dtype_of(compute_dtype, "EquiformerV2")
         bf16 = self.cdt == torch.bfloat16
-        if not m_share_rad and bf16:
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' with m_share_rad=False: the reference-compatible "
-                "variant's bf16 compute is not ported (ROADMAP queue 1: bf16 compute)")
         if not m_share_rad and use_pallas == "fused":
             raise ValueError("m_share_rad=False (the reference-compatible variant) has no fused "
                              "kernel, in the JAX package either: build it with use_pallas='off'")
@@ -502,7 +557,7 @@ class EquiformerV2(nn.Module):
                                             (edge_channels, edge_channels, (l_max + 1) * c))
             for i in range(num_layers):
                 setattr(self, f"block_{i}", RefTransBlockV2(*attn, hid, ffn_hidden_channels,
-                                                            *edge))
+                                                            *edge, self.cdt))
             self.norm_final = RefEquivariantLayerNorm(l_max, c)
             self.energy_block = RefFFN(l_max, c, ffn_hidden_channels, 1, gp)
             self.force_block = RefSO2GraphAttention(*attn, hid, 1, *edge)
@@ -561,7 +616,7 @@ class EquiformerV2(nn.Module):
         if not self.training:
             return h
         keep = self.bernoulli_keep((h.shape[0], 1, 1, 1), 1.0 - DROP_PATH, h.device)
-        return h * keep.to(h.dtype) / (1.0 - DROP_PATH)
+        return h * keep.to(h.dtype) / weak_const(1.0 - DROP_PATH, h)
 
     # -- forward -----------------------------------------------------------------
 
@@ -618,34 +673,44 @@ class EquiformerV2(nn.Module):
         ctx = (self.ref_edge_inputs if ref else self.edge_inputs)(batch.pos, batch.node_mask, z)
         dcomp, k = ctx["d"], ctx["d"].shape[2]
 
-        x = batch.pos.new_zeros((b, a, (L + 1) ** 2, C))
-        emb = self.sphere_embedding(z)  # flax Embed(dtype=bfloat16) rounds the rows
-        x[:, :, 0, :] = emb.to(self.cdt) if self.cdt == torch.bfloat16 else emb
-        # edge-degree embedding: each edge's m=0 radial rows rotated back with
-        # the compact values (row (l, 0) of block l), summed over neighbours in
-        # the contraction
+        # flax Embed(dtype=bfloat16) rounds the rows, and the stack takes their dtype
+        emb = self.sphere_embedding(z)
+        if self.cdt != torch.float32:
+            emb = emb.to(self.cdt)
+        x = emb.new_zeros((b, a, (L + 1) ** 2, C))
+        x[:, :, 0, :] = emb
         if ref:
+            # the reference edge degree: each edge's m=0 rows (the first L+1
+            # m-major rows) rotated back with the truncated rotations, then
+            # summed over the receiver's edges ÷ avg_degree (as JAX's XLA path:
+            # in bf16 the rotations and rows bf16, each edge's product rounded)
             deg = self.edge_degree_rad(torch.cat([
                 ctx["basis"], self.edge_degree_source_embedding(ctx["z_src"]),
                 self.edge_degree_target_embedding(ctx["z_dst"])], dim=-1))
-            rescale = self.avg_degree
+            if self.cdt != torch.float32:
+                deg, ctx["dt"] = deg.to(self.cdt), ctx["dt"].to(self.cdt)
+            deg = deg.reshape(b, a, k, L + 1, C)
+            full = torch.einsum("bakmn,bakmc->baknc", ctx["dt"][..., :L + 1, :], deg)
+            full = torch.where(ctx["maskf"][..., None, None] > 0.5, full, torch.zeros_like(full))
+            x = x + full.sum(dim=2) / weak_const(self.avg_degree, full)
         else:
-            deg = self.edge_degree_proj(ctx["xe"])
-            rescale = math.sqrt(float(self.max_neighbors))
-        # bf16: the float32 contraction with dcomp promotes it
-        deg = deg.to(dcomp.dtype).reshape(b, a, k, L + 1, C)
-        offs, _ = so3.trunc_compact_layout(L, self.m_max)
-        cols = []
-        for l in range(L + 1):
-            base = offs[l] + min(l, self.m_max) * (2 * l + 1)
-            cols.append(torch.einsum("bajn,bajc->banc", dcomp[..., base:base + 2 * l + 1],
-                                     deg[..., l, :]))
-        x = x + torch.cat(cols, dim=-2) / rescale
+            # each edge's m=0 radial rows rotated back with the compact values
+            # (row (l, 0) of block l), summed over neighbours in the
+            # contraction; bf16: the float32 contraction with dcomp promotes it
+            deg = self.edge_degree_proj(ctx["xe"]).to(dcomp.dtype).reshape(b, a, k, L + 1, C)
+            offs, _ = so3.trunc_compact_layout(L, self.m_max)
+            cols = []
+            for l in range(L + 1):
+                base = offs[l] + min(l, self.m_max) * (2 * l + 1)
+                cols.append(torch.einsum("bajn,bajc->banc", dcomp[..., base:base + 2 * l + 1],
+                                         deg[..., l, :]))
+            x = x + torch.cat(cols, dim=-2) / math.sqrt(float(self.max_neighbors))
         for i in range(self.num_layers):
             x = getattr(self, f"block_{i}")(x, ctx, self)
-        x = self.norm_final(x)
+        x = self.norm_final(_wide(x))
 
         if ref:
+            ctx["dt"] = _wide(ctx["dt"])  # the bf16-rounded rotations, as JAX casts them back
             node_e = self.energy_block(x)[..., 0, 0]
             energy = torch.where(batch.node_mask, node_e, torch.zeros_like(node_e)).sum(dim=1)
             n_atoms = batch.node_mask.sum(dim=1).to(energy.dtype)

@@ -15,8 +15,8 @@ the one dense graph that the atom-atom interaction also reads:
   package, so the fitted statistics keep the reference's semantics;
 * quadruplets: the c–a–b–d star around each edge (j→i), c a neighbour of
   the receiver i, d of the sender j, with the bend angles φ_cab, φ_abd and
-  the plane dihedral θ_cabd; the basis contraction runs over d first, then
-  c, so no [B,A,K,C,D,Sq,E] product exists;
+  the plane dihedral θ_cabd; the basis contraction runs over c first, then
+  d, so no [B,A,K,C,D,Sq,E] product exists;
 * coupled forces: per-edge scalars scattered onto the dense [B,A,A] pair
   lattice, symmetrised 0.5(S + Sᵀ) and gathered back.
 
@@ -26,9 +26,18 @@ norm) but that no optimizer updates (`scale_factors`); `fit_scale_factors`
 fits them from data. ``forward(batch, stats)`` with a dict records each
 scale's (variance of its output, variance of its reference) there, as the
 JAX package's mutable "scale_stats" collection, and runs the explicit
-triplet lattice. ``compute_dtype="bfloat16"`` is not ported and raises;
-``remat`` is accepted and, as in the JAX package, not read. Parameters are
-named as the flax tree (`models/convert.load_flax_params`).
+triplet lattice. ``remat`` is accepted and, as in the JAX package, not read.
+Parameters are named as the flax tree (`models/convert.load_flax_params`).
+
+``compute_dtype="bfloat16"`` runs as the JAX model's, op for op: the radial,
+circular and spherical bases cast to bf16 after their masks (the geometry
+itself float32), the embedding's rows, every block's Dense layers (bf16
+Linear) and silu in bf16, the basis weights cast to bf16 at use, each scale
+factor rounded to its input's dtype where it is applied and the blocks'
+constant factors rounded to bf16 as JAX rounds its weakly typed ones; the
+energy head and the direct forces (the force scalars come out of a float32
+Dense) in float32. The fit's variances are taken in float32 of the bf16
+activations. The parameters are float32 in both dtypes.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    ModelOutput, compute_dtype_of, lecun_normal_, register_model,
+    Linear, ModelOutput, compute_dtype_of, lecun_normal_, register_model, silu, weak_const,
 )
 from nabladft_tpu_torch.ops import graph, so3
 from nabladft_tpu_torch.ops.radial import gaussian_rbf, polynomial_envelope
@@ -51,6 +60,7 @@ from nabladft_tpu_torch.ops.spherical import legendre_polynomials
 from nabladft_tpu_torch.utils import resolve_device
 
 Stats = Optional[Dict[str, torch.Tensor]]
+Dtype = Optional[torch.dtype]  # a Linear's compute dtype (`base.Linear`)
 
 
 def _he_normal_(t: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -80,7 +90,7 @@ class _Scaled(nn.Module):
         """x times the scale factor `name`; with `stats`, records the
         (output, reference) variances under the parameter's name (the
         reference's variance is 1 without a reference tensor)."""
-        y = x * getattr(self, name)
+        y = x * getattr(self, name).to(x.dtype)
         if stats is not None:
             with torch.no_grad():
                 var_ref = _variance(ref) if ref is not None else y.new_ones((), dtype=torch.float32)
@@ -97,20 +107,20 @@ class _Embed(nn.Module):
 
 
 class Residual(nn.Module):
-    def __init__(self, units: int):
+    def __init__(self, units: int, dt: Dtype = None):
         super().__init__()
-        self.dense_0 = nn.Linear(units, units, bias=False)
-        self.dense_1 = nn.Linear(units, units, bias=False)
+        self.dense_0 = Linear(units, units, bias=False, compute_dtype=dt)
+        self.dense_1 = Linear(units, units, bias=False, compute_dtype=dt)
 
     def forward(self, x):
-        h = F.silu(self.dense_1(F.silu(self.dense_0(x))))
-        return (x + h) * (2 ** -0.5)
+        h = silu(self.dense_1(silu(self.dense_0(x))))
+        return (x + h) * weak_const(2 ** -0.5, h)
 
 
-def _res_stack(parent: nn.Module, prefix: str, n: int, units: int) -> List[str]:
+def _res_stack(parent: nn.Module, prefix: str, n: int, units: int, dt: Dtype) -> List[str]:
     names = [f"{prefix}_{i}" for i in range(n)]
     for name in names:
-        setattr(parent, name, Residual(units))
+        setattr(parent, name, Residual(units, dt))
     return names
 
 
@@ -126,22 +136,22 @@ class TripletInteraction(_Scaled):
     module docstring)."""
 
     def __init__(self, emb_edge: int, emb_in: int, emb_out: int, emb_cbf: int,
-                 num_spherical: int, scope: str):
+                 num_spherical: int, scope: str, dt: Dtype = None):
         super().__init__(scope, ["scale_cbf_sum"])
         self.num_spherical, self.emb_cbf, self.emb_in = num_spherical, emb_cbf, emb_in
-        self.dense_db = nn.Linear(emb_edge, emb_in, bias=False)
+        self.dense_db = Linear(emb_edge, emb_in, bias=False, compute_dtype=dt)
         self.mlp_cbf = nn.Parameter(torch.empty(num_spherical * emb_cbf, emb_in))
-        self.down = nn.Linear(emb_in, emb_out, bias=False)
-        self.up = nn.Linear(emb_out, emb_edge, bias=False)
+        self.down = Linear(emb_in, emb_out, bias=False, compute_dtype=dt)
+        self.up = Linear(emb_out, emb_edge, bias=False, compute_dtype=dt)
 
     def forward(self, m, nl, trip, stats: Stats):
         sq, rc = self.num_spherical, self.emb_cbf
-        x = F.silu(self.dense_db(m))
-        w = self.mlp_cbf
+        x = silu(self.dense_db(m))
+        w = self.mlp_cbf.to(x.dtype)
         zero = x.new_zeros(())
         if "cbf" in trip:
             x_kj = graph.gather_neighbor_edges(x, nl.idx)  # [B,A,K,M,Ein]
-            cbf_m = torch.where(trip["trip_mask"][..., None], trip["cbf"], zero)
+            cbf_m = torch.where(trip["trip_mask"][..., None], trip["cbf"], zero).to(x.dtype)
             g = torch.einsum("bikms,se->bikme", cbf_m, w)
             agg = torch.einsum("bikme,bikme->bike", g, x_kj)
             agg = self._scale("scale_cbf_sum", agg, stats, ref=x_kj)
@@ -164,11 +174,11 @@ class TripletInteraction(_Scaled):
             x_rev = torch.gather(x.reshape(bsz, a_ax * k_ax, e_ax), 1,
                                  trip["rev_flat"].reshape(bsz, a_ax * k_ax, 1).expand(-1, -1, e_ax))
             x_rev = x_rev.reshape(bsz, a_ax, k_ax, e_ax) * trip["rev_valid"][..., None].to(x.dtype)
-            agg = (agg - cw * x_rev) * trip["s_basis"]
+            agg = (agg - cw * x_rev) * trip["s_basis"].to(x.dtype)
             agg = torch.where(nl.mask[..., None], agg, zero)
             agg = self._scale("scale_cbf_sum", agg, stats)
-        x = F.silu(self.down(agg))
-        return F.silu(self.up(x))
+        x = silu(self.down(agg))
+        return silu(self.up(x))
 
 
 class QuadrupletInteraction(_Scaled):
@@ -177,108 +187,111 @@ class QuadrupletInteraction(_Scaled):
     circ(cosφ_cab) ⊗ circ(cosθ_cabd)."""
 
     def __init__(self, emb_edge: int, emb_in: int, emb_out: int, num_spherical: int,
-                 num_radial: int, scope: str):
+                 num_radial: int, scope: str, dt: Dtype = None):
         super().__init__(scope, ["scale_rbf", "scale_cbf_sum", "scale_sbf_sum"])
         self.num_spherical = num_spherical
-        self.dense_db = nn.Linear(emb_edge, emb_in, bias=False)
-        self.mlp_rbf = nn.Linear(num_radial, emb_in, bias=False)
+        self.dense_db = Linear(emb_edge, emb_in, bias=False, compute_dtype=dt)
+        self.mlp_rbf = Linear(num_radial, emb_in, bias=False, compute_dtype=dt)
         self.mlp_cbf = nn.Parameter(torch.empty(num_spherical, emb_in))
         self.mlp_sbf = nn.Parameter(torch.empty(num_spherical * num_spherical, emb_in))
-        self.down = nn.Linear(emb_in, emb_out, bias=False)
-        self.up = nn.Linear(emb_out, emb_edge, bias=False)
+        self.down = Linear(emb_in, emb_out, bias=False, compute_dtype=dt)
+        self.up = Linear(emb_out, emb_edge, bias=False, compute_dtype=dt)
 
     def forward(self, m, nl, rbf, quad, stats: Stats):
         sq = self.num_spherical
         cos_cab, cos_abd, cos_dih, mask_d, quad_mask = quad
-        zero = m.new_zeros(())
-        x = F.silu(self.dense_db(m))
+        x = silu(self.dense_db(m))
+        dt, zero = x.dtype, x.new_zeros(())
         x = self._scale("scale_rbf", x * self.mlp_rbf(rbf), stats, ref=x)
         kq = cos_abd.shape[-1]
         x_db = graph.gather_nodes(x[:, :, :kq], nl.idx)  # [B,A,K,D,Ein]: edges d→j
-        leg_abd = legendre_polynomials(cos_abd, sq - 1)  # [B,A,K,D,Sq]
-        t = x_db * torch.einsum("bikds,se->bikde", leg_abd, self.mlp_cbf)
+        leg_abd = legendre_polynomials(cos_abd, sq - 1).to(dt)  # [B,A,K,D,Sq]
+        t = x_db * torch.einsum("bikds,se->bikde", leg_abd, self.mlp_cbf.to(dt))
         t = self._scale("scale_cbf_sum", torch.where(mask_d[..., None], t, zero), stats,
                         ref=x_db)
-        leg_cab = legendre_polynomials(cos_cab, sq - 1)  # [B,A,K,C,Sq]
-        leg_dih = legendre_polynomials(cos_dih, sq - 1)  # [B,A,K,C,D,Sq]
+        leg_cab = legendre_polynomials(cos_cab, sq - 1).to(dt)  # [B,A,K,C,Sq]
+        leg_dih = legendre_polynomials(cos_dih, sq - 1).to(dt)  # [B,A,K,C,D,Sq]
         leg_dih = torch.where(quad_mask[..., None], leg_dih, zero)
-        # Σ_c Σ_d leg_cab[c,s] leg_dih[c,d,t] t[d,e]: over d first, then c
-        u = torch.einsum("bikcdt,bikde->bikcte", leg_dih, t)
-        r = torch.einsum("bikcs,bikcte->bikste", leg_cab, u)
+        # Σ_c Σ_d leg_cab[c,s] leg_dih[c,d,t] t[d,e]: over c first, then d (the
+        # order JAX's einsum takes, the smaller intermediate [.., D, Sq, Sq])
+        u = torch.einsum("bikcdt,bikcs->bikdts", leg_dih, leg_cab)
+        r = torch.einsum("bikdts,bikde->bikste", u, t)
         r2 = r.reshape(*r.shape[:3], sq * sq, r.shape[-1])
-        agg = torch.einsum("bikqe,qe->bike", r2, self.mlp_sbf)
+        agg = torch.einsum("bikqe,qe->bike", r2, self.mlp_sbf.to(dt))
         agg = self._scale("scale_sbf_sum", agg, stats, ref=t)
-        x = F.silu(self.down(agg))
-        return F.silu(self.up(x))
+        x = silu(self.down(agg))
+        return silu(self.up(x))
 
 
 class AtomEdgeInteraction(_Scaled):
     """Atom→edge: each edge reads its sender's atom embedding with radial weights."""
 
-    def __init__(self, emb_atom: int, emb_edge: int, num_radial: int, scope: str):
+    def __init__(self, emb_atom: int, emb_edge: int, num_radial: int, scope: str,
+                 dt: Dtype = None):
         super().__init__(scope, ["scale_rbf"])
-        self.mlp_rbf = nn.Linear(num_radial, emb_atom, bias=False)
-        self.proj = nn.Linear(emb_atom, emb_edge, bias=False)
+        self.mlp_rbf = Linear(num_radial, emb_atom, bias=False, compute_dtype=dt)
+        self.proj = Linear(emb_atom, emb_edge, bias=False, compute_dtype=dt)
 
     def forward(self, h, nl, rbf, stats: Stats):
         h_j = graph.gather_nodes(h, nl.idx)  # [B,A,K,H]
         msg = self._scale("scale_rbf", h_j * self.mlp_rbf(rbf), stats, ref=h_j)
-        return F.silu(self.proj(msg))
+        return silu(self.proj(msg))
 
 
 class EdgeAtomInteraction(_Scaled):
     """Edge→atom aggregation with radial weights."""
 
-    def __init__(self, emb_atom: int, emb_edge: int, num_radial: int, scope: str):
+    def __init__(self, emb_atom: int, emb_edge: int, num_radial: int, scope: str,
+                 dt: Dtype = None):
         super().__init__(scope, ["scale_sum"])
-        self.mlp_rbf = nn.Linear(num_radial, emb_edge, bias=False)
-        self.proj = nn.Linear(emb_edge, emb_atom, bias=False)
+        self.mlp_rbf = Linear(num_radial, emb_edge, bias=False, compute_dtype=dt)
+        self.proj = Linear(emb_edge, emb_atom, bias=False, compute_dtype=dt)
 
     def forward(self, m, nl, rbf, stats: Stats):
         agg = torch.where(nl.mask[..., None], m * self.mlp_rbf(rbf), m.new_zeros(())).sum(2)
         agg = self._scale("scale_sum", agg, stats, ref=m)
-        return F.silu(self.proj(agg))
+        return silu(self.proj(agg))
 
 
 class AtomInteraction(_Scaled):
     """Atom→atom over the dense in-cutoff graph with radial weights."""
 
-    def __init__(self, emb_atom: int, num_radial: int, scope: str):
+    def __init__(self, emb_atom: int, num_radial: int, scope: str, dt: Dtype = None):
         super().__init__(scope, ["scale_sum"])
-        self.mlp_rbf = nn.Linear(num_radial, emb_atom, bias=False)
-        self.proj = nn.Linear(emb_atom, emb_atom, bias=False)
+        self.mlp_rbf = Linear(num_radial, emb_atom, bias=False, compute_dtype=dt)
+        self.proj = Linear(emb_atom, emb_atom, bias=False, compute_dtype=dt)
 
     def forward(self, h, adj, rbf_dense, stats: Stats):
         w = self.mlp_rbf(rbf_dense)  # [B,A,A,H]
         agg = torch.where(adj[..., None], w * h[:, None, :, :], w.new_zeros(())).sum(2)
         agg = self._scale("scale_sum", agg, stats, ref=h)
-        return F.silu(self.proj(agg))
+        return silu(self.proj(agg))
 
 
 class OutputBlock(_Scaled):
     """Per-block energy and direct-force contributions."""
 
     def __init__(self, emb_atom: int, emb_edge: int, num_atom_layers: int, num_radial: int,
-                 scope: str):
+                 scope: str, dt: Dtype = None):
         super().__init__(scope, ["scale_out_sum"])
-        self.mlp_rbf_out = nn.Linear(num_radial, emb_edge, bias=False)
-        self.atom_proj = nn.Linear(emb_edge, emb_atom, bias=False)
-        self.atom_res = _res_stack(self, "atom_res", num_atom_layers, emb_atom)
-        self.force_res = _res_stack(self, "force_res", 2, emb_edge)
-        self.force_out = nn.Linear(emb_edge, 1, bias=False)
+        self.mlp_rbf_out = Linear(num_radial, emb_edge, bias=False, compute_dtype=dt)
+        self.atom_proj = Linear(emb_edge, emb_atom, bias=False, compute_dtype=dt)
+        self.atom_res = _res_stack(self, "atom_res", num_atom_layers, emb_atom, dt)
+        self.force_res = _res_stack(self, "force_res", 2, emb_edge, dt)
+        self.force_out = nn.Linear(emb_edge, 1, bias=False)  # float32: the force scalars
 
     def forward(self, h, m, nl, rbf, stats: Stats):
         agg = torch.where(nl.mask[..., None], m * self.mlp_rbf_out(rbf), m.new_zeros(())).sum(2)
         agg = self._scale("scale_out_sum", agg, stats, ref=m)
-        x = h + F.silu(self.atom_proj(agg))
+        x = h + silu(self.atom_proj(agg))
         x = _run_stack(self, self.atom_res, x)
         f = _run_stack(self, self.force_res, m)
-        return x, self.force_out(f)[..., 0]  # [B,A,K]
+        return x, self.force_out(f.float())[..., 0]  # [B,A,K]
 
 
 @register_model("gemnet_oc")
 class GemNetOC(_Scaled):
-    """GemNet-OC in float32; defaults follow the reference's
+    """GemNet-OC in float32 or bfloat16; defaults follow the reference's
     config/model/gemnet-oc.yaml.
 
     Built on `device` (the card unless the caller names another) with
@@ -329,7 +342,7 @@ class GemNetOC(_Scaled):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__("", ["scale_cbf_basis"])
-        compute_dtype_of(compute_dtype, "GemNet-OC", ported=("float32",))
+        self.cdt = dt = compute_dtype_of(compute_dtype, "GemNet-OC")
         # emb_size_rbf / emb_size_sbf, cutoff_qint and max_neighbors_aeaint
         # are the reference's; the JAX package reads none of them (one
         # neighbour list serves every interaction graph)
@@ -344,29 +357,31 @@ class GemNetOC(_Scaled):
         self.energy_mean, self.energy_std = energy_mean, energy_std
         self.num_global_out_layers = num_global_out_layers
         self.atom_emb = _Embed(num_elements, emb_size_atom)
-        self.edge_emb = nn.Linear(2 * emb_size_atom + num_radial, emb_size_edge)
-        self.out_0 = OutputBlock(emb_size_atom, emb_size_edge, num_atom, num_radial, "out_0.")
+        self.edge_emb = Linear(2 * emb_size_atom + num_radial, emb_size_edge, compute_dtype=dt)
+        self.out_0 = OutputBlock(emb_size_atom, emb_size_edge, num_atom, num_radial, "out_0.", dt)
         self.before, self.after = [], []
         for b in range(num_blocks):
             setattr(self, f"trip_{b}", TripletInteraction(
                 emb_size_edge, emb_size_trip_in, emb_size_trip_out, emb_size_cbf, num_spherical,
-                f"trip_{b}."))
+                f"trip_{b}.", dt))
             if quad_interaction:
                 setattr(self, f"quad_{b}", QuadrupletInteraction(
                     emb_size_edge, emb_size_quad_in, emb_size_quad_out, num_spherical_quad,
-                    num_radial, f"quad_{b}."))
+                    num_radial, f"quad_{b}.", dt))
             if atom_edge_interaction:
                 setattr(self, f"ae_{b}", AtomEdgeInteraction(
-                    emb_size_atom, emb_size_edge, num_radial, f"ae_{b}."))
-            self.before.append(_res_stack(self, f"before_{b}", num_before_skip, emb_size_edge))
-            self.after.append(_res_stack(self, f"after_{b}", num_after_skip, emb_size_edge))
+                    emb_size_atom, emb_size_edge, num_radial, f"ae_{b}.", dt))
+            self.before.append(_res_stack(self, f"before_{b}", num_before_skip, emb_size_edge,
+                                          dt))
+            self.after.append(_res_stack(self, f"after_{b}", num_after_skip, emb_size_edge, dt))
             if edge_atom_interaction:
                 setattr(self, f"ea_{b}", EdgeAtomInteraction(
-                    emb_size_atom, emb_size_edge, num_radial, f"ea_{b}."))
+                    emb_size_atom, emb_size_edge, num_radial, f"ea_{b}.", dt))
             if atom_interaction:
-                setattr(self, f"aa_{b}", AtomInteraction(emb_size_atom, num_radial, f"aa_{b}."))
+                setattr(self, f"aa_{b}", AtomInteraction(emb_size_atom, num_radial, f"aa_{b}.",
+                                                         dt))
             setattr(self, f"out_{b + 1}", OutputBlock(
-                emb_size_atom, emb_size_edge, num_atom, num_radial, f"out_{b + 1}."))
+                emb_size_atom, emb_size_edge, num_atom, num_radial, f"out_{b + 1}.", dt))
         for i in range(num_global_out_layers):
             setattr(self, f"out_e_{i}", nn.Linear(emb_size_atom, emb_size_atom, bias=False))
         self.energy_out = nn.Linear(emb_size_atom, 1, bias=False)
@@ -405,8 +420,9 @@ class GemNetOC(_Scaled):
 
     def _triplet_features(self, nl, dg, stats: Stats) -> dict:
         """The block-independent triplet tensors: the explicit lattice while
-        fitting (`stats` given), else the factorised pair features."""
-        sq, rc = self.num_spherical, self.emb_size_cbf
+        fitting (`stats` given), else the factorised pair features; the bases
+        cast to the compute dtype last."""
+        sq, rc, cdt = self.num_spherical, self.emb_size_cbf, self.cdt
         zero = nl.dist.new_zeros(())
         if stats is not None:
             cos_t, trip_mask = graph.triplet_angles(nl)
@@ -415,15 +431,16 @@ class GemNetOC(_Scaled):
             rad_t = torch.where(trip_mask[..., None], self._rbf(d_kj)[..., :rc], zero)
             cbf = torch.einsum("bikms,bikmr->bikmsr", leg_t, rad_t)
             cbf = self._scale("scale_cbf_basis", cbf.reshape(*cbf.shape[:-2], -1), stats)
-            return {"cbf": cbf, "trip_mask": trip_mask}
+            return {"cbf": cbf.to(cdt), "trip_mask": trip_mask}
         a_dim, k_ax = nl.idx.shape[1], nl.idx.shape[2]
         mask3 = nl.mask[..., None]
-        y_e = torch.where(mask3, so3.real_sph_harm(nl.unit, sq - 1, normalized=True), zero)
-        rad_e = torch.where(mask3, self._rbf(nl.dist)[..., :rc], zero)
+        y_e = torch.where(mask3, so3.real_sph_harm(nl.unit, sq - 1, normalized=True),
+                          zero).to(cdt)
+        rad_e = torch.where(mask3, self._rbf(nl.dist)[..., :rc], zero).to(cdt)
         adj3 = dg.adj[..., None]
         unit_d = torch.where(adj3, dg.diff / torch.clamp(dg.dist, min=1e-9)[..., None], zero)
         y_d = so3.real_sph_harm(unit_d, sq - 1, normalized=True)
-        yc_d = torch.where(adj3, y_d, zero) * self.c_full
+        yc_d = (torch.where(adj3, y_d, zero) * self.c_full).to(cdt)
         # reverse-edge map: the first slot of i in the list of j = idx[b,i,n]
         idx_g = graph.gather_nodes(nl.idx, nl.idx)  # [B,A,K,K]
         mask_g = graph.gather_nodes(nl.mask, nl.idx)
@@ -471,16 +488,16 @@ class GemNetOC(_Scaled):
         dg = graph.dense_graph(batch.pos, batch.node_mask, self.cutoff_aint)
         nl = graph.neighbor_list(batch.pos, batch.node_mask, self.cutoff, self.max_neighbors,
                                  dense=dg if self.cutoff == self.cutoff_aint else None)
-        zero = batch.pos.new_zeros(())
-        rbf = torch.where(nl.mask[..., None], self._rbf(nl.dist), zero)
+        zero, cdt = batch.pos.new_zeros(()), self.cdt
+        rbf = torch.where(nl.mask[..., None], self._rbf(nl.dist), zero).to(cdt)
         rbf_dense = torch.where(dg.adj[..., None],
-                                self._rbf(torch.where(dg.adj, dg.dist, zero)), zero)
+                                self._rbf(torch.where(dg.adj, dg.dist, zero)), zero).to(cdt)
         trip = self._triplet_features(nl, dg, stats)
         quad = self._quadruplet_features(nl) if self.quad_interaction else None
 
-        h = self.atom_emb.embedding[batch.z.long()]
+        h = self.atom_emb.embedding[batch.z.long()].to(cdt)  # flax Embed(dtype=cdt)
         h_j = graph.gather_nodes(h, nl.idx)
-        m = F.silu(self.edge_emb(torch.cat([h[:, :, None].expand_as(h_j), h_j, rbf], dim=-1)))
+        m = silu(self.edge_emb(torch.cat([h[:, :, None].expand_as(h_j), h_j, rbf], dim=-1)))
         e_out, f_out = self.out_0(h, m, nl, rbf, stats)
         for b in range(self.num_blocks):
             contributions = [getattr(self, f"trip_{b}")(m, nl, trip, stats)]
@@ -488,7 +505,7 @@ class GemNetOC(_Scaled):
                 contributions.append(getattr(self, f"quad_{b}")(m, nl, rbf, quad, stats))
             if self.atom_edge_interaction:
                 contributions.append(getattr(self, f"ae_{b}")(h, nl, rbf, stats))
-            m = (m + sum(contributions)) * (len(contributions) + 1) ** -0.5
+            m = (m + sum(contributions)) * weak_const((len(contributions) + 1) ** -0.5, m)
             m = _run_stack(self, self.before[b], m)
             m = _run_stack(self, self.after[b], m)
             atom_contrib = []
@@ -497,12 +514,12 @@ class GemNetOC(_Scaled):
             if self.atom_interaction:
                 atom_contrib.append(getattr(self, f"aa_{b}")(h, dg.adj, rbf_dense, stats))
             if atom_contrib:
-                h = (h + sum(atom_contrib)) * (len(atom_contrib) + 1) ** -0.5
+                h = (h + sum(atom_contrib)) * weak_const((len(atom_contrib) + 1) ** -0.5, h)
             x_b, f_b = getattr(self, f"out_{b + 1}")(h, m, nl, rbf, stats)
             e_out, f_out = e_out + x_b, f_out + f_b
 
-        # the energy head: a global MLP over the summed atom contributions
-        e = e_out
+        # the energy head: a global MLP over the summed atom contributions, in float32
+        e = e_out.float()
         for i in range(self.num_global_out_layers):
             e = F.silu(getattr(self, f"out_e_{i}")(e))
         e_atom = self.energy_out(e)[..., 0] * self.energy_std + self.energy_mean

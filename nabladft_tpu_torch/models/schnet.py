@@ -21,6 +21,15 @@ modes:
 Both modes read one parameter layout, the flax tree's: raw filter arrays
 ``filter_{i}_{w1,b1,w2,b2}``, ``in2f_{i}`` (no bias), ``f2out_{i}_{0,1}``
 and the ``atomwise`` MLP.
+
+``compute_dtype="bfloat16"`` runs as the JAX model's, op for op: the pair
+features (rbf, envf and, in the fused mode, their tangents rbfp, envp or
+rbfd, envfd) cast to bf16 last; the embedding's rows rounded to bf16;
+``in2f`` and ``f2out`` bf16 Dense layers, the message in the kernels' bf16
+mode (the raw filter arrays stay float32), shifted softplus in bf16
+(`base.shifted_softplus`); the stream cast to float32 before the
+``atomwise`` MLP, which runs in float32. The parameters are float32 in both
+dtypes, so one flax tree drives both.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from torch import nn
 from nabladft_tpu_torch.data.atomref import atomrefs_for
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import (
-    MLP, ModelOutput, compute_dtype_of, dual_lanes, init_linear_, lecun_normal_,
+    MLP, Linear, ModelOutput, compute_dtype_of, dual_lanes, embed, init_linear_, lecun_normal_,
     register_model, shifted_softplus,
 )
 from nabladft_tpu_torch.ops import graph, radial
@@ -47,7 +56,7 @@ from nabladft_tpu_torch.utils import resolve_device
 
 @register_model("schnet")
 class SchNet(nn.Module):
-    """SchNet on the molecular path, float32.
+    """SchNet on the molecular path, in float32 or bfloat16.
 
     Built on `device` (the card unless the caller names another) with
     weights drawn from `generator` with flax's initialisers (truncated
@@ -78,7 +87,7 @@ class SchNet(nn.Module):
     ):
         super().__init__()
         del remat
-        compute_dtype_of(compute_dtype, "SchNet", ported=("float32",))
+        self.cdt = compute_dtype_of(compute_dtype, "SchNet")
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
         f, r = hidden, n_rbf
@@ -93,9 +102,9 @@ class SchNet(nn.Module):
             self.register_parameter(f"filter_{i}_b1", nn.Parameter(torch.zeros(1, f)))
             self.register_parameter(f"filter_{i}_w2", nn.Parameter(torch.empty(f, f)))
             self.register_parameter(f"filter_{i}_b2", nn.Parameter(torch.zeros(1, f)))
-            setattr(self, f"in2f_{i}", nn.Linear(f, f, bias=False))
-            setattr(self, f"f2out_{i}_0", nn.Linear(f, f))
-            setattr(self, f"f2out_{i}_1", nn.Linear(f, f))
+            setattr(self, f"in2f_{i}", Linear(f, f, bias=False, compute_dtype=self.cdt))
+            setattr(self, f"f2out_{i}_0", Linear(f, f, compute_dtype=self.cdt))
+            setattr(self, f"f2out_{i}_1", Linear(f, f, compute_dtype=self.cdt))
         self.atomwise = MLP(f, [f // 2, 1], activation=shifted_softplus)
         refs = torch.tensor(atomrefs_for(num_elements), dtype=torch.float32)
         self.register_buffer("atomrefs", refs if use_atomrefs else None, persistent=False)
@@ -123,14 +132,17 @@ class SchNet(nn.Module):
         cutoff envelope envf [B,A,A] (zero off the edges). In the fused mode
         also rbfp and envp, their derivatives in dist from the closed-form
         radial jvps, all with no graph; with a dual `pos` (forward AD) the
-        tangents rbfd = rbfp ⊙ ṫdist and envfd = envp ⊙ ṫdist instead."""
+        tangents rbfd = rbfp ⊙ ṫdist and envfd = envp ⊙ ṫdist instead. Every
+        feature but dist is cast to the compute dtype last (the tangents:
+        taken in float32 and cast, as the JAX jvp of the cast)."""
+        cdt = self.cdt
         dg = graph.dense_graph(batch.pos, batch.node_mask, self.cutoff)
         adj = graph.dense_topk_mask(dg.dist, dg.adj, self.max_neighbors)
         dist = torch.where(adj, dg.dist, torch.zeros_like(dg.dist))
         if self.use_pallas == "off":
             env = radial.cosine_cutoff(dist, self.cutoff)
-            return {"rbf": radial.gaussian_rbf(dist, self.n_rbf, self.cutoff),
-                    "envf": torch.where(adj, env, torch.zeros_like(env))}
+            return {"rbf": radial.gaussian_rbf(dist, self.n_rbf, self.cutoff).to(cdt),
+                    "envf": torch.where(adj, env, torch.zeros_like(env)).to(cdt)}
         # the kernel backward folds the basis and envelope chains into
         # g_dist, so these tensors carry no autograd graph
         dist_p, dist_t = fwAD.unpack_dual(dist)
@@ -141,12 +153,13 @@ class SchNet(nn.Module):
             rbfp = radial.gaussian_rbf_jvp(dist_p, ones, self.n_rbf, self.cutoff)
             envf = torch.where(adj, radial.cosine_cutoff(dist_p, self.cutoff), zero)
             envp = torch.where(adj, radial.cosine_cutoff_jvp(dist_p, ones, self.cutoff), zero)
-        feats = {"dist": dist, "rbf": rbf.contiguous(), "envf": envf.contiguous()}
+        feats = {"dist": dist, "rbf": rbf.to(cdt).contiguous(),
+                 "envf": envf.to(cdt).contiguous()}
         if dist_t is None:
-            feats.update(rbfp=rbfp.contiguous(), envp=envp.contiguous())
+            feats.update(rbfp=rbfp.to(cdt).contiguous(), envp=envp.to(cdt).contiguous())
         else:
-            feats.update(rbfd=(rbfp * dist_t[..., None]).contiguous(),
-                         envfd=(envp * dist_t).contiguous())
+            feats.update(rbfd=(rbfp * dist_t[..., None]).to(cdt).contiguous(),
+                         envfd=(envp * dist_t).to(cdt).contiguous())
         return feats
 
     def message(self, i: int, xin: torch.Tensor, feats: dict) -> torch.Tensor:
@@ -160,13 +173,13 @@ class SchNet(nn.Module):
 
     def forward(self, batch: MolBatch) -> ModelOutput:
         feats = self.features(batch)
-        x = self.atom_embedding(batch.z.long())
+        x = embed(self.atom_embedding, batch.z.long(), self.cdt)
         for i in range(self.n_interactions):
             xin = getattr(self, f"in2f_{i}")(x)
-            msg = self.message(i, xin, feats)
+            msg = self.message(i, xin, feats).to(self.cdt)
             h = shifted_softplus(getattr(self, f"f2out_{i}_0")(msg))
             x = x + getattr(self, f"f2out_{i}_1")(h)
-        e_atom = self.atomwise(x)[..., 0] * self.energy_std + self.energy_mean
+        e_atom = self.atomwise(x.float())[..., 0] * self.energy_std + self.energy_mean
         if self.atomrefs is not None:
             e_atom = e_atom + self.atomrefs[batch.z.long()]
         return {"energy": masked_sum(e_atom, batch.node_mask, dim=1)}

@@ -810,7 +810,16 @@ def fwd_work(kind: str, rbf: torch.Tensor, rbf2: torch.Tensor, f: int) -> Dict[s
     prod, other = flops_split("fwd" if kind == "A" else "dual_fwd", r, f)
     return {"flops_live": flops, "flops_live_products": prod * live,
             "flops_live_other": other * live, "bytes": nbytes, "live_pairs": live,
-            "pairs": b * a * a}
+            "pairs": b * a * a, **_operands(rbf, prod * live, 0)}
+
+
+def _operands(rbf: torch.Tensor, both: int, rows: int) -> Dict[str, int]:
+    """The products' split by operand dtype in the bf16 mode: bf16 rows
+    against bf16 W ("flops_live_products_bf16") and bf16 rows against the
+    fp32 cotangents of gW ("flops_live_products_bf16_rows"); none in fp32."""
+    if rbf.dtype != torch.bfloat16:
+        return {}
+    return {"flops_live_products_bf16": both, "flops_live_products_bf16_rows": rows}
 
 
 def bwd_work(kind: str, rbf: torch.Tensor, rbf2: torch.Tensor, f: int,
@@ -825,13 +834,15 @@ def bwd_work(kind: str, rbf: torch.Tensor, rbf2: torch.Tensor, f: int,
     b, a, _, r = rbf.shape
     live = _live_pairs(rbf, rbf2)
     kinds = {"B": ("bwd", "bwd_gw"), "D": ("dual_bwd", "dual_bwd_gw")}[kind]
-    prod = other = 0
+    prod = other = gw = 0
     for k in kinds[: 1 + int(need_gw)]:
         p, o = flops_split(k, r, f)
         prod, other = prod + p * live, other + o * live
+        gw += p * live if k.endswith("_gw") else 0
     if kind == "B":
         flops, nbytes = painn_bwd_flops_bytes(rbf, rbf2, f, need_gw)
     else:
         flops, nbytes = painn_dual_bwd_flops_bytes(rbf, rbf2, f, need_gw)
     return {"flops_live": flops, "flops_live_products": prod, "flops_live_other": other,
-            "bytes": nbytes, "live_pairs": live, "pairs": b * a * a}
+            "bytes": nbytes, "live_pairs": live, "pairs": b * a * a,
+            **_operands(rbf, prod - gw, gw)}

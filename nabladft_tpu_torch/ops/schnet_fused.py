@@ -27,7 +27,19 @@ is valid only where positions are not differentiated, as in the surrogate's
 parameter pass. Neither VJP is itself differentiable.
 
 Layouts: rbf/rbfp/rbfd [B,A,A,R]; envf/envp/envfd [B,A,A]; xin/xind [B,A,F];
-W1 [R,F]; b1 [1,F]; W2 [F,F]; b2 [1,F]. All float32.
+W1 [R,F]; b1 [1,F]; W2 [F,F]; b2 [1,F].
+
+Two dtypes, the JAX kernels' two modes: every pair and node input (and the
+cotangents gmsg, gmsgd) float32, or every one bfloat16 (the model's
+``compute_dtype="bfloat16"``); a mix is refused. The filter weights are
+float32 in both (the JAX model's raw params). In bf16 the kernels read the
+pair and node tensors as bf16 and compute in float32, as the TPU kernels do:
+E and G return msg (and msgd) in bf16; F and H compute float32 and return
+gxin (and gxind) rounded to bf16, g_dist and the weight gradients in float32,
+as the JAX wrappers cast them. The plain versions do the same on bf16 inputs
+(float32 arithmetic on the widened values, one rounding); the autograd
+Functions round the incoming cotangents to the inputs' dtype, as the JAX
+VJPs do.
 
 Each kernel has its plain PyTorch version here with the same signature
 (`schnet_message_reference`, `schnet_message_bwd_reference`,
@@ -57,11 +69,18 @@ import torch.nn.functional as F_
 from nabladft_tpu_torch.ops import _kernels
 
 # launches of each CUDA kernel wrapper since the last reset
-# ("schnet_bwd_gw": kernel F calls that also ran the weight-gradient stage)
-LAUNCHES: Dict[str, int] = {"schnet_fwd": 0, "schnet_bwd": 0, "schnet_bwd_gw": 0,
-                            "schnet_dual_fwd": 0, "schnet_dual_bwd": 0}
+# ("schnet_bwd_gw": kernel F calls that also ran the weight-gradient stage);
+# the bf16 mode's launches under the same names with "_bf16" appended
+_KERNELS = ("schnet_fwd", "schnet_bwd", "schnet_bwd_gw", "schnet_dual_fwd", "schnet_dual_bwd")
+LAUNCHES: Dict[str, int] = dict.fromkeys(_KERNELS + tuple(k + "_bf16" for k in _KERNELS), 0)
+DTYPES = (torch.float32, torch.bfloat16)
+_WEIGHTS = ("w1", "b1", "w2", "b2")
 
 _LOG2 = math.log(2.0)
+
+
+def _count(name: str, dtype: torch.dtype, n: int = 1) -> None:
+    LAUNCHES[name if dtype == torch.float32 else name + "_bf16"] += n
 
 
 def reset_launches() -> None:
@@ -124,15 +143,29 @@ def _filter(rbf, w1, b1, w2, b2):
     return torch.sigmoid(z1), h, wmr
 
 
+def _widened(*tensors):
+    """The float32 values of bf16 inputs (exact), for the plain versions'
+    bf16 mode; float32 inputs go through as they are."""
+    return tuple(t if t.dtype == torch.float32 else t.float() for t in tensors)
+
+
+def _rounded(outs, dtype):
+    return tuple(None if t is None else t.to(dtype) for t in outs)
+
+
 def schnet_message_reference(rbf, envf, xin, w1, b1, w2, b2) -> torch.Tensor:
-    """Plain PyTorch version of kernel E: msg [B,A,F].
+    """Plain PyTorch version of kernel E: msg [B,A,F], in the inputs' dtype
+    (float32 arithmetic, one rounding on bf16 inputs: JAX's
+    `schnet_message_reference`).
 
     Also the `use_pallas="off"` model path, differentiable by autograd.
     """
+    dt = rbf.dtype
+    rbf, envf, xin = _widened(rbf, envf, xin)
     z1 = torch.einsum("bijr,rf->bijf", rbf, w1) + b1[0]
     wmr = torch.einsum("bijf,fg->bijg", _ssp(z1), w2) + b2[0]
     wm = wmr * envf[..., None]
-    return (wm * xin[:, None]).sum(dim=2)
+    return (wm * xin[:, None]).sum(dim=2).to(dt)
 
 
 def schnet_message_bwd_reference(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg,
@@ -141,8 +174,16 @@ def schnet_message_bwd_reference(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gms
 
     Returns (g_dist [B,A,A], gxin [B,A,F], gw1, gb1, gw2, gb2), the four
     weight cotangents None without `need_gw`; g_dist = Σ_f gz1 ⊙ (rbfp @ W1)
-    + g_env ⊙ envp.
+    + g_env ⊙ envp. Float32 arithmetic; on bf16 inputs gxin rounded to bf16,
+    g_dist and the weight cotangents float32.
     """
+    dt = rbf.dtype
+    out = _message_bwd(*_widened(rbf, rbfp, envf, envp, xin), w1, b1, w2, b2,
+                       *_widened(gmsg), need_gw=need_gw)
+    return (out[0], out[1].to(dt)) + out[2:]
+
+
+def _message_bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, need_gw: bool = True):
     s, h, wmr = _filter(rbf, w1, b1, w2, b2)
     wm = wmr * envf[..., None]
     gwm = gmsg[:, :, None, :] * xin[:, None]          # [B,A(i),A(j),F]
@@ -172,11 +213,14 @@ def _dual_filter(rbf, rbfd, envf, envfd, w1, b1, w2, b2):
 
 def schnet_dual_fwd_reference(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
     """Plain PyTorch version of kernel G: kernel E and its directional
-    derivative along (rbfd, envfd, xind), weights fixed. Returns (msg, msgd)."""
+    derivative along (rbfd, envfd, xind), weights fixed. Returns (msg, msgd)
+    in the inputs' dtype (float32 arithmetic, one rounding on bf16 inputs)."""
+    dt = rbf.dtype
+    rbf, rbfd, envf, envfd, xin, xind = _widened(rbf, rbfd, envf, envfd, xin, xind)
     _, _, _, _, wm, wmd = _dual_filter(rbf, rbfd, envf, envfd, w1, b1, w2, b2)
     msg = (wm * xin[:, None]).sum(dim=2)
     msgd = (wmd * xin[:, None]).sum(dim=2) + (wm * xind[:, None]).sum(dim=2)
-    return msg, msgd
+    return _rounded((msg, msgd), dt)
 
 
 def schnet_dual_bwd_reference(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2,
@@ -185,8 +229,17 @@ def schnet_dual_bwd_reference(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2,
     inputs and the weights (the pair-level inputs get none).
 
     Returns (gxin, gxind [B,A,F], gw1, gb1, gw2, gb2), the four weight
-    cotangents None without `need_gw`.
+    cotangents None without `need_gw`. Float32 arithmetic; on bf16 inputs
+    gxin and gxind rounded to bf16, the weight cotangents float32.
     """
+    dt = rbf.dtype
+    out = _dual_bwd(*_widened(rbf, rbfd, envf, envfd, xin, xind), w1, b1, w2, b2,
+                    *_widened(gmsg, gmsgd), need_gw=need_gw)
+    return _rounded(out[:2], dt) + out[2:]
+
+
+def _dual_bwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gmsgd,
+              need_gw: bool = True):
     s, z1d, h, hd, wm, wmd = _dual_filter(rbf, rbfd, envf, envfd, w1, b1, w2, b2)
     g, gd = gmsg[:, :, None, :], gmsgd[:, :, None, :]   # [B,A(i),1,F]
     gxin = (wm * g + wmd * gd).sum(dim=1)
@@ -388,6 +441,9 @@ def _lib() -> ctypes.CDLL:
     lib.schnet_dual_fwd.restype = i
     lib.schnet_dual_bwd.argtypes = [p] * 17 + [i] * 5 + [p]
     lib.schnet_dual_bwd.restype = i
+    for name in ("schnet_fwd", "schnet_bwd", "schnet_dual_fwd", "schnet_dual_bwd"):
+        bf = getattr(lib, name + "_bf16")
+        bf.argtypes, bf.restype = getattr(lib, name).argtypes, i
     return lib
 
 
@@ -410,21 +466,36 @@ def _shapes(b, a, r, f) -> Dict[str, tuple]:
                 xind=node, w1=(r, f), b1=(1, f), w2=(f, f), b2=(1, f), gmsg=node, gmsgd=node)
 
 
-def _launch(name: str, *args) -> None:
+def _check(args: Dict[str, torch.Tensor], shapes: Dict[str, tuple]) -> Tuple[torch.device,
+                                                                             torch.dtype]:
+    """A wrapper's inputs: the pair and node tensors one dtype of DTYPES, the
+    filter weights float32, all on one device (see `_kernels.check_inputs`).
+    Returns (device, the pair and node tensors' dtype)."""
+    data = {k: t for k, t in args.items() if k not in _WEIGHTS}
+    dev = _kernels.check_inputs(data, shapes, DTYPES)
+    if _kernels.check_inputs({k: args[k] for k in _WEIGHTS}, shapes) != dev:
+        raise ValueError(f"the filter weights are on {args['w1'].device}, the inputs on {dev}")
+    return dev, next(iter(data.values())).dtype
+
+
+def _launch(name: str, dtype: torch.dtype, *args) -> None:
+    """Launch entry point `name` (its `_bf16` twin for bf16 inputs)."""
     ptrs = [0 if a is None else (a.data_ptr() if isinstance(a, torch.Tensor) else a)
             for a in args]
     dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    entry = name if dtype == torch.float32 else name + "_bf16"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_lib(), name)(*ptrs, stream)
-    _kernels.raise_on_error(err, f"{name} launch")
+        err = getattr(_lib(), entry)(*ptrs, stream)
+    _kernels.raise_on_error(err, f"{entry} launch")
 
 
 def _engine_operands(args: Dict[str, torch.Tensor], r: int, f: int):
     """A kernel's inputs as it takes them: R and F rounded up to multiples
     of 4 with zeros (the pair tensors' basis axis, the node tensors'
-    channels, the weights and biases); a copy only off those multiples
-    (schnet.yaml's R = 100, F = 128 need none). Returns (args, R4, F4)."""
+    channels, the weights and biases), each in its own dtype; a copy only off
+    those multiples (schnet.yaml's R = 100, F = 128 need none). Returns
+    (args, R4, F4)."""
     r4, f4 = -(-r // 4) * 4, -(-f // 4) * 4
     pad = torch.nn.functional.pad
     out = {}
@@ -471,55 +542,54 @@ def schnet_fwd(rbf, envf, xin, w1, b1, w2, b2) -> torch.Tensor:
     """Kernel E: msg [B,A,F]."""
     b, a, r, f = _dims(xin, w1)
     args = dict(rbf=rbf, envf=envf, xin=xin, w1=w1, b1=b1, w2=w2, b2=b2)
-    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    dev, dt = _check(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_message_reference(*args.values())
     args, r4, f4 = _engine_operands(args, r, f)
-    msg = torch.empty((b, a, f4), dtype=torch.float32, device=dev)  # every row is written
+    msg = torch.empty((b, a, f4), dtype=dt, device=dev)  # every row is written
     scratch, iscratch = _fwd_buffers("E", dev, b, a, r4, f4)
-    _launch("schnet_fwd", *args.values(), msg, scratch, iscratch, b, a, r4, f4)
-    LAUNCHES["schnet_fwd"] += 1
+    _launch("schnet_fwd", dt, *args.values(), msg, scratch, iscratch, b, a, r4, f4)
+    _count("schnet_fwd", dt)
     return msg if f4 == f else msg[..., :f].contiguous()
 
 
 def schnet_bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, need_gw: bool = True):
     """Kernel F: (g_dist, gxin, gw1, gb1, gw2, gb2), weights' None without
-    `need_gw`."""
+    `need_gw`; gxin in the inputs' dtype, the rest float32."""
     b, a, r, f = _dims(xin, w1)
     args = dict(rbf=rbf, rbfp=rbfp, envf=envf, envp=envp, xin=xin, w1=w1, b1=b1, w2=w2, b2=b2,
                 gmsg=gmsg)
-    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    dev, dt = _check(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_message_bwd_reference(*args.values(), need_gw=need_gw)
     args, r4, f4 = _engine_operands(args, r, f)
     g_dist = torch.zeros((b, a, a), dtype=torch.float32, device=dev)  # the dead slots' zeros
     gxin = torch.empty((b, a, f4), dtype=torch.float32, device=dev)
     gw, scratch, iscratch = _bwd_buffers("F", dev, b, a, r4, f4, need_gw)
-    _launch("schnet_bwd", *args.values(), g_dist, gxin, gw, scratch, iscratch, int(need_gw),
-            b, a, r4, f4)
-    LAUNCHES["schnet_bwd"] += 1
-    LAUNCHES["schnet_bwd_gw"] += int(need_gw)
-    if f4 != f:
-        gxin = gxin[..., :f].contiguous()
+    _launch("schnet_bwd", dt, *args.values(), g_dist, gxin, gw, scratch, iscratch,
+            int(need_gw), b, a, r4, f4)
+    _count("schnet_bwd", dt)
+    _count("schnet_bwd_gw", dt, int(need_gw))
+    gxin = (gxin if f4 == f else gxin[..., :f]).to(dt).contiguous()
     if not need_gw:
         return g_dist, gxin, None, None, None, None
     return (g_dist, gxin, *_grads(gw, r, f, r4, f4))
 
 
 def schnet_dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
-    """Kernel G: (msg, msgd) [B,A,F]."""
+    """Kernel G: (msg, msgd) [B,A,F] in the inputs' dtype."""
     b, a, r, f = _dims(xin, w1)
     args = dict(rbf=rbf, rbfd=rbfd, envf=envf, envfd=envfd, xin=xin, xind=xind, w1=w1, b1=b1,
                 w2=w2, b2=b2)
-    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    dev, dt = _check(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_dual_fwd_reference(*args.values())
     args, r4, f4 = _engine_operands(args, r, f)
-    msg = torch.empty((b, a, f4), dtype=torch.float32, device=dev)  # every row is written
+    msg = torch.empty((b, a, f4), dtype=dt, device=dev)  # every row is written
     msgd = torch.empty_like(msg)
     scratch, iscratch = _fwd_buffers("G", dev, b, a, r4, f4)
-    _launch("schnet_dual_fwd", *args.values(), msg, msgd, scratch, iscratch, b, a, r4, f4)
-    LAUNCHES["schnet_dual_fwd"] += 1
+    _launch("schnet_dual_fwd", dt, *args.values(), msg, msgd, scratch, iscratch, b, a, r4, f4)
+    _count("schnet_dual_fwd", dt)
     if f4 != f:
         msg, msgd = msg[..., :f].contiguous(), msgd[..., :f].contiguous()
     return msg, msgd
@@ -528,22 +598,21 @@ def schnet_dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
 def schnet_dual_bwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gmsgd,
                     need_gw: bool = True):
     """Kernel H: (gxin, gxind, gw1, gb1, gw2, gb2), weights' None without
-    `need_gw`."""
+    `need_gw`; gxin and gxind in the inputs' dtype, the rest float32."""
     b, a, r, f = _dims(xin, w1)
     args = dict(rbf=rbf, rbfd=rbfd, envf=envf, envfd=envfd, xin=xin, xind=xind, w1=w1, b1=b1,
                 w2=w2, b2=b2, gmsg=gmsg, gmsgd=gmsgd)
-    dev = _kernels.check_inputs(args, _shapes(b, a, r, f))
+    dev, dt = _check(args, _shapes(b, a, r, f))
     if dev.type == "cpu":
         return schnet_dual_bwd_reference(*args.values(), need_gw=need_gw)
     args, r4, f4 = _engine_operands(args, r, f)
     gxin = torch.empty((b, a, f4), dtype=torch.float32, device=dev)
     gxind = torch.empty_like(gxin)
     gw, scratch, iscratch = _bwd_buffers("H", dev, b, a, r4, f4, need_gw)
-    _launch("schnet_dual_bwd", *args.values(), gxin, gxind, gw, scratch, iscratch,
+    _launch("schnet_dual_bwd", dt, *args.values(), gxin, gxind, gw, scratch, iscratch,
             int(need_gw), b, a, r4, f4)
-    LAUNCHES["schnet_dual_bwd"] += 1
-    if f4 != f:
-        gxin, gxind = gxin[..., :f].contiguous(), gxind[..., :f].contiguous()
+    _count("schnet_dual_bwd", dt)
+    gxin, gxind = ((t if f4 == f else t[..., :f]).to(dt).contiguous() for t in (gxin, gxind))
     if not need_gw:
         return gxin, gxind, None, None, None, None
     return (gxin, gxind, *_grads(gw, r, f, r4, f4))
@@ -555,7 +624,8 @@ class SchNetMessageFn(torch.autograd.Function):
     Inputs (dist, rbf, rbfp, envf, envp, xin, w1, b1, w2, b2); rbf, rbfp,
     envf and envp get no gradient, dist gets g_dist (the basis and envelope
     chains folded through rbfp and envp); the weights get theirs only when
-    asked (F's weight-gradient stage).
+    asked (F's weight-gradient stage). The cotangent is rounded to the
+    inputs' dtype first, as the JAX VJP rounds it.
     """
 
     @staticmethod
@@ -567,7 +637,9 @@ class SchNetMessageFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, gmsg):
         want = ctx.needs_input_grad[6:10]
-        g_dist, gxin, *gw = schnet_bwd(*ctx.saved_tensors, gmsg.contiguous(), need_gw=any(want))
+        dt = ctx.saved_tensors[0].dtype
+        g_dist, gxin, *gw = schnet_bwd(*ctx.saved_tensors, gmsg.to(dt).contiguous(),
+                                       need_gw=any(want))
         return (g_dist, None, None, None, None, gxin,
                 *(g if w else None for g, w in zip(gw, want)))
 
@@ -581,7 +653,8 @@ class SchNetDualFn(torch.autograd.Function):
     """`schnet_dual`'s custom VJP: forward = kernel G, backward = kernel H.
 
     Inputs (rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2); outputs
-    (msg, msgd). The four pair-level inputs get no gradient.
+    (msg, msgd). The four pair-level inputs get no gradient; the cotangents
+    are rounded to the inputs' dtype first, as the JAX VJP rounds them.
     """
 
     @staticmethod
@@ -593,8 +666,9 @@ class SchNetDualFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, gmsg, gmsgd):
         want = ctx.needs_input_grad[6:10]
-        gxin, gxind, *gw = schnet_dual_bwd(*ctx.saved_tensors, gmsg.contiguous(),
-                                           gmsgd.contiguous(), need_gw=any(want))
+        dt = ctx.saved_tensors[0].dtype
+        gxin, gxind, *gw = schnet_dual_bwd(*ctx.saved_tensors, gmsg.to(dt).contiguous(),
+                                           gmsgd.to(dt).contiguous(), need_gw=any(want))
         return (None, None, None, None, gxin, gxind,
                 *(g if w else None for g, w in zip(gw, want)))
 
@@ -619,31 +693,35 @@ def _live(*env) -> int:
 
 
 def _weight_bytes(r: int, f: int) -> int:
-    return r * f + f + f * f + f
+    """Bytes of W1, b1, W2, b2 (float32 in both modes)."""
+    return 4 * (r * f + f + f * f + f)
 
 
 def schnet_fwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, f: int) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel E needs on these inputs: FLOPs over the pairs
     whose envf is nonzero (no other pair adds to msg), bytes with each input
-    read once and each output written once."""
+    read once and each output written once, the pair and node tensors in
+    their dtype (2 bytes a value in bf16), the weights float32."""
     b, a, _, r = rbf.shape
     flops = pair_flops("fwd", r, f) * _live(envf)
-    nbytes = 4 * (rbf.numel() + envf.numel() + 2 * b * a * f + _weight_bytes(r, f))
+    nbytes = rbf.element_size() * (rbf.numel() + envf.numel() + 2 * b * a * f) + _weight_bytes(r, f)
     return flops, nbytes
 
 
 def schnet_bwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envp: torch.Tensor, f: int,
                            need_gw: bool = True) -> Tuple[int, int]:
     """(FLOPs, bytes) kernel F needs (see schnet_fwd_flops_bytes; live pairs
-    are those with envf or envp nonzero); with gW, also the weight gradient."""
+    are those with envf or envp nonzero; g_dist float32 in both modes); with
+    gW, also the weight gradient."""
     b, a, _, r = rbf.shape
     live = _live(envf, envp)
     flops = pair_flops("bwd", r, f) * live
     if need_gw:
         flops += pair_flops("bwd_gw", r, f) * live
-    nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
-                  + envf.numel() + b * a * f                  # g_dist, gxin
-                  + (_weight_bytes(r, f) if need_gw else 0))
+    nbytes = (rbf.element_size() * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f
+                                     + b * a * f)         # inputs, gxin
+              + 4 * envf.numel()                          # g_dist
+              + _weight_bytes(r, f) * (2 if need_gw else 1))
     return flops, nbytes
 
 
@@ -654,8 +732,8 @@ def schnet_dual_fwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envfd: to
     written once."""
     b, a, _, r = rbf.shape
     flops = pair_flops("dual_fwd", r, f) * _live(envf, envfd)
-    nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
-                  + 2 * b * a * f)
+    nbytes = (rbf.element_size() * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f
+                                     + 2 * b * a * f) + _weight_bytes(r, f))
     return flops, nbytes
 
 
@@ -668,19 +746,26 @@ def schnet_dual_bwd_flops_bytes(rbf: torch.Tensor, envf: torch.Tensor, envfd: to
     flops = pair_flops("dual_bwd", r, f) * live
     if need_gw:
         flops += pair_flops("dual_bwd_gw", r, f) * live
-    nbytes = 4 * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f + _weight_bytes(r, f)
-                  + 2 * b * a * f + 2 * b * a * f            # gmsg, gmsgd, gxin, gxind
-                  + (_weight_bytes(r, f) if need_gw else 0))
+    nbytes = (rbf.element_size() * (2 * rbf.numel() + 2 * envf.numel() + 2 * b * a * f
+                                     + 2 * b * a * f + 2 * b * a * f)  # gmsg, gmsgd, gxin, gxind
+              + _weight_bytes(r, f) * (2 if need_gw else 1))
     return flops, nbytes
 
 
-def _work(kinds, live: int, r: int, f: int, flops: int, nbytes: int, pairs: int) -> dict:
-    prod = other = 0
+def _work(kinds, live: int, r: int, f: int, flops: int, nbytes: int, pairs: int,
+          dtype: torch.dtype) -> dict:
+    """In the bf16 mode "flops_live_products_bf16_rows" are the R-long
+    products, whose rows (rbf, rbfp, rbfd) are bf16 and whose other operand
+    (W1, or gW's fp32 cotangents) is fp32; the F-long ones are fp32 x fp32."""
+    prod = other = rows = 0
     for k in kinds:
         p, o = flops_split(k, r, f)
-        prod, other = prod + p * live, other + o * live
-    return {"flops_live": flops, "flops_live_products": prod, "flops_live_other": other,
-            "bytes": nbytes, "live_pairs": live, "pairs": pairs}
+        prod, other, rows = prod + p * live, other + o * live, rows + _FLOPS[k][0] * r * f * live
+    out = {"flops_live": flops, "flops_live_products": prod, "flops_live_other": other,
+           "bytes": nbytes, "live_pairs": live, "pairs": pairs}
+    if dtype == torch.bfloat16:
+        out["flops_live_products_bf16_rows"] = rows
+    return out
 
 
 def fwd_work(kind: str, rbf: torch.Tensor, envf: torch.Tensor, envfd: torch.Tensor,
@@ -695,7 +780,7 @@ def fwd_work(kind: str, rbf: torch.Tensor, envf: torch.Tensor, envfd: torch.Tens
         live = _live(envf, envfd)
         flops, nbytes = schnet_dual_fwd_flops_bytes(rbf, envf, envfd, f)
     return _work(("fwd",) if kind == "E" else ("dual_fwd",), live, r, f, flops, nbytes,
-                 b * a * a)
+                 b * a * a, rbf.dtype)
 
 
 def bwd_work(kind: str, rbf: torch.Tensor, envf: torch.Tensor, env2: torch.Tensor, f: int,
@@ -713,4 +798,5 @@ def bwd_work(kind: str, rbf: torch.Tensor, envf: torch.Tensor, env2: torch.Tenso
         flops, nbytes = schnet_bwd_flops_bytes(rbf, envf, env2, f, need_gw)
     else:
         flops, nbytes = schnet_dual_bwd_flops_bytes(rbf, envf, env2, f, need_gw)
-    return _work(kinds[: 1 + int(need_gw)], _live(envf, env2), r, f, flops, nbytes, b * a * a)
+    return _work(kinds[: 1 + int(need_gw)], _live(envf, env2), r, f, flops, nbytes, b * a * a,
+                 rbf.dtype)

@@ -196,7 +196,7 @@ def build_optimize_model(cfg: Dict[str, Any], device: torch.device,
     up its params, as the JAX job's restore). Float32 models only."""
     if cfg["model"].get("kwargs", {}).get("compute_dtype", "float32") != "float32":
         raise NotImplementedError("the optimize job relaxes a float32 model; a bf16 model's "
-                                  "relaxation is not ported (ROADMAP queue 1: bf16 compute)")
+                                  "relaxation is not ported (ROADMAP queue 1: the bf16 optimize job)")
     if not cfg.get("optimize", {}).get("use_pallas", True):
         m = cfg["model"]
         cfg = dict(cfg, model=dict(m, kwargs=dict(m.get("kwargs", {}), use_pallas="off")))

@@ -32,7 +32,7 @@ from nabladft_tpu.ops import spherical as jax_sph
 from nabladft_tpu.train.losses import multitask_loss as jax_multitask_loss
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models import create_model, forward
-from nabladft_tpu_torch.models.convert import load_flax_params
+from nabladft_tpu_torch.models.convert import flax_params_of, load_flax_params
 from nabladft_tpu_torch.ops import graph, radial, spherical
 from nabladft_tpu_torch.train.losses import multitask_loss
 
@@ -106,11 +106,11 @@ def _jax_reference(model, params, f: dict, grads: bool = True):
 
 @pytest.fixture(scope="module")
 def params():
-    """The JAX model's initial tree, perturbed (the zero-initialised output
-    projections then carry weight)."""
-    f = energy_batch()
-    model = jax_create_model("dimenetpp", remat=False, **KW)
-    p = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(0), JaxMolBatch(**f)))
+    """The port's seeded initial weights as the flax tree (no JAX init to
+    compile), perturbed (the zero-initialised output projections then carry
+    weight)."""
+    p = flax_params_of(create_model("dimenetpp", device="cpu",
+                                    generator=torch.Generator().manual_seed(0), **KW))
     rng = np.random.default_rng(1)
     return jax.tree_util.tree_map(
         lambda x: (np.asarray(x) + 0.05 * rng.normal(size=np.shape(x))).astype(np.float32), p)

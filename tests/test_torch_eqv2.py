@@ -270,9 +270,9 @@ def test_xla_layout_and_bad_options_raise(ref):
         assert torch.equal(p, q), n
     with pytest.raises(NotImplementedError, match="float32, bfloat16"):
         create_model("equiformer_v2", device="cpu", compute_dtype="float16", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: bf16 compute"):
+    with pytest.raises(ValueError, match="m_share_rad=False"):
         create_model("equiformer_v2", device="cpu", compute_dtype="bfloat16", m_share_rad=False,
-                     **KW)
+                     use_pallas="fused", **KW)
     with pytest.raises(ValueError, match="m_share_rad=False"):
         create_model("equiformer_v2", device="cpu", m_share_rad=False, use_pallas="fused", **KW)
     with pytest.raises(ValueError, match="use_pallas"):

@@ -8,7 +8,8 @@ alpha channels, 8 edge channels), K = 5 slots with ~30 % dead, one receiver
 whose edges are all dead, and the keep mask dropk as ones and as a seeded
 dropout mask:
 
-* plain O against `_attn_pipeline` run eagerly, within 2e-5 x max |agg|;
+* plain O against `_attn_pipeline` (vmapped over the molecules, compiled
+  once for both keep masks), within 2e-5 x max |agg|;
 * plain P, and `EqV2AttentionFn`'s backward (the plain versions on the CPU),
   against the hand-written `_attn_pipeline_bwd` and against `jax.vjp` of
   `_attn_pipeline`, every cotangent within 1e-4 x its largest magnitude
@@ -102,40 +103,50 @@ def _close(got, want, rel, what=""):
     assert err <= rel * np.abs(want).max() + 1e-30, (what, err, np.abs(want).max())
 
 
+# XLA CPU compile options of the JAX reference, compiled once as one program
+# (faster here than running the pipelines op by op)
+XLA_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+_COMPILED = {}
+
+
 def _jax_refs(inp):
-    """Per molecule: `_attn_pipeline`, `_attn_pipeline_bwd` and jax.vjp of
-    the pipeline; cotangents in the port's order (x, xi, xe, *ws), weight
-    gradients summed over the molecules."""
+    """`_attn_pipeline`, `_attn_pipeline_bwd` and jax.vjp of the pipeline,
+    vmapped over the molecules (each molecule's receivers on their own, as
+    the JAX op runs them): cotangents in the port's order (x, xi, xe, *ws),
+    weight gradients summed over the molecules. One compiled program serves
+    both keep masks."""
     st = _static(inp)
     m_avg, m_exp, m_expv = ak._expanders(st["nh"], st["va"], st["co"])
-    w_rad, b_rad, w1, fc1m, w2, fc2m, ln_s, ln_b, adot = _jax_weights(inp)
-    outs, bwd, vjp = [], [], []
-    for b in range(inp["x"].shape[0]):
-        x, oh, xi, d, xe, maskf, dropk = _jax_mol(inp, b)
 
-        def f(x, xi, xe, w_rad, b_rad, w1, fc1m, w2, fc2m, ln_s, ln_b, adot,
-              oh=oh, d=d, maskf=maskf, dropk=dropk):
-            return ak._attn_pipeline(x, oh, xi, d, xe, maskf, dropk, w_rad, b_rad, w1, fc1m, w2,
-                                     fc2m, ln_s, ln_b, adot, m_avg, m_exp, m_expv, **st)
+    def both(mol, g, ws):
+        x, oh, xi, d, xe, maskf, dropk = mol
 
-        args = (x, xi, xe, w_rad, b_rad, w1, fc1m, w2, fc2m, ln_s, ln_b, adot)
-        out, fn = jax.vjp(f, *args)
-        g = jnp.asarray(inp["g"][b])
-        outs.append(np.asarray(out))
-        vjp.append(fn(g))
-        bwd.append(ak._attn_pipeline_bwd(x, oh, xi, d, xe, maskf, dropk, w_rad, b_rad, w1, fc1m,
-                                         w2, fc2m, ln_s, ln_b, adot, m_avg, m_exp, m_expv, g,
-                                         **st))
+        def f(x, xi, xe, *ws):
+            return ak._attn_pipeline(x, oh, xi, d, xe, maskf, dropk, *ws, m_avg, m_exp, m_expv,
+                                     **st)
 
-    def port_order(per_mol):
-        """(gx [B,A,S,C], gxi, gxe, *gws) from per-molecule cotangent tuples
-        in the order (x, xi, xe, *weights), the fc lists flattened in place."""
-        leaves = [[np.asarray(v) for v in jax.tree_util.tree_leaves(list(t))] for t in per_mol]
-        gx = np.stack([mol[0].transpose(1, 0, 2) for mol in leaves])
-        gxi, gxe = np.stack([mol[1] for mol in leaves]), np.stack([mol[2] for mol in leaves])
-        return [gx, gxi, gxe] + [sum(mol[i] for mol in leaves) for i in range(3, len(leaves[0]))]
+        out, fn = jax.vjp(f, x, xi, xe, *ws)
+        bwd = ak._attn_pipeline_bwd(x, oh, xi, d, xe, maskf, dropk, *ws, m_avg, m_exp, m_expv, g,
+                                    **st)
+        return out, fn(g), bwd
 
-    return dict(out=np.stack(outs), vjp=port_order(vjp), bwd=port_order(bwd))
+    mols = [_jax_mol(inp, b) for b in range(inp["x"].shape[0])]
+    args = (tuple(jnp.stack(parts) for parts in zip(*mols)), jnp.asarray(inp["g"]),
+            _jax_weights(inp))
+    key = tuple(sorted(st.items())) + (inp["x"].shape,)
+    if key not in _COMPILED:
+        _COMPILED[key] = jax.jit(jax.vmap(both, in_axes=(0, 0, None))).lower(*args).compile(
+            compiler_options=XLA_FAST)
+    out, vjp, bwd = _COMPILED[key](*args)
+
+    def port_order(cots):
+        """(gx [B,A,S,C], gxi, gxe, *gws) from the molecules' cotangents in
+        the order (x, xi, xe, *weights), the fc lists flattened in place."""
+        leaves = [np.asarray(v) for v in jax.tree_util.tree_leaves(list(cots))]
+        return ([leaves[0].transpose(0, 2, 1, 3), leaves[1], leaves[2]]
+                + [v.sum(axis=0) for v in leaves[3:]])
+
+    return dict(out=np.asarray(out), vjp=port_order(vjp), bwd=port_order(bwd))
 
 
 @pytest.fixture(scope="module", params=["ones", "dropout"])

@@ -38,6 +38,8 @@ def _one_torch_thread():
 L, M, C, H, EC, B, A = 6, 2, 8, 16, 8, 2, 6
 NG = 2 * (L + 1) ** 2
 REL = 1e-5
+# XLA CPU compile options of the JAX references compiled as one program
+XLA_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 NAMES = ["x", "xe", "wg", "bg", "w1_0", "w2_0"] + [
     f"{w}_m{m}" for m in range(1, M + 1) for w in ("fc1", "w2r", "w2i")]
 
@@ -75,8 +77,15 @@ def ref():
         return jax.vmap(one, in_axes=(0, 0, 0, 0, None))(jnp.swapaxes(x, 1, 2), x,
                                                         jnp.asarray(inp["d"]), xe, ws)
 
-    out, vjp = jax.vjp(layer, inp["x"], inp["xe"], *inp["ws"])
-    grads = [np.asarray(g) for g in vjp(jnp.asarray(inp["g"]))]
+    def layer_and_vjp(x, xe, ws, g):
+        out, vjp = jax.vjp(layer, x, xe, *ws)
+        return out, vjp(g)
+
+    # one program, compiled without XLA's backend optimisations: faster here
+    # than running the vmapped pipeline and its transpose op by op
+    args = (inp["x"], inp["xe"], inp["ws"], jnp.asarray(inp["g"]))
+    out, grads = jax.jit(layer_and_vjp).lower(*args).compile(compiler_options=XLA_FAST)(*args)
+    grads = [np.asarray(g) for g in grads]
 
     def manual(x, xe, ws, g):
         def one(xi, d, xe_i, g_i):

@@ -29,8 +29,9 @@ from nabladft_tpu.data.batch import MolBatch as JaxBatch
 from nabladft_tpu.models import create_model as jax_create_model
 from nabladft_tpu.train import Trainer as JaxTrainer, TrainerConfig as JaxConfig
 from nabladft_tpu.train.schedulers import LookaheadState, lookahead
+from nabladft_tpu.train.state import TrainState as JaxTrainState
 from nabladft_tpu_torch.models import create_model
-from nabladft_tpu_torch.models.convert import load_flax_params
+from nabladft_tpu_torch.models.convert import flax_params_of, load_flax_params
 from nabladft_tpu_torch.train import Trainer, TrainerConfig
 from nabladft_tpu_torch.train.schedulers import Lookahead
 from nabladft_tpu_torch.train.state import build_optimizer
@@ -131,7 +132,15 @@ def test_phisnet_train_step_matches_jax():
     jt = JaxTrainer(jax_create_model("phisnet", remat=False, **kw),
                     JaxConfig(n_dp=1, **cfg))
     jb = JaxBatch(**f)
-    jt.init_state(jb)
+    # the state from the port's seeded weights (no JAX init to compile), a
+    # tree with the paths and shapes of JAX's init tree
+    tree = flax_params_of(create_model("phisnet", device="cpu",
+                                       generator=torch.Generator().manual_seed(0), **kw))
+    init = jax.eval_shape(jt.model.init, jax.random.PRNGKey(0), jb)
+    shapes = lambda t: {jax.tree_util.keystr(k): tuple(np.shape(x))  # noqa: E731
+                        for k, x in jax.tree_util.tree_flatten_with_path(t)[0]}
+    assert shapes(tree) == shapes(dict(init))
+    jt.state = JaxTrainState.create(tree, jt.tx, ema=True)
     params0 = jax.device_get(jt.state.params)
     state, jm = jt._jit_train_step(jt.state, jb)
     assert float(jm["grad_norm"]) > cfg["grad_clip"]  # the clip triggered

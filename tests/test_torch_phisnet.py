@@ -1,10 +1,12 @@
 """The port's PhiSNet against the JAX package's, with the same weights.
 
 PhiSNet at a small width (order 2, 8 features, 8 basis functions, two
-modules) with the energy head on, the JAX model's own initial flax tree
-carried into the port by `load_flax_params` (every leaf used). The JAX
-reference runs with remat off (the same values); its outputs, forces and
-matrix-loss gradients come from one jitted function.
+modules) with the energy head on. The weights are the port's, seeded, as
+the flax tree (`flax_params_of`); that tree has the paths and shapes of
+the JAX model's own `model.init` (evaluated abstractly), and
+`load_flax_params` uses every leaf of it. The JAX reference runs with
+remat off (the same values); its outputs, forces and matrix-loss gradients
+come from one jitted function.
 
 * `ResidualStack`, `PairMixing` and `PhiSNetModule` alone, on seeded inputs
   and the tree's own sub-trees: within 1e-5 × max |out|;
@@ -32,7 +34,7 @@ from nabladft_tpu.train.losses import multitask_loss as jax_multitask_loss
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models import create_model, forward
 from nabladft_tpu_torch.models import phisnet
-from nabladft_tpu_torch.models.convert import load_flax_params
+from nabladft_tpu_torch.models.convert import flax_params_of, load_flax_params
 from nabladft_tpu_torch.ops import so3
 from nabladft_tpu_torch.train.losses import multitask_loss
 
@@ -102,7 +104,11 @@ def ref():
     f = hamiltonian_batch(np.random.default_rng(0))
     jb = JaxMolBatch(**f)
     model = jax_create_model("phisnet", remat=False, predict_energy=True, **KW)
-    params = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(0), jb))
+    # the port's seeded weights as the flax tree (no JAX init to compile)
+    params = flax_params_of(create_model("phisnet", device="cpu",
+                                         generator=torch.Generator().manual_seed(0),
+                                         **dict(KW, predict_energy=True)))
+    init = jax.eval_shape(model.init, jax.random.PRNGKey(0), jb)
 
     @jax.jit
     def outputs(params, pos):
@@ -116,7 +122,14 @@ def ref():
         return out, -g, loss, grads
 
     out, forces, loss, grads = jax.device_get(outputs(params, jb.pos))
-    return dict(fields=f, params=params, out=out, forces=forces, loss=float(loss), grads=grads)
+    return dict(fields=f, params=params, init=init, out=out, forces=forces, loss=float(loss),
+                grads=grads)
+
+
+def tree_shapes(tree):
+    """Each leaf's path in a flax tree -> its shape."""
+    return {jax.tree_util.keystr(path): tuple(np.shape(x))
+            for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 def _port(ref, **kw):
@@ -131,6 +144,15 @@ def _close(got, want, rel):
 
 def _xs(rng, lead, c=8, order=2):
     return [rng.normal(size=(*lead, c, 2 * l + 1)).astype(np.float32) for l in range(order + 1)]
+
+
+def test_the_tree_is_jax_init_tree_and_loads_whole(ref):
+    """The port's tree has the paths and shapes of JAX's `model.init` tree,
+    and loading it uses every leaf (a port-only parameter, or a JAX leaf the
+    port lacks, fails here)."""
+    assert tree_shapes(ref["params"]) == tree_shapes(dict(ref["init"]))
+    model = _port(ref)
+    assert len(jax.tree_util.tree_leaves(ref["init"])) == len(list(model.parameters()))
 
 
 def test_residual_stack_matches_jax(ref):

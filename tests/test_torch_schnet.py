@@ -148,7 +148,7 @@ def test_seeded_init_is_reproducible_and_flax_shaped():
     assert float(a.filter_0_w1.detach().abs().max()) <= bound + 1e-6
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(use_pallas="train")])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="float16"), dict(use_pallas="train")])
 def test_unsupported_options_raise(kw):
     with pytest.raises((NotImplementedError, ValueError)):
         create_model("schnet", device="cpu", **dict(KW, **kw))

@@ -198,8 +198,8 @@ def test_wrappers_count_no_cpu_launches(data):
     ts.schnet_fwd(*_t(data, *E_IN))
     ts.schnet_bwd(*_t(data, *F_IN))
     assert ts.LAUNCHES == dict.fromkeys(ts.LAUNCHES, 0)
-    assert set(ts.LAUNCHES) == {"schnet_fwd", "schnet_bwd", "schnet_bwd_gw", "schnet_dual_fwd",
-                                "schnet_dual_bwd"}
+    names = {"schnet_fwd", "schnet_bwd", "schnet_bwd_gw", "schnet_dual_fwd", "schnet_dual_bwd"}
+    assert set(ts.LAUNCHES) == names | {k + "_bf16" for k in names}
 
 
 def test_flop_and_byte_counts_follow_live_pairs(data):
