@@ -123,8 +123,10 @@ def compute_dtype_of(name: str, family: str) -> torch.dtype:
 
 class Linear(nn.Linear):
     """nn.Linear run in `compute_dtype` as flax's ``Dense(dtype=...)`` runs:
-    the input, weight and bias cast to it and the output in it, the
-    parameters float32. None or float32 runs nn.Linear as it is."""
+    the input, weight and bias cast to it, the product rounded to it and
+    then the bias added in it (a bias under half an ulp of the product adds
+    nothing, as in the JAX model), the parameters float32. None or float32
+    runs nn.Linear as it is."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -135,8 +137,8 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         if dt is None or dt == torch.float32:
             return super().forward(x)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def embed(table: nn.Embedding, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

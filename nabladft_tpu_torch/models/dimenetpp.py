@@ -6,20 +6,25 @@ dimenetplusplus.py:22-116; forces -∂E/∂pos by autograd). Bases follow
 torch_geometric: trainable Bessel frequencies `rbf_freq`, the 1/x envelope
 on the radial and spherical bases.
 
-Edges live in the K-compacted layout of the JAX package's default
-(`compact=True`): the message of edge j→i at [b, i, n], n < K =
-min(max_neighbors, A), j = idx[b, i, n] from `graph.neighbor_list` (strict
-top-K, ties to the lower index). The triplet sum uses the Legendre addition
-theorem, so no [B, A, K, K, ·] triplet lattice exists: per block one
-pair-shaped contraction over k, one closing contraction over the dense j
-axis, a gather of its K needed rows, and the back-triplet (k == i)
-correction through the reverse-edge map rev(b, i, n) = the slot of i in j's
-list. Both gathers are `torch.gather`, whose backward is a scatter-add that
-autograd differentiates again: training differentiates the forces.
+Edges live in one of the JAX package's two layouts, which share one
+parameter tree:
 
-`gather_mode="onehot"` names the same computation (the JAX package's 0/1
-matmul form of the same gathers); `compact=False`, the dense layout (which
-keeps every edge tied at the K-th distance), is not ported and raises.
+  * compact (`compact=True`, the default): the message of edge j→i at
+    [b, i, n], n < K = min(max_neighbors, A), j = idx[b, i, n] from
+    `graph.neighbor_list` (strict top-K, ties to the lower index). Per block
+    one pair-shaped contraction over k, one closing contraction over the
+    dense j axis, a gather of its K needed rows, and the back-triplet
+    (k == i) correction through the reverse-edge map rev(b, i, n) = the
+    slot of i in j's list. Both gathers are `torch.gather`, whose backward
+    is a scatter-add that autograd differentiates again: training
+    differentiates the forces.
+  * dense (`compact=False`): the message of edge j→i at [b, i, j] under
+    `graph.dense_topk_mask` (which keeps every edge tied at the K-th
+    distance); the reverse edge is the transpose, so no gather.
+
+The triplet sum uses the Legendre addition theorem in both, so no
+[B, A, K, K, ·] triplet lattice exists. `gather_mode="onehot"` names the
+compact layout's computation in the JAX package's 0/1 matmul form.
 ``compute_dtype="bfloat16"`` runs as the JAX model's: the bases computed in
 float32 and cast after their masks, the merged weights (rbf1·rbf2,
 sbf1·sbf2) cast after their product, every block in bf16, and the per-graph
@@ -93,9 +98,10 @@ class InteractionPPBlock(nn.Module):
         self.register_buffer("lmn_to_ln", torch.from_numpy(lmn_to_ln), persistent=False)
         self.register_buffer("proj", torch.from_numpy(proj), persistent=False)
 
-    def forward(self, m, rbf, feats, adj):
-        """m [B,A,K,H]: the message of edge j→i at [b, i, n]; rbf likewise;
-        feats: the block-independent pair features (DimeNetPP.forward)."""
+    def forward(self, m, rbf, feats, adj, compact: bool):
+        """m [B,A,E,H]: the message of edge j→i at [b, i, n] (`compact`, E =
+        K) or [b, i, j] (dense, E = A); rbf likewise; feats: the
+        block-independent pair features (DimeNetPP._features)."""
         L1, R, cdt = self.num_spherical, self.num_radial, self.cdt
         x_ji = silu(self.lin_ji(m))
         x_kj = silu(self.lin_kj(m))
@@ -106,15 +112,21 @@ class InteractionPPBlock(nn.Module):
         # Q[b,j,(lmn),e] = Σ_k G[b,j,k,(lmn)] x_kj[b,j,k,e], then gated by w12
         qm = torch.einsum("bjkq,bjke->bjqe", feats["G"], x_kj)
         q = torch.einsum("bjqe,qp->bjpe", qm * w12[self.lmn_to_ln], self.proj.to(cdt))
-        # close the triplet over the dense j axis, then gather the K rows
-        agg_d = torch.einsum("bijq,bjqe->bije", feats["Yc_dense"], q)
-        idx = feats["idx"]
-        bsz, a_ax, k_ax, e_ax = x_kj.shape
-        agg = torch.gather(agg_d, 2, idx[..., None].expand(bsz, a_ax, k_ax, e_ax))
-        # back-triplet x_kj[b, j, rev(i)], zero where i is not in j's list
-        xkj_t = torch.gather(x_kj.reshape(bsz, a_ax * k_ax, e_ax), 1,
-                             feats["rev_flat"].reshape(bsz, a_ax * k_ax, 1).expand(-1, -1, e_ax))
-        xkj_t = xkj_t.reshape(bsz, a_ax, k_ax, e_ax) * feats["rev_valid"][..., None].to(m.dtype)
+        if compact:
+            # close the triplet over the dense j axis, then gather the K rows
+            agg_d = torch.einsum("bijq,bjqe->bije", feats["Yc_dense"], q)
+            idx = feats["idx"]
+            bsz, a_ax, k_ax, e_ax = x_kj.shape
+            agg = torch.gather(agg_d, 2, idx[..., None].expand(bsz, a_ax, k_ax, e_ax))
+            # back-triplet x_kj[b, j, rev(i)], zero where i is not in j's list
+            xkj_t = torch.gather(
+                x_kj.reshape(bsz, a_ax * k_ax, e_ax), 1,
+                feats["rev_flat"].reshape(bsz, a_ax * k_ax, 1).expand(-1, -1, e_ax))
+            xkj_t = (xkj_t.reshape(bsz, a_ax, k_ax, e_ax)
+                     * feats["rev_valid"][..., None].to(m.dtype))
+        else:  # dense: the edge axis is j, the reverse edge the transpose
+            agg = torch.einsum("bijq,bjqe->bije", feats["Yc"], q)
+            xkj_t = x_kj.transpose(1, 2)
         rt, s = feats["Rt"], feats["S"]
         gated = (s[..., None] * rt.reshape(*rt.shape[:-1], L1, R)).reshape(*rt.shape[:-1], L1 * R)
         agg = agg - torch.einsum("bijq,qe->bije", gated, w12) * xkj_t
@@ -193,16 +205,12 @@ class DimeNetPP(nn.Module):
     ):
         super().__init__()
         self.cdt = cdt = compute_dtype_of(compute_dtype, "DimeNet++")
-        if not compact:
-            raise NotImplementedError(
-                "compact=False (the dense edge layout) is not ported; the port computes the "
-                "default K-compacted layout")
         if gather_mode not in ("take", "onehot"):
             raise ValueError(f"gather_mode must be take|onehot, got {gather_mode!r}")
         self.hidden, self.num_blocks = hidden, num_blocks
         self.num_spherical, self.num_radial = num_spherical, num_radial
         self.max_neighbors, self.envelope_exponent = max_neighbors, envelope_exponent
-        self.cutoff, self.atom_norm = cutoff, atom_norm
+        self.cutoff, self.atom_norm, self.compact = cutoff, atom_norm, compact
         self.energy_mean, self.energy_std = energy_mean, energy_std
         k_norm = float(max_neighbors)
         self.rbf_freq = nn.Parameter(torch.empty(num_radial))
@@ -251,65 +259,84 @@ class DimeNetPP(nn.Module):
             for b in range(self.num_blocks + 1):
                 getattr(self, f"output_{b}").lin_out.weight.zero_()
 
-    def _features(self, batch: MolBatch):
-        """The block-independent edge tensors: (adj, rbf, feats, idx), each
-        basis computed in float32 and cast to the compute dtype after its
-        mask."""
-        L1, R, cdt = self.num_spherical, self.num_radial, self.cdt
+    def _edges(self, batch: MolBatch):
+        """(adj, dist, unit, feats) of the layout: adj the edge mask
+        ([B,A,K] compact, [B,A,A] dense), dist and unit its edges' (zero off
+        adj), feats the compact layout's index tables (idx, the reverse-edge
+        map) and dense unit vectors, or nothing."""
         a_ax = batch.pos.shape[1]
-        k_ax = min(self.max_neighbors, a_ax)
+        zero = batch.pos.new_zeros(())
         dgd = graph.dense_graph(batch.pos, batch.node_mask, self.cutoff)
-        nl = graph.neighbor_list(batch.pos, batch.node_mask, self.cutoff, k_ax)
+        if not self.compact:
+            adj = graph.dense_topk_mask(dgd.dist, dgd.adj, self.max_neighbors)
+            unit = torch.where(adj[..., None],
+                               dgd.diff / torch.clamp(dgd.dist, min=1e-10)[..., None], zero)
+            return adj, torch.where(adj, dgd.dist, zero), unit, {}
+        k_ax = min(self.max_neighbors, a_ax)
+        nl = graph.neighbor_list(batch.pos, batch.node_mask, self.cutoff, k_ax, dense=dgd)
         idx, adj = nl.idx, nl.mask  # [B,A,K]
         # rev(b,i,n): the slot of i in the list of j = idx[b,i,n]
         idx_g = graph.gather_nodes(idx, idx)  # [B,A,K,K]
         mask_g = graph.gather_nodes(adj, idx)
         arange = torch.arange(a_ax, device=idx.device)
         eq = (idx_g == arange[None, :, None, None]) & mask_g & adj[..., None]
-        rev_valid = eq.any(-1)
-        rev_flat = idx * k_ax + torch.argmax(eq.to(torch.int8), dim=-1)
-        zero = batch.pos.new_zeros(())
         unit_d = torch.where(dgd.adj[..., None],
                              dgd.diff / torch.clamp(dgd.dist, min=1e-10)[..., None], zero)
+        return adj, nl.dist, nl.unit, {
+            "idx": idx, "rev_valid": eq.any(-1), "unit_d": unit_d, "adj_d": dgd.adj,
+            "rev_flat": idx * k_ax + torch.argmax(eq.to(torch.int8), dim=-1)}
 
-        rbf = dimenet_bessel_rbf(nl.dist, R, self.cutoff, self.envelope_exponent,
+    def _features(self, batch: MolBatch):
+        """The block-independent edge tensors: (adj, rbf, feats), each basis
+        computed in float32 and cast to the compute dtype after its mask."""
+        L1, R, cdt = self.num_spherical, self.num_radial, self.cdt
+        adj, dist, unit, feats = self._edges(batch)
+        zero = batch.pos.new_zeros(())
+        rbf = dimenet_bessel_rbf(dist, R, self.cutoff, self.envelope_exponent,
                                  freqs=self.rbf_freq)
         rbf = torch.where(adj[..., None], rbf, zero).to(cdt)
         # addition-theorem pair features: sbf_ln(d_jk, θ_ijk) =
         # (-1)^l √(4π/(2l+1)) Σ_m Y_lm(û_ij) R̃_ln(d_jk) Y_lm(û_jk)
-        y = torch.where(adj[..., None], so3.real_sph_harm(nl.unit, L1 - 1, normalized=True),
+        y = torch.where(adj[..., None], so3.real_sph_harm(unit, L1 - 1, normalized=True),
                         zero).to(cdt)
         yc = y * self.c_lm.to(cdt)
-        rad = dimenet_radial_part(nl.dist, L1, R, self.cutoff, self.envelope_exponent)
-        rad = torch.where(adj[..., None], rad, zero).to(cdt)  # [B,A,K,(L)·R]
+        rad = dimenet_radial_part(dist, L1, R, self.cutoff, self.envelope_exponent)
+        rad = torch.where(adj[..., None], rad, zero).to(cdt)  # [B,A,·,(L)·R]
         g = torch.cat([(y[..., l * l:(l + 1) * (l + 1), None]
                         * rad[..., None, l * R:(l + 1) * R]).reshape(*adj.shape, (2 * l + 1) * R)
                        for l in range(L1)], dim=-1)
-        # the reverse edge's basis: the same distance, Y with the parity sign
-        yt = y * self.parity.to(cdt)
+        if self.compact:
+            # the reverse edge's basis: the same distance, Y with the parity sign
+            yt, rt = y * self.parity.to(cdt), rad
+        else:
+            yt, rt = y.transpose(1, 2), rad.transpose(1, 2)
         # Σ_m as JAX's einsum (a dot): exact products, a float32 sum, one rounding
         s = torch.stack([(yc[..., l * l:(l + 1) * (l + 1)].float()
                           * yt[..., l * l:(l + 1) * (l + 1)].float()).sum(-1).to(cdt)
                          for l in range(L1)], dim=-1)
-        y_d = so3.real_sph_harm(unit_d, L1 - 1, normalized=True)
-        y_d = torch.where(dgd.adj[..., None], y_d, zero).to(cdt)
-        feats = {"G": g, "Rt": rad, "S": s, "Yc_dense": y_d * self.c_lm.to(cdt), "idx": idx,
-                 "rev_flat": rev_flat, "rev_valid": rev_valid}
-        return adj, rbf, feats, idx
+        feats.update(G=g, Rt=rt, S=s)
+        if self.compact:
+            y_d = so3.real_sph_harm(feats.pop("unit_d"), L1 - 1, normalized=True)
+            y_d = torch.where(feats.pop("adj_d")[..., None], y_d, zero).to(cdt)
+            feats["Yc_dense"] = y_d * self.c_lm.to(cdt)
+        else:
+            feats["Yc"] = yc
+        return adj, rbf, feats
 
     def forward(self, batch: MolBatch) -> ModelOutput:
-        adj, rbf, feats, idx = self._features(batch)
+        adj, rbf, feats = self._features(batch)
         cdt = self.cdt
         x = embed(self.atom_embedding, batch.z.long(), cdt)
         rbf_emb = silu(rbf @ self.rbf_embed.kernel.to(cdt) + self.rbf_embed.bias.to(cdt))
         xi = x[:, :, None].expand(*adj.shape, x.shape[-1])
-        xj = graph.gather_nodes(x, idx)  # [B,A,K,H]
+        xj = (graph.gather_nodes(x, feats["idx"]) if self.compact  # [B,A,K,H]
+              else x[:, None].expand(*adj.shape, x.shape[-1]))
         m = silu(torch.cat([xi, xj, rbf_emb], dim=-1) @ self.edge_embed.kernel.to(cdt)
                  + self.edge_embed.bias.to(cdt))
         m = torch.where(adj[..., None], m, m.new_zeros(()))
         p = self.output_0(m, rbf, adj)
         for b in range(self.num_blocks):
-            m = getattr(self, f"interaction_{b}")(m, rbf, feats, adj)
+            m = getattr(self, f"interaction_{b}")(m, rbf, feats, adj, self.compact)
             p = p + getattr(self, f"output_{b + 1}")(m, rbf, adj)
         # the per-graph latent (accumulated in float32, rounded to the compute
         # dtype, as the JAX sum) over a fixed atom count, then the swish head

@@ -1,6 +1,6 @@
 """PaiNN: polarizable atom interaction NN (scalar + vector features).
 
-The molecular path of ``nabladft_tpu/models/painn.py``: messages over the
+``nabladft_tpu/models/painn.py``. The molecular path: messages over the
 dense pair axis [B, A, A] (nablaDFT molecules are ≤ 62 atoms). The message
 block runs in one of two modes:
 
@@ -14,6 +14,13 @@ block runs in one of two modes:
     same ops run their plain versions.
 
 The field keeps its JAX name so ``configs/*.yaml`` read unchanged.
+
+``pbc=True`` (periodic boundary conditions; reference painn_pyg use_pbc,
+painn.py:37/419) runs the same parameters over `graph.pbc_neighbor_list`
+(``pbc_images`` images each way, symmetrised): the message over the
+[B, A, K] neighbour slots, each a (sender atom, periodic image), in plain
+PyTorch with no kernel, as the JAX model's periodic path. It needs
+``batch.cell``.
 State: scalars s [B,A,F] and vectors v [B,A,3,F]; equivariance is kept by
 never applying bias or nonlinearity to the vector channel. Forces are
 -∂E/∂pos (see models/base.py `forward`).
@@ -60,11 +67,15 @@ class PaiNNMessage(nn.Module):
     def forward(self, s, v, feats):
         """feats: dist, rbf_env [B,A,A,R], rbfp, unit_t [B,A,3,A], envf [B,A,A]
         (premasked cutoff envelope). rbf_env/rbfp premasked. In the fused
-        dual pass feats also holds rbf_env_t, rbf_env's tangent."""
+        dual pass feats also holds rbf_env_t, rbf_env's tangent. On the
+        periodic path feats holds the neighbour list `nl` and rbf_env, envf
+        over its [B,A,K] slots."""
         f = self.hidden
         phi = self.mlp(s)  # [B,A,3F]
         w, b = self.filter_kernel.to(self.cdt), self.filter_bias.to(self.cdt)
         v_flat = v.reshape(*v.shape[:2], 3 * f)  # [B,A,3,F] -> c-major flat
+        if "nl" in feats:
+            return _periodic_message(feats, phi, v_flat, w, b, f, v.shape)
         if self.use_pallas == "off":
             ds, dv_flat = painn_message_dense(feats["rbf_env"], phi, v_flat, feats["unit_t"], w)
         elif feats.get("rbf_env_t") is not None:
@@ -93,6 +104,23 @@ class PaiNNMessage(nn.Module):
         )
         dv_flat = dv_flat + (b[2 * f :] * dvu_b).reshape(*ds.shape[:2], 3 * f)
         return ds, dv_flat.reshape(*v.shape)
+
+
+def _periodic_message(feats, phi, v_flat, w, b, f: int, v_shape):
+    """The message over the periodic neighbour list: the per-edge filter
+    (rbf@W + b)·env (rbf_env and envf premasked, so padded slots give 0)
+    times the sender's φ and v, summed over the K slots."""
+    nl = feats["nl"]
+    filt = feats["rbf_env"] @ w + b * feats["envf"][..., None]
+    prod = filt * graph.gather_nodes(phi, nl.idx)  # [B,A,K,3F]
+    v_j = graph.gather_nodes(v_flat, nl.idx)
+    ds = prod[..., :f].sum(dim=2)
+    prod1 = prod[..., f : 2 * f]
+    dv = torch.cat([(prod1 * v_j[..., c * f : (c + 1) * f]).sum(dim=2) for c in range(3)],
+                   dim=-1)
+    dvu = torch.einsum("bikc,bikf->bicf", nl.unit.to(prod.dtype), prod[..., 2 * f :])
+    dv = dv + dvu.reshape(*ds.shape[:2], 3 * f)
+    return ds, dv.reshape(*v_shape)
 
 
 def _dual_message(feats, phi, v_flat, w):
@@ -149,7 +177,7 @@ class PaiNNLayer(nn.Module):
 
 @register_model("painn")
 class PaiNN(nn.Module):
-    """PaiNN on the molecular (non-periodic) path, in float32 or bfloat16.
+    """PaiNN on the molecular or the periodic path, in float32 or bfloat16.
 
     Built on `device` (the card unless the caller names another) with
     weights drawn from `generator` with flax's default initialisers
@@ -175,15 +203,17 @@ class PaiNN(nn.Module):
         compute_dtype: str = "float32",
         use_pallas: str = "off",  # off | fused
         pbc: bool = False,
+        pbc_images: int = 1,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.cdt = compute_dtype_of(compute_dtype, "PaiNN")
-        if pbc:
-            raise NotImplementedError("the periodic PaiNN path is not ported yet (ROADMAP)")
         if use_pallas not in ("off", "fused"):
             raise ValueError(f"use_pallas must be off|fused, got {use_pallas!r}")
+        if pbc:
+            use_pallas = "off"  # the periodic path is plain PyTorch, as JAX's
+        self.pbc, self.pbc_images = pbc, pbc_images
         if rbf not in ("gaussian", "bessel") or envelope not in ("polynomial", "cosine"):
             raise ValueError(f"unknown basis {rbf!r} / envelope {envelope!r}")
         self.hidden, self.n_rbf, self.cutoff = hidden, n_rbf, cutoff
@@ -248,7 +278,10 @@ class PaiNN(nn.Module):
         built from the closed-form radial derivative and kept apart
         (rbf_env_t) for kernel C. Every feature but dist is cast to the
         compute dtype last, after its mask (rbfp, rbf_env_t: the tangents of
-        that cast, taken in float32 and cast)."""
+        that cast, taken in float32 and cast). With pbc, the periodic
+        neighbour list's (`_periodic_features`)."""
+        if self.pbc:
+            return self._periodic_features(batch)
         dg = graph.dense_graph(batch.pos, batch.node_mask, self.cutoff)
         adj = graph.dense_topk_mask(dg.dist, dg.adj, self.max_neighbors)
         zero = torch.zeros_like(dg.dist)
@@ -277,6 +310,16 @@ class PaiNN(nn.Module):
         else:
             feats["rbf_env_t"] = (rbfp * dist_t[..., None]).to(cdt).contiguous()
         return feats
+
+    def _periodic_features(self, batch: MolBatch) -> dict:
+        if batch.cell is None:
+            raise ValueError("PaiNN(pbc=True) requires batch.cell [B,3,3]")
+        nl = graph.pbc_neighbor_list(batch.pos, batch.node_mask, batch.cell, self.cutoff,
+                                     self.max_neighbors, n_images=self.pbc_images,
+                                     symmetrize=True)
+        zero = nl.dist.new_zeros(())
+        return {"nl": nl, "envf": torch.where(nl.mask, self._envelope(nl.dist), zero).to(self.cdt),
+                "rbf_env": self._filter(nl.dist, nl.mask).to(self.cdt)}
 
     def forward(self, batch: MolBatch) -> ModelOutput:
         feats = self.features(batch)

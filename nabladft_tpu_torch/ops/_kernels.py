@@ -10,6 +10,7 @@ fallback on the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -110,3 +111,28 @@ def raise_on_error(err: int, what: str) -> None:
     """Raise when a kernel entry point returned a cudaError_t other than 0."""
     if err != 0:
         raise RuntimeError(f"{what} failed with cudaError {err}")
+
+
+# FLOPs of the kernels launched while a tally is open (`flop_tally`): the
+# ctypes launches are no ATen operators, so FlopCounterMode does not see them
+_TALLY: Optional[List[float]] = None
+
+
+@contextlib.contextmanager
+def flop_tally():
+    """Yield a one-item list that sums, while the block runs, the FLOPs each
+    kernel launch reports through `count_flops`."""
+    global _TALLY
+    outer, _TALLY = _TALLY, [0.0]
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = outer
+
+
+def count_flops(work: Callable[[], float]) -> None:
+    """At a kernel launch: add work() (the FLOPs its inputs need, the
+    kernel file's own model) to the open tally. work runs only inside
+    `flop_tally`: counting the live pairs reads the card."""
+    if _TALLY is not None:
+        _TALLY[0] += float(work())

@@ -329,6 +329,8 @@ def eqv2_fwd(x, xi, idx, d, xe, maskf, dropk, *ws, l_max: int, m_max: int, n_gri
             xe.data_ptr(), maskf.data_ptr(), dropk.data_ptr(), _ptrs(ws), tog.data_ptr(),
             fromg.data_ptr(), out.data_ptr(), fs.data_ptr(), iscr.data_ptr(), *ints)
     LAUNCHES[name] += 1
+    _kernels.count_flops(
+        lambda: flops_bytes("O", x, idx, d, xe, maskf, dropk, ws, **kw)["flops_live"])
     return out
 
 
@@ -350,6 +352,8 @@ def eqv2_bwd(x, xi, idx, d, xe, maskf, dropk, *ws, g, l_max: int, m_max: int, n_
             fromg.data_ptr(), g.data_ptr(), gx.data_ptr(), gxi.data_ptr(), gxe.data_ptr(),
             _ptrs(gws), fs.data_ptr(), iscr.data_ptr(), *ints)
     LAUNCHES[name] += 1
+    _kernels.count_flops(
+        lambda: flops_bytes("P", x, idx, d, xe, maskf, dropk, ws, **kw)["flops_live"])
     return (gx, gxi, gxe, *gws)
 
 

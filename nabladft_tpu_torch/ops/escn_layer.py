@@ -435,6 +435,8 @@ def escn_fwd(x, d, xe, *ws, l_max: int, m_max: int, n_grid: int,
             fromg.data_ptr(), out.data_ptr(), fs.data_ptr(), iscr.data_ptr(), b, a, c, h, ec,
             d.shape[-1], p, l_max, m_max)
     LAUNCHES[name] += 1
+    _kernels.count_flops(
+        lambda: flops_bytes("M", x, d, xe, ws, l_max, m_max, n_grid, mxu_bf16)["flops_live"])
     return out
 
 
@@ -459,6 +461,8 @@ def escn_bwd(x, d, xe, *ws, g, l_max: int, m_max: int, n_grid: int, mxu_bf16: bo
             fromg.data_ptr(), g.data_ptr(), gx.data_ptr(), gxe.data_ptr(), _ptrs(gws),
             fs.data_ptr(), iscr.data_ptr(), b, a, c, h, ec, d.shape[-1], p, l_max, m_max)
     LAUNCHES[name] += 1
+    _kernels.count_flops(
+        lambda: flops_bytes("N", x, d, xe, ws, l_max, m_max, n_grid, mxu_bf16)["flops_live"])
     return (gx, gxe, *gws)
 
 

@@ -8,13 +8,18 @@ from the JAX package: diff[b,i,j] = pos[j] - pos[i], masked distances are
 distance. eSCN's and EquiformerV2's fixed-K `neighbor_list` (strict top-k,
 ties to the lower index as `lax.top_k`, K = min(max_neighbors, A) unpadded),
 its scatter back onto the dense pair lattice, the node gather along it and
-the edge frames' axis vectors.
+the edge frames' axis vectors. The periodic neighbour list
+(`pbc_neighbor_list`): candidates on a static [B, A, A, O] lattice of the
+(2·n_images+1)^3 periodic images, one strict top-k over them, and the
+reference's counter-edge symmetrisation.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 _EPS = 1e-10
@@ -78,19 +83,26 @@ class NeighborList(NamedTuple):
     unit: torch.Tensor  # [B, A, K, 3]  (0 where masked)
 
 
+def _nearest(adj: torch.Tensor, dist: torch.Tensor, k: int):
+    """The k nearest along the last axis among the slots `adj` keeps:
+    (indices, their mask, their negated distances). Equal distances keep the
+    lower index first, as `lax.top_k` does (a stable descending sort of the
+    negated distances)."""
+    neg = torch.where(adj, -dist, torch.full_like(dist, -_BIG))
+    vals, idx = torch.sort(neg, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    return idx, vals > -_BIG * 0.5, vals
+
+
 def neighbor_list(pos: torch.Tensor, node_mask: torch.Tensor, cutoff: float,
                   max_neighbors: int, dense: Optional[DenseGraph] = None) -> NeighborList:
     """The K = min(max_neighbors, A) nearest in-cutoff neighbours of each
-    atom, by distance. Equal distances keep the lower index first, as
-    `lax.top_k` does (a stable descending sort of the negated distances).
+    atom, by distance, equal distances in index order (`_nearest`).
     `dense`: a `dense_graph(pos, node_mask, cutoff)` the caller already
     built, so the all-pairs distances are computed once."""
     g = dense if dense is not None else dense_graph(pos, node_mask, cutoff)
     k = min(max_neighbors, pos.shape[1])
-    neg = torch.where(g.adj, -g.dist, torch.full_like(g.dist, -_BIG))
-    vals, idx = torch.sort(neg, dim=-1, descending=True, stable=True)
-    vals, idx = vals[..., :k], idx[..., :k]
-    mask = vals > -_BIG * 0.5
+    idx, mask, vals = _nearest(g.adj, g.dist, k)
     diff = torch.gather(g.diff, 2, idx[..., None].expand(*idx.shape, 3))
     dist = torch.where(mask, -vals, torch.zeros_like(vals))
     unit = diff / torch.clamp(dist, min=_EPS)[..., None]
@@ -148,3 +160,85 @@ def edge_rotation_vectors(unit: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
     zhat = torch.zeros_like(unit)
     zhat[..., 2] = 1.0
     return torch.where(mask[..., None], unit, zhat)
+
+
+class PBCNeighborList(NamedTuple):
+    """Fixed-K neighbour view under periodic boundary conditions: neighbour n
+    of atom i is the sender atom j = idx[b,i,n] in the lattice image
+    offset[b,i,n]; diff already holds that image's lattice shift."""
+
+    idx: torch.Tensor  # [B, A, K] int64 sender atom
+    mask: torch.Tensor  # [B, A, K] bool
+    diff: torch.Tensor  # [B, A, K, 3]  pos[j] + offset @ cell - pos[i] (0 where masked)
+    dist: torch.Tensor  # [B, A, K]     (0 where masked)
+    unit: torch.Tensor  # [B, A, K, 3]  (0 where masked)
+    offset: torch.Tensor  # [B, A, K, 3] int32 lattice image of the sender
+
+
+def pbc_image_offsets(n_images: int = 1) -> np.ndarray:
+    """Integer lattice offsets of the periodic images, lexicographic over
+    range(-n, n+1)^3, so offsets[o] == -offsets[O-1-o]: negating an offset
+    (the counter-edge) reverses the image axis."""
+    r = range(-n_images, n_images + 1)
+    return np.array(list(itertools.product(r, r, r)), dtype=np.int32)
+
+
+def pbc_neighbor_list(pos: torch.Tensor, node_mask: torch.Tensor, cell: torch.Tensor,
+                      cutoff: float, max_neighbors: int, n_images: int = 1,
+                      pbc: Tuple[bool, bool, bool] = (True, True, True),
+                      symmetrize: bool = True) -> PBCNeighborList:
+    """Strict top-k in-cutoff neighbours under periodic boundary conditions
+    (the reference's radius_graph_pbc + symmetrize_edges,
+    painn_pyg/utils.py:318, painn_pyg/painn.py:157-304).
+
+    `cell` [B, 3, 3] holds the lattice vectors as rows. Self-pairs are
+    excluded in the home image only (an atom neighbours its own periodic
+    copies); an axis with pbc False admits offset 0 only (the image axis
+    keeps its length: disallowed images are masked). K = min(max_neighbors,
+    A·O). With `symmetrize`, every kept edge (j→i, S) gains its mirror
+    (i→j, -S) and the list is taken again with a budget of 2K, nearest
+    first (the reference grows its ragged list instead)."""
+    b, a = pos.shape[:2]
+    offsets = pbc_image_offsets(n_images)
+    keep = np.ones(len(offsets), dtype=bool)
+    for ax in range(3):
+        if not pbc[ax]:
+            keep &= offsets[:, ax] == 0
+    dev = pos.device
+    allowed = torch.from_numpy(keep).to(dev)
+    offs = torch.from_numpy(offsets).to(dev)
+    n_off = len(offsets)
+    center = n_off // 2  # the (0,0,0) image
+    shifts = torch.einsum("ox,bxy->boy", offs.to(pos.dtype), cell.to(pos.dtype))  # [B,O,3]
+    # diff[b,i,j,o] = pos[j] + shift[o] - pos[i]
+    diff = pos[:, None, :, None, :] + shifts[:, None, None, :, :] - pos[:, :, None, None, :]
+    pair = node_mask[:, :, None] & node_mask[:, None, :]
+    self_home = (torch.eye(a, dtype=torch.bool, device=dev)[None, :, :, None]
+                 & (torch.arange(n_off, device=dev) == center)[None, None, None, :])
+    cand = pair[..., None] & allowed[None, None, None, :] & ~self_home
+    dist = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=_EPS))
+    adj = cand & (dist < cutoff)
+    k = min(max_neighbors, a * n_off)
+
+    def select(adj_mask, kk):
+        flat, mask, _ = _nearest(adj_mask.reshape(b, a, a * n_off),
+                                 dist.reshape(b, a, a * n_off), kk)
+        return flat // n_off, flat % n_off, mask, flat
+
+    j_idx, o_idx, mask, flat = select(adj, k)
+    if symmetrize:
+        sel = torch.zeros((b, a, a * n_off), dtype=torch.bool, device=dev)
+        sel = sel.scatter(2, flat, mask).reshape(b, a, a, n_off)
+        # the counter-edge of (receiver i, sender j, image o) is
+        # (receiver j, sender i, image O-1-o)
+        sel_t = torch.flip(sel.transpose(1, 2), dims=(-1,))
+        j_idx, o_idx, mask, flat = select((sel | sel_t) & adj, min(2 * k, a * n_off))
+    bi = torch.arange(b, device=dev)[:, None, None]
+    ii = torch.arange(a, device=dev)[None, :, None]
+    zero = pos.new_zeros(())
+    dsel = diff[bi, ii, j_idx, o_idx]  # [B,A,K,3]
+    dd = torch.where(mask, dist[bi, ii, j_idx, o_idx], zero)
+    unit = torch.where(mask[..., None], dsel / torch.clamp(dd, min=_EPS)[..., None], zero)
+    dsel = torch.where(mask[..., None], dsel, zero)
+    return PBCNeighborList(idx=j_idx, mask=mask, diff=dsel, dist=dd, unit=unit,
+                           offset=offs[o_idx] * mask[..., None].to(torch.int32))

@@ -541,6 +541,7 @@ def painn_fwd(rbf, phi, v, unit_t, w) -> Tuple[torch.Tensor, torch.Tensor]:
         )
     _kernels.raise_on_error(err, "painn_fwd launch")
     _count("painn_fwd", dt)
+    _kernels.count_flops(lambda: fwd_work("A", rbf, rbf, f)["flops_live"])
     return ds, dv
 
 
@@ -606,6 +607,7 @@ def painn_bwd(rbf, rbfp, phi, v, unit_t, w, gds, gdv, need_gw: bool = True):
     _kernels.raise_on_error(err, "painn_bwd launch")
     _count("painn_bwd", dt)
     _count("painn_bwd_gw", dt, int(need_gw))
+    _kernels.count_flops(lambda: bwd_work("B", rbf, rbfp, f, need_gw)["flops_live"])
     if gw is not None and gw.shape != (r, 3 * f):
         gw = gw[:r, :3 * f].contiguous()
     return (g_dist,) + _rounded((g_ut, gphi, gv, gw), dt)
@@ -640,6 +642,7 @@ def painn_dual_fwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w):
         )
     _kernels.raise_on_error(err, "painn_dual_fwd launch")
     _count("painn_dual_fwd", dt)
+    _kernels.count_flops(lambda: fwd_work("C", rbf, rbfd, f)["flops_live"])
     return ds, dv, dsd, dvd
 
 
@@ -667,6 +670,7 @@ def painn_dual_bwd(rbf, rbfd, phi, phid, v, vd, unit_t, unitd_t, w, gds, gdv, gd
         )
     _kernels.raise_on_error(err, "painn_dual_bwd launch")
     _count("painn_dual_bwd", dt)
+    _kernels.count_flops(lambda: bwd_work("D", rbf, rbfd, f, need_gw)["flops_live"])
     if gw is not None and gw.shape != (r, 3 * f):
         gw = gw[:r, :3 * f].contiguous()
     return _rounded((gphi, gphid, gv, gvd, gw), dt)

@@ -507,6 +507,7 @@ def qhnet_conv_fwd(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -> tor
     _launch("qhnet_conv_fwd", x, cgsh, *gates, out, *_fwd_scratch(dev, b, a, c, gates, lmax), b,
             a, c, gates[0].shape[-1], gates[1].shape[-1], k, lmax)
     LAUNCHES["qhnet_conv_fwd"] += 1
+    _kernels.count_flops(lambda: _work("I", x, cgsh, hr, hs, cgsh, lmax))
     return out
 
 
@@ -574,6 +575,7 @@ def qhnet_conv_bwd(x, cgsh, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMAX):
     _launch("qhnet_conv_bwd", x, cgsh, *gates, g, gx, *bufs, b, a, c, gates[0].shape[-1],
             gates[1].shape[-1], k, lmax)
     LAUNCHES["qhnet_conv_bwd"] += 1
+    _kernels.count_flops(lambda: _work("J", x, cgsh, hr, hs, cgsh, lmax))
     return (gx, *_gate_cotangents(*bufs[:4], h1, h2, pc))
 
 
@@ -591,6 +593,7 @@ def qhnet_pair_fwd(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, lmax: int = LMAX) -
     _launch("qhnet_pair_fwd", x, zi, maskf, *gates, out, *_fwd_scratch(dev, b, a, c, gates, lmax),
             b, a, c, gates[0].shape[-1], gates[1].shape[-1], kz, lmax)
     LAUNCHES["qhnet_pair_fwd"] += 1
+    _kernels.count_flops(lambda: _work("K", x, zi, hr, hs, maskf, lmax))
     return out
 
 
@@ -611,6 +614,7 @@ def qhnet_pair_bwd(x, zi, maskf, hr, hs, w2r, b2r, w2s, b2s, g, lmax: int = LMAX
     _launch("qhnet_pair_bwd", x, zi, maskf, *gates, g, gx, gzi, *bufs, b, a, c,
             gates[0].shape[-1], gates[1].shape[-1], kz, lmax)
     LAUNCHES["qhnet_pair_bwd"] += 1
+    _kernels.count_flops(lambda: _work("L", x, zi, hr, hs, maskf, lmax))
     return (gx, gzi, *_gate_cotangents(*bufs[:4], h1, h2, pc))
 
 
@@ -674,6 +678,12 @@ def live_pairs(kind: str, table: torch.Tensor, lmax: int = LMAX) -> int:
     if kind in "IJ":
         return int((table[..., :_cg_layout(lmax)[1]] != 0).any(-1).sum())
     return int((table != 0).sum())
+
+
+def _work(kind: str, x, table, hr, hs, live_of, lmax: int) -> int:
+    """Kernel `kind`'s FLOPs on a launch's inputs (`flops_bytes`' "flops_live",
+    the live pairs counted in `live_of`: cgsh for I/J, maskf for K/L)."""
+    return flops_bytes(kind, x, table, hr, hs, live_pairs(kind, live_of, lmax), lmax)["flops_live"]
 
 
 def flops_bytes(kind: str, x: torch.Tensor, table: torch.Tensor, hr: torch.Tensor,

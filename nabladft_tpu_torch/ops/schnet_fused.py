@@ -550,6 +550,7 @@ def schnet_fwd(rbf, envf, xin, w1, b1, w2, b2) -> torch.Tensor:
     scratch, iscratch = _fwd_buffers("E", dev, b, a, r4, f4)
     _launch("schnet_fwd", dt, *args.values(), msg, scratch, iscratch, b, a, r4, f4)
     _count("schnet_fwd", dt)
+    _kernels.count_flops(lambda: fwd_work("E", rbf, envf, envf, f)["flops_live"])
     return msg if f4 == f else msg[..., :f].contiguous()
 
 
@@ -570,6 +571,7 @@ def schnet_bwd(rbf, rbfp, envf, envp, xin, w1, b1, w2, b2, gmsg, need_gw: bool =
             int(need_gw), b, a, r4, f4)
     _count("schnet_bwd", dt)
     _count("schnet_bwd_gw", dt, int(need_gw))
+    _kernels.count_flops(lambda: bwd_work("F", rbf, envf, envp, f, need_gw)["flops_live"])
     gxin = (gxin if f4 == f else gxin[..., :f]).to(dt).contiguous()
     if not need_gw:
         return g_dist, gxin, None, None, None, None
@@ -590,6 +592,7 @@ def schnet_dual_fwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2):
     scratch, iscratch = _fwd_buffers("G", dev, b, a, r4, f4)
     _launch("schnet_dual_fwd", dt, *args.values(), msg, msgd, scratch, iscratch, b, a, r4, f4)
     _count("schnet_dual_fwd", dt)
+    _kernels.count_flops(lambda: fwd_work("G", rbf, envf, envfd, f)["flops_live"])
     if f4 != f:
         msg, msgd = msg[..., :f].contiguous(), msgd[..., :f].contiguous()
     return msg, msgd
@@ -612,6 +615,7 @@ def schnet_dual_bwd(rbf, rbfd, envf, envfd, xin, xind, w1, b1, w2, b2, gmsg, gms
     _launch("schnet_dual_bwd", dt, *args.values(), gxin, gxind, gw, scratch, iscratch,
             int(need_gw), b, a, r4, f4)
     _count("schnet_dual_bwd", dt)
+    _kernels.count_flops(lambda: bwd_work("H", rbf, envf, envfd, f, need_gw)["flops_live"])
     gxin, gxind = ((t if f4 == f else t[..., :f]).to(dt).contiguous() for t in (gxin, gxind))
     if not need_gw:
         return gxin, gxind, None, None, None, None

@@ -193,10 +193,9 @@ def build_optimize_model(cfg: Dict[str, Any], device: torch.device,
     parameter tree carried across) with the parameters of `ckpt_path`: a
     checkpoint this package's trainer wrote (its "model" entry, not the
     EMA) or a flax checkpoint of the JAX package (a whole TrainState gives
-    up its params, as the JAX job's restore). Float32 models only."""
-    if cfg["model"].get("kwargs", {}).get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError("the optimize job relaxes a float32 model; a bf16 model's "
-                                  "relaxation is not ported (ROADMAP queue 1: the bf16 optimize job)")
+    up its params, as the JAX job's restore). A bf16 model
+    (``compute_dtype: bfloat16``) computes in bf16 and hands over float32 E
+    and F; the relaxation's state stays in the positions' float32."""
     if not cfg.get("optimize", {}).get("use_pallas", True):
         m = cfg["model"]
         cfg = dict(cfg, model=dict(m, kwargs=dict(m.get("kwargs", {}), use_pallas="off")))

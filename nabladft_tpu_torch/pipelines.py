@@ -51,7 +51,8 @@ from nabladft_tpu_torch.models import create_model
 from nabladft_tpu_torch.models.convert import load_flax_params
 from nabladft_tpu_torch.models.pretrained import get_pretrained_params
 from nabladft_tpu_torch.train import (
-    CSVLogger, MultiLogger, StdoutLogger, Trainer, TrainerConfig, seeded_generator,
+    CSVLogger, MultiLogger, StdoutLogger, TensorBoardLogger, Trainer, TrainerConfig, WandbLogger,
+    seeded_generator,
 )
 from nabladft_tpu_torch.utils import resolve_device
 
@@ -164,7 +165,9 @@ def build_trainer(cfg: Dict[str, Any], device: torch.device,
     """The configured model (`build_model`) in a Trainer: the trainer group
     with the model's `trainer_overrides` (where the group leaves the key
     unset, as the JAX package), loss specs and coefficients, and stdout plus CSV loggers
-    (``<output_dir>/<name>/metrics.csv``)."""
+    (``<output_dir>/<name>/metrics.csv``), with Wandb (``wandb.enable``, project
+    ``wandb.project``) and TensorBoard (``tensorboard.enable``: ``<output_dir>/<name>/tb``)
+    where the config enables them."""
     m = cfg["model"]
     model = build_model(cfg, device, params)
     t = dict(cfg.get("trainer", {}))
@@ -181,9 +184,12 @@ def build_trainer(cfg: Dict[str, Any], device: torch.device,
     if cfg.get("log_csv", True):
         out_dir = Path(cfg.get("output_dir", "outputs")) / cfg.get("name", m["name"])
         loggers.append(CSVLogger(out_dir / "metrics.csv"))
-    for backend in ("wandb", "tensorboard"):
-        if cfg.get(backend, {}).get("enable"):
-            raise NotImplementedError(f"the {backend} logger is not ported yet (ROADMAP queue 1)")
+    if cfg.get("wandb", {}).get("enable"):
+        loggers.append(WandbLogger(cfg["wandb"].get("project", "nablaDFT-tpu"),
+                                   name=cfg.get("name")))
+    if cfg.get("tensorboard", {}).get("enable"):
+        out_dir = Path(cfg.get("output_dir", "outputs")) / cfg.get("name", m["name"])
+        loggers.append(TensorBoardLogger(out_dir / "tb"))
     return Trainer(model, device, TrainerConfig(**t), loggers=MultiLogger(loggers))
 
 

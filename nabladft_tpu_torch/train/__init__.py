@@ -10,4 +10,6 @@ from nabladft_tpu_torch.train.loggers import (  # noqa: F401
     Logger,
     MultiLogger,
     StdoutLogger,
+    TensorBoardLogger,
+    WandbLogger,
 )

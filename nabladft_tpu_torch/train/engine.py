@@ -47,8 +47,9 @@ from torch import nn
 
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import ModelOutput, forward
-from nabladft_tpu_torch.models.convert import flax_tensors, load_flax_params
+from nabladft_tpu_torch.models.convert import flax_params_of, flax_tensors, load_flax_params
 from nabladft_tpu_torch.train import losses as losses_lib
+from nabladft_tpu_torch.train import profiling
 from nabladft_tpu_torch.train.checkpoints import (
     CheckpointManager, is_flax_state, load_state, read_aux,
 )
@@ -73,10 +74,16 @@ def seeded_generator(seed: int) -> torch.Generator:
 @dataclass
 class TrainerConfig:
     """The JAX package's fields and defaults. Not ported yet, and raising
-    when set: n_dp > 1, profile_dir and log_mfu. `lookahead_k` > 0 wraps
-    the optimizer in `Lookahead`. fit_scale_factors / scale_fit_batches
-    concern models with fitted scale factors (GemNet-OC); total_steps only
-    the step-indexed schedules (linear, polynomial, cosine, multistep)."""
+    when set: n_dp > 1. `lookahead_k` > 0 wraps the optimizer in
+    `Lookahead`. fit_scale_factors / scale_fit_batches concern models with
+    fitted scale factors (GemNet-OC); total_steps only the step-indexed
+    schedules (linear, polynomial, cosine, multistep). profile_dir: a
+    torch.profiler trace of the train loop (`profiling.trace`); log_mfu:
+    an "mfu" metric, the first step's FLOPs (`profiling.step_flops`) at the
+    logged step rate over the peak the card measures at fit start
+    (`profiling.measured_peak_flops`, in the model's compute dtype); off the
+    card no peak is measured and no mfu is logged, as the JAX package logs
+    none where it knows no peak."""
 
     max_epochs: int = 100
     max_steps: Optional[int] = None
@@ -123,14 +130,9 @@ class TrainerConfig:
 
 
 def _check_ported(cfg: TrainerConfig) -> None:
-    unported = {
-        "n_dp > 1 (ROADMAP queue 1: multi-GPU data parallelism)": (cfg.n_dp or 1) > 1,
-        "profile_dir (ROADMAP queue 1: trainer remainders)": bool(cfg.profile_dir),
-        "log_mfu (ROADMAP queue 1: trainer remainders)": cfg.log_mfu,
-    }
-    for what, on in unported.items():
-        if on:
-            raise NotImplementedError(f"TrainerConfig {what} is not ported yet")
+    if (cfg.n_dp or 1) > 1:
+        raise NotImplementedError("TrainerConfig n_dp > 1 (ROADMAP queue 1: multi-GPU data "
+                                  "parallelism) is not ported yet")
 
 
 class Trainer:
@@ -180,6 +182,11 @@ class Trainer:
         self._best_snapshot = None
         self.ckpt = (CheckpointManager(Path(cfg.ckpt_dir), top_k=cfg.save_top_k,
                                        monitor=cfg.monitor) if cfg.ckpt_dir else None)
+        # log_mfu: the first train step's FLOPs (the hand-written kernels'
+        # share of them apart) and the peak they are held to
+        self.step_flops: Optional[float] = None
+        self.kernel_flops: Optional[float] = None
+        self.peak_flops: Optional[float] = None
 
     # -- gradients -----------------------------------------------------------
 
@@ -380,29 +387,48 @@ class Trainer:
             self._load_optax_state(state["opt_state"])
 
     def _load_optax_state(self, opt_state: Dict[str, Any]) -> None:
-        """The optax state of the JAX engine's chain — optional
-        clip_by_global_norm, then inject_hyperparams(adamw), then the
-        constant schedules' warmup scale — into the AdamW optimizer: the
-        Adam moments and count per parameter, the injected count (updates
-        applied: the schedules' and the warmup's step) and learning rate.
-        Other optimizers' states are not mapped yet."""
+        """The optax state of the JAX engine's chain (`Trainer._make_tx`):
+        optional clip_by_global_norm, then inject_hyperparams(<optimizer>),
+        then the constant schedules' warmup scale, then lookahead. Into the
+        optimizer: adamw's and adam's moments and count (scale_by_adam),
+        amsgrad's and its nu_max (scale_by_amsgrad), sgd's momentum trace
+        (trace, decay 0.9); the injected count (updates applied: the
+        schedules' and the warmup's step) and learning rate; lookahead's
+        slow weights and count. Raises when the state is another
+        optimizer's."""
         cfg = self.cfg
-        if cfg.optimizer != "adamw" or cfg.lookahead_k:
-            what = "lookahead" if cfg.lookahead_k else cfg.optimizer
-            raise NotImplementedError(
-                f"restoring a flax checkpoint's {what} state is not ported yet "
-                f"(ROADMAP queue 1: restore of {what} state)")
-        parts = [opt_state] if "inner_state" in opt_state else list(opt_state.values())
+        parts = ([opt_state] if "inner_state" in opt_state
+                 else [opt_state[k] for k in sorted(opt_state, key=int)])
         inject = next(p for p in parts if isinstance(p, dict) and "hyperparams" in p)
-        adam = inject["inner_state"]["0"]  # adamw = chain(scale_by_adam, decay, scale)
-        mu, nu = flax_tensors(self.model, adam["mu"]), flax_tensors(self.model, adam["nu"])
-        count = float(adam["count"])
-        for n, p in self.model.named_parameters():
-            if n in self.scales or not p.requires_grad:
-                continue
-            self.optimizer.state[p] = {"step": torch.tensor(count),
-                                       "exp_avg": mu[n].to(p.device),
-                                       "exp_avg_sq": nu[n].to(p.device)}
+        look = next((p for p in parts if isinstance(p, dict) and "slow" in p), None)
+        chain = inject["inner_state"]
+        first = chain["0"]
+        kind = ("sgd" if "trace" in first else "amsgrad" if "nu_max" in first
+                else "adamw" if len(chain) == 3 else "adam")
+        want = f"{cfg.optimizer} with lookahead" if cfg.lookahead_k else cfg.optimizer
+        if kind != cfg.optimizer or (look is not None) != bool(cfg.lookahead_k):
+            have = f"{kind} with lookahead" if look is not None else kind
+            raise ValueError(f"the checkpoint holds {have} state; this trainer runs {want}")
+        names = {n: p for n, p in self.model.named_parameters()
+                 if n not in self.scales and p.requires_grad}
+        moments = {k: flax_tensors(self.model, first[k])
+                   for k in ("mu", "nu", "nu_max", "trace") if k in first}
+        opt = self.optimizer.optimizer if look is not None else self.optimizer
+        for n, p in names.items():
+            m = {k: v[n].to(p.device) for k, v in moments.items()}
+            if kind == "sgd":
+                opt.state[p] = {"momentum_buffer": m["trace"]}
+            elif kind == "amsgrad":
+                opt.state[p] = dict(m, step=int(first["count"]))
+            else:  # torch's Adam / AdamW
+                opt.state[p] = {"step": torch.tensor(float(first["count"])),
+                                "exp_avg": m["mu"], "exp_avg_sq": m["nu"]}
+        if look is not None:
+            slow = flax_tensors(self.model, look["slow"])
+            by_id = {id(p): n for n, p in names.items()}
+            for s, p in zip(self.optimizer.slow, self.optimizer.params):
+                s.copy_(slow[by_id[id(p)]])
+            self.optimizer.count = int(look["count"])
         self.applied = int(inject["count"])
         self._lr = float(inject["hyperparams"]["learning_rate"])
         set_learning_rate(self.optimizer, self._lr)
@@ -460,6 +486,16 @@ class Trainer:
             self.load_checkpoint(ckpt_path, resume=True)
         elif cfg.fit_scale_factors and self.scales:
             self._fit_scales(train_loader)
+        if cfg.log_mfu and self.peak_flops is None:
+            self.peak_flops = profiling.measured_peak_flops(
+                self.device, getattr(self.model, "cdt", torch.float32))
+            if self.peak_flops:
+                logger.info("measured peak: %.4e FLOP/s", self.peak_flops)
+        with profiling.trace(cfg.profile_dir) if cfg.profile_dir else contextlib.nullcontext():
+            return self._fit_loop(datamodule, train_loader)
+
+    def _fit_loop(self, datamodule, train_loader) -> Dict[str, float]:
+        cfg = self.cfg
         stop = False
         best, bad_epochs = float("inf"), 0
         final_metrics: Dict[str, float] = {}
@@ -468,7 +504,11 @@ class Trainer:
         for epoch in range(cfg.max_epochs):
             for batch in train_loader:
                 mols += int(batch.graph_mask.sum())
-                metrics = self._train_step(batch.to(self.device))
+                if cfg.log_mfu and self.step_flops is None:
+                    (self.step_flops, self.kernel_flops), metrics = profiling.step_flops(
+                        self._train_step, batch.to(self.device))
+                else:
+                    metrics = self._train_step(batch.to(self.device))
                 step = self.step
                 if step % cfg.log_every_n_steps == 0:
                     now = time.perf_counter()
@@ -476,11 +516,16 @@ class Trainer:
                     host["epoch"] = epoch
                     host["steps_per_sec"] = cfg.log_every_n_steps / max(now - t_last, 1e-9)
                     host["mols_per_sec"] = mols / max(now - t_last, 1e-9)
+                    if self.step_flops:
+                        u = profiling.mfu(self.step_flops, 1.0 / host["steps_per_sec"],
+                                          self.peak_flops)
+                        if u is not None:
+                            host["mfu"] = u
                     host["lr"] = current_learning_rate(self.optimizer)
                     self.loggers.log_metrics(host, step)
                     t_last, mols = now, 0
                 if cfg.hist_every_n_steps and step % cfg.hist_every_n_steps == 0:
-                    self.loggers.log_histograms(self.model.state_dict(), step)
+                    self.loggers.log_histograms(flax_params_of(self.model), step)
                 if cfg.val_every_n_steps and step % cfg.val_every_n_steps == 0:
                     mid = self.validate(datamodule.val_dataloader())
                     mid["epoch"] = epoch

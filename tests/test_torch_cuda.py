@@ -270,6 +270,30 @@ def test_dual_bwd_kernel_is_deterministic(card):
 
 
 @pytest.mark.cuda
+def test_launches_report_their_flops_to_an_open_tally(card):
+    """Inside `_kernels.flop_tally` each launch of A-D adds the FLOPs its
+    inputs need (`fwd_work` / `bwd_work`'s "flops_live"): the share of a
+    step's FLOPs that FlopCounterMode cannot see. Outside one a launch adds
+    nothing."""
+    from nabladft_tpu_torch.ops import _kernels
+
+    shape = SHAPES[1]
+    x, f = _inputs(shape, card), shape[3]
+    a_args, b_args = [x[k] for k in A_ARGS], [x[k] for k in B_ARGS]
+    pf.painn_fwd(*a_args)
+    with _kernels.flop_tally() as tally:
+        pf.painn_fwd(*a_args)
+        pf.painn_bwd(*b_args, need_gw=False)
+        pf.painn_dual_fwd(*(x[k] for k in C_ARGS))
+        pf.painn_dual_bwd(*(x[k] for k in D_ARGS))
+    want = (pf.fwd_work("A", x["rbf"], x["rbf"], f)["flops_live"]
+            + pf.bwd_work("B", x["rbf"], x["rbfp"], f, need_gw=False)["flops_live"]
+            + pf.fwd_work("C", x["rbf"], x["rbfd"], f)["flops_live"]
+            + pf.bwd_work("D", x["rbf"], x["rbfd"], f)["flops_live"])
+    assert tally == [float(want)] and want > 0
+
+
+@pytest.mark.cuda
 def test_dual_fn_on_card_matches_cpu(card):
     """PaiNNDualFn's outputs and gradients on the card (kernels C and D)
     against the same op on CPU tensors (the plain versions)."""

@@ -13,8 +13,9 @@
   -∂E/∂pos within rtol 2e-3 / atol 2e-4, and the parameter gradients of
   the energy + force loss (second order: the force loss is differentiated
   through the forces) within 2e-3 × max |g| per tensor, against JAX's
-  three layouts: compact with `take` gathers, compact with one-hot
-  matmuls, and dense;
+  three layouts: compact with `take` gathers and compact with one-hot
+  matmuls (both against the port's compact layout), and dense (against the
+  port's dense layout, `compact=False`);
 * a tie in the neighbour list: four neighbours at one distance and K = 2
   keep the two lower indices, as `lax.top_k`, and E and F equal JAX's.
 """
@@ -116,10 +117,9 @@ def params():
         lambda x: (np.asarray(x) + 0.05 * rng.normal(size=np.shape(x))).astype(np.float32), p)
 
 
-@pytest.fixture(scope="module")
-def port_result(params):
-    """The port's E, F and loss gradients on the same batch and weights."""
-    model = load_flax_params(create_model("dimenetpp", device="cpu", **KW), params)
+def _port_result(params, compact: bool):
+    model = load_flax_params(create_model("dimenetpp", device="cpu", compact=compact, **KW),
+                             params)
     batch = torch_batch(energy_batch())
     out = forward(model, batch)
     pos = batch.pos.clone().requires_grad_(True)
@@ -131,6 +131,13 @@ def port_result(params):
     losses["total"].backward()
     grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
     return out["energy"].numpy(), out["forces"].numpy(), grads
+
+
+@pytest.fixture(scope="module")
+def port_result(params):
+    """{compact: the port's E, F and loss gradients} on the same batch and
+    weights, in each of its layouts."""
+    return {compact: _port_result(params, compact) for compact in (True, False)}
 
 
 # -- bases -------------------------------------------------------------------
@@ -183,7 +190,7 @@ def test_dimenet_bases_match_jax():
 def test_energy_forces_and_second_order_gradients_match_jax(params, port_result, layout):
     model = jax_create_model("dimenetpp", remat=False, **KW, **LAYOUTS[layout])
     e_jax, f_jax, g_jax = _jax_reference(model, params, energy_batch())
-    e, f, grads = port_result
+    e, f, grads = port_result[LAYOUTS[layout]["compact"]]
     np.testing.assert_allclose(e, e_jax, **E_TOL)
     np.testing.assert_allclose(f, f_jax, **F_TOL)
     assert np.abs(f_jax).max() > 1e-2
@@ -204,17 +211,17 @@ def test_the_full_tree_loads_with_no_leaf_left(params):
 
 
 def test_unported_layouts_raise(params):
-    """compact=False still raises; compute_dtype="bfloat16" (ported) builds
-    and runs: finite float32 E and F, parameters kept in float32. A dtype
-    neither package has raises."""
-    with pytest.raises(NotImplementedError, match="dense"):
-        create_model("dimenetpp", device="cpu", compact=False)
-    model = load_flax_params(create_model("dimenetpp", device="cpu", compute_dtype="bfloat16",
-                                          **KW), params)
-    assert all(p.dtype == torch.float32 for p in model.parameters())
-    out = forward(model, torch_batch(energy_batch()))
-    for key in ("energy", "forces"):
-        assert out[key].dtype == torch.float32 and bool(torch.isfinite(out[key]).all()), key
+    """Every layout of the JAX package is ported: compact=False and
+    compute_dtype="bfloat16" build and run, in both layouts: finite float32
+    E and F, parameters kept in float32. A dtype neither package has
+    raises."""
+    for compact in (True, False):
+        model = load_flax_params(create_model("dimenetpp", device="cpu", compact=compact,
+                                              compute_dtype="bfloat16", **KW), params)
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        out = forward(model, torch_batch(energy_batch()))
+        for key in ("energy", "forces"):
+            assert out[key].dtype == torch.float32 and bool(torch.isfinite(out[key]).all()), key
     with pytest.raises(NotImplementedError, match="float16"):
         create_model("dimenetpp", device="cpu", compute_dtype="float16")
 

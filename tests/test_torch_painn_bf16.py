@@ -11,6 +11,10 @@
 * One surrogate train step (force_grads="pallas"): the losses and every
   parameter gradient against the JAX engine's.
 * The same converted weights drive both dtypes.
+* Biases that are not zero, as training leaves them: a bf16 `base.Linear`
+  against flax's bf16 Dense (the product rounded, then the bias added in
+  bf16, so a bias under half an ulp adds nothing), and the model's E on
+  such weights.
 
 Each tolerance is stated beside its test, which also asserts that JAX's own
 bf16-vs-float32 difference on the same inputs breaks it. JAX runs jitted
@@ -256,3 +260,59 @@ def test_converted_weights_drive_both_dtypes(flax_params):
     s32, s16 = m32.state_dict(), m16.state_dict()
     assert s32.keys() == s16.keys()
     assert all(s16[k].dtype == torch.float32 and torch.equal(s32[k], s16[k]) for k in s32)
+
+
+# ---------------------------------------------------------------------------
+# biases that are not zero
+# ---------------------------------------------------------------------------
+
+
+def test_bf16_linear_adds_the_bias_as_flax_dense():
+    """flax's bf16 Dense rounds x @ W to bf16 and then adds the bias in
+    bf16; adding it before the one rounding (as a fused bias does) moves
+    ~30 % of these outputs, whose biases are 0.3 ulp. The port's bf16
+    Linear agrees with flax's on all but a few outputs, and there by one
+    ulp (the products' float32 sums run in another order)."""
+    from flax import linen as fnn
+    from nabladft_tpu_torch.models.base import Linear
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 128)).astype(np.float32)
+    w = (rng.normal(size=(128, 96)) / np.sqrt(128)).astype(np.float32)
+    b = (rng.choice([-1.0, 1.0], 96) * 1.2e-3).astype(np.float32)  # 0.3 ulp of ~1
+    dense = fnn.Dense(96, dtype=jnp.bfloat16)
+    want = np.asarray(exact_jit(lambda p, v: dense.apply(p, v),
+                                {"params": {"kernel": w, "bias": b}}, x), np.float32)
+    lin = Linear(128, 96, compute_dtype=BF)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w.T))
+        lin.bias.copy_(torch.from_numpy(b))
+        got = lin(torch.from_numpy(x)).float().numpy()
+        fused = torch.nn.functional.linear(torch.from_numpy(x).to(BF), lin.weight.to(BF),
+                                           lin.bias.to(BF)).float().numpy()
+    assert np.mean(got != want) < 0.01
+    assert (np.abs(got - want) <= _ulp(want)).all()
+    assert np.mean(fused != want) > 0.1
+
+
+def test_bf16_energy_with_trained_like_biases_matches_jax(flax_params):
+    """Every bias of the flax init tree set to +-1e-3 (what a few AdamW
+    steps at 1e-4 leave): the port's bf16 E within E_REL x max |E| of JAX's
+    bf16 E, a tolerance that JAX's own bf16-vs-float32 gap breaks."""
+    rng = np.random.default_rng(1)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: (rng.choice([-1e-3, 1e-3], x.shape).astype(np.float32)
+                         if str(getattr(path[-1], "key", "")).endswith("bias") else x),
+        flax_params)
+    arrays, e = _arrays(), {}
+    for dt in DTYPES:
+        jm = jax_create_model("painn", **KW, remat=False, compute_dtype=dt)
+        e[dt] = np.asarray(exact_jit(lambda p, b: jax_forward(jm, p, b), params,
+                                     JaxBatch(**arrays))["energy"])
+    tm = load_flax_params(create_model("painn", device="cpu", **KW, compute_dtype="bfloat16"),
+                          params)
+    port = forward(tm, _torch_batch(arrays))["energy"].numpy()
+    tol = E_REL * np.abs(e["float32"]).max()
+    assert np.abs(port - e["bfloat16"]).max() <= tol, (
+        np.abs(port - e["bfloat16"]).max() / np.abs(e["float32"]).max())
+    assert np.abs(e["bfloat16"] - e["float32"]).max() > tol

@@ -331,9 +331,16 @@ def test_trainer_keeps_the_model_trainable_through_predict():
 
 
 @pytest.mark.parametrize("kw", [dict(n_dp=2), dict(log_mfu=True), dict(profile_dir="profile")])
-def test_unported_trainer_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _toy_trainer(**kw)
+def test_unported_trainer_options_raise(kw, tmp_path, monkeypatch):
+    """n_dp > 1 is not ported and raises, naming it; profile_dir and log_mfu
+    are ported and build (tests/test_torch_loggers_profiling.py runs them)."""
+    monkeypatch.chdir(tmp_path)
+    (key, value), = kw.items()
+    if key == "n_dp":
+        with pytest.raises(NotImplementedError, match="multi-GPU data parallelism"):
+            _toy_trainer(**kw)
+    else:
+        assert getattr(_toy_trainer(**kw).cfg, key) == value
 
 
 def test_amsgrad_matches_optax():
