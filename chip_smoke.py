@@ -312,7 +312,32 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                then QH_RESTORE_STEPS fine-tune steps; I-L as qhnet_train's
                counts; H of the first test molecules on the card within
                QH_H_RTOL x max |H| of the CPU.
-  12. timing — seconds of each phase; then one JSON object describing every
+  12. data parallelism (painn-oc, force_grads "pallas", A-D in every rank):
+     painn_dp_nccl1 — one rank started from the environment as ``torchrun``
+               starts one (RANK, WORLD_SIZE 1, LOCAL_RANK, MASTER_ADDR /
+               MASTER_PORT): `pipelines.run` starts and tears down an nccl
+               group itself; ``train`` (TRAIN_EPOCHS epochs), ``test`` from
+               the best checkpoint, then ``predict``: the steps, validation
+               and test metrics those of painn_train's one-process run within
+               DP_NCCL1_RTOL (a world of one runs no collective; the line says
+               whether the bits agree), A-D's counts as painn_train's plus
+               the predict batches'.
+     painn_dp_gloo2 — two ranks (`spawn`) on the one card in a gloo group
+               the phase starts (nccl refuses two ranks on one device):
+               DP_STEPS train steps at the global batch BATCH (BATCH / 2
+               molecules a rank), then ``test`` and ``predict`` from the last
+               checkpoint, against one process on the same global batches and
+               weights: the first step's gradients within DP_GRAD_RTOL x
+               max |g| per tensor, the test metrics within DP_METRIC_RTOL,
+               the predictions (the trained models' E and F on the test
+               batches) the same rows in the same order within E_TOL /
+               F_TOL; rank 0 alone writes; each rank's A-D counts (6 a layer
+               per step, validation, test and predict batch, C and D per
+               step only). Correctness, not scaling: both ranks share a card.
+     painn_dp_nccl — the same over nccl, one rank a card on min(cards, 4)
+               cards, when the machine has two or more; with one card the
+               line says it did not run, and the card count.
+  13. timing — seconds of each phase; then one JSON object describing every
                ported kernel (A-P) with its launches on each path (0 on the
                paths of 8-10).
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
@@ -602,6 +627,9 @@ CONFIGS = {"painn-oc": _painn_oc, "schnet": _schnet, "qhnet": _qhnet, "escn-oc":
 # the fp32 paths' readings (mol/s, busy share, peak memory) by phase, printed
 # beside the bf16 paths'
 READINGS: dict = {}
+# each family's one-process train job (its final validation and test
+# metrics), which painn_dp_nccl1 repeats
+ONE_PROCESS: dict = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1323,6 +1351,7 @@ def train_phase(tmp: Path, db: Path, family: str) -> dict:
     launches = all_launches()
     peak_mem = torch.cuda.max_memory_allocated()
 
+    ONE_PROCESS[family] = dict(res=res, test=test)
     steps, n_layers = res["step"], cfg["model"]["kwargs"]["n_interactions"]
     check(steps == TRAIN_EPOCHS * n_train,
           f"{steps} train steps, expected {TRAIN_EPOCHS} x {n_train}")
@@ -4848,6 +4877,262 @@ def eqv2_ref_bf16_phase(tmp: Path, db: Path) -> dict:
     return launches
 
 
+# data parallelism: DP_STEPS train steps of the global batch; the two-rank
+# run against one process: the first step's gradients within DP_GRAD_RTOL x
+# max |g| per tensor (sums over the ranks in another order), the test
+# metrics within DP_METRIC_RTOL relative; the one-rank nccl run against
+# painn_train's within DP_NCCL1_RTOL relative (the same program: a world of
+# one runs no collective)
+DP_STEPS, DP_GRAD_RTOL, DP_METRIC_RTOL, DP_NCCL1_RTOL = 3, 1e-5, 1e-5, 1e-5
+DP_MAX_CARDS = 4
+DP_TIMEOUT = 300  # s, the ranks of one phase
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rel_gap(got: dict, want: dict) -> float:
+    """The largest relative gap of the numbers two metric dicts share."""
+    keys = sorted(set(got) & set(want))
+    check(bool(keys), f"metrics to compare: {sorted(got)} vs {sorted(want)}")
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in keys)
+
+
+def _painn_counts(n_layers: int, steps: int, evals: int) -> dict:
+    """A-D's launch counts of `steps` train steps and `evals` validation,
+    test and predict batches; B's gW stage never, every other kernel never."""
+    want = dict.fromkeys(all_launches(), 0)
+    want.update(painn_fwd=n_layers * (steps + evals), painn_bwd=n_layers * (steps + evals),
+                painn_dual_fwd=n_layers * steps, painn_dual_bwd=n_layers * steps)
+    return want
+
+
+def dp_nccl1_phase(tmp: Path, db: Path) -> dict:
+    """One rank from a launcher's environment through `pipelines.run`, on
+    nccl (see the module docstring); returns the launch counts."""
+    import os
+
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.parallel import dist
+
+    ckpt, outputs = tmp / "ckpt_dp_nccl1", tmp / "outputs_dp_nccl1"
+    cfg = train_config(str(db), str(tmp), str(ckpt), str(outputs))
+    dm = pipelines.build_datamodule(cfg)
+    n_train, n_val, n_test = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.test_dataloader()))
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    groups = []
+    init = dist.init_from_env
+
+    def seen(device):  # the group each run starts
+        started = init(device)
+        groups.append((started, torch.distributed.get_backend() if started else None,
+                       dist.world_size(), str(torch.cuda.current_device())))
+        return started
+
+    os.environ.update(env)
+    dist.init_from_env = seen
+    try:
+        reset_all_launches()
+        res = pipelines.run(cfg)
+        best = json.loads((ckpt / "index.json").read_text())["best"][0]["path"]
+        test = pipelines.run(dict(cfg, job_type="test", ckpt_path=str(ckpt / best)))
+        pred = pipelines.run(dict(cfg, job_type="predict", ckpt_path=str(ckpt / best),
+                                  output_db=str(tmp / "dp_nccl1.db")))
+        torch.cuda.synchronize()
+        launches = all_launches()
+    finally:
+        dist.init_from_env = init
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(groups == [(True, "nccl", 1, "0")] * 3, f"an nccl group of one per job: {groups}")
+    check(not dist.is_initialized(), "each job tore down the group it started")
+    one = ONE_PROCESS["painn"]
+    check(res["step"] == one["res"]["step"] == TRAIN_EPOCHS * n_train,
+          f"steps {res['step']} vs {one['res']['step']}")
+    gaps = {"val": _rel_gap(res, one["res"]), "test": _rel_gap(test, one["test"])}
+    check(max(gaps.values()) <= DP_NCCL1_RTOL, f"nccl1 against painn_train: {gaps}")
+    check(pred["rows"] == N_MOLS, f"predict rows {pred}")
+    n_layers = cfg["model"]["kwargs"]["n_interactions"]
+    want = _painn_counts(n_layers, res["step"], TRAIN_EPOCHS * n_val + 2 * n_test)
+    check(launches == want, f"nccl1 launches {launches}, expected {want}")
+    emit("painn_dp_nccl1", groups=groups, steps=res["step"], final_val=res, test=test,
+         predict_rows=pred["rows"], rel_gap_to_painn_train=gaps,
+         bit_equal={"val": res == one["res"], "test": test == one["test"]},
+         launches=launches, expected_launches=want)
+    return launches
+
+
+def dp_rank(r: int, world: int, backend: str, store: str, tmp: str, db: str,
+            out: str) -> None:
+    """One rank of a data-parallel phase (started with `spawn`): the group,
+    the first step's gradients of this rank's share of the first global
+    batch, then `pipelines.run` of train, test and predict on its card; its
+    results pickled to `out`."""
+    import datetime
+    import pickle
+
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = r if backend == "nccl" else 0
+    dev = torch.device("cuda", card)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(backend, init_method=f"file://{store}", rank=r,
+                                         world_size=world,
+                                         timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        results = dict(dp_jobs(Path(tmp), Path(db), dev), rank=r, world=dist.world_size(),
+                       backend=torch.distributed.get_backend(), card=card)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(results, f)
+
+
+def dp_config(tmp: Path, db: Path, tag: str) -> dict:
+    cfg = train_config(str(db), str(tmp), str(tmp / f"ckpt_{tag}"), str(tmp / f"outputs_{tag}"))
+    cfg["trainer"] = dict(cfg["trainer"], max_epochs=1, max_steps=DP_STEPS)
+    return dict(cfg, output_db=str(tmp / f"{tag}.db"))
+
+
+def dp_jobs(tmp: Path, db: Path, dev: torch.device) -> dict:
+    """The data-parallel phases' work in one process of any world: the first
+    step's gradients (`Trainer._step_grads` of this rank's share), then
+    train, test and predict; A-D's counts over all of it."""
+    from nabladft_tpu_torch import pipelines
+    from nabladft_tpu_torch.parallel import dist
+
+    tag = "dp" if dist.world_size() > 1 else "dp_one"
+    cfg = dp_config(tmp, db, tag)
+    reset_all_launches()
+    trainer = pipelines.build_trainer(dict(cfg, log_csv=False, ckpt_dir=None), dev)
+    dm = pipelines.build_datamodule(cfg)
+    first = next(iter(dm.train_dataloader()))
+    trainer._step_grads(dist.shard_batch(first).to(dev))
+    grads = {n: p.grad.cpu().numpy() for n, p in trainer.model.named_parameters()}
+    t0 = time.perf_counter()
+    res = pipelines.run(cfg, device=dev)
+    t_train = time.perf_counter() - t0
+    last = str(Path(cfg["ckpt_dir"]) / "last.ckpt")
+    test = pipelines.run(dict(cfg, job_type="test", ckpt_path=last), device=dev)
+    pred = pipelines.run(dict(cfg, job_type="predict", ckpt_path=last), device=dev)
+    torch.cuda.synchronize(dev)
+    return dict(grads=grads, res=res, test=test, pred=pred, launches=all_launches(),
+                train_seconds=t_train, output_db=cfg["output_db"], ckpt_dir=cfg["ckpt_dir"],
+                first_batch=list(first.z.shape), n_val=len(dm.val_dataloader()),
+                n_test=len(dm.test_dataloader()))
+
+
+def dp_phase(tmp: Path, db: Path, phase: str, backend: str, world: int) -> dict:
+    """`world` ranks in a `backend` group against one process on the same
+    global batches and weights (see the module docstring); returns the
+    ranks' summed launch counts."""
+    import multiprocessing
+    import pickle
+
+    from nabladft_tpu_torch.data.ase_codec import AseDatabase
+
+    run_dir = tmp / phase
+    run_dir.mkdir()
+    ctx = multiprocessing.get_context("spawn")
+    outs = [run_dir / f"rank{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=dp_rank, args=(r, world, backend, str(run_dir / "store"),
+                                               str(run_dir), str(db), str(outs[r])))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        one = dp_jobs(run_dir, db, torch.device("cuda"))  # one process, meanwhile
+    finally:
+        for p in procs:
+            p.join(timeout=DP_TIMEOUT)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.exitcode == 0 and out.exists(), f"{phase} rank {r} exit code {p.exitcode}")
+    ranks = []
+    for out in outs:
+        with open(out, "rb") as f:
+            ranks.append(pickle.load(f))
+    check([(x["rank"], x["world"], x["backend"]) for x in ranks]
+          == [(r, world, backend) for r in range(world)], f"{phase} groups")
+    n_layers = _painn_oc("", "")["model"]["kwargs"]["n_interactions"]
+    per_rank = {}
+    for x in ranks:
+        check(x["res"]["step"] == one["res"]["step"] == DP_STEPS, f"{phase} steps")
+        want = _painn_counts(n_layers, DP_STEPS + 1, x["n_val"] + 2 * x["n_test"])
+        check(x["launches"] == want,
+              f"{phase} rank {x['rank']} launches {x['launches']}, expected {want}")
+        per_rank[x["rank"]] = {k: x["launches"][k] for k in
+                               ("painn_fwd", "painn_bwd", "painn_dual_fwd", "painn_dual_bwd")}
+    grad_err = {}
+    for name, g in one["grads"].items():
+        scale = max(float(np.abs(g).max()), 1e-30)
+        grad_err[name] = max(float(np.abs(x["grads"][name] - g).max()) / scale for x in ranks)
+    worst = max(grad_err, key=grad_err.get)
+    check(grad_err[worst] <= DP_GRAD_RTOL, f"{phase} first-step gradient {worst}: "
+                                           f"{grad_err[worst]:.3e}")
+    gaps = {x["rank"]: {"val": _rel_gap(x["res"], one["res"]),
+                        "test": _rel_gap(x["test"], one["test"])} for x in ranks}
+    check(max(g["test"] for g in gaps.values()) <= DP_METRIC_RTOL, f"{phase} test {gaps}")
+    rank0 = ranks[0]
+    check(Path(rank0["output_db"]).exists() and (Path(rank0["ckpt_dir"]) / "last.ckpt").exists(),
+          f"{phase}: rank 0's files")
+    got, want_rows = (list(AseDatabase(x["output_db"]).select_all()) for x in (rank0, one))
+    check(len(got) == len(want_rows) == rank0["pred"]["rows"] > 0, f"{phase} rows")
+    e_err = f_err = 0.0
+    for a, b in zip(got, want_rows):
+        check(np.array_equal(a.numbers, b.numbers) and np.array_equal(a.positions, b.positions),
+              f"{phase}: the rows in the same order")
+        e, e1 = np.asarray(a.data["energy_pred"]), np.asarray(b.data["energy_pred"])
+        f, f1 = np.asarray(a.data["forces_pred"]), np.asarray(b.data["forces_pred"])
+        check(np.allclose(e, e1, **E_TOL) and np.allclose(f, f1, **F_TOL),
+              f"{phase}: E / F of the trained models")
+        e_err, f_err = max(e_err, float(np.abs(e - e1).max())), max(f_err,
+                                                                    float(np.abs(f - f1).max()))
+    mols = DP_STEPS * BATCH
+    emit(phase, backend=backend, ranks=world, cards=len({x["card"] for x in ranks}),
+         first_batch=rank0["first_batch"], steps=DP_STEPS, test=rank0["test"],
+         test_one_process=one["test"], rel_gaps=gaps, grad_max_rel_err=grad_err[worst],
+         grad_worst_param=worst, predict_rows=len(got), e_max_abs_err=e_err,
+         f_max_abs_err=f_err, launches_by_rank=per_rank, seconds=seconds,
+         train_seconds={"ranks": [x["train_seconds"] for x in ranks],
+                        "one_process": one["train_seconds"]},
+         # the train job's wall time with its validation: correctness, not
+         # scaling (gloo's ranks share one card)
+         molecules_per_second_train={"ranks": mols / max(x["train_seconds"] for x in ranks),
+                                     "one_process": mols / one["train_seconds"]})
+    return {k: sum(x["launches"][k] for x in ranks) for k in ranks[0]["launches"]}
+
+
+def dp_nccl_phase(tmp: Path, db: Path) -> dict:
+    """painn_dp_nccl: over min(cards, DP_MAX_CARDS) cards when there are two
+    or more; otherwise a line saying it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("painn_dp_nccl", ran=False, device_count=n,
+             reason=f"nccl needs a card a rank; this machine has {n}")
+        return dict.fromkeys(all_launches(), 0)
+    return dp_phase(tmp, db, "painn_dp_nccl", "nccl", min(n, DP_MAX_CARDS))
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
@@ -4918,6 +5203,11 @@ def main() -> int:
                 by_path["painn_profiled_train"] = timed("painn_profiled_train",
                                                         profiled_train_phase, tmp, db)
                 by_path["painn_pbc"] = timed("painn_pbc", pbc_phase, tmp)
+                # data parallelism, after painn_train, whose run nccl1 repeats
+                by_path["painn_dp_nccl1"] = timed("painn_dp_nccl1", dp_nccl1_phase, tmp, db)
+                by_path["painn_dp_gloo2"] = timed("painn_dp_gloo2", dp_phase, tmp, db,
+                                                  "painn_dp_gloo2", "gloo", 2)
+                by_path["painn_dp_nccl"] = timed("painn_dp_nccl", dp_nccl_phase, tmp, db)
             # after the fp32 phases, whose readings they print
             for job, phase in (("train", bf16_train_phase), ("predict", bf16_predict_phase)):
                 path = f"{family}_bf16_{job}"

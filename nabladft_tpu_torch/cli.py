@@ -3,12 +3,17 @@
 Overrides use dotted keys: ``job_type=predict datamodule.source=<db>
 output_db=<out>``. Runs on the card unless ``--device`` names another.
 Needs PyYAML (configs and override values are YAML).
+
+Data-parallel on N cards of one host: ``torchrun --nproc_per_node N -m
+nabladft_tpu_torch.cli --config <file> ...`` (each rank on its card,
+``cuda:LOCAL_RANK``; ranks other than 0 log warnings only).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import re
 import sys
 from pathlib import Path
@@ -46,7 +51,8 @@ def main(argv=None) -> int:
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = parser.parse_args(argv)
     logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
+        level=logging.INFO if int(os.environ.get("RANK", 0)) == 0 else logging.WARNING,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
     cfg = load_config(args.config, overrides=_parse_overrides(args.overrides))
     run(cfg, device=args.device)

@@ -29,6 +29,14 @@ in every job. ``datamodule.source`` may name a registry split, fetched into
 ``datamodule.root``. ``links_path`` names another registry file for both
 (offline use: a file of one's own whose etags are the MD5s of the cached
 files).
+
+Under a launcher (``torchrun --nproc_per_node N -m nabladft_tpu_torch.cli
+...``) `run` starts the process group the environment describes (nccl on
+the card, `parallel.dist.init_from_env`) and tears it down after the job;
+a group the caller started is used as it is. ``train``, ``test`` and
+``predict`` then run data-parallel (TrainerConfig ``n_dp``): rank 0 writes
+the checkpoints, the logs and the predictions. ``optimize`` runs in one
+process only.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from nabladft_tpu_torch.data.registry import CheckpointRegistry, DatasetRegistry
 from nabladft_tpu_torch.models import create_model
 from nabladft_tpu_torch.models.convert import load_flax_params
 from nabladft_tpu_torch.models.pretrained import get_pretrained_params
+from nabladft_tpu_torch.parallel import dist
 from nabladft_tpu_torch.train import (
     CSVLogger, MultiLogger, StdoutLogger, TensorBoardLogger, Trainer, TrainerConfig, WandbLogger,
     seeded_generator,
@@ -167,7 +176,8 @@ def build_trainer(cfg: Dict[str, Any], device: torch.device,
     unset, as the JAX package), loss specs and coefficients, and stdout plus CSV loggers
     (``<output_dir>/<name>/metrics.csv``), with Wandb (``wandb.enable``, project
     ``wandb.project``) and TensorBoard (``tensorboard.enable``: ``<output_dir>/<name>/tb``)
-    where the config enables them."""
+    where the config enables them; under data parallelism rank 0 alone
+    builds the loggers."""
     m = cfg["model"]
     model = build_model(cfg, device, params)
     t = dict(cfg.get("trainer", {}))
@@ -180,14 +190,15 @@ def build_trainer(cfg: Dict[str, Any], device: torch.device,
     if getattr(model, "use_pallas", "off") == "fused" and model.derivative_forces:
         # the fused kernels' backward is first-order: train through C and D
         t.setdefault("force_grads", "pallas")
-    loggers = [StdoutLogger()]
-    if cfg.get("log_csv", True):
+    main = dist.is_main()
+    loggers = [StdoutLogger()] if main else []
+    if main and cfg.get("log_csv", True):
         out_dir = Path(cfg.get("output_dir", "outputs")) / cfg.get("name", m["name"])
         loggers.append(CSVLogger(out_dir / "metrics.csv"))
-    if cfg.get("wandb", {}).get("enable"):
+    if main and cfg.get("wandb", {}).get("enable"):
         loggers.append(WandbLogger(cfg["wandb"].get("project", "nablaDFT-tpu"),
                                    name=cfg.get("name")))
-    if cfg.get("tensorboard", {}).get("enable"):
+    if main and cfg.get("tensorboard", {}).get("enable"):
         out_dir = Path(cfg.get("output_dir", "outputs")) / cfg.get("name", m["name"])
         loggers.append(TensorBoardLogger(out_dir / "tb"))
     return Trainer(model, device, TrainerConfig(**t), loggers=MultiLogger(loggers))
@@ -225,16 +236,32 @@ def run(cfg: Dict[str, Any], device=None,
     """Entry point. `params` (a flax parameter tree) replaces the seeded
     initial weights. Returns, for ``train``, the last validation metrics
     plus ``step``; for ``test``, the test metrics; for ``predict``, {"rows",
-    "batches", "seconds"}: rows written and the wall time of the
+    "batches", "seconds"}: rows written (by rank 0) and the wall time of the
     predict-and-write loop; for ``optimize``, the task's stats
-    (`BatchwiseOptimizeTask.run`)."""
+    (`BatchwiseOptimizeTask.run`). Under a launcher, or in a process group
+    the caller started, the jobs but ``optimize`` run data-parallel; a
+    group this call started is torn down when it returns."""
     check_cfg(cfg)
-    job = cfg["job_type"]
     if cfg.get("pretrained") and params is not None:
         raise ValueError("pretrained and params are mutually exclusive")
     device = resolve_device(device)
+    started = dist.init_from_env(device)
+    try:
+        return _run(cfg, device, params)
+    finally:
+        dist.destroy(started)
+
+
+def _run(cfg: Dict[str, Any], device: torch.device,
+         params: Optional[Mapping[str, Any]]) -> Dict[str, float]:
+    job = cfg["job_type"]
     seed_everything(cfg.get("seed", 42))
     if job == "optimize":
+        if dist.world_size() > 1:
+            raise NotImplementedError(
+                f"the optimize job runs in one process; this one is rank {dist.rank()} of "
+                f"{dist.world_size()} (ROADMAP queue 1: data-parallel relaxation, "
+                f"lbfgs_relax over a dp group)")
         # imported here: the task builds its model through this module
         from nabladft_tpu_torch.optimize.task import run_optimize_job
 
@@ -262,7 +289,13 @@ def run(cfg: Dict[str, Any], device=None,
     input_db = dm.dataset.path  # a named split's resolved file
     loader = dm.predict_dataloader()
     t0 = time.perf_counter()
-    n = write_predictions_to_db(input_db, out_db, trainer.predict(loader))
+    if dist.is_main():
+        n = write_predictions_to_db(input_db, out_db, trainer.predict(loader))
+    else:  # its share of every batch, gathered to rank 0, which writes
+        for _ in trainer.predict(loader):
+            pass
+        n = 0
+    dist.barrier()
     seconds = time.perf_counter() - t0
     logger.info("wrote %d prediction rows to %s", n, out_db)
     return {"rows": n, "batches": len(loader), "seconds": seconds}

@@ -9,6 +9,7 @@ from nabladft_tpu_torch.train.loggers import (  # noqa: F401
     CSVLogger,
     Logger,
     MultiLogger,
+    NullLogger,
     StdoutLogger,
     TensorBoardLogger,
     WandbLogger,

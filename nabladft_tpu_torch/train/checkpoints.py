@@ -10,7 +10,9 @@ also reads the JAX package's checkpoints (its `CheckpointManager` writes a
 flax TrainState with ``flax.serialization.to_bytes``): `load_flax_state`
 returns that TrainState as a dict of numpy trees, which the Trainer and the
 optimize job map onto the module and its optimizer. The aux files are the
-same JSON in both packages.
+same JSON in both packages. Under data parallelism every rank keeps the
+index, rank 0 alone writes the files, and every rank waits for them
+(a barrier) before it goes on.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from nabladft_tpu_torch.parallel import dist
 from nabladft_tpu_torch.utils import msgpack
 
 
@@ -77,16 +80,20 @@ class CheckpointManager:
         if self._index_path.exists():
             self._index = json.loads(self._index_path.read_text())
 
-    def _write_index(self) -> None:
-        self._index_path.write_text(json.dumps(self._index, indent=1))
-
     def save(self, state: Dict[str, Any], step: int, metrics: Dict[str, float],
              aux: Optional[Dict[str, Any]] = None) -> None:
         """`aux` carries host-side scheduler state (plateau counters)."""
+        try:
+            self._save(state, step, metrics, aux, write=dist.is_main())
+        finally:
+            dist.barrier()
+
+    def _save(self, state, step, metrics, aux, write: bool) -> None:
         last_path = self.dir / "last.ckpt"
-        torch.save(state, last_path)
-        if aux is not None:
-            (self.dir / "last.ckpt.aux.json").write_text(json.dumps(aux))
+        if write:
+            torch.save(state, last_path)
+            if aux is not None:
+                (self.dir / "last.ckpt.aux.json").write_text(json.dumps(aux))
         self._index["last"] = {"path": last_path.name, "step": step, "metrics": metrics}
 
         score = metrics.get(self.monitor)
@@ -97,11 +104,11 @@ class CheckpointManager:
             best.append(entry)
             best.sort(key=lambda e: e["score"], reverse=self.mode == "max")
             keep, drop = best[: self.top_k], best[self.top_k :]
-            if entry in keep:
+            if write and entry in keep:
                 torch.save(state, self.dir / entry["path"])
                 if aux is not None:
                     (self.dir / (entry["path"] + ".aux.json")).write_text(json.dumps(aux))
-            for e in drop:
+            for e in drop if write else ():
                 p = self.dir / e["path"]
                 if p.exists() and e["path"] != entry["path"]:
                     p.unlink()
@@ -109,7 +116,8 @@ class CheckpointManager:
                     if paux.exists():
                         paux.unlink()
             self._index["best"] = keep
-        self._write_index()
+        if write:
+            self._index_path.write_text(json.dumps(self._index, indent=1))
 
     def read_aux(self, path: Optional[Path] = None) -> Optional[Dict[str, Any]]:
         """Host-side scheduler state saved alongside a checkpoint, if any."""

@@ -28,6 +28,19 @@ Force-loss gradients for models with F = -∂E/∂pos (``force_grads``):
   * ``pallas``    — the surrogate on a fused model: the force pass runs
     the first-order kernels with no weight gradient (PaiNN's A and B,
     SchNet's E and F), the dual pass the dual kernels (C and D; G and H).
+
+Data parallelism (`n_dp`, over a torch.distributed group; `parallel.dist`):
+every rank walks the same seeded loader and takes its share of each global
+batch's molecules; the losses and metrics are built from sums and counts
+added over the ranks, so each rank's loss is the global batch's and its
+gradient that rank's share of the global gradient; after the backward the
+gradients are summed over the ranks in one flat buffer per dtype, and only
+then come the norm, the skip guard, the clip and the optimizer step, the
+same on every rank (the DDP wrapper is not used: the force losses run a
+double backward or two forwards before one backward, which its reducer does
+not expect). Weights start from rank 0's; rank 0 writes checkpoints and
+logs; `predict` gathers each batch's rows to rank 0 in global order. A
+world of one runs as before, to the bit.
 """
 
 from __future__ import annotations
@@ -48,12 +61,13 @@ from torch import nn
 from nabladft_tpu_torch.data.batch import MolBatch
 from nabladft_tpu_torch.models.base import ModelOutput, forward
 from nabladft_tpu_torch.models.convert import flax_params_of, flax_tensors, load_flax_params
+from nabladft_tpu_torch.parallel import dist
 from nabladft_tpu_torch.train import losses as losses_lib
 from nabladft_tpu_torch.train import profiling
 from nabladft_tpu_torch.train.checkpoints import (
     CheckpointManager, is_flax_state, load_state, read_aux,
 )
-from nabladft_tpu_torch.train.loggers import Logger, StdoutLogger
+from nabladft_tpu_torch.train.loggers import Logger, NullLogger, StdoutLogger
 from nabladft_tpu_torch.train.metrics import MetricAccumulator, batch_metric_sums
 from nabladft_tpu_torch.train.schedulers import Lookahead, PlateauState, build_schedule
 from nabladft_tpu_torch.train.state import (
@@ -73,8 +87,10 @@ def seeded_generator(seed: int) -> torch.Generator:
 
 @dataclass
 class TrainerConfig:
-    """The JAX package's fields and defaults. Not ported yet, and raising
-    when set: n_dp > 1. `lookahead_k` > 0 wraps the optimizer in
+    """The JAX package's fields and defaults. n_dp: the data-parallel width,
+    None for the process group's world size (JAX: every device); a set value
+    must equal the world size, which the launcher sets (`parallel.dist`).
+    `lookahead_k` > 0 wraps the optimizer in
     `Lookahead`. fit_scale_factors / scale_fit_batches concern models with
     fitted scale factors (GemNet-OC); total_steps only the step-indexed
     schedules (linear, polynomial, cosine, multistep). profile_dir: a
@@ -129,21 +145,18 @@ class TrainerConfig:
     restore_best_for_test: bool = True
 
 
-def _check_ported(cfg: TrainerConfig) -> None:
-    if (cfg.n_dp or 1) > 1:
-        raise NotImplementedError("TrainerConfig n_dp > 1 (ROADMAP queue 1: multi-GPU data "
-                                  "parallelism) is not ported yet")
-
-
 class Trainer:
-    """fit / validate / test / predict over a model on one device."""
+    """fit / validate / test / predict over a model on one device, or one
+    card per rank of a process group (`n_dp`)."""
 
     def __init__(self, model: nn.Module, device=None, config: Optional[TrainerConfig] = None,
                  loggers: Optional[Logger] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg = config or TrainerConfig()
-        _check_ported(cfg)
+        self.world = dist.check_n_dp(cfg.n_dp)
+        # every rank starts from rank 0's weights
+        dist.broadcast_tensors(list(model.parameters()))
         # a step-indexed schedule sets each update's rate from the count of
         # applied updates (optax.inject_hyperparams' count); None for
         # constant / plateau
@@ -157,7 +170,7 @@ class Trainer:
             raise ValueError(f"force_grads must be one of {FORCE_GRADS}, got {cfg.force_grads!r}")
         if self._force_grads == "pallas" and getattr(model, "use_pallas", "off") != "fused":
             raise ValueError("force_grads='pallas' needs a model built with use_pallas='fused'")
-        self.loggers = loggers or StdoutLogger()
+        self.loggers = (loggers or StdoutLogger()) if dist.is_main() else NullLogger()
         self.plateau = PlateauState(factor=cfg.plateau_factor, patience=cfg.plateau_patience,
                                     min_lr=cfg.plateau_min_lr)
         # fitted scale factors take a gradient but no optimizer step
@@ -174,7 +187,8 @@ class Trainer:
         # the schedule's count, as the optax states that the JAX guard reverts
         self.applied = 0
         # train-mode dropout (EquiformerV2) draws from a generator seeded from
-        # cfg.seed and the step, as the JAX engine folds the step into its key
+        # cfg.seed and the step, as the JAX engine folds the step into its key,
+        # and under data parallelism the rank (each draws for other molecules)
         self._dropout_gen = (torch.Generator(device=self.device)
                              if hasattr(model, "dropout_generator") else None)
         self._lr = cfg.lr  # the plateau-driven rate, before warmup
@@ -229,8 +243,8 @@ class Trainer:
                                            max_errors=cfg.loss_max_errors)
         forces = out["forces"].requires_grad_(True)
         with torch.enable_grad():
-            f_loss = losses_lib.LOSS_FNS[f"forces_{cfg.loss_specs['forces']}"](
-                forces, batch.forces, batch.node_mask)
+            f_loss = losses_lib.global_loss(f"forces_{cfg.loss_specs['forces']}",
+                                            forces, batch.forces, batch.node_mask)
             (w,) = torch.autograd.grad(cfg.loss_coefs.get("forces", 1.0) * f_loss, forces)
         w = w * batch.node_mask[..., None]
         non_force = {k: v for k, v in cfg.loss_specs.items() if k != "forces"}
@@ -244,13 +258,15 @@ class Trainer:
         (other["total"] - e_tangent).backward()
         return {k: v.detach() for k, v in losses.items()}
 
-    def _train_step(self, batch: MolBatch) -> Dict[str, Any]:
-        """One optimizer step; skipped (optimizer state untouched) when the
-        gradient norm or the loss is not finite."""
+    def _step_grads(self, batch: MolBatch) -> Dict[str, torch.Tensor]:
+        """Each parameter's .grad: the gradient of the global batch's loss,
+        of which `batch` is this rank's share (summed over the ranks);
+        returns the detached losses."""
         cfg = self.cfg
         if self._dropout_gen is not None:
+            key = [cfg.seed, self.step] + ([dist.rank()] if self.world > 1 else [])
             self._dropout_gen.manual_seed(
-                int(np.random.SeedSequence([cfg.seed, self.step]).generate_state(1)[0]))
+                int(np.random.SeedSequence(key).generate_state(1)[0]))
             self.model.dropout_generator = self._dropout_gen
         losses = self._compute_grads(batch)
         # a parameter the loss does not reach gets a zero gradient, as in
@@ -258,6 +274,15 @@ class Trainer:
         for p in self._params():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        dist.all_reduce_grads([p.grad for p in self._params()])
+        return losses
+
+    def _train_step(self, batch: MolBatch) -> Dict[str, Any]:
+        """One optimizer step on this rank's share of a global batch;
+        skipped (optimizer state untouched) when the gradient norm or the
+        loss is not finite."""
+        cfg = self.cfg
+        losses = self._step_grads(batch)
         grads = [p.grad for p in self._params()]
         gnorm = (torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
                  if grads else torch.zeros((), device=self.device))
@@ -316,11 +341,11 @@ class Trainer:
         acc = MetricAccumulator()
         loss_sum, n_batches = 0.0, 0
         for batch in loader:
-            sums = self._eval_step(batch.to(self.device))
+            sums = self._eval_step(dist.shard_batch(batch).to(self.device))
             loss_sum += float(sums.pop("loss_sum"))
             n_batches += 1
             acc.update(sums)
-        metrics = {f"{prefix}/{k}": v for k, v in acc.compute().items()}
+        metrics = {f"{prefix}/{k}": v for k, v in acc.compute(self.device).items()}
         if n_batches:
             metrics[f"{prefix}/loss"] = loss_sum / n_batches
         return metrics
@@ -334,14 +359,20 @@ class Trainer:
 
     def predict(self, loader: Iterable[MolBatch]) -> Iterator[Dict[str, np.ndarray]]:
         """Yields per-batch host outputs with padding molecules removed, plus
-        `mol_id` and `n_atoms`."""
+        `mol_id` and `n_atoms`. Under data parallelism each rank predicts its
+        share and rank 0 yields the global batch's rows in their order; the
+        other ranks yield nothing (but must run the loop to its end)."""
         for batch in loader:
-            out = self._predict_step(batch.to(self.device))
-            keep = batch.graph_mask.numpy()
+            local = dist.shard_batch(batch)
+            out = self._predict_step(local.to(self.device))
+            keep = local.graph_mask.numpy()
             host = {name: t.cpu().numpy()[keep] for name, t in out.items()}
-            host["mol_id"] = batch.mol_id.numpy()[keep]
-            host["n_atoms"] = batch.n_atoms.numpy()[keep]
-            yield host
+            host["mol_id"] = local.mol_id.numpy()[keep]
+            host["n_atoms"] = local.n_atoms.numpy()[keep]
+            parts = dist.gather_to_main(host)
+            if parts is not None:
+                yield parts[0] if len(parts) == 1 else {
+                    k: np.concatenate([p[k] for p in parts]) for k in host}
 
     # -- state ---------------------------------------------------------------
 
@@ -372,6 +403,7 @@ class Trainer:
                 p = aux["plateau"]
                 self.plateau.best, self.plateau.bad_epochs = p["best"], p["bad_epochs"]
                 self.plateau.multiplier = p["multiplier"]
+        self._sync_weights()
         logger.info("loaded checkpoint %s (step %d)", path, int(state.get("step", 0)))
 
     def _load_flax_state(self, state: Dict[str, Any], resume: bool) -> None:
@@ -433,6 +465,11 @@ class Trainer:
         self._lr = float(inject["hyperparams"]["learning_rate"])
         set_learning_rate(self.optimizer, self._lr)
 
+    def _sync_weights(self) -> None:
+        """Rank 0's parameters (and EMA) on every rank."""
+        dist.broadcast_tensors(list(self.model.parameters())
+                               + (list(self.ema.values()) if self.ema is not None else []))
+
     def _ckpt_aux(self) -> Optional[Dict[str, Any]]:
         if self.cfg.schedule != "plateau":
             return None
@@ -470,12 +507,15 @@ class Trainer:
     def _fit_scales(self, train_loader) -> None:
         """Fit the scale factors from the first `scale_fit_batches` batches
         of one extra pass over the train loader (which advances its epoch,
-        as the JAX engine's does)."""
+        as the JAX engine's does). Every rank fits on the same whole global
+        batches, as JAX fits unsharded; rank 0's scales are then every
+        rank's, so sums in another order on another card cannot part them."""
         from nabladft_tpu_torch.models.gemnet_oc import fit_scale_factors
 
         batches = list(itertools.islice(train_loader, self.cfg.scale_fit_batches))
         logger.info("fitting scale factors from %d batches", len(batches))
         fit_scale_factors(self.model, batches)
+        self._sync_weights()
 
     def fit(self, datamodule, ckpt_path: Optional[str] = None) -> Dict[str, float]:
         """Train; returns the last validation metrics."""
@@ -491,7 +531,9 @@ class Trainer:
                 self.device, getattr(self.model, "cdt", torch.float32))
             if self.peak_flops:
                 logger.info("measured peak: %.4e FLOP/s", self.peak_flops)
-        with profiling.trace(cfg.profile_dir) if cfg.profile_dir else contextlib.nullcontext():
+        trace_name = "trace.json" if self.world == 1 else f"trace_rank{dist.rank()}.json"
+        with (profiling.trace(cfg.profile_dir, trace_name) if cfg.profile_dir
+              else contextlib.nullcontext()):
             return self._fit_loop(datamodule, train_loader)
 
     def _fit_loop(self, datamodule, train_loader) -> Dict[str, float]:
@@ -504,11 +546,15 @@ class Trainer:
         for epoch in range(cfg.max_epochs):
             for batch in train_loader:
                 mols += int(batch.graph_mask.sum())
+                local = dist.shard_batch(batch).to(self.device)
                 if cfg.log_mfu and self.step_flops is None:
-                    (self.step_flops, self.kernel_flops), metrics = profiling.step_flops(
-                        self._train_step, batch.to(self.device))
+                    flops, metrics = profiling.step_flops(self._train_step, local)
+                    # the global step's FLOPs, held against world x the peak
+                    self.step_flops, self.kernel_flops = map(float, dist.all_reduce_sums(
+                        [torch.tensor(f, dtype=torch.float64, device=self.device)
+                         for f in flops]))
                 else:
-                    metrics = self._train_step(batch.to(self.device))
+                    metrics = self._train_step(local)
                 step = self.step
                 if step % cfg.log_every_n_steps == 0:
                     now = time.perf_counter()
@@ -518,7 +564,7 @@ class Trainer:
                     host["mols_per_sec"] = mols / max(now - t_last, 1e-9)
                     if self.step_flops:
                         u = profiling.mfu(self.step_flops, 1.0 / host["steps_per_sec"],
-                                          self.peak_flops)
+                                          self.peak_flops, self.world)
                         if u is not None:
                             host["mfu"] = u
                     host["lr"] = current_learning_rate(self.optimizer)
@@ -539,7 +585,8 @@ class Trainer:
                 if cfg.max_steps and step >= cfg.max_steps:
                     stop = True
                     break
-                if cfg.max_seconds and time.perf_counter() - t_fit0 > cfg.max_seconds:
+                if cfg.max_seconds and dist.any_rank(
+                        time.perf_counter() - t_fit0 > cfg.max_seconds, self.device):
                     logger.info("stopping: max_seconds %.0f reached", cfg.max_seconds)
                     stop = True
                     break

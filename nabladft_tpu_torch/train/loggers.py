@@ -2,6 +2,8 @@
 the optional Wandb and TensorBoard backends (``wandb.enable`` /
 ``tensorboard.enable`` in a config), each importing its package only when
 built. Metric names, steps and histogram tags are the JAX package's.
+Under data parallelism only rank 0 logs (`pipelines.build_trainer` builds
+the backends there alone; the Trainer gives other ranks a `NullLogger`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,13 @@ class Logger:
         arrays, `convert.flax_params_of`); only TensorBoard renders them."""
 
     def finalize(self) -> None:
+        pass
+
+
+class NullLogger(Logger):
+    """Logs nothing: the loggers of every rank but 0 under data parallelism."""
+
+    def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
         pass
 
 

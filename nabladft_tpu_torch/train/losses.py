@@ -11,13 +11,29 @@
 Every function reduces over real elements only and returns a scalar;
 `multitask_loss` combines them with weights and the optional max-error gate;
 a matrix target the batch does not carry raises ValueError.
+
+Each loss is built from sums over real elements and their count (`SUMS`).
+Under data parallelism (`parallel.dist`, a world of more than one rank)
+each rank holds a shard of the global batch, and `multitask_loss` /
+`global_loss` add those sums and counts over the ranks (one collective,
+without gradient), so that (a) the value is the global batch's loss on
+every rank, and (b) the parameter gradients, summed over the ranks, are the
+gradient of that loss, as JAX's jit over a dp-sharded batch computes. The
+value is the global one, the gradient that of the rank's own share: the
+sums that are linear in the predictions over the global count, and for
+RMSE + MAE S_r / (2 n sqrt(S / n + eps)) + A_r / n with the global S, whose
+gradients add up to that of sqrt(S / n + eps) + A / n. The max-error gate
+compares the global MAE. In a world of one the losses are computed as
+before, to the bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from nabladft_tpu_torch.parallel import dist
 
 _EPS = 1e-12
 
@@ -26,43 +42,106 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return num / torch.clamp(den, min=1.0)
 
 
+def _masked(err, mask):
+    return torch.where(mask, err, torch.zeros_like(err))
+
+
+# each loss's sums over real elements, its count last
+def _energy_l1_sums(pred, target, graph_mask):
+    return _masked(torch.abs(pred - target), graph_mask).sum(), graph_mask.sum()
+
+
+def _energy_mse_sums(pred, target, graph_mask):
+    return _masked((pred - target) ** 2, graph_mask).sum(), graph_mask.sum()
+
+
+def _forces_l1_sums(pred, target, node_mask):
+    return (torch.abs(pred - target) * node_mask[..., None]).sum(), 3.0 * node_mask.sum()
+
+
+def _forces_mse_sums(pred, target, node_mask):
+    return ((pred - target) ** 2 * node_mask[..., None]).sum(), 3.0 * node_mask.sum()
+
+
+def _forces_l2norm_sums(pred, target, node_mask):
+    norm = torch.sqrt(((pred - target) ** 2).sum(dim=-1) + _EPS)
+    return _masked(norm, node_mask).sum(), node_mask.sum()
+
+
+def _matrix_rmse_mae_sums(pred, target, pair_mask):
+    diff = _masked(pred - target, pair_mask)
+    return (diff * diff).sum(), diff.abs().sum(), pair_mask.sum()
+
+
+def _matrix_mae_sums(pred, target, pair_mask):
+    return _masked(pred - target, pair_mask).abs().sum(), pair_mask.sum()
+
+
+def _rmse_mae(sq, ab, n):
+    n = torch.clamp(n, min=1.0)
+    return torch.sqrt(sq / n + _EPS) + ab / n
+
+
+def _rmse_mae_share(local, glob):
+    """A rank's share of RMSE + MAE: its gradient is that of the global
+    loss with respect to the rank's predictions."""
+    (sq_r, ab_r, _), (sq, _, n) = local, glob
+    n = torch.clamp(n, min=1.0)
+    return sq_r / (2.0 * n * torch.sqrt(sq / n + _EPS)) + ab_r / n
+
+
+def _mean_share(local, glob):
+    return _safe_div(local[0], glob[-1])
+
+
+SUMS: Dict[str, Callable] = {
+    "energy_l1": _energy_l1_sums,
+    "energy_mse": _energy_mse_sums,
+    "forces_l1": _forces_l1_sums,
+    "forces_mse": _forces_mse_sums,
+    "forces_l2norm": _forces_l2norm_sums,
+    "matrix_rmse_mae": _matrix_rmse_mae_sums,
+    "matrix_mae": _matrix_mae_sums,
+}
+
+
+def _value(name: str, sums: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    return _rmse_mae(*sums) if name == "matrix_rmse_mae" else _safe_div(*sums)
+
+
+def _share(name: str, local, glob) -> torch.Tensor:
+    return (_rmse_mae_share if name == "matrix_rmse_mae" else _mean_share)(local, glob)
+
+
 def energy_l1(pred, target, graph_mask) -> torch.Tensor:
-    err = torch.abs(pred - target)
-    return _safe_div(torch.where(graph_mask, err, torch.zeros_like(err)).sum(), graph_mask.sum())
+    return _value("energy_l1", _energy_l1_sums(pred, target, graph_mask))
 
 
 def energy_mse(pred, target, graph_mask) -> torch.Tensor:
-    err = (pred - target) ** 2
-    return _safe_div(torch.where(graph_mask, err, torch.zeros_like(err)).sum(), graph_mask.sum())
+    return _value("energy_mse", _energy_mse_sums(pred, target, graph_mask))
 
 
 def forces_l1(pred, target, node_mask) -> torch.Tensor:
     """Component-wise MAE over real atoms (torch.nn.L1Loss semantics)."""
-    err = torch.abs(pred - target) * node_mask[..., None]
-    return _safe_div(err.sum(), 3.0 * node_mask.sum())
+    return _value("forces_l1", _forces_l1_sums(pred, target, node_mask))
 
 
 def forces_mse(pred, target, node_mask) -> torch.Tensor:
-    err = (pred - target) ** 2 * node_mask[..., None]
-    return _safe_div(err.sum(), 3.0 * node_mask.sum())
+    return _value("forces_mse", _forces_mse_sums(pred, target, node_mask))
 
 
 def forces_l2norm(pred, target, node_mask) -> torch.Tensor:
     """Per-atom error-vector 2-norm, averaged over real atoms."""
-    norm = torch.sqrt(((pred - target) ** 2).sum(dim=-1) + _EPS)
-    return _safe_div(torch.where(node_mask, norm, torch.zeros_like(norm)).sum(), node_mask.sum())
+    return _value("forces_l2norm", _forces_l2norm_sums(pred, target, node_mask))
 
 
 def matrix_rmse_mae(pred, target, pair_mask) -> torch.Tensor:
     """RMSE + MAE over masked matrix entries (qhnet/loss.py:5-16)."""
-    diff = torch.where(pair_mask, pred - target, torch.zeros_like(pred))
-    n = torch.clamp(pair_mask.sum(), min=1.0)
-    return torch.sqrt((diff * diff).sum() / n + _EPS) + diff.abs().sum() / n
+    return _value("matrix_rmse_mae", _matrix_rmse_mae_sums(pred, target, pair_mask))
 
 
 def matrix_mae(pred, target, pair_mask) -> torch.Tensor:
-    diff = torch.where(pair_mask, pred - target, torch.zeros_like(pred))
-    return diff.abs().sum() / torch.clamp(pair_mask.sum(), min=1.0)
+    return _value("matrix_mae", _matrix_mae_sums(pred, target, pair_mask))
 
 
 def block_target_matrix(target_mat, idx, valid, graph_mask):
@@ -100,6 +179,26 @@ LOSS_FNS = {
 }
 
 
+def _shared(names, local):
+    """Each loss's value from its sums over the world (see the module
+    docstring): the plain value in a world of one."""
+    if dist.world_size() == 1:
+        return [_value(n, sums) for n, sums in zip(names, local)]
+    flat = dist.all_reduce_sums([t for sums in local for t in sums])
+    out = []
+    for n, sums in zip(names, local):
+        glob, flat = tuple(flat[:len(sums)]), flat[len(sums):]
+        share = _share(n, sums, glob)
+        out.append(_value(n, glob) + (share - share.detach()))
+    return out
+
+
+def global_loss(name: str, pred, target, mask) -> torch.Tensor:
+    """`LOSS_FNS[name]` of the global batch, of which this rank holds a
+    shard (the plain loss in a world of one)."""
+    return _shared([name], [SUMS[name](pred, target, mask)])[0]
+
+
 def multitask_loss(
     out: Dict[str, torch.Tensor],
     batch,
@@ -112,15 +211,15 @@ def multitask_loss(
     loss_specs: target -> loss kind, e.g. {"energy": "l1", "forces": "l2norm"}.
     max_errors: optional per-target MAE clamp: a target whose batch MAE
     exceeds its clamp adds nothing to the total this step (its value is
-    still reported).
+    still reported). Under data parallelism every value, and the gate, is
+    the global batch's (one collective for all of them).
     """
-    losses: Dict[str, torch.Tensor] = {}
-    total = 0.0
+    names, local, coefs = [], [], []
     for target, kind in loss_specs.items():
         if target == "energy":
-            pred, tgt, mask, l1 = out["energy"], batch.energy, batch.graph_mask, energy_l1
+            pred, tgt, mask, l1 = out["energy"], batch.energy, batch.graph_mask, "energy_l1"
         elif target == "forces":
-            pred, tgt, mask, l1 = out["forces"], batch.forces, batch.node_mask, forces_l1
+            pred, tgt, mask, l1 = out["forces"], batch.forces, batch.node_mask, "forces_l1"
         elif target in ("hamiltonian", "overlap", "core"):
             if getattr(batch, target, None) is None:
                 raise ValueError(
@@ -128,16 +227,27 @@ def multitask_loss(
                     f"datamodule does not read it from the database (the Hamiltonian dataset "
                     f"reads the core matrix only when built with include_core=True, which "
                     f"the pipeline's datamodule never asks for); drop {target!r} from loss_specs")
-            (pred, tgt, mask), l1 = matrix_target(out, batch, target), matrix_mae
+            (pred, tgt, mask), l1 = matrix_target(out, batch, target), "matrix_mae"
         else:
             raise KeyError(f"unknown loss target {target!r}")
         family = "matrix" if target in ("hamiltonian", "overlap", "core") else target
-        val = LOSS_FNS[f"{family}_{kind}"](pred, tgt, mask)
-        losses[target] = val
-        coef = loss_coefs.get(target, 1.0)
+        name = f"{family}_{kind}"
+        if name not in LOSS_FNS:
+            raise KeyError(name)
+        names.append(name)
+        local.append(SUMS[name](pred, tgt, mask))
+        coefs.append(loss_coefs.get(target, 1.0))
+        if max_errors and target in max_errors:
+            names.append(l1)
+            local.append(tuple(t.detach() for t in SUMS[l1](pred, tgt, mask)))
+    values = iter(_shared(names, local))
+    losses: Dict[str, torch.Tensor] = {}
+    total = 0.0
+    for target, coef in zip(loss_specs, coefs):
+        val = losses[target] = next(values)
         if max_errors and target in max_errors:
             # hard gate, no gradient through the comparison
-            gate = (l1(pred, tgt, mask) <= max_errors[target]).to(val.dtype).detach()
+            gate = (next(values) <= max_errors[target]).to(val.dtype).detach()
             total = total + coef * gate * val
         else:
             total = total + coef * val

@@ -3,6 +3,8 @@
 Each eval step returns per-batch absolute-error sums and element counts;
 the host adds them up and `compute()` divides once at epoch end: a mean over
 all elements, not a mean of batch means (torchmetrics' "global" averaging).
+Under data parallelism `compute()` first adds every rank's sums and counts
+(one collective), so each rank reads the global batch's metrics.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from nabladft_tpu_torch.parallel import dist
 from nabladft_tpu_torch.train.losses import matrix_target
 
 
@@ -47,10 +50,17 @@ class MetricAccumulator:
         for k, v in sums.items():
             self._sums[k] = self._sums.get(k, 0.0) + float(v)
 
-    def compute(self) -> Dict[str, float]:
+    def compute(self, device=None) -> Dict[str, float]:
+        """The metrics over every rank's sums; `device` carries the
+        collective (the process group's: the card under nccl)."""
+        sums = self._sums
+        if dist.world_size() > 1:
+            keys = sorted(sums)
+            sums = dict(zip(keys, map(float, dist.all_reduce_sums(
+                [torch.tensor(sums[k], dtype=torch.float64, device=device) for k in keys]))))
         out = {}
-        for k, v in self._sums.items():
+        for k, v in sums.items():
             if k.endswith("/abs_sum"):
                 target = k[: -len("/abs_sum")]
-                out[f"{target}/mae"] = v / max(self._sums.get(f"{target}/count", 0.0), 1.0)
+                out[f"{target}/mae"] = v / max(sums.get(f"{target}/count", 0.0), 1.0)
         return out

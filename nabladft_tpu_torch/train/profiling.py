@@ -3,7 +3,8 @@
   * `trace(log_dir)`: a `torch.profiler` trace of the enclosed block (CPU and,
     where there is a card, CUDA activity), written as a Chrome trace
     (`trace.json`) under `log_dir`; it needs no `tensorboard` package. The
-    Trainer runs its train loop inside it with TrainerConfig.profile_dir.
+    Trainer runs its train loop inside it with TrainerConfig.profile_dir
+    (under data parallelism one trace a rank, `trace_rank<r>.json`).
   * `step_flops(fn, *args)`: the FLOPs one call performs (the JAX package
     asks XLA's cost analysis): `torch.utils.flop_counter.FlopCounterMode`
     over the ATen operators it runs, plus the hand-written kernels' own FLOP
@@ -12,7 +13,8 @@
   * `measured_peak_flops(device, dtype)`: the dense-matmul rate of the card in
     this process, timed with CUDA events (no table of data-sheet peaks); None
     off the card, where no mfu is logged.
-  * `mfu(flops_per_step, step_time, peak_flops)`: model FLOPs utilisation.
+  * `mfu(flops_per_step, step_time, peak_flops, n_devices)`: model FLOPs
+    utilisation (the global step's FLOPs over the devices' summed peak).
 """
 
 from __future__ import annotations
@@ -64,9 +66,9 @@ def mfu(flops_per_step: float, step_time_s: float, peak_flops: float,
 
 
 @contextlib.contextmanager
-def trace(log_dir):
+def trace(log_dir, name: str = "trace.json"):
     """Profile the enclosed block; its Chrome trace lands in
-    `log_dir`/trace.json when the block ends (also by an exception)."""
+    `log_dir`/`name` when the block ends (also by an exception)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -78,7 +80,7 @@ def trace(log_dir):
         yield prof
     finally:
         prof.stop()
-        prof.export_chrome_trace(str(log_dir / "trace.json"))
+        prof.export_chrome_trace(str(log_dir / name))
 
 
 class StepTimer:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -9,12 +10,15 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
-    another. Raises when no CUDA device is present and none was named —
-    nothing silently carries on on the CPU."""
+    another; under a launcher (``torchrun`` sets ``LOCAL_RANK``) the rank's
+    own card, ``cuda:LOCAL_RANK``. Raises when no CUDA device is present and
+    none was named — nothing silently carries on on the CPU."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
+    if "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")

@@ -9,12 +9,24 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from nabladft_tpu.data import ase_codec as jax_codec
 from nabladft_tpu.data import dataset as jax_dataset
 from nabladft_tpu_torch.data import dataset as torch_dataset
 from nabladft_tpu_torch.data.ase_codec import AseDatabase
 from nabladft_tpu_torch.data.synthetic import write_random_db
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FIELDS = ("z", "pos", "node_mask", "graph_mask", "energy", "forces", "mol_id")
 BUCKETS = (16, 32, 40)

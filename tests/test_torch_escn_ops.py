@@ -26,6 +26,17 @@ from nabladft_tpu.ops.pallas import escn_layer as JK
 from nabladft_tpu_torch.ops import escn_layer as el
 from nabladft_tpu_torch.ops import graph, radial, so3
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 L, M, NG = 6, 2, 98
 TOL = dict(rtol=1e-6, atol=1e-6)
 TABLE = dict(rtol=0.0, atol=1e-12)

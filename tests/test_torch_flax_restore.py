@@ -30,6 +30,7 @@ import torch
 from nabladft_tpu.data.batch import MolBatch as JaxBatch
 from nabladft_tpu.models import create_model as jax_create_model
 from nabladft_tpu.models.base import forward as jax_forward
+from nabladft_tpu.parallel.mesh import replicated
 from nabladft_tpu.train import Trainer as JaxTrainer, TrainerConfig as JaxConfig
 from nabladft_tpu_torch.models import create_model
 from nabladft_tpu_torch.train import Trainer, TrainerConfig
@@ -55,6 +56,7 @@ def jax_run(tmp_path_factory):
     jt = JaxTrainer(jax_create_model("painn", **KW, remat=False),
                     JaxConfig(n_dp=1, ckpt_dir=str(d), **CFG))
     jt.init_state(JaxBatch(**_arrays(0)))
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
     state = jt.state
     for seed in (0, 1, 2):
         state, _ = jt._jit_train_step(state, JaxBatch(**_arrays(seed)))
@@ -148,7 +150,9 @@ def optimizer_run(request, tmp_path_factory):
     assert (jax.tree_util.tree_structure(abstract) == jax.tree_util.tree_structure(params)
             and [a.shape for a in jax.tree_util.tree_leaves(abstract)]
             == [np.shape(x) for x in jax.tree_util.tree_leaves(params)])
-    state = jt.state = TrainState.create(params, jt.tx, ema=False)
+    jt.state = TrainState.create(params, jt.tx, ema=False)
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
+    state = jt.state
     for seed in (0, 1):
         state, _ = jt._jit_train_step(state, JaxBatch(**_arrays(seed)))
     jt.ckpt.save(state, 2, {"val/loss": 1.0}, aux=jt._ckpt_aux())

@@ -34,6 +34,7 @@ from nabladft_tpu.data.batch import MolBatch as JaxBatch
 from nabladft_tpu.models import create_model as jax_create_model
 from nabladft_tpu.models.gemnet_oc import fit_scale_factors as jax_fit_scale_factors
 from nabladft_tpu.ops import graph as jax_graph
+from nabladft_tpu.parallel.mesh import replicated
 from nabladft_tpu.train import Trainer as JaxTrainer, TrainerConfig as JaxConfig
 from nabladft_tpu.train.losses import multitask_loss as jax_multitask_loss
 from nabladft_tpu.train.state import TrainState as JaxTrainState
@@ -283,6 +284,7 @@ def test_trainer_fits_freezes_and_steps_as_jax(tmp_path, jax_ref, dtype):
         jt = JaxTrainer(jax_create_model("gemnet_oc", **KW, remat=False),
                         JaxConfig(n_dp=1, **cfg))
         jt.state = JaxTrainState.create(params0, jt.tx)  # fit then takes no batch for an init
+        jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
         jdm.train_dataloader = lambda: jax_loader
         jt.fit(jdm)
         assert jax_loader._epoch == 2

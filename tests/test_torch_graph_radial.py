@@ -17,6 +17,17 @@ from nabladft_tpu.ops import radial as jradial
 from nabladft_tpu_torch.ops import graph as tgraph
 from nabladft_tpu_torch.ops import radial as tradial
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-5, 1e-6
 CUTOFF = 5.0
 

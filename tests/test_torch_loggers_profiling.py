@@ -33,6 +33,17 @@ from nabladft_tpu_torch.ops import _kernels
 from nabladft_tpu_torch.train import loggers, profiling
 from tests.test_torch_train import _Toy, _toy_batches, _toy_trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CALLS = [({"train/total": 1.5, "grad_norm": 0.25, "lr": 1e-3}, 1),
          ({"train/total": 1.25, "grad_norm": 0.5, "lr": 1e-3}, 2),
          ({"val/loss": 0.75, "epoch": 0}, 2),

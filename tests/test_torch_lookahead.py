@@ -27,6 +27,7 @@ import torch
 
 from nabladft_tpu.data.batch import MolBatch as JaxBatch
 from nabladft_tpu.models import create_model as jax_create_model
+from nabladft_tpu.parallel.mesh import replicated
 from nabladft_tpu.train import Trainer as JaxTrainer, TrainerConfig as JaxConfig
 from nabladft_tpu.train.schedulers import LookaheadState, lookahead
 from nabladft_tpu.train.state import TrainState as JaxTrainState
@@ -88,6 +89,7 @@ def test_trainer_lookahead_skip_and_resume_match_jax(tmp_path):
     seq = [arrays, arrays, bad] + [arrays] * 4
     jt = JaxTrainer(jax_create_model("painn", **PAINN_KW, remat=False), JaxConfig(n_dp=1, **cfg))
     jt.init_state(JaxBatch(**arrays))
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
     params0 = jax.device_get(jt.state.params)
     state = jt.state
     for arrs in seq:
@@ -141,6 +143,7 @@ def test_phisnet_train_step_matches_jax():
                         for k, x in jax.tree_util.tree_flatten_with_path(t)[0]}
     assert shapes(tree) == shapes(dict(init))
     jt.state = JaxTrainState.create(tree, jt.tx, ema=True)
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
     params0 = jax.device_get(jt.state.params)
     state, jm = jt._jit_train_step(jt.state, jb)
     assert float(jm["grad_norm"]) > cfg["grad_clip"]  # the clip triggered

@@ -21,6 +21,16 @@ from nabladft_tpu_torch.train.checkpoints import load_flax_state, load_state
 from nabladft_tpu_torch.utils import msgpack
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _same(got, want, path="") -> None:
     """Leaf for leaf, equal bits (flax's own restore as the reference)."""
     if isinstance(want, dict):

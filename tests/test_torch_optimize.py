@@ -28,6 +28,17 @@ from nabladft_tpu_torch.utils.xyz import write_extxyz
 from tests.optimize.test_lbfgs import harmonic_ef as jax_harmonic
 from tests.optimize.test_lbfgs_stress import lj_ef as jax_lj
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C1, C2 = 0.23, 0.46  # the reference's "mt" calling convention
 # relaxation iterates, float32 in both packages: positions (Å), energies and
 # forces relative to their scale, after up to tens of steps

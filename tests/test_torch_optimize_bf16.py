@@ -47,6 +47,17 @@ from nabladft_tpu_torch.optimize.task import build_optimize_model
 from tests.test_torch_optimize_task import BUCKET, N_MOLS, SMALL, optim_config, write_optim_db
 from tests.test_torch_painn_bf16 import E_REL, F_REL, exact_jit
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STEPS = 2
 F_TOL_REL = F_REL["off"]
 POS_REL = F_TOL_REL  # of max |F| (Hartree/Å), in Å: see the module docstring

@@ -18,6 +18,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from nabladft_tpu import pipelines as jax_pipelines
 from nabladft_tpu.data.dataset import BucketedLoader as JaxLoader
@@ -28,6 +29,17 @@ from nabladft_tpu_torch import pipelines
 from nabladft_tpu_torch.config import load_config
 from nabladft_tpu_torch.data.ase_codec import AseDatabase, AtomsRecord
 from nabladft_tpu_torch.data.synthetic import random_molecule
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(hidden=16, n_interactions=2, n_rbf=8)

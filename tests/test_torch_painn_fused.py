@@ -21,6 +21,17 @@ import torch
 from nabladft_tpu.ops.pallas.painn_fused import painn_message as jax_painn_message
 from nabladft_tpu_torch.ops import painn_fused as tp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, A, R, F = 4, 8, 12, 16
 F3 = 3 * F
 DEAD_SENDER, PADDED, REAL_ATOMS = 5, 3, 5

@@ -16,12 +16,24 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from nabladft_tpu.data import download as jax_download
 from nabladft_tpu_torch import pipelines
 from nabladft_tpu_torch.data import download, registry
 from nabladft_tpu_torch.data.dataset import EnergyDataset, HamiltonianDataset
 from nabladft_tpu_torch.data.synthetic import write_random_db, write_random_hamiltonian_db
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -16,6 +16,7 @@ import torch
 
 from nabladft_tpu.data.batch import MolBatch as JaxBatch
 from nabladft_tpu.models import create_model as jax_create_model
+from nabladft_tpu.parallel.mesh import replicated
 from nabladft_tpu.train import Trainer as JaxTrainer, TrainerConfig as JaxConfig
 from nabladft_tpu.train.schedulers import build_schedule as jax_build_schedule
 from nabladft_tpu.train.state import current_learning_rate as jax_current_learning_rate
@@ -87,6 +88,7 @@ def test_trainer_rates_count_applied_updates_as_jax(kind):
            arrays, arrays, arrays]
     jt = JaxTrainer(jax_create_model("painn", **KW, remat=False), JaxConfig(n_dp=1, **cfg))
     jt.init_state(JaxBatch(**arrays))
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
     params0 = jax.device_get(jt.state.params)
     state, want = jt.state, []
     for arrs in seq:

@@ -25,6 +25,17 @@ from nabladft_tpu_torch.models import create_model, forward
 from nabladft_tpu_torch.models.convert import load_flax_params
 from nabladft_tpu_torch.train import Trainer, TrainerConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KW = dict(hidden=16, n_interactions=2, n_rbf=12, max_neighbors=7)
 E_TOL = dict(rtol=1e-5, atol=1e-5)
 F_TOL = dict(rtol=2e-4, atol=1e-5)

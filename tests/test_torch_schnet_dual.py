@@ -29,6 +29,17 @@ import torch
 from nabladft_tpu.ops.pallas.schnet_fused import schnet_dual as jax_schnet_dual
 from nabladft_tpu_torch.ops import schnet_fused as ts
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, A, R, F = 3, 8, 12, 16
 RC = 5.0
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -22,6 +22,17 @@ import torch
 from nabladft_tpu_torch.ops import eqv2_attn as ea
 from nabladft_tpu_torch.ops import escn_layer as el
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads would only contend with the
+    other test workers' (pytest-xdist). Restored after this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNEL_RTOL = 2e-5
 # (K, N) of P's conv-1 products at configs/equiformer_v2.yaml's widths (2C = 256, CO = 128)
 SHAPES = [(7 * 256, 7 * 128), (2 * 6 * 256, 6 * 128), (2 * 5 * 256, 5 * 128)]

@@ -23,6 +23,7 @@ import torch
 
 from nabladft_tpu.data.batch import MolBatch as JaxBatch
 from nabladft_tpu.models import create_model as jax_create_model
+from nabladft_tpu.parallel.mesh import replicated
 from nabladft_tpu.train import Trainer as JaxTrainer, TrainerConfig as JaxConfig
 from nabladft_tpu.train.schedulers import PlateauState as JaxPlateau
 from nabladft_tpu_torch.data.batch import MolBatch
@@ -173,6 +174,7 @@ def test_two_adamw_steps_with_clip_match_jax(arrays):
     jt = JaxTrainer(jax_create_model("painn", **KW, remat=False), JaxConfig(n_dp=1, **cfg))
     batch = JaxBatch(**arrays)
     jt.init_state(batch)
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
     params0 = jax.device_get(jt.state.params)
     state, jm = jt._jit_train_step(jt.state, batch)
     state, jm2 = jt._jit_train_step(state, batch)
@@ -331,13 +333,15 @@ def test_trainer_keeps_the_model_trainable_through_predict():
 
 
 @pytest.mark.parametrize("kw", [dict(n_dp=2), dict(log_mfu=True), dict(profile_dir="profile")])
-def test_unported_trainer_options_raise(kw, tmp_path, monkeypatch):
-    """n_dp > 1 is not ported and raises, naming it; profile_dir and log_mfu
-    are ported and build (tests/test_torch_loggers_profiling.py runs them)."""
+def test_trainer_options_build_and_n_dp_must_be_the_world_size(kw, tmp_path, monkeypatch):
+    """n_dp=2 with no process group of two ranks raises, naming both numbers
+    (the launcher sets the width; tests/test_torch_dp.py runs two ranks);
+    profile_dir and log_mfu build (tests/test_torch_loggers_profiling.py
+    runs them)."""
     monkeypatch.chdir(tmp_path)
     (key, value), = kw.items()
     if key == "n_dp":
-        with pytest.raises(NotImplementedError, match="multi-GPU data parallelism"):
+        with pytest.raises(ValueError, match="n_dp=2 but the process group has world size 1"):
             _toy_trainer(**kw)
     else:
         assert getattr(_toy_trainer(**kw).cfg, key) == value
@@ -384,6 +388,7 @@ def test_warmup_counts_applied_updates_as_jax(arrays):
     bad_arrays = dict(arrays, energy=np.full_like(arrays["energy"], np.nan))
     seq = [arrays, bad_arrays, arrays, arrays]
     jt.init_state(JaxBatch(**arrays))
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
     params0 = jax.device_get(jt.state.params)
     state = jt.state
     for arrs in seq:

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from nabladft_tpu import pipelines as jax_pipelines
+from nabladft_tpu.parallel.mesh import replicated
 from nabladft_tpu_torch import pipelines
 from nabladft_tpu_torch.config import load_config
 from nabladft_tpu_torch.data.synthetic import write_random_db
@@ -69,6 +70,7 @@ def runs(db):
     dm = jax_pipelines.build_datamodule(jcfg)
     jt = jax_pipelines.build_trainer(jcfg, dm)
     jt.init_state(next(iter(dm.val_dataloader())))
+    jt.state = jax.device_put(jt.state, replicated(jt.mesh))  # one trace of the step
     params = jax.device_get(jt.state.params)
     jax_val = jt.fit(dm)
     jax_test = jt.test(dm.test_dataloader())
