@@ -46,8 +46,9 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
                buckets 32/48/64, over one seeded DB of 256 molecules (8-62
                atoms, H C N O F S Cl); checks rows, finiteness, launch counts
                (the forward and backward kernel 6x per batch, the backward's
-               weight-gradient stage never), every batch against the CPU
-               plain path, rotation invariance / equivariance; molecules/s
+               weight-gradient stage never), the first PREDICT_CPU_MOLS
+               molecules of every batch against the CPU plain path, rotation
+               invariance / equivariance; molecules/s
                (median / min / max of PASSES passes after a warm-up pass); for
                PaiNN the share of live pairs (rbf_env row not zero) of the
                batches by bucket.
@@ -337,7 +338,41 @@ checkout; no network and no PyYAML. Phases, each printing one JSON line:
      painn_dp_nccl — the same over nccl, one rank a card on min(cards, 4)
                cards, when the machine has two or more; with one card the
                line says it did not run, and the card count.
-  13. timing — seconds of each phase; then one JSON object describing every
+  13. the multi-card dry run (`nabladft_tpu_torch/dryrun.py`, the counterpart
+     of __graft_entry__.py, at its "full" sizes: painn-oc, qhnet and phisnet
+     widths):
+     dryrun_gloo4 — four ranks (`spawn`) on the one card in a gloo group run
+               `dryrun_multichip(4)` once: a dp PaiNN train step, QHNet's
+               rmse_mae loss and gradients over a 2×2 dp×mp grid (the dense
+               Hamiltonian's orbital rows over mp), `lbfgs_relax` over the dp
+               group (4 steps), PhiSNet's H, S and core loss over the grid, a
+               dp fit of 8 epochs restored from its checkpoint; rank 0 prints
+               every phase's ok line and holds the grid's losses and
+               gradients against the unsharded ones. Against one process on
+               the same batches and weights (the dry run in a world of one):
+               the matrix losses and gradients within DRYRUN_LOSS_RTOL /
+               DRYRUN_GRAD_TREE / DRYRUN_GRAD_OWN, the relaxation's steps,
+               converged flags, positions (OPT_POS_ATOL) and energies
+               (E_TOL), the train step's loss and gradient norm and the
+               fit's first validation loss (DP_METRIC_RTOL), its losses
+               after 8 epochs and the restore (DRYRUN_FIT_RTOL), beside the
+               gaps one-process fits open when only the rows of each batch
+               are permuted or each step's gradients get noise of FIT_NOISE
+               x the largest |g| (`fit_witnesses`; all three fits' train
+               losses step by step against the one process's); each rank's
+               launches per phase: A-D
+               as the dp phases' for the train step and the fit (11
+               validations), A and B 6 per relaxation evaluation with B's gW
+               stage never, I-L as qhnet_train's per train step (remat),
+               none in PhiSNet's; then A-D and I-L against their plain
+               versions (KERNEL_RTOL) at every (B, A) the ranks' and the
+               one process's phases gave them (on four ranks A-D at 16/32,
+               8/32 and 4/8 a rank and 64/32, 32/32 and 16/8 in one
+               process, I-L at 4/32 and 8/32).
+     dryrun_nccl — the same over nccl, one rank a card on min(cards, 4)
+               cards (a 2×2 grid on four, 1×2 on two); with one card the
+               line says it did not run, and the card count.
+  14. timing — seconds of each phase; then one JSON object describing every
                ported kernel (A-P) with its launches on each path (0 on the
                paths of 8-10).
 Then the card's `nvidia-smi` name and power limit, and last the ok line.
@@ -371,7 +406,9 @@ TRAIN_EPOCHS = 2
 OPT_MOLS, OPT_STEPS, OPT_CHECK_ITERS, MT_STEPS, MT_C1, MT_C2 = 64, 100, 3, 10, 0.23, 0.46
 # molecules of each bucket's first batch whose first iteration the CPU repeats
 # (the CPU evaluates painn-oc at full width: seconds a batch)
-OPT_CPU_MOLS = 8
+OPT_CPU_MOLS = 2
+# molecules of each predict batch that the CPU repeats (PaiNN and SchNet)
+PREDICT_CPU_MOLS = 8
 # Å, the fused and plain runs' positions after OPT_POS_ITERS iterations: the
 # runs part as L-BFGS amplifies the forces' rounding (3-5x an iteration at
 # painn-oc width; on the H100 at A=32 <= 7.8e-6 Å after 3, 5.3e-5-7.1e-5
@@ -726,28 +763,28 @@ def _grad_errs(model, ref) -> dict:
             for (n, p), (_, q) in zip(model.named_parameters(), ref.named_parameters())}
 
 
-def kernel_inputs(dev, a: int):
-    """Seeded inputs at one of the predict path's kernel shapes (B=KB, A=a);
-    the radial chain is a Gaussian basis of random distances, ~30% of pairs
-    masked to zero."""
-    g = torch.Generator().manual_seed(SEED + a)
+def kernel_inputs(dev, a: int, b: int = KB):
+    """Seeded inputs at one of the paths' kernel shapes (B=b, A=a; the
+    predict path's B=KB unless given); the radial chain is a Gaussian basis
+    of random distances, ~30% of pairs masked to zero."""
+    g = torch.Generator().manual_seed(SEED + a + (0 if b == KB else 1000 * b))
 
     def mk(*shape):
         return torch.randn(*shape, generator=g) * 0.3
 
-    dist = mk(KB, a, a).abs() * 5 + 0.8
-    mask = (torch.rand(KB, a, a, generator=g) > 0.3).float()
+    dist = mk(b, a, a).abs() * 5 + 0.8
+    mask = (torch.rand(b, a, a, generator=g) > 0.3).float()
     mu = torch.linspace(0.0, 5.0, KR)
     rbf = torch.exp(-((dist[..., None] - mu) ** 2) / 0.05) * mask[..., None]
     rbfp = (-2.0 / 0.05) * (dist[..., None] - mu) * rbf
-    cpu = dict(rbf=rbf, rbfp=rbfp, phi=mk(KB, a, 3 * KF), v=mk(KB, a, 3 * KF),
-               unit_t=mk(KB, a, 3, a), w=mk(KR, 3 * KF), gds=mk(KB, a, KF),
-               gdv=mk(KB, a, 3 * KF))
+    cpu = dict(rbf=rbf, rbfp=rbfp, phi=mk(b, a, 3 * KF), v=mk(b, a, 3 * KF),
+               unit_t=mk(b, a, 3, a), w=mk(KR, 3 * KF), gds=mk(b, a, KF),
+               gdv=mk(b, a, 3 * KF))
     # the tangent lanes of the dual kernels: rbfd = rbfp * (a distance
     # tangent), as the model builds it
-    cpu.update(rbfd=rbfp * mk(KB, a, a)[..., None], phid=mk(KB, a, 3 * KF),
-               vd=mk(KB, a, 3 * KF), unitd_t=mk(KB, a, 3, a), gdsd=mk(KB, a, KF),
-               gdvd=mk(KB, a, 3 * KF))
+    cpu.update(rbfd=rbfp * mk(b, a, a)[..., None], phid=mk(b, a, 3 * KF),
+               vd=mk(b, a, 3 * KF), unitd_t=mk(b, a, 3, a), gdsd=mk(b, a, KF),
+               gdvd=mk(b, a, 3 * KF))
     return {k: t.to(dev).contiguous() for k, t in cpu.items()}
 
 
@@ -1171,10 +1208,9 @@ def reset_all_launches() -> None:
 
 
 def all_launches() -> dict:
-    from nabladft_tpu_torch.ops import eqv2_attn, escn_layer, painn_fused, qhnet_tp, schnet_fused
+    from nabladft_tpu_torch.dryrun import launches
 
-    return {**painn_fused.LAUNCHES, **schnet_fused.LAUNCHES, **qhnet_tp.LAUNCHES,
-            **escn_layer.LAUNCHES, **eqv2_attn.LAUNCHES}
+    return launches()
 
 
 def predict_phase(tmp: Path, db: Path, family: str) -> dict:
@@ -1218,22 +1254,31 @@ def predict_phase(tmp: Path, db: Path, family: str) -> dict:
     check(all(s in [(KB, a) for a in BUCKETS] for s in shapes),
           f"predict batch shapes {shapes} outside the kernel phase's {BUCKETS}")
 
-    # every batch against the CPU plain path with the same seeded weights
-    cpu = Trainer(pipelines.build_model(cfg, torch.device("cpu")), "cpu")
-    check(cpu.model.use_pallas == "off", "CPU reference runs the plain message")
-    ref = list(cpu.predict(dm.predict_dataloader()))
-    check(sum(len(r["energy"]) for r in ref) == N_MOLS, "CPU reference covers every molecule")
-    e_ref = np.concatenate([r["energy"] for r in ref])
-    e_gpu = np.array([rec.data["energy_pred"][0] for rec in out_rows])
-    np.testing.assert_allclose(e_gpu, e_ref, **E_TOL)
-    k, f_err = 0, 0.0
-    for r in ref:
-        for i, na in enumerate(r["n_atoms"]):
-            f_gpu = np.asarray(out_rows[k].data["forces_pred"])
-            np.testing.assert_allclose(f_gpu, r["forces"][i][:na], **F_TOL)
-            f_err = max(f_err, float(np.abs(f_gpu - r["forces"][i][:na]).max()))
-            k += 1
-    e_err = float(np.abs(e_gpu - e_ref).max())
+    # the first PREDICT_CPU_MOLS molecules of every batch against the CPU
+    # plain path with the same seeded weights
+    cpu = pipelines.build_model(cfg, torch.device("cpu"))
+    check(cpu.use_pallas == "off", "CPU reference runs the plain message")
+    cpu.eval()
+    e_err = f_err = 0.0
+    n_ref = k = 0  # the rows are written in the loader's order
+    for batch in dm.predict_dataloader():
+        few = _mols(batch, slice(0, PREDICT_CPU_MOLS))
+        ref = forward(cpu, few)
+        reals = np.flatnonzero(batch.graph_mask.numpy())
+        for j, i in enumerate(reals):
+            if i >= PREDICT_CPU_MOLS:
+                continue
+            row, na = out_rows[k + j], int(few.node_mask[i].sum())
+            check(np.array_equal(row.numbers, few.z[i, :na].numpy()), "the CPU's row")
+            e_gpu, f_gpu = row.data["energy_pred"][0], np.asarray(row.data["forces_pred"])
+            e_cpu, f_cpu = float(ref["energy"][i]), ref["forces"][i, :na].numpy()
+            np.testing.assert_allclose(e_gpu, e_cpu, **E_TOL)
+            np.testing.assert_allclose(f_gpu, f_cpu, **F_TOL)
+            e_err = max(e_err, abs(e_gpu - e_cpu))
+            f_err = max(f_err, float(np.abs(f_gpu - f_cpu).max()))
+            n_ref += 1
+        k += len(reals)
+    check(n_ref >= n_batches, f"{n_ref} CPU reference molecules over {n_batches} batches")
 
     # throughput of the predict loop (model on the card): one warm-up pass,
     # then PASSES timed passes over the same loader
@@ -1266,7 +1311,7 @@ def predict_phase(tmp: Path, db: Path, family: str) -> dict:
     emit(fam["prefix"] + "predict", config=fam["config"], rows=res["rows"], batches=n_batches,
          live_pairs_by_bucket=live,
          batch_shapes=shapes, launches=launches, run_seconds=res["seconds"],
-         cpu_ref_molecules=len(e_ref), cpu_ref_max_energy_abs_err=e_err,
+         cpu_ref_molecules=n_ref, cpu_ref_max_energy_abs_err=e_err,
          cpu_ref_max_force_abs_err=f_err,
          molecules_per_second={"median": rates[PASSES // 2], "min": rates[0],
                                "max": rates[-1], "passes": rates},
@@ -5133,6 +5178,373 @@ def dp_nccl_phase(tmp: Path, db: Path) -> dict:
     return dp_phase(tmp, db, "painn_dp_nccl", "nccl", min(n, DP_MAX_CARDS))
 
 
+# the multi-card dry run (nabladft_tpu_torch/dryrun.py, "full" sizes) against
+# one process on the same global batches and weights: the matrix phases' loss
+# within DRYRUN_LOSS_RTOL relative, each gradient tensor within
+# DRYRUN_GRAD_TREE x the tree's largest |g| and DRYRUN_GRAD_OWN x its own
+# (tests/test_torch_dryrun.py's limits against JAX); the relaxation by the
+# optimize phase's checks (positions within OPT_POS_ATOL, energies within E_TOL); the
+# train step's loss, its gradient norm and the fit's first validation loss
+# within DP_METRIC_RTOL; its losses after the fit and the restore within
+# DRYRUN_FIT_RTOL: 24 AdamW steps from sums in another order part the two
+# runs' weights (2.7e-3 on the H100, where the first step's gradients agree
+# to ~1e-7), while each run's restore reproduces its own loss to 1e-6;
+# `fit_witnesses` measures the gap two one-process fits open when their
+# batches differ only in row order, or their gradients by FIT_NOISE. The kernels are held against their plain
+# versions at every shape the dry run gave them (`dryrun_kernel_checks`)
+DRYRUN_LOSS_RTOL, DRYRUN_GRAD_TREE, DRYRUN_GRAD_OWN, DRYRUN_FIT_RTOL = 1e-5, 1e-5, 1e-4, 1e-2
+DRYRUN_RANKS = 4
+DRYRUN_TIMEOUT = 600  # s, the ranks of one phase
+
+
+def recorded_steps(log: list):
+    """A context in which every Trainer step appends its (global) train loss
+    to `log`: the dry run's fits are compared step by step."""
+    from unittest import mock
+
+    from nabladft_tpu_torch.train import engine
+
+    step = engine.Trainer._train_step
+
+    def recorded(self, batch):
+        metrics = step(self, batch)
+        log.append(float(metrics["train/total"]))
+        return metrics
+
+    return mock.patch.object(engine.Trainer, "_train_step", recorded)
+
+
+def dryrun_rank(r: int, world: int, backend: str, store: str, work: str, out: str) -> None:
+    """One rank of a dry-run phase (started with `spawn`): the group (the
+    port's collective timeout), `dryrun_multichip(world)` at full width on its
+    card, its printed lines in `<out>.out`, its results pickled to `out`."""
+    import contextlib
+    import pickle
+
+    from nabladft_tpu_torch import dryrun
+    from nabladft_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = r if backend == "nccl" else 0
+    dev = torch.device("cuda", card)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(backend, init_method=f"file://{store}", rank=r,
+                                         world_size=world, timeout=dist.TIMEOUT)
+    losses = []
+    try:
+        with open(out + ".out", "w") as log, contextlib.redirect_stdout(log), \
+                recorded_steps(losses):
+            res = dryrun.dryrun_multichip(world, "full", dev, workdir=Path(work))
+        torch.cuda.synchronize(dev)
+        info = dict(rank=r, world=dist.world_size(), backend=torch.distributed.get_backend(),
+                    card=card, step_losses=losses)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(dict(phases=res, **info), f)
+
+
+def _dryrun_counts(name: str, phase: dict) -> dict:
+    """A dry-run phase's launch counts on one rank: A-D as the dp phases'
+    (6 a layer per train step and evaluation, C and D per step, B's gW
+    stage never); I-L as qhnet_train's per step for the config's remat;
+    PhiSNet none."""
+    from nabladft_tpu_torch import dryrun
+
+    full = dryrun.SIZES["full"]
+    n_layers = full["painn"]["n_interactions"]
+    if name == "train_step":
+        return _painn_counts(n_layers, 1, 0)
+    if name == "relax":  # "off": one evaluation a step and the first
+        return _painn_counts(n_layers, 0, 1 + phase["nsteps"])
+    if name == "fit":
+        return _painn_counts(full["fit_painn"]["n_interactions"], phase["steps"],
+                             11 * phase["val_batches"])
+    want = dict.fromkeys(all_launches(), 0)
+    if name == "hamiltonian":
+        kw = full["qhnet"]
+        layers, remat = kw["num_layers"], 2 if kw.get("remat", True) else 1
+        pairs = layers - 1 - kw.get("start_layer", 2)
+        want.update(qhnet_conv_fwd=remat * layers, qhnet_conv_bwd=layers,
+                    qhnet_pair_fwd=remat * pairs, qhnet_pair_bwd=pairs)
+    return want
+
+
+def _grad_gaps(got: dict, want: dict) -> dict:
+    """The largest gradient gap over the tree's largest |g| and over each
+    tensor's own."""
+    gmax = max(float(np.abs(g).max()) for g in want.values())
+    tree = own = 0.0
+    for name, w in want.items():
+        err = float(np.abs(got[name] - w).max())
+        tree, own = max(tree, err / gmax), max(own, err / max(float(np.abs(w).max()), 1e-30))
+    return {"tree": tree, "own": own}
+
+
+DRYRUN_PAINN_PHASES, DRYRUN_QHNET_PHASES = ("train_step", "relax", "fit"), ("hamiltonian",)
+
+
+def dryrun_kernel_checks(dev, shapes: dict) -> dict:
+    """Each kernel of the dry run against its plain version, within
+    KERNEL_RTOL as the kernel phases hold it, at every (B, A) its phases
+    gave it (`shapes`: {"painn": [...], "qhnet": [...]}): A, B with and
+    without gW, C and D at PaiNN's widths (`kernel_inputs`), I-L at QHNet's
+    (`qhnet_kernel_inputs`). Returns {"<kernel> <[B, A]>": max_rel_err}."""
+    from nabladft_tpu_torch.ops import painn_fused as pf, qhnet_tp as qt
+
+    def as_tuple(t):
+        return t if isinstance(t, tuple) else (t,)
+
+    out = {}
+
+    def held(k, shape, fn, ref, args):
+        err = compare(as_tuple(fn(*args)), as_tuple(ref(*args)))
+        check(err["max_rel_err"] <= KERNEL_RTOL, f"dry run kernel {k} error at {shape}: {err}")
+        out[f"{k} {shape}"] = err["max_rel_err"]
+
+    for b, a in sorted(shapes["painn"]):
+        x = kernel_inputs(dev, a, b)
+        shape = [b, a, KR, KF]
+        b_args = [x[k] for k in ("rbf", "rbfp", "phi", "v", "unit_t", "w", "gds", "gdv")]
+        held("A", shape, pf.painn_fwd, pf.painn_message_reference,
+             [x[k] for k in ("rbf", "phi", "v", "unit_t", "w")])
+        held("B", shape, pf.painn_bwd, pf.painn_message_bwd_reference, b_args)
+        held("B without gW", shape, lambda *t: pf.painn_bwd(*t, need_gw=False)[:4],
+             lambda *t: pf.painn_message_bwd_reference(*t, need_gw=False)[:4], b_args)
+        held("C", shape, pf.painn_dual_fwd, pf.painn_dual_fwd_reference, [x[k] for k in C_ARGS])
+        held("D", shape, pf.painn_dual_bwd, pf.painn_dual_bwd_reference, [x[k] for k in D_ARGS])
+        del x
+    fns = {"I": (qt.qhnet_conv_fwd, qt.conv_fwd_reference),
+           "J": (qt.qhnet_conv_bwd, qt.conv_bwd_reference),
+           "K": (qt.qhnet_pair_fwd, qt.pair_fwd_reference),
+           "L": (qt.qhnet_pair_bwd, qt.pair_bwd_reference)}
+    for b, a in sorted(shapes["qhnet"]):
+        x = qhnet_kernel_inputs(dev, b, a, QH_C, seed=SEED + 5000 + 100 * b + a)
+        for k, (fn, ref) in fns.items():
+            held(k, [b, a, QH_C], fn, ref, [x[n] for n in QH_ARGS[k]])
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+class _RowsPermuted:
+    """A train loader whose every batch has its rows (molecules) in a seeded
+    other order: the same sums, added in another order."""
+
+    def __init__(self, loader, seed: int):
+        self.loader, self.rng = loader, np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield _mols(batch, torch.from_numpy(self.rng.permutation(batch.z.shape[0])))
+
+
+FIT_NOISE = 1e-7  # x the tree's largest |g|: the gradient witness's noise
+
+
+def gradient_noise(scale: float, seed: int):
+    """A context in which every Trainer step's summed gradients get seeded
+    Gaussian noise of `scale` x the tree's largest |g| before the update."""
+    from unittest import mock
+
+    from nabladft_tpu_torch.train import engine
+
+    step = engine.Trainer._step_grads
+    gens = {}
+
+    def noisy(self, batch):
+        losses = step(self, batch)
+        grads = [p.grad for p in self._params()]
+        top = max(float(g.abs().max()) for g in grads)
+        dev = grads[0].device
+        gen = gens.setdefault(dev, torch.Generator(device=dev).manual_seed(seed))
+        for g in grads:
+            g.add_(torch.randn(g.shape, generator=gen, device=dev, dtype=g.dtype),
+                   alpha=scale * top)
+        return losses
+
+    return mock.patch.object(engine.Trainer, "_step_grads", noisy)
+
+
+def fit_witnesses(world: int, dev, work: Path, one: dict) -> dict:
+    """The dry run's fit (phase 5) twice more in one process: every train
+    batch's rows permuted ("rows_permuted": the same sums in another order),
+    and every step's gradients perturbed by FIT_NOISE ("gradient_noise").
+    Each gives the gap it opens to the one process's fit, beside
+    DRYRUN_FIT_RTOL, with its train losses step by step."""
+    import contextlib
+    from unittest import mock
+
+    from nabladft_tpu_torch import dryrun
+
+    class Permuted(dryrun.DataModule):
+        def train_dataloader(self):
+            return _RowsPermuted(super().train_dataloader(), SEED + 11)
+
+    out = {}
+    for name, change in (("rows_permuted", mock.patch.object(dryrun, "DataModule", Permuted)),
+                         ("gradient_noise", gradient_noise(FIT_NOISE, SEED + 12))):
+        losses, sub = [], work / name
+        sub.mkdir()
+        with change, recorded_steps(losses), open(sub / "printed.out", "w") as log, \
+                contextlib.redirect_stdout(log):
+            res = dryrun.fit_phase(world, dryrun.SIZES["full"], dev, sub)
+        check(res["steps"] == one["steps"] and res["loss0"] == one["loss0"],
+              f"the {name} fit's steps and first loss: {res} vs {one}")
+        out[name] = dict({k: abs(res[k] / one[k] - 1) for k in ("loss1", "loss2")},
+                         step_losses=losses)
+    return out
+
+
+def dryrun_phase(tmp: Path, phase: str, backend: str, world: int) -> dict:
+    """`world` ranks run the five dry-run phases in one start, against one
+    process on the same batches and weights (see the module docstring);
+    returns the ranks' summed launch counts."""
+    import contextlib
+    import multiprocessing
+    import pickle
+
+    from nabladft_tpu_torch import dryrun
+
+    run_dir = tmp / phase
+    work, one_dir = run_dir / "work", run_dir / "one"
+    work.mkdir(parents=True)
+    one_dir.mkdir()
+    ctx = multiprocessing.get_context("spawn")
+    outs = [run_dir / f"rank{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=dryrun_rank, args=(r, world, backend, str(run_dir / "store"),
+                                                   str(work), str(outs[r])))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:  # one process, meanwhile: every phase unsharded on the same global batches
+        t1 = time.perf_counter()
+        one_losses = []
+        with open(one_dir / "printed.out", "w") as log, contextlib.redirect_stdout(log), \
+                recorded_steps(one_losses):
+            one = dryrun.dryrun_multichip(world, "full", torch.device("cuda"), workdir=one_dir)
+        torch.cuda.synchronize()
+        one_seconds = time.perf_counter() - t1
+    finally:
+        for p in procs:
+            p.join(timeout=DRYRUN_TIMEOUT)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.exitcode == 0 and out.exists(), f"{phase} rank {r} exit code {p.exitcode}")
+    ranks = []
+    for out in outs:
+        with open(out, "rb") as f:
+            ranks.append(pickle.load(f))
+    check([(x["rank"], x["world"], x["backend"]) for x in ranks]
+          == [(r, world, backend) for r in range(world)], f"{phase} groups")
+    printed = Path(str(outs[0]) + ".out").read_text().splitlines()
+    oks = [line for line in printed if line.startswith("dryrun") and ": ok" in line]
+    check(len(oks) == len(dryrun.PHASES) + 1 and oks[-1] == f"dryrun_multichip({world}): ok",
+          f"{phase}: rank 0 printed {printed}")
+    for x in ranks[1:]:
+        check(not Path(str(outs[x["rank"]]) + ".out").read_text(), f"{phase}: rank 0 alone prints")
+
+    gaps, launches_by_rank = {}, {}
+    for x in ranks:
+        r, ph = x["rank"], x["phases"]
+        counts = {}
+        for name, res in ph.items():
+            want = _dryrun_counts(name, res)
+            check(res["launches"] == want,
+                  f"{phase} rank {r} {name} launches {res['launches']}, expected {want}")
+            counts[name] = {k: n for k, n in res["launches"].items() if n}
+        launches_by_rank[r] = counts
+        g = gaps[r] = {}
+        for k in ("loss", "grad_norm"):
+            g["train_step_" + k] = abs(ph["train_step"][k] / one["train_step"][k] - 1)
+            check(g["train_step_" + k] <= DP_METRIC_RTOL, f"{phase} rank {r} train step {g}")
+        for name in ("hamiltonian", "phisnet"):
+            got, want = ph[name], one[name]
+            g[name + "_loss"] = abs(got["loss"] / want["loss"] - 1)
+            g[name + "_grad"] = _grad_gaps(got["grads"], want["grads"])
+            check(g[name + "_loss"] <= DRYRUN_LOSS_RTOL
+                  and g[name + "_grad"]["tree"] <= DRYRUN_GRAD_TREE
+                  and g[name + "_grad"]["own"] <= DRYRUN_GRAD_OWN,
+                  f"{phase} rank {r} {name}: {g}")
+        rx, ox = ph["relax"], one["relax"]
+        sl = rx["rows"]
+        check(rx["nsteps"] == ox["nsteps"]
+              and np.array_equal(rx["converged"], ox["converged"][sl]),
+              f"{phase} rank {r} relaxation steps / converged")
+        g["relax_pos"] = float(np.abs(rx["pos"] - ox["pos"][sl]).max())
+        g["relax_energy"] = float(np.abs(rx["energy"] - ox["energy"][sl]).max())
+        check(g["relax_pos"] <= OPT_POS_ATOL, f"{phase} rank {r} positions {g['relax_pos']}")
+        np.testing.assert_allclose(rx["energy"], ox["energy"][sl], **E_TOL)
+        g["fit"] = {k: abs(ph["fit"][k] / one["fit"][k] - 1) for k in ("loss0", "loss1", "loss2")}
+        check(ph["fit"]["steps"] == one["fit"]["steps"] and g["fit"]["loss0"] <= DP_METRIC_RTOL
+              and max(g["fit"].values()) <= DRYRUN_FIT_RTOL,
+              f"{phase} rank {r} fit {g['fit']}: {ph['fit']['steps']} steps")
+    # every (B, A) the ranks' and the one process's phases gave the kernels,
+    # each kernel held there against its plain version
+    shapes = {fam: sorted({tuple(sh) for res in [one] + [x["phases"] for x in ranks]
+                           for name in names for sh in res[name]["shapes"]})
+              for fam, names in (("painn", DRYRUN_PAINN_PHASES), ("qhnet", DRYRUN_QHNET_PHASES))}
+    check(all(shapes.values()), f"{phase}: kernel shapes {shapes}")
+    kernel_errs = dryrun_kernel_checks(torch.device("cuda"), shapes)
+    witness_dir = run_dir / "witness"
+    witness_dir.mkdir()
+    witness = fit_witnesses(world, torch.device("cuda"), witness_dir, one["fit"])
+    # the fits' train losses step by step, each against the one process's:
+    # the ranks' (the same on every rank) and the witnesses'
+    n = one["fit"]["steps"]
+
+    def step_gaps(losses):
+        return [abs(a / b - 1) for a, b in zip(losses[-n:], one_losses[-n:])]
+
+    check(all(x["step_losses"][-n:] == ranks[0]["step_losses"][-n:] for x in ranks),
+          f"{phase}: the ranks' train losses")
+    fit_step_gaps = {"ranks": step_gaps(ranks[0]["step_losses"]),
+                     **{k: step_gaps(w.pop("step_losses")) for k, w in witness.items()}}
+    emit(phase, backend=backend, ranks=world, cards=len({x["card"] for x in ranks}),
+         grid=ranks[0]["phases"]["hamiltonian"]["grid"], printed=oks, gaps_to_one_process=gaps,
+         fit_witnesses=witness, fit_step_loss_gaps=fit_step_gaps, kernel_shapes=shapes,
+         kernel_max_rel_err=kernel_errs,
+         launches_by_rank=launches_by_rank,
+         losses={name: ranks[0]["phases"][name]["loss"]
+                 for name in ("train_step", "hamiltonian", "phisnet")},
+         relax={"nsteps": ranks[0]["phases"]["relax"]["nsteps"],
+                "converged": int(sum(x["phases"]["relax"]["converged"].sum() for x in ranks))},
+         fit={k: ranks[0]["phases"]["fit"][k] for k in ("loss0", "loss1", "loss2", "steps")},
+         seconds=seconds, one_process_seconds=one_seconds,
+         tolerances={"loss_rel": DRYRUN_LOSS_RTOL, "grad_tree": DRYRUN_GRAD_TREE,
+                     "grad_own": DRYRUN_GRAD_OWN, "positions_abs": OPT_POS_ATOL,
+                     "energy": E_TOL, "train_step_rel": DP_METRIC_RTOL,
+                     "fit_rel": DRYRUN_FIT_RTOL, "kernel_rel": KERNEL_RTOL,
+                     "witness_gradient_noise": FIT_NOISE})
+    total = dict.fromkeys(all_launches(), 0)
+    for x in ranks:
+        for res in x["phases"].values():
+            for k, n in res["launches"].items():
+                total[k] += n
+    return total
+
+
+def dryrun_nccl_phase(tmp: Path) -> dict:
+    """dryrun_nccl: over min(cards, DRYRUN_RANKS) cards when there are two or
+    more (a 2×2 grid on four, 1×2 on two); otherwise a line saying it did
+    not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("dryrun_nccl", ran=False, device_count=n,
+             reason=f"nccl needs a card a rank; this machine has {n}")
+        return dict.fromkeys(all_launches(), 0)
+    return dryrun_phase(tmp, "dryrun_nccl", "nccl", min(n, DRYRUN_RANKS))
+
+
 ALL_KERNELS = {"A": "painn_fwd", "B": "painn_bwd", "C": "painn_dual_fwd", "D": "painn_dual_bwd",
                "E": "schnet_fwd", "F": "schnet_bwd", "G": "schnet_dual_fwd",
                "H": "schnet_dual_bwd", "I": "qhnet_conv_fwd", "J": "qhnet_conv_bwd",
@@ -5208,6 +5620,10 @@ def main() -> int:
                 by_path["painn_dp_gloo2"] = timed("painn_dp_gloo2", dp_phase, tmp, db,
                                                   "painn_dp_gloo2", "gloo", 2)
                 by_path["painn_dp_nccl"] = timed("painn_dp_nccl", dp_nccl_phase, tmp, db)
+                # the multi-card dry run: its five phases in one start of the ranks
+                by_path["dryrun_gloo4"] = timed("dryrun_gloo4", dryrun_phase, tmp,
+                                                "dryrun_gloo4", "gloo", DRYRUN_RANKS)
+                by_path["dryrun_nccl"] = timed("dryrun_nccl", dryrun_nccl_phase, tmp)
             # after the fp32 phases, whose readings they print
             for job, phase in (("train", bf16_train_phase), ("predict", bf16_predict_phase)):
                 path = f"{family}_bf16_{job}"

@@ -24,6 +24,15 @@ Semantics (as the JAX package):
     config (use ls_c1=0.23, ls_c2=0.46 to match the reference's calling
     convention, optimizers.py:654-655).
 
+In a process group every rank is a dp rank: each relaxes its shard of the
+batch, and the decisions JAX takes over the whole sharded batch are taken
+over the ranks:
+the loop's stop (every molecule converged) and the Moré–Thuente search's
+(every lane done), one all-reduced flag each, and that search's
+tiny-direction rescale by the global atom count. Every rank then runs the
+same number of iterations and evaluations, a shard of padding alone
+included; in a world of one no collective runs.
+
 `relax_chunked` runs the loop in host-visible chunks for trajectories, and
 `save_state` / `load_state` write and read the restart pickle in the JAX
 package's format (a dict of numpy arrays under the `LBFGSState` field
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from nabladft_tpu_torch.data.batch import MolBatch
+from nabladft_tpu_torch.parallel import dist
 
 EnergyForcesFn = Callable[[MolBatch], Tuple[torch.Tensor, torch.Tensor]]
 # (batch) -> (energy [B], forces [B,A,3])
@@ -244,7 +254,8 @@ def _mt_search(
     Every config carries its dcsrch state as a [B] lane, and each iteration
     advances all lanes with one batched energy+forces evaluation, as the
     reference does (line_search.py:13-124 driver, :126-342 step, :343-489
-    update). The loop reads one flag per evaluation (are all lanes done?).
+    update). The loop reads one flag per evaluation (are all lanes of every
+    rank done?).
 
     As in the JAX package: accepted lanes return min(1, maxstep/max-atom-
     step), the reference's determine_step_ override (line_search.py:104-
@@ -290,7 +301,7 @@ def _mt_search(
         it=0,
     )
 
-    while ms.it < max_iters and not bool(ms.done.all()):
+    while ms.it < max_iters and not dist.all_ranks(ms.done):
         e_t, f_t = compute(st.pos + ms.stp[:, None, None] * p)
         fp = e_t
         gp = _config_dot(-f_t, p, node_mask)
@@ -450,9 +461,10 @@ def _lbfgs_step(compute, batch: MolBatch, free, st: LBFGSState, fmax, maxstep, l
         # the search takes the raw direction (maxstep capping happens inside
         # via determine_step; damping does not apply); the reference's
         # tiny-direction rescale mutates pk in place (line_search.py:69-73),
-        # so the position update uses the rescaled direction
+        # so the position update uses the rescaled direction; n_tot counts
+        # the atoms of the whole (dp-sharded) batch, as JAX's sum does
         n_per = node_mask.sum(1).to(p.dtype)
-        n_tot = node_mask.sum().to(p.dtype)
+        n_tot = dist.rank_sum(node_mask.sum()).to(p.dtype)
         p_size = torch.sqrt(torch.clamp(_config_dot(p, p, node_mask), min=1e-30))
         tiny = p_size <= torch.sqrt(n_per * 1e-10)
         p_mt = torch.where(tiny[:, None, None],
@@ -507,14 +519,15 @@ def _run_lbfgs(
     ls_c1: float,
     ls_c2: float,
 ) -> LBFGSState:
-    """Iterate until `stop_at` or every molecule has converged; the one
-    host read a step is that test. `state`'s history is updated in place."""
+    """Iterate until `stop_at` or every molecule of every rank has
+    converged; the one host read a step is that test. `state`'s history is
+    updated in place."""
     if line_search not in LINE_SEARCHES:
         raise ValueError(f"line_search must be one of {LINE_SEARCHES}, got {line_search!r}")
     free = _free_atoms(batch, fixed_atoms_mask)
     compute = _masked_compute(energy_forces_fn, batch, free)
     st = state
-    while st.iteration < stop_at and not bool(st.converged.all()):
+    while st.iteration < stop_at and not dist.all_ranks(st.converged):
         st = _lbfgs_step(compute, batch, free, st, fmax, maxstep, line_search, ls_trials,
                          ls_c1, ls_c2)
     return st
@@ -544,7 +557,9 @@ def lbfgs_relax(
     ls_c1: float = 1e-4,
     ls_c2: float = 0.9,
 ) -> LBFGSResult:
-    """Relax all molecules of a padded batch on its device.
+    """Relax all molecules of a padded batch on its device: in a process
+    group, this rank's shard of the batch the ranks relax together (see the
+    module docstring).
 
     `fixed_atoms_mask` [B,A] (True = frozen) mirrors the reference's
     fixed-atom support (calculator.py fixed-atom masking).
@@ -571,7 +586,8 @@ def relax_chunked(
     ls_c1: float = 1e-4,
     ls_c2: float = 0.9,
 ) -> Tuple[LBFGSResult, LBFGSState]:
-    """Run the loop `interval` iterations at a time.
+    """Run the loop `interval` iterations at a time (over the ranks as
+    `lbfgs_relax`).
 
     After each chunk `on_chunk(iteration, state)` fires with the device
     state: the host-visible form of the reference's per-step trajectory
@@ -583,7 +599,7 @@ def relax_chunked(
         state = init_lbfgs_state(energy_forces_fn, batch, fmax, memory, fixed_atoms_mask)
         if on_chunk is not None:
             on_chunk(0, state)
-    while state.iteration < max_steps and not bool(state.converged.all()):
+    while state.iteration < max_steps and not dist.all_ranks(state.converged):
         stop = min(state.iteration + interval, max_steps)
         state = _run_lbfgs(energy_forces_fn, batch, state, stop, fmax, maxstep,
                            fixed_atoms_mask, line_search, ls_trials, ls_c1, ls_c2)

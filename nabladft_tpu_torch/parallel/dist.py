@@ -1,10 +1,11 @@
-"""Data parallelism over a ``torch.distributed`` process group.
+"""Data parallelism over a ``torch.distributed`` process group, and the
+dp×mp grid.
 
-The counterpart of ``nabladft_tpu/parallel/mesh.py``'s "dp" axis. JAX jits
-one program over a mesh: the batch's molecule axis is split over "dp", the
-parameters are replicated, and XLA inserts the sums. Here every rank is a
-process of its own (one per card under ``torchrun``; gloo over CPU
-processes in the tests), and the sums are written out:
+The counterpart of ``nabladft_tpu/parallel/mesh.py``. JAX jits one program
+over a mesh: the batch's molecule axis is split over "dp", the parameters
+are replicated, and XLA inserts the sums. Here every rank is a process of
+its own (one per card under ``torchrun``; gloo over CPU processes in the
+tests), and the sums are written out:
 
   * every rank builds the same seeded loader, and `shard_batch` gives it its
     rows of each global batch (the counterpart of `batch_sharding` /
@@ -14,24 +15,42 @@ processes in the tests), and the sums are written out:
     collective (the losses' sums and counts, the metrics' accumulators);
   * `all_reduce_grads` adds the parameter gradients in one flat buffer per
     dtype;
-  * `broadcast_tensors` copies rank 0's weights to every rank;
+  * `broadcast_tensors` copies rank 0's weights to every rank,
+    `broadcast_object` a host object;
   * `gather_to_main` brings host objects to rank 0, which writes.
+
+Without a grid every rank is a dp rank. `make_grid(n_dp, n_mp)` lays the
+ranks out as JAX's `make_mesh(n_dp, n_mp)` lays out devices (rank r at dp
+index r // n_mp, mp index r % n_mp): a `Grid`, which the helpers that cut
+take. The "mp" axis is the one JAX reserves for the Hamiltonian models: the
+dense [B, O, O] matrices' orbital rows are split over it
+(`shard_orbital_rows`), while every mp rank of a dp index holds the same
+molecules and runs their forward whole. Every sum over a grid is one
+collective over the world (the losses count a molecule sum on mp index 0
+alone), so a grid builds no subgroup. `ALONE` is the grid of this process
+alone, which reduces over nothing (an unsharded reference inside a group).
 
 With no initialised group the world has size 1 and every helper is the
 identity; the collectives are skipped as well in a group of one.
 `init_from_env` starts a group under a launcher (``torchrun`` sets
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``);
-a group the caller started is used as it is.
+a group the caller started is used as it is. The dry run's groups start
+with `TIMEOUT`: a collective that waits longer on a rank that never comes
+raises (gloo's own default is 30 minutes); a job's group keeps torch's
+default.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+TIMEOUT = datetime.timedelta(seconds=60)
 
 
 def is_initialized() -> bool:
@@ -50,7 +69,8 @@ def is_main() -> bool:
     return rank() == 0
 
 
-def init_from_env(device: Optional[torch.device] = None) -> bool:
+def init_from_env(device: Optional[torch.device] = None,
+                  timeout: Optional[datetime.timedelta] = None) -> bool:
     """Start the process group a launcher describes (``torchrun`` sets
     ``RANK`` and ``WORLD_SIZE``, even for one process), unless one exists or
     no launcher started this process. The card is made current first
@@ -66,8 +86,9 @@ def init_from_env(device: Optional[torch.device] = None) -> bool:
         backend = "nccl"
     else:
         backend = "gloo"
+    kw = {} if timeout is None else dict(timeout=timeout)
     dist.init_process_group(backend, rank=int(os.environ["RANK"]),
-                            world_size=int(os.environ["WORLD_SIZE"]))
+                            world_size=int(os.environ["WORLD_SIZE"]), **kw)
     return True
 
 
@@ -95,20 +116,66 @@ def check_n_dp(n_dp: Optional[int]) -> int:
     return world
 
 
-def shard_rows(n: int) -> slice:
-    """This rank's rows of a leading axis of `n`: contiguous, the first
-    n % world ranks one row more (``numpy.array_split``)."""
-    r, (q, extra) = rank(), divmod(n, world_size())
-    start = r * q + min(r, extra)
-    return slice(start, start + q + (1 if r < extra else 0))
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place in a dp×mp grid over the world (`make_grid`)."""
+
+    n_dp: int
+    n_mp: int
+    dp_index: int
+    mp_index: int
+
+    @property
+    def size(self) -> int:
+        return self.n_dp * self.n_mp
 
 
-def shard_batch(batch):
+ALONE = Grid(n_dp=1, n_mp=1, dp_index=0, mp_index=0)  # this process, no collective
+
+
+def make_grid(n_dp: Optional[int] = None, n_mp: int = 1) -> Grid:
+    """The world as an n_dp × n_mp grid (`make_mesh`'s layout); n_dp None
+    means world // n_mp."""
+    world, n_mp = world_size(), int(n_mp)
+    if n_mp < 1 or world % n_mp:
+        raise ValueError(f"make_grid: n_mp={n_mp} does not divide the world size {world}")
+    n_dp = world // n_mp if n_dp is None else int(n_dp)
+    if n_dp * n_mp != world:
+        raise ValueError(f"make_grid: n_dp={n_dp} x n_mp={n_mp} is not the world size {world}")
+    d, m = divmod(rank(), n_mp)
+    return Grid(n_dp=n_dp, n_mp=n_mp, dp_index=d, mp_index=m)
+
+
+def _split(n: int, i: int, parts: int) -> slice:
+    """Part `i` of `parts` of a leading axis of `n`: contiguous, the first
+    n % parts one row more (``numpy.array_split``)."""
+    q, extra = divmod(n, parts)
+    start = i * q + min(i, extra)
+    return slice(start, start + q + (1 if i < extra else 0))
+
+
+def shard_rows(n: int, grid: Optional[Grid] = None) -> slice:
+    """This rank's molecules of a leading axis of `n`: its dp index's part
+    (``numpy.array_split``)."""
+    if grid is None:
+        return _split(n, rank(), world_size())
+    return _split(n, grid.dp_index, grid.n_dp)
+
+
+def shard_orbital_rows(o: int, grid: Optional[Grid] = None) -> slice:
+    """This rank's rows of an [B, O, O] matrix's `o` orbital rows: its mp
+    index's part, split as `shard_rows` splits molecules; all of them
+    without a grid."""
+    return slice(0, o) if grid is None else _split(o, grid.mp_index, grid.n_mp)
+
+
+def shard_batch(batch, grid: Optional[Grid] = None):
     """This rank's molecules of a global MolBatch (every tensor field cut on
-    its leading axis); the batch itself in a world of one."""
-    if world_size() == 1:
+    its leading axis by its dp index); the batch itself on a dp axis of
+    one."""
+    if (world_size() if grid is None else grid.n_dp) == 1:
         return batch
-    sl = shard_rows(batch.z.shape[0])
+    sl = shard_rows(batch.z.shape[0], grid)
     return batch.replace(**{f.name: getattr(batch, f.name)[sl]
                             for f in dataclasses.fields(batch)
                             if getattr(batch, f.name) is not None})
@@ -134,6 +201,24 @@ def any_rank(flag: bool, device: torch.device) -> bool:
     t = torch.tensor([1.0 if flag else 0.0], device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item() > 0)
+
+
+def all_ranks(flag: torch.Tensor) -> bool:
+    """Whether the boolean tensor `flag` holds everywhere on every rank
+    (`jnp.all` over a dp-sharded array): one host read, and one collective
+    in a world of more than one."""
+    local = bool(flag.all())
+    if world_size() == 1:
+        return local
+    # the ranks where it fails, counted
+    (fails,) = all_reduce_sums([torch.tensor(0.0 if local else 1.0, device=flag.device)])
+    return bool(fails == 0)
+
+
+def rank_sum(t: torch.Tensor) -> torch.Tensor:
+    """A detached scalar summed over the ranks (`jnp.sum` over a dp-sharded
+    array), in its own dtype."""
+    return all_reduce_sums([t])[0]
 
 
 def _by_dtype(tensors: Sequence[torch.Tensor]):
@@ -166,6 +251,16 @@ def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
         dist.broadcast(flat, src)
         for v, t in zip(flat.split([t.numel() for t in group]), group):
             t.copy_(v.view_as(t))
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank `src`'s host object (a path, numbers) on every rank; `obj` in a
+    world of one."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src)
+    return box[0]
 
 
 def gather_to_main(obj: Any) -> Optional[List[Any]]:

@@ -259,9 +259,9 @@ def _run(cfg: Dict[str, Any], device: torch.device,
     if job == "optimize":
         if dist.world_size() > 1:
             raise NotImplementedError(
-                f"the optimize job runs in one process; this one is rank {dist.rank()} of "
-                f"{dist.world_size()} (ROADMAP queue 1: data-parallel relaxation, "
-                f"lbfgs_relax over a dp group)")
+                f"the optimize job runs in one process, as the JAX package's does; this one "
+                f"is rank {dist.rank()} of {dist.world_size()} (a relaxation over a dp group "
+                f"is optimize.lbfgs.lbfgs_relax on each rank's shard of the batch)")
         # imported here: the task builds its model through this module
         from nabladft_tpu_torch.optimize.task import run_optimize_job
 

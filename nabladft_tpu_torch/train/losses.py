@@ -25,6 +25,19 @@ RMSE + MAE S_r / (2 n sqrt(S / n + eps)) + A_r / n with the global S, whose
 gradients add up to that of sqrt(S / n + eps) + A / n. The max-error gate
 compares the global MAE. In a world of one the losses are computed as
 before, to the bit.
+
+Over a dp×mp grid (`dist.make_grid`; `multitask_loss`'s `grid`) each rank
+holds the molecules of its dp index, as every other rank of its mp group
+does, and takes its mp index's block of orbital rows of each matrix
+target (prediction, target and pair mask: `dist.shard_orbital_rows`), as
+JAX shards the dense [B, O, O] matrices P("dp", "mp"). The matrix sums
+and counts are then added over the whole grid. A molecule or atom sum
+(energy, forces) is the same on every mp rank of a dp index, so it counts
+once: mp index 0 contributes it and the other mp ranks a zero (times the
+sum, so that its gradient share is zero there too), and the same
+collective over the grid adds it over the dp axis alone. The parameter
+gradients summed over the grid (`dist.all_reduce_grads`) are then the
+global batch's. `dist.ALONE` computes the plain loss inside a group.
 """
 
 from __future__ import annotations
@@ -179,11 +192,14 @@ LOSS_FNS = {
 }
 
 
-def _shared(names, local):
-    """Each loss's value from its sums over the world (see the module
-    docstring): the plain value in a world of one."""
-    if dist.world_size() == 1:
+def _shared(names, local, grid=None):
+    """Each loss's value from its sums over the world or `grid` (see the
+    module docstring): the plain value in a world of one."""
+    if (dist.world_size() if grid is None else grid.size) == 1:
         return [_value(n, sums) for n, sums in zip(names, local)]
+    if grid is not None and grid.mp_index > 0:  # molecule sums: mp index 0's
+        local = [sums if n.startswith("matrix") else tuple(t * 0 for t in sums)
+                 for n, sums in zip(names, local)]
     flat = dist.all_reduce_sums([t for sums in local for t in sums])
     out = []
     for n, sums in zip(names, local):
@@ -205,6 +221,7 @@ def multitask_loss(
     loss_specs: Dict[str, str],
     loss_coefs: Dict[str, float],
     max_errors: Optional[Dict[str, float]] = None,
+    grid: Optional[dist.Grid] = None,
 ) -> Dict[str, torch.Tensor]:
     """Weighted multi-task loss: {"total": scalar, "<target>": scalar}.
 
@@ -212,8 +229,11 @@ def multitask_loss(
     max_errors: optional per-target MAE clamp: a target whose batch MAE
     exceeds its clamp adds nothing to the total this step (its value is
     still reported). Under data parallelism every value, and the gate, is
-    the global batch's (one collective for all of them).
+    the global batch's (one collective for all of them). grid: the dp×mp
+    grid whose mp axis splits the matrix targets' rows (see the module
+    docstring); None: every rank of the world is a dp rank.
     """
+    split_rows = grid is not None and grid.n_mp > 1
     names, local, coefs = [], [], []
     for target, kind in loss_specs.items():
         if target == "energy":
@@ -228,6 +248,9 @@ def multitask_loss(
                     f"reads the core matrix only when built with include_core=True, which "
                     f"the pipeline's datamodule never asks for); drop {target!r} from loss_specs")
             (pred, tgt, mask), l1 = matrix_target(out, batch, target), "matrix_mae"
+            if split_rows:  # this rank's block of orbital rows
+                sl = dist.shard_orbital_rows(pred.shape[1], grid)
+                pred, tgt, mask = pred[:, sl], tgt[:, sl], mask[:, sl]
         else:
             raise KeyError(f"unknown loss target {target!r}")
         family = "matrix" if target in ("hamiltonian", "overlap", "core") else target
@@ -240,7 +263,7 @@ def multitask_loss(
         if max_errors and target in max_errors:
             names.append(l1)
             local.append(tuple(t.detach() for t in SUMS[l1](pred, tgt, mask)))
-    values = iter(_shared(names, local))
+    values = iter(_shared(names, local, grid))
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0
     for target, coef in zip(loss_specs, coefs):

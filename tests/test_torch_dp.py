@@ -276,5 +276,5 @@ def test_n_dp_that_is_not_the_world_size_names_both(runs):
 
 def test_the_optimize_job_refuses_a_world_of_two(runs):
     for r, res in enumerate(_scenario(runs, "refusals")):
-        assert "ROADMAP queue 1: data-parallel relaxation" in res["optimize"], res
+        assert "runs in one process, as the JAX package's does" in res["optimize"], res
         assert f"rank {r} of 2" in res["optimize"], res
