@@ -2185,9 +2185,56 @@ def stage_times(fn, args) -> dict:
     out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)[:60]
+            name = _kernel_name(e.key)
             out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _kernel_name(key: str) -> str:
+    return re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", key)[:60]
+
+
+# the steps of kernels O and P, read from their launches in order: a kernel named here
+# is (its own step, the step of the unnamed launches after it: the engine's prep,
+# products, weight gradients, reductions and column sums)
+EQV2_STEPS = {
+    "eqv2_flags_kernel": ("live list", "live list"),
+    "so2_count_kernel": ("live list", "live list"),
+    "so2_starts_kernel": ("live list", "live list"),
+    "so2_list_kernel": ("live list", "radial product"),
+    "eqv2_rows16_kernel": ("radial product", "radial product"),
+    "eqv2_rotate_kernel": ("rotations", "conv 1"),
+    "eqv2_grid_kernel": ("grid activation", "conv 2"),
+    "eqv2_attn_out_kernel": ("attention head", "attention head"),
+    "eqv2_attn_bwd_kernel": ("attention head", "conv 2"),
+    "eqv2_grid_bwd_kernel": ("grid activation", "conv 1"),
+    "eqv2_rot_bwd_kernel": ("rotations", "radial product"),
+    "eqv2_sender_list_kernel": ("gx", "gx"),
+    "eqv2_gx_kernel": ("gx", "gx"),
+}
+
+
+def step_times(fn, args, steps: dict) -> dict:
+    """{step: device ms} of one call of `fn` (torch.profiler): its launches in
+    the order they ran, a kernel named in `steps` counted to its own step and
+    every other one to the step its last named predecessor gives ("setup"
+    before the first: the wrapper's allocations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    out, after = {}, "setup"
+    for e in evs:
+        name = _kernel_name(e.name)
+        base = re.sub(r"<.*$", "", name)
+        own, nxt = steps.get(base, (after, after))
+        out[own] = out.get(own, 0.0) + e.time_range.elapsed_us() / 1e3
+        after = nxt
+    return out
 
 
 def qhnet_kernel_phases(dev, card: str, ptxas: dict) -> dict:
@@ -2552,8 +2599,14 @@ def so2_products_phase(dev, card: str, inp: dict, rows: int) -> None:
     [rows, 1792] (seeded, ~N(0, 0.5²)) times the block's w1 [1792, 1536],
     over `rows` = the live edges; its error against float64, its time beside
     one fp32 torch.matmul of the same rows (library_ms, TF32 off), the
-    achieved TFLOP/s and the fp32 FMA and 3xTF32 tensor-core bounds."""
+    achieved TFLOP/s and the fp32 FMA and 3xTF32 tensor-core bounds. Then
+    the bf16 row (`bf16`): the engine's bf16 operand mode on the same rows as
+    bf16 values (w1 rounded in its prep) against float64 of the rounded
+    operands, beside one bf16 torch.matmul of the same bf16 operands (fp32
+    accumulation, main() turns off the reduced-precision reduction; its
+    output bf16) and the dense bf16 tensor-core bound."""
     from nabladft_tpu_torch.ops import eqv2_attn as ea
+    from nabladft_tpu_torch.ops.escn_layer import round_bf16
 
     peak_flops, peak_bw, peak_tf32 = peaks(card, tensor_cores=True)
     w = inp["ws"][2]
@@ -2571,13 +2624,30 @@ def so2_products_phase(dev, card: str, inp: dict, rows: int) -> None:
     t_l = time_ms(lambda: torch.matmul(a, w))
     flops, nbytes = 2 * rows * k * n, 4 * (rows * k + k * n + rows * n)
     t_bytes = nbytes / peak_bw * 1e3
+
+    a16, w16 = a.bfloat16(), w.bfloat16()
+    probs16 = [dict(segs=[dict(a=a16, b=w, k=k, bf16=True)], n=n, c=c)]
+    ea.so2_products(probs16, rows)
+    ref = a16.double() @ round_bf16(w).double()
+    err16 = compare((c,), (ref,))
+    check(err16["max_rel_err"] <= KERNEL_RTOL, f"so2_products bf16 error: {err16}")
+    del ref
+    t_k16 = time_ms(lambda: ea.so2_products(probs16, rows))
+    t_l16 = time_ms(lambda: torch.matmul(a16, w16))
+    nbytes16 = 2 * (rows * k + k * n) + 4 * rows * n
+    bf16 = dict(**err16, ms=t_k16["median"], library_ms=t_l16["median"],
+                library="torch.matmul bf16 (fp32 accumulation, bf16 output)",
+                tflops=flops / t_k16["median"] / 1e9,
+                library_tflops=flops / t_l16["median"] / 1e9,
+                bound_tc_ms=max(flops / bf16_peak(card) * 1e3, nbytes16 / peak_bw * 1e3),
+                bytes=nbytes16, kernel_times=t_k16, library_times=t_l16)
     emit("so2_products", rows=rows, k=k, n=n, **err, tolerance_rel=KERNEL_RTOL,
          ms=t_k["median"], library_ms=t_l["median"], library="torch.matmul fp32 (TF32 off)",
          tflops=flops / t_k["median"] / 1e9, library_tflops=flops / t_l["median"] / 1e9,
          bound_tc_ms=max(flops / (peak_tf32 / TC_PASSES) * 1e3, t_bytes),
          bound_fma_ms=max(flops / peak_flops * 1e3, t_bytes), flops=flops, bytes=nbytes,
-         kernel_times=t_k, library_times=t_l)
-    del a, c
+         kernel_times=t_k, library_times=t_l, bf16=bf16)
+    del a, c, a16, w16
     torch.cuda.empty_cache()
 
 
@@ -4566,6 +4636,8 @@ def fro_rel(got, ref) -> float:
     """The relative Frobenius error of got against ref."""
     ref = ref.double()
     return float((got.double() - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
 def so2_bf16_kernel_phases(dev, card: str, ptxas: dict) -> dict:
     """Kernels M, N, O and P in their bf16 mode at every bucket shape of the
     eSCN and EquiformerV2 paths (B=BATCH, the fp32 kernel phases' inputs, O
@@ -4628,6 +4700,9 @@ def so2_bf16_kernel_phases(dev, card: str, ptxas: dict) -> dict:
             row = dict(shape=shape, **err, fp32_kernel_vs_plain_bf16=fp32_gap,
                        bit_identical_rerun=True)
             if a == HEADLINE_A:
+                row["stages_ms"] = stage_times(call, (kw16,))
+                if k in "OP":
+                    row["steps_ms"] = step_times(call, (kw16,), EQV2_STEPS)
                 t_k = time_ms(lambda: call(kw16))
                 t_32 = time_ms(lambda: call(kw32))
                 t_p = time_ms(plain, PLAIN_RUNS, 1)
@@ -4649,7 +4724,8 @@ def so2_bf16_kernel_phases(dev, card: str, ptxas: dict) -> dict:
         del x, inp, e_args, o_args, specs
         torch.cuda.empty_cache()
     keep = ("ms", "plain_ms", "fp32_kernel_ms", "bound_ms", "bound_by", "roofline_share",
-            "bound_fma_ms", "bound_fma_by", "flops", "flops_products", "flops_other", "bytes")
+            "bound_fma_ms", "bound_fma_by", "flops", "flops_products", "flops_other", "bytes",
+            "stages_ms")
     rows = {}
     for k, (name, src, line, _) in SO2_BF16_KERNELS.items():
         head = next(r for r in per[k] if r["shape"][1] == HEADLINE_A)
@@ -4658,6 +4734,7 @@ def so2_bf16_kernel_phases(dev, card: str, ptxas: dict) -> dict:
             replaces=f"nabladft_tpu/ops/pallas/{src}.py:{line}",
             max_abs_err=max(r["max_abs_err"] for r in per[k]), library_ms=None,
             timed_shape=head["shape"], **{f: head[f] for f in keep}, ptxas=ptxas.get(src, {}),
+            **({"steps_ms": head["steps_ms"]} if "steps_ms" in head else {}),
             per_bucket=[{f: r[f] for f in ("shape", "max_abs_err", "max_rel_err", "fro_rel_err",
                                             "fp32_kernel_vs_plain_bf16")}
                         for r in per[k]])
@@ -4679,7 +4756,8 @@ def direct_bf16_phase(tmp: Path, db: Path, family: str) -> dict:
     flipped roundings, so EquiformerV2's grid FFNs and attentions carry them
     to the bf16 noise level, that of the bf16-vs-fp32 gap) and E under a
     rotation (the family's limit or BF16_ROT_TOL, the larger); profiles of
-    two predict and two train steps (the engine's kernels present, M-P's
+    two predict and two train steps (the engine's kernels present: O and P's
+    bf16 operand mode, M and N's float32 engine, the other's absent; M-P's
     bf16 launches counted); train and predict mol/s, busy shares and peak
     memory beside the fp32 phases'."""
     from nabladft_tpu_torch import pipelines
@@ -4774,8 +4852,15 @@ def direct_bf16_phase(tmp: Path, db: Path, family: str) -> dict:
         if p:
             rates.append(n_pred / (time.perf_counter() - t0))
     rates.sort()
+    # EquiformerV2's O and P run the engine's bf16 operand mode, eSCN's M and N its rbf16
+    engine = (("so2_mma16_kernel", "so2_mmw16_kernel") if family == "eqv2"
+              else ("so2_mma_kernel", "so2_mmw_kernel"))
+    other = (("so2_mma_kernel", "so2_mmw_kernel") if family == "eqv2"
+             else ("so2_mma16_kernel", "so2_mmw16_kernel"))
     reset_all_launches()
-    busy = profile_phase(f"{family}_bf16_profile", gpu, dm, present=("so2_mma_kernel",))
+    busy = profile_steps(f"{family}_bf16_profile", gpu._predict_step,
+                         list(itertools.islice(dm.predict_dataloader(), 2)),
+                         present=engine[:1], absent=other)
     prof_p = all_launches()
     check(prof_p == {**dict.fromkeys(prof_p, 0), fwd: 2 * n_calls},
           f"{family} bf16 profiled predict launches {prof_p}")
@@ -4784,7 +4869,7 @@ def direct_bf16_phase(tmp: Path, db: Path, family: str) -> dict:
     batches = list(itertools.islice(dm.train_dataloader(), 2))
     reset_all_launches()
     busy_train = profile_steps(f"{family}_bf16_train_profile", trainer._train_step, batches,
-                               present=("so2_mma_kernel", "so2_mmw_kernel"))
+                               present=engine, absent=other)
     prof_t = all_launches()
     check(prof_t == {**dict.fromkeys(prof_t, 0), fwd: 2 * n_calls, bwd: 2 * n_calls},
           f"{family} bf16 profiled train launches {prof_t}")

@@ -56,8 +56,16 @@
 // compute_dtype bfloat16) rounds to bf16 where `_attn_pipeline` and `_attn_pipeline_bwd`
 // pass a value through `_mdot(., ., True)`, and nowhere else:
 //   * both operands of the radial product, of every SO(2) product, of their transposes and
-//     of every weight gradient (the engine's `rbf16`: one TF32 pass of the rounded values,
-//     summed in fp32);
+//     of every weight gradient, on the engine's bf16 operand mode (bf16 wgmma, fp32 sums):
+//     the weights rounded once a launch in its prep; every other operand written as bf16,
+//     nearest-even, by the kernel that makes it and read by the products alone (xe's live
+//     rows: eqv2_rows16_kernel; the scaled stack: the rotation; conv 2's input: the grid
+//     activation; in P the values' and alpha scalars' cotangents: the attention backward;
+//     the hidden rows' and gates' cotangents: the grid backward; the radial scale's
+//     cotangent: the rotations' backward). A buffer a fp32 stage also reads keeps its fp32
+//     copy (the hidden rows, the extra columns, rad and its cotangent, the stack's cotangent).
+//     These are the values a fragment load would round, so the products differ from rounding
+//     fp32 operands at every load only in the fp32 summation order;
 //   * the sender rows x_j, which the TPU kernel gathers with a one-hot product: rounded
 //     where they are gathered (the rotation kernels); the receiver's own rows x_i are only
 //     broadcast there and stay fp32;
@@ -70,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 #include <vector>
 
 #include "so2_common.cuh"
@@ -166,13 +175,35 @@ __global__ void eqv2_sender_list_kernel(const int* __restrict__ idx,
 // per-receiver and per-edge stages; L and M are compile-time so the stacks stay in registers
 // ---------------------------------------------------------------------------
 
+// the bf16 mode's radial-product rows: xe16[e] = xe[eidx[e]] rounded to bf16, in the live
+// order, so that the product and its weight gradient read them by TMA (8 values a thread)
+__global__ void __launch_bounds__(256) eqv2_rows16_kernel(const float* __restrict__ xe,
+                                                          const int* __restrict__ eidx,
+                                                          const int* __restrict__ n_rows,
+                                                          uint16_t* __restrict__ xe16, int EC) {
+  const int per = EC / 8;
+  const long long n = (long long)*n_rows * per;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x; u < n;
+       u += (long long)gridDim.x * blockDim.x) {
+    const long long e = u / per;
+    const int c = (int)(u - e * per) * 8;
+    const float4* src = reinterpret_cast<const float4*>(xe + (long long)eidx[e] * EC + c);
+    const float4 p = src[0], q = src[1];
+    const auto two = [](float lo, float hi) {
+      return (uint32_t)bf16_rn(lo) | ((uint32_t)bf16_rn(hi) << 16);
+    };
+    *reinterpret_cast<uint4*>(xe16 + e * EC + c) =
+        make_uint4(two(p.x, p.y), two(p.z, p.w), two(q.x, q.y), two(q.z, q.w));
+  }
+}
+
 // flat[e] = [src | tgt] per m-major row, each scaled by rad[e] of its l: [E, S_t * 2C];
-// rx: the sender rows rounded to bf16 (the bf16 mode)
-template <int L, int M>
+// R (the bf16 mode): the sender rows rounded to bf16, flat written as bf16 (conv 1's operand)
+template <int L, int M, bool R>
 __global__ void __launch_bounds__(RT) eqv2_rotate_kernel(
     const float* __restrict__ x, const float* __restrict__ xi, const int* __restrict__ idx,
     const float* __restrict__ d, const float* __restrict__ rad, const int* __restrict__ rs,
-    const int* __restrict__ eidx, float* __restrict__ flat, int A, int C, int KW, int rx) {
+    const int* __restrict__ eidx, void* __restrict__ flat, int A, int C, int KW) {
   constexpr int S = (L + 1) * (L + 1), ST = s_trunc(L, M);
   const int bi = blockIdx.x, b = bi / A;
   const int e_lo = rs[bi], e_hi = rs[bi + 1];
@@ -193,7 +224,7 @@ __global__ void __launch_bounds__(RT) eqv2_rotate_kernel(
       float xs[S];
 #pragma unroll
       for (int s = 0; s < S; ++s) xs[s] = xj[(long long)s * C];
-      if (rx)  // the bf16 mode's gathered sender rows
+      if constexpr (R)  // the bf16 mode's gathered sender rows
 #pragma unroll
         for (int s = 0; s < S; ++s) xs[s] = round_bf16(xs[s]);
 #pragma unroll
@@ -208,8 +239,8 @@ __global__ void __launch_bounds__(RT) eqv2_rotate_kernel(
           at = fmaf(dv, xr[l * l + col], at);
         }
         if (act) {
-          flat[(long long)e * FL + r * C2 + c] = as * rp[l * C2 + c];
-          flat[(long long)e * FL + r * C2 + C + c] = at * rp[l * C2 + C + c];
+          put<R>(flat, (long long)e * FL + r * C2 + c, as * rp[l * C2 + c]);
+          put<R>(flat, (long long)e * FL + r * C2 + C + c, at * rp[l * C2 + C + c]);
         }
       }
     }
@@ -217,11 +248,12 @@ __global__ void __launch_bounds__(RT) eqv2_rotate_kernel(
 }
 
 // the separable S2 activation of each live edge's hidden rows: act row 0 = silu(gate),
-// rows 1.. = from_g silu(to_g hid) (the grid's row 0 output is dropped)
-template <int L, int M>
+// rows 1.. = from_g silu(to_g hid) (the grid's row 0 output is dropped); B16 (the bf16
+// mode): act written as bf16 (conv 2's operand)
+template <int L, int M, bool B16>
 __global__ void __launch_bounds__(RT) eqv2_grid_kernel(
     const float* __restrict__ hid, const float* __restrict__ gate, const float* __restrict__ tog,
-    const float* __restrict__ fromg, float* __restrict__ act, const int* __restrict__ n_rows,
+    const float* __restrict__ fromg, void* __restrict__ act, const int* __restrict__ n_rows,
     int CO, int EXTRA, int P) {
   constexpr int ST = s_trunc(L, M);
   extern __shared__ float tab[];
@@ -236,19 +268,20 @@ __global__ void __launch_bounds__(RT) eqv2_grid_kernel(
         m2[r] = 0.f;
       }
       grid_silu<ST>(tab, P, m, m2);  // m2[0] unused: row 0 is silu(gate)
-      act[(long long)e * HID + c] = silu(gate[(long long)e * EXTRA + c]);
+      put<B16>(act, (long long)e * HID + c, silu(gate[(long long)e * EXTRA + c]));
 #pragma unroll
-      for (int r = 1; r < ST; ++r) act[(long long)e * HID + r * CO + c] = m2[r];
+      for (int r = 1; r < ST; ++r) put<B16>(act, (long long)e * HID + r * CO + c, m2[r]);
     }
   }
 }
 
-// P: the grid activation's transpose, in place of its cotangent g (rows 1..): ghid =
-// to_g^T (silu'(z) from_g^T g) with z recomputed from hid; the gate's cotangent from row 0
-template <int L, int M>
+// P: the grid activation's transpose, from its cotangent g (rows 1..) into gout (g itself,
+// in place, or, B16, a bf16 copy: conv 1's operand): ghid = to_g^T (silu'(z) from_g^T g)
+// with z recomputed from hid; the gate's cotangent ggate (bf16 where B16) from row 0
+template <int L, int M, bool B16>
 __global__ void __launch_bounds__(RT) eqv2_grid_bwd_kernel(
     const float* __restrict__ hid, const float* __restrict__ gate, const float* __restrict__ tog,
-    const float* __restrict__ fromg, float* __restrict__ g, float* __restrict__ ggate,
+    const float* __restrict__ fromg, const float* g, void* gout, void* __restrict__ ggate,
     const int* __restrict__ n_rows, int CO, int EXTRA, int P) {
   constexpr int ST = s_trunc(L, M);
   extern __shared__ float tab[];
@@ -265,9 +298,9 @@ __global__ void __launch_bounds__(RT) eqv2_grid_bwd_kernel(
       }
       grid_silu_bwd<ST>(tab, P, m, gm2, gm);
       const long long ge = (long long)e * EXTRA + c;
-      ggate[ge] = g[(long long)e * HID + c] * dsilu(gate[ge]);
+      put<B16>(ggate, ge, g[(long long)e * HID + c] * dsilu(gate[ge]));
 #pragma unroll
-      for (int r = 0; r < ST; ++r) g[(long long)e * HID + r * CO + c] = gm[r];
+      for (int r = 0; r < ST; ++r) put<B16>(gout, (long long)e * HID + r * CO + c, gm[r]);
     }
   }
 }
@@ -377,13 +410,14 @@ __global__ void __launch_bounds__(RT) eqv2_attn_out_kernel(
 // P's attention stage, per receiver: from agg's cotangent g, the values' cotangent gval,
 // the alpha scalars' cotangent (gext's first NH VA columns) through the softmax, the
 // per-head LayerNorm and silu, and each edge's share of the LN scale / bias and alpha_dot
-// gradients (lng: [g_lns | g_lnb | g_adot] per edge, summed over the edges later)
-template <int L, int M>
+// gradients (lng: [g_lns | g_lnb | g_adot] per edge, summed over the edges later); B16 (the
+// bf16 mode): gval and gext written as bf16 (conv 2's and conv 1's operands)
+template <int L, int M, bool B16>
 __global__ void __launch_bounds__(RT) eqv2_attn_bwd_kernel(
     const float* __restrict__ val, const float* __restrict__ ext, const float* __restrict__ d,
     const float* __restrict__ dropk, const float* __restrict__ lns, const float* __restrict__ lnb,
     const float* __restrict__ adot, const float* __restrict__ g, const int* __restrict__ rs,
-    const int* __restrict__ eidx, float* __restrict__ gval, float* __restrict__ gext,
+    const int* __restrict__ eidx, void* __restrict__ gval, void* __restrict__ gext,
     float* __restrict__ lng, int K, int CO, int NH, int VA, int EXTRA, int KW) {
   constexpr int S = (L + 1) * (L + 1), ST = s_trunc(L, M);
   extern __shared__ float sm[];
@@ -414,7 +448,7 @@ __global__ void __launch_bounds__(RT) eqv2_attn_bwd_kernel(
           if (col >= 2 * l + 1) break;
           t = fmaf(__ldg(dp + base + col), gi[l * l + col], t);
         }
-        gval[(long long)e * HID + r * CO + c] = t * a;
+        put<B16>(gval, (long long)e * HID + r * CO + c, t * a);
         gsum = fmaf(t, val[(long long)e * HID + r * CO + c], gsum);
       }
       gae[(e - e_lo) * CO + c] = gsum;
@@ -464,7 +498,7 @@ __global__ void __launch_bounds__(RT) eqv2_attn_bwd_kernel(
 #pragma unroll
     for (int q = 0; q < VPL; ++q) {
       const int v = lane + 32 * q;
-      if (v < VA) gext[(long long)e * EXTRA + h * VA + v] = inv * (gxh[q] - m1 - xh[q] * m2);
+      if (v < VA) put<B16>(gext, (long long)e * EXTRA + h * VA + v, inv * (gxh[q] - m1 - xh[q] * m2));
     }
   }
 }
@@ -472,14 +506,15 @@ __global__ void __launch_bounds__(RT) eqv2_attn_bwd_kernel(
 // P: the radial scale's and the rotations' transposes, per receiver: from the cotangent
 // of the scaled stack (gflat), in place: rad becomes the radial scale's cotangent (summed
 // over the rows of each l) and gflat's source half the source stack's (gflat * rad); the
-// target halves, rotated back and summed over k in order, give gxi; rx: the sender rows
-// rounded to bf16 (the bf16 mode)
-template <int L, int M>
+// target halves, rotated back and summed over k in order, give gxi; R (the bf16 mode): the
+// sender rows rounded to bf16, and the radial scale's cotangent also written as bf16 to rad16
+// (the radial product's transpose and weight gradient read it; b_rad's sum reads rad)
+template <int L, int M, bool R>
 __global__ void __launch_bounds__(RT) eqv2_rot_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ xi, const int* __restrict__ idx,
     const float* __restrict__ d, float* __restrict__ rad, float* __restrict__ gflat,
-    const int* __restrict__ rs, const int* __restrict__ eidx, float* __restrict__ gxi, int A,
-    int C, int KW, int rx) {
+    const int* __restrict__ rs, const int* __restrict__ eidx, float* __restrict__ gxi,
+    uint16_t* __restrict__ rad16, int A, int C, int KW) {
   constexpr int S = (L + 1) * (L + 1), ST = s_trunc(L, M);
   const int bi = blockIdx.x, b = bi / A;
   const int e_lo = rs[bi], e_hi = rs[bi + 1];
@@ -503,7 +538,7 @@ __global__ void __launch_bounds__(RT) eqv2_rot_bwd_kernel(
       float xs[S], rsc[L + 1], rtc[L + 1], gs[L + 1], gt[L + 1];
 #pragma unroll
       for (int s = 0; s < S; ++s) xs[s] = xj[(long long)s * C];
-      if (rx)  // the stack recomputed from the rounded sender rows, as the forward's
+      if constexpr (R)  // the stack recomputed from the rounded sender rows, as the forward's
 #pragma unroll
         for (int s = 0; s < S; ++s) xs[s] = round_bf16(xs[s]);
 #pragma unroll
@@ -540,6 +575,10 @@ __global__ void __launch_bounds__(RT) eqv2_rot_bwd_kernel(
         for (int l = 0; l <= L; ++l) {
           rp[l * C2 + c] = gs[l];
           rp[l * C2 + C + c] = gt[l];
+          if constexpr (R) {
+            rad16[(long long)e * RW + l * C2 + c] = bf16_rn(gs[l]);
+            rad16[(long long)e * RW + l * C2 + C + c] = bf16_rn(gt[l]);
+          }
         }
     }
     if (act)
@@ -607,8 +646,14 @@ __global__ void __launch_bounds__(RT) eqv2_gx_kernel(
 // host side: scratch and the problem lists of each stage
 // ---------------------------------------------------------------------------
 
+// the scratch of a launch. float32 mode: FLAT holds the scaled stack, then (P) its cotangent
+// GFLAT; GACT is conv 2's transpose, then in place the hidden rows' cotangent. bf16 mode: the
+// products' operands are bf16 copies written by the kernels that make them (XE16, FLAT16,
+// ACT16; P: GVAL16, GACT16, GEXT16, GRAD16) and have no float32 copy where no other stage
+// reads them; GFLAT overlays what conv 1's transposes leave dead.
 struct Bufs {
-  float *RAD, *FLAT, *HID, *EXT, *ACT, *VAL, *GVAL, *GACT, *GEXT, *LNG;
+  float *RAD, *FLAT, *HID, *EXT, *ACT, *VAL, *GVAL, *GACT, *GEXT, *LNG, *GFLAT;
+  uint16_t *XE16, *FLAT16, *ACT16, *GVAL16, *GACT16, *GEXT16, *GRAD16;
   int *flags, *eidx, *pos, *rs, *n_rows, *slist, *sbeg, *scnt;
   Engine en;
 };
@@ -625,13 +670,28 @@ long long weight_floats(const Dims& D) {
 // partial floats of the weight-gradient launches (the column sums: b_rad, LayerNorm, alpha)
 long long part_floats(const Dims& D) { return part_bound(D.RADW + 3LL * D.NX); }
 
+// the bf16 mode's floats an edge slot: the buffers conv 1's transposes leave dead (FLAT16,
+// ACT16, HID, EXT, VAL; P: GVAL16, GACT), which GFLAT overlays in P
+long long dead16(const Dims& D, bool bwd) {
+  const long long f = D.FLAT / 2 + D.HID / 2 + 2LL * D.HID + D.EXTRA;
+  return bwd ? std::max(f + D.HID / 2 + D.HID, (long long)D.FLAT) : f;
+}
+long long slot16(const Dims& D, bool bwd) {
+  const long long keep = D.RADW + D.EC / 2;  // RAD, XE16
+  if (!bwd) return keep + dead16(D, false);
+  return keep + D.HID / 2 + D.EXTRA / 2 + D.RADW / 2 + 3LL * D.NX + dead16(D, true);
+}
+
 // forward: RAD, FLAT (the values overwrite it), HID, EXT, ACT and the weights' halves;
-// backward adds VAL, GVAL, GACT, GEXT, LNG and the partial tiles
-long long scratch_floats(const Dims& D, bool bwd) {
+// backward adds VAL, GVAL, GACT, GEXT, LNG and the partial tiles; the bf16 mode: slot16 an
+// edge slot and one bf16 copy of the weights
+long long scratch_floats(const Dims& D, bool bwd, bool b16) {
   const long long fwd = D.RADW + D.FLAT + 2LL * D.HID + D.EXTRA;
-  const long long prep = 2 * weight_floats(D);
+  const long long prep = b16 ? weight_floats(D) / 2 : 2 * weight_floats(D);
+  const long long part = bwd ? part_floats(D) : 0;
+  if (b16) return D.E * slot16(D, bwd) + prep + part;
   if (!bwd) return D.E * fwd + prep;
-  return D.E * (fwd + 3LL * D.HID + D.EXTRA + 3LL * D.NX) + prep + part_floats(D);
+  return D.E * (fwd + 3LL * D.HID + D.EXTRA + 3LL * D.NX) + prep + part;
 }
 
 long long scratch_ints(int B, int A, int K) {
@@ -639,25 +699,49 @@ long long scratch_ints(int B, int A, int K) {
   return 4 * E + 3LL * B * A + 2;
 }
 
-Bufs carve(const Dims& D, float* f, int* iw, bool bwd, bool rnd) {
+Bufs carve(const Dims& D, float* f, int* iw, bool bwd, bool b16) {
   Bufs b{};
   auto take = [&](long long per) {
     float* p = f;
     f += D.E * per;
     return p;
   };
-  b.RAD = take(D.RADW);
-  b.FLAT = take(D.FLAT);
-  b.HID = take(D.HID);
-  b.EXT = take(D.EXTRA);
-  b.ACT = take(D.HID);
-  b.VAL = b.FLAT;
-  if (bwd) {
+  auto take16 = [&](long long cols) { return reinterpret_cast<uint16_t*>(take(cols / 2)); };
+  if (b16) {
+    b.RAD = take(D.RADW);
+    b.XE16 = take16(D.EC);
+    if (bwd) {
+      b.GACT16 = take16(D.HID);
+      b.GEXT16 = take16(D.EXTRA);
+      b.GRAD16 = take16(D.RADW);
+      b.LNG = take(3LL * D.NX);
+    }
+    float* dead = f;
+    b.FLAT16 = take16(D.FLAT);
+    b.ACT16 = take16(D.HID);
+    b.HID = take(D.HID);
+    b.EXT = take(D.EXTRA);
     b.VAL = take(D.HID);
-    b.GVAL = take(D.HID);
-    b.GACT = take(D.HID);
-    b.GEXT = take(D.EXTRA);
-    b.LNG = take(3LL * D.NX);
+    if (bwd) {
+      b.GVAL16 = take16(D.HID);
+      b.GACT = take(D.HID);
+      b.GFLAT = dead;
+    }
+    f = dead + D.E * dead16(D, bwd);
+  } else {
+    b.RAD = take(D.RADW);
+    b.FLAT = b.GFLAT = take(D.FLAT);
+    b.HID = take(D.HID);
+    b.EXT = take(D.EXTRA);
+    b.ACT = take(D.HID);
+    b.VAL = b.FLAT;
+    if (bwd) {
+      b.VAL = take(D.HID);
+      b.GVAL = take(D.HID);
+      b.GACT = take(D.HID);
+      b.GEXT = take(D.EXTRA);
+      b.LNG = take(3LL * D.NX);
+    }
   }
   b.flags = iw;
   b.eidx = iw + D.E;
@@ -667,8 +751,8 @@ Bufs carve(const Dims& D, float* f, int* iw, bool bwd, bool rnd) {
   b.n_rows = b.rs + (long long)D.B * D.A + 1;
   b.sbeg = b.n_rows + 1;
   b.scnt = b.sbeg + (long long)D.B * D.A;
-  const long long prep = 2 * weight_floats(D);
-  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0, rnd};
+  const long long prep = b16 ? weight_floats(D) / 2 : 2 * weight_floats(D);
+  b.en = Engine{D.E, b.n_rows, b.eidx, f, prep, f + prep, bwd ? part_floats(D) : 0, 0, b16};
   return b;
 }
 
@@ -684,19 +768,27 @@ cudaError_t allow_smem(F kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// the SO(2) conv of a flat [E, S_t cin] stack (m-major rows) into out [E, S_t CO]: m=0
-// rows times w0's first (L+1) CO columns (and its extra columns into `extra`), per m the
-// packed (wr | wi): out(+m) = f(+m) wr - f(-m) wi, out(-m) = f(-m) wr + f(+m) wi
-void so2_conv(const Dims& D, std::vector<NNProb>& probs, const float* in, int cin,
-              const float* w0, int w0n, const float* const* wm, float* out, float* extra) {
+// a segment's A operand: float32 values or (T = uint16_t, the bf16 mode) bf16 ones
+template <typename T>
+const float* av(const T* p) {
+  return reinterpret_cast<const float*>(p);
+}
+
+// the SO(2) conv of a flat [E, S_t cin] stack (m-major rows; T its element) into out
+// [E, S_t CO]: m=0 rows times w0's first (L+1) CO columns (and its extra columns into
+// `extra`), per m the packed (wr | wi): out(+m) = f(+m) wr - f(-m) wi, out(-m) = f(-m) wr +
+// f(+m) wi
+template <typename T>
+void so2_conv(const Dims& D, std::vector<NNProb>& probs, const T* in, int cin, const float* w0,
+              int w0n, const float* const* wm, float* out, float* extra) {
   const int ld_in = D.ST * cin, n0co = D.n0 * D.CO;
-  probs.push_back(prob({seg(in, ld_in, w0, w0n, D.n0 * cin)}, n0co, EPI_STORE, out, D.HID));
+  probs.push_back(prob({seg(av(in), ld_in, w0, w0n, D.n0 * cin)}, n0co, EPI_STORE, out, D.HID));
   if (extra)
-    probs.push_back(prob({seg(in, ld_in, w0 + n0co, w0n, D.n0 * cin)}, w0n - n0co, EPI_STORE,
-                         extra, w0n - n0co));
+    probs.push_back(prob({seg(av(in), ld_in, w0 + n0co, w0n, D.n0 * cin)}, w0n - n0co,
+                         EPI_STORE, extra, w0n - n0co));
   for (int m = 1; m <= D.M; ++m) {
     const int nlc = D.nl(m) * cin, nlco = D.nl(m) * D.CO, ldb = 2 * nlco;
-    const float *fp = in + D.span_p(m) * cin, *fm = in + D.span_m(m) * cin;
+    const float *fp = av(in + D.span_p(m) * cin), *fm = av(in + D.span_m(m) * cin);
     const float *wr = wm[m - 1], *wi = wm[m - 1] + nlco;
     probs.push_back(prob({seg(fp, ld_in, wr, ldb, nlc), seg(fm, ld_in, wi, ldb, nlc, false, -1.f)},
                          nlco, EPI_STORE, out + D.span_p(m) * D.CO, D.HID));
@@ -706,15 +798,17 @@ void so2_conv(const Dims& D, std::vector<NNProb>& probs, const float* in, int ci
 }
 
 // its transpose: gin [E, S_t cin] from gout [E, S_t CO] (and gextra for w0's extra columns)
-void so2_conv_t(const Dims& D, std::vector<NNProb>& probs, const float* gout, const float* gextra,
-                int cin, const float* w0, int w0n, const float* const* wm, float* gin) {
+template <typename T>
+void so2_conv_t(const Dims& D, std::vector<NNProb>& probs, const T* gout, const T* gextra, int cin,
+                const float* w0, int w0n, const float* const* wm, float* gin) {
   const int ld_in = D.ST * cin, n0co = D.n0 * D.CO;
-  NNProb p0 = prob({seg(gout, D.HID, w0, w0n, n0co, true)}, D.n0 * cin, EPI_STORE, gin, ld_in);
-  if (gextra) p0.seg[p0.nseg++] = seg(gextra, w0n - n0co, w0 + n0co, w0n, w0n - n0co, true);
+  NNProb p0 =
+      prob({seg(av(gout), D.HID, w0, w0n, n0co, true)}, D.n0 * cin, EPI_STORE, gin, ld_in);
+  if (gextra) p0.seg[p0.nseg++] = seg(av(gextra), w0n - n0co, w0 + n0co, w0n, w0n - n0co, true);
   probs.push_back(p0);
   for (int m = 1; m <= D.M; ++m) {
     const int nlc = D.nl(m) * cin, nlco = D.nl(m) * D.CO, ldb = 2 * nlco;
-    const float *gp = gout + D.span_p(m) * D.CO, *gm = gout + D.span_m(m) * D.CO;
+    const float *gp = av(gout + D.span_p(m) * D.CO), *gm = av(gout + D.span_m(m) * D.CO);
     const float *wr = wm[m - 1], *wi = wm[m - 1] + nlco;
     probs.push_back(prob({seg(gp, D.HID, wr, ldb, nlco, true), seg(gm, D.HID, wi, ldb, nlco, true)},
                          nlc, EPI_STORE, gin + D.span_p(m) * cin, ld_in));
@@ -725,17 +819,19 @@ void so2_conv_t(const Dims& D, std::vector<NNProb>& probs, const float* gout, co
 }
 
 // its weight gradients: gw0 [(L+1) cin, w0n] and per m gwm [n_l cin, 2 n_l CO]
-void so2_conv_w(const Dims& D, std::vector<TNProb>& probs, const float* in, const float* gout,
-                const float* gextra, int cin, int w0n, float* gw0, float* const* gwm) {
+template <typename T>
+void so2_conv_w(const Dims& D, std::vector<TNProb>& probs, const T* in, const T* gout,
+                const T* gextra, int cin, int w0n, float* gw0, float* const* gwm) {
   const int ld_in = D.ST * cin, n0co = D.n0 * D.CO;
-  probs.push_back(tprob({TSeg{in, gout, ld_in, D.HID, 1.f}}, A_ROWS, D.n0 * cin, n0co, gw0, w0n));
+  probs.push_back(tprob({TSeg{av(in), av(gout), ld_in, D.HID, 1.f}}, A_ROWS, D.n0 * cin, n0co,
+                        gw0, w0n));
   if (gextra)
-    probs.push_back(tprob({TSeg{in, gextra, ld_in, w0n - n0co, 1.f}}, A_ROWS, D.n0 * cin,
-                          w0n - n0co, gw0 + n0co, w0n));
+    probs.push_back(tprob({TSeg{av(in), av(gextra), ld_in, w0n - n0co, 1.f}}, A_ROWS,
+                          D.n0 * cin, w0n - n0co, gw0 + n0co, w0n));
   for (int m = 1; m <= D.M; ++m) {
     const int nlc = D.nl(m) * cin, nlco = D.nl(m) * D.CO;
-    const float *fp = in + D.span_p(m) * cin, *fm = in + D.span_m(m) * cin;
-    const float *gp = gout + D.span_p(m) * D.CO, *gm = gout + D.span_m(m) * D.CO;
+    const float *fp = av(in + D.span_p(m) * cin), *fm = av(in + D.span_m(m) * cin);
+    const float *gp = av(gout + D.span_p(m) * D.CO), *gm = av(gout + D.span_m(m) * D.CO);
     probs.push_back(tprob({TSeg{fp, gp, ld_in, D.HID, 1.f}, TSeg{fm, gm, ld_in, D.HID, 1.f}},
                           A_ROWS, nlc, nlco, gwm[m - 1], 2 * nlco));
     probs.push_back(tprob({TSeg{fp, gm, ld_in, D.HID, 1.f}, TSeg{fm, gp, ld_in, D.HID, -1.f}},
@@ -750,8 +846,21 @@ void so2_conv_w(const Dims& D, std::vector<TNProb>& probs, const float* in, cons
     if (err_ != cudaSuccess) return err_;         \
   } while (0)
 
+// the bf16 mode's element of the products' operands (uint16_t), or float
+template <bool B16>
+using Op = std::conditional_t<B16, uint16_t, float>;
+
+// the buffer a product reads: the bf16 copy in the bf16 mode, else the float32 one
+template <bool B16>
+Op<B16>* pick(float* f, uint16_t* h) {
+  if constexpr (B16)
+    return h;
+  else
+    return f;
+}
+
 // the live-edge list, the scaled stacks, conv 1, the grid activation and conv 2 (into VAL)
-template <int L, int M>
+template <int L, int M, bool B16>
 cudaError_t forward_stages(const Dims& D, const float* x, const float* xi, const int* idx,
                            const float* d, const float* xe, const float* maskf,
                            const float* const* w, const float* tog, const float* fromg,
@@ -759,12 +868,21 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* xi, const
   eqv2_flags_kernel<<<(unsigned)((D.E + 255) / 256), 256, 0, st>>>(maskf, bf.flags, D.E);
   CK(cudaGetLastError());
   CK(live_rows(bf.flags, bf.eidx, bf.pos, bf.rs, bf.n_rows, D.E, D.K, st));
-  NNProb prad = prob({seg(xe, D.EC, w[0], D.RADW, D.EC)}, D.RADW, EPI_GATES, bf.RAD, D.RADW);
-  prad.gather = 1;
+  NNProb prad;
+  if constexpr (B16) {  // the live rows of xe as bf16, in order
+    eqv2_rows16_kernel<<<edge_blocks(D), 256, 0, st>>>(xe, bf.eidx, bf.n_rows, bf.XE16, D.EC);
+    CK(cudaGetLastError());
+    prad = prob({seg(av(bf.XE16), D.EC, w[0], D.RADW, D.EC)}, D.RADW, EPI_GATES, bf.RAD, D.RADW);
+  } else {
+    prad = prob({seg(xe, D.EC, w[0], D.RADW, D.EC)}, D.RADW, EPI_GATES, bf.RAD, D.RADW);
+    prad.gather = 1;
+  }
   prad.bias = w[1];
   CK(launch_products(bf.en, {prad}, st));
-  eqv2_rotate_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
-      x, xi, idx, d, bf.RAD, bf.rs, bf.eidx, bf.FLAT, D.A, D.C, D.KW, bf.en.rbf16);
+  Op<B16>* flat = pick<B16>(bf.FLAT, bf.FLAT16);
+  Op<B16>* act = pick<B16>(bf.ACT, bf.ACT16);
+  eqv2_rotate_kernel<L, M, B16><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
+      x, xi, idx, d, bf.RAD, bf.rs, bf.eidx, flat, D.A, D.C, D.KW);
   CK(cudaGetLastError());
   const float* fc1[8];
   const float* fc2[8];
@@ -773,23 +891,23 @@ cudaError_t forward_stages(const Dims& D, const float* x, const float* xi, const
     fc2[m - 1] = w[D.i_fc2(m)];
   }
   std::vector<NNProb> c1;
-  so2_conv(D, c1, bf.FLAT, D.C2, w[2], D.W1N, fc1, bf.HID, bf.EXT);
+  so2_conv<Op<B16>>(D, c1, flat, D.C2, w[2], D.W1N, fc1, bf.HID, bf.EXT);
   CK(launch_products(bf.en, c1, st));
-  eqv2_grid_kernel<L, M><<<edge_blocks(D), receiver_threads(D.CO), grid_smem(D), st>>>(
-      bf.HID, bf.EXT + D.NX, tog, fromg, bf.ACT, bf.n_rows, D.CO, D.EXTRA, D.P);
+  eqv2_grid_kernel<L, M, B16><<<edge_blocks(D), receiver_threads(D.CO), grid_smem(D), st>>>(
+      bf.HID, bf.EXT + D.NX, tog, fromg, act, bf.n_rows, D.CO, D.EXTRA, D.P);
   CK(cudaGetLastError());
   std::vector<NNProb> c2;
-  so2_conv(D, c2, bf.ACT, D.CO, w[D.i_w2()], D.n0 * D.CO, fc2, bf.VAL, nullptr);
+  so2_conv<Op<B16>>(D, c2, act, D.CO, w[D.i_w2()], D.n0 * D.CO, fc2, bf.VAL, nullptr);
   return launch_products(bf.en, c2, st);
 }
 
-template <int L, int M>
+template <int L, int M, bool B16>
 cudaError_t run_fwd(const Dims& D, const float* x, const float* xi, const int* idx,
                     const float* d, const float* xe, const float* maskf, const float* dropk,
                     const float* const* w, const float* tog, const float* fromg, float* agg,
-                    float* scratch, int* iscratch, bool rnd, cudaStream_t st) {
-  const Bufs bf = carve(D, scratch, iscratch, false, rnd);
-  CK(forward_stages<L, M>(D, x, xi, idx, d, xe, maskf, w, tog, fromg, bf, st));
+                    float* scratch, int* iscratch, cudaStream_t st) {
+  const Bufs bf = carve(D, scratch, iscratch, false, B16);
+  CK(forward_stages<L, M, B16>(D, x, xi, idx, d, xe, maskf, w, tog, fromg, bf, st));
   const int il = D.i_lns();
   CK(allow_smem(eqv2_attn_out_kernel<L, M>, attn_smem(D, false)));
   eqv2_attn_out_kernel<L, M><<<D.B * D.A, receiver_threads(D.CO), attn_smem(D, false), st>>>(
@@ -799,18 +917,22 @@ cudaError_t run_fwd(const Dims& D, const float* x, const float* xi, const int* i
 }
 
 // gw: the gradients' pointers, in the order of w
-template <int L, int M>
+template <int L, int M, bool B16>
 cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* idx,
                     const float* d, const float* xe, const float* maskf, const float* dropk,
                     const float* const* w, const float* tog, const float* fromg, const float* g,
                     float* gx, float* gxi, float* gxe, float* const* gw, float* scratch,
-                    int* iscratch, bool rnd, cudaStream_t st) {
-  const Bufs bf = carve(D, scratch, iscratch, true, rnd);
-  CK(forward_stages<L, M>(D, x, xi, idx, d, xe, maskf, w, tog, fromg, bf, st));
+                    int* iscratch, cudaStream_t st) {
+  using T = Op<B16>;
+  const Bufs bf = carve(D, scratch, iscratch, true, B16);
+  CK(forward_stages<L, M, B16>(D, x, xi, idx, d, xe, maskf, w, tog, fromg, bf, st));
+  T* gval = pick<B16>(bf.GVAL, bf.GVAL16);
+  T* gext = pick<B16>(bf.GEXT, bf.GEXT16);
+  T* gact = pick<B16>(bf.GACT, bf.GACT16);  // the hidden rows' cotangent, as conv 1 reads it
   const int il = D.i_lns();
-  CK(allow_smem(eqv2_attn_bwd_kernel<L, M>, attn_smem(D, true)));
-  eqv2_attn_bwd_kernel<L, M><<<D.B * D.A, receiver_threads(D.CO), attn_smem(D, true), st>>>(
-      bf.VAL, bf.EXT, d, dropk, w[il], w[il + 1], w[il + 2], g, bf.rs, bf.eidx, bf.GVAL, bf.GEXT,
+  CK(allow_smem(eqv2_attn_bwd_kernel<L, M, B16>, attn_smem(D, true)));
+  eqv2_attn_bwd_kernel<L, M, B16><<<D.B * D.A, receiver_threads(D.CO), attn_smem(D, true), st>>>(
+      bf.VAL, bf.EXT, d, dropk, w[il], w[il + 1], w[il + 2], g, bf.rs, bf.eidx, gval, gext,
       bf.LNG, D.K, D.CO, D.NH, D.VA, D.EXTRA, D.KW);
   CK(cudaGetLastError());
 
@@ -826,31 +948,40 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* i
   }
   // conv 2: weight gradients, then the activation's cotangent
   std::vector<TNProb> t2;
-  so2_conv_w(D, t2, bf.ACT, bf.GVAL, nullptr, D.CO, D.n0 * D.CO, gw[D.i_w2()], gfc2);
+  so2_conv_w<T>(D, t2, pick<B16>(bf.ACT, bf.ACT16), gval, nullptr, D.CO, D.n0 * D.CO,
+                gw[D.i_w2()], gfc2);
   CK(launch_wgrads(bf.en, t2, st));
   std::vector<NNProb> p2;
-  so2_conv_t(D, p2, bf.GVAL, nullptr, D.CO, w[D.i_w2()], D.n0 * D.CO, fc2, bf.GACT);
+  so2_conv_t<T>(D, p2, gval, nullptr, D.CO, w[D.i_w2()], D.n0 * D.CO, fc2, bf.GACT);
   CK(launch_products(bf.en, p2, st));
-  // the grid activation (GACT becomes the hidden rows' cotangent, GEXT's gate columns filled)
-  eqv2_grid_bwd_kernel<L, M><<<edge_blocks(D), receiver_threads(D.CO), grid_smem(D), st>>>(
-      bf.HID, bf.EXT + D.NX, tog, fromg, bf.GACT, bf.GEXT + D.NX, bf.n_rows, D.CO, D.EXTRA, D.P);
+  // the grid activation (the hidden rows' cotangent from GACT into gact, GEXT's gate columns)
+  eqv2_grid_bwd_kernel<L, M, B16><<<edge_blocks(D), receiver_threads(D.CO), grid_smem(D), st>>>(
+      bf.HID, bf.EXT + D.NX, tog, fromg, bf.GACT, gact, gext + D.NX, bf.n_rows, D.CO, D.EXTRA,
+      D.P);
   CK(cudaGetLastError());
-  // conv 1: weight gradients, then the scaled stack's cotangent in place of the stack
+  // conv 1: weight gradients, then the scaled stack's cotangent GFLAT
   std::vector<TNProb> t1;
-  so2_conv_w(D, t1, bf.FLAT, bf.GACT, bf.GEXT, D.C2, D.W1N, gw[2], gfc1);
+  so2_conv_w<T>(D, t1, pick<B16>(bf.FLAT, bf.FLAT16), gact, gext, D.C2, D.W1N, gw[2], gfc1);
   CK(launch_wgrads(bf.en, t1, st));
   std::vector<NNProb> p1;
-  so2_conv_t(D, p1, bf.GACT, bf.GEXT, D.C2, w[2], D.W1N, fc1, bf.FLAT);
+  so2_conv_t<T>(D, p1, gact, gext, D.C2, w[2], D.W1N, fc1, bf.GFLAT);
   CK(launch_products(bf.en, p1, st));
   // radial scale and rotations (RAD becomes the radial scale's cotangent), gxi
-  eqv2_rot_bwd_kernel<L, M><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
-      x, xi, idx, d, bf.RAD, bf.FLAT, bf.rs, bf.eidx, gxi, D.A, D.C, D.KW, rnd);
+  eqv2_rot_bwd_kernel<L, M, B16><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
+      x, xi, idx, d, bf.RAD, bf.GFLAT, bf.rs, bf.eidx, gxi, bf.GRAD16, D.A, D.C, D.KW);
   CK(cudaGetLastError());
-  NNProb pxe = prob({seg(bf.RAD, D.RADW, w[0], D.RADW, D.RADW, true)}, D.EC, EPI_STORE, gxe, D.EC);
+  const T* grad = pick<B16>(bf.RAD, bf.GRAD16);
+  NNProb pxe =
+      prob({seg(av(grad), D.RADW, w[0], D.RADW, D.RADW, true)}, D.EC, EPI_STORE, gxe, D.EC);
   pxe.scatter = 1;
   CK(launch_products(bf.en, {pxe}, st));
   std::vector<TNProb> t3;
-  t3.push_back(tprob({TSeg{xe, bf.RAD, D.EC, D.RADW, 1.f}}, A_GATHER, D.EC, D.RADW, gw[0], D.RADW));
+  if constexpr (B16)  // xe's live rows, in order
+    t3.push_back(tprob({TSeg{av(bf.XE16), av(grad), D.EC, D.RADW, 1.f}}, A_ROWS, D.EC, D.RADW,
+                       gw[0], D.RADW));
+  else
+    t3.push_back(tprob({TSeg{xe, grad, D.EC, D.RADW, 1.f}}, A_GATHER, D.EC, D.RADW, gw[0],
+                       D.RADW));
   t3.push_back(tprob({TSeg{nullptr, bf.RAD, 0, D.RADW, 1.f}}, A_ONES, 1, D.RADW, gw[1], D.RADW));
   for (int q = 0; q < 3; ++q)
     t3.push_back(tprob({TSeg{nullptr, bf.LNG + q * D.NX, 0, 3 * D.NX, 1.f}}, A_ONES, 1, D.NX,
@@ -861,12 +992,8 @@ cudaError_t run_bwd(const Dims& D, const float* x, const float* xi, const int* i
   eqv2_sender_list_kernel<<<D.B, lt, sizeof(int) * lt, st>>>(idx, bf.flags, bf.slist, bf.sbeg,
                                                               bf.scnt, D.A, D.K);
   CK(cudaGetLastError());
-  if (rnd)
-    eqv2_gx_kernel<L, M, true><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
-        bf.FLAT, d, bf.slist, bf.sbeg, bf.scnt, bf.pos, gx, D.C, D.KW);
-  else
-    eqv2_gx_kernel<L, M, false><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
-        bf.FLAT, d, bf.slist, bf.sbeg, bf.scnt, bf.pos, gx, D.C, D.KW);
+  eqv2_gx_kernel<L, M, B16><<<D.B * D.A, receiver_threads(D.C), 0, st>>>(
+      bf.GFLAT, d, bf.slist, bf.sbeg, bf.scnt, bf.pos, gx, D.C, D.KW);
   return cudaGetLastError();
 }
 
@@ -886,8 +1013,9 @@ int fwd_entry(const float* x, const float* xi, const int* idx, const float* d, c
   const Dims D = make_dims(B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max);
   if (!valid(D)) return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0 || K == 0) return 0;
-  return (int)run_fwd<6, 2>(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, agg, scratch,
-                            iscratch, rnd, static_cast<cudaStream_t>(stream));
+  const auto run = rnd ? run_fwd<6, 2, true> : run_fwd<6, 2, false>;
+  return (int)run(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, agg, scratch, iscratch,
+                  static_cast<cudaStream_t>(stream));
 }
 
 int bwd_entry(const float* x, const float* xi, const int* idx, const float* d, const float* xe,
@@ -899,17 +1027,34 @@ int bwd_entry(const float* x, const float* xi, const int* idx, const float* d, c
   const Dims D = make_dims(B, A, K, C, CO, EC, NH, VA, KW, P, l_max, m_max);
   if (!valid(D)) return (int)cudaErrorInvalidValue;
   if (B == 0 || A == 0 || K == 0) return 0;
-  return (int)run_bwd<6, 2>(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, g, gx, gxi, gxe,
-                            gw, scratch, iscratch, rnd, static_cast<cudaStream_t>(stream));
+  const auto run = rnd ? run_bwd<6, 2, true> : run_bwd<6, 2, false>;
+  return (int)run(D, x, xi, idx, d, xe, maskf, dropk, w, tog, fromg, g, gx, gxi, gxe, gw, scratch,
+                  iscratch, static_cast<cudaStream_t>(stream));
 }
 
-// so2_wgrads_probe's arrays hold 1 or 2 segments and a known A mode per problem
+// a probe's operand mode: 0 float32, 1 rounding (rbf16), 2 bf16 operands (b16); 1 when
+// every segment of the n problems (`per` ints each, its segments' modes at `at` + `step` s;
+// wgrad: column sums not counted) is in mode 2, 0 when none is, -1 when they mix
+int probe_b16(int n, const int* ints, int per, int at, int step, int nseg_max, bool wgrad) {
+  int twos = 0, all = 0;
+  for (int q = 0; q < n; ++q) {
+    const int* I = ints + q * per;
+    if (wgrad && I[1] == A_ONES) continue;
+    for (int s = 0; s < I[0] && s < nseg_max; ++s, ++all) twos += I[at + step * s] == 2;
+  }
+  return twos == 0 ? 0 : twos == all ? 1 : -1;
+}
+
+// so2_wgrads_probe's arrays hold 1 or 2 segments, a known A mode and operand modes 0-2 per
+// problem, and not both the bf16 operand mode and another
 bool probe_valid(int np, const int* ints) {
   for (int q = 0; q < np; ++q) {
     const int* I = ints + q * 13;
     if (I[0] < 1 || I[0] > 2 || I[1] < A_ROWS || I[1] > A_ONES) return false;
+    for (int s = 0; s < I[0]; ++s)
+      if (I[8 + 4 * s] < 0 || I[8 + 4 * s] > 2) return false;
   }
-  return true;
+  return probe_b16(np, ints, 13, 8, 4, 2, true) >= 0;
 }
 
 // the weight-gradient problems of so2_wgrads_probe's arrays (ptrs null: shapes only)
@@ -929,7 +1074,7 @@ std::vector<TNProb> probe_tprobs(int np, const int* ints, const void* const* ptr
       const int* J = I + 5 + 4 * s;
       p.seg[s] = TSeg{Q ? (const float*)Q[1 + 2 * s] : nullptr,
                       Q ? (const float*)Q[2 + 2 * s] : nullptr, J[0], J[1], (float)J[2], 0,
-                      J[3] != 0};
+                      J[3] == 1};
     }
     probs.push_back(p);
   }
@@ -943,10 +1088,12 @@ extern "C" {
 // 1 when the kernels are built for (l_max, m_max), else 0
 int eqv2_supported(int l_max, int m_max) { return supported(l_max, m_max) ? 1 : 0; }
 
-// float and int scratch the wrappers allocate (bwd 0: kernel O, 1: kernel P)
-long long eqv2_scratch_floats(int bwd, int B, int A, int K, int C, int CO, int EC, int NH, int VA,
-                              int l_max, int m_max) {
-  return scratch_floats(make_dims(B, A, K, C, CO, EC, NH, VA, 0, 0, l_max, m_max), bwd != 0);
+// float and int scratch the wrappers allocate (bwd 0: kernel O, 1: kernel P; bf16: the
+// bf16 mode's)
+long long eqv2_scratch_floats(int bwd, int bf16, int B, int A, int K, int C, int CO, int EC,
+                              int NH, int VA, int l_max, int m_max) {
+  return scratch_floats(make_dims(B, A, K, C, CO, EC, NH, VA, 0, 0, l_max, m_max), bwd != 0,
+                        bf16 != 0);
 }
 
 long long eqv2_scratch_ints(int B, int A, int K) { return scratch_ints(B, A, K); }
@@ -1000,13 +1147,21 @@ int eqv2_bwd_bf16(const float* x, const float* xi, const int* idx, const float* 
 // The product engine on one caller-given problem list (its card test and chip_smoke's
 // so2_products line). Rows 0..*n_rows-1 of max_rows, row list eidx (gather / scatter).
 // Per problem, 8 + 6 MAXSEG ints: nseg, gather, scatter, epi, n, ldc, ldc2, ldg, then per
-// segment (MAXSEG slots) lda, ldb, k, btrans, sign (+1 / -1), rbf16 (both operands rounded
-// to bf16: the bf16 mode); 4 + 2 MAXSEG pointers: c, c2,
-// bias, gate, then per segment a, b. prep: 2 * sum of n * k floats over the segments.
-// persistent: one block per SM over all the tiles (launch_products).
+// segment (MAXSEG slots) lda, ldb, k, btrans, sign (+1 / -1), mode (0 float32; 1 rbf16: both
+// operands rounded to bf16; 2 the bf16 operand mode: A bf16 values, B rounded in the prep;
+// 2 in every segment or in none); 4 + 2 MAXSEG pointers: c, c2, bias, gate, then per segment
+// a, b. prep: 2 * sum of n * k floats over the segments. persistent: one block per SM over
+// all the tiles (launch_products; not in mode 2).
 int so2_products_probe(int np, const int* ints, const void* const* ptrs, long long max_rows,
                        const int* n_rows, const int* eidx, float* prep, long long prep_floats,
                        int persistent, void* stream) {
+  for (int q = 0; q < np; ++q) {
+    const int* I = ints + q * (8 + 6 * MAXSEG);
+    for (int s = 0; s < I[0] && s < MAXSEG; ++s)
+      if (I[8 + 6 * s + 5] < 0 || I[8 + 6 * s + 5] > 2) return (int)cudaErrorInvalidValue;
+  }
+  const int b16 = probe_b16(np, ints, 8 + 6 * MAXSEG, 13, 6, MAXSEG, false);
+  if (b16 < 0) return (int)cudaErrorInvalidValue;
   std::vector<NNProb> probs;
   for (int q = 0; q < np; ++q) {
     const int* I = ints + q * (8 + 6 * MAXSEG);
@@ -1029,17 +1184,18 @@ int so2_products_probe(int np, const int* ints, const void* const* ptrs, long lo
       const int* J = I + 8 + 6 * s;
       p.seg[s] = seg((const float*)Q[4 + 2 * s], J[0], (const float*)Q[5 + 2 * s], J[1], J[2],
                      J[3] != 0, (float)J[4]);
-      p.seg[s].rbf16 = J[5] != 0;
+      p.seg[s].rbf16 = J[5] == 1;
     }
     probs.push_back(p);
   }
-  const Engine en{max_rows, n_rows, eidx, prep, prep_floats, nullptr, 0};
+  const Engine en{max_rows, n_rows, eidx, prep, prep_floats, nullptr, 0, 0, b16};
   return (int)launch_products(en, probs, static_cast<cudaStream_t>(stream), persistent != 0);
 }
 
 // Weight gradients on one caller-given problem list. Per problem, 13 ints:
 // nseg, amode (0 rows, 1 gather, 2 ones), m, n, ldo, then per segment (2 slots) lda, ldb,
-// sign, rbf16; 5 pointers: out, then per segment a, b. part: so2_wgrads_part_floats.
+// sign, mode (as so2_products_probe's; mode 2: A and B bf16 values, amode rows or ones);
+// 5 pointers: out, then per segment a, b. part: so2_wgrads_part_floats.
 long long so2_wgrads_part_floats(int np, const int* ints, long long max_rows) {
   if (!probe_valid(np, ints)) return -1;
   return wgrad_part_floats(max_rows, probe_tprobs(np, ints, nullptr));
@@ -1049,7 +1205,8 @@ int so2_wgrads_probe(int np, const int* ints, const void* const* ptrs, long long
                      const int* n_rows, const int* eidx, float* part, long long part_floats,
                      void* stream) {
   if (!probe_valid(np, ints)) return (int)cudaErrorInvalidValue;
-  const Engine en{max_rows, n_rows, eidx, nullptr, 0, part, part_floats};
+  const int b16 = probe_b16(np, ints, 13, 8, 4, 2, true);
+  const Engine en{max_rows, n_rows, eidx, nullptr, 0, part, part_floats, 0, b16};
   return (int)launch_wgrads(en, probe_tprobs(np, ints, ptrs), static_cast<cudaStream_t>(stream));
 }
 
@@ -1061,6 +1218,18 @@ int so2_live_rows_probe(const int* flags, int* eidx, int* pos, int* rs, int* n_r
     return (int)cudaErrorInvalidValue;
   return (int)live_rows(flags, eidx, pos, rs, n_rows, npairs, seg,
                         static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 mode's radial-product rows alone (eqv2_rows16_kernel): out[e] = xe[eidx[e]]
+// rounded to bf16, nearest-even, for e < *n_rows of max_rows; xe [., EC] float32 and out
+// [max_rows, EC], EC a multiple of 8.
+int eqv2_rows16_probe(const float* xe, const int* eidx, const int* n_rows, uint16_t* out,
+                      long long max_rows, int EC, void* stream) {
+  if (EC <= 0 || EC % 8 || max_rows < 0) return (int)cudaErrorInvalidValue;
+  if (max_rows == 0) return 0;
+  eqv2_rows16_kernel<<<(unsigned)std::min<long long>(max_rows, 2048), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(xe, eidx, n_rows, out, EC);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -37,6 +37,27 @@
 // its fragment load, B in the prep (products) or in the transposer warps (weight
 // gradients), each written as a TF32 value with lo = 0; so it runs the one pass, exactly the
 // product of the rounded values, summed in fp32 as every other mode.
+// The bf16 operand mode (an Engine's `b16`: M-P's mxu_bf16 mode where the kernels write their
+// products' operands as bf16) runs on Hopper's bf16 tensor cores, at twice the TF32 rate on
+// tiles of twice the k: operands are bf16 in device memory and in shared memory, a stage is
+// 64 k (128 bytes, the same 128-byte swizzle), and each k16 step is one
+// wgmma.m64n128k16.f32.bf16.bf16 with both operands read from shared memory through
+// descriptors (so2_mma16_kernel, so2_mmw16_kernel). A bf16 x bf16 product is exact in fp32,
+// so the mode gives `rbf16`'s products of the same rounded values, summed in another order.
+//   * products: so2_prep_kernel writes B once per launch as one K-major bf16 copy (rounded
+//     nearest-even); A comes by TMA (a bf16 box) or, gathered, by cp.async in 16-byte chunks
+//     of 8 values, swizzled by hand. A is not loaded to registers: the tensor cores read it
+//     from shared memory, so the consumers spend no instructions or registers on fragments
+//     and hold only the two accumulators. A segment's sign is applied where its stage's sum
+//     is added to the total (tot += sign * acc, exact): no negated copy of B, no per-value
+//     sign flips.
+//   * weight gradients: both operands are [rows, .] bf16 and come by TMA as raw [64 rows][64
+//     values] boxes; wgmma reads them as MN-major operands (its transpose bits, 16-bit types
+//     only), so this mode needs no transposer warps and no padded tile. Rows past a split's
+//     end (its last stage only) are zeroed in shared memory before the stage's wgmmas.
+//   * K and the row strides are multiples of 8 values (16-byte rows), checked on the host.
+// The 128 x 128 tile stays: a 256-wide one would need a warpgroup's stage sum and its total
+// in 2 x 128 registers a thread, past the 255 a thread may hold.
 //
 // A block: two consumer warpgroups, each 64 rows of the 128 x 128 tile (one m64 block), and
 // one producer warp, over a ring of STAGES k tiles of 32 (128 bytes of fp32) in dynamic
@@ -101,6 +122,13 @@ constexpr int B_TILE = BN * BK * 4;    // bytes of one B tile (hi or lo, or a ra
 constexpr int AW_TILE = BK * APAD * 4;  // bytes of a weight-gradient A tile
 constexpr int MMA_SMEM = 1024 + STAGES * (A_TILE + 2 * B_TILE) + 2 * STAGES * 8 + BM * 4;
 constexpr int MMW_SMEM = 1024 + WSTAGES * (3 * B_TILE + AW_TILE) + 3 * WSTAGES * 8;
+// the bf16 operand mode
+constexpr int BK16 = 64;                // k of a stage: 128 bytes of bf16
+constexpr int STAGES16 = 6;             // its rings' depth
+constexpr int TILE16 = BM * BK16 * 2;   // bytes of an A or B tile (BM == BN)
+constexpr int BOX16 = TILE16 / 2;       // a weight-gradient box: [64 rows][64 values]
+constexpr int MMA16_SMEM = 1024 + STAGES16 * 2 * TILE16 + 2 * STAGES16 * 8 + BM * 4;
+constexpr int MMW16_SMEM = 1024 + STAGES16 * 2 * TILE16 + 2 * STAGES16 * 8;
 
 enum { EPI_STORE = 0, EPI_GATES = 1, EPI_GATED = 2 };
 
@@ -164,11 +192,21 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_by
 __device__ __forceinline__ float bf16_bits(uint16_t h) {
   return __uint_as_float((uint32_t)h << 16);
 }
-// x rounded to bf16, nearest-even, as the fp32 value it is
-__device__ __forceinline__ float round_bf16(float x) {
+// x rounded to bf16, nearest-even (cvt.rn, as astype(bfloat16)): its bits
+__device__ __forceinline__ uint16_t bf16_rn(float x) {
   uint16_t h;
   asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
-  return bf16_bits(h);
+  return h;
+}
+// x rounded to bf16, nearest-even, as the fp32 value it is
+__device__ __forceinline__ float round_bf16(float x) { return bf16_bits(bf16_rn(x)); }
+// an output element: float32, or (B16) its bf16 rounding, nearest-even
+template <bool B16>
+__device__ __forceinline__ void put(void* p, long long i, float v) {
+  if constexpr (B16)
+    static_cast<uint16_t*>(p)[i] = bf16_rn(v);
+  else
+    static_cast<float*>(p)[i] = v;
 }
 __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
                                        int c1) {
@@ -229,6 +267,41 @@ __device__ __forceinline__ void keep(uint32_t (&a)[4]) {
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   const uint64_t a = smem_u32(tile);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// shared-memory descriptor of an MN-major operand of 16-bit values (the bf16 weight
+// gradients): boxes of [rows (k)][64 values (m or n)], 128 bytes a row, 128-byte swizzle,
+// `lbo` bytes from one box to the next along m or n; 8-row groups of k 1024 bytes apart; the
+// k16 step j is desc + 128 j (2048 bytes)
+__device__ __forceinline__ uint64_t desc_mn128(const void* tile, uint32_t lbo) {
+  const uint64_t a = smem_u32(tile);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d[64x128] = A[64x16] B[16x128] + (acc ? d : 0), bf16 operands in shared memory through
+// descriptors (TRANS 0: both K-major; 1: both MN-major), fp32 sums
+template <int TRANS>
+__device__ __forceinline__ void mma_bf16(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TRANS));
 }
 
 // d[64x128] = A[64x8] (registers, TF32) B[8x128] (shared, K-major TF32) + (acc ? d : 0)
@@ -297,6 +370,23 @@ __device__ __forceinline__ void stage_mma(float (&acc)[64], float (&tot)[64], ui
     keep(al[b]);
   }
   promote(tot, acc);
+}
+
+// one bf16 stage (64 k) of a warpgroup's m64 block: its four k16 steps summed from zero on
+// the tensor cores, then added, times the segment's sign, to the fp32 total, rounded to
+// nearest (the same rule as stage_mma's; the negation is exact). `step`: the descriptors'
+// advance a k16 step (K-major: 2, 32 bytes; MN-major: 128, 2048 bytes).
+template <int TRANS>
+__device__ __forceinline__ void stage_mma16(float (&acc)[64], float (&tot)[64], uint64_t da,
+                                            uint64_t db, int step, float sign) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK16 / 16; ++kk) mma_bf16<TRANS>(acc, da + kk * step, db + kk * step, kk);
+  wg_commit();
+  wg_wait0();
+  keep(acc);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] = fmaf(sign, acc[i], tot[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -369,6 +459,55 @@ __device__ __forceinline__ float a_sw(const float* t, int r, int k) {
 // row r at c ^ (r & 7) (the fragment loads are conflict-free)
 __device__ __forceinline__ float a_sw16(const uint16_t* t, int r, int k) {
   return bf16_bits(t[r * BK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3)]);
+}
+
+// the epilogue of a product tile: tot[4i + 2h + q] is row rb + 8 h, column 8 i + 2 t + q. A
+// row's bias and gate values are all loaded before any is used, so that their latencies
+// overlap (one after another they would cost a tile of small K more than its products)
+__device__ __forceinline__ void mm_epilogue(const MMProb& P, const float (&tot)[64], int m0,
+                                            int n0, int rb, int t, int nr,
+                                            const int* __restrict__ eidx) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + rb + h * 8;
+    if (r >= nr) continue;
+    const long long orow = P.scatter ? (long long)eidx[r] : (long long)r;
+    const int c0 = n0 + 2 * t;  // column of v[i] is c0 + 8 i
+    float2 v[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) v[i] = make_float2(tot[4 * i + 2 * h], tot[4 * i + 2 * h + 1]);
+    if (P.epi != EPI_STORE && P.bias) {
+      float2 bb[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        bb[i] = c0 + 8 * i < P.n ? *reinterpret_cast<const float2*>(P.bias + c0 + 8 * i)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = make_float2(v[i].x + bb[i].x, v[i].y + bb[i].y);
+    }
+    if (P.c) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (c0 + 8 * i < P.n) *reinterpret_cast<float2*>(P.c + orow * P.ldc + c0 + 8 * i) = v[i];
+    }
+    if (P.epi == EPI_STORE || !P.c2) continue;
+    if (P.epi == EPI_GATES) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = make_float2(silu(v[i].x), silu(v[i].y));
+    } else {  // gate may be c2 itself: each element read and written by one thread
+      const float* gr = P.gate + (long long)r * P.ldg + c0;
+      float2 gg[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        gg[i] = c0 + 8 * i < P.n ? *reinterpret_cast<const float2*>(gr + 8 * i)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = make_float2(v[i].x * gg[i].x, v[i].y * gg[i].y);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (c0 + 8 * i < P.n) *reinterpret_cast<float2*>(P.c2 + orow * P.ldc2 + c0 + 8 * i) = v[i];
+  }
 }
 
 // One BM x BN tile of one problem a block (blockIdx.x the tile's id, mm_tile), or, PERSIST,
@@ -511,60 +650,106 @@ __global__ void __launch_bounds__(GT, 1) so2_mma_kernel(const __grid_constant__ 
       }
     }
 
-    // epilogue: tot[4i + 2h + q] is row rb + 8 h, column 8 i + 2 t + q. A row's bias and gate
-    // values are all loaded before any is used, so that their latencies overlap (one after
-    // another they would cost a tile of small K more than its products)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + rb + h * 8;
-      if (r >= nr) continue;
-      const long long orow = P.scatter ? (long long)eidx[r] : (long long)r;
-      const int c0 = n0 + 2 * t;  // column of v[i] is c0 + 8 i
-      float2 v[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) v[i] = make_float2(tot[4 * i + 2 * h], tot[4 * i + 2 * h + 1]);
-      if (P.epi != EPI_STORE && P.bias) {
-        float2 bb[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          bb[i] = c0 + 8 * i < P.n ? *reinterpret_cast<const float2*>(P.bias + c0 + 8 * i)
-                                   : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) v[i] = make_float2(v[i].x + bb[i].x, v[i].y + bb[i].y);
-      }
-      if (P.c) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          if (c0 + 8 * i < P.n) *reinterpret_cast<float2*>(P.c + orow * P.ldc + c0 + 8 * i) = v[i];
-      }
-      if (P.epi == EPI_STORE || !P.c2) continue;
-      if (P.epi == EPI_GATES) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) v[i] = make_float2(silu(v[i].x), silu(v[i].y));
-      } else {  // gate may be c2 itself: each element read and written by one thread
-        const float* gr = P.gate + (long long)r * P.ldg + c0;
-        float2 gg[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          gg[i] = c0 + 8 * i < P.n ? *reinterpret_cast<const float2*>(gr + 8 * i)
-                                   : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) v[i] = make_float2(v[i].x * gg[i].x, v[i].y * gg[i].y);
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        if (c0 + 8 * i < P.n) *reinterpret_cast<float2*>(P.c2 + orow * P.ldc2 + c0 + 8 * i) = v[i];
-    }
+    mm_epilogue(P, tot, m0, n0, rb, t, nr, eidx);
   }
 }
 
+// The bf16 operand mode's products: one BM x BN tile of one problem a block (blockIdx.x the
+// tile's id, mm_tile; row tiles past *n_rows exit), the k tiles of all its segments as one
+// sequence through a ring of STAGES16 stages. A [rows, K] and B (the prep's [N][K] copy) are
+// bf16, K-major, 128-byte swizzled; each warpgroup's m64 rows of A and the whole B tile go to
+// the tensor cores through descriptors.
+__global__ void __launch_bounds__(GT, 1) so2_mma16_kernel(const __grid_constant__ MMBatch bt,
+                                                           const int* __restrict__ n_rows,
+                                                           const int* __restrict__ eidx) {
+  extern __shared__ uint8_t smem_raw[];
+  const int nr = *n_rows;
+  int m0, n0;
+  const MMProb& P = bt.p[mm_tile(bt, blockIdx.x, m0, n0)];
+  if (m0 >= nr) return;
+
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* As = base;                       // STAGES16 x [BM][BK16] bf16
+  uint8_t* Bs = base + STAGES16 * TILE16;   // STAGES16 x [BN][BK16] bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * STAGES16 * TILE16);
+  uint64_t* empty = full + STAGES16;
+  int* ridx = reinterpret_cast<int*>(empty + STAGES16);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES16; ++s) {
+      mbar_init(full + s, 33);  // the producer's 32 lanes and its expect_tx
+      mbar_init(empty + s, 8);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (P.gather) {
+      for (int r = lane; r < BM; r += 32) ridx[r] = m0 + r < nr ? eidx[m0 + r] : -1;
+      __syncwarp();
+    }
+    int it = 0;
+    for (int s = 0; s < P.nseg; ++s) {
+      const MMSeg& S = P.seg[s];
+      for (int k0 = 0; k0 < S.k; k0 += BK16, ++it) {
+        const int st = it % STAGES16;
+        mbar_wait(empty + st, ((it / STAGES16) & 1) ^ 1);
+        uint8_t* at = As + st * TILE16;
+        if (lane == 0) {
+          mbar_expect_tx(full + st, TILE16 + (P.gather ? 0 : TILE16));
+          tma_2d(Bs + st * TILE16, &S.bmap, full + st, k0, n0);
+          if (!P.gather) tma_2d(at, &S.amap, full + st, k0, m0);
+        }
+        if (P.gather) {  // lane: 16-byte chunk c (8 values) of rows lane/8, +4, ...
+          const int c = lane & 7;
+          const bool k_ok = k0 + c * 8 < S.k;
+          const uint16_t* a16 = reinterpret_cast<const uint16_t*>(S.a);
+          for (int r = lane >> 3; r < BM; r += 4) {
+            const int row = ridx[r];
+            const bool ok = k_ok && row >= 0;
+            const uint16_t* src = ok ? a16 + (long long)row * S.lda + k0 + c * 8 : a16;
+            cp_async16(at + r * 128 + ((c ^ (r & 7)) << 4), src, ok ? 16 : 0);
+          }
+          cp_async_arrive(full + st);
+        } else {
+          mbar_arrive(full + st);
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  // consumers: warpgroup wg holds rows wg*64 .. +63 of the tile (one m64 block)
+  const int wg = warp >> 2, t = lane & 3;
+  const int rb = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // the fragments' first row
+  float acc[64], tot[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+  int it = 0;
+  for (int s = 0; s < P.nseg; ++s) {
+    const float sign = P.seg[s].sign;
+    for (int k0 = 0; k0 < P.seg[s].k; k0 += BK16, ++it) {
+      const int st = it % STAGES16;
+      mbar_wait(full + st, (it / STAGES16) & 1);
+      // gathered rows came by cp.async (the generic proxy): order them before wgmma's reads
+      if (P.gather) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      stage_mma16<0>(acc, tot, desc_sw128(As + st * TILE16 + wg * 64 * 128),
+                     desc_sw128(Bs + st * TILE16), 2, sign);
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+  }
+  mm_epilogue(P, tot, m0, n0, rb, t, nr, eidx);
+}
+
 // the B halves of a launch's segments: dst [2][N][K] (hi, lo) from B [K, N] (ld) or, btrans,
-// from B^T [N, K] (ld), or, rnd, B rounded to bf16 and lo = 0; one 32 x 32 tile a block,
-// through shared memory
+// from B^T [N, K] (ld), or, rnd, B rounded to bf16 and lo = 0, or, b16 (the bf16 operand
+// mode), one [N][K] copy of B rounded to bf16; one 32 x 32 tile a block, through shared memory
 struct PrepJob {
   const float* src;
   float* dst;
-  int ld, k, n, btrans, tiles_k, tile0, rnd;
+  int ld, k, n, btrans, tiles_k, tile0, rnd, b16;
 };
 
 struct PrepBatch {
@@ -593,6 +778,10 @@ __global__ void __launch_bounds__(256) so2_prep_kernel(const __grid_constant__ P
   for (int i = ty; i < 32; i += 8) {
     const int n = n0 + i, k = k0 + tx;
     if (n >= J.n || k >= J.k) continue;
+    if (J.b16) {
+      reinterpret_cast<uint16_t*>(J.dst)[(long long)n * J.k + k] = bf16_rn(tile[i][tx]);
+      continue;
+    }
     uint32_t hi, lo;
     if (J.rnd)
       round_tf32(tile[i][tx], hi, lo);
@@ -627,7 +816,8 @@ struct TNProb {
 };
 
 struct MWSeg {
-  CUtensorMap bmap;  // B [max_rows, N], boxes of BK x BN (no swizzle)
+  CUtensorMap bmap;  // B [max_rows, N], boxes of BK x BN (no swizzle); b16: 64 x 64, swizzled
+  CUtensorMap amap;  // b16: A [max_rows, M], boxes of 64 x 64, swizzled (else unused)
   const float* a;
   int lda;
   float sign;
@@ -653,9 +843,10 @@ __device__ __forceinline__ int mw_problem(const MWBatch& bt, int t) {
   return pi;
 }
 
-// the rows [lo, hi) of split sp: chunks of whole k tiles, fixed by n_rows and spl
+// the rows [lo, hi) of split sp: chunks of whole k tiles (of KT rows), fixed by n_rows and spl
+template <int KT = BK>
 __device__ __forceinline__ void split_rows(int nr, int spl, int sp, int& lo, int& hi) {
-  const int chunk = ((nr + spl - 1) / spl + BK - 1) / BK * BK;
+  const int chunk = ((nr + spl - 1) / spl + KT - 1) / KT * KT;
   lo = min(nr, sp * chunk);
   hi = min(nr, lo + chunk);
 }
@@ -680,6 +871,27 @@ __device__ __forceinline__ void transpose_b(const float* raw, float* th, int tt,
     const int o = n * BK + ((c ^ (n & 7)) << 2);  // 128-byte swizzle
     *reinterpret_cast<uint4*>(th + o) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
     *reinterpret_cast<uint4*>(th + BN * BK + o) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+  }
+}
+
+// a weight-gradient tile's epilogue: out (spl 1) or the split's partial tile
+__device__ __forceinline__ void mw_epilogue(const MWBatch& bt, const MWProb& P,
+                                            const float (&tot)[64], int tl, int sp, int m0,
+                                            int n0, int rb, int t, float* __restrict__ part) {
+  float* o = bt.spl > 1 ? part + P.part + ((long long)tl * bt.spl + sp) * BM * BN : nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rb + h * 8;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = i * 8 + 2 * t;
+      const float2 v = make_float2(tot[4 * i + 2 * h], tot[4 * i + 2 * h + 1]);
+      if (o) {
+        *reinterpret_cast<float2*>(o + r * BN + col) = v;
+      } else if (m0 + r < P.m && n0 + col < P.n) {
+        *reinterpret_cast<float2*>(P.out + (long long)(m0 + r) * P.ldo + n0 + col) = v;
+      }
+    }
   }
 }
 
@@ -825,21 +1037,90 @@ __global__ void __launch_bounds__(GTW, 1) so2_mmw_kernel(const __grid_constant__
     }
   }
 
-  float* o = bt.spl > 1 ? part + P.part + ((long long)tl * bt.spl + sp) * BM * BN : nullptr;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = rb + h * 8;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int col = i * 8 + 2 * t;
-      const float2 v = make_float2(tot[4 * i + 2 * h], tot[4 * i + 2 * h + 1]);
-      if (o) {
-        *reinterpret_cast<float2*>(o + r * BN + col) = v;
-      } else if (m0 + r < P.m && n0 + col < P.n) {
-        *reinterpret_cast<float2*>(P.out + (long long)(m0 + r) * P.ldo + n0 + col) = v;
+  mw_epilogue(bt, P, tot, tl, sp, m0, n0, rb, t, part);
+}
+
+// The bf16 operand mode's weight gradients: one BM x BN tile of out over the rows of split
+// blockIdx.y, as so2_mmw_kernel, with both operands bf16 [rows, .] by TMA: a stage holds A's
+// two boxes [64 rows][64 m] and B's two [64 rows][64 n], which wgmma reads MN-major (a
+// warpgroup: its A box, both B boxes). A split's last stage may run past its rows: the
+// consumers zero those rows of the four boxes first (rows past the split may be live rows of
+// the next one, or past the live count).
+__global__ void __launch_bounds__(GT, 1) so2_mmw16_kernel(const __grid_constant__ MWBatch bt,
+                                                           const int* __restrict__ n_rows,
+                                                           float* __restrict__ part) {
+  extern __shared__ uint8_t smem_raw[];
+  const int pi = mw_problem(bt, blockIdx.x);
+  const MWProb& P = bt.p[pi];
+  const int tl = blockIdx.x - bt.tile0[pi], sp = blockIdx.y;
+  const int m0 = (tl / P.tiles_n) * BM, n0 = (tl % P.tiles_n) * BN;
+  int lo, hi;
+  split_rows<BK16>(*n_rows, bt.spl, sp, lo, hi);
+  const int nk = (hi - lo + BK16 - 1) / BK16;  // k tiles of each segment
+
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* As = base;                      // STAGES16 x 2 boxes [BK16][64] (m)
+  uint8_t* Bs = base + STAGES16 * TILE16;  // STAGES16 x 2 boxes [BK16][64] (n)
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * STAGES16 * TILE16);
+  uint64_t* empty = full + STAGES16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES16; ++s) {
+      mbar_init(full + s, 1);   // the producer's expect_tx
+      mbar_init(empty + s, 8);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: one lane issues the four boxes of a stage
+    if (lane == 0) {
+      int it = 0;
+      for (int s = 0; s < P.nseg; ++s) {
+        const MWSeg& S = P.seg[s];
+        for (int q = 0; q < nk; ++q, ++it) {
+          const int st = it % STAGES16, e0 = lo + q * BK16;
+          mbar_wait(empty + st, ((it / STAGES16) & 1) ^ 1);
+          mbar_expect_tx(full + st, 2 * TILE16);
+          tma_2d(As + st * TILE16, &S.amap, full + st, m0, e0);
+          tma_2d(As + st * TILE16 + BOX16, &S.amap, full + st, m0 + 64, e0);
+          tma_2d(Bs + st * TILE16, &S.bmap, full + st, n0, e0);
+          tma_2d(Bs + st * TILE16 + BOX16, &S.bmap, full + st, n0 + 64, e0);
+        }
       }
     }
+    return;
   }
+
+  const int wg = warp >> 2, t = lane & 3;
+  const int rb = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  float acc[64], tot[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+  int it = 0;
+  for (int s = 0; s < P.nseg; ++s) {
+    const float sign = P.seg[s].sign;
+    for (int q = 0; q < nk; ++q, ++it) {
+      const int st = it % STAGES16;
+      mbar_wait(full + st, (it / STAGES16) & 1);
+      const int valid = hi - (lo + q * BK16);  // rows of the split in this stage
+      if (valid < BK16) {  // zero rows valid.. of the four boxes (whole 128-byte lines)
+        const int per = (BK16 - valid) * 8;  // 16-byte chunks a box
+        for (int u = tid; u < 4 * per; u += 256) {
+          const int box = u / per, j = u - box * per;
+          uint8_t* b = (box < 2 ? As : Bs) + st * TILE16 + (box & 1) * BOX16;
+          *reinterpret_cast<uint4*>(b + (valid + j / 8) * 128 + (j & 7) * 16) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma's reads
+        asm volatile("bar.sync 1, 256;" ::: "memory");                // both warpgroups
+      }
+      stage_mma16<1>(acc, tot, desc_mn128(As + st * TILE16 + wg * BOX16, BOX16),
+                     desc_mn128(Bs + st * TILE16, BOX16), 128, sign);
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+  }
+  mw_epilogue(bt, P, tot, tl, sp, m0, n0, rb, t, part);
 }
 
 // out = the spl partial tiles summed in order: the same bits every run. Block (x, y) sums
@@ -1163,13 +1444,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a float32 tensor map of `rank` dimensions (innermost first; strides in bytes of
+// a float32 (or `dt`) tensor map of `rank` dimensions (innermost first; strides in bytes of
 // dimensions 1..), boxes of `box`, zeros outside the tensor; false if refused
 bool make_map(CUtensorMap* m, const void* base, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box, bool swizzle) {
+              const cuuint64_t* strides, const cuuint32_t* box, bool swizzle,
+              CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   const EncodeTiledFn f = encode_tiled();
   const cuuint32_t es[3] = {1, 1, 1};
-  return f && f(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank, const_cast<void*>(base),
+  return f && f(m, dt, (cuuint32_t)rank, const_cast<void*>(base),
                 dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1178,6 +1460,16 @@ bool make_map(CUtensorMap* m, const void* base, int rank, const cuuint64_t* dims
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 bool aligned8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
+
+// a bf16 [rows, cols] view (row stride ld values) as a 2-D tensor map of boxes
+// [box_rows][box_cols], 128-byte swizzle, zeros outside the view; false if refused
+bool map16(CUtensorMap* m, const void* base, long long cols, long long rows, long long ld,
+           int box_cols, int box_rows) {
+  const cuuint64_t d[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t st[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t bx[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return make_map(m, base, 2, d, st, bx, true, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
 
 // what every launch of the engine shares: the row list and the scratch
 struct Engine {
@@ -1189,6 +1481,8 @@ struct Engine {
   float* part;         // weight-gradient partials (part_cap floats)
   long long part_cap;
   int rbf16;           // every segment of its launches in the bf16-rounding mode
+  int b16;             // every product and weight gradient in the bf16 operand mode: A (and
+                       // a weight gradient's B) bf16 values at the segments' pointers
 };
 
 Seg seg(const float* a, int lda, const float* b, int ldb, int k, bool btrans = false,
@@ -1216,15 +1510,19 @@ NNProb gated(NNProb p, const float* gate, int ldg) {
 }
 
 // the products over rows 0..*n_rows-1 of at most max_rows: per batch of NN_MAXP problems,
-// the B halves of each distinct segment, then the tiles (those past the count exit). A
-// persistent launch runs one block per SM over all the tiles (for products of small K,
-// whose blocks would otherwise be mostly set-up and epilogue).
+// the B halves of each distinct segment (the bf16 operand mode: one bf16 copy), then the
+// tiles (those past the count exit). A persistent launch runs one block per SM over all the
+// tiles (for products of small K, whose blocks would otherwise be mostly set-up and
+// epilogue; not in the bf16 operand mode).
 cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, cudaStream_t st,
                             bool persistent = false) {
   if (en.max_rows <= 0) return cudaSuccess;
-  const auto kernel = persistent ? so2_mma_kernel<true> : so2_mma_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);
+  if (en.b16 && persistent) return cudaErrorInvalidValue;
+  const auto kernel = en.b16        ? so2_mma16_kernel
+                      : persistent ? so2_mma_kernel<true>
+                                   : so2_mma_kernel<false>;
+  const int smem = en.b16 ? MMA16_SMEM : MMA_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int row_tiles = (int)((en.max_rows + BM - 1) / BM);
   for (size_t i0 = 0; i0 < probs.size(); i0 += NN_MAXP) {
@@ -1251,11 +1549,15 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
       if (P.n % 4 || P.ldc % 4 || P.ldc2 % 4 || P.ldg % 4) return cudaErrorInvalidValue;
       for (int s = 0; s < src.nseg; ++s) {
         const Seg& S = src.seg[s];
-        const int rnd = S.rbf16 || en.rbf16;
-        // bf16 A: gathered rows only, 8-byte aligned (the gather's chunks); rounding: fp32 A
-        if (S.k % 4 || S.lda % 4 || (S.abf16 ? !P.gather || !aligned8(S.a) : !aligned16(S.a)) ||
-            (rnd && S.abf16))
+        const int rnd = !en.b16 && (S.rbf16 || en.rbf16);
+        if (en.b16) {  // bf16 A, rows of 16-byte multiples, by TMA or 16-byte cp.async chunks
+          if (S.k % 8 || S.lda % 8 || !aligned16(S.a) || S.abf16 || S.one || S.rbf16)
+            return cudaErrorInvalidValue;
+        } else if (S.k % 4 || S.lda % 4 ||  // bf16 A: gathered rows only, 8-byte aligned (the
+                                            // gather's chunks); rounding: fp32 A
+                   (S.abf16 ? !P.gather || !aligned8(S.a) : !aligned16(S.a)) || (rnd && S.abf16)) {
           return cudaErrorInvalidValue;
+        }
         // one prep job per distinct (b, ldb, btrans, K, N, rounding)
         float* dst = nullptr;
         for (int j = 0; j < pb.nj; ++j) {
@@ -1266,10 +1568,11 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
         }
         if (!dst) {
           dst = en.prep + off;
-          off += 2LL * P.n * S.k;
+          // bf16 copies: n k / 2 floats, 16-byte multiples (K % 8 == 0)
+          off += en.b16 ? (long long)P.n * S.k / 2 : 2LL * P.n * S.k;
           if (off > en.prep_cap) return cudaErrorInvalidValue;
           PrepJob& J = pb.j[pb.nj++];
-          J = PrepJob{S.b, dst, S.ldb, S.k, P.n, S.btrans, (S.k + 31) / 32, ptiles, rnd};
+          J = PrepJob{S.b, dst, S.ldb, S.k, P.n, S.btrans, (S.k + 31) / 32, ptiles, rnd, en.b16};
           ptiles += J.tiles_k * ((P.n + 31) / 32);
         }
         MMSeg& M = P.seg[s];
@@ -1277,6 +1580,12 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
         M.lda = S.lda;
         M.k = S.k;
         M.sign = S.sign;
+        if (en.b16) {
+          if (!map16(&M.bmap, dst, S.k, P.n, S.k, BK16, BN) ||
+              (!P.gather && !map16(&M.amap, S.a, S.k, en.max_rows, S.lda, BK16, BM)))
+            return cudaErrorInvalidValue;
+          continue;
+        }
         M.abf16 = S.abf16;
         M.one = S.one || rnd;
         M.rbf16 = rnd;
@@ -1299,8 +1608,8 @@ cudaError_t launch_products(const Engine& en, const std::vector<NNProb>& probs, 
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const long long blocks = (long long)(row_tiles + GROUP - 1) / GROUP * GROUP * bt.tiles;
     bt.jobs = (int)blocks;
-    kernel<<<(unsigned)(persistent ? std::min(blocks, (long long)SMS) : blocks), GT, MMA_SMEM,
-             st>>>(bt, en.n_rows, en.eidx);
+    kernel<<<(unsigned)(persistent ? std::min(blocks, (long long)SMS) : blocks), GT, smem, st>>>(
+        bt, en.n_rows, en.eidx);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -1391,8 +1700,12 @@ cudaError_t launch_wgrads(const Engine& en, const std::vector<TNProb>& probs, cu
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (mats.empty() || en.max_rows <= 0) return cudaSuccess;
-  if ((err = cudaFuncSetAttribute(so2_mmw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  MMW_SMEM)) != cudaSuccess)
+  if ((err = en.b16 ? cudaFuncSetAttribute(so2_mmw16_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           MMW16_SMEM)
+                    : cudaFuncSetAttribute(so2_mmw_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           MMW_SMEM)) != cudaSuccess)
     return err;
   for (size_t i0 = 0; i0 < mats.size(); i0 += TN_MAXP) {
     MWBatch bt{};
@@ -1415,13 +1728,21 @@ cudaError_t launch_wgrads(const Engine& en, const std::vector<TNProb>& probs, cu
       if (src.n % 4 || src.m % 4 || src.ldo % 2) return cudaErrorInvalidValue;
       for (int s = 0; s < src.nseg; ++s) {
         const TSeg& S = src.seg[s];
+        P.seg[s].a = S.a;
+        P.seg[s].lda = S.lda;
+        P.seg[s].sign = S.sign;
+        if (en.b16) {  // bf16 A and B rows, both by TMA: no gather
+          if (P.gather || S.lda % 8 || S.ldb % 8 || !aligned16(S.a) || !aligned16(S.b) ||
+              S.abf16 || S.rbf16 ||
+              !map16(&P.seg[s].amap, S.a, src.m, en.max_rows, S.lda, 64, BK16) ||
+              !map16(&P.seg[s].bmap, S.b, src.n, en.max_rows, S.ldb, 64, BK16))
+            return cudaErrorInvalidValue;
+          continue;
+        }
         const int rnd = S.rbf16 || en.rbf16;
         if (S.lda % 4 || S.ldb % 4 || !(S.abf16 ? aligned8(S.a) : aligned16(S.a)) ||
             !aligned16(S.b) || (rnd && S.abf16))
           return cudaErrorInvalidValue;
-        P.seg[s].a = S.a;
-        P.seg[s].lda = S.lda;
-        P.seg[s].sign = S.sign;
         P.seg[s].abf16 = S.abf16;
         P.seg[s].rbf16 = rnd;
         const cuuint64_t d[2] = {(cuuint64_t)src.n, (cuuint64_t)en.max_rows};
@@ -1433,7 +1754,10 @@ cudaError_t launch_wgrads(const Engine& en, const std::vector<TNProb>& probs, cu
       t += (int)out_tiles(src.m, src.n);
     }
     bt.tile0[bt.np] = t;
-    so2_mmw_kernel<<<dim3(t, bt.spl), GTW, MMW_SMEM, st>>>(bt, en.n_rows, en.eidx, en.part);
+    if (en.b16)
+      so2_mmw16_kernel<<<dim3(t, bt.spl), GT, MMW16_SMEM, st>>>(bt, en.n_rows, en.part);
+    else
+      so2_mmw_kernel<<<dim3(t, bt.spl), GTW, MMW_SMEM, st>>>(bt, en.n_rows, en.eidx, en.part);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (bt.spl > 1) {
       int chunks = 1;  // of each tile (a power of two dividing BM * BN), for >= 2 blocks an SM

@@ -228,7 +228,7 @@ def _lib() -> ctypes.CDLL:
     p, i, pp, ll = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong
     lib.eqv2_supported.argtypes = [i, i]
     lib.eqv2_supported.restype = i
-    lib.eqv2_scratch_floats.argtypes = [i] * 11
+    lib.eqv2_scratch_floats.argtypes = [i] * 12
     lib.eqv2_scratch_floats.restype = ll
     lib.eqv2_scratch_ints.argtypes = [i] * 3
     lib.eqv2_scratch_ints.restype = ll
@@ -247,6 +247,8 @@ def _lib() -> ctypes.CDLL:
     lib.so2_wgrads_probe.restype = i
     lib.so2_live_rows_probe.argtypes = [p] * 5 + [ll, i, p]
     lib.so2_live_rows_probe.restype = i
+    lib.eqv2_rows16_probe.argtypes = [p] * 4 + [ll, i, p]
+    lib.eqv2_rows16_probe.restype = i
     return lib
 
 
@@ -296,7 +298,7 @@ def _launch(name: str, dev, *args) -> None:
     _kernels.raise_on_error(err, f"{name} launch")
 
 
-def _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, bwd: bool):
+def _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, bwd: bool, mxu_bf16: bool):
     """(idx as int32, the grid tables, scratch, the int arguments) of a launch."""
     dev = x.device
     b, a, s, c = x.shape
@@ -306,8 +308,8 @@ def _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, bwd: bool):
     tog = _table("to_g", l_max, m_max, n_grid, str(dev))
     fromg = _table("from_g", l_max, m_max, n_grid, str(dev))
     lib = _lib()
-    fs = torch.empty(lib.eqv2_scratch_floats(int(bwd), b, a, k, c, co, ec, nh, va, l_max, m_max),
-                     dtype=torch.float32, device=dev)
+    fs = torch.empty(lib.eqv2_scratch_floats(int(bwd), int(mxu_bf16), b, a, k, c, co, ec, nh, va,
+                                             l_max, m_max), dtype=torch.float32, device=dev)
     iscr = torch.empty(lib.eqv2_scratch_ints(b, a, k), dtype=torch.int32, device=dev)
     ints = (b, a, k, c, co, ec, nh, va, so3.trunc_compact_layout(l_max, m_max)[1], tog.shape[0],
             l_max, m_max)
@@ -321,7 +323,8 @@ def eqv2_fwd(x, xi, idx, d, xe, maskf, dropk, *ws, l_max: int, m_max: int, n_gri
     kw = dict(l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh, mxu_bf16=mxu_bf16)
     if dev.type == "cpu":
         return eqv2_fwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, **kw)
-    idx32, tog, fromg, fs, iscr, ints = _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, False)
+    idx32, tog, fromg, fs, iscr, ints = _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, False,
+                                                   mxu_bf16)
     b, a, s, _ = x.shape
     out = torch.empty((b, a, s, _dims(ws, l_max, m_max, nh)[0]), dtype=torch.float32, device=dev)
     name = "eqv2_fwd_bf16" if mxu_bf16 else "eqv2_fwd"
@@ -342,7 +345,8 @@ def eqv2_bwd(x, xi, idx, d, xe, maskf, dropk, *ws, g, l_max: int, m_max: int, n_
     kw = dict(l_max=l_max, m_max=m_max, n_grid=n_grid, nh=nh, mxu_bf16=mxu_bf16)
     if dev.type == "cpu":
         return eqv2_bwd_reference(x, xi, idx, d, xe, maskf, dropk, *ws, g=g, **kw)
-    idx32, tog, fromg, fs, iscr, ints = _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, True)
+    idx32, tog, fromg, fs, iscr, ints = _card_args(x, idx, xe, ws, l_max, m_max, n_grid, nh, True,
+                                                   mxu_bf16)
     gx, gxi = torch.empty_like(x), torch.empty_like(xi)
     gxe = torch.zeros_like(xe)  # the kernel writes the live edges' rows only
     gws = [torch.empty_like(w) for w in ws]
@@ -432,11 +436,11 @@ WGRAD_MODES = {"rows": 0, "gather": 1, "ones": 2}
 MAXSEG = 4  # so2_common.cuh's segments per product
 
 
-def _rows(t: torch.Tensor, rows: int = 0, cols: int = 0) -> tuple:
-    """(pointer, row stride) of a float32 2-D view with unit column stride and
-    at least `rows` x `cols` elements."""
-    if t.ndim != 2 or t.stride(1) != 1 or t.dtype != torch.float32:
-        raise ValueError(f"expected a float32 2-D view with unit column stride, got "
+def _rows(t: torch.Tensor, rows: int = 0, cols: int = 0, dtype=torch.float32) -> tuple:
+    """(pointer, row stride) of a 2-D view of `dtype` with unit column stride
+    and at least `rows` x `cols` elements."""
+    if t.ndim != 2 or t.stride(1) != 1 or t.dtype != dtype:
+        raise ValueError(f"expected a {dtype} 2-D view with unit column stride, got "
                          f"{t.dtype} strides {tuple(t.stride())}")
     if t.shape[0] < rows or t.shape[1] < cols:
         raise ValueError(f"a view of shape {tuple(t.shape)} is smaller than {rows} x {cols}")
@@ -451,9 +455,28 @@ def _row_list(eidx, n_rows: int, dev) -> torch.Tensor:
     return eidx.contiguous()
 
 
+def _operand_mode(sg: dict) -> int:
+    """A segment's operand mode as the engine's probes take it: 0 float32,
+    1 "rbf16" (both operands rounded to bf16), 2 "bf16" (the bf16 operand
+    mode: A bf16 values, B rounded to bf16 once per launch)."""
+    if sg.get("rbf16") and sg.get("bf16"):
+        raise ValueError("a segment is rbf16 or bf16, not both")
+    return 2 if sg.get("bf16") else int(bool(sg.get("rbf16")))
+
+
+def _bf16_mode(segs: Sequence[dict]) -> bool:
+    """True when every segment is in the bf16 operand mode, False when none
+    is (the engine runs a launch in one of the two)."""
+    modes = {_operand_mode(sg) == 2 for sg in segs}
+    if len(modes) > 1:
+        raise ValueError("the bf16 operand mode takes every segment of a launch or none")
+    return modes == {True}
+
+
 def so2_products_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
-    """Plain version of `so2_products`: the same sums in the inputs' dtype
-    (a segment's "rbf16": both operands rounded to bf16 first)."""
+    """Plain version of `so2_products`: the same sums in float32 (a
+    segment's "rbf16": both operands rounded to bf16 first; "bf16": A's bf16
+    values times B rounded to bf16)."""
     rows = torch.arange(n_rows, device=problems[0]["segs"][0]["a"].device)
     live = eidx[:n_rows].long() if eidx is not None else rows
     for p in problems:
@@ -464,6 +487,8 @@ def so2_products_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> 
             b = sg["b"][:n, :sg["k"]].T if sg.get("btrans") else sg["b"][:sg["k"], :n]
             if sg.get("rbf16"):
                 a, b = round_bf16(a), round_bf16(b)
+            elif sg.get("bf16"):
+                a, b = a.float(), round_bf16(b)
             acc = acc + sg.get("sign", 1.0) * (a @ b)
         out = live if p.get("scatter") else rows
         epi = p.get("epi", "store")
@@ -489,7 +514,9 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
     card tensors, or the plain version on CPU tensors. A problem: "segs"
     (up to 4 dicts: "a" a 2-D view with rows of K, "b" [K, N] or, with
     "btrans", [N, K], "k", "sign" ±1, "rbf16" both operands rounded to bf16,
-    one TF32 pass), "n", "epi" ("store", "gates": c = acc
+    one TF32 pass, "bf16" the bf16 operand mode: "a" a bfloat16 view, B
+    rounded to bf16, bf16 wgmma; every segment of a call or none, K and the
+    rows' strides multiples of 8), "n", "epi" ("store", "gates": c = acc
     + bias and c2 = silu of it, "gated": c = v and c2 = v · gate[e] with v =
     acc (+ bias where given), gate may be c2), the 2-D output views "c" /
     "c2", "bias", "gate", and "gather" (A's row eidx[e]) / "scatter" (C's
@@ -504,6 +531,9 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
     if not 0 <= n_rows <= max_rows:
         raise ValueError(f"n_rows {n_rows} outside 0..{max_rows}")
     ev = _row_list(eidx, n_rows, dev)
+    b16 = _bf16_mode([sg for p in problems for sg in p["segs"]])
+    if b16 and persistent:
+        raise ValueError("the bf16 operand mode has no persistent launch")
     ints, ptrs, prep, keep = [], [], 0, []
     for p in problems:
         segs, n = p["segs"], p["n"]
@@ -527,12 +557,13 @@ def so2_products(problems: Sequence[dict], n_rows: int, eidx=None,
                 continue
             k = sg["k"]
             # A's rows come by TMA over max_rows unless gathered (then eidx's, the caller's)
-            a, lda = _rows(sg["a"], 0 if p.get("gather") else max_rows, k)
+            a, lda = _rows(sg["a"], 0 if p.get("gather") else max_rows, k,
+                           torch.bfloat16 if b16 else torch.float32)
             b, ldb = _rows(sg["b"], *((n, k) if sg.get("btrans") else (k, n)))
             if sg["a"].device != dev or sg["b"].device != dev:
                 raise ValueError(f"every tensor must be on {dev}")
             ints += [lda, ldb, k, int(bool(sg.get("btrans"))), int(sg.get("sign", 1)),
-                     int(bool(sg.get("rbf16")))]
+                     _operand_mode(sg)]
             ptrs += [a, b]
             prep += 2 * p["n"] * sg["k"]
     nr = torch.tensor([n_rows], dtype=torch.int32, device=dev)
@@ -582,19 +613,39 @@ def so2_live_rows(flags: torch.Tensor, seg: int):
     return eidx[:count], pos, rs, count
 
 
+def rows_bf16(xe: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
+    """xe [., EC] float32's rows eidx rounded to bf16, nearest-even: kernels
+    O and P's bf16-mode radial-product operand (`eqv2_rows16_kernel`) on
+    card tensors, else the plain version."""
+    if xe.dtype != torch.float32 or xe.dim() != 2 or xe.shape[1] % 8 or eidx.dim() != 1:
+        raise ValueError("xe: float32 [rows, EC] with EC a multiple of 8; eidx: [n]")
+    if xe.device.type == "cpu":
+        return xe[eidx.long()].bfloat16()
+    dev, n = xe.device, eidx.numel()
+    out = torch.empty(n, xe.shape[1], dtype=torch.bfloat16, device=dev)
+    xe, ev = xe.contiguous(), eidx.to(torch.int32).contiguous()
+    nr = torch.tensor([n], dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().eqv2_rows16_probe(xe.data_ptr(), ev.data_ptr(), nr.data_ptr(),
+                                       out.data_ptr(), n, xe.shape[1],
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.raise_on_error(err, "eqv2_rows16_probe")
+    return out
+
+
 def so2_wgrads_reference(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
-    """Plain version of `so2_wgrads` (a segment's "rbf16": both operands
-    rounded to bf16 first)."""
+    """Plain version of `so2_wgrads`, in float32 (a segment's "rbf16": both
+    operands rounded to bf16 first; "bf16": both bf16 values)."""
     rows = torch.arange(n_rows, device=problems[0]["out"].device)
     for p in problems:
         m, n, mode = p["m"], p["n"], p.get("amode", "rows")
         acc = 0
         for sg in p["segs"]:
-            b = sg["b"][rows, :n]
+            b = sg["b"][rows, :n].float()
             if mode == "ones":
                 term = b.sum(dim=0, keepdim=True)
             else:
-                a = sg["a"][eidx[:n_rows].long() if mode == "gather" else rows, :m]
+                a = sg["a"][eidx[:n_rows].long() if mode == "gather" else rows, :m].float()
                 if sg.get("rbf16"):
                     a, b = round_bf16(a), round_bf16(b)
                 term = a.T @ b
@@ -607,7 +658,9 @@ def so2_wgrads(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
     with the engine's weight-gradient path on card tensors (the same bits
     every run), or the plain version on CPU tensors. A problem: "segs" (1
     or 2 dicts: "a" and "b" 2-D views [rows, .], "sign" ±1, "rbf16" both
-    operands rounded to bf16, one TF32 pass), "amode"
+    operands rounded to bf16, one TF32 pass, "bf16" the bf16 operand mode:
+    "a" and "b" bfloat16 views with row strides multiples of 8, bf16 wgmma,
+    every matrix problem of a call or none, not gathered), "amode"
     ("rows", "gather": A's row eidx[e], "ones": A = 1 and m = 1), "m", "n"
     and the 2-D view "out"."""
     dev = problems[0]["out"].device
@@ -618,9 +671,14 @@ def so2_wgrads(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
     if not 0 <= n_rows <= max_rows:
         raise ValueError(f"n_rows {n_rows} outside 0..{max_rows}")
     ev = _row_list(eidx, n_rows, dev)
+    b16 = _bf16_mode([sg for p in problems if p.get("amode", "rows") != "ones"
+                      for sg in p["segs"]])
+    dt = torch.bfloat16 if b16 else torch.float32
     ints, ptrs = [], []
     for p in problems:
         segs, mode = p["segs"], p.get("amode", "rows")
+        if b16 and mode == "gather":
+            raise ValueError("the bf16 operand mode's weight gradients read rows in order")
         if not 1 <= len(segs) <= 2:
             raise ValueError(f"a weight-gradient problem takes 1 or 2 segments, got {len(segs)}")
         out, ldo = _rows(p["out"], p["m"], p["n"])
@@ -635,11 +693,11 @@ def so2_wgrads(problems: Sequence[dict], n_rows: int, eidx=None) -> None:
                 continue
             # B's rows (and A's unless gathered) come by TMA / cp.async over max_rows
             a, lda = (0, 0) if mode == "ones" else _rows(
-                sg["a"], 0 if mode == "gather" else max_rows, p["m"])
-            b, ldb = _rows(sg["b"], max_rows, p["n"])
+                sg["a"], 0 if mode == "gather" else max_rows, p["m"], dt)
+            b, ldb = _rows(sg["b"], max_rows, p["n"], torch.float32 if mode == "ones" else dt)
             if sg["b"].device != dev or (mode != "ones" and sg["a"].device != dev):
                 raise ValueError(f"every tensor must be on {dev}")
-            ints += [lda, ldb, int(sg.get("sign", 1)), int(bool(sg.get("rbf16")))]
+            ints += [lda, ldb, int(sg.get("sign", 1)), _operand_mode(sg)]
             ptrs += [a, b]
     lib = _lib()
     c_ints = (ctypes.c_int * len(ints))(*ints)

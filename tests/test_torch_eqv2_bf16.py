@@ -27,6 +27,14 @@ against the JAX package's, on the CPU.
   in bf16, torch in float32; the float32 gradients' largest gap 6.8e-2),
   each broken by the float32 model.
 * One flax tree drives both dtypes.
+* The product engine's plain versions in its two bf16 modes ("rbf16": both
+  float32 operands rounded; "bf16": A's bf16 values, B rounded, the mode
+  kernels O and P run their products in on the card), `so2_products_reference`
+  and `so2_wgrads_reference`, against JAX's `_mdot(a, b, True)`: a plain
+  product, a transposed and signed one over gathered rows, a weight gradient,
+  within float32 summation order (MDOT_REL x max); `rows_bf16`'s plain
+  version (xe's live rows as the bf16 mode's radial-product operand)
+  against JAX's astype(bfloat16) at ties.
 * The reference-compatible variant (m_share_rad=False, the published
   checkpoints') in bf16 against JAX's XLA path in bf16 at SMALL's widths:
   E and F within REF_E_REL / REF_F_REL, which the float32 model breaks; its
@@ -40,6 +48,7 @@ import pytest
 import torch
 
 import nabladft_tpu.ops.pallas.eqv2_attn as ak
+from nabladft_tpu.ops.pallas.escn_layer import _mdot
 from nabladft_tpu_torch.models import create_model
 from nabladft_tpu_torch.ops import eqv2_attn as ea
 from tests.test_torch_eqv2_attn import _inputs, _jax_mol, _jax_weights, _static, _torch
@@ -221,3 +230,50 @@ def test_reference_variant_bf16_matches_jax(ref_variant):
         err = np.abs(port[key] - jax_out["bfloat16"][key]).max()
         gap = np.abs(jax_out["float32"][key] - jax_out["bfloat16"][key]).max()
         assert err <= rel * scale < gap, (key, err / scale, gap / scale)
+
+
+MDOT_REL = 1e-6
+
+
+def _mdot_np(a, b) -> np.ndarray:
+    return np.asarray(_mdot(jnp.asarray(a), jnp.asarray(b), True))
+
+
+@pytest.mark.parametrize("mode", ["rbf16", "bf16"])
+def test_engine_references_match_jax_mdot(mode):
+    rng = np.random.default_rng(11)
+    rows, slots, k, n = 37, 50, 24, 16
+    a, b = rng.standard_normal((slots, k), np.float32), rng.standard_normal((k, n), np.float32)
+    bt = rng.standard_normal((n, k), np.float32)
+    eidx = np.sort(rng.choice(slots, rows, replace=False)).astype(np.int32)
+    at = torch.from_numpy(a).bfloat16() if mode == "bf16" else torch.from_numpy(a)
+    seg = {mode: True}
+    c, c2 = torch.zeros(rows, n), torch.zeros(rows, n)
+    ea.so2_products([dict(segs=[dict(a=at, b=torch.from_numpy(b), k=k, **seg)], n=n, c=c),
+                     dict(segs=[dict(a=at, b=torch.from_numpy(b), k=k, **seg),
+                                dict(a=at, b=torch.from_numpy(bt), k=k, btrans=True, sign=-1,
+                                     **seg)], n=n, c=c2, gather=True)],
+                    rows, torch.from_numpy(eidx))
+    want = _mdot_np(a[:rows], b)
+    want2 = _mdot_np(a[eidx], b) - _mdot_np(a[eidx], bt.T)
+    assert rel_max(c.numpy(), want) <= MDOT_REL
+    assert rel_max(c2.numpy(), want2) <= MDOT_REL
+    assert rel_max(c.numpy(), a[:rows] @ b) > 1e2 * MDOT_REL  # the rounding shows
+
+    m, g = 12, rng.standard_normal((slots, n), np.float32)
+    gt = torch.from_numpy(g).bfloat16() if mode == "bf16" else torch.from_numpy(g)
+    out = torch.zeros(m, n)
+    ea.so2_wgrads([dict(segs=[dict(a=at[:, :m], b=gt, **seg)], m=m, n=n, out=out)], rows)
+    assert rel_max(out.numpy(), _mdot_np(a[:rows, :m].T, g[:rows])) <= MDOT_REL
+
+
+def test_rows_bf16_rounds_as_jax_at_ties():
+    base = np.array([1.0, 1.5, -1.25, 3.0, 6.5e-3, -2.0e4], np.float32).view(np.int32)
+    ties = np.concatenate([(base + off).view(np.float32)
+                           for off in (0x8000, 0x18000, 0x7FFF, 0x8001, -0x8000)])
+    xe = np.tile(ties, 8)[:240].reshape(30, 8)
+    eidx = np.random.default_rng(5).permutation(30)[:21].astype(np.int32)
+    got = ea.rows_bf16(torch.from_numpy(xe), torch.from_numpy(eidx))
+    want = np.asarray(jnp.asarray(xe[eidx]).astype(jnp.bfloat16).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)

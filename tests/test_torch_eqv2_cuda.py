@@ -6,6 +6,10 @@ imports no JAX (tests/conftest.py does, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_eqv2_cuda.py
 
+The products' engine: float32 O and P run it in 3xTF32 (so2_mma_kernel,
+so2_mmw_kernel), bf16 ones (mxu_bf16) in its bf16 operand mode
+(so2_mma16_kernel, so2_mmw16_kernel), seen in a profile of one call each.
+
 Inputs come from chip_smoke.eqv2_kernel_inputs at the widths of
 configs/equiformer_v2.yaml (l_max 6, m_max 2, C 128, 8 heads × 16 value and
 64 alpha channels, 3 × 128 edge channels; idx, d and xe from the 12 Å /
@@ -130,6 +134,35 @@ def test_autograd_function_launches_o_and_p(card, smoke):
                            "eqv2_bwd_bf16": 0, "so2_products": 0, "so2_wgrads": 0}
     gx, gxi, gxe, *gws = ea.eqv2_bwd_reference(*_args(inp), g=inp["g"], **inp["dims"])
     _close([x.grad, xe.grad, *[w.grad for w in ws]], [gx + gxi, gxe, *gws])
+
+
+def _kernel_names(fn) -> dict:
+    """{kernel name: launches} of one call of fn (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [False, True])
+def test_products_run_on_the_mode_s_engine_kernels(card, smoke, mxu_bf16):
+    """O and P in the bf16 mode run their products and weight gradients on
+    the bf16 operand mode's kernels (bf16 wgmma) and none on the float32
+    engine's; in float32 the other way round."""
+    inp = smoke.eqv2_kernel_inputs(card, 2, 32, seed=9)
+    dims = dict(inp["dims"], mxu_bf16=mxu_bf16)
+    names = _kernel_names(lambda: (ea.eqv2_fwd(*_args(inp), **dims),
+                                   ea.eqv2_bwd(*_args(inp), g=inp["g"], **dims)))
+    has = {k: any(k + "<" in n or k + "(" in n for n in names)
+           for k in ("so2_mma16_kernel", "so2_mmw16_kernel", "so2_mma_kernel", "so2_mmw_kernel",
+                     "eqv2_rows16_kernel")}
+    assert has == {"so2_mma16_kernel": mxu_bf16, "so2_mmw16_kernel": mxu_bf16,
+                   "so2_mma_kernel": not mxu_bf16, "so2_mmw_kernel": not mxu_bf16,
+                   "eqv2_rows16_kernel": mxu_bf16}, names
 
 
 @pytest.mark.cuda

@@ -6,6 +6,17 @@ imports no JAX (tests/conftest.py does, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_so2_bf16_cuda.py
 
+* The engine's bf16 operand mode ("bf16" segments; so2_common.cuh's
+  so2_mma16_kernel / so2_mmw16_kernel, bf16 wgmma on bf16 operands, the
+  mode kernels O and P run in mxu_bf16): products (rows by TMA and gathered,
+  scattered, transposed and signed segments, K not a multiple of the stage's
+  64) and weight gradients (row splits whose last stage runs past the rows)
+  against float64 products of the same bf16 values within 2e-5 x max; the
+  same operands through the `rbf16` mode within 1e-6 x max (float32 sums in
+  another order: a bf16 x bf16 product is exact in float32); the same bits
+  twice; B rounded to bf16 in the prep at ties to the even value, and so
+  xe's live rows by eqv2_rows16_kernel (O's and P's other bf16 operands
+  are written with the same so2_common.cuh `bf16_rn`).
 * The engine's `rbf16` segments (so2_common.cuh: both operands rounded to
   bf16, nearest-even, one TF32 pass, float32 sums): products (gathered and
   scattered rows, transposed and signed segments, a launch mixing rounded and
@@ -15,7 +26,7 @@ imports no JAX (tests/conftest.py does, hence --noconftest):
   bf16 numbers round to the even one, exactly as torch rounds them.
 * Kernels M, N, O and P with mxu_bf16 on chip_smoke's inputs at the widths
   of configs/escn-oc.yaml and configs/equiformer_v2.yaml (two molecules at
-  A = 32 and 48) against their plain versions in the same mode, every
+  every bucket, A = 32, 48 and 64) against their plain versions in the same mode, every
   output within chip_smoke's BF16_SO2_FRO_REL (relative Frobenius) and
   BF16_SO2_MAX_REL x max (float32 sums in another order may flip a rounding,
   and later stages carry the flips), twice for the same bits, counted under
@@ -43,7 +54,7 @@ from nabladft_tpu_torch.ops import escn_layer as el
 
 REPO = Path(__file__).resolve().parent.parent
 REL = 2e-5
-SHAPES = [(2, 32), (2, 48)]
+SHAPES = [(2, 32), (2, 48), (2, 64)]
 
 
 @pytest.fixture()
@@ -151,6 +162,155 @@ def test_rounding_is_nearest_even_at_ties(card):
     torch.cuda.synchronize()
     assert torch.equal(c.cpu(), el.round_bf16(a))
     assert torch.equal(out[:16].cpu(), el.round_bf16(a))
+
+
+# ---------------------------------------------------------------------------
+# the engine's bf16 operand mode
+# ---------------------------------------------------------------------------
+
+
+def _products(card, rows, k, n, mode, seed):
+    """One launch of two problems: [A B - A2 Bt^T] over gathered rows (two
+    segments, one transposed and signed) and A B over rows in order by TMA,
+    scattered; returns (outputs, float64 of the same operands as the mode
+    rounds them)."""
+    rng = np.random.default_rng(seed)
+    slots = rows + 77
+    a, a2 = _rand(rng, slots, k), _rand(rng, slots, k)
+    b, bt = _rand(rng, k, n, scale=0.1), _rand(rng, n, k, scale=0.1)
+    eidx = torch.from_numpy(np.sort(rng.choice(slots, rows, replace=False)).astype(np.int32))
+    r = el.round_bf16
+    if mode == "bf16":
+        av, a2v = a.bfloat16().to(card), a2.bfloat16().to(card)
+        flag = {"bf16": True}
+    else:
+        av, a2v = a.to(card), a2.to(card)
+        flag = {"rbf16": True}
+    c, c2 = torch.zeros(slots, n, device=card), torch.zeros(slots, n, device=card)
+    bd, btd = b.to(card), bt.to(card)
+    probs = [dict(segs=[dict(a=av, b=bd, k=k, **flag),
+                        dict(a=a2v, b=btd, k=k, btrans=True, sign=-1, **flag)],
+                  n=n, c=c, gather=True),
+             dict(segs=[dict(a=av, b=bd, k=k, **flag)], n=n, c=c2, scatter=True)]
+    ea.so2_products(probs, rows, eidx.to(card))
+    torch.cuda.synchronize()
+    live, rows_ = eidx.long(), torch.arange(rows)
+    want = (r(a[live]).double() @ r(b).double() - r(a2[live]).double() @ r(bt).double().T)
+    want2 = r(a[rows_]).double() @ r(b).double()
+    return (c[:rows].cpu(), c2[eidx.long().to(card)].cpu()), (want, want2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", [(127, 96, 136), (5000, 104, 264), (9000, 1792, 256)])
+def test_bf16_operand_products_match_float64(card, rows, k, n):
+    got, want = _products(card, rows, k, n, "bf16", seed=rows)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= REL
+    again, _ = _products(card, rows, k, n, "bf16", seed=rows)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", [(5000, 104, 264), (9000, 1792, 256)])
+def test_bf16_operand_products_match_rbf16(card, rows, k, n):
+    """The same rounded operands through both modes: float32 sums in another
+    order."""
+    got, _ = _products(card, rows, k, n, "bf16", seed=rows + 1)
+    ref, _ = _products(card, rows, k, n, "rbf16", seed=rows + 1)
+    for g, w in zip(got, ref):
+        assert _rel(g, w) <= 1e-6
+
+
+def _wgrads(card, rows, m, n, mode, seed):
+    """Two problems over the same rows: A^T B - A2^T B2 (two segments) and
+    A^T B2; (outputs, float64 of the rounded operands)."""
+    rng = np.random.default_rng(seed)
+    slots = rows + 100
+    a, a2 = _rand(rng, slots, m), _rand(rng, slots, m)
+    bb, bb2 = _rand(rng, slots, n), _rand(rng, slots, n)
+    conv = (lambda t: t.bfloat16().to(card)) if mode == "bf16" else (lambda t: t.to(card))
+    flag = {"bf16": True} if mode == "bf16" else {"rbf16": True}
+    ad, a2d, bd, b2d = conv(a), conv(a2), conv(bb), conv(bb2)
+    out, out2 = torch.zeros(m, n, device=card), torch.zeros(m, n, device=card)
+    ea.so2_wgrads([dict(segs=[dict(a=ad, b=bd, **flag), dict(a=a2d, b=b2d, sign=-1, **flag)],
+                        m=m, n=n, out=out),
+                   dict(segs=[dict(a=ad, b=b2d, **flag)], m=m, n=n, out=out2)], rows)
+    torch.cuda.synchronize()
+    r, rw = el.round_bf16, torch.arange(rows)
+    want = (r(a[rw]).double().T @ r(bb[rw]).double()
+            - r(a2[rw]).double().T @ r(bb2[rw]).double())
+    want2 = r(a[rw]).double().T @ r(bb2[rw]).double()
+    return (out.cpu(), out2.cpu()), (want, want2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m,n", [(100, 72, 200), (9001, 72, 200), (60001, 256, 384)])
+def test_bf16_operand_wgrads_match_float64(card, rows, m, n):
+    """Row splits whose last stage holds fewer than 64 rows (the rows past
+    the split zeroed in shared memory; the slots past `rows` hold values)."""
+    got, want = _wgrads(card, rows, m, n, "bf16", seed=rows)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= REL
+    again, _ = _wgrads(card, rows, m, n, "bf16", seed=rows)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_operand_wgrads_match_rbf16(card):
+    got, _ = _wgrads(card, 20000, 136, 264, "bf16", seed=7)
+    ref, _ = _wgrads(card, 20000, 136, 264, "rbf16", seed=7)
+    for g, w in zip(got, ref):
+        assert _rel(g, w) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_bf16_operand_mode_rounds_b_to_even(card):
+    """B holds values halfway between two bf16 numbers (and their
+    neighbours); A is the identity in bf16, so C is B rounded, exactly."""
+    k = 64
+    base = torch.tensor([1.0, 1.5, -1.25, 3.0], dtype=torch.float32)
+    bits = base.view(torch.int32)
+    ties = [(bits + off).view(torch.float32) for off in (0x8000, 0x18000, 0x7FFF, 0x8001)]
+    b = torch.cat(ties).repeat(k).reshape(16, k)[:, :k].repeat(4, 1)  # [64, 64]
+    c = torch.zeros(k, k, device=card)
+    ea.so2_products([dict(segs=[dict(a=torch.eye(k).bfloat16().to(card), b=b.to(card), k=k,
+                                     bf16=True)], n=k, c=c)], k)
+    torch.cuda.synchronize()
+    assert torch.equal(c.cpu(), el.round_bf16(b))
+
+
+@pytest.mark.cuda
+def test_bf16_copies_round_to_even_at_ties(card):
+    """The kernels that write O's and P's bf16 operands round as torch does:
+    eqv2_rows16_kernel (xe's live rows, the radial product's A) on values
+    halfway between two bf16 numbers and their neighbours, gathered out of
+    order."""
+    base = torch.tensor([1.0, 1.5, -1.25, 3.0, 6.5e-3, -2.0e4], dtype=torch.float32)
+    bits = base.view(torch.int32)
+    ties = torch.cat([(bits + off).view(torch.float32)
+                      for off in (0x8000, 0x18000, 0x7FFF, 0x8001, -0x8000)])
+    xe = ties.repeat(16)[:384].reshape(48, 8).repeat(1, 48)  # [48, 384]: EquiformerV2's EC
+    eidx = torch.from_numpy(np.random.default_rng(3).permutation(48)[:40].astype(np.int32))
+    got = ea.rows_bf16(xe.to(card), eidx.to(card))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), xe[eidx.long()].bfloat16())
+    assert torch.equal(got.cpu(), ea.rows_bf16(xe, eidx))
+
+
+@pytest.mark.cuda
+def test_bf16_operand_mode_refuses_what_it_cannot_read(card):
+    a = torch.zeros(64, 12, dtype=torch.bfloat16, device=card)  # K 12: not a multiple of 8
+    c = torch.zeros(64, 16, device=card)
+    with pytest.raises(RuntimeError):
+        ea.so2_products([dict(segs=[dict(a=a, b=torch.zeros(12, 16, device=card), k=12,
+                                         bf16=True)], n=16, c=c)], 64)
+    with pytest.raises(ValueError):  # a float32 A in the bf16 mode
+        ea.so2_products([dict(segs=[dict(a=c, b=torch.zeros(16, 16, device=card), k=16,
+                                         bf16=True)], n=16, c=c)], 64)
+    with pytest.raises(ValueError):  # the modes mixed in one launch
+        ea.so2_products([dict(segs=[dict(a=a[:, :8], b=c[:8], k=8, bf16=True),
+                                    dict(a=c, b=c[:16], k=16)], n=16, c=c)], 64)
 
 
 # ---------------------------------------------------------------------------

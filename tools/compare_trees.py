@@ -34,15 +34,27 @@ then a summary line over the runs.
 
 `kernels`: one family's kernel lines of chip_smoke.py (painn, schnet, escn or eqv2: its `kernel_phases` or
 `schnet_kernel_phases`: each kernel against its plain version at A=32/48/64)
-per root; the last line gives each kernel's ms per bucket and root.
+per root; the last line gives each kernel's ms per bucket and root. With
+`--family eqv2_bf16`: kernels O and P in their bf16 mode (mxu_bf16) at
+B=64, A=48 on chip_smoke.py's seeded inputs, each root's kernels timed as
+chip_smoke.py times them, with their device ms by kernel and by step of the
+attention (this tree's `stage_times` / `step_times` and `EQV2_STEPS`, so a
+parent without them is split the same way).
+
+`direct`: EquiformerV2 in bf16 (`--family eqv2`, the default here) or eSCN
+(`escn`): each root's chip_smoke.py `direct_bf16_phase` (one train epoch,
+test, predict over the seeded DB, every check of that phase), one JSON line
+per root with its train and predict molecules/s and peak memory.
 
 `bits`: kernels A-P at A=48 on chip_smoke.py's seeded inputs (PaiNN,
 SchNet, eSCN and EquiformerV2 B=64, QHNet B=8, full widths; B, D, F and H
-with gW): each root saves every output under --out, and the last line says,
-per kernel, whether every root gave the first root's bits. The kernels named
-by --changed (those the roots compute differently by design) are run twice
-in each root instead, and must give the same bits there; every other kernel
-must give the first root's bits. The exit code is 1 where either fails.
+with gW), and A-H, M-P in their bf16 modes (A-H on the inputs rounded as
+chip_smoke.py's bf16 kernel rows round them, keys "A_bf16" ...): each root
+saves every output under --out, and the last line says, per kernel, whether
+every root gave the first root's bits. The kernels named by --changed (those
+the roots compute differently by design) are run twice in each root instead,
+and must give the same bits there; every other kernel must give the first
+root's bits. The exit code is 1 where either fails.
 
 Needs a CUDA card.
 """
@@ -139,6 +151,8 @@ def bits_child(root: Path, out: Path, changed: tuple) -> dict:
     """Kernels A-P's outputs at A=48 on chip_smoke's seeded inputs, saved to
     out/<n>.pt (n: this root's place in --roots); the `changed` kernels run
     twice, and the line says whether they gave the same bits."""
+    import importlib
+
     import torch
 
     cs = _import_root(root)
@@ -183,15 +197,96 @@ def bits_child(root: Path, out: Path, changed: tuple) -> dict:
     args, dims = cs._eqv2_args(inp), inp["dims"]
     run("O", ea.eqv2_fwd, *args, **dims)
     run("P", ea.eqv2_bwd, *args, g=inp["g"], **dims)
+    run("O_bf16", ea.eqv2_fwd, *args, **dict(dims, mxu_bf16=True))
+    run("P_bf16", ea.eqv2_bwd, *args, g=inp["g"], **dict(dims, mxu_bf16=True))
+    del inp, args
+    x = cs.escn_kernel_inputs(dev, cs.BATCH, a, seed=cs.SEED + 3000 + a)
+    args, dims = (x["x"], x["d"], x["xe"], *x["ws"]), x["dims"]
+    run("M_bf16", el.escn_fwd, *args, **dict(dims, mxu_bf16=True))
+    run("N_bf16", el.escn_bwd, *args, g=x["g"], **dict(dims, mxu_bf16=True))
+    del x, args
+    for fam, spec in cs.BF16_FAMILIES.items():  # as chip_smoke's kernel_bf16_bucket
+        mod = importlib.import_module(f"nabladft_tpu_torch.ops.{cs.FAMILIES[fam]['ops']}")
+        x = {k: t if k in spec["fp32"] else t.to(torch.bfloat16)
+             for k, t in spec["inputs"](dev, a).items()}
+        for key, n, names in zip(spec["kernels"], ("fwd", "bwd", "dual_fwd", "dual_bwd"),
+                                 spec["args"]):
+            run(f"{key}_bf16", getattr(mod, f"{fam}_{n}"), *[x[q] for q in names])
+        del x
     torch.save(res, out)
     return {"root": str(root), "saved": str(out), "same_bits_on_rerun": rerun, "shapes": {
         k: [list(t.shape) for t in v] for k, v in res.items()}}
+
+
+def _tool_smoke():
+    """This tree's chip_smoke.py, as a module of another name (its step
+    splitter for roots that lack it)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_tool", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def eqv2_bf16_child(root: Path) -> dict:
+    """Kernels O and P in their bf16 mode at B=BATCH, A=HEADLINE_A: ms,
+    device ms by kernel and by step."""
+    import torch
+
+    cs = _import_root(root)
+    tool = _tool_smoke()
+    from nabladft_tpu_torch.ops import _kernels
+    from nabladft_tpu_torch.ops import eqv2_attn as ea
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ptxas = cs.ptxas_summary(_kernels.build("eqv2_attn")["log"])
+    dev, a = torch.device("cuda"), cs.HEADLINE_A
+    inp = cs.eqv2_kernel_inputs(dev, cs.BATCH, a, seed=cs.SEED + 4000 + a, drop=True)
+    args, dims = cs._eqv2_args(inp), dict(inp["dims"], mxu_bf16=True)
+    out = {"root": str(root), "family": "eqv2_bf16", "shape": [cs.BATCH, a],
+           "ptxas": ptxas, "kernels": {}}
+    for k, fn, kw in (("O", ea.eqv2_fwd, dims), ("P", ea.eqv2_bwd, dict(dims, g=inp["g"]))):
+        def call(fn=fn, kw=kw):
+            return fn(*args, **kw)
+        t = cs.time_ms(call)
+        out["kernels"][k] = {"ms": t["median"], "times": t,
+                             "stages_ms": tool.stage_times(call, ()),
+                             "steps_ms": tool.step_times(call, (), tool.EQV2_STEPS)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def direct_child(root: Path, family: str) -> dict:
+    """The root's direct_bf16_phase for the family: its emitted line's rates
+    and peaks."""
+    import torch
+
+    cs = _import_root(root)
+    from nabladft_tpu_torch.data.synthetic import write_random_db
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    lines = {}
+    cs.emit = lambda phase, **fields: lines.__setitem__(phase, fields)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        db = write_random_db(tmp / "smoke.db", cs.N_MOLS, cs.MIN_ATOMS, cs.MAX_ATOMS, cs.SEED)
+        cs.direct_bf16_phase(tmp, db, family)
+    line = lines[f"{family}_bf16"]
+    return {"root": str(root), "family": family, "seconds": time.perf_counter() - t0,
+            **{k: line[k] for k in ("train_molecules_per_second", "predict_molecules_per_second",
+                                    "peak_device_memory_bytes", "device_busy_share")}}
 
 
 def kernels_child(root: Path, family: str) -> dict:
     """The family's kernel lines of chip_smoke.py at every bucket."""
     import torch
 
+    if family == "eqv2_bf16":
+        return eqv2_bf16_child(root)
     cs = _import_root(root)
     from nabladft_tpu_torch.ops import _kernels
 
@@ -344,9 +439,10 @@ def _same_bits(files: list) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("steps", "kernels", "bits"))
-    ap.add_argument("--family", choices=tuple(FAMILIES), default="painn",
-                    help="steps, kernels: the model family")
+    ap.add_argument("mode", choices=("steps", "kernels", "bits", "direct"))
+    ap.add_argument("--family", choices=tuple(FAMILIES) + ("eqv2_bf16",), default=None,
+                    help="steps, kernels: the model family (painn by default); direct: "
+                         "eqv2 (the default) or escn; kernels also eqv2_bf16")
     ap.add_argument("--roots", nargs="+", help="checkouts to run, in this order")
     ap.add_argument("--out", default=None,
                     help="steps: also write the JSON lines here; bits: the directory of "
@@ -357,10 +453,17 @@ def main() -> int:
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--save", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.family is None:
+        args.family = "eqv2" if args.mode == "direct" else "painn"
+    if ((args.family == "eqv2_bf16" and args.mode != "kernels")
+            or (args.mode == "direct" and args.family not in ("eqv2", "escn"))):
+        ap.error(f"{args.mode} takes no family {args.family}")
     if args.child:
         root = Path(args.child)
         if args.mode == "bits":
             res = bits_child(root, Path(args.save), tuple(args.changed))
+        elif args.mode == "direct":
+            res = direct_child(root, args.family)
         elif args.mode == "kernels":
             res = kernels_child(root, args.family)
         else:
@@ -395,6 +498,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(lines) + "\n")
     runs = [json.loads(x) for x in lines]
+    if args.mode == "direct" or args.family == "eqv2_bf16":
+        return 0
     if args.mode == "kernels":
         ms = {k: {r["root"]: {b["a"]: [b["ms"], b.get("ms_without_gw")] for b in r["kernels"][k]}
                   for r in runs} for k in runs[0]["kernels"]}
